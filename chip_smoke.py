@@ -11,14 +11,25 @@ Phases, each of which fails the run on error:
 2. K1 ``raycast_walls`` against its plain PyTorch version at the main path's shapes
    (canonical 16-track pool gathered to 4096 envs, 11 rays, 896 segments), plus the
    all-miss/padding case: hit/no-hit identical, distances bitwise equal except
-   near-ties within 2 ulp; kernel time (CUDA events), bound and plain time;
+   near-ties within 2 ulp; kernel time (CUDA events around a CUDA graph of 20
+   launches, and around 10 eager launches), bound and plain time;
 3. K2 ``progress_and_collision`` against its plain version at [4096, 5, 512]:
    index, progress and crashed equal; the same timings;
-4. the main path: ``models/single_agent.npz`` driving 4096 envs for 256 steps of
+4. K6 ``compute_gae`` against its plain version at [256, 4096] on a seeded
+   rollout-like batch, plus the all-done and no-done cases: bitwise equal;
+5. K7 ``mixbits_permutation`` against its plain version for 10 epochs x 16,384
+   units: exactly equal, and a permutation;
+6. the main path: ``models/single_agent.npz`` driving 4096 envs for 256 steps of
    sample_action + vector.step, with launch counters zeroed before and read after
    (each kernel must have launched once per step, plus K1 once for the reset);
-5. evaluation on the 40 x 5 grid (sampled, seed 42): success_rate >= 0.95;
-6. serving latency and throughput at batches 1, 64, 1024, 8192.
+7. the training path: ``PPOTrainer`` at the bench width (the canonical pool
+   gathered to 4096 envs, 256 steps, batch 1,048,576): one warm-up update, then
+   timed updates with the counters zeroed before and read after (K1 = K2 = 256, K6
+   = K7 = 1 per update), finite losses and moved parameters;
+8. the ``train single`` entry point at its defaults (16 envs x 2048 steps) for two
+   updates in a temporary directory; the saved policy must load;
+9. evaluation on the 40 x 5 grid (sampled, seed 42): success_rate >= 0.95;
+10. serving latency and throughput at batches 1, 64, 1024, 8192.
 
 The line before the last is one JSON object with every kernel's numbers; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -26,22 +37,31 @@ line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from self_play_racing_tpu_torch import interop
+from self_play_racing_tpu_torch import train as ttrain
+from self_play_racing_tpu_torch.agent import ppo
+from self_play_racing_tpu_torch.agent.trainer import PPOTrainer
+from self_play_racing_tpu_torch.configs import base_config
 from self_play_racing_tpu_torch.envs import single as senv
 from self_play_racing_tpu_torch.envs import track as trk
 from self_play_racing_tpu_torch.envs import vector
 from self_play_racing_tpu_torch.evaluate import evaluate_single_agent_overall
+from self_play_racing_tpu_torch.evaluate import load_policy_bundle
 from self_play_racing_tpu_torch.models import actor_critic as net
 from self_play_racing_tpu_torch.ops import _cuda
+from self_play_racing_tpu_torch.ops import gae
 from self_play_racing_tpu_torch.ops import geometry as geo
+from self_play_racing_tpu_torch.ops import prng
 from self_play_racing_tpu_torch.serve import Policy, bench
 from self_play_racing_tpu_torch.utils import metrics
 from self_play_racing_tpu_torch.utils.profiling import canonical_bench_pool
@@ -58,6 +78,11 @@ PEAK_F32_OPS_PER_S = 67e12
 K1_OPS_PER_PAIR = 26
 # per query-waypoint pair in K2: dx, dy 2, d^2 3, compare 1, projection 3, selects 2
 K2_OPS_PER_PAIR = 11
+# per sample in K6: nt = 1 - done, g*nt, *v_next, +r, -v, gl*nt, *carry, +delta, +v
+K6_OPS_PER_SAMPLE = 9
+# per index in K7: four rounds of or, multiply, add, and, shift, xor
+K7_OPS_PER_INDEX = 24
+TRAIN_UPDATES = 3
 SUCCESS_FLOOR = 0.95
 
 
@@ -80,6 +105,31 @@ def per_launch_ms(fn, windows=21, launches=10) -> float:
         start.record()
         for _ in range(launches):
             fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
+def graph_ms(fn, windows=21, launches=20) -> float:
+    """Median over ``windows`` of the per-launch device time of ``launches`` calls
+    captured in one CUDA graph and replayed (CUDA events around each replay), so no
+    host launch overhead sits between the launches: the kernel's own time even
+    where a launch from Python costs more than the kernel."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / launches)
@@ -153,13 +203,13 @@ def check_k1(track, cfg, rng, dev):
 
     out = torch.empty_like(k)
     rows, r, s = NUM_ENVS, world.shape[1], segs[0].shape[-1]
-    ms = per_launch_ms(lambda: _cuda.launch_raycast_walls(
-        *rays, *segs, seg_c, out, rows, r, s, max_dist))
+    launch = lambda: _cuda.launch_raycast_walls(*rays, *segs, seg_c, out, rows, r, s, max_dist)
+    ms, eager_ms = graph_ms(launch), per_launch_ms(launch)
     plain_ms = per_launch_ms(lambda: geo.raycast_walls_plain(*rays, *segs, max_dist, seg_c=seg_c),
                              windows=3, launches=2)
     b_ms, b_by = bound_ms(nbytes(*rays, *segs, seg_c, out), rows * r * s * K1_OPS_PER_PAIR)
-    print(f"K1 time {ms * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by}), "
-          f"plain {plain_ms * 1e3:.1f} us")
+    print(f"K1 time {ms * 1e3:.1f} us (eager back-to-back {eager_ms * 1e3:.1f} us), "
+          f"bound {b_ms * 1e3:.1f} us ({b_by}), plain {plain_ms * 1e3:.1f} us")
     return {"name": "raycast_walls", "route": "cuda",
             "source": "self_play_racing_tpu_torch/csrc/raycast_walls.cu",
             "replaces": "self_play_racing_tpu/ops/geometry.py:26",
@@ -184,19 +234,109 @@ def check_k2(track, cfg, rng, dev):
     progress = torch.empty_like(kp)
     crashed = torch.empty_like(kc)
     w = track.wp_x.shape[-1]
-    ms = per_launch_ms(lambda: _cuda.launch_progress_and_collision(
-        *args, progress, crashed, NUM_ENVS, cx.shape[-1], w))
+    launch = lambda: _cuda.launch_progress_and_collision(
+        *args, progress, crashed, NUM_ENVS, cx.shape[-1], w)
+    ms, eager_ms = graph_ms(launch), per_launch_ms(launch)
     plain_ms = per_launch_ms(lambda: geo.progress_and_collision_plain(*args), windows=3, launches=5)
     b_ms, b_by = bound_ms(nbytes(x, y, cx, cy, track.wp_x, track.wp_y, track.nrm_x, track.nrm_y,
                                  track.n_wp, track.track_width, progress, crashed),
                           NUM_ENVS * (1 + cx.shape[-1]) * w * K2_OPS_PER_PAIR)
-    print(f"K2 time {ms * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by}), "
-          f"plain {plain_ms * 1e3:.1f} us")
+    print(f"K2 time {ms * 1e3:.1f} us (eager back-to-back {eager_ms * 1e3:.1f} us), "
+          f"bound {b_ms * 1e3:.1f} us ({b_by}), plain {plain_ms * 1e3:.1f} us")
     return {"name": "progress_and_collision", "route": "cuda",
             "source": "self_play_racing_tpu_torch/csrc/progress_collision.cu",
             "replaces": "self_play_racing_tpu/ops/geometry.py:176",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None}
+
+
+def check_k6(dev):
+    """K6 on a rollout-like batch: small progress rewards with rare crash penalties,
+    values around the returns' scale, ~1/300 of steps ending an episode."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    shape = (STEPS, NUM_ENVS)
+    rewards = torch.rand(shape, generator=gen, device=dev) * 2.0
+    crash = torch.rand(shape, generator=gen, device=dev) < 1 / 300
+    rewards = torch.where(crash, rewards - 60.0, rewards)
+    values = torch.randn(shape, generator=gen, device=dev) * 10.0 + 20.0
+    next_value = torch.randn((NUM_ENVS,), generator=gen, device=dev) * 10.0 + 20.0
+    cases = {"rollout-like": (crash, torch.rand((NUM_ENVS,), generator=gen, device=dev) < 1 / 300),
+             "all-done": (torch.ones_like(crash), torch.ones_like(crash[0])),
+             "no-done": (torch.zeros_like(crash), torch.zeros_like(crash[0]))}
+    max_err = 0.0
+    for name, (dones, next_done) in cases.items():
+        args = (rewards, dones, values, next_value, next_done, 0.99, 0.95)
+        ka, kr = gae.compute_gae(*args)
+        pa, pr = gae.compute_gae_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(ka, pa) and torch.equal(kr, pr)):
+            raise AssertionError(f"K6 {name}: {int((ka != pa).sum())} advantages and "
+                                 f"{int((kr != pr).sum())} returns differ from plain")
+        max_err = max(max_err, float((ka - pa).abs().max()), float((kr - pr).abs().max()))
+    print(f"K6 compute_gae [{STEPS}, {NUM_ENVS}]: advantages and returns bitwise equal to "
+          f"plain ({', '.join(cases)}; {int(crash.sum())} terminal steps)")
+    dones, next_done = cases["rollout-like"]
+    adv, ret = torch.empty_like(rewards), torch.empty_like(rewards)
+    g, gl = float(np.float32(0.99)), float(np.float32(0.99 * 0.95))
+    launch = lambda: _cuda.launch_compute_gae(
+        rewards, dones, values, next_value, next_done, adv, ret, STEPS, NUM_ENVS, g, gl)
+    ms, eager_ms = graph_ms(launch), per_launch_ms(launch)
+    plain_ms = per_launch_ms(lambda: gae.compute_gae_plain(
+        rewards, dones, values, next_value, next_done, 0.99, 0.95), windows=3, launches=2)
+    b_ms, b_by = bound_ms(nbytes(rewards, dones, values, next_value, next_done, adv, ret),
+                          STEPS * NUM_ENVS * K6_OPS_PER_SAMPLE)
+    print(f"K6 time {ms * 1e3:.1f} us (eager back-to-back {eager_ms * 1e3:.1f} us), "
+          f"bound {b_ms * 1e3:.1f} us ({b_by}), plain {plain_ms * 1e3:.1f} us")
+    return {"name": "compute_gae", "route": "cuda",
+            "source": "self_play_racing_tpu_torch/csrc/gae.cu",
+            "replaces": "self_play_racing_tpu/ops/gae.py:24",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
+
+
+def check_k7(dev, n_units):
+    """K7 for every epoch of one update at the bench width."""
+    epochs = base_config().update_epochs
+    gen = torch.Generator(device=dev).manual_seed(7)
+    consts = prng.draw_constants((epochs, 1), gen, device=dev)
+    k = prng.mixbits_permutation(consts, n_units)
+    p = prng.mixbits_permutation_plain(consts, n_units)
+    torch.cuda.synchronize()
+    if not torch.equal(k, p):
+        raise AssertionError(f"K7: {int((k != p).sum())} indices differ from plain")
+    arange = torch.arange(n_units, dtype=torch.int32, device=dev)
+    if not torch.equal(torch.sort(k, dim=-1).values, arange.expand(k.shape)):
+        raise AssertionError("K7: an output is not a permutation")
+    print(f"K7 mixbits_permutation [{epochs}, 1, {n_units}]: equal to plain, "
+          f"each row a permutation")
+    out = torch.empty_like(k)
+    log2_n = n_units.bit_length() - 1
+    launch = lambda: _cuda.launch_mixbits_permutation(consts, out, epochs, log2_n)
+    ms, eager_ms = graph_ms(launch), per_launch_ms(launch)
+    plain_ms = per_launch_ms(lambda: prng.mixbits_permutation_plain(consts, n_units),
+                             windows=5, launches=5)
+    b_ms, b_by = bound_ms(nbytes(consts, out), epochs * n_units * K7_OPS_PER_INDEX)
+    print(f"K7 time {ms * 1e3:.2f} us (eager back-to-back {eager_ms * 1e3:.2f} us), "
+          f"bound {b_ms * 1e3:.2f} us ({b_by}), plain {plain_ms * 1e3:.1f} us")
+    return {"name": "mixbits_permutation", "route": "cuda",
+            "source": "self_play_racing_tpu_torch/csrc/mixbits_permutation.cu",
+            "replaces": "self_play_racing_tpu/ops/prng.py:21",
+            "max_abs_err": float((k - p).abs().max()), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def zero_counts():
+    geo.raycast_walls_launches = 0
+    geo.progress_and_collision_launches = 0
+    gae.compute_gae_launches = 0
+    prng.mixbits_permutation_launches = 0
+
+
+def read_counts():
+    return {"raycast_walls": geo.raycast_walls_launches,
+            "progress_and_collision": geo.progress_and_collision_launches,
+            "compute_gae": gae.compute_gae_launches,
+            "mixbits_permutation": prng.mixbits_permutation_launches}
 
 
 def rollout(params, log_std, cfg, track, vstate, obs, gen, steps):
@@ -230,17 +370,16 @@ def main_path(track, cfg, dev, card):
     rollout(params, log_std, cfg, track, vector.init(state, NUM_ENVS), obs, gen, 8)
     torch.cuda.synchronize()
 
-    geo.raycast_walls_launches = 0
-    geo.progress_and_collision_launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     state, obs = senv.reset(cfg, track)
     vstate, obs, finite, ended = rollout(params, log_std, cfg, track,
                                          vector.init(state, NUM_ENVS), obs, gen, STEPS)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"raycast_walls": geo.raycast_walls_launches,
-                "progress_and_collision": geo.progress_and_collision_launches}
-    expected = {"raycast_walls": STEPS + 1, "progress_and_collision": STEPS}
+    launches = read_counts()
+    expected = {"raycast_walls": STEPS + 1, "progress_and_collision": STEPS,
+                "compute_gae": 0, "mixbits_permutation": 0}
     print(f"main path: {NUM_ENVS} envs x {STEPS} steps in {dt:.3f} s = "
           f"{NUM_ENVS * STEPS / dt:,.0f} env-steps/s on {card}; launches {launches}")
     if launches != expected:
@@ -250,6 +389,92 @@ def main_path(track, cfg, dev, card):
     print(f"main path: obs {tuple(obs.shape)} and rewards finite; {int(ended)} episodes "
           f"ended in the run")
     return launches
+
+
+def training(track, env_cfg, card):
+    """The trainer at the bench width; returns its launch counts."""
+    cfg = base_config(num_envs=NUM_ENVS, num_steps=STEPS,
+                      total_timesteps=NUM_ENVS * STEPS * 100)
+    t0 = time.perf_counter()
+    trainer = PPOTrainer(cfg, env_cfg, track)
+    metrics, update_s = [], []
+    run_update = ppo.run_ppo_update
+
+    def timed_update(*args):
+        # the phase split: GAE, permutations and the rollout before this call, the
+        # minibatch loop inside it
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run_update(*args)
+        torch.cuda.synchronize()
+        update_s.append(time.perf_counter() - t)
+        return out
+
+    ppo.run_ppo_update = timed_update
+    try:
+        trainer.train(num_updates=1, on_update=lambda tr, m: metrics.append(m))
+        torch.cuda.synchronize()
+        print(f"train: trainer built and warm-up update in {time.perf_counter() - t0:.1f} s "
+              f"({metrics[0]['minibatches_applied']:.0f} minibatches applied)")
+        before = [p.detach().clone() for p in trainer.runner.train.model.parameters()]
+        zero_counts()
+        wall = []
+        for _ in range(TRAIN_UPDATES):
+            t = time.perf_counter()
+            trainer.train(num_updates=1, on_update=lambda tr, m: metrics.append(m))
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t)
+        launches = read_counts()
+    finally:
+        ppo.run_ppo_update = run_update
+    for i, (dt, up, m) in enumerate(zip(wall, update_s[1:], metrics[1:])):
+        print(f"train update {i + 1}: {dt * 1e3:.1f} ms = {cfg.batch_size / dt:,.0f} env-steps/s; "
+              f"rollout + GAE + permutations {(dt - up) * 1e3:.1f} ms, minibatch loop "
+              f"{up * 1e3:.1f} ms; minibatches_applied {m['minibatches_applied']:.0f}, "
+              f"kl_stopped {m['kl_stopped']:.0f}, approx_kl {m['approx_kl']:.5f}, "
+              f"host reads of the KL flag {int(m['minibatches_applied'] + m['kl_stopped'])}; "
+              f"pg_loss {m['pg_loss']:.5f} v_loss {m['v_loss']:.3f} "
+              f"episodes {m['episodes']:.0f} mean_ep_return {m['mean_ep_return']:.2f}")
+    print(f"train: median {statistics.median(wall) * 1e3:.1f} ms/update at {NUM_ENVS} x {STEPS} "
+          f"on {card}; launches {launches}")
+    expected = {"raycast_walls": STEPS * TRAIN_UPDATES,
+                "progress_and_collision": STEPS * TRAIN_UPDATES,
+                "compute_gae": TRAIN_UPDATES, "mixbits_permutation": TRAIN_UPDATES}
+    if launches != expected:
+        raise AssertionError(f"training launches {launches}, expected {expected}")
+    for m in metrics:
+        if not all(np.isfinite(m[k]) for k in ("pg_loss", "v_loss", "mean_reward", "approx_kl")):
+            raise AssertionError(f"training: non-finite metrics {m}")
+    after = list(trainer.runner.train.model.parameters())
+    if all(torch.equal(a, b) for a, b in zip(after, before)):
+        raise AssertionError("training: the timed updates left every parameter unchanged")
+    return launches
+
+
+def entry_point(card):
+    """``train single`` at its defaults for two updates, in a temporary directory."""
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            zero_counts()
+            t0 = time.perf_counter()
+            trainer = ttrain.main(["single", "--num-updates", "2"])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = read_counts()
+            params, log_std, _ = load_policy_bundle("models/single_agent.npz")
+        finally:
+            os.chdir(cwd)
+    cfg = trainer.cfg
+    print(f"train single: {cfg.num_envs} envs x {cfg.num_steps} steps, 2 updates in "
+          f"{dt:.1f} s on {card}; launches {launches}; saved policy loads "
+          f"({len(params['actor'])} layers per tower, log_std {log_std.tolist()})")
+    steps = 2 * cfg.num_steps
+    expected = {"raycast_walls": steps + 1, "progress_and_collision": steps,
+                "compute_gae": 2, "mixbits_permutation": 2}
+    if launches != expected:
+        raise AssertionError(f"train single launches {launches}, expected {expected}")
 
 
 def evaluation(dev):
@@ -285,10 +510,15 @@ def main() -> int:
     track = trk.gather_tracks(pool, np.arange(NUM_ENVS) % NUM_TRACKS)
     if (track.wp_x.shape[-1], track.seg_sx.shape[-1]) != (512, 896):
         raise AssertionError("canonical pool is not W=512, S=896")
-    kernels = [check_k1(track, cfg, rng, dev), check_k2(track, cfg, rng, dev)]
+    _, n_units, _ = ppo.minibatch_layout(base_config(num_envs=NUM_ENVS, num_steps=STEPS))
+    kernels = [check_k1(track, cfg, rng, dev), check_k2(track, cfg, rng, dev),
+               check_k6(dev), check_k7(dev, n_units)]
     launches = main_path(track, cfg, dev, card)
+    launches.update({k: v for k, v in training(track, cfg, card).items()
+                     if k in ("compute_gae", "mixbits_permutation")})
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    entry_point(card)
     evaluation(dev)
     bench(Policy(MODEL, device=dev))
     print(f"card: {card}")

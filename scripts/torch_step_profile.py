@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Where one env-step of the PyTorch port's main path spends its time, on the card.
+"""Where one env-step of the PyTorch port's main path, and one minibatch of its PPO
+update, spend their time, on the card.
 
   python scripts/torch_step_profile.py [--steps 32] [--num-envs 4096]
+  python scripts/torch_step_profile.py --update [--num-envs 4096]
 
 Runs chip_smoke.py's main path (``models/single_agent.npz``, canonical 16-track
 pool gathered to ``--num-envs`` envs, ``sample_action`` + ``vector.step``) under
@@ -11,6 +13,13 @@ durations in a second, profiled run; kernels of one stream do not overlap), the
 device's idle share against the unprofiled wall time, kernel launches per step,
 and the kernels that take the most device time. Needs a CUDA
 card; prints the card's name and power limit with the numbers.
+
+With ``--update`` it profiles the trainer instead (``base_config`` at
+``--num-envs`` x 256 steps on the same pool): after a warm-up update, one update
+unprofiled for the wall time of its minibatch loop (``run_ppo_update``) and of the
+rest (rollout, GAE, permutations), then the minibatch loop of a second update under
+the profiler, reported per computed minibatch, with the host operators that take
+the most host time.
 """
 from __future__ import annotations
 
@@ -28,10 +37,86 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
 from self_play_racing_tpu_torch import interop  # noqa: E402
+from self_play_racing_tpu_torch.agent import ppo  # noqa: E402
+from self_play_racing_tpu_torch.agent.trainer import PPOTrainer  # noqa: E402
+from self_play_racing_tpu_torch.configs import base_config  # noqa: E402
 from self_play_racing_tpu_torch.envs import single as senv  # noqa: E402
 from self_play_racing_tpu_torch.envs import track as trk  # noqa: E402
 from self_play_racing_tpu_torch.envs import vector  # noqa: E402
 from self_play_racing_tpu_torch.utils.profiling import canonical_bench_pool  # noqa: E402
+
+
+def _device_kernels(prof):
+    per_kernel = collections.defaultdict(lambda: [0.0, 0])
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            per_kernel[evt.name][0] += evt.time_range.elapsed_us()
+            per_kernel[evt.name][1] += 1
+    return per_kernel
+
+
+def profile_update(args, dev) -> dict:
+    cfg = base_config(num_envs=args.num_envs, num_steps=256,
+                      total_timesteps=args.num_envs * 256 * 100)
+    pool = canonical_bench_pool(16, device=dev)
+    track = trk.gather_tracks(pool, np.arange(args.num_envs) % 16)
+    trainer = PPOTrainer(cfg, senv.RacingConfig(num_sensors=11), track)
+    trainer.train(num_updates=1)  # warm-up
+    run_update = ppo.run_ppo_update
+    seen = {}
+
+    def timed(*a, profile=False):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if profile:
+            activities = [torch.profiler.ProfilerActivity.CPU,
+                          torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=activities) as prof:
+                out = run_update(*a)
+                torch.cuda.synchronize()
+            seen["prof"] = prof
+        else:
+            out = run_update(*a)
+            torch.cuda.synchronize()
+        seen["loop_s"] = time.perf_counter() - t
+        seen["minibatches"] = int(out[2]["computed"].sum())
+        return out
+
+    try:
+        ppo.run_ppo_update = timed
+        t0 = time.perf_counter()
+        trainer.train(num_updates=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        loop_s, mbs = seen["loop_s"], seen["minibatches"]
+        ppo.run_ppo_update = lambda *a: timed(*a, profile=True)
+        trainer.train(num_updates=1)
+    finally:
+        ppo.run_ppo_update = run_update
+    prof, n = seen["prof"], seen["minibatches"]
+    per_kernel = _device_kernels(prof)
+    busy_us = sum(t for t, _ in per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[: args.top]
+    host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)[: args.top]
+    return {
+        "card": chip_smoke.card_line(),
+        "num_envs": args.num_envs,
+        "update_wall_ms": wall * 1e3,
+        "rollout_gae_perms_ms": (wall - loop_s) * 1e3,
+        "minibatch_loop_ms": loop_s * 1e3,
+        "minibatches": mbs,
+        "wall_ms_per_minibatch": loop_s * 1e3 / mbs,
+        "profiled_minibatches": n,
+        "profiled_wall_ms_per_minibatch": seen["loop_s"] * 1e3 / n,
+        "device_busy_ms_per_minibatch": busy_us / 1e3 / n,
+        "device_idle_share": (1.0 - (busy_us / 1e6 / n) / (loop_s / mbs)) if busy_us else None,
+        "kernel_launches_per_minibatch": sum(c for _, c in per_kernel.values()) / n,
+        "top_kernels": [{"name": name[:90], "ms_per_minibatch": t / 1e3 / n,
+                         "launches_per_minibatch": c / n} for name, (t, c) in top],
+        "top_host_ops": [{"name": e.key[:60], "host_ms_per_minibatch": e.self_cpu_time_total / 1e3 / n,
+                          "calls_per_minibatch": e.count / n} for e in host],
+    }
 
 
 @torch.no_grad()
@@ -40,11 +125,16 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=32)
     p.add_argument("--num-envs", type=int, default=4096)
     p.add_argument("--top", type=int, default=15)
+    p.add_argument("--update", action="store_true",
+                   help="profile the PPO update's minibatch loop instead of an env step")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_step_profile: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    if args.update:
+        print(json.dumps(profile_update(args, dev), indent=1))
+        return 0
     cfg = senv.RacingConfig(num_sensors=11)
     pool = canonical_bench_pool(16, device=dev)
     track = trk.gather_tracks(pool, np.arange(args.num_envs) % 16)
@@ -67,11 +157,7 @@ def main(argv=None) -> int:
         chip_smoke.rollout(params, log_std, cfg, track, vstate, obs, gen, args.steps)
         torch.cuda.synchronize()
 
-    per_kernel = collections.defaultdict(lambda: [0.0, 0])
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            per_kernel[evt.name][0] += evt.time_range.elapsed_us()
-            per_kernel[evt.name][1] += 1
+    per_kernel = _device_kernels(prof)
     busy_us = sum(t for t, _ in per_kernel.values())
     launches = sum(n for _, n in per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[: args.top]

@@ -7,6 +7,10 @@
 - ``load_npz`` reads the repo's ``.npz`` policy format: flat ``p0..p{4L-1}``,
   ``log_std`` and, for policies trained with observation normalization,
   ``obs_mean``/``obs_var``/``obs_count``.
+- ``train_state_from_jax`` builds the learner's ``TrainState`` from the JAX
+  package's parameters and optax state (``(EmptyState(), ScaleByAdamState(count,
+  mu, nu))``, moments in the parameters' pytree layout) given as numpy arrays;
+  ``train_state_to_numpy`` goes the other way.
 """
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .agent.ppo import AdamState, TrainState
 from .envs.normalize import ObsNormState
 from .models.actor_critic import ActorCritic
 
@@ -25,19 +30,24 @@ def _flat_leaves(flat_or_pytree):
     return list(flat_or_pytree)
 
 
+def _pytree(leaves):
+    """Flat leaves in tree order -> the JAX package's ``{"actor": [(w, b), ...],
+    "critic": [...]}`` layout."""
+    pairs = [(leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2)]
+    return {"actor": pairs[: len(pairs) // 2], "critic": pairs[len(pairs) // 2:]}
+
+
 def params_from_jax(flat_or_pytree, log_std, dtype=torch.float32,
                     device=None) -> ActorCritic:
     """The port's actor-critic holding the JAX package's parameters."""
     dev = resolve_device(device)
-    leaves = [torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+    # copies: the model's parameters are trained in place
+    leaves = [torch.tensor(np.asarray(a), dtype=dtype, device=dev)
               for a in _flat_leaves(flat_or_pytree)]
     if len(leaves) % 4:
         raise ValueError(f"{len(leaves)} parameter arrays is not 2 towers of (w, b) layers")
-    half = len(leaves) // 2
-    pairs = [(leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2)]
-    params = {"actor": pairs[: half // 2], "critic": pairs[half // 2:]}
-    return ActorCritic(params, torch.as_tensor(np.asarray(log_std), dtype=dtype,
-                                               device=dev))
+    return ActorCritic(_pytree(leaves), torch.as_tensor(np.asarray(log_std), dtype=dtype,
+                                                        device=dev))
 
 
 def load_npz(path, dtype=torch.float32, device=None):
@@ -53,3 +63,36 @@ def load_npz(path, dtype=torch.float32, device=None):
                 **{k: torch.as_tensor(data[f"obs_{k}"], device=dev)
                    for k in ("mean", "var", "count")})
     return model, obs_norm
+
+
+def train_state_from_jax(params, opt_state, update, dtype=torch.float32,
+                         device=None) -> TrainState:
+    """The port's ``TrainState`` from JAX's params (pytree or flat leaves), the
+    optax chain state (any sequence holding one state with ``count``/``mu``/``nu``)
+    and the update index, all as numpy arrays."""
+    dev = resolve_device(device)
+    adam = next(s for s in opt_state if hasattr(s, "mu"))
+    leaves = _flat_leaves(params)
+    action_dim = np.asarray(leaves[len(leaves) // 2 - 1]).shape[-1]
+    model = params_from_jax(leaves, np.zeros((action_dim,)), dtype=dtype, device=dev)
+
+    def moments(tree):
+        return [torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+                for a in _flat_leaves(tree)]
+
+    return TrainState(model=model,
+                      opt_state=AdamState(count=int(np.asarray(adam.count)),
+                                          mu=moments(adam.mu), nu=moments(adam.nu)),
+                      update=int(np.asarray(update)))
+
+
+def train_state_to_numpy(train: TrainState):
+    """(params, {"count", "mu", "nu"}, update): numpy arrays, params and moments
+    in the JAX package's pytree layout, count and update as int32."""
+    def host(tensors):
+        return _pytree([t.detach().cpu().numpy().copy() for t in tensors])
+
+    adam = train.opt_state
+    return (host(train.model.parameters()),
+            {"count": np.int32(adam.count), "mu": host(adam.mu), "nu": host(adam.nu)},
+            np.int32(train.update))

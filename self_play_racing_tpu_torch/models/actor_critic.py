@@ -93,6 +93,14 @@ def sample_action(params, log_std, obs, noise):
     return action, normal_log_prob(action, mu, log_std), critic_value(params, obs)
 
 
+def evaluate_action(params, log_std, obs, action):
+    """(log_prob, entropy, value) for given actions — the update-path evaluation."""
+    mu = actor_mu(params, obs)
+    lp = normal_log_prob(action, mu, log_std)
+    ent = normal_entropy(log_std, mu.shape[-1], lp.shape)
+    return lp, ent, critic_value(params, obs)
+
+
 def deterministic_action(params, obs):
     """Greedy action = tanh-bounded mu."""
     return actor_mu(params, obs)

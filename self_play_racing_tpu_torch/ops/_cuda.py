@@ -24,7 +24,8 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("raycast_walls.cu", "progress_collision.cu")
+SOURCES = ("raycast_walls.cu", "progress_collision.cu", "gae.cu",
+           "mixbits_permutation.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # PyTorch's eager ops never contract a*b+c into an FMA; neither may the kernels
@@ -37,6 +38,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "raycast_walls_f32": [_P] * 10 + [_I, _I, _I, ctypes.c_float, _I, _P],
     "progress_and_collision_f32": [_P] * 12 + [_I, _I, _I, _I, _P],
+    "compute_gae_f32": [_P] * 7 + [_I, _I, ctypes.c_float, ctypes.c_float, _I, _P],
+    "mixbits_permutation_i32": [_P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -139,3 +142,19 @@ def launch_progress_and_collision(x, y, cx, cy, wp_x, wp_y, nrm_x, nrm_y, n_wp,
           *map(_ptr, (x, y, cx, cy, wp_x, wp_y, nrm_x, nrm_y, n_wp, track_width,
                       progress, crashed)),
           rows, num_corners, num_waypoints)
+
+
+def launch_compute_gae(rewards, dones, values, next_value, next_done, adv, ret,
+                       num_steps: int, num_envs: int, g: float, gl: float) -> None:
+    """Launch K6 on ``adv.device``'s current stream. Tensors are contiguous (f32,
+    ``dones``/``next_done`` bool)."""
+    _call("gae", "compute_gae_f32", adv.device,
+          *map(_ptr, (rewards, dones, values, next_value, next_done, adv, ret)),
+          num_steps, num_envs, g, gl)
+
+
+def launch_mixbits_permutation(consts, out, num_perms: int, log2_n: int) -> None:
+    """Launch K7 on ``out.device``'s current stream: ``consts`` contiguous int64
+    [num_perms, 8], ``out`` contiguous int32 [num_perms, 2^log2_n]."""
+    _call("mixbits_permutation", "mixbits_permutation_i32", out.device,
+          _ptr(consts), _ptr(out), num_perms, log2_n)

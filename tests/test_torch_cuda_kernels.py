@@ -7,14 +7,18 @@ Skipped without a CUDA card (the kernels have no CPU mode). On a machine with on
 
 Tolerance: K2 exact. K1 hit/no-hit identical and distances bitwise equal, except
 rays that are near-ties (two hit ratios equal to within the rounding of the cross
-products), which may differ by at most 2 ulp.
+products), which may differ by at most 2 ulp. K6 (GAE) bitwise equal: the kernel
+walks the plain version's order and is built without FMA contraction. K7 (the
+epoch permutations) exactly equal, and a permutation.
 """
 import numpy as np
 import pytest
 import torch
 
 from self_play_racing_tpu_torch.envs import track as trk
+from self_play_racing_tpu_torch.ops import gae
 from self_play_racing_tpu_torch.ops import geometry as geo
+from self_play_racing_tpu_torch.ops import prng
 
 pytestmark = pytest.mark.cuda
 
@@ -162,3 +166,69 @@ def test_env_step_on_card_follows_cpu(cuda):
         mismatched_rays += int(((gobs[:, :11] - cobs[:, :11]).abs() > 1e-4).sum())
         state = cs
     assert mismatched_rays <= 5
+
+
+def _gae_args(rng, steps, envs, dev, done_p=0.05):
+    f = lambda *shape: torch.as_tensor(rng.normal(0, 3, shape), dtype=torch.float32, device=dev)
+    dones = torch.as_tensor(rng.random((steps, envs)) < done_p, device=dev)
+    next_done = torch.as_tensor(rng.random(envs) < done_p, device=dev)
+    return f(steps, envs), dones, f(steps, envs), f(envs), next_done
+
+
+@pytest.mark.parametrize("steps,envs,done_p", [(256, 4096, 0.02), (37, 100, 0.3),
+                                               (16, 33, 1.0), (5, 7, 0.0), (1, 1, 0.5)])
+def test_gae_kernel_matches_plain(cuda, steps, envs, done_p):
+    args = _gae_args(np.random.default_rng(steps), steps, envs, cuda, done_p)
+    before = gae.compute_gae_launches
+    ka, kr = gae.compute_gae(*args, 0.99, 0.95)
+    assert gae.compute_gae_launches == before + 1
+    pa, pr = gae.compute_gae_plain(*args, 0.99, 0.95)
+    torch.cuda.synchronize()
+    assert torch.equal(ka, pa) and torch.equal(kr, pr)
+
+
+def test_gae_kernel_rejects_what_it_does_not_take(cuda):
+    r, d, v, nv, nd = _gae_args(np.random.default_rng(0), 8, 16, cuda)
+    with pytest.raises(TypeError):
+        gae.compute_gae(r, d, v.double(), nv, nd, 0.99, 0.95)
+    with pytest.raises(TypeError):
+        gae.compute_gae(r, d.float(), v, nv, nd, 0.99, 0.95)
+    with pytest.raises(ValueError, match="contiguous"):
+        gae.compute_gae(r.T.contiguous().T, d, v, nv, nd, 0.99, 0.95)
+    with pytest.raises(ValueError):
+        gae.compute_gae(r, d, v, nv[:3], nd, 0.99, 0.95)
+
+
+@pytest.mark.parametrize("n,lead", [(1, (3,)), (2, (2, 2)), (1024, (10, 1)),
+                                    (16384, (10, 1)), (16384, (10, 4)), (1 << 20, (2,))])
+def test_mixbits_kernel_matches_plain(cuda, n, lead):
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    consts = prng.draw_constants(lead, gen, device=cuda)
+    before = prng.mixbits_permutation_launches
+    k = prng.mixbits_permutation(consts, n)
+    assert prng.mixbits_permutation_launches == before + 1
+    p = prng.mixbits_permutation_plain(consts, n)
+    torch.cuda.synchronize()
+    assert k.dtype == torch.int32 and torch.equal(k, p)
+    assert torch.equal(torch.sort(k, dim=-1).values,
+                       torch.arange(n, dtype=torch.int32, device=cuda).expand(k.shape))
+    with pytest.raises(TypeError):
+        prng.mixbits_permutation(consts.to(torch.int32), n)
+
+
+def test_update_step_on_card_launches_the_learner_kernels(cuda):
+    from self_play_racing_tpu_torch.agent.trainer import PPOTrainer
+    from self_play_racing_tpu_torch.configs import base_config
+    from self_play_racing_tpu_torch.envs import single as senv
+
+    cfg = base_config(num_envs=64, num_steps=32, num_minibatches=4, update_epochs=2,
+                      total_timesteps=64 * 32 * 2)
+    np.random.seed(1)
+    pool = trk.make_track_pool(trk.gen_tracks(4, seed=1), 7.0, device=cuda)
+    tr = PPOTrainer(cfg, senv.RacingConfig(num_sensors=11),
+                    trk.gather_tracks(pool, np.arange(64) % 4))
+    before = (gae.compute_gae_launches, prng.mixbits_permutation_launches)
+    tr.train(num_updates=2)
+    assert (gae.compute_gae_launches, prng.mixbits_permutation_launches) == (
+        before[0] + 2, before[1] + 2)
+    assert all(bool(torch.isfinite(p).all()) for p in tr.runner.train.model.parameters())

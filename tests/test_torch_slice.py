@@ -28,6 +28,8 @@ from torch_port_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from self_play_racing_tpu_torch import evaluate as tevaluate
 from self_play_racing_tpu_torch import interop
 from self_play_racing_tpu_torch import serve as tserve
+from self_play_racing_tpu_torch import train as ttrain
+from self_play_racing_tpu_torch.configs import base_config
 from self_play_racing_tpu_torch.envs import single as tenv
 from self_play_racing_tpu_torch.envs import track as ttrack
 from self_play_racing_tpu_torch.utils import metrics as tM
@@ -102,6 +104,9 @@ def test_port_imports_no_jax():
         "import self_play_racing_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "for name in ('agent.ppo', 'agent.trainer', 'train', 'configs', 'ops.gae',\n"
+        "             'ops.prng'):\n"
+        "    assert 'self_play_racing_tpu_torch.' + name in sys.modules, name\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'self_play_racing_tpu'))\n"
@@ -113,7 +118,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     n_port, bad = res.stdout.strip().splitlines()
-    assert int(n_port) >= 15
+    assert int(n_port) >= 24
     assert bad == "[]"
 
 
@@ -127,6 +132,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         lambda: tevaluate.load_policy_bundle(MODEL),
         lambda: tserve.Policy(MODEL),
         lambda: tevaluate.main(["--single", MODEL, "--num-tracks", "1", "--num-runs", "1"]),
+        lambda: ttrain.make_training_pool(base_config(num_envs=2)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

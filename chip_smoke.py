@@ -11,8 +11,8 @@ Phases, each of which fails the run on error:
 2. K1 ``raycast_walls`` against its plain PyTorch version at the main path's shapes
    (canonical 16-track pool gathered to 4096 envs, 11 rays, 896 segments), plus the
    all-miss/padding case: hit/no-hit identical, distances bitwise equal except
-   near-ties within 2 ulp; kernel time (CUDA events around a CUDA graph of 20
-   launches, and around 10 eager launches), bound and plain time;
+   near-ties within 2 ulp; kernel time (CUDA events around 10 eager launches, and
+   around a CUDA graph of 20 launches), bound and plain time;
 3. K2 ``progress_and_collision`` against its plain version at [4096, 5, 512]:
    index, progress and crashed equal; the same timings;
 4. K6 ``compute_gae`` against its plain version at [256, 4096] on a seeded
@@ -31,11 +31,13 @@ Phases, each of which fails the run on error:
 9. evaluation on the 40 x 5 grid (sampled, seed 42): success_rate >= 0.95;
 10. serving latency and throughput at batches 1, 64, 1024, 8192.
 
-The line before the last is one JSON object with every kernel's numbers; the last
-line is ``{"ok": true, "device": {...}}``.
+The line before the last is one JSON object with every kernel's numbers (``ms`` the
+eager back-to-back time, ``graph_ms`` the CUDA-graph replay time); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -204,17 +206,18 @@ def check_k1(track, cfg, rng, dev):
     out = torch.empty_like(k)
     rows, r, s = NUM_ENVS, world.shape[1], segs[0].shape[-1]
     launch = lambda: _cuda.launch_raycast_walls(*rays, *segs, seg_c, out, rows, r, s, max_dist)
-    ms, eager_ms = graph_ms(launch), per_launch_ms(launch)
+    ms, g_ms = per_launch_ms(launch), graph_ms(launch)
     plain_ms = per_launch_ms(lambda: geo.raycast_walls_plain(*rays, *segs, max_dist, seg_c=seg_c),
                              windows=3, launches=2)
     b_ms, b_by = bound_ms(nbytes(*rays, *segs, seg_c, out), rows * r * s * K1_OPS_PER_PAIR)
-    print(f"K1 time {ms * 1e3:.1f} us (eager back-to-back {eager_ms * 1e3:.1f} us), "
+    print(f"K1 time {ms * 1e3:.1f} us eager back-to-back "
+          f"({g_ms * 1e3:.1f} us in a CUDA graph), "
           f"bound {b_ms * 1e3:.1f} us ({b_by}), plain {plain_ms * 1e3:.1f} us")
     return {"name": "raycast_walls", "route": "cuda",
             "source": "self_play_racing_tpu_torch/csrc/raycast_walls.cu",
             "replaces": "self_play_racing_tpu/ops/geometry.py:26",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None}
+            "max_abs_err": max_err, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def check_k2(track, cfg, rng, dev):
@@ -236,18 +239,19 @@ def check_k2(track, cfg, rng, dev):
     w = track.wp_x.shape[-1]
     launch = lambda: _cuda.launch_progress_and_collision(
         *args, progress, crashed, NUM_ENVS, cx.shape[-1], w)
-    ms, eager_ms = graph_ms(launch), per_launch_ms(launch)
+    ms, g_ms = per_launch_ms(launch), graph_ms(launch)
     plain_ms = per_launch_ms(lambda: geo.progress_and_collision_plain(*args), windows=3, launches=5)
     b_ms, b_by = bound_ms(nbytes(x, y, cx, cy, track.wp_x, track.wp_y, track.nrm_x, track.nrm_y,
                                  track.n_wp, track.track_width, progress, crashed),
                           NUM_ENVS * (1 + cx.shape[-1]) * w * K2_OPS_PER_PAIR)
-    print(f"K2 time {ms * 1e3:.1f} us (eager back-to-back {eager_ms * 1e3:.1f} us), "
+    print(f"K2 time {ms * 1e3:.1f} us eager back-to-back "
+          f"({g_ms * 1e3:.1f} us in a CUDA graph), "
           f"bound {b_ms * 1e3:.1f} us ({b_by}), plain {plain_ms * 1e3:.1f} us")
     return {"name": "progress_and_collision", "route": "cuda",
             "source": "self_play_racing_tpu_torch/csrc/progress_collision.cu",
             "replaces": "self_play_racing_tpu/ops/geometry.py:176",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None}
+            "max_abs_err": max_err, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def check_k6(dev):
@@ -280,18 +284,19 @@ def check_k6(dev):
     g, gl = float(np.float32(0.99)), float(np.float32(0.99 * 0.95))
     launch = lambda: _cuda.launch_compute_gae(
         rewards, dones, values, next_value, next_done, adv, ret, STEPS, NUM_ENVS, g, gl)
-    ms, eager_ms = graph_ms(launch), per_launch_ms(launch)
+    ms, g_ms = per_launch_ms(launch), graph_ms(launch)
     plain_ms = per_launch_ms(lambda: gae.compute_gae_plain(
         rewards, dones, values, next_value, next_done, 0.99, 0.95), windows=3, launches=2)
     b_ms, b_by = bound_ms(nbytes(rewards, dones, values, next_value, next_done, adv, ret),
                           STEPS * NUM_ENVS * K6_OPS_PER_SAMPLE)
-    print(f"K6 time {ms * 1e3:.1f} us (eager back-to-back {eager_ms * 1e3:.1f} us), "
+    print(f"K6 time {ms * 1e3:.1f} us eager back-to-back "
+          f"({g_ms * 1e3:.1f} us in a CUDA graph), "
           f"bound {b_ms * 1e3:.1f} us ({b_by}), plain {plain_ms * 1e3:.1f} us")
     return {"name": "compute_gae", "route": "cuda",
             "source": "self_play_racing_tpu_torch/csrc/gae.cu",
             "replaces": "self_play_racing_tpu/ops/gae.py:24",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None}
+            "max_abs_err": max_err, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def check_k7(dev, n_units):
@@ -312,17 +317,18 @@ def check_k7(dev, n_units):
     out = torch.empty_like(k)
     log2_n = n_units.bit_length() - 1
     launch = lambda: _cuda.launch_mixbits_permutation(consts, out, epochs, log2_n)
-    ms, eager_ms = graph_ms(launch), per_launch_ms(launch)
+    ms, g_ms = per_launch_ms(launch), graph_ms(launch)
     plain_ms = per_launch_ms(lambda: prng.mixbits_permutation_plain(consts, n_units),
                              windows=5, launches=5)
     b_ms, b_by = bound_ms(nbytes(consts, out), epochs * n_units * K7_OPS_PER_INDEX)
-    print(f"K7 time {ms * 1e3:.2f} us (eager back-to-back {eager_ms * 1e3:.2f} us), "
+    print(f"K7 time {ms * 1e3:.2f} us eager back-to-back "
+          f"({g_ms * 1e3:.2f} us in a CUDA graph), "
           f"bound {b_ms * 1e3:.2f} us ({b_by}), plain {plain_ms * 1e3:.1f} us")
     return {"name": "mixbits_permutation", "route": "cuda",
             "source": "self_play_racing_tpu_torch/csrc/mixbits_permutation.cu",
             "replaces": "self_play_racing_tpu/ops/prng.py:21",
-            "max_abs_err": float((k - p).abs().max()), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "max_abs_err": float((k - p).abs().max()), "ms": ms, "graph_ms": g_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def zero_counts():
@@ -391,43 +397,58 @@ def main_path(track, cfg, dev, card):
     return launches
 
 
+@contextlib.contextmanager
+def minibatch_loops(updates: int, around=contextlib.nullcontext):
+    """Times the minibatch loop of each update run inside the block, so that an
+    update's wall time splits into its rollout, GAE and permutations (before the
+    loop) and the loop. Yields a list that gains ``(seconds, computed
+    minibatches)`` per update; each loop runs inside ``around()``. The loop is
+    ``ppo.run_ppo_update``, which ``update_step`` calls through its module, so it
+    is swapped there for the block; the block fails unless exactly ``updates``
+    loops were timed."""
+    run_update = ppo.run_ppo_update
+    loops = []
+
+    def timed(*args):
+        with around():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = run_update(*args)
+            torch.cuda.synchronize()
+        loops.append((time.perf_counter() - t, int(out[2]["computed"].sum())))
+        return out
+
+    ppo.run_ppo_update = timed
+    try:
+        yield loops
+    finally:
+        ppo.run_ppo_update = run_update
+    if len(loops) != updates:
+        raise AssertionError(f"timed {len(loops)} minibatch loops, expected {updates}")
+
+
 def training(track, env_cfg, card):
     """The trainer at the bench width; returns its launch counts."""
     cfg = base_config(num_envs=NUM_ENVS, num_steps=STEPS,
                       total_timesteps=NUM_ENVS * STEPS * 100)
     t0 = time.perf_counter()
     trainer = PPOTrainer(cfg, env_cfg, track)
-    metrics, update_s = [], []
-    run_update = ppo.run_ppo_update
-
-    def timed_update(*args):
-        # the phase split: GAE, permutations and the rollout before this call, the
-        # minibatch loop inside it
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = run_update(*args)
-        torch.cuda.synchronize()
-        update_s.append(time.perf_counter() - t)
-        return out
-
-    ppo.run_ppo_update = timed_update
-    try:
-        trainer.train(num_updates=1, on_update=lambda tr, m: metrics.append(m))
-        torch.cuda.synchronize()
-        print(f"train: trainer built and warm-up update in {time.perf_counter() - t0:.1f} s "
-              f"({metrics[0]['minibatches_applied']:.0f} minibatches applied)")
-        before = [p.detach().clone() for p in trainer.runner.train.model.parameters()]
-        zero_counts()
-        wall = []
+    metrics = []
+    trainer.train(num_updates=1, on_update=lambda tr, m: metrics.append(m))
+    torch.cuda.synchronize()
+    print(f"train: trainer built and warm-up update in {time.perf_counter() - t0:.1f} s "
+          f"({metrics[0]['minibatches_applied']:.0f} minibatches applied)")
+    before = [p.detach().clone() for p in trainer.runner.train.model.parameters()]
+    zero_counts()
+    wall = []
+    with minibatch_loops(TRAIN_UPDATES) as loops:
         for _ in range(TRAIN_UPDATES):
             t = time.perf_counter()
             trainer.train(num_updates=1, on_update=lambda tr, m: metrics.append(m))
             torch.cuda.synchronize()
             wall.append(time.perf_counter() - t)
-        launches = read_counts()
-    finally:
-        ppo.run_ppo_update = run_update
-    for i, (dt, up, m) in enumerate(zip(wall, update_s[1:], metrics[1:])):
+    launches = read_counts()
+    for i, (dt, (up, _), m) in enumerate(zip(wall, loops, metrics[1:])):
         print(f"train update {i + 1}: {dt * 1e3:.1f} ms = {cfg.batch_size / dt:,.0f} env-steps/s; "
               f"rollout + GAE + permutations {(dt - up) * 1e3:.1f} ms, minibatch loop "
               f"{up * 1e3:.1f} ms; minibatches_applied {m['minibatches_applied']:.0f}, "

@@ -37,7 +37,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
 from self_play_racing_tpu_torch import interop  # noqa: E402
-from self_play_racing_tpu_torch.agent import ppo  # noqa: E402
 from self_play_racing_tpu_torch.agent.trainer import PPOTrainer  # noqa: E402
 from self_play_racing_tpu_torch.configs import base_config  # noqa: E402
 from self_play_racing_tpu_torch.envs import single as senv  # noqa: E402
@@ -62,38 +61,17 @@ def profile_update(args, dev) -> dict:
     track = trk.gather_tracks(pool, np.arange(args.num_envs) % 16)
     trainer = PPOTrainer(cfg, senv.RacingConfig(num_sensors=11), track)
     trainer.train(num_updates=1)  # warm-up
-    run_update = ppo.run_ppo_update
-    seen = {}
-
-    def timed(*a, profile=False):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        if profile:
-            activities = [torch.profiler.ProfilerActivity.CPU,
-                          torch.profiler.ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=activities) as prof:
-                out = run_update(*a)
-                torch.cuda.synchronize()
-            seen["prof"] = prof
-        else:
-            out = run_update(*a)
-            torch.cuda.synchronize()
-        seen["loop_s"] = time.perf_counter() - t
-        seen["minibatches"] = int(out[2]["computed"].sum())
-        return out
-
-    try:
-        ppo.run_ppo_update = timed
+    with chip_smoke.minibatch_loops(1) as loops:
         t0 = time.perf_counter()
         trainer.train(num_updates=1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        loop_s, mbs = seen["loop_s"], seen["minibatches"]
-        ppo.run_ppo_update = lambda *a: timed(*a, profile=True)
+    (loop_s, mbs), = loops
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    prof = torch.profiler.profile(activities=activities)
+    with chip_smoke.minibatch_loops(1, around=lambda: prof) as loops:
         trainer.train(num_updates=1)
-    finally:
-        ppo.run_ppo_update = run_update
-    prof, n = seen["prof"], seen["minibatches"]
+    (profiled_s, n), = loops
     per_kernel = _device_kernels(prof)
     busy_us = sum(t for t, _ in per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[: args.top]
@@ -108,7 +86,7 @@ def profile_update(args, dev) -> dict:
         "minibatches": mbs,
         "wall_ms_per_minibatch": loop_s * 1e3 / mbs,
         "profiled_minibatches": n,
-        "profiled_wall_ms_per_minibatch": seen["loop_s"] * 1e3 / n,
+        "profiled_wall_ms_per_minibatch": profiled_s * 1e3 / n,
         "device_busy_ms_per_minibatch": busy_us / 1e3 / n,
         "device_idle_share": (1.0 - (busy_us / 1e6 / n) / (loop_s / mbs)) if busy_us else None,
         "kernel_launches_per_minibatch": sum(c for _, c in per_kernel.values()) / n,

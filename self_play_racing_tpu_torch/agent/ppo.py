@@ -56,15 +56,9 @@ class EnvHooks(NamedTuple):
     reset: Callable       # (aux, generator) -> env_state  (batched)
     transition: Callable  # (aux, env_state, action, generator) -> (state, rew, term, trunc, info)
     observe: Callable     # (aux, env_state) -> obs [N, obs_dim] float32
-    # optional: (aux, env_state) -> (env_state, obs), for envs that cache obs in
-    # their state; called once per vector step on the merged state
-    refresh: Callable = None
     # optional: (aux, env_state) -> info with transition-info structure, for the
     # NEXT_STEP reset-info contract (see envs.vector.step)
     info: Callable = None
-    # optional: (aux, info, episode_record) -> [S] f32 per rollout step, summed over
-    # the rollout and appended to the packed metric vector (``"_extra"``)
-    stats: Callable = None
 
 
 @dataclasses.dataclass
@@ -132,10 +126,7 @@ def init_runner(generator: torch.Generator, cfg: PPOConfig, hooks: EnvHooks, aux
     vec_gen = _child_generator(generator, dev)
     carry = _child_generator(generator, dev)
     env_state = hooks.reset(aux, vec_gen)
-    if hooks.refresh is not None:
-        env_state, obs = hooks.refresh(aux, env_state)
-    else:
-        obs = hooks.observe(aux, env_state)
+    obs = hooks.observe(aux, env_state)
     return RunnerState(
         train=train,
         vec=vector.init(env_state, cfg.num_envs, vec_gen),
@@ -213,19 +204,29 @@ def clip_by_global_norm(grads, g_norm: torch.Tensor, below: bool, max_norm: floa
     return list(torch._foreach_mul(torch._foreach_div(grads, g_norm), max_norm))
 
 
+def bias_correction(b: float, count: int, dtype: torch.dtype) -> float:
+    """``1 - b**count`` taken in ``dtype``, as optax takes it from its int32 count
+    and a weakly typed ``b``: a float32 pow for float32 moments, a float64 one for
+    float64 moments."""
+    t = np.dtype(str(dtype).removeprefix("torch.")).type
+    return float(t(1) - t(b) ** t(count))
+
+
 def adam_update(grads, state: AdamState, b1: float = ADAM_B1, b2: float = ADAM_B2,
                 eps: float = ADAM_EPS):
     """``optax.scale_by_adam`` in its order: the moments, the count, the bias
-    corrections ``1 - b**count`` (taken in float64, then rounded to the moments'
-    dtype) and ``mu_hat / (sqrt(nu_hat) + eps)``. Returns (updates, new state)."""
+    corrections (``bias_correction``) and ``mu_hat / (sqrt(nu_hat) + eps)``.
+    Returns (updates, new state)."""
     mu = torch._foreach_add(torch._foreach_mul(grads, 1 - b1),
                             torch._foreach_mul(state.mu, b1))
     nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2),
                             torch._foreach_mul(state.nu, b2))
     count = min(state.count + 1, _INT32_MAX)
     ref = grads[0]
-    bc1 = torch.full((), 1 - b1**count, dtype=ref.dtype, device=ref.device)
-    bc2 = torch.full((), 1 - b2**count, dtype=ref.dtype, device=ref.device)
+    bc1 = torch.full((), bias_correction(b1, count, ref.dtype), dtype=ref.dtype,
+                     device=ref.device)
+    bc2 = torch.full((), bias_correction(b2, count, ref.dtype), dtype=ref.dtype,
+                     device=ref.device)
     denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), eps)
     updates = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
     return list(updates), AdamState(count=count, mu=list(mu), nu=list(nu))
@@ -342,7 +343,7 @@ def rollout_phase(cfg: PPOConfig, hooks: EnvHooks, runner: RunnerState, aux, log
     params = runner.train.model.params()
     vec, obs, done, norm = runner.vec, runner.obs, runner.done, runner.obs_norm
     keys = ("obs", "actions", "logprobs", "values", "reward", "done_entering",
-            "ep_return", "ep_length", "ep_mask", "extra")
+            "ep_return", "ep_length", "ep_mask")
     out = {k: [] for k in keys}
     for t in range(cfg.num_steps):
         if cfg.normalize_obs:
@@ -351,13 +352,11 @@ def rollout_phase(cfg: PPOConfig, hooks: EnvHooks, runner: RunnerState, aux, log
         else:
             policy_obs = obs
         action, logprob, value = net.sample_action(params, log_std, policy_obs, noise[t])
-        vec, next_obs, reward, next_done, _, _, info, rec = vector.step(
+        vec, next_obs, reward, next_done, _, _, _, rec = vector.step(
             vec, action,
             lambda s, a, g: hooks.transition(aux, s, a, g),
             lambda s: hooks.observe(aux, s),
             lambda g: hooks.reset(aux, g),
-            refresh_fn=(None if hooks.refresh is None
-                        else (lambda s: hooks.refresh(aux, s))),
             info_fn=(None if hooks.info is None else (lambda s: hooks.info(aux, s))),
         )
         out["obs"].append(policy_obs)
@@ -369,10 +368,8 @@ def rollout_phase(cfg: PPOConfig, hooks: EnvHooks, runner: RunnerState, aux, log
         out["ep_return"].append(torch.where(rec["mask"], rec["return"], 0.0))
         out["ep_length"].append(torch.where(rec["mask"], rec["length"], 0))
         out["ep_mask"].append(rec["mask"])
-        if hooks.stats is not None:
-            out["extra"].append(hooks.stats(aux, info, rec))
         obs, done = next_obs.to(torch.float32), next_done
-    stacked = {k: torch.stack(v) for k, v in out.items() if v}
+    stacked = {k: torch.stack(v) for k, v in out.items()}
     traj = Batch(obs=stacked["obs"], actions=stacked["actions"],
                  logprobs=stacked["logprobs"], advantages=None, returns=None,
                  values=stacked["values"])
@@ -398,8 +395,6 @@ def make_update_step(cfg: PPOConfig, hooks: EnvHooks, action_dim: int = 2):
             # the reference rebuilds every env each update but keeps its stale
             # next_obs/next_done: the env state resets, runner.obs/done do not
             env_state = hooks.reset(aux, runner.vec.generator)
-            if hooks.refresh is not None:
-                env_state, _ = hooks.refresh(aux, env_state)
             runner = dataclasses.replace(
                 runner, vec=vector.init(env_state, cfg.num_envs, runner.vec.generator))
 
@@ -458,11 +453,7 @@ def make_update_step(cfg: PPOConfig, hooks: EnvHooks, action_dim: int = 2):
             "mean_reward": mean_reward,
         }
         assert tuple(metrics) == METRIC_NAMES
-        packed = np.array(list(metrics.values()), dtype=np.float32)
-        if hooks.stats is not None:
-            extra = sstats["extra"].sum(dim=0).to(torch.float32).cpu().numpy()
-            packed = np.concatenate([packed, extra])
-        return new_runner, packed
+        return new_runner, np.array(list(metrics.values()), dtype=np.float32)
 
     return update_step
 
@@ -475,10 +466,5 @@ METRIC_NAMES = (
 
 
 def unpack_metrics(packed):
-    """Packed f32 metric vector -> {name: value}. Anything beyond the named metrics
-    (an ``EnvHooks.stats`` tail) lands under ``"_extra"`` as an array."""
-    vals = np.asarray(packed)
-    out = dict(zip(METRIC_NAMES, vals))
-    if len(vals) > len(METRIC_NAMES):
-        out["_extra"] = vals[len(METRIC_NAMES):]
-    return out
+    """Packed f32 metric vector -> {name: value}."""
+    return dict(zip(METRIC_NAMES, np.asarray(packed)))

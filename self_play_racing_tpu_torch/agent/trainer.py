@@ -68,19 +68,16 @@ class PPOTrainer:
     ``cfg.seed``.
     """
 
-    def __init__(self, cfg: PPOConfig, env_cfg: senv.RacingConfig, track: trk.TrackArrays,
-                 hooks: Optional[ppo.EnvHooks] = None, aux=None):
+    def __init__(self, cfg: PPOConfig, env_cfg: senv.RacingConfig, track: trk.TrackArrays):
         self.cfg = cfg
         self.env_cfg = env_cfg
         self.device = track.wp_x.device
-        if aux is not None:
-            self.aux = aux
-        elif cfg.anneal_speed_weight:
+        if cfg.anneal_speed_weight:
             self.aux = {"track": track,
                         "speed_weight": self._f32(env_cfg.speed_weight)}
         else:
             self.aux = track
-        self.hooks = hooks if hooks is not None else make_single_env_hooks(env_cfg)
+        self.hooks = make_single_env_hooks(env_cfg)
         self.update_step = ppo.make_update_step(cfg, self.hooks, env_cfg.action_dim)
         generator = torch.Generator().manual_seed(cfg.seed)
         self.runner = ppo.init_runner(generator, cfg, self.hooks, self.aux,
@@ -178,8 +175,7 @@ class PPOTrainer:
     def _pre_update(self):
         """Hook before each update: the speed-weight anneal and track resampling,
         keyed off the host-side update counter."""
-        if self.cfg.anneal_speed_weight and isinstance(self.aux, dict) \
-                and "speed_weight" in self.aux:
+        if self.cfg.anneal_speed_weight:
             # the reference's intended schedule, 8 -> 14
             frac = max(0.0, 1.0 - self._host_update / self.cfg.num_updates)
             self.aux["speed_weight"] = self._f32(8.0 + (1.0 - frac) * 6.0)
@@ -204,10 +200,7 @@ class PPOTrainer:
         runner = self.runner
         vec_gen = runner.vec.generator
         env_state = self.hooks.reset(self.aux, vec_gen)
-        if self.hooks.refresh is not None:
-            env_state, obs = self.hooks.refresh(self.aux, env_state)
-        else:
-            obs = self.hooks.observe(self.aux, env_state)
+        obs = self.hooks.observe(self.aux, env_state)
         self.runner = dataclasses.replace(
             runner,
             vec=vector.init(env_state, self.cfg.num_envs, vec_gen),

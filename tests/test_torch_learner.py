@@ -15,6 +15,9 @@ Inputs are made with numpy from a seed and fed to both sides; JAX runs jitted.
   is a float32 mean that XLA sums in another order: rtol 1e-6, and 1e-8 on the
   loss it enters with ent_coef.
 - One clip + Adam step against optax in float64: rtol 1e-12.
+- Adam's bias corrections ``1 - b**count`` for counts 1..20000: exactly equal to
+  optax's, in float32 with x64 off (the JAX package's training setting) and in
+  float64 with x64 on.
 - A full ``run_ppo_update`` from the same batch and permutations in float64: params
   and Adam moments rtol 1e-8 / atol 1e-12, per-minibatch stats (float32) rtol 1e-5,
   applied/computed flags and the exit exactly. Every approx_kl is asserted to lie
@@ -249,6 +252,19 @@ def test_clip_and_adam_step_match_optax_f64(scale):
     tppo.apply_updates(list(model.parameters()), upd, lr)
     for got, w in zip(model.parameters(), jax.tree.leaves(want)):
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(w), rtol=1e-13)
+
+
+@pytest.mark.parametrize("x64,dtype", [(False, torch.float32), (True, torch.float64)])
+def test_adam_bias_corrections_match_optax(x64, dtype):
+    counts = np.arange(1, 20001, dtype=np.int32)
+    with jax.enable_x64(x64):
+        # optax.tree_bias_correction's ``1 - decay**count`` from its int32 count
+        want = {b: np.asarray(jax.jit(lambda c, b=b: 1 - b ** c)(jnp.asarray(counts)))
+                for b in (tppo.ADAM_B1, tppo.ADAM_B2)}
+    for b, w in want.items():
+        assert w.dtype == np.dtype(str(dtype).removeprefix("torch."))
+        got = np.array([tppo.bias_correction(b, int(c), dtype) for c in counts], w.dtype)
+        np.testing.assert_array_equal(got, w, err_msg=f"b={b}")
 
 
 UPDATE_CASES = {

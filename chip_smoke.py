@@ -5,7 +5,8 @@
 
 Needs one CUDA card (it exits non-zero and prints no result without one) and the
 CUDA toolkit's ``nvcc``: it builds the hand-written kernels from ``csrc/`` first.
-Phases, each of which fails the run on error:
+Phases, each of which fails the run on error (the launch counters are set to 0
+just before each path is driven and read just after):
 
 1. the card (name, power limit) and the kernels' build;
 2. K1 ``raycast_walls`` against its plain PyTorch version at the main path's shapes
@@ -19,25 +20,47 @@ Phases, each of which fails the run on error:
    rollout-like batch, plus the all-done and no-done cases: bitwise equal;
 5. K7 ``mixbits_permutation`` against its plain version for 10 epochs x 16,384
    units: exactly equal, and a permutation;
-6. the main path: ``models/single_agent.npz`` driving 4096 envs for 256 steps of
-   sample_action + vector.step, with launch counters zeroed before and read after
-   (each kernel must have launched once per step, plus K1 once for the reset);
-7. the training path: ``PPOTrainer`` at the bench width (the canonical pool
+6. K3 ``raycast_cars``, K4 ``rectangles_intersect`` and K5 ``car_update`` against
+   their plain versions at the self-play path's shapes (4096 envs x 2 cars, 11 rays
+   per car) and at 8 cars, and K2 on [4096, 2] cars against [4096, 1, 512] rows
+   (against its plain version and against a launch on rows expanded per car): all
+   bitwise equal; the same timings;
+7. the single-car main path: ``models/single_agent.npz`` driving 4096 envs for 256
+   steps of sample_action + vector.step (K2 and K5 once per step, K1 once per step
+   plus once for the reset);
+8. single-car training: ``PPOTrainer`` at the bench width (the canonical pool
    gathered to 4096 envs, 256 steps, batch 1,048,576): one warm-up update, then
-   timed updates with the counters zeroed before and read after (K1 = K2 = 256, K6
-   = K7 = 1 per update), finite losses and moved parameters;
-8. the ``train single`` entry point at its defaults (16 envs x 2048 steps) for two
+   timed updates (K1 = K2 = K5 = 256, K6 = K7 = 1 per update), finite losses and
+   moved parameters;
+9. the ``train single`` entry point at its defaults (16 envs x 2048 steps) for two
    updates in a temporary directory; the saved policy must load;
-9. evaluation on the 40 x 5 grid (sampled, seed 42): success_rate >= 0.95;
-10. serving latency and throughput at batches 1, 64, 1024, 8192.
+10. this slice's main path, self-play training at ``train scale``'s width: a
+   ``SelfPlayTrainer`` on the canonical pool tiled over 4096 envs, 256 steps, 2
+   cars, opponents per env from a pool of 5, uniform sampling, with
+   ``snapshot_freq`` set to 1 so that every update after the first races pool
+   opponents: one warm-up update, then timed updates with each update's
+   ms, its rollout/minibatch split, the pool and the learner's win rate
+   (K1 = K2 = K3 = K4 = K5 = 256 and K6 = K7 = 1 per update);
+11. the ``train scale`` and ``train multi`` entry points at their defaults for two
+   updates each in a temporary directory; the saved policies must load and the
+   repo's tracked models and data stay untouched;
+12. checkpoints on the card: a checkpoint at update 2 resumed into a fresh trainer
+   (parameters, Adam state, pool and counters equal), the repo's format-v0
+   ``models/checkpoint_update_90.npz`` (when the checkout holds it) and the reference's
+   ``.pth`` training checkpoint;
+13. evaluation on the 40 x 5 grid (sampled, seed 42): ``models/single_agent.npz``
+   and, with two cars, ``models/self_play_agent.npz``: success_rate >= 0.95 each;
+14. serving latency and throughput at batches 1, 64, 1024, 8192.
 
 The line before the last is one JSON object with every kernel's numbers (``ms`` the
-eager back-to-back time, ``graph_ms`` the CUDA-graph replay time); the last line is
-``{"ok": true, "device": {...}}``.
+eager back-to-back time, ``graph_ms`` the CUDA-graph replay time, ``launches`` the
+count on the self-play path of phase 10, where all seven kernels run); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import os
 import statistics
@@ -52,15 +75,19 @@ import torch
 from self_play_racing_tpu_torch import interop
 from self_play_racing_tpu_torch import train as ttrain
 from self_play_racing_tpu_torch.agent import ppo
+from self_play_racing_tpu_torch.agent.self_play import SelfPlayTrainer
 from self_play_racing_tpu_torch.agent.trainer import PPOTrainer
-from self_play_racing_tpu_torch.configs import base_config
+from self_play_racing_tpu_torch.configs import base_config, self_play_config
+from self_play_racing_tpu_torch.envs import multi as menv
 from self_play_racing_tpu_torch.envs import single as senv
 from self_play_racing_tpu_torch.envs import track as trk
 from self_play_racing_tpu_torch.envs import vector
+from self_play_racing_tpu_torch.evaluate import evaluate_multi_agent_overall
 from self_play_racing_tpu_torch.evaluate import evaluate_single_agent_overall
 from self_play_racing_tpu_torch.evaluate import load_policy_bundle
 from self_play_racing_tpu_torch.models import actor_critic as net
 from self_play_racing_tpu_torch.ops import _cuda
+from self_play_racing_tpu_torch.ops import dynamics
 from self_play_racing_tpu_torch.ops import gae
 from self_play_racing_tpu_torch.ops import geometry as geo
 from self_play_racing_tpu_torch.ops import prng
@@ -69,7 +96,14 @@ from self_play_racing_tpu_torch.utils import metrics
 from self_play_racing_tpu_torch.utils.profiling import canonical_bench_pool
 
 MODEL = "models/single_agent.npz"
+MULTI_MODEL = "models/self_play_agent.npz"
+V0_CHECKPOINT = "models/checkpoint_update_90.npz"
+TORCH_CHECKPOINT = "models/reference_selfplay_checkpoint_update_90.pth"
+# what the self-play phases must leave untouched
+TRACKED = [MULTI_MODEL, "data/training_info_self_play.json",
+           *(f"models/checkpoint_update_{u}.npz" for u in range(10, 100, 10))]
 NUM_ENVS = 4096
+NUM_AGENTS = 2
 NUM_TRACKS = 16
 STEPS = 256
 # Published H100 SXM peaks: HBM bandwidth and f32 outside the tensor cores.
@@ -84,6 +118,18 @@ K2_OPS_PER_PAIR = 11
 K6_OPS_PER_SAMPLE = 9
 # per index in K7: four rounds of or, multiply, add, and, shift, xor
 K7_OPS_PER_INDEX = 24
+# K3: per ray and car the skip test (2 differences, 2 squares, a sum, sqrt, compare);
+# per ray and edge of a car that is not skipped: dotp 3, |dotp| and its compare 2,
+# v1 2, the two numerators 6 and divisions 2, four compares and the min 5
+K3_OPS_PER_RAY_CAR = 7
+K3_OPS_PER_RAY_EDGE = 20
+# K4: per pair and axis: the normal 3, 8 projections of 3, 6 min/max, 2 compares, or
+K4_OPS_PER_PAIR_AXIS = 36
+# K5: per car: heading 4 (with the fmod and its sign fix), cos and sin 2, body frame
+# 6, throttle/drag/friction 7, world frame 6, speed 4, clamp 4 (division, compare,
+# 2 products), position 4, the crashed selects 5
+K5_OPS_PER_CAR = 42
+SP_TRAIN_UPDATES = 3
 TRAIN_UPDATES = 3
 SUCCESS_FLOOR = 0.95
 
@@ -238,7 +284,7 @@ def check_k2(track, cfg, rng, dev):
     crashed = torch.empty_like(kc)
     w = track.wp_x.shape[-1]
     launch = lambda: _cuda.launch_progress_and_collision(
-        *args, progress, crashed, NUM_ENVS, cx.shape[-1], w)
+        *args, progress, crashed, NUM_ENVS, 1, cx.shape[-1], w)
     ms, g_ms = per_launch_ms(launch), graph_ms(launch)
     plain_ms = per_launch_ms(lambda: geo.progress_and_collision_plain(*args), windows=3, launches=5)
     b_ms, b_by = bound_ms(nbytes(x, y, cx, cy, track.wp_x, track.wp_y, track.nrm_x, track.nrm_y,
@@ -251,6 +297,166 @@ def check_k2(track, cfg, rng, dev):
             "source": "self_play_racing_tpu_torch/csrc/progress_collision.cu",
             "replaces": "self_play_racing_tpu/ops/geometry.py:176",
             "max_abs_err": max_err, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def race_poses(track, rng, dev, a):
+    """``a`` cars per env near one random centreline waypoint, within a few metres
+    of each other (so rays hit cars and cars touch), random headings: [N, A]."""
+    x, y, _ = car_poses(track, rng, dev)
+    n = x.shape[0]
+    def f32(*shape, lo, hi):
+        return torch.as_tensor(rng.uniform(lo, hi, shape), dtype=torch.float32, device=dev)
+    xs = (x[:, None] + f32(n, a, lo=-4, hi=4)).contiguous()
+    ys = (y[:, None] + f32(n, a, lo=-4, hi=4)).contiguous()
+    return xs, ys, f32(n, a, lo=0, hi=2 * np.pi)
+
+
+def car_rays(cfg, x, y, ang):
+    """Every car's sensor rays from its centre, as the multi-car env casts them:
+    origins and directions [N, A, R] (materialized)."""
+    world = ang[:, :, None] + torch.as_tensor(cfg.sensor_angles(), dtype=torch.float32,
+                                              device=x.device)
+    shape = world.shape
+    return [x[:, :, None].expand(shape).contiguous(), y[:, :, None].expand(shape).contiguous(),
+            torch.cos(world), torch.sin(world)]
+
+
+def check_k2_shared_rows(track, cfg, rng, dev):
+    """K2 as the multi-car env launches it: cars [N, A] against waypoint rows
+    [N, 1, W], against the plain version and a launch on rows expanded per car."""
+    x, y, ang = race_poses(track, rng, dev, NUM_AGENTS)
+    cx, cy = geo.car_corners(x, y, ang, cfg.car.length / 2, cfg.car.width / 2)
+    rows = [getattr(track, f)[:, None, :] for f in ("wp_x", "wp_y", "nrm_x", "nrm_y")]
+    tail = (track.n_wp[:, None], track.track_width[:, None])
+    kp, kc = geo.progress_and_collision(x, y, cx, cy, *rows, *tail)
+    pp, pc = geo.progress_and_collision_plain(x, y, cx, cy, *rows, *tail)
+    w = track.wp_x.shape[-1]
+    ep, ec = geo.progress_and_collision(
+        x, y, cx, cy, *(r.expand(NUM_ENVS, NUM_AGENTS, w).contiguous() for r in rows), *tail)
+    torch.cuda.synchronize()
+    if not (torch.equal(kp, pp) and torch.equal(kc, pc) and torch.equal(kp, ep)
+            and torch.equal(kc, ec)):
+        raise AssertionError("K2 on shared waypoint rows differs from plain or from "
+                             "expanded rows")
+    progress, crashed = torch.empty_like(kp), torch.empty_like(kc)
+    n_wp, width = (t.expand(NUM_ENVS, NUM_AGENTS).contiguous() for t in tail)
+    launch = lambda: _cuda.launch_progress_and_collision(
+        x, y, cx, cy, *rows, n_wp, width, progress, crashed, NUM_ENVS * NUM_AGENTS,
+        NUM_AGENTS, cx.shape[-1], w)
+    print(f"K2 progress_and_collision cars [{NUM_ENVS}, {NUM_AGENTS}] x rows "
+          f"[{NUM_ENVS}, 1, {w}]: bitwise equal to plain and to expanded rows "
+          f"({int(kc.sum())} crashed); {per_launch_ms(launch) * 1e3:.1f} us eager "
+          f"back-to-back ({graph_ms(launch) * 1e3:.1f} us in a CUDA graph)")
+
+
+def check_k3(track, cfg, rng, dev):
+    """K3 at the self-play shapes (and at 8 cars): every car's rays against the
+    cars of its env, the own car skipped by the radius test."""
+    results = {}
+    for a in (NUM_AGENTS, 8):
+        x, y, ang = race_poses(track, rng, dev, a)
+        cx, cy = geo.car_corners(x, y, ang, cfg.car.length / 2, cfg.car.width / 2)
+        rays = car_rays(cfg, x, y, ang)
+        cars = [cx[:, None, None], cy[:, None, None], x[:, None, None, :].contiguous(),
+                y[:, None, None, :].contiguous()]
+        k = geo.raycast_cars(*rays, *cars, cfg.max_sensor_range)
+        p = geo.raycast_cars_plain(*rays, *cars, cfg.max_sensor_range)
+        torch.cuda.synchronize()
+        if not torch.equal(k, p):
+            raise AssertionError(f"K3 at {a} cars: {int((k != p).sum())} rays differ from plain")
+        hit = float((k < cfg.max_sensor_range).float().mean())
+        print(f"K3 raycast_cars rays [{NUM_ENVS}, {a}, {rays[0].shape[-1]}] x {a} cars: "
+              f"bitwise equal to plain, {hit:.3f} of rays hit a car")
+        results[a] = (rays, cars, k)
+    rays, cars, k = results[NUM_AGENTS]
+    out = torch.empty_like(k)
+    r = rays[0].shape[-1]
+    launch = lambda: _cuda.launch_raycast_cars(*rays, *cars, out, NUM_ENVS, NUM_AGENTS * r,
+                                               NUM_AGENTS, cfg.max_sensor_range)
+    ms, g_ms = per_launch_ms(launch), graph_ms(launch)
+    plain_ms = per_launch_ms(lambda: geo.raycast_cars_plain(*rays, *cars, cfg.max_sensor_range),
+                             windows=5, launches=5)
+    # the edge work is done only for cars outside the skip radius of the ray
+    cdx = cars[2] - rays[0][..., None]
+    cdy = cars[3] - rays[1][..., None]
+    seen = int((torch.sqrt(cdx * cdx + cdy * cdy) >= 0.5).sum())
+    ops = k.numel() * NUM_AGENTS * K3_OPS_PER_RAY_CAR + seen * 4 * K3_OPS_PER_RAY_EDGE
+    b_ms, b_by = bound_ms(nbytes(*rays, *cars, out), ops)
+    print(f"K3 time {ms * 1e3:.2f} us eager back-to-back ({g_ms * 1e3:.2f} us in a CUDA "
+          f"graph), bound {b_ms * 1e3:.3f} us ({b_by}), plain {plain_ms * 1e3:.1f} us")
+    return {"name": "raycast_cars", "route": "cuda",
+            "source": "self_play_racing_tpu_torch/csrc/raycast_cars.cu",
+            "replaces": "self_play_racing_tpu/ops/geometry.py:243",
+            "max_abs_err": 0.0, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def check_k4(track, cfg, rng, dev):
+    """K4 at the self-play shapes (and at 8 cars): the SAT test of every pair."""
+    for a in (8, NUM_AGENTS):
+        x, y, ang = race_poses(track, rng, dev, a)
+        cx, cy = geo.car_corners(x, y, ang, cfg.car.length / 2, cfg.car.width / 2)
+        cx, cy = cx.contiguous(), cy.contiguous()
+        k = geo.rectangles_intersect_pairs(cx, cy)
+        p = geo.rectangles_intersect_pairs_plain(cx, cy)
+        torch.cuda.synchronize()
+        if not torch.equal(k, p):
+            raise AssertionError(f"K4 at {a} cars: {int((k != p).sum())} pairs differ from plain")
+        off = k[:, ~torch.eye(a, dtype=torch.bool, device=dev)]
+        print(f"K4 rectangles_intersect pairs [{NUM_ENVS}, {a}, {a}]: equal to plain, "
+              f"{float(off.float().mean()):.3f} of distinct pairs touch")
+    out = torch.empty_like(k)
+    launch = lambda: _cuda.launch_rectangles_intersect(cx, cy, out, NUM_ENVS, a)
+    ms, g_ms = per_launch_ms(launch), graph_ms(launch)
+    plain_ms = per_launch_ms(lambda: geo.rectangles_intersect_pairs_plain(cx, cy),
+                             windows=5, launches=5)
+    b_ms, b_by = bound_ms(nbytes(cx, cy, out), out.numel() * 4 * K4_OPS_PER_PAIR_AXIS)
+    print(f"K4 time {ms * 1e3:.2f} us eager back-to-back ({g_ms * 1e3:.2f} us in a CUDA "
+          f"graph), bound {b_ms * 1e3:.3f} us ({b_by}), plain {plain_ms * 1e3:.1f} us")
+    return {"name": "rectangles_intersect", "route": "cuda",
+            "source": "self_play_racing_tpu_torch/csrc/rectangles_intersect.cu",
+            "replaces": "self_play_racing_tpu/ops/geometry.py:217",
+            "max_abs_err": 0.0, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def check_k5(track, cfg, rng, dev):
+    """K5 at the self-play shapes (and at 8 cars), crashed cars and the speed clamp
+    included; bitwise, the heading's cos/sin too."""
+    for a in (8, NUM_AGENTS):
+        x, y, ang = race_poses(track, rng, dev, a)
+        def f32(lo, hi):
+            return torch.as_tensor(rng.uniform(lo, hi, (NUM_ENVS, a)), dtype=torch.float32,
+                                   device=dev)
+        args = (x, y, ang, f32(-35, 35), f32(-35, 35),
+                torch.as_tensor(rng.random((NUM_ENVS, a)) < 0.1, device=dev),
+                f32(-1, 1), f32(0, 1))
+        k = dynamics.car_update(*args, cfg.dt, cfg.car)
+        p = dynamics.car_update_plain(*args, cfg.dt, cfg.car)
+        torch.cuda.synchronize()
+        for name, kt, pt in zip(("x", "y", "angle", "vx", "vy"), k, p):
+            if not torch.equal(kt, pt):
+                ulps = ((kt - pt).abs() / (torch.nextafter(pt.abs(), pt.abs() + 1)
+                                           - pt.abs())).max()
+                raise AssertionError(f"K5 at {a} cars: {name} differs from plain in "
+                                     f"{int((kt != pt).sum())} cars, up to {float(ulps):.0f} ulp")
+        print(f"K5 car_update [{NUM_ENVS}, {a}]: bitwise equal to plain (cos/sin included)")
+    outs = [torch.empty_like(x) for _ in range(5)]
+    consts = [np.float32(v) for v in (cfg.car.steering_speed, cfg.car.acceleration,
+                                      cfg.car.drag, cfg.car.lateral_friction, cfg.car.grip,
+                                      cfg.car.max_speed, cfg.dt, 2 * np.pi)]
+    launch = lambda: _cuda.launch_car_update(*args, *outs, x.numel(), consts)
+    ms, g_ms = per_launch_ms(launch), graph_ms(launch)
+    plain_ms = per_launch_ms(lambda: dynamics.car_update_plain(*args, cfg.dt, cfg.car),
+                             windows=5, launches=5)
+    b_ms, b_by = bound_ms(nbytes(*args, *outs), x.numel() * K5_OPS_PER_CAR)
+    print(f"K5 time {ms * 1e3:.2f} us eager back-to-back ({g_ms * 1e3:.2f} us in a CUDA "
+          f"graph), bound {b_ms * 1e3:.3f} us ({b_by}), plain {plain_ms * 1e3:.1f} us")
+    return {"name": "car_update", "route": "cuda",
+            "source": "self_play_racing_tpu_torch/csrc/car_update.cu",
+            "replaces": "self_play_racing_tpu/ops/dynamics.py:37",
+            "max_abs_err": 0.0, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
@@ -331,18 +537,29 @@ def check_k7(dev, n_units):
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
+COUNTERS = {
+    "raycast_walls": (geo, "raycast_walls_launches"),
+    "progress_and_collision": (geo, "progress_and_collision_launches"),
+    "raycast_cars": (geo, "raycast_cars_launches"),
+    "rectangles_intersect": (geo, "rectangles_intersect_launches"),
+    "car_update": (dynamics, "car_update_launches"),
+    "compute_gae": (gae, "compute_gae_launches"),
+    "mixbits_permutation": (prng, "mixbits_permutation_launches"),
+}
+
+
 def zero_counts():
-    geo.raycast_walls_launches = 0
-    geo.progress_and_collision_launches = 0
-    gae.compute_gae_launches = 0
-    prng.mixbits_permutation_launches = 0
+    for module, attr in COUNTERS.values():
+        setattr(module, attr, 0)
 
 
 def read_counts():
-    return {"raycast_walls": geo.raycast_walls_launches,
-            "progress_and_collision": geo.progress_and_collision_launches,
-            "compute_gae": gae.compute_gae_launches,
-            "mixbits_permutation": prng.mixbits_permutation_launches}
+    return {name: getattr(module, attr) for name, (module, attr) in COUNTERS.items()}
+
+
+def counts(**nonzero):
+    """The expected counts: those given, every other kernel 0."""
+    return {name: nonzero.get(name, 0) for name in COUNTERS}
 
 
 def rollout(params, log_std, cfg, track, vstate, obs, gen, steps):
@@ -384,8 +601,8 @@ def main_path(track, cfg, dev, card):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_counts()
-    expected = {"raycast_walls": STEPS + 1, "progress_and_collision": STEPS,
-                "compute_gae": 0, "mixbits_permutation": 0}
+    expected = counts(raycast_walls=STEPS + 1, progress_and_collision=STEPS,
+                      car_update=STEPS)
     print(f"main path: {NUM_ENVS} envs x {STEPS} steps in {dt:.3f} s = "
           f"{NUM_ENVS * STEPS / dt:,.0f} env-steps/s on {card}; launches {launches}")
     if launches != expected:
@@ -394,7 +611,6 @@ def main_path(track, cfg, dev, card):
         raise AssertionError("main path: non-finite obs or reward, or wrong obs shape")
     print(f"main path: obs {tuple(obs.shape)} and rewards finite; {int(ended)} episodes "
           f"ended in the run")
-    return launches
 
 
 @contextlib.contextmanager
@@ -428,7 +644,7 @@ def minibatch_loops(updates: int, around=contextlib.nullcontext):
 
 
 def training(track, env_cfg, card):
-    """The trainer at the bench width; returns its launch counts."""
+    """The single-car trainer at the bench width."""
     cfg = base_config(num_envs=NUM_ENVS, num_steps=STEPS,
                       total_timesteps=NUM_ENVS * STEPS * 100)
     t0 = time.perf_counter()
@@ -458,9 +674,9 @@ def training(track, env_cfg, card):
               f"episodes {m['episodes']:.0f} mean_ep_return {m['mean_ep_return']:.2f}")
     print(f"train: median {statistics.median(wall) * 1e3:.1f} ms/update at {NUM_ENVS} x {STEPS} "
           f"on {card}; launches {launches}")
-    expected = {"raycast_walls": STEPS * TRAIN_UPDATES,
-                "progress_and_collision": STEPS * TRAIN_UPDATES,
-                "compute_gae": TRAIN_UPDATES, "mixbits_permutation": TRAIN_UPDATES}
+    n = STEPS * TRAIN_UPDATES
+    expected = counts(raycast_walls=n, progress_and_collision=n, car_update=n,
+                      compute_gae=TRAIN_UPDATES, mixbits_permutation=TRAIN_UPDATES)
     if launches != expected:
         raise AssertionError(f"training launches {launches}, expected {expected}")
     for m in metrics:
@@ -469,7 +685,6 @@ def training(track, env_cfg, card):
     after = list(trainer.runner.train.model.parameters())
     if all(torch.equal(a, b) for a, b in zip(after, before)):
         raise AssertionError("training: the timed updates left every parameter unchanged")
-    return launches
 
 
 def entry_point(card):
@@ -492,10 +707,154 @@ def entry_point(card):
           f"{dt:.1f} s on {card}; launches {launches}; saved policy loads "
           f"({len(params['actor'])} layers per tower, log_std {log_std.tolist()})")
     steps = 2 * cfg.num_steps
-    expected = {"raycast_walls": steps + 1, "progress_and_collision": steps,
-                "compute_gae": 2, "mixbits_permutation": 2}
+    expected = counts(raycast_walls=steps + 1, progress_and_collision=steps,
+                      car_update=steps, compute_gae=2, mixbits_permutation=2)
     if launches != expected:
         raise AssertionError(f"train single launches {launches}, expected {expected}")
+
+
+def selfplay_training(track, card):
+    """This slice's main path: scale-mode self-play at its full width. Returns the
+    launch counts of the timed updates and the trainer."""
+    cfg = self_play_config(num_envs=NUM_ENVS, num_steps=STEPS,
+                           total_timesteps=1_000_000_000, opponent_per_env=True,
+                           reset_envs_each_update=False, snapshot_freq=1)
+    print(f"self-play: train scale's config with snapshot_freq overridden "
+          f"{self_play_config().snapshot_freq} -> 1 (pool opponents from the second update)")
+    t0 = time.perf_counter()
+    trainer = SelfPlayTrainer(cfg, menv.MultiRacingConfig(num_agents=NUM_AGENTS,
+                                                          num_sensors=11), track)
+    metrics = []
+    trainer.train(num_updates=1, on_update=lambda tr, m: metrics.append(m))
+    torch.cuda.synchronize()
+    print(f"self-play: trainer built and warm-up update in {time.perf_counter() - t0:.1f} s")
+    zero_counts()
+    wall, pools = [], []
+    with minibatch_loops(SP_TRAIN_UPDATES) as loops:
+        for _ in range(SP_TRAIN_UPDATES):
+            t = time.perf_counter()
+            trainer.train(num_updates=1, on_update=lambda tr, m: metrics.append(m))
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t)
+            pools.append(trainer.pool_count)
+    launches = read_counts()
+    info = trainer.training_info
+    for i, (dt, (up, _), m, pool) in enumerate(zip(wall, loops, metrics[1:], pools)):
+        games = m["_extra"][cfg.pool_size:].sum()
+        wins = m["_extra"][:cfg.pool_size].sum()
+        print(f"self-play update {i + 1}: {dt * 1e3:.1f} ms = {cfg.batch_size / dt:,.0f} "
+              f"env-steps/s; rollout + GAE + permutations {(dt - up) * 1e3:.1f} ms, "
+              f"minibatch loop {up * 1e3:.1f} ms; minibatches_applied "
+              f"{m['minibatches_applied']:.0f}, approx_kl {m['approx_kl']:.5f}, "
+              f"mean_ep_return {m['mean_ep_return']:.2f} over {m['episodes']:.0f} episodes; "
+              f"pool {pool}, learner won {wins:.0f} of {games:.0f} races against the pool")
+    print(f"self-play: median {statistics.median(wall) * 1e3:.1f} ms/update at {NUM_ENVS} x "
+          f"{STEPS} x {NUM_AGENTS} cars on {card}; pool win rate history "
+          f"{info['pool_win_rate']}; launches {launches}")
+    n = STEPS * SP_TRAIN_UPDATES
+    expected = counts(raycast_walls=n, raycast_cars=n, progress_and_collision=n,
+                      rectangles_intersect=n, car_update=n, compute_gae=SP_TRAIN_UPDATES,
+                      mixbits_permutation=SP_TRAIN_UPDATES)
+    if launches != expected:
+        raise AssertionError(f"self-play launches {launches}, expected {expected}")
+    for m in metrics:
+        if not all(np.isfinite(m[k]) for k in ("pg_loss", "v_loss", "mean_reward", "approx_kl")):
+            raise AssertionError(f"self-play: non-finite metrics {m}")
+    if pools != [1, 2, 3] or sum(m["_extra"][cfg.pool_size:].sum() for m in metrics[1:]) == 0:
+        raise AssertionError(f"self-play: pool counts {pools} or no race against the pool")
+    return launches
+
+
+def file_digests():
+    digests = {}
+    for path in TRACKED:
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                digests[path] = hashlib.sha256(f.read()).hexdigest()
+    return digests
+
+
+def selfplay_entry_points(card):
+    """``train scale`` and ``train multi`` at their defaults, two updates each, in
+    temporary directories; the repo's tracked files must not change."""
+    before = file_digests()
+    cwd = os.getcwd()
+    runs = {"scale": "models/self_play_agent_scale_1B.npz",
+            "multi": "models/self_play_agent.npz"}
+    for mode, out in runs.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            try:
+                zero_counts()
+                t0 = time.perf_counter()
+                trainer = ttrain.main([mode, "--num-updates", "2"])
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                launches = read_counts()
+                params, log_std, _ = load_policy_bundle(out)
+            finally:
+                os.chdir(cwd)
+        cfg = trainer.cfg
+        steps = 2 * cfg.num_steps
+        # sensing: every step, the construction's reset, and train multi's forced
+        # reset before each update
+        sensed = steps + 1 + (2 if cfg.reset_envs_each_update else 0)
+        expected = counts(raycast_walls=sensed, raycast_cars=sensed,
+                          progress_and_collision=steps, rectangles_intersect=steps,
+                          car_update=steps, compute_gae=2, mixbits_permutation=2)
+        print(f"train {mode}: {cfg.num_envs} envs x {cfg.num_steps} steps x 2 cars, 2 updates "
+              f"in {dt:.1f} s on {card}; launches {launches}; saved policy loads "
+              f"({params['actor'][0][0].shape[0]} inputs, log_std {log_std.tolist()})")
+        if launches != expected:
+            raise AssertionError(f"train {mode} launches {launches}, expected {expected}")
+    if file_digests() != before:
+        raise AssertionError("the self-play entry points wrote the repo's tracked files")
+    print(f"train scale/multi left the repo's tracked files untouched ({len(before)} checked)")
+
+
+def checkpoints(track, dev):
+    """A checkpoint at update 2 resumed into a fresh trainer on the card, and the
+    repo's v0 and reference checkpoints loaded onto it."""
+    envs = 256
+    cfg = self_play_config(num_envs=envs, num_steps=32, total_timesteps=envs * 32 * 10,
+                           snapshot_freq=1, opponent_per_env=True,
+                           reset_envs_each_update=False)
+    env_cfg = menv.MultiRacingConfig(num_agents=NUM_AGENTS, num_sensors=11)
+    sub = trk.gather_tracks(track, np.arange(envs))
+    with tempfile.TemporaryDirectory() as tmp:
+        a = SelfPlayTrainer(cfg, env_cfg, sub)
+        a.train(num_updates=2, checkpoint_dir=tmp, checkpoint_every=2)
+        b = SelfPlayTrainer(cfg, env_cfg, sub)
+        b.load_checkpoint(os.path.join(tmp, "checkpoint_update_2"))
+    same = lambda xs, ys: all(torch.equal(x, y) for x, y in zip(xs, ys))
+    pool = lambda tr: [t for layers in tr.pool["params"].values() for layer in layers
+                       for t in layer] + [tr.pool["log_std"]]
+    ta, tb = a.runner.train, b.runner.train
+    if not (same(ta.model.parameters(), tb.model.parameters())
+            and same(ta.opt_state.mu, tb.opt_state.mu) and same(ta.opt_state.nu, tb.opt_state.nu)
+            and ta.opt_state.count == tb.opt_state.count and ta.update == tb.update == 2
+            and same(pool(a), pool(b)) and a.num_snapshots == b.num_snapshots == 1
+            and (a.pool_wins == b.pool_wins).all() and (a.pool_games == b.pool_games).all()):
+        raise AssertionError("checkpoint: the resumed trainer differs from the saved one")
+    print(f"checkpoint at update 2 resumed on {dev}: parameters, Adam state (count "
+          f"{tb.opt_state.count}), pool ({b.pool_count}) and counters equal")
+    ref = SelfPlayTrainer(self_play_config(), env_cfg, trk.gather_tracks(track, np.arange(16)))
+    if os.path.exists(V0_CHECKPOINT):
+        ref.load_checkpoint(V0_CHECKPOINT)
+        print(f"v0 {V0_CHECKPOINT}: update {ref.runner.train.update}, pool {ref.pool_count}")
+        if (ref.runner.train.update, ref.pool_count) != (90, 5):
+            raise AssertionError("v0 checkpoint: expected update 90 and a pool of 5")
+    else:
+        print(f"v0 {V0_CHECKPOINT}: not in this checkout; its load is held to the JAX "
+              f"package's in the CPU tests (tests/test_torch_selfplay_checkpoint.py)")
+    ref.load_torch_checkpoint(TORCH_CHECKPOINT)
+    print(f"reference {TORCH_CHECKPOINT}: resumes at update {ref.runner.train.update}, "
+          f"pool {ref.pool_count}")
+    if (ref.runner.train.update, ref.pool_count) != (91, 5):
+        raise AssertionError("reference checkpoint: expected update 91 and a pool of 5")
+    ref.train(num_updates=1)  # and trains on from it
+    if not all(bool(torch.isfinite(p).all()) for p in ref.runner.train.model.parameters()):
+        raise AssertionError("reference checkpoint: training on from it gave non-finite weights")
 
 
 def evaluation(dev):
@@ -507,6 +866,14 @@ def evaluation(dev):
           f"avg_speed={res['avg_speed']:.3f} ({time.perf_counter() - t0:.1f} s)")
     if res["success_rate"] < SUCCESS_FLOOR:
         raise AssertionError(f"eval success_rate {res['success_rate']} < {SUCCESS_FLOOR}")
+    t0 = time.perf_counter()
+    res = evaluate_multi_agent_overall(grid, MULTI_MODEL, seed=42)
+    print(f"eval --multi {MULTI_MODEL} 40 x 5, 2 cars (sampled, seed 42): "
+          f"success_rate={res['success_rate']:.3f} crash_rate={res['crash_rate']:.3f} "
+          f"avg_steps={res['avg_steps']:.2f} avg_speed={res['avg_speed']:.3f} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if res["success_rate"] < SUCCESS_FLOOR:
+        raise AssertionError(f"eval --multi success_rate {res['success_rate']} < {SUCCESS_FLOOR}")
 
 
 def main() -> int:
@@ -532,14 +899,19 @@ def main() -> int:
     if (track.wp_x.shape[-1], track.seg_sx.shape[-1]) != (512, 896):
         raise AssertionError("canonical pool is not W=512, S=896")
     _, n_units, _ = ppo.minibatch_layout(base_config(num_envs=NUM_ENVS, num_steps=STEPS))
-    kernels = [check_k1(track, cfg, rng, dev), check_k2(track, cfg, rng, dev),
-               check_k6(dev), check_k7(dev, n_units)]
-    launches = main_path(track, cfg, dev, card)
-    launches.update({k: v for k, v in training(track, cfg, card).items()
-                     if k in ("compute_gae", "mixbits_permutation")})
+    kernels = [check_k1(track, cfg, rng, dev), check_k2(track, cfg, rng, dev)]
+    mcfg = menv.MultiRacingConfig(num_agents=NUM_AGENTS, num_sensors=11)
+    check_k2_shared_rows(track, mcfg, rng, dev)
+    kernels += [check_k3(track, mcfg, rng, dev), check_k4(track, mcfg, rng, dev),
+                check_k5(track, mcfg, rng, dev), check_k6(dev), check_k7(dev, n_units)]
+    main_path(track, cfg, dev, card)
+    training(track, cfg, card)
+    entry_point(card)
+    launches = selfplay_training(track, card)
     for k in kernels:
         k["launches"] = launches[k["name"]]
-    entry_point(card)
+    selfplay_entry_points(card)
+    checkpoints(track, dev)
     evaluation(dev)
     bench(Policy(MODEL, device=dev))
     print(f"card: {card}")

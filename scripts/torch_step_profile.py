@@ -4,6 +4,7 @@ update, spend their time, on the card.
 
   python scripts/torch_step_profile.py [--steps 32] [--num-envs 4096]
   python scripts/torch_step_profile.py --update [--num-envs 4096]
+  python scripts/torch_step_profile.py --selfplay [--steps 32] [--num-envs 4096]
 
 Runs chip_smoke.py's main path (``models/single_agent.npz``, canonical 16-track
 pool gathered to ``--num-envs`` envs, ``sample_action`` + ``vector.step``) under
@@ -20,11 +21,19 @@ unprofiled for the wall time of its minibatch loop (``run_ppo_update``) and of t
 rest (rollout, GAE, permutations), then the minibatch loop of a second update under
 the profiler, reported per computed minibatch, with the host operators that take
 the most host time.
+
+With ``--selfplay`` it profiles a self-play update at ``train scale``'s width
+(``--num-envs`` x 256 steps, 2 cars, opponents per env, ``snapshot_freq`` 1 so the
+pool is live after two warm-up updates): one update unprofiled for its wall time
+and its rollout/minibatch split, then ``--steps`` steps of the self-play rollout
+(opponents, transition, autoreset, refresh) alone, unprofiled for the wall time
+and under the profiler for the device time, reported per env step.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import os
 import sys
@@ -37,11 +46,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
 from self_play_racing_tpu_torch import interop  # noqa: E402
+from self_play_racing_tpu_torch.agent import ppo  # noqa: E402
+from self_play_racing_tpu_torch.agent.self_play import SelfPlayTrainer  # noqa: E402
 from self_play_racing_tpu_torch.agent.trainer import PPOTrainer  # noqa: E402
-from self_play_racing_tpu_torch.configs import base_config  # noqa: E402
+from self_play_racing_tpu_torch.configs import base_config, self_play_config  # noqa: E402
+from self_play_racing_tpu_torch.envs import multi as menv  # noqa: E402
 from self_play_racing_tpu_torch.envs import single as senv  # noqa: E402
 from self_play_racing_tpu_torch.envs import track as trk  # noqa: E402
 from self_play_racing_tpu_torch.envs import vector  # noqa: E402
+from self_play_racing_tpu_torch.models import actor_critic as net  # noqa: E402
 from self_play_racing_tpu_torch.utils.profiling import canonical_bench_pool  # noqa: E402
 
 
@@ -97,6 +110,62 @@ def profile_update(args, dev) -> dict:
     }
 
 
+def profile_selfplay(args, dev) -> dict:
+    cfg = self_play_config(num_envs=args.num_envs, num_steps=256,
+                           total_timesteps=1_000_000_000, opponent_per_env=True,
+                           reset_envs_each_update=False, snapshot_freq=1)
+    pool = canonical_bench_pool(16, device=dev)
+    track = trk.gather_tracks(pool, np.arange(args.num_envs) % 16)
+    trainer = SelfPlayTrainer(cfg, menv.MultiRacingConfig(num_agents=2, num_sensors=11),
+                              track)
+    trainer.train(num_updates=2)  # warm-up; a pool of one from the second update
+    with chip_smoke.minibatch_loops(1) as loops:
+        t0 = time.perf_counter()
+        trainer.train(num_updates=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    (loop_s, mbs), = loops
+
+    short = dataclasses.replace(cfg, num_steps=args.steps)
+    runner, log_std = trainer.runner, trainer.log_std
+    noise = net.sample_noise((args.steps, args.num_envs, 2), runner.generator, device=dev)
+
+    def rollout():
+        with torch.no_grad():
+            ppo.rollout_phase(short, trainer.hooks, runner, trainer.aux, log_std, noise)
+        torch.cuda.synchronize()
+
+    rollout()
+    t0 = time.perf_counter()
+    rollout()
+    step_wall = (time.perf_counter() - t0) / args.steps
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        rollout()
+    per_kernel = _device_kernels(prof)
+    busy_us = sum(t for t, _ in per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[: args.top]
+    steps = args.steps
+    return {
+        "card": chip_smoke.card_line(),
+        "num_envs": args.num_envs,
+        "cars": 2,
+        "pool": trainer.pool_count,
+        "update_wall_ms": wall * 1e3,
+        "rollout_gae_perms_ms": (wall - loop_s) * 1e3,
+        "minibatch_loop_ms": loop_s * 1e3,
+        "minibatches": mbs,
+        "rollout_steps_profiled": steps,
+        "rollout_wall_ms_per_step": step_wall * 1e3,
+        "device_busy_ms_per_step": busy_us / 1e3 / steps,
+        "device_idle_share": (1.0 - busy_us / 1e3 / steps / (step_wall * 1e3))
+        if busy_us else None,
+        "kernel_launches_per_step": sum(c for _, c in per_kernel.values()) / steps,
+        "top_kernels": [{"name": name[:90], "ms_per_step": t / 1e3 / steps,
+                         "launches_per_step": c / steps} for name, (t, c) in top],
+    }
+
+
 @torch.no_grad()
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
@@ -105,6 +174,8 @@ def main(argv=None) -> int:
     p.add_argument("--top", type=int, default=15)
     p.add_argument("--update", action="store_true",
                    help="profile the PPO update's minibatch loop instead of an env step")
+    p.add_argument("--selfplay", action="store_true",
+                   help="profile a self-play update and its rollout's env steps")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_step_profile: no CUDA device", file=sys.stderr)
@@ -112,6 +183,10 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     if args.update:
         print(json.dumps(profile_update(args, dev), indent=1))
+        return 0
+    if args.selfplay:
+        with torch.enable_grad():
+            print(json.dumps(profile_selfplay(args, dev), indent=1))
         return 0
     cfg = senv.RacingConfig(num_sensors=11)
     pool = canonical_bench_pool(16, device=dev)

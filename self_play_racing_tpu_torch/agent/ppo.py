@@ -56,9 +56,17 @@ class EnvHooks(NamedTuple):
     reset: Callable       # (aux, generator) -> env_state  (batched)
     transition: Callable  # (aux, env_state, action, generator) -> (state, rew, term, trunc, info)
     observe: Callable     # (aux, env_state) -> obs [N, obs_dim] float32
+    # optional: (aux, env_state) -> (env_state, obs), for envs that cache their
+    # observations in the state (self-play): called once per vector step on the
+    # merged state, in place of observe (see envs.vector.step)
+    refresh: Callable = None
     # optional: (aux, env_state) -> info with transition-info structure, for the
     # NEXT_STEP reset-info contract (see envs.vector.step)
     info: Callable = None
+    # optional: (aux, info, episode_record) -> [S] float32 per rollout step, summed
+    # over the rollout and appended to the packed metrics (``unpack_metrics``'s
+    # "_extra"; self-play's per-slot wins and games)
+    stats: Callable = None
 
 
 @dataclasses.dataclass
@@ -125,8 +133,7 @@ def init_runner(generator: torch.Generator, cfg: PPOConfig, hooks: EnvHooks, aux
     train = init_train_state(generator, cfg, obs_dim, action_dim, device=dev)
     vec_gen = _child_generator(generator, dev)
     carry = _child_generator(generator, dev)
-    env_state = hooks.reset(aux, vec_gen)
-    obs = hooks.observe(aux, env_state)
+    env_state, obs = reset_observe(hooks, aux, vec_gen)
     return RunnerState(
         train=train,
         vec=vector.init(env_state, cfg.num_envs, vec_gen),
@@ -135,6 +142,15 @@ def init_runner(generator: torch.Generator, cfg: PPOConfig, hooks: EnvHooks, aux
         generator=carry,
         obs_norm=obsnorm.init(obs_dim, device=dev),
     )
+
+
+def reset_observe(hooks: EnvHooks, aux, generator):
+    """(env_state, obs) of a fresh reset, sensed through ``refresh`` where the env
+    caches its observations."""
+    env_state = hooks.reset(aux, generator)
+    if hooks.refresh is not None:
+        return hooks.refresh(aux, env_state)
+    return env_state, hooks.observe(aux, env_state)
 
 
 def anneal_fractions(cfg: PPOConfig, update: int, action_dim: int = 2, device=None):
@@ -339,12 +355,14 @@ def rollout_phase(cfg: PPOConfig, hooks: EnvHooks, runner: RunnerState, aux, log
     ``noise`` [T, N, A] is the standard-normal action noise. Returns (vec,
     next_obs, next_done, obs_norm, traj, step_stats): ``traj`` a ``Batch`` of
     [T, N, ...] tensors (advantages and returns empty), ``step_stats`` the
-    per-step rewards (float32), done-entering flags and episode records."""
+    per-step rewards (float32), done-entering flags and episode records, and the
+    rollout's sum of ``hooks.stats`` under "extra" when the hooks have one."""
     params = runner.train.model.params()
     vec, obs, done, norm = runner.vec, runner.obs, runner.done, runner.obs_norm
     keys = ("obs", "actions", "logprobs", "values", "reward", "done_entering",
             "ep_return", "ep_length", "ep_mask")
     out = {k: [] for k in keys}
+    extra = None
     for t in range(cfg.num_steps):
         if cfg.normalize_obs:
             norm = obsnorm.update(norm, obs)
@@ -352,13 +370,18 @@ def rollout_phase(cfg: PPOConfig, hooks: EnvHooks, runner: RunnerState, aux, log
         else:
             policy_obs = obs
         action, logprob, value = net.sample_action(params, log_std, policy_obs, noise[t])
-        vec, next_obs, reward, next_done, _, _, _, rec = vector.step(
+        vec, next_obs, reward, next_done, _, _, info, rec = vector.step(
             vec, action,
             lambda s, a, g: hooks.transition(aux, s, a, g),
             lambda s: hooks.observe(aux, s),
             lambda g: hooks.reset(aux, g),
+            refresh_fn=(None if hooks.refresh is None
+                        else (lambda s: hooks.refresh(aux, s))),
             info_fn=(None if hooks.info is None else (lambda s: hooks.info(aux, s))),
         )
+        if hooks.stats is not None:
+            st = hooks.stats(aux, info, rec)
+            extra = st if extra is None else extra + st
         out["obs"].append(policy_obs)
         out["actions"].append(action)
         out["logprobs"].append(logprob)
@@ -370,6 +393,8 @@ def rollout_phase(cfg: PPOConfig, hooks: EnvHooks, runner: RunnerState, aux, log
         out["ep_mask"].append(rec["mask"])
         obs, done = next_obs.to(torch.float32), next_done
     stacked = {k: torch.stack(v) for k, v in out.items()}
+    if extra is not None:
+        stacked["extra"] = extra
     traj = Batch(obs=stacked["obs"], actions=stacked["actions"],
                  logprobs=stacked["logprobs"], advantages=None, returns=None,
                  values=stacked["values"])
@@ -393,8 +418,10 @@ def make_update_step(cfg: PPOConfig, hooks: EnvHooks, action_dim: int = 2):
 
         if cfg.reset_envs_each_update:
             # the reference rebuilds every env each update but keeps its stale
-            # next_obs/next_done: the env state resets, runner.obs/done do not
-            env_state = hooks.reset(aux, runner.vec.generator)
+            # next_obs/next_done: the env state resets (and an env that caches
+            # observations senses it: self-play's opponents act on the fresh
+            # reset obs), runner.obs/done do not
+            env_state, _ = reset_observe(hooks, aux, runner.vec.generator)
             runner = dataclasses.replace(
                 runner, vec=vector.init(env_state, cfg.num_envs, runner.vec.generator))
 
@@ -431,8 +458,11 @@ def make_update_step(cfg: PPOConfig, hooks: EnvHooks, action_dim: int = 2):
             sstats["ep_length"].sum().to(torch.float32),
             ep_count.to(torch.float32),
             rewards.mean(),
-        ]).cpu().numpy()
-        ret_sum, len_sum, count, mean_reward = device_vals
+        ])
+        if "extra" in sstats:  # the hook's sums ride the same transfer
+            device_vals = torch.cat([device_vals, sstats["extra"].to(torch.float32)])
+        host = device_vals.cpu().numpy()
+        ret_sum, len_sum, count, mean_reward = host[:4]
         f32 = np.float32
         metrics = {
             "update": f32(train.update),
@@ -453,7 +483,10 @@ def make_update_step(cfg: PPOConfig, hooks: EnvHooks, action_dim: int = 2):
             "mean_reward": mean_reward,
         }
         assert tuple(metrics) == METRIC_NAMES
-        return new_runner, np.array(list(metrics.values()), dtype=np.float32)
+        # the hook's sums ride after the named metrics ("_extra")
+        packed = np.concatenate([np.array(list(metrics.values()), dtype=np.float32),
+                                 host[4:]])
+        return new_runner, packed
 
     return update_step
 
@@ -466,5 +499,10 @@ METRIC_NAMES = (
 
 
 def unpack_metrics(packed):
-    """Packed f32 metric vector -> {name: value}."""
-    return dict(zip(METRIC_NAMES, np.asarray(packed)))
+    """Packed f32 metric vector -> {name: value}. Values past the named metrics
+    (an ``EnvHooks.stats`` tail) land under ``"_extra"`` as an array."""
+    vals = np.asarray(packed)
+    out = dict(zip(METRIC_NAMES, vals))
+    if len(vals) > len(METRIC_NAMES):
+        out["_extra"] = vals[len(METRIC_NAMES):]
+    return out

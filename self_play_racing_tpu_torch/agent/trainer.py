@@ -1,8 +1,10 @@
 """Host-side training loop around the PPO update (port of
-``self_play_racing_tpu/agent/trainer.py``, single-car trainer).
+``self_play_racing_tpu/agent/trainer.py``).
 
 Buffers, per-update anneals, logging and the training-info JSON as in the
-reference; the trainer runs on the device its track lives on.
+reference; the trainer runs on the device its track lives on. It drives the
+single-car env by default; the self-play trainer passes its own ``hooks`` and
+``aux``.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .._tree import tree_map
 from ..configs import PPOConfig
 from ..envs import single as senv
 from ..envs import track as trk
@@ -68,16 +71,19 @@ class PPOTrainer:
     ``cfg.seed``.
     """
 
-    def __init__(self, cfg: PPOConfig, env_cfg: senv.RacingConfig, track: trk.TrackArrays):
+    def __init__(self, cfg: PPOConfig, env_cfg: senv.RacingConfig, track: trk.TrackArrays,
+                 hooks: Optional[ppo.EnvHooks] = None, aux=None):
         self.cfg = cfg
         self.env_cfg = env_cfg
         self.device = track.wp_x.device
-        if cfg.anneal_speed_weight:
+        if aux is not None:
+            self.aux = self._place_aux(aux)
+        elif cfg.anneal_speed_weight:
             self.aux = {"track": track,
                         "speed_weight": self._f32(env_cfg.speed_weight)}
         else:
             self.aux = track
-        self.hooks = make_single_env_hooks(env_cfg)
+        self.hooks = hooks if hooks is not None else make_single_env_hooks(env_cfg)
         self.update_step = ppo.make_update_step(cfg, self.hooks, env_cfg.action_dim)
         generator = torch.Generator().manual_seed(cfg.seed)
         self.runner = ppo.init_runner(generator, cfg, self.hooks, self.aux,
@@ -90,6 +96,10 @@ class PPOTrainer:
 
     def _f32(self, value) -> torch.Tensor:
         return torch.tensor(value, dtype=torch.float32, device=self.device)
+
+    def _place_aux(self, aux):
+        """Freshly built aux leaves, moved to the trainer's device."""
+        return tree_map(lambda t: t.to(self.device), aux)
 
     @property
     def params(self):
@@ -199,8 +209,7 @@ class PPOTrainer:
         """Re-reset all envs against the current aux, keeping learner state."""
         runner = self.runner
         vec_gen = runner.vec.generator
-        env_state = self.hooks.reset(self.aux, vec_gen)
-        obs = self.hooks.observe(self.aux, env_state)
+        env_state, obs = ppo.reset_observe(self.hooks, self.aux, vec_gen)
         self.runner = dataclasses.replace(
             runner,
             vec=vector.init(env_state, self.cfg.num_envs, vec_gen),

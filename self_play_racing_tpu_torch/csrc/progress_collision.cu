@@ -17,9 +17,11 @@
 // 0.12 GFLOP (11 operations per query-waypoint pair), about 2 us. It is
 // memory-bound.
 //
-// Design: one block per car, one warp per query (centre + corners). The block
-// stages its row's four waypoint fields in shared memory once and its queries
-// share them, so device memory is read once per car. Lanes take waypoints
+// Design: one block per car, one warp per query (centre + corners). Cars come in
+// rows that share one waypoint row (the multi-car env's [envs, cars] batch against
+// [envs, 1, W] rows, so the rows are never expanded per car); the block stages its
+// row's four waypoint fields in shared memory once and its queries share them, so
+// device memory is read once per car (from L2 for the second car of a row). Lanes take waypoints
 // lane, lane+32, ... in index order; the warp then reduces on the pair (d^2, idx),
 // a total order, so the shuffle tree gives the exact first-index argmin whatever
 // its shape. Compiled with -fmad=false so products and sums round as PyTorch's.
@@ -37,7 +39,7 @@ __global__ void progress_and_collision_kernel(
         const float* __restrict__ nrm_x, const float* __restrict__ nrm_y,
         const int* __restrict__ n_wp, const float* __restrict__ track_width,
         float* __restrict__ progress, unsigned char* __restrict__ crashed,
-        int num_corners, int num_waypoints) {
+        int cars_per_row, int num_corners, int num_waypoints) {
     extern __shared__ float smem[];
     __shared__ int s_crashed;
     const int W = num_waypoints;
@@ -46,8 +48,8 @@ __global__ void progress_and_collision_kernel(
     float* s_nx = smem + 2 * W;
     float* s_ny = smem + 3 * W;
 
-    const size_t row = blockIdx.x;
-    const size_t base = row * (size_t)W;
+    const size_t row = blockIdx.x;  // the car
+    const size_t base = (row / (size_t)cars_per_row) * (size_t)W;
     for (int i = threadIdx.x; i < W; i += blockDim.x) {
         s_wx[i] = wp_x[base + i];
         s_wy[i] = wp_y[base + i];
@@ -99,17 +101,20 @@ __global__ void progress_and_collision_kernel(
 }  // namespace
 
 // rows cars; centres x, y [rows]; corners cx, cy [rows, num_corners]; waypoint
-// fields [rows, num_waypoints]; n_wp, track_width [rows]; progress [rows] f32,
-// crashed [rows] bytes (0/1). Returns a cudaError_t (0 on success).
+// fields [rows / cars_per_row, num_waypoints] (car i reads waypoint row
+// i / cars_per_row); n_wp, track_width [rows]; progress [rows] f32, crashed [rows]
+// bytes (0/1). Returns a cudaError_t (0 on success).
 extern "C" int progress_and_collision_f32(
         const float* x, const float* y, const float* cx, const float* cy,
         const float* wp_x, const float* wp_y, const float* nrm_x,
         const float* nrm_y, const int* n_wp, const float* track_width,
         float* progress, unsigned char* crashed,
-        int rows, int num_corners, int num_waypoints, int device, void* stream) {
+        int rows, int cars_per_row, int num_corners, int num_waypoints, int device,
+        void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (rows == 0) return 0;
+    if (cars_per_row < 1) return (int)cudaErrorInvalidValue;
     const size_t smem = 4 * (size_t)num_waypoints * sizeof(float);
     if (smem > 48 * 1024) {
         err = cudaFuncSetAttribute(progress_and_collision_kernel,
@@ -120,7 +125,7 @@ extern "C" int progress_and_collision_f32(
     progress_and_collision_kernel<<<rows, 32 * (1 + num_corners), smem,
                                     (cudaStream_t)stream>>>(
         x, y, cx, cy, wp_x, wp_y, nrm_x, nrm_y, n_wp, track_width, progress,
-        crashed, num_corners, num_waypoints);
+        crashed, cars_per_row, num_corners, num_waypoints);
     return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,345 @@
+"""Multi-car racing env as batched PyTorch functions (port of
+``self_play_racing_tpu/envs/multi.py``).
+
+Branch-free over a ``[num_envs, num_agents]`` state layout:
+
+ - per-car obs = ``num_sensors`` rays in a +-pi/2 cone cast against the walls (K1)
+   and every car's rectangle (K3), their minimum; 4 kinematic features (the
+   angular-velocity feature is always 0); 4 opponent-relative features per
+   opponent in seat order without self (relative position over the track's
+   max_track_distance, relative velocity over max_speed, in the car's frame).
+ - actions: steering clipped to [-1, 1]; throttle ``clip((a + 1) / 2, 0, 1)``
+   (not the single env's raw clip).
+ - car-car response: the SAT test (K4) over all [N, A, A] pairs with the diagonal
+   masked; a car's velocity is multiplied by 0.92 once per colliding partner and
+   it takes -5 per partner.
+ - reward order: progress, speed, checkpoints, finish with its time bonus, the
+   one-time crash penalty, the touch penalty, then +250 to the winner at episode
+   end. terminated = any finished | all crashed; truncated at ``max_steps``.
+ - placement at episode end: score ``finished*10000 + progress*100 +
+   !crashed*10 + 1/finished_step`` ranked descending, the higher seat index
+   winning exact ties; 0 until the episode ends.
+ - start grid: cars side by side along the start normal, spacing width + 1.5,
+   slot ``position_idx`` (given, or a random permutation per env).
+
+Each env step makes one K1 launch over rays [N, A, R], one K3 launch, one K2
+launch over cars [N, A] against waypoint rows [N, 1, W], one K4 launch and one K5
+launch. The JAX package's per-seat raycast unroll and its query-layout switch
+work around XLA fusion limits and have no counterpart here.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from .._numerics import const_div, div_const
+from ..ops import geometry as geo
+from ..ops.dynamics import DEFAULT_CAR, CarSpec, car_update
+from .track import TrackArrays
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiRacingConfig:
+    """Static configuration (shapes and reward/response constants)."""
+
+    num_agents: int = 2
+    num_sensors: int = 11
+    max_sensor_range: float = 50.0
+    sensor_cone: float = float(np.pi / 2)
+    # Clamp sensor reads to max_sensor_range. False keeps the reference's
+    # unclamped-hit quirk for the walls (the car rays are clamped either way).
+    clamp_sensor_range: bool = False
+    dt: float = 0.05
+    max_steps: int = 3000
+    car: CarSpec = DEFAULT_CAR
+
+    progress_scale: float = 200.0
+    speed_scale: float = 18.0
+    checkpoint_bonus: float = 25.0
+    crash_penalty: float = 160.0
+    finish_bonus: float = 100.0
+    time_bonus_base: float = 300.0
+    time_bonus_divisor: float = 15.0
+    touch_penalty: float = 5.0
+    collision_speed_scale: float = 0.92
+    winner_bonus: float = 250.0
+
+    @property
+    def obs_dim(self) -> int:
+        return self.num_sensors + 4 + (self.num_agents - 1) * 4
+
+    @property
+    def action_dim(self) -> int:
+        return 2
+
+    def sensor_angles(self) -> np.ndarray:
+        return np.linspace(-self.sensor_cone, self.sensor_cone, self.num_sensors)
+
+
+@dataclasses.dataclass
+class MultiState:
+    """Batched state: car fields are [N, A]; ``steps`` is [N] int32."""
+
+    x: torch.Tensor
+    y: torch.Tensor
+    angle: torch.Tensor
+    vx: torch.Tensor
+    vy: torch.Tensor
+    progress: torch.Tensor
+    crashed: torch.Tensor        # bool
+    finished: torch.Tensor       # bool
+    steps: torch.Tensor          # [N] int32
+    last_progress: torch.Tensor
+    last_steering: torch.Tensor
+    cp25: torch.Tensor           # bool checkpoint flags
+    cp50: torch.Tensor
+    cp75: torch.Tensor
+    has_crashed: torch.Tensor    # bool: the crash penalty was paid
+    finished_step: torch.Tensor  # [N, A] int32, 0 = not finished
+    placement: torch.Tensor      # [N, A] int32, 0 until the episode ends
+
+
+def random_grid_slots(num_envs: int, num_agents: int, generator: torch.Generator,
+                      device=None) -> torch.Tensor:
+    """A random permutation of the start-grid slots per env, [N, A] int64."""
+    u = torch.rand((num_envs, num_agents), generator=generator, device=device)
+    return torch.argsort(u, dim=-1)
+
+
+def reset_state(cfg: MultiRacingConfig, track: TrackArrays, generator=None,
+                position_idx=None) -> MultiState:
+    """Fresh state on the staggered start grid. ``position_idx`` [N, A] gives each
+    car's grid slot; without it a random permutation per env is drawn from
+    ``generator`` (on the track's device)."""
+    dtype = track.wp_x.dtype
+    dev = track.wp_x.device
+    n = track.wp_x.shape[0]
+    a = cfg.num_agents
+    if position_idx is None:
+        if generator is None:
+            raise ValueError("reset_state needs a generator or explicit position_idx")
+        position_idx = random_grid_slots(n, a, generator, device=dev)
+    position_idx = torch.as_tensor(position_idx, device=dev)
+
+    spacing = cfg.car.width + 1.5
+    center = (a - 1) / 2.0
+    offset = (position_idx.to(dtype) - center) * spacing              # [N, A]
+    x = track.start_x[:, None] + track.start_nx[:, None] * offset
+    y = track.start_y[:, None] + track.start_ny[:, None] * offset
+    zeros = torch.zeros((n, a), dtype=dtype, device=dev)
+    false = torch.zeros((n, a), dtype=torch.bool, device=dev)
+    izeros = torch.zeros((n, a), dtype=torch.int32, device=dev)
+    return MultiState(
+        x=x, y=y,
+        angle=track.start_angle[:, None].to(dtype).expand(n, a).contiguous(),
+        vx=zeros, vy=zeros, progress=zeros,
+        crashed=false, finished=false,
+        steps=torch.zeros((n,), dtype=torch.int32, device=dev),
+        last_progress=zeros, last_steering=zeros,
+        cp25=false, cp50=false, cp75=false,
+        has_crashed=false,
+        finished_step=izeros,
+        placement=izeros,
+    )
+
+
+@functools.lru_cache(maxsize=16)
+def _sensor_angles(cfg: MultiRacingConfig, dtype, device) -> torch.Tensor:
+    # made once per device: a host-to-device copy on every step would stall it
+    return torch.as_tensor(cfg.sensor_angles(), dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=16)
+def _opponent_index(num_agents: int, device) -> torch.Tensor:
+    """[A, A-1]: the other seats of each seat, in seat order."""
+    idx = [[j for j in range(num_agents) if j != i] for i in range(num_agents)]
+    return torch.as_tensor(np.asarray(idx, np.int64).reshape(num_agents, num_agents - 1),
+                           device=device)
+
+
+def observe(cfg: MultiRacingConfig, track: TrackArrays, state: MultiState) -> torch.Tensor:
+    """Per-car observations, float32 [N, A, obs_dim]."""
+    dtype, dev = state.x.dtype, state.x.device
+    n, a = state.x.shape
+    rel = _sensor_angles(cfg, dtype, dev)                             # [R]
+    world = state.angle[:, :, None] + rel                             # [N, A, R]
+    ox = state.x[:, :, None].expand(world.shape)
+    oy = state.y[:, :, None].expand(world.shape)
+    dx, dy = torch.cos(world), torch.sin(world)
+    wall = geo.raycast_walls(
+        ox, oy, dx, dy,
+        track.seg_sx[:, None, None, :], track.seg_sy[:, None, None, :],
+        track.seg_vx[:, None, None, :], track.seg_vy[:, None, None, :],
+        cfg.max_sensor_range, seg_c=track.seg_c[:, None, None, :],
+    )                                                                 # [N, A, R]
+    ccx, ccy = geo.car_corners(state.x, state.y, state.angle,
+                               cfg.car.length / 2, cfg.car.width / 2)  # [N, A, 4]
+    cars = geo.raycast_cars(
+        ox, oy, dx, dy, ccx[:, None, None], ccy[:, None, None],
+        state.x[:, None, None, :].contiguous(), state.y[:, None, None, :].contiguous(),
+        cfg.max_sensor_range,
+    )
+    dist = torch.minimum(wall, cars)
+    if cfg.clamp_sensor_range:
+        dist = torch.clamp_max(dist, cfg.max_sensor_range)
+    rays = div_const(dist.to(torch.float32), cfg.max_sensor_range)
+
+    ca = torch.cos(state.angle)
+    sa = torch.sin(state.angle)
+    max_speed = cfg.car.max_speed
+    v_fwd = torch.clamp(div_const(state.vx * ca + state.vy * sa, max_speed), -1.0, 1.0)
+    v_lat = torch.clamp(div_const(-state.vx * sa + state.vy * ca, max_speed), -1.0, 1.0)
+    ang_vel = torch.zeros_like(v_fwd)  # reference quirk: always 0.0
+    feats = torch.stack([v_fwd, v_lat, ang_vel, state.last_steering], dim=-1)
+
+    # every ordered pair [N, i, j] at once, then seat i's opponents in seat order
+    max_td = track.max_track_distance[:, None, None].to(dtype)        # [N, 1, 1]
+    rel_x = state.x[:, None, :] - state.x[:, :, None]
+    rel_y = state.y[:, None, :] - state.y[:, :, None]
+    rel_vx = state.vx[:, None, :] - state.vx[:, :, None]
+    rel_vy = state.vy[:, None, :] - state.vy[:, :, None]
+    ca_i, sa_i = ca[:, :, None], sa[:, :, None]
+    lrx = torch.clamp((rel_x * ca_i + rel_y * sa_i) / max_td, -1.0, 1.0)
+    lry = torch.clamp((-rel_x * sa_i + rel_y * ca_i) / max_td, -1.0, 1.0)
+    lvx = torch.clamp(div_const(rel_vx * ca_i + rel_vy * sa_i, max_speed), -1.0, 1.0)
+    lvy = torch.clamp(div_const(-rel_vx * sa_i + rel_vy * ca_i, max_speed), -1.0, 1.0)
+    pair = torch.stack([lrx, lry, lvx, lvy], dim=-1)                  # [N, A, A, 4]
+    idx = _opponent_index(a, dev)                                     # [A, A-1]
+    opp = torch.take_along_dim(pair, idx[None, :, :, None], dim=2)    # [N, A, A-1, 4]
+    opp = opp.reshape(n, a, 4 * (a - 1))
+    # A == 1 gives an empty opponent block
+    return torch.cat([rays, feats.to(torch.float32), opp.to(torch.float32)], dim=-1)
+
+
+def transition(cfg: MultiRacingConfig, track: TrackArrays, state: MultiState, action):
+    """One step without sensing: (new_state, rewards [N, A], terminated [N],
+    truncated [N], info). ``action`` [N, A, 2]. ``terminated`` is the shared
+    per-car done; the episode's done is ``terminated | truncated``."""
+    dtype = state.x.dtype
+    n, a = state.x.shape
+
+    steering = torch.clamp(action[..., 0].to(dtype), -1.0, 1.0)
+    throttle = torch.clamp((action[..., 1].to(dtype) + 1.0) / 2.0, 0.0, 1.0)
+
+    nx, ny, nang, nvx, nvy = car_update(
+        state.x, state.y, state.angle, state.vx, state.vy, state.crashed,
+        steering, throttle, cfg.dt, cfg.car,
+    )
+    ccx, ccy = geo.car_corners(nx, ny, nang, cfg.car.length / 2, cfg.car.width / 2)
+    raw_progress, hit_wall = geo.progress_and_collision(
+        nx, ny, ccx, ccy, track.wp_x[:, None, :], track.wp_y[:, None, :],
+        track.nrm_x[:, None, :], track.nrm_y[:, None, :],
+        track.n_wp[:, None], track.track_width[:, None],
+    )
+    new_progress = torch.where(state.crashed, state.progress, raw_progress)
+    crashed = state.crashed | (~state.crashed & hit_wall)
+
+    # car-car contacts: the SAT test over every pair, the diagonal masked. A car's
+    # velocity is scaled once per partner it touches, as a ladder of selects (the
+    # reference multiplies in a pair loop; the same factor k times in any order)
+    if a > 1:
+        hits = geo.rectangles_intersect_pairs(ccx, ccy)                # [N, A, A]
+        hits = hits & ~torch.eye(a, dtype=torch.bool, device=hits.device)
+        num_hits = hits.sum(dim=-1)                                   # [N, A]
+        for m in range(a - 1):
+            more = num_hits > m
+            nvx = torch.where(more, nvx * cfg.collision_speed_scale, nvx)
+            nvy = torch.where(more, nvy * cfg.collision_speed_scale, nvy)
+        touch_penalty = -cfg.touch_penalty * num_hits.to(dtype)
+    else:
+        touch_penalty = torch.zeros((n, a), dtype=dtype, device=state.x.device)
+
+    steps = state.steps + 1
+    p, lp = new_progress, state.last_progress
+
+    # reward, in the reference's order: progress, speed, checkpoints, finish, crash
+    delta = p - lp
+    delta = torch.where((lp > 0.9) & (p < 0.1), (1.0 - lp) + p, delta)
+    delta = torch.where((lp < 0.1) & (p > 0.9), -((1.0 - p) + lp), delta)
+
+    reward = delta * cfg.progress_scale
+
+    speed = torch.sqrt(nvx * nvx + nvy * nvy)
+    speed_ratio = torch.clamp(div_const(speed, cfg.car.max_speed), 0.0, 1.0)
+    reward = reward + torch.where(~crashed & (delta > 0), speed_ratio * cfg.speed_scale,
+                                  0.0)
+
+    hit25 = ~state.cp25 & (p >= 0.25) & (p < 0.35)
+    cp25 = state.cp25 | hit25
+    hit50 = cp25 & ~state.cp50 & (p >= 0.50) & (p < 0.60)
+    cp50 = state.cp50 | hit50
+    hit75 = cp50 & ~state.cp75 & (p >= 0.75) & (p < 0.85)
+    cp75 = state.cp75 | hit75
+    reward = reward + cfg.checkpoint_bonus * (hit25 | hit50 | hit75).to(dtype)
+
+    fin_now = cp25 & cp50 & cp75 & (lp > 0.9) & (p < 0.1) & (delta > 0)
+    finished = state.finished | fin_now
+    finished_step = torch.where(fin_now, steps[:, None], state.finished_step)
+    time_bonus = torch.clamp_min(
+        cfg.time_bonus_base - div_const(steps.to(dtype), cfg.time_bonus_divisor)[:, None],
+        0.0)
+    reward = reward + torch.where(fin_now, cfg.finish_bonus + time_bonus, 0.0)
+
+    crash_now = crashed & ~state.has_crashed
+    reward = reward - torch.where(crash_now, cfg.crash_penalty, 0.0)
+    has_crashed = state.has_crashed | crash_now
+
+    reward = reward + touch_penalty
+
+    terminated = finished.any(dim=-1) | crashed.all(dim=-1)
+    truncated = steps >= cfg.max_steps
+    done_all = terminated | truncated
+
+    # placement at episode end: descending score, the higher seat wins exact ties
+    fs = torch.where(finished_step != 0, finished_step, 10000).to(dtype)
+    score = (finished.to(dtype) * 10000.0 + new_progress * 100.0
+             + (~crashed).to(dtype) * 10.0 + const_div(1.0, fs))
+    seat = torch.arange(a, device=score.device)
+    beats = (score[:, :, None] < score[:, None, :]) | (
+        (score[:, :, None] == score[:, None, :]) & (seat[:, None] < seat[None, :]))
+    place = 1 + beats.sum(dim=-1).to(torch.int32)                     # [N, A]
+    placement = torch.where(done_all[:, None], place, 0).to(torch.int32)
+    reward = reward + torch.where(done_all[:, None] & (place == 1), cfg.winner_bonus, 0.0)
+
+    new_state = MultiState(
+        x=nx, y=ny, angle=nang, vx=nvx, vy=nvy,
+        progress=new_progress, crashed=crashed, finished=finished,
+        steps=steps, last_progress=new_progress, last_steering=steering,
+        cp25=cp25, cp50=cp50, cp75=cp75,
+        has_crashed=has_crashed, finished_step=finished_step, placement=placement,
+    )
+    info = {
+        "x": nx, "y": ny, "speed": speed,
+        "progress": torch.where(finished, torch.ones_like(new_progress), new_progress),
+        "crashed": crashed, "finished": finished,
+        "reward": reward, "placement": placement,
+    }
+    return new_state, reward, terminated, truncated, info
+
+
+def info_from_state(cfg: MultiRacingConfig, track: TrackArrays, state: MultiState):
+    """Info for a state outside any transition (the reset-info contract):
+    ``transition``'s schema with reward zeroed."""
+    speed = torch.sqrt(state.vx * state.vx + state.vy * state.vy)
+    return {
+        "x": state.x, "y": state.y, "speed": speed,
+        "progress": torch.where(state.finished, torch.ones_like(state.progress),
+                                state.progress),
+        "crashed": state.crashed, "finished": state.finished,
+        "reward": torch.zeros_like(speed), "placement": state.placement,
+    }
+
+
+def reset(cfg: MultiRacingConfig, track: TrackArrays, generator=None, position_idx=None):
+    """(state, obs) for a fresh batch."""
+    state = reset_state(cfg, track, generator, position_idx)
+    return state, observe(cfg, track, state)
+
+
+def step(cfg: MultiRacingConfig, track: TrackArrays, state: MultiState, action):
+    """Full env step: (new_state, obs, reward, terminated, truncated, info)."""
+    new_state, reward, terminated, truncated, info = transition(cfg, track, state, action)
+    return new_state, observe(cfg, track, new_state), reward, terminated, truncated, info

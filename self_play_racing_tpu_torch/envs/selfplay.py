@@ -1,0 +1,185 @@
+"""Self-play view: seat 0's perspective of the multi-car env, the other seats
+driven by frozen snapshot policies (port of ``self_play_racing_tpu/envs/selfplay.py``).
+
+Semantics kept from the JAX package:
+
+ - opponents act on the observation of the *previous* step, cached as ``obs_all``
+   in the state, so each step senses once;
+ - a pool opponent samples ``clip(mu + exp(log_std) * noise, -1, 1)`` with the
+   log_std frozen at its snapshot; where ``use_policy`` is False the action is a
+   uniform draw over [-1, 0]..[1, 1], computed from [0, 1) uniforms as
+   ``jax.random.uniform`` computes it;
+ - with one index per env the actions are computed under every pool member on one
+   noise draw and gathered by the index; with one shared index only that member
+   runs. Each member normalizes observations with the statistics frozen at its
+   snapshot when the pool carries ``norm_mean``/``norm_var``;
+ - the opponent seats are flattened env-major into one batch;
+ - the returned ``terminated`` is the episode's done (terminated | truncated).
+
+The opponent specification travels in the trainer's ``aux``:
+``opp = {"params": stacked pool [P, ...], "log_std": [P, 2], "idx": [N] or 0-d
+int, "use_policy": [N] or 0-d bool}`` plus optional ``"norm_mean"``/
+``"norm_var"`` [P, obs_dim]. Random inputs (the opponents' normal noise and
+uniforms, the start-grid slots of a reset) come from a ``torch.Generator``, through
+``opponent_randoms`` and ``multi.random_grid_slots``, or are given.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import multi
+from . import normalize as obsnorm
+from .track import TrackArrays
+
+_ACTION_LOW = (-1.0, 0.0)
+_ACTION_HIGH = (1.0, 1.0)
+
+
+@dataclasses.dataclass
+class SelfPlayState:
+    inner: multi.MultiState
+    obs_all: torch.Tensor  # [N, A, obs_dim] float32: obs of the current state
+
+
+def reset_state(cfg: multi.MultiRacingConfig, track: TrackArrays, generator=None,
+                position_idx=None) -> SelfPlayState:
+    inner = multi.reset_state(cfg, track, generator, position_idx)
+    return SelfPlayState(inner=inner, obs_all=multi.observe(cfg, track, inner))
+
+
+def opponent_randoms(generator: torch.Generator, rows: int, dtype, device):
+    """(noise, uniforms): standard-normal [rows, 2] and [0, 1) [rows, 2] draws for
+    ``opponent_actions``."""
+    noise = torch.randn((rows, 2), generator=generator, dtype=dtype, device=device)
+    uniforms = torch.rand((rows, 2), generator=generator, dtype=dtype, device=device)
+    return noise, uniforms
+
+
+def _pool_actor_mu(params, obs):
+    """actor_mu of every pool member: stacked weights [P, in, out], obs [N, D]
+    (shared) or [P, N, D] (per member) -> [P, N, act]."""
+    layers = params["actor"]
+    x = obs.to(layers[0][0].dtype)
+    for w, b in layers:
+        x = torch.matmul(x, w) + b[:, None, :]
+        x = torch.tanh(x)  # hidden tanh and the tanh-bounded mu head
+    return x
+
+
+def _normalized(mean, var, obs):
+    return obsnorm.apply(obsnorm.ObsNormState(mean, var, None), obs)
+
+
+def opponent_actions(cfg: multi.MultiRacingConfig, opp, opp_obs, noise, uniforms):
+    """Frozen-opponent actions [N, 2] for one batch of opponent cars.
+
+    ``opp_obs`` [N, obs_dim] (previous-step observations); ``noise`` and
+    ``uniforms`` [N, 2] (``opponent_randoms``). A 0-d ``opp["idx"]`` runs that one
+    member; an [N] index runs every member on the shared noise and gathers."""
+    idx = torch.as_tensor(opp["idx"], device=opp_obs.device)
+    normalize = opp.get("norm_mean") is not None
+    if idx.ndim == 0:
+        def one(t):
+            return t[idx]
+        member_obs = (_normalized(one(opp["norm_mean"]), one(opp["norm_var"]), opp_obs)
+                      if normalize else opp_obs)
+        layer = [(one(w)[None], one(b)[None]) for w, b in opp["params"]["actor"]]
+        mu = _pool_actor_mu({"actor": layer}, member_obs)[0]          # [N, 2]
+        policy_act = torch.clamp(mu + torch.exp(one(opp["log_std"])) * noise, -1.0, 1.0)
+    else:
+        if normalize:
+            member_obs = _normalized(opp["norm_mean"][:, None, :],
+                                     opp["norm_var"][:, None, :], opp_obs)  # [P, N, D]
+        else:
+            member_obs = opp_obs
+        mus = _pool_actor_mu(opp["params"], member_obs)               # [P, N, 2]
+        stds = torch.exp(opp["log_std"])[:, None, :]                  # [P, 1, 2]
+        acts = torch.clamp(mus + stds * noise, -1.0, 1.0)
+        rows = torch.arange(opp_obs.shape[0], device=opp_obs.device)
+        policy_act = acts[idx.expand(rows.shape).long(), rows]        # [N, 2]
+
+    low = torch.tensor(_ACTION_LOW, dtype=policy_act.dtype, device=policy_act.device)
+    high = torch.tensor(_ACTION_HIGH, dtype=policy_act.dtype, device=policy_act.device)
+    rand_act = torch.maximum(low, uniforms.to(policy_act.dtype) * (high - low) + low)
+    use = torch.as_tensor(opp["use_policy"], device=opp_obs.device)
+    return torch.where(use.expand(opp_obs.shape[:1])[:, None], policy_act, rand_act)
+
+
+def opponent_actions_all_seats(cfg: multi.MultiRacingConfig, opp, obs_seats, generator):
+    """Frozen-opponent actions [N, seats, 2] for all opponent seats in one batch.
+
+    ``obs_seats`` [N, seats, obs_dim]. Each env's opponent drives all of its seats,
+    so the seat axis folds into the batch env-major ((env 0, seat 1), (env 0,
+    seat 2), ...). The noise and uniforms come from ``opponent_randoms``."""
+    n, seats, d = obs_seats.shape
+    flat_opp = dict(opp)
+    for field in ("idx", "use_policy"):
+        v = torch.as_tensor(opp[field], device=obs_seats.device)
+        if v.ndim != 0:
+            flat_opp[field] = v.repeat_interleave(seats)
+    dtype = opp["params"]["actor"][0][0].dtype
+    noise, uniforms = opponent_randoms(generator, n * seats, dtype, obs_seats.device)
+    acts = opponent_actions(cfg, flat_opp, obs_seats.reshape(n * seats, d), noise,
+                            uniforms)
+    return acts.reshape(n, seats, 2)
+
+
+def _step_inner(cfg, track, opp, state, action0, generator):
+    opp_acts = opponent_actions_all_seats(cfg, opp, state.obs_all[:, 1:], generator)
+    actions = torch.cat([action0.to(torch.float32)[:, None].to(opp_acts.dtype), opp_acts],
+                        dim=1)                                        # [N, A, 2]
+    return multi.transition(cfg, track, state.inner, actions)
+
+
+def transition(cfg: multi.MultiRacingConfig, track: TrackArrays, opp,
+               state: SelfPlayState, action0, generator=None):
+    """Seat 0's step: the opponents act on their previous-step observations, the
+    combined action steps the multi env, and the new state is sensed once.
+    Returns (state, reward0 [N], done [N], truncated [N], info0)."""
+    inner, rewards, terminated, truncated, info = _step_inner(cfg, track, opp, state,
+                                                              action0, generator)
+    new_state = SelfPlayState(inner=inner, obs_all=multi.observe(cfg, track, inner))
+    info0 = {k: v[:, 0] for k, v in info.items()}
+    return new_state, rewards[:, 0], terminated | truncated, truncated, info0
+
+
+def observe(state: SelfPlayState) -> torch.Tensor:
+    return state.obs_all[:, 0]
+
+
+# The trainer's path: under NEXT_STEP autoreset the reset runs on every step, so
+# the deferred variants leave ``obs_all`` stale and ``refresh`` senses once per
+# vector step on the merged state.
+
+def reset_state_deferred(cfg: multi.MultiRacingConfig, track: TrackArrays,
+                         generator=None, position_idx=None) -> SelfPlayState:
+    inner = multi.reset_state(cfg, track, generator, position_idx)
+    n = inner.x.shape[0]
+    return SelfPlayState(inner=inner, obs_all=torch.zeros(
+        (n, cfg.num_agents, cfg.obs_dim), dtype=torch.float32, device=inner.x.device))
+
+
+def transition_deferred(cfg: multi.MultiRacingConfig, track: TrackArrays, opp,
+                        state: SelfPlayState, action0, generator=None):
+    """``transition`` without the observe pass; pair with ``refresh``."""
+    inner, rewards, terminated, truncated, info = _step_inner(cfg, track, opp, state,
+                                                              action0, generator)
+    new_state = SelfPlayState(inner=inner, obs_all=state.obs_all)  # stale until refresh
+    info0 = {k: v[:, 0] for k, v in info.items()}
+    return new_state, rewards[:, 0], terminated | truncated, truncated, info0
+
+
+def info0_from_state(cfg: multi.MultiRacingConfig, track: TrackArrays,
+                     state: SelfPlayState):
+    """Seat 0's view of ``multi.info_from_state`` (the reset-info contract)."""
+    info = multi.info_from_state(cfg, track, state.inner)
+    return {k: v[:, 0] for k, v in info.items()}
+
+
+def refresh(cfg: multi.MultiRacingConfig, track: TrackArrays, state: SelfPlayState):
+    """One observe pass over the (possibly autoreset-merged) state: the refreshed
+    state and seat 0's observation."""
+    obs_all = multi.observe(cfg, track, state.inner)
+    return dataclasses.replace(state, obs_all=obs_all), obs_all[:, 0]

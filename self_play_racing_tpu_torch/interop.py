@@ -11,6 +11,11 @@
   package's parameters and optax state (``(EmptyState(), ScaleByAdamState(count,
   mu, nu))``, moments in the parameters' pytree layout) given as numpy arrays;
   ``train_state_to_numpy`` goes the other way.
+- ``pool_from_jax`` builds the self-play trainer's stacked opponent pool from the
+  JAX package's (``params`` with a leading pool axis, ``log_std`` and, when
+  present, ``norm_mean``/``norm_var``) given as numpy arrays; ``pool_to_numpy``
+  goes the other way. Checkpoint files (``utils.checkpoint``) are the other
+  bridge.
 """
 from __future__ import annotations
 
@@ -96,3 +101,35 @@ def train_state_to_numpy(train: TrainState):
     return (host(train.model.parameters()),
             {"count": np.int32(adam.count), "mu": host(adam.mu), "nu": host(adam.nu)},
             np.int32(train.update))
+
+
+_POOL_STATS = ("norm_mean", "norm_var")
+
+
+def pool_from_jax(pool, device=None) -> dict:
+    """The port's stacked pool (tensors in the stored dtypes) from the JAX
+    package's pool dict of numpy arrays."""
+    dev = resolve_device(device)
+
+    def conv(a):
+        return torch.tensor(np.asarray(a), device=dev)
+
+    out = {"params": _pytree([conv(a) for a in _flat_leaves(pool["params"])]),
+           "log_std": conv(pool["log_std"])}
+    for k in _POOL_STATS:
+        if pool.get(k) is not None:
+            out[k] = conv(pool[k])
+    return out
+
+
+def pool_to_numpy(pool) -> dict:
+    """The JAX package's pool layout (numpy arrays) from the port's pool."""
+    def host(t):
+        return t.detach().cpu().numpy().copy()
+
+    out = {"params": _pytree([host(t) for t in _flat_leaves(pool["params"])]),
+           "log_std": host(pool["log_std"])}
+    for k in _POOL_STATS:
+        if pool.get(k) is not None:
+            out[k] = host(pool[k])
+    return out

@@ -24,7 +24,8 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("raycast_walls.cu", "progress_collision.cu", "gae.cu",
+SOURCES = ("raycast_walls.cu", "progress_collision.cu", "raycast_cars.cu",
+           "rectangles_intersect.cu", "car_update.cu", "gae.cu",
            "mixbits_permutation.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -35,9 +36,13 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
-    "raycast_walls_f32": [_P] * 10 + [_I, _I, _I, ctypes.c_float, _I, _P],
-    "progress_and_collision_f32": [_P] * 12 + [_I, _I, _I, _I, _P],
+    "raycast_walls_f32": [_P] * 10 + [_I, _I, _I, _F, _I, _P],
+    "progress_and_collision_f32": [_P] * 12 + [_I, _I, _I, _I, _I, _P],
+    "raycast_cars_f32": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
+    "rectangles_intersect_u8": [_P] * 3 + [_I, _I, _I, _P],
+    "car_update_f32": [_P] * 13 + [_I] + [_F] * 8 + [_I, _P],
     "compute_gae_f32": [_P] * 7 + [_I, _I, ctypes.c_float, ctypes.c_float, _I, _P],
     "mixbits_permutation_i32": [_P, _P, _I, _I, _I, _P],
 }
@@ -135,13 +140,43 @@ def launch_raycast_walls(ox, oy, dx, dy, sx, sy, vx, vy, c, out,
 
 def launch_progress_and_collision(x, y, cx, cy, wp_x, wp_y, nrm_x, nrm_y, n_wp,
                                   track_width, progress, crashed, rows: int,
-                                  num_corners: int, num_waypoints: int) -> None:
-    """Launch K2 on ``progress.device``'s current stream. Tensors are contiguous
-    (f32, ``n_wp`` int32, ``crashed`` bool)."""
+                                  cars_per_row: int, num_corners: int,
+                                  num_waypoints: int) -> None:
+    """Launch K2 on ``progress.device``'s current stream: ``rows`` cars, car i
+    against waypoint row ``i // cars_per_row``. Tensors are contiguous (f32,
+    ``n_wp`` int32, ``crashed`` bool)."""
     _call("progress_collision", "progress_and_collision_f32", progress.device,
           *map(_ptr, (x, y, cx, cy, wp_x, wp_y, nrm_x, nrm_y, n_wp, track_width,
                       progress, crashed)),
-          rows, num_corners, num_waypoints)
+          rows, cars_per_row, num_corners, num_waypoints)
+
+
+def launch_raycast_cars(ox, oy, dx, dy, car_cx, car_cy, car_x, car_y, out,
+                        rows: int, rays_per_row: int, num_cars: int,
+                        max_dist: float) -> None:
+    """Launch K3 on ``out.device``'s current stream. Tensors are contiguous f32."""
+    _call("raycast_cars", "raycast_cars_f32", out.device,
+          *map(_ptr, (ox, oy, dx, dy, car_cx, car_cy, car_x, car_y, out)),
+          rows, rays_per_row, num_cars, float(max_dist))
+
+
+def launch_rectangles_intersect(cx, cy, pairs, rows: int, num_cars: int) -> None:
+    """Launch K4 on ``pairs.device``'s current stream: corners contiguous f32
+    [rows, num_cars, 4], ``pairs`` contiguous bool [rows, num_cars, num_cars]."""
+    _call("rectangles_intersect", "rectangles_intersect_u8", pairs.device,
+          _ptr(cx), _ptr(cy), _ptr(pairs), rows, num_cars)
+
+
+def launch_car_update(x, y, angle, vx, vy, crashed, steering, throttle, nx, ny,
+                      nang, nvx, nvy, n: int, constants) -> None:
+    """Launch K5 on ``nx.device``'s current stream: ``n`` cars, contiguous f32
+    fields (``crashed`` bool); ``constants`` the eight float32 values the kernel
+    takes (steering_speed, acceleration, drag, lateral_friction, grip, max_speed,
+    dt, 2*pi)."""
+    _call("car_update", "car_update_f32", nx.device,
+          *map(_ptr, (x, y, angle, vx, vy, crashed, steering, throttle, nx, ny, nang,
+                      nvx, nvy)),
+          n, *map(float, constants))
 
 
 def launch_compute_gae(rewards, dones, values, next_value, next_done, adv, ret,

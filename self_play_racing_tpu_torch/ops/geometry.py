@@ -3,15 +3,16 @@
 Structure-of-arrays, as in the JAX package: separate x/y tensors, segments and
 waypoints on the last axis.
 
-The two reductions on every env step have two versions each:
+The reductions of the env step have two versions each:
 
-- ``raycast_walls`` (K1) and ``progress_and_collision`` (K2) dispatch on the device
-  of their segment/waypoint tensors: a CPU tensor takes the plain PyTorch version
+- ``raycast_walls`` (K1), ``progress_and_collision`` (K2), ``raycast_cars`` (K3)
+  and ``rectangles_intersect_pairs`` (K4) dispatch on the device of their
+  segment/waypoint/corner tensors: a CPU tensor takes the plain PyTorch version
   (``*_plain``), a CUDA tensor launches the hand-written kernel in ``csrc/`` or
   raises. There is no fallback from the kernel to the plain version.
-- ``raycast_walls_launches`` / ``progress_and_collision_launches`` count kernel
-  launches (plain integers, incremented only where a kernel launched), so a run
-  can show that its main path went through the kernels.
+- ``<name>_launches`` count kernel launches (plain integers, incremented only where
+  a kernel launched), so a run can show that its main path went through the
+  kernels.
 """
 from __future__ import annotations
 
@@ -27,6 +28,8 @@ _PARALLEL_EPS = 1e-10
 
 raycast_walls_launches = 0
 progress_and_collision_launches = 0
+raycast_cars_launches = 0
+rectangles_intersect_launches = 0
 
 
 def _on_cuda(t: torch.Tensor, name: str) -> bool:
@@ -99,6 +102,27 @@ def _ratio_min_fold(a, d):
     return a[..., 0], d[..., 0]
 
 
+def _rows_leading(row_shape, batch_shape, name, rows_what, batch_what):
+    """(rows, items per row) for row-major data whose row shape ``P`` (trailing
+    1s after the first axis dropped) leads ``batch_shape = P + Q``; raises
+    otherwise."""
+    row_shape = list(row_shape)
+    while len(row_shape) > 1 and row_shape[-1] == 1:
+        row_shape.pop()
+    if list(batch_shape[:len(row_shape)]) != row_shape:
+        raise ValueError(f"{name}: {rows_what} {tuple(row_shape)} do not lead the "
+                         f"{batch_what} {tuple(batch_shape)}")
+    return math.prod(row_shape), math.prod(batch_shape[len(row_shape):])
+
+
+def _check_f32(name, tensors, dev):
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the CUDA kernel takes float32, got {t.dtype}")
+
+
 def _raycast_walls_cuda(ox, oy, dx, dy, seg_sx, seg_sy, seg_vx, seg_vy, max_dist,
                         seg_c):
     """K1 on the card. The segment fields must share one contiguous f32 shape
@@ -108,26 +132,16 @@ def _raycast_walls_cuda(ox, oy, dx, dy, seg_sx, seg_sy, seg_vx, seg_vy, max_dist
     segs = [seg_sx, seg_sy, seg_vx, seg_vy] + ([seg_c] if seg_c is not None else [])
     rays = [ox, oy, dx, dy]
     dev = seg_sx.device
-    for t in segs + rays:
-        if t.device != dev:
-            raise ValueError(f"raycast_walls: tensors on {t.device} and {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"raycast_walls: the CUDA kernel takes float32, got {t.dtype}")
+    _check_f32("raycast_walls", segs + rays, dev)
     seg_shape = seg_sx.shape
     if any(t.shape != seg_shape for t in segs):
         raise ValueError("raycast_walls: segment fields differ in shape")
     if any(not t.is_contiguous() for t in segs):
         raise ValueError("raycast_walls: segment fields must be contiguous")
     num_segments = seg_shape[-1]
-    row_shape = list(seg_shape[:-1])
-    while row_shape and row_shape[-1] == 1:
-        row_shape.pop()
     ray_shape = torch.broadcast_shapes(*(t.shape for t in rays))
-    if list(ray_shape[:len(row_shape)]) != row_shape:
-        raise ValueError(f"raycast_walls: segment rows {tuple(row_shape)} do not "
-                         f"lead the ray batch shape {tuple(ray_shape)}")
-    rows = math.prod(row_shape)
-    rays_per_row = math.prod(ray_shape[len(row_shape):])
+    rows, rays_per_row = _rows_leading(seg_shape[:-1], ray_shape, "raycast_walls",
+                                       "segment rows", "ray batch shape")
     rays = [t.expand(ray_shape).contiguous() for t in rays]
     out = torch.empty(ray_shape, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -165,8 +179,10 @@ def _corner_offsets(half_length, half_width, dtype, device):
 def progress_and_collision(x, y, cx, cy, wp_x, wp_y, nrm_x, nrm_y, n_wp, track_width):
     """Progress of the car centre and corner collision against the centreline.
 
-    x, y: centres ``B``; cx, cy: corners ``B + (C,)``; wp/nrm: ``B + (W,)``;
-    n_wp (true waypoint counts) and track_width: ``B`` or scalars.
+    x, y: centres ``B``; cx, cy: corners ``B + (C,)``; wp/nrm: broadcastable to
+    ``B + (W,)`` (on the card: rows ``P + (1,)*k + (W,)`` that lead ``B = P + Q``,
+    so every car of a row reads that row's waypoints); n_wp (true waypoint counts)
+    and track_width: broadcastable to ``B``.
     Returns (progress ``B``, crashed ``B`` bool).
     """
     global progress_and_collision_launches
@@ -199,26 +215,22 @@ def progress_and_collision_plain(x, y, cx, cy, wp_x, wp_y, nrm_x, nrm_y, n_wp,
 
 def _progress_and_collision_cuda(x, y, cx, cy, wp_x, wp_y, nrm_x, nrm_y, n_wp,
                                  track_width):
-    """K2 on the card: queries and waypoint rows share the batch shape ``B``;
-    ``n_wp`` and ``track_width`` broadcast to it."""
+    """K2 on the card: the waypoint fields share one contiguous shape
+    ``P + (1,)*k + (W,)`` whose rows ``P`` lead the car batch ``B = P + Q``;
+    ``n_wp`` and ``track_width`` broadcast to ``B``."""
     dev = wp_x.device
-    floats = [x, y, cx, cy, wp_x, wp_y, nrm_x, nrm_y]
-    for t in floats:
-        if t.device != dev:
-            raise ValueError(f"progress_and_collision: tensors on {t.device} and {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError("progress_and_collision: the CUDA kernel takes float32, "
-                            f"got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("progress_and_collision: inputs must be contiguous")
+    _check_f32("progress_and_collision", [x, y, cx, cy, wp_x, wp_y, nrm_x, nrm_y], dev)
+    if not all(t.is_contiguous() for t in (x, y, cx, cy, wp_x, wp_y, nrm_x, nrm_y)):
+        raise ValueError("progress_and_collision: inputs must be contiguous")
     batch = x.shape
     num_corners = cx.shape[-1]
     num_waypoints = wp_x.shape[-1]
     if (y.shape != batch or cx.shape != batch + (num_corners,) or cy.shape != cx.shape
-            or any(t.shape != batch + (num_waypoints,) for t in (wp_y, nrm_x, nrm_y))
-            or wp_x.shape[:-1] != batch):
+            or any(t.shape != wp_x.shape for t in (wp_y, nrm_x, nrm_y))):
         raise ValueError("progress_and_collision: shapes must be B, B, B+(C,), "
-                         "B+(C,) and B+(W,) for the waypoint fields")
+                         "B+(C,) and one shape P+(W,) for the waypoint fields")
+    rows, cars_per_row = _rows_leading(wp_x.shape[:-1], batch, "progress_and_collision",
+                                       "waypoint rows", "car batch shape")
     if not 1 <= 1 + num_corners <= 32:
         raise ValueError(f"progress_and_collision: {num_corners} corners; the kernel "
                          "takes at most 31")
@@ -234,5 +246,135 @@ def _progress_and_collision_cuda(x, y, cx, cy, wp_x, wp_y, nrm_x, nrm_y, n_wp,
     with torch.cuda.device(dev):
         _cuda.launch_progress_and_collision(
             x, y, cx, cy, wp_x, wp_y, nrm_x, nrm_y, n_wp, track_width, progress,
-            crashed, math.prod(batch), num_corners, num_waypoints)
+            crashed, rows * cars_per_row, cars_per_row, num_corners, num_waypoints)
     return progress, crashed
+
+
+# ------------------------------------------------- K4: car-car separating axes
+
+def rectangles_intersect(ax, ay, bx, by):
+    """SAT intersection test of two oriented rectangles given their corners
+    ``B + (4,)``. Returns bool ``B``. Axes are the two unique edge normals of each
+    rectangle (edges 0->1 and 1->2, normal ``(-ey, ex)``), a's then b's; a strict
+    gap on any axis means no intersection."""
+    def edge_normals(cx, cy):
+        ex = cx[..., 1:3] - cx[..., 0:2]
+        ey = cy[..., 1:3] - cy[..., 0:2]
+        return -ey, ex
+
+    nax, nay = edge_normals(ax, ay)
+    nbx, nby = edge_normals(bx, by)
+    axx = torch.cat([nax, nbx], dim=-1)                   # B + (4 axes,)
+    axy = torch.cat([nay, nby], dim=-1)
+    pa = axx[..., :, None] * ax[..., None, :] + axy[..., :, None] * ay[..., None, :]
+    pb = axx[..., :, None] * bx[..., None, :] + axy[..., :, None] * by[..., None, :]
+    gap = ((pa.amax(dim=-1) < pb.amin(dim=-1)) | (pb.amax(dim=-1) < pa.amin(dim=-1)))
+    return ~gap.any(dim=-1)
+
+
+def rectangles_intersect_pairs(cx, cy):
+    """SAT test between every pair of the ``A`` cars of a row: corners ``P + (A,
+    4)`` -> bool ``P + (A, A)``, entry ``[..., i, j]`` testing car i (axes first)
+    against car j. The diagonal (a car against itself) is True."""
+    global rectangles_intersect_launches
+    if not _on_cuda(cx, "rectangles_intersect_pairs"):
+        return rectangles_intersect_pairs_plain(cx, cy)
+    out = _rectangles_intersect_pairs_cuda(cx, cy)
+    rectangles_intersect_launches += 1
+    return out
+
+
+def rectangles_intersect_pairs_plain(cx, cy):
+    """Plain PyTorch K4: ``rectangles_intersect`` over the broadcast pairs, as the
+    JAX package's multi-car env calls it."""
+    a = cx.shape[-2]
+    shape = cx.shape[:-2] + (a, a, 4)
+    return rectangles_intersect(cx[..., :, None, :].expand(shape),
+                                cy[..., :, None, :].expand(shape),
+                                cx[..., None, :, :].expand(shape),
+                                cy[..., None, :, :].expand(shape))
+
+
+def _rectangles_intersect_pairs_cuda(cx, cy):
+    dev = cx.device
+    _check_f32("rectangles_intersect_pairs", [cx, cy], dev)
+    if cy.shape != cx.shape or cx.ndim < 2 or cx.shape[-1] != 4:
+        raise ValueError("rectangles_intersect_pairs: corners must share one shape "
+                         "P + (A, 4)")
+    if not (cx.is_contiguous() and cy.is_contiguous()):
+        raise ValueError("rectangles_intersect_pairs: corners must be contiguous")
+    a = cx.shape[-2]
+    out = torch.empty(cx.shape[:-2] + (a, a), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        _cuda.launch_rectangles_intersect(cx, cy, out, math.prod(cx.shape[:-2]), a)
+    return out
+
+
+# ------------------------------------------------------- K3: rays against cars
+
+def raycast_cars(ox, oy, dx, dy, car_cx, car_cy, car_x, car_y, max_dist):
+    """Min hit distance of rays against the edges of a set of cars.
+
+    ox, oy, dx, dy: ray origins/directions, batch shape ``B``.
+    car_cx, car_cy: car corners, broadcastable to ``B + (A, 4)``; car_x, car_y:
+      centres ``B + (A,)``. A car whose centre lies within 0.5 of the ray origin
+      is skipped (the reference's self-exclusion, which skips opponents that close
+      too). On the card the car fields share one contiguous shape ``P + (1,)*k +
+      (A, 4)`` (centres ``P + (1,)*k + (A,)``) whose rows ``P`` lead ``B = P + Q``.
+    Returns shape ``B``: the nearest hit, clamped to ``max_dist``.
+    """
+    global raycast_cars_launches
+    if not _on_cuda(car_cx, "raycast_cars"):
+        return raycast_cars_plain(ox, oy, dx, dy, car_cx, car_cy, car_x, car_y, max_dist)
+    out = _raycast_cars_cuda(ox, oy, dx, dy, car_cx, car_cy, car_x, car_y, max_dist)
+    raycast_cars_launches += 1
+    return out
+
+
+def raycast_cars_plain(ox, oy, dx, dy, car_cx, car_cy, car_x, car_y, max_dist):
+    """Plain PyTorch K3, in the JAX package's order: edge ``i`` runs from corner
+    ``i`` to corner ``(i+1) % 4``; ``t`` and ``s`` are IEEE divisions by the
+    ray-edge cross product."""
+    cdx = car_x - ox[..., None]
+    cdy = car_y - oy[..., None]
+    skip = torch.sqrt(cdx * cdx + cdy * cdy) < 0.5                  # B + (A,)
+    sx, sy = car_cx, car_cy
+    vx = torch.roll(car_cx, -1, dims=-1) - car_cx
+    vy = torch.roll(car_cy, -1, dims=-1) - car_cy
+    v1x = ox[..., None, None] - sx
+    v1y = oy[..., None, None] - sy
+    v3x = -dy[..., None, None]
+    v3y = dx[..., None, None]
+    dotp = vx * v3x + vy * v3y
+    valid = (dotp.abs() >= _PARALLEL_EPS) & ~skip[..., None]
+    safe = torch.where(valid, dotp, 1.0)
+    t = (vx * v1y - vy * v1x) / safe
+    s = (v1x * v3x + v1y * v3y) / safe
+    hit = valid & (t >= 0.0) & (s >= 0.0) & (s <= 1.0)
+    tmin = torch.where(hit, t, math.inf).flatten(-2).amin(dim=-1)
+    tmin = torch.where(torch.isinf(tmin), torch.full_like(tmin, max_dist), tmin)
+    return torch.clamp_max(tmin, max_dist)
+
+
+def _raycast_cars_cuda(ox, oy, dx, dy, car_cx, car_cy, car_x, car_y, max_dist):
+    """K3 on the card; the ray tensors are broadcast to ``B`` and materialized."""
+    dev = car_cx.device
+    rays = [ox, oy, dx, dy]
+    _check_f32("raycast_cars", rays + [car_cx, car_cy, car_x, car_y], dev)
+    corner_shape = car_cx.shape
+    if (car_cy.shape != corner_shape or len(corner_shape) < 2 or corner_shape[-1] != 4
+            or car_x.shape != corner_shape[:-1] or car_y.shape != car_x.shape):
+        raise ValueError("raycast_cars: corners must share one shape P+(A, 4) and "
+                         "centres P+(A,)")
+    if not all(t.is_contiguous() for t in (car_cx, car_cy, car_x, car_y)):
+        raise ValueError("raycast_cars: car fields must be contiguous")
+    num_cars = corner_shape[-2]
+    ray_shape = torch.broadcast_shapes(*(t.shape for t in rays))
+    rows, rays_per_row = _rows_leading(corner_shape[:-2], ray_shape, "raycast_cars",
+                                       "car rows", "ray batch shape")
+    rays = [t.expand(ray_shape).contiguous() for t in rays]
+    out = torch.empty(ray_shape, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _cuda.launch_raycast_cars(*rays, car_cx, car_cy, car_x, car_y, out, rows,
+                                  rays_per_row, num_cars, max_dist)
+    return out

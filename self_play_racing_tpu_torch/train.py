@@ -1,15 +1,31 @@
-"""Training entry point (port of ``self_play_racing_tpu/train.py``, mode ``single``).
+"""Training entry points (port of ``self_play_racing_tpu/train.py``).
 
-  python -m self_play_racing_tpu_torch.train single                # on cuda
-  python -m self_play_racing_tpu_torch.train single --device cpu
+  python -m self_play_racing_tpu_torch.train multi    # self-play PPO, reference config
+  python -m self_play_racing_tpu_torch.train single   # single-car PPO
+  python -m self_play_racing_tpu_torch.train scale    # scale-mode self-play
+                                                      # (4096 envs, per-env opponents)
 
-Trains single-car PPO at the reference config (16 envs x 2048 steps, 5M steps) and
-writes ``models/single_agent.npz`` and ``data/training_info_single.json`` under the
-working directory, as the JAX package's CLI does. The track pool follows the
-reference's seed and stream conventions: ``gen_tracks(num_envs, seed)``, then
-per-env widths ``randint[6, 10)`` from the global NumPy RNG, identity track
-assignment. The other modes (``multi``, ``scale``, ``sb3``, ``all``) come with
-later parts of the port and exit with a message.
+Every mode runs on cuda unless ``--device cpu`` is given, and writes under the
+working directory as the JAX package's CLI does:
+
+- ``single``: 16 envs x 2048 steps, 5M steps; ``models/single_agent.npz`` and
+  ``data/training_info_single.json``.
+- ``multi``: the reference's self-play config (16 envs x 2048 steps, 3M steps,
+  one opponent shared by all envs, every env reset at each update, a snapshot
+  every 15 updates into a pool of 5); ``models/self_play_agent.npz``,
+  ``data/training_info_self_play.json`` and a full checkpoint in ``models/`` every
+  10 updates.
+- ``scale``: 4096 envs x 256 steps over a 16-track pool tiled across the envs,
+  opponents chosen per env, no forced resets, 1B steps;
+  ``models/self_play_agent_scale_1B.npz``,
+  ``data/training_info_self_play_scale_1B.json`` and a checkpoint in
+  ``models/scale/`` every 200 updates.
+
+Track pools follow the reference's seed and stream conventions:
+``gen_tracks(num_tracks, seed)``, then widths ``randint[6, 10)`` from the global
+NumPy RNG. The SB3 baseline (``sb3``, ``all``), procgen resampling
+(``--resample-tracks-every``), the capacity layouts (``--pooled-geometry``) and
+multi-GPU training come with slice 4 of the port and exit with a message.
 """
 from __future__ import annotations
 
@@ -21,16 +37,20 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .agent.self_play import SelfPlayTrainer
 from .agent.trainer import PPOTrainer
-from .configs import base_config
+from .configs import base_config, self_play_config
+from .envs import multi as menv
 from .envs import single as senv
 from .envs import track as trk
 
 _LATER = {
-    "multi": "self-play training comes with slice 3 of the port",
-    "scale": "scale-mode self-play comes with slice 3 of the port",
     "sb3": "the SB3 baseline comes with slice 4 of the port",
-    "all": "it includes self-play (slice 3) and the SB3 baseline (slice 4)",
+    "all": "it includes the SB3 baseline, which comes with slice 4 of the port",
+}
+_LATER_FLAGS = {
+    "resample_tracks_every": ("--resample-tracks-every", "procgen track resampling"),
+    "pooled_geometry": ("--pooled-geometry", "the capacity layouts"),
 }
 
 
@@ -46,6 +66,80 @@ def make_training_pool(cfg, dtype=torch.float32, device=None):
     widths = [float(np.random.randint(6, 10)) for _ in range(cfg.num_envs)]
     pool = trk.make_track_pool(cps, widths, dtype=dtype, device=resolve_device(device))
     return trk.gather_tracks(pool, np.arange(cfg.num_envs))
+
+
+def train_multi(total_timesteps=None, num_envs=None, out="models/self_play_agent.npz",
+                checkpoint_dir="models", num_updates=None, resume_from=None, device=None,
+                **cfg_overrides):
+    overrides = dict(cfg_overrides)
+    if total_timesteps:
+        overrides["total_timesteps"] = total_timesteps
+    if num_envs:
+        overrides["num_envs"] = num_envs
+    cfg = self_play_config(**overrides)
+    dev = resolve_device(device)
+    _seed_all(cfg.seed)
+    print("Generating track pool")
+    track = make_training_pool(cfg, device=dev)
+    env_cfg = menv.MultiRacingConfig(num_agents=2, num_sensors=11)
+
+    print("=" * 60)
+    print("SELF PLAY PPO TRAINING")
+    print("=" * 60)
+    print(f"Total timesteps: {cfg.total_timesteps:,} | Envs: {cfg.num_envs} | "
+          f"Batch: {cfg.batch_size:,} | Updates: {cfg.num_updates} | "
+          f"Snapshot freq: {cfg.snapshot_freq} | Pool: {cfg.pool_size} | Device: {dev}")
+    trainer = SelfPlayTrainer(cfg, env_cfg, track)
+    trainer.train(num_updates=num_updates, checkpoint_dir=checkpoint_dir,
+                  resume_from=resume_from)
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    trainer.save(out)
+    os.makedirs("data", exist_ok=True)
+    trainer.save_training_info("data/training_info_self_play.json")
+    print(f"Final model saved to {out}")
+    return trainer
+
+
+def train_scale(total_timesteps=1_000_000_000, num_envs=4096, num_steps=256,
+                num_tracks=16, out="models/self_play_agent_scale_1B.npz",
+                info_out="data/training_info_self_play_scale_1B.json",
+                num_updates=None, checkpoint_dir="models/scale",
+                checkpoint_every=200, resume_from=None, num_agents=2, sensor_lod=1,
+                device=None, **cfg_overrides):
+    """Scale-mode self-play on one card: env state stays resident, opponents are
+    chosen per env, ``num_tracks`` tracks tiled over the envs (env i races track
+    i % num_tracks). ``num_agents`` > 2 races the learner against that many
+    frozen-pool seats. ``sensor_lod`` > 1 senses against a coarser boundary
+    (relaxed sensing; progress, rewards and collisions stay exact)."""
+    overrides = dict(total_timesteps=total_timesteps, num_envs=num_envs,
+                     num_steps=num_steps, opponent_per_env=True,
+                     reset_envs_each_update=False)
+    overrides.update(cfg_overrides)
+    cfg = self_play_config(**overrides)
+    dev = resolve_device(device)
+    _seed_all(cfg.seed)
+    print(f"Generating {num_tracks}-track pool (tiled over {cfg.num_envs} envs)")
+    cps = trk.gen_tracks(num_tracks=num_tracks, seed=cfg.seed)
+    widths = [float(np.random.randint(6, 10)) for _ in range(num_tracks)]
+    pool = trk.make_track_pool(cps, widths, sensor_lod=sensor_lod, device=dev)
+    track = trk.gather_tracks(pool, np.arange(cfg.num_envs) % num_tracks)
+    env_cfg = menv.MultiRacingConfig(num_agents=num_agents, num_sensors=11)
+
+    print("=" * 60)
+    print("SELF PLAY PPO TRAINING (SCALE MODE)")
+    print("=" * 60)
+    print(f"Total timesteps: {cfg.total_timesteps:,} | Envs: {cfg.num_envs} | "
+          f"Batch: {cfg.batch_size:,} | Updates: {cfg.num_updates} | "
+          f"Snapshot freq: {cfg.snapshot_freq} | Pool: {cfg.pool_size} | Device: {dev}")
+    trainer = SelfPlayTrainer(cfg, env_cfg, track)
+    trainer.train(num_updates=num_updates, log_every=50, checkpoint_dir=checkpoint_dir,
+                  checkpoint_every=checkpoint_every, resume_from=resume_from)
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    trainer.save(out)
+    os.makedirs(os.path.dirname(info_out) or ".", exist_ok=True)
+    trainer.save_training_info(info_out)
+    print(f"Final model saved to {out}")
+    return trainer
 
 
 def train_single(total_timesteps=None, num_envs=None, out="models/single_agent.npz",
@@ -86,27 +180,54 @@ def main(argv=None):
     p.add_argument("--num-updates", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--device", default=None, help="default: cuda")
-    # flags of the self-play modes, accepted for the JAX CLI's interface
-    p.add_argument("--resume", default=None, metavar="CKPT", help=argparse.SUPPRESS)
-    p.add_argument("--agents", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--resume", default=None, metavar="CKPT",
+                   help="multi/scale modes: resume from a full checkpoint (e.g. "
+                        "models/checkpoint_update_30) or a reference .pth")
+    p.add_argument("--agents", type=int, default=None,
+                   help="scale mode: cars per race (learner + N-1 frozen-pool "
+                        "opponents; default 2)")
+    p.add_argument("--pfsp", action="store_true",
+                   help="scale/multi modes: sample pool opponents by "
+                        "(1-winrate)^2 instead of uniformly")
+    p.add_argument("--sensor-lod", type=int, default=None, metavar="K",
+                   help="scale mode: relaxed sensing against a K-x coarser "
+                        "boundary (progress, rewards and collisions stay exact)")
+    # flags of the JAX CLI that come with slice 4; they exit with a message
     p.add_argument("--resample-tracks-every", type=int, default=None, metavar="K",
                    help=argparse.SUPPRESS)
     p.add_argument("--pooled-geometry", nargs="?", const="tiled",
                    choices=["gather", "grouped", "tiled"], default=None,
                    help=argparse.SUPPRESS)
-    p.add_argument("--pfsp", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--sensor-lod", type=int, default=None, metavar="K",
-                   help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.mode in _LATER:
         raise SystemExit(f"train {args.mode}: not ported yet; {_LATER[args.mode]}")
+    for field, (flag, what) in _LATER_FLAGS.items():
+        if getattr(args, field):
+            raise SystemExit(f"{flag}: not ported yet; {what} comes with slice 4 of "
+                             "the port")
     kw = {}
     if args.seed is not None:
         kw["seed"] = args.seed
     if args.pfsp:
         kw["opponent_sampling"] = "pfsp"
-    return train_single(args.total_timesteps, args.num_envs,
-                        num_updates=args.num_updates, device=args.device, **kw)
+    if args.mode == "single":
+        return train_single(args.total_timesteps, args.num_envs,
+                            num_updates=args.num_updates, device=args.device, **kw)
+    if args.mode == "multi":
+        return train_multi(args.total_timesteps, args.num_envs,
+                           num_updates=args.num_updates, resume_from=args.resume,
+                           device=args.device, **kw)
+    skw = dict(kw)
+    if args.total_timesteps:
+        skw["total_timesteps"] = args.total_timesteps
+    if args.num_envs:
+        skw["num_envs"] = args.num_envs
+    if args.agents:
+        skw["num_agents"] = args.agents
+    if args.sensor_lod:
+        skw["sensor_lod"] = args.sensor_lod
+    return train_scale(num_updates=args.num_updates, resume_from=args.resume,
+                       device=args.device, **skw)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
-"""Evaluation harness: batched episode rollouts + aggregation (port of the
-single-car half of ``self_play_racing_tpu/utils/metrics.py``).
+"""Evaluation harness: batched episode rollouts + aggregation (port of
+``self_play_racing_tpu/utils/metrics.py``; the per-seat match rollout of the
+tournament comes later).
 
 Every (track, run) combination of the evaluation grid is one row of a single env
 batch; the rollout is a Python loop over steps with done-latching, and a row's
@@ -11,6 +12,8 @@ Per-episode metrics:
  - progress / finished / crashed / speed: from the final step's info
  - total_distance: sum of |pos_t - pos_{t-1}| from the second step on
  - policies sample actions, or act greedily (tanh mu) with ``deterministic``
+ - multi-car: one shared policy drives every car; an episode's numbers are the
+   first finished car's, else car 0's
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from .._tree import where_rows
+from ..envs import multi as menv
 from ..envs import normalize as obsnorm
 from ..envs import single as senv
 from ..envs import track as trk
@@ -90,6 +94,60 @@ def rollout_single(params, log_std, env_cfg: senv.RacingConfig, track: trk.Track
     acc["distance_per_step"] = torch.where(
         acc["steps"] > 1, acc["total_distance"] / acc["steps"], 0.0)
     return acc
+
+
+@torch.no_grad()
+def rollout_multi(params, log_std, env_cfg: menv.MultiRacingConfig, track: trk.TrackArrays,
+                  generator, max_steps: int = 3000, deterministic: bool = False,
+                  obs_norm=None):
+    """Shared-policy multi-car rollout: every car is driven by the same policy, on
+    the flat [N * A] batch of observations. Returns a dict of [N] tensors
+    (total_reward, progress, finished, crashed, speed, placement, total_distance
+    and distance_per_step of the chosen car, the episode's steps). ``generator``
+    (on the track's device) draws the start-grid slots and the sampled actions'
+    noise."""
+    state, obs = menv.reset(env_cfg, track, generator)
+    n, a = state.x.shape
+    dtype, dev = state.x.dtype, state.x.device
+    fzeros = torch.zeros((n, a), dtype=dtype, device=dev)
+    bfalse = torch.zeros((n, a), dtype=torch.bool, device=dev)
+    acc = {
+        "total_reward": fzeros, "steps": torch.zeros((n,), dtype=torch.int32, device=dev),
+        "total_distance": fzeros, "progress": fzeros, "finished": bfalse,
+        "crashed": bfalse, "speed": fzeros,
+        "placement": torch.zeros((n, a), dtype=torch.int32, device=dev),
+    }
+    active = torch.ones((n,), dtype=torch.bool, device=dev)
+    for t in range(max_steps):
+        if t % _ACTIVE_CHECK_EVERY == 0 and not bool(active.any()):
+            break
+        flat_obs = obs.reshape(n * a, -1).to(torch.float32)
+        action = _policy_action(params, log_std, flat_obs, generator, deterministic,
+                                obs_norm).reshape(n, a, -1)
+        nstate, nobs, rew, term, trunc, info = menv.step(env_cfg, track, state, action)
+        done = term | trunc
+        step_dist = torch.sqrt((info["x"] - state.x) ** 2 + (info["y"] - state.y) ** 2)
+        first_step = acc["steps"] == 0
+        act2 = active[:, None]
+        acc = {
+            "total_reward": acc["total_reward"] + torch.where(act2, rew, 0.0),
+            "steps": acc["steps"] + active.to(torch.int32),
+            "total_distance": acc["total_distance"]
+            + torch.where(act2 & ~first_step[:, None], step_dist, 0.0),
+            **{k: torch.where(act2, info[k], acc[k])
+               for k in ("progress", "finished", "crashed", "speed", "placement")},
+        }
+        active = active & ~done
+        state = where_rows(active, nstate, state)
+        obs = torch.where(active[:, None, None], nobs, obs)
+    # the chosen car: the first finished one, else car 0 (argmax of the first True)
+    chosen = acc["finished"].to(torch.int8).argmax(dim=1)
+    rows = torch.arange(n, device=dev)
+    out = {k: v[rows, chosen] for k, v in acc.items() if k != "steps"}
+    out["steps"] = acc["steps"]
+    out["distance_per_step"] = torch.where(
+        out["steps"] > 1, out["total_distance"] / out["steps"], 0.0)
+    return out
 
 
 def aggregate(episodes: dict) -> dict:

@@ -5,17 +5,23 @@ Skipped without a CUDA card (the kernels have no CPU mode). On a machine with on
 
   python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 
-Tolerance: K2 exact. K1 hit/no-hit identical and distances bitwise equal, except
-rays that are near-ties (two hit ratios equal to within the rounding of the cross
-products), which may differ by at most 2 ulp. K6 (GAE) bitwise equal: the kernel
-walks the plain version's order and is built without FMA contraction. K7 (the
-epoch permutations) exactly equal, and a permutation.
+Tolerance: K2 exact, also with waypoint rows shared by the cars of a row. K1
+hit/no-hit identical and distances bitwise equal, except rays that are near-ties
+(two hit ratios equal to within the rounding of the cross products), which may
+differ by at most 2 ulp. K3 (rays against cars), K4 (car-pair SAT) and K5 (car
+dynamics) bitwise equal to their plain versions: the kernels keep the plain
+versions' operation order, build without FMA contraction and divide and take
+square roots as IEEE; K5 calls the same cosf/sinf as PyTorch's CUDA cos/sin. K6
+(GAE) bitwise equal: the kernel walks the plain version's order and is built
+without FMA contraction. K7 (the epoch permutations) exactly equal, and a
+permutation.
 """
 import numpy as np
 import pytest
 import torch
 
 from self_play_racing_tpu_torch.envs import track as trk
+from self_play_racing_tpu_torch.ops import dynamics
 from self_play_racing_tpu_torch.ops import gae
 from self_play_racing_tpu_torch.ops import geometry as geo
 from self_play_racing_tpu_torch.ops import prng
@@ -112,6 +118,98 @@ def test_progress_kernel_matches_plain(cuda, batch):
     assert 0 < int(kc.sum()) < n
 
 
+def _cars(rng, rows, a, dev, spread=8.0):
+    f = lambda *shape, lo, hi: torch.as_tensor(rng.uniform(lo, hi, shape), dtype=torch.float32,
+                                               device=dev)
+    x, y = f(rows, a, lo=-spread, hi=spread), f(rows, a, lo=-spread, hi=spread)
+    ang = f(rows, a, lo=0, hi=6.3)
+    cx, cy = geo.car_corners(x, y, ang, 2.0, 1.0)
+    return x, y, ang, cx.contiguous(), cy.contiguous()
+
+
+@pytest.mark.parametrize("a,rays", [(2, 11), (8, 11), (3, 100), (1, 5)])
+def test_raycast_cars_kernel_matches_plain(cuda, a, rays):
+    rng = np.random.default_rng(a * rays)
+    rows = 512
+    x, y, ang, cx, cy = _cars(rng, rows, a, cuda)
+    # every car casts rays from its own centre (its own body skipped), as the env does
+    world = ang[:, :, None] + torch.linspace(-1.57, 1.57, rays, device=cuda)
+    per_car = (rows, a, rays)
+    ox, oy = x[:, :, None].expand(per_car), y[:, :, None].expand(per_car)
+    args = (ox, oy, torch.cos(world), torch.sin(world), cx[:, None, None], cy[:, None, None],
+            x[:, None, None, :].contiguous(), y[:, None, None, :].contiguous(), 50.0)
+    before = geo.raycast_cars_launches
+    k = geo.raycast_cars(*args)
+    assert geo.raycast_cars_launches == before + 1
+    p = geo.raycast_cars_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p)
+    if a > 1:
+        assert 0.01 < float((k < 50.0).float().mean()) < 0.99
+
+
+@pytest.mark.parametrize("a", [1, 2, 3, 8])
+def test_rectangles_intersect_kernel_matches_plain(cuda, a):
+    rng = np.random.default_rng(a)
+    _, _, _, cx, cy = _cars(rng, 2048, a, cuda, spread=4.0)
+    before = geo.rectangles_intersect_launches
+    k = geo.rectangles_intersect_pairs(cx, cy)
+    assert geo.rectangles_intersect_launches == before + 1
+    p = geo.rectangles_intersect_pairs_plain(cx, cy)
+    assert k.shape == (2048, a, a) and torch.equal(k, p)
+    assert k[:, range(a), range(a)].all()
+    if a > 1:
+        off = k[:, ~torch.eye(a, dtype=torch.bool, device=cuda)]
+        assert 0.05 < float(off.float().mean()) < 0.95
+
+
+@pytest.mark.parametrize("shape", [(4096, 2), (4096,), (3, 5, 7)])
+def test_car_update_kernel_matches_plain(cuda, shape):
+    rng = np.random.default_rng(len(shape))
+    f = lambda lo, hi: torch.as_tensor(rng.uniform(lo, hi, shape), dtype=torch.float32,
+                                       device=cuda)
+    args = (f(-80, 80), f(-80, 80), f(-7, 7), f(-35, 35), f(-35, 35),
+            torch.as_tensor(rng.random(shape) < 0.2, device=cuda), f(-1, 1), f(0, 1))
+    before = dynamics.car_update_launches
+    k = dynamics.car_update(*args, 0.05)
+    assert dynamics.car_update_launches == before + 1
+    p = dynamics.car_update_plain(*args, 0.05)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("x", "y", "angle", "vx", "vy"), k, p):
+        assert a.shape == shape and torch.equal(a, b), name
+    # non-contiguous inputs are taken (the kernel reads contiguous copies)
+    k2 = dynamics.car_update(*(t.T.contiguous().T if t.ndim == 2 else t for t in args), 0.05)
+    assert all(torch.equal(a, b) for a, b in zip(k2, p))
+
+
+def test_progress_kernel_takes_rows_that_lead_the_cars(cuda):
+    """Cars [N, A] against waypoint rows [N, 1, W]: equal to the plain version and to
+    a launch on rows expanded per car."""
+    rng = np.random.default_rng(5)
+    np.random.seed(2)
+    pool = trk.make_track_pool(trk.gen_tracks(4, seed=2), 7.0, device=cuda)
+    n, a = 256, 3
+    track = trk.gather_tracks(pool, np.arange(n) % 4)
+    i = torch.as_tensor(rng.integers(0, track.n_wp.cpu().numpy()), device=cuda)
+    rows = torch.arange(n, device=cuda)
+    jitter = lambda: torch.as_tensor(rng.uniform(-7, 7, (n, a)), dtype=torch.float32, device=cuda)
+    x = (track.wp_x[rows, i][:, None] + jitter()).contiguous()
+    y = (track.wp_y[rows, i][:, None] + jitter()).contiguous()
+    ang = torch.as_tensor(rng.uniform(0, 6.3, (n, a)), dtype=torch.float32, device=cuda)
+    cx, cy = geo.car_corners(x, y, ang, 2.0, 1.0)
+    wp = [t[:, None, :] for t in (track.wp_x, track.wp_y, track.nrm_x, track.nrm_y)]
+    shared = (x, y, cx, cy, *wp, track.n_wp[:, None], track.track_width[:, None])
+    kp, kc = geo.progress_and_collision(*shared)
+    pp, pc = geo.progress_and_collision_plain(*shared)
+    ep, ec = geo.progress_and_collision(
+        x, y, cx, cy, *(t.expand(n, a, t.shape[-1]).contiguous() for t in wp),
+        track.n_wp[:, None], track.track_width[:, None])
+    assert kp.shape == (n, a)
+    assert torch.equal(kp, pp) and torch.equal(kc, pc)
+    assert torch.equal(kp, ep) and torch.equal(kc, ec)
+    assert 0 < int(kc.sum()) < n * a
+
+
 def test_kernels_reject_what_they_do_not_take(cuda):
     seg = torch.zeros((2, 16), device=cuda)
     ray = torch.zeros((2,), device=cuda)
@@ -131,6 +229,27 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         geo.progress_and_collision(ray, ray, corners, corners, wp[:1], wp[:1], wp[:1], wp[:1],
                                    torch.ones(2, dtype=torch.int32, device=cuda), ray)
+    cars = torch.zeros((2, 3, 4), device=cuda)
+    centres = torch.zeros((2, 3), device=cuda)
+    rays3 = torch.zeros((2, 5), device=cuda)
+    with pytest.raises(TypeError):
+        geo.raycast_cars(rays3, rays3, rays3, rays3, cars.double(), cars.double(),
+                         centres, centres, 50.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        geo.raycast_cars(rays3, rays3, rays3, rays3, cars.transpose(0, 1).contiguous()
+                         .transpose(0, 1), cars, centres, centres, 50.0)
+    with pytest.raises(ValueError, match="lead"):
+        geo.raycast_cars(*(torch.zeros((3, 5), device=cuda),) * 4, cars, cars, centres,
+                         centres, 50.0)
+    with pytest.raises(TypeError):
+        geo.rectangles_intersect_pairs(cars.double(), cars.double())
+    with pytest.raises(ValueError):
+        geo.rectangles_intersect_pairs(torch.zeros((2, 3, 5), device=cuda),
+                                       torch.zeros((2, 3, 5), device=cuda))
+    with pytest.raises(TypeError):
+        dynamics.car_update(*(centres,) * 5, centres, centres, centres)  # crashed not bool
+    with pytest.raises(TypeError):
+        dynamics.car_update(*(centres.double(),) * 5, centres.bool(), centres, centres)
 
 
 def test_env_step_on_card_follows_cpu(cuda):
@@ -214,6 +333,36 @@ def test_mixbits_kernel_matches_plain(cuda, n, lead):
                        torch.arange(n, dtype=torch.int32, device=cuda).expand(k.shape))
     with pytest.raises(TypeError):
         prng.mixbits_permutation(consts.to(torch.int32), n)
+
+
+def test_selfplay_update_on_card_launches_all_seven_kernels(cuda):
+    """Two scale-mode self-play updates on the card: every env step launches K5, K2
+    and K4 once (the transition) and K1 and K3 once (the refresh that senses the
+    merged state); each update launches K6 and K7 once."""
+    from self_play_racing_tpu_torch.agent.self_play import SelfPlayTrainer
+    from self_play_racing_tpu_torch.configs import self_play_config
+    from self_play_racing_tpu_torch.envs import multi
+
+    envs, steps, updates = 64, 32, 3
+    cfg = self_play_config(num_envs=envs, num_steps=steps, num_minibatches=4, update_epochs=2,
+                           total_timesteps=envs * steps * 4, opponent_per_env=True,
+                           reset_envs_each_update=False, snapshot_freq=1)
+    np.random.seed(1)
+    pool = trk.make_track_pool(trk.gen_tracks(4, seed=1), 7.0, device=cuda)
+    tr = SelfPlayTrainer(cfg, multi.MultiRacingConfig(num_agents=2),
+                         trk.gather_tracks(pool, np.arange(envs) % 4))
+    names = ("raycast_walls", "raycast_cars", "progress_and_collision",
+             "rectangles_intersect")
+    before = [getattr(geo, f"{k}_launches") for k in names] + [
+        dynamics.car_update_launches, gae.compute_gae_launches,
+        prng.mixbits_permutation_launches]
+    tr.train(num_updates=updates)
+    after = [getattr(geo, f"{k}_launches") for k in names] + [
+        dynamics.car_update_launches, gae.compute_gae_launches,
+        prng.mixbits_permutation_launches]
+    assert [b - a for a, b in zip(before, after)] == [steps * updates] * 5 + [updates] * 2
+    assert tr.num_snapshots == 2 and tr.pool_games.sum() > 0
+    assert all(bool(torch.isfinite(p).all()) for p in tr.runner.train.model.parameters())
 
 
 def test_update_step_on_card_launches_the_learner_kernels(cuda):

@@ -6,8 +6,11 @@
   PyTorch's CPU math, so the trajectories drift by a few ulps).
 - ``serve.Policy.act`` on one batch against the JAX server: float32, rtol 1e-5 /
   atol 1e-6 (matrix products sum in another order).
+- ``evaluate --multi`` runs the self-play policy on a 2 x 1 grid; the flags of a
+  later slice exit with a message.
 - Importing the port loads no JAX, Flax, Optax or JAX-package module.
-- Without CUDA, an entry point not told ``device="cpu"`` raises.
+- Without CUDA, an entry point not told ``device="cpu"`` raises (the self-play
+  entry points too).
 """
 import os
 import subprocess
@@ -36,6 +39,7 @@ from self_play_racing_tpu_torch.utils import metrics as tM
 from self_play_racing_tpu_torch.utils import profiling as tprof
 
 MODEL = "models/single_agent.npz"
+MULTI_MODEL = "models/self_play_agent.npz"
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -91,9 +95,11 @@ def test_serve_policy_act_matches_jax():
 
 def test_evaluate_cli_single_and_later_flags():
     by_path = tevaluate.main(["--single", MODEL, "--num-tracks", "2", "--num-runs", "1",
-                              "--device", "cpu"])
+                              "--device", "cpu", "--multi", MULTI_MODEL])
     assert by_path[MODEL]["num_episodes"] == 2
-    for flag in (["--multi", "x.npz"], ["--sb3", "x.zip"], ["--procgen"]):
+    assert by_path[MULTI_MODEL]["num_episodes"] == 2
+    assert by_path[MULTI_MODEL]["success_rate"] == 1.0  # the self-play policy laps both
+    for flag in (["--sb3", "x.zip"], ["--procgen"]):
         with pytest.raises(SystemExit, match="not ported yet"):
             tevaluate.main(["--single", MODEL, *flag])
 
@@ -105,7 +111,8 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "for name in ('agent.ppo', 'agent.trainer', 'train', 'configs', 'ops.gae',\n"
-        "             'ops.prng'):\n"
+        "             'ops.prng', 'agent.self_play', 'envs.multi', 'envs.selfplay',\n"
+        "             'utils.checkpoint'):\n"
         "    assert 'self_play_racing_tpu_torch.' + name in sys.modules, name\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
@@ -118,7 +125,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     n_port, bad = res.stdout.strip().splitlines()
-    assert int(n_port) >= 24
+    assert int(n_port) >= 28
     assert bad == "[]"
 
 
@@ -133,6 +140,12 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         lambda: tserve.Policy(MODEL),
         lambda: tevaluate.main(["--single", MODEL, "--num-tracks", "1", "--num-runs", "1"]),
         lambda: ttrain.make_training_pool(base_config(num_envs=2)),
+        lambda: ttrain.main(["multi", "--num-envs", "2", "--num-updates", "1"]),
+        lambda: ttrain.main(["scale", "--num-envs", "2", "--num-updates", "1"]),
+        lambda: tevaluate.main(["--multi", MULTI_MODEL, "--num-tracks", "1",
+                                "--num-runs", "1"]),
+        lambda: interop.pool_from_jax({"params": {"actor": [], "critic": []},
+                                       "log_std": np.zeros((1, 2))}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -12,19 +12,22 @@ just before each path is driven and read just after):
 2. K1 ``raycast_walls`` against its plain PyTorch version at the main path's shapes
    (canonical 16-track pool gathered to 4096 envs, 11 rays, 896 segments), plus the
    all-miss/padding case: hit/no-hit identical, distances bitwise equal except
-   near-ties within 2 ulp; kernel time (CUDA events around 10 eager launches, and
-   around a CUDA graph of 20 launches), bound and plain time;
+   near-ties within 2 ulp; its launch plan; kernel time (CUDA events around 10
+   eager launches, and around a CUDA graph of 20 launches), bound and plain time;
 3. K2 ``progress_and_collision`` against its plain version at [4096, 5, 512]:
-   index, progress and crashed equal; the same timings;
+   index, progress and crashed equal; the same timings; then both at the self-play
+   launch (rays [4096, 2, 11] against [4096, 1, 1, 896] segment rows, cars [4096, 2]
+   against [4096, 1, 512] waypoint rows, K2 also against a launch on rows expanded
+   per car), timed eager and in a graph beside their bounds, and in a graph that
+   launches K1 and then K2 on the same rows, as the env step does (K2 then finds
+   its rows evicted from the L2);
 4. K6 ``compute_gae`` against its plain version at [256, 4096] on a seeded
    rollout-like batch, plus the all-done and no-done cases: bitwise equal;
 5. K7 ``mixbits_permutation`` against its plain version for 10 epochs x 16,384
    units: exactly equal, and a permutation;
 6. K3 ``raycast_cars``, K4 ``rectangles_intersect`` and K5 ``car_update`` against
    their plain versions at the self-play path's shapes (4096 envs x 2 cars, 11 rays
-   per car) and at 8 cars, and K2 on [4096, 2] cars against [4096, 1, 512] rows
-   (against its plain version and against a launch on rows expanded per car): all
-   bitwise equal; the same timings;
+   per car) and at 8 cars: all bitwise equal; the same timings;
 7. the single-car main path: ``models/single_agent.npz`` driving 4096 envs for 256
    steps of sample_action + vector.step (K2 and K5 once per step, K1 once per step
    plus once for the reset);
@@ -54,8 +57,10 @@ just before each path is driven and read just after):
 
 The line before the last is one JSON object with every kernel's numbers (``ms`` the
 eager back-to-back time, ``graph_ms`` the CUDA-graph replay time, ``launches`` the
-count on the self-play path of phase 10, where all seven kernels run); the last
-line is ``{"ok": true, "device": {...}}``.
+count on the self-play path of phase 10, where all seven kernels run; K1 and K2
+also ``selfplay_ms``, ``selfplay_graph_ms`` and ``selfplay_bound_ms`` at the
+self-play launch and ``cold_graph_ms`` after the other kernel in the env step's
+order); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -207,6 +212,18 @@ def car_poses(track, rng, dev):
     return x.contiguous(), y.contiguous(), f32(rng.uniform(0, 2 * np.pi, n))
 
 
+def hold_k1(k, p, max_dist, what):
+    """K1's rule against its plain version: hit/no-hit identical, every distance
+    within 2 ulp (near-ties, where two hit ratios agree to within the rounding of
+    the cross products). Returns the count of non-identical rays and the max |err|."""
+    if not torch.equal(k == max_dist, p == max_dist):
+        raise AssertionError(f"K1 {what}: hit/no-hit differs from the plain version")
+    ulp = torch.nextafter(p.abs(), torch.full_like(p, float("inf"))) - p.abs()
+    if bool(((k - p).abs() > 2 * ulp).any()):
+        raise AssertionError(f"K1 {what}: a ray differs from the plain version by more than 2 ulp")
+    return int((k != p).sum()), float((k - p).abs().max())
+
+
 def check_k1(track, cfg, rng, dev):
     x, y, ang = car_poses(track, rng, dev)
     world = ang[:, None] + torch.as_tensor(cfg.sensor_angles(), dtype=torch.float32, device=dev)
@@ -218,18 +235,12 @@ def check_k1(track, cfg, rng, dev):
     k = geo.raycast_walls(*rays, *segs, max_dist, seg_c=seg_c)
     p = geo.raycast_walls_plain(*rays, *segs, max_dist, seg_c=seg_c)
     torch.cuda.synchronize()
-    differ = k != p
-    n_differ = int(differ.sum())
-    if not torch.equal(k == max_dist, p == max_dist):
-        raise AssertionError("K1: hit/no-hit differs from the plain version")
-    ulp = torch.nextafter(p.abs(), torch.full_like(p, float("inf"))) - p.abs()
-    if bool(((k - p).abs() > 2 * ulp).any()):
-        raise AssertionError("K1: a ray differs from the plain version by more than 2 ulp")
-    max_err = float((k - p).abs().max())
+    n_differ, max_err = hold_k1(k, p, max_dist, "single car")
     print(f"K1 raycast_walls [{NUM_ENVS}, {world.shape[1]}] x {segs[0].shape[-1]} segments: "
           f"{n_differ} non-identical rays (near-ties within 2 ulp), max |err| {max_err:g}, "
           f"{float((k < max_dist).float().mean()):.3f} of rays hit")
     if n_differ:
+        differ = k != p
         print(f"K1 near-tie rays: kernel {k[differ][:8].tolist()} plain {p[differ][:8].tolist()}")
 
     # all-miss rays and zero-direction padding give max_dist exactly; a hit among
@@ -251,6 +262,8 @@ def check_k1(track, cfg, rng, dev):
 
     out = torch.empty_like(k)
     rows, r, s = NUM_ENVS, world.shape[1], segs[0].shape[-1]
+    print(f"K1 plan [{rows}, {r}] x {s}: "
+          f"{_cuda.raycast_walls_plan(r, s)}")
     launch = lambda: _cuda.launch_raycast_walls(*rays, *segs, seg_c, out, rows, r, s, max_dist)
     ms, g_ms = per_launch_ms(launch), graph_ms(launch)
     plain_ms = per_launch_ms(lambda: geo.raycast_walls_plain(*rays, *segs, max_dist, seg_c=seg_c),
@@ -283,13 +296,13 @@ def check_k2(track, cfg, rng, dev):
     progress = torch.empty_like(kp)
     crashed = torch.empty_like(kc)
     w = track.wp_x.shape[-1]
+    print(f"K2 plan [{NUM_ENVS}] x {w}: "
+          f"{_cuda.progress_collision_plan(1, cx.shape[-1], w)}")
     launch = lambda: _cuda.launch_progress_and_collision(
         *args, progress, crashed, NUM_ENVS, 1, cx.shape[-1], w)
     ms, g_ms = per_launch_ms(launch), graph_ms(launch)
     plain_ms = per_launch_ms(lambda: geo.progress_and_collision_plain(*args), windows=3, launches=5)
-    b_ms, b_by = bound_ms(nbytes(x, y, cx, cy, track.wp_x, track.wp_y, track.nrm_x, track.nrm_y,
-                                 track.n_wp, track.track_width, progress, crashed),
-                          NUM_ENVS * (1 + cx.shape[-1]) * w * K2_OPS_PER_PAIR)
+    b_ms, b_by = k2_bound(x, cx, track, progress, crashed)
     print(f"K2 time {ms * 1e3:.1f} us eager back-to-back "
           f"({g_ms * 1e3:.1f} us in a CUDA graph), "
           f"bound {b_ms * 1e3:.1f} us ({b_by}), plain {plain_ms * 1e3:.1f} us")
@@ -298,6 +311,18 @@ def check_k2(track, cfg, rng, dev):
             "replaces": "self_play_racing_tpu/ops/geometry.py:176",
             "max_abs_err": max_err, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def k2_bound(x, cx, track, progress, crashed):
+    """K2's bound: the cars' centres, corners, waypoint counts and widths, every
+    waypoint position of the rows and, of the normals, only the two at each
+    corner's nearest waypoint, read once; the outputs written once; 11 operations
+    per query-waypoint pair."""
+    cars, corners = x.numel(), cx.shape[-1]
+    w = track.wp_x.shape[-1]
+    read = (4 * cars * (2 + 2 * corners) + nbytes(track.wp_x, track.wp_y)
+            + 8 * cars * corners + 8 * cars)
+    return bound_ms(read + nbytes(progress, crashed), cars * (1 + corners) * w * K2_OPS_PER_PAIR)
 
 
 def race_poses(track, rng, dev, a):
@@ -322,18 +347,45 @@ def car_rays(cfg, x, y, ang):
             torch.cos(world), torch.sin(world)]
 
 
-def check_k2_shared_rows(track, cfg, rng, dev):
-    """K2 as the multi-car env launches it: cars [N, A] against waypoint rows
-    [N, 1, W], against the plain version and a launch on rows expanded per car."""
+def check_selfplay_launches(track, cfg, rng, dev, k1, k2):
+    """K1 and K2 as the multi-car env launches them (envs/multi.py:172 and :232):
+    rays [N, A, R] against segment rows [N, 1, 1, S], cars [N, A] against waypoint
+    rows [N, 1, W]; held to their plain versions (K2 also to a launch on rows
+    expanded per car), timed eager and in a CUDA graph beside their bounds, then
+    in a CUDA graph that launches K1 and then K2 on the same rows, as the env step
+    does: K1's 73 MB of segment rows evict K2's rows from the 50 MB L2, so K2 runs
+    cold. Each kernel's cold time there is the pair's time less the other kernel's
+    own graph time. Adds ``selfplay_ms``, ``selfplay_graph_ms``,
+    ``selfplay_bound_ms`` and ``cold_graph_ms`` to the two kernels' entries."""
     x, y, ang = race_poses(track, rng, dev, NUM_AGENTS)
+    rays = car_rays(cfg, x, y, ang)
+    segs = [getattr(track, f)[:, None, None, :] for f in ("seg_sx", "seg_sy", "seg_vx",
+                                                          "seg_vy", "seg_c")]
+    max_dist = cfg.max_sensor_range
+    k = geo.raycast_walls(*rays, *segs[:4], max_dist, seg_c=segs[4])
+    p = geo.raycast_walls_plain(*rays, *segs[:4], max_dist, seg_c=segs[4])
+    torch.cuda.synchronize()
+    n_differ, max_err = hold_k1(k, p, max_dist, "self-play launch")
+    rows, r, s = NUM_ENVS, NUM_AGENTS * rays[0].shape[-1], segs[0].shape[-1]
+    print(f"K1 raycast_walls rays [{NUM_ENVS}, {NUM_AGENTS}, {rays[0].shape[-1]}] x rows "
+          f"[{NUM_ENVS}, 1, 1, {s}]: {n_differ} non-identical rays (near-ties within 2 ulp), "
+          f"max |err| {max_err:g}; plan {_cuda.raycast_walls_plan(r, s)}")
+    k1["max_abs_err"] = max(k1["max_abs_err"], max_err)
+    out = torch.empty_like(k)
+    k1_launch = lambda: _cuda.launch_raycast_walls(*rays, *segs, out, rows, r, s, max_dist)
+    k1_ms, k1_graph = per_launch_ms(k1_launch), graph_ms(k1_launch)
+    k1_bound, k1_by = bound_ms(nbytes(*rays, *segs, out), rows * r * s * K1_OPS_PER_PAIR)
+    print(f"K1 self-play launch: {k1_ms * 1e3:.1f} us eager back-to-back "
+          f"({k1_graph * 1e3:.1f} us in a CUDA graph), bound {k1_bound * 1e3:.1f} us ({k1_by})")
+
     cx, cy = geo.car_corners(x, y, ang, cfg.car.length / 2, cfg.car.width / 2)
-    rows = [getattr(track, f)[:, None, :] for f in ("wp_x", "wp_y", "nrm_x", "nrm_y")]
+    wp = [getattr(track, f)[:, None, :] for f in ("wp_x", "wp_y", "nrm_x", "nrm_y")]
     tail = (track.n_wp[:, None], track.track_width[:, None])
-    kp, kc = geo.progress_and_collision(x, y, cx, cy, *rows, *tail)
-    pp, pc = geo.progress_and_collision_plain(x, y, cx, cy, *rows, *tail)
+    kp, kc = geo.progress_and_collision(x, y, cx, cy, *wp, *tail)
+    pp, pc = geo.progress_and_collision_plain(x, y, cx, cy, *wp, *tail)
     w = track.wp_x.shape[-1]
     ep, ec = geo.progress_and_collision(
-        x, y, cx, cy, *(r.expand(NUM_ENVS, NUM_AGENTS, w).contiguous() for r in rows), *tail)
+        x, y, cx, cy, *(t.expand(NUM_ENVS, NUM_AGENTS, w).contiguous() for t in wp), *tail)
     torch.cuda.synchronize()
     if not (torch.equal(kp, pp) and torch.equal(kc, pc) and torch.equal(kp, ep)
             and torch.equal(kc, ec)):
@@ -341,13 +393,31 @@ def check_k2_shared_rows(track, cfg, rng, dev):
                              "expanded rows")
     progress, crashed = torch.empty_like(kp), torch.empty_like(kc)
     n_wp, width = (t.expand(NUM_ENVS, NUM_AGENTS).contiguous() for t in tail)
-    launch = lambda: _cuda.launch_progress_and_collision(
-        x, y, cx, cy, *rows, n_wp, width, progress, crashed, NUM_ENVS * NUM_AGENTS,
-        NUM_AGENTS, cx.shape[-1], w)
+    cx, cy = cx.contiguous(), cy.contiguous()
+    k2_launch = lambda: _cuda.launch_progress_and_collision(
+        x, y, cx, cy, *wp, n_wp, width, progress, crashed, NUM_ENVS, NUM_AGENTS,
+        cx.shape[-1], w)
+    k2_ms, k2_graph = per_launch_ms(k2_launch), graph_ms(k2_launch)
+    k2_b, k2_by = k2_bound(x, cx, track, progress, crashed)
     print(f"K2 progress_and_collision cars [{NUM_ENVS}, {NUM_AGENTS}] x rows "
           f"[{NUM_ENVS}, 1, {w}]: bitwise equal to plain and to expanded rows "
-          f"({int(kc.sum())} crashed); {per_launch_ms(launch) * 1e3:.1f} us eager "
-          f"back-to-back ({graph_ms(launch) * 1e3:.1f} us in a CUDA graph)")
+          f"({int(kc.sum())} crashed); plan "
+          f"{_cuda.progress_collision_plan(NUM_AGENTS, cx.shape[-1], w)}; "
+          f"{k2_ms * 1e3:.1f} us eager back-to-back ({k2_graph * 1e3:.1f} us in a CUDA graph), "
+          f"bound {k2_b * 1e3:.1f} us ({k2_by})")
+
+    def step_pair():
+        k1_launch()
+        k2_launch()
+    pair = graph_ms(step_pair)
+    k1_cold, k2_cold = pair - k2_graph, pair - k1_graph
+    print(f"K1 then K2 on the same rows in a CUDA graph: {pair * 1e3:.1f} us a pair; K2 cold "
+          f"{k2_cold * 1e3:.1f} us (warm {k2_graph * 1e3:.1f}), K1 {k1_cold * 1e3:.1f} us "
+          f"(alone {k1_graph * 1e3:.1f})")
+    for entry, own, graph, bound, cold in ((k1, k1_ms, k1_graph, k1_bound, k1_cold),
+                                          (k2, k2_ms, k2_graph, k2_b, k2_cold)):
+        entry.update(selfplay_ms=own, selfplay_graph_ms=graph, selfplay_bound_ms=bound,
+                     cold_graph_ms=cold)
 
 
 def check_k3(track, cfg, rng, dev):
@@ -901,7 +971,7 @@ def main() -> int:
     _, n_units, _ = ppo.minibatch_layout(base_config(num_envs=NUM_ENVS, num_steps=STEPS))
     kernels = [check_k1(track, cfg, rng, dev), check_k2(track, cfg, rng, dev)]
     mcfg = menv.MultiRacingConfig(num_agents=NUM_AGENTS, num_sensors=11)
-    check_k2_shared_rows(track, mcfg, rng, dev)
+    check_selfplay_launches(track, mcfg, rng, dev, *kernels)
     kernels += [check_k3(track, mcfg, rng, dev), check_k4(track, mcfg, rng, dev),
                 check_k5(track, mcfg, rng, dev), check_k6(dev), check_k7(dev, n_units)]
     main_path(track, cfg, dev, card)

@@ -12,27 +12,40 @@
 // free of transcendentals and rounds exactly as the plain PyTorch version.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32): at the main path's shapes
-// (4096 cars x 5 queries x 512 padded waypoints, four f32 waypoint fields per row)
-// the kernel must read 4 x 512 x 4 B x 4096 = 34 MB, about 10 us, against about
-// 0.12 GFLOP (11 operations per query-waypoint pair), about 2 us. It is
-// memory-bound.
+// (4096 waypoint rows x 512 padded waypoints, 1 or 2 cars of 5 queries per row)
+// the search reads the two position fields of every row, 2 x 512 x 4 B x 4096 =
+// 17 MB, and of the normals only the two at each corner's winner; about 5 us of
+// bytes, against 11 operations per query-waypoint pair (0.12 GFLOP a car per
+// row), about 2 us. It is bound by bytes, so a row must cross from device memory
+// once and enough rows must be in flight to cover the memory's latency.
 //
-// Design: one block per car, one warp per query (centre + corners). Cars come in
-// rows that share one waypoint row (the multi-car env's [envs, cars] batch against
-// [envs, 1, W] rows, so the rows are never expanded per car); the block stages its
-// row's four waypoint fields in shared memory once and its queries share them, so
-// device memory is read once per car (from L2 for the second car of a row). Lanes take waypoints
-// lane, lane+32, ... in index order; the warp then reduces on the pair (d^2, idx),
-// a total order, so the shuffle tree gives the exact first-index argmin whatever
-// its shape. Compiled with -fmad=false so products and sums round as PyTorch's.
+// Design: one block per waypoint row (grid = rows), and every car of the row is
+// served from one staging of the row's positions, made by bulk asynchronous
+// copies (row_stage.cuh). A block needs 4 KB, so an SM holds 32 rows at once, the
+// most blocks it takes, and their copies overlap each other's searches. One warp
+// per car keeps its queries (centre + corners, up to kQueries at a time) in
+// registers, so each waypoint read from shared memory serves all of them; lanes
+// take waypoints lane, lane+32, ... (consecutive words: no bank conflicts), the
+// last partial chunk held at d^2 = inf so that the warp stays converged. The warp reduces each query on the pair (d^2,
+// idx), a total order, so the butterfly gives every lane the exact first-index
+// argmin whatever its shape; lane t then forms query t's projection from the same
+// staged position and the winner's normal, read from device memory, in the same
+// operations as the plain version, so it is bitwise the one that version gathers.
+// Compiled with -fmad=false so products and sums round as PyTorch's.
 #include <climits>
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "row_stage.cuh"
+
 namespace {
 
-__global__ void progress_and_collision_kernel(
+constexpr int kFields = 2;   // the staged fields: wp_x, wp_y
+constexpr int kQueries = 5;  // queries a lane holds at once: centre + 4 corners
+constexpr int kMaxThreads = 256;
+
+__global__ void __launch_bounds__(kMaxThreads) progress_and_collision_kernel(
         const float* __restrict__ x, const float* __restrict__ y,
         const float* __restrict__ cx, const float* __restrict__ cy,
         const float* __restrict__ wp_x, const float* __restrict__ wp_y,
@@ -40,92 +53,142 @@ __global__ void progress_and_collision_kernel(
         const int* __restrict__ n_wp, const float* __restrict__ track_width,
         float* __restrict__ progress, unsigned char* __restrict__ crashed,
         int cars_per_row, int num_corners, int num_waypoints) {
-    extern __shared__ float smem[];
-    __shared__ int s_crashed;
+    extern __shared__ __align__(16) float stage[];
+    __shared__ uint64_t bar;
     const int W = num_waypoints;
-    float* s_wx = smem;
-    float* s_wy = smem + W;
-    float* s_nx = smem + 2 * W;
-    float* s_ny = smem + 3 * W;
-
-    const size_t row = blockIdx.x;  // the car
-    const size_t base = (row / (size_t)cars_per_row) * (size_t)W;
-    for (int i = threadIdx.x; i < W; i += blockDim.x) {
-        s_wx[i] = wp_x[base + i];
-        s_wy[i] = wp_y[base + i];
-        s_nx[i] = nrm_x[base + i];
-        s_ny[i] = nrm_y[base + i];
-    }
-    if (threadIdx.x == 0) s_crashed = 0;
-    __syncthreads();
+    const int cap = row_stage::field_capacity(W);
+    const size_t row = blockIdx.x;
+    const float* fields[kFields] = {wp_x, wp_y};
 
     const int lane = threadIdx.x & 31;
-    const int q = threadIdx.x >> 5;  // 0 = centre, 1.. = corners
-    const float qx = q == 0 ? x[row] : cx[row * num_corners + q - 1];
-    const float qy = q == 0 ? y[row] : cy[row * num_corners + q - 1];
-
-    float best_d2 = CUDART_INF_F;
-    int best_i = INT_MAX;
-    float best_p = 0.0f;
-    for (int w = lane; w < W; w += 32) {
-        const float ddx = qx - s_wx[w];
-        const float ddy = qy - s_wy[w];
-        const float d2 = ddx * ddx + ddy * ddy;
-        if (d2 < best_d2) {
-            best_d2 = d2;
-            best_i = w;
-            best_p = ddx * s_nx[w] + ddy * s_ny[w];
-        }
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-        const float od = __shfl_down_sync(0xffffffffu, best_d2, o);
-        const int oi = __shfl_down_sync(0xffffffffu, best_i, o);
-        const float op = __shfl_down_sync(0xffffffffu, best_p, o);
-        if (od < best_d2 || (od == best_d2 && oi < best_i)) {
-            best_d2 = od;
-            best_i = oi;
-            best_p = op;
-        }
-    }
-    if (lane == 0) {
-        if (q == 0) {
-            progress[row] = __fdiv_rn((float)best_i, (float)n_wp[row]);
-        } else if (fabsf(best_p) > track_width[row]) {
-            atomicOr(&s_crashed, 1);
-        }
-    }
+    const int warp = threadIdx.x >> 5;
+    const int warps = blockDim.x >> 5;
+    if (threadIdx.x == 0) row_stage::init_barrier(&bar);
     __syncthreads();
-    if (threadIdx.x == 0) crashed[row] = (unsigned char)s_crashed;
+    if (warp == 0) row_stage::stage_row(stage, fields, kFields, row, W, cap, &bar);
+
+    const int queries = 1 + num_corners;
+    float qx[kQueries], qy[kQueries], width = 0.0f;
+    int count = 1;
+    // a warp's queries q0 .. q0 + kQueries - 1 of a car (the last repeated past the
+    // end), with the car's waypoint count and track width
+    auto load_queries = [&](size_t car, int q0) {
+#pragma unroll
+        for (int t = 0; t < kQueries; ++t) {
+            const int q = min(q0 + t, queries - 1);  // 0 = centre, 1.. = corners
+            qx[t] = q == 0 ? x[car] : cx[car * num_corners + q - 1];
+            qy[t] = q == 0 ? y[car] : cy[car * num_corners + q - 1];
+        }
+        count = n_wp[car];
+        width = track_width[car];
+    };
+    // the first car's queries travel while the row is still arriving
+    if (warp < cars_per_row) load_queries(row * cars_per_row + warp, 0);
+    row_stage::wait_barrier(&bar);
+    __syncthreads();  // the row (and its thread-copied parts) is in
+    const float* s_wx = row_stage::staged(stage, wp_x, row, W);
+    const float* s_wy = row_stage::staged(stage + cap, wp_y, row, W);
+    const float* row_nx = nrm_x + row * W;
+    const float* row_ny = nrm_y + row * W;
+
+    for (int a = warp; a < cars_per_row; a += warps) {
+        const size_t car = row * cars_per_row + a;
+        bool hit_wall = false;
+        for (int q0 = 0; q0 < queries; q0 += kQueries) {
+            if (a != warp || q0 != 0) load_queries(car, q0);
+            float best_d2[kQueries];
+            int best_i[kQueries];
+#pragma unroll
+            for (int t = 0; t < kQueries; ++t) {
+                best_d2[t] = CUDART_INF_F;
+                best_i[t] = INT_MAX;
+            }
+            // whole chunks of 32 waypoints, then the last chunk with the lanes past
+            // W held at d^2 = inf, so that the warp stays converged
+            auto visit = [&](int w, bool valid) {
+                const float wx = s_wx[valid ? w : 0];
+                const float wy = s_wy[valid ? w : 0];
+#pragma unroll
+                for (int t = 0; t < kQueries; ++t) {
+                    const float ddx = qx[t] - wx;
+                    const float ddy = qy[t] - wy;
+                    const float d2 = valid ? ddx * ddx + ddy * ddy : CUDART_INF_F;
+                    const bool take = d2 < best_d2[t];
+                    best_d2[t] = take ? d2 : best_d2[t];
+                    best_i[t] = take ? w : best_i[t];
+                }
+            };
+            const int whole = W & ~31;
+#pragma unroll 4
+            for (int w0 = 0; w0 < whole; w0 += 32) visit(w0 + lane, true);
+            if (whole < W) visit(whole + lane, whole + lane < W);
+            __syncwarp();
+#pragma unroll
+            for (int t = 0; t < kQueries; ++t) {
+#pragma unroll
+                for (int o = 16; o > 0; o >>= 1) {
+                    const float od = __shfl_xor_sync(0xffffffffu, best_d2[t], o);
+                    const int oi = __shfl_xor_sync(0xffffffffu, best_i[t], o);
+                    if (od < best_d2[t] || (od == best_d2[t] && oi < best_i[t])) {
+                        best_d2[t] = od;
+                        best_i[t] = oi;
+                    }
+                }
+            }
+            // every lane holds every query's winner; lane t forms the projection
+            // of query q0 + t, in parallel
+            int i = best_i[0];
+            float px = qx[0], py = qy[0];
+#pragma unroll
+            for (int t = 1; t < kQueries; ++t) {
+                i = lane == t ? best_i[t] : i;
+                px = lane == t ? qx[t] : px;
+                py = lane == t ? qy[t] : py;
+            }
+            const int q = q0 + lane;
+            bool outside = false;
+            if (lane < kQueries && q < queries && q > 0 && i < W) {
+                // i < W: there is no winner only where every d^2 is NaN
+                const float ddx = px - s_wx[i];
+                const float ddy = py - s_wy[i];
+                const float p = ddx * row_nx[i] + ddy * row_ny[i];
+                outside = fabsf(p) > width;
+            }
+            hit_wall |= __any_sync(0xffffffffu, outside);
+            if (q0 == 0 && lane == 0) {
+                progress[car] = __fdiv_rn((float)best_i[0], (float)count);
+            }
+        }
+        if (lane == 0) crashed[car] = (unsigned char)hit_wall;
+    }
 }
 
 }  // namespace
 
-// rows cars; centres x, y [rows]; corners cx, cy [rows, num_corners]; waypoint
-// fields [rows / cars_per_row, num_waypoints] (car i reads waypoint row
-// i / cars_per_row); n_wp, track_width [rows]; progress [rows] f32, crashed [rows]
-// bytes (0/1). Returns a cudaError_t (0 on success).
+// rows waypoint rows of cars_per_row cars each; centres x, y [rows * cars_per_row];
+// corners cx, cy [rows * cars_per_row, num_corners]; waypoint fields [rows,
+// num_waypoints]; n_wp, track_width [rows * cars_per_row]; progress f32 and crashed
+// bytes (0/1) [rows * cars_per_row]. One block of `threads` threads per row and
+// `smem` bytes of dynamic shared memory for the staged row: the launch plan,
+// ops/_cuda.py:progress_collision_plan. Returns a cudaError_t (0 on success).
 extern "C" int progress_and_collision_f32(
         const float* x, const float* y, const float* cx, const float* cy,
         const float* wp_x, const float* wp_y, const float* nrm_x,
         const float* nrm_y, const int* n_wp, const float* track_width,
         float* progress, unsigned char* crashed,
-        int rows, int cars_per_row, int num_corners, int num_waypoints, int device,
-        void* stream) {
+        int rows, int cars_per_row, int num_corners, int num_waypoints,
+        int threads, int smem, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    if (rows == 0) return 0;
-    if (cars_per_row < 1) return (int)cudaErrorInvalidValue;
-    const size_t smem = 4 * (size_t)num_waypoints * sizeof(float);
-    if (smem > 48 * 1024) {
-        err = cudaFuncSetAttribute(progress_and_collision_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-        if (err != cudaSuccess) return (int)err;
-    }
-    progress_and_collision_kernel<<<rows, 32 * (1 + num_corners), smem,
-                                    (cudaStream_t)stream>>>(
-        x, y, cx, cy, wp_x, wp_y, nrm_x, nrm_y, n_wp, track_width, progress,
-        crashed, cars_per_row, num_corners, num_waypoints);
+    if (rows == 0 || cars_per_row == 0) return 0;
+    if (cars_per_row < 0 || num_corners < 0 || num_waypoints < 1
+            || threads % 32 != 0 || threads > kMaxThreads)
+        return (int)cudaErrorInvalidValue;
+    err = row_stage::allow_smem(progress_and_collision_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    progress_and_collision_kernel<<<rows, threads, smem, (cudaStream_t)stream>>>(
+        x, y, cx, cy, wp_x, wp_y, nrm_x, nrm_y, n_wp, track_width, progress, crashed,
+        cars_per_row, num_corners, num_waypoints);
     return (int)cudaGetLastError();
 }
 

@@ -10,28 +10,53 @@
 //   - one IEEE divide on the winner; max_dist only when that ratio is inf (a hit
 //     beyond max_dist is returned unclamped).
 //
-// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32): at the main path's shapes
-// (4096 env rows x 11 rays x 896 padded segments, five f32 segment fields per row)
-// the kernel must read 5 x 896 x 4 B x 4096 = 73 MB, about 22 us, against about
-// 1.05 GFLOP of f32 work (26 operations per ray-segment pair), about 16 us. It is
-// memory-bound.
+// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32): at the single-car path's
+// shapes (4096 env rows x 11 rays x 896 padded segments, five f32 segment fields per
+// row) the kernel must read 5 x 896 x 4 B x 4096 = 73 MB, about 22 us, against
+// 26 f32 operations per ray-segment pair (1.05 GFLOP), about 16 us; the self-play
+// path casts 22 rays per row against the same rows: 2.10 GFLOP, about 31 us, bound
+// by operations. Tensor cores cannot take the work: each pair is ~15 products and
+// sums rounded one by one (built with -fmad=false, so that K1 rounds as PyTorch's
+// eager ops round), and TF32 wgmma would round the inputs and fuse the sums, which
+// breaks bitwise agreement with the plain version. So the floor is the CUDA cores'
+// issue rate: the fold's inner loop is 261 instructions a step of 11 rays, 23.7 a
+// pair (10 FMUL, 5 FADD, 5 FSETP, 2 FSEL a pair, then the step's 5 loads and loop
+// counters shared by the 11 rays; cuobjdump -sass).
 //
-// Design: one block per env row. The block stages the row's five segment fields
-// (20 B per segment, 18 KB at S = 896) in shared memory once, and every ray of the
-// row reads them from there, so device memory is read once per row. One warp per
-// ray: lane j folds the contiguous run [j*L, (j+1)*L) of segments in index order,
-// then the 32 runs combine pairwise left before right (offsets 1, 2, 4, 8, 16),
-// ties keeping the left. With a consistent comparator this is the reference's
-// sequential fold; it can differ from it only where two ratios tie to within the
-// rounding of the cross products. Compiled with -fmad=false so every product and
-// sum rounds as PyTorch's eager ops round them.
+// Reduction shape (unchanged since the first version of this kernel, so results
+// are bitwise those of every earlier build): per ray, lane j of a warp folds the
+// contiguous run [j*L, (j+1)*L) of segments in index order, L = ceil(S/32); the 32
+// runs combine through a shuffle tree (offsets 1, 2, 4, 8, 16, left before right).
+// The comparator is not a total order, so this shape is the kernel's contract.
+//
+// Design:
+//   - one block per row (grid = rows). Its fields are staged once by bulk copies
+//     (row_stage.cuh), and every ray of the row (22 on the self-play path) is
+//     folded from that one staging; the rays travel into registers while the row
+//     arrives;
+//   - each lane keeps R rays (origin, direction, u and the running (pa, pd)) in
+//     registers, so each segment read from shared memory serves R rays; a warp
+//     takes R rays of the row at a time; the fold has no branch;
+//   - lane j reads word j*L + k of the staged row at step k: gcd(L, 32) lanes
+//     share a bank (4 at S = 896, 32 at S = 1024), and the R rays share each
+//     read, so the conflict costs little. A lane-major copy of the row (the
+//     transpose that removes the conflict) doubles a block's shared memory and
+//     measured slower at S = 896 and at S = 1024 (PERF.md, Findings);
+//   - at S = 896 a block needs 18 KB, so an SM holds 12 rows at once. The
+//     kernel's time follows the warps an SM holds more than anything else, so a
+//     block keeps one buffer: the other blocks of the SM overlap each block's
+//     copy. Persistent blocks that walk rows, with one buffer or with a second
+//     that prefetches the next row, measured slower (PERF.md, Findings).
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "row_stage.cuh"
 
 namespace {
 
 constexpr float kParallelEps = 1e-10f;
-constexpr int kMaxRaysPerBlock = 16;
+constexpr int kFields = 5;  // sx, sy, vx, vy, c
+constexpr int kMaxThreads = 256;
 
 __device__ __forceinline__ void ratio_min(float& pa, float& pd, float qa, float qd) {
     const bool take_q = qa * pd < pa * qd;
@@ -39,103 +64,166 @@ __device__ __forceinline__ void ratio_min(float& pa, float& pd, float qa, float 
     pd = take_q ? qd : pd;
 }
 
-__global__ void raycast_walls_kernel(
+// Lane j folds the run [j*L, (j+1)*L) of the staged row, reading word j*L + k of
+// each field at step k: gcd(L, 32) lanes share a bank (4 at S = 896), and the R
+// rays of a lane share each read.
+template <int R>
+__global__ void __launch_bounds__(kMaxThreads) raycast_walls_kernel(
         const float* __restrict__ ox, const float* __restrict__ oy,
         const float* __restrict__ dx, const float* __restrict__ dy,
         const float* __restrict__ seg_sx, const float* __restrict__ seg_sy,
         const float* __restrict__ seg_vx, const float* __restrict__ seg_vy,
         const float* __restrict__ seg_c, float* __restrict__ out,
         int rays_per_row, int num_segments, float max_dist) {
-    extern __shared__ float smem[];
+    extern __shared__ __align__(16) float stage[];
+    __shared__ uint64_t bar;
     const int S = num_segments;
-    float* s_sx = smem;
-    float* s_sy = smem + S;
-    float* s_vx = smem + 2 * S;
-    float* s_vy = smem + 3 * S;
-    float* s_c = smem + 4 * S;
-
+    const int L = (S + 31) / 32;
+    const int cap = row_stage::field_capacity(32 * L);  // room for the padding past S
     const size_t row = blockIdx.x;
-    const size_t base = row * (size_t)S;
-    for (int i = threadIdx.x; i < S; i += blockDim.x) {
-        const float sx = seg_sx[base + i];
-        const float sy = seg_sy[base + i];
-        const float vx = seg_vx[base + i];
-        const float vy = seg_vy[base + i];
-        s_sx[i] = sx;
-        s_sy[i] = sy;
-        s_vx[i] = vx;
-        s_vy[i] = vy;
-        s_c[i] = seg_c != nullptr ? seg_c[base + i] : vy * sx - vx * sy;
-    }
-    __syncthreads();
-
+    const float* fields[kFields] = {seg_sx, seg_sy, seg_vx, seg_vy, seg_c};
+    const bool with_c = seg_c != nullptr;
+    const int num_fields = with_c ? 5 : 4;
     const int lane = threadIdx.x & 31;
-    const int ray = blockIdx.y * (blockDim.x >> 5) + (threadIdx.x >> 5);
-    if (ray >= rays_per_row) return;  // whole warps only; no barrier follows
-    const size_t r = row * (size_t)rays_per_row + ray;
-    const float rox = ox[r];
-    const float roy = oy[r];
-    const float rdx = dx[r];
-    const float rdy = dy[r];
-    const float u = rox * rdy - roy * rdx;
+    const int warp = threadIdx.x >> 5;
+    const int warps = blockDim.x >> 5;
+    const int groups = (rays_per_row + R - 1) / R;
 
-    const int run = (S + 31) / 32;
-    const int lo = min(lane * run, S);
-    const int hi = min(lo + run, S);
-    float pa = CUDART_INF_F;
-    float pd = 1.0f;
-    for (int s = lo; s < hi; ++s) {
-        const float vx = s_vx[s];
-        const float vy = s_vy[s];
-        const float cn = roy * vx - rox * vy + s_c[s];
-        const float dotp = vy * rdx - vx * rdy;
-        const float sn = s_sx[s] * rdy - s_sy[s] * rdx - u;
-        const float d = fabsf(dotp);
-        const bool hit = (d > kParallelEps) && (cn * dotp >= 0.0f)
-                         && (sn * dotp >= 0.0f) && (fabsf(sn) <= d);
-        ratio_min(pa, pd, hit ? fabsf(cn) : CUDART_INF_F, d);
+    if (threadIdx.x == 0) row_stage::init_barrier(&bar);
+    __syncthreads();
+    if (warp == 0) row_stage::stage_row(stage, fields, num_fields, row, S, cap, &bar);
+
+    float rox[R], roy[R], rdx[R], rdy[R], u[R];
+    auto load_rays = [&](int g) {
+#pragma unroll
+        for (int t = 0; t < R; ++t) {
+            const size_t r = row * rays_per_row + min(g * R + t, rays_per_row - 1);
+            rox[t] = ox[r];
+            roy[t] = oy[r];
+            rdx[t] = dx[r];
+            rdy[t] = dy[r];
+            u[t] = rox[t] * rdy[t] - roy[t] * rdx[t];
+        }
+    };
+    if (warp < groups) load_rays(warp);  // in flight while the row arrives
+
+    row_stage::wait_barrier(&bar);
+    const float* rs[kFields];
+#pragma unroll
+    for (int f = 0; f < kFields; ++f) {
+        rs[f] = row_stage::staged(stage + f * cap, fields[f], row, S);
     }
-    // lane i (a multiple of 2*o) holds runs [i, i+o) and takes [i+o, i+2o) as
-    // its right operand; lane 0 ends with all 32 runs in index order
-    for (int o = 1; o < 32; o <<= 1) {
-        const float qa = __shfl_down_sync(0xffffffffu, pa, o);
-        const float qd = __shfl_down_sync(0xffffffffu, pd, o);
-        ratio_min(pa, pd, qa, qd);
+    // zero direction past S, so that every lane takes L steps: such padding loses
+    // every comparison
+    for (int i = S + threadIdx.x; i < 32 * L; i += blockDim.x) {
+        for (int f = 0; f < num_fields; ++f) const_cast<float*>(rs[f])[i] = 0.0f;
     }
-    if (lane == 0) {
-        const float t = __fdiv_rn(pa, pd);
-        out[r] = isinf(t) ? max_dist : t;
+    __syncthreads();  // the row, its thread-copied parts and its padding are in
+
+    for (int g = warp; g < groups; g += warps) {
+        if (g != warp) load_rays(g);
+        float pa[R], pd[R];
+#pragma unroll
+        for (int t = 0; t < R; ++t) {
+            pa[t] = CUDART_INF_F;
+            pd[t] = 1.0f;
+        }
+        for (int k = 0; k < L; ++k) {
+            const int i = lane * L + k;
+            const float sx = rs[0][i];
+            const float sy = rs[1][i];
+            const float vx = rs[2][i];
+            const float vy = rs[3][i];
+            const float c = with_c ? rs[4][i] : vy * sx - vx * sy;
+#pragma unroll
+            for (int t = 0; t < R; ++t) {
+                const float cn = roy[t] * vx - rox[t] * vy + c;
+                const float dotp = vy * rdx[t] - vx * rdy[t];
+                const float sn = sx * rdy[t] - sy * rdx[t] - u[t];
+                const float d = fabsf(dotp);
+                // ratio_min(pa, pd, hit ? |cn| : inf, d): a miss never wins, as
+                // inf * pd = inf (pd > 0: only hits, with d > 1e-10, are taken).
+                // Every product is formed and the tests joined with & (not &&),
+                // so the loop has no branch.
+                const float q_by_p = fabsf(cn) * pd[t];
+                const float p_by_q = pa[t] * d;
+                const bool take = (d > kParallelEps) & (cn * dotp >= 0.0f)
+                                  & (sn * dotp >= 0.0f) & (fabsf(sn) <= d)
+                                  & (q_by_p < p_by_q);
+                pa[t] = take ? fabsf(cn) : pa[t];
+                pd[t] = take ? d : pd[t];
+            }
+        }
+        // lane i (a multiple of 2*o) holds runs [i, i+o) and takes [i+o, i+2o) as
+        // its right operand; lane 0 ends with all 32 runs in index order
+        __syncwarp();
+#pragma unroll
+        for (int t = 0; t < R; ++t) {
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+                const float qa = __shfl_down_sync(0xffffffffu, pa[t], o);
+                const float qd = __shfl_down_sync(0xffffffffu, pd[t], o);
+                ratio_min(pa[t], pd[t], qa, qd);
+            }
+        }
+        if (lane == 0) {
+#pragma unroll
+            for (int t = 0; t < R; ++t) {
+                if (g * R + t < rays_per_row) {
+                    const float d = __fdiv_rn(pa[t], pd[t]);
+                    out[row * rays_per_row + g * R + t] = isinf(d) ? max_dist : d;
+                }
+            }
+        }
     }
+}
+
+template <int R>
+int launch(const float* ox, const float* oy, const float* dx, const float* dy,
+           const float* sx, const float* sy, const float* vx, const float* vy,
+           const float* c, float* out, int rows, int rays_per_row, int num_segments,
+           float max_dist, int threads, int smem, cudaStream_t stream) {
+    auto kernel = raycast_walls_kernel<R>;
+    const cudaError_t err = row_stage::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<rows, threads, smem, stream>>>(ox, oy, dx, dy, sx, sy, vx, vy, c, out,
+                                            rays_per_row, num_segments, max_dist);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// rows x rays_per_row rays; row i of the five segment fields is [i*S, (i+1)*S).
-// seg_c may be null: the kernel then forms c = vy*sx - vx*sy itself.
-// Returns a cudaError_t (0 on success).
+// rows x rays_per_row rays; row i of the segment fields is [i*S, (i+1)*S).
+// seg_c may be null: the kernel then forms c = vy*sx - vx*sy itself. One block of
+// `threads` threads per row, `smem` bytes of dynamic shared memory for the staged
+// row and `rays_per_lane` rays a lane: the launch plan,
+// ops/_cuda.py:raycast_walls_plan. Returns a cudaError_t (0 on success).
 extern "C" int raycast_walls_f32(
         const float* ox, const float* oy, const float* dx, const float* dy,
         const float* seg_sx, const float* seg_sy, const float* seg_vx,
         const float* seg_vy, const float* seg_c, float* out,
         int rows, int rays_per_row, int num_segments, float max_dist,
-        int device, void* stream) {
+        int threads, int smem, int rays_per_lane, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (rows == 0 || rays_per_row == 0) return 0;
-    const int rays_per_block =
-        rays_per_row < kMaxRaysPerBlock ? rays_per_row : kMaxRaysPerBlock;
-    const dim3 grid(rows, (rays_per_row + rays_per_block - 1) / rays_per_block);
-    const size_t smem = 5 * (size_t)num_segments * sizeof(float);
-    if (smem > 48 * 1024) {
-        err = cudaFuncSetAttribute(raycast_walls_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-        if (err != cudaSuccess) return (int)err;
+    if (threads % 32 != 0 || threads > kMaxThreads || num_segments < 1)
+        return (int)cudaErrorInvalidValue;
+    const auto st = (cudaStream_t)stream;
+#define K1_LAUNCH(R) \
+    case R: return launch<R>(ox, oy, dx, dy, seg_sx, seg_sy, seg_vx, seg_vy, seg_c, out, \
+                             rows, rays_per_row, num_segments, max_dist, threads, smem, st)
+    switch (rays_per_lane) {
+        K1_LAUNCH(1);
+        K1_LAUNCH(2);
+        K1_LAUNCH(3);
+        K1_LAUNCH(4);
+        K1_LAUNCH(6);
+        K1_LAUNCH(8);
+        K1_LAUNCH(11);
+        default: return (int)cudaErrorInvalidValue;
     }
-    raycast_walls_kernel<<<grid, 32 * rays_per_block, smem, (cudaStream_t)stream>>>(
-        ox, oy, dx, dy, seg_sx, seg_sy, seg_vx, seg_vy, seg_c, out,
-        rays_per_row, num_segments, max_dist);
-    return (int)cudaGetLastError();
+#undef K1_LAUNCH
 }
 
 extern "C" const char* raycast_walls_error_string(int err) {

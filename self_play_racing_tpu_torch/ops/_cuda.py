@@ -3,15 +3,17 @@
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` into its own shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), all sources at
 once in parallel, at the first launch in a process. Libraries are cached in
-``_build/`` under a name that hashes the source and the flags, so an edited source
-is rebuilt and an unchanged one is loaded as is. Pointers and the stream go to the
-C entry points through ``ctypes``; each entry returns ``cudaGetLastError()`` and the
-caller raises on anything but 0. Nothing here is imported or built until a CUDA
-tensor reaches a kernel.
+``_build/`` under a name that hashes the source, the headers in ``csrc/`` and the
+flags, so an edited source is rebuilt and an unchanged one is loaded as is.
+Pointers and the stream go to the C entry points through ``ctypes``; each entry
+returns ``cudaGetLastError()`` and the caller raises on anything but 0. Nothing
+here is imported or built until a CUDA tensor reaches a kernel.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import hashlib
 import os
 import subprocess
@@ -38,8 +40,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "raycast_walls_f32": [_P] * 10 + [_I, _I, _I, _F, _I, _P],
-    "progress_and_collision_f32": [_P] * 12 + [_I, _I, _I, _I, _I, _P],
+    "raycast_walls_f32": [_P] * 10 + [_I, _I, _I, _F] + [_I] * 3 + [_I, _P],
+    "progress_and_collision_f32": [_P] * 12 + [_I] * 6 + [_I, _P],
     "raycast_cars_f32": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
     "rectangles_intersect_u8": [_P] * 3 + [_I, _I, _I, _P],
     "car_update_f32": [_P] * 13 + [_I] + [_F] * 8 + [_I, _P],
@@ -64,7 +66,8 @@ def _nvcc() -> str:
 
 
 def _target(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
@@ -129,26 +132,101 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+# A block may take 227 KB of an H100 SM's shared memory.
+BLOCK_SMEM_LIMIT = 232_448
+MAX_THREADS = 256  # the kernels' __launch_bounds__
+# K1: the rays a lane may hold (the kernel's instantiations), and how many it holds
+# at most: a row's rays are split into the fewest warps that hold at most
+# K1_RAYS_PER_LANE each, as evenly as the instantiations allow
+K1_RAYS_PER_LANE_CHOICES = (1, 2, 3, 4, 6, 8, 11)
+K1_RAYS_PER_LANE = 11
+K1_FIELDS = 5
+K2_FIELDS = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How K1 or K2 is launched: one block of ``threads`` threads per row (the
+    grid is the row count), ``smem`` bytes of dynamic shared memory for the row's
+    staged fields (one buffer, filled once by bulk copies), and for K1 the rays
+    each lane holds."""
+    threads: int
+    smem: int
+    rays_per_lane: int = 0
+
+
+def _field_capacity(n: int) -> int:
+    """Floats the stage reserves per field (row_stage.cuh:field_capacity)."""
+    return (n + 3) // 4 * 4 + 4
+
+
+@functools.lru_cache(maxsize=256)
+def raycast_walls_plan(rays_per_row: int, num_segments: int) -> LaunchPlan:
+    """K1's launch: a block per row stages five fields of 32 * ceil(S/32) floats
+    (the kernel pads the row with zero direction) and folds the row's rays in
+    warps of ``rays_per_lane`` rays each, at most 8 warps looping over the rest.
+    Raises ValueError where the row does not fit in 227 KB."""
+    if num_segments < 1:
+        raise ValueError("raycast_walls: the kernel needs at least one segment")
+    groups = max(1, -(-rays_per_row // K1_RAYS_PER_LANE))
+    even = -(-rays_per_row // groups)
+    rays_per_lane = min(r for r in K1_RAYS_PER_LANE_CHOICES if r >= even)
+    warps = min(max(1, -(-rays_per_row // rays_per_lane)), MAX_THREADS // 32)
+    smem = K1_FIELDS * _field_capacity(32 * -(-num_segments // 32)) * 4
+    if smem > BLOCK_SMEM_LIMIT:
+        raise ValueError(f"raycast_walls: a row of {num_segments} segments needs "
+                         f"{smem:,} bytes of shared memory; a block has "
+                         f"{BLOCK_SMEM_LIMIT:,}")
+    return LaunchPlan(32 * warps, smem, rays_per_lane)
+
+
+@functools.lru_cache(maxsize=256)
+def progress_collision_plan(cars_per_row: int, num_corners: int,
+                            num_waypoints: int) -> LaunchPlan:
+    """K2's launch: a block per waypoint row stages the row's two position fields
+    (the normals are read at the winners only) and serves its ``cars_per_row``
+    cars, a warp per car (at most 8 warps, looping over the rest). Raises
+    ValueError on more than 31 corners or where the row does not fit in 227 KB."""
+    if not 0 <= num_corners <= 31:
+        raise ValueError(f"progress_and_collision: {num_corners} corners; the kernel "
+                         "takes at most 31")
+    if num_waypoints < 1:
+        raise ValueError("progress_and_collision: the kernel needs at least one waypoint")
+    smem = K2_FIELDS * _field_capacity(num_waypoints) * 4
+    if smem > BLOCK_SMEM_LIMIT:
+        raise ValueError(f"progress_and_collision: a row of {num_waypoints} waypoints "
+                         f"needs {smem:,} bytes of shared memory; a block has "
+                         f"{BLOCK_SMEM_LIMIT:,}")
+    threads = 32 * min(max(1, cars_per_row), MAX_THREADS // 32)
+    return LaunchPlan(threads, smem)
+
+
 def launch_raycast_walls(ox, oy, dx, dy, sx, sy, vx, vy, c, out,
                          rows: int, rays_per_row: int, num_segments: int,
                          max_dist: float) -> None:
-    """Launch K1 on ``out.device``'s current stream. Tensors are contiguous f32."""
+    """Launch K1 on ``out.device``'s current stream, as ``raycast_walls_plan``
+    says (which raises before any launch on what the kernel cannot take).
+    Tensors are contiguous f32."""
+    plan = raycast_walls_plan(rays_per_row, num_segments)
     _call("raycast_walls", "raycast_walls_f32", out.device,
           *map(_ptr, (ox, oy, dx, dy, sx, sy, vx, vy, c, out)),
-          rows, rays_per_row, num_segments, float(max_dist))
+          rows, rays_per_row, num_segments, float(max_dist), plan.threads, plan.smem,
+          plan.rays_per_lane)
 
 
 def launch_progress_and_collision(x, y, cx, cy, wp_x, wp_y, nrm_x, nrm_y, n_wp,
                                   track_width, progress, crashed, rows: int,
                                   cars_per_row: int, num_corners: int,
                                   num_waypoints: int) -> None:
-    """Launch K2 on ``progress.device``'s current stream: ``rows`` cars, car i
-    against waypoint row ``i // cars_per_row``. Tensors are contiguous (f32,
-    ``n_wp`` int32, ``crashed`` bool)."""
+    """Launch K2 on ``progress.device``'s current stream, as
+    ``progress_collision_plan`` says: ``rows`` waypoint rows, car i against row
+    ``i // cars_per_row``. Tensors are contiguous (f32, ``n_wp`` int32,
+    ``crashed`` bool)."""
+    plan = progress_collision_plan(cars_per_row, num_corners, num_waypoints)
     _call("progress_collision", "progress_and_collision_f32", progress.device,
           *map(_ptr, (x, y, cx, cy, wp_x, wp_y, nrm_x, nrm_y, n_wp, track_width,
                       progress, crashed)),
-          rows, cars_per_row, num_corners, num_waypoints)
+          rows, cars_per_row, num_corners, num_waypoints, plan.threads, plan.smem)
 
 
 def launch_raycast_cars(ox, oy, dx, dy, car_cx, car_cy, car_x, car_y, out,

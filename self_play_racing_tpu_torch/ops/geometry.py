@@ -142,6 +142,7 @@ def _raycast_walls_cuda(ox, oy, dx, dy, seg_sx, seg_sy, seg_vx, seg_vy, max_dist
     ray_shape = torch.broadcast_shapes(*(t.shape for t in rays))
     rows, rays_per_row = _rows_leading(seg_shape[:-1], ray_shape, "raycast_walls",
                                        "segment rows", "ray batch shape")
+    _cuda.raycast_walls_plan(rays_per_row, num_segments)  # refuses before any launch
     rays = [t.expand(ray_shape).contiguous() for t in rays]
     out = torch.empty(ray_shape, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -231,9 +232,8 @@ def _progress_and_collision_cuda(x, y, cx, cy, wp_x, wp_y, nrm_x, nrm_y, n_wp,
                          "B+(C,) and one shape P+(W,) for the waypoint fields")
     rows, cars_per_row = _rows_leading(wp_x.shape[:-1], batch, "progress_and_collision",
                                        "waypoint rows", "car batch shape")
-    if not 1 <= 1 + num_corners <= 32:
-        raise ValueError(f"progress_and_collision: {num_corners} corners; the kernel "
-                         "takes at most 31")
+    # refuses before any launch
+    _cuda.progress_collision_plan(cars_per_row, num_corners, num_waypoints)
     n_wp = torch.as_tensor(n_wp, device=dev)
     track_width = torch.as_tensor(track_width, device=dev)
     if n_wp.dtype != torch.int32 or track_width.dtype != torch.float32:
@@ -246,7 +246,7 @@ def _progress_and_collision_cuda(x, y, cx, cy, wp_x, wp_y, nrm_x, nrm_y, n_wp,
     with torch.cuda.device(dev):
         _cuda.launch_progress_and_collision(
             x, y, cx, cy, wp_x, wp_y, nrm_x, nrm_y, n_wp, track_width, progress,
-            crashed, rows * cars_per_row, cars_per_row, num_corners, num_waypoints)
+            crashed, rows, cars_per_row, num_corners, num_waypoints)
     return progress, crashed
 
 

@@ -8,7 +8,9 @@ Skipped without a CUDA card (the kernels have no CPU mode). On a machine with on
 Tolerance: K2 exact, also with waypoint rows shared by the cars of a row. K1
 hit/no-hit identical and distances bitwise equal, except rays that are near-ties
 (two hit ratios equal to within the rounding of the cross products), which may
-differ by at most 2 ulp. K3 (rays against cars), K4 (car-pair SAT) and K5 (car
+differ by at most 2 ulp. Both are held at every row length their staging and
+layouts treat apart, on rows off 16-byte alignment, and with more rows (one block
+each) than an H100 holds blocks at once. K3 (rays against cars), K4 (car-pair SAT) and K5 (car
 dynamics) bitwise equal to their plain versions: the kernels keep the plain
 versions' operation order, build without FMA contraction and divide and take
 square roots as IEEE; K5 calls the same cosf/sinf as PyTorch's CUDA cos/sin. K6
@@ -91,6 +93,133 @@ def test_raycast_kernel_padding_rows(cuda):
     k = geo.raycast_walls(ox, oy, dx, dy, sx, sy, vx, vy, 50.0)
     assert k[:3].tolist() == [50.0, 50.0, 50.0] and abs(float(k[3]) - 1.0) < 1e-6
     assert torch.equal(k, geo.raycast_walls_plain(ox, oy, dx, dy, sx, sy, vx, vy, 50.0))
+
+
+# More rows than an H100 holds blocks at once (32 a block per SM, 132 SMs), so that
+# K1 and K2, one block per row, run in more than one wave.
+ROWS_PAST_ONE_WAVE = 5000
+
+
+def _f32(rng, shape, lo, hi, dev, offset=0):
+    """Uniform float32 on the card; ``offset`` > 0 starts it that many floats into
+    its storage, so that rows are not 16-byte-aligned."""
+    flat = torch.as_tensor(rng.uniform(lo, hi, int(np.prod(shape)) + offset),
+                           dtype=torch.float32, device=dev)
+    return flat[offset:].view(shape)
+
+
+def _shifted(t, offset):
+    """A contiguous copy of ``t`` that starts ``offset`` floats into its storage."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    buf[offset:] = t.flatten()
+    return buf[offset:].view(t.shape)
+
+
+def _raycast_case(cuda, rng, rows, rays, segs, offset=0, with_c=True):
+    sx, sy = (_f32(rng, (rows, 1, segs), -40, 40, cuda, offset) for _ in range(2))
+    vx, vy = (_f32(rng, (rows, 1, segs), -15, 15, cuda, offset) for _ in range(2))
+    if segs > 7:
+        for t in (sx, sy, vx, vy):
+            t[..., -7:] = 0.0  # zero-direction padding
+    c = (vy * sx - vx * sy) if with_c else None
+    ang = _f32(rng, (rows, rays), 0, 6.3, cuda)
+    ox, oy = (_f32(rng, (rows, 1), -20, 20, cuda).expand(rows, rays) for _ in range(2))
+    args = (ox, oy, torch.cos(ang), torch.sin(ang), sx, sy, vx, vy, 50.0)
+    before = geo.raycast_walls_launches
+    k = geo.raycast_walls(*args, seg_c=c)
+    assert geo.raycast_walls_launches == before + 1
+    p = geo.raycast_walls_plain(*args, seg_c=c)
+    torch.cuda.synchronize()
+    _assert_k1_close(k, p, 50.0)
+    return k
+
+
+@pytest.mark.parametrize("rays", [1, 11, 22, 40])
+@pytest.mark.parametrize("segs", [1, 31, 33, 864, 896, 1023, 1024])
+def test_raycast_kernel_over_row_lengths_and_rays(cuda, segs, rays):
+    """Every row length the staging treats apart (S below a warp, odd and even run
+    lengths, a 32-way bank conflict per read at S = 1024, rows that are not a
+    multiple of 4 floats), with more rows than the card holds blocks at once."""
+    k = _raycast_case(cuda, np.random.default_rng(segs * 100 + rays), ROWS_PAST_ONE_WAVE,
+                      rays, segs)
+    if segs > 30:
+        assert float((k < 50.0).float().mean()) > 0.05  # the rays do hit walls
+
+
+@pytest.mark.parametrize("segs,offset,with_c", [(31, 1, True), (896, 2, True), (1023, 3, False),
+                                                (1024, 1, True), (33, 2, False)])
+def test_raycast_kernel_takes_rows_off_16_byte_alignment(cuda, segs, offset, with_c):
+    """Segment fields that start off a 16-byte boundary: the bulk copies take the
+    aligned middle of each row and the lanes the head and tail."""
+    _raycast_case(cuda, np.random.default_rng(offset * segs), 700, 11, segs, offset, with_c)
+
+
+def test_raycast_kernel_rows_of_padding_only(cuda):
+    rows, rays, segs = 300, 22, 896
+    zeros = torch.zeros((rows, 1, segs), device=cuda)
+    ang = torch.linspace(0, 6.28, rows * rays, device=cuda).view(rows, rays)
+    o = torch.ones((rows, rays), device=cuda)
+    args = (o, o, torch.cos(ang), torch.sin(ang), zeros, zeros, zeros, zeros, 50.0)
+    k = geo.raycast_walls(*args, seg_c=zeros)
+    assert bool((k == 50.0).all())
+    assert torch.equal(k, geo.raycast_walls_plain(*args, seg_c=zeros))
+
+
+def test_raycast_kernel_near_ties_on_the_canonical_pool(cuda):
+    """The canonical pool at chip_smoke.py's poses (seed 0), where rays pass near
+    segment ends: single-car rays [4096, 11] and the self-play launch [4096, 2, 11]
+    against [4096, 1, 1, 896] rows, held to the plain version by the 2-ulp rule."""
+    from self_play_racing_tpu_torch.utils.profiling import canonical_bench_pool
+
+    track = trk.gather_tracks(canonical_bench_pool(16, device=cuda), np.arange(4096) % 16)
+    rng = np.random.default_rng(0)
+    fields = ("seg_sx", "seg_sy", "seg_vx", "seg_vy", "seg_c")
+    for cars in (1, 2):
+        i = torch.as_tensor(rng.integers(0, track.n_wp.cpu().numpy()), device=cuda)
+        rows = torch.arange(4096, device=cuda)
+        x = (track.wp_x[rows, i][:, None] + _f32(rng, (4096, cars), -8, 8, cuda)).contiguous()
+        y = (track.wp_y[rows, i][:, None] + _f32(rng, (4096, cars), -8, 8, cuda)).contiguous()
+        world = _f32(rng, (4096, cars, 1), 0, 6.3, cuda) + torch.linspace(
+            -1.57, 1.57, 11, device=cuda)
+        segs = [getattr(track, f)[:, None, None, :] for f in fields]
+        args = (x[..., None].expand(world.shape), y[..., None].expand(world.shape),
+                torch.cos(world), torch.sin(world), *segs[:4], 200.0)
+        k = geo.raycast_walls(*args, seg_c=segs[4])
+        p = geo.raycast_walls_plain(*args, seg_c=segs[4])
+        torch.cuda.synchronize()
+        _assert_k1_close(k, p, 200.0)
+
+
+@pytest.mark.parametrize("cars", [1, 2, 8])
+@pytest.mark.parametrize("waypoints,offset", [(1, 0), (33, 0), (512, 0), (600, 0), (33, 1),
+                                              (600, 3), (513, 2)])
+def test_progress_kernel_over_row_lengths_and_cars(cuda, waypoints, offset, cars):
+    """Cars [N, A] against waypoint rows [N, 1, W] of every length the staging
+    treats apart, some off 16-byte alignment, more rows than the card holds blocks
+    at once: progress and crashed exactly equal to the plain version."""
+    rng = np.random.default_rng(waypoints * 10 + cars + offset)
+    rows = ROWS_PAST_ONE_WAVE
+    t = torch.linspace(0, 6.283, waypoints, device=cuda)
+    radius = _f32(rng, (rows, 1, 1), 20, 40, cuda)
+    wp_x = _shifted(radius * torch.cos(t) + _f32(rng, (rows, 1, waypoints), -1, 1, cuda), offset)
+    wp_y = _shifted(radius * torch.sin(t) + _f32(rng, (rows, 1, waypoints), -1, 1, cuda), offset)
+    nrm = _f32(rng, (rows, 1, waypoints), 0, 6.3, cuda)
+    nx, ny = _shifted(torch.cos(nrm), offset), _shifted(torch.sin(nrm), offset)
+    x, y = (_f32(rng, (rows, cars), -35, 35, cuda) for _ in range(2))
+    cx, cy = geo.car_corners(x, y, _f32(rng, (rows, cars), 0, 6.3, cuda), 2.0, 1.0)
+    n_wp = torch.as_tensor(rng.integers(1, waypoints + 1, (rows, 1)), dtype=torch.int32,
+                           device=cuda)
+    width = _f32(rng, (rows, 1), 3, 9, cuda)
+    args = (x, y, cx, cy, wp_x, wp_y, nx, ny, n_wp, width)
+    before = geo.progress_and_collision_launches
+    kp, kc = geo.progress_and_collision(*args)
+    assert geo.progress_and_collision_launches == before + 1
+    pp, pc = geo.progress_and_collision_plain(*args)
+    torch.cuda.synchronize()
+    assert kp.shape == (rows, cars)
+    assert torch.equal(kp, pp) and torch.equal(kc, pc)
+    if waypoints > 1:
+        assert 0 < int(kc.sum()) < rows * cars
 
 
 @pytest.mark.parametrize("batch", [(64,), (8, 3)])

@@ -1,0 +1,132 @@
+"""Launch plans of the row kernels K1 (wall raycast) and K2 (track query), and what
+their wrappers refuse before any launch. CPU only: the plans are plain Python
+(``ops/_cuda.py``), and the checks run before the kernel is built, so a stub of the
+call that builds and launches it fails the test if anything gets that far.
+"""
+import pytest
+import torch
+
+from self_play_racing_tpu_torch.ops import _cuda
+from self_play_racing_tpu_torch.ops import geometry as geo
+
+
+@pytest.mark.parametrize("rays_per_row,warps", [(11, 1), (22, 2)])
+def test_raycast_plan_at_the_main_paths(rays_per_row, warps):
+    """The single-car launch ([4096, 11] rays) and the self-play launch ([4096, 22]
+    rays of two cars) against 896-segment rows: 11 rays a lane, one warp per 11
+    rays of a row, the row's five fields staged once (18 KB, so that an H100 SM
+    holds 12 rows at once)."""
+    plan = _cuda.raycast_walls_plan(rays_per_row, 896)
+    assert plan.rays_per_lane == 11 and plan.threads == 32 * warps
+    assert plan.smem == 5 * (896 + 4) * 4 == 18_000
+
+
+@pytest.mark.parametrize("segments", [1, 31, 33, 864, 896, 1023, 1024, 11_616])
+def test_raycast_plan_stages_whole_runs(segments):
+    """The stage holds each field padded to 32 runs of L = ceil(S/32) (the kernel
+    zeroes the padding, so every lane takes L steps), plus up to 3 floats of
+    alignment shift, rounded to 16 bytes."""
+    plan = _cuda.raycast_walls_plan(11, segments)
+    padded = 32 * -(-segments // 32)
+    assert plan.smem == 5 * (padded + 4) * 4 <= _cuda.BLOCK_SMEM_LIMIT
+    assert plan.smem % 16 == 0
+
+
+@pytest.mark.parametrize("rays_per_row,rays_per_lane,warps", [
+    (1, 1, 1), (3, 3, 1), (5, 6, 1), (12, 6, 2), (40, 11, 4), (100, 11, 8), (400, 11, 8)])
+def test_raycast_plan_splits_a_row_into_warps(rays_per_row, rays_per_lane, warps):
+    """The fewest warps that hold at most 11 rays a lane, as evenly as the kernel's
+    instantiations allow; at most 8 warps a block, which then loop over the rest."""
+    plan = _cuda.raycast_walls_plan(rays_per_row, 896)
+    assert plan.rays_per_lane == rays_per_lane and plan.threads == 32 * warps
+    assert plan.rays_per_lane in _cuda.K1_RAYS_PER_LANE_CHOICES
+
+
+def test_raycast_plan_refuses_what_the_kernel_cannot_take():
+    """Past 227 KB for the staged row, or without a segment, the plan refuses."""
+    with pytest.raises(ValueError, match="shared memory"):
+        _cuda.raycast_walls_plan(11, 11_617)
+    with pytest.raises(ValueError, match="segment"):
+        _cuda.raycast_walls_plan(11, 0)
+
+
+@pytest.mark.parametrize("cars,warps", [(1, 1), (2, 2), (8, 8), (20, 8)])
+def test_progress_plan_at_the_main_paths(cars, warps):
+    """A warp per car of a waypoint row (at most 8 a block), the row's two position
+    fields staged once; 512 waypoints."""
+    plan = _cuda.progress_collision_plan(cars, 4, 512)
+    assert plan.threads == 32 * warps
+    assert plan.smem == 2 * (512 + 4) * 4
+
+
+def test_progress_plan_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError, match="31"):
+        _cuda.progress_collision_plan(1, 32, 512)
+    with pytest.raises(ValueError, match="shared memory"):
+        _cuda.progress_collision_plan(1, 4, 30_000)
+    with pytest.raises(ValueError, match="waypoint"):
+        _cuda.progress_collision_plan(1, 4, 0)
+    assert _cuda.progress_collision_plan(1, 31, 20_000).smem <= _cuda.BLOCK_SMEM_LIMIT
+
+
+@pytest.fixture
+def no_launch(monkeypatch):
+    """The wrappers' CUDA paths on CPU tensors, with a build-and-launch call that
+    fails the test: every refusal must come before it."""
+    def launched(*args, **kwargs):
+        raise AssertionError("a kernel was launched")
+    monkeypatch.setattr(_cuda, "_call", launched)
+
+
+def _ray(*shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype)
+
+
+def test_raycast_wrapper_refuses_before_launch(no_launch):
+    seg, ray = _ray(2, 16), _ray(2)
+    with pytest.raises(TypeError):
+        geo._raycast_walls_cuda(ray.double(), ray, ray, ray, *(seg.double(),) * 4, 50.0, None)
+    with pytest.raises(ValueError, match="contiguous"):
+        geo._raycast_walls_cuda(ray, ray, ray, ray, *(_ray(16, 2).T,) * 4, 50.0, None)
+    with pytest.raises(ValueError, match="lead"):
+        geo._raycast_walls_cuda(*(_ray(3),) * 4, *(seg,) * 4, 50.0, None)
+    with pytest.raises(ValueError, match="differ in shape"):
+        geo._raycast_walls_cuda(ray, ray, ray, ray, seg, seg, seg, _ray(2, 15), 50.0, None)
+    with pytest.raises(ValueError, match="shared memory"):
+        geo._raycast_walls_cuda(ray, ray, ray, ray, *(_ray(2, 11_617),) * 4, 50.0, None)
+
+
+def test_progress_wrapper_refuses_before_launch(no_launch):
+    ray, corners, wp = _ray(2), _ray(2, 4), _ray(2, 16)
+    n_wp = torch.ones(2, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        geo._progress_and_collision_cuda(ray, ray, corners, corners, wp, wp, wp, wp,
+                                         n_wp.long(), ray)
+    with pytest.raises(TypeError):
+        geo._progress_and_collision_cuda(ray.double(), ray, corners, corners, wp, wp, wp,
+                                         wp, n_wp, ray)
+    with pytest.raises(ValueError):
+        geo._progress_and_collision_cuda(ray, ray, corners, corners, wp[:1], wp[:1], wp[:1],
+                                         wp[:1], n_wp, ray)
+    with pytest.raises(ValueError, match="contiguous"):
+        geo._progress_and_collision_cuda(ray, ray, _ray(4, 2).T, corners, wp, wp, wp, wp,
+                                         n_wp, ray)
+    with pytest.raises(ValueError, match="31"):
+        many = _ray(2, 32)
+        geo._progress_and_collision_cuda(ray, ray, many, many, wp, wp, wp, wp, n_wp, ray)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = _ray(2, 30_000)
+        geo._progress_and_collision_cuda(ray, ray, corners, corners, big, big, big, big,
+                                         n_wp, ray)
+
+
+@pytest.mark.parametrize("launcher", ["raycast_walls", "progress_and_collision"])
+def test_launchers_refuse_before_launch(no_launch, launcher):
+    """The launchers take their plan themselves, so a direct call refuses too."""
+    t = _ray(1)
+    if launcher == "raycast_walls":
+        with pytest.raises(ValueError, match="shared memory"):
+            _cuda.launch_raycast_walls(*(t,) * 10, 1, 11, 11_617, 50.0)
+    else:
+        with pytest.raises(ValueError, match="31"):
+            _cuda.launch_progress_and_collision(*(t,) * 12, 1, 1, 32, 512)

@@ -28,13 +28,22 @@ just before each path is driven and read just after):
 6. K3 ``raycast_cars``, K4 ``rectangles_intersect`` and K5 ``car_update`` against
    their plain versions at the self-play path's shapes (4096 envs x 2 cars, 11 rays
    per car) and at 8 cars: all bitwise equal; the same timings;
+6b. the envs' two kernels, which run K3 inside K1's block and K5 inside K2's:
+   ``raycast_walls_and_cars`` at 1, 2 and 8 cars (rays [4096, A, 11] against the
+   [4096, 896] segment rows and the row's cars) and ``car_step_and_query`` at 2 and
+   8 cars against [4096, 1, 512] waypoint rows and at one car against [4096, 512]:
+   each bitwise equal to the standalone kernels it replaces on the same inputs and
+   to its plain version (the sensing by K1's rule: its wall part is K1's fold);
+   timed eager and in a CUDA graph beside its bound, and beside the chain of
+   launches it replaces (the PyTorch ops that built their inputs and the
+   standalone kernels) in one CUDA graph;
 7. the single-car main path: ``models/single_agent.npz`` driving 4096 envs for 256
-   steps of sample_action + vector.step (K2 and K5 once per step, K1 once per step
-   plus once for the reset);
+   steps of sample_action + vector.step (``car_step_and_query`` once per step, K1
+   once per step plus once for the reset);
 8. single-car training: ``PPOTrainer`` at the bench width (the canonical pool
    gathered to 4096 envs, 256 steps, batch 1,048,576): one warm-up update, then
-   timed updates (K1 = K2 = K5 = 256, K6 = K7 = 1 per update), finite losses and
-   moved parameters;
+   timed updates (K1 = car_step_and_query = 256, K6 = K7 = 1 per update), finite
+   losses and moved parameters;
 9. the ``train single`` entry point at its defaults (16 envs x 2048 steps) for two
    updates in a temporary directory; the saved policy must load;
 10. this slice's main path, self-play training at ``train scale``'s width: a
@@ -43,7 +52,8 @@ just before each path is driven and read just after):
    ``snapshot_freq`` set to 1 so that every update after the first races pool
    opponents: one warm-up update, then timed updates with each update's
    ms, its rollout/minibatch split, the pool and the learner's win rate
-   (K1 = K2 = K3 = K4 = K5 = 256 and K6 = K7 = 1 per update);
+   (raycast_walls_and_cars = car_step_and_query = K4 = 256, K6 = K7 = 1 per
+   update, and the standalone K1, K2, K3 and K5 not at all);
 11. the ``train scale`` and ``train multi`` entry points at their defaults for two
    updates each in a temporary directory; the saved policies must load and the
    repo's tracked models and data stay untouched;
@@ -57,10 +67,14 @@ just before each path is driven and read just after):
 
 The line before the last is one JSON object with every kernel's numbers (``ms`` the
 eager back-to-back time, ``graph_ms`` the CUDA-graph replay time, ``launches`` the
-count on the self-play path of phase 10, where all seven kernels run; K1 and K2
-also ``selfplay_ms``, ``selfplay_graph_ms`` and ``selfplay_bound_ms`` at the
-self-play launch and ``cold_graph_ms`` after the other kernel in the env step's
-order); the last line is ``{"ok": true, "device": {...}}``.
+count on the self-play path of phase 10, or for K1, which that path runs inside
+``raycast_walls_and_cars``, on the single-car main path of phase 7, as
+``launches_path`` says; K2, K3 and K5 run on no path since their work moved into
+the envs' two kernels, and count 0; K1 and K2 also ``selfplay_ms``,
+``selfplay_graph_ms`` and ``selfplay_bound_ms`` at the self-play launch and
+``cold_graph_ms`` after the other kernel in the env step's order; the envs' two
+kernels also the ``chain_ms`` and ``chain_graph_ms`` of what they replace); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -530,6 +544,170 @@ def check_k5(track, cfg, rng, dev):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
+def sensing_inputs(track, cfg, rng, dev, a):
+    """Poses of ``a`` cars per env and the sensing's inputs as the multi-car env
+    passes them: poses [N, A], sensor angles [R], segment rows [N, S]."""
+    x, y, ang = race_poses(track, rng, dev, a)
+    rel = torch.as_tensor(cfg.sensor_angles(), dtype=torch.float32, device=dev)
+    segs = [getattr(track, f) for f in ("seg_sx", "seg_sy", "seg_vx", "seg_vy", "seg_c")]
+    return (x, y, ang.contiguous(), rel, *segs, cfg.car.length / 2, cfg.car.width / 2,
+            cfg.max_sensor_range)
+
+
+def sensing_chain(x, y, ang, rel, sx, sy, vx, vy, c, hl, hw, max_dist):
+    """What the multi-car env launched before ``raycast_walls_and_cars``: the rays
+    and corners in PyTorch, the K1 and K3 kernels, their minimum."""
+    world = ang[:, :, None] + rel
+    ox, oy = x[:, :, None].expand(world.shape), y[:, :, None].expand(world.shape)
+    dx, dy = torch.cos(world), torch.sin(world)
+    wall = geo.raycast_walls(ox, oy, dx, dy, *(t[:, None, None, :] for t in (sx, sy, vx, vy)),
+                             max_dist, seg_c=c[:, None, None, :])
+    ccx, ccy = geo.car_corners(x, y, ang, hl, hw)
+    cars = geo.raycast_cars(ox, oy, dx, dy, ccx[:, None, None], ccy[:, None, None],
+                            x[:, None, None, :].contiguous(), y[:, None, None, :].contiguous(),
+                            max_dist)
+    return torch.minimum(wall, cars)
+
+
+def step_inputs(track, cfg, rng, dev, a):
+    """``a`` cars per env (crashed ~10%, speeds above the clamp) and the waypoint
+    rows as the envs pass them: [N, 1, W] rows with one value per row, or at one car
+    the single-car env's [N] cars against [N, W] rows."""
+    x, y, ang = race_poses(track, rng, dev, a)
+    def f32(lo, hi):
+        return torch.as_tensor(rng.uniform(lo, hi, (NUM_ENVS, a)), dtype=torch.float32,
+                               device=dev)
+    cars = [x, y, ang.contiguous(), f32(-35, 35), f32(-35, 35),
+            torch.as_tensor(rng.random((NUM_ENVS, a)) < 0.1, device=dev), f32(-1, 1), f32(0, 1)]
+    wp = [getattr(track, f) for f in ("wp_x", "wp_y", "nrm_x", "nrm_y", "n_wp", "track_width")]
+    if a == 1:
+        return [t[:, 0].contiguous() for t in cars], wp
+    return cars, [t[:, None] for t in wp]
+
+
+def step_chain(cars, wp, cfg):
+    """What the envs launched before ``car_step_and_query``: K5, car_corners in
+    PyTorch, K2."""
+    state = dynamics.car_update(*cars, cfg.dt, cfg.car)
+    ccx, ccy = geo.car_corners(state[0], state[1], state[2], cfg.car.length / 2,
+                               cfg.car.width / 2)
+    return (*state, ccx, ccy, *geo.progress_and_collision(state[0], state[1], ccx, ccy, *wp))
+
+
+def check_env_kernels(track, cfg, rng, dev):
+    """The envs' two kernels against the standalone kernels they replace and their
+    plain versions, at 1, 2 and 8 cars; timed at the self-play shapes (and the
+    transition at one car), beside their bounds and the chains they replace."""
+    max_dist = cfg.max_sensor_range
+    sensing = {}
+    for a in (1, NUM_AGENTS, 8):
+        args = sensing_inputs(track, cfg, rng, dev, a)
+        k = geo.raycast_walls_and_cars(*args)
+        p = geo.raycast_walls_and_cars_plain(*args)
+        chain = sensing_chain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(k, chain):
+            raise AssertionError(f"raycast_walls_and_cars at {a} cars: {int((k != chain).sum())} "
+                                 "rays differ from K1 and K3 on the same inputs")
+        n_differ, max_err = hold_k1(k, p, max_dist, f"raycast_walls_and_cars at {a} cars")
+        print(f"raycast_walls_and_cars rays [{NUM_ENVS}, {a}, {k.shape[-1]}] x "
+              f"{args[4].shape[-1]} segments and {a} cars: bitwise equal to K1 + K3; against "
+              f"plain {n_differ} non-identical rays (K1's near-ties within 2 ulp), max |err| "
+              f"{max_err:g}; plan "
+              f"{_cuda.raycast_walls_and_cars_plan(a, k.shape[-1], args[4].shape[-1])}")
+        sensing[a] = (args, k, max_err)
+    args, k, _ = sensing[NUM_AGENTS]
+    x, y, ang, rel, *segs = args[:9]
+    hl, hw = np.float32(args[9]), np.float32(args[10])
+    rows, r, s = NUM_ENVS, rel.shape[0], segs[0].shape[-1]
+    out = torch.empty_like(k)
+    launch = lambda: _cuda.launch_raycast_walls_and_cars(
+        x, y, ang, rel, *segs, out, rows, NUM_AGENTS, r, s, hl, hw, max_dist)
+    ms, g_ms = per_launch_ms(launch), graph_ms(launch)
+    chain_ms = per_launch_ms(lambda: sensing_chain(*args))
+    chain_g = graph_ms(lambda: sensing_chain(*args))
+    plain_ms = per_launch_ms(lambda: geo.raycast_walls_and_cars_plain(*args), windows=3,
+                             launches=2)
+    # K1's operations at the self-play launch plus K3's, counted from the data: the
+    # skip test for every ray and car, the edges of the cars outside the radius
+    cdx = x[:, None, :] - x[:, :, None]
+    cdy = y[:, None, :] - y[:, :, None]
+    seen = int((torch.sqrt(cdx * cdx + cdy * cdy) >= 0.5).sum()) * r
+    ops = (out.numel() * s * K1_OPS_PER_PAIR + out.numel() * NUM_AGENTS * K3_OPS_PER_RAY_CAR
+           + seen * 4 * K3_OPS_PER_RAY_EDGE)
+    b_ms, b_by = bound_ms(nbytes(x, y, ang, rel, *segs, out), ops)
+    print(f"raycast_walls_and_cars time {ms * 1e3:.1f} us eager back-to-back ({g_ms * 1e3:.1f} "
+          f"us in a CUDA graph), bound {b_ms * 1e3:.1f} us ({b_by}), plain {plain_ms * 1e3:.1f} "
+          f"us; the chain it replaces (rays and corners, K1, K3, minimum: "
+          f"{chain_ms * 1e3:.1f} us eager, {chain_g * 1e3:.1f} us in a CUDA graph)")
+    entries = [{"name": "raycast_walls_and_cars", "route": "cuda",
+                "source": "self_play_racing_tpu_torch/csrc/raycast_walls_and_cars.cu",
+                "replaces": "self_play_racing_tpu/ops/geometry.py:243",
+                "fused_with": "self_play_racing_tpu/ops/geometry.py:26",
+                "max_abs_err": max(e for _, _, e in sensing.values()), "ms": ms,
+                "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None, "chain_ms": chain_ms, "chain_graph_ms": chain_g}]
+
+    steps = {}
+    for a in (1, NUM_AGENTS, 8):
+        cars, wp = step_inputs(track, cfg, rng, dev, a)
+        k = dynamics.car_step_and_query(*cars, cfg.dt, cfg.car, *wp)
+        p = dynamics.car_step_and_query_plain(*cars, cfg.dt, cfg.car, *wp)
+        chain = step_chain(cars, wp, cfg)
+        torch.cuda.synchronize()
+        for name, kt, pt, ct in zip(("x", "y", "angle", "vx", "vy", "corners_x", "corners_y",
+                                     "progress", "hit_wall"), k, p, chain):
+            if not (torch.equal(kt, pt) and torch.equal(kt, ct)):
+                raise AssertionError(f"car_step_and_query at {a} cars: {name} differs from "
+                                     f"plain in {int((kt != pt).sum())} and from K5 + "
+                                     f"car_corners + K2 in {int((kt != ct).sum())} cars")
+        print(f"car_step_and_query cars {list(cars[0].shape)} x rows {list(wp[0].shape)}: "
+              f"bitwise equal to plain and to K5 + car_corners + K2 ({int(k[8].sum())} hit a "
+              f"wall, {int(cars[5].sum())} crashed before); plan "
+              f"{_cuda.car_step_query_plan(a, wp[0].shape[-1])}")
+        steps[a] = (cars, wp, k)
+    timings = {}
+    for a in (NUM_AGENTS, 1):
+        cars, wp, k = steps[a]
+        w = wp[0].shape[-1]
+        per_row = [t.reshape(NUM_ENVS).contiguous() for t in wp[4:]]
+        outs = [torch.empty_like(t) for t in k]
+        consts = [np.float32(v) for v in (cfg.car.steering_speed, cfg.car.acceleration,
+                                          cfg.car.drag, cfg.car.lateral_friction, cfg.car.grip,
+                                          cfg.car.max_speed, cfg.dt, 2 * np.pi,
+                                          cfg.car.length / 2, cfg.car.width / 2)]
+        launch = lambda: _cuda.launch_car_step_and_query(
+            *cars, *wp[:4], *per_row, *outs, NUM_ENVS, a, w, consts)
+        ms, g_ms = per_launch_ms(launch), graph_ms(launch)
+        chain_ms = per_launch_ms(lambda: step_chain(cars, wp, cfg))
+        chain_g = graph_ms(lambda: step_chain(cars, wp, cfg))
+        plain_ms = per_launch_ms(lambda: dynamics.car_step_and_query_plain(
+            *cars, cfg.dt, cfg.car, *wp), windows=5, launches=5)
+        # K2's bytes (the rows' positions, the normals at the corners' winners, one
+        # count and width a row) plus K5's (its fields in and out), and the corners
+        n = cars[0].numel()
+        read = nbytes(*cars, wp[0], wp[1], *per_row) + 8 * n * 4
+        b_ms, b_by = bound_ms(read + nbytes(*outs), n * (5 * w * K2_OPS_PER_PAIR + K5_OPS_PER_CAR))
+        print(f"car_step_and_query cars {list(cars[0].shape)}: {ms * 1e3:.1f} us eager "
+              f"back-to-back ({g_ms * 1e3:.1f} us in a CUDA graph), bound {b_ms * 1e3:.2f} us "
+              f"({b_by}), plain {plain_ms * 1e3:.1f} us; the chain it replaces (K5, "
+              f"car_corners, K2: {chain_ms * 1e3:.1f} us eager, {chain_g * 1e3:.1f} us in a "
+              f"CUDA graph)")
+        timings[a] = (ms, g_ms, plain_ms, b_ms, b_by, chain_ms, chain_g)
+    ms, g_ms, plain_ms, b_ms, b_by, chain_ms, chain_g = timings[NUM_AGENTS]
+    entries.append({"name": "car_step_and_query", "route": "cuda",
+                    "source": "self_play_racing_tpu_torch/csrc/car_step_and_query.cu",
+                    "replaces": "self_play_racing_tpu/ops/dynamics.py:37",
+                    "fused_with": "self_play_racing_tpu/ops/geometry.py:176",
+                    "max_abs_err": 0.0, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "chain_ms": chain_ms, "chain_graph_ms": chain_g,
+                    "single_car_ms": timings[1][0], "single_car_graph_ms": timings[1][1],
+                    "single_car_bound_ms": timings[1][3],
+                    "single_car_chain_graph_ms": timings[1][6]})
+    return entries
+
+
 def check_k6(dev):
     """K6 on a rollout-like batch: small progress rewards with rare crash penalties,
     values around the returns' scale, ~1/300 of steps ending an episode."""
@@ -613,6 +791,8 @@ COUNTERS = {
     "raycast_cars": (geo, "raycast_cars_launches"),
     "rectangles_intersect": (geo, "rectangles_intersect_launches"),
     "car_update": (dynamics, "car_update_launches"),
+    "raycast_walls_and_cars": (geo, "raycast_walls_and_cars_launches"),
+    "car_step_and_query": (dynamics, "car_step_and_query_launches"),
     "compute_gae": (gae, "compute_gae_launches"),
     "mixbits_permutation": (prng, "mixbits_permutation_launches"),
 }
@@ -671,8 +851,7 @@ def main_path(track, cfg, dev, card):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_counts()
-    expected = counts(raycast_walls=STEPS + 1, progress_and_collision=STEPS,
-                      car_update=STEPS)
+    expected = counts(raycast_walls=STEPS + 1, car_step_and_query=STEPS)
     print(f"main path: {NUM_ENVS} envs x {STEPS} steps in {dt:.3f} s = "
           f"{NUM_ENVS * STEPS / dt:,.0f} env-steps/s on {card}; launches {launches}")
     if launches != expected:
@@ -681,6 +860,7 @@ def main_path(track, cfg, dev, card):
         raise AssertionError("main path: non-finite obs or reward, or wrong obs shape")
     print(f"main path: obs {tuple(obs.shape)} and rewards finite; {int(ended)} episodes "
           f"ended in the run")
+    return launches
 
 
 @contextlib.contextmanager
@@ -745,7 +925,7 @@ def training(track, env_cfg, card):
     print(f"train: median {statistics.median(wall) * 1e3:.1f} ms/update at {NUM_ENVS} x {STEPS} "
           f"on {card}; launches {launches}")
     n = STEPS * TRAIN_UPDATES
-    expected = counts(raycast_walls=n, progress_and_collision=n, car_update=n,
+    expected = counts(raycast_walls=n, car_step_and_query=n,
                       compute_gae=TRAIN_UPDATES, mixbits_permutation=TRAIN_UPDATES)
     if launches != expected:
         raise AssertionError(f"training launches {launches}, expected {expected}")
@@ -777,8 +957,8 @@ def entry_point(card):
           f"{dt:.1f} s on {card}; launches {launches}; saved policy loads "
           f"({len(params['actor'])} layers per tower, log_std {log_std.tolist()})")
     steps = 2 * cfg.num_steps
-    expected = counts(raycast_walls=steps + 1, progress_and_collision=steps,
-                      car_update=steps, compute_gae=2, mixbits_permutation=2)
+    expected = counts(raycast_walls=steps + 1, car_step_and_query=steps, compute_gae=2,
+                      mixbits_permutation=2)
     if launches != expected:
         raise AssertionError(f"train single launches {launches}, expected {expected}")
 
@@ -822,8 +1002,8 @@ def selfplay_training(track, card):
           f"{STEPS} x {NUM_AGENTS} cars on {card}; pool win rate history "
           f"{info['pool_win_rate']}; launches {launches}")
     n = STEPS * SP_TRAIN_UPDATES
-    expected = counts(raycast_walls=n, raycast_cars=n, progress_and_collision=n,
-                      rectangles_intersect=n, car_update=n, compute_gae=SP_TRAIN_UPDATES,
+    expected = counts(raycast_walls_and_cars=n, car_step_and_query=n,
+                      rectangles_intersect=n, compute_gae=SP_TRAIN_UPDATES,
                       mixbits_permutation=SP_TRAIN_UPDATES)
     if launches != expected:
         raise AssertionError(f"self-play launches {launches}, expected {expected}")
@@ -869,9 +1049,8 @@ def selfplay_entry_points(card):
         # sensing: every step, the construction's reset, and train multi's forced
         # reset before each update
         sensed = steps + 1 + (2 if cfg.reset_envs_each_update else 0)
-        expected = counts(raycast_walls=sensed, raycast_cars=sensed,
-                          progress_and_collision=steps, rectangles_intersect=steps,
-                          car_update=steps, compute_gae=2, mixbits_permutation=2)
+        expected = counts(raycast_walls_and_cars=sensed, car_step_and_query=steps,
+                          rectangles_intersect=steps, compute_gae=2, mixbits_permutation=2)
         print(f"train {mode}: {cfg.num_envs} envs x {cfg.num_steps} steps x 2 cars, 2 updates "
               f"in {dt:.1f} s on {card}; launches {launches}; saved policy loads "
               f"({params['actor'][0][0].shape[0]} inputs, log_std {log_std.tolist()})")
@@ -974,12 +1153,17 @@ def main() -> int:
     check_selfplay_launches(track, mcfg, rng, dev, *kernels)
     kernels += [check_k3(track, mcfg, rng, dev), check_k4(track, mcfg, rng, dev),
                 check_k5(track, mcfg, rng, dev), check_k6(dev), check_k7(dev, n_units)]
-    main_path(track, cfg, dev, card)
+    kernels += check_env_kernels(track, mcfg, rng, dev)
+    single_car = main_path(track, cfg, dev, card)
     training(track, cfg, card)
     entry_point(card)
     launches = selfplay_training(track, card)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        # K1 runs on the self-play path inside raycast_walls_and_cars
+        if k["name"] == "raycast_walls":
+            k["launches"], k["launches_path"] = single_car[k["name"]], "single-car main path"
+        else:
+            k["launches"], k["launches_path"] = launches[k["name"]], "self-play training"
     selfplay_entry_points(card)
     checkpoints(track, dev)
     evaluation(dev)

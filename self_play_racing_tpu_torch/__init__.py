@@ -8,7 +8,9 @@ imports). It mirrors the reference's module tree and function names:
                 permutations; the wall raycast, the track query, the car raycast,
                 the car-pair SAT test, the car dynamics, GAE and the permutations
                 run as hand-written CUDA kernels (``csrc/``) on CUDA tensors and as
-                their plain PyTorch versions on CPU tensors
+                their plain PyTorch versions on CPU tensors; the env step launches
+                the car raycast inside the wall raycast's kernel and the car
+                dynamics inside the track query's
 - ``envs``    — track pools, the single-car and multi-car envs, the self-play
                 view, NEXT_STEP autoreset, obs normalizer
 - ``models``  — the actor-critic MLP (weights stored ``(in, out)``, as in JAX)

@@ -2,14 +2,13 @@
 //
 // Replaces the JAX package's fused track query,
 // self_play_racing_tpu/ops/geometry.py (progress_and_collision), which XLA fuses on
-// the TPU. Same semantics: for the car centre and each corner, the first-index
-// argmin of d^2 over the row's waypoints (strict less; ties go to the lower index),
-// carrying the projection of (query - waypoint) on that waypoint's normal; then
+// the TPU. The search and projection are in track_query.cuh; then
 //   progress = idx(centre) / n_wp   (one IEEE divide),
 //   crashed  = any corner with |projection| > track_width.
-// Padding waypoints sit at 1e8 and never win: d^2 ~ 2e16 stays finite in f32.
 // The corners come in as inputs (computed with cos/sin outside), so the kernel is
-// free of transcendentals and rounds exactly as the plain PyTorch version.
+// free of transcendentals and rounds exactly as the plain PyTorch version. The
+// envs do not launch this kernel: they run the same search after the car's step,
+// in car_step_and_query.cu. It stays as the counterpart of the JAX function.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32): at the main path's shapes
 // (4096 waypoint rows x 512 padded waypoints, 1 or 2 cars of 5 queries per row)
@@ -24,25 +23,17 @@
 // copies (row_stage.cuh). A block needs 4 KB, so an SM holds 32 rows at once, the
 // most blocks it takes, and their copies overlap each other's searches. One warp
 // per car keeps its queries (centre + corners, up to kQueries at a time) in
-// registers, so each waypoint read from shared memory serves all of them; lanes
-// take waypoints lane, lane+32, ... (consecutive words: no bank conflicts), the
-// last partial chunk held at d^2 = inf so that the warp stays converged. The warp reduces each query on the pair (d^2,
-// idx), a total order, so the butterfly gives every lane the exact first-index
-// argmin whatever its shape; lane t then forms query t's projection from the same
-// staged position and the winner's normal, read from device memory, in the same
-// operations as the plain version, so it is bitwise the one that version gathers.
-// Compiled with -fmad=false so products and sums round as PyTorch's.
-#include <climits>
-
+// registers (track_query.cuh). Compiled with -fmad=false so products and sums
+// round as PyTorch's.
 #include <cuda_runtime.h>
-#include <math_constants.h>
 
 #include "row_stage.cuh"
+#include "track_query.cuh"
 
 namespace {
 
 constexpr int kFields = 2;   // the staged fields: wp_x, wp_y
-constexpr int kQueries = 5;  // queries a lane holds at once: centre + 4 corners
+constexpr int kQueries = track_query::kQueries;
 constexpr int kMaxThreads = 256;
 
 __global__ void __launch_bounds__(kMaxThreads) progress_and_collision_kernel(
@@ -96,67 +87,11 @@ __global__ void __launch_bounds__(kMaxThreads) progress_and_collision_kernel(
         bool hit_wall = false;
         for (int q0 = 0; q0 < queries; q0 += kQueries) {
             if (a != warp || q0 != 0) load_queries(car, q0);
-            float best_d2[kQueries];
-            int best_i[kQueries];
-#pragma unroll
-            for (int t = 0; t < kQueries; ++t) {
-                best_d2[t] = CUDART_INF_F;
-                best_i[t] = INT_MAX;
-            }
-            // whole chunks of 32 waypoints, then the last chunk with the lanes past
-            // W held at d^2 = inf, so that the warp stays converged
-            auto visit = [&](int w, bool valid) {
-                const float wx = s_wx[valid ? w : 0];
-                const float wy = s_wy[valid ? w : 0];
-#pragma unroll
-                for (int t = 0; t < kQueries; ++t) {
-                    const float ddx = qx[t] - wx;
-                    const float ddy = qy[t] - wy;
-                    const float d2 = valid ? ddx * ddx + ddy * ddy : CUDART_INF_F;
-                    const bool take = d2 < best_d2[t];
-                    best_d2[t] = take ? d2 : best_d2[t];
-                    best_i[t] = take ? w : best_i[t];
-                }
-            };
-            const int whole = W & ~31;
-#pragma unroll 4
-            for (int w0 = 0; w0 < whole; w0 += 32) visit(w0 + lane, true);
-            if (whole < W) visit(whole + lane, whole + lane < W);
-            __syncwarp();
-#pragma unroll
-            for (int t = 0; t < kQueries; ++t) {
-#pragma unroll
-                for (int o = 16; o > 0; o >>= 1) {
-                    const float od = __shfl_xor_sync(0xffffffffu, best_d2[t], o);
-                    const int oi = __shfl_xor_sync(0xffffffffu, best_i[t], o);
-                    if (od < best_d2[t] || (od == best_d2[t] && oi < best_i[t])) {
-                        best_d2[t] = od;
-                        best_i[t] = oi;
-                    }
-                }
-            }
-            // every lane holds every query's winner; lane t forms the projection
-            // of query q0 + t, in parallel
-            int i = best_i[0];
-            float px = qx[0], py = qy[0];
-#pragma unroll
-            for (int t = 1; t < kQueries; ++t) {
-                i = lane == t ? best_i[t] : i;
-                px = lane == t ? qx[t] : px;
-                py = lane == t ? qy[t] : py;
-            }
-            const int q = q0 + lane;
-            bool outside = false;
-            if (lane < kQueries && q < queries && q > 0 && i < W) {
-                // i < W: there is no winner only where every d^2 is NaN
-                const float ddx = px - s_wx[i];
-                const float ddy = py - s_wy[i];
-                const float p = ddx * row_nx[i] + ddy * row_ny[i];
-                outside = fabsf(p) > width;
-            }
-            hit_wall |= __any_sync(0xffffffffu, outside);
+            int best0;
+            hit_wall |= track_query::search(s_wx, s_wy, row_nx, row_ny, W, lane, qx, qy, q0,
+                                            queries, width, best0);
             if (q0 == 0 && lane == 0) {
-                progress[car] = __fdiv_rn((float)best_i[0], (float)count);
+                progress[car] = __fdiv_rn((float)best0, (float)count);
             }
         }
         if (lane == 0) crashed[car] = (unsigned char)hit_wall;

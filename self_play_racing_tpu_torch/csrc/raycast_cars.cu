@@ -2,16 +2,10 @@
 // Hopper (sm_90a).
 //
 // Replaces the JAX package's car raycast, self_play_racing_tpu/ops/geometry.py
-// (raycast_cars), which XLA fuses on the TPU. Same semantics, per ray:
-//   - a car whose centre lies within 0.5 of the ray origin is skipped
-//     (sqrt(dx^2 + dy^2) < 0.5, the square root rounded as IEEE);
-//   - edge i of a car runs from corner i to corner (i+1) % 4;
-//   - dotp = vx*(-dy) + vy*dx; an edge is a candidate when |dotp| >= 1e-10;
-//   - t = (vx*v1y - vy*v1x) / dotp and s = (v1x*v3x + v1y*v3y) / dotp, two IEEE
-//     divisions, with v1 = origin - edge start and v3 = (-dy, dx);
-//   - a hit is t >= 0 and 0 <= s <= 1; the result is min(max_dist, least t), and
-//     max_dist where no edge is hit.
-// The least t is a plain min, exact in any order.
+// (raycast_cars), which XLA fuses on the TPU. The semantics and the per-ray edge
+// loop are in car_hits.cuh. The multi-car env does not launch this kernel: it runs
+// the same loop as the car pass of raycast_walls_and_cars.cu. It stays as the
+// counterpart of the JAX function.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32): at the self-play path's shapes
 // (4096 env rows x 2 cars x 11 rays, against the 2 cars of the row) the kernel must
@@ -20,17 +14,16 @@
 // ray) is about 0.3 us. It is bound by bytes, and at this size by its launch.
 //
 // Design: one block per env row, one thread per ray of the row. The block stages
-// the row's A cars (corners, edge vectors and centres, 10 floats a car) in shared
+// the row's A cars (corners, edge vectors and centres, 18 floats a car) in shared
 // memory once; every ray of the row reads them from there. Compiled with
 // -fmad=false, and with __fdiv_rn/__fsqrt_rn, so every operation rounds as
 // PyTorch's eager ops round it.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-namespace {
+#include "car_hits.cuh"
 
-constexpr float kParallelEps = 1e-10f;
-constexpr float kSkipRadius = 0.5f;
+namespace {
 
 __global__ void raycast_cars_kernel(
         const float* __restrict__ ox, const float* __restrict__ oy,
@@ -40,12 +33,7 @@ __global__ void raycast_cars_kernel(
         float* __restrict__ out, int rays_per_row, int num_cars, float max_dist) {
     extern __shared__ float smem[];
     const int E = 4 * num_cars;  // edges of the row
-    float* s_sx = smem;
-    float* s_sy = smem + E;
-    float* s_vx = smem + 2 * E;
-    float* s_vy = smem + 3 * E;
-    float* s_x = smem + 4 * E;
-    float* s_y = smem + 4 * E + num_cars;
+    const car_hits::Cars cars = car_hits::layout(smem, num_cars);
 
     const size_t row = blockIdx.x;
     for (int e = threadIdx.x; e < E; e += blockDim.x) {
@@ -53,44 +41,21 @@ __global__ void raycast_cars_kernel(
         const size_t next = row * (size_t)E + (e & ~3) + ((e + 1) & 3);
         const float sx = car_cx[c];
         const float sy = car_cy[c];
-        s_sx[e] = sx;
-        s_sy[e] = sy;
-        s_vx[e] = car_cx[next] - sx;
-        s_vy[e] = car_cy[next] - sy;
+        cars.sx[e] = sx;
+        cars.sy[e] = sy;
+        cars.vx[e] = car_cx[next] - sx;
+        cars.vy[e] = car_cy[next] - sy;
     }
     for (int a = threadIdx.x; a < num_cars; a += blockDim.x) {
-        s_x[a] = car_x[row * (size_t)num_cars + a];
-        s_y[a] = car_y[row * (size_t)num_cars + a];
+        cars.x[a] = car_x[row * (size_t)num_cars + a];
+        cars.y[a] = car_y[row * (size_t)num_cars + a];
     }
     __syncthreads();
 
     const int ray = blockIdx.y * blockDim.x + threadIdx.x;
     if (ray >= rays_per_row) return;
     const size_t r = row * (size_t)rays_per_row + ray;
-    const float rox = ox[r];
-    const float roy = oy[r];
-    const float v3x = -dy[r];
-    const float v3y = dx[r];
-
-    float tmin = CUDART_INF_F;
-    for (int a = 0; a < num_cars; ++a) {
-        const float cdx = s_x[a] - rox;
-        const float cdy = s_y[a] - roy;
-        if (__fsqrt_rn(cdx * cdx + cdy * cdy) < kSkipRadius) continue;
-        for (int e = 4 * a; e < 4 * a + 4; ++e) {
-            const float vx = s_vx[e];
-            const float vy = s_vy[e];
-            const float dotp = vx * v3x + vy * v3y;
-            if (!(fabsf(dotp) >= kParallelEps)) continue;
-            const float v1x = rox - s_sx[e];
-            const float v1y = roy - s_sy[e];
-            const float t = __fdiv_rn(vx * v1y - vy * v1x, dotp);
-            const float s = __fdiv_rn(v1x * v3x + v1y * v3y, dotp);
-            if (t >= 0.0f && s >= 0.0f && s <= 1.0f && t < tmin) tmin = t;
-        }
-    }
-    const float d = isinf(tmin) ? max_dist : tmin;
-    out[r] = d < max_dist ? d : max_dist;
+    out[r] = car_hits::nearest(cars, ox[r], oy[r], dx[r], dy[r], max_dist);
 }
 
 }  // namespace
@@ -110,7 +75,7 @@ extern "C" int raycast_cars_f32(
     int threads = ((rays_per_row + 31) / 32) * 32;
     if (threads > 256) threads = 256;
     const dim3 grid(rows, (rays_per_row + threads - 1) / threads);
-    const size_t smem = 18 * (size_t)num_cars * sizeof(float);
+    const size_t smem = car_hits::kFloatsPerCar * (size_t)num_cars * sizeof(float);
     if (smem > 48 * 1024) {
         err = cudaFuncSetAttribute(raycast_cars_kernel,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,14 +1,9 @@
 // K1: nearest wall hit per ray, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the JAX package's raycast reduction, self_play_racing_tpu/ops/geometry.py
-// (raycast_walls + _ratio_min_reducer), which XLA fuses on the TPU. Same semantics:
-//   - hit test: |dotp| > 1e-10, cn*dotp >= 0, sn*dotp >= 0, |sn| <= |dotp|;
-//   - the winner is the least ratio |cn|/|dotp|, compared without dividing:
-//     q beats p only on a strict qa*pd < pa*qd, so ties keep the earlier segment;
-//   - a miss carries (inf, d); padding rows have d exactly 0, and their
-//     inf*0 = NaN products compare false and lose;
-//   - one IEEE divide on the winner; max_dist only when that ratio is inf (a hit
-//     beyond max_dist is returned unclamped).
+// (raycast_walls + _ratio_min_reducer), which XLA fuses on the TPU. The semantics
+// and the per-ray fold (a run of segments a lane, then a shuffle tree) are in
+// wall_fold.cuh; the multi-car env runs the same fold in raycast_walls_and_cars.cu.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32): at the single-car path's
 // shapes (4096 env rows x 11 rays x 896 padded segments, five f32 segment fields per
@@ -22,12 +17,6 @@
 // issue rate: the fold's inner loop is 261 instructions a step of 11 rays, 23.7 a
 // pair (10 FMUL, 5 FADD, 5 FSETP, 2 FSEL a pair, then the step's 5 loads and loop
 // counters shared by the 11 rays; cuobjdump -sass).
-//
-// Reduction shape (unchanged since the first version of this kernel, so results
-// are bitwise those of every earlier build): per ray, lane j of a warp folds the
-// contiguous run [j*L, (j+1)*L) of segments in index order, L = ceil(S/32); the 32
-// runs combine through a shuffle tree (offsets 1, 2, 4, 8, 16, left before right).
-// The comparator is not a total order, so this shape is the kernel's contract.
 //
 // Design:
 //   - one block per row (grid = rows). Its fields are staged once by bulk copies
@@ -51,22 +40,14 @@
 #include <math_constants.h>
 
 #include "row_stage.cuh"
+#include "wall_fold.cuh"
 
 namespace {
 
-constexpr float kParallelEps = 1e-10f;
-constexpr int kFields = 5;  // sx, sy, vx, vy, c
+constexpr int kFields = wall_fold::kFields;
 constexpr int kMaxThreads = 256;
 
-__device__ __forceinline__ void ratio_min(float& pa, float& pd, float qa, float qd) {
-    const bool take_q = qa * pd < pa * qd;
-    pa = take_q ? qa : pa;
-    pd = take_q ? qd : pd;
-}
-
-// Lane j folds the run [j*L, (j+1)*L) of the staged row, reading word j*L + k of
-// each field at step k: gcd(L, 32) lanes share a bank (4 at S = 896), and the R
-// rays of a lane share each read.
+// a warp folds R rays of the row at a time (wall_fold::fold)
 template <int R>
 __global__ void __launch_bounds__(kMaxThreads) raycast_walls_kernel(
         const float* __restrict__ ox, const float* __restrict__ oy,
@@ -109,69 +90,20 @@ __global__ void __launch_bounds__(kMaxThreads) raycast_walls_kernel(
 
     row_stage::wait_barrier(&bar);
     const float* rs[kFields];
-#pragma unroll
-    for (int f = 0; f < kFields; ++f) {
-        rs[f] = row_stage::staged(stage + f * cap, fields[f], row, S);
-    }
-    // zero direction past S, so that every lane takes L steps: such padding loses
-    // every comparison
-    for (int i = S + threadIdx.x; i < 32 * L; i += blockDim.x) {
-        for (int f = 0; f < num_fields; ++f) const_cast<float*>(rs[f])[i] = 0.0f;
-    }
+    wall_fold::staged_fields(stage, fields, num_fields, row, S, L, cap, rs);
     __syncthreads();  // the row, its thread-copied parts and its padding are in
 
     for (int g = warp; g < groups; g += warps) {
         if (g != warp) load_rays(g);
         float pa[R], pd[R];
-#pragma unroll
-        for (int t = 0; t < R; ++t) {
-            pa[t] = CUDART_INF_F;
-            pd[t] = 1.0f;
-        }
-        for (int k = 0; k < L; ++k) {
-            const int i = lane * L + k;
-            const float sx = rs[0][i];
-            const float sy = rs[1][i];
-            const float vx = rs[2][i];
-            const float vy = rs[3][i];
-            const float c = with_c ? rs[4][i] : vy * sx - vx * sy;
-#pragma unroll
-            for (int t = 0; t < R; ++t) {
-                const float cn = roy[t] * vx - rox[t] * vy + c;
-                const float dotp = vy * rdx[t] - vx * rdy[t];
-                const float sn = sx * rdy[t] - sy * rdx[t] - u[t];
-                const float d = fabsf(dotp);
-                // ratio_min(pa, pd, hit ? |cn| : inf, d): a miss never wins, as
-                // inf * pd = inf (pd > 0: only hits, with d > 1e-10, are taken).
-                // Every product is formed and the tests joined with & (not &&),
-                // so the loop has no branch.
-                const float q_by_p = fabsf(cn) * pd[t];
-                const float p_by_q = pa[t] * d;
-                const bool take = (d > kParallelEps) & (cn * dotp >= 0.0f)
-                                  & (sn * dotp >= 0.0f) & (fabsf(sn) <= d)
-                                  & (q_by_p < p_by_q);
-                pa[t] = take ? fabsf(cn) : pa[t];
-                pd[t] = take ? d : pd[t];
-            }
-        }
-        // lane i (a multiple of 2*o) holds runs [i, i+o) and takes [i+o, i+2o) as
-        // its right operand; lane 0 ends with all 32 runs in index order
-        __syncwarp();
-#pragma unroll
-        for (int t = 0; t < R; ++t) {
-#pragma unroll
-            for (int o = 1; o < 32; o <<= 1) {
-                const float qa = __shfl_down_sync(0xffffffffu, pa[t], o);
-                const float qd = __shfl_down_sync(0xffffffffu, pd[t], o);
-                ratio_min(pa[t], pd[t], qa, qd);
-            }
-        }
+        wall_fold::fold<R>(rs[0], rs[1], rs[2], rs[3], rs[4], with_c, L, lane, rox, roy, rdx,
+                           rdy, u, pa, pd);
         if (lane == 0) {
 #pragma unroll
             for (int t = 0; t < R; ++t) {
                 if (g * R + t < rays_per_row) {
-                    const float d = __fdiv_rn(pa[t], pd[t]);
-                    out[row * rays_per_row + g * R + t] = isinf(d) ? max_dist : d;
+                    out[row * rays_per_row + g * R + t] =
+                        wall_fold::distance(pa[t], pd[t], max_dist);
                 }
             }
         }

@@ -1,0 +1,216 @@
+// The multi-car env's sensing, for NVIDIA Hopper (sm_90a): every car's rays against
+// the walls of its env row (K1) and against the cars of the row (K3), their
+// minimum, in one launch.
+//
+// Replaces, on the multi-car env's path, the JAX package's wall raycast and car
+// raycast (self_play_racing_tpu/ops/geometry.py: raycast_walls and raycast_cars,
+// with car_corners and jnp.minimum, as envs/multi.py composes them), which XLA
+// fuses on the TPU. Bitwise, it is what the port's K1 and K3 kernels compute from
+// the rays and corners that PyTorch forms:
+//   world = angle + rel                  (one f32 add)
+//   ray   = (x, y) + t (cosf(world), sinf(world))
+//   wall  = K1's fold over the row's segments (wall_fold.cuh), unclamped hits
+//   car   = K3's edge loop over the row's cars (car_hits.cuh), clamped to max_dist
+//   out   = torch.minimum(wall, car): NaN when either is NaN, else fminf.
+// cosf/sinf without fast math are what PyTorch's CUDA cos/sin call, and the
+// corners are car_step.cuh's, in car_corners' order; built with -fmad=false.
+//
+// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32): at the self-play shapes (4096
+// env rows x 2 cars x 11 rays against 896 padded segments and 2 cars) the wall
+// fold is 2.10 GFLOP (26 operations a ray-segment pair), about 31 us, against 73 MB
+// of segment rows, about 22 us; the car pass adds ~20 operations a ray and edge.
+// It is bound by operations, and in practice by the fold's issue rate, as K1.
+//
+// Design: K1's self-play launch, with the car pass in the block that already holds
+// the row and the rays. What the separate launches cost was not their arithmetic
+// but the launches and the ~20 PyTorch launches that built their inputs (the four
+// [N, A, R] ray tensors and two copies of each, the corners); here the rays are
+// formed in registers and the cars in shared memory.
+//   - one block per env row (ops/_cuda.py:raycast_walls_and_cars_plan): the row's
+//     segment fields staged by bulk copies (row_stage.cuh), as K1; the row's A cars
+//     beside them in shared memory (corners, edge vectors, centres: 18 floats a
+//     car), each formed by one thread from (x, y, angle);
+//   - a warp takes R rays of the row at a time, as K1: lane t < R forms ray t from
+//     (x, y, angle, rel) and the warp broadcasts the R rays to every lane, so each
+//     cosf/sinf runs once; then K1's fold;
+//   - after the fold lane 0 holds the group's R winners; lane t takes ray t's by a
+//     shuffle, divides, and runs K3's edge loop for its ray (8 edges at 2 cars).
+//     It forms its ray again from (x, y, angle, rel) instead of keeping it through
+//     the fold: the fold's registers set how many blocks an SM holds.
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+#include "car_hits.cuh"
+#include "car_step.cuh"
+#include "row_stage.cuh"
+#include "wall_fold.cuh"
+
+namespace {
+
+constexpr int kFields = wall_fold::kFields;
+constexpr int kMaxThreads = 256;
+
+// ray r of env row `row` (car r / num_sensors, sensor r % num_sensors)
+__device__ __forceinline__ void ray_of(const float* x, const float* y, const float* angle,
+                                       const float* rel, size_t row, int num_cars,
+                                       int num_sensors, int r, float& ox, float& oy,
+                                       float& dx, float& dy) {
+    const int a = r / num_sensors;
+    const size_t i = row * num_cars + a;
+    ox = x[i];
+    oy = y[i];
+    const float world = angle[i] + rel[r - a * num_sensors];
+    dx = cosf(world);
+    dy = sinf(world);
+}
+
+template <int R>
+__global__ void __launch_bounds__(kMaxThreads) raycast_walls_and_cars_kernel(
+        const float* __restrict__ x, const float* __restrict__ y,
+        const float* __restrict__ angle, const float* __restrict__ rel,
+        const float* __restrict__ seg_sx, const float* __restrict__ seg_sy,
+        const float* __restrict__ seg_vx, const float* __restrict__ seg_vy,
+        const float* __restrict__ seg_c, float* __restrict__ out, int num_cars,
+        int num_sensors, int num_segments, float half_length, float half_width,
+        float max_dist) {
+    extern __shared__ __align__(16) float stage[];
+    __shared__ uint64_t bar;
+    const int S = num_segments;
+    const int L = (S + 31) / 32;
+    const int cap = row_stage::field_capacity(32 * L);  // room for the padding past S
+    const size_t row = blockIdx.x;
+    const float* fields[kFields] = {seg_sx, seg_sy, seg_vx, seg_vy, seg_c};
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int warps = blockDim.x >> 5;
+    const int rays_per_row = num_cars * num_sensors;
+    const int groups = (rays_per_row + R - 1) / R;
+
+    if (threadIdx.x == 0) row_stage::init_barrier(&bar);
+    __syncthreads();
+    if (warp == 0) row_stage::stage_row(stage, fields, kFields, row, S, cap, &bar);
+
+    // the row's cars, beside the staged walls
+    const car_hits::Cars cars = car_hits::layout(stage + kFields * cap, num_cars);
+    for (int a = threadIdx.x; a < num_cars; a += blockDim.x) {
+        const size_t i = row * num_cars + a;
+        float cx[4], cy[4];
+        car_step::corners(x[i], y[i], angle[i], half_length, half_width, cx, cy);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            cars.sx[4 * a + e] = cx[e];
+            cars.sy[4 * a + e] = cy[e];
+            cars.vx[4 * a + e] = cx[(e + 1) & 3] - cx[e];
+            cars.vy[4 * a + e] = cy[(e + 1) & 3] - cy[e];
+        }
+        cars.x[a] = x[i];
+        cars.y[a] = y[i];
+    }
+
+    // group g's rays g*R .. g*R + R-1 (the last ray repeated past the row's end),
+    // as K1 loads them: lane t < R forms ray t, and the warp broadcasts them
+    float rox[R], roy[R], rdx[R], rdy[R], u[R];
+    auto load_rays = [&](int g) {
+        float ox, oy, dx, dy;
+        ray_of(x, y, angle, rel, row, num_cars, num_sensors,
+               min(g * R + min(lane, R - 1), rays_per_row - 1), ox, oy, dx, dy);
+#pragma unroll
+        for (int t = 0; t < R; ++t) {
+            rox[t] = __shfl_sync(0xffffffffu, ox, t);
+            roy[t] = __shfl_sync(0xffffffffu, oy, t);
+            rdx[t] = __shfl_sync(0xffffffffu, dx, t);
+            rdy[t] = __shfl_sync(0xffffffffu, dy, t);
+            u[t] = rox[t] * rdy[t] - roy[t] * rdx[t];
+        }
+    };
+    if (warp < groups) load_rays(warp);  // in flight while the row arrives
+
+    row_stage::wait_barrier(&bar);
+    const float* rs[kFields];
+    wall_fold::staged_fields(stage, fields, kFields, row, S, L, cap, rs);
+    __syncthreads();  // the walls, their padding and the cars are in
+
+    for (int g = warp; g < groups; g += warps) {
+        if (g != warp) load_rays(g);
+        float pa[R], pd[R];
+        wall_fold::fold<R>(rs[0], rs[1], rs[2], rs[3], rs[4], true, L, lane, rox, roy, rdx,
+                           rdy, u, pa, pd);
+        // lane t < R takes ray t's wall winner from lane 0, then its car pass
+        float wa = 0.0f, wd = 1.0f;
+#pragma unroll
+        for (int t = 0; t < R; ++t) {
+            const float qa = __shfl_sync(0xffffffffu, pa[t], 0);
+            const float qd = __shfl_sync(0xffffffffu, pd[t], 0);
+            wa = lane == t ? qa : wa;
+            wd = lane == t ? qd : wd;
+        }
+        const int r = g * R + lane;
+        if (lane < R && r < rays_per_row) {
+            float ox, oy, dx, dy;
+            ray_of(x, y, angle, rel, row, num_cars, num_sensors, r, ox, oy, dx, dy);
+            const float wall = wall_fold::distance(wa, wd, max_dist);
+            const float car = car_hits::nearest(cars, ox, oy, dx, dy, max_dist);
+            // torch.minimum(wall, car) on the card: the first NaN, else fminf
+            out[row * rays_per_row + r] =
+                wall != wall ? wall : (car != car ? car : fminf(wall, car));
+        }
+    }
+}
+
+template <int R>
+int launch(const float* x, const float* y, const float* angle, const float* rel,
+           const float* sx, const float* sy, const float* vx, const float* vy,
+           const float* c, float* out, int rows, int num_cars, int num_sensors,
+           int num_segments, float half_length, float half_width, float max_dist,
+           int threads, int smem, cudaStream_t stream) {
+    auto kernel = raycast_walls_and_cars_kernel<R>;
+    const cudaError_t err = row_stage::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<rows, threads, smem, stream>>>(x, y, angle, rel, sx, sy, vx, vy, c, out,
+                                            num_cars, num_sensors, num_segments,
+                                            half_length, half_width, max_dist);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// rows env rows of num_cars cars: poses x, y, angle [rows * num_cars], sensor
+// angles rel [num_sensors], out [rows * num_cars * num_sensors]; row i of the
+// segment fields is [i*S, (i+1)*S), seg_c = vy*sx - vx*sy among them. One block
+// of `threads` threads per row, `smem` bytes of dynamic shared memory for the
+// staged row and its cars, `rays_per_lane` rays a lane: the launch plan,
+// ops/_cuda.py:raycast_walls_and_cars_plan. Returns a cudaError_t (0 on success).
+extern "C" int raycast_walls_and_cars_f32(
+        const float* x, const float* y, const float* angle, const float* rel,
+        const float* seg_sx, const float* seg_sy, const float* seg_vx,
+        const float* seg_vy, const float* seg_c, float* out,
+        int rows, int num_cars, int num_sensors, int num_segments,
+        float half_length, float half_width, float max_dist,
+        int threads, int smem, int rays_per_lane, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (rows == 0 || num_cars == 0 || num_sensors == 0) return 0;
+    if (threads % 32 != 0 || threads > kMaxThreads || num_segments < 1 || num_cars < 0
+            || num_sensors < 0 || seg_c == nullptr)
+        return (int)cudaErrorInvalidValue;
+    const auto st = (cudaStream_t)stream;
+#define RWC_LAUNCH(R) \
+    case R: return launch<R>(x, y, angle, rel, seg_sx, seg_sy, seg_vx, seg_vy, seg_c, out, \
+                             rows, num_cars, num_sensors, num_segments, half_length, \
+                             half_width, max_dist, threads, smem, st)
+    switch (rays_per_lane) {
+        RWC_LAUNCH(1);
+        RWC_LAUNCH(2);
+        RWC_LAUNCH(3);
+        RWC_LAUNCH(4);
+        RWC_LAUNCH(6);
+        RWC_LAUNCH(8);
+        RWC_LAUNCH(11);
+        default: return (int)cudaErrorInvalidValue;
+    }
+#undef RWC_LAUNCH
+}
+
+extern "C" const char* raycast_walls_and_cars_error_string(int err) {
+    return cudaGetErrorString((cudaError_t)err);
+}

@@ -22,10 +22,12 @@ Branch-free over a ``[num_envs, num_agents]`` state layout:
  - start grid: cars side by side along the start normal, spacing width + 1.5,
    slot ``position_idx`` (given, or a random permutation per env).
 
-Each env step makes one K1 launch over rays [N, A, R], one K3 launch, one K2
-launch over cars [N, A] against waypoint rows [N, 1, W], one K4 launch and one K5
-launch. The JAX package's per-seat raycast unroll and its query-layout switch
-work around XLA fusion limits and have no counterpart here.
+Each env step makes three kernel launches: the sensing (``raycast_walls_and_cars``:
+K1 and K3 of rays [N, A, R] against the segment rows [N, S] and the row's cars),
+the transition (``car_step_and_query``: K5, the corners and K2 of cars [N, A]
+against waypoint rows [N, 1, W]) and K4. The JAX package's per-seat raycast unroll
+and its query-layout switch work around XLA fusion limits and have no counterpart
+here.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ import torch
 
 from .._numerics import const_div, div_const
 from ..ops import geometry as geo
-from ..ops.dynamics import DEFAULT_CAR, CarSpec, car_update
+from ..ops.dynamics import DEFAULT_CAR, CarSpec, car_step_and_query
 from .track import TrackArrays
 
 
@@ -165,24 +167,11 @@ def observe(cfg: MultiRacingConfig, track: TrackArrays, state: MultiState) -> to
     dtype, dev = state.x.dtype, state.x.device
     n, a = state.x.shape
     rel = _sensor_angles(cfg, dtype, dev)                             # [R]
-    world = state.angle[:, :, None] + rel                             # [N, A, R]
-    ox = state.x[:, :, None].expand(world.shape)
-    oy = state.y[:, :, None].expand(world.shape)
-    dx, dy = torch.cos(world), torch.sin(world)
-    wall = geo.raycast_walls(
-        ox, oy, dx, dy,
-        track.seg_sx[:, None, None, :], track.seg_sy[:, None, None, :],
-        track.seg_vx[:, None, None, :], track.seg_vy[:, None, None, :],
-        cfg.max_sensor_range, seg_c=track.seg_c[:, None, None, :],
+    dist = geo.raycast_walls_and_cars(
+        state.x, state.y, state.angle, rel,
+        track.seg_sx, track.seg_sy, track.seg_vx, track.seg_vy, track.seg_c,
+        cfg.car.length / 2, cfg.car.width / 2, cfg.max_sensor_range,
     )                                                                 # [N, A, R]
-    ccx, ccy = geo.car_corners(state.x, state.y, state.angle,
-                               cfg.car.length / 2, cfg.car.width / 2)  # [N, A, 4]
-    cars = geo.raycast_cars(
-        ox, oy, dx, dy, ccx[:, None, None], ccy[:, None, None],
-        state.x[:, None, None, :].contiguous(), state.y[:, None, None, :].contiguous(),
-        cfg.max_sensor_range,
-    )
-    dist = torch.minimum(wall, cars)
     if cfg.clamp_sensor_range:
         dist = torch.clamp_max(dist, cfg.max_sensor_range)
     rays = div_const(dist.to(torch.float32), cfg.max_sensor_range)
@@ -224,13 +213,10 @@ def transition(cfg: MultiRacingConfig, track: TrackArrays, state: MultiState, ac
     steering = torch.clamp(action[..., 0].to(dtype), -1.0, 1.0)
     throttle = torch.clamp((action[..., 1].to(dtype) + 1.0) / 2.0, 0.0, 1.0)
 
-    nx, ny, nang, nvx, nvy = car_update(
+    nx, ny, nang, nvx, nvy, ccx, ccy, raw_progress, hit_wall = car_step_and_query(
         state.x, state.y, state.angle, state.vx, state.vy, state.crashed,
         steering, throttle, cfg.dt, cfg.car,
-    )
-    ccx, ccy = geo.car_corners(nx, ny, nang, cfg.car.length / 2, cfg.car.width / 2)
-    raw_progress, hit_wall = geo.progress_and_collision(
-        nx, ny, ccx, ccy, track.wp_x[:, None, :], track.wp_y[:, None, :],
+        track.wp_x[:, None, :], track.wp_y[:, None, :],
         track.nrm_x[:, None, :], track.nrm_y[:, None, :],
         track.n_wp[:, None], track.track_width[:, None],
     )

@@ -25,7 +25,7 @@ import torch
 
 from .._numerics import div_const
 from ..ops import geometry as geo
-from ..ops.dynamics import DEFAULT_CAR, CarSpec, car_update
+from ..ops.dynamics import DEFAULT_CAR, CarSpec, car_step_and_query
 from .track import TrackArrays
 
 
@@ -162,15 +162,12 @@ def transition(cfg: RacingConfig, track: TrackArrays, state: RacingState, action
     steering = torch.clamp(action[..., 0].to(dtype), -1.0, 1.0)
     throttle = torch.clamp(action[..., 1].to(dtype), 0.0, 1.0)
 
-    nx, ny, nang, nvx, nvy = car_update(
+    # dynamics, then progress + wall collision (frozen once crashed) of the new
+    # pose's centre and corners
+    nx, ny, nang, nvx, nvy, _, _, raw_progress, hit_wall = car_step_and_query(
         car.x, car.y, car.angle, car.vx, car.vy, car.crashed,
         steering, throttle, cfg.dt, cfg.car,
-    )
-    # progress + wall collision, frozen once crashed; corners are computed here so
-    # the track-query kernel needs no transcendentals
-    cx, cy = geo.car_corners(nx, ny, nang, cfg.car.length / 2, cfg.car.width / 2)
-    raw_progress, hit_wall = geo.progress_and_collision(
-        nx, ny, cx, cy, track.wp_x, track.wp_y, track.nrm_x, track.nrm_y,
+        track.wp_x, track.wp_y, track.nrm_x, track.nrm_y,
         track.n_wp, track.track_width,
     )
     new_progress = torch.where(car.crashed, car.progress, raw_progress)

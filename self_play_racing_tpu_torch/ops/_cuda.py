@@ -28,7 +28,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("raycast_walls.cu", "progress_collision.cu", "raycast_cars.cu",
            "rectangles_intersect.cu", "car_update.cu", "gae.cu",
-           "mixbits_permutation.cu")
+           "mixbits_permutation.cu", "raycast_walls_and_cars.cu",
+           "car_step_and_query.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # PyTorch's eager ops never contract a*b+c into an FMA; neither may the kernels
@@ -47,6 +48,8 @@ _SIGNATURES = {
     "car_update_f32": [_P] * 13 + [_I] + [_F] * 8 + [_I, _P],
     "compute_gae_f32": [_P] * 7 + [_I, _I, ctypes.c_float, ctypes.c_float, _I, _P],
     "mixbits_permutation_i32": [_P, _P, _I, _I, _I, _P],
+    "raycast_walls_and_cars_f32": [_P] * 10 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_I, _P],
+    "car_step_and_query_f32": [_P] * 23 + [_I] * 5 + [_F] * 10 + [_I, _P],
 }
 
 _lock = threading.Lock()
@@ -142,6 +145,7 @@ K1_RAYS_PER_LANE_CHOICES = (1, 2, 3, 4, 6, 8, 11)
 K1_RAYS_PER_LANE = 11
 K1_FIELDS = 5
 K2_FIELDS = 2
+K3_FLOATS_PER_CAR = 18  # corners, edge vectors and centre (csrc/car_hits.cuh)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,6 +205,27 @@ def progress_collision_plan(cars_per_row: int, num_corners: int,
     return LaunchPlan(threads, smem)
 
 
+@functools.lru_cache(maxsize=256)
+def raycast_walls_and_cars_plan(num_cars: int, num_sensors: int,
+                                num_segments: int) -> LaunchPlan:
+    """The multi-car sensing launch: K1's plan for the ``num_cars * num_sensors``
+    rays of a row, with the row's cars (18 floats a car) staged beside its
+    segment fields. Raises ValueError where the two do not fit in 227 KB."""
+    walls = raycast_walls_plan(num_cars * num_sensors, num_segments)
+    smem = walls.smem + K3_FLOATS_PER_CAR * num_cars * 4
+    if smem > BLOCK_SMEM_LIMIT:
+        raise ValueError(f"raycast_walls_and_cars: a row of {num_segments} segments and "
+                         f"{num_cars} cars needs {smem:,} bytes of shared memory; a block "
+                         f"has {BLOCK_SMEM_LIMIT:,}")
+    return dataclasses.replace(walls, smem=smem)
+
+
+def car_step_query_plan(cars_per_row: int, num_waypoints: int) -> LaunchPlan:
+    """The transition launch: K2's plan for the centre and four corners of each
+    car (the kernel forms the corners itself)."""
+    return progress_collision_plan(cars_per_row, 4, num_waypoints)
+
+
 def launch_raycast_walls(ox, oy, dx, dy, sx, sy, vx, vy, c, out,
                          rows: int, rays_per_row: int, num_segments: int,
                          max_dist: float) -> None:
@@ -255,6 +280,39 @@ def launch_car_update(x, y, angle, vx, vy, crashed, steering, throttle, nx, ny,
           *map(_ptr, (x, y, angle, vx, vy, crashed, steering, throttle, nx, ny, nang,
                       nvx, nvy)),
           n, *map(float, constants))
+
+
+def launch_raycast_walls_and_cars(x, y, angle, rel, sx, sy, vx, vy, c, out, rows: int,
+                                  num_cars: int, num_sensors: int, num_segments: int,
+                                  half_length: float, half_width: float,
+                                  max_dist: float) -> None:
+    """Launch the multi-car sensing kernel on ``out.device``'s current stream, as
+    ``raycast_walls_and_cars_plan`` says. Tensors are contiguous f32;
+    ``half_length`` and ``half_width`` are float32 values."""
+    plan = raycast_walls_and_cars_plan(num_cars, num_sensors, num_segments)
+    _call("raycast_walls_and_cars", "raycast_walls_and_cars_f32", out.device,
+          *map(_ptr, (x, y, angle, rel, sx, sy, vx, vy, c, out)),
+          rows, num_cars, num_sensors, num_segments, float(half_length),
+          float(half_width), float(max_dist), plan.threads, plan.smem, plan.rays_per_lane)
+
+
+def launch_car_step_and_query(x, y, angle, vx, vy, crashed, steering, throttle, wp_x,
+                              wp_y, nrm_x, nrm_y, n_wp, track_width, nx, ny, nang, nvx,
+                              nvy, ccx, ccy, progress, hit_wall, rows: int,
+                              cars_per_row: int, num_waypoints: int, constants) -> None:
+    """Launch the transition kernel on ``nx.device``'s current stream, as
+    ``car_step_query_plan`` says: ``rows`` waypoint rows, car i against row
+    ``i // cars_per_row``. Tensors are contiguous (f32, ``crashed`` and ``hit_wall``
+    bool, ``n_wp`` int32; ``n_wp`` and ``track_width`` one per row); ``constants``
+    the ten float32 values the kernel takes (K5's eight, then the half length and
+    half width)."""
+    plan = car_step_query_plan(cars_per_row, num_waypoints)
+    _call("car_step_and_query", "car_step_and_query_f32", nx.device,
+          *map(_ptr, (x, y, angle, vx, vy, crashed, steering, throttle, wp_x, wp_y, nrm_x,
+                      nrm_y, n_wp, track_width, nx, ny, nang, nvx, nvy, ccx, ccy, progress,
+                      hit_wall)),
+          rows, cars_per_row, num_waypoints, plan.threads, plan.smem,
+          *map(float, constants))
 
 
 def launch_compute_gae(rewards, dones, values, next_value, next_done, adv, ret,

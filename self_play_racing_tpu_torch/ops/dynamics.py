@@ -12,6 +12,11 @@ to the last bit wherever cos/sin round alike.
 PyTorch version (``car_update_plain``), a CUDA tensor launches the hand-written
 kernel in ``csrc/car_update.cu`` or raises. ``car_update_launches`` counts the
 kernel's launches.
+
+``car_step_and_query`` is the envs' transition: ``car_update``, ``car_corners`` and
+``progress_and_collision`` (K2), one kernel on the card
+(``csrc/car_step_and_query.cu``), the same dispatch; ``car_step_and_query_launches``
+counts its launches.
 """
 from __future__ import annotations
 
@@ -24,7 +29,8 @@ import numpy as np
 
 from .._numerics import const_div
 from . import _cuda
-from .geometry import _check_f32, _on_cuda
+from .geometry import (_check_f32, _on_cuda, _rows_leading, car_corners,
+                       progress_and_collision_plain)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +50,7 @@ class CarSpec:
 DEFAULT_CAR = CarSpec()
 
 car_update_launches = 0
+car_step_and_query_launches = 0
 
 
 def car_update(x, y, angle, vx, vy, crashed, steering, throttle, dt=0.05,
@@ -73,13 +80,18 @@ def _car_update_cuda(x, y, angle, vx, vy, crashed, steering, throttle, dt, spec)
         raise ValueError("car_update: all inputs must share one shape")
     ins = [t.contiguous() for t in floats[:5] + [crashed] + floats[5:]]
     outs = [torch.empty_like(x, memory_format=torch.contiguous_format) for _ in range(5)]
-    f32 = np.float32
-    constants = [f32(spec.steering_speed), f32(spec.acceleration), f32(spec.drag),
-                 f32(spec.lateral_friction), f32(spec.grip), f32(spec.max_speed),
-                 f32(dt), f32(2.0 * math.pi)]
     with torch.cuda.device(dev):
-        _cuda.launch_car_update(*ins, *outs, x.numel(), constants)
+        _cuda.launch_car_update(*ins, *outs, x.numel(), _step_constants(dt, spec))
     return tuple(outs)
+
+
+def _step_constants(dt, spec):
+    """K5's constants as float32, as PyTorch rounds a Python scalar against a
+    float32 tensor."""
+    f32 = np.float32
+    return [f32(spec.steering_speed), f32(spec.acceleration), f32(spec.drag),
+            f32(spec.lateral_friction), f32(spec.grip), f32(spec.max_speed), f32(dt),
+            f32(2.0 * math.pi)]
 
 
 def car_update_plain(x, y, angle, vx, vy, crashed, steering, throttle, dt=0.05,
@@ -118,3 +130,84 @@ def car_update_plain(x, y, angle, vx, vy, crashed, steering, throttle, dt=0.05,
         torch.where(crashed, vx, nvx),
         torch.where(crashed, vy, nvy),
     )
+
+
+def car_step_and_query(x, y, angle, vx, vy, crashed, steering, throttle, dt, spec,
+                       wp_x, wp_y, nrm_x, nrm_y, n_wp, track_width):
+    """The envs' transition kernel: ``car_update``, then the corners of the new
+    pose (``car_corners``, the spec's half length and width), then
+    ``progress_and_collision`` of the new centre and corners.
+
+    The car fields share one shape ``B``; wp/nrm as ``progress_and_collision``
+    takes them (on the card: rows ``P + (1,)*k + (W,)`` that lead ``B = P + Q``,
+    and ``n_wp``, ``track_width`` one per row, broadcastable to ``P + (1,)*k``).
+    Returns (x, y, angle, vx, vy, corners_x, corners_y, progress, hit_wall): the
+    state ``B`` (crashed cars frozen), the corners ``B + (4,)``, progress ``B``
+    and hit_wall ``B`` bool.
+    """
+    global car_step_and_query_launches
+    if not _on_cuda(x, "car_step_and_query"):
+        return car_step_and_query_plain(x, y, angle, vx, vy, crashed, steering, throttle,
+                                        dt, spec, wp_x, wp_y, nrm_x, nrm_y, n_wp,
+                                        track_width)
+    out = _car_step_and_query_cuda(x, y, angle, vx, vy, crashed, steering, throttle, dt,
+                                   spec, wp_x, wp_y, nrm_x, nrm_y, n_wp, track_width)
+    car_step_and_query_launches += 1
+    return out
+
+
+def car_step_and_query_plain(x, y, angle, vx, vy, crashed, steering, throttle, dt, spec,
+                             wp_x, wp_y, nrm_x, nrm_y, n_wp, track_width):
+    """Plain PyTorch version: ``car_update_plain``, ``car_corners`` and
+    ``progress_and_collision_plain``, as the envs composed them."""
+    nx, ny, nang, nvx, nvy = car_update_plain(x, y, angle, vx, vy, crashed, steering,
+                                              throttle, dt, spec)
+    ccx, ccy = car_corners(nx, ny, nang, spec.length / 2, spec.width / 2)
+    progress, hit_wall = progress_and_collision_plain(nx, ny, ccx, ccy, wp_x, wp_y, nrm_x,
+                                                      nrm_y, n_wp, track_width)
+    return nx, ny, nang, nvx, nvy, ccx, ccy, progress, hit_wall
+
+
+def _car_step_and_query_cuda(x, y, angle, vx, vy, crashed, steering, throttle, dt, spec,
+                             wp_x, wp_y, nrm_x, nrm_y, n_wp, track_width):
+    """On the card: one block per waypoint row, a warp per car. The car fields are
+    made contiguous (they are small), the waypoint fields must be."""
+    dev = x.device
+    floats = [x, y, angle, vx, vy, steering, throttle]
+    wp = [wp_x, wp_y, nrm_x, nrm_y]
+    _check_f32("car_step_and_query", floats + wp, dev)
+    if crashed.device != dev or crashed.dtype != torch.bool:
+        raise TypeError("car_step_and_query: crashed must be a bool tensor on the cars' device")
+    batch = x.shape
+    if any(t.shape != batch for t in floats + [crashed]):
+        raise ValueError("car_step_and_query: the car fields must share one shape")
+    if any(t.shape != wp_x.shape for t in wp) or not all(t.is_contiguous() for t in wp):
+        raise ValueError("car_step_and_query: the waypoint fields must share one "
+                         "contiguous shape P+(W,)")
+    row_shape = wp_x.shape[:-1]
+    rows, cars_per_row = _rows_leading(row_shape, batch, "car_step_and_query",
+                                       "waypoint rows", "car batch shape")
+    num_waypoints = wp_x.shape[-1]
+    _cuda.car_step_query_plan(cars_per_row, num_waypoints)  # refuses before any launch
+    per_row = []
+    for name, t, dtype in (("n_wp", n_wp, torch.int32), ("track_width", track_width,
+                                                         torch.float32)):
+        t = torch.as_tensor(t, device=dev)
+        if t.dtype != dtype:
+            raise TypeError(f"car_step_and_query: {name} must be {dtype}")
+        if torch.broadcast_shapes(t.shape, row_shape) != row_shape:
+            raise ValueError(f"car_step_and_query: {name} {tuple(t.shape)} is not one "
+                             f"value per waypoint row {tuple(row_shape)}")
+        per_row.append(t.expand(row_shape).reshape(rows).contiguous())
+    ins = [t.contiguous() for t in floats[:5] + [crashed] + floats[5:]]
+    outs = [torch.empty(batch, dtype=torch.float32, device=dev) for _ in range(5)]
+    corners = [torch.empty(batch + (4,), dtype=torch.float32, device=dev) for _ in range(2)]
+    progress = torch.empty(batch, dtype=torch.float32, device=dev)
+    hit_wall = torch.empty(batch, dtype=torch.bool, device=dev)
+    f32 = np.float32
+    constants = _step_constants(dt, spec) + [f32(spec.length / 2), f32(spec.width / 2)]
+    with torch.cuda.device(dev):
+        _cuda.launch_car_step_and_query(*ins, *wp, *per_row, *outs, *corners, progress,
+                                        hit_wall, rows, cars_per_row, num_waypoints,
+                                        constants)
+    return (*outs, *corners, progress, hit_wall)

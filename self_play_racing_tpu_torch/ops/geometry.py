@@ -10,6 +10,9 @@ The reductions of the env step have two versions each:
   segment/waypoint/corner tensors: a CPU tensor takes the plain PyTorch version
   (``*_plain``), a CUDA tensor launches the hand-written kernel in ``csrc/`` or
   raises. There is no fallback from the kernel to the plain version.
+- ``raycast_walls_and_cars`` is the multi-car env's sensing: K1 and K3 of every
+  car's rays and their minimum, one kernel on the card (the rays and corners are
+  formed inside it). Its plain version is that composition of the plain pieces.
 - ``<name>_launches`` count kernel launches (plain integers, incremented only where
   a kernel launched), so a run can show that its main path went through the
   kernels.
@@ -19,6 +22,7 @@ from __future__ import annotations
 import functools
 import math
 
+import numpy as np
 import torch
 
 from . import _cuda
@@ -30,6 +34,7 @@ raycast_walls_launches = 0
 progress_and_collision_launches = 0
 raycast_cars_launches = 0
 rectangles_intersect_launches = 0
+raycast_walls_and_cars_launches = 0
 
 
 def _on_cuda(t: torch.Tensor, name: str) -> bool:
@@ -377,4 +382,76 @@ def _raycast_cars_cuda(ox, oy, dx, dy, car_cx, car_cy, car_x, car_y, max_dist):
     with torch.cuda.device(dev):
         _cuda.launch_raycast_cars(*rays, car_cx, car_cy, car_x, car_y, out, rows,
                                   rays_per_row, num_cars, max_dist)
+    return out
+
+
+# ------------------------------------- the multi-car sensing: K1 and K3 together
+
+def raycast_walls_and_cars(x, y, angle, rel, seg_sx, seg_sy, seg_vx, seg_vy, seg_c,
+                           half_length, half_width, max_dist):
+    """Every car's sensor rays against the walls and the cars of its row: the
+    minimum of the wall hit (unclamped, ``raycast_walls``) and the car hit
+    (clamped to ``max_dist``, ``raycast_cars``).
+
+    x, y, angle: car poses ``P + (A,)``; rel: sensor angles ``(R,)``, car ``a``'s
+      rays point at ``angle + rel`` from its centre;
+    seg_*: the row's segment fields ``P + (S,)``, ``seg_c = vy*sx - vx*sy`` among
+      them;
+    every car of a row sees the row's A cars (rectangles of the given half length
+    and width), itself skipped by the 0.5 radius.
+    Returns ``P + (A, R)``.
+    """
+    global raycast_walls_and_cars_launches
+    if not _on_cuda(seg_sx, "raycast_walls_and_cars"):
+        return raycast_walls_and_cars_plain(x, y, angle, rel, seg_sx, seg_sy, seg_vx, seg_vy,
+                                            seg_c, half_length, half_width, max_dist)
+    out = _raycast_walls_and_cars_cuda(x, y, angle, rel, seg_sx, seg_sy, seg_vx, seg_vy,
+                                       seg_c, half_length, half_width, max_dist)
+    raycast_walls_and_cars_launches += 1
+    return out
+
+
+def raycast_walls_and_cars_plain(x, y, angle, rel, seg_sx, seg_sy, seg_vx, seg_vy, seg_c,
+                                 half_length, half_width, max_dist):
+    """Plain PyTorch version: the rays, ``raycast_walls_plain``, ``car_corners``,
+    ``raycast_cars_plain`` and ``torch.minimum``, as the multi-car env composed
+    them."""
+    world = angle[..., None] + rel                                    # P + (A, R)
+    ox = x[..., None].expand(world.shape)
+    oy = y[..., None].expand(world.shape)
+    dx, dy = torch.cos(world), torch.sin(world)
+    rows = [t[..., None, None, :] for t in (seg_sx, seg_sy, seg_vx, seg_vy, seg_c)]
+    wall = raycast_walls_plain(ox, oy, dx, dy, *rows[:4], max_dist, rows[4])  # P + (A, R)
+    ccx, ccy = car_corners(x, y, angle, half_length, half_width)      # P + (A, 4)
+    cars = raycast_cars_plain(ox, oy, dx, dy, ccx[..., None, None, :, :],
+                              ccy[..., None, None, :, :], x[..., None, None, :],
+                              y[..., None, None, :], max_dist)
+    return torch.minimum(wall, cars)
+
+
+def _raycast_walls_and_cars_cuda(x, y, angle, rel, seg_sx, seg_sy, seg_vx, seg_vy, seg_c,
+                                 half_length, half_width, max_dist):
+    """On the card: one block per row of ``P``; the poses and sensor angles are
+    made contiguous (they are small), the segment fields must be."""
+    segs = [seg_sx, seg_sy, seg_vx, seg_vy, seg_c]
+    cars = [x, y, angle]
+    dev = seg_sx.device
+    _check_f32("raycast_walls_and_cars", segs + cars + [rel], dev)
+    if any(t.shape != x.shape for t in cars) or x.ndim < 1 or rel.ndim != 1:
+        raise ValueError("raycast_walls_and_cars: poses must share one shape P+(A,) and "
+                         "the sensor angles be (R,)")
+    if any(t.shape != x.shape[:-1] + seg_sx.shape[-1:] for t in segs):
+        raise ValueError("raycast_walls_and_cars: segment fields must share one shape "
+                         "P+(S,) with the poses' P")
+    if any(not t.is_contiguous() for t in segs):
+        raise ValueError("raycast_walls_and_cars: segment fields must be contiguous")
+    num_cars, num_sensors, num_segments = x.shape[-1], rel.shape[0], seg_sx.shape[-1]
+    _cuda.raycast_walls_and_cars_plan(num_cars, num_sensors, num_segments)  # refuses first
+    x, y, angle, rel = (t.contiguous() for t in (x, y, angle, rel))
+    out = torch.empty(x.shape + (num_sensors,), dtype=torch.float32, device=dev)
+    f32 = np.float32
+    with torch.cuda.device(dev):
+        _cuda.launch_raycast_walls_and_cars(
+            x, y, angle, rel, *segs, out, math.prod(x.shape[:-1]), num_cars,
+            num_sensors, num_segments, f32(half_length), f32(half_width), max_dist)
     return out

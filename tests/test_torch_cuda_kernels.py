@@ -16,7 +16,11 @@ versions' operation order, build without FMA contraction and divide and take
 square roots as IEEE; K5 calls the same cosf/sinf as PyTorch's CUDA cos/sin. K6
 (GAE) bitwise equal: the kernel walks the plain version's order and is built
 without FMA contraction. K7 (the epoch permutations) exactly equal, and a
-permutation.
+permutation. The envs' two kernels: ``raycast_walls_and_cars`` bitwise equal to
+``torch.minimum`` of the K1 and K3 kernels on the rays and corners PyTorch forms
+(what the multi-car env launched before), and to its plain version by K1's rule
+(its wall part is K1's fold); ``car_step_and_query`` bitwise equal to its plain
+version and to the K5 kernel, ``car_corners`` and the K2 kernel one after another.
 """
 import numpy as np
 import pytest
@@ -465,9 +469,11 @@ def test_mixbits_kernel_matches_plain(cuda, n, lead):
 
 
 def test_selfplay_update_on_card_launches_all_seven_kernels(cuda):
-    """Two scale-mode self-play updates on the card: every env step launches K5, K2
-    and K4 once (the transition) and K1 and K3 once (the refresh that senses the
-    merged state); each update launches K6 and K7 once."""
+    """Three scale-mode self-play updates on the card: every env step launches
+    ``car_step_and_query`` (K5 and K2) and K4 once (the transition) and
+    ``raycast_walls_and_cars`` (K1 and K3) once (the refresh that senses the merged
+    state); each update launches K6 and K7 once. The standalone K1, K2, K3 and K5
+    kernels are off the path."""
     from self_play_racing_tpu_torch.agent.self_play import SelfPlayTrainer
     from self_play_racing_tpu_torch.configs import self_play_config
     from self_play_racing_tpu_torch.envs import multi
@@ -480,16 +486,17 @@ def test_selfplay_update_on_card_launches_all_seven_kernels(cuda):
     pool = trk.make_track_pool(trk.gen_tracks(4, seed=1), 7.0, device=cuda)
     tr = SelfPlayTrainer(cfg, multi.MultiRacingConfig(num_agents=2),
                          trk.gather_tracks(pool, np.arange(envs) % 4))
-    names = ("raycast_walls", "raycast_cars", "progress_and_collision",
-             "rectangles_intersect")
-    before = [getattr(geo, f"{k}_launches") for k in names] + [
-        dynamics.car_update_launches, gae.compute_gae_launches,
-        prng.mixbits_permutation_launches]
+    counters = [(geo, "raycast_walls_and_cars_launches"),
+                (dynamics, "car_step_and_query_launches"),
+                (geo, "rectangles_intersect_launches"), (gae, "compute_gae_launches"),
+                (prng, "mixbits_permutation_launches"), (geo, "raycast_walls_launches"),
+                (geo, "raycast_cars_launches"), (geo, "progress_and_collision_launches"),
+                (dynamics, "car_update_launches")]
+    before = [getattr(m, a) for m, a in counters]
     tr.train(num_updates=updates)
-    after = [getattr(geo, f"{k}_launches") for k in names] + [
-        dynamics.car_update_launches, gae.compute_gae_launches,
-        prng.mixbits_permutation_launches]
-    assert [b - a for a, b in zip(before, after)] == [steps * updates] * 5 + [updates] * 2
+    after = [getattr(m, a) for m, a in counters]
+    assert ([b - a for a, b in zip(before, after)]
+            == [steps * updates] * 3 + [updates] * 2 + [0] * 4)
     assert tr.num_snapshots == 2 and tr.pool_games.sum() > 0
     assert all(bool(torch.isfinite(p).all()) for p in tr.runner.train.model.parameters())
 
@@ -510,3 +517,126 @@ def test_update_step_on_card_launches_the_learner_kernels(cuda):
     assert (gae.compute_gae_launches, prng.mixbits_permutation_launches) == (
         before[0] + 2, before[1] + 2)
     assert all(bool(torch.isfinite(p).all()) for p in tr.runner.train.model.parameters())
+
+
+def _sensing_case(cuda, rng, rows, cars, sensors, segs, offset):
+    """Poses of ``cars`` cars a row (car 1 of every fourth row within 0.5 of car 0,
+    so that each skips the other), sensor angles over +-pi/2, and segment rows
+    [rows, S] ``offset`` floats into their storage."""
+    fields = [_f32(rng, (rows, segs), lo, hi, cuda, offset)
+              for lo, hi in ((-40, 40), (-40, 40), (-15, 15), (-15, 15))]
+    if segs > 7:
+        for t in fields:
+            t[:, -7:] = 0.0  # zero-direction padding
+    sx, sy, vx, vy = fields
+    c = _shifted(vy * sx - vx * sy, offset)
+    x, y = (_f32(rng, (rows, cars), -10, 10, cuda) for _ in range(2))
+    ang = _f32(rng, (rows, cars), 0, 6.3, cuda)
+    if cars > 1:
+        x[::4, 1] = x[::4, 0] + 0.3
+        y[::4, 1] = y[::4, 0] - 0.2
+    rel = torch.linspace(-1.5707964, 1.5707964, sensors, device=cuda)
+    return x, y, ang, rel, sx, sy, vx, vy, c
+
+
+@pytest.mark.parametrize("cars,sensors", [(1, 11), (2, 11), (8, 11), (3, 7)])
+@pytest.mark.parametrize("segs,offset", [(896, 0), (33, 1), (1023, 3)])
+def test_raycast_walls_and_cars_kernel_matches_plain(cuda, cars, sensors, segs, offset):
+    """The multi-car sensing at 1, 2, 3 and 8 cars (3 x 7 rays split a car across
+    two warps), segment rows on and off 16-byte alignment, more rows than the card
+    holds blocks at once, and cars inside each other's skip radius."""
+    rng = np.random.default_rng(cars * 1000 + segs + offset)
+    rows = ROWS_PAST_ONE_WAVE
+    x, y, ang, rel, sx, sy, vx, vy, c = _sensing_case(cuda, rng, rows, cars, sensors, segs,
+                                                      offset)
+    before = geo.raycast_walls_and_cars_launches
+    k = geo.raycast_walls_and_cars(x, y, ang, rel, sx, sy, vx, vy, c, 2.0, 1.0, 50.0)
+    assert geo.raycast_walls_and_cars_launches == before + 1
+    p = geo.raycast_walls_and_cars_plain(x, y, ang, rel, sx, sy, vx, vy, c, 2.0, 1.0, 50.0)
+    # the K1 and K3 kernels on the rays and corners PyTorch forms
+    world = ang[..., None] + rel
+    ox, oy = x[..., None].expand(world.shape), y[..., None].expand(world.shape)
+    dx, dy = torch.cos(world), torch.sin(world)
+    wall = geo.raycast_walls(ox, oy, dx, dy, *(t[:, None, None, :] for t in (sx, sy, vx, vy)),
+                             50.0, seg_c=c[:, None, None, :])
+    ccx, ccy = geo.car_corners(x, y, ang, 2.0, 1.0)
+    car = geo.raycast_cars(ox, oy, dx, dy, ccx[:, None, None], ccy[:, None, None],
+                           x[:, None, None, :].contiguous(), y[:, None, None, :].contiguous(),
+                           50.0)
+    torch.cuda.synchronize()
+    assert k.shape == (rows, cars, sensors)
+    assert torch.equal(k, torch.minimum(wall, car))
+    _assert_k1_close(k, p, 50.0)
+    if cars > 1:
+        assert 0.01 < float((car < 50.0).float().mean()) < 0.99  # rays do hit cars
+
+
+@pytest.mark.parametrize("cars", [1, 2, 8])
+@pytest.mark.parametrize("waypoints,offset", [(512, 0), (33, 1), (600, 3)])
+def test_car_step_and_query_kernel_matches_plain(cuda, waypoints, offset, cars):
+    """The transition at 1, 2 and 8 cars against waypoint rows [N, 1, W] (and, at one
+    car, [N, W] as the single-car env passes them) on and off 16-byte alignment,
+    with crashed cars and speeds above the clamp: every output bitwise equal to the
+    plain version and to the K5 kernel, car_corners and the K2 kernel."""
+    from self_play_racing_tpu_torch.ops.dynamics import DEFAULT_CAR
+
+    rng = np.random.default_rng(waypoints * 10 + cars + offset)
+    rows = ROWS_PAST_ONE_WAVE
+    t = torch.linspace(0, 6.283, waypoints, device=cuda)
+    radius = _f32(rng, (rows, 1, 1), 20, 40, cuda)
+    wp_x = _shifted(radius * torch.cos(t) + _f32(rng, (rows, 1, waypoints), -1, 1, cuda), offset)
+    wp_y = _shifted(radius * torch.sin(t) + _f32(rng, (rows, 1, waypoints), -1, 1, cuda), offset)
+    nrm = _f32(rng, (rows, 1, waypoints), 0, 6.3, cuda)
+    nx, ny = _shifted(torch.cos(nrm), offset), _shifted(torch.sin(nrm), offset)
+    n_wp = torch.as_tensor(rng.integers(1, waypoints + 1, (rows, 1)), dtype=torch.int32,
+                           device=cuda)
+    width = _f32(rng, (rows, 1), 3, 9, cuda)
+    shape = (rows, cars)
+    f = lambda lo, hi: _f32(rng, shape, lo, hi, cuda)
+    cars_in = (f(-35, 35), f(-35, 35), f(-7, 7), f(-35, 35), f(-35, 35),
+               torch.as_tensor(rng.random(shape) < 0.2, device=cuda), f(-1, 1), f(0, 1))
+    layouts = [(cars_in, (wp_x, wp_y, nx, ny, n_wp, width))]
+    if cars == 1:  # the single-car env's layout: cars [N], rows [N, W]
+        layouts.append(([a[:, 0] for a in cars_in],
+                        [a.view(rows, waypoints) if a.ndim == 3 else a[:, 0]
+                         for a in (wp_x, wp_y, nx, ny, n_wp, width)]))
+    for car_args, wp_args in layouts:
+        before = dynamics.car_step_and_query_launches
+        k = dynamics.car_step_and_query(*car_args, 0.05, DEFAULT_CAR, *wp_args)
+        assert dynamics.car_step_and_query_launches == before + 1
+        p = dynamics.car_step_and_query_plain(*car_args, 0.05, DEFAULT_CAR, *wp_args)
+        state = dynamics.car_update(*car_args, 0.05, DEFAULT_CAR)
+        ccx, ccy = geo.car_corners(state[0], state[1], state[2], 2.0, 1.0)
+        composed = (*state, ccx, ccy,
+                    *geo.progress_and_collision(state[0], state[1], ccx, ccy, *wp_args))
+        torch.cuda.synchronize()
+        names = ("x", "y", "angle", "vx", "vy", "corners_x", "corners_y", "progress", "hit_wall")
+        for name, a, b, c in zip(names, k, p, composed):
+            assert a.shape == b.shape and torch.equal(a, b) and torch.equal(a, c), name
+        assert 0 < int(k[8].sum()) < k[8].numel()
+
+
+def test_envs_kernels_reject_what_they_do_not_take(cuda):
+    from self_play_racing_tpu_torch.ops.dynamics import DEFAULT_CAR
+
+    pose, seg, rel = (torch.zeros((2, 3), device=cuda), torch.zeros((2, 16), device=cuda),
+                      torch.zeros(5, device=cuda))
+    with pytest.raises(TypeError):
+        geo.raycast_walls_and_cars(pose.double(), pose, pose, rel, *(seg,) * 5, 2.0, 1.0, 50.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        seg_t = torch.zeros((16, 2), device=cuda).T
+        geo.raycast_walls_and_cars(pose, pose, pose, rel, *(seg_t,) * 5, 2.0, 1.0, 50.0)
+    with pytest.raises(ValueError):
+        geo.raycast_walls_and_cars(pose, pose, pose, rel, *(seg[:1],) * 5, 2.0, 1.0, 50.0)
+    wp = torch.zeros((2, 1, 16), device=cuda)
+    cars = (*(pose,) * 5, pose.bool(), pose, pose)
+    n_wp = torch.ones((2, 1), dtype=torch.int32, device=cuda)
+    width = torch.ones((2, 1), device=cuda)
+    with pytest.raises(TypeError):
+        dynamics.car_step_and_query(*cars[:5], pose, *cars[6:], 0.05, DEFAULT_CAR, *(wp,) * 4,
+                                    n_wp, width)
+    with pytest.raises(TypeError):
+        dynamics.car_step_and_query(*cars, 0.05, DEFAULT_CAR, *(wp,) * 4, n_wp.long(), width)
+    with pytest.raises(ValueError, match="per waypoint row"):
+        dynamics.car_step_and_query(*cars, 0.05, DEFAULT_CAR, *(wp,) * 4,
+                                    torch.ones((2, 3), dtype=torch.int32, device=cuda), width)

@@ -1,7 +1,9 @@
-"""Launch plans of the row kernels K1 (wall raycast) and K2 (track query), and what
-their wrappers refuse before any launch. CPU only: the plans are plain Python
-(``ops/_cuda.py``), and the checks run before the kernel is built, so a stub of the
-call that builds and launches it fails the test if anything gets that far.
+"""Launch plans of the row kernels K1 (wall raycast) and K2 (track query) and of the
+envs' two kernels built on them (the multi-car sensing, K1 with K3's car pass; the
+transition, K2 with K5's step), and what their wrappers refuse before any launch.
+CPU only: the plans are plain Python (``ops/_cuda.py``), and the checks run before
+the kernel is built, so a stub of the call that builds and launches it fails the
+test if anything gets that far.
 """
 import pytest
 import torch
@@ -130,3 +132,94 @@ def test_launchers_refuse_before_launch(no_launch, launcher):
     else:
         with pytest.raises(ValueError, match="31"):
             _cuda.launch_progress_and_collision(*(t,) * 12, 1, 1, 32, 512)
+
+
+@pytest.mark.parametrize("cars,threads", [(1, 32), (2, 64), (3, 96), (8, 256)])
+def test_walls_and_cars_plan_stages_the_cars_beside_the_row(cars, threads):
+    """K1's plan for the A x 11 rays of a row (a warp per car at 11 sensors), with
+    the row's cars, 18 floats each, beside its 18,000-byte segment stage."""
+    plan = _cuda.raycast_walls_and_cars_plan(cars, 11, 896)
+    walls = _cuda.raycast_walls_plan(cars * 11, 896)
+    assert (plan.threads, plan.rays_per_lane) == (walls.threads, walls.rays_per_lane)
+    assert plan.threads == threads and plan.rays_per_lane == 11
+    assert plan.smem == 18_000 + 18 * 4 * cars
+    assert _cuda.raycast_walls_and_cars_plan(3, 7, 896).rays_per_lane == 11  # 21 rays
+
+
+def test_walls_and_cars_plan_refuses_what_the_kernel_cannot_take():
+    """Where the segment row fits but the row and its cars do not, and where the
+    segment row alone does not fit, the plan refuses."""
+    assert _cuda.raycast_walls_plan(10, 11_584).smem == 231_760
+    assert _cuda.raycast_walls_and_cars_plan(1, 10, 11_584).smem == 231_832
+    with pytest.raises(ValueError, match="10 cars"):
+        _cuda.raycast_walls_and_cars_plan(10, 1, 11_584)
+    with pytest.raises(ValueError, match="shared memory"):
+        _cuda.raycast_walls_and_cars_plan(1, 11, 11_617)
+    with pytest.raises(ValueError, match="segment"):
+        _cuda.raycast_walls_and_cars_plan(2, 11, 0)
+
+
+@pytest.mark.parametrize("cars,warps", [(1, 1), (2, 2), (8, 8), (20, 8)])
+def test_step_query_plan_is_k2s_with_four_corners(cars, warps):
+    plan = _cuda.car_step_query_plan(cars, 512)
+    assert plan == _cuda.progress_collision_plan(cars, 4, 512)
+    assert plan.threads == 32 * warps and plan.smem == 2 * (512 + 4) * 4
+    with pytest.raises(ValueError, match="shared memory"):
+        _cuda.car_step_query_plan(cars, 30_000)
+    with pytest.raises(ValueError, match="waypoint"):
+        _cuda.car_step_query_plan(cars, 0)
+
+
+def test_walls_and_cars_wrapper_refuses_before_launch(no_launch):
+    pose, rel, seg = _ray(2, 3), _ray(5), _ray(2, 16)
+    with pytest.raises(TypeError):
+        geo._raycast_walls_and_cars_cuda(pose.double(), pose, pose, rel, *(seg,) * 5, 2.0,
+                                         1.0, 50.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        geo._raycast_walls_and_cars_cuda(pose, pose, pose, rel, *(_ray(16, 2).T,) * 5, 2.0,
+                                         1.0, 50.0)
+    with pytest.raises(ValueError, match="P\\+\\(S,\\)"):
+        geo._raycast_walls_and_cars_cuda(pose, pose, pose, rel, *(_ray(3, 16),) * 5, 2.0,
+                                         1.0, 50.0)
+    with pytest.raises(ValueError, match="poses"):
+        geo._raycast_walls_and_cars_cuda(pose, pose, _ray(2, 4), rel, *(seg,) * 5, 2.0, 1.0,
+                                         50.0)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = _ray(2, 11_617)
+        geo._raycast_walls_and_cars_cuda(pose, pose, pose, rel, *(big,) * 5, 2.0, 1.0, 50.0)
+
+
+def test_step_query_wrapper_refuses_before_launch(no_launch):
+    from self_play_racing_tpu_torch.ops import dynamics
+
+    cars = [_ray(2, 3)] * 5 + [torch.zeros((2, 3), dtype=torch.bool)] + [_ray(2, 3)] * 2
+    wp = [_ray(2, 1, 16)] * 4
+    n_wp, width = torch.ones((2, 1), dtype=torch.int32), _ray(2, 1)
+    spec = dynamics.DEFAULT_CAR
+
+    def call(cars=cars, wp=wp, n_wp=n_wp, width=width):
+        dynamics._car_step_and_query_cuda(*cars, 0.05, spec, *wp, n_wp, width)
+
+    with pytest.raises(TypeError, match="crashed"):
+        call(cars=cars[:5] + [_ray(2, 3)] + cars[6:])
+    with pytest.raises(TypeError):
+        call(cars=[t.double() if t.dtype == torch.float32 else t for t in cars])
+    with pytest.raises(TypeError, match="n_wp"):
+        call(n_wp=n_wp.long())
+    with pytest.raises(ValueError, match="per waypoint row"):
+        call(width=_ray(2, 3))
+    with pytest.raises(ValueError, match="contiguous"):
+        call(wp=[_ray(16, 1, 2).transpose(0, 2)] * 4)
+    with pytest.raises(ValueError, match="lead"):
+        call(wp=[_ray(3, 1, 16)] * 4, n_wp=torch.ones((3, 1), dtype=torch.int32),
+             width=_ray(3, 1))
+    with pytest.raises(ValueError, match="shared memory"):
+        call(wp=[_ray(2, 1, 30_000)] * 4)
+
+
+def test_envs_launchers_refuse_before_launch(no_launch):
+    t = _ray(1)
+    with pytest.raises(ValueError, match="shared memory"):
+        _cuda.launch_raycast_walls_and_cars(*(t,) * 10, 1, 1, 11, 11_617, 2.0, 1.0, 50.0)
+    with pytest.raises(ValueError, match="waypoint"):
+        _cuda.launch_car_step_and_query(*(t,) * 23, 1, 1, 0, [0.0] * 10)

@@ -184,8 +184,11 @@ class PPOTrainer:
 
     def _pre_update(self):
         """Hook before each update: the speed-weight anneal and track resampling,
-        keyed off the host-side update counter."""
-        if self.cfg.anneal_speed_weight:
+        keyed off the host-side update counter. The anneal runs only where the aux
+        is the annealed variant's dict, as in the reference: a caller's own aux is
+        left as given."""
+        if self.cfg.anneal_speed_weight and isinstance(self.aux, dict) \
+                and "speed_weight" in self.aux:
             # the reference's intended schedule, 8 -> 14
             frac = max(0.0, 1.0 - self._host_update / self.cfg.num_updates)
             self.aux["speed_weight"] = self._f32(8.0 + (1.0 - frac) * 6.0)
@@ -198,6 +201,7 @@ class PPOTrainer:
         """Swap the env geometry for all subsequent updates. ``reset``
         re-initializes every env on the new geometry; in-flight episode statistics
         are discarded."""
+        track = self._place_aux(track)
         if isinstance(self.aux, dict):
             self.aux = {**self.aux, "track": track}
         else:

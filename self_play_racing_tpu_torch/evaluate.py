@@ -1,20 +1,26 @@
 """Evaluation entry point (port of ``self_play_racing_tpu/evaluate.py``).
 
 Runs the evaluation grid (40 tracks x 5 runs, seed 42, widths drawn by run) as one
-batched rollout on the card and prints the aggregate. Accepts the repo's ``.npz``
-policies and ``.pth`` state dicts of the original torch implementation. A
-``--multi`` policy drives both cars of a 2-car race (one shared policy); the
-episode's numbers are the first finished car's.
+batched rollout on the card per model, writes each model's aggregate and episodes
+to ``<out_dir>/eval_info_<label>.json`` and draws the comparison chart. Accepts the
+repo's ``.npz`` policies and ``.pth`` state dicts of the original torch
+implementation. A ``--multi`` policy drives both cars of a 2-car race (one shared
+policy); the episode's numbers are the first finished car's.
 
-  python -m self_play_racing_tpu_torch.evaluate --single models/single_agent.npz
-  python -m self_play_racing_tpu_torch.evaluate --multi models/self_play_agent.npz
+  python -m self_play_racing_tpu_torch.evaluate --single models/single_agent.npz \
+      --multi models/self_play_agent.npz
 
-SB3 and procgen evaluation and the comparison chart come with a later part of the
-port.
+The CLI writes ``data/eval_info_single.json``, ``data/eval_info_self_play.json``
+and ``static/eval_comparison.png`` relative to the working directory, as the JAX
+package's does. SB3 and procgen evaluation come with a later part of the port.
 """
 from __future__ import annotations
 
 import argparse
+import json
+import os
+
+import numpy as np
 
 import torch
 
@@ -76,6 +82,80 @@ def evaluate_multi_agent_overall(grid, model_path, seed=42, deterministic=False,
                              M.rollout_multi, 3000, seed, deterministic)
 
 
+def display_comparison(results_files, labels, output_path):
+    """Grouped normalized bar chart of the models' results files."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    all_results = []
+    for file in results_files:
+        with open(file) as f:
+            all_results.append(json.load(f))
+
+    categories = ["Success Rate", "Avg Speed\n(normalized)",
+                  "Avg Distance\n(normalized)", "Steps / Progress"]
+    max_speed = max((r["avg_speed"] for r in all_results if r["avg_speed"] > 0),
+                    default=1.0)
+    max_distance = max((r["avg_distance"] for r in all_results if r["avg_distance"] > 0),
+                       default=1.0)
+    max_spp = max((r["avg_steps_per_progress"] for r in all_results), default=1.0) or 1.0
+
+    data = [
+        [r["success_rate"],
+         r["avg_speed"] / max_speed if r["avg_speed"] > 0 else 0,
+         r["avg_distance"] / max_distance if r["avg_distance"] > 0 else 0,
+         r["avg_steps_per_progress"] / max_spp]
+        for r in all_results
+    ]
+    x = np.arange(len(categories))
+    width = 0.8 / len(data)
+    fig, ax = plt.subplots(figsize=(16, 7))
+    for i, (agent_data, label) in enumerate(zip(data, labels)):
+        offset = (i - len(data) / 2 + 0.5) * width
+        ax.bar(x + offset, agent_data, width, label=label, alpha=0.8)
+    ax.set_ylabel("Normalized Value")
+    ax.set_title("Agent Performance Comparison")
+    ax.set_xticks(x)
+    ax.set_xticklabels(categories)
+    ax.legend(loc="upper right")
+    ax.grid(axis="y", alpha=0.3)
+    plt.tight_layout()
+    plt.savefig(output_path, dpi=150, bbox_inches="tight")
+    plt.close(fig)
+    print(f"Performance comparison chart saved to {output_path}")
+
+
+def eval(models: dict, num_tracks=40, num_runs=5, seed=42, out_dir="data",
+         chart="static/eval_comparison.png", deterministic=False, device=None):
+    """The eval flow: ``models`` maps label -> (kind, path) with kind "single" or
+    "multi". Writes ``<out_dir>/eval_info_<label>.json`` per model (the aggregate
+    and ``all_episodes``) and, when ``chart`` is a path, the comparison chart
+    there. Returns {label: {"path": json path, "results": results}}."""
+    dev = resolve_device(device)
+    grid = M.build_eval_grid(num_tracks, num_runs, seed, device=dev)
+    os.makedirs(out_dir, exist_ok=True)
+    by_label = {}
+    for label, (kind, path) in models.items():
+        print(f"Evaluating {label} ({kind}) from {path}")
+        fn = (evaluate_single_agent_overall if kind == "single"
+              else evaluate_multi_agent_overall)
+        results = fn(grid, path, seed=seed, deterministic=deterministic)
+        out_path = os.path.join(out_dir, f"eval_info_{label}.json")
+        with open(out_path, "w") as f:
+            json.dump(results, f, indent=2)
+        print(f"  success_rate={results['success_rate']:.3f} "
+              f"crash_rate={results['crash_rate']:.3f} "
+              f"avg_speed={results['avg_speed']:.2f} "
+              f"avg_steps={results['avg_steps']:.2f}")
+        by_label[label] = {"path": out_path, "results": results}
+    if chart and by_label:
+        os.makedirs(os.path.dirname(chart) or ".", exist_ok=True)
+        display_comparison([v["path"] for v in by_label.values()],
+                           list(by_label), chart)
+    return by_label
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -95,21 +175,15 @@ def main(argv=None):
     if later:
         raise SystemExit(f"{', '.join(later)}: not ported yet; it comes with slice 4 "
                          "of the port (this port evaluates --single and --multi)")
-    if not (args.single or args.multi):
+    models = {}
+    for i, path in enumerate(args.single):
+        models[f"single_{i}" if len(args.single) > 1 else "single"] = ("single", path)
+    for i, path in enumerate(args.multi):
+        models[f"self_play_{i}" if len(args.multi) > 1 else "self_play"] = ("multi", path)
+    if not models:
         raise SystemExit("pass at least one --single or --multi model path")
-    dev = resolve_device(args.device)
-    grid = M.build_eval_grid(args.num_tracks, args.num_runs, args.seed, device=dev)
-    by_path = {}
-    runs = ([(p, evaluate_single_agent_overall) for p in args.single]
-            + [(p, evaluate_multi_agent_overall) for p in args.multi])
-    for path, fn in runs:
-        results = fn(grid, path, seed=args.seed, deterministic=args.deterministic)
-        by_path[path] = results
-        print(f"{path}: success_rate={results['success_rate']:.3f} "
-              f"crash_rate={results['crash_rate']:.3f} "
-              f"avg_speed={results['avg_speed']:.2f} "
-              f"avg_steps={results['avg_steps']:.2f}")
-    return by_path
+    return eval(models, args.num_tracks, args.num_runs, args.seed,
+                deterministic=args.deterministic, device=args.device)
 
 
 if __name__ == "__main__":

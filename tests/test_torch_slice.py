@@ -6,8 +6,9 @@
   PyTorch's CPU math, so the trajectories drift by a few ulps).
 - ``serve.Policy.act`` on one batch against the JAX server: float32, rtol 1e-5 /
   atol 1e-6 (matrix products sum in another order).
-- ``evaluate --multi`` runs the self-play policy on a 2 x 1 grid; the flags of a
-  later slice exit with a message.
+- ``evaluate --single --multi`` runs both policies on a 2 x 1 grid in a temporary
+  directory and writes their results and chart there; the flags of a later slice
+  exit with a message.
 - Importing the port loads no JAX, Flax, Optax or JAX-package module.
 - Without CUDA, an entry point not told ``device="cpu"`` raises (the self-play
   entry points too).
@@ -93,12 +94,19 @@ def test_serve_policy_act_matches_jax():
     assert [r["batch"] for r in rows] == [1, 8]
 
 
-def test_evaluate_cli_single_and_later_flags():
-    by_path = tevaluate.main(["--single", MODEL, "--num-tracks", "2", "--num-runs", "1",
-                              "--device", "cpu", "--multi", MULTI_MODEL])
-    assert by_path[MODEL]["num_episodes"] == 2
-    assert by_path[MULTI_MODEL]["num_episodes"] == 2
-    assert by_path[MULTI_MODEL]["success_rate"] == 1.0  # the self-play policy laps both
+def test_evaluate_cli_single_and_later_flags(tmp_path, monkeypatch):
+    # the CLI writes data/ and static/ under the working directory, as JAX's does
+    monkeypatch.chdir(tmp_path)
+    by_label = tevaluate.main(["--single", os.path.join(REPO, MODEL), "--num-tracks", "2",
+                               "--num-runs", "1", "--device", "cpu",
+                               "--multi", os.path.join(REPO, MULTI_MODEL)])
+    assert list(by_label) == ["single", "self_play"]
+    assert by_label["single"]["results"]["num_episodes"] == 2
+    assert by_label["self_play"]["results"]["num_episodes"] == 2
+    # the self-play policy laps both
+    assert by_label["self_play"]["results"]["success_rate"] == 1.0
+    assert (tmp_path / "data" / "eval_info_self_play.json").exists()
+    assert (tmp_path / "static" / "eval_comparison.png").exists()
     for flag in (["--sb3", "x.zip"], ["--procgen"]):
         with pytest.raises(SystemExit, match="not ported yet"):
             tevaluate.main(["--single", MODEL, *flag])

@@ -10,104 +10,203 @@
 //   ret   = adv + v[t]
 // with g = f32(gamma) and gl = f32(gamma * lam) rounded on the host. Compiled with
 // -fmad=false, so no product and sum contract into an FMA: the kernel's results
-// are bitwise those of the plain version.
+// are bitwise those of the plain version. The recurrence stays sequential per env,
+// in the reference's order (the JAX package rejected an associative scan, which
+// reassociates the sums).
 //
 // Bound on an H100 SXM (3.35 TB/s): at the main path's shapes (T = 256, N = 4096)
 // it must read rewards, values (f32) and dones (bytes) and write advantages and
-// returns (f32), 17 bytes per sample, 17.8 MB, about 5.3 us. Its 7 f32 operations
+// returns (f32), 17 bytes per sample, 17.8 MB, about 5.3 us. Its 9 f32 operations
 // per sample are nothing against 67 TFLOP/s. It is bound by bytes.
 //
-// Design: one thread per env, the recurrence walked sequentially in the reference's
-// order. With 4096 envs that is about one warp per SM, so the loads, and not the
-// arithmetic, are on the critical path. They do not depend on the carry: each
-// thread loads a chunk of U timesteps into registers one chunk ahead of the chunk
-// it computes, so one memory latency is paid per U steps and overlaps the compute.
-// Consecutive threads read consecutive envs, so each warp's loads are coalesced.
+// Design: the previous kernel ran one thread per env in blocks of 32 threads,
+// about one warp per SM at N = 4096, each keeping 16 steps of its own env in
+// registers: far fewer bytes in flight than HBM needs. Here one block serves a
+// tile of E envs (E = 16 or 32, ops/_cuda.py:GAE_TILE) with 8E threads, and walks
+// time downwards in chunks of 32 steps:
+//   - a ring of 4 shared-memory stages holds the chunks' rewards and values; all
+//     threads keep the next 3 chunks in flight with 4-byte cp.async (any row
+//     alignment, so any N), issued from t = T-1 downwards so the carry starts as
+//     soon as the last chunk lands; the dones (bytes) are loaded one chunk ahead
+//     into registers;
+//   - all threads then form the chunk's deltas (in place of the rewards) and the
+//     factors c = gl * nt in parallel, in the plain version's order; the value and
+//     done of the step after the chunk come from the chunk before it;
+//   - one thread per env walks running = delta + c * running over the chunk and
+//     writes adv[t] and ret[t] = running + v[t] straight to global memory,
+//     coalesced across the tile.
+// T = 1, a ragged N (the last tile masked) and few envs over many steps (one block
+// walking the ring down a long column) take the same path.
+#include <cstddef>
+#include <cstdint>
+
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kChunk = 16;
-constexpr int kThreads = 32;
+constexpr int kChunk = 32;   // time steps a stage holds
+constexpr int kStages = 4;   // the ring: 3 chunks in flight while one is used
+constexpr int kWarps = 8;    // threads a block: kWarps * E
 
-__device__ __forceinline__ void load_chunk(
-        const float* __restrict__ rewards, const unsigned char* __restrict__ dones,
-        const float* __restrict__ values, int hi, int n, int num_envs,
-        float* r, float* v, unsigned char* d) {
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-        const int t = hi - j;
-        if (t >= 0) {
-            const size_t i = (size_t)t * num_envs + n;
-            r[j] = __ldg(rewards + i);
-            v[j] = __ldg(values + i);
-            d[j] = __ldg(dones + i);
-        } else {
-            r[j] = 0.0f;
-            v[j] = 0.0f;
-            d[j] = 0;
-        }
-    }
+template <int E>
+struct Stage {
+    float r[kStages][kChunk][E];  // rewards, overwritten by the deltas
+    float v[kStages][kChunk][E];
+    float c[kChunk][E];           // gl * nt of the chunk in use
+    unsigned char d[kChunk][E];   // dones of the chunk in use
+    float next_v[2][E];           // value and done of the step after the chunk,
+    unsigned char next_d[2][E];   // by the chunk's parity
+};
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(addr), "l"(src)
+                 : "memory");
 }
 
-__global__ void __launch_bounds__(kThreads) compute_gae_kernel(
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// until at most kStages - 1 of this thread's groups are in flight: its oldest, the
+// chunk about to be used, has landed
+__device__ __forceinline__ void cp_async_wait_chunk() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(kStages - 1) : "memory");
+}
+
+template <int E>
+__global__ void __launch_bounds__(kWarps * E) compute_gae_kernel(
         const float* __restrict__ rewards, const unsigned char* __restrict__ dones,
         const float* __restrict__ values, const float* __restrict__ next_value,
         const unsigned char* __restrict__ next_done, float* __restrict__ adv,
         float* __restrict__ ret, int num_steps, int num_envs, float g, float gl) {
-    const int n = blockIdx.x * blockDim.x + threadIdx.x;
-    if (n >= num_envs) return;
-    float running = 0.0f;
-    float v_next = next_value[n];
-    float nt = 1.0f - (float)next_done[n];
+    constexpr int kThreads = kWarps * E;
+    constexpr int kPer = kChunk * E / kThreads;  // a thread's samples of a chunk
+    __shared__ __align__(16) Stage<E> s;
+    const int tid = threadIdx.x;
+    const int e0 = blockIdx.x * E;
+    const int T = num_steps;
+    const int N = num_envs;
+    const int chunks = (T + kChunk - 1) / kChunk;
+    // sample j of this thread in a chunk: row i (time hi - i), env e of the tile
+    auto row_of = [&](int j) { return (tid + j * kThreads) / E; };
+    auto env_of = [&](int j) { return (tid + j * kThreads) % E; };
 
-    float cr[kChunk], cv[kChunk];
-    unsigned char cd[kChunk];
-    load_chunk(rewards, dones, values, num_steps - 1, n, num_envs, cr, cv, cd);
-    for (int hi = num_steps - 1; hi >= 0; hi -= kChunk) {
-        float nr[kChunk], nv[kChunk];
-        unsigned char nd[kChunk];
-        load_chunk(rewards, dones, values, hi - kChunk, n, num_envs, nr, nv, nd);
+    // chunk k (rows from t = T-1 - 32k down) of rewards and values into its stage
+    auto issue = [&](int k) {
+        if (k < chunks) {
+            const int hi = T - 1 - k * kChunk;
+            const int st = k % kStages;
 #pragma unroll
-        for (int j = 0; j < kChunk; ++j) {
-            const int t = hi - j;
-            if (t >= 0) {
-                const float delta = (cr[j] + (g * nt) * v_next) - cv[j];
-                running = delta + (gl * nt) * running;
-                const size_t i = (size_t)t * num_envs + n;
-                adv[i] = running;
-                ret[i] = running + cv[j];
-                v_next = cv[j];
-                nt = 1.0f - (float)cd[j];
+            for (int j = 0; j < kPer; ++j) {
+                const int i = row_of(j), e = env_of(j);
+                const int t = hi - i, n = e0 + e;
+                if (t >= 0 && n < N) {
+                    const size_t at = (size_t)t * N + n;
+                    cp_async4(&s.r[st][i][e], rewards + at);
+                    cp_async4(&s.v[st][i][e], values + at);
+                }
             }
         }
+        cp_async_commit();  // an empty group past the last chunk keeps the count
+    };
+    auto load_dones = [&](int k, unsigned char (&d)[kPer]) {
+        const int hi = T - 1 - k * kChunk;
 #pragma unroll
-        for (int j = 0; j < kChunk; ++j) {
-            cr[j] = nr[j];
-            cv[j] = nv[j];
-            cd[j] = nd[j];
+        for (int j = 0; j < kPer; ++j) {
+            const int t = hi - row_of(j), n = e0 + env_of(j);
+            d[j] = (k < chunks && t >= 0 && n < N) ? __ldg(dones + (size_t)t * N + n) : 0;
+        }
+    };
+
+    if (tid < E) {  // the step after T-1
+        const int n = e0 + tid;
+        s.next_v[0][tid] = n < N ? next_value[n] : 0.0f;
+        s.next_d[0][tid] = n < N ? next_done[n] : 0;
+    }
+    for (int k = 0; k < kStages - 1; ++k) issue(k);
+    unsigned char d_ahead[kPer];
+    load_dones(0, d_ahead);
+
+    float running = 0.0f;  // the carry of env e0 + tid, for tid < E
+    for (int k = 0; k < chunks; ++k) {
+        const int hi = T - 1 - k * kChunk;
+        const int st = k % kStages;
+        const int par = k & 1;
+        __syncthreads();  // chunk k-1's stage, dones and factors are no longer read
+        issue(k + kStages - 1);  // into chunk k-1's stage
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) s.d[row_of(j)][env_of(j)] = d_ahead[j];
+        load_dones(k + 1, d_ahead);
+        cp_async_wait_chunk();  // this thread's copies of chunk k have landed
+        __syncthreads();        // and every thread's
+
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+            const int i = row_of(j), e = env_of(j);
+            if (hi - i < 0 || e0 + e >= N) continue;
+            const float v_next = i == 0 ? s.next_v[par][e] : s.v[st][i - 1][e];
+            const unsigned char d_next = i == 0 ? s.next_d[par][e] : s.d[i - 1][e];
+            const float nt = 1.0f - (float)d_next;
+            s.r[st][i][e] = (s.r[st][i][e] + (g * nt) * v_next) - s.v[st][i][e];
+            s.c[i][e] = gl * nt;
+            if (i == kChunk - 1) {  // the step after the next chunk
+                s.next_v[par ^ 1][e] = s.v[st][i][e];
+                s.next_d[par ^ 1][e] = s.d[i][e];
+            }
+        }
+        __syncthreads();  // the chunk's deltas and factors are in
+
+        if (tid < E && e0 + tid < N) {
+            const int rows = min(kChunk, hi + 1);
+            float* a_out = adv + (size_t)hi * N + e0 + tid;
+            float* r_out = ret + (size_t)hi * N + e0 + tid;
+#pragma unroll 8
+            for (int i = 0; i < rows; ++i) {
+                running = s.r[st][i][tid] + s.c[i][tid] * running;
+                a_out[-(ptrdiff_t)i * N] = running;
+                r_out[-(ptrdiff_t)i * N] = running + s.v[st][i][tid];
+            }
         }
     }
+}
+
+template <int E>
+cudaError_t launch(const float* rewards, const unsigned char* dones, const float* values,
+                   const float* next_value, const unsigned char* next_done, float* adv,
+                   float* ret, int num_steps, int num_envs, float g, float gl,
+                   cudaStream_t stream) {
+    const int blocks = (num_envs + E - 1) / E;
+    compute_gae_kernel<E><<<blocks, kWarps * E, 0, stream>>>(
+        rewards, dones, values, next_value, next_done, adv, ret, num_steps, num_envs, g,
+        gl);
+    return cudaGetLastError();
 }
 
 }  // namespace
 
 // rewards, values [num_steps, num_envs] f32; dones [num_steps, num_envs] bytes
 // (0/1); next_value [num_envs] f32; next_done [num_envs] bytes; adv, ret
-// [num_steps, num_envs] f32. Returns a cudaError_t (0 on success).
+// [num_steps, num_envs] f32; tile the envs a block serves, 16 or 32. Returns a
+// cudaError_t (0 on success).
 extern "C" int compute_gae_f32(
         const float* rewards, const unsigned char* dones, const float* values,
         const float* next_value, const unsigned char* next_done, float* adv,
-        float* ret, int num_steps, int num_envs, float g, float gl, int device,
+        float* ret, int num_steps, int num_envs, float g, float gl, int tile, int device,
         void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (num_envs == 0 || num_steps == 0) return 0;
-    const int blocks = (num_envs + kThreads - 1) / kThreads;
-    compute_gae_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        rewards, dones, values, next_value, next_done, adv, ret, num_steps, num_envs,
-        g, gl);
-    return (int)cudaGetLastError();
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (tile == 16)
+        err = launch<16>(rewards, dones, values, next_value, next_done, adv, ret, num_steps,
+                         num_envs, g, gl, s);
+    else if (tile == 32)
+        err = launch<32>(rewards, dones, values, next_value, next_done, adv, ret, num_steps,
+                         num_envs, g, gl, s);
+    else
+        err = cudaErrorInvalidValue;
+    return (int)err;
 }
 
 extern "C" const char* gae_error_string(int err) {

@@ -10,7 +10,7 @@
 //   - a gap on an axis is max(pa) < min(pb) or max(pb) < min(pa), strictly;
 //   - the cars intersect when no axis has a gap.
 // Output pairs[p, a, b] as 0/1 bytes, the diagonal included (a car against itself
-// intersects); the env masks it.
+// intersects); the env masks it. The test's semantics: rect_sat.cuh.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32): at the self-play path's shapes
 // (4096 env rows x 2 x 2 pairs) it reads 0.26 MB of corners and writes 16 KB: under
@@ -18,46 +18,14 @@
 // its launch.
 //
 // Design: one thread per (row, a, b) pair; the corners are read from global
-// memory (each is read by 2A threads, which L1 serves). Compiled with -fmad=false
-// so every projection rounds as PyTorch's eager ops round it.
+// memory (each is read by 2A threads, which L1 serves). The test itself is
+// rect_sat.cuh, which the envs' transition kernel (car_step_and_query.cu) runs on
+// the corners it forms; the env's path launches that kernel and not this one.
 #include <cuda_runtime.h>
 
+#include "rect_sat.cuh"
+
 namespace {
-
-struct Rect {
-    float x[4];
-    float y[4];
-};
-
-__device__ __forceinline__ Rect load_rect(const float* __restrict__ cx,
-                                          const float* __restrict__ cy, size_t base) {
-    Rect r;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-        r.x[c] = cx[base + c];
-        r.y[c] = cy[base + c];
-    }
-    return r;
-}
-
-// true when the projections of a and b on the axis (axx, axy) have a strict gap
-__device__ __forceinline__ bool gap_on(const Rect& a, const Rect& b, float axx,
-                                       float axy) {
-    float amin = axx * a.x[0] + axy * a.y[0];
-    float amax = amin;
-    float bmin = axx * b.x[0] + axy * b.y[0];
-    float bmax = bmin;
-#pragma unroll
-    for (int c = 1; c < 4; ++c) {
-        const float pa = axx * a.x[c] + axy * a.y[c];
-        const float pb = axx * b.x[c] + axy * b.y[c];
-        amin = fminf(amin, pa);
-        amax = fmaxf(amax, pa);
-        bmin = fminf(bmin, pb);
-        bmax = fmaxf(bmax, pb);
-    }
-    return amax < bmin || bmax < amin;
-}
 
 __global__ void rectangles_intersect_kernel(
         const float* __restrict__ cx, const float* __restrict__ cy,
@@ -68,17 +36,9 @@ __global__ void rectangles_intersect_kernel(
     const size_t row = k / (A * A);
     const size_t a = (k / A) % A;
     const size_t b = k % A;
-    const Rect ra = load_rect(cx, cy, (row * A + a) * 4);
-    const Rect rb = load_rect(cx, cy, (row * A + b) * 4);
-    // a's edge normals, then b's: edge e -> e+1, normal (-ey, ex); every axis is
-    // tested (no early exit), so the work does not depend on the data
-    bool gap = false;
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-        gap |= gap_on(ra, rb, -(ra.y[e + 1] - ra.y[e]), ra.x[e + 1] - ra.x[e]);
-        gap |= gap_on(ra, rb, -(rb.y[e + 1] - rb.y[e]), rb.x[e + 1] - rb.x[e]);
-    }
-    pairs[k] = gap ? 0 : 1;
+    const rect_sat::Rect ra = rect_sat::load_rect(cx, cy, (row * A + a) * 4);
+    const rect_sat::Rect rb = rect_sat::load_rect(cx, cy, (row * A + b) * 4);
+    pairs[k] = rect_sat::intersect(ra, rb) ? 1 : 0;
 }
 
 }  // namespace

@@ -22,11 +22,12 @@ Branch-free over a ``[num_envs, num_agents]`` state layout:
  - start grid: cars side by side along the start normal, spacing width + 1.5,
    slot ``position_idx`` (given, or a random permutation per env).
 
-Each env step makes three kernel launches: the sensing (``raycast_walls_and_cars``:
-K1 and K3 of rays [N, A, R] against the segment rows [N, S] and the row's cars),
-the transition (``car_step_and_query``: K5, the corners and K2 of cars [N, A]
-against waypoint rows [N, 1, W]) and K4. The JAX package's per-seat raycast unroll
-and its query-layout switch work around XLA fusion limits and have no counterpart
+Each env step makes two kernel launches: the sensing (``raycast_walls_and_cars``:
+K1 and K3 of rays [N, A, R] against the segment rows [N, S] and the row's cars)
+and the transition (``car_step_and_query``: K5, the corners and K2 of cars [N, A]
+against waypoint rows [N, 1, W], and with more than one car K4 over each row's
+pairs and the velocity response). The JAX package's per-seat raycast unroll and
+its query-layout switch work around XLA fusion limits and have no counterpart
 here.
 """
 from __future__ import annotations
@@ -213,27 +214,21 @@ def transition(cfg: MultiRacingConfig, track: TrackArrays, state: MultiState, ac
     steering = torch.clamp(action[..., 0].to(dtype), -1.0, 1.0)
     throttle = torch.clamp((action[..., 1].to(dtype) + 1.0) / 2.0, 0.0, 1.0)
 
-    nx, ny, nang, nvx, nvy, ccx, ccy, raw_progress, hit_wall = car_step_and_query(
+    # the step, the track query and, with more than one car, the car-car contacts
+    # (every pair's SAT test; a car's velocity scaled once per partner it touches)
+    nx, ny, nang, nvx, nvy, ccx, ccy, raw_progress, hit_wall, *contacts = car_step_and_query(
         state.x, state.y, state.angle, state.vx, state.vy, state.crashed,
         steering, throttle, cfg.dt, cfg.car,
         track.wp_x[:, None, :], track.wp_y[:, None, :],
         track.nrm_x[:, None, :], track.nrm_y[:, None, :],
         track.n_wp[:, None], track.track_width[:, None],
+        collision_speed_scale=cfg.collision_speed_scale if a > 1 else None,
     )
     new_progress = torch.where(state.crashed, state.progress, raw_progress)
     crashed = state.crashed | (~state.crashed & hit_wall)
 
-    # car-car contacts: the SAT test over every pair, the diagonal masked. A car's
-    # velocity is scaled once per partner it touches, as a ladder of selects (the
-    # reference multiplies in a pair loop; the same factor k times in any order)
     if a > 1:
-        hits = geo.rectangles_intersect_pairs(ccx, ccy)                # [N, A, A]
-        hits = hits & ~torch.eye(a, dtype=torch.bool, device=hits.device)
-        num_hits = hits.sum(dim=-1)                                   # [N, A]
-        for m in range(a - 1):
-            more = num_hits > m
-            nvx = torch.where(more, nvx * cfg.collision_speed_scale, nvx)
-            nvy = torch.where(more, nvy * cfg.collision_speed_scale, nvy)
+        num_hits, = contacts                                          # [N, A]
         touch_penalty = -cfg.touch_penalty * num_hits.to(dtype)
     else:
         touch_penalty = torch.zeros((n, a), dtype=dtype, device=state.x.device)

@@ -46,10 +46,10 @@ _SIGNATURES = {
     "raycast_cars_f32": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
     "rectangles_intersect_u8": [_P] * 3 + [_I, _I, _I, _P],
     "car_update_f32": [_P] * 13 + [_I] + [_F] * 8 + [_I, _P],
-    "compute_gae_f32": [_P] * 7 + [_I, _I, ctypes.c_float, ctypes.c_float, _I, _P],
+    "compute_gae_f32": [_P] * 7 + [_I, _I, _F, _F, _I, _I, _P],
     "mixbits_permutation_i32": [_P, _P, _I, _I, _I, _P],
     "raycast_walls_and_cars_f32": [_P] * 10 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_I, _P],
-    "car_step_and_query_f32": [_P] * 23 + [_I] * 5 + [_F] * 10 + [_I, _P],
+    "car_step_and_query_f32": [_P] * 24 + [_I] * 5 + [_F] * 11 + [_I, _P],
 }
 
 _lock = threading.Lock()
@@ -146,6 +146,10 @@ K1_RAYS_PER_LANE = 11
 K1_FIELDS = 5
 K2_FIELDS = 2
 K3_FLOATS_PER_CAR = 18  # corners, edge vectors and centre (csrc/car_hits.cuh)
+# K6: the envs a block serves (csrc/gae.cu takes 16 or 32)
+GAE_TILE = 32
+# the transition's pair test: corners and stepped velocity (csrc/car_step_and_query.cu)
+PAIR_FLOATS_PER_CAR = 10
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,10 +224,22 @@ def raycast_walls_and_cars_plan(num_cars: int, num_sensors: int,
     return dataclasses.replace(walls, smem=smem)
 
 
-def car_step_query_plan(cars_per_row: int, num_waypoints: int) -> LaunchPlan:
+@functools.lru_cache(maxsize=256)
+def car_step_query_plan(cars_per_row: int, num_waypoints: int,
+                        pairs: bool = False) -> LaunchPlan:
     """The transition launch: K2's plan for the centre and four corners of each
-    car (the kernel forms the corners itself)."""
-    return progress_collision_plan(cars_per_row, 4, num_waypoints)
+    car (the kernel forms the corners itself). With the pair test, the row's cars
+    (10 floats each) sit beside the staged row. Raises ValueError where the two do
+    not fit in 227 KB."""
+    plan = progress_collision_plan(cars_per_row, 4, num_waypoints)
+    if not pairs:
+        return plan
+    smem = plan.smem + PAIR_FLOATS_PER_CAR * cars_per_row * 4
+    if smem > BLOCK_SMEM_LIMIT:
+        raise ValueError(f"car_step_and_query: a row of {num_waypoints} waypoints and the "
+                         f"pair test of {cars_per_row} cars need {smem:,} bytes of shared "
+                         f"memory; a block has {BLOCK_SMEM_LIMIT:,}")
+    return dataclasses.replace(plan, smem=smem)
 
 
 def launch_raycast_walls(ox, oy, dx, dy, sx, sy, vx, vy, c, out,
@@ -299,29 +315,35 @@ def launch_raycast_walls_and_cars(x, y, angle, rel, sx, sy, vx, vy, c, out, rows
 def launch_car_step_and_query(x, y, angle, vx, vy, crashed, steering, throttle, wp_x,
                               wp_y, nrm_x, nrm_y, n_wp, track_width, nx, ny, nang, nvx,
                               nvy, ccx, ccy, progress, hit_wall, rows: int,
-                              cars_per_row: int, num_waypoints: int, constants) -> None:
+                              cars_per_row: int, num_waypoints: int, constants,
+                              num_hits=None, collision_scale: float = 1.0) -> None:
     """Launch the transition kernel on ``nx.device``'s current stream, as
     ``car_step_query_plan`` says: ``rows`` waypoint rows, car i against row
     ``i // cars_per_row``. Tensors are contiguous (f32, ``crashed`` and ``hit_wall``
     bool, ``n_wp`` int32; ``n_wp`` and ``track_width`` one per row); ``constants``
     the ten float32 values the kernel takes (K5's eight, then the half length and
-    half width)."""
-    plan = car_step_query_plan(cars_per_row, num_waypoints)
+    half width). ``num_hits`` (int32, one per car) runs the pair test over each
+    row's cars, which must be one race, and scales their velocities by the float32
+    ``collision_scale`` once per partner; None skips it."""
+    plan = car_step_query_plan(cars_per_row, num_waypoints, num_hits is not None)
     _call("car_step_and_query", "car_step_and_query_f32", nx.device,
           *map(_ptr, (x, y, angle, vx, vy, crashed, steering, throttle, wp_x, wp_y, nrm_x,
                       nrm_y, n_wp, track_width, nx, ny, nang, nvx, nvy, ccx, ccy, progress,
-                      hit_wall)),
+                      hit_wall, num_hits)),
           rows, cars_per_row, num_waypoints, plan.threads, plan.smem,
-          *map(float, constants))
+          *map(float, constants), float(collision_scale))
 
 
 def launch_compute_gae(rewards, dones, values, next_value, next_done, adv, ret,
-                       num_steps: int, num_envs: int, g: float, gl: float) -> None:
-    """Launch K6 on ``adv.device``'s current stream. Tensors are contiguous (f32,
-    ``dones``/``next_done`` bool)."""
+                       num_steps: int, num_envs: int, g: float, gl: float,
+                       tile: int = GAE_TILE) -> None:
+    """Launch K6 on ``adv.device``'s current stream, one block per ``tile`` envs
+    (16 or 32). Tensors are contiguous (f32, ``dones``/``next_done`` bool)."""
+    if tile not in (16, 32):
+        raise ValueError(f"compute_gae: a block serves 16 or 32 envs, not {tile}")
     _call("gae", "compute_gae_f32", adv.device,
           *map(_ptr, (rewards, dones, values, next_value, next_done, adv, ret)),
-          num_steps, num_envs, g, gl)
+          num_steps, num_envs, g, gl, tile)
 
 
 def launch_mixbits_permutation(consts, out, num_perms: int, log2_n: int) -> None:

@@ -14,7 +14,8 @@ kernel in ``csrc/car_update.cu`` or raises. ``car_update_launches`` counts the
 kernel's launches.
 
 ``car_step_and_query`` is the envs' transition: ``car_update``, ``car_corners`` and
-``progress_and_collision`` (K2), one kernel on the card
+``progress_and_collision`` (K2), and for the multi-car env the SAT test of every
+pair of a row's cars (K4) with its velocity response, one kernel on the card
 (``csrc/car_step_and_query.cu``), the same dispatch; ``car_step_and_query_launches``
 counts its launches.
 """
@@ -30,7 +31,7 @@ import numpy as np
 from .._numerics import const_div
 from . import _cuda
 from .geometry import (_check_f32, _on_cuda, _rows_leading, car_corners,
-                       progress_and_collision_plain)
+                       progress_and_collision_plain, rectangles_intersect_pairs_plain)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,7 +134,8 @@ def car_update_plain(x, y, angle, vx, vy, crashed, steering, throttle, dt=0.05,
 
 
 def car_step_and_query(x, y, angle, vx, vy, crashed, steering, throttle, dt, spec,
-                       wp_x, wp_y, nrm_x, nrm_y, n_wp, track_width):
+                       wp_x, wp_y, nrm_x, nrm_y, n_wp, track_width,
+                       collision_speed_scale=None):
     """The envs' transition kernel: ``car_update``, then the corners of the new
     pose (``car_corners``, the spec's half length and width), then
     ``progress_and_collision`` of the new centre and corners.
@@ -144,34 +146,57 @@ def car_step_and_query(x, y, angle, vx, vy, crashed, steering, throttle, dt, spe
     Returns (x, y, angle, vx, vy, corners_x, corners_y, progress, hit_wall): the
     state ``B`` (crashed cars frozen), the corners ``B + (4,)``, progress ``B``
     and hit_wall ``B`` bool.
+
+    With ``collision_speed_scale``, the last axis of ``B`` is a race's cars: every
+    pair of them is tested for contact (``rectangles_intersect_pairs``, a car
+    against itself excluded), each car's velocity is multiplied by the scale once
+    per partner it touches, and ``num_hits`` (``B`` int32) is returned last. On the
+    card one waypoint row must be one race (``P`` = ``B[:-1]``).
     """
     global car_step_and_query_launches
+    args = (x, y, angle, vx, vy, crashed, steering, throttle, dt, spec, wp_x, wp_y, nrm_x,
+            nrm_y, n_wp, track_width, collision_speed_scale)
     if not _on_cuda(x, "car_step_and_query"):
-        return car_step_and_query_plain(x, y, angle, vx, vy, crashed, steering, throttle,
-                                        dt, spec, wp_x, wp_y, nrm_x, nrm_y, n_wp,
-                                        track_width)
-    out = _car_step_and_query_cuda(x, y, angle, vx, vy, crashed, steering, throttle, dt,
-                                   spec, wp_x, wp_y, nrm_x, nrm_y, n_wp, track_width)
+        return car_step_and_query_plain(*args)
+    out = _car_step_and_query_cuda(*args)
     car_step_and_query_launches += 1
     return out
 
 
 def car_step_and_query_plain(x, y, angle, vx, vy, crashed, steering, throttle, dt, spec,
-                             wp_x, wp_y, nrm_x, nrm_y, n_wp, track_width):
+                             wp_x, wp_y, nrm_x, nrm_y, n_wp, track_width,
+                             collision_speed_scale=None):
     """Plain PyTorch version: ``car_update_plain``, ``car_corners`` and
-    ``progress_and_collision_plain``, as the envs composed them."""
+    ``progress_and_collision_plain``, and with ``collision_speed_scale`` the
+    multi-car env's contact response, as the envs composed them."""
     nx, ny, nang, nvx, nvy = car_update_plain(x, y, angle, vx, vy, crashed, steering,
                                               throttle, dt, spec)
     ccx, ccy = car_corners(nx, ny, nang, spec.length / 2, spec.width / 2)
     progress, hit_wall = progress_and_collision_plain(nx, ny, ccx, ccy, wp_x, wp_y, nrm_x,
                                                       nrm_y, n_wp, track_width)
-    return nx, ny, nang, nvx, nvy, ccx, ccy, progress, hit_wall
+    if collision_speed_scale is None:
+        return nx, ny, nang, nvx, nvy, ccx, ccy, progress, hit_wall
+    # car-car contacts: the SAT test over every pair, the diagonal masked. A car's
+    # velocity is scaled once per partner it touches, as a ladder of selects (the
+    # reference multiplies in a pair loop; the same factor k times in any order)
+    a = nx.shape[-1]
+    hits = rectangles_intersect_pairs_plain(ccx, ccy)                # B + (A,)
+    hits = hits & ~torch.eye(a, dtype=torch.bool, device=hits.device)
+    num_hits = hits.sum(dim=-1)                                     # B
+    for m in range(a - 1):
+        more = num_hits > m
+        nvx = torch.where(more, nvx * collision_speed_scale, nvx)
+        nvy = torch.where(more, nvy * collision_speed_scale, nvy)
+    return (nx, ny, nang, nvx, nvy, ccx, ccy, progress, hit_wall,
+            num_hits.to(torch.int32))
 
 
 def _car_step_and_query_cuda(x, y, angle, vx, vy, crashed, steering, throttle, dt, spec,
-                             wp_x, wp_y, nrm_x, nrm_y, n_wp, track_width):
+                             wp_x, wp_y, nrm_x, nrm_y, n_wp, track_width,
+                             collision_speed_scale=None):
     """On the card: one block per waypoint row, a warp per car. The car fields are
-    made contiguous (they are small), the waypoint fields must be."""
+    made contiguous (they are small), the waypoint fields must be. The pair test
+    runs inside the block, so it needs one block to be one race."""
     dev = x.device
     floats = [x, y, angle, vx, vy, steering, throttle]
     wp = [wp_x, wp_y, nrm_x, nrm_y]
@@ -187,8 +212,14 @@ def _car_step_and_query_cuda(x, y, angle, vx, vy, crashed, steering, throttle, d
     row_shape = wp_x.shape[:-1]
     rows, cars_per_row = _rows_leading(row_shape, batch, "car_step_and_query",
                                        "waypoint rows", "car batch shape")
+    pairs = collision_speed_scale is not None
+    if pairs and (len(batch) == 0 or rows != math.prod(batch[:-1])
+                  or cars_per_row != batch[-1]):
+        raise ValueError(f"car_step_and_query: the pair test runs inside one block per "
+                         f"race, so each waypoint row must be one race of the cars "
+                         f"{tuple(batch)}: got {rows} rows of {cars_per_row} cars")
     num_waypoints = wp_x.shape[-1]
-    _cuda.car_step_query_plan(cars_per_row, num_waypoints)  # refuses before any launch
+    _cuda.car_step_query_plan(cars_per_row, num_waypoints, pairs)  # refuses before any launch
     per_row = []
     for name, t, dtype in (("n_wp", n_wp, torch.int32), ("track_width", track_width,
                                                          torch.float32)):
@@ -204,10 +235,13 @@ def _car_step_and_query_cuda(x, y, angle, vx, vy, crashed, steering, throttle, d
     corners = [torch.empty(batch + (4,), dtype=torch.float32, device=dev) for _ in range(2)]
     progress = torch.empty(batch, dtype=torch.float32, device=dev)
     hit_wall = torch.empty(batch, dtype=torch.bool, device=dev)
+    num_hits = torch.empty(batch, dtype=torch.int32, device=dev) if pairs else None
     f32 = np.float32
     constants = _step_constants(dt, spec) + [f32(spec.length / 2), f32(spec.width / 2)]
     with torch.cuda.device(dev):
-        _cuda.launch_car_step_and_query(*ins, *wp, *per_row, *outs, *corners, progress,
-                                        hit_wall, rows, cars_per_row, num_waypoints,
-                                        constants)
-    return (*outs, *corners, progress, hit_wall)
+        _cuda.launch_car_step_and_query(
+            *ins, *wp, *per_row, *outs, *corners, progress, hit_wall, rows, cars_per_row,
+            num_waypoints, constants, num_hits,
+            f32(collision_speed_scale) if pairs else 1.0)
+    out = (*outs, *corners, progress, hit_wall)
+    return out + (num_hits,) if pairs else out

@@ -31,8 +31,10 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from self_play_racing_tpu.envs import multi as jmulti
 from self_play_racing_tpu.envs import track as jtrack
 from self_play_racing_tpu.ops import dynamics as jdyn
 from self_play_racing_tpu.ops import geometry as jgeo
@@ -213,3 +215,88 @@ def test_transition_counts_no_launch_on_the_cpu():
     tdyn.car_step_and_query(*_torch(cars, torch.float32), 0.05, tdyn.DEFAULT_CAR,
                             *_torch(wp, torch.float32))
     assert tdyn.car_step_and_query_launches == before
+
+
+# ------------------------------------------------- transition with car contacts
+
+def _race_inputs(rng, n, a, dtype):
+    """n races of a cars packed around one random centreline waypoint each, so that
+    cars overlap (at 3 and 8 cars some touch two partners or more), 10% crashed;
+    the JAX multi env's state and action for the same step, and its track."""
+    np.random.seed(6)
+    pool = jtrack.make_track_pool(jtrack.gen_tracks(4, seed=6), [6.0, 7.0, 8.0, 9.0],
+                                  dtype=jnp.float64 if dtype == np.float64 else jnp.float32)
+    track = jtrack.gather_tracks(pool, np.arange(n) % 4)
+    wp_x, wp_y = np.asarray(track.wp_x), np.asarray(track.wp_y)
+    i = rng.integers(0, np.asarray(track.n_wp))[:, None]
+    spread = 1.5 + 0.25 * a
+    x = wp_x[np.arange(n)[:, None], i] + rng.uniform(-spread, spread, (n, a))
+    y = wp_y[np.arange(n)[:, None], i] + rng.uniform(-spread, spread, (n, a))
+    ang = rng.uniform(0, 2 * np.pi, (n, a))
+    vx, vy = rng.normal(0, 12, (2, n, a))
+    crashed = rng.random((n, a)) < 0.1
+    action = np.stack([rng.uniform(-1.2, 1.2, (n, a)), rng.uniform(-1.2, 1.2, (n, a))], -1)
+    x, y, ang, vx, vy, action = (v.astype(dtype) for v in (x, y, ang, vx, vy, action))
+    steering = np.clip(action[..., 0], -1.0, 1.0)
+    throttle = np.clip((action[..., 1] + dtype(1.0)) / dtype(2.0), 0.0, 1.0)
+    cars = [x, y, ang, vx, vy, crashed, steering, throttle]
+    wp = [np.asarray(getattr(track, f))[:, None] for f in
+          ("wp_x", "wp_y", "nrm_x", "nrm_y", "n_wp", "track_width")]
+    zeros, false = np.zeros((n, a), dtype), np.zeros((n, a), bool)
+    izeros = np.zeros((n, a), np.int32)
+    state = jmulti.MultiState(
+        x=x, y=y, angle=ang, vx=vx, vy=vy, progress=zeros, crashed=crashed,
+        finished=false, steps=np.zeros(n, np.int32), last_progress=zeros,
+        last_steering=zeros, cp25=false, cp50=false, cp75=false, has_crashed=crashed,
+        finished_step=izeros, placement=izeros)
+    return cars, wp, state, action, track
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("a", [2, 3, 8])
+def test_transition_with_contacts_matches_jax_multi_transition(dt, a):
+    """The transition with the pair test against JAX's multi-car transition on the
+    same step (jitted, the track an argument): the stepped state and velocities
+    after the contact ladder as in the transition tests above; num_hits exactly the
+    touch penalty JAX's reward carries (the reward with and without it, over 5)."""
+    nd, td = DTYPES[dt]
+    spec = tdyn.DEFAULT_CAR
+    cars, wp, jstate, action, jtr = _race_inputs(np.random.default_rng(a), 256, a, nd)
+    tc, tw = _torch(cars, td), _torch(wp, td)
+    got = tdyn.car_step_and_query(*tc, 0.05, spec, *tw, collision_speed_scale=0.92)
+    plain = tdyn.car_step_and_query_plain(*tc, 0.05, spec, *tw, collision_speed_scale=0.92)
+    without = tdyn.car_step_and_query(*tc, 0.05, spec, *tw)
+    assert len(got) == 10 and got[9].dtype == torch.int32
+    for g, p in zip(got, plain):
+        assert torch.equal(g, p)
+    for i in (0, 1, 2, 5, 6, 7, 8):  # the contacts move only the velocities
+        assert torch.equal(got[i], without[i])
+    hits = got[9].numpy()
+    counts = np.bincount(hits.ravel(), minlength=3)
+    assert counts[0] > 0 and counts[1] > 0 and (a == 2 or counts[2:].sum() > 0), counts
+
+    step = jax.jit(jmulti.transition, static_argnums=0)
+    cfg = jmulti.MultiRacingConfig(num_agents=a)
+    jnew, jrew, *_ = step(cfg, jtr, jstate, jnp.asarray(action))
+    no_touch = jmulti.MultiRacingConfig(num_agents=a, touch_penalty=0.0)
+    _, jrew0, *_ = step(no_touch, jtr, jstate, jnp.asarray(action))
+    jhits = np.rint((np.asarray(jrew0) - np.asarray(jrew)) / 5.0).astype(np.int32)
+    np.testing.assert_array_equal(hits, jhits)
+    got = [g.numpy() for g in got]
+    tol = dict(rtol=1e-12, atol=1e-12) if dt == "f64" else dict(rtol=1e-5, atol=1e-4)
+    for g, f in zip(got[:5], ("x", "y", "angle", "vx", "vy")):
+        np.testing.assert_allclose(g, np.asarray(getattr(jnew, f)), **tol, err_msg=f)
+    crashed = cars[5]
+    np.testing.assert_array_equal(got[8][~crashed], np.asarray(jnew.crashed)[~crashed])
+    # a crashed car's velocity is scaled too, as the env does
+    touched = crashed & (hits > 0)
+    assert touched.any()
+    np.testing.assert_array_equal(got[3][touched] != cars[3][touched], True)
+
+
+def test_transition_with_contacts_counts_no_launch_on_the_cpu():
+    before = tdyn.car_step_and_query_launches
+    cars, wp = _step_inputs(np.random.default_rng(0), 8, 2, np.float32)
+    out = tdyn.car_step_and_query(*_torch(cars, torch.float32), 0.05, tdyn.DEFAULT_CAR,
+                                  *_torch(wp, torch.float32), collision_speed_scale=0.92)
+    assert len(out) == 10 and tdyn.car_step_and_query_launches == before

@@ -223,3 +223,49 @@ def test_envs_launchers_refuse_before_launch(no_launch):
         _cuda.launch_raycast_walls_and_cars(*(t,) * 10, 1, 1, 11, 11_617, 2.0, 1.0, 50.0)
     with pytest.raises(ValueError, match="waypoint"):
         _cuda.launch_car_step_and_query(*(t,) * 23, 1, 1, 0, [0.0] * 10)
+
+
+@pytest.mark.parametrize("cars,warps", [(2, 2), (3, 3), (8, 8), (33, 8)])
+def test_step_query_plan_with_the_pair_test_holds_the_cars(cars, warps):
+    """The pair test keeps each car's corners and stepped velocity, 10 floats, in
+    shared memory beside the staged row; the threads stay K2's."""
+    plan = _cuda.car_step_query_plan(cars, 512, True)
+    assert plan.threads == 32 * warps
+    assert plan.smem == 2 * (512 + 4) * 4 + 10 * 4 * cars
+
+
+def test_step_query_plan_refuses_pairs_it_cannot_hold():
+    """A row that fits alone but not with its cars' pair test is refused."""
+    assert _cuda.car_step_query_plan(1, 28_000).smem <= _cuda.BLOCK_SMEM_LIMIT
+    with pytest.raises(ValueError, match="pair test of 400 cars"):
+        _cuda.car_step_query_plan(400, 28_000, True)
+    assert _cuda.car_step_query_plan(400, 512, True).smem <= _cuda.BLOCK_SMEM_LIMIT
+
+
+def test_step_query_wrapper_refuses_pairs_unless_a_block_is_a_race(no_launch):
+    from self_play_racing_tpu_torch.ops import dynamics
+
+    spec = dynamics.DEFAULT_CAR
+    n_wp = torch.ones((2, 1), dtype=torch.int32)
+    cars = [_ray(2, 3)] * 5 + [torch.zeros((2, 3), dtype=torch.bool)] + [_ray(2, 3)] * 2
+    # waypoint rows expanded per car: a block would hold one car of a race
+    with pytest.raises(ValueError, match="one race"):
+        dynamics._car_step_and_query_cuda(*cars, 0.05, spec, *[_ray(2, 3, 16)] * 4,
+                                          torch.ones((2, 3), dtype=torch.int32),
+                                          _ray(2, 3), collision_speed_scale=0.92)
+    # the single-car env's layout, cars [N] against rows [N, W]
+    one = [t[:, 0] for t in cars]
+    with pytest.raises(ValueError, match="one race"):
+        dynamics._car_step_and_query_cuda(*one, 0.05, spec, *[_ray(2, 16)] * 4, n_wp[:, 0],
+                                          _ray(2), collision_speed_scale=0.92)
+    with pytest.raises(ValueError, match="pair test"):
+        dynamics._car_step_and_query_cuda(*[t[:, :1].expand(2, 400) for t in cars], 0.05,
+                                          spec, *[_ray(2, 1, 28_000)] * 4, n_wp, _ray(2, 1),
+                                          collision_speed_scale=0.92)
+
+
+def test_step_query_launcher_with_pairs_refuses_before_launch(no_launch):
+    t = _ray(1)
+    with pytest.raises(ValueError, match="pair test"):
+        _cuda.launch_car_step_and_query(*(t,) * 23, 1, 400, 28_000, [0.0] * 10,
+                                        num_hits=t.int(), collision_scale=0.92)

@@ -22,7 +22,10 @@ just before each path is driven and read just after):
    launches K1 and then K2 on the same rows, as the env step does (K2 then finds
    its rows evicted from the L2);
 4. K6 ``compute_gae`` against its plain version at [256, 4096] on a seeded
-   rollout-like batch, plus the all-done and no-done cases: bitwise equal;
+   rollout-like batch, plus the all-done and no-done cases, ``train single``'s
+   [2048, 16] and a ragged [256, 4113]: bitwise equal; timed warm (back to back)
+   and cold (after a 128 MB write that flushes the L2), eager and in a CUDA graph,
+   beside its bound;
 5. K7 ``mixbits_permutation`` against its plain version for 10 epochs x 16,384
    units: exactly equal, and a permutation;
 6. K3 ``raycast_cars``, K4 ``rectangles_intersect`` and K5 ``car_update`` against
@@ -36,7 +39,11 @@ just before each path is driven and read just after):
    to its plain version (the sensing by K1's rule: its wall part is K1's fold);
    timed eager and in a CUDA graph beside its bound, and beside the chain of
    launches it replaces (the PyTorch ops that built their inputs and the
-   standalone kernels) in one CUDA graph;
+   standalone kernels) in one CUDA graph; then ``car_step_and_query`` with the
+   pair test (K4 and the velocity ladder in its block), as the multi-car env calls
+   it, at 2, 3 and 8 cars: bitwise equal to the kernel without it followed by K4,
+   the mask, the sum and the ladder, and to its plain version, with the cars that
+   touch 1, 2 and 3+ partners counted; timed beside that chain in one CUDA graph;
 7. the single-car main path: ``models/single_agent.npz`` driving 4096 envs for 256
    steps of sample_action + vector.step (``car_step_and_query`` once per step, K1
    once per step plus once for the reset);
@@ -52,8 +59,8 @@ just before each path is driven and read just after):
    ``snapshot_freq`` set to 1 so that every update after the first races pool
    opponents: one warm-up update, then timed updates with each update's
    ms, its rollout/minibatch split, the pool and the learner's win rate
-   (raycast_walls_and_cars = car_step_and_query = K4 = 256, K6 = K7 = 1 per
-   update, and the standalone K1, K2, K3 and K5 not at all);
+   (raycast_walls_and_cars = car_step_and_query = 256, K6 = K7 = 1 per update,
+   and the standalone K1, K2, K3, K4 and K5 not at all);
 11. the ``train scale`` and ``train multi`` entry points at their defaults for two
    updates each in a temporary directory; the saved policies must load and the
    repo's tracked models and data stay untouched;
@@ -61,20 +68,24 @@ just before each path is driven and read just after):
    (parameters, Adam state, pool and counters equal), the repo's format-v0
    ``models/checkpoint_update_90.npz`` (when the checkout holds it) and the reference's
    ``.pth`` training checkpoint;
-13. evaluation on the 40 x 5 grid (sampled, seed 42): ``models/single_agent.npz``
-   and, with two cars, ``models/self_play_agent.npz``: success_rate >= 0.95 each;
+13. evaluation on the 40 x 5 grid (sampled, seed 42) through ``evaluate.eval()``:
+   ``models/single_agent.npz`` and, with two cars, ``models/self_play_agent.npz``,
+   success_rate >= 0.95 each, their ``eval_info_<label>.json`` written into a
+   temporary directory (no chart) and read back;
 14. serving latency and throughput at batches 1, 64, 1024, 8192.
 
 The line before the last is one JSON object with every kernel's numbers (``ms`` the
 eager back-to-back time, ``graph_ms`` the CUDA-graph replay time, ``launches`` the
 count on the self-play path of phase 10, or for K1, which that path runs inside
 ``raycast_walls_and_cars``, on the single-car main path of phase 7, as
-``launches_path`` says; K2, K3 and K5 run on no path since their work moved into
-the envs' two kernels, and count 0; K1 and K2 also ``selfplay_ms``,
+``launches_path`` says; K2, K3, K4 and K5 run on no path since their work moved
+into the envs' two kernels, and count 0; K1 and K2 also ``selfplay_ms``,
 ``selfplay_graph_ms`` and ``selfplay_bound_ms`` at the self-play launch and
 ``cold_graph_ms`` after the other kernel in the env step's order; the envs' two
-kernels also the ``chain_ms`` and ``chain_graph_ms`` of what they replace); the
-last line is ``{"ok": true, "device": {...}}``.
+kernels also the ``chain_ms`` and ``chain_graph_ms`` of what they replace, the
+transition's numbers those of its pair-test instantiation, which the self-play
+path runs, with ``no_pairs_*`` beside them; K6 also its cold times); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -101,8 +112,7 @@ from self_play_racing_tpu_torch.envs import multi as menv
 from self_play_racing_tpu_torch.envs import single as senv
 from self_play_racing_tpu_torch.envs import track as trk
 from self_play_racing_tpu_torch.envs import vector
-from self_play_racing_tpu_torch.evaluate import evaluate_multi_agent_overall
-from self_play_racing_tpu_torch.evaluate import evaluate_single_agent_overall
+from self_play_racing_tpu_torch import evaluate
 from self_play_racing_tpu_torch.evaluate import load_policy_bundle
 from self_play_racing_tpu_torch.models import actor_critic as net
 from self_play_racing_tpu_torch.ops import _cuda
@@ -111,7 +121,6 @@ from self_play_racing_tpu_torch.ops import gae
 from self_play_racing_tpu_torch.ops import geometry as geo
 from self_play_racing_tpu_torch.ops import prng
 from self_play_racing_tpu_torch.serve import Policy, bench
-from self_play_racing_tpu_torch.utils import metrics
 from self_play_racing_tpu_torch.utils.profiling import canonical_bench_pool
 
 MODEL = "models/single_agent.npz"
@@ -708,49 +717,200 @@ def check_env_kernels(track, cfg, rng, dev):
     return entries
 
 
-def check_k6(dev):
-    """K6 on a rollout-like batch: small progress rewards with rare crash penalties,
+def contact_chain(cars, wp, cfg):
+    """What the multi-car env launched before the pair test moved into
+    ``car_step_and_query``: the kernel without it, K4 over the row's pairs, the
+    mask, the sum, the velocity ladder and the touch penalty."""
+    out = dynamics.car_step_and_query(*cars, cfg.dt, cfg.car, *wp)
+    nvx, nvy = out[3], out[4]
+    a = cars[0].shape[-1]
+    hits = geo.rectangles_intersect_pairs(out[5], out[6])
+    hits = hits & ~torch.eye(a, dtype=torch.bool, device=hits.device)
+    num_hits = hits.sum(dim=-1)
+    for m in range(a - 1):
+        more = num_hits > m
+        nvx = torch.where(more, nvx * cfg.collision_speed_scale, nvx)
+        nvy = torch.where(more, nvy * cfg.collision_speed_scale, nvy)
+    penalty = -cfg.touch_penalty * num_hits.to(torch.float32)
+    return (*out[:3], nvx, nvy, *out[5:], num_hits.to(torch.int32)), penalty
+
+
+def check_contacts(track, cfg, rng, dev, entry):
+    """``car_step_and_query`` with the pair test, as the multi-car env calls it: at
+    2, 3 and 8 cars bitwise equal to the chain it replaces (the kernel without the
+    pair test, K4, the mask, the sum and the ladder) and to its plain version,
+    with the cars touching 1, 2 and 3+ partners counted; timed at the self-play
+    shapes beside its bound and the chain in one CUDA graph. Puts the folded
+    kernel's numbers (the self-play path's instantiation) into ``entry`` and keeps
+    the numbers without the pair test beside them."""
+    scale = cfg.collision_speed_scale
+    names = ("x", "y", "angle", "vx", "vy", "corners_x", "corners_y", "progress",
+             "hit_wall", "num_hits")
+    folded = {}
+    for a in (NUM_AGENTS, 3, 8):
+        cars, wp = step_inputs(track, cfg, rng, dev, a)
+        k = dynamics.car_step_and_query(*cars, cfg.dt, cfg.car, *wp, collision_speed_scale=scale)
+        p = dynamics.car_step_and_query_plain(*cars, cfg.dt, cfg.car, *wp,
+                                              collision_speed_scale=scale)
+        chain, _ = contact_chain(cars, wp, cfg)
+        torch.cuda.synchronize()
+        for name, kt, pt, ct in zip(names, k, p, chain):
+            if not (torch.equal(kt, pt) and torch.equal(kt, ct)):
+                raise AssertionError(f"car_step_and_query with contacts at {a} cars: {name} "
+                                     f"differs from plain in {int((kt != pt).sum())} and from "
+                                     f"the chain in {int((kt != ct).sum())} cars")
+        hits = k[9]
+        touching = [int((hits == 1).sum()), int((hits == 2).sum()), int((hits >= 3).sum())]
+        if touching[0] == 0 or (a > 2 and touching[1] + touching[2] == 0):
+            raise AssertionError(f"car_step_and_query with contacts at {a} cars: cars touching "
+                                 f"1, 2, 3+ partners {touching}; the check needs contacts")
+        print(f"car_step_and_query with the pair test, cars [{NUM_ENVS}, {a}] x rows "
+              f"{list(wp[0].shape)}: bitwise equal to plain and to the kernel + K4 + mask + "
+              f"sum + ladder; cars touching 1 / 2 / 3+ partners {touching[0]} / {touching[1]} "
+              f"/ {touching[2]}; plan "
+              f"{_cuda.car_step_query_plan(a, wp[0].shape[-1], True)}")
+        folded[a] = (cars, wp, k)
+    cars, wp, k = folded[NUM_AGENTS]
+    w = wp[0].shape[-1]
+    per_row = [t.reshape(NUM_ENVS).contiguous() for t in wp[4:]]
+    outs = [torch.empty_like(t) for t in k]
+    consts = [np.float32(v) for v in (cfg.car.steering_speed, cfg.car.acceleration,
+                                      cfg.car.drag, cfg.car.lateral_friction, cfg.car.grip,
+                                      cfg.car.max_speed, cfg.dt, 2 * np.pi,
+                                      cfg.car.length / 2, cfg.car.width / 2)]
+    launch = lambda: _cuda.launch_car_step_and_query(
+        *cars, *wp[:4], *per_row, *outs[:9], NUM_ENVS, NUM_AGENTS, w, consts, outs[9],
+        np.float32(scale))
+    ms, g_ms = per_launch_ms(launch), graph_ms(launch)
+
+    def env_folded():  # what the env now runs: the one call and the touch penalty
+        out = dynamics.car_step_and_query(*cars, cfg.dt, cfg.car, *wp,
+                                          collision_speed_scale=scale)
+        return -cfg.touch_penalty * out[9].to(torch.float32)
+    env_g = graph_ms(env_folded)
+    chain_ms = per_launch_ms(lambda: contact_chain(cars, wp, cfg))
+    chain_g = graph_ms(lambda: contact_chain(cars, wp, cfg))
+    plain_ms = per_launch_ms(lambda: dynamics.car_step_and_query_plain(
+        *cars, cfg.dt, cfg.car, *wp, collision_speed_scale=scale), windows=5, launches=5)
+    n = cars[0].numel()
+    read = nbytes(*cars, wp[0], wp[1], *per_row) + 8 * n * 4
+    ops = (n * (5 * w * K2_OPS_PER_PAIR + K5_OPS_PER_CAR)
+           + NUM_ENVS * NUM_AGENTS * NUM_AGENTS * 4 * K4_OPS_PER_PAIR_AXIS)
+    b_ms, b_by = bound_ms(read + nbytes(*outs), ops)
+    print(f"car_step_and_query with the pair test, cars [{NUM_ENVS}, {NUM_AGENTS}]: "
+          f"{ms * 1e3:.1f} us eager back-to-back ({g_ms * 1e3:.1f} us in a CUDA graph; "
+          f"without the pair test {entry['graph_ms'] * 1e3:.1f} us), bound {b_ms * 1e3:.2f} us "
+          f"({b_by}), plain {plain_ms * 1e3:.1f} us; with the env's touch penalty "
+          f"{env_g * 1e3:.1f} us in a CUDA graph against the chain it replaces (the kernel, "
+          f"K4, mask, sum, ladder, penalty: {chain_ms * 1e3:.1f} us eager, "
+          f"{chain_g * 1e3:.1f} us in a CUDA graph)")
+    entry.update(no_pairs_ms=entry["ms"], no_pairs_graph_ms=entry["graph_ms"],
+                 no_pairs_bound_ms=entry["bound_ms"], no_pairs_chain_graph_ms=entry["chain_graph_ms"],
+                 ms=ms, graph_ms=g_ms, bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms,
+                 env_graph_ms=env_g, chain_ms=chain_ms, chain_graph_ms=chain_g,
+                 fused_with=entry["fused_with"] + ", self_play_racing_tpu/ops/geometry.py:217")
+
+
+def l2_flush(dev):
+    """A write of 128 MB, more than the H100's 50 MB L2: what a kernel reads after
+    it comes from HBM."""
+    buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    return buf.zero_
+
+
+def cold_ms(fn, flush, windows=21):
+    """Median over ``windows`` of ``fn``'s time right after ``flush``: CUDA events
+    around ``fn`` alone (the flush keeps the queue ahead of the card, so no host
+    launch gap falls inside)."""
+    fn()
+    times = []
+    for _ in range(windows):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def cold_graph_ms(fn, flush, launches=10):
+    """``fn``'s per-launch device time in a CUDA graph of ``launches`` (flush, fn)
+    pairs, less that of a graph of the flushes alone."""
+    def pair():
+        flush()
+        fn()
+    return graph_ms(pair, launches=launches) - graph_ms(flush, launches=launches)
+
+
+def gae_inputs(gen, steps, envs, dev):
+    """A rollout-like batch: small progress rewards with rare crash penalties,
     values around the returns' scale, ~1/300 of steps ending an episode."""
-    gen = torch.Generator(device=dev).manual_seed(6)
-    shape = (STEPS, NUM_ENVS)
+    shape = (steps, envs)
     rewards = torch.rand(shape, generator=gen, device=dev) * 2.0
     crash = torch.rand(shape, generator=gen, device=dev) < 1 / 300
     rewards = torch.where(crash, rewards - 60.0, rewards)
     values = torch.randn(shape, generator=gen, device=dev) * 10.0 + 20.0
-    next_value = torch.randn((NUM_ENVS,), generator=gen, device=dev) * 10.0 + 20.0
-    cases = {"rollout-like": (crash, torch.rand((NUM_ENVS,), generator=gen, device=dev) < 1 / 300),
-             "all-done": (torch.ones_like(crash), torch.ones_like(crash[0])),
-             "no-done": (torch.zeros_like(crash), torch.zeros_like(crash[0]))}
+    next_value = torch.randn((envs,), generator=gen, device=dev) * 10.0 + 20.0
+    next_done = torch.rand((envs,), generator=gen, device=dev) < 1 / 300
+    return rewards, crash, values, next_value, next_done
+
+
+def check_k6(dev):
+    """K6 bitwise against its plain version on a rollout-like batch at the main
+    path's [256, 4096] (and its all-done and no-done cases), at ``train single``'s
+    default [2048, 16] and at a ragged [256, 4113]; timed warm (back to back) and
+    cold (after an L2 flush), eager and in a CUDA graph, beside its bound."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rewards, crash, values, next_value, next_done = gae_inputs(gen, STEPS, NUM_ENVS, dev)
+    cases = {"rollout-like": (rewards, crash, values, next_value, next_done),
+             "all-done": (rewards, torch.ones_like(crash), values, next_value,
+                          torch.ones_like(next_done)),
+             "no-done": (rewards, torch.zeros_like(crash), values, next_value,
+                         torch.zeros_like(next_done)),
+             "train single [2048, 16]": gae_inputs(gen, 2048, 16, dev),
+             f"ragged [{STEPS}, {NUM_ENVS + 17}]": gae_inputs(gen, STEPS, NUM_ENVS + 17, dev)}
     max_err = 0.0
-    for name, (dones, next_done) in cases.items():
-        args = (rewards, dones, values, next_value, next_done, 0.99, 0.95)
-        ka, kr = gae.compute_gae(*args)
-        pa, pr = gae.compute_gae_plain(*args)
+    for name, args in cases.items():
+        ka, kr = gae.compute_gae(*args, 0.99, 0.95)
+        pa, pr = gae.compute_gae_plain(*args, 0.99, 0.95)
         torch.cuda.synchronize()
         if not (torch.equal(ka, pa) and torch.equal(kr, pr)):
             raise AssertionError(f"K6 {name}: {int((ka != pa).sum())} advantages and "
                                  f"{int((kr != pr).sum())} returns differ from plain")
         max_err = max(max_err, float((ka - pa).abs().max()), float((kr - pr).abs().max()))
-    print(f"K6 compute_gae [{STEPS}, {NUM_ENVS}]: advantages and returns bitwise equal to "
-          f"plain ({', '.join(cases)}; {int(crash.sum())} terminal steps)")
-    dones, next_done = cases["rollout-like"]
+    print(f"K6 compute_gae: advantages and returns bitwise equal to plain ({', '.join(cases)}; "
+          f"{int(crash.sum())} terminal steps at [{STEPS}, {NUM_ENVS}])")
     adv, ret = torch.empty_like(rewards), torch.empty_like(rewards)
     g, gl = float(np.float32(0.99)), float(np.float32(0.99 * 0.95))
-    launch = lambda: _cuda.launch_compute_gae(
-        rewards, dones, values, next_value, next_done, adv, ret, STEPS, NUM_ENVS, g, gl)
-    ms, g_ms = per_launch_ms(launch), graph_ms(launch)
-    plain_ms = per_launch_ms(lambda: gae.compute_gae_plain(
-        rewards, dones, values, next_value, next_done, 0.99, 0.95), windows=3, launches=2)
-    b_ms, b_by = bound_ms(nbytes(rewards, dones, values, next_value, next_done, adv, ret),
+    flush = l2_flush(dev)
+    b_ms, b_by = bound_ms(nbytes(rewards, crash, values, next_value, next_done, adv, ret),
                           STEPS * NUM_ENVS * K6_OPS_PER_SAMPLE)
-    print(f"K6 time {ms * 1e3:.1f} us eager back-to-back "
-          f"({g_ms * 1e3:.1f} us in a CUDA graph), "
-          f"bound {b_ms * 1e3:.1f} us ({b_by}), plain {plain_ms * 1e3:.1f} us")
+    launch = lambda: _cuda.launch_compute_gae(
+        rewards, crash, values, next_value, next_done, adv, ret, STEPS, NUM_ENVS, g, gl)
+    ms, g_ms = per_launch_ms(launch), graph_ms(launch)
+    c_ms, cg_ms = cold_ms(launch, flush), cold_graph_ms(launch, flush)
+    small = cases["train single [2048, 16]"]
+    s_adv, s_ret = torch.empty_like(small[0]), torch.empty_like(small[0])
+    s_launch = lambda: _cuda.launch_compute_gae(*small, s_adv, s_ret, 2048, 16, g, gl)
+    s_bound, _ = bound_ms(nbytes(*small, s_adv, s_ret), 2048 * 16 * K6_OPS_PER_SAMPLE)
+    s_graph = graph_ms(s_launch)
+    plain_ms = per_launch_ms(lambda: gae.compute_gae_plain(
+        rewards, crash, values, next_value, next_done, 0.99, 0.95), windows=3, launches=2)
+    print(f"K6 [{STEPS}, {NUM_ENVS}]: warm {ms * 1e3:.1f} us eager back-to-back, "
+          f"{g_ms * 1e3:.1f} us in a CUDA graph; cold (after a 128 MB L2 flush) "
+          f"{c_ms * 1e3:.1f} us eager, {cg_ms * 1e3:.1f} us in a CUDA graph; bound "
+          f"{b_ms * 1e3:.1f} us ({b_by}), plain {plain_ms * 1e3:.1f} us; [2048, 16] "
+          f"{s_graph * 1e3:.1f} us in a CUDA graph (bound {s_bound * 1e3:.2f} us)")
     return {"name": "compute_gae", "route": "cuda",
             "source": "self_play_racing_tpu_torch/csrc/gae.cu",
             "replaces": "self_play_racing_tpu/ops/gae.py:24",
             "max_abs_err": max_err, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "cold_ms": c_ms, "cold_graph_ms": cg_ms,
+            "train_single_graph_ms": s_graph, "train_single_bound_ms": s_bound}
 
 
 def check_k7(dev, n_units):
@@ -1003,8 +1163,7 @@ def selfplay_training(track, card):
           f"{info['pool_win_rate']}; launches {launches}")
     n = STEPS * SP_TRAIN_UPDATES
     expected = counts(raycast_walls_and_cars=n, car_step_and_query=n,
-                      rectangles_intersect=n, compute_gae=SP_TRAIN_UPDATES,
-                      mixbits_permutation=SP_TRAIN_UPDATES)
+                      compute_gae=SP_TRAIN_UPDATES, mixbits_permutation=SP_TRAIN_UPDATES)
     if launches != expected:
         raise AssertionError(f"self-play launches {launches}, expected {expected}")
     for m in metrics:
@@ -1050,7 +1209,7 @@ def selfplay_entry_points(card):
         # reset before each update
         sensed = steps + 1 + (2 if cfg.reset_envs_each_update else 0)
         expected = counts(raycast_walls_and_cars=sensed, car_step_and_query=steps,
-                          rectangles_intersect=steps, compute_gae=2, mixbits_permutation=2)
+                          compute_gae=2, mixbits_permutation=2)
         print(f"train {mode}: {cfg.num_envs} envs x {cfg.num_steps} steps x 2 cars, 2 updates "
               f"in {dt:.1f} s on {card}; launches {launches}; saved policy loads "
               f"({params['actor'][0][0].shape[0]} inputs, log_std {log_std.tolist()})")
@@ -1107,22 +1266,32 @@ def checkpoints(track, dev):
 
 
 def evaluation(dev):
+    """``evaluate.eval()`` on the 40 x 5 grid (sampled, seed 42) with both policies,
+    writing its results into a temporary directory and drawing no chart."""
     t0 = time.perf_counter()
-    grid = metrics.build_eval_grid(40, 5, seed=42, device=dev)
-    res = evaluate_single_agent_overall(grid, MODEL, seed=42)
-    print(f"eval 40 x 5 (sampled, seed 42): success_rate={res['success_rate']:.3f} "
-          f"crash_rate={res['crash_rate']:.3f} avg_steps={res['avg_steps']:.2f} "
-          f"avg_speed={res['avg_speed']:.3f} ({time.perf_counter() - t0:.1f} s)")
-    if res["success_rate"] < SUCCESS_FLOOR:
-        raise AssertionError(f"eval success_rate {res['success_rate']} < {SUCCESS_FLOOR}")
-    t0 = time.perf_counter()
-    res = evaluate_multi_agent_overall(grid, MULTI_MODEL, seed=42)
-    print(f"eval --multi {MULTI_MODEL} 40 x 5, 2 cars (sampled, seed 42): "
-          f"success_rate={res['success_rate']:.3f} crash_rate={res['crash_rate']:.3f} "
-          f"avg_steps={res['avg_steps']:.2f} avg_speed={res['avg_speed']:.3f} "
-          f"({time.perf_counter() - t0:.1f} s)")
-    if res["success_rate"] < SUCCESS_FLOOR:
-        raise AssertionError(f"eval --multi success_rate {res['success_rate']} < {SUCCESS_FLOOR}")
+    models = {"single": ("single", MODEL), "self_play": ("multi", MULTI_MODEL)}
+    with tempfile.TemporaryDirectory() as tmp:
+        by_label = evaluate.eval(models, 40, 5, 42, out_dir=tmp, chart=None, device=dev)
+        written = {}
+        for label in models:
+            with open(os.path.join(tmp, f"eval_info_{label}.json")) as f:
+                written[label] = json.load(f)
+        files = sorted(os.listdir(tmp))
+    dt = time.perf_counter() - t0
+    if files != ["eval_info_self_play.json", "eval_info_single.json"]:
+        raise AssertionError(f"eval wrote {files}")
+    for label, what in (("single", "eval"), ("self_play", f"eval --multi {MULTI_MODEL}")):
+        res = written[label]
+        if res != json.loads(json.dumps(by_label[label]["results"])) or \
+                len(res["all_episodes"]) != 200:
+            raise AssertionError(f"eval_info_{label}.json differs from eval()'s results")
+        print(f"{what} 40 x 5{', 2 cars' if label == 'self_play' else ''} (sampled, seed 42): "
+              f"success_rate={res['success_rate']:.3f} crash_rate={res['crash_rate']:.3f} "
+              f"avg_steps={res['avg_steps']:.2f} avg_speed={res['avg_speed']:.3f}")
+        if res["success_rate"] < SUCCESS_FLOOR:
+            raise AssertionError(f"{what} success_rate {res['success_rate']} < {SUCCESS_FLOOR}")
+    print(f"eval(): eval_info_single.json and eval_info_self_play.json written with 200 "
+          f"episodes each ({dt:.1f} s)")
 
 
 def main() -> int:
@@ -1153,7 +1322,9 @@ def main() -> int:
     check_selfplay_launches(track, mcfg, rng, dev, *kernels)
     kernels += [check_k3(track, mcfg, rng, dev), check_k4(track, mcfg, rng, dev),
                 check_k5(track, mcfg, rng, dev), check_k6(dev), check_k7(dev, n_units)]
-    kernels += check_env_kernels(track, mcfg, rng, dev)
+    env_kernels = check_env_kernels(track, mcfg, rng, dev)
+    check_contacts(track, mcfg, rng, dev, env_kernels[1])
+    kernels += env_kernels
     single_car = main_path(track, cfg, dev, card)
     training(track, cfg, card)
     entry_point(card)
@@ -1162,6 +1333,10 @@ def main() -> int:
         # K1 runs on the self-play path inside raycast_walls_and_cars
         if k["name"] == "raycast_walls":
             k["launches"], k["launches_path"] = single_car[k["name"]], "single-car main path"
+        elif k["name"] == "rectangles_intersect":
+            k["launches"] = launches[k["name"]]
+            k["launches_path"] = ("self-play training: 0, its pair test runs inside "
+                                  "car_step_and_query's block")
         else:
             k["launches"], k["launches_path"] = launches[k["name"]], "self-play training"
     selfplay_entry_points(card)

@@ -55,9 +55,9 @@ namespace {
 constexpr int kFields = 2;  // the staged fields: wp_x, wp_y
 constexpr int kQueries = track_query::kQueries;  // the centre and the four corners
 constexpr int kMaxThreads = 256;
-// the pair test's floats a car in shared memory, field-major ([kCarFloats][A]):
-// the four corners' x, their y, then the stepped vx, vy
-constexpr int kCarFloats = 10;
+// The pair test keeps 10 floats a car in shared memory after the staged row,
+// field-major ([10][A], so lane b's reads are consecutive): the four corners' x,
+// their y, then the stepped vx, vy (ops/_cuda.py:PAIR_FLOATS_PER_CAR).
 
 template <bool kPairs>
 __global__ void __launch_bounds__(kMaxThreads) car_step_and_query_kernel(

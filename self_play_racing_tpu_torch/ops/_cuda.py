@@ -46,7 +46,7 @@ _SIGNATURES = {
     "raycast_cars_f32": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
     "rectangles_intersect_u8": [_P] * 3 + [_I, _I, _I, _P],
     "car_update_f32": [_P] * 13 + [_I] + [_F] * 8 + [_I, _P],
-    "compute_gae_f32": [_P] * 7 + [_I, _I, _F, _F, _I, _I, _P],
+    "compute_gae_f32": [_P] * 7 + [_I, _I, ctypes.c_float, ctypes.c_float, _I, _P],
     "mixbits_permutation_i32": [_P, _P, _I, _I, _I, _P],
     "raycast_walls_and_cars_f32": [_P] * 10 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_I, _P],
     "car_step_and_query_f32": [_P] * 24 + [_I] * 5 + [_F] * 11 + [_I, _P],
@@ -146,8 +146,6 @@ K1_RAYS_PER_LANE = 11
 K1_FIELDS = 5
 K2_FIELDS = 2
 K3_FLOATS_PER_CAR = 18  # corners, edge vectors and centre (csrc/car_hits.cuh)
-# K6: the envs a block serves (csrc/gae.cu takes 16 or 32)
-GAE_TILE = 32
 # the transition's pair test: corners and stepped velocity (csrc/car_step_and_query.cu)
 PAIR_FLOATS_PER_CAR = 10
 
@@ -335,15 +333,12 @@ def launch_car_step_and_query(x, y, angle, vx, vy, crashed, steering, throttle, 
 
 
 def launch_compute_gae(rewards, dones, values, next_value, next_done, adv, ret,
-                       num_steps: int, num_envs: int, g: float, gl: float,
-                       tile: int = GAE_TILE) -> None:
-    """Launch K6 on ``adv.device``'s current stream, one block per ``tile`` envs
-    (16 or 32). Tensors are contiguous (f32, ``dones``/``next_done`` bool)."""
-    if tile not in (16, 32):
-        raise ValueError(f"compute_gae: a block serves 16 or 32 envs, not {tile}")
+                       num_steps: int, num_envs: int, g: float, gl: float) -> None:
+    """Launch K6 on ``adv.device``'s current stream. Tensors are contiguous (f32,
+    ``dones``/``next_done`` bool)."""
     _call("gae", "compute_gae_f32", adv.device,
           *map(_ptr, (rewards, dones, values, next_value, next_done, adv, ret)),
-          num_steps, num_envs, g, gl, tile)
+          num_steps, num_envs, g, gl)
 
 
 def launch_mixbits_permutation(consts, out, num_perms: int, log2_n: int) -> None:

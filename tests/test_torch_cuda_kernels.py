@@ -20,7 +20,9 @@ permutation. The envs' two kernels: ``raycast_walls_and_cars`` bitwise equal to
 ``torch.minimum`` of the K1 and K3 kernels on the rays and corners PyTorch forms
 (what the multi-car env launched before), and to its plain version by K1's rule
 (its wall part is K1's fold); ``car_step_and_query`` bitwise equal to its plain
-version and to the K5 kernel, ``car_corners`` and the K2 kernel one after another.
+version and to the K5 kernel, ``car_corners`` and the K2 kernel one after another,
+and with the pair test bitwise equal to that chain followed by K4, the mask, the sum
+and the velocity ladder.
 """
 import numpy as np
 import pytest
@@ -428,7 +430,8 @@ def _gae_args(rng, steps, envs, dev, done_p=0.05):
 
 
 @pytest.mark.parametrize("steps,envs,done_p", [(256, 4096, 0.02), (37, 100, 0.3),
-                                               (16, 33, 1.0), (5, 7, 0.0), (1, 1, 0.5)])
+                                               (16, 33, 1.0), (5, 7, 0.0), (1, 1, 0.5),
+                                               (2048, 16, 0.01), (300, 4096 + 17, 0.02)])
 def test_gae_kernel_matches_plain(cuda, steps, envs, done_p):
     args = _gae_args(np.random.default_rng(steps), steps, envs, cuda, done_p)
     before = gae.compute_gae_launches
@@ -437,6 +440,41 @@ def test_gae_kernel_matches_plain(cuda, steps, envs, done_p):
     pa, pr = gae.compute_gae_plain(*args, 0.99, 0.95)
     torch.cuda.synchronize()
     assert torch.equal(ka, pa) and torch.equal(kr, pr)
+
+
+@pytest.mark.parametrize("steps,envs", [(1, 5), (32, 16), (33, 40), (64, 17), (97, 15),
+                                        (300, 4096 + 17)])
+def test_gae_kernel_over_chunks_and_tiles(cuda, steps, envs):
+    """Time columns shorter than, equal to and past the 32-step chunk and the two
+    buffers the producers and the consumer hand over, whole and ragged tiles of
+    16 envs, through the launcher."""
+    from self_play_racing_tpu_torch.ops import _cuda
+
+    args = _gae_args(np.random.default_rng(steps * envs), steps, envs, cuda, 0.1)
+    adv, ret = torch.empty_like(args[0]), torch.empty_like(args[0])
+    _cuda.launch_compute_gae(*args, adv, ret, steps, envs, float(np.float32(0.99)),
+                             float(np.float32(0.99 * 0.95)))
+    pa, pr = gae.compute_gae_plain(*args, 0.99, 0.95)
+    torch.cuda.synchronize()
+    assert torch.equal(adv, pa) and torch.equal(ret, pr)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_gae_kernel_takes_dones_off_4_byte_alignment(cuda, offset):
+    """The kernel copies the dones' whole 4-byte words asynchronously and a row's
+    bytes around them one by one: dones whose storage starts off a 4-byte
+    boundary, at aligned and ragged widths."""
+    for steps, envs in ((70, 64), (40, 4096 + 17)):
+        r, d, v, nv, nd = _gae_args(np.random.default_rng(offset * envs), steps, envs, cuda, 0.1)
+        shifted = torch.zeros(steps * envs + offset, dtype=torch.bool, device=cuda)
+        d = shifted[offset:].view(steps, envs)
+        d.copy_(torch.as_tensor(np.random.default_rng(offset).random((steps, envs)) < 0.1,
+                                device=cuda))
+        assert d.is_contiguous() and d.data_ptr() % 4 == offset % 4
+        ka, kr = gae.compute_gae(r, d, v, nv, nd, 0.99, 0.95)
+        pa, pr = gae.compute_gae_plain(r, d, v, nv, nd, 0.99, 0.95)
+        torch.cuda.synchronize()
+        assert torch.equal(ka, pa) and torch.equal(kr, pr)
 
 
 def test_gae_kernel_rejects_what_it_does_not_take(cuda):
@@ -470,10 +508,10 @@ def test_mixbits_kernel_matches_plain(cuda, n, lead):
 
 def test_selfplay_update_on_card_launches_all_seven_kernels(cuda):
     """Three scale-mode self-play updates on the card: every env step launches
-    ``car_step_and_query`` (K5 and K2) and K4 once (the transition) and
+    ``car_step_and_query`` (K5, K2 and K4's pair test) once (the transition) and
     ``raycast_walls_and_cars`` (K1 and K3) once (the refresh that senses the merged
-    state); each update launches K6 and K7 once. The standalone K1, K2, K3 and K5
-    kernels are off the path."""
+    state); each update launches K6 and K7 once. The standalone K1, K2, K3, K4 and
+    K5 kernels are off the path."""
     from self_play_racing_tpu_torch.agent.self_play import SelfPlayTrainer
     from self_play_racing_tpu_torch.configs import self_play_config
     from self_play_racing_tpu_torch.envs import multi
@@ -496,7 +534,7 @@ def test_selfplay_update_on_card_launches_all_seven_kernels(cuda):
     tr.train(num_updates=updates)
     after = [getattr(m, a) for m, a in counters]
     assert ([b - a for a, b in zip(before, after)]
-            == [steps * updates] * 3 + [updates] * 2 + [0] * 4)
+            == [steps * updates] * 2 + [0] + [updates] * 2 + [0] * 4)
     assert tr.num_snapshots == 2 and tr.pool_games.sum() > 0
     assert all(bool(torch.isfinite(p).all()) for p in tr.runner.train.model.parameters())
 
@@ -640,3 +678,89 @@ def test_envs_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="per waypoint row"):
         dynamics.car_step_and_query(*cars, 0.05, DEFAULT_CAR, *(wp,) * 4,
                                     torch.ones((2, 3), dtype=torch.int32, device=cuda), width)
+
+
+def _contact_chain(cars, wp, scale):
+    """The multi-car env's transition before the pair test moved into the kernel:
+    the kernel without it, then K4, the mask, the sum and the velocity ladder."""
+    from self_play_racing_tpu_torch.ops.dynamics import DEFAULT_CAR
+
+    out = dynamics.car_step_and_query(*cars, 0.05, DEFAULT_CAR, *wp)
+    a = cars[0].shape[-1]
+    hits = geo.rectangles_intersect_pairs(out[5], out[6])
+    num_hits = (hits & ~torch.eye(a, dtype=torch.bool, device=hits.device)).sum(dim=-1)
+    nvx, nvy = out[3], out[4]
+    for m in range(a - 1):
+        more = num_hits > m
+        nvx = torch.where(more, nvx * scale, nvx)
+        nvy = torch.where(more, nvy * scale, nvy)
+    return (*out[:3], nvx, nvy, *out[5:], num_hits.to(torch.int32))
+
+
+@pytest.mark.parametrize("cars", [2, 3, 8, 33])
+@pytest.mark.parametrize("waypoints,offset", [(512, 0), (33, 1)])
+def test_car_step_and_query_with_contacts_matches_the_chain(cuda, waypoints, offset, cars):
+    """The transition with the pair test at 2, 3, 8 and 33 cars a race (33: the
+    pair loop's second stride of lanes, warps serving several cars), cars packed
+    so that they touch, crashed cars included: every output bitwise equal to the
+    chain it replaces and to the plain version, with cars touching one partner and
+    (from 3 cars) several."""
+    from self_play_racing_tpu_torch.ops.dynamics import DEFAULT_CAR
+
+    rng = np.random.default_rng(waypoints * 100 + cars + offset)
+    rows = 2048
+    t = torch.linspace(0, 6.283, waypoints, device=cuda)
+    radius = _f32(rng, (rows, 1, 1), 20, 40, cuda)
+    wp_x = _shifted(radius * torch.cos(t) + _f32(rng, (rows, 1, waypoints), -1, 1, cuda), offset)
+    wp_y = _shifted(radius * torch.sin(t) + _f32(rng, (rows, 1, waypoints), -1, 1, cuda), offset)
+    nrm = _f32(rng, (rows, 1, waypoints), 0, 6.3, cuda)
+    nx, ny = _shifted(torch.cos(nrm), offset), _shifted(torch.sin(nrm), offset)
+    n_wp = torch.as_tensor(rng.integers(1, waypoints + 1, (rows, 1)), dtype=torch.int32,
+                           device=cuda)
+    width = _f32(rng, (rows, 1), 3, 9, cuda)
+    shape = (rows, cars)
+    spread = 1.5 + 0.25 * min(cars, 8)
+    cx, cy = _f32(rng, (rows, 1), -30, 30, cuda), _f32(rng, (rows, 1), -30, 30, cuda)
+    f = lambda lo, hi: _f32(rng, shape, lo, hi, cuda)
+    car_args = ((cx + f(-spread, spread)).contiguous(), (cy + f(-spread, spread)).contiguous(),
+                f(-7, 7), f(-35, 35), f(-35, 35),
+                torch.as_tensor(rng.random(shape) < 0.2, device=cuda), f(-1, 1), f(0, 1))
+    wp_args = (wp_x, wp_y, nx, ny, n_wp, width)
+    before = dynamics.car_step_and_query_launches
+    k = dynamics.car_step_and_query(*car_args, 0.05, DEFAULT_CAR, *wp_args,
+                                    collision_speed_scale=0.92)
+    assert dynamics.car_step_and_query_launches == before + 1
+    p = dynamics.car_step_and_query_plain(*car_args, 0.05, DEFAULT_CAR, *wp_args,
+                                          collision_speed_scale=0.92)
+    chain = _contact_chain(car_args, wp_args, 0.92)
+    torch.cuda.synchronize()
+    names = ("x", "y", "angle", "vx", "vy", "corners_x", "corners_y", "progress", "hit_wall",
+             "num_hits")
+    assert len(k) == 10 and k[9].dtype == torch.int32
+    for name, a, b, c in zip(names, k, p, chain):
+        assert a.shape == b.shape and torch.equal(a, b) and torch.equal(a, c), name
+    hits = k[9]
+    assert int((hits == 1).sum()) > 0
+    if cars > 2:
+        assert int((hits >= 2).sum()) > 0
+
+
+def test_car_step_and_query_refuses_pairs_unless_a_block_is_a_race(cuda):
+    from self_play_racing_tpu_torch.ops.dynamics import DEFAULT_CAR
+
+    pose = torch.zeros((2, 3), device=cuda)
+    cars = (*(pose,) * 5, pose.bool(), pose, pose)
+    per_car = torch.zeros((2, 3, 16), device=cuda)  # waypoint rows expanded per car
+    before = dynamics.car_step_and_query_launches
+    with pytest.raises(ValueError, match="one race"):
+        dynamics.car_step_and_query(*cars, 0.05, DEFAULT_CAR, *(per_car,) * 4,
+                                    torch.ones((2, 3), dtype=torch.int32, device=cuda),
+                                    torch.ones((2, 3), device=cuda),
+                                    collision_speed_scale=0.92)
+    one = tuple(t[:, 0] for t in cars)
+    with pytest.raises(ValueError, match="one race"):
+        dynamics.car_step_and_query(*one, 0.05, DEFAULT_CAR,
+                                    *(torch.zeros((2, 16), device=cuda),) * 4,
+                                    torch.ones(2, dtype=torch.int32, device=cuda),
+                                    torch.ones(2, device=cuda), collision_speed_scale=0.92)
+    assert dynamics.car_step_and_query_launches == before

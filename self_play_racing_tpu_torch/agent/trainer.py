@@ -98,8 +98,12 @@ class PPOTrainer:
         return torch.tensor(value, dtype=torch.float32, device=self.device)
 
     def _place_aux(self, aux):
-        """Freshly built aux leaves, moved to the trainer's device."""
-        return tree_map(lambda t: t.to(self.device), aux)
+        """Freshly built aux leaves, moved to the trainer's device. An aux whose
+        leaves are all there already is returned as it is, as the reference
+        returns it where there is nothing to place it on."""
+        on_device = []
+        tree_map(lambda t: on_device.append(t.device == self.device), aux)
+        return aux if all(on_device) else tree_map(lambda t: t.to(self.device), aux)
 
     @property
     def params(self):

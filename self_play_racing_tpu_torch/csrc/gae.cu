@@ -39,10 +39,10 @@
 // An earlier design of this kernel, in which all warps loaded and formed each
 // chunk and one walked it, behind three block-wide barriers a chunk, took about
 // 14 us at [256, 4096]: its phases ran one after another in every chunk (PERF.md,
-// PR 6). A tile of 16 envs puts two blocks on most SMs at N = 4096 and fits the
-// ring and both buffers in 31 KB of static shared memory. T = 1, a ragged N (the
-// last tile masked) and few envs over many steps (one block walking its ring down
-// a long column) take the same path.
+// Findings). A tile of 16 envs puts two blocks on most SMs at N = 4096 and fits
+// the ring and both buffers in 31 KB of static shared memory. T = 1, a ragged N
+// (the last tile masked) and few envs over many steps (one block walking its ring
+// down a long column) take the same path.
 #include <cstddef>
 #include <cstdint>
 

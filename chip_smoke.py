@@ -72,7 +72,33 @@ just before each path is driven and read just after):
    ``models/single_agent.npz`` and, with two cars, ``models/self_play_agent.npz``,
    success_rate >= 0.95 each, their ``eval_info_<label>.json`` written into a
    temporary directory (no chart) and read back;
-14. serving latency and throughput at batches 1, 64, 1024, 8192.
+14. serving latency and throughput at batches 1, 64, 1024, 8192;
+
+and for procgen and the capacity layouts (the pool resident, each env's rows read
+by id in the three env kernels):
+
+a. a 16-track procgen pool built on the card, against the CPU's float64 pool from
+   the same uniforms (atol 1e-3, seg_c 0.1); W and S printed (384, 768);
+b. K1, ``raycast_walls_and_cars`` and ``car_step_and_query`` (with the pair test and
+   single-car) with row ids on the canonical pool (W 512, S 896) and the procgen
+   pool, tiled, grouped and by arbitrary ids over 4096 envs: bitwise the kernels on
+   the gathered rows and their plain versions (the raycasts by K1's rule); timed in
+   CUDA graphs beside the gathered rows, bounds counting each distinct row once,
+   and the transition also right after the sensing, as the env step runs it;
+c. the single-car main path (after phase 7) and the self-play main path (after
+   phase 10) again on the canonical pool tiled, through the row-id kernels: the
+   same final observations, every update's seeded numbers to the printed digit, and
+   the peak memory of both self-play runs;
+d. ``train scale --resample-tracks-every 1 --pooled-geometry tiled`` and
+   ``grouped`` for two updates each (after phase 11): the pools of the two updates
+   differ (digests printed), the envs run on the last, the policy loads, no tracked
+   file changes;
+e. what ``evaluate --multi models/self_play_agent_dr_500M.npz --procgen`` runs
+   (after phase 13; ``eval()`` without the chart, then ``procgen_transfer``):
+   success rate on 40 unseen procgen tracks >= 0.80, beside the JAX package's
+   recorded 0.95 on its own tracks;
+f. a 32-step self-play rollout at 65,536 envs, tiled and gathered: peak memory of
+   each, the same final observations.
 
 The line before the last is one JSON object with every kernel's numbers (``ms`` the
 eager back-to-back time, ``graph_ms`` the CUDA-graph replay time, ``launches`` the
@@ -84,12 +110,17 @@ into the envs' two kernels, and count 0; K1 and K2 also ``selfplay_ms``,
 ``cold_graph_ms`` after the other kernel in the env step's order; the envs' two
 kernels also the ``chain_ms`` and ``chain_graph_ms`` of what they replace, the
 transition's numbers those of its pair-test instantiation, which the self-play
-path runs, with ``no_pairs_*`` beside them; K6 also its cold times); the last
-line is ``{"ok": true, "device": {...}}``.
+path runs, with ``no_pairs_*`` beside them; K6 also its cold times; the three
+``*_row_ids`` entries their row-id launches on the canonical pool tiled, with
+``gathered_graph_ms`` and the ``procgen_*`` numbers beside them, and launches on
+phase c's runs); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import functools
+import gc
 import hashlib
 import json
 import os
@@ -109,6 +140,7 @@ from self_play_racing_tpu_torch.agent.self_play import SelfPlayTrainer
 from self_play_racing_tpu_torch.agent.trainer import PPOTrainer
 from self_play_racing_tpu_torch.configs import base_config, self_play_config
 from self_play_racing_tpu_torch.envs import multi as menv
+from self_play_racing_tpu_torch.envs import procgen as pg
 from self_play_racing_tpu_torch.envs import single as senv
 from self_play_racing_tpu_torch.envs import track as trk
 from self_play_racing_tpu_torch.envs import vector
@@ -125,6 +157,11 @@ from self_play_racing_tpu_torch.utils.profiling import canonical_bench_pool
 
 MODEL = "models/single_agent.npz"
 MULTI_MODEL = "models/self_play_agent.npz"
+# the domain-randomized agent the JAX package trained on procedural pools
+DR_MODEL = "models/self_play_agent_dr_500M.npz"
+PROCGEN_FLOOR = 0.80
+CAPACITY_ENVS = 65_536
+CAPACITY_STEPS = 32
 V0_CHECKPOINT = "models/checkpoint_update_90.npz"
 TORCH_CHECKPOINT = "models/reference_selfplay_checkpoint_update_90.pth"
 # what the self-play phases must leave untouched
@@ -945,6 +982,253 @@ def check_k7(dev, n_units):
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
+PROCGEN_TRACKS = 16
+# phase (a): the card's float32 pool against the CPU's float64 pool from the same
+# uniforms. float32 alone moves waypoints by ~7e-5 m, segment vectors by ~2.4e-4 and
+# seg_c (a difference of products ~1e3) by ~0.02 on the CPU (20 pools of 16 tracks)
+PROCGEN_ATOL = 1e-3
+PROCGEN_SEG_C_ATOL = 0.1
+
+
+def procgen_on_card(dev):
+    """Phase (a): a 16-track procedural pool built on the card from uniforms drawn
+    there, against the pool the CPU builds in float64 from the same uniforms."""
+    t0 = time.perf_counter()
+    u = pg.draw_track_uniforms(torch.Generator(device=dev).manual_seed(7), PROCGEN_TRACKS, 12)
+    pool = pg.pool_from_uniforms(u)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    cpu = pg.TrackUniforms(**{f.name: getattr(u, f.name).cpu().double()
+                              for f in dataclasses.fields(u)})
+    ref = pg.pool_from_uniforms(cpu, dtype=torch.float32)
+    worst = {}
+    for f in dataclasses.fields(trk.TrackArrays):
+        a, b = getattr(pool, f.name).cpu().double(), getattr(ref, f.name).double()
+        worst[f.name] = float((a - b).abs().max())
+        tol = PROCGEN_SEG_C_ATOL if f.name == "seg_c" else PROCGEN_ATOL
+        if a.shape != b.shape or not worst[f.name] <= tol:
+            raise AssertionError(f"procgen {f.name}: card vs CPU float64 {worst[f.name]:g} > {tol}")
+    w, s = pool.wp_x.shape[-1], pool.seg_sx.shape[-1]
+    if (w, s) != (384, 768):
+        raise AssertionError(f"procgen pool W={w}, S={s}; expected 384, 768")
+    print(f"procgen: {PROCGEN_TRACKS} tracks x 12 points built on the card in {dt * 1e3:.1f} ms; "
+          f"W {w}, S {s}; against the CPU's float64 pool from the same uniforms: positions "
+          f"within {max(worst[k] for k in ('wp_x', 'wp_y', 'seg_sx', 'seg_sy')):.2e}, segment "
+          f"vectors {max(worst['seg_vx'], worst['seg_vy']):.2e}, seg_c {worst['seg_c']:.2e} "
+          f"(atol {PROCGEN_ATOL:g}, seg_c {PROCGEN_SEG_C_ATOL:g})")
+    return pool
+
+
+def row_id_layouts(pool, rng):
+    """The pool over NUM_ENVS envs tiled (env i on track i % T), grouped (blocks of
+    N / T envs) and by arbitrary ids (the even rows only, repeated, in no order)."""
+    t = pool.num_tracks
+    return {"tiled": trk.tiled_pooled_tracks(pool, NUM_ENVS),
+            "grouped": trk.grouped_pooled_tracks(pool, rng.permutation(t), NUM_ENVS // t),
+            "arbitrary": trk.pooled_tracks(pool, rng.choice(np.arange(0, t, 2), NUM_ENVS))}
+
+
+def row_id_inputs(layout, cfg, mcfg, rng, dev):
+    """The three kernels' inputs on a layout, as the envs pass them: the pool's rows
+    with the row ids, and the same on the gathered rows. Returns {kernel: (args
+    with ids, args gathered, keyword arguments)}."""
+    pool, ids = layout.pool, layout.ids
+    g = trk.gather_tracks(pool, ids)
+    x, y, ang = car_poses(g, rng, dev)
+    world = ang[:, None] + torch.as_tensor(cfg.sensor_angles(), dtype=torch.float32, device=dev)
+    rays = [x[:, None].expand(world.shape).contiguous(), y[:, None].expand(world.shape).contiguous(),
+            torch.cos(world), torch.sin(world)]
+    seg_names = ("seg_sx", "seg_sy", "seg_vx", "seg_vy", "seg_c")
+    k1 = lambda tr: (*rays, *(getattr(tr, f)[:, None, :] for f in seg_names[:4]),  # noqa: E731
+                     cfg.max_sensor_range)
+    sense = sensing_inputs(g, mcfg, rng, dev, NUM_AGENTS)
+    pooled_sense = (*sense[:4], *(getattr(pool, f) for f in seg_names), *sense[9:])
+    cars, wp = step_inputs(g, mcfg, rng, dev, NUM_AGENTS)
+    pooled_wp = [getattr(pool, f)[:, None] for f in ("wp_x", "wp_y", "nrm_x", "nrm_y")] + wp[4:]
+    one, wp1 = step_inputs(g, mcfg, rng, dev, 1)
+    pooled_wp1 = [getattr(pool, f) for f in ("wp_x", "wp_y", "nrm_x", "nrm_y")] + wp1[4:]
+    scale = {"collision_speed_scale": mcfg.collision_speed_scale}
+    spec = (mcfg.dt, mcfg.car)
+    return {"raycast_walls": (k1(pool), k1(g), {"seg_c": pool.seg_c[:, None, :]},
+                              {"seg_c": g.seg_c[:, None, :]}),
+            "raycast_walls_and_cars": (pooled_sense, sense, {}, {}),
+            "car_step_and_query": ((*cars, *spec, *pooled_wp), (*cars, *spec, *wp), scale, scale),
+            "car_step_and_query single-car": ((*one, *spec, *pooled_wp1), (*one, *spec, *wp1),
+                                              {}, {})}
+
+
+ROW_ID_FNS = {
+    "raycast_walls": (geo.raycast_walls, geo.raycast_walls_plain),
+    "raycast_walls_and_cars": (geo.raycast_walls_and_cars, geo.raycast_walls_and_cars_plain),
+    "car_step_and_query": (dynamics.car_step_and_query, dynamics.car_step_and_query_plain),
+    "car_step_and_query single-car": (dynamics.car_step_and_query,
+                                      dynamics.car_step_and_query_plain),
+}
+
+
+def hold_row_ids(layout, cfg, mcfg, rng, dev, what):
+    """Each kernel with row ids bitwise itself on the gathered rows, and its plain
+    version with row ids (the raycasts by K1's rule). Returns the inputs and the
+    max |err| against the plain versions."""
+    inputs = row_id_inputs(layout, cfg, mcfg, rng, dev)
+    ids = layout.ids
+    errs = {}
+    for name, (args, gathered, kw, gkw) in inputs.items():
+        kernel, plain = ROW_ID_FNS[name]
+        k = kernel(*args, **kw, row_ids=ids)
+        kg = kernel(*gathered, **gkw)
+        p = plain(*args, **kw, row_ids=ids)
+        torch.cuda.synchronize()
+        k, kg, p = ((t,) if isinstance(t, torch.Tensor) else t for t in (k, kg, p))
+        for i, (a, b, c) in enumerate(zip(k, kg, p)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name} with row ids ({what}): output {i} differs from the "
+                                     f"kernel on the gathered rows in {int((a != b).sum())} places")
+            if name.startswith("raycast"):
+                hold_k1(a, c, cfg.max_sensor_range, f"{name} with row ids ({what})")
+            elif not torch.equal(a, c):
+                raise AssertionError(f"{name} with row ids ({what}): output {i} differs from "
+                                     f"plain in {int((a != c).sum())} places")
+            if a.is_floating_point():
+                errs[name] = max(errs.get(name, 0.0), float((a - c).abs().max()))
+    return inputs, errs
+
+
+def time_row_ids(layout, inputs, mcfg, dev):
+    """The three kernels' graph time with row ids against the gathered rows' on a
+    layout, eager time and plain time with ids, and their bounds with the rows
+    counted once per distinct row. Returns {kernel: numbers}."""
+    pool, ids = layout.pool, layout.ids
+    distinct = int(torch.unique(ids).numel())
+    rows = lambda *names: distinct * sum(  # noqa: E731
+        getattr(pool, f)[0].numel() * 4 for f in names)
+    out = {}
+    max_dist = mcfg.max_sensor_range
+    # K1, the single-car launch
+    args, gathered, kw, gkw = inputs["raycast_walls"]
+    rays, r, s = args[:4], args[0].shape[-1], args[4].shape[-1]
+    res = torch.empty_like(args[0])
+    k1 = lambda segs, c, rid: lambda: _cuda.launch_raycast_walls(  # noqa: E731
+        *rays, *segs, c, res, NUM_ENVS, r, s, max_dist, row_ids=rid)
+    plain = functools.partial(geo.raycast_walls_plain, *args, **kw, row_ids=ids)
+    b = bound_ms(nbytes(*rays, ids, res) + rows("seg_sx", "seg_sy", "seg_vx", "seg_vy", "seg_c"),
+                 NUM_ENVS * r * s * K1_OPS_PER_PAIR)
+    out["raycast_walls"] = (k1(args[4:8], kw["seg_c"], ids), k1(gathered[4:8], gkw["seg_c"], None),
+                            plain, b)
+    # the self-play sensing
+    args, gathered, _, _ = inputs["raycast_walls_and_cars"]
+    x, y, ang, rel = args[:4]
+    hl, hw = np.float32(args[9]), np.float32(args[10])
+    res2 = torch.empty(x.shape + rel.shape, dtype=torch.float32, device=dev)
+    sense = lambda segs, rid: lambda: _cuda.launch_raycast_walls_and_cars(  # noqa: E731
+        x, y, ang, rel, *segs, res2, NUM_ENVS, NUM_AGENTS, rel.shape[0], segs[0].shape[-1], hl,
+        hw, max_dist, row_ids=rid)
+    cdx, cdy = x[:, None, :] - x[:, :, None], y[:, None, :] - y[:, :, None]
+    seen = int((torch.sqrt(cdx * cdx + cdy * cdy) >= 0.5).sum()) * rel.shape[0]
+    ops = (res2.numel() * s * K1_OPS_PER_PAIR + res2.numel() * NUM_AGENTS * K3_OPS_PER_RAY_CAR
+           + seen * 4 * K3_OPS_PER_RAY_EDGE)
+    b = bound_ms(nbytes(x, y, ang, rel, ids, res2)
+                 + rows("seg_sx", "seg_sy", "seg_vx", "seg_vy", "seg_c"), ops)
+    out["raycast_walls_and_cars"] = (
+        sense(args[4:9], ids), sense(gathered[4:9], None),
+        functools.partial(geo.raycast_walls_and_cars_plain, *args, row_ids=ids), b)
+    # the transition with the pair test, as the multi-car env calls it
+    args, gathered, kw, _ = inputs["car_step_and_query"]
+    cars, wp, gwp = args[:8], args[10:14], gathered[10:14]
+    w = wp[0].shape[-1]
+    per_env = [t.reshape(NUM_ENVS).contiguous() for t in args[14:16]]
+    outs = [torch.empty_like(cars[0]) for _ in range(5)] + [
+        torch.empty(cars[0].shape + (4,), device=dev) for _ in range(2)] + [
+        torch.empty_like(cars[0]), torch.empty(cars[0].shape, dtype=torch.bool, device=dev),
+        torch.empty(cars[0].shape, dtype=torch.int32, device=dev)]
+    consts = [np.float32(v) for v in (mcfg.car.steering_speed, mcfg.car.acceleration,
+                                      mcfg.car.drag, mcfg.car.lateral_friction, mcfg.car.grip,
+                                      mcfg.car.max_speed, mcfg.dt, 2 * np.pi,
+                                      mcfg.car.length / 2, mcfg.car.width / 2)]
+    step = lambda rows_, rid: lambda: _cuda.launch_car_step_and_query(  # noqa: E731
+        *cars, *rows_, *per_env, *outs[:9], NUM_ENVS, NUM_AGENTS, w, consts, outs[9],
+        np.float32(mcfg.collision_speed_scale), row_ids=rid)
+    n = cars[0].numel()
+    b = bound_ms(nbytes(*cars, ids, *per_env, *outs) + rows("wp_x", "wp_y") + 8 * n * 4,
+                 n * (5 * w * K2_OPS_PER_PAIR + K5_OPS_PER_CAR)
+                 + NUM_ENVS * NUM_AGENTS * NUM_AGENTS * 4 * K4_OPS_PER_PAIR_AXIS)
+    out["car_step_and_query"] = (step(wp, ids), step(gwp, None),
+                                 functools.partial(dynamics.car_step_and_query_plain, *args,
+                                                   **kw, row_ids=ids), b)
+    numbers = {}
+    for name, (with_ids, on_gathered, plain, (b_ms, b_by)) in out.items():
+        numbers[name] = {"ms": per_launch_ms(with_ids), "graph_ms": graph_ms(with_ids),
+                         "gathered_graph_ms": graph_ms(on_gathered),
+                         "plain_ms": per_launch_ms(plain, windows=3, launches=2),
+                         "bound_ms": b_ms, "bound_by": b_by, "distinct_rows": distinct}
+    # the transition as the env step runs it, right after the sensing: its time in
+    # a graph of (sensing, transition) pairs less the sensing's own; on the
+    # gathered rows the sensing's 73 MB evict the transition's rows from the L2
+    sense, step = out["raycast_walls_and_cars"], out["car_step_and_query"]
+    for key, k, base in (("after_sensing_graph_ms", 0, "graph_ms"),
+                         ("gathered_after_sensing_graph_ms", 1, "gathered_graph_ms")):
+        def pair(a=sense[k], b=step[k]):
+            a()
+            b()
+        numbers["car_step_and_query"][key] = (
+            graph_ms(pair) - numbers["raycast_walls_and_cars"][base])
+    return numbers
+
+
+def check_row_ids(canonical, procgen, cfg, mcfg, rng, dev):
+    """Phase (b): the three kernels with row ids on the canonical pool (W 512, S 896)
+    and the procgen pool (W 384, S 768), tiled, grouped and by arbitrary ids, each
+    bitwise the kernel on the gathered rows and its plain version; timed on the
+    tiled layouts beside the gathered rows. Returns the kernels-line entries."""
+    timed = {}
+    errs = {}
+    for label, pool in (("canonical", canonical), ("procgen", procgen)):
+        shape = f"W {pool.wp_x.shape[-1]}, S {pool.seg_sx.shape[-1]}"
+        for kind, layout in row_id_layouts(pool, rng).items():
+            inputs, e = hold_row_ids(layout, cfg, mcfg, rng, dev, f"{label} {kind}")
+            for k, v in e.items():
+                errs[k] = max(errs.get(k, 0.0), v)
+            print(f"row ids, {label} pool ({shape}) {kind} over {NUM_ENVS} envs "
+                  f"({int(torch.unique(layout.ids).numel())} distinct rows): K1, "
+                  f"raycast_walls_and_cars, car_step_and_query (pair test and single-car) "
+                  f"bitwise the kernels on the gathered rows and their plain versions "
+                  f"(raycasts by K1's rule)")
+            if kind == "tiled":
+                timed[label] = time_row_ids(layout, inputs, mcfg, dev)
+        step = timed[label]["car_step_and_query"]
+        print(f"car_step_and_query right after the sensing, {label} tiled ({shape}), in a CUDA "
+              f"graph of the pair less the sensing: {step['after_sensing_graph_ms'] * 1e3:.1f} us "
+              f"by row id, {step['gathered_after_sensing_graph_ms'] * 1e3:.1f} us on the gathered "
+              f"rows")
+        for name, t in timed[label].items():
+            print(f"{name} with row ids, {label} tiled ({shape}): {t['graph_ms'] * 1e3:.1f} us in "
+                  f"a CUDA graph against {t['gathered_graph_ms'] * 1e3:.1f} us on the gathered "
+                  f"rows; {t['ms'] * 1e3:.1f} us eager; bound {t['bound_ms'] * 1e3:.2f} us "
+                  f"({t['bound_by']}, {t['distinct_rows']} distinct rows read once); plain "
+                  f"{t['plain_ms'] * 1e3:.1f} us")
+    sources = {"raycast_walls": ("raycast_walls.cu", "self_play_racing_tpu/ops/geometry.py:26"),
+               "raycast_walls_and_cars": ("raycast_walls_and_cars.cu",
+                                          "self_play_racing_tpu/ops/geometry.py:243"),
+               "car_step_and_query": ("car_step_and_query.cu",
+                                      "self_play_racing_tpu/ops/dynamics.py:37")}
+    entries = []
+    for name, (src, replaces) in sources.items():
+        c, p = timed["canonical"][name], timed["procgen"][name]
+        entries.append({
+            "name": f"{name}_row_ids", "route": "cuda",
+            "source": f"self_play_racing_tpu_torch/csrc/{src}", "replaces": replaces,
+            "also_replaces": "self_play_racing_tpu/envs/track.py:351",
+            "max_abs_err": errs[name], "ms": c["ms"], "graph_ms": c["graph_ms"],
+            "gathered_graph_ms": c["gathered_graph_ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": None,
+            "procgen_ms": p["ms"], "procgen_graph_ms": p["graph_ms"],
+            "procgen_gathered_graph_ms": p["gathered_graph_ms"],
+            "procgen_bound_ms": p["bound_ms"], "procgen_plain_ms": p["plain_ms"],
+            **{k: c[k] for k in ("after_sensing_graph_ms", "gathered_after_sensing_graph_ms")
+               if k in c}})
+    return entries
+
+
 COUNTERS = {
     "raycast_walls": (geo, "raycast_walls_launches"),
     "progress_and_collision": (geo, "progress_and_collision_launches"),
@@ -953,6 +1237,9 @@ COUNTERS = {
     "car_update": (dynamics, "car_update_launches"),
     "raycast_walls_and_cars": (geo, "raycast_walls_and_cars_launches"),
     "car_step_and_query": (dynamics, "car_step_and_query_launches"),
+    "raycast_walls_row_ids": (geo, "raycast_walls_row_id_launches"),
+    "raycast_walls_and_cars_row_ids": (geo, "raycast_walls_and_cars_row_id_launches"),
+    "car_step_and_query_row_ids": (dynamics, "car_step_and_query_row_id_launches"),
     "compute_gae": (gae, "compute_gae_launches"),
     "mixbits_permutation": (prng, "mixbits_permutation_launches"),
 }
@@ -993,7 +1280,9 @@ def rollout(params, log_std, cfg, track, vstate, obs, gen, steps):
 
 
 @torch.no_grad()
-def main_path(track, cfg, dev, card):
+def main_path(track, cfg, dev, card, label=""):
+    """The single-car rollout on ``track`` (per-env rows, or a layout whose kernels
+    read pool rows by id). Returns the launch counts and the final observations."""
     model, _ = interop.load_npz(MODEL, device=dev)
     params, log_std = model.params(), model.log_std
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1012,15 +1301,18 @@ def main_path(track, cfg, dev, card):
     dt = time.perf_counter() - t0
     launches = read_counts()
     expected = counts(raycast_walls=STEPS + 1, car_step_and_query=STEPS)
-    print(f"main path: {NUM_ENVS} envs x {STEPS} steps in {dt:.3f} s = "
+    if isinstance(track, trk.LAYOUTS):
+        expected.update(raycast_walls_row_ids=STEPS + 1, car_step_and_query_row_ids=STEPS)
+    what = f"main path{label}"
+    print(f"{what}: {NUM_ENVS} envs x {STEPS} steps in {dt:.3f} s = "
           f"{NUM_ENVS * STEPS / dt:,.0f} env-steps/s on {card}; launches {launches}")
     if launches != expected:
-        raise AssertionError(f"main path launches {launches}, expected {expected}")
+        raise AssertionError(f"{what} launches {launches}, expected {expected}")
     if not bool(finite) or obs.shape != (NUM_ENVS, cfg.obs_dim):
-        raise AssertionError("main path: non-finite obs or reward, or wrong obs shape")
-    print(f"main path: obs {tuple(obs.shape)} and rewards finite; {int(ended)} episodes "
+        raise AssertionError(f"{what}: non-finite obs or reward, or wrong obs shape")
+    print(f"{what}: obs {tuple(obs.shape)} and rewards finite; {int(ended)} episodes "
           f"ended in the run")
-    return launches
+    return launches, obs
 
 
 @contextlib.contextmanager
@@ -1123,21 +1415,36 @@ def entry_point(card):
         raise AssertionError(f"train single launches {launches}, expected {expected}")
 
 
-def selfplay_training(track, card):
-    """This slice's main path: scale-mode self-play at its full width. Returns the
-    launch counts of the timed updates and the trainer."""
+def memory_window():
+    """Frees what the card's allocator caches and starts a peak-memory window;
+    returns the bytes allocated at its start."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def selfplay_training(make_track, card, label=""):
+    """Scale-mode self-play at its full width on the geometry ``make_track()``
+    builds (inside the peak-memory window). Returns the launch counts of the timed
+    updates, each update's seeded numbers as printed, and the peak memory the run
+    allocated over what was allocated before it."""
     cfg = self_play_config(num_envs=NUM_ENVS, num_steps=STEPS,
                            total_timesteps=1_000_000_000, opponent_per_env=True,
                            reset_envs_each_update=False, snapshot_freq=1)
-    print(f"self-play: train scale's config with snapshot_freq overridden "
+    what = f"self-play{label}"
+    print(f"{what}: train scale's config with snapshot_freq overridden "
           f"{self_play_config().snapshot_freq} -> 1 (pool opponents from the second update)")
+    base = memory_window()
     t0 = time.perf_counter()
+    track = make_track()
     trainer = SelfPlayTrainer(cfg, menv.MultiRacingConfig(num_agents=NUM_AGENTS,
                                                           num_sensors=11), track)
     metrics = []
     trainer.train(num_updates=1, on_update=lambda tr, m: metrics.append(m))
     torch.cuda.synchronize()
-    print(f"self-play: trainer built and warm-up update in {time.perf_counter() - t0:.1f} s")
+    print(f"{what}: trainer built and warm-up update in {time.perf_counter() - t0:.1f} s")
     zero_counts()
     wall, pools = [], []
     with minibatch_loops(SP_TRAIN_UPDATES) as loops:
@@ -1148,30 +1455,37 @@ def selfplay_training(track, card):
             wall.append(time.perf_counter() - t)
             pools.append(trainer.pool_count)
     launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() - base
     info = trainer.training_info
+    seeded = []
     for i, (dt, (up, _), m, pool) in enumerate(zip(wall, loops, metrics[1:], pools)):
         games = m["_extra"][cfg.pool_size:].sum()
         wins = m["_extra"][:cfg.pool_size].sum()
-        print(f"self-play update {i + 1}: {dt * 1e3:.1f} ms = {cfg.batch_size / dt:,.0f} "
+        seeded.append(f"minibatches_applied {m['minibatches_applied']:.0f}, approx_kl "
+                      f"{m['approx_kl']:.5f}, mean_ep_return {m['mean_ep_return']:.2f} over "
+                      f"{m['episodes']:.0f} episodes; pool {pool}, learner won {wins:.0f} of "
+                      f"{games:.0f} races against the pool")
+        print(f"{what} update {i + 1}: {dt * 1e3:.1f} ms = {cfg.batch_size / dt:,.0f} "
               f"env-steps/s; rollout + GAE + permutations {(dt - up) * 1e3:.1f} ms, "
-              f"minibatch loop {up * 1e3:.1f} ms; minibatches_applied "
-              f"{m['minibatches_applied']:.0f}, approx_kl {m['approx_kl']:.5f}, "
-              f"mean_ep_return {m['mean_ep_return']:.2f} over {m['episodes']:.0f} episodes; "
-              f"pool {pool}, learner won {wins:.0f} of {games:.0f} races against the pool")
-    print(f"self-play: median {statistics.median(wall) * 1e3:.1f} ms/update at {NUM_ENVS} x "
+              f"minibatch loop {up * 1e3:.1f} ms; {seeded[-1]}")
+    print(f"{what}: median {statistics.median(wall) * 1e3:.1f} ms/update at {NUM_ENVS} x "
           f"{STEPS} x {NUM_AGENTS} cars on {card}; pool win rate history "
-          f"{info['pool_win_rate']}; launches {launches}")
+          f"{info['pool_win_rate']}; launches {launches}; peak memory "
+          f"{peak / 2**20:,.1f} MiB over the {base / 2**20:,.1f} MiB allocated before "
+          f"(torch.cuda.max_memory_allocated {(peak + base) / 2**20:,.1f} MiB)")
     n = STEPS * SP_TRAIN_UPDATES
     expected = counts(raycast_walls_and_cars=n, car_step_and_query=n,
                       compute_gae=SP_TRAIN_UPDATES, mixbits_permutation=SP_TRAIN_UPDATES)
+    if isinstance(track, trk.LAYOUTS):
+        expected.update(raycast_walls_and_cars_row_ids=n, car_step_and_query_row_ids=n)
     if launches != expected:
-        raise AssertionError(f"self-play launches {launches}, expected {expected}")
+        raise AssertionError(f"{what} launches {launches}, expected {expected}")
     for m in metrics:
         if not all(np.isfinite(m[k]) for k in ("pg_loss", "v_loss", "mean_reward", "approx_kl")):
-            raise AssertionError(f"self-play: non-finite metrics {m}")
+            raise AssertionError(f"{what}: non-finite metrics {m}")
     if pools != [1, 2, 3] or sum(m["_extra"][cfg.pool_size:].sum() for m in metrics[1:]) == 0:
-        raise AssertionError(f"self-play: pool counts {pools} or no race against the pool")
-    return launches
+        raise AssertionError(f"{what}: pool counts {pools} or no race against the pool")
+    return launches, seeded, peak
 
 
 def file_digests():
@@ -1294,6 +1608,151 @@ def evaluation(dev):
           f"episodes each ({dt:.1f} s)")
 
 
+def gathered_row_bytes(pool, num_envs: int) -> int:
+    """The bytes of the [W] and [S] rows a gathered layout of ``pool`` over
+    ``num_envs`` envs holds (4 waypoint and 5 segment fields of float32)."""
+    return num_envs * 4 * (4 * pool.wp_x.shape[-1] + 5 * pool.seg_sx.shape[-1])
+
+
+def pool_digest(pool) -> str:
+    return hashlib.sha256(b"".join(getattr(pool, f.name).cpu().numpy().tobytes()
+                                   for f in dataclasses.fields(pool))).hexdigest()[:16]
+
+
+def resampled_entry_points(card):
+    """Phase (d): ``train scale --resample-tracks-every 1 --pooled-geometry tiled``
+    and ``grouped`` at their defaults for two updates each in temporary
+    directories: each update's procgen pool (recorded by its digest) differs, the
+    envs run on the last one through the row-id kernels, the written policy loads
+    and the repo's tracked files stay untouched."""
+    before = file_digests()
+    cwd = os.getcwd()
+    drawn = []
+    procgen_pool = ttrain.procgen_pool
+
+    def recorded(seed, boundary, *args, **kwargs):
+        pool = procgen_pool(seed, boundary, *args, **kwargs)
+        drawn.append((boundary, pool_digest(pool)))
+        return pool
+
+    ttrain.procgen_pool = recorded
+    try:
+        for layout, kind in (("tiled", trk.TiledPooledTracks),
+                             ("grouped", trk.GroupedPooledTracks)):
+            drawn.clear()
+            with tempfile.TemporaryDirectory() as tmp:
+                os.chdir(tmp)
+                try:
+                    zero_counts()
+                    t0 = time.perf_counter()
+                    trainer = ttrain.main(["scale", "--resample-tracks-every", "1",
+                                           "--pooled-geometry", layout, "--num-updates", "2"])
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                    launches = read_counts()
+                    params, _, _ = load_policy_bundle("models/self_play_agent_scale_1B.npz")
+                finally:
+                    os.chdir(cwd)
+            cfg, track = trainer.cfg, trainer.aux["track"]
+            steps = 2 * cfg.num_steps
+            # sensing: every step, the construction's reset and the reset onto the
+            # pool of update 1
+            expected = counts(raycast_walls_and_cars=steps + 2, car_step_and_query=steps,
+                              raycast_walls_and_cars_row_ids=steps + 2,
+                              car_step_and_query_row_ids=steps, compute_gae=2,
+                              mixbits_permutation=2)
+            print(f"train scale --resample-tracks-every 1 --pooled-geometry {layout}: "
+                  f"{cfg.num_envs} envs x {cfg.num_steps} steps, 2 updates in {dt:.1f} s on "
+                  f"{card}; pools by update {drawn}; the envs' geometry {type(track).__name__} "
+                  f"over {track.pool.num_tracks} tracks (W {track.pool.wp_x.shape[-1]}, S "
+                  f"{track.pool.seg_sx.shape[-1]}); launches {launches}; saved policy loads "
+                  f"({params['actor'][0][0].shape[0]} inputs)")
+            if [b for b, _ in drawn] != [0, 1] or drawn[0][1] == drawn[1][1]:
+                raise AssertionError(f"train scale {layout}: pools {drawn}, expected two that differ")
+            if not isinstance(track, kind) or pool_digest(track.pool) != drawn[-1][1]:
+                raise AssertionError(f"train scale {layout}: the envs are not on update 1's pool")
+            if launches != expected:
+                raise AssertionError(f"train scale {layout} launches {launches}, expected {expected}")
+    finally:
+        ttrain.procgen_pool = procgen_pool
+    if file_digests() != before:
+        raise AssertionError("the resampled entry points wrote the repo's tracked files")
+    print(f"train scale with resampled pools left the repo's tracked files untouched "
+          f"({len(before)} checked)")
+
+
+def procgen_evaluation(dev):
+    """Phase (e): what ``evaluate --multi <the domain-randomized agent> --procgen``
+    runs, into a temporary directory without the chart (``eval()``, then
+    ``procgen_transfer``): the 40 x 5 grid, then 40 unseen procedural tracks built
+    on the card; success rate on those >= PROCGEN_FLOOR."""
+    with open("data/procgen_generalization.json") as f:
+        jax_rate = json.load(f)["dr_500M"]["procgen_unseen"]["success_rate"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        by_label = evaluate.eval({"self_play": ("multi", DR_MODEL)}, 40, 5, 42, out_dir=tmp,
+                                 chart=None, device=dev)
+        evaluate.procgen_transfer(by_label, [DR_MODEL], num_tracks=40, device=dev)
+    dt = time.perf_counter() - t0
+    grid, r = by_label["self_play"]["results"], by_label["self_play"]["procgen"]
+    print(f"evaluate --multi {DR_MODEL} --procgen ({dt:.1f} s on {dev}): grid 40 x 5 "
+          f"success_rate={grid['success_rate']:.3f}; 40 unseen procgen tracks "
+          f"success_rate={r['success_rate']:.3f} crash_rate={r['crash_rate']:.3f} "
+          f"avg_steps={r['avg_steps']:.2f}; the JAX package recorded {jax_rate:.3f} on its own "
+          f"40 unseen tracks (data/procgen_generalization.json, dr_500M): the two draw "
+          f"different tracks, as their random streams differ")
+    if r["num_episodes"] != 40 or r["success_rate"] < PROCGEN_FLOOR:
+        raise AssertionError(f"procgen success_rate {r['success_rate']} < {PROCGEN_FLOOR}")
+
+
+@torch.no_grad()
+def capacity_probe(pool, dev):
+    """Phase (f): a 32-step self-play rollout (the trainer's rollout phase) at
+    65,536 envs on the canonical pool, tiled and gathered, each in its own
+    peak-memory window; the two end in the same observations."""
+    env_cfg = menv.MultiRacingConfig(num_agents=NUM_AGENTS, num_sensors=11)
+    cfg = self_play_config(num_envs=CAPACITY_ENVS, num_steps=CAPACITY_STEPS,
+                           total_timesteps=CAPACITY_ENVS * CAPACITY_STEPS * 10,
+                           opponent_per_env=True, reset_envs_each_update=False)
+    ids = np.arange(CAPACITY_ENVS) % pool.num_tracks
+    final = {}
+    for label, make in (("tiled", lambda: trk.tiled_pooled_tracks(pool, CAPACITY_ENVS)),
+                        ("gathered", lambda: trk.gather_tracks(pool, ids))):
+        base = memory_window()
+        track = make()
+        geometry = torch.cuda.memory_allocated() - base
+        trainer = SelfPlayTrainer(cfg, env_cfg, track)
+        noise = net.sample_noise((CAPACITY_STEPS, CAPACITY_ENVS, env_cfg.action_dim),
+                                 torch.Generator(device=dev).manual_seed(3), device=dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        _, obs, _, _, traj, stats = ppo.rollout_phase(cfg, trainer.hooks, trainer.runner,
+                                                      trainer.aux, trainer.log_std, noise)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        if not (bool(torch.isfinite(obs).all()) and bool(torch.isfinite(stats["reward"]).all())):
+            raise AssertionError(f"capacity probe {label}: non-finite observations or rewards")
+        row_ids = launches["raycast_walls_and_cars_row_ids"]
+        if (launches["raycast_walls_and_cars"], row_ids) != (
+                CAPACITY_STEPS, CAPACITY_STEPS if label == "tiled" else 0):
+            raise AssertionError(f"capacity probe {label}: launches {launches}")
+        print(f"capacity probe, {label}: {CAPACITY_ENVS:,} envs x {CAPACITY_STEPS} steps x "
+              f"{NUM_AGENTS} cars in {dt:.2f} s; geometry {geometry / 2**20:,.2f} MiB, peak memory "
+              f"{peak / 2**20:,.1f} MiB over the {base / 2**20:,.1f} MiB allocated before "
+              f"(torch.cuda.max_memory_allocated {(peak + base) / 2**20:,.1f} MiB); "
+              f"sensing launches {CAPACITY_STEPS}, {row_ids} of them by row id")
+        final[label] = obs.clone()
+        del track, trainer, noise, obs, traj, stats
+    if not torch.equal(final["tiled"], final["gathered"]):
+        raise AssertionError("capacity probe: the tiled and gathered rollouts end apart")
+    pool_bytes = nbytes(*(getattr(pool, f.name) for f in dataclasses.fields(pool)))
+    print(f"capacity probe: the tiled and gathered rollouts end in the same observations; "
+          f"the gathered rows alone are {gathered_row_bytes(pool, CAPACITY_ENVS) / 1e9:.2f} GB, "
+          f"the tiled pool {pool_bytes / 1e3:.1f} KB")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1325,14 +1784,35 @@ def main() -> int:
     env_kernels = check_env_kernels(track, mcfg, rng, dev)
     check_contacts(track, mcfg, rng, dev, env_kernels[1])
     kernels += env_kernels
-    single_car = main_path(track, cfg, dev, card)
+    procgen = procgen_on_card(dev)
+    kernels += check_row_ids(pool, procgen, cfg, mcfg, rng, dev)
+    single_car, single_obs = main_path(track, cfg, dev, card)
+    tiled_single, tiled_obs = main_path(trk.tiled_pooled_tracks(pool, NUM_ENVS), cfg, dev, card,
+                                        " (tiled pool, row ids)")
+    if not torch.equal(single_obs, tiled_obs):
+        raise AssertionError("main path: the tiled run ends apart from the gathered run")
+    print("main path: the tiled run ends in the gathered run's observations")
     training(track, cfg, card)
     entry_point(card)
-    launches = selfplay_training(track, card)
+    launches, seeded, peak = selfplay_training(
+        lambda: trk.gather_tracks(pool, np.arange(NUM_ENVS) % NUM_TRACKS), card)
+    tiled, tiled_seeded, tiled_peak = selfplay_training(
+        lambda: trk.tiled_pooled_tracks(pool, NUM_ENVS), card, " (tiled pool, row ids)")
+    if tiled_seeded != seeded:
+        raise AssertionError(f"self-play tiled {tiled_seeded} differs from gathered {seeded}")
+    print(f"self-play tiled: every update's seeded numbers equal the gathered run's; peak "
+          f"memory {tiled_peak / 2**20:,.1f} MiB tiled, {peak / 2**20:,.1f} MiB gathered "
+          f"(the gathered rows are {gathered_row_bytes(pool, NUM_ENVS) / 2**20:,.1f} MiB)")
     for k in kernels:
         # K1 runs on the self-play path inside raycast_walls_and_cars
-        if k["name"] == "raycast_walls":
-            k["launches"], k["launches_path"] = single_car[k["name"]], "single-car main path"
+        if k["name"] in ("raycast_walls", "raycast_walls_row_ids"):
+            counted = single_car if k["name"] == "raycast_walls" else tiled_single
+            k["launches"] = counted[k["name"]]
+            k["launches_path"] = ("single-car main path" if k["name"] == "raycast_walls" else
+                                  "single-car main path on the tiled pool")
+        elif k["name"].endswith("_row_ids"):
+            k["launches"] = tiled[k["name"]]
+            k["launches_path"] = "self-play training on the tiled pool"
         elif k["name"] == "rectangles_intersect":
             k["launches"] = launches[k["name"]]
             k["launches_path"] = ("self-play training: 0, its pair test runs inside "
@@ -1340,8 +1820,11 @@ def main() -> int:
         else:
             k["launches"], k["launches_path"] = launches[k["name"]], "self-play training"
     selfplay_entry_points(card)
+    resampled_entry_points(card)
     checkpoints(track, dev)
     evaluation(dev)
+    procgen_evaluation(dev)
+    capacity_probe(pool, dev)
     bench(Policy(MODEL, device=dev))
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

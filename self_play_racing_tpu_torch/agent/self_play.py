@@ -102,10 +102,11 @@ def empty_pool(pool_size: int, obs_dim: int, action_dim: int, hidden, normalize_
 
 
 class SelfPlayTrainer(PPOTrainer):
-    """The reference's SelfPlayPPO. ``track`` is the per-env TrackArrays."""
+    """The reference's SelfPlayPPO. ``track`` is the per-env TrackArrays or a
+    capacity layout (``envs/track.py``)."""
 
     def __init__(self, cfg: PPOConfig, env_cfg: menv.MultiRacingConfig,
-                 track: trk.TrackArrays):
+                 track: trk.Track):
         if cfg.pool_size <= 0 or cfg.snapshot_freq <= 0:
             raise ValueError("self-play needs pool_size > 0 and snapshot_freq > 0")
         self.pool_size = cfg.pool_size
@@ -118,7 +119,7 @@ class SelfPlayTrainer(PPOTrainer):
         self._pool_count_by_update = {}  # update -> pool size its rollout faced
         self.pool_wins = np.zeros((cfg.pool_size,), np.float64)
         self.pool_games = np.zeros((cfg.pool_size,), np.float64)
-        dev = track.wp_x.device
+        dev = trk.rows_of(track)[0].wp_x.device
         self.pool = empty_pool(cfg.pool_size, env_cfg.obs_dim, env_cfg.action_dim,
                                cfg.hidden, cfg.normalize_obs, device=dev)
         idx_shape = (cfg.num_envs,) if cfg.opponent_per_env else ()

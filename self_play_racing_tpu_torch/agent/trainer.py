@@ -25,9 +25,9 @@ from . import ppo
 
 
 def make_single_env_hooks(env_cfg: senv.RacingConfig) -> ppo.EnvHooks:
-    """EnvHooks over the single-car env. aux is either the per-env TrackArrays or
-    a dict {"track": TrackArrays, "speed_weight": scalar tensor} (annealed
-    variant)."""
+    """EnvHooks over the single-car env. aux is either the geometry (per-env
+    TrackArrays or a capacity layout, ``envs/track.py``) or a dict {"track": the
+    geometry, "speed_weight": scalar tensor} (annealed variant)."""
 
     def track_of(aux):
         return aux["track"] if isinstance(aux, dict) else aux
@@ -66,16 +66,16 @@ def treedef_string(num_layers: int) -> str:
 class PPOTrainer:
     """Single-car PPO trainer (reference PPO class equivalent).
 
-    track: per-env TrackArrays (already gathered to [num_envs, ...]); the trainer
-    runs on its device. Weights are drawn from a CPU generator seeded with
-    ``cfg.seed``.
+    track: per-env TrackArrays (already gathered to [num_envs, ...]) or a
+    capacity layout over a resident pool (``envs/track.py``); the trainer runs on
+    its device. Weights are drawn from a CPU generator seeded with ``cfg.seed``.
     """
 
-    def __init__(self, cfg: PPOConfig, env_cfg: senv.RacingConfig, track: trk.TrackArrays,
+    def __init__(self, cfg: PPOConfig, env_cfg: senv.RacingConfig, track: trk.Track,
                  hooks: Optional[ppo.EnvHooks] = None, aux=None):
         self.cfg = cfg
         self.env_cfg = env_cfg
-        self.device = track.wp_x.device
+        self.device = trk.rows_of(track)[0].wp_x.device
         if aux is not None:
             self.aux = self._place_aux(aux)
         elif cfg.anneal_speed_weight:
@@ -90,8 +90,9 @@ class PPOTrainer:
                                       env_cfg.obs_dim, env_cfg.action_dim)
         self.training_info = {"steps": [], "rewards": []}
         self._host_update = 0  # mirror of runner.train.update (see train())
-        # optional domain randomization: fn(update:int) -> new per-env TrackArrays
-        # (or None to keep the current pool); consulted before every update
+        # optional domain randomization: fn(update:int) -> new geometry (per-env
+        # TrackArrays or a layout; None keeps the current one); consulted before
+        # every update
         self.track_resampler = None
 
     def _f32(self, value) -> torch.Tensor:

@@ -43,6 +43,8 @@
 // velocity into shared memory beside the staged row; after one barrier lane b of
 // car a's warp tests the pair (a, b) (b in strides of 32), a ballot counts the
 // partners, and lane 0 applies the ladder and writes the velocity and num_hits.
+// With row ids (the capacity layouts) block b stages pool row row_ids[b] and reads
+// its normals there; the cars, the waypoint count and the width stay env b's.
 #include <cuda_runtime.h>
 
 #include "car_step.cuh"
@@ -67,7 +69,8 @@ __global__ void __launch_bounds__(kMaxThreads) car_step_and_query_kernel(
         const float* __restrict__ steering, const float* __restrict__ throttle,
         const float* __restrict__ wp_x, const float* __restrict__ wp_y,
         const float* __restrict__ nrm_x, const float* __restrict__ nrm_y,
-        const int* __restrict__ n_wp, const float* __restrict__ track_width,
+        const int* __restrict__ row_ids, const int* __restrict__ n_wp,
+        const float* __restrict__ track_width,
         float* __restrict__ nx, float* __restrict__ ny, float* __restrict__ nang,
         float* __restrict__ nvx, float* __restrict__ nvy, float* __restrict__ ccx,
         float* __restrict__ ccy, float* __restrict__ progress,
@@ -79,6 +82,7 @@ __global__ void __launch_bounds__(kMaxThreads) car_step_and_query_kernel(
     const int W = num_waypoints;
     const int cap = row_stage::field_capacity(W);
     const size_t row = blockIdx.x;
+    const size_t src = row_stage::source_row(row_ids, row);  // the waypoint row staged
     const float* fields[kFields] = {wp_x, wp_y};
 
     const int lane = threadIdx.x & 31;
@@ -86,7 +90,7 @@ __global__ void __launch_bounds__(kMaxThreads) car_step_and_query_kernel(
     const int warps = blockDim.x >> 5;
     if (threadIdx.x == 0) row_stage::init_barrier(&bar);
     __syncthreads();
-    if (warp == 0) row_stage::stage_row(stage, fields, kFields, row, W, cap, &bar);
+    if (warp == 0) row_stage::stage_row(stage, fields, kFields, src, W, cap, &bar);
 
     // the warp's car stepped, its centre and corners the queries
     car_step::Car c;
@@ -110,10 +114,10 @@ __global__ void __launch_bounds__(kMaxThreads) car_step_and_query_kernel(
     const float width = track_width[row];
     row_stage::wait_barrier(&bar);
     __syncthreads();  // the row (and its thread-copied parts) is in
-    const float* s_wx = row_stage::staged(stage, wp_x, row, W);
-    const float* s_wy = row_stage::staged(stage + cap, wp_y, row, W);
-    const float* row_nx = nrm_x + row * W;
-    const float* row_ny = nrm_y + row * W;
+    const float* s_wx = row_stage::staged(stage, wp_x, src, W);
+    const float* s_wy = row_stage::staged(stage + cap, wp_y, src, W);
+    const float* row_nx = nrm_x + src * W;
+    const float* row_ny = nrm_y + src * W;
 
     for (int a = warp; a < cars_per_row; a += warps) {
         const size_t car = row * cars_per_row + a;
@@ -189,8 +193,9 @@ __global__ void __launch_bounds__(kMaxThreads) car_step_and_query_kernel(
 
 // rows waypoint rows of cars_per_row cars each; the car fields [rows *
 // cars_per_row] (crashed as 0/1 bytes), the corners ccx, ccy [rows * cars_per_row,
-// 4], progress f32 and hit_wall bytes [rows * cars_per_row]; waypoint fields
-// [rows, num_waypoints], n_wp (int32) and track_width [rows]. The constants are
+// 4], progress f32 and hit_wall bytes [rows * cars_per_row]; n_wp (int32) and
+// track_width [rows]; row i of cars reads waypoint row row_ids[i] (row i where
+// row_ids is null) of the waypoint fields [*, num_waypoints]. The constants are
 // rounded to float32 by the caller. With num_hits (int32 [rows * cars_per_row])
 // not null, the row's cars are one env's and the kernel also runs the pair test
 // and scales nvx, nvy by collision_scale once per partner. One block of `threads`
@@ -201,7 +206,7 @@ extern "C" int car_step_and_query_f32(
         const float* x, const float* y, const float* angle, const float* vx,
         const float* vy, const unsigned char* crashed, const float* steering,
         const float* throttle, const float* wp_x, const float* wp_y,
-        const float* nrm_x, const float* nrm_y, const int* n_wp,
+        const float* nrm_x, const float* nrm_y, const int* row_ids, const int* n_wp,
         const float* track_width, float* nx, float* ny, float* nang, float* nvx,
         float* nvy, float* ccx, float* ccy, float* progress, unsigned char* hit_wall,
         int* num_hits, int rows, int cars_per_row, int num_waypoints, int threads,
@@ -221,7 +226,7 @@ extern "C" int car_step_and_query_f32(
         if (e != cudaSuccess) return e;
         kernel<<<rows, threads, smem, (cudaStream_t)stream>>>(
             x, y, angle, vx, vy, crashed, steering, throttle, wp_x, wp_y, nrm_x, nrm_y,
-            n_wp, track_width, nx, ny, nang, nvx, nvy, ccx, ccy, progress, hit_wall,
+            row_ids, n_wp, track_width, nx, ny, nang, nvx, nvy, ccx, ccy, progress, hit_wall,
             num_hits, cars_per_row, num_waypoints, k, half_length, half_width,
             collision_scale);
         return cudaGetLastError();

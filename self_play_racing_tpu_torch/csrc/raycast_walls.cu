@@ -31,6 +31,9 @@
 //     read, so the conflict costs little. A lane-major copy of the row (the
 //     transpose that removes the conflict) doubles a block's shared memory and
 //     measured slower at S = 896 and at S = 1024 (PERF.md, Findings);
+//   - with row ids (the capacity layouts, envs/track.py) block b stages pool row
+//     row_ids[b] instead of row b: many blocks read the same few rows, which the
+//     L2 then serves; a null pointer is row b, the gathered layout's code path;
 //   - at S = 896 a block needs 18 KB, so an SM holds 12 rows at once. The
 //     kernel's time follows the warps an SM holds more than anything else, so a
 //     block keeps one buffer: the other blocks of the SM overlap each block's
@@ -54,14 +57,15 @@ __global__ void __launch_bounds__(kMaxThreads) raycast_walls_kernel(
         const float* __restrict__ dx, const float* __restrict__ dy,
         const float* __restrict__ seg_sx, const float* __restrict__ seg_sy,
         const float* __restrict__ seg_vx, const float* __restrict__ seg_vy,
-        const float* __restrict__ seg_c, float* __restrict__ out,
-        int rays_per_row, int num_segments, float max_dist) {
+        const float* __restrict__ seg_c, const int* __restrict__ row_ids,
+        float* __restrict__ out, int rays_per_row, int num_segments, float max_dist) {
     extern __shared__ __align__(16) float stage[];
     __shared__ uint64_t bar;
     const int S = num_segments;
     const int L = (S + 31) / 32;
     const int cap = row_stage::field_capacity(32 * L);  // room for the padding past S
     const size_t row = blockIdx.x;
+    const size_t src = row_stage::source_row(row_ids, row);  // the segment row staged
     const float* fields[kFields] = {seg_sx, seg_sy, seg_vx, seg_vy, seg_c};
     const bool with_c = seg_c != nullptr;
     const int num_fields = with_c ? 5 : 4;
@@ -72,7 +76,7 @@ __global__ void __launch_bounds__(kMaxThreads) raycast_walls_kernel(
 
     if (threadIdx.x == 0) row_stage::init_barrier(&bar);
     __syncthreads();
-    if (warp == 0) row_stage::stage_row(stage, fields, num_fields, row, S, cap, &bar);
+    if (warp == 0) row_stage::stage_row(stage, fields, num_fields, src, S, cap, &bar);
 
     float rox[R], roy[R], rdx[R], rdy[R], u[R];
     auto load_rays = [&](int g) {
@@ -90,7 +94,7 @@ __global__ void __launch_bounds__(kMaxThreads) raycast_walls_kernel(
 
     row_stage::wait_barrier(&bar);
     const float* rs[kFields];
-    wall_fold::staged_fields(stage, fields, num_fields, row, S, L, cap, rs);
+    wall_fold::staged_fields(stage, fields, num_fields, src, S, L, cap, rs);
     __syncthreads();  // the row, its thread-copied parts and its padding are in
 
     for (int g = warp; g < groups; g += warps) {
@@ -113,19 +117,21 @@ __global__ void __launch_bounds__(kMaxThreads) raycast_walls_kernel(
 template <int R>
 int launch(const float* ox, const float* oy, const float* dx, const float* dy,
            const float* sx, const float* sy, const float* vx, const float* vy,
-           const float* c, float* out, int rows, int rays_per_row, int num_segments,
-           float max_dist, int threads, int smem, cudaStream_t stream) {
+           const float* c, const int* row_ids, float* out, int rows, int rays_per_row,
+           int num_segments, float max_dist, int threads, int smem, cudaStream_t stream) {
     auto kernel = raycast_walls_kernel<R>;
     const cudaError_t err = row_stage::allow_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<rows, threads, smem, stream>>>(ox, oy, dx, dy, sx, sy, vx, vy, c, out,
-                                            rays_per_row, num_segments, max_dist);
+    kernel<<<rows, threads, smem, stream>>>(ox, oy, dx, dy, sx, sy, vx, vy, c, row_ids,
+                                            out, rays_per_row, num_segments, max_dist);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// rows x rays_per_row rays; row i of the segment fields is [i*S, (i+1)*S).
+// rows x rays_per_row rays; row i of the segment fields is [i*S, (i+1)*S), and ray
+// row i sees segment row row_ids[i] (row i where row_ids is null; the ids lie in
+// the fields' rows, as the caller checked once when it built them).
 // seg_c may be null: the kernel then forms c = vy*sx - vx*sy itself. One block of
 // `threads` threads per row, `smem` bytes of dynamic shared memory for the staged
 // row and `rays_per_lane` rays a lane: the launch plan,
@@ -133,7 +139,7 @@ int launch(const float* ox, const float* oy, const float* dx, const float* dy,
 extern "C" int raycast_walls_f32(
         const float* ox, const float* oy, const float* dx, const float* dy,
         const float* seg_sx, const float* seg_sy, const float* seg_vx,
-        const float* seg_vy, const float* seg_c, float* out,
+        const float* seg_vy, const float* seg_c, const int* row_ids, float* out,
         int rows, int rays_per_row, int num_segments, float max_dist,
         int threads, int smem, int rays_per_lane, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
@@ -143,7 +149,7 @@ extern "C" int raycast_walls_f32(
         return (int)cudaErrorInvalidValue;
     const auto st = (cudaStream_t)stream;
 #define K1_LAUNCH(R) \
-    case R: return launch<R>(ox, oy, dx, dy, seg_sx, seg_sy, seg_vx, seg_vy, seg_c, out, \
+    case R: return launch<R>(ox, oy, dx, dy, seg_sx, seg_sy, seg_vx, seg_vy, seg_c, row_ids, out, \
                              rows, rays_per_row, num_segments, max_dist, threads, smem, st)
     switch (rays_per_lane) {
         K1_LAUNCH(1);

@@ -36,7 +36,9 @@
 //   - after the fold lane 0 holds the group's R winners; lane t takes ray t's by a
 //     shuffle, divides, and runs K3's edge loop for its ray (8 edges at 2 cars).
 //     It forms its ray again from (x, y, angle, rel) instead of keeping it through
-//     the fold: the fold's registers set how many blocks an SM holds.
+//     the fold: the fold's registers set how many blocks an SM holds;
+//   - with row ids (the capacity layouts) block b stages pool row row_ids[b]; the
+//     cars and rays stay env b's.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -70,7 +72,8 @@ __global__ void __launch_bounds__(kMaxThreads) raycast_walls_and_cars_kernel(
         const float* __restrict__ angle, const float* __restrict__ rel,
         const float* __restrict__ seg_sx, const float* __restrict__ seg_sy,
         const float* __restrict__ seg_vx, const float* __restrict__ seg_vy,
-        const float* __restrict__ seg_c, float* __restrict__ out, int num_cars,
+        const float* __restrict__ seg_c, const int* __restrict__ row_ids,
+        float* __restrict__ out, int num_cars,
         int num_sensors, int num_segments, float half_length, float half_width,
         float max_dist) {
     extern __shared__ __align__(16) float stage[];
@@ -79,6 +82,7 @@ __global__ void __launch_bounds__(kMaxThreads) raycast_walls_and_cars_kernel(
     const int L = (S + 31) / 32;
     const int cap = row_stage::field_capacity(32 * L);  // room for the padding past S
     const size_t row = blockIdx.x;
+    const size_t src = row_stage::source_row(row_ids, row);  // the segment row staged
     const float* fields[kFields] = {seg_sx, seg_sy, seg_vx, seg_vy, seg_c};
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
@@ -88,7 +92,7 @@ __global__ void __launch_bounds__(kMaxThreads) raycast_walls_and_cars_kernel(
 
     if (threadIdx.x == 0) row_stage::init_barrier(&bar);
     __syncthreads();
-    if (warp == 0) row_stage::stage_row(stage, fields, kFields, row, S, cap, &bar);
+    if (warp == 0) row_stage::stage_row(stage, fields, kFields, src, S, cap, &bar);
 
     // the row's cars, beside the staged walls
     const car_hits::Cars cars = car_hits::layout(stage + kFields * cap, num_cars);
@@ -127,7 +131,7 @@ __global__ void __launch_bounds__(kMaxThreads) raycast_walls_and_cars_kernel(
 
     row_stage::wait_barrier(&bar);
     const float* rs[kFields];
-    wall_fold::staged_fields(stage, fields, kFields, row, S, L, cap, rs);
+    wall_fold::staged_fields(stage, fields, kFields, src, S, L, cap, rs);
     __syncthreads();  // the walls, their padding and the cars are in
 
     for (int g = warp; g < groups; g += warps) {
@@ -160,13 +164,14 @@ __global__ void __launch_bounds__(kMaxThreads) raycast_walls_and_cars_kernel(
 template <int R>
 int launch(const float* x, const float* y, const float* angle, const float* rel,
            const float* sx, const float* sy, const float* vx, const float* vy,
-           const float* c, float* out, int rows, int num_cars, int num_sensors,
+           const float* c, const int* row_ids, float* out, int rows, int num_cars,
+           int num_sensors,
            int num_segments, float half_length, float half_width, float max_dist,
            int threads, int smem, cudaStream_t stream) {
     auto kernel = raycast_walls_and_cars_kernel<R>;
     const cudaError_t err = row_stage::allow_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<rows, threads, smem, stream>>>(x, y, angle, rel, sx, sy, vx, vy, c, out,
+    kernel<<<rows, threads, smem, stream>>>(x, y, angle, rel, sx, sy, vx, vy, c, row_ids, out,
                                             num_cars, num_sensors, num_segments,
                                             half_length, half_width, max_dist);
     return (int)cudaGetLastError();
@@ -175,15 +180,16 @@ int launch(const float* x, const float* y, const float* angle, const float* rel,
 }  // namespace
 
 // rows env rows of num_cars cars: poses x, y, angle [rows * num_cars], sensor
-// angles rel [num_sensors], out [rows * num_cars * num_sensors]; row i of the
-// segment fields is [i*S, (i+1)*S), seg_c = vy*sx - vx*sy among them. One block
+// angles rel [num_sensors], out [rows * num_cars * num_sensors]; env row i sees
+// segment row row_ids[i] (row i where row_ids is null), row j of the segment
+// fields being [j*S, (j+1)*S), seg_c = vy*sx - vx*sy among them. One block
 // of `threads` threads per row, `smem` bytes of dynamic shared memory for the
 // staged row and its cars, `rays_per_lane` rays a lane: the launch plan,
 // ops/_cuda.py:raycast_walls_and_cars_plan. Returns a cudaError_t (0 on success).
 extern "C" int raycast_walls_and_cars_f32(
         const float* x, const float* y, const float* angle, const float* rel,
         const float* seg_sx, const float* seg_sy, const float* seg_vx,
-        const float* seg_vy, const float* seg_c, float* out,
+        const float* seg_vy, const float* seg_c, const int* row_ids, float* out,
         int rows, int num_cars, int num_sensors, int num_segments,
         float half_length, float half_width, float max_dist,
         int threads, int smem, int rays_per_lane, int device, void* stream) {
@@ -195,7 +201,7 @@ extern "C" int raycast_walls_and_cars_f32(
         return (int)cudaErrorInvalidValue;
     const auto st = (cudaStream_t)stream;
 #define RWC_LAUNCH(R) \
-    case R: return launch<R>(x, y, angle, rel, seg_sx, seg_sy, seg_vx, seg_vy, seg_c, out, \
+    case R: return launch<R>(x, y, angle, rel, seg_sx, seg_sy, seg_vx, seg_vy, seg_c, row_ids, out, \
                              rows, num_cars, num_sensors, num_segments, half_length, \
                              half_width, max_dist, threads, smem, st)
     switch (rays_per_lane) {

@@ -97,6 +97,12 @@ __device__ __forceinline__ void stage_row(float* dst, const float* const* fields
     }
 }
 
+// the row a block stages: row_ids[row] where the caller reads a resident pool by
+// row ids (the capacity layouts), else the block's own row
+__device__ __forceinline__ size_t source_row(const int* row_ids, size_t row) {
+    return row_ids ? static_cast<size_t>(row_ids[row]) : row;
+}
+
 // where element 0 of row `row` of a field sits in its stage
 __device__ __forceinline__ const float* staged(const float* stage_field, const float* field,
                                                size_t row, int n) {

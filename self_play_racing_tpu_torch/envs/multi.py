@@ -28,7 +28,8 @@ and the transition (``car_step_and_query``: K5, the corners and K2 of cars [N, A
 against waypoint rows [N, 1, W], and with more than one car K4 over each row's
 pairs and the velocity response). The JAX package's per-seat raycast unroll and
 its query-layout switch work around XLA fusion limits and have no counterpart
-here.
+here. The geometry is per-env ``TrackArrays`` or a capacity layout
+(``envs/track.py``), whose resident pool rows the two kernels read by row id.
 """
 from __future__ import annotations
 
@@ -41,7 +42,8 @@ import torch
 from .._numerics import const_div, div_const
 from ..ops import geometry as geo
 from ..ops.dynamics import DEFAULT_CAR, CarSpec, car_step_and_query
-from .track import TrackArrays
+from . import track as trk
+from .track import Track
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,14 +114,16 @@ def random_grid_slots(num_envs: int, num_agents: int, generator: torch.Generator
     return torch.argsort(u, dim=-1)
 
 
-def reset_state(cfg: MultiRacingConfig, track: TrackArrays, generator=None,
+def reset_state(cfg: MultiRacingConfig, track: Track, generator=None,
                 position_idx=None) -> MultiState:
     """Fresh state on the staggered start grid. ``position_idx`` [N, A] gives each
     car's grid slot; without it a random permutation per env is drawn from
     ``generator`` (on the track's device)."""
-    dtype = track.wp_x.dtype
-    dev = track.wp_x.device
-    n = track.wp_x.shape[0]
+    rows, _ = trk.rows_of(track)
+    start = trk.scalars_of(track)
+    dtype = rows.wp_x.dtype
+    dev = rows.wp_x.device
+    n = start.n_wp.shape[0]
     a = cfg.num_agents
     if position_idx is None:
         if generator is None:
@@ -130,14 +134,14 @@ def reset_state(cfg: MultiRacingConfig, track: TrackArrays, generator=None,
     spacing = cfg.car.width + 1.5
     center = (a - 1) / 2.0
     offset = (position_idx.to(dtype) - center) * spacing              # [N, A]
-    x = track.start_x[:, None] + track.start_nx[:, None] * offset
-    y = track.start_y[:, None] + track.start_ny[:, None] * offset
+    x = start.start_x[:, None] + start.start_nx[:, None] * offset
+    y = start.start_y[:, None] + start.start_ny[:, None] * offset
     zeros = torch.zeros((n, a), dtype=dtype, device=dev)
     false = torch.zeros((n, a), dtype=torch.bool, device=dev)
     izeros = torch.zeros((n, a), dtype=torch.int32, device=dev)
     return MultiState(
         x=x, y=y,
-        angle=track.start_angle[:, None].to(dtype).expand(n, a).contiguous(),
+        angle=start.start_angle[:, None].to(dtype).expand(n, a).contiguous(),
         vx=zeros, vy=zeros, progress=zeros,
         crashed=false, finished=false,
         steps=torch.zeros((n,), dtype=torch.int32, device=dev),
@@ -163,15 +167,16 @@ def _opponent_index(num_agents: int, device) -> torch.Tensor:
                            device=device)
 
 
-def observe(cfg: MultiRacingConfig, track: TrackArrays, state: MultiState) -> torch.Tensor:
+def observe(cfg: MultiRacingConfig, track: Track, state: MultiState) -> torch.Tensor:
     """Per-car observations, float32 [N, A, obs_dim]."""
     dtype, dev = state.x.dtype, state.x.device
     n, a = state.x.shape
     rel = _sensor_angles(cfg, dtype, dev)                             # [R]
+    rows, row_ids = trk.rows_of(track)
     dist = geo.raycast_walls_and_cars(
         state.x, state.y, state.angle, rel,
-        track.seg_sx, track.seg_sy, track.seg_vx, track.seg_vy, track.seg_c,
-        cfg.car.length / 2, cfg.car.width / 2, cfg.max_sensor_range,
+        rows.seg_sx, rows.seg_sy, rows.seg_vx, rows.seg_vy, rows.seg_c,
+        cfg.car.length / 2, cfg.car.width / 2, cfg.max_sensor_range, row_ids=row_ids,
     )                                                                 # [N, A, R]
     if cfg.clamp_sensor_range:
         dist = torch.clamp_max(dist, cfg.max_sensor_range)
@@ -186,7 +191,7 @@ def observe(cfg: MultiRacingConfig, track: TrackArrays, state: MultiState) -> to
     feats = torch.stack([v_fwd, v_lat, ang_vel, state.last_steering], dim=-1)
 
     # every ordered pair [N, i, j] at once, then seat i's opponents in seat order
-    max_td = track.max_track_distance[:, None, None].to(dtype)        # [N, 1, 1]
+    max_td = trk.scalars_of(track).max_track_distance[:, None, None].to(dtype)  # [N, 1, 1]
     rel_x = state.x[:, None, :] - state.x[:, :, None]
     rel_y = state.y[:, None, :] - state.y[:, :, None]
     rel_vx = state.vx[:, None, :] - state.vx[:, :, None]
@@ -204,7 +209,7 @@ def observe(cfg: MultiRacingConfig, track: TrackArrays, state: MultiState) -> to
     return torch.cat([rays, feats.to(torch.float32), opp.to(torch.float32)], dim=-1)
 
 
-def transition(cfg: MultiRacingConfig, track: TrackArrays, state: MultiState, action):
+def transition(cfg: MultiRacingConfig, track: Track, state: MultiState, action):
     """One step without sensing: (new_state, rewards [N, A], terminated [N],
     truncated [N], info). ``action`` [N, A, 2]. ``terminated`` is the shared
     per-car done; the episode's done is ``terminated | truncated``."""
@@ -216,13 +221,16 @@ def transition(cfg: MultiRacingConfig, track: TrackArrays, state: MultiState, ac
 
     # the step, the track query and, with more than one car, the car-car contacts
     # (every pair's SAT test; a car's velocity scaled once per partner it touches)
+    rows, row_ids = trk.rows_of(track)
+    per_env = trk.scalars_of(track)
     nx, ny, nang, nvx, nvy, ccx, ccy, raw_progress, hit_wall, *contacts = car_step_and_query(
         state.x, state.y, state.angle, state.vx, state.vy, state.crashed,
         steering, throttle, cfg.dt, cfg.car,
-        track.wp_x[:, None, :], track.wp_y[:, None, :],
-        track.nrm_x[:, None, :], track.nrm_y[:, None, :],
-        track.n_wp[:, None], track.track_width[:, None],
+        rows.wp_x[:, None, :], rows.wp_y[:, None, :],
+        rows.nrm_x[:, None, :], rows.nrm_y[:, None, :],
+        per_env.n_wp[:, None], per_env.track_width[:, None],
         collision_speed_scale=cfg.collision_speed_scale if a > 1 else None,
+        row_ids=row_ids,
     )
     new_progress = torch.where(state.crashed, state.progress, raw_progress)
     crashed = state.crashed | (~state.crashed & hit_wall)
@@ -301,7 +309,7 @@ def transition(cfg: MultiRacingConfig, track: TrackArrays, state: MultiState, ac
     return new_state, reward, terminated, truncated, info
 
 
-def info_from_state(cfg: MultiRacingConfig, track: TrackArrays, state: MultiState):
+def info_from_state(cfg: MultiRacingConfig, track: Track, state: MultiState):
     """Info for a state outside any transition (the reset-info contract):
     ``transition``'s schema with reward zeroed."""
     speed = torch.sqrt(state.vx * state.vx + state.vy * state.vy)
@@ -314,13 +322,13 @@ def info_from_state(cfg: MultiRacingConfig, track: TrackArrays, state: MultiStat
     }
 
 
-def reset(cfg: MultiRacingConfig, track: TrackArrays, generator=None, position_idx=None):
+def reset(cfg: MultiRacingConfig, track: Track, generator=None, position_idx=None):
     """(state, obs) for a fresh batch."""
     state = reset_state(cfg, track, generator, position_idx)
     return state, observe(cfg, track, state)
 
 
-def step(cfg: MultiRacingConfig, track: TrackArrays, state: MultiState, action):
+def step(cfg: MultiRacingConfig, track: Track, state: MultiState, action):
     """Full env step: (new_state, obs, reward, terminated, truncated, info)."""
     new_state, reward, terminated, truncated, info = transition(cfg, track, state, action)
     return new_state, observe(cfg, track, new_state), reward, terminated, truncated, info

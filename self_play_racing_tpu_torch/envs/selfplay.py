@@ -31,7 +31,7 @@ import torch
 
 from . import multi
 from . import normalize as obsnorm
-from .track import TrackArrays
+from .track import Track
 
 _ACTION_LOW = (-1.0, 0.0)
 _ACTION_HIGH = (1.0, 1.0)
@@ -43,7 +43,7 @@ class SelfPlayState:
     obs_all: torch.Tensor  # [N, A, obs_dim] float32: obs of the current state
 
 
-def reset_state(cfg: multi.MultiRacingConfig, track: TrackArrays, generator=None,
+def reset_state(cfg: multi.MultiRacingConfig, track: Track, generator=None,
                 position_idx=None) -> SelfPlayState:
     inner = multi.reset_state(cfg, track, generator, position_idx)
     return SelfPlayState(inner=inner, obs_all=multi.observe(cfg, track, inner))
@@ -133,7 +133,7 @@ def _step_inner(cfg, track, opp, state, action0, generator):
     return multi.transition(cfg, track, state.inner, actions)
 
 
-def transition(cfg: multi.MultiRacingConfig, track: TrackArrays, opp,
+def transition(cfg: multi.MultiRacingConfig, track: Track, opp,
                state: SelfPlayState, action0, generator=None):
     """Seat 0's step: the opponents act on their previous-step observations, the
     combined action steps the multi env, and the new state is sensed once.
@@ -153,7 +153,7 @@ def observe(state: SelfPlayState) -> torch.Tensor:
 # the deferred variants leave ``obs_all`` stale and ``refresh`` senses once per
 # vector step on the merged state.
 
-def reset_state_deferred(cfg: multi.MultiRacingConfig, track: TrackArrays,
+def reset_state_deferred(cfg: multi.MultiRacingConfig, track: Track,
                          generator=None, position_idx=None) -> SelfPlayState:
     inner = multi.reset_state(cfg, track, generator, position_idx)
     n = inner.x.shape[0]
@@ -161,7 +161,7 @@ def reset_state_deferred(cfg: multi.MultiRacingConfig, track: TrackArrays,
         (n, cfg.num_agents, cfg.obs_dim), dtype=torch.float32, device=inner.x.device))
 
 
-def transition_deferred(cfg: multi.MultiRacingConfig, track: TrackArrays, opp,
+def transition_deferred(cfg: multi.MultiRacingConfig, track: Track, opp,
                         state: SelfPlayState, action0, generator=None):
     """``transition`` without the observe pass; pair with ``refresh``."""
     inner, rewards, terminated, truncated, info = _step_inner(cfg, track, opp, state,
@@ -171,14 +171,14 @@ def transition_deferred(cfg: multi.MultiRacingConfig, track: TrackArrays, opp,
     return new_state, rewards[:, 0], terminated | truncated, truncated, info0
 
 
-def info0_from_state(cfg: multi.MultiRacingConfig, track: TrackArrays,
+def info0_from_state(cfg: multi.MultiRacingConfig, track: Track,
                      state: SelfPlayState):
     """Seat 0's view of ``multi.info_from_state`` (the reset-info contract)."""
     info = multi.info_from_state(cfg, track, state.inner)
     return {k: v[:, 0] for k, v in info.items()}
 
 
-def refresh(cfg: multi.MultiRacingConfig, track: TrackArrays, state: SelfPlayState):
+def refresh(cfg: multi.MultiRacingConfig, track: Track, state: SelfPlayState):
     """One observe pass over the (possibly autoreset-merged) state: the refreshed
     state and seat 0's observation."""
     obs_all = multi.observe(cfg, track, state.inner)

@@ -14,6 +14,8 @@ Branch-free over a leading ``[num_envs]`` axis:
 features) are separate so the autoreset wrapper can merge stepped and reset states
 first and raycast once per step. Observations are float32: ray hits are cast to f32
 before normalization, the other features are computed at state dtype and cast last.
+The geometry is per-env ``TrackArrays`` or a capacity layout (``envs/track.py``),
+whose resident pool rows the kernels read by row id.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ import torch
 from .._numerics import div_const
 from ..ops import geometry as geo
 from ..ops.dynamics import DEFAULT_CAR, CarSpec, car_step_and_query
-from .track import TrackArrays
+from . import track as trk
+from .track import Track
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,17 +94,19 @@ class RacingState:
     cp75: torch.Tensor
 
 
-def reset_state(cfg: RacingConfig, track: TrackArrays) -> RacingState:
+def reset_state(cfg: RacingConfig, track: Track) -> RacingState:
     """Fresh state for every env in the batch."""
-    dtype = track.wp_x.dtype
-    dev = track.wp_x.device
-    n = track.wp_x.shape[0]
+    rows, _ = trk.rows_of(track)
+    start = trk.scalars_of(track)
+    dtype = rows.wp_x.dtype
+    dev = rows.wp_x.device
+    n = start.n_wp.shape[0]
     zeros = torch.zeros((n,), dtype=dtype, device=dev)
     false = torch.zeros((n,), dtype=torch.bool, device=dev)
     car = CarState(
-        x=track.start_x.to(dtype).clone(),
-        y=track.start_y.to(dtype).clone(),
-        angle=track.start_angle.to(dtype).clone(),
+        x=start.start_x.to(dtype).clone(),
+        y=start.start_y.to(dtype).clone(),
+        angle=start.start_angle.to(dtype).clone(),
         vx=zeros, vy=zeros, progress=zeros,
         crashed=false, finished=false,
     )
@@ -119,20 +124,21 @@ def _sensor_angles(cfg: RacingConfig, dtype, device) -> torch.Tensor:
     return torch.as_tensor(cfg.sensor_angles(), dtype=dtype, device=device)
 
 
-def observe(cfg: RacingConfig, track: TrackArrays, state: RacingState) -> torch.Tensor:
+def observe(cfg: RacingConfig, track: Track, state: RacingState) -> torch.Tensor:
     """Observation per env, float32 [N, num_sensors + 4]."""
     car = state.car
     dtype = car.x.dtype
+    rows, row_ids = trk.rows_of(track)
     rel = _sensor_angles(cfg, dtype, car.x.device)                    # [R]
     world = car.angle[:, None] + rel[None, :]                         # [N, R]
     dist = geo.raycast_walls(
         car.x[:, None].expand(world.shape),
         car.y[:, None].expand(world.shape),
         torch.cos(world), torch.sin(world),
-        track.seg_sx[:, None, :], track.seg_sy[:, None, :],
-        track.seg_vx[:, None, :], track.seg_vy[:, None, :],
+        rows.seg_sx[:, None, :], rows.seg_sy[:, None, :],
+        rows.seg_vx[:, None, :], rows.seg_vy[:, None, :],
         cfg.max_sensor_range,
-        seg_c=track.seg_c[:, None, :],
+        seg_c=rows.seg_c[:, None, :], row_ids=row_ids,
     )                                                                 # [N, R]
     if cfg.clamp_sensor_range:
         dist = torch.clamp_max(dist, cfg.max_sensor_range)
@@ -148,7 +154,7 @@ def observe(cfg: RacingConfig, track: TrackArrays, state: RacingState) -> torch.
     return torch.cat([rays, feats.to(torch.float32)], dim=-1)
 
 
-def transition(cfg: RacingConfig, track: TrackArrays, state: RacingState, action,
+def transition(cfg: RacingConfig, track: Track, state: RacingState, action,
                speed_weight=None):
     """One env step without sensing: (new_state, reward, terminated, truncated, info).
 
@@ -164,11 +170,13 @@ def transition(cfg: RacingConfig, track: TrackArrays, state: RacingState, action
 
     # dynamics, then progress + wall collision (frozen once crashed) of the new
     # pose's centre and corners
+    rows, row_ids = trk.rows_of(track)
+    per_env = trk.scalars_of(track)
     nx, ny, nang, nvx, nvy, _, _, raw_progress, hit_wall = car_step_and_query(
         car.x, car.y, car.angle, car.vx, car.vy, car.crashed,
         steering, throttle, cfg.dt, cfg.car,
-        track.wp_x, track.wp_y, track.nrm_x, track.nrm_y,
-        track.n_wp, track.track_width,
+        rows.wp_x, rows.wp_y, rows.nrm_x, rows.nrm_y,
+        per_env.n_wp, per_env.track_width, row_ids=row_ids,
     )
     new_progress = torch.where(car.crashed, car.progress, raw_progress)
     crashed = car.crashed | (~car.crashed & hit_wall)
@@ -231,7 +239,7 @@ def transition(cfg: RacingConfig, track: TrackArrays, state: RacingState, action
     return new_state, reward, terminated, truncated, info
 
 
-def info_from_state(cfg: RacingConfig, track: TrackArrays, state: RacingState):
+def info_from_state(cfg: RacingConfig, track: Track, state: RacingState):
     """Info for a state outside any transition (the reset-info contract): the
     schema of ``transition``'s info with reward and progress_delta zeroed, so
     ``vector.step`` can substitute it on autoreset rows."""
@@ -249,13 +257,13 @@ def info_from_state(cfg: RacingConfig, track: TrackArrays, state: RacingState):
     }
 
 
-def reset(cfg: RacingConfig, track: TrackArrays):
+def reset(cfg: RacingConfig, track: Track):
     """(state, obs) for a fresh batch."""
     state = reset_state(cfg, track)
     return state, observe(cfg, track, state)
 
 
-def step(cfg: RacingConfig, track: TrackArrays, state: RacingState, action,
+def step(cfg: RacingConfig, track: Track, state: RacingState, action,
          speed_weight=None):
     """Full env step: (new_state, obs, reward, terminated, truncated, info)."""
     new_state, reward, terminated, truncated, info = transition(

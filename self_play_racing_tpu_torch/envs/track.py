@@ -1,4 +1,5 @@
-"""Procedural track generation (host NumPy) and padded track pools as tensors.
+"""Procedural track generation (host NumPy), padded track pools as tensors, and the
+pool-resident capacity layouts.
 
 Port of ``self_play_racing_tpu/envs/track.py``. The host pipeline is the JAX
 package's, kept as NumPy/SciPy so the control-point streams and the float64 geometry
@@ -13,6 +14,7 @@ Padding contract (consumed by ``ops.geometry``):
 from __future__ import annotations
 
 import dataclasses
+from typing import Union
 
 import numpy as np
 import torch
@@ -288,6 +290,158 @@ def default_track_pool(dtype=torch.float32, device=None):
 def gather_tracks(pool: TrackArrays, track_ids) -> TrackArrays:
     """Per-env track data: gather pool rows by env->track assignment (once, outside
     the step loop, so every step reads contiguous per-env geometry)."""
-    ids = torch.as_tensor(np.asarray(track_ids), dtype=torch.long,
-                          device=pool.wp_x.device)
+    dev = pool.wp_x.device
+    if isinstance(track_ids, torch.Tensor):
+        ids = track_ids.to(device=dev, dtype=torch.long)
+    else:
+        ids = torch.as_tensor(np.asarray(track_ids), dtype=torch.long, device=dev)
     return tree_map(lambda a: a.index_select(0, ids), pool)
+
+
+# ------------------------------------------------------------ capacity layouts
+#
+# The pool stays resident with one row id per env; the env kernels stage pool row
+# ``row_ids[i]`` for env i (``ops.geometry`` and ``ops.dynamics`` take ``row_ids``),
+# so per-env copies of the [W] and [S] rows never exist. What the envs read per env
+# besides the rows, eight scalars, is gathered once when a layout is built.
+
+SCALAR_FIELDS = ("n_wp", "track_width", "max_track_distance", "start_x", "start_y",
+                 "start_angle", "start_nx", "start_ny")
+
+
+@dataclasses.dataclass
+class TrackScalars:
+    """The per-env scalars of a layout's tracks, [N] each (32 bytes an env)."""
+
+    n_wp: torch.Tensor                # int32
+    track_width: torch.Tensor
+    max_track_distance: torch.Tensor
+    start_x: torch.Tensor
+    start_y: torch.Tensor
+    start_angle: torch.Tensor
+    start_nx: torch.Tensor
+    start_ny: torch.Tensor
+
+
+@dataclasses.dataclass
+class _PoolLayout:
+    pool: TrackArrays
+    ids: torch.Tensor       # int32 [N]: the pool row (track) env i reads, in [0, T)
+    env: TrackScalars       # gathered once from the pool at ids
+
+    def gather(self) -> TrackArrays:
+        """The per-env ``TrackArrays`` this layout stands for (a copy of every row
+        per env: what the kernels avoid by reading the pool through the ids)."""
+        return gather_tracks(self.pool, self.ids)
+
+    @property
+    def num_envs(self):
+        return self.ids.shape[0]
+
+    @property
+    def num_tracks(self):
+        return self.pool.num_tracks
+
+
+@dataclasses.dataclass
+class PooledTracks(_PoolLayout):
+    """Pool-resident geometry with an arbitrary env -> track assignment: the
+    ``[tracks, ...]`` pool and one int32 track id per env. Residency is
+    O(tracks x segments) plus 36 bytes an env."""
+
+
+@dataclasses.dataclass
+class GroupedPooledTracks(_PoolLayout):
+    """Pool-resident geometry with a block-grouped assignment: envs come in
+    contiguous blocks of ``block_envs``, every env of block i racing track
+    ``block_ids[i]``. Equal to ``gather_tracks(pool, np.repeat(block_ids,
+    block_envs))``."""
+
+    block_ids: torch.Tensor   # int32 [num_blocks]
+    block_envs: int
+
+
+@dataclasses.dataclass
+class TiledPooledTracks(_PoolLayout):
+    """Pool-resident geometry for the interleaved default assignment
+    ``arange(num_envs) % num_tracks``: env i races track ``i % T``, so every
+    trajectory equals the gathered default's. ``reps`` = envs per track."""
+
+    reps: int
+
+
+LAYOUTS = (PooledTracks, GroupedPooledTracks, TiledPooledTracks)
+# what the envs take as geometry: per-env rows, or a layout over a resident pool
+Track = Union[TrackArrays, PooledTracks, GroupedPooledTracks, TiledPooledTracks]
+
+
+def _host_ids(ids, num_tracks: int, what: str) -> np.ndarray:
+    """Track ids checked once on the host: integers, one axis, in [0, num_tracks)."""
+    if isinstance(ids, torch.Tensor):
+        ids = ids.detach().cpu().numpy()
+    ids = np.asarray(ids)
+    if ids.dtype.kind not in "iu":
+        raise TypeError(f"{what} must be integers, got {ids.dtype}")
+    if ids.ndim != 1:
+        raise ValueError(f"{what} must have one axis, got shape {ids.shape}")
+    if ids.size and (ids.min() < 0 or ids.max() >= num_tracks):
+        raise ValueError(f"{what} must lie in [0, {num_tracks}), got "
+                         f"[{ids.min()}, {ids.max()}]")
+    return ids
+
+
+def _layout_fields(pool: TrackArrays, ids: np.ndarray):
+    """pool, ids (int32 on the pool's device) and the per-env scalars."""
+    rows = torch.as_tensor(ids.astype(np.int32), device=pool.wp_x.device)
+    env = TrackScalars(**{f: getattr(pool, f).index_select(0, rows.long())
+                          for f in SCALAR_FIELDS})
+    return dict(pool=pool, ids=rows, env=env)
+
+
+def pooled_tracks(pool: TrackArrays, track_ids) -> PooledTracks:
+    """The pool-resident layout for an arbitrary assignment (cf. ``gather_tracks``
+    for per-env copies). The ids are checked here, once, on the host."""
+    ids = _host_ids(track_ids, pool.num_tracks, "track ids")
+    return PooledTracks(**_layout_fields(pool, ids))
+
+
+def grouped_pooled_tracks(pool: TrackArrays, block_ids, block_envs: int) -> GroupedPooledTracks:
+    """The block-grouped layout (see ``GroupedPooledTracks``)."""
+    blocks = _host_ids(block_ids, pool.num_tracks, "block ids")
+    block_envs = int(block_envs)
+    if block_envs < 1:
+        raise ValueError(f"block_envs must be positive, got {block_envs}")
+    fields = _layout_fields(pool, np.repeat(blocks, block_envs))
+    return GroupedPooledTracks(
+        **fields, block_ids=torch.as_tensor(blocks.astype(np.int32), device=pool.wp_x.device),
+        block_envs=block_envs)
+
+
+def tiled_pooled_tracks(pool: TrackArrays, num_envs: int) -> TiledPooledTracks:
+    """The layout of the default assignment ``arange(num_envs) % T``; ``num_envs``
+    must be a multiple of the pool size T."""
+    t = pool.num_tracks
+    if num_envs % t:
+        raise ValueError(f"num_envs={num_envs} not divisible by pool size {t}")
+    return TiledPooledTracks(**_layout_fields(pool, np.arange(num_envs) % t),
+                             reps=num_envs // t)
+
+
+def resolve(track) -> TrackArrays:
+    """Per-env ``TrackArrays`` from any geometry layout (a gathered copy; the envs
+    read a layout through ``rows_of`` and ``scalars_of`` instead)."""
+    return track.gather() if isinstance(track, LAYOUTS) else track
+
+
+def rows_of(track):
+    """(rows, row_ids): what the env kernels read. A layout's resident pool and
+    its per-env row ids, or a per-env ``TrackArrays`` and None (env i reads row i)."""
+    if isinstance(track, LAYOUTS):
+        return track.pool, track.ids
+    return track, None
+
+
+def scalars_of(track):
+    """The per-env scalars (``SCALAR_FIELDS``, [N] each): a per-env
+    ``TrackArrays`` itself, or a layout's ``env``."""
+    return track.env if isinstance(track, LAYOUTS) else track

@@ -12,7 +12,9 @@ policy); the episode's numbers are the first finished car's.
 
 The CLI writes ``data/eval_info_single.json``, ``data/eval_info_self_play.json``
 and ``static/eval_comparison.png`` relative to the working directory, as the JAX
-package's does. SB3 and procgen evaluation come with a later part of the port.
+package's does. ``--procgen`` also drives each ``--multi`` policy zero-shot on
+``--num-tracks`` unseen procedural tracks built on the card (``envs/procgen.py``)
+and prints its gap to the grid. SB3 evaluation is not ported yet.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import torch
 from . import interop
 from ._device import resolve_device
 from .envs import multi as menv
+from .envs import procgen as pg
 from .envs import single as senv
 from .models import actor_critic as net
 from .utils import metrics as M
@@ -80,6 +83,25 @@ def evaluate_multi_agent_overall(grid, model_path, seed=42, deterministic=False,
     return _evaluate_overall(grid, model_path,
                              menv.MultiRacingConfig(num_agents=num_agents, num_sensors=11),
                              M.rollout_multi, 3000, seed, deterministic)
+
+
+def evaluate_multi_agent_procgen(model_path, num_tracks=40, num_points=12,
+                                 width_range=(4.0, 10.0), seed=777, eval_seed=42,
+                                 deterministic=False, num_agents=2, max_steps=3000,
+                                 device=None):
+    """Zero-shot track generalization: the shared-policy multi-car evaluation on
+    ``num_tracks`` unseen procedural tracks (one race each) built on ``device``
+    from a generator seeded ``seed``; the start grid and the sampled actions draw
+    from a generator seeded ``eval_seed``. Returns the aggregate."""
+    dev = resolve_device(device)
+    pool = pg.gen_track_pool(torch.Generator(device=dev).manual_seed(seed), num_tracks,
+                             num_points, width_range=width_range)
+    params, log_std, obs_norm = load_policy_bundle(model_path, dev)
+    eps = M.rollout_multi(
+        params, log_std, menv.MultiRacingConfig(num_agents=num_agents, num_sensors=11),
+        pool, torch.Generator(device=dev).manual_seed(eval_seed), max_steps=max_steps,
+        deterministic=deterministic, obs_norm=obs_norm)
+    return M.aggregate(eps)
 
 
 def display_comparison(results_files, labels, output_path):
@@ -164,17 +186,19 @@ def main(argv=None):
     p.add_argument("--multi", action="append", default=[],
                    help="path to a self-play/multi-car policy (.npz or .pth)")
     p.add_argument("--sb3", action="append", default=[], help=argparse.SUPPRESS)
-    p.add_argument("--procgen", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--procgen", action="store_true",
+                   help="also evaluate each --multi policy zero-shot on --num-tracks "
+                        "unseen procedural tracks built on the card, and print the "
+                        "gap to the grid")
     p.add_argument("--num-tracks", type=int, default=40)
     p.add_argument("--num-runs", type=int, default=5)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--deterministic", action="store_true")
     p.add_argument("--device", default=None, help="default: cuda")
     args = p.parse_args(argv)
-    later = [f for f, v in (("--sb3", args.sb3), ("--procgen", args.procgen)) if v]
-    if later:
-        raise SystemExit(f"{', '.join(later)}: not ported yet; it comes with slice 4 "
-                         "of the port (this port evaluates --single and --multi)")
+    if args.sb3:
+        raise SystemExit("--sb3: not ported yet (this port evaluates --single and "
+                         "--multi, and --multi with --procgen)")
     models = {}
     for i, path in enumerate(args.single):
         models[f"single_{i}" if len(args.single) > 1 else "single"] = ("single", path)
@@ -182,8 +206,36 @@ def main(argv=None):
         models[f"self_play_{i}" if len(args.multi) > 1 else "self_play"] = ("multi", path)
     if not models:
         raise SystemExit("pass at least one --single or --multi model path")
-    return eval(models, args.num_tracks, args.num_runs, args.seed,
-                deterministic=args.deterministic, device=args.device)
+    by_label = eval(models, args.num_tracks, args.num_runs, args.seed,
+                    deterministic=args.deterministic, device=args.device)
+    if args.procgen:
+        if not args.multi:
+            print("--procgen: no --multi models to evaluate (the flag applies to "
+                  "multi-car policies)")
+        procgen_transfer(by_label, args.multi, num_tracks=args.num_tracks,
+                         deterministic=args.deterministic, device=args.device)
+    return by_label
+
+
+def procgen_transfer(by_label, multi_paths, num_tracks=40, deterministic=False,
+                     device=None):
+    """``--procgen``: each ``--multi`` policy zero-shot on ``num_tracks`` unseen
+    procedural tracks, beside its grid result in ``by_label`` (``eval()``'s, held in
+    memory, not read back), under which it is stored as ``"procgen"``; prints the
+    transfer gap."""
+    for i, path in enumerate(multi_paths):
+        r = evaluate_multi_agent_procgen(path, num_tracks=num_tracks,
+                                         deterministic=deterministic, device=device)
+        label = f"self_play_{i}" if len(multi_paths) > 1 else "self_play"
+        grid = by_label[label]["results"]
+        by_label[label]["procgen"] = r
+        print(f"procgen zero-shot ({os.path.basename(path)}): "
+              f"success_rate={r['success_rate']:.3f} "
+              f"crash_rate={r['crash_rate']:.3f} "
+              f"avg_speed={r['avg_speed']:.2f} | transfer gap vs grid: "
+              f"success {r['success_rate'] - grid['success_rate']:+.3f} "
+              f"speed {r['avg_speed'] - grid['avg_speed']:+.2f}")
+    return by_label
 
 
 if __name__ == "__main__":

@@ -41,15 +41,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "raycast_walls_f32": [_P] * 10 + [_I, _I, _I, _F] + [_I] * 3 + [_I, _P],
+    "raycast_walls_f32": [_P] * 11 + [_I, _I, _I, _F] + [_I] * 3 + [_I, _P],
     "progress_and_collision_f32": [_P] * 12 + [_I] * 6 + [_I, _P],
     "raycast_cars_f32": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
     "rectangles_intersect_u8": [_P] * 3 + [_I, _I, _I, _P],
     "car_update_f32": [_P] * 13 + [_I] + [_F] * 8 + [_I, _P],
     "compute_gae_f32": [_P] * 7 + [_I, _I, ctypes.c_float, ctypes.c_float, _I, _P],
     "mixbits_permutation_i32": [_P, _P, _I, _I, _I, _P],
-    "raycast_walls_and_cars_f32": [_P] * 10 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_I, _P],
-    "car_step_and_query_f32": [_P] * 24 + [_I] * 5 + [_F] * 11 + [_I, _P],
+    "raycast_walls_and_cars_f32": [_P] * 11 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_I, _P],
+    "car_step_and_query_f32": [_P] * 25 + [_I] * 5 + [_F] * 11 + [_I, _P],
 }
 
 _lock = threading.Lock()
@@ -242,13 +242,14 @@ def car_step_query_plan(cars_per_row: int, num_waypoints: int,
 
 def launch_raycast_walls(ox, oy, dx, dy, sx, sy, vx, vy, c, out,
                          rows: int, rays_per_row: int, num_segments: int,
-                         max_dist: float) -> None:
+                         max_dist: float, row_ids=None) -> None:
     """Launch K1 on ``out.device``'s current stream, as ``raycast_walls_plan``
     says (which raises before any launch on what the kernel cannot take).
-    Tensors are contiguous f32."""
+    Tensors are contiguous f32; ``row_ids`` (int32 [rows], or None for row i)
+    names the segment row each row of rays stages."""
     plan = raycast_walls_plan(rays_per_row, num_segments)
     _call("raycast_walls", "raycast_walls_f32", out.device,
-          *map(_ptr, (ox, oy, dx, dy, sx, sy, vx, vy, c, out)),
+          *map(_ptr, (ox, oy, dx, dy, sx, sy, vx, vy, c, row_ids, out)),
           rows, rays_per_row, num_segments, float(max_dist), plan.threads, plan.smem,
           plan.rays_per_lane)
 
@@ -299,13 +300,14 @@ def launch_car_update(x, y, angle, vx, vy, crashed, steering, throttle, nx, ny,
 def launch_raycast_walls_and_cars(x, y, angle, rel, sx, sy, vx, vy, c, out, rows: int,
                                   num_cars: int, num_sensors: int, num_segments: int,
                                   half_length: float, half_width: float,
-                                  max_dist: float) -> None:
+                                  max_dist: float, row_ids=None) -> None:
     """Launch the multi-car sensing kernel on ``out.device``'s current stream, as
     ``raycast_walls_and_cars_plan`` says. Tensors are contiguous f32;
-    ``half_length`` and ``half_width`` are float32 values."""
+    ``half_length`` and ``half_width`` are float32 values; ``row_ids`` (int32
+    [rows], or None for row i) names the segment row each env row stages."""
     plan = raycast_walls_and_cars_plan(num_cars, num_sensors, num_segments)
     _call("raycast_walls_and_cars", "raycast_walls_and_cars_f32", out.device,
-          *map(_ptr, (x, y, angle, rel, sx, sy, vx, vy, c, out)),
+          *map(_ptr, (x, y, angle, rel, sx, sy, vx, vy, c, row_ids, out)),
           rows, num_cars, num_sensors, num_segments, float(half_length),
           float(half_width), float(max_dist), plan.threads, plan.smem, plan.rays_per_lane)
 
@@ -314,7 +316,8 @@ def launch_car_step_and_query(x, y, angle, vx, vy, crashed, steering, throttle, 
                               wp_y, nrm_x, nrm_y, n_wp, track_width, nx, ny, nang, nvx,
                               nvy, ccx, ccy, progress, hit_wall, rows: int,
                               cars_per_row: int, num_waypoints: int, constants,
-                              num_hits=None, collision_scale: float = 1.0) -> None:
+                              num_hits=None, collision_scale: float = 1.0,
+                              row_ids=None) -> None:
     """Launch the transition kernel on ``nx.device``'s current stream, as
     ``car_step_query_plan`` says: ``rows`` waypoint rows, car i against row
     ``i // cars_per_row``. Tensors are contiguous (f32, ``crashed`` and ``hit_wall``
@@ -322,12 +325,14 @@ def launch_car_step_and_query(x, y, angle, vx, vy, crashed, steering, throttle, 
     the ten float32 values the kernel takes (K5's eight, then the half length and
     half width). ``num_hits`` (int32, one per car) runs the pair test over each
     row's cars, which must be one race, and scales their velocities by the float32
-    ``collision_scale`` once per partner; None skips it."""
+    ``collision_scale`` once per partner; None skips it. ``row_ids`` (int32
+    [rows], or None for row i) names the waypoint row each row of cars stages;
+    ``n_wp`` and ``track_width`` stay one per row of cars."""
     plan = car_step_query_plan(cars_per_row, num_waypoints, num_hits is not None)
     _call("car_step_and_query", "car_step_and_query_f32", nx.device,
           *map(_ptr, (x, y, angle, vx, vy, crashed, steering, throttle, wp_x, wp_y, nrm_x,
-                      nrm_y, n_wp, track_width, nx, ny, nang, nvx, nvy, ccx, ccy, progress,
-                      hit_wall, num_hits)),
+                      nrm_y, row_ids, n_wp, track_width, nx, ny, nang, nvx, nvy, ccx, ccy,
+                      progress, hit_wall, num_hits)),
           rows, cars_per_row, num_waypoints, plan.threads, plan.smem,
           *map(float, constants), float(collision_scale))
 

@@ -30,8 +30,9 @@ import numpy as np
 
 from .._numerics import const_div
 from . import _cuda
-from .geometry import (_check_f32, _on_cuda, _rows_leading, car_corners,
-                       progress_and_collision_plain, rectangles_intersect_pairs_plain)
+from .geometry import (_check_f32, _check_row_ids, _on_cuda, _rows_leading, car_corners,
+                       pool_rows, progress_and_collision_plain,
+                       rectangles_intersect_pairs_plain)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +53,7 @@ DEFAULT_CAR = CarSpec()
 
 car_update_launches = 0
 car_step_and_query_launches = 0
+car_step_and_query_row_id_launches = 0  # those of them that read pool rows by id
 
 
 def car_update(x, y, angle, vx, vy, crashed, steering, throttle, dt=0.05,
@@ -135,7 +137,7 @@ def car_update_plain(x, y, angle, vx, vy, crashed, steering, throttle, dt=0.05,
 
 def car_step_and_query(x, y, angle, vx, vy, crashed, steering, throttle, dt, spec,
                        wp_x, wp_y, nrm_x, nrm_y, n_wp, track_width,
-                       collision_speed_scale=None):
+                       collision_speed_scale=None, row_ids=None):
     """The envs' transition kernel: ``car_update``, then the corners of the new
     pose (``car_corners``, the spec's half length and width), then
     ``progress_and_collision`` of the new centre and corners.
@@ -152,23 +154,29 @@ def car_step_and_query(x, y, angle, vx, vy, crashed, steering, throttle, dt, spe
     against itself excluded), each car's velocity is multiplied by the scale once
     per partner it touches, and ``num_hits`` (``B`` int32) is returned last. On the
     card one waypoint row must be one race (``P`` = ``B[:-1]``).
+
+    With ``row_ids`` [N] the waypoint fields' first axis is a pool's rows, and row
+    i of ``P`` reads pool row ``row_ids[i]``; ``n_wp`` and ``track_width`` stay one
+    per row of ``P`` (an env's).
     """
-    global car_step_and_query_launches
+    global car_step_and_query_launches, car_step_and_query_row_id_launches
     args = (x, y, angle, vx, vy, crashed, steering, throttle, dt, spec, wp_x, wp_y, nrm_x,
-            nrm_y, n_wp, track_width, collision_speed_scale)
+            nrm_y, n_wp, track_width, collision_speed_scale, row_ids)
     if not _on_cuda(x, "car_step_and_query"):
         return car_step_and_query_plain(*args)
     out = _car_step_and_query_cuda(*args)
     car_step_and_query_launches += 1
+    car_step_and_query_row_id_launches += row_ids is not None
     return out
 
 
 def car_step_and_query_plain(x, y, angle, vx, vy, crashed, steering, throttle, dt, spec,
                              wp_x, wp_y, nrm_x, nrm_y, n_wp, track_width,
-                             collision_speed_scale=None):
+                             collision_speed_scale=None, row_ids=None):
     """Plain PyTorch version: ``car_update_plain``, ``car_corners`` and
     ``progress_and_collision_plain``, and with ``collision_speed_scale`` the
     multi-car env's contact response, as the envs composed them."""
+    wp_x, wp_y, nrm_x, nrm_y = pool_rows(row_ids, wp_x, wp_y, nrm_x, nrm_y)
     nx, ny, nang, nvx, nvy = car_update_plain(x, y, angle, vx, vy, crashed, steering,
                                               throttle, dt, spec)
     ccx, ccy = car_corners(nx, ny, nang, spec.length / 2, spec.width / 2)
@@ -193,10 +201,11 @@ def car_step_and_query_plain(x, y, angle, vx, vy, crashed, steering, throttle, d
 
 def _car_step_and_query_cuda(x, y, angle, vx, vy, crashed, steering, throttle, dt, spec,
                              wp_x, wp_y, nrm_x, nrm_y, n_wp, track_width,
-                             collision_speed_scale=None):
-    """On the card: one block per waypoint row, a warp per car. The car fields are
-    made contiguous (they are small), the waypoint fields must be. The pair test
-    runs inside the block, so it needs one block to be one race."""
+                             collision_speed_scale=None, row_ids=None):
+    """On the card: one block per waypoint row (with ``row_ids``, per env row,
+    staging pool row ``row_ids[i]``), a warp per car. The car fields are made
+    contiguous (they are small), the waypoint fields must be. The pair test runs
+    inside the block, so it needs one block to be one race."""
     dev = x.device
     floats = [x, y, angle, vx, vy, steering, throttle]
     wp = [wp_x, wp_y, nrm_x, nrm_y]
@@ -210,6 +219,9 @@ def _car_step_and_query_cuda(x, y, angle, vx, vy, crashed, steering, throttle, d
         raise ValueError("car_step_and_query: the waypoint fields must share one "
                          "contiguous shape P+(W,)")
     row_shape = wp_x.shape[:-1]
+    if row_ids is not None:
+        _check_row_ids("car_step_and_query", row_ids, wp_x.shape[0], dev)
+        row_shape = row_ids.shape + row_shape[1:]
     rows, cars_per_row = _rows_leading(row_shape, batch, "car_step_and_query",
                                        "waypoint rows", "car batch shape")
     pairs = collision_speed_scale is not None
@@ -226,7 +238,11 @@ def _car_step_and_query_cuda(x, y, angle, vx, vy, crashed, steering, throttle, d
         t = torch.as_tensor(t, device=dev)
         if t.dtype != dtype:
             raise TypeError(f"car_step_and_query: {name} must be {dtype}")
-        if torch.broadcast_shapes(t.shape, row_shape) != row_shape:
+        try:
+            fits = torch.broadcast_shapes(t.shape, row_shape) == row_shape
+        except RuntimeError:
+            fits = False
+        if not fits:
             raise ValueError(f"car_step_and_query: {name} {tuple(t.shape)} is not one "
                              f"value per waypoint row {tuple(row_shape)}")
         per_row.append(t.expand(row_shape).reshape(rows).contiguous())
@@ -242,6 +258,6 @@ def _car_step_and_query_cuda(x, y, angle, vx, vy, crashed, steering, throttle, d
         _cuda.launch_car_step_and_query(
             *ins, *wp, *per_row, *outs, *corners, progress, hit_wall, rows, cars_per_row,
             num_waypoints, constants, num_hits,
-            f32(collision_speed_scale) if pairs else 1.0)
+            f32(collision_speed_scale) if pairs else 1.0, row_ids=row_ids)
     out = (*outs, *corners, progress, hit_wall)
     return out + (num_hits,) if pairs else out

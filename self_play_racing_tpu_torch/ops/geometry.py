@@ -15,7 +15,14 @@ The reductions of the env step have two versions each:
   formed inside it). Its plain version is that composition of the plain pieces.
 - ``<name>_launches`` count kernel launches (plain integers, incremented only where
   a kernel launched), so a run can show that its main path went through the
-  kernels.
+  kernels; ``<name>_row_id_launches`` count those of them that read pool rows by
+  id.
+- ``raycast_walls`` and ``raycast_walls_and_cars`` (and ``dynamics.car_step_and_query``)
+  take optional ``row_ids``, int32 [N]: the segment (waypoint) fields are then the
+  rows of a resident pool, and env i reads pool row ``row_ids[i]`` (the capacity
+  layouts of ``envs/track.py``). The kernels stage that row; the plain versions
+  ``index_select`` the rows and run as before. The ids' values are checked when a
+  layout is built, never here: that would read the device on every step.
 """
 from __future__ import annotations
 
@@ -35,6 +42,8 @@ progress_and_collision_launches = 0
 raycast_cars_launches = 0
 rectangles_intersect_launches = 0
 raycast_walls_and_cars_launches = 0
+raycast_walls_row_id_launches = 0
+raycast_walls_and_cars_row_id_launches = 0
 
 
 def _on_cuda(t: torch.Tensor, name: str) -> bool:
@@ -48,29 +57,43 @@ def _on_cuda(t: torch.Tensor, name: str) -> bool:
 # ---------------------------------------------------------------- K1: wall raycast
 
 def raycast_walls(ox, oy, dx, dy, seg_sx, seg_sy, seg_vx, seg_vy, max_dist,
-                  seg_c=None):
+                  seg_c=None, row_ids=None):
     """Min hit distance of rays against boundary segments.
 
     ox, oy, dx, dy: ray origins/directions, batch shape ``B``.
     seg_*: segment start points and direction vectors, shape broadcastable to
-      ``B + (S,)`` (padding segments have zero direction vectors).
+      ``B + (S,)`` (padding segments have zero direction vectors); with
+      ``row_ids`` [N] their first axis is a pool's rows, and ray row i (the first
+      axis of ``B``) sees pool row ``row_ids[i]``.
     Returns shape ``B``: the nearest hit distance, else ``max_dist``. A hit beyond
     ``max_dist`` is returned unclamped, as in the reference.
     """
-    global raycast_walls_launches
+    global raycast_walls_launches, raycast_walls_row_id_launches
     if not _on_cuda(seg_sx, "raycast_walls"):
         return raycast_walls_plain(ox, oy, dx, dy, seg_sx, seg_sy, seg_vx, seg_vy,
-                                   max_dist, seg_c)
+                                   max_dist, seg_c, row_ids)
     out = _raycast_walls_cuda(ox, oy, dx, dy, seg_sx, seg_sy, seg_vx, seg_vy,
-                              max_dist, seg_c)
+                              max_dist, seg_c, row_ids)
     raycast_walls_launches += 1
+    raycast_walls_row_id_launches += row_ids is not None
     return out
 
 
+def pool_rows(row_ids, *fields):
+    """The plain versions' read of pool rows: each field's rows at ``row_ids``
+    (the fields themselves when ``row_ids`` is None; None stays None)."""
+    if row_ids is None:
+        return fields
+    idx = row_ids.long()
+    return tuple(None if t is None else t.index_select(0, idx) for t in fields)
+
+
 def raycast_walls_plain(ox, oy, dx, dy, seg_sx, seg_sy, seg_vx, seg_vy, max_dist,
-                        seg_c=None):
+                        seg_c=None, row_ids=None):
     """Plain PyTorch K1: the JAX package's division-free form, reduced by a
     pairwise tree fold in index order (ties keep the left operand)."""
+    seg_sx, seg_sy, seg_vx, seg_vy, seg_c = pool_rows(row_ids, seg_sx, seg_sy, seg_vx,
+                                                      seg_vy, seg_c)
     if seg_c is None:
         seg_c = seg_vy * seg_sx - seg_vx * seg_sy
     u = ox * dy - oy * dx
@@ -107,11 +130,14 @@ def _ratio_min_fold(a, d):
     return a[..., 0], d[..., 0]
 
 
-def _rows_leading(row_shape, batch_shape, name, rows_what, batch_what):
+def _rows_leading(row_shape, batch_shape, name, rows_what, batch_what, row_ids=None):
     """(rows, items per row) for row-major data whose row shape ``P`` (trailing
     1s after the first axis dropped) leads ``batch_shape = P + Q``; raises
-    otherwise."""
+    otherwise. With ``row_ids`` the data's first axis is a pool's, and the rows'
+    first axis is the ids' (the pool's row count may differ from the batch's)."""
     row_shape = list(row_shape)
+    if row_ids is not None and row_shape:
+        row_shape[0] = row_ids.shape[0]
     while len(row_shape) > 1 and row_shape[-1] == 1:
         row_shape.pop()
     if list(batch_shape[:len(row_shape)]) != row_shape:
@@ -128,11 +154,25 @@ def _check_f32(name, tensors, dev):
             raise TypeError(f"{name}: the CUDA kernel takes float32, got {t.dtype}")
 
 
+def _check_row_ids(name, row_ids, num_pool_rows, dev):
+    """What a kernel takes as row ids: int32, one contiguous axis, on ``dev``, and a
+    pool with rows. Their values were checked when the layout was built."""
+    if row_ids.device != dev:
+        raise ValueError(f"{name}: row ids on {row_ids.device}, the pool on {dev}")
+    if row_ids.dtype != torch.int32:
+        raise TypeError(f"{name}: row ids must be int32, got {row_ids.dtype}")
+    if row_ids.ndim != 1 or not row_ids.is_contiguous():
+        raise ValueError(f"{name}: row ids must be one contiguous axis")
+    if num_pool_rows < 1:
+        raise ValueError(f"{name}: the pool has no rows")
+
+
 def _raycast_walls_cuda(ox, oy, dx, dy, seg_sx, seg_sy, seg_vx, seg_vy, max_dist,
-                        seg_c):
+                        seg_c, row_ids=None):
     """K1 on the card. The segment fields must share one contiguous f32 shape
     ``P + (1,)*k + (S,)`` whose row shape ``P`` leads the ray batch shape
-    ``B = P + Q``; each row's ``prod(Q)`` rays see that row's S segments. The ray
+    ``B = P + Q``; each row's ``prod(Q)`` rays see that row's S segments. With
+    ``row_ids`` the fields' first axis is the pool's, and ``P``'s the ids'. The ray
     tensors are broadcast to ``B`` and materialized (they are small)."""
     segs = [seg_sx, seg_sy, seg_vx, seg_vy] + ([seg_c] if seg_c is not None else [])
     rays = [ox, oy, dx, dy]
@@ -145,14 +185,16 @@ def _raycast_walls_cuda(ox, oy, dx, dy, seg_sx, seg_sy, seg_vx, seg_vy, max_dist
         raise ValueError("raycast_walls: segment fields must be contiguous")
     num_segments = seg_shape[-1]
     ray_shape = torch.broadcast_shapes(*(t.shape for t in rays))
+    if row_ids is not None:
+        _check_row_ids("raycast_walls", row_ids, seg_shape[0], dev)
     rows, rays_per_row = _rows_leading(seg_shape[:-1], ray_shape, "raycast_walls",
-                                       "segment rows", "ray batch shape")
+                                       "segment rows", "ray batch shape", row_ids)
     _cuda.raycast_walls_plan(rays_per_row, num_segments)  # refuses before any launch
     rays = [t.expand(ray_shape).contiguous() for t in rays]
     out = torch.empty(ray_shape, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         _cuda.launch_raycast_walls(*rays, *segs[:4], seg_c, out, rows, rays_per_row,
-                                   num_segments, max_dist)
+                                   num_segments, max_dist, row_ids=row_ids)
     return out
 
 
@@ -388,7 +430,7 @@ def _raycast_cars_cuda(ox, oy, dx, dy, car_cx, car_cy, car_x, car_y, max_dist):
 # ------------------------------------- the multi-car sensing: K1 and K3 together
 
 def raycast_walls_and_cars(x, y, angle, rel, seg_sx, seg_sy, seg_vx, seg_vy, seg_c,
-                           half_length, half_width, max_dist):
+                           half_length, half_width, max_dist, row_ids=None):
     """Every car's sensor rays against the walls and the cars of its row: the
     minimum of the wall hit (unclamped, ``raycast_walls``) and the car hit
     (clamped to ``max_dist``, ``raycast_cars``).
@@ -396,26 +438,31 @@ def raycast_walls_and_cars(x, y, angle, rel, seg_sx, seg_sy, seg_vx, seg_vy, seg
     x, y, angle: car poses ``P + (A,)``; rel: sensor angles ``(R,)``, car ``a``'s
       rays point at ``angle + rel`` from its centre;
     seg_*: the row's segment fields ``P + (S,)``, ``seg_c = vy*sx - vx*sy`` among
-      them;
+      them; with ``row_ids`` [N] they are a pool's rows ``(T, S)``, the poses
+      ``(N, A)``, and row i sees pool row ``row_ids[i]``;
     every car of a row sees the row's A cars (rectangles of the given half length
     and width), itself skipped by the 0.5 radius.
     Returns ``P + (A, R)``.
     """
-    global raycast_walls_and_cars_launches
+    global raycast_walls_and_cars_launches, raycast_walls_and_cars_row_id_launches
     if not _on_cuda(seg_sx, "raycast_walls_and_cars"):
         return raycast_walls_and_cars_plain(x, y, angle, rel, seg_sx, seg_sy, seg_vx, seg_vy,
-                                            seg_c, half_length, half_width, max_dist)
+                                            seg_c, half_length, half_width, max_dist,
+                                            row_ids)
     out = _raycast_walls_and_cars_cuda(x, y, angle, rel, seg_sx, seg_sy, seg_vx, seg_vy,
-                                       seg_c, half_length, half_width, max_dist)
+                                       seg_c, half_length, half_width, max_dist, row_ids)
     raycast_walls_and_cars_launches += 1
+    raycast_walls_and_cars_row_id_launches += row_ids is not None
     return out
 
 
 def raycast_walls_and_cars_plain(x, y, angle, rel, seg_sx, seg_sy, seg_vx, seg_vy, seg_c,
-                                 half_length, half_width, max_dist):
+                                 half_length, half_width, max_dist, row_ids=None):
     """Plain PyTorch version: the rays, ``raycast_walls_plain``, ``car_corners``,
     ``raycast_cars_plain`` and ``torch.minimum``, as the multi-car env composed
     them."""
+    seg_sx, seg_sy, seg_vx, seg_vy, seg_c = pool_rows(row_ids, seg_sx, seg_sy, seg_vx,
+                                                      seg_vy, seg_c)
     world = angle[..., None] + rel                                    # P + (A, R)
     ox = x[..., None].expand(world.shape)
     oy = y[..., None].expand(world.shape)
@@ -430,9 +477,10 @@ def raycast_walls_and_cars_plain(x, y, angle, rel, seg_sx, seg_sy, seg_vx, seg_v
 
 
 def _raycast_walls_and_cars_cuda(x, y, angle, rel, seg_sx, seg_sy, seg_vx, seg_vy, seg_c,
-                                 half_length, half_width, max_dist):
-    """On the card: one block per row of ``P``; the poses and sensor angles are
-    made contiguous (they are small), the segment fields must be."""
+                                 half_length, half_width, max_dist, row_ids=None):
+    """On the card: one block per row of ``P``, which stages its segment row (pool
+    row ``row_ids[i]`` with ids); the poses and sensor angles are made contiguous
+    (they are small), the segment fields must be."""
     segs = [seg_sx, seg_sy, seg_vx, seg_vy, seg_c]
     cars = [x, y, angle]
     dev = seg_sx.device
@@ -440,9 +488,16 @@ def _raycast_walls_and_cars_cuda(x, y, angle, rel, seg_sx, seg_sy, seg_vx, seg_v
     if any(t.shape != x.shape for t in cars) or x.ndim < 1 or rel.ndim != 1:
         raise ValueError("raycast_walls_and_cars: poses must share one shape P+(A,) and "
                          "the sensor angles be (R,)")
-    if any(t.shape != x.shape[:-1] + seg_sx.shape[-1:] for t in segs):
+    if row_ids is None and any(t.shape != x.shape[:-1] + seg_sx.shape[-1:] for t in segs):
         raise ValueError("raycast_walls_and_cars: segment fields must share one shape "
                          "P+(S,) with the poses' P")
+    if row_ids is not None:
+        _check_row_ids("raycast_walls_and_cars", row_ids, seg_sx.shape[0], dev)
+        if (x.ndim != 2 or row_ids.shape[0] != x.shape[0]
+                or any(t.ndim != 2 or t.shape != seg_sx.shape for t in segs)):
+            raise ValueError("raycast_walls_and_cars: with row ids the segment fields "
+                             "must share one pool shape (T, S) and the poses be (N, A) "
+                             "for N row ids")
     if any(not t.is_contiguous() for t in segs):
         raise ValueError("raycast_walls_and_cars: segment fields must be contiguous")
     num_cars, num_sensors, num_segments = x.shape[-1], rel.shape[0], seg_sx.shape[-1]
@@ -453,5 +508,6 @@ def _raycast_walls_and_cars_cuda(x, y, angle, rel, seg_sx, seg_sy, seg_vx, seg_v
     with torch.cuda.device(dev):
         _cuda.launch_raycast_walls_and_cars(
             x, y, angle, rel, *segs, out, math.prod(x.shape[:-1]), num_cars,
-            num_sensors, num_segments, f32(half_length), f32(half_width), max_dist)
+            num_sensors, num_segments, f32(half_length), f32(half_width), max_dist,
+            row_ids=row_ids)
     return out

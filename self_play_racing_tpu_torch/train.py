@@ -19,13 +19,16 @@ working directory as the JAX package's CLI does:
   opponents chosen per env, no forced resets, 1B steps;
   ``models/self_play_agent_scale_1B.npz``,
   ``data/training_info_self_play_scale_1B.json`` and a checkpoint in
-  ``models/scale/`` every 200 updates.
+  ``models/scale/`` every 200 updates. ``--resample-tracks-every K`` draws a fresh
+  procedural pool on the device every K updates (``envs/procgen.py``), keyed by
+  the update it starts at, so a resumed run trains on the pool it left;
+  ``--pooled-geometry [tiled|grouped|gather]`` keeps the pool resident and lets
+  the env kernels read each env's row by id instead of per-env copies.
 
 Track pools follow the reference's seed and stream conventions:
 ``gen_tracks(num_tracks, seed)``, then widths ``randint[6, 10)`` from the global
-NumPy RNG. The SB3 baseline (``sb3``, ``all``), procgen resampling
-(``--resample-tracks-every``), the capacity layouts (``--pooled-geometry``) and
-multi-GPU training come with slice 4 of the port and exit with a message.
+NumPy RNG. The SB3 baseline (``sb3``, ``all``) and multi-GPU training are not
+ported yet and exit with a message.
 """
 from __future__ import annotations
 
@@ -41,16 +44,13 @@ from .agent.self_play import SelfPlayTrainer
 from .agent.trainer import PPOTrainer
 from .configs import base_config, self_play_config
 from .envs import multi as menv
+from .envs import procgen as pg
 from .envs import single as senv
 from .envs import track as trk
 
 _LATER = {
-    "sb3": "the SB3 baseline comes with slice 4 of the port",
-    "all": "it includes the SB3 baseline, which comes with slice 4 of the port",
-}
-_LATER_FLAGS = {
-    "resample_tracks_every": ("--resample-tracks-every", "procgen track resampling"),
-    "pooled_geometry": ("--pooled-geometry", "the capacity layouts"),
+    "sb3": "the SB3 baseline is not ported yet",
+    "all": "it includes the SB3 baseline, which is not ported yet",
 }
 
 
@@ -100,17 +100,55 @@ def train_multi(total_timesteps=None, num_envs=None, out="models/self_play_agent
     return trainer
 
 
+def procgen_pool(seed: int, boundary: int, num_tracks: int, track_points: int = 12,
+                 sensor_lod: int = 1, device=None) -> trk.TrackArrays:
+    """The procedural pool that ``train scale --resample-tracks-every`` trains on
+    from update ``boundary`` on, for a run seeded ``seed``: drawn on ``device``
+    from a generator seeded with both (``procgen.pool_generator``)."""
+    return pg.gen_track_pool(pg.pool_generator(seed, boundary, device), num_tracks,
+                             track_points, sensor_lod=sensor_lod)
+
+
+def geometry_layout(pool: trk.TrackArrays, num_envs: int, pooled_geometry=False):
+    """The geometry ``train scale`` gives its envs from a pool of T tracks:
+    ``False`` copies each env's rows (``gather_tracks``, env i on track i % T);
+    ``"tiled"`` keeps the pool resident with the same assignment (so every
+    trajectory is the copied layout's); ``"grouped"`` gives each track a block of
+    N / T consecutive envs (another assignment); ``"gather"`` (or True) keeps it
+    resident with env i on track i % T read through arbitrary ids."""
+    t = pool.num_tracks
+    env_ids = np.arange(num_envs) % t
+    if pooled_geometry == "grouped":
+        if num_envs % t:
+            raise ValueError("grouped geometry needs num_envs % num_tracks == 0")
+        return trk.grouped_pooled_tracks(pool, np.arange(t), num_envs // t)
+    if pooled_geometry == "tiled":
+        return trk.tiled_pooled_tracks(pool, num_envs)
+    if pooled_geometry:
+        return trk.pooled_tracks(pool, env_ids)
+    return trk.gather_tracks(pool, env_ids)
+
+
 def train_scale(total_timesteps=1_000_000_000, num_envs=4096, num_steps=256,
                 num_tracks=16, out="models/self_play_agent_scale_1B.npz",
                 info_out="data/training_info_self_play_scale_1B.json",
                 num_updates=None, checkpoint_dir="models/scale",
-                checkpoint_every=200, resume_from=None, num_agents=2, sensor_lod=1,
-                device=None, **cfg_overrides):
+                checkpoint_every=200, resume_from=None, num_agents=2,
+                resample_tracks_every=0, track_points=12, pooled_geometry=False,
+                sensor_lod=1, device=None, **cfg_overrides):
     """Scale-mode self-play on one card: env state stays resident, opponents are
     chosen per env, ``num_tracks`` tracks tiled over the envs (env i races track
     i % num_tracks). ``num_agents`` > 2 races the learner against that many
     frozen-pool seats. ``sensor_lod`` > 1 senses against a coarser boundary
-    (relaxed sensing; progress, rewards and collisions stay exact)."""
+    (relaxed sensing; progress, rewards and collisions stay exact).
+
+    ``resample_tracks_every`` K > 0: every K updates a fresh ``num_tracks``-track
+    procedural pool of ``track_points`` control points is drawn on the device
+    (``procgen_pool``) and every env restarts on it; pools are keyed by the update
+    they start at, so a resume lands on the pool that was active at its
+    checkpoint. ``pooled_geometry`` (``geometry_layout``) keeps the pool resident
+    instead of per-env copies: the capacity path for env counts whose copies do
+    not fit."""
     overrides = dict(total_timesteps=total_timesteps, num_envs=num_envs,
                      num_steps=num_steps, opponent_per_env=True,
                      reset_envs_each_update=False)
@@ -118,11 +156,21 @@ def train_scale(total_timesteps=1_000_000_000, num_envs=4096, num_steps=256,
     cfg = self_play_config(**overrides)
     dev = resolve_device(device)
     _seed_all(cfg.seed)
-    print(f"Generating {num_tracks}-track pool (tiled over {cfg.num_envs} envs)")
-    cps = trk.gen_tracks(num_tracks=num_tracks, seed=cfg.seed)
-    widths = [float(np.random.randint(6, 10)) for _ in range(num_tracks)]
-    pool = trk.make_track_pool(cps, widths, sensor_lod=sensor_lod, device=dev)
-    track = trk.gather_tracks(pool, np.arange(cfg.num_envs) % num_tracks)
+
+    def pool_for_boundary(boundary: int):
+        pool = procgen_pool(cfg.seed, boundary, num_tracks, track_points, sensor_lod, dev)
+        return geometry_layout(pool, cfg.num_envs, pooled_geometry)
+
+    if resample_tracks_every:
+        print(f"Generating {num_tracks}-track pool on {dev} "
+              f"(resampled every {resample_tracks_every} updates)")
+        track = pool_for_boundary(0)
+    else:
+        print(f"Generating {num_tracks}-track pool (tiled over {cfg.num_envs} envs)")
+        cps = trk.gen_tracks(num_tracks=num_tracks, seed=cfg.seed)
+        widths = [float(np.random.randint(6, 10)) for _ in range(num_tracks)]
+        pool = trk.make_track_pool(cps, widths, sensor_lod=sensor_lod, device=dev)
+        track = geometry_layout(pool, cfg.num_envs, pooled_geometry)
     env_cfg = menv.MultiRacingConfig(num_agents=num_agents, num_sensors=11)
 
     print("=" * 60)
@@ -132,6 +180,19 @@ def train_scale(total_timesteps=1_000_000_000, num_envs=4096, num_steps=256,
           f"Batch: {cfg.batch_size:,} | Updates: {cfg.num_updates} | "
           f"Snapshot freq: {cfg.snapshot_freq} | Pool: {cfg.pool_size} | Device: {dev}")
     trainer = SelfPlayTrainer(cfg, env_cfg, track)
+    if resample_tracks_every:
+        applied = {"boundary": 0}
+
+        def resample(update):
+            # keyed by the boundary, not fired on multiples: a resume that lands
+            # mid-period swaps to the pool that was active at its checkpoint
+            boundary = (update // resample_tracks_every) * resample_tracks_every
+            if boundary != applied["boundary"]:
+                applied["boundary"] = boundary
+                return pool_for_boundary(boundary)
+            return None
+
+        trainer.track_resampler = resample
     trainer.train(num_updates=num_updates, log_every=50, checkpoint_dir=checkpoint_dir,
                   checkpoint_every=checkpoint_every, resume_from=resume_from)
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
@@ -192,19 +253,21 @@ def main(argv=None):
     p.add_argument("--sensor-lod", type=int, default=None, metavar="K",
                    help="scale mode: relaxed sensing against a K-x coarser "
                         "boundary (progress, rewards and collisions stay exact)")
-    # flags of the JAX CLI that come with slice 4; they exit with a message
     p.add_argument("--resample-tracks-every", type=int, default=None, metavar="K",
-                   help=argparse.SUPPRESS)
+                   help="scale mode: draw a fresh procedural track pool on the "
+                        "device every K updates (0 = off)")
     p.add_argument("--pooled-geometry", nargs="?", const="tiled",
                    choices=["gather", "grouped", "tiled"], default=None,
-                   help=argparse.SUPPRESS)
+                   help="scale mode: keep the [tracks, ...] pool resident and let "
+                        "the env kernels read each env's row by id instead of "
+                        "per-env copies. 'tiled' (the default when no value is "
+                        "given) keeps the arange(N) %% T assignment, so runs equal "
+                        "the copied layout's; 'grouped' gives each track a block "
+                        "of N/T consecutive envs (another assignment); 'gather' "
+                        "reads through arbitrary per-env ids")
     args = p.parse_args(argv)
     if args.mode in _LATER:
         raise SystemExit(f"train {args.mode}: not ported yet; {_LATER[args.mode]}")
-    for field, (flag, what) in _LATER_FLAGS.items():
-        if getattr(args, field):
-            raise SystemExit(f"{flag}: not ported yet; {what} comes with slice 4 of "
-                             "the port")
     kw = {}
     if args.seed is not None:
         kw["seed"] = args.seed
@@ -226,6 +289,10 @@ def main(argv=None):
         skw["num_agents"] = args.agents
     if args.sensor_lod:
         skw["sensor_lod"] = args.sensor_lod
+    if args.resample_tracks_every is not None:
+        skw["resample_tracks_every"] = args.resample_tracks_every
+    if args.pooled_geometry:
+        skw["pooled_geometry"] = args.pooled_geometry
     return train_scale(num_updates=args.num_updates, resume_from=args.resume,
                        device=args.device, **skw)
 

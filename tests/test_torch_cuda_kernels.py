@@ -22,7 +22,10 @@ permutation. The envs' two kernels: ``raycast_walls_and_cars`` bitwise equal to
 (its wall part is K1's fold); ``car_step_and_query`` bitwise equal to its plain
 version and to the K5 kernel, ``car_corners`` and the K2 kernel one after another,
 and with the pair test bitwise equal to that chain followed by K4, the mask, the sum
-and the velocity ladder.
+and the velocity ladder. With row ids (the capacity layouts: the pool's rows
+resident, env i reading row ``row_ids[i]``) each of K1, ``raycast_walls_and_cars``
+and ``car_step_and_query`` is bitwise itself on the gathered rows, and its plain
+version as above, with ids that repeat, skip rows and come out of order.
 """
 import numpy as np
 import pytest
@@ -764,3 +767,151 @@ def test_car_step_and_query_refuses_pairs_unless_a_block_is_a_race(cuda):
                                     torch.ones(2, dtype=torch.int32, device=cuda),
                                     torch.ones(2, device=cuda), collision_speed_scale=0.92)
     assert dynamics.car_step_and_query_launches == before
+
+
+# ------------------------------------------------------------------ row ids
+
+POOL_ROWS = 7
+
+
+def _row_ids(rng, n, dev):
+    """N ids into a pool of POOL_ROWS rows that repeat, skip rows 1 and 4, and come
+    in no order."""
+    used = [r for r in range(POOL_ROWS) if r % 3 != 1]
+    return torch.as_tensor(rng.choice(used, n), dtype=torch.int32, device=dev)
+
+
+def _gathered(ids, *fields):
+    return [t.index_select(0, ids.long()) for t in fields]
+
+
+@pytest.mark.parametrize("rays", [11, 22])
+@pytest.mark.parametrize("segs,offset", [(768, 0), (896, 0), (33, 1), (1023, 3)])
+def test_raycast_kernel_with_row_ids(cuda, segs, offset, rays):
+    rng = np.random.default_rng(segs + rays + offset)
+    n = ROWS_PAST_ONE_WAVE
+    fields = [_f32(rng, (POOL_ROWS, 1, segs), lo, hi, cuda, offset)
+              for lo, hi in ((-40, 40), (-40, 40), (-15, 15), (-15, 15))]
+    if segs > 7:
+        for t in fields:
+            t[..., -7:] = 0.0
+    sx, sy, vx, vy = fields
+    c = _shifted(vy * sx - vx * sy, offset)
+    ids = _row_ids(rng, n, cuda)
+    ang = _f32(rng, (n, rays), 0, 6.3, cuda)
+    ox, oy = (_f32(rng, (n, 1), -20, 20, cuda).expand(n, rays) for _ in range(2))
+    rays_in = (ox, oy, torch.cos(ang), torch.sin(ang))
+    before = geo.raycast_walls_launches
+    k = geo.raycast_walls(*rays_in, sx, sy, vx, vy, 50.0, seg_c=c, row_ids=ids)
+    assert geo.raycast_walls_launches == before + 1
+    g = geo.raycast_walls(*rays_in, *_gathered(ids, sx, sy, vx, vy), 50.0,
+                          seg_c=_gathered(ids, c)[0])
+    p = geo.raycast_walls_plain(*rays_in, sx, sy, vx, vy, 50.0, seg_c=c, row_ids=ids)
+    torch.cuda.synchronize()
+    assert torch.equal(k, g)
+    _assert_k1_close(k, p, 50.0)
+
+
+@pytest.mark.parametrize("cars", [1, 2, 3, 8])
+@pytest.mark.parametrize("segs,offset", [(768, 0), (896, 0), (1023, 3)])
+def test_raycast_walls_and_cars_kernel_with_row_ids(cuda, cars, segs, offset):
+    rng = np.random.default_rng(cars * 100 + segs + offset)
+    n = ROWS_PAST_ONE_WAVE
+    x, y, ang, rel, *_ = _sensing_case(cuda, rng, n, cars, 11, 8, 0)
+    *_, sx, sy, vx, vy, c = _sensing_case(cuda, rng, POOL_ROWS, 1, 11, segs, offset)
+    ids = _row_ids(rng, n, cuda)
+    before = geo.raycast_walls_and_cars_launches
+    k = geo.raycast_walls_and_cars(x, y, ang, rel, sx, sy, vx, vy, c, 2.0, 1.0, 50.0,
+                                   row_ids=ids)
+    assert geo.raycast_walls_and_cars_launches == before + 1
+    g = geo.raycast_walls_and_cars(x, y, ang, rel, *_gathered(ids, sx, sy, vx, vy, c),
+                                   2.0, 1.0, 50.0)
+    p = geo.raycast_walls_and_cars_plain(x, y, ang, rel, sx, sy, vx, vy, c, 2.0, 1.0, 50.0,
+                                         row_ids=ids)
+    torch.cuda.synchronize()
+    assert k.shape == (n, cars, 11) and torch.equal(k, g)
+    _assert_k1_close(k, p, 50.0)
+
+
+@pytest.mark.parametrize("cars,pairs", [(1, False), (2, False), (2, True), (3, False),
+                                        (3, True), (8, False), (8, True)])
+@pytest.mark.parametrize("waypoints,offset", [(384, 0), (512, 0), (600, 3)])
+def test_car_step_and_query_kernel_with_row_ids(cuda, waypoints, offset, cars, pairs):
+    """The transition reading waypoint rows [T, 1, W] by row id, one waypoint count
+    and width per env: bitwise itself on the gathered rows and its plain version,
+    with and without the pair test (at one car, also the single-car env's layout,
+    cars [N] against rows [T, W])."""
+    from self_play_racing_tpu_torch.ops.dynamics import DEFAULT_CAR
+
+    rng = np.random.default_rng(waypoints * 10 + cars + offset + pairs)
+    n = ROWS_PAST_ONE_WAVE
+    t = torch.linspace(0, 6.283, waypoints, device=cuda)
+    radius = _f32(rng, (POOL_ROWS, 1, 1), 20, 40, cuda)
+    wp_x = _shifted(radius * torch.cos(t) + _f32(rng, (POOL_ROWS, 1, waypoints), -1, 1, cuda),
+                    offset)
+    wp_y = _shifted(radius * torch.sin(t) + _f32(rng, (POOL_ROWS, 1, waypoints), -1, 1, cuda),
+                    offset)
+    nrm = _f32(rng, (POOL_ROWS, 1, waypoints), 0, 6.3, cuda)
+    nx, ny = _shifted(torch.cos(nrm), offset), _shifted(torch.sin(nrm), offset)
+    ids = _row_ids(rng, n, cuda)
+    n_wp = torch.as_tensor(rng.integers(1, waypoints + 1, (n, 1)), dtype=torch.int32,
+                           device=cuda)
+    width = _f32(rng, (n, 1), 3, 9, cuda)
+    shape = (n, cars)
+    spread = 1.5 + 0.25 * cars
+    cx, cy = _f32(rng, (n, 1), -30, 30, cuda), _f32(rng, (n, 1), -30, 30, cuda)
+    f = lambda lo, hi: _f32(rng, shape, lo, hi, cuda)  # noqa: E731
+    car_args = [(cx + f(-spread, spread)).contiguous(), (cy + f(-spread, spread)).contiguous(),
+                f(-7, 7), f(-35, 35), f(-35, 35),
+                torch.as_tensor(rng.random(shape) < 0.2, device=cuda), f(-1, 1), f(0, 1)]
+    layouts = [(car_args, [wp_x, wp_y, nx, ny], [n_wp, width])]
+    if cars == 1:
+        layouts.append(([a[:, 0] for a in car_args],
+                        [a.view(POOL_ROWS, waypoints) for a in (wp_x, wp_y, nx, ny)],
+                        [n_wp[:, 0], width[:, 0]]))
+    kw = {"collision_speed_scale": 0.92} if pairs else {}
+    for cars_in, rows, per_env in layouts:
+        before = dynamics.car_step_and_query_launches
+        k = dynamics.car_step_and_query(*cars_in, 0.05, DEFAULT_CAR, *rows, *per_env,
+                                        row_ids=ids, **kw)
+        assert dynamics.car_step_and_query_launches == before + 1
+        g = dynamics.car_step_and_query(*cars_in, 0.05, DEFAULT_CAR,
+                                        *_gathered(ids, *rows), *per_env, **kw)
+        p = dynamics.car_step_and_query_plain(*cars_in, 0.05, DEFAULT_CAR, *rows, *per_env,
+                                              row_ids=ids, **kw)
+        torch.cuda.synchronize()
+        assert len(k) == (10 if pairs else 9)
+        for i, (a, b, c) in enumerate(zip(k, g, p)):
+            assert a.shape == b.shape == c.shape and torch.equal(a, b) and torch.equal(a, c), i
+        assert 0 < int(k[8].sum()) < k[8].numel()
+        if pairs:
+            assert int((k[9] >= 1).sum()) > 0
+
+
+def test_envs_on_card_read_a_procgen_layout_as_gathered_rows(cuda):
+    """A procedural pool built on the card (W 384, S 768), tiled and grouped over
+    the envs: the single-car and self-play envs step bitwise as on the gathered
+    rows, through the row-id kernels."""
+    from self_play_racing_tpu_torch.envs import multi as menv
+    from self_play_racing_tpu_torch.envs import procgen as pg
+    from self_play_racing_tpu_torch.envs import single as senv
+
+    pool = pg.gen_track_pool(torch.Generator(device=cuda).manual_seed(5), 8)
+    assert (pool.wp_x.shape[-1], pool.seg_sx.shape[-1]) == (384, 768)
+    n = 512
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for layout in (trk.tiled_pooled_tracks(pool, n),
+                   trk.grouped_pooled_tracks(pool, [5, 0, 7, 2, 2, 6, 1, 3], n // 8)):
+        gathered = trk.gather_tracks(pool, layout.ids)
+        for env, cfg, kw in ((senv, senv.RacingConfig(num_sensors=11), {}),
+                             (menv, menv.MultiRacingConfig(num_agents=2),
+                              {"position_idx": torch.tensor([[1, 0]], device=cuda).expand(n, 2)})):
+            s1, o1 = env.reset(cfg, gathered, **kw)
+            s2, o2 = env.reset(cfg, layout, **kw)
+            assert torch.equal(o1, o2)
+            shape = (n, 2) if env is senv else (n, 2, 2)
+            for _ in range(16):
+                a = torch.rand(shape, generator=gen, device=cuda) * 2 - 1
+                s1, o1, r1, *_ = env.step(cfg, gathered, s1, a)
+                s2, o2, r2, *_ = env.step(cfg, layout, s2, a)
+                assert torch.equal(o1, o2) and torch.equal(r1, r2)

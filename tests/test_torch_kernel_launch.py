@@ -269,3 +269,102 @@ def test_step_query_launcher_with_pairs_refuses_before_launch(no_launch):
     with pytest.raises(ValueError, match="pair test"):
         _cuda.launch_car_step_and_query(*(t,) * 23, 1, 400, 28_000, [0.0] * 10,
                                         num_hits=t.int(), collision_scale=0.92)
+
+
+def _pool(num_tracks=4):
+    from self_play_racing_tpu_torch.envs import track as trk
+
+    return trk, trk.make_track_pool(trk.gen_tracks(num_tracks, seed=1), 7.0, device="cpu")
+
+
+@pytest.mark.parametrize("ids,error,match", [
+    ([0, 4], ValueError, r"\[0, 4\)"), ([-1, 0], ValueError, r"\[0, 4\)"),
+    ([0.0, 1.0], TypeError, "integers"), ([True, False], TypeError, "integers"),
+    ([[0, 1]], ValueError, "one axis")])
+def test_layouts_refuse_bad_ids_when_built(ids, error, match):
+    """The capacity layouts check their track ids once, on the host, when they are
+    built: integers on one axis in [0, T). The kernels then read the ids without a
+    check (a check there would read the device on every step)."""
+    trk, pool = _pool()
+    with pytest.raises(error, match=match):
+        trk.pooled_tracks(pool, ids)
+    with pytest.raises(error, match=match):
+        trk.grouped_pooled_tracks(pool, ids, 2)
+    with pytest.raises(error, match=match):
+        trk.pooled_tracks(pool, torch.as_tensor(ids))
+    layout = trk.pooled_tracks(pool, torch.tensor([3, 0, 3], dtype=torch.int64))
+    assert layout.ids.dtype == torch.int32 and layout.ids.tolist() == [3, 0, 3]
+    with pytest.raises(ValueError, match="block_envs"):
+        trk.grouped_pooled_tracks(pool, [0, 1], 0)
+
+
+def test_wrappers_refuse_bad_row_ids_before_launch(no_launch):
+    """With row ids the segment and waypoint fields are a pool's rows (T of them,
+    here 3) read by N = 2 envs: the ids must be int32 on one contiguous axis, and
+    the shapes must fit N, not T."""
+    from self_play_racing_tpu_torch.ops import dynamics
+
+    ids = torch.tensor([2, 0], dtype=torch.int32)
+    ray, seg = _ray(2, 11), _ray(3, 1, 16)
+    for bad, error in ((ids.long(), TypeError), (torch.tensor([[2, 0]], dtype=torch.int32),
+                                                 ValueError)):
+        with pytest.raises(error, match="row ids"):
+            geo._raycast_walls_cuda(ray, ray, ray, ray, *(seg,) * 4, 50.0, None, bad)
+    with pytest.raises(ValueError, match="lead"):
+        geo._raycast_walls_cuda(*(_ray(3, 11),) * 4, *(seg,) * 4, 50.0, None, ids)
+
+    pose, rel, pool = _ray(2, 3), _ray(5), _ray(3, 16)
+    with pytest.raises(TypeError, match="row ids"):
+        geo._raycast_walls_and_cars_cuda(pose, pose, pose, rel, *(pool,) * 5, 2.0, 1.0, 50.0,
+                                         ids.long())
+    with pytest.raises(ValueError, match="pool shape"):
+        geo._raycast_walls_and_cars_cuda(_ray(3, 3), _ray(3, 3), _ray(3, 3), rel,
+                                         *(pool,) * 5, 2.0, 1.0, 50.0, ids)
+
+    cars = [_ray(2, 3)] * 5 + [torch.zeros((2, 3), dtype=torch.bool)] + [_ray(2, 3)] * 2
+    wp = [_ray(3, 1, 16)] * 4
+    n_wp, width = torch.ones((2, 1), dtype=torch.int32), _ray(2, 1)
+    spec = dynamics.DEFAULT_CAR
+    with pytest.raises(TypeError, match="row ids"):
+        dynamics._car_step_and_query_cuda(*cars, 0.05, spec, *wp, n_wp, width,
+                                          row_ids=ids.long())
+    with pytest.raises(ValueError, match="per waypoint row"):  # one per env, not per pool row
+        dynamics._car_step_and_query_cuda(*cars, 0.05, spec, *wp,
+                                          torch.ones((3, 1), dtype=torch.int32), _ray(3, 1),
+                                          row_ids=ids)
+    with pytest.raises(ValueError, match="one race"):
+        dynamics._car_step_and_query_cuda(*cars, 0.05, spec, *[_ray(3, 3, 16)] * 4,
+                                          torch.ones((2, 3), dtype=torch.int32), _ray(2, 3),
+                                          collision_speed_scale=0.92, row_ids=ids)
+
+
+def test_row_id_launch_reaches_the_kernel_with_the_ids(monkeypatch):
+    """What the wrappers pass to a kernel with row ids: the ids' pointer in the
+    C signature's slot, and the env count (not the pool's) as the rows."""
+    import contextlib
+
+    calls = []
+    monkeypatch.setattr(_cuda, "_call", lambda stem, fn, dev, *args: calls.append((fn, args)))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    ids = torch.tensor([2, 0, 2, 1], dtype=torch.int32)
+    seg = _ray(3, 1, 16)
+    geo._raycast_walls_cuda(*(_ray(4, 11),) * 4, *(seg,) * 4, 50.0, None, ids)
+    fn, args = calls[-1]
+    assert fn == "raycast_walls_f32" and args[9] == ids.data_ptr() and args[11] == 4
+    assert len(args) + 2 == len(_cuda._SIGNATURES[fn])
+    pose, pool = _ray(4, 2), _ray(3, 16)
+    geo._raycast_walls_and_cars_cuda(pose, pose, pose, _ray(11), *(pool,) * 5, 2.0, 1.0,
+                                     50.0, ids)
+    fn, args = calls[-1]
+    assert args[9] == ids.data_ptr() and args[11] == 4
+    assert len(args) + 2 == len(_cuda._SIGNATURES[fn])
+    from self_play_racing_tpu_torch.ops import dynamics
+
+    cars = [_ray(4, 2)] * 5 + [torch.zeros((4, 2), dtype=torch.bool)] + [_ray(4, 2)] * 2
+    dynamics._car_step_and_query_cuda(*cars, 0.05, dynamics.DEFAULT_CAR,
+                                      *[_ray(3, 1, 16)] * 4,
+                                      torch.ones((4, 1), dtype=torch.int32), _ray(4, 1),
+                                      collision_speed_scale=0.92, row_ids=ids)
+    fn, args = calls[-1]
+    assert args[12] == ids.data_ptr() and args[25:27] == (4, 2)
+    assert len(args) + 2 == len(_cuda._SIGNATURES[fn])

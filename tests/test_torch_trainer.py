@@ -16,7 +16,7 @@ package, on the CPU.
   package's ``load_policy_bundle`` to the same arrays, and the JAX package's file
   loads into the port's trainer unchanged (exact).
 - ``make_training_pool`` equals the JAX package's bitwise; ``train.main(["single",
-  ...])`` runs at toy size; the modes and flags of slice 4 exit with a message.
+  ...])`` runs at toy size; the SB3 modes, not ported yet, exit with a message.
 """
 import json
 
@@ -270,9 +270,10 @@ def test_train_main_single_and_later_modes(tmp_path, monkeypatch):
     assert float(log_std[0]) == -0.5
     info = json.loads((tmp_path / "data" / "training_info_single.json").read_text())
     assert set(info) == {"steps", "rewards"}
-    for args in (["sb3"], ["all"], ["scale", "--resample-tracks-every", "5"],
-                 ["scale", "--pooled-geometry"]):
-        with pytest.raises(SystemExit, match="not ported yet.*slice 4"):
+    # --resample-tracks-every and --pooled-geometry run (tests/test_torch_procgen.py,
+    # tests/test_torch_pooled_geometry.py); the SB3 modes still exit
+    for args in (["sb3"], ["all"]):
+        with pytest.raises(SystemExit, match="not ported yet.*SB3"):
             ttrain.main([*args, "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -5,6 +5,8 @@ update, spend their time, on the card.
   python scripts/torch_step_profile.py [--steps 32] [--num-envs 4096]
   python scripts/torch_step_profile.py --update [--num-envs 4096]
   python scripts/torch_step_profile.py --selfplay [--steps 32] [--num-envs 4096]
+  add --tiled to any of them: the pool stays resident, tiled over the envs, and the
+  env kernels read each env's rows by id (envs/track.py:tiled_pooled_tracks)
 
 Runs chip_smoke.py's main path (``models/single_agent.npz``, canonical 16-track
 pool gathered to ``--num-envs`` envs, ``sample_action`` + ``vector.step``) under
@@ -58,6 +60,15 @@ from self_play_racing_tpu_torch.models import actor_critic as net  # noqa: E402
 from self_play_racing_tpu_torch.utils.profiling import canonical_bench_pool  # noqa: E402
 
 
+def _geometry(args, dev):
+    """The canonical pool over ``--num-envs`` envs (env i on track i % 16): gathered
+    per env, or with ``--tiled`` resident and read by row id."""
+    pool = canonical_bench_pool(16, device=dev)
+    if args.tiled:
+        return trk.tiled_pooled_tracks(pool, args.num_envs)
+    return trk.gather_tracks(pool, np.arange(args.num_envs) % 16)
+
+
 def _device_kernels(prof):
     per_kernel = collections.defaultdict(lambda: [0.0, 0])
     for evt in prof.events():
@@ -70,8 +81,7 @@ def _device_kernels(prof):
 def profile_update(args, dev) -> dict:
     cfg = base_config(num_envs=args.num_envs, num_steps=256,
                       total_timesteps=args.num_envs * 256 * 100)
-    pool = canonical_bench_pool(16, device=dev)
-    track = trk.gather_tracks(pool, np.arange(args.num_envs) % 16)
+    track = _geometry(args, dev)
     trainer = PPOTrainer(cfg, senv.RacingConfig(num_sensors=11), track)
     trainer.train(num_updates=1)  # warm-up
     with chip_smoke.minibatch_loops(1) as loops:
@@ -92,6 +102,7 @@ def profile_update(args, dev) -> dict:
                   key=lambda e: -e.self_cpu_time_total)[: args.top]
     return {
         "card": chip_smoke.card_line(),
+        "geometry": "tiled" if args.tiled else "gathered",
         "num_envs": args.num_envs,
         "update_wall_ms": wall * 1e3,
         "rollout_gae_perms_ms": (wall - loop_s) * 1e3,
@@ -114,8 +125,7 @@ def profile_selfplay(args, dev) -> dict:
     cfg = self_play_config(num_envs=args.num_envs, num_steps=256,
                            total_timesteps=1_000_000_000, opponent_per_env=True,
                            reset_envs_each_update=False, snapshot_freq=1)
-    pool = canonical_bench_pool(16, device=dev)
-    track = trk.gather_tracks(pool, np.arange(args.num_envs) % 16)
+    track = _geometry(args, dev)
     trainer = SelfPlayTrainer(cfg, menv.MultiRacingConfig(num_agents=2, num_sensors=11),
                               track)
     trainer.train(num_updates=2)  # warm-up; a pool of one from the second update
@@ -148,6 +158,7 @@ def profile_selfplay(args, dev) -> dict:
     steps = args.steps
     return {
         "card": chip_smoke.card_line(),
+        "geometry": "tiled" if args.tiled else "gathered",
         "num_envs": args.num_envs,
         "cars": 2,
         "pool": trainer.pool_count,
@@ -176,6 +187,8 @@ def main(argv=None) -> int:
                    help="profile the PPO update's minibatch loop instead of an env step")
     p.add_argument("--selfplay", action="store_true",
                    help="profile a self-play update and its rollout's env steps")
+    p.add_argument("--tiled", action="store_true",
+                   help="the pool resident, read by row id, instead of per-env rows")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_step_profile: no CUDA device", file=sys.stderr)
@@ -189,8 +202,7 @@ def main(argv=None) -> int:
             print(json.dumps(profile_selfplay(args, dev), indent=1))
         return 0
     cfg = senv.RacingConfig(num_sensors=11)
-    pool = canonical_bench_pool(16, device=dev)
-    track = trk.gather_tracks(pool, np.arange(args.num_envs) % 16)
+    track = _geometry(args, dev)
     model, _ = interop.load_npz(chip_smoke.MODEL, device=dev)
     params, log_std = model.params(), model.log_std
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -217,6 +229,7 @@ def main(argv=None) -> int:
     steps = args.steps
     out = {
         "card": chip_smoke.card_line(),
+        "geometry": "tiled" if args.tiled else "gathered",
         "num_envs": args.num_envs,
         "steps": steps,
         "wall_ms_per_step": wall * 1e3 / steps,

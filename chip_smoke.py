@@ -631,6 +631,15 @@ def step_inputs(track, cfg, rng, dev, a):
     return cars, [t[:, None] for t in wp]
 
 
+def transition_constants(cfg):
+    """The ten float32 constants the transition kernel's launcher takes: K5's eight,
+    then the car's half length and half width."""
+    return [np.float32(v) for v in (cfg.car.steering_speed, cfg.car.acceleration,
+                                    cfg.car.drag, cfg.car.lateral_friction, cfg.car.grip,
+                                    cfg.car.max_speed, cfg.dt, 2 * np.pi,
+                                    cfg.car.length / 2, cfg.car.width / 2)]
+
+
 def step_chain(cars, wp, cfg):
     """What the envs launched before ``car_step_and_query``: K5, car_corners in
     PyTorch, K2."""
@@ -718,10 +727,7 @@ def check_env_kernels(track, cfg, rng, dev):
         w = wp[0].shape[-1]
         per_row = [t.reshape(NUM_ENVS).contiguous() for t in wp[4:]]
         outs = [torch.empty_like(t) for t in k]
-        consts = [np.float32(v) for v in (cfg.car.steering_speed, cfg.car.acceleration,
-                                          cfg.car.drag, cfg.car.lateral_friction, cfg.car.grip,
-                                          cfg.car.max_speed, cfg.dt, 2 * np.pi,
-                                          cfg.car.length / 2, cfg.car.width / 2)]
+        consts = transition_constants(cfg)
         launch = lambda: _cuda.launch_car_step_and_query(
             *cars, *wp[:4], *per_row, *outs, NUM_ENVS, a, w, consts)
         ms, g_ms = per_launch_ms(launch), graph_ms(launch)
@@ -811,10 +817,7 @@ def check_contacts(track, cfg, rng, dev, entry):
     w = wp[0].shape[-1]
     per_row = [t.reshape(NUM_ENVS).contiguous() for t in wp[4:]]
     outs = [torch.empty_like(t) for t in k]
-    consts = [np.float32(v) for v in (cfg.car.steering_speed, cfg.car.acceleration,
-                                      cfg.car.drag, cfg.car.lateral_friction, cfg.car.grip,
-                                      cfg.car.max_speed, cfg.dt, 2 * np.pi,
-                                      cfg.car.length / 2, cfg.car.width / 2)]
+    consts = transition_constants(cfg)
     launch = lambda: _cuda.launch_car_step_and_query(
         *cars, *wp[:4], *per_row, *outs[:9], NUM_ENVS, NUM_AGENTS, w, consts, outs[9],
         np.float32(scale))
@@ -1031,7 +1034,7 @@ def row_id_layouts(pool, rng):
 def row_id_inputs(layout, cfg, mcfg, rng, dev):
     """The three kernels' inputs on a layout, as the envs pass them: the pool's rows
     with the row ids, and the same on the gathered rows. Returns {kernel: (args
-    with ids, args gathered, keyword arguments)}."""
+    with ids, args gathered, their keyword arguments, the gathered call's)}."""
     pool, ids = layout.pool, layout.ids
     g = trk.gather_tracks(pool, ids)
     x, y, ang = car_poses(g, rng, dev)
@@ -1141,10 +1144,7 @@ def time_row_ids(layout, inputs, mcfg, dev):
         torch.empty(cars[0].shape + (4,), device=dev) for _ in range(2)] + [
         torch.empty_like(cars[0]), torch.empty(cars[0].shape, dtype=torch.bool, device=dev),
         torch.empty(cars[0].shape, dtype=torch.int32, device=dev)]
-    consts = [np.float32(v) for v in (mcfg.car.steering_speed, mcfg.car.acceleration,
-                                      mcfg.car.drag, mcfg.car.lateral_friction, mcfg.car.grip,
-                                      mcfg.car.max_speed, mcfg.dt, 2 * np.pi,
-                                      mcfg.car.length / 2, mcfg.car.width / 2)]
+    consts = transition_constants(mcfg)
     step = lambda rows_, rid: lambda: _cuda.launch_car_step_and_query(  # noqa: E731
         *cars, *rows_, *per_env, *outs[:9], NUM_ENVS, NUM_AGENTS, w, consts, outs[9],
         np.float32(mcfg.collision_speed_scale), row_ids=rid)

@@ -98,7 +98,25 @@ e. what ``evaluate --multi models/self_play_agent_dr_500M.npz --procgen`` runs
    success rate on 40 unseen procgen tracks >= 0.80, beside the JAX package's
    recorded 0.95 on its own tracks;
 f. a 32-step self-play rollout at 65,536 envs, tiled and gathered: peak memory of
-   each, the same final observations.
+   each, the same final observations;
+
+and for tournament and match play (after phase 14):
+
+g. the round robin of the 8B-, 4B- and 1B-step scale agents and
+   ``models/self_play_agent.npz`` at the tournament CLI's defaults (20 tracks x 2
+   runs, seed 42, sampled, 3000 steps at most), one policy per seat: every match
+   accounts for its 40 envs, the ratings are finite, the 8B and 4B agents rank
+   first and second in either order, then the 1B agent and last
+   ``self_play_agent.npz``, as ``data/tournament.json`` ranks them (both win
+   matrices printed); ms a match and a step; launches one sensing
+   (``raycast_walls_and_cars``) and one transition (``car_step_and_query``) a step
+   plus the reset's sensing, the standalone K1-K5 none; one match played twice from
+   its seed gives the same accumulators; the 1B agent beats a random-init policy;
+   ``record_trajectory_match`` and ``record_trajectory_single`` on the held-out
+   track (seed 123, width 7) give one row per step of the episode (no row after the
+   done step); the tournament CLI writes its JSON into a temporary directory, read
+   back, and no tracked file changes. Nothing is rendered: the card's machine has
+   no pygame, cv2 or matplotlib.
 
 The line before the last is one JSON object with every kernel's numbers (``ms`` the
 eager back-to-back time, ``graph_ms`` the CUDA-graph replay time, ``launches`` the
@@ -113,7 +131,8 @@ transition's numbers those of its pair-test instantiation, which the self-play
 path runs, with ``no_pairs_*`` beside them; K6 also its cold times; the three
 ``*_row_ids`` entries their row-id launches on the canonical pool tiled, with
 ``gathered_graph_ms`` and the ``procgen_*`` numbers beside them, and launches on
-phase c's runs); the last line is ``{"ok": true, "device": {...}}``.
+phase c's runs; ``launches_match`` every kernel's count on phase g's tournament);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -145,6 +164,8 @@ from self_play_racing_tpu_torch.envs import single as senv
 from self_play_racing_tpu_torch.envs import track as trk
 from self_play_racing_tpu_torch.envs import vector
 from self_play_racing_tpu_torch import evaluate
+from self_play_racing_tpu_torch import render
+from self_play_racing_tpu_torch import tournament
 from self_play_racing_tpu_torch.evaluate import load_policy_bundle
 from self_play_racing_tpu_torch.models import actor_critic as net
 from self_play_racing_tpu_torch.ops import _cuda
@@ -153,6 +174,8 @@ from self_play_racing_tpu_torch.ops import gae
 from self_play_racing_tpu_torch.ops import geometry as geo
 from self_play_racing_tpu_torch.ops import prng
 from self_play_racing_tpu_torch.serve import Policy, bench
+from self_play_racing_tpu_torch.utils import metrics
+from self_play_racing_tpu_torch.utils import viz
 from self_play_racing_tpu_torch.utils.profiling import canonical_bench_pool
 
 MODEL = "models/single_agent.npz"
@@ -162,10 +185,13 @@ DR_MODEL = "models/self_play_agent_dr_500M.npz"
 PROCGEN_FLOOR = 0.80
 CAPACITY_ENVS = 65_536
 CAPACITY_STEPS = 32
+# phase (g): the tournament's agents, in data/tournament.json's order of rank
+TOURNAMENT_MODELS = ["models/self_play_agent_scale_8B.npz", "models/self_play_agent_scale_4B.npz",
+                     "models/self_play_agent_scale_1B.npz", "models/self_play_agent.npz"]
 V0_CHECKPOINT = "models/checkpoint_update_90.npz"
 TORCH_CHECKPOINT = "models/reference_selfplay_checkpoint_update_90.pth"
 # what the self-play phases must leave untouched
-TRACKED = [MULTI_MODEL, "data/training_info_self_play.json",
+TRACKED = [MULTI_MODEL, "data/training_info_self_play.json", "data/tournament.json",
            *(f"models/checkpoint_update_{u}.npz" for u in range(10, 100, 10))]
 NUM_ENVS = 4096
 NUM_AGENTS = 2
@@ -1753,6 +1779,201 @@ def capacity_probe(pool, dev):
           f"the tiled pool {pool_bytes / 1e3:.1f} KB")
 
 
+def loop_steps(acc, max_steps: int) -> int:
+    """The steps a rollout loop of ``utils/metrics.py`` runs before its every-32-steps
+    all-done check stops it: the first multiple of 32 at or past the longest
+    episode, or the horizon."""
+    longest = int(acc["steps"].max())
+    return min(max_steps, -(-longest // 32) * 32)
+
+
+def match_outcome(acc):
+    """(seat-0 wins, seat-1 wins, draws) of a match accumulator, as ``play_match``
+    counts them."""
+    place = acc["placement"].cpu()
+    return (int((place[:, 0] == 1).sum()), int((place[:, 1] == 1).sum()),
+            int((place == 0).all(dim=1).sum()))
+
+
+@contextlib.contextmanager
+def timed_matches(matches):
+    """Times every ``rollout_match`` run inside the block (host clock, ending in a
+    synchronize) and records its loop steps and outcome into ``matches``."""
+    real = metrics.rollout_match
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        matches.append({"s": time.perf_counter() - t0,
+                        "steps": loop_steps(acc, kwargs["max_steps"]),
+                        "outcome": match_outcome(acc)})
+        return acc
+    metrics.rollout_match = timed
+    try:
+        yield
+    finally:
+        metrics.rollout_match = real
+
+
+def tournament_play(dev, card):
+    """Phase (g): the round robin of ``TOURNAMENT_MODELS`` at the CLI's defaults, its
+    ranking held to ``data/tournament.json``'s, a match repeated from its seed, the
+    1B agent against a random-init policy, the recorders on the held-out track, and
+    the CLI into a temporary directory. Returns the tournament's launch counts."""
+    with open("data/tournament.json") as f:
+        jax_res = json.load(f)
+    names = [os.path.basename(m) for m in TOURNAMENT_MODELS]
+    matches = []
+    zero_counts()
+    t0 = time.perf_counter()
+    with timed_matches(matches):
+        res = tournament.run_tournament(TOURNAMENT_MODELS, device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    m = len(names)
+    pairs = [(i, j) for i in range(m) for j in range(m) if i != j]
+    steps = [mt["steps"] for mt in matches]
+    expected = counts(raycast_walls_and_cars=sum(steps) + len(pairs),
+                      car_step_and_query=sum(steps))
+    print(f"tournament: {m} models, {len(pairs)} matches of 40 envs (20 tracks x 2 runs, "
+          f"seed 42, sampled, 3000 steps at most) in {dt:.1f} s on {card}; "
+          f"{statistics.median(mt['s'] for mt in matches) * 1e3:.1f} ms a match (median; "
+          f"{min(mt['s'] for mt in matches) * 1e3:.1f}-{max(mt['s'] for mt in matches) * 1e3:.1f}), "
+          f"{sum(mt['s'] for mt in matches) / sum(steps) * 1e3:.3f} ms a step over "
+          f"{sum(steps)} steps ({min(steps)}-{max(steps)} a match); launches {launches}")
+    if launches != expected:
+        raise AssertionError(f"tournament launches {launches}, expected {expected}")
+    print(f"tournament: one sensing and one transition a step plus the reset's sensing "
+          f"({launches['raycast_walls_and_cars'] / sum(steps):.4f} and "
+          f"{launches['car_step_and_query'] / sum(steps):.4f} a step); the standalone K1-K5 0")
+    for (i, j), mt in zip(pairs, matches):
+        if sum(mt["outcome"]) != 40:
+            raise AssertionError(f"match {names[i]} vs {names[j]}: {mt['outcome']}")
+    wins, draws = np.array(res["wins"]), np.array(res["draws"])
+    off = ~np.eye(m, dtype=bool)
+    if not ((wins + wins.T + draws)[off] == 80).all() or not np.isfinite(res["elo"]).all():
+        raise AssertionError(f"tournament: wins {wins.tolist()}, draws {draws.tolist()}, "
+                             f"elo {res['elo']}")
+    idx = [jax_res["names"].index(n) for n in names]
+    jwins = np.array(jax_res["wins"])[np.ix_(idx, idx)]
+    print("tournament wins (row beat column, both seat orders), this run | the JAX "
+          "package's data/tournament.json:")
+    for i, n in enumerate(names):
+        print(f"  {n:>32} {' '.join(f'{w:>3}' for w in wins[i])} | "
+              f"{' '.join(f'{w:>3}' for w in jwins[i])}")
+    jelo = {n: jax_res["elo"][jax_res["names"].index(n)] for n in names}
+    for row in res["ranking"]:
+        print(f"  rank {row['rank']}: {row['name']:>32} elo {row['elo']:+.1f} (JAX, 6 models: "
+              f"{jelo[row['name']]:+.1f}) W {row['wins']} L {row['losses']} D {row['draws']}")
+    order = [row["name"] for row in res["ranking"]]
+    if set(order[:2]) != set(names[:2]) or order[2:] != names[2:]:
+        raise AssertionError(f"tournament ranking {order}: expected the 8B and 4B agents "
+                             f"first, then {names[2]} and {names[3]}, as data/tournament.json")
+
+    # one match played twice from its seed
+    stacks = tournament.stack_bundles([load_policy_bundle(p, dev) for p in TOURNAMENT_MODELS[:2]],
+                                      19)
+    grid, _, _ = metrics.build_eval_grid(20, 2, 42, device=dev)
+    cfg = menv.MultiRacingConfig(num_agents=2, num_sensors=11)
+    runs = [metrics.rollout_match(*stacks, cfg, grid, torch.Generator(device=dev).manual_seed(
+        tournament.pair_seed(42, 1))) for _ in range(2)]
+    if any(not torch.equal(runs[0][k], runs[1][k]) for k in runs[0]):
+        raise AssertionError("a match played twice from one seed differs")
+    if match_outcome(runs[0]) != matches[0]["outcome"]:
+        raise AssertionError(f"the repeated match {match_outcome(runs[0])} differs from the "
+                             f"tournament's {matches[0]['outcome']}")
+    print(f"tournament: {names[0]} vs {names[1]} played twice from pair seed "
+          f"{tournament.pair_seed(42, 1)}: every accumulator equal, outcome "
+          f"{match_outcome(runs[0])} as in the tournament (the grid: W "
+          f"{grid.wp_x.shape[-1]}, S {grid.seg_sx.shape[-1]})")
+
+    # the 1B agent against a random-init policy (tests/test_tournament.py's match)
+    random_ = (net.init_params(torch.Generator().manual_seed(123), 19, 2, device=dev),
+               torch.full((2,), -0.5, device=dev), None)
+    small, _, _ = metrics.build_eval_grid(3, 1, 42, device=dev)
+    wa, wb, d = tournament.play_match(load_policy_bundle(TOURNAMENT_MODELS[2], dev), random_,
+                                      small, torch.Generator(device=dev).manual_seed(7),
+                                      max_steps=1500)
+    print(f"tournament: {names[2]} against a random-init policy on 3 tracks: "
+          f"{wa} wins, {wb} losses, {d} draws")
+    if not wa > wb:
+        raise AssertionError("the 1B agent does not beat a random-init policy")
+
+    recorders(dev, card)
+
+    # the CLI at its defaults, its JSON into a temporary directory
+    before = file_digests()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "tournament.json")
+        t0 = time.perf_counter()
+        cli = tournament.main([TOURNAMENT_MODELS[0], TOURNAMENT_MODELS[3], "--out", out])
+        dt = time.perf_counter() - t0
+        with open(out) as f:
+            written = json.load(f)
+        files = os.listdir(tmp)
+    if written != json.loads(json.dumps(cli)) or files != ["tournament.json"] or \
+            sorted(written) != sorted(jax_res):
+        raise AssertionError(f"the tournament CLI wrote {files}: {sorted(written)}")
+    # a 2-model round robin seeds its pairs i*2 + j, not the 4-model run's i*4 + j
+    again = tournament.run_tournament([TOURNAMENT_MODELS[0], TOURNAMENT_MODELS[3]], device=dev)
+    if written != json.loads(json.dumps(again)):
+        raise AssertionError(f"the CLI wrote {written}, run_tournament gives {again}")
+    if file_digests() != before:
+        raise AssertionError("the tournament CLI wrote the repo's tracked files")
+    print(f"tournament CLI ({names[0]} vs {names[3]}, defaults, {dt:.1f} s): JSON read back "
+          f"with JAX's keys, equal to run_tournament's on the two; tracked files untouched "
+          f"({len(before)} checked)")
+    return launches
+
+
+def recorders(dev, card):
+    """``record_trajectory_match`` (8B vs 4B) and ``record_trajectory_single`` on the
+    held-out track (seed 123, width 7), greedy: one row per step the episode ran,
+    as many as the rollout loop's own count, no row after the done step."""
+    geometry, track = render._held_out_track(123, 7.0, dev)
+    cases = {
+        "match": (lambda gen: viz.record_trajectory_match(
+            [load_policy_bundle(p, dev) for p in TOURNAMENT_MODELS[:2]],
+            menv.MultiRacingConfig(num_agents=2, num_sensors=11), track, gen),
+            lambda gen: metrics.rollout_match(
+                *tournament.stack_bundles([load_policy_bundle(p, dev)
+                                           for p in TOURNAMENT_MODELS[:2]], 19),
+                menv.MultiRacingConfig(num_agents=2, num_sensors=11), track, gen,
+                deterministic=True),
+            3000, "raycast_walls_and_cars"),
+        "single": (lambda gen: viz.record_trajectory_single(
+            *load_policy_bundle(MODEL, dev)[:2], senv.RacingConfig(num_sensors=11), track, gen),
+            lambda gen: metrics.rollout_single(
+                *load_policy_bundle(MODEL, dev)[:2], senv.RacingConfig(num_sensors=11), track,
+                gen, deterministic=True),
+            2000, "raycast_walls"),
+    }
+    for label, (record, rollout_fn, horizon, sensing) in cases.items():
+        zero_counts()
+        t0 = time.perf_counter()
+        traj = record(torch.Generator(device=dev).manual_seed(0))
+        dt = time.perf_counter() - t0
+        launches = read_counts()
+        acc = rollout_fn(torch.Generator(device=dev).manual_seed(0))
+        n = int(acc["steps"][0])
+        steps = loop_steps(acc, horizon)
+        shape = (n, 2) if label == "match" else (n,)
+        if not (len(traj["x"]) == n < horizon and traj["x"].shape == shape
+                and traj["active"].all() and np.isfinite(traj["x"]).all()):
+            raise AssertionError(f"record_trajectory_{label}: {len(traj['x'])} rows of "
+                                 f"{traj['x'].shape}, the episode ran {n} steps")
+        if launches != counts(**{sensing: steps + 1, "car_step_and_query": steps}):
+            raise AssertionError(f"record_trajectory_{label} launches {launches}")
+        print(f"record_trajectory_{label} on the held-out track (seed 123, width 7): {n} rows "
+              f"{traj['x'].shape}, the episode's {n} steps, no row after the done step; final "
+              f"progress {np.round(np.atleast_1d(traj['progress'][-1]), 4).tolist()}; "
+              f"{dt * 1e3:.0f} ms on {card}; launches {sensing} {steps + 1}, "
+              f"car_step_and_query {steps}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1826,6 +2047,9 @@ def main() -> int:
     procgen_evaluation(dev)
     capacity_probe(pool, dev)
     bench(Policy(MODEL, device=dev))
+    match_launches = tournament_play(dev, card)
+    for k in kernels:
+        k["launches_match"] = match_launches[k["name"]]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

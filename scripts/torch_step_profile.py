@@ -5,6 +5,7 @@ update, spend their time, on the card.
   python scripts/torch_step_profile.py [--steps 32] [--num-envs 4096]
   python scripts/torch_step_profile.py --update [--num-envs 4096]
   python scripts/torch_step_profile.py --selfplay [--steps 32] [--num-envs 4096]
+  python scripts/torch_step_profile.py --match
   add --tiled to any of them: the pool stays resident, tiled over the envs, and the
   env kernels read each env's rows by id (envs/track.py:tiled_pooled_tracks)
 
@@ -30,6 +31,12 @@ pool is live after two warm-up updates): one update unprofiled for its wall time
 and its rollout/minibatch split, then ``--steps`` steps of the self-play rollout
 (opponents, transition, autoreset, refresh) alone, unprofiled for the wall time
 and under the profiler for the device time, reported per env step.
+
+With ``--match`` it profiles one tournament match as chip_smoke.py's phase g plays
+it: the 8B- against the 4B-step scale agent, one policy per seat, on the 20 x 2
+evaluation grid (40 envs, seed 42, sampled, pair seed ``pair_seed(42, 1)``), after
+a warm-up match: the match unprofiled for its wall time, then under the profiler,
+reported per loop step.
 """
 from __future__ import annotations
 
@@ -57,6 +64,9 @@ from self_play_racing_tpu_torch.envs import single as senv  # noqa: E402
 from self_play_racing_tpu_torch.envs import track as trk  # noqa: E402
 from self_play_racing_tpu_torch.envs import vector  # noqa: E402
 from self_play_racing_tpu_torch.models import actor_critic as net  # noqa: E402
+from self_play_racing_tpu_torch import tournament  # noqa: E402
+from self_play_racing_tpu_torch.evaluate import load_policy_bundle  # noqa: E402
+from self_play_racing_tpu_torch.utils import metrics  # noqa: E402
 from self_play_racing_tpu_torch.utils.profiling import canonical_bench_pool  # noqa: E402
 
 
@@ -177,6 +187,44 @@ def profile_selfplay(args, dev) -> dict:
     }
 
 
+def profile_match(args, dev) -> dict:
+    stacks = tournament.stack_bundles(
+        [load_policy_bundle(p, dev) for p in chip_smoke.TOURNAMENT_MODELS[:2]], 19)
+    grid, _, _ = metrics.build_eval_grid(20, 2, 42, device=dev)
+    cfg = menv.MultiRacingConfig(num_agents=2, num_sensors=11)
+
+    def match():
+        generator = torch.Generator(device=dev).manual_seed(tournament.pair_seed(42, 1))
+        acc = metrics.rollout_match(*stacks, cfg, grid, generator)
+        torch.cuda.synchronize()
+        return acc
+
+    match()
+    t0 = time.perf_counter()
+    acc = match()
+    wall = time.perf_counter() - t0
+    steps = chip_smoke.loop_steps(acc, 3000)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        match()
+    per_kernel = _device_kernels(prof)
+    busy_us = sum(t for t, _ in per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[: args.top]
+    return {
+        "card": chip_smoke.card_line(),
+        "match": " vs ".join(os.path.basename(p) for p in chip_smoke.TOURNAMENT_MODELS[:2]),
+        "num_envs": grid.wp_x.shape[0],
+        "loop_steps": steps,
+        "match_wall_ms": wall * 1e3,
+        "wall_ms_per_step": wall * 1e3 / steps,
+        "device_busy_ms_per_step": busy_us / 1e3 / steps,
+        "device_idle_share": (1.0 - busy_us / 1e6 / wall) if busy_us else None,
+        "kernel_launches_per_step": sum(c for _, c in per_kernel.values()) / steps,
+        "top_kernels": [{"name": name[:90], "ms_per_step": t / 1e3 / steps,
+                         "launches_per_step": c / steps} for name, (t, c) in top],
+    }
+
+
 @torch.no_grad()
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
@@ -187,6 +235,8 @@ def main(argv=None) -> int:
                    help="profile the PPO update's minibatch loop instead of an env step")
     p.add_argument("--selfplay", action="store_true",
                    help="profile a self-play update and its rollout's env steps")
+    p.add_argument("--match", action="store_true",
+                   help="profile one tournament match (40 envs, one policy per seat)")
     p.add_argument("--tiled", action="store_true",
                    help="the pool resident, read by row id, instead of per-env rows")
     args = p.parse_args(argv)
@@ -196,6 +246,9 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     if args.update:
         print(json.dumps(profile_update(args, dev), indent=1))
+        return 0
+    if args.match:
+        print(json.dumps(profile_match(args, dev), indent=1))
         return 0
     if args.selfplay:
         with torch.enable_grad():

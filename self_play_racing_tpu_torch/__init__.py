@@ -1,5 +1,5 @@
-"""PyTorch + CUDA port of the self-play racing framework (slices 1-3: inference,
-single-car PPO training and snapshot-pool self-play).
+"""PyTorch + CUDA port of the self-play racing framework: inference, single-car PPO
+training, snapshot-pool self-play, procedural tracks, tournaments and rendering.
 
 A second package beside ``self_play_racing_tpu`` (the JAX reference, which it never
 imports). It mirrors the reference's module tree and function names:
@@ -17,8 +17,9 @@ imports). It mirrors the reference's module tree and function names:
 - ``configs`` — the training hyperparameters (``PPOConfig``)
 - ``agent``   — the PPO update (rollout, GAE, clipped update with the KL exit), the
                 single-car trainer and the snapshot-pool self-play trainer
-- ``utils``   — evaluation rollouts, checkpoints and the canonical benchmark pool
-- ``train``, ``evaluate``, ``serve`` — the entry points
+- ``utils``   — evaluation and match rollouts, checkpoints, trajectory recording and
+                rendering, profiling and the canonical benchmark pool
+- ``train``, ``evaluate``, ``serve``, ``tournament``, ``render`` — the entry points
 - ``interop`` — parameters, optimizer state and opponent pools carried over from
                 the JAX package's numpy/npz formats
 
@@ -26,3 +27,31 @@ Every entry point runs on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
+
+# Lazy top-level exports of the main user-facing entry points, resolved on first
+# access so that importing the package stays light.
+_EXPORTS = {
+    "PPOConfig": ".configs",
+    "base_config": ".configs",
+    "self_play_config": ".configs",
+    "PPOTrainer": ".agent.trainer",
+    "SelfPlayTrainer": ".agent.self_play",
+    "Policy": ".serve",
+    "load_policy": ".evaluate",
+    "load_policy_bundle": ".evaluate",
+}
+
+__all__ = sorted(_EXPORTS) + ["__version__"]
+
+
+def __getattr__(name):
+    target = _EXPORTS.get(name)
+    if target is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(target, __name__), name)
+
+
+def __dir__():
+    return __all__

@@ -35,6 +35,13 @@ from .models import actor_critic as net
 from .utils import metrics as M
 
 
+def load_policy(path, device=None, dtype=torch.float32):
+    """(params, log_std) from .npz (the repo's) or .pth (a state dict of the
+    original torch implementation)."""
+    params, log_std, _ = load_policy_bundle(path, device, dtype)
+    return params, log_std
+
+
 def load_policy_bundle(path, device=None, dtype=torch.float32):
     """(params, log_std, obs_norm_or_None). ``obs_norm`` is the running observation
     normalizer saved with policies trained under observation normalization;

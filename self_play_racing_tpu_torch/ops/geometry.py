@@ -198,6 +198,46 @@ def _raycast_walls_cuda(ox, oy, dx, dy, seg_sx, seg_sy, seg_vx, seg_vy, max_dist
     return out
 
 
+# ------------------------------------------------ plain track-query helpers
+
+# The env step computes these three inside K2 (``progress_and_collision``, run in
+# ``dynamics.car_step_and_query`` on the card); they stay plain PyTorch helpers
+# for callers outside the env step.
+
+def nearest_waypoint(px, py, wp_x, wp_y):
+    """Index of the nearest waypoint (the first on ties, as np.argmin).
+
+    px, py: query points, shape ``B``. wp_x, wp_y: waypoints, shape ``B + (W,)``
+    (padding waypoints sit at huge coordinates so they never win the argmin).
+    """
+    d2 = (wp_x - px[..., None]) ** 2 + (wp_y - py[..., None]) ** 2
+    return torch.argmin(d2, dim=-1)
+
+
+def track_progress(px, py, wp_x, wp_y, n_wp):
+    """Fraction of the track completed: nearest waypoint index / ``n_wp``, the
+    true (unpadded) waypoint count."""
+    idx = nearest_waypoint(px, py, wp_x, wp_y)
+    return idx.to(wp_x.dtype) / torch.as_tensor(n_wp, dtype=wp_x.dtype, device=wp_x.device)
+
+
+def centerline_collision(cx, cy, wp_x, wp_y, nrm_x, nrm_y, track_width):
+    """Wall test: any corner farther than ``track_width`` from the centreline,
+    measured along its nearest waypoint's normal (distance from the centreline,
+    not a segment intersection).
+
+    cx, cy: corners, shape ``B + (C,)``. wp/nrm: shape ``B + (W,)``.
+    track_width: shape ``B`` or scalar. Returns bool, shape ``B``.
+    """
+    dx = cx[..., :, None] - wp_x[..., None, :]          # B + (C, W)
+    dy = cy[..., :, None] - wp_y[..., None, :]
+    idx = torch.argmin(dx * dx + dy * dy, dim=-1, keepdim=True)      # B + (C, 1)
+    proj = dx * nrm_x[..., None, :] + dy * nrm_y[..., None, :]
+    dist = torch.abs(torch.gather(proj, -1, idx)[..., 0])
+    tw = torch.as_tensor(track_width, dtype=dist.dtype, device=dist.device)
+    return torch.any(dist > tw[..., None], dim=-1)
+
+
 # ------------------------------------------------------------ dynamics helpers
 
 def car_corners(x, y, angle, half_length, half_width):

@@ -1933,25 +1933,22 @@ def recorders(dev, card):
     """``record_trajectory_match`` (8B vs 4B) and ``record_trajectory_single`` on the
     held-out track (seed 123, width 7), greedy: one row per step the episode ran,
     as many as the rollout loop's own count, no row after the done step."""
-    geometry, track = render._held_out_track(123, 7.0, dev)
-    cases = {
-        "match": (lambda gen: viz.record_trajectory_match(
-            [load_policy_bundle(p, dev) for p in TOURNAMENT_MODELS[:2]],
-            menv.MultiRacingConfig(num_agents=2, num_sensors=11), track, gen),
-            lambda gen: metrics.rollout_match(
-                *tournament.stack_bundles([load_policy_bundle(p, dev)
-                                           for p in TOURNAMENT_MODELS[:2]], 19),
-                menv.MultiRacingConfig(num_agents=2, num_sensors=11), track, gen,
-                deterministic=True),
-            3000, "raycast_walls_and_cars"),
-        "single": (lambda gen: viz.record_trajectory_single(
-            *load_policy_bundle(MODEL, dev)[:2], senv.RacingConfig(num_sensors=11), track, gen),
-            lambda gen: metrics.rollout_single(
-                *load_policy_bundle(MODEL, dev)[:2], senv.RacingConfig(num_sensors=11), track,
-                gen, deterministic=True),
-            2000, "raycast_walls"),
-    }
-    for label, (record, rollout_fn, horizon, sensing) in cases.items():
+    _, track = render._held_out_track(123, 7.0, dev)
+    mcfg = menv.MultiRacingConfig(num_agents=2, num_sensors=11)
+    scfg = senv.RacingConfig(num_sensors=11)
+    bundles = [load_policy_bundle(p, dev) for p in TOURNAMENT_MODELS[:2]]
+    params, log_std, _ = load_policy_bundle(MODEL, dev)
+    cases = [
+        ("match", lambda gen: viz.record_trajectory_match(bundles, mcfg, track, gen),
+         lambda gen: metrics.rollout_match(*tournament.stack_bundles(bundles, mcfg.obs_dim),
+                                           mcfg, track, gen, deterministic=True),
+         3000, "raycast_walls_and_cars"),
+        ("single", lambda gen: viz.record_trajectory_single(params, log_std, scfg, track, gen),
+         lambda gen: metrics.rollout_single(params, log_std, scfg, track, gen,
+                                            deterministic=True),
+         2000, "raycast_walls"),
+    ]
+    for label, record, rollout_fn, horizon, sensing in cases:
         zero_counts()
         t0 = time.perf_counter()
         traj = record(torch.Generator(device=dev).manual_seed(0))

@@ -118,6 +118,27 @@ g. the round robin of the 8B-, 4B- and 1B-step scale agents and
    back, and no tracked file changes. Nothing is rendered: the card's machine has
    no pygame, cv2 or matplotlib.
 
+and for data-parallel training over ``torch.distributed`` (after phase g):
+
+h. ``train scale``'s self-play (the canonical pool tiled over 4096 envs, 256 steps,
+   2 cars, snapshot_freq 1): two updates without torch.distributed, then the same
+   seeded run through ``parallel.mesh.distributed_init`` (NCCL, one process) with
+   ``shard()`` applied, so that every collective of the data-parallel path runs
+   over a group of one: parameters, Adam moments and count, every per-minibatch
+   stat, minibatches_applied, the pool and the PFSP counters bitwise equal, the
+   ms/update of both printed; then one update over two processes on the card
+   (2048 envs each, in a gloo group, since NCCL refuses two ranks on one GPU)
+   against one process with 4096 envs and ``data_shards = 2``: the final
+   observations bitwise and the episodes equal (the same rollout),
+   minibatches_applied equal, the first epoch's per-minibatch stats within rtol
+   1e-4 / atol 1e-7, parameters within 1e-3 absolute (the float32 minibatch loop
+   drifts over its 160 steps, ``DP_ATOL``; a control run from params one ulp up
+   prints its own distance) and bitwise equal on the two ranks; each rank launches ``raycast_walls_and_cars`` and ``car_step_and_query``
+   (by row id) 256 times and K6 and K7 once an update; last ``python -m
+   self_play_racing_tpu_torch.parallel.scaling`` at world 1 writes its
+   ``scaling_sweep_v1`` JSON into a temporary directory, printed, and no tracked
+   file changes.
+
 The line before the last is one JSON object with every kernel's numbers (``ms`` the
 eager back-to-back time, ``graph_ms`` the CUDA-graph replay time, ``launches`` the
 count on the self-play path of phase 10, or for K1, which that path runs inside
@@ -131,7 +152,9 @@ transition's numbers those of its pair-test instantiation, which the self-play
 path runs, with ``no_pairs_*`` beside them; K6 also its cold times; the three
 ``*_row_ids`` entries their row-id launches on the canonical pool tiled, with
 ``gathered_graph_ms`` and the ``procgen_*`` numbers beside them, and launches on
-phase c's runs; ``launches_match`` every kernel's count on phase g's tournament);
+phase c's runs; ``launches_match`` every kernel's count on phase g's tournament;
+``launches_data_parallel_world1`` its count on phase h's world-1 run of two
+updates and ``launches_data_parallel_ranks`` on each of the two ranks' update);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -143,6 +166,7 @@ import gc
 import hashlib
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -151,6 +175,8 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from self_play_racing_tpu_torch import interop
 from self_play_racing_tpu_torch import train as ttrain
@@ -173,6 +199,7 @@ from self_play_racing_tpu_torch.ops import dynamics
 from self_play_racing_tpu_torch.ops import gae
 from self_play_racing_tpu_torch.ops import geometry as geo
 from self_play_racing_tpu_torch.ops import prng
+from self_play_racing_tpu_torch.parallel import mesh as pmesh
 from self_play_racing_tpu_torch.serve import Policy, bench
 from self_play_racing_tpu_torch.utils import metrics
 from self_play_racing_tpu_torch.utils import viz
@@ -1353,11 +1380,11 @@ def minibatch_loops(updates: int, around=contextlib.nullcontext):
     run_update = ppo.run_ppo_update
     loops = []
 
-    def timed(*args):
+    def timed(*args, **kwargs):
         with around():
             torch.cuda.synchronize()
             t = time.perf_counter()
-            out = run_update(*args)
+            out = run_update(*args, **kwargs)
             torch.cuda.synchronize()
         loops.append((time.perf_counter() - t, int(out[2]["computed"].sum())))
         return out
@@ -1971,6 +1998,308 @@ def recorders(dev, card):
               f"car_step_and_query {steps}")
 
 
+# ------------------------------------------------ phase (h): data-parallel training
+
+DP_UPDATES = 2
+DP_WORLD = 2
+# The 2-rank update against one process with data_shards = 2. The rollouts must be
+# the same bitwise (each env's row is computed alike at 2048 envs and at 4096); the
+# minibatch loop cannot be: its gradient is the mean of two half-minibatch means
+# and its advantage moments are combined from the halves, which round otherwise in
+# float32 than one global mean. The first epoch's per-minibatch stats hold to
+# DP_STAT_RTOL / DP_STAT_ATOL. Over 160 Adam steps the loop amplifies those
+# roundings (the per-epoch drift is printed), as it amplifies params one ulp
+# apart, so the parameters are held to DP_ATOL, about three steps of lr 3e-4,
+# beside that one-ulp control, printed with them.
+DP_STAT_RTOL, DP_STAT_ATOL = 1e-4, 1e-7
+DP_ATOL = 1e-3
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_config(data_shards: int = 1):
+    """``train scale``'s config at its width, with snapshot_freq 1 (pool opponents
+    from the second update on), as phase 10 runs it."""
+    return self_play_config(num_envs=NUM_ENVS, num_steps=STEPS,
+                            total_timesteps=1_000_000_000, opponent_per_env=True,
+                            reset_envs_each_update=False, snapshot_freq=1,
+                            data_shards=data_shards)
+
+
+def dp_trainer(cfg, dev):
+    """Phase h's self-play trainer on the canonical pool tiled over the envs, built
+    alike on every rank from the seed."""
+    pool = canonical_bench_pool(NUM_TRACKS, device=dev)
+    return SelfPlayTrainer(cfg, menv.MultiRacingConfig(num_agents=NUM_AGENTS, num_sensors=11),
+                           trk.tiled_pooled_tracks(pool, cfg.num_envs))
+
+
+def dp_expected(cfg, updates: int):
+    """The launches of ``updates`` updates on one rank: the sensing and the
+    transition (by row id) every step, K6 and K7 once an update."""
+    n = cfg.num_steps * updates
+    return counts(raycast_walls_and_cars=n, car_step_and_query=n,
+                  raycast_walls_and_cars_row_ids=n, car_step_and_query_row_ids=n,
+                  compute_gae=updates, mixbits_permutation=updates)
+
+
+def dp_train(trainer, updates: int):
+    """``updates`` updates of ``trainer``, each timed (host clock to a
+    synchronize) with its minibatch loop. Returns the ms of each update and of
+    its loop, their metrics, their per-minibatch stats (``ppo.run_ppo_update``'s,
+    recorded through its module) and the launches of the run."""
+    run_update = ppo.run_ppo_update
+    stats, metrics, wall, loop = [], [], [], []
+
+    def sync():
+        if trainer.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def recording(*args, **kwargs):
+        sync()
+        t = time.perf_counter()
+        out = run_update(*args, **kwargs)
+        sync()
+        loop.append((time.perf_counter() - t) * 1e3)
+        stats.append(out[2])
+        return out
+
+    ppo.run_ppo_update = recording
+    try:
+        zero_counts()
+        for _ in range(updates):
+            t = time.perf_counter()
+            trainer.train(num_updates=1, on_update=lambda tr, m: metrics.append(m))
+            sync()
+            wall.append((time.perf_counter() - t) * 1e3)
+        launches = read_counts()
+    finally:
+        ppo.run_ppo_update = run_update
+    return {"wall": wall, "loop": loop}, metrics, stats, launches
+
+
+def ms_line(ms) -> str:
+    """Each update's ms and, in brackets, its minibatch loop's."""
+    return " / ".join(f"{w:.1f} ({l:.1f})" for w, l in zip(ms["wall"], ms["loop"]))
+
+
+def dp_state(trainer):
+    """What the world-1 run must hold bitwise: parameters, Adam moments and count,
+    the pool and the PFSP counters."""
+    adam = trainer.runner.train.opt_state
+    pool = [t for layers in trainer.pool["params"].values() for layer in layers
+            for t in layer] + [trainer.pool["log_std"]]
+    return {"params": [p.detach() for p in trainer.runner.train.model.parameters()],
+            "mu": list(adam.mu), "nu": list(adam.nu), "count": adam.count,
+            "pool": pool, "num_snapshots": trainer.num_snapshots,
+            "pool_wins": trainer.pool_wins.tolist(), "pool_games": trainer.pool_games.tolist()}
+
+
+def data_parallel_world_one(dev, card):
+    """Phase h.1: two updates of train scale's self-play at 4096 x 256 x 2 cars
+    without torch.distributed, then the same seeded run through
+    ``distributed_init`` (NCCL, one process) and ``shard()``: every collective
+    of the data-parallel path runs over a group of one, and the run must be the
+    undistributed one bitwise. Returns the sharded run's launches."""
+    cfg = dp_config()
+    plain = dp_trainer(cfg, dev)
+    p_wall, p_metrics, p_stats, p_launches = dp_train(plain, DP_UPDATES)
+    want = dp_state(plain)
+    pmesh.distributed_init(f"127.0.0.1:{free_port()}", 1, 0, device=dev)
+    try:
+        mesh = pmesh.make_mesh(dev)
+        backend = dist.get_backend(mesh.group)
+        sharded = dp_trainer(cfg, dev)
+        sharded.shard(mesh)
+        s_wall, s_metrics, s_stats, s_launches = dp_train(sharded, DP_UPDATES)
+    finally:
+        dist.destroy_process_group()
+    got = dp_state(sharded)
+    print(f"data parallel, world 1 ({backend}, shard() applied): {ms_line(s_wall)} "
+          f"ms/update (the minibatch loop's) against {ms_line(p_wall)} without "
+          f"torch.distributed "
+          f"({cfg.num_envs} x {cfg.num_steps} x {NUM_AGENTS} cars on {card}); "
+          f"minibatches_applied "
+          f"{[int(m['minibatches_applied']) for m in s_metrics]}; pool "
+          f"{got['num_snapshots']} snapshots, learner won {got['pool_wins']} of "
+          f"{got['pool_games']}; launches {s_launches}")
+    if backend != ("nccl" if dev.type == "cuda" else "gloo") or mesh.world != 1:
+        raise AssertionError(f"world-1 run on {backend} over {mesh.world} ranks")
+    for launches in (p_launches, s_launches):
+        if launches != dp_expected(cfg, DP_UPDATES):
+            raise AssertionError(f"data parallel world 1 launches {launches}, expected "
+                                 f"{dp_expected(cfg, DP_UPDATES)}")
+    diffs = [k for k in ("count", "num_snapshots", "pool_wins", "pool_games")
+             if got[k] != want[k]]
+    diffs += [k for k in ("params", "mu", "nu", "pool")
+              if not all(torch.equal(a, b) for a, b in zip(got[k], want[k]))]
+    for k in ppo.STAT_NAMES:
+        if not all(np.array_equal(a[k], b[k]) for a, b in zip(s_stats, p_stats)):
+            diffs.append(f"per-minibatch {k}")
+    if [m["minibatches_applied"] for m in s_metrics] != \
+            [m["minibatches_applied"] for m in p_metrics]:
+        diffs.append("minibatches_applied")
+    if diffs or len(s_stats) != DP_UPDATES:
+        raise AssertionError(f"data parallel world 1 differs from the undistributed run in "
+                             f"{diffs}")
+    print("data parallel, world 1: params, Adam moments and count, every per-minibatch "
+          "stat, minibatches_applied, the pool and the PFSP counters bitwise the "
+          "undistributed run's")
+    return s_launches
+
+
+def dp_rank(rank, port, out, cfg, device):
+    """Phase h.2's rank: its half of ``cfg``'s envs on ``device`` (the one card),
+    in a gloo group of two (NCCL refuses two ranks on one GPU; gloo all-reduces
+    CUDA tensors)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    pmesh.distributed_init(f"127.0.0.1:{port}", DP_WORLD, rank, backend="gloo", device=dev)
+    try:
+        mesh = pmesh.make_mesh(dev)
+        trainer = dp_trainer(cfg, dev)
+        trainer.shard(mesh)
+        wall, metrics, stats, launches = dp_train(trainer, 1)
+        result = {"backend": dist.get_backend(mesh.group), "world": mesh.world,
+                  "envs": trainer.runner.done.shape[0], "wall": wall, "metrics": metrics,
+                  "stats": stats, "launches": launches, "obs": trainer.runner.obs.cpu(),
+                  "params": [p.detach().cpu() for p in trainer.runner.train.model.parameters()]}
+    finally:
+        dist.destroy_process_group()
+    torch.save(result, out)
+
+
+def max_abs(xs, ys) -> float:
+    return max(float((x - y).abs().max()) for x, y in zip(xs, ys))
+
+
+def data_parallel_two_ranks(dev, card):
+    """Phase h.2: one update over two processes on the card (2048 envs each, gloo)
+    against one process with 4096 envs and data_shards = 2, and the same process
+    from params one ulp up (the control). Returns each rank's launches."""
+    cfg = dp_config(DP_WORLD)
+    one = dp_trainer(cfg, dev)
+    o_wall, o_metrics, o_stats, _ = dp_train(one, 1)
+    want = [p.detach().cpu() for p in one.runner.train.model.parameters()]
+    want_obs = one.runner.obs.cpu()
+    del one
+    nudged = dp_trainer(cfg, dev)
+    with torch.no_grad():
+        for p in nudged.runner.train.model.parameters():
+            p.copy_(torch.nextafter(p, torch.full_like(p, float("inf"))))
+    dp_train(nudged, 1)
+    control = max_abs([p.detach().cpu() for p in nudged.runner.train.model.parameters()], want)
+    del nudged
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(DP_WORLD)]
+        procs = [ctx.Process(target=dp_rank, args=(r, port, outs[r], cfg, str(dev)))
+                 for r in range(DP_WORLD)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + 300
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * DP_WORLD:
+            raise AssertionError(f"data parallel ranks exited with {codes}")
+        ranks = [torch.load(o, weights_only=False) for o in outs]
+    m1 = o_metrics[0]
+    print(f"data parallel, one process, data_shards={DP_WORLD}: {ms_line(o_wall)} ms/update "
+          f"at {cfg.num_envs} envs; minibatches_applied {m1['minibatches_applied']:.0f}, "
+          f"episodes {m1['episodes']:.0f}, mean_ep_return {m1['mean_ep_return']:.4f}; "
+          f"from params one ulp up its params end {control:.3e} apart at most")
+    n = cfg.num_envs // DP_WORLD
+    for r, got in enumerate(ranks):
+        m, st, ref = got["metrics"][0], got["stats"][0], o_stats[0]
+        absd = max_abs(got["params"], want)
+        with np.errstate(invalid="ignore"):  # epochs past a KL exit are 0 / 0
+            drift = {k: np.abs(st[k] - ref[k]).max(axis=1) / np.abs(ref[k]).max(axis=1)
+                     for k in ("approx_kl", "loss")}
+        print(f"data parallel, rank {r} of {got['world']} ({got['backend']} on the one "
+              f"card, {got['envs']} envs): {ms_line(got['wall'])} ms/update; "
+              f"minibatches_applied {m['minibatches_applied']:.0f}, episodes "
+              f"{m['episodes']:.0f}, mean_ep_return {m['mean_ep_return']:.4f}; final obs "
+              f"bitwise one process's rows: {torch.equal(got['obs'], want_obs[r * n:(r + 1) * n])}; "
+              f"per-minibatch drift from one process by epoch, approx_kl "
+              f"{np.array2string(drift['approx_kl'], precision=2)}, loss "
+              f"{np.array2string(drift['loss'], precision=2)}; params max abs {absd:.3e} "
+              f"(atol {DP_ATOL:g}; the one-ulp control {control:.3e}); launches "
+              f"{got['launches']}")
+        if (got["backend"], got["world"], got["envs"]) != ("gloo", DP_WORLD, n):
+            raise AssertionError(f"rank {r}: {got['backend']}, world {got['world']}, "
+                                 f"{got['envs']} envs")
+        if m["episodes"] != m1["episodes"] or \
+                not torch.equal(got["obs"], want_obs[r * n:(r + 1) * n]):
+            raise AssertionError(f"rank {r}: the rollout differs from one process's rows")
+        if m["minibatches_applied"] != m1["minibatches_applied"]:
+            raise AssertionError(f"rank {r} applied {m['minibatches_applied']} minibatches, "
+                                 f"one process {m1['minibatches_applied']}")
+        if not np.array_equal(st["computed"], ref["computed"]) or not all(
+                np.allclose(st[k][0], ref[k][0], rtol=DP_STAT_RTOL, atol=DP_STAT_ATOL)
+                for k in ppo.STAT_NAMES[:6]):
+            raise AssertionError(f"rank {r}: the first epoch's per-minibatch stats are "
+                                 f"beyond rtol {DP_STAT_RTOL}, atol {DP_STAT_ATOL}")
+        if absd > DP_ATOL:
+            raise AssertionError(f"rank {r}: params {absd:.3e} from one process's, beyond "
+                                 f"{DP_ATOL}")
+        if got["launches"] != dp_expected(cfg, 1):
+            raise AssertionError(f"rank {r} launches {got['launches']}, expected "
+                                 f"{dp_expected(cfg, 1)}")
+    if not all(torch.equal(a, b) for a, b in zip(ranks[0]["params"], ranks[1]["params"])):
+        raise AssertionError("the two ranks hold different parameters")
+    print(f"data parallel, 2 ranks: the rollout bitwise one process's, minibatches_applied "
+          f"equal, the first epoch's stats within rtol {DP_STAT_RTOL:g} / atol "
+          f"{DP_STAT_ATOL:g}, params within {DP_ATOL:g} of one process's and bitwise equal "
+          f"on both ranks, on {card}")
+    return [got["launches"] for got in ranks]
+
+
+def scaling_cli(card):
+    """Phase h.4: ``python -m self_play_racing_tpu_torch.parallel.scaling`` at world 1
+    on the card, writing its artifact into a temporary directory."""
+    before = file_digests()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "scaling.json")
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "self_play_racing_tpu_torch.parallel.scaling",
+                              "--out", out], capture_output=True, text=True, timeout=600)
+        dt = time.perf_counter() - t0
+        if res.returncode:
+            raise AssertionError(f"scaling CLI exited {res.returncode}:\n{res.stderr[-3000:]}")
+        with open(out) as f:
+            art = json.load(f)
+    print(f"scaling CLI at world 1 in {dt:.1f} s on {card}: {json.dumps(art)}")
+    row = art["rows"][0]
+    if (art["schema"], art["num_processes"], row["devices"]) != ("scaling_sweep_v1", 1, 1) \
+            or not np.isfinite(row["env_steps_per_s"]):
+        raise AssertionError(f"scaling artifact {art}")
+    if file_digests() != before:
+        raise AssertionError("the scaling CLI wrote the repo's tracked files")
+
+
+def data_parallel(dev, card):
+    """Phase h; returns the launches of h.1 (per rank, 2 updates) and of h.2's
+    ranks (1 update each)."""
+    world_one = data_parallel_world_one(dev, card)
+    ranks = data_parallel_two_ranks(dev, card)
+    scaling_cli(card)
+    return world_one, ranks
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2045,8 +2374,11 @@ def main() -> int:
     capacity_probe(pool, dev)
     bench(Policy(MODEL, device=dev))
     match_launches = tournament_play(dev, card)
+    dp_world_one, dp_ranks = data_parallel(dev, card)
     for k in kernels:
         k["launches_match"] = match_launches[k["name"]]
+        k["launches_data_parallel_world1"] = dp_world_one[k["name"]]
+        k["launches_data_parallel_ranks"] = [r[k["name"]] for r in dp_ranks]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,6 @@
 """PyTorch + CUDA port of the self-play racing framework: inference, single-car PPO
-training, snapshot-pool self-play, procedural tracks, tournaments and rendering.
+training, snapshot-pool self-play, data-parallel training, procedural tracks,
+tournaments and rendering.
 
 A second package beside ``self_play_racing_tpu`` (the JAX reference, which it never
 imports). It mirrors the reference's module tree and function names:
@@ -19,6 +20,8 @@ imports). It mirrors the reference's module tree and function names:
                 single-car trainer and the snapshot-pool self-play trainer
 - ``utils``   — evaluation and match rollouts, checkpoints, trajectory recording and
                 rendering, profiling and the canonical benchmark pool
+- ``parallel`` — data-parallel training over ``torch.distributed`` (NCCL on the
+                card, gloo on the CPU) and its scaling measurement
 - ``train``, ``evaluate``, ``serve``, ``tournament``, ``render`` — the entry points
 - ``interop`` — parameters, optimizer state and opponent pools carried over from
                 the JAX package's numpy/npz formats

@@ -29,3 +29,11 @@ def where_rows(mask, new, old):
     def pick(a, b):
         return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - mask.ndim)), a, b)
     return tree_map(pick, new, old)
+
+
+def shard_rows(x, shard, dim: int = 0):
+    """This rank's part of ``x``, a draw over every rank's rows on axis ``dim``:
+    ``shard`` = (rank, world) takes the rank-th of ``world`` equal blocks."""
+    rank, world = shard
+    n = x.shape[dim] // world
+    return x.narrow(dim, rank * n, n)

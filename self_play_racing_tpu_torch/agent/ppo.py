@@ -26,6 +26,12 @@ state is functional (each step returns a new ``AdamState``). JAX's PRNG keys bec
 ``torch.Generator``s: the rollout's action noise and the permutations' round
 constants are drawn from the runner's generator, or passed in, so tests can feed
 the port and the JAX package the same numbers.
+
+Data parallelism (``make_update_step(..., mesh=...)``, a ``parallel.mesh.DataMesh``
+with a process group): each rank steps its own envs, draws the global noise and
+constants and keeps its rows, and reduces over the group what the JAX program
+reduces over the env or batch axis (``parallel/mesh.py`` lists them). Without a
+group the update is the single-process one, unchanged.
 """
 from __future__ import annotations
 
@@ -41,7 +47,9 @@ from ..envs import normalize as obsnorm
 from ..envs import vector
 from ..models import actor_critic as net
 from ..ops.gae import compute_gae
-from ..ops.prng import epoch_permutation
+from ..ops.prng import draw_constants, epoch_permutation
+from .._tree import shard_rows
+from ..parallel import mesh as pmesh
 
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
@@ -179,14 +187,18 @@ STAT_NAMES = ("loss", "pg_loss", "v_loss", "entropy", "approx_kl", "clip_frac",
               "applied", "computed")
 
 
-def _ppo_loss(params, log_std, mb: Batch, cfg: PPOConfig):
+def _ppo_loss(params, log_std, mb: Batch, cfg: PPOConfig, mesh=None):
     new_lp, entropy, new_v = net.evaluate_action(params, log_std, mb.obs, mb.actions)
     log_ratio = new_lp - mb.logprobs
     ratio = torch.exp(log_ratio)
     approx_kl = torch.mean(-log_ratio)  # mean(old - new)
 
     adv = mb.advantages
-    adv = (adv - adv.mean()) / (adv.std(correction=1) + 1e-8)
+    if mesh is None:
+        adv = (adv - adv.mean()) / (adv.std(correction=1) + 1e-8)
+    else:  # the minibatch is every rank's part: its global mean and std
+        mean, std = pmesh.global_mean_std(adv, mesh)
+        adv = (adv - mean) / (std + 1e-8)
 
     pg1 = -adv * ratio
     pg2 = -adv * torch.clamp(ratio, 1.0 - cfg.clip_coef, 1.0 + cfg.clip_coef)
@@ -274,8 +286,38 @@ def minibatch_layout(cfg: PPOConfig):
     return block, b_sub // block, mb_sub // block
 
 
+def _mean_over_group(grads, st, mesh):
+    """The gradients and the minibatch's stats averaged over the group (each rank's
+    minibatch part is an equal share), in one flat all-reduce."""
+    stat = torch.stack([st[k].detach().to(grads[0].dtype) for k in STAT_NAMES[:6]])
+    flat = torch.cat([g.reshape(-1) for g in grads] + [stat])
+    pmesh.all_reduce_sum_(flat, mesh).div_(mesh.world)
+    out, at = [], 0
+    for g in grads:
+        out.append(flat[at:at + g.numel()].view_as(g))
+        at += g.numel()
+    return out, dict(zip(STAT_NAMES[:6], flat[at:]))
+
+
+def shard_blocks(cfg: PPOConfig, flat: Batch) -> Batch:
+    """The flat [batch_size, ...] rollout as [data_shards, n_units, block, ...]
+    shuffle units (``minibatch_layout``): with D > 1 shards, [T, D, n_sub] ->
+    [D, T, n_sub] -> [D, units, block], so shard d holds envs d*n_sub.. of every
+    step, the envs rank d owns in a D-process run."""
+    d_shards = cfg.data_shards
+    block, n_units, _ = minibatch_layout(cfg)
+    if d_shards == 1:
+        return Batch(*(x.reshape((1, n_units, block) + x.shape[1:]) for x in flat))
+    n_sub = cfg.num_envs // d_shards
+    return Batch(*(
+        x.reshape((cfg.num_steps, d_shards, n_sub) + x.shape[1:])
+         .transpose(0, 1)
+         .reshape((d_shards, n_units, block) + x.shape[1:])
+        for x in flat))
+
+
 def run_ppo_update(cfg: PPOConfig, model: net.ActorCritic, opt_state: AdamState,
-                   log_std, lr, flat: Batch, perms):
+                   log_std, lr, flat: Batch, perms, mesh=None):
     """Epochs x minibatches of clipped updates with the KL early exit.
 
     ``flat`` is the flattened [batch_size, ...] rollout (flat index
@@ -289,22 +331,19 @@ def run_ppo_update(cfg: PPOConfig, model: net.ActorCritic, opt_state: AdamState,
     ``stats`` maps ``STAT_NAMES`` to [epochs, minibatches] float32 numpy arrays,
     zero past the exit, with ``computed`` marking the executed minibatches and
     ``applied`` the applied ones.
+
+    With a ``mesh`` (a group), ``flat`` and ``perms`` are this rank's part of each
+    minibatch: the advantages are normalized by the global moments, and the
+    gradients and stats are averaged over the group before the host reads them,
+    so every rank applies the same update and takes the same exit.
     """
     d_shards = cfg.data_shards
     e_total, m_total = cfg.update_epochs, cfg.num_minibatches
-    block, n_units, mb_units = minibatch_layout(cfg)
+    _, n_units, mb_units = minibatch_layout(cfg)
     if tuple(perms.shape) != (e_total, d_shards, n_units):
         raise ValueError(f"run_ppo_update: perms {tuple(perms.shape)}, expected "
                          f"{(e_total, d_shards, n_units)}")
-    if d_shards == 1:
-        blocked = Batch(*(x.reshape((1, n_units, block) + x.shape[1:]) for x in flat))
-    else:
-        n_sub = cfg.num_envs // d_shards
-        blocked = Batch(*(
-            x.reshape((cfg.num_steps, d_shards, n_sub) + x.shape[1:])
-             .transpose(0, 1)
-             .reshape((d_shards, n_units, block) + x.shape[1:])
-            for x in flat))
+    blocked = shard_blocks(cfg, flat)
     perms = perms.to(device=flat.obs.device, dtype=torch.int64)
     shard = torch.arange(d_shards, device=perms.device)[:, None]
 
@@ -320,8 +359,10 @@ def run_ppo_update(cfg: PPOConfig, model: net.ActorCritic, opt_state: AdamState,
         mb = Batch(*(x[shard, idx].reshape((cfg.minibatch_size,) + x.shape[3:])
                      for x in blocked))
         with torch.enable_grad():
-            loss, st = _ppo_loss(model.params(), log_std, mb, cfg)
+            loss, st = _ppo_loss(model.params(), log_std, mb, cfg, mesh)
             grads = torch.autograd.grad(loss, params)
+        if mesh is not None:
+            grads, st = _mean_over_group(grads, st, mesh)
         g_norm = global_norm(grads)
         # the one host read of the minibatch: its stats, the KL flag and the norm
         host = torch.stack([st[k] for k in STAT_NAMES[:6]] + [g_norm]).tolist()
@@ -349,10 +390,11 @@ def _last_computed(ustats, name):
 
 @torch.no_grad()
 def rollout_phase(cfg: PPOConfig, hooks: EnvHooks, runner: RunnerState, aux, log_std,
-                  noise):
+                  noise, mesh=None):
     """``num_steps`` vector env steps under the current policy.
 
-    ``noise`` [T, N, A] is the standard-normal action noise. Returns (vec,
+    ``noise`` [T, N, A] is the standard-normal action noise (N this rank's envs;
+    with a ``mesh`` the observation normalizer merges every rank's). Returns (vec,
     next_obs, next_done, obs_norm, traj, step_stats): ``traj`` a ``Batch`` of
     [T, N, ...] tensors (advantages and returns empty), ``step_stats`` the
     per-step rewards (float32), done-entering flags and episode records, and the
@@ -365,7 +407,7 @@ def rollout_phase(cfg: PPOConfig, hooks: EnvHooks, runner: RunnerState, aux, log
     extra = None
     for t in range(cfg.num_steps):
         if cfg.normalize_obs:
-            norm = obsnorm.update(norm, obs)
+            norm = obsnorm.update(norm, obs, mesh)
             policy_obs = obsnorm.apply(norm, obs)
         else:
             policy_obs = obs
@@ -401,12 +443,53 @@ def rollout_phase(cfg: PPOConfig, hooks: EnvHooks, runner: RunnerState, aux, log
     return vec, obs, done, norm, traj, stacked
 
 
-def make_update_step(cfg: PPOConfig, hooks: EnvHooks, action_dim: int = 2):
+def _sharded_update(cfg: PPOConfig, mesh, model, opt_state, log_std, lr, batch: Batch,
+                    generator, perm_consts, device):
+    """The minibatch phase of a data-parallel update (``batch`` [T, n, ...], this
+    rank's envs). ``data_shards`` = world: the shard-local layout, whose shard d is
+    rank d's envs, so each rank runs the one-shard layout over its own envs with
+    its row of the global permutation constants and the collectives make every
+    minibatch the global one. ``data_shards`` = 1 on several ranks: the global
+    shuffle; every rank gathers the whole batch and runs the same update."""
+    e_total, d_shards = cfg.update_epochs, cfg.data_shards
+    _, n_units, _ = minibatch_layout(cfg)
+    if d_shards == 1 and mesh.world > 1:
+        full = Batch(*(pmesh.all_gather_rows(x, mesh, dim=1) for x in batch))
+        flat = Batch(*(x.reshape((cfg.batch_size,) + x.shape[2:]) for x in full))
+        perms = epoch_permutation(generator, n_units, shape=(e_total, 1),
+                                  consts=perm_consts, device=device)
+        return run_ppo_update(cfg, model, opt_state, log_std, lr, flat, perms)
+    if d_shards != mesh.world:
+        raise ValueError(f"cfg.data_shards={d_shards} does not match the mesh's data "
+                         f"axis ({mesh.world}); use data_shards={mesh.world} or 1")
+    local = dataclasses.replace(cfg, num_envs=cfg.num_envs // mesh.world, data_shards=1)
+    rank = mesh.rank
+    if n_units & (n_units - 1) == 0:
+        if perm_consts is None:
+            perm_consts = draw_constants((e_total, d_shards), generator, device=device)
+        perms = epoch_permutation(None, n_units, shape=(e_total, 1),
+                                  consts=perm_consts[:, rank:rank + 1])
+    else:
+        perms = epoch_permutation(generator, n_units, shape=(e_total, d_shards),
+                                  device=device)[:, rank:rank + 1]
+    flat = Batch(*(x.reshape((local.batch_size,) + x.shape[2:]) for x in batch))
+    return run_ppo_update(local, model, opt_state, log_std, lr, flat, perms, mesh=mesh)
+
+
+def make_update_step(cfg: PPOConfig, hooks: EnvHooks, action_dim: int = 2, mesh=None):
     """Returns ``update_step(runner, aux, noise=None, perm_consts=None) -> (runner,
     metrics)``: one full PPO update. ``noise`` [num_steps, num_envs, action_dim] and
     ``perm_consts`` [update_epochs, data_shards, 8] (uint32 values) replace the
     draws from ``runner.generator``. ``metrics`` is the packed float32 numpy
-    vector (``unpack_metrics``)."""
+    vector (``unpack_metrics``).
+
+    ``mesh``: a ``parallel.mesh.DataMesh``. With a process group, the runner and
+    aux hold this rank's envs (``PPOTrainer.shard``), ``noise`` and
+    ``perm_consts`` are still the global draws (this rank takes its rows), and the
+    metrics are the whole run's on every rank. Without one (None, or one process
+    with nothing initialized) the update is the single-process one."""
+    if mesh is not None and mesh.group is None:
+        mesh = None
 
     def update_step(runner: RunnerState, aux, noise=None, perm_consts=None):
         train = runner.train
@@ -423,13 +506,15 @@ def make_update_step(cfg: PPOConfig, hooks: EnvHooks, action_dim: int = 2):
             # reset obs), runner.obs/done do not
             env_state, _ = reset_observe(hooks, aux, runner.vec.generator)
             runner = dataclasses.replace(
-                runner, vec=vector.init(env_state, cfg.num_envs, runner.vec.generator))
+                runner, vec=vector.init(env_state, runner.done.shape[0], runner.vec.generator))
 
         if noise is None:
             noise = net.sample_noise((cfg.num_steps, cfg.num_envs, action_dim), gen,
                                      dtype=dtype, device=dev)
+        if mesh is not None:
+            noise = shard_rows(noise, mesh.shard, dim=1)
         vec, next_obs, next_done, norm, traj, sstats = rollout_phase(
-            cfg, hooks, runner, aux, log_std, noise)
+            cfg, hooks, runner, aux, log_std, noise, mesh)
 
         rewards = sstats["reward"]                  # [T, N] f32
         with torch.no_grad():
@@ -440,13 +525,18 @@ def make_update_step(cfg: PPOConfig, hooks: EnvHooks, action_dim: int = 2):
                 rewards, sstats["done_entering"], traj.values, next_value, next_done,
                 cfg.gamma, cfg.gae_lambda)
         batch = traj._replace(advantages=advantages, returns=returns)
-        flat = Batch(*(x.reshape((cfg.batch_size,) + x.shape[2:]) for x in batch))
-
-        _, n_units, _ = minibatch_layout(cfg)
-        perms = epoch_permutation(gen, n_units, shape=(cfg.update_epochs, cfg.data_shards),
-                                  consts=perm_consts, device=dev)
-        opt_state, stopped, ustats = run_ppo_update(
-            cfg, model, train.opt_state, log_std, lr, flat, perms)
+        if mesh is None:
+            flat = Batch(*(x.reshape((cfg.batch_size,) + x.shape[2:]) for x in batch))
+            _, n_units, _ = minibatch_layout(cfg)
+            perms = epoch_permutation(gen, n_units,
+                                      shape=(cfg.update_epochs, cfg.data_shards),
+                                      consts=perm_consts, device=dev)
+            opt_state, stopped, ustats = run_ppo_update(
+                cfg, model, train.opt_state, log_std, lr, flat, perms)
+        else:
+            opt_state, stopped, ustats = _sharded_update(
+                cfg, mesh, model, train.opt_state, log_std, lr, batch, gen, perm_consts,
+                dev)
 
         new_runner = RunnerState(
             train=TrainState(model=model, opt_state=opt_state, update=train.update + 1),
@@ -461,6 +551,9 @@ def make_update_step(cfg: PPOConfig, hooks: EnvHooks, action_dim: int = 2):
         ])
         if "extra" in sstats:  # the hook's sums ride the same transfer
             device_vals = torch.cat([device_vals, sstats["extra"].to(torch.float32)])
+        if mesh is not None:  # every rank's sums; the mean reward of equal shards
+            pmesh.all_reduce_sum_(device_vals, mesh)
+            device_vals[3] /= mesh.world
         host = device_vals.cpu().numpy()
         ret_sum, len_sum, count, mean_reward = host[:4]
         f32 = np.float32

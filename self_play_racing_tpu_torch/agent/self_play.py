@@ -18,6 +18,10 @@
    leaf names) every ``checkpoint_every`` updates and at the end of ``train()``
    on the interval, with ``resume_from`` for v1 and v0 files and the reference's
    ``.pth`` training checkpoints.
+ - ``shard(mesh)``: data-parallel training. The pool is replicated and every rank
+   takes the same snapshots; the opponent indices are chosen for every env on
+   every rank alike, and each rank keeps its envs' rows; the PFSP counters are
+   summed over the group with the metrics; rank 0 writes the checkpoints.
 """
 from __future__ import annotations
 
@@ -35,24 +39,28 @@ from ..envs import normalize as obsnorm
 from ..envs import selfplay as sp
 from ..envs import track as trk
 from ..models import actor_critic as net
+from ..parallel import mesh as pmesh
 from ..utils import checkpoint as ckpt
 from . import ppo
 from .trainer import PPOTrainer
 
 
-def make_selfplay_hooks(env_cfg: menv.MultiRacingConfig, pool_size: int = 0) -> ppo.EnvHooks:
+def make_selfplay_hooks(env_cfg: menv.MultiRacingConfig, pool_size: int = 0,
+                        shard=None) -> ppo.EnvHooks:
     """EnvHooks over the self-play view; aux = {"track": ..., "opp": ...}.
 
     ``pool_size`` > 0 adds the stats hook: per-slot [wins..., games...] of the
     learner against each pool opponent, from the episodes that ended (placement 1
-    is a win), the signal PFSP sampling feeds on."""
+    is a win), the signal PFSP sampling feeds on. ``shard`` = (rank, world): the
+    aux holds this rank's envs of a data-parallel run, and the start-grid and
+    opponent draws are this rank's rows of the draws for all envs."""
 
     def reset(aux, generator):
-        return sp.reset_state_deferred(env_cfg, aux["track"], generator)
+        return sp.reset_state_deferred(env_cfg, aux["track"], generator, shard=shard)
 
     def transition(aux, state, action, generator):
         return sp.transition_deferred(env_cfg, aux["track"], aux["opp"], state, action,
-                                      generator)
+                                      generator, shard=shard)
 
     def observe(aux, state):
         return sp.observe(state)
@@ -130,6 +138,15 @@ class SelfPlayTrainer(PPOTrainer):
                          hooks=make_selfplay_hooks(env_cfg, cfg.pool_size), aux=aux)
         self.training_info["opponent_pool_size"] = []
         self.training_info["pool_win_rate"] = []
+
+    def shard(self, mesh: pmesh.DataMesh):
+        """``PPOTrainer.shard`` with the self-play hooks drawing this rank's rows of
+        the start grids and opponent draws, and the pool rank 0's on every rank
+        (it is built alike on every rank, and every rank takes the same
+        snapshots of the replicated learner)."""
+        self.hooks = make_selfplay_hooks(self.env_cfg, self.pool_size, shard=mesh.shard)
+        super().shard(mesh)
+        self.pool = pmesh.replicate_tree(self.pool, mesh)
 
     # ---- pool ------------------------------------------------------------------
 
@@ -251,8 +268,9 @@ class SelfPlayTrainer(PPOTrainer):
             "pool_wins": self.pool_wins.tolist(),
             "pool_games": self.pool_games.tolist(),
         }
-        ckpt.save_pytree(path, self._ckpt_tree(), meta)
-        print(f"Saved full checkpoint to {path}")
+        ckpt.save_pytree(path, self._ckpt_tree(), meta, mesh=self._mesh)
+        if self._writes_files:
+            print(f"Saved full checkpoint to {path}")
 
     @torch.no_grad()
     def _set_train(self, params, mu, nu, count: int, update: int):

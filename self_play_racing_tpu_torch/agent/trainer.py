@@ -4,7 +4,8 @@
 Buffers, per-update anneals, logging and the training-info JSON as in the
 reference; the trainer runs on the device its track lives on. It drives the
 single-car env by default; the self-play trainer passes its own ``hooks`` and
-``aux``.
+``aux``. ``shard(mesh)`` spreads it over a data-parallel process group
+(``parallel/mesh.py``).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from ..configs import PPOConfig
 from ..envs import single as senv
 from ..envs import track as trk
 from ..envs import vector
+from ..parallel import mesh as pmesh
 from . import ppo
 
 
@@ -76,6 +78,7 @@ class PPOTrainer:
         self.cfg = cfg
         self.env_cfg = env_cfg
         self.device = trk.rows_of(track)[0].wp_x.device
+        self._mesh = None  # set by shard(); re-applied on aux swaps
         if aux is not None:
             self.aux = self._place_aux(aux)
         elif cfg.anneal_speed_weight:
@@ -98,13 +101,49 @@ class PPOTrainer:
     def _f32(self, value) -> torch.Tensor:
         return torch.tensor(value, dtype=torch.float32, device=self.device)
 
+    def shard(self, mesh: pmesh.DataMesh):
+        """Spread the trainer over a data-parallel mesh: this rank keeps its
+        ``num_envs / world`` envs (env state, observations, per-env track rows
+        and aux), params and optimizer state are rank 0's on every rank, and the
+        update reduces over the group (``ppo.make_update_step(mesh=...)``). Pair
+        with ``cfg.data_shards`` = the data axis so the minibatch shuffle stays
+        shard-local; ``data_shards=1`` (the reference-parity global shuffle) is
+        also legal and gathers the batch on every rank, but any other value
+        raises."""
+        n_data = mesh.world
+        if self.cfg.data_shards > 1 and self.cfg.data_shards != n_data:
+            raise ValueError(
+                f"cfg.data_shards={self.cfg.data_shards} does not match the "
+                f"mesh's data axis ({n_data}): the shard-local minibatch layout "
+                f"only stays collective-free when the shard count equals the "
+                f"data-parallel degree (use data_shards={n_data} or 1)"
+            )
+        if mesh.device != self.device:
+            raise ValueError(f"the trainer runs on {self.device}, the mesh's "
+                             f"process owns {mesh.device}")
+        self._mesh = mesh
+        self.runner, self.aux = pmesh.shard_runner(
+            self.runner, self.aux, mesh, self.cfg.num_envs)
+        self.update_step = ppo.make_update_step(self.cfg, self.hooks,
+                                                self.env_cfg.action_dim, mesh=mesh)
+
+    @property
+    def _writes_files(self) -> bool:
+        """Rank 0 writes the run's files (every rank holds the same state)."""
+        return self._mesh is None or self._mesh.rank == 0
+
     def _place_aux(self, aux):
-        """Freshly built aux leaves, moved to the trainer's device. An aux whose
-        leaves are all there already is returned as it is, as the reference
-        returns it where there is nothing to place it on."""
+        """Freshly built aux leaves, moved to the trainer's device (and, once
+        sharded, cut to this rank's envs). An aux whose leaves are all there
+        already is returned as it is, as the reference returns it where there is
+        nothing to place it on."""
         on_device = []
         tree_map(lambda t: on_device.append(t.device == self.device), aux)
-        return aux if all(on_device) else tree_map(lambda t: t.to(self.device), aux)
+        if not all(on_device):
+            aux = tree_map(lambda t: t.to(self.device), aux)
+        if self._mesh is not None:
+            aux = pmesh.shard_by_env_axis(aux, self._mesh, self.cfg.num_envs)
+        return aux
 
     @property
     def params(self):
@@ -218,12 +257,13 @@ class PPOTrainer:
         """Re-reset all envs against the current aux, keeping learner state."""
         runner = self.runner
         vec_gen = runner.vec.generator
+        n = runner.done.shape[0]  # this rank's envs
         env_state, obs = ppo.reset_observe(self.hooks, self.aux, vec_gen)
         self.runner = dataclasses.replace(
             runner,
-            vec=vector.init(env_state, self.cfg.num_envs, vec_gen),
+            vec=vector.init(env_state, n, vec_gen),
             obs=obs.to(torch.float32),
-            done=torch.zeros((self.cfg.num_envs,), dtype=torch.bool, device=self.device),
+            done=torch.zeros((n,), dtype=torch.bool, device=self.device),
         )
 
     def _post_update(self, metrics):
@@ -233,7 +273,9 @@ class PPOTrainer:
         """Save the policy in the repo's ``.npz`` format: leaves ``p0..p{4L-1}`` in
         the JAX package's tree order, its ``treedef`` string and the buffer
         log_std. Policies trained with ``normalize_obs`` also store the running
-        observation statistics."""
+        observation statistics. Rank 0 writes in a data-parallel run."""
+        if not self._writes_files:
+            return
         leaves = [p.detach().cpu().numpy() for p in self.runner.train.model.parameters()]
         extra = {}
         if self.cfg.normalize_obs:
@@ -262,5 +304,7 @@ class PPOTrainer:
             self.runner = dataclasses.replace(self.runner, obs_norm=obs_norm)
 
     def save_training_info(self, path: str):
+        if not self._writes_files:
+            return
         with open(path, "w") as f:
             json.dump(self.training_info, f)

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from .._numerics import const_div, div_const
+from .._tree import shard_rows
 from ..ops import geometry as geo
 from ..ops.dynamics import DEFAULT_CAR, CarSpec, car_step_and_query
 from . import track as trk
@@ -115,10 +116,12 @@ def random_grid_slots(num_envs: int, num_agents: int, generator: torch.Generator
 
 
 def reset_state(cfg: MultiRacingConfig, track: Track, generator=None,
-                position_idx=None) -> MultiState:
+                position_idx=None, shard=None) -> MultiState:
     """Fresh state on the staggered start grid. ``position_idx`` [N, A] gives each
     car's grid slot; without it a random permutation per env is drawn from
-    ``generator`` (on the track's device)."""
+    ``generator`` (on the track's device). ``shard`` = (rank, world): the track
+    holds this rank's envs of a data-parallel run, and the slots are this rank's
+    rows of the draw for all ``world`` ranks' envs."""
     rows, _ = trk.rows_of(track)
     start = trk.scalars_of(track)
     dtype = rows.wp_x.dtype
@@ -128,7 +131,11 @@ def reset_state(cfg: MultiRacingConfig, track: Track, generator=None,
     if position_idx is None:
         if generator is None:
             raise ValueError("reset_state needs a generator or explicit position_idx")
-        position_idx = random_grid_slots(n, a, generator, device=dev)
+        if shard is None:
+            position_idx = random_grid_slots(n, a, generator, device=dev)
+        else:
+            position_idx = shard_rows(random_grid_slots(n * shard[1], a, generator,
+                                                        device=dev), shard)
     position_idx = torch.as_tensor(position_idx, device=dev)
 
     spacing = cfg.car.width + 1.5

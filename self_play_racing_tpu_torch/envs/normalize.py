@@ -2,12 +2,17 @@
 
 Batched Welford-style running mean/variance, merged once per vector step for the
 whole [num_envs, obs_dim] batch, and applied to the policy's input with a +-10 clip.
+In a data-parallel run the batch is every rank's envs: its moments are reduced over
+the process group (``parallel.mesh.global_moments``), so the statistics stay
+replicated.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from ..parallel import mesh as pmesh
 
 
 @dataclasses.dataclass
@@ -25,11 +30,17 @@ def init(obs_dim: int, dtype=torch.float32, device=None) -> ObsNormState:
     )
 
 
-def update(state: ObsNormState, obs) -> ObsNormState:
-    """Merge one [N, D] batch into the running statistics (parallel Welford)."""
-    batch_mean = obs.mean(dim=0)
-    batch_var = obs.var(dim=0, correction=0)
-    batch_count = torch.full_like(state.count, obs.shape[0])
+def update(state: ObsNormState, obs, mesh=None) -> ObsNormState:
+    """Merge one [N, D] batch into the running statistics (parallel Welford). With
+    a data-parallel ``mesh`` (``parallel.mesh.DataMesh`` with a group) the batch
+    is the union of every rank's ``obs``."""
+    if mesh is None:
+        batch_mean = obs.mean(dim=0)
+        batch_var = obs.var(dim=0, correction=0)
+        batch_count = torch.full_like(state.count, obs.shape[0])
+    else:
+        batch_mean, batch_var = pmesh.global_moments(obs, mesh)
+        batch_count = torch.full_like(state.count, obs.shape[0] * mesh.world)
 
     delta = batch_mean - state.mean
     tot = state.count + batch_count

@@ -29,6 +29,7 @@ import dataclasses
 
 import torch
 
+from .._tree import shard_rows
 from . import multi
 from . import normalize as obsnorm
 from .track import Track
@@ -107,12 +108,15 @@ def opponent_actions(cfg: multi.MultiRacingConfig, opp, opp_obs, noise, uniforms
     return torch.where(use.expand(opp_obs.shape[:1])[:, None], policy_act, rand_act)
 
 
-def opponent_actions_all_seats(cfg: multi.MultiRacingConfig, opp, obs_seats, generator):
+def opponent_actions_all_seats(cfg: multi.MultiRacingConfig, opp, obs_seats, generator,
+                               shard=None):
     """Frozen-opponent actions [N, seats, 2] for all opponent seats in one batch.
 
     ``obs_seats`` [N, seats, obs_dim]. Each env's opponent drives all of its seats,
     so the seat axis folds into the batch env-major ((env 0, seat 1), (env 0,
-    seat 2), ...). The noise and uniforms come from ``opponent_randoms``."""
+    seat 2), ...). The noise and uniforms come from ``opponent_randoms``; with
+    ``shard`` = (rank, world) they are this rank's rows of the draw for all
+    ``world`` ranks' envs (a data-parallel run)."""
     n, seats, d = obs_seats.shape
     flat_opp = dict(opp)
     for field in ("idx", "use_policy"):
@@ -120,14 +124,18 @@ def opponent_actions_all_seats(cfg: multi.MultiRacingConfig, opp, obs_seats, gen
         if v.ndim != 0:
             flat_opp[field] = v.repeat_interleave(seats)
     dtype = opp["params"]["actor"][0][0].dtype
-    noise, uniforms = opponent_randoms(generator, n * seats, dtype, obs_seats.device)
+    if shard is None:
+        noise, uniforms = opponent_randoms(generator, n * seats, dtype, obs_seats.device)
+    else:
+        noise, uniforms = (shard_rows(r, shard) for r in opponent_randoms(
+            generator, n * seats * shard[1], dtype, obs_seats.device))
     acts = opponent_actions(cfg, flat_opp, obs_seats.reshape(n * seats, d), noise,
                             uniforms)
     return acts.reshape(n, seats, 2)
 
 
-def _step_inner(cfg, track, opp, state, action0, generator):
-    opp_acts = opponent_actions_all_seats(cfg, opp, state.obs_all[:, 1:], generator)
+def _step_inner(cfg, track, opp, state, action0, generator, shard=None):
+    opp_acts = opponent_actions_all_seats(cfg, opp, state.obs_all[:, 1:], generator, shard)
     actions = torch.cat([action0.to(torch.float32)[:, None].to(opp_acts.dtype), opp_acts],
                         dim=1)                                        # [N, A, 2]
     return multi.transition(cfg, track, state.inner, actions)
@@ -151,21 +159,23 @@ def observe(state: SelfPlayState) -> torch.Tensor:
 
 # The trainer's path: under NEXT_STEP autoreset the reset runs on every step, so
 # the deferred variants leave ``obs_all`` stale and ``refresh`` senses once per
-# vector step on the merged state.
+# vector step on the merged state. ``shard`` = (rank, world) takes this rank's
+# rows of the random draws for all ranks' envs (``multi.reset_state``,
+# ``opponent_actions_all_seats``).
 
 def reset_state_deferred(cfg: multi.MultiRacingConfig, track: Track,
-                         generator=None, position_idx=None) -> SelfPlayState:
-    inner = multi.reset_state(cfg, track, generator, position_idx)
+                         generator=None, position_idx=None, shard=None) -> SelfPlayState:
+    inner = multi.reset_state(cfg, track, generator, position_idx, shard=shard)
     n = inner.x.shape[0]
     return SelfPlayState(inner=inner, obs_all=torch.zeros(
         (n, cfg.num_agents, cfg.obs_dim), dtype=torch.float32, device=inner.x.device))
 
 
 def transition_deferred(cfg: multi.MultiRacingConfig, track: Track, opp,
-                        state: SelfPlayState, action0, generator=None):
+                        state: SelfPlayState, action0, generator=None, shard=None):
     """``transition`` without the observe pass; pair with ``refresh``."""
     inner, rewards, terminated, truncated, info = _step_inner(cfg, track, opp, state,
-                                                              action0, generator)
+                                                              action0, generator, shard)
     new_state = SelfPlayState(inner=inner, obs_all=state.obs_all)  # stale until refresh
     info0 = {k: v[:, 0] for k, v in info.items()}
     return new_state, rewards[:, 0], terminated | truncated, truncated, info0

@@ -24,11 +24,16 @@ working directory as the JAX package's CLI does:
   the update it starts at, so a resumed run trains on the pool it left;
   ``--pooled-geometry [tiled|grouped|gather]`` keeps the pool resident and lets
   the env kernels read each env's row by id instead of per-env copies.
+  ``--coordinator HOST:PORT --num-processes P --process-id i`` (one command per
+  process, one card each) trains data parallel over ``torch.distributed`` (NCCL;
+  gloo with ``--device cpu``): the envs are split over the processes and the
+  minibatch shuffle stays shard-local where the minibatch divides; rank 0 writes
+  the files.
 
 Track pools follow the reference's seed and stream conventions:
 ``gen_tracks(num_tracks, seed)``, then widths ``randint[6, 10)`` from the global
-NumPy RNG. The SB3 baseline (``sb3``, ``all``) and multi-GPU training are not
-ported yet and exit with a message.
+NumPy RNG. The SB3 baseline (``sb3``, ``all``) is not ported yet and exits with a
+message.
 """
 from __future__ import annotations
 
@@ -47,6 +52,7 @@ from .envs import multi as menv
 from .envs import procgen as pg
 from .envs import single as senv
 from .envs import track as trk
+from .parallel import mesh as pmesh
 
 _LATER = {
     "sb3": "the SB3 baseline is not ported yet",
@@ -135,9 +141,10 @@ def train_scale(total_timesteps=1_000_000_000, num_envs=4096, num_steps=256,
                 num_updates=None, checkpoint_dir="models/scale",
                 checkpoint_every=200, resume_from=None, num_agents=2,
                 resample_tracks_every=0, track_points=12, pooled_geometry=False,
-                sensor_lod=1, device=None, **cfg_overrides):
-    """Scale-mode self-play on one card: env state stays resident, opponents are
-    chosen per env, ``num_tracks`` tracks tiled over the envs (env i races track
+                sensor_lod=1, device=None, coordinator=None, num_processes=None,
+                process_id=None, **cfg_overrides):
+    """Scale-mode self-play: env state stays resident, opponents are chosen per
+    env, ``num_tracks`` tracks tiled over the envs (env i races track
     i % num_tracks). ``num_agents`` > 2 races the learner against that many
     frozen-pool seats. ``sensor_lod`` > 1 senses against a coarser boundary
     (relaxed sensing; progress, rewards and collisions stay exact).
@@ -148,13 +155,33 @@ def train_scale(total_timesteps=1_000_000_000, num_envs=4096, num_steps=256,
     they start at, so a resume lands on the pool that was active at its
     checkpoint. ``pooled_geometry`` (``geometry_layout``) keeps the pool resident
     instead of per-env copies: the capacity path for env counts whose copies do
-    not fit."""
+    not fit.
+
+    Data parallel over the process group (``coordinator``, ``num_processes``,
+    ``process_id``: ``parallel.mesh.distributed_init``, or a group the caller
+    initialized): with more than one process and ``num_envs`` divisible by
+    their number the trainer is sharded, with ``data_shards`` = the number of
+    processes where the minibatch divides (shard-local minibatches), else 1 (the
+    global shuffle). Every process builds the same run from the seed and keeps
+    its envs."""
+    dev = resolve_device(device)
+    pmesh.distributed_init(coordinator, num_processes, process_id, device=dev)
+    mesh = pmesh.make_mesh(dev)
+    dev = mesh.device
+    n_dev = mesh.world
     overrides = dict(total_timesteps=total_timesteps, num_envs=num_envs,
                      num_steps=num_steps, opponent_per_env=True,
                      reset_envs_each_update=False)
     overrides.update(cfg_overrides)
+    # shard-local minibatching needs every minibatch to take an equal stratum from
+    # each process's envs: probe the minibatch size of the final overrides, and
+    # keep the global shuffle for configs it does not divide
+    probe = self_play_config(**overrides)
+    use_mesh = n_dev > 1 and probe.num_envs % n_dev == 0
+    if (use_mesh and "data_shards" not in cfg_overrides
+            and probe.minibatch_size % n_dev == 0):
+        overrides["data_shards"] = n_dev
     cfg = self_play_config(**overrides)
-    dev = resolve_device(device)
     _seed_all(cfg.seed)
 
     def pool_for_boundary(boundary: int):
@@ -180,6 +207,13 @@ def train_scale(total_timesteps=1_000_000_000, num_envs=4096, num_steps=256,
           f"Batch: {cfg.batch_size:,} | Updates: {cfg.num_updates} | "
           f"Snapshot freq: {cfg.snapshot_freq} | Pool: {cfg.pool_size} | Device: {dev}")
     trainer = SelfPlayTrainer(cfg, env_cfg, track)
+    if use_mesh:
+        layout = (f"shard-local minibatching (data_shards={cfg.data_shards})"
+                  if cfg.data_shards > 1 else
+                  "global-shuffle minibatching (minibatch size not divisible "
+                  "by the device count)")
+        print(f"Sharding over {n_dev} devices: mesh {dict(mesh.shape)}, {layout}")
+        trainer.shard(mesh)
     if resample_tracks_every:
         applied = {"boundary": 0}
 
@@ -195,11 +229,12 @@ def train_scale(total_timesteps=1_000_000_000, num_envs=4096, num_steps=256,
         trainer.track_resampler = resample
     trainer.train(num_updates=num_updates, log_every=50, checkpoint_dir=checkpoint_dir,
                   checkpoint_every=checkpoint_every, resume_from=resume_from)
-    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
-    trainer.save(out)
-    os.makedirs(os.path.dirname(info_out) or ".", exist_ok=True)
-    trainer.save_training_info(info_out)
-    print(f"Final model saved to {out}")
+    if mesh.rank == 0:
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        trainer.save(out)
+        os.makedirs(os.path.dirname(info_out) or ".", exist_ok=True)
+        trainer.save_training_info(info_out)
+        print(f"Final model saved to {out}")
     return trainer
 
 
@@ -265,6 +300,15 @@ def main(argv=None):
                         "the copied layout's; 'grouped' gives each track a block "
                         "of N/T consecutive envs (another assignment); 'gather' "
                         "reads through arbitrary per-env ids")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="scale mode, data parallel: rank 0's address; every "
+                        "process passes the same value (torch.distributed)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="scale mode, data parallel: the number of processes, one "
+                        "card each")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="scale mode, data parallel: this process's rank, "
+                        "0..num-processes-1")
     args = p.parse_args(argv)
     if args.mode in _LATER:
         raise SystemExit(f"train {args.mode}: not ported yet; {_LATER[args.mode]}")
@@ -293,8 +337,13 @@ def main(argv=None):
         skw["resample_tracks_every"] = args.resample_tracks_every
     if args.pooled_geometry:
         skw["pooled_geometry"] = args.pooled_geometry
-    return train_scale(num_updates=args.num_updates, resume_from=args.resume,
-                       device=args.device, **skw)
+    trainer = train_scale(num_updates=args.num_updates, resume_from=args.resume,
+                          device=args.device, coordinator=args.coordinator,
+                          num_processes=args.num_processes, process_id=args.process_id,
+                          **skw)
+    if args.coordinator is not None:
+        torch.distributed.destroy_process_group()
+    return trainer
 
 
 if __name__ == "__main__":

@@ -11,6 +11,9 @@ packages:
 - Format v0 (no ``format_version``): leaves by position, with the shape/dtype check
   as the only guard. The repo's ``models/checkpoint_update_*.npz`` are v0.
 - ``<path without .npz>.meta.json`` holds the host state (``meta``).
+- In a data-parallel run every rank holds the same replicated state: rank 0
+  writes, the others wait at a barrier until the files are there, and every rank
+  loads them.
 
 A tree is built from dicts (keys sorted, as JAX flattens them: ``['key']``),
 lists and tuples (``[i]``) and ``Fields`` (named fields in their order, as a
@@ -24,6 +27,8 @@ import os
 
 import numpy as np
 import torch
+
+from ..parallel import mesh as pmesh
 
 FORMAT_VERSION = 1
 
@@ -83,8 +88,18 @@ def format_version(path: str) -> int:
         return int(data["format_version"]) if "format_version" in data else 0
 
 
-def save_pytree(path: str, tree, meta: dict | None = None) -> None:
-    """Save ``tree`` in format v1 and ``meta`` in the JSON sidecar."""
+def save_pytree(path: str, tree, meta: dict | None = None, mesh=None) -> None:
+    """Save ``tree`` in format v1 and ``meta`` in the JSON sidecar. With a
+    data-parallel ``mesh`` (``parallel.mesh.DataMesh``) rank 0 writes and every
+    rank returns once the files are written."""
+    if mesh is not None and mesh.rank != 0:
+        pmesh.barrier(mesh)
+        return
+    _write_pytree(path, tree, meta)
+    pmesh.barrier(mesh)
+
+
+def _write_pytree(path: str, tree, meta):
     named = flatten_with_names(tree)
     host = [_host(leaf) for _, leaf in named]
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)

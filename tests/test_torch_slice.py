@@ -9,9 +9,10 @@
 - ``evaluate --single --multi`` runs both policies on a 2 x 1 grid in a temporary
   directory and writes their results and chart there; the flags of a later slice
   exit with a message.
-- Importing the port loads no JAX, Flax, Optax or JAX-package module.
+- Importing the port (``parallel/`` included) and chip_smoke.py loads no JAX,
+  Flax, Optax or JAX-package module.
 - Without CUDA, an entry point not told ``device="cpu"`` raises (the self-play
-  entry points too).
+  entry points, the data-parallel mesh and the scaling CLI too).
 """
 import os
 import subprocess
@@ -36,6 +37,8 @@ from self_play_racing_tpu_torch import train as ttrain
 from self_play_racing_tpu_torch.configs import base_config
 from self_play_racing_tpu_torch.envs import single as tenv
 from self_play_racing_tpu_torch.envs import track as ttrack
+from self_play_racing_tpu_torch.parallel import mesh as pmesh
+from self_play_racing_tpu_torch.parallel import scaling as pscaling
 from self_play_racing_tpu_torch.utils import metrics as tM
 from self_play_racing_tpu_torch.utils import profiling as tprof
 
@@ -120,7 +123,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "for name in ('agent.ppo', 'agent.trainer', 'train', 'configs', 'ops.gae',\n"
         "             'ops.prng', 'agent.self_play', 'envs.multi', 'envs.selfplay',\n"
-        "             'utils.checkpoint'):\n"
+        "             'utils.checkpoint', 'parallel', 'parallel.mesh', 'parallel.scaling'):\n"
         "    assert 'self_play_racing_tpu_torch.' + name in sys.modules, name\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
@@ -154,6 +157,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
                                 "--num-runs", "1"]),
         lambda: interop.pool_from_jax({"params": {"actor": [], "critic": []},
                                        "log_std": np.zeros((1, 2))}),
+        lambda: pmesh.make_mesh(),
+        lambda: pmesh.distributed_init("127.0.0.1:1", 1, 0),
+        lambda: pscaling.main(["--envs-per-device", "2", "--num-steps", "2"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

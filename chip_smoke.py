@@ -137,7 +137,38 @@ h. ``train scale``'s self-play (the canonical pool tiled over 4096 envs, 256 ste
    (by row id) 256 times and K6 and K7 once an update; last ``python -m
    self_play_racing_tpu_torch.parallel.scaling`` at world 1 writes its
    ``scaling_sweep_v1`` JSON into a temporary directory, printed, and no tracked
-   file changes.
+   file changes;
+
+and for the Gymnasium adapters, the SB3 baseline and tensor parallelism (after
+phase h, each printing its wall seconds):
+
+i. whether gymnasium imported (the adapters run on their stand-in spaces without
+   it); ``RacingEnv`` at float32 on the card against the same adapter on the CPU
+   in float32 for one episode of seeded actions on the canonical pool's track 0
+   (width 7): the same done step, the observations within ``ADAPTER_OBS_ATOL``
+   (largest gap printed), one ``raycast_walls`` and one ``car_step_and_query``
+   launch a step (one more sensing for the reset), ms a step; ``MultiRacingEnv``
+   (2 cars) behind ``SelfPlayWrapper`` with ``models/self_play_agent.npz``'s
+   (params, log_std) as the opponent and the same policy's greedy action for the
+   agent, one episode: one ``raycast_walls_and_cars`` and one
+   ``car_step_and_query`` a step, the spaces printed; ``evaluate --sb3
+   models/sb3_baseline_agent_general.zip`` through ``eval()`` on an 8 x 2 grid
+   into a temporary directory, success_rate >= 0.95 and avg_steps printed; ``python
+   -m self_play_racing_tpu_torch.train sb3 --num-envs 2 --total-timesteps 4096``
+   from a temporary directory: the ``.zip`` and ``training_info_sb3.json`` written
+   and read back, the model loads on the card and drives two episodes (300 steps
+   at most) through ``evaluate_sb3_agent_overall``, and no tracked file changes;
+j. tensor-parallel towers: two gloo processes on the one card (NCCL refuses two
+   ranks on a GPU) on a mesh of data 1 x model 2, each running one single-car PPO
+   update (4096 x 256, towers of 128, the canonical pool tiled) and one self-play
+   update (phase h's, towers of 128), after a warm-up update, against one process
+   unsharded with the same seed: each rank holds actor[0].w [15, 64] and
+   actor[1].w [64, 128] with the Adam moments alike, minibatches_applied equal, the
+   gathered parameters within the larger of ``TP_ATOL`` and ``TP_CONTROL_FACTOR``
+   times the distance of a control run (one process from params one ulp up) of one
+   process's, and bitwise equal on both ranks, the
+   self-play snapshot the whole parameters, a rank's launches 256 of the env
+   kernels (by row id) and K6 and K7 once an update; ms/update of both printed.
 
 The line before the last is one JSON object with every kernel's numbers (``ms`` the
 eager back-to-back time, ``graph_ms`` the CUDA-graph replay time, ``launches`` the
@@ -154,8 +185,10 @@ path runs, with ``no_pairs_*`` beside them; K6 also its cold times; the three
 ``gathered_graph_ms`` and the ``procgen_*`` numbers beside them, and launches on
 phase c's runs; ``launches_match`` every kernel's count on phase g's tournament;
 ``launches_data_parallel_world1`` its count on phase h's world-1 run of two
-updates and ``launches_data_parallel_ranks`` on each of the two ranks' update);
-the last line is ``{"ok": true, "device": {...}}``.
+updates and ``launches_data_parallel_ranks`` on each of the two ranks' update;
+``launches_adapter`` its count over phase i's two adapter episodes and
+``launches_tensor_parallel`` on each of phase j's two ranks, its single-car and
+self-play updates summed); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -219,6 +252,8 @@ V0_CHECKPOINT = "models/checkpoint_update_90.npz"
 TORCH_CHECKPOINT = "models/reference_selfplay_checkpoint_update_90.pth"
 # what the self-play phases must leave untouched
 TRACKED = [MULTI_MODEL, "data/training_info_self_play.json", "data/tournament.json",
+           "models/sb3_baseline_agent_general.zip", "data/training_info_sb3.json",
+           "data/eval_info_sb3.json",
            *(f"models/checkpoint_update_{u}.npz" for u in range(10, 100, 10))]
 NUM_ENVS = 4096
 NUM_AGENTS = 2
@@ -2317,6 +2352,405 @@ def data_parallel(dev, card):
     return world_one, ranks
 
 
+# ------------------------------------- phase (i): the gym adapters and the SB3 leg
+
+SB3_MODEL = "models/sb3_baseline_agent_general.zip"
+ADAPTER_TRACK_WIDTH = 7.0
+# The card's adapter against the CPU's, both float32: the kernels are bitwise their
+# plain versions, but the elementwise cos/sin/sqrt of the step round differently
+# on the card and in the CPU's math library (ulps), which the car's state carries
+# from step to step. ADAPTER_OBS_ATOL bounds the observations' gap (unit-scale
+# features; a ray is a hit distance over 50).
+ADAPTER_OBS_ATOL = 1e-3
+SB3_GRID = (8, 2)  # tracks x runs of the reduced --sb3 grid
+
+
+def timed(what):
+    """Prints the wall seconds of the block it wraps."""
+    @contextlib.contextmanager
+    def block():
+        t0 = time.perf_counter()
+        yield
+        print(f"{what}: {time.perf_counter() - t0:.1f} s wall")
+    return block()
+
+
+def canonical_control_points():
+    """The canonical pool's control points (``canonical_bench_pool``'s draw)."""
+    np.random.seed(1)
+    return trk.gen_tracks(num_tracks=NUM_TRACKS, seed=1)
+
+
+def racing_env_episode(env, rng, max_steps=2000):
+    """One episode of ``env`` under actions drawn from ``rng``; its observations
+    (reset included) and the step it ended at."""
+    obs, _ = env.reset()
+    seen = [obs]
+    for t in range(max_steps):
+        obs, _, term, trunc, _ = env.step(rng.uniform([-1.0, 0.3], [1.0, 1.0]))
+        seen.append(obs)
+        if term or trunc:
+            return np.stack(seen), t + 1
+    return np.stack(seen), max_steps
+
+
+def adapter_single(dev, card):
+    """Phase i.1: ``RacingEnv`` at float32 on the card against the same adapter on
+    the CPU, one episode of seeded actions on the canonical pool's track 0."""
+    from self_play_racing_tpu_torch.envs import gym_adapter
+
+    cps = canonical_control_points()
+    kw = dict(num_sensors=11, track_pool=cps, track_id=0, track_width=ADAPTER_TRACK_WIDTH)
+    card_env = gym_adapter.RacingEnv(**kw, device=dev)
+    cpu_env = gym_adapter.RacingEnv(**kw, dtype=torch.float32, device="cpu")
+    if card_env.track.wp_x.dtype != torch.float32:
+        raise AssertionError(f"RacingEnv on {dev} runs {card_env.track.wp_x.dtype}")
+    racing_env_episode(card_env, np.random.default_rng(1), 8)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    got, steps = racing_env_episode(card_env, np.random.default_rng(0))
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    want, want_steps = racing_env_episode(cpu_env, np.random.default_rng(0))
+    gap = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+    print(f"RacingEnv on the card: one episode of {steps} steps (the CPU adapter's "
+          f"{want_steps}) in {dt:.3f} s = {dt / steps * 1e3:.3f} ms a step, one host "
+          f"copy each, on {card}; largest observation gap to the CPU {gap:.3e} "
+          f"(atol {ADAPTER_OBS_ATOL:g}); launches {launches}")
+    if steps != want_steps:
+        raise AssertionError(f"RacingEnv: the card's episode ends at {steps}, the CPU's "
+                             f"at {want_steps}")
+    if gap > ADAPTER_OBS_ATOL:
+        raise AssertionError(f"RacingEnv: observations {gap:.3e} from the CPU's")
+    expected = counts(raycast_walls=steps + 1, car_step_and_query=steps)
+    if launches != expected:
+        raise AssertionError(f"RacingEnv launches {launches}, expected {expected}")
+    return launches, dt / steps
+
+
+def adapter_selfplay(dev, card):
+    """Phase i.2: ``MultiRacingEnv(num_agents=2)`` behind ``SelfPlayWrapper``, its
+    opponent ``models/self_play_agent.npz``'s (params, log_std), the agent the same
+    policy's greedy action, for one episode on the canonical pool's track 0."""
+    from self_play_racing_tpu_torch.envs import gym_adapter
+
+    params, log_std = evaluate.load_policy(MULTI_MODEL, device=dev)
+    env = gym_adapter.SelfPlayWrapper(gym_adapter.MultiRacingEnv(
+        num_agents=2, num_sensors=11, track_pool=canonical_control_points(), track_id=0,
+        track_width=ADAPTER_TRACK_WIDTH, device=dev))
+    env.set_opponent((params, log_std))
+    spaces = {k: type(getattr(env, k)).__module__ + "." + type(getattr(env, k)).__name__
+              for k in ("action_space", "observation_space")}
+    if env.observation_space.shape != (19,) or env.action_space.shape != (2,):
+        raise AssertionError(f"SelfPlayWrapper spaces {spaces}")
+
+    def act(obs):
+        with torch.no_grad():
+            a = net.deterministic_action(params, torch.as_tensor(obs, device=dev)[None])
+        return a[0].cpu().numpy()
+
+    np.random.seed(0)
+    zero_counts()
+    t0 = time.perf_counter()
+    obs, _ = env.reset()
+    steps, total = 0, 0.0
+    for steps in range(1, 3001):
+        obs, reward, done, _, info = env.step(act(obs))
+        total += reward
+        if done:
+            break
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    print(f"SelfPlayWrapper on the card (2 cars, opponent {MULTI_MODEL} sampled, agent "
+          f"greedy): {steps} steps in {dt:.3f} s = {dt / steps * 1e3:.3f} ms a step; "
+          f"return {total:.2f}, placement {info.get('placement')}, finished "
+          f"{info['finished']}; spaces {spaces}; launches {launches}")
+    if not done:
+        raise AssertionError("SelfPlayWrapper: the episode did not end in 3000 steps")
+    expected = counts(raycast_walls_and_cars=steps + 1, car_step_and_query=steps)
+    if launches != expected:
+        raise AssertionError(f"SelfPlayWrapper launches {launches}, expected {expected}")
+    return launches
+
+
+def sb3_evaluation(dev, card):
+    """Phase i.3: ``evaluate --sb3 models/sb3_baseline_agent_general.zip`` through
+    ``eval()`` on the reduced grid, into a temporary directory."""
+    tracks, runs = SB3_GRID
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        by_label = evaluate.eval({"sb3": ("sb3", SB3_MODEL)}, tracks, runs, 42, out_dir=tmp,
+                                 chart=None, device=dev)
+        with open(os.path.join(tmp, "eval_info_sb3.json")) as f:
+            res = json.load(f)
+    dt = time.perf_counter() - t0
+    steps = sum(e["steps"] for e in res["all_episodes"])
+    print(f"evaluate --sb3 {SB3_MODEL} {tracks} x {runs} (deterministic, seed 42): "
+          f"success_rate={res['success_rate']:.3f} crash_rate={res['crash_rate']:.3f} "
+          f"avg_steps={res['avg_steps']:.2f} avg_speed={res['avg_speed']:.3f}; {steps} "
+          f"adapter steps in {dt:.1f} s = {dt / steps * 1e3:.3f} ms a step on {card}")
+    if res != json.loads(json.dumps(by_label["sb3"]["results"])) or \
+            len(res["all_episodes"]) != tracks * runs:
+        raise AssertionError("eval_info_sb3.json differs from eval()'s results")
+    if res["success_rate"] < SUCCESS_FLOOR:
+        raise AssertionError(f"--sb3 success_rate {res['success_rate']} < {SUCCESS_FLOOR}")
+
+
+def sb3_training(dev, card):
+    """Phase i.4: ``train sb3 --num-envs 2 --total-timesteps 4096`` (one 2048-step
+    rollout an env, 10 epochs of 64-sample minibatches) from a temporary directory;
+    the model loads and drives two episodes."""
+    from self_play_racing_tpu_torch.interop import sb3_compat
+
+    before = file_digests()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "self_play_racing_tpu_torch.train", "sb3",
+                              "--num-envs", "2", "--total-timesteps", "4096"], cwd=tmp,
+                             env=env, capture_output=True, text=True, timeout=600)
+        dt = time.perf_counter() - t0
+        if res.returncode:
+            raise AssertionError(f"train sb3 exited {res.returncode}:\n{res.stderr[-3000:]}")
+        with open(os.path.join(tmp, "data", "training_info_sb3.json")) as f:
+            curve = json.load(f)
+        path = os.path.join(tmp, "models", "sb3_baseline_agent_general.zip")
+        model = sb3_compat.PPO.load(path, device=dev)
+        results = evaluate.evaluate_sb3_agent_overall(path, num_tracks=2, num_runs=1,
+                                                      max_steps=300, device=dev)
+    print(f"train sb3 --num-envs 2 --total-timesteps 4096: {dt:.1f} s on {card} (the "
+          f"process included); {model.num_timesteps} timesteps on {model.device}; curve "
+          f"{curve}; the saved model drives 2 episodes: steps "
+          f"{[e['steps'] for e in results['all_episodes']]}")
+    if model.num_timesteps != 4096 or model.device.type != "cuda" or \
+            len(curve["steps"]) != len(curve["rewards"]) or \
+            len(results["all_episodes"]) != 2:
+        raise AssertionError("train sb3: the saved model or its curve is not what was asked")
+    if file_digests() != before:
+        raise AssertionError("train sb3 wrote the repo's tracked files")
+
+
+def adapters(dev, card):
+    """Phase i; returns the launches of i.1's and i.2's episodes, summed."""
+    try:
+        import gymnasium  # noqa: F401
+        gym_line = f"gymnasium {gymnasium.__version__} imported"
+    except ImportError:
+        gym_line = "gymnasium is not installed: the adapters run on their stand-ins"
+    print(f"adapters: {gym_line}")
+    with timed("phase i.1 (RacingEnv)"):
+        single, step_s = adapter_single(dev, card)
+    with timed("phase i.2 (SelfPlayWrapper)"):
+        multi = adapter_selfplay(dev, card)
+    with timed("phase i.3 (evaluate --sb3)"):
+        sb3_evaluation(dev, card)
+    with timed("phase i.4 (train sb3)"):
+        sb3_training(dev, card)
+    return {k: single[k] + multi[k] for k in COUNTERS}
+
+
+# ------------------------------------------ phase (j): tensor-parallel towers
+
+TP_MODEL = 2
+TP_HIDDEN = (128, 128)
+# One update with the towers split over two ranks against one process unsharded:
+# the partial products are summed in another order, so the rollout's actions and
+# the minibatch loop's steps round otherwise in float32, and the loop amplifies
+# that as it amplifies params one ulp apart. So each config has a control, the
+# unsharded update from params one ulp up, and the parameters are held to the
+# larger of TP_ATOL (phase h's bound) and TP_CONTROL_FACTOR times the control's
+# distance: the split may move them no further than a few one-ulp nudges do.
+TP_ATOL = 1e-3
+TP_CONTROL_FACTOR = 4
+
+
+def tp_configs():
+    """Phase j's two configs: single-car PPO at 4096 x 256 and phase h's self-play
+    (snapshot_freq 1), both with towers of 128."""
+    return {"single": base_config(num_envs=NUM_ENVS, num_steps=STEPS,
+                                  total_timesteps=NUM_ENVS * STEPS * 100, hidden=TP_HIDDEN),
+            "selfplay": dataclasses.replace(dp_config(), hidden=TP_HIDDEN)}
+
+
+def tp_trainer(name, cfg, dev):
+    """Phase j's trainers on the canonical pool tiled: ``PPOTrainer`` for
+    "single", phase h's ``SelfPlayTrainer`` for "selfplay"."""
+    if name == "selfplay":
+        return dp_trainer(cfg, dev)
+    pool = canonical_bench_pool(NUM_TRACKS, device=dev)
+    return PPOTrainer(cfg, senv.RacingConfig(num_sensors=11),
+                      trk.tiled_pooled_tracks(pool, cfg.num_envs))
+
+
+def tp_expected(cfg):
+    """A rank's launches in one single-car update on the tiled pool."""
+    n = cfg.num_steps
+    return counts(raycast_walls=n, car_step_and_query=n, raycast_walls_row_ids=n,
+                  car_step_and_query_row_ids=n, compute_gae=1, mixbits_permutation=1)
+
+
+def tp_runs(cfgs, dev, mesh=None):
+    """One update of each of ``cfgs``' trainers (``tp_trainer``), sharded over
+    ``mesh`` when given, the first after a warm-up update of a throwaway trainer
+    (so that no timed update is the process's first); then a snapshot of the
+    self-play learner. Returns what phase j compares, on the host."""
+    out = {}
+    for i, (name, cfg) in enumerate(cfgs.items()):
+        if i == 0:
+            throwaway = tp_trainer(name, cfg, dev)
+            if mesh is not None:
+                throwaway.shard(mesh)
+            dp_train(throwaway, 1)
+            del throwaway
+        trainer = tp_trainer(name, cfg, dev)
+        if mesh is not None:
+            trainer.shard(mesh)
+        train = trainer.runner.train
+        shapes = [[tuple(t.shape) for t in ts] for ts in
+                  (list(train.model.parameters()), train.opt_state.mu, train.opt_state.nu)]
+        wall, metrics, _, launches = dp_train(trainer, 1)
+        params = [p.cpu() for p in trainer.full_state()[0]]
+        out[name] = {"wall": wall, "metrics": metrics, "launches": launches,
+                     "shapes": shapes, "params": params}
+        if name == "selfplay":
+            trainer.snapshot_agent()
+            out[name]["slot"] = [t[0].cpu() for layers in trainer.pool["params"].values()
+                                 for layer in layers for t in layer]
+    return out
+
+
+def tp_rank(rank, world, backend, port, out, cfgs, device):
+    """A rank of ``tensor_parallel_ranks``: ``tp_runs`` on a mesh of
+    ``world / TP_MODEL`` data rows x ``TP_MODEL`` model ranks."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    pmesh.distributed_init(f"127.0.0.1:{port}", world, rank, backend=backend, device=dev)
+    try:
+        mesh = pmesh.make_mesh(dev, model_parallel=TP_MODEL)
+        result = tp_runs(cfgs, dev, mesh)
+        result["mesh"] = (dict(mesh.shape), mesh.rank, mesh.model_rank,
+                          dist.get_backend(mesh.all_group))
+    finally:
+        dist.destroy_process_group()
+    torch.save(result, out)
+
+
+def tensor_parallel_ranks(dev, card, world=TP_MODEL, backend="gloo", devices=None,
+                          cfgs=None):
+    """Phase j: one single-car update (4096 x 256, towers of 128, the canonical
+    pool tiled) and one self-play update (phase h's, towers of 128) over ``world``
+    processes on a mesh of ``world / 2`` data rows x 2 model ranks (``backend``,
+    rank r on ``devices[r]``, by default all on ``dev``), against one process
+    unsharded with the same seed, and the same process from params one ulp up (the
+    control). Phase j runs two gloo processes on the one card (NCCL refuses two
+    ranks on one GPU); ``scripts/tensor_parallel_cards.py`` one NCCL process a
+    card. ``cfgs``: ``tp_configs()`` unless given. Returns each rank's launches,
+    both updates summed."""
+    devices = [str(dev)] * world if devices is None else devices
+    cfgs = tp_configs() if cfgs is None else cfgs
+    one = tp_runs(cfgs, dev)
+    control, bound = {}, {}
+    for name, cfg in cfgs.items():
+        nudged = tp_trainer(name, cfg, dev)
+        with torch.no_grad():
+            for p in nudged.runner.train.model.parameters():
+                p.copy_(torch.nextafter(p, torch.full_like(p, float("inf"))))
+        dp_train(nudged, 1)
+        control[name] = max_abs([p.detach().cpu()
+                                 for p in nudged.runner.train.model.parameters()],
+                                one[name]["params"])
+        bound[name] = max(TP_ATOL, TP_CONTROL_FACTOR * control[name])
+        del nudged
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(world)]
+        procs = [ctx.Process(target=tp_rank,
+                             args=(r, world, backend, port, outs[r], cfgs, devices[r]))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + 400
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * world:
+            raise AssertionError(f"tensor-parallel ranks exited with {codes}")
+        ranks = [torch.load(o, weights_only=False) for o in outs]
+    for name in ("single", "selfplay"):
+        m1 = one[name]["metrics"][0]
+        print(f"tensor parallel, one process unsharded ({name}): "
+              f"{ms_line(one[name]['wall'])} ms/update; minibatches_applied "
+              f"{m1['minibatches_applied']:.0f}, episodes {m1['episodes']:.0f}, "
+              f"mean_ep_return {m1['mean_ep_return']:.4f}; from params one ulp up its "
+              f"params end {control[name]:.3e} apart at most (bound {bound[name]:.3e})")
+    obs_dim = senv.RacingConfig(num_sensors=11).obs_dim
+    want_shapes = [(obs_dim, TP_HIDDEN[0] // TP_MODEL), (TP_HIDDEN[0] // TP_MODEL,),
+                   (TP_HIDDEN[0] // TP_MODEL, TP_HIDDEN[1]), (TP_HIDDEN[1],)]
+    for r, got in enumerate(ranks):
+        shape, data_index, model_index, group_backend = got["mesh"]
+        if shape != {"data": world // TP_MODEL, "model": TP_MODEL} or \
+                (data_index, model_index) != (r // TP_MODEL, r % TP_MODEL) or \
+                group_backend != backend:
+            raise AssertionError(f"rank {r}: mesh {got['mesh']}")
+        for name in ("single", "selfplay"):
+            g, o = got[name], one[name]
+            m, m1 = g["metrics"][0], o["metrics"][0]
+            absd = max_abs(g["params"], o["params"])
+            print(f"tensor parallel, rank {r} of {world} ({backend} on {devices[r]}, data "
+                  f"{data_index} x model {model_index}, {name}): {ms_line(g['wall'])} "
+                  f"ms/update; actor[0].w {g['shapes'][0][0]}, actor[1].w "
+                  f"{g['shapes'][0][2]}; minibatches_applied {m['minibatches_applied']:.0f}, "
+                  f"episodes {m['episodes']:.0f}, mean_ep_return {m['mean_ep_return']:.4f}; "
+                  f"gathered params max abs {absd:.3e} from one process's (bound "
+                  f"{bound[name]:.3e}; the one-ulp control {control[name]:.3e}); launches "
+                  f"{g['launches']}")
+            params, mu, nu = g["shapes"]
+            if name == "single" and (params[:4] != want_shapes or mu != params or
+                                     nu != params):
+                raise AssertionError(f"rank {r}: local shapes {g['shapes']}")
+            if m["minibatches_applied"] != m1["minibatches_applied"]:
+                raise AssertionError(f"rank {r} ({name}) applied {m['minibatches_applied']} "
+                                     f"minibatches, one process {m1['minibatches_applied']}")
+            if absd > bound[name]:
+                raise AssertionError(f"rank {r} ({name}): params {absd:.3e} from one "
+                                     f"process's, beyond {bound[name]:.3e}")
+            want = tp_expected(cfgs[name]) if name == "single" else \
+                dp_expected(cfgs[name], 1)
+            if g["launches"] != want:
+                raise AssertionError(f"rank {r} ({name}) launches {g['launches']}, "
+                                     f"expected {want}")
+        slot, full = got["selfplay"]["slot"], got["selfplay"]["params"]
+        if [t.shape for t in slot] != [t.shape for t in full] or \
+                not all(torch.equal(a, b) for a, b in zip(slot, full)):
+            raise AssertionError(f"rank {r}: the pool snapshot is not the whole params")
+        snap = max_abs(slot, one["selfplay"]["slot"])
+        if snap > bound["selfplay"]:
+            raise AssertionError(f"rank {r}: the snapshot is {snap:.3e} from one process's")
+    for name in ("single", "selfplay"):
+        if not all(torch.equal(a, b) for got in ranks[1:]
+                   for a, b in zip(ranks[0][name]["params"], got[name]["params"])):
+            raise AssertionError(f"the ranks gather different parameters ({name})")
+    print(f"tensor parallel, {world} ranks ({backend}): slices of the towers and their "
+          f"Adam moments as param_shardings splits them, minibatches_applied equal, the "
+          f"gathered params within max({TP_ATOL:g}, {TP_CONTROL_FACTOR} x the one-ulp "
+          f"control) of one process's and bitwise equal on every rank, the self-play "
+          f"snapshot the whole params, on {card}")
+    return [{k: got["single"]["launches"][k] + got["selfplay"]["launches"][k]
+             for k in COUNTERS} for got in ranks]
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2393,10 +2827,16 @@ def main() -> int:
     bench(Policy(MODEL, device=dev))
     match_launches = tournament_play(dev, card)
     dp_world_one, dp_ranks = data_parallel(dev, card)
+    with timed("phase i (adapters and the SB3 leg)"):
+        adapter_launches = adapters(dev, card)
+    with timed("phase j (tensor-parallel towers)"):
+        tp_launches = tensor_parallel_ranks(dev, card)
     for k in kernels:
         k["launches_match"] = match_launches[k["name"]]
         k["launches_data_parallel_world1"] = dp_world_one[k["name"]]
         k["launches_data_parallel_ranks"] = [r[k["name"]] for r in dp_ranks]
+        k["launches_adapter"] = adapter_launches[k["name"]]
+        k["launches_tensor_parallel"] = [r[k["name"]] for r in tp_launches]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

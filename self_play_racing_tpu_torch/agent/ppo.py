@@ -31,7 +31,10 @@ Data parallelism (``make_update_step(..., mesh=...)``, a ``parallel.mesh.DataMes
 with a process group): each rank steps its own envs, draws the global noise and
 constants and keeps its rows, and reduces over the group what the JAX program
 reduces over the env or batch axis (``parallel/mesh.py`` lists them). Without a
-group the update is the single-process one, unchanged.
+group the update is the single-process one, unchanged. On a ``TensorMesh`` the
+same reductions run over the data group, the model holds this rank's slices of the
+towers (its forward sums their partial products over the model group), Adam runs
+on the slices, and ``global_norm`` is the full gradient's.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import PPOConfig
 from ..envs import normalize as obsnorm
@@ -218,9 +222,19 @@ def _ppo_loss(params, log_std, mb: Batch, cfg: PPOConfig, mesh=None):
     return loss, stats
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum over tensors of sum(g**2), as ``optax.global_norm``."""
-    return torch.stack([torch.sum(s) for s in torch._foreach_mul(grads, grads)]).sum().sqrt()
+def global_norm(grads, tp: net.TensorParallel = None) -> torch.Tensor:
+    """sqrt of the sum over tensors of sum(g**2), as ``optax.global_norm``. With a
+    tensor-parallel layout ``tp`` (``grads`` a rank's slices) it is the full
+    gradient's norm: the split leaves' squares summed over the model group, the
+    whole leaves' counted once, so every model rank takes the same clip."""
+    squares = [torch.sum(s) for s in torch._foreach_mul(grads, grads)]
+    if tp is None:
+        return torch.stack(squares).sum().sqrt()
+    dims = tp.leaf_dims()
+    split = torch.stack([s for s, d in zip(squares, dims) if d is not None]).sum()
+    dist.all_reduce(split, group=tp.group)
+    whole = [s for s, d in zip(squares, dims) if d is None]
+    return (split + torch.stack(whole).sum() if whole else split).sqrt()
 
 
 def clip_by_global_norm(grads, g_norm: torch.Tensor, below: bool, max_norm: float):
@@ -363,7 +377,7 @@ def run_ppo_update(cfg: PPOConfig, model: net.ActorCritic, opt_state: AdamState,
             grads = torch.autograd.grad(loss, params)
         if mesh is not None:
             grads, st = _mean_over_group(grads, st, mesh)
-        g_norm = global_norm(grads)
+        g_norm = global_norm(grads, model.tensor_parallel)
         # the one host read of the minibatch: its stats, the KL flag and the norm
         host = torch.stack([st[k] for k in STAT_NAMES[:6]] + [g_norm]).tolist()
         for k, v in zip(STAT_NAMES[:6], host):

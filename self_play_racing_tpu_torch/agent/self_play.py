@@ -21,7 +21,9 @@
  - ``shard(mesh)``: data-parallel training. The pool is replicated and every rank
    takes the same snapshots; the opponent indices are chosen for every env on
    every rank alike, and each rank keeps its envs' rows; the PFSP counters are
-   summed over the group with the metrics; rank 0 writes the checkpoints.
+   summed over the group with the metrics; rank 0 writes the checkpoints. On a
+   ``TensorMesh`` the learner's towers are split over the model group: snapshots
+   and checkpoints take the whole parameters, gathered.
 """
 from __future__ import annotations
 
@@ -168,7 +170,7 @@ class SelfPlayTrainer(PPOTrainer):
         slot = self.num_snapshots % self.pool_size
         pool_leaves = [t for layers in self.pool["params"].values()
                        for layer in layers for t in layer]
-        for p, x in zip(pool_leaves, self.runner.train.model.parameters()):
+        for p, x in zip(pool_leaves, self.full_state()[0]):
             p[slot].copy_(x)
         self.pool["log_std"][slot].copy_(self.buffer_log_std)
         if "norm_mean" in self.pool:
@@ -244,12 +246,12 @@ class SelfPlayTrainer(PPOTrainer):
         update), ``pool`` and, when normalizing, ``obs_norm``. ``legacy_v0`` adds
         the dead ``global_step`` leaf of the old TrainState."""
         train = self.runner.train
-        adam = train.opt_state
+        params, mu, nu = self.full_state()
         fields = ckpt.Fields(
-            params=interop._pytree(list(train.model.parameters())),
-            opt_state=(ckpt.Fields(), ckpt.Fields(count=np.int32(adam.count),
-                                                  mu=interop._pytree(adam.mu),
-                                                  nu=interop._pytree(adam.nu))),
+            params=interop._pytree(params),
+            opt_state=(ckpt.Fields(), ckpt.Fields(count=np.int32(train.opt_state.count),
+                                                  mu=interop._pytree(mu),
+                                                  nu=interop._pytree(nu))),
             update=np.int32(train.update))
         if legacy_v0:
             fields["global_step"] = np.int32(0)

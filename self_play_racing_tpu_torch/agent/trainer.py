@@ -105,7 +105,10 @@ class PPOTrainer:
         """Spread the trainer over a data-parallel mesh: this rank keeps its
         ``num_envs / world`` envs (env state, observations, per-env track rows
         and aux), params and optimizer state are rank 0's on every rank, and the
-        update reduces over the group (``ppo.make_update_step(mesh=...)``). Pair
+        update reduces over the group (``ppo.make_update_step(mesh=...)``). On a
+        ``TensorMesh`` the envs are split by the data index and the learner keeps
+        this rank's slices of the towers and their Adam moments
+        (``pmesh.param_shardings``). Pair
         with ``cfg.data_shards`` = the data axis so the minibatch shuffle stays
         shard-local; ``data_shards=1`` (the reference-parity global shuffle) is
         also legal and gathers the batch on every rank, but any other value
@@ -129,8 +132,20 @@ class PPOTrainer:
 
     @property
     def _writes_files(self) -> bool:
-        """Rank 0 writes the run's files (every rank holds the same state)."""
-        return self._mesh is None or self._mesh.rank == 0
+        """Process 0 writes the run's files (every rank holds the same state)."""
+        return self._mesh is None or self._mesh.process_rank == 0
+
+    def full_state(self):
+        """(params, mu, nu): the learner's parameters and Adam moments as whole
+        tensors in ``model.parameters()`` order. On a tensor-parallel rank they are
+        gathered over the model group, so every rank of the group must call it."""
+        train = self.runner.train
+        tp = train.model.tensor_parallel
+        state = ([p.detach() for p in train.model.parameters()],
+                 list(train.opt_state.mu), list(train.opt_state.nu))
+        if tp is None:
+            return state
+        return tuple(pmesh.gather_leaves(leaves, tp) for leaves in state)
 
     def _place_aux(self, aux):
         """Freshly built aux leaves, moved to the trainer's device (and, once
@@ -273,10 +288,12 @@ class PPOTrainer:
         """Save the policy in the repo's ``.npz`` format: leaves ``p0..p{4L-1}`` in
         the JAX package's tree order, its ``treedef`` string and the buffer
         log_std. Policies trained with ``normalize_obs`` also store the running
-        observation statistics. Rank 0 writes in a data-parallel run."""
+        observation statistics. Process 0 writes in a distributed run the whole
+        parameters (tensor-parallel slices gathered first, on every rank)."""
+        params = self.full_state()[0]
         if not self._writes_files:
             return
-        leaves = [p.detach().cpu().numpy() for p in self.runner.train.model.parameters()]
+        leaves = [p.cpu().numpy() for p in params]
         extra = {}
         if self.cfg.normalize_obs:
             norm = self.runner.obs_norm

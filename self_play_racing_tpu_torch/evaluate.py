@@ -14,7 +14,10 @@ The CLI writes ``data/eval_info_single.json``, ``data/eval_info_self_play.json``
 and ``static/eval_comparison.png`` relative to the working directory, as the JAX
 package's does. ``--procgen`` also drives each ``--multi`` policy zero-shot on
 ``--num-tracks`` unseen procedural tracks built on the card (``envs/procgen.py``)
-and prints its gap to the grid. SB3 evaluation is not ported yet.
+and prints its gap to the grid. ``--sb3 PATH`` drives an SB3 PPO model (a real
+stable_baselines3 ``.zip`` or one the vendored ``interop.sb3_compat`` saved)
+deterministically through the gym adapter on the same grid, one env and one host
+step at a time, and writes ``eval_info_sb3.json``.
 """
 from __future__ import annotations
 
@@ -111,6 +114,90 @@ def evaluate_multi_agent_procgen(model_path, num_tracks=40, num_points=12,
     return M.aggregate(eps)
 
 
+def _adapter_episode(env, predict, max_steps=2000):
+    """One host-side episode through the gym adapter: the path length integrated
+    from the info positions, the final info's stats."""
+    obs, _ = env.reset()
+    total_reward = 0.0
+    total_distance = 0.0
+    prev = None
+    info = {}
+    step = 0
+    for step in range(max_steps):
+        action = predict(obs)
+        obs, reward, terminated, truncated, info = env.step(action)
+        total_reward += float(reward)
+        pos = info["position"]
+        if prev is not None:
+            total_distance += float(np.hypot(pos[0] - prev[0], pos[1] - prev[1]))
+        prev = pos
+        if terminated or truncated:
+            break
+    return {
+        "total_reward": total_reward,
+        "steps": step + 1,
+        "progress": float(info["progress"]),
+        "finished": bool(info["finished"]),
+        "crashed": bool(info["crashed"]),
+        "speed": float(info["speed"]),
+        "total_distance": total_distance,
+        "distance_per_step": total_distance / (step + 1) if step > 0 else 0.0,
+    }
+
+
+def evaluate_adapter_agent_overall(predict, num_tracks=40, num_runs=5, seed=42,
+                                   max_steps=2000, num_sensors=11, device=None):
+    """Grid evaluation for policies that only expose ``predict(obs) -> action``
+    (SB3 models, external baselines): one float32 ``RacingEnv`` on ``device`` an
+    episode, driven from the host. The batched evaluators' track and width grid
+    (``build_eval_grid``, widths drawn by run) and the same aggregation."""
+    from .envs import track as trk
+    from .envs.gym_adapter import RacingEnv
+
+    dev = resolve_device(device)
+    np.random.seed(seed)
+    cps = trk.gen_tracks(num_tracks=num_tracks, seed=seed)
+    widths = [np.random.RandomState(seed + i).randint(4, 10) for i in range(num_tracks)]
+    episodes = []
+    for t in range(num_tracks):
+        for r in range(num_runs):
+            env = RacingEnv(num_sensors=num_sensors, track_pool=cps, track_id=t,
+                            track_width=float(widths[r]), dtype=torch.float32, device=dev)
+            episodes.append(_adapter_episode(env, predict, max_steps))
+    cols = {k: np.asarray([e[k] for e in episodes]) for k in episodes[0]}
+    results = M.aggregate(cols)
+    results["all_episodes"] = episodes
+    return results
+
+
+def evaluate_sb3_agent_overall(model_path, num_tracks=40, num_runs=5, seed=42,
+                               max_steps=2000, device=None):
+    """An SB3 PPO model driven deterministically through the gym adapter on
+    ``device`` (policy and env). Uses stable_baselines3 when installed, else the
+    vendored ``interop.sb3_compat`` loader, which reads both real SB3 archives and
+    its own checkpoints."""
+    dev = resolve_device(device)
+    try:
+        from stable_baselines3 import PPO as SB3_PPO
+    except ImportError:
+        from .interop.sb3_compat import PPO as SB3_PPO
+        model = SB3_PPO.load(model_path, device=dev)
+    else:
+        # real SB3 cannot read the vendored trainer's checkpoints (torch pickles,
+        # not SB3 archives): fall back to the vendored loader for those
+        try:
+            model = SB3_PPO.load(model_path, device=dev)
+        except Exception as sb3_err:
+            from .interop import sb3_compat
+            try:
+                model = sb3_compat.PPO.load(model_path, device=dev)
+            except Exception:
+                raise sb3_err
+    return evaluate_adapter_agent_overall(
+        lambda obs: model.predict(obs, deterministic=True)[0],
+        num_tracks, num_runs, seed, max_steps, device=dev)
+
+
 def display_comparison(results_files, labels, output_path):
     """Grouped normalized bar chart of the models' results files."""
     import matplotlib
@@ -157,8 +244,8 @@ def display_comparison(results_files, labels, output_path):
 
 def eval(models: dict, num_tracks=40, num_runs=5, seed=42, out_dir="data",
          chart="static/eval_comparison.png", deterministic=False, device=None):
-    """The eval flow: ``models`` maps label -> (kind, path) with kind "single" or
-    "multi". Writes ``<out_dir>/eval_info_<label>.json`` per model (the aggregate
+    """The eval flow: ``models`` maps label -> (kind, path) with kind "single",
+    "multi" or "sb3". Writes ``<out_dir>/eval_info_<label>.json`` per model (the aggregate
     and ``all_episodes``) and, when ``chart`` is a path, the comparison chart
     there. Returns {label: {"path": json path, "results": results}}."""
     dev = resolve_device(device)
@@ -167,9 +254,13 @@ def eval(models: dict, num_tracks=40, num_runs=5, seed=42, out_dir="data",
     by_label = {}
     for label, (kind, path) in models.items():
         print(f"Evaluating {label} ({kind}) from {path}")
-        fn = (evaluate_single_agent_overall if kind == "single"
-              else evaluate_multi_agent_overall)
-        results = fn(grid, path, seed=seed, deterministic=deterministic)
+        if kind == "sb3":
+            results = evaluate_sb3_agent_overall(path, num_tracks, num_runs, seed,
+                                                 device=dev)
+        else:
+            fn = (evaluate_single_agent_overall if kind == "single"
+                  else evaluate_multi_agent_overall)
+            results = fn(grid, path, seed=seed, deterministic=deterministic)
         out_path = os.path.join(out_dir, f"eval_info_{label}.json")
         with open(out_path, "w") as f:
             json.dump(results, f, indent=2)
@@ -192,7 +283,9 @@ def main(argv=None):
                    help="path to a single-car policy (.npz or .pth)")
     p.add_argument("--multi", action="append", default=[],
                    help="path to a self-play/multi-car policy (.npz or .pth)")
-    p.add_argument("--sb3", action="append", default=[], help=argparse.SUPPRESS)
+    p.add_argument("--sb3", action="append", default=[],
+                   help="path to an SB3 PPO model (.zip; stable_baselines3 when "
+                        "installed, else the vendored loader)")
     p.add_argument("--procgen", action="store_true",
                    help="also evaluate each --multi policy zero-shot on --num-tracks "
                         "unseen procedural tracks built on the card, and print the "
@@ -203,16 +296,15 @@ def main(argv=None):
     p.add_argument("--deterministic", action="store_true")
     p.add_argument("--device", default=None, help="default: cuda")
     args = p.parse_args(argv)
-    if args.sb3:
-        raise SystemExit("--sb3: not ported yet (this port evaluates --single and "
-                         "--multi, and --multi with --procgen)")
     models = {}
     for i, path in enumerate(args.single):
         models[f"single_{i}" if len(args.single) > 1 else "single"] = ("single", path)
     for i, path in enumerate(args.multi):
         models[f"self_play_{i}" if len(args.multi) > 1 else "self_play"] = ("multi", path)
+    for i, path in enumerate(args.sb3):
+        models[f"sb3_{i}" if len(args.sb3) > 1 else "sb3"] = ("sb3", path)
     if not models:
-        raise SystemExit("pass at least one --single or --multi model path")
+        raise SystemExit("pass at least one --single/--multi/--sb3 model path")
     by_label = eval(models, args.num_tracks, args.num_runs, args.seed,
                     deterministic=args.deterministic, device=args.device)
     if args.procgen:

@@ -16,16 +16,18 @@
   present, ``norm_mean``/``norm_var``) given as numpy arrays; ``pool_to_numpy``
   goes the other way. Checkpoint files (``utils.checkpoint``) are the other
   bridge.
+- ``interop.sb3_compat`` (a submodule, imported on its own): SB3's default PPO in
+  plain torch, for the baseline leg (``train sb3``, ``evaluate --sb3``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ._device import resolve_device
-from .agent.ppo import AdamState, TrainState
-from .envs.normalize import ObsNormState
-from .models.actor_critic import ActorCritic
+from .._device import resolve_device
+from ..agent.ppo import AdamState, TrainState
+from ..envs.normalize import ObsNormState
+from ..models.actor_critic import ActorCritic
 
 
 def _flat_leaves(flat_or_pytree):

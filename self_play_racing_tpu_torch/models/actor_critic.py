@@ -14,12 +14,24 @@ Parameters are the JAX package's layout, ``{"actor": [(w, b), ...], "critic":
 functions below take that dict; ``ActorCritic`` is the ``nn.Module`` that owns it.
 ``sample_action`` takes its standard-normal noise as an argument (``sample_noise``
 draws it from a ``torch.Generator``), so tests can feed both packages one stream.
+
+Tensor parallelism (``parallel.mesh.make_mesh(model_parallel=m)``): a rank's
+``ActorCritic`` holds its slices of the towers and a ``TensorParallel`` record,
+and ``params()`` returns them as ``ShardedParams``. ``actor_mu`` and
+``critic_value`` then run the Megatron pattern that XLA derives from the JAX
+package's shardings: a column-parallel layer (w split on its output features,
+``b`` too) takes its replicated input through *f* (identity forward, all-reduce of
+the gradient backward); a row-parallel layer (w split on its input features)
+sums its partial products over the model group through *g* (all-reduce forward,
+identity backward) before its replicated bias and tanh.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 HIDDEN = 64
@@ -47,10 +59,72 @@ def init_params(generator: torch.Generator, obs_dim: int, action_dim: int,
     return {"actor": tower(action_dim, 0.01), "critic": tower(1, 1.0)}
 
 
-def _mlp(layers, x, final_tanh: bool):
+class TensorParallel(NamedTuple):
+    """A tensor-parallel rank's layout: ``dims`` is ``parallel.mesh.param_shardings``'
+    tree (per leaf the dimension split over the model group, or None), ``group``
+    the model process group of ``size`` ranks, this one ``rank`` in it."""
+
+    dims: dict
+    group: object
+    size: int
+    rank: int
+
+    def leaf_dims(self) -> list:
+        """The split dimension of each leaf, in ``ActorCritic.parameters()`` order."""
+        return [d for tower in ("actor", "critic") for layer in self.dims[tower]
+                for d in layer]
+
+
+class ShardedParams(dict):
+    """A tensor-parallel rank's parameter dict: its slices of each tower, with the
+    ``TensorParallel`` layout as ``tp``."""
+
+    def __init__(self, params, tp: TensorParallel):
+        super().__init__(params)
+        self.tp = tp
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f, before a column-parallel layer: identity forward, the
+    gradient all-reduced over the model group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's g, after a row-parallel layer's matmul: the partial products
+    all-reduced over the model group forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _mlp(layers, x, final_tanh: bool, tp: TensorParallel = None, tower: str = ""):
     x = x.to(layers[0][0].dtype)  # f32 obs into f64 params promote, as in JAX
     for i, (w, b) in enumerate(layers):
-        x = x @ w + b
+        split = None if tp is None else tp.dims[tower][i][0]
+        if split == 1:    # column-parallel: this rank's output features
+            x = _CopyToModel.apply(x, tp.group) @ w + b
+        elif split == 0:  # row-parallel: this rank's input features, summed
+            x = _ReduceFromModel.apply(x @ w, tp.group) + b
+        else:
+            x = x @ w + b
         if i < len(layers) - 1 or final_tanh:
             x = torch.tanh(x)
     return x
@@ -58,12 +132,12 @@ def _mlp(layers, x, final_tanh: bool):
 
 def actor_mu(params, obs):
     """Mean of the action distribution, tanh-bounded to (-1, 1)."""
-    return _mlp(params["actor"], obs, final_tanh=True)
+    return _mlp(params["actor"], obs, True, getattr(params, "tp", None), "actor")
 
 
 def critic_value(params, obs):
     """State value, shape obs.shape[:-1]."""
-    return _mlp(params["critic"], obs, final_tanh=False)[..., 0]
+    return _mlp(params["critic"], obs, False, getattr(params, "tp", None), "critic")[..., 0]
 
 
 def normal_log_prob(action, mu, log_std):
@@ -108,19 +182,25 @@ def deterministic_action(params, obs):
 
 class ActorCritic(nn.Module):
     """The actor-critic as an ``nn.Module``: owns the parameter dict's tensors
-    (weights (in, out)) and the ``log_std`` buffer."""
+    (weights (in, out)) and the ``log_std`` buffer. ``tensor_parallel``: None, or
+    the ``TensorParallel`` layout of the slices it holds on a tensor-parallel rank."""
 
-    def __init__(self, params, log_std):
+    def __init__(self, params, log_std, tensor_parallel: TensorParallel = None):
         super().__init__()
         self.actor = nn.ParameterList([t for layer in params["actor"] for t in layer])
         self.critic = nn.ParameterList([t for layer in params["critic"] for t in layer])
         self.register_buffer("log_std", torch.as_tensor(log_std))
+        self.tensor_parallel = tensor_parallel
 
     def params(self):
-        """The parameter dict the functions of this module take."""
+        """The parameter dict the functions of this module take (``ShardedParams``
+        on a tensor-parallel rank)."""
         def pairs(plist):
             return [(plist[i], plist[i + 1]) for i in range(0, len(plist), 2)]
-        return {"actor": pairs(self.actor), "critic": pairs(self.critic)}
+        params = {"actor": pairs(self.actor), "critic": pairs(self.critic)}
+        if self.tensor_parallel is not None:
+            return ShardedParams(params, self.tensor_parallel)
+        return params
 
     def forward(self, obs):
         """(mu, value) for a batch of observations."""

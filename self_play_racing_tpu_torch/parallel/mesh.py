@@ -27,6 +27,20 @@ on all the envs, up to the order of the sums.
 
 With no process group (one process, nothing initialized) no collective runs and
 the trainers keep their single-process path.
+
+Tensor parallelism (``make_mesh(model_parallel=m)``, a ``TensorMesh``): the JAX
+package's 2-D mesh ``devices.reshape(-1, m)`` with axes ``('data', 'model')``. Rank r
+sits at data index ``r // m`` and model index ``r % m``; the ranks of one data
+index form its *model group*, those of one model index its *data group*. The
+env axis is split over the data index only: every model rank of a data row keeps
+the same envs and draws the same global noise. The towers follow
+``param_shardings`` (the Megatron pattern of JAX's ``param_shardings``), the Adam
+moments follow their params, and everything else stays whole. A ``TensorMesh``'s
+``world``, ``rank``, ``group`` and ``shard`` are its data axis, so the
+data-parallel reductions above run over the data group unchanged; the partial
+products of the towers are summed over the model group in the forward and
+backward passes (``models/actor_critic.py``), and the gradient's global norm adds
+the sharded leaves' squares over it (``agent/ppo.py:global_norm``).
 """
 from __future__ import annotations
 
@@ -39,6 +53,7 @@ import torch.distributed as dist
 from .._device import resolve_device
 from .._tree import shard_rows
 from ..envs import track as trk
+from ..models import actor_critic as net
 
 
 def distributed_init(coordinator_address: Optional[str] = None,
@@ -96,20 +111,66 @@ class DataMesh:
         this process owns (the argument of ``_tree.shard_rows``)."""
         return (self.rank, self.world)
 
+    @property
+    def process_rank(self) -> int:
+        """This process's rank in the whole group (rank 0 writes the files)."""
+        return self.rank
 
-def make_mesh(devices=None, axis: str = "data", model_parallel: int = 1) -> DataMesh:
-    """The data mesh over the initialized process group (world 1 without one).
+    @property
+    def all_group(self):
+        """The group of every process (what replicated state is broadcast over)."""
+        return self.group
+
+    model_parallel = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorMesh:
+    """This process's place on a 2-D ``('data', 'model')`` mesh of
+    ``world * model_parallel`` processes. ``world``, ``rank``, ``group`` and
+    ``shard`` are the data axis (this process's data index among ``world``, over
+    the ranks with its model index), as a ``DataMesh``'s; ``model_rank`` and
+    ``model_group`` are the model axis (the ranks with its data index);
+    ``process_rank`` and ``all_group`` the whole group."""
+
+    world: int
+    rank: int
+    device: torch.device
+    group: object
+    model_parallel: int
+    model_rank: int
+    model_group: object
+    process_rank: int
+    all_group: object
+    axis: str = "data"
+
+    @property
+    def shape(self) -> dict:
+        return {self.axis: self.world, "model": self.model_parallel}
+
+    @property
+    def axis_names(self) -> tuple:
+        return (self.axis, "model")
+
+    @property
+    def shard(self) -> tuple:
+        return (self.rank, self.world)
+
+
+def make_mesh(devices=None, axis: str = "data", model_parallel: int = 1):
+    """The mesh over the initialized process group (world 1 without one): a
+    ``DataMesh`` for ``model_parallel`` 1, else a ``TensorMesh`` of ``world / m``
+    data rows of ``m`` model ranks (every process calls it alike: it creates the
+    groups). Raises ``ValueError`` where ``m`` does not divide the world, as JAX's
+    ``make_mesh`` does.
 
     ``devices``: None for the current CUDA device, one device for this process,
-    or one per rank (this process takes ``devices[rank]``). ``model_parallel`` > 1
-    (the JAX package's tensor-parallel towers) is not ported."""
-    if model_parallel > 1:
-        raise NotImplementedError(
-            f"model_parallel={model_parallel}: tensor-parallel towers are not ported "
-            "yet; the port's mesh is data parallel only (model_parallel=1)")
+    or one per rank (this process takes ``devices[rank]``)."""
     initialized = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if initialized else 1
     rank = dist.get_rank() if initialized else 0
+    if model_parallel > 1 and world % model_parallel != 0:
+        raise ValueError(f"{world} devices not divisible by model_parallel={model_parallel}")
     if isinstance(devices, (list, tuple)):
         if len(devices) != world:
             raise ValueError(f"make_mesh: {len(devices)} devices for a group of {world} "
@@ -118,8 +179,95 @@ def make_mesh(devices=None, axis: str = "data", model_parallel: int = 1) -> Data
     dev = resolve_device(devices)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    return DataMesh(world=world, rank=rank, device=dev,
-                    group=dist.group.WORLD if initialized else None, axis=axis)
+    if model_parallel <= 1:
+        return DataMesh(world=world, rank=rank, device=dev,
+                        group=dist.group.WORLD if initialized else None, axis=axis)
+    m, n_data = model_parallel, world // model_parallel
+    # every process creates every group, in one order
+    data_groups = [dist.new_group([d * m + j for d in range(n_data)]) for j in range(m)]
+    model_groups = [dist.new_group(list(range(d * m, (d + 1) * m))) for d in range(n_data)]
+    return TensorMesh(world=n_data, rank=rank // m, device=dev, group=data_groups[rank % m],
+                      model_parallel=m, model_rank=rank % m, model_group=model_groups[rank // m],
+                      process_rank=rank, all_group=dist.group.WORLD, axis=axis)
+
+
+# ------------------------------------------------------------ tensor parallel
+
+def param_shardings(params, mesh):
+    """Tensor-parallel placement of the actor-critic's parameter dict (JAX's
+    ``param_shardings``, the Megatron pattern): per leaf the dimension split over
+    'model', or None. In each tower a layer whose input is whole splits its
+    *output* features when ``m`` divides them (w on dim 1, b on dim 0: column
+    parallel); the layer after it splits its *input* features (w on dim 0, b whole:
+    row parallel), and its partial products are summed over the model group.
+    Heads are never output-split; on a mesh without a 'model' axis every leaf is
+    whole. Returns ``{"actor": [(w_dim, b_dim), ...], "critic": [...]}``."""
+    m = mesh.shape.get("model", 1)
+
+    def tower(layers):
+        out = []
+        prev_out_sharded = False
+        for i, (w, _) in enumerate(layers):
+            is_head = i == len(layers) - 1
+            out_sharded = (m > 1 and not is_head and not prev_out_sharded
+                           and w.shape[1] % m == 0)
+            w_dim = 0 if prev_out_sharded else (1 if out_sharded else None)
+            out.append((w_dim, 0 if out_sharded else None))
+            prev_out_sharded = out_sharded
+        return out
+
+    return {k: tower(v) for k, v in params.items()}
+
+
+def _take(t: torch.Tensor, dim, size: int, rank: int) -> torch.Tensor:
+    """This rank's slice of ``t`` on ``dim`` (a copy), or ``t`` whole for None."""
+    if dim is None:
+        return t.detach().clone()
+    k = t.shape[dim] // size
+    return t.detach().narrow(dim, rank * k, k).clone(memory_format=torch.contiguous_format)
+
+
+def _tensor_parallel(params, mesh) -> net.TensorParallel:
+    return net.TensorParallel(param_shardings(params, mesh), mesh.model_group,
+                              mesh.model_parallel, mesh.model_rank)
+
+
+def shard_params(full_params, mesh) -> net.ShardedParams:
+    """This rank's slices of the full parameter dict (``param_shardings``), as the
+    ``ShardedParams`` that ``actor_mu`` and ``critic_value`` run tensor parallel:
+    how JAX's parameters (``interop.params_from_jax``) reach a tensor-parallel
+    rank."""
+    tp = _tensor_parallel(full_params, mesh)
+    local = {k: [tuple(_take(t, d, tp.size, tp.rank) for t, d in zip(layer, dims))
+                 for layer, dims in zip(layers, tp.dims[k])]
+             for k, layers in full_params.items()}
+    return net.ShardedParams(local, tp)
+
+
+def gather_leaves(leaves, tp: net.TensorParallel) -> list:
+    """Full tensors from a rank's slices in ``ActorCritic.parameters()`` order (its
+    parameters, or the Adam moments that follow them): each split leaf
+    all-gathered over the model group, in model-rank order."""
+    out = []
+    for t, d in zip(leaves, tp.leaf_dims()):
+        t = t.detach()
+        if d is None:
+            out.append(t)
+            continue
+        parts = [torch.empty_like(t) for _ in range(tp.size)]
+        dist.all_gather(parts, t.contiguous(), group=tp.group)
+        out.append(torch.cat(parts, dim=d))
+    return out
+
+
+def gather_params(local: net.ShardedParams) -> dict:
+    """The full parameter dict from a rank's ``ShardedParams`` (all-gathered over
+    the model group its layout names; every model rank calls it)."""
+    tp = local.tp
+    flat = [t for tower in ("actor", "critic") for layer in local[tower] for t in layer]
+    full = iter(gather_leaves(flat, tp))
+    return {k: [tuple(next(full) for _ in layer) for layer in local[k]]
+            for k in ("actor", "critic")}
 
 
 # ------------------------------------------------------------------ collectives
@@ -168,14 +316,14 @@ def all_gather_rows(x: torch.Tensor, mesh: DataMesh, dim: int = 0) -> torch.Tens
     return torch.cat(parts, dim=dim)
 
 
-def barrier(mesh: Optional[DataMesh]) -> None:
-    """Wait for every rank (nothing to wait for without a group)."""
-    if mesh is None or mesh.group is None:
+def barrier(mesh) -> None:
+    """Wait for every process (nothing to wait for without a group)."""
+    if mesh is None or mesh.all_group is None:
         return
-    if dist.get_backend(mesh.group) == "nccl":
-        dist.barrier(group=mesh.group, device_ids=[mesh.device.index])
+    if dist.get_backend(mesh.all_group) == "nccl":
+        dist.barrier(group=mesh.all_group, device_ids=[mesh.device.index])
     else:
-        dist.barrier(group=mesh.group)
+        dist.barrier(group=mesh.all_group)
 
 
 # ------------------------------------------------------------------- placement
@@ -193,13 +341,14 @@ def _tensors(tree):
 
 
 @torch.no_grad()
-def replicate_tree(tree, mesh: DataMesh):
-    """Make every tensor of ``tree`` rank 0's value on every rank (a broadcast in
-    place; nothing without a group). Returns ``tree``: the placement of what
-    the JAX package replicates (params, optimizer state, the opponent pool)."""
-    if mesh.group is not None:
+def replicate_tree(tree, mesh):
+    """Make every tensor of ``tree`` process 0's value on every process (a
+    broadcast in place; nothing without a group). Returns ``tree``: the placement
+    of what the JAX package replicates (params, optimizer state, the opponent
+    pool)."""
+    if mesh.all_group is not None:
         for t in _tensors(tree):
-            dist.broadcast(t, src=0, group=mesh.group)
+            dist.broadcast(t, src=0, group=mesh.all_group)
     return tree
 
 
@@ -248,11 +397,27 @@ def shard_by_env_axis(tree, mesh: DataMesh, num_envs: int):
     return place(tree)
 
 
-def shard_runner(runner, aux, mesh: DataMesh, num_envs: int):
+def _shard_train_state(train, mesh):
+    """The train state of a tensor-parallel rank: a model holding its slices of
+    the parameters (``shard_params``) and the Adam moments sliced alike."""
+    model = train.model
+    local = shard_params(model.params(), mesh)
+    tp = local.tp
+    dims = tp.leaf_dims()
+    adam = train.opt_state
+    moments = lambda xs: [_take(t, d, tp.size, tp.rank) for t, d in zip(xs, dims)]
+    return dataclasses.replace(
+        train, model=net.ActorCritic(local, model.log_std, tensor_parallel=tp),
+        opt_state=dataclasses.replace(adam, mu=moments(adam.mu), nu=moments(adam.nu)))
+
+
+def shard_runner(runner, aux, mesh, num_envs: int):
     """Place a PPO ``RunnerState`` and its ``aux`` for data-parallel execution:
-    the env state, observations and done flags keep this rank's envs, the train
-    state and the observation normalizer are rank 0's on every rank, the
-    generators stay as they are (every rank draws the global stream).
+    the env state, observations and done flags keep this rank's envs (its data
+    index's, on a ``TensorMesh``), the train state and the observation normalizer
+    are process 0's on every rank, the generators stay as they are (every rank
+    draws the global stream). On a ``TensorMesh`` the parameters and their Adam
+    moments are then cut to this rank's slices (``param_shardings``).
 
     num_envs must divide evenly over the data axis: uneven shards would skew the
     per-device work and break the shard-local minibatch layout's equal strata
@@ -265,8 +430,11 @@ def shard_runner(runner, aux, mesh: DataMesh, num_envs: int):
     train = runner.train
     replicate_tree([p.detach() for p in train.model.parameters()]
                    + list(train.opt_state.mu) + list(train.opt_state.nu), mesh)
+    if mesh.model_parallel > 1:
+        train = _shard_train_state(train, mesh)
     runner = dataclasses.replace(
         runner,
+        train=train,
         vec=shard_by_env_axis(runner.vec, mesh, num_envs),
         obs=shard_rows(runner.obs, mesh.shard).clone(),
         done=shard_rows(runner.done, mesh.shard).clone(),

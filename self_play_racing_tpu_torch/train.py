@@ -4,6 +4,9 @@
   python -m self_play_racing_tpu_torch.train single   # single-car PPO
   python -m self_play_racing_tpu_torch.train scale    # scale-mode self-play
                                                       # (4096 envs, per-env opponents)
+  python -m self_play_racing_tpu_torch.train sb3      # SB3 PPO baseline through the
+                                                      # gym adapter
+  python -m self_play_racing_tpu_torch.train all      # multi, then single, then sb3
 
 Every mode runs on cuda unless ``--device cpu`` is given, and writes under the
 working directory as the JAX package's CLI does:
@@ -30,10 +33,15 @@ working directory as the JAX package's CLI does:
   minibatch shuffle stays shard-local where the minibatch divides; rank 0 writes
   the files.
 
+- ``sb3``: SB3's default PPO (stable_baselines3 when installed, else the vendored
+  ``interop.sb3_compat``) on ``num_envs`` single-car gym adapters (16 by default),
+  one host step at a time, each env wrapped in ``EpisodeStatistics``;
+  ``models/sb3_baseline_agent_general.zip`` and ``data/training_info_sb3.json``.
+  ``--num-envs`` applies here too (the JAX CLI keeps the config's 16).
+
 Track pools follow the reference's seed and stream conventions:
 ``gen_tracks(num_tracks, seed)``, then widths ``randint[6, 10)`` from the global
-NumPy RNG. The SB3 baseline (``sb3``, ``all``) is not ported yet and exits with a
-message.
+NumPy RNG.
 """
 from __future__ import annotations
 
@@ -53,12 +61,6 @@ from .envs import procgen as pg
 from .envs import single as senv
 from .envs import track as trk
 from .parallel import mesh as pmesh
-
-_LATER = {
-    "sb3": "the SB3 baseline is not ported yet",
-    "all": "it includes the SB3 baseline, which is not ported yet",
-}
-
 
 def _seed_all(seed: int):
     random.seed(seed)
@@ -267,6 +269,52 @@ def train_single(total_timesteps=None, num_envs=None, out="models/single_agent.n
     return trainer
 
 
+def train_single_baseline(total_timesteps=None,
+                          out="models/sb3_baseline_agent_general",
+                          sb3_kwargs=None,
+                          info_out="data/training_info_sb3.json",
+                          device=None, **cfg_overrides):
+    """SB3 PPO on the single-car gym adapter: stable_baselines3 when installed,
+    otherwise the vendored ``interop.sb3_compat`` (SB3's defaults in plain torch).
+    ``cfg.num_envs`` float32 ``RacingEnv``s on ``device`` over the training pool's
+    tracks and widths, each wrapped in ``EpisodeStatistics``; the policy on the
+    same device."""
+    try:
+        from stable_baselines3 import PPO as SB3_PPO
+        from stable_baselines3.common.vec_env import DummyVecEnv
+    except ImportError:
+        from .interop.sb3_compat import PPO as SB3_PPO, DummyVecEnv
+        print("stable_baselines3 not installed - using the vendored "
+              "sb3_compat PPO (identical defaults, torch)")
+    from .envs.gym_adapter import EpisodeStatistics, RacingEnv
+    from .interop.sb3_compat import TrainingLoggerCallback
+
+    overrides = dict(cfg_overrides)
+    if total_timesteps:
+        overrides["total_timesteps"] = total_timesteps
+    cfg = base_config(**overrides)
+    dev = resolve_device(device)
+    _seed_all(cfg.seed)
+    cps = trk.gen_tracks(num_tracks=cfg.num_envs, seed=cfg.seed)
+    widths = [float(np.random.randint(6, 10)) for _ in range(cfg.num_envs)]
+
+    def make_env(i):
+        def thunk():
+            return EpisodeStatistics(RacingEnv(num_sensors=11, track_pool=cps, track_id=i,
+                                               track_width=widths[i], dtype=torch.float32,
+                                               device=dev))
+        return thunk
+
+    env = DummyVecEnv([make_env(i) for i in range(cfg.num_envs)])
+    model = SB3_PPO("MlpPolicy", env, seed=cfg.seed, device=dev, **(sb3_kwargs or {}))
+    model.learn(total_timesteps=cfg.total_timesteps, progress_bar=False,
+                callback=TrainingLoggerCallback(save_path=info_out))
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    model.save(out)
+    env.close()
+    return model
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -310,20 +358,25 @@ def main(argv=None):
                    help="scale mode, data parallel: this process's rank, "
                         "0..num-processes-1")
     args = p.parse_args(argv)
-    if args.mode in _LATER:
-        raise SystemExit(f"train {args.mode}: not ported yet; {_LATER[args.mode]}")
     kw = {}
     if args.seed is not None:
         kw["seed"] = args.seed
     if args.pfsp:
         kw["opponent_sampling"] = "pfsp"
-    if args.mode == "single":
-        return train_single(args.total_timesteps, args.num_envs,
-                            num_updates=args.num_updates, device=args.device, **kw)
-    if args.mode == "multi":
-        return train_multi(args.total_timesteps, args.num_envs,
-                           num_updates=args.num_updates, resume_from=args.resume,
-                           device=args.device, **kw)
+    if args.mode != "scale":
+        # all: multi, then single, then sb3, as the JAX CLI runs them
+        out = None
+        if args.mode in ("multi", "all"):
+            out = train_multi(args.total_timesteps, args.num_envs,
+                              num_updates=args.num_updates, resume_from=args.resume,
+                              device=args.device, **kw)
+        if args.mode in ("single", "all"):
+            out = train_single(args.total_timesteps, args.num_envs,
+                               num_updates=args.num_updates, device=args.device, **kw)
+        if args.mode in ("sb3", "all"):
+            skw = dict(kw, num_envs=args.num_envs) if args.num_envs else kw
+            out = train_single_baseline(args.total_timesteps, device=args.device, **skw)
+        return out
     skw = dict(kw)
     if args.total_timesteps:
         skw["total_timesteps"] = args.total_timesteps

@@ -11,9 +11,9 @@ packages:
 - Format v0 (no ``format_version``): leaves by position, with the shape/dtype check
   as the only guard. The repo's ``models/checkpoint_update_*.npz`` are v0.
 - ``<path without .npz>.meta.json`` holds the host state (``meta``).
-- In a data-parallel run every rank holds the same replicated state: rank 0
-  writes, the others wait at a barrier until the files are there, and every rank
-  loads them.
+- In a distributed run every process holds the same replicated state (the
+  caller gathers tensor-parallel slices first): process 0 writes, the others wait
+  at a barrier until the files are there, and every process loads them.
 
 A tree is built from dicts (keys sorted, as JAX flattens them: ``['key']``),
 lists and tuples (``[i]``) and ``Fields`` (named fields in their order, as a
@@ -90,9 +90,9 @@ def format_version(path: str) -> int:
 
 def save_pytree(path: str, tree, meta: dict | None = None, mesh=None) -> None:
     """Save ``tree`` in format v1 and ``meta`` in the JSON sidecar. With a
-    data-parallel ``mesh`` (``parallel.mesh.DataMesh``) rank 0 writes and every
-    rank returns once the files are written."""
-    if mesh is not None and mesh.rank != 0:
+    ``mesh`` (``parallel.mesh.DataMesh`` or ``TensorMesh``) process 0 writes and
+    every process returns once the files are written."""
+    if mesh is not None and mesh.process_rank != 0:
         pmesh.barrier(mesh)
         return
     _write_pytree(path, tree, meta)

@@ -1,6 +1,7 @@
 """The port's package API against the JAX package, on the CPU.
 
-- The lazy top-level exports resolve to the port's own objects; ``load_policy``
+- The lazy top-level exports, the Gymnasium adapters among them, resolve to the
+  port's own objects; an unknown name raises ``AttributeError``; ``load_policy``
   returns what ``load_policy_bundle`` does, equal to JAX's ``load_policy``.
 - ``nearest_waypoint``, ``track_progress`` and ``centerline_collision`` equal JAX's
   (eager) bitwise in float32 and float64: an argmin, one division, and a
@@ -44,16 +45,21 @@ DTYPES = {"f32": (np.float32, torch.float32), "f64": (np.float64, torch.float64)
 
 
 def test_exports_resolve_to_the_port():
+    from self_play_racing_tpu_torch.envs import gym_adapter
+
     expected = {"PPOConfig": PPOConfig, "base_config": base_config,
                 "self_play_config": self_play_config, "PPOTrainer": PPOTrainer,
                 "SelfPlayTrainer": SelfPlayTrainer, "Policy": Policy,
                 "load_policy": tevaluate.load_policy,
-                "load_policy_bundle": tevaluate.load_policy_bundle}
+                "load_policy_bundle": tevaluate.load_policy_bundle,
+                "RacingEnv": gym_adapter.RacingEnv,
+                "MultiRacingEnv": gym_adapter.MultiRacingEnv,
+                "SelfPlayWrapper": gym_adapter.SelfPlayWrapper}
     assert sorted(port.__all__) == sorted([*expected, "__version__"])
     for name, obj in expected.items():
         assert getattr(port, name) is obj, name
     with pytest.raises(AttributeError):
-        port.RacingEnv  # noqa: B018  (comes with the adapters)
+        port.NotAnExport  # noqa: B018
 
 
 def test_load_policy_matches_jax():
@@ -142,6 +148,9 @@ def test_new_modules_import_no_jax():
         "import self_play_racing_tpu_torch as pkg\n"
         "pkg.load_policy, pkg.PPOTrainer, pkg.SelfPlayTrainer, pkg.Policy\n"
         "from self_play_racing_tpu_torch import tournament, render\n"
+        "pkg.RacingEnv, pkg.MultiRacingEnv, pkg.SelfPlayWrapper\n"
+        "from self_play_racing_tpu_torch.interop import sb3_compat\n"
+        "from self_play_racing_tpu_torch.parallel import mesh\n"
         "from self_play_racing_tpu_torch.utils import viz, profiling, metrics\n"
         "from self_play_racing_tpu_torch.ops import geometry\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"

@@ -915,3 +915,33 @@ def test_envs_on_card_read_a_procgen_layout_as_gathered_rows(cuda):
                 s1, o1, r1, *_ = env.step(cfg, gathered, s1, a)
                 s2, o2, r2, *_ = env.step(cfg, layout, s2, a)
                 assert torch.equal(o1, o2) and torch.equal(r1, r2)
+
+
+def test_adapter_step_on_the_card_matches_the_cpu_adapter(cuda):
+    """``RacingEnv`` at float32 on the card against the same adapter on the CPU,
+    one step from the reset: its sensing (K1) and transition (``car_step_and_query``)
+    launch once each at a batch of one, and the step returns the CPU's numbers
+    within 1e-5 (the elementwise cos/sin/sqrt round differently on the card and in
+    the CPU's math library)."""
+    from self_play_racing_tpu_torch.envs import gym_adapter
+
+    np.random.seed(1)
+    cps = trk.gen_tracks(num_tracks=2, seed=1)
+    kw = dict(num_sensors=11, track_pool=cps, track_id=0, track_width=7.0)
+    card = gym_adapter.RacingEnv(**kw, device=cuda)
+    cpu = gym_adapter.RacingEnv(**kw, dtype=torch.float32, device="cpu")
+    assert card.track.wp_x.dtype == torch.float32
+    card_obs, _ = card.reset()
+    cpu_obs, _ = cpu.reset()
+    np.testing.assert_allclose(card_obs, cpu_obs, rtol=0, atol=1e-5)
+    geo.raycast_walls_launches = dynamics.car_step_and_query_launches = 0
+    action = np.array([0.3, 0.8])
+    got = card.step(action)
+    want = cpu.step(action)
+    assert (geo.raycast_walls_launches, dynamics.car_step_and_query_launches) == (1, 1)
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-5)
+    assert got[2:4] == want[2:4]
+    for k in ("speed", "progress", "reward", "progress_delta"):
+        np.testing.assert_allclose(got[4][k], want[4][k], rtol=1e-5, atol=1e-5, err_msg=k)
+    with pytest.raises(TypeError):
+        gym_adapter.RacingEnv(**kw, dtype=torch.float64, device=cuda).reset()

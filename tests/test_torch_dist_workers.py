@@ -407,3 +407,85 @@ def train_scale_rank(rank, port, kw, out_dir):
         return train_scale_run(kw, out_dir, f"127.0.0.1:{port}", rank)
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------------------------------ tensor-parallel ranks
+
+def gathered_state(trainer):
+    """(params, mu, nu, count, update) of a trainer as numpy, whole: a
+    tensor-parallel rank's slices gathered over its model group."""
+    params, mu, nu = trainer.full_state()
+    host = lambda ts: interop._pytree([t.cpu().numpy().copy() for t in ts])
+    train = trainer.runner.train
+    return host(params), host(mu), host(nu), int(train.opt_state.count), int(train.update)
+
+
+def tp_updates(build, feed, mesh=None, updates=2):
+    """``updates`` updates of the trainer ``build()`` returns (sharded over
+    ``mesh`` when given), the first fed ``feed``'s draws, the rest drawn from the
+    runner's generator. Returns the local parameter and moment shapes and, per
+    update, the packed metrics and the gathered state."""
+    trainer = build()
+    if mesh is not None:
+        trainer.shard(mesh)
+    train = trainer.runner.train
+    shapes = [[tuple(t.shape) for t in ts] for ts in
+              (list(train.model.parameters()), train.opt_state.mu, train.opt_state.nu)]
+    out = []
+    for u in range(updates):
+        kw = {} if u else {"noise": torch.as_tensor(feed["noise"]),
+                           "perm_consts": torch.as_tensor(feed["perm_consts"])}
+        trainer.runner, packed = trainer.update_step(trainer.runner, trainer.aux, **kw)
+        out.append((packed, gathered_state(trainer)))
+    return {"shapes": shapes, "updates": out}
+
+
+def tp_update_rank(rank, build, feed, model_parallel):
+    """``tp_updates`` on a mesh of world / model_parallel data rows x
+    ``model_parallel`` model ranks; with the mesh's place."""
+    mesh = pmesh.make_mesh("cpu", model_parallel=model_parallel)
+    out = tp_updates(build, feed, mesh)
+    out["mesh"] = (dict(mesh.shape), mesh.axis_names, mesh.rank, mesh.model_rank,
+                   mesh.process_rank)
+    # shard_params then gather_params gives the whole tree back, bitwise
+    full = {k: [(w.detach(), b.detach()) for w, b in layers]
+            for k, layers in build().runner.train.model.params().items()}
+    back = pmesh.gather_params(pmesh.shard_params(full, mesh))
+    out["round_trip"] = all(torch.equal(a, b) for k in full
+                            for x, y in zip(full[k], back[k]) for a, b in zip(x, y))
+    return out
+
+
+def tp_selfplay_trainer(kw):
+    """A float32 self-play trainer of ``self_play_config(**kw)`` over 2 cars on
+    the tests' 4-track pool, built alike in every process from the seed."""
+    cfg = self_play_config(**kw)
+    np.random.seed(7)
+    pool = trk.make_track_pool(trk.gen_tracks(4, seed=1), [8.0] * 4, device="cpu")
+    return SelfPlayTrainer(cfg, multi.MultiRacingConfig(num_agents=2, num_sensors=11),
+                           trk.gather_tracks(pool, np.arange(cfg.num_envs) % 4))
+
+
+def tp_selfplay(kw, consts, out_dir=None, mesh=None):
+    """One self-play update (through ``train``, its opponents chosen on the host)
+    fed the permutation constants ``consts``, then a snapshot; with ``out_dir``
+    a checkpoint and an ``.npz`` policy written there (process 0 writes). Returns
+    the gathered state, the snapshot's pool slot 0 and the local actor shapes."""
+    tr = tp_selfplay_trainer(kw)
+    if mesh is not None:
+        tr.shard(mesh)
+    step = tr.update_step
+    tr.update_step = lambda runner, aux: step(runner, aux, perm_consts=torch.as_tensor(consts))
+    tr.train(num_updates=1)
+    tr.snapshot_agent()
+    if out_dir is not None:
+        tr.save_checkpoint(os.path.join(out_dir, "tp_ckpt"))
+        tr.save(os.path.join(out_dir, "tp_policy.npz"))
+    slot = [t[0].numpy().copy() for layers in tr.pool["params"].values()
+            for layer in layers for t in layer]
+    return {"state": gathered_state(tr), "slot": slot, "num_snapshots": tr.num_snapshots,
+            "local": [tuple(p.shape) for p in tr.runner.train.model.parameters()]}
+
+
+def tp_selfplay_rank(rank, kw, consts, out_dir, model_parallel):
+    return tp_selfplay(kw, consts, out_dir, pmesh.make_mesh("cpu", model_parallel=model_parallel))

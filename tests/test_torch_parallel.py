@@ -331,8 +331,9 @@ def _single_trainer(**kw):
 
 def test_mismatch_errors():
     """num_envs not divisible by the data axis and a data_shards that is neither 1
-    nor the data axis are refused with JAX's messages; model_parallel > 1 is not
-    ported; without a group the mesh is one process and distributed_init a no-op."""
+    nor the data axis are refused with JAX's messages; a model axis that does not
+    divide the world is refused as JAX refuses it; without a group the mesh is one
+    process and distributed_init a no-op."""
     tr = _single_trainer(num_envs=12, total_timesteps=12 * T * 4)
     with pytest.raises(ValueError, match="not divisible by the mesh's data axis"):
         tr.shard(_cpu_mesh(8, 0))
@@ -343,7 +344,7 @@ def test_mismatch_errors():
     with pytest.raises(ValueError, match="must be divisible by data_shards"):
         base_config(**{**SIZES, "num_envs": 12, "total_timesteps": 12 * T * 4},
                     data_shards=8)
-    with pytest.raises(NotImplementedError, match="tensor-parallel towers are not ported"):
+    with pytest.raises(ValueError, match="1 devices not divisible by model_parallel=2"):
         pmesh.make_mesh("cpu", model_parallel=2)
     assert pmesh.distributed_init(None) is None
     mesh = pmesh.make_mesh("cpu")

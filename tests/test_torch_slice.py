@@ -7,8 +7,8 @@
 - ``serve.Policy.act`` on one batch against the JAX server: float32, rtol 1e-5 /
   atol 1e-6 (matrix products sum in another order).
 - ``evaluate --single --multi`` runs both policies on a 2 x 1 grid in a temporary
-  directory and writes their results and chart there; the flags of a later slice
-  exit with a message.
+  directory and writes their results and chart there; ``--sb3`` runs the SB3 model
+  through the gym adapter on the same grid.
 - Importing the port (``parallel/`` included) and chip_smoke.py loads no JAX,
   Flax, Optax or JAX-package module.
 - Without CUDA, an entry point not told ``device="cpu"`` raises (the self-play
@@ -110,9 +110,13 @@ def test_evaluate_cli_single_and_later_flags(tmp_path, monkeypatch):
     assert by_label["self_play"]["results"]["success_rate"] == 1.0
     assert (tmp_path / "data" / "eval_info_self_play.json").exists()
     assert (tmp_path / "static" / "eval_comparison.png").exists()
-    # --procgen runs (tests/test_torch_procgen.py); --sb3 still exits
-    with pytest.raises(SystemExit, match="not ported yet"):
-        tevaluate.main(["--single", MODEL, "--sb3", "x.zip"])
+    # --procgen runs (tests/test_torch_procgen.py); --sb3 runs through the gym
+    # adapter (tests/test_torch_sb3_compat.py holds it to JAX's)
+    by_label = tevaluate.main(["--sb3", os.path.join(REPO, "models",
+                                                     "sb3_baseline_agent_general.zip"),
+                               "--num-tracks", "2", "--num-runs", "1", "--device", "cpu"])
+    assert list(by_label) == ["sb3"] and by_label["sb3"]["results"]["num_episodes"] == 2
+    assert (tmp_path / "data" / "eval_info_sb3.json").exists()
 
 
 def test_port_imports_no_jax():

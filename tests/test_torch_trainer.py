@@ -16,7 +16,7 @@ package, on the CPU.
   package's ``load_policy_bundle`` to the same arrays, and the JAX package's file
   loads into the port's trainer unchanged (exact).
 - ``make_training_pool`` equals the JAX package's bitwise; ``train.main(["single",
-  ...])`` runs at toy size; the SB3 modes, not ported yet, exit with a message.
+  ...])`` runs at toy size; the SB3 modes reach their legs.
 """
 import json
 
@@ -270,11 +270,16 @@ def test_train_main_single_and_later_modes(tmp_path, monkeypatch):
     assert float(log_std[0]) == -0.5
     info = json.loads((tmp_path / "data" / "training_info_single.json").read_text())
     assert set(info) == {"steps", "rewards"}
-    # --resample-tracks-every and --pooled-geometry run (tests/test_torch_procgen.py,
-    # tests/test_torch_pooled_geometry.py); the SB3 modes still exit
-    for args in (["sb3"], ["all"]):
-        with pytest.raises(SystemExit, match="not ported yet.*SB3"):
-            ttrain.main([*args, "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ttrain.main(["single", "--num-envs", "2", "--total-timesteps", "4096"])
+    # --resample-tracks-every and --pooled-geometry run (tests/test_torch_procgen.py,
+    # tests/test_torch_pooled_geometry.py); the SB3 modes run their legs
+    # (tests/test_torch_sb3_compat.py runs them): here each reaches its legs
+    legs = []
+    for leg in ("train_multi", "train_single", "train_single_baseline"):
+        monkeypatch.setattr(ttrain, leg, lambda *a, _leg=leg, **kw: legs.append(_leg))
+    for args in (["sb3"], ["all"]):
+        ttrain.main([*args, "--device", "cpu"])
+    assert legs == ["train_single_baseline", "train_multi", "train_single",
+                    "train_single_baseline"]

@@ -168,7 +168,26 @@ j. tensor-parallel towers: two gloo processes on the one card (NCCL refuses two
    times the distance of a control run (one process from params one ulp up) of one
    process's, and bitwise equal on both ranks, the
    self-play snapshot the whole parameters, a rank's launches 256 of the env
-   kernels (by row id) and K6 and K7 once an update; ms/update of both printed.
+   kernels (by row id) and K6 and K7 once an update; ms/update of both printed;
+
+and for the update as device programs (every trainer above runs its rollout and
+minibatch steps as replayed CUDA graphs, ``agent/ppo.py``, unless it has a process
+group):
+
+k. graph against eager: single-car training (4096 x 256) and phase 10's self-play
+   (4096 x 256 x 2 cars, ``snapshot_freq`` 1), each on the canonical pool gathered
+   and tiled, each run twice from one seed, graphed and with
+   ``PPOTrainer(eager=True)``: a warm-up update (the first capture), 3 timed
+   updates, one after ``set_track`` to ``train scale``'s procgen pool (W 384, S
+   768: the graphs are captured again) and one with ``reset_envs_each_update`` and
+   a KL target of 0.002 (a new update step): every metric of every update (the
+   seeded numbers the phases above print among them), the final parameters, Adam
+   moments and count, observations and done flags, and the launch counts bitwise
+   equal; a KL exit in every run; every replay under
+   ``torch.cuda.set_sync_debug_mode("error")``; the timed updates launch the env
+   kernels 256 times and K6 and K7 once. Printed for every update: ms, the
+   rollout's host and device ms a step (CUDA events), the minibatch loop's ms and
+   minibatches, the capture seconds, and for every run its peak memory.
 
 The line before the last is one JSON object with every kernel's numbers (``ms`` the
 eager back-to-back time, ``graph_ms`` the CUDA-graph replay time, ``launches`` the
@@ -188,7 +207,9 @@ phase c's runs; ``launches_match`` every kernel's count on phase g's tournament;
 updates and ``launches_data_parallel_ranks`` on each of the two ranks' update;
 ``launches_adapter`` its count over phase i's two adapter episodes and
 ``launches_tensor_parallel`` on each of phase j's two ranks, its single-car and
-self-play updates summed); the last line is ``{"ok": true, "device": {...}}``.
+self-play updates summed; ``launches_graphed`` its count over phase k's graphed
+self-play run's 3 timed updates on the tiled pool); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -211,6 +232,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from self_play_racing_tpu_torch import _graph
 from self_play_racing_tpu_torch import interop
 from self_play_racing_tpu_torch import train as ttrain
 from self_play_racing_tpu_torch.agent import ppo
@@ -1454,12 +1476,13 @@ def training(track, env_cfg, card):
             torch.cuda.synchronize()
             wall.append(time.perf_counter() - t)
     launches = read_counts()
-    for i, (dt, (up, _), m) in enumerate(zip(wall, loops, metrics[1:])):
+    for i, (dt, (up, computed), m) in enumerate(zip(wall, loops, metrics[1:])):
+        epochs = -(-computed // cfg.num_minibatches)
         print(f"train update {i + 1}: {dt * 1e3:.1f} ms = {cfg.batch_size / dt:,.0f} env-steps/s; "
               f"rollout + GAE + permutations {(dt - up) * 1e3:.1f} ms, minibatch loop "
               f"{up * 1e3:.1f} ms; minibatches_applied {m['minibatches_applied']:.0f}, "
               f"kl_stopped {m['kl_stopped']:.0f}, approx_kl {m['approx_kl']:.5f}, "
-              f"host reads of the KL flag {int(m['minibatches_applied'] + m['kl_stopped'])}; "
+              f"host reads of the exit flag {min(epochs, cfg.update_epochs - 1)}; "
               f"pg_loss {m['pg_loss']:.5f} v_loss {m['v_loss']:.3f} "
               f"episodes {m['episodes']:.0f} mean_ep_return {m['mean_ep_return']:.2f}")
     print(f"train: median {statistics.median(wall) * 1e3:.1f} ms/update at {NUM_ENVS} x {STEPS} "
@@ -2752,6 +2775,221 @@ def tensor_parallel_ranks(dev, card, world=TP_MODEL, backend="gloo", devices=Non
 
 
 
+# ------------------------------------------------ phase (k): graph against eager
+
+GRAPH_UPDATES = 3
+# the last update of each run: a reset of every env (the stale-observation rebuild)
+# and a target low enough that it takes the KL exit
+GRAPH_KL_TARGET = 0.002
+
+
+def graph_configs():
+    """Phase k's configs at ``train scale``'s width: single-car PPO at 4096 x 256
+    and phase 10's self-play (2 cars, opponents per env, ``snapshot_freq`` 1)."""
+    return {
+        "single-car": base_config(num_envs=NUM_ENVS, num_steps=STEPS,
+                                  total_timesteps=NUM_ENVS * STEPS * 100),
+        "self-play": self_play_config(num_envs=NUM_ENVS, num_steps=STEPS,
+                                      total_timesteps=1_000_000_000, opponent_per_env=True,
+                                      reset_envs_each_update=False, snapshot_freq=1),
+    }
+
+
+@contextlib.contextmanager
+def rollout_clock():
+    """Times each rollout of an update inside the block, graphed
+    (``UpdateGraphs.rollout_phase``) or eager (``ppo.rollout_phase``): the host
+    seconds of the call (what the host spends issuing it; nothing inside it waits
+    for the card) and the device seconds between CUDA events recorded around it.
+    Yields the list of (host, device) seconds."""
+    originals = (ppo.rollout_phase, ppo.UpdateGraphs.rollout_phase)
+    records = []
+
+    def clocked(fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t = time.perf_counter()
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            host = time.perf_counter() - t
+            torch.cuda.synchronize()
+            records.append((host, start.elapsed_time(end) / 1e3))
+            return out
+        return timed
+
+    ppo.rollout_phase = clocked(originals[0])
+    ppo.UpdateGraphs.rollout_phase = clocked(originals[1])
+    try:
+        yield records
+    finally:
+        ppo.rollout_phase, ppo.UpdateGraphs.rollout_phase = originals
+
+
+@contextlib.contextmanager
+def replays_without_sync():
+    """Every CUDA-graph replay inside the block runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, so a call inside a replay that
+    synchronizes with the card raises. Yields a list whose one entry counts the
+    replays."""
+    replay = _graph.CapturedStep.replay
+    count = [0]
+
+    def checked(self, times=1):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            replay(self, times)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        count[0] += times
+
+    _graph.CapturedStep.replay = checked
+    try:
+        yield count
+    finally:
+        _graph.CapturedStep.replay = replay
+
+
+def graph_run(kind, cfg, pool, layout, eager, card):
+    """One phase-k trainer on ``layout(pool)``: a warm-up update (the graphs'
+    first capture), ``GRAPH_UPDATES`` timed updates, one on a resampled pool
+    (``set_track`` to train scale's procgen pool, which the graphs are captured
+    again for), and one with ``reset_envs_each_update`` and ``GRAPH_KL_TARGET``
+    (a new update step). Returns what phase k compares and prints."""
+    base = memory_window()
+    t0 = time.perf_counter()
+    if kind == "self-play":
+        trainer = SelfPlayTrainer(cfg, menv.MultiRacingConfig(num_agents=NUM_AGENTS,
+                                                              num_sensors=11),
+                                  layout(pool), eager=eager)
+    else:
+        trainer = PPOTrainer(cfg, senv.RacingConfig(num_sensors=11), layout(pool),
+                             eager=eager)
+    metrics = []
+    trainer.train(num_updates=1, on_update=lambda tr, m: metrics.append(m))
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    graphs = trainer.update_step.graphs
+    captures = [0.0 if graphs is None else graphs.capture_seconds]
+    walls, launches, labels = [], [], []
+    n = GRAPH_UPDATES + 2
+    sync_check = contextlib.nullcontext([0]) if eager else replays_without_sync()
+    with rollout_clock() as rollouts, minibatch_loops(n) as loops, sync_check as replays:
+        for u in range(n):
+            label = "timed"
+            if u == GRAPH_UPDATES:
+                trainer.set_track(layout(ttrain.procgen_pool(cfg.seed, u, NUM_TRACKS,
+                                                             device=pool.wp_x.device)))
+                label = "resampled pool (set_track)"
+            elif u == GRAPH_UPDATES + 1:
+                trainer.cfg = dataclasses.replace(trainer.cfg, reset_envs_each_update=True,
+                                                  kl_target=GRAPH_KL_TARGET)
+                trainer.update_step = ppo.make_update_step(trainer.cfg, trainer.hooks, 2,
+                                                           eager=eager)
+                label = f"reset_envs_each_update, kl_target {GRAPH_KL_TARGET}"
+            graphs = trainer.update_step.graphs
+            c0 = 0.0 if graphs is None or u == GRAPH_UPDATES + 1 else graphs.capture_seconds
+            zero_counts()
+            t = time.perf_counter()
+            trainer.train(num_updates=1, on_update=lambda tr, m: metrics.append(m))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            launches.append(read_counts())
+            labels.append(label)
+            captures.append(0.0 if graphs is None else graphs.capture_seconds - c0)
+    peak = torch.cuda.max_memory_allocated() - base
+    graphs = trainer.update_step.graphs
+    held = None if graphs is None else graphs.memory()
+    params, mu, nu = trainer.full_state()
+    state = [t.detach().cpu() for t in params + mu + nu] + [
+        trainer.runner.obs.cpu(), trainer.runner.done.cpu()]
+    return {"metrics": metrics, "walls": walls, "rollouts": rollouts, "loops": loops,
+            "launches": launches, "labels": labels, "captures": captures, "warm": warm,
+            "peak": peak, "base": base, "held": held, "replays": replays[0], "state": state,
+            "count": trainer.runner.train.opt_state.count, "steps": cfg.num_steps}
+
+
+def graph_against_eager(pool, card):
+    """Phase k: ``graph_run`` graphed and eager for single-car and self-play
+    training on the canonical pool gathered and tiled. Every metric of every
+    update (the seeded numbers the other phases print among them), the final
+    parameters, Adam moments and count, observations and done flags, and every
+    update's launch counts must be bitwise equal, each run must take the KL exit
+    at least once, and no replay may synchronize. Returns the launch counts of the
+    graphed self-play run on the tiled pool's timed updates."""
+    layouts = {
+        "gathered": lambda p: trk.gather_tracks(p, np.arange(NUM_ENVS) % p.num_tracks),
+        "tiled": lambda p: trk.tiled_pooled_tracks(p, NUM_ENVS),
+    }
+    out = None
+    for kind, cfg in graph_configs().items():
+        for where, layout in layouts.items():
+            runs = {}
+            for mode in ("graphed", "eager"):
+                r = runs[mode] = graph_run(kind, cfg, pool, layout, mode == "eager", card)
+                what = f"phase k {kind} {where} {mode}"
+                for i, label in enumerate(r["labels"]):
+                    (host, device), (loop, computed) = r["rollouts"][i], r["loops"][i]
+                    m = r["metrics"][i + 1]
+                    print(f"{what} update {i + 1} ({label}): {r['walls'][i] * 1e3:.1f} ms; "
+                          f"rollout {device * 1e3:.1f} ms on the card, host "
+                          f"{host / r['steps'] * 1e3:.4f} ms a step, device "
+                          f"{device / r['steps'] * 1e3:.4f} ms a step (CUDA events); "
+                          f"GAE + permutations + host "
+                          f"{(r['walls'][i] - loop - device) * 1e3:.1f} ms; minibatch loop "
+                          f"{loop * 1e3:.1f} ms, {computed} minibatches, "
+                          f"{loop / computed * 1e3:.3f} ms each; capture "
+                          f"{r['captures'][i + 1]:.3f} s; minibatches_applied "
+                          f"{m['minibatches_applied']:.0f}, kl_stopped {m['kl_stopped']:.0f}, "
+                          f"approx_kl {m['approx_kl']:.5f}, mean_ep_return "
+                          f"{m['mean_ep_return']:.2f} over {m['episodes']:.0f} episodes")
+                held = "" if r["held"] is None else (
+                    f" (the last update's graphs own {r['held']['static_bytes'] / 2**20:,.1f} "
+                    f"MiB of buffers and reserved {r['held']['pool_bytes'] / 2**20:,.1f} MiB "
+                    f"for their private pools)")
+                print(f"{what}: trainer and warm-up update {r['warm']:.1f} s (capture "
+                      f"{r['captures'][0]:.3f} s); timed median "
+                      f"{statistics.median(r['walls'][:GRAPH_UPDATES]) * 1e3:.1f} ms/update; "
+                      f"peak memory {r['peak'] / 2**20:,.1f} MiB over the "
+                      f"{r['base'] / 2**20:,.1f} MiB allocated before{held}; {r['replays']} "
+                      f"replays without a sync; launches {r['launches'][0]} on {card}")
+            g, e = runs["graphed"], runs["eager"]
+            what = f"phase k {kind} {where}"
+            for i, (a, b) in enumerate(zip(g["metrics"], e["metrics"])):
+                if a.keys() != b.keys() or not all(
+                        np.array_equal(a[k], b[k], equal_nan=True) for k in a):
+                    raise AssertionError(f"{what}: update {i} metrics graphed {a} != eager {b}")
+            if g["launches"] != e["launches"]:
+                raise AssertionError(f"{what}: launches graphed {g['launches']} != eager "
+                                     f"{e['launches']}")
+            if g["count"] != e["count"] or not all(
+                    torch.equal(a, b) for a, b in zip(g["state"], e["state"])):
+                raise AssertionError(f"{what}: the final parameters, Adam state or "
+                                     "observations differ graphed against eager")
+            if not any(m["kl_stopped"] for m in g["metrics"]):
+                raise AssertionError(f"{what}: no update took the KL exit")
+            if g["replays"] < (GRAPH_UPDATES + 2) * cfg.num_steps:
+                raise AssertionError(f"{what}: {g['replays']} replays checked")
+            sensing = "raycast_walls_and_cars" if kind == "self-play" else "raycast_walls"
+            expected = counts(**{sensing: STEPS, "car_step_and_query": STEPS,
+                                 "compute_gae": 1, "mixbits_permutation": 1})
+            if where == "tiled":
+                expected.update({f"{sensing}_row_ids": STEPS,
+                                 "car_step_and_query_row_ids": STEPS})
+            if any(c != expected for c in g["launches"][:GRAPH_UPDATES]):
+                raise AssertionError(f"{what}: launches {g['launches']}, expected {expected}")
+            print(f"{what}: graphed = eager bitwise over {len(g['metrics'])} updates (metrics, "
+                  f"parameters, Adam moments and count {g['count']}, observations, launches); "
+                  f"timed median {statistics.median(g['walls'][:GRAPH_UPDATES]) * 1e3:.1f} "
+                  f"ms/update graphed, {statistics.median(e['walls'][:GRAPH_UPDATES]) * 1e3:.1f} "
+                  f"eager; peak memory {g['peak'] / 2**20:,.1f} MiB graphed, "
+                  f"{e['peak'] / 2**20:,.1f} eager")
+            if kind == "self-play" and where == "tiled":
+                out = {k: sum(c[k] for c in g["launches"][:GRAPH_UPDATES]) for k in COUNTERS}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2831,12 +3069,15 @@ def main() -> int:
         adapter_launches = adapters(dev, card)
     with timed("phase j (tensor-parallel towers)"):
         tp_launches = tensor_parallel_ranks(dev, card)
+    with timed("phase k (graph against eager)"):
+        graph_launches = graph_against_eager(pool, card)
     for k in kernels:
         k["launches_match"] = match_launches[k["name"]]
         k["launches_data_parallel_world1"] = dp_world_one[k["name"]]
         k["launches_data_parallel_ranks"] = [r[k["name"]] for r in dp_ranks]
         k["launches_adapter"] = adapter_launches[k["name"]]
         k["launches_tensor_parallel"] = [r[k["name"]] for r in tp_launches]
+        k["launches_graphed"] = graph_launches[k["name"]]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,8 +3,8 @@
 update, spend their time, on the card.
 
   python scripts/torch_step_profile.py [--steps 32] [--num-envs 4096]
-  python scripts/torch_step_profile.py --update [--num-envs 4096]
-  python scripts/torch_step_profile.py --selfplay [--steps 32] [--num-envs 4096]
+  python scripts/torch_step_profile.py --update [--eager] [--num-envs 4096]
+  python scripts/torch_step_profile.py --selfplay [--eager] [--steps 32] [--num-envs 4096]
   python scripts/torch_step_profile.py --match
   add --tiled to any of them: the pool stays resident, tiled over the envs, and the
   env kernels read each env's rows by id (envs/track.py:tiled_pooled_tracks)
@@ -23,14 +23,20 @@ With ``--update`` it profiles the trainer instead (``base_config`` at
 unprofiled for the wall time of its minibatch loop (``run_ppo_update``) and of the
 rest (rollout, GAE, permutations), then the minibatch loop of a second update under
 the profiler, reported per computed minibatch, with the host operators that take
-the most host time.
+the most host time and every copy between host and card the loop made (the
+``cudaMemcpyAsync`` calls by the operator that issued them, and the copies the card
+ran). The loop runs as replays of a CUDA graph, the trainer's default on the card;
+``--eager`` runs it eagerly (``PPOTrainer(eager=True)``). The script only passes
+that argument when asked, so a copy of it runs a checkout that predates the graphs.
 
 With ``--selfplay`` it profiles a self-play update at ``train scale``'s width
 (``--num-envs`` x 256 steps, 2 cars, opponents per env, ``snapshot_freq`` 1 so the
 pool is live after two warm-up updates): one update unprofiled for its wall time
-and its rollout/minibatch split, then ``--steps`` steps of the self-play rollout
-(opponents, transition, autoreset, refresh) alone, unprofiled for the wall time
-and under the profiler for the device time, reported per env step.
+and its rollout/minibatch split, one update under the profiler for its device
+time and idle share and the kernels that take the most of it (graphed unless
+``--eager``), then ``--steps`` steps of the eager self-play rollout (opponents,
+transition, autoreset, refresh: ``ppo.rollout_phase``) alone, unprofiled for the
+wall time and under the profiler for the device time, reported per env step.
 
 With ``--match`` it profiles one tournament match as chip_smoke.py's phase g plays
 it: the 8B- against the 4B-step scale agent, one policy per seat, on the 20 x 2
@@ -92,7 +98,8 @@ def profile_update(args, dev) -> dict:
     cfg = base_config(num_envs=args.num_envs, num_steps=256,
                       total_timesteps=args.num_envs * 256 * 100)
     track = _geometry(args, dev)
-    trainer = PPOTrainer(cfg, senv.RacingConfig(num_sensors=11), track)
+    trainer = PPOTrainer(cfg, senv.RacingConfig(num_sensors=11), track,
+                         **({"eager": True} if args.eager else {}))
     trainer.train(num_updates=1)  # warm-up
     with chip_smoke.minibatch_loops(1) as loops:
         t0 = time.perf_counter()
@@ -114,6 +121,7 @@ def profile_update(args, dev) -> dict:
         "card": chip_smoke.card_line(),
         "geometry": "tiled" if args.tiled else "gathered",
         "num_envs": args.num_envs,
+        "loop": "eager" if args.eager else "default (graphed where the checkout has graphs)",
         "update_wall_ms": wall * 1e3,
         "rollout_gae_perms_ms": (wall - loop_s) * 1e3,
         "minibatch_loop_ms": loop_s * 1e3,
@@ -128,7 +136,28 @@ def profile_update(args, dev) -> dict:
                          "launches_per_minibatch": c / n} for name, (t, c) in top],
         "top_host_ops": [{"name": e.key[:60], "host_ms_per_minibatch": e.self_cpu_time_total / 1e3 / n,
                           "calls_per_minibatch": e.count / n} for e in host],
+        **_copies(prof, n),
     }
+
+
+def _copies(prof, n) -> dict:
+    """The host-card copies in a profile, per minibatch: the ``cudaMemcpyAsync``
+    calls by the chain of operators that issued them (outermost first), and the
+    copies the card ran by kind."""
+    calls = collections.Counter()
+    ran = collections.Counter()
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            if "memcpy" in evt.name.lower():
+                ran[evt.name] += 1
+        elif evt.name == "cudaMemcpyAsync":
+            chain, parent = [], evt.cpu_parent
+            while parent is not None:
+                chain.append(parent.name)
+                parent = parent.cpu_parent
+            calls[" > ".join(reversed(chain)) or "(no operator)"] += 1
+    return {"memcpy_calls_per_minibatch": {k: c / n for k, c in calls.most_common()},
+            "memcpy_on_card_per_minibatch": {k: c / n for k, c in ran.most_common()}}
 
 
 def profile_selfplay(args, dev) -> dict:
@@ -137,7 +166,7 @@ def profile_selfplay(args, dev) -> dict:
                            reset_envs_each_update=False, snapshot_freq=1)
     track = _geometry(args, dev)
     trainer = SelfPlayTrainer(cfg, menv.MultiRacingConfig(num_agents=2, num_sensors=11),
-                              track)
+                              track, **({"eager": True} if args.eager else {}))
     trainer.train(num_updates=2)  # warm-up; a pool of one from the second update
     with chip_smoke.minibatch_loops(1) as loops:
         t0 = time.perf_counter()
@@ -145,6 +174,12 @@ def profile_selfplay(args, dev) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     (loop_s, mbs), = loops
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        trainer.train(num_updates=1)
+        torch.cuda.synchronize()
+    update_kernels = _device_kernels(prof)
+    update_busy_us = sum(t for t, _ in update_kernels.values())
 
     short = dataclasses.replace(cfg, num_steps=args.steps)
     runner, log_std = trainer.runner, trainer.log_std
@@ -159,7 +194,6 @@ def profile_selfplay(args, dev) -> dict:
     t0 = time.perf_counter()
     rollout()
     step_wall = (time.perf_counter() - t0) / args.steps
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         rollout()
     per_kernel = _device_kernels(prof)
@@ -172,10 +206,19 @@ def profile_selfplay(args, dev) -> dict:
         "num_envs": args.num_envs,
         "cars": 2,
         "pool": trainer.pool_count,
+        "update": "eager" if args.eager else "default (graphed where the checkout has graphs)",
         "update_wall_ms": wall * 1e3,
         "rollout_gae_perms_ms": (wall - loop_s) * 1e3,
         "minibatch_loop_ms": loop_s * 1e3,
         "minibatches": mbs,
+        "update_device_busy_ms": update_busy_us / 1e3,
+        "update_device_idle_share": (1.0 - update_busy_us / 1e3 / (wall * 1e3))
+        if update_busy_us else None,
+        "update_kernel_launches": sum(c for _, c in update_kernels.values()),
+        "update_top_kernels": [
+            {"name": name[:90], "ms": t / 1e3, "launches": c}
+            for name, (t, c) in sorted(update_kernels.items(),
+                                       key=lambda kv: -kv[1][0])[: args.top]],
         "rollout_steps_profiled": steps,
         "rollout_wall_ms_per_step": step_wall * 1e3,
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
@@ -233,6 +276,9 @@ def main(argv=None) -> int:
     p.add_argument("--top", type=int, default=15)
     p.add_argument("--update", action="store_true",
                    help="profile the PPO update's minibatch loop instead of an env step")
+    p.add_argument("--eager", action="store_true",
+                   help="with --update or --selfplay: run the update eagerly, not as CUDA "
+                        "graphs")
     p.add_argument("--selfplay", action="store_true",
                    help="profile a self-play update and its rollout's env steps")
     p.add_argument("--match", action="store_true",

@@ -1,5 +1,5 @@
 """A minimal ``tree_map`` over the port's state containers (dataclasses, dicts,
-lists and tuples of tensors), standing in for ``jax.tree.map``."""
+lists, tuples and named tuples of tensors), standing in for ``jax.tree.map``."""
 from __future__ import annotations
 
 import dataclasses
@@ -19,7 +19,8 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+        items = [tree_map(fn, *xs) for xs in zip(tree, *rest)]
+        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
     return tree
 
 

@@ -1,31 +1,47 @@
 """PPO: rollout, GAE and the clipped update with the KL early exit (port of
 ``self_play_racing_tpu/agent/ppo.py``).
 
-One update is an eager loop: ``num_steps`` vector env steps (sample, transition,
-NEXT_STEP autoreset, observe), GAE over the rollout (kernel K6 on the card), the
-epoch permutations (kernel K7 on the card), then ``update_epochs`` x
-``num_minibatches`` clipped updates. Semantics kept from the JAX package:
+One update is ``num_steps`` vector env steps (sample, transition, NEXT_STEP
+autoreset, observe: ``rollout_step``), GAE over the rollout (kernel K6 on the card),
+the epoch permutations (kernel K7 on the card), then ``update_epochs`` x
+``num_minibatches`` clipped updates (``minibatch_step``). Semantics kept from the
+JAX package:
 
 - approx_kl = mean(old_logprob - new_logprob); once it exceeds ``kl_target`` the
-  triggering minibatch is not applied and the update exits (no later minibatch is
-  computed). Its stats are still recorded, with ``computed=1`` and ``applied=0``.
-  The decision is one host read per minibatch.
+  triggering minibatch is not applied and the update exits. As in the JAX
+  package's ``lax.while_loop`` the exit is a masked carry decided on the device: a
+  minibatch applies its update only while no earlier one triggered, and the stats
+  record it with ``computed=1`` and ``applied=0``. The host reads the exit flag
+  once an epoch and skips the epochs after it; the minibatches left in the exit's
+  epoch run masked, changing nothing and recording zeros;
 - per-minibatch advantage normalization with the unbiased std plus 1e-8;
 - clipped value loss 0.5*max(unclipped, clipped); the entropy bonus is a constant
   (log_std is an annealed buffer, not a parameter);
 - lr anneal frac*lr -> 0 and log_std anneal start -> end by update index, in
   float32; the learning rate is applied by hand, ``params + (-lr * u)``;
-- gradients clipped by global norm as optax does it, then Adam(eps=1e-5) in
-  optax's order (``clip_by_global_norm``, ``adam_update``); not ``torch.optim``,
-  whose Adam folds the bias corrections into the step size and rounds otherwise;
+- gradients clipped by global norm as optax does it (a device select), then
+  Adam(eps=1e-5) in optax's order (``clip_by_global_norm``, ``adam_update``), its
+  bias corrections from a host table of the update's counts
+  (``bias_correction_table``) that the device's applied count indexes; not
+  ``torch.optim``, whose Adam folds the bias corrections into the step size and
+  rounds otherwise;
 - episode statistics harvested from the autoreset wrapper's records; the update's
   metrics packed into one float32 vector in ``METRIC_NAMES`` order.
 
 The model's ``nn.Parameter``s are trained in place by ``torch.autograd``; the Adam
-state is functional (each step returns a new ``AdamState``). JAX's PRNG keys become
-``torch.Generator``s: the rollout's action noise and the permutations' round
+state is functional (each update returns a new ``AdamState``). JAX's PRNG keys
+become ``torch.Generator``s: the rollout's action noise and the permutations' round
 constants are drawn from the runner's generator, or passed in, so tests can feed
 the port and the JAX package the same numbers.
+
+On a CUDA device with no process group the update runs as device programs, the
+port's counterpart of the JAX package's one compiled update: the rollout step is
+captured once as a CUDA graph and replayed ``num_steps`` times, and so is the
+minibatch step, E x M times at most (``_graph.CapturedStep``). The graphs are
+captured at the first update and again when a shape, a dtype or the structure of
+what they read changes. ``make_update_step(..., eager=True)`` runs the same step
+functions eagerly on the card (the reference the graphs are held to); the CPU and
+the process-group paths always run them eagerly.
 
 Data parallelism (``make_update_step(..., mesh=...)``, a ``parallel.mesh.DataMesh``
 with a process group): each rank steps its own envs, draws the global noise and
@@ -40,6 +56,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -52,6 +69,7 @@ from ..envs import vector
 from ..models import actor_critic as net
 from ..ops.gae import compute_gae
 from ..ops.prng import draw_constants, epoch_permutation
+from .. import _graph
 from .._tree import shard_rows
 from ..parallel import mesh as pmesh
 
@@ -165,6 +183,16 @@ def reset_observe(hooks: EnvHooks, aux, generator):
     return env_state, hooks.observe(aux, env_state)
 
 
+def reset_env_state(hooks: EnvHooks, runner: RunnerState, aux) -> RunnerState:
+    """``reset_envs_each_update``'s rebuild before a rollout: the reference rebuilds
+    every env each update but keeps its stale next_obs/next_done, so the env state
+    resets (and an env that caches observations senses it: self-play's opponents
+    act on the fresh reset obs) while ``runner.obs``/``runner.done`` do not."""
+    env_state, _ = reset_observe(hooks, aux, runner.vec.generator)
+    return dataclasses.replace(
+        runner, vec=vector.init(env_state, runner.done.shape[0], runner.vec.generator))
+
+
 def anneal_fractions(cfg: PPOConfig, update: int, action_dim: int = 2, device=None):
     """(frac, lr, log_std): frac = max(0, 1 - update/num_updates), lr = frac*lr0,
     log_std from start to end, all rounded in float32 as the reference computes
@@ -237,13 +265,14 @@ def global_norm(grads, tp: net.TensorParallel = None) -> torch.Tensor:
     return (split + torch.stack(whole).sum() if whole else split).sqrt()
 
 
-def clip_by_global_norm(grads, g_norm: torch.Tensor, below: bool, max_norm: float):
-    """``optax.clip_by_global_norm``: the gradients as they are when ``g_norm <
-    max_norm`` (``below``, decided on the host), else ``(g / g_norm) * max_norm``.
-    (``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6`` instead.)"""
-    if below:
-        return list(grads)
-    return list(torch._foreach_mul(torch._foreach_div(grads, g_norm), max_norm))
+def clip_by_global_norm(grads, g_norm: torch.Tensor, max_norm: float):
+    """``optax.clip_by_global_norm`` as a device select: each gradient as it is
+    where ``g_norm < max_norm``, else ``(g / g_norm) * max_norm``. The comparison
+    rounds ``max_norm`` to the gradients' dtype. (``torch.nn.utils.clip_grad_norm_``
+    divides by ``norm + 1e-6`` instead.)"""
+    below = g_norm < max_norm
+    clipped = torch._foreach_mul(torch._foreach_div(grads, g_norm), max_norm)
+    return [torch.where(below, g, c) for g, c in zip(grads, clipped)]
 
 
 def bias_correction(b: float, count: int, dtype: torch.dtype) -> float:
@@ -254,30 +283,37 @@ def bias_correction(b: float, count: int, dtype: torch.dtype) -> float:
     return float(t(1) - t(b) ** t(count))
 
 
-def adam_update(grads, state: AdamState, b1: float = ADAM_B1, b2: float = ADAM_B2,
+def bias_correction_table(b: float, count: int, steps: int, dtype: torch.dtype):
+    """``bias_correction`` for the Adam counts ``count + 1 .. count + steps`` (each
+    capped at int32's maximum, as optax's count saturates), as a numpy array of
+    ``dtype``: row k is the correction of the (k+1)-th applied step of an update
+    that starts at ``count``. Taken on the host with NumPy's pow, so that each
+    value is ``bias_correction``'s to the bit."""
+    counts = [min(count + k + 1, _INT32_MAX) for k in range(steps)]
+    return np.array([bias_correction(b, c, dtype) for c in counts],
+                    dtype=np.dtype(str(dtype).removeprefix("torch.")))
+
+
+def adam_update(grads, mu, nu, bc1, bc2, b1: float = ADAM_B1, b2: float = ADAM_B2,
                 eps: float = ADAM_EPS):
-    """``optax.scale_by_adam`` in its order: the moments, the count, the bias
-    corrections (``bias_correction``) and ``mu_hat / (sqrt(nu_hat) + eps)``.
-    Returns (updates, new state)."""
-    mu = torch._foreach_add(torch._foreach_mul(grads, 1 - b1),
-                            torch._foreach_mul(state.mu, b1))
+    """``optax.scale_by_adam`` in its order: the moments, then ``mu_hat /
+    (sqrt(nu_hat) + eps)`` with the bias corrections ``bc1``, ``bc2`` of the step's
+    count (0-d tensors of the moments' dtype, ``bias_correction_table``'s rows).
+    Returns (updates, new mu, new nu)."""
+    mu = torch._foreach_add(torch._foreach_mul(grads, 1 - b1), torch._foreach_mul(mu, b1))
     nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2),
-                            torch._foreach_mul(state.nu, b2))
-    count = min(state.count + 1, _INT32_MAX)
-    ref = grads[0]
-    bc1 = torch.full((), bias_correction(b1, count, ref.dtype), dtype=ref.dtype,
-                     device=ref.device)
-    bc2 = torch.full((), bias_correction(b2, count, ref.dtype), dtype=ref.dtype,
-                     device=ref.device)
+                            torch._foreach_mul(nu, b2))
     denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), eps)
     updates = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
-    return list(updates), AdamState(count=count, mu=list(mu), nu=list(nu))
+    return list(updates), list(mu), list(nu)
 
 
 @torch.no_grad()
-def apply_updates(params, updates, lr) -> None:
-    """``params + (-lr * u)``, in place on the parameters."""
-    torch._foreach_add_(params, torch._foreach_mul(updates, -float(lr)))
+def apply_updates(params, updates, lr) -> list:
+    """``params + (-lr * u)``: the new parameters (``lr`` a number or a 0-d tensor
+    of their dtype)."""
+    neg = -lr if isinstance(lr, torch.Tensor) else -float(lr)
+    return list(torch._foreach_add(params, torch._foreach_mul(updates, neg)))
 
 
 def _in_dtype(value: float, dtype: torch.dtype) -> float:
@@ -330,8 +366,117 @@ def shard_blocks(cfg: PPOConfig, flat: Batch) -> Batch:
         for x in flat))
 
 
+@dataclasses.dataclass
+class MinibatchLoop:
+    """The minibatch loop's carry on the device, JAX's ``while_loop`` carry: ``i``
+    the next minibatch (int64 [1]), ``applied`` the minibatches applied so far
+    (int64 [1]; it indexes the bias-correction tables), ``stop`` the KL exit (0-d
+    bool) and ``stats`` [E*M, 8] float32, row i minibatch i's ``STAT_NAMES``."""
+
+    i: torch.Tensor
+    applied: torch.Tensor
+    stop: torch.Tensor
+    stats: torch.Tensor
+
+    @classmethod
+    def zeros(cls, minibatches: int, device) -> "MinibatchLoop":
+        z = torch.zeros((1,), dtype=torch.int64, device=device)
+        return cls(i=z, applied=z.clone(),
+                   stop=torch.zeros((), dtype=torch.bool, device=device),
+                   stats=torch.zeros((minibatches, len(STAT_NAMES)), dtype=torch.float32,
+                                     device=device))
+
+    def reset(self) -> None:
+        for t in (self.i, self.applied, self.stop, self.stats):
+            t.zero_()
+
+
+def minibatch_index(cfg: PPOConfig, perms) -> torch.Tensor:
+    """[E*M, D*mb_units] int64: the shuffle units of minibatch i = e*M + m in the
+    flat unit axis [D*n_units] of ``shard_blocks``' layout: shard d's units
+    ``perms[e, d, m*mb_units:(m+1)*mb_units]``, offset by ``d*n_units``."""
+    e_total, d_shards, n_units = perms.shape
+    _, _, mb_units = minibatch_layout(cfg)
+    units = perms.to(torch.int64) + torch.arange(
+        d_shards, dtype=torch.int64, device=perms.device)[:, None] * n_units
+    return (units.reshape(e_total, d_shards, cfg.num_minibatches, mb_units)
+            .transpose(1, 2).reshape(e_total * cfg.num_minibatches, d_shards * mb_units))
+
+
+def minibatch_step(cfg: PPOConfig, model: net.ActorCritic, log_std, lr, units: Batch,
+                   index, bc1, bc2, mu, nu, loop: MinibatchLoop, mesh=None) -> None:
+    """One minibatch of the clipped update, JAX's ``body_fn``, with no value deciding
+    a host branch: minibatch ``loop.i`` gathered from ``units`` (``shard_blocks``'
+    layout with the shard and unit axes merged) at its row of ``index``
+    (``minibatch_index``), the loss and its gradients (averaged over the group with
+    a ``mesh``), the global norm, the clip as a select, and Adam with the
+    corrections ``bc1[loop.applied]``, ``bc2[loop.applied]``. ``trig = approx_kl >
+    kl_target``: the parameters, ``mu`` and ``nu`` take the new values where the
+    loop is active (no earlier exit) and not ``trig``, in place; the stats row
+    ``loop.i`` records the minibatch where it is active (``applied`` and
+    ``computed`` its flags), zeros after the exit; the loop's counters and exit
+    flag advance on the device."""
+    params = list(model.parameters())
+    dtype = params[0].dtype
+    rows = index.index_select(0, loop.i)[0]
+    mb = Batch(*(x.index_select(0, rows).reshape((cfg.minibatch_size,) + x.shape[2:])
+                 for x in units))
+    with torch.enable_grad():
+        loss, st = _ppo_loss(model.params(), log_std, mb, cfg, mesh)
+        grads = torch.autograd.grad(loss, params)
+    if mesh is not None:
+        grads, st = _mean_over_group(grads, st, mesh)
+    with torch.no_grad():
+        g_norm = global_norm(grads, model.tensor_parallel)
+        trig = st["approx_kl"] > _in_dtype(cfg.kl_target, dtype)
+        active = ~loop.stop
+        apply = active & ~trig
+        grads = clip_by_global_norm(grads, g_norm, cfg.max_grad_norm)
+        updates, new_mu, new_nu = adam_update(grads, mu, nu,
+                                              bc1.index_select(0, loop.applied)[0],
+                                              bc2.index_select(0, loop.applied)[0])
+        new_params = apply_updates(params, updates, lr)
+        for old, new in zip(params + list(mu) + list(nu), new_params + new_mu + new_nu):
+            torch.where(apply, new, old, out=old)
+        row = torch.stack([st[k].detach().to(torch.float32) for k in STAT_NAMES[:6]]
+                          + [apply.to(torch.float32), active.to(torch.float32)])
+        loop.stats.index_copy_(0, loop.i, torch.where(active, row, 0.0)[None])
+        loop.i += 1
+        loop.applied += apply
+        loop.stop |= active & trig
+
+
+class _MinibatchGraph:
+    """``minibatch_step`` captured once (``_graph.CapturedStep``) over static copies
+    of its inputs and of the Adam moments, the loop's carry and the model's
+    parameters read and trained in place. ``key`` is what the capture fixes."""
+
+    def __init__(self, cfg, model, inputs, opt_state, key):
+        self.key = key
+        self.inputs = _graph.clone_tree(inputs)
+        self.mu = [m.clone() for m in opt_state.mu]
+        self.nu = [v.clone() for v in opt_state.nu]
+        self.loop = MinibatchLoop.zeros(inputs[3].shape[0], inputs[0].device)
+        self.loop.stop.fill_(True)  # the warm-up runs are masked: they move nothing
+
+        def body():
+            minibatch_step(cfg, model, *self.inputs, self.mu, self.nu, self.loop)
+
+        self.step = _graph.CapturedStep(body, inputs[0].device, [], self.loop.i.zero_)
+
+    def load(self, inputs, opt_state) -> None:
+        _graph.load_tree((self.inputs, self.mu, self.nu),
+                         (inputs, opt_state.mu, opt_state.nu))
+        self.loop.reset()
+
+    def owned(self) -> list:
+        """The tensors the graph owns outside its private pool."""
+        return [t for _, t in _graph.tensor_leaves((self.inputs, self.mu, self.nu,
+                                                    self.loop))]
+
+
 def run_ppo_update(cfg: PPOConfig, model: net.ActorCritic, opt_state: AdamState,
-                   log_std, lr, flat: Batch, perms, mesh=None):
+                   log_std, lr, flat: Batch, perms, mesh=None, graphs=None):
     """Epochs x minibatches of clipped updates with the KL early exit.
 
     ``flat`` is the flattened [batch_size, ...] rollout (flat index
@@ -341,6 +486,11 @@ def run_ppo_update(cfg: PPOConfig, model: net.ActorCritic, opt_state: AdamState,
     ``data_shards`` = D > 1 the batch is laid out as [T, D, n_sub] -> [D, T, n_sub]
     -> [D, units, block] first, so each shard contributes an equal stratum.
 
+    Each minibatch is ``minibatch_step``; the host reads the exit flag once an
+    epoch and skips the epochs after an exit, then reads the stats and the applied
+    count once. With ``graphs`` (an ``UpdateGraphs``, CUDA and no group) the step
+    is a replayed CUDA graph; otherwise it runs eagerly.
+
     Trains ``model``'s parameters in place. Returns (opt_state, stopped, stats):
     ``stats`` maps ``STAT_NAMES`` to [epochs, minibatches] float32 numpy arrays,
     zero past the exit, with ``computed`` marking the executed minibatches and
@@ -348,51 +498,58 @@ def run_ppo_update(cfg: PPOConfig, model: net.ActorCritic, opt_state: AdamState,
 
     With a ``mesh`` (a group), ``flat`` and ``perms`` are this rank's part of each
     minibatch: the advantages are normalized by the global moments, and the
-    gradients and stats are averaged over the group before the host reads them,
-    so every rank applies the same update and takes the same exit.
+    gradients and stats are averaged over the group, so every rank applies the
+    same update and takes the same exit.
     """
     d_shards = cfg.data_shards
     e_total, m_total = cfg.update_epochs, cfg.num_minibatches
-    _, n_units, mb_units = minibatch_layout(cfg)
+    _, n_units, _ = minibatch_layout(cfg)
     if tuple(perms.shape) != (e_total, d_shards, n_units):
         raise ValueError(f"run_ppo_update: perms {tuple(perms.shape)}, expected "
                          f"{(e_total, d_shards, n_units)}")
-    blocked = shard_blocks(cfg, flat)
-    perms = perms.to(device=flat.obs.device, dtype=torch.int64)
-    shard = torch.arange(d_shards, device=perms.device)[:, None]
-
+    dev = flat.obs.device
+    units = Batch(*(x.reshape((d_shards * n_units,) + x.shape[2:])
+                    for x in shard_blocks(cfg, flat)))
+    index = minibatch_index(cfg, perms.to(dev))
     params = list(model.parameters())
     dtype = params[0].dtype
-    kl_target = _in_dtype(cfg.kl_target, dtype)
-    max_norm = _in_dtype(cfg.max_grad_norm, dtype)
-    stats = {name: np.zeros((e_total * m_total,), np.float32) for name in STAT_NAMES}
-    stopped = False
-    for i in range(e_total * m_total):
-        e, m = divmod(i, m_total)
-        idx = perms[e, :, m * mb_units:(m + 1) * mb_units]
-        mb = Batch(*(x[shard, idx].reshape((cfg.minibatch_size,) + x.shape[3:])
-                     for x in blocked))
-        with torch.enable_grad():
-            loss, st = _ppo_loss(model.params(), log_std, mb, cfg, mesh)
-            grads = torch.autograd.grad(loss, params)
-        if mesh is not None:
-            grads, st = _mean_over_group(grads, st, mesh)
-        g_norm = global_norm(grads, model.tensor_parallel)
-        # the one host read of the minibatch: its stats, the KL flag and the norm
-        host = torch.stack([st[k] for k in STAT_NAMES[:6]] + [g_norm]).tolist()
-        for k, v in zip(STAT_NAMES[:6], host):
-            stats[k][i] = v
-        stats["computed"][i] = 1.0
-        if host[STAT_NAMES.index("approx_kl")] > kl_target:  # in the loss's dtype
-            # the triggering minibatch is not applied, and the update exits
-            stopped = True
+    steps = e_total * m_total
+    bc1, bc2 = (_host_to(bias_correction_table(b, opt_state.count, steps, dtype), dev)
+                for b in (ADAM_B1, ADAM_B2))
+    inputs = (log_std, torch.full((), float(lr), dtype=dtype, device=dev), units, index,
+              bc1, bc2)
+    if graphs is None:
+        mu = [m.clone() for m in opt_state.mu]
+        nu = [v.clone() for v in opt_state.nu]
+        loop = MinibatchLoop.zeros(steps, dev)
+
+        def run(times):
+            for _ in range(times):
+                minibatch_step(cfg, model, *inputs, mu, nu, loop, mesh)
+    else:
+        g = graphs.minibatch(cfg, model, inputs, opt_state)
+        mu, nu, loop, run = g.mu, g.nu, g.loop, g.step.replay
+    for e in range(e_total):
+        run(m_total)
+        if e + 1 < e_total and bool(loop.stop):  # the epoch's one host read
             break
-        stats["applied"][i] = 1.0
-        grads = clip_by_global_norm(grads, g_norm, host[-1] < max_norm, cfg.max_grad_norm)
-        updates, opt_state = adam_update(grads, opt_state)
-        apply_updates(params, updates, lr)
-    stats = {k: v.reshape(e_total, m_total) for k, v in stats.items()}
-    return opt_state, stopped, stats
+    host = torch.cat([loop.stats.reshape(-1), loop.applied.to(torch.float32),
+                      loop.stop.reshape(1).to(torch.float32)]).cpu().numpy()
+    stats = host[:-2].reshape(e_total, m_total, len(STAT_NAMES))
+    applied, stopped = int(host[-2]), bool(host[-1])
+    if graphs is not None:  # the graph's buffers serve the next update
+        mu, nu = [m.clone() for m in mu], [v.clone() for v in nu]
+    opt_state = AdamState(count=min(opt_state.count + applied, _INT32_MAX), mu=mu, nu=nu)
+    return opt_state, stopped, {k: stats[..., j].copy() for j, k in enumerate(STAT_NAMES)}
+
+
+def _host_to(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``; to a card through pinned memory, without making
+    the host wait for the stream."""
+    t = torch.from_numpy(array)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def _last_computed(ustats, name):
@@ -402,10 +559,84 @@ def _last_computed(ustats, name):
     return ustats[name].reshape(-1)[max(n - 1, 0)]
 
 
+@dataclasses.dataclass
+class RolloutCarry:
+    """What one rollout step hands the next, JAX's ``scan`` carry: the vector env,
+    the observations and done flags entering the step, the normalizer, and ``t``
+    (int64 [1] on the device), the step's row of the [T, N, ...] buffers."""
+
+    vec: vector.VecState
+    obs: torch.Tensor
+    done: torch.Tensor
+    norm: obsnorm.ObsNormState
+    t: torch.Tensor
+
+
+def rollout_carry(runner: RunnerState) -> RolloutCarry:
+    """The carry entering a rollout from ``runner``, at step 0."""
+    return RolloutCarry(vec=runner.vec, obs=runner.obs, done=runner.done,
+                        norm=runner.obs_norm,
+                        t=torch.zeros((1,), dtype=torch.int64, device=runner.obs.device))
+
+
+def rollout_step(cfg: PPOConfig, hooks: EnvHooks, aux, params, log_std, noise,
+                 carry: RolloutCarry, out: dict, mesh=None) -> RolloutCarry:
+    """One vector env step under the current policy, JAX's ``one_step``: the
+    normalizer update, ``sample_action`` on ``noise[t]`` ([T, N, A], N this rank's
+    envs; with a ``mesh`` the normalizer merges every rank's observations),
+    ``vector.step`` with the hooks. Writes row ``t`` of the [T, N, ...] buffers in
+    ``out`` (made at the first call): obs, actions, logprobs, values, reward
+    (float32), done_entering, and the episode records' ep_return, ep_length and
+    ep_mask; adds ``hooks.stats`` into ``out["extra"]``. Returns the next carry.
+    Reads the device only through ``t``, so one CUDA graph of it serves every
+    step."""
+    t, norm = carry.t, carry.norm
+    if cfg.normalize_obs:
+        norm = obsnorm.update(norm, carry.obs, mesh)
+        policy_obs = obsnorm.apply(norm, carry.obs)
+    else:
+        policy_obs = carry.obs
+    action, logprob, value = net.sample_action(params, log_std, policy_obs,
+                                               noise.index_select(0, t)[0])
+    vec, next_obs, reward, next_done, _, _, info, rec = vector.step(
+        carry.vec, action,
+        lambda s, a, g: hooks.transition(aux, s, a, g),
+        lambda s: hooks.observe(aux, s),
+        lambda g: hooks.reset(aux, g),
+        refresh_fn=(None if hooks.refresh is None
+                    else (lambda s: hooks.refresh(aux, s))),
+        info_fn=(None if hooks.info is None else (lambda s: hooks.info(aux, s))),
+    )
+    rows = {
+        "obs": policy_obs, "actions": action, "logprobs": logprob, "values": value,
+        "reward": reward.to(torch.float32), "done_entering": carry.done,
+        "ep_return": torch.where(rec["mask"], rec["return"], 0.0),
+        "ep_length": torch.where(rec["mask"], rec["length"], 0),
+        "ep_mask": rec["mask"],
+    }
+    for k, v in rows.items():
+        if k not in out:
+            out[k] = v.new_empty((noise.shape[0],) + v.shape)
+        out[k].index_copy_(0, t, v[None])
+    if hooks.stats is not None:
+        st = hooks.stats(aux, info, rec)
+        if "extra" not in out:
+            out["extra"] = torch.zeros_like(st)
+        out["extra"].add_(st)
+    return RolloutCarry(vec=vec, obs=next_obs.to(torch.float32), done=next_done,
+                        norm=norm, t=t + 1)
+
+
+def _rollout_outputs(carry: RolloutCarry, out: dict):
+    traj = Batch(obs=out["obs"], actions=out["actions"], logprobs=out["logprobs"],
+                 advantages=None, returns=None, values=out["values"])
+    return carry.vec, carry.obs, carry.done, carry.norm, traj, out
+
+
 @torch.no_grad()
 def rollout_phase(cfg: PPOConfig, hooks: EnvHooks, runner: RunnerState, aux, log_std,
                   noise, mesh=None):
-    """``num_steps`` vector env steps under the current policy.
+    """``num_steps`` calls of ``rollout_step``, eagerly.
 
     ``noise`` [T, N, A] is the standard-normal action noise (N this rank's envs;
     with a ``mesh`` the observation normalizer merges every rank's). Returns (vec,
@@ -414,47 +645,112 @@ def rollout_phase(cfg: PPOConfig, hooks: EnvHooks, runner: RunnerState, aux, log
     per-step rewards (float32), done-entering flags and episode records, and the
     rollout's sum of ``hooks.stats`` under "extra" when the hooks have one."""
     params = runner.train.model.params()
-    vec, obs, done, norm = runner.vec, runner.obs, runner.done, runner.obs_norm
-    keys = ("obs", "actions", "logprobs", "values", "reward", "done_entering",
-            "ep_return", "ep_length", "ep_mask")
-    out = {k: [] for k in keys}
-    extra = None
-    for t in range(cfg.num_steps):
-        if cfg.normalize_obs:
-            norm = obsnorm.update(norm, obs, mesh)
-            policy_obs = obsnorm.apply(norm, obs)
-        else:
-            policy_obs = obs
-        action, logprob, value = net.sample_action(params, log_std, policy_obs, noise[t])
-        vec, next_obs, reward, next_done, _, _, info, rec = vector.step(
-            vec, action,
-            lambda s, a, g: hooks.transition(aux, s, a, g),
-            lambda s: hooks.observe(aux, s),
-            lambda g: hooks.reset(aux, g),
-            refresh_fn=(None if hooks.refresh is None
-                        else (lambda s: hooks.refresh(aux, s))),
-            info_fn=(None if hooks.info is None else (lambda s: hooks.info(aux, s))),
-        )
-        if hooks.stats is not None:
-            st = hooks.stats(aux, info, rec)
-            extra = st if extra is None else extra + st
-        out["obs"].append(policy_obs)
-        out["actions"].append(action)
-        out["logprobs"].append(logprob)
-        out["values"].append(value)
-        out["reward"].append(reward.to(torch.float32))
-        out["done_entering"].append(done)
-        out["ep_return"].append(torch.where(rec["mask"], rec["return"], 0.0))
-        out["ep_length"].append(torch.where(rec["mask"], rec["length"], 0))
-        out["ep_mask"].append(rec["mask"])
-        obs, done = next_obs.to(torch.float32), next_done
-    stacked = {k: torch.stack(v) for k, v in out.items()}
-    if extra is not None:
-        stacked["extra"] = extra
-    traj = Batch(obs=stacked["obs"], actions=stacked["actions"],
-                 logprobs=stacked["logprobs"], advantages=None, returns=None,
-                 values=stacked["values"])
-    return vec, obs, done, norm, traj, stacked
+    carry, out = rollout_carry(runner), {}
+    for _ in range(cfg.num_steps):
+        carry = rollout_step(cfg, hooks, aux, params, log_std, noise, carry, out, mesh)
+    return _rollout_outputs(carry, out)
+
+
+class _RolloutGraph:
+    """``rollout_step`` captured once (``_graph.CapturedStep``, the vector env's
+    generator registered) over static copies of the runner's env state,
+    observations, done flags and normalizer, of log_std and of the noise, writing
+    static [T, N, ...] buffers. The model's parameters are read in place, and so is
+    the aux (``_graph.StaticTree``) but at the places in ``copied``: the tensors the
+    trainer replaces between updates (the opponent draw, the speed-weight anneal, a
+    swapped track). ``key`` is what the capture fixes."""
+
+    def __init__(self, cfg, hooks, runner, aux, log_std, noise, key, copied):
+        self.key, self.steps = key, cfg.num_steps
+        self.carry = _graph.clone_tree(rollout_carry(runner))
+        self.aux = _graph.StaticTree(aux, copied)
+        self.inputs = _graph.clone_tree((log_std, noise))
+        self.out = {}
+        params = runner.train.model.params()
+        gen = runner.vec.generator
+
+        def body():
+            new = rollout_step(cfg, hooks, self.aux.tree, params, *self.inputs, self.carry,
+                               self.out)
+            _graph.load_tree(self.carry, new)
+
+        self.step = _graph.CapturedStep(body, runner.obs.device,
+                                        [] if gen is None else [gen], self.carry.t.zero_)
+
+    def run(self, runner, aux, log_std, noise):
+        """The rollout from ``runner``: ``rollout_phase``'s outputs, the runner
+        state cloned (it outlives the update), the [T, N, ...] buffers the graph's
+        own until its next run."""
+        c = self.carry
+        _graph.load_tree((c.vec, c.obs, c.done, c.norm, self.inputs),
+                         (runner.vec, runner.obs, runner.done, runner.obs_norm,
+                          (log_std, noise)))
+        self.aux.load(aux)
+        c.t.zero_()
+        if "extra" in self.out:
+            self.out["extra"].zero_()
+        self.step.replay(self.steps)
+        vec, obs, done, norm, traj, out = _rollout_outputs(self.carry, self.out)
+        return (*_graph.clone_tree((vec, obs, done, norm)), traj, out)
+
+    def owned(self) -> list:
+        """The tensors the graph owns outside its private pool."""
+        return ([t for _, t in _graph.tensor_leaves((self.carry, self.inputs, self.out))]
+                + [t for p, t in _graph.tensor_leaves(self.aux.tree) if p in self.aux.copied])
+
+
+class UpdateGraphs:
+    """The captured rollout and minibatch steps of one ``update_step`` on a CUDA
+    device with no process group: captured at its first update, and again when a
+    shape, a dtype or the structure of what a step reads changes (a resampled
+    pool of another size, another runner's parameters) or the trainer replaces an
+    aux tensor that the rollout graph reads in place (from then on the graph
+    copies it; the opponent draw, new each update, does this once, at the second
+    update). ``capture_seconds`` sums the time the captures took."""
+
+    def __init__(self):
+        self.rollout = None
+        self.minibatch_graph = None
+        self.capture_seconds = 0.0
+
+    def _params_key(self, model):
+        return tuple(p.data_ptr() for p in model.parameters())
+
+    @torch.no_grad()
+    def rollout_phase(self, cfg, hooks, runner, aux, log_std, noise):
+        key = (_graph.signature((runner.vec, runner.obs, runner.done, runner.obs_norm,
+                                 aux, log_std, noise)),
+               self._params_key(runner.train.model))
+        same = self.rollout is not None and self.rollout.key == key
+        moved = self.rollout.aux.moved(aux) if same else frozenset()
+        if not same or moved:
+            copied = moved if self.rollout is None else self.rollout.aux.copied | moved
+            self.rollout = None  # free the old graph's buffers before the new capture
+            t0 = time.perf_counter()
+            self.rollout = _RolloutGraph(cfg, hooks, runner, aux, log_std, noise, key,
+                                         copied)
+            self.capture_seconds += time.perf_counter() - t0
+        return self.rollout.run(runner, aux, log_std, noise)
+
+    def minibatch(self, cfg, model, inputs, opt_state) -> _MinibatchGraph:
+        """The minibatch graph for ``inputs``, loaded with them and ``opt_state``."""
+        key = (_graph.signature((inputs, opt_state.mu, opt_state.nu)),
+               self._params_key(model))
+        if self.minibatch_graph is None or self.minibatch_graph.key != key:
+            self.minibatch_graph = None
+            t0 = time.perf_counter()
+            self.minibatch_graph = _MinibatchGraph(cfg, model, inputs, opt_state, key)
+            self.capture_seconds += time.perf_counter() - t0
+        self.minibatch_graph.load(inputs, opt_state)
+        return self.minibatch_graph
+
+    def memory(self) -> dict:
+        """Bytes the graphs hold: the buffers they own (static copies of their
+        inputs, the rollout's carry and [T, N, ...] outputs, the minibatch loop's
+        moments and carry) and their private pools."""
+        graphs = [g for g in (self.rollout, self.minibatch_graph) if g is not None]
+        return {"static_bytes": sum(t.nbytes for g in graphs for t in g.owned()),
+                "pool_bytes": sum(g.step.pool_bytes for g in graphs)}
 
 
 def _sharded_update(cfg: PPOConfig, mesh, model, opt_state, log_std, lr, batch: Batch,
@@ -490,12 +786,18 @@ def _sharded_update(cfg: PPOConfig, mesh, model, opt_state, log_std, lr, batch: 
     return run_ppo_update(local, model, opt_state, log_std, lr, flat, perms, mesh=mesh)
 
 
-def make_update_step(cfg: PPOConfig, hooks: EnvHooks, action_dim: int = 2, mesh=None):
+def make_update_step(cfg: PPOConfig, hooks: EnvHooks, action_dim: int = 2, mesh=None,
+                     eager: bool = False):
     """Returns ``update_step(runner, aux, noise=None, perm_consts=None) -> (runner,
     metrics)``: one full PPO update. ``noise`` [num_steps, num_envs, action_dim] and
     ``perm_consts`` [update_epochs, data_shards, 8] (uint32 values) replace the
     draws from ``runner.generator``. ``metrics`` is the packed float32 numpy
     vector (``unpack_metrics``).
+
+    On a CUDA device with no process group the rollout and minibatch steps run as
+    CUDA graphs (``UpdateGraphs``, ``update_step.graphs``); ``eager=True`` runs
+    them eagerly there too, as the CPU and the group paths always do. Both give
+    the same numbers to the bit.
 
     ``mesh``: a ``parallel.mesh.DataMesh``. With a process group, the runner and
     aux hold this rank's envs (``PPOTrainer.shard``), ``noise`` and
@@ -504,31 +806,31 @@ def make_update_step(cfg: PPOConfig, hooks: EnvHooks, action_dim: int = 2, mesh=
     with nothing initialized) the update is the single-process one."""
     if mesh is not None and mesh.group is None:
         mesh = None
+    graphs = None if eager or mesh is not None else UpdateGraphs()
 
     def update_step(runner: RunnerState, aux, noise=None, perm_consts=None):
         train = runner.train
         model = train.model
         dev = runner.obs.device
+        graphed = graphs is not None and dev.type == "cuda"
         dtype = next(model.parameters()).dtype
         gen = runner.generator
         _, lr, log_std = anneal_fractions(cfg, train.update, action_dim, device=dev)
 
         if cfg.reset_envs_each_update:
-            # the reference rebuilds every env each update but keeps its stale
-            # next_obs/next_done: the env state resets (and an env that caches
-            # observations senses it: self-play's opponents act on the fresh
-            # reset obs), runner.obs/done do not
-            env_state, _ = reset_observe(hooks, aux, runner.vec.generator)
-            runner = dataclasses.replace(
-                runner, vec=vector.init(env_state, runner.done.shape[0], runner.vec.generator))
+            runner = reset_env_state(hooks, runner, aux)
 
         if noise is None:
             noise = net.sample_noise((cfg.num_steps, cfg.num_envs, action_dim), gen,
                                      dtype=dtype, device=dev)
         if mesh is not None:
             noise = shard_rows(noise, mesh.shard, dim=1)
-        vec, next_obs, next_done, norm, traj, sstats = rollout_phase(
-            cfg, hooks, runner, aux, log_std, noise, mesh)
+        if graphed:
+            vec, next_obs, next_done, norm, traj, sstats = graphs.rollout_phase(
+                cfg, hooks, runner, aux, log_std, noise)
+        else:
+            vec, next_obs, next_done, norm, traj, sstats = rollout_phase(
+                cfg, hooks, runner, aux, log_std, noise, mesh)
 
         rewards = sstats["reward"]                  # [T, N] f32
         with torch.no_grad():
@@ -546,7 +848,8 @@ def make_update_step(cfg: PPOConfig, hooks: EnvHooks, action_dim: int = 2, mesh=
                                       shape=(cfg.update_epochs, cfg.data_shards),
                                       consts=perm_consts, device=dev)
             opt_state, stopped, ustats = run_ppo_update(
-                cfg, model, train.opt_state, log_std, lr, flat, perms)
+                cfg, model, train.opt_state, log_std, lr, flat, perms,
+                graphs=graphs if graphed else None)
         else:
             opt_state, stopped, ustats = _sharded_update(
                 cfg, mesh, model, train.opt_state, log_std, lr, batch, gen, perm_consts,
@@ -595,6 +898,7 @@ def make_update_step(cfg: PPOConfig, hooks: EnvHooks, action_dim: int = 2, mesh=
                                  host[4:]])
         return new_runner, packed
 
+    update_step.graphs = graphs
     return update_step
 
 

@@ -113,10 +113,10 @@ def empty_pool(pool_size: int, obs_dim: int, action_dim: int, hidden, normalize_
 
 class SelfPlayTrainer(PPOTrainer):
     """The reference's SelfPlayPPO. ``track`` is the per-env TrackArrays or a
-    capacity layout (``envs/track.py``)."""
+    capacity layout (``envs/track.py``); ``eager`` as ``PPOTrainer`` takes it."""
 
     def __init__(self, cfg: PPOConfig, env_cfg: menv.MultiRacingConfig,
-                 track: trk.Track):
+                 track: trk.Track, eager: bool = False):
         if cfg.pool_size <= 0 or cfg.snapshot_freq <= 0:
             raise ValueError("self-play needs pool_size > 0 and snapshot_freq > 0")
         self.pool_size = cfg.pool_size
@@ -137,7 +137,8 @@ class SelfPlayTrainer(PPOTrainer):
                "opp": self._opp_aux(torch.zeros(idx_shape, dtype=torch.int32),
                                     torch.zeros(idx_shape, dtype=torch.bool))}
         super().__init__(cfg, env_cfg, track,
-                         hooks=make_selfplay_hooks(env_cfg, cfg.pool_size), aux=aux)
+                         hooks=make_selfplay_hooks(env_cfg, cfg.pool_size), aux=aux,
+                         eager=eager)
         self.training_info["opponent_pool_size"] = []
         self.training_info["pool_win_rate"] = []
 

@@ -71,12 +71,15 @@ class PPOTrainer:
     track: per-env TrackArrays (already gathered to [num_envs, ...]) or a
     capacity layout over a resident pool (``envs/track.py``); the trainer runs on
     its device. Weights are drawn from a CPU generator seeded with ``cfg.seed``.
+    ``eager``: run the update's steps eagerly on the card instead of as CUDA graphs
+    (``ppo.make_update_step``), the reference the graphs are held to.
     """
 
     def __init__(self, cfg: PPOConfig, env_cfg: senv.RacingConfig, track: trk.Track,
-                 hooks: Optional[ppo.EnvHooks] = None, aux=None):
+                 hooks: Optional[ppo.EnvHooks] = None, aux=None, eager: bool = False):
         self.cfg = cfg
         self.env_cfg = env_cfg
+        self.eager = eager
         self.device = trk.rows_of(track)[0].wp_x.device
         self._mesh = None  # set by shard(); re-applied on aux swaps
         if aux is not None:
@@ -87,7 +90,8 @@ class PPOTrainer:
         else:
             self.aux = track
         self.hooks = hooks if hooks is not None else make_single_env_hooks(env_cfg)
-        self.update_step = ppo.make_update_step(cfg, self.hooks, env_cfg.action_dim)
+        self.update_step = ppo.make_update_step(cfg, self.hooks, env_cfg.action_dim,
+                                                eager=eager)
         generator = torch.Generator().manual_seed(cfg.seed)
         self.runner = ppo.init_runner(generator, cfg, self.hooks, self.aux,
                                       env_cfg.obs_dim, env_cfg.action_dim)
@@ -128,7 +132,8 @@ class PPOTrainer:
         self.runner, self.aux = pmesh.shard_runner(
             self.runner, self.aux, mesh, self.cfg.num_envs)
         self.update_step = ppo.make_update_step(self.cfg, self.hooks,
-                                                self.env_cfg.action_dim, mesh=mesh)
+                                                self.env_cfg.action_dim, mesh=mesh,
+                                                eager=self.eager)
 
     @property
     def _writes_files(self) -> bool:

@@ -26,6 +26,7 @@ uniforms, the start-grid slots of a reset) come from a ``torch.Generator``, thro
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -73,6 +74,14 @@ def _normalized(mean, var, obs):
     return obsnorm.apply(obsnorm.ObsNormState(mean, var, None), obs)
 
 
+@functools.lru_cache(maxsize=16)
+def _action_bounds(dtype, device):
+    """The random action's bounds, made once per device: building them from a
+    Python list on every step would copy host to device and wait on the stream."""
+    return (torch.tensor(_ACTION_LOW, dtype=dtype, device=device),
+            torch.tensor(_ACTION_HIGH, dtype=dtype, device=device))
+
+
 def opponent_actions(cfg: multi.MultiRacingConfig, opp, opp_obs, noise, uniforms):
     """Frozen-opponent actions [N, 2] for one batch of opponent cars.
 
@@ -82,8 +91,8 @@ def opponent_actions(cfg: multi.MultiRacingConfig, opp, opp_obs, noise, uniforms
     idx = torch.as_tensor(opp["idx"], device=opp_obs.device)
     normalize = opp.get("norm_mean") is not None
     if idx.ndim == 0:
-        def one(t):
-            return t[idx]
+        def one(t):  # a gather: indexing by a 0-d tensor would read it on the host
+            return t.index_select(0, idx.reshape(1).long())[0]
         member_obs = (_normalized(one(opp["norm_mean"]), one(opp["norm_var"]), opp_obs)
                       if normalize else opp_obs)
         layer = [(one(w)[None], one(b)[None]) for w, b in opp["params"]["actor"]]
@@ -101,8 +110,7 @@ def opponent_actions(cfg: multi.MultiRacingConfig, opp, opp_obs, noise, uniforms
         rows = torch.arange(opp_obs.shape[0], device=opp_obs.device)
         policy_act = acts[idx.expand(rows.shape).long(), rows]        # [N, 2]
 
-    low = torch.tensor(_ACTION_LOW, dtype=policy_act.dtype, device=policy_act.device)
-    high = torch.tensor(_ACTION_HIGH, dtype=policy_act.dtype, device=policy_act.device)
+    low, high = _action_bounds(policy_act.dtype, policy_act.device)
     rand_act = torch.maximum(low, uniforms.to(policy_act.dtype) * (high - low) + low)
     use = torch.as_tensor(opp["use_policy"], device=opp_obs.device)
     return torch.where(use.expand(opp_obs.shape[:1])[:, None], policy_act, rand_act)

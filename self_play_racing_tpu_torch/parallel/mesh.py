@@ -10,9 +10,9 @@ axis is written out as a collective over the process group (NCCL on the card,
 gloo on the CPU):
 
 - the minibatch gradient and the minibatch's stats (losses, entropy, approx_kl,
-  clip_frac) are averaged over the group in one flat all-reduce before the host
-  reads them, so every rank clips by the global norm and takes the same KL exit
-  (``agent/ppo.py:run_ppo_update``);
+  clip_frac) are averaged over the group in one flat all-reduce before the
+  device decides the clip and the KL exit, so every rank clips by the global norm
+  and takes the same exit (``agent/ppo.py:minibatch_step``);
 - the minibatch advantage normalization takes the global mean and unbiased std
   (``global_mean_std``, two scalar all-reduces);
 - the observation normalizer merges the global batch moments (``global_moments``);

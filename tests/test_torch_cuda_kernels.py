@@ -945,3 +945,101 @@ def test_adapter_step_on_the_card_matches_the_cpu_adapter(cuda):
         np.testing.assert_allclose(got[4][k], want[4][k], rtol=1e-5, atol=1e-5, err_msg=k)
     with pytest.raises(TypeError):
         gym_adapter.RacingEnv(**kw, dtype=torch.float64, device=cuda).reset()
+
+
+# ------------------------------------------- the update as CUDA graphs (ppo.py)
+
+_COUNTERS = [(geo, "raycast_walls_launches"), (geo, "raycast_walls_and_cars_launches"),
+             (dynamics, "car_step_and_query_launches"), (gae, "compute_gae_launches"),
+             (prng, "mixbits_permutation_launches"), (geo, "raycast_walls_row_id_launches"),
+             (geo, "raycast_walls_and_cars_row_id_launches"),
+             (dynamics, "car_step_and_query_row_id_launches")]
+
+GRAPH_CASES = {
+    # name: (self-play, config overrides)
+    "single": (False, dict()),
+    "single_kl_exit": (False, dict(kl_target=1e-4)),
+    "single_normalized": (False, dict(normalize_obs=True)),
+    "selfplay_per_env": (True, dict(opponent_per_env=True, reset_envs_each_update=False)),
+    "selfplay_shared_reset": (True, dict(opponent_per_env=False,
+                                         reset_envs_each_update=True, kl_target=1e-3)),
+}
+
+
+def _graph_trainer(cuda, selfplay, overrides, eager):
+    from self_play_racing_tpu_torch.agent.self_play import SelfPlayTrainer
+    from self_play_racing_tpu_torch.agent.trainer import PPOTrainer
+    from self_play_racing_tpu_torch.configs import base_config, self_play_config
+    from self_play_racing_tpu_torch.envs import multi
+    from self_play_racing_tpu_torch.envs import single as senv
+
+    envs, steps = 64, 16
+    kw = dict(num_envs=envs, num_steps=steps, num_minibatches=4, update_epochs=2,
+              total_timesteps=envs * steps * 8, **overrides)
+    np.random.seed(1)
+    pool = trk.make_track_pool(trk.gen_tracks(4, seed=1), 7.0, device=cuda)
+    track = trk.tiled_pooled_tracks(pool, envs)
+    if selfplay:
+        cfg = self_play_config(snapshot_freq=1, **kw)
+        return SelfPlayTrainer(cfg, multi.MultiRacingConfig(num_agents=2), track,
+                               eager=eager)
+    return PPOTrainer(base_config(**kw), senv.RacingConfig(num_sensors=11), track,
+                      eager=eager)
+
+
+def _learner_state(tr):
+    params, mu, nu = tr.full_state()
+    return ([t.clone() for t in params + mu + nu], tr.runner.train.opt_state.count,
+            tr.runner.obs.clone(), tr.runner.done.clone())
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_graphed_update_is_the_eager_update_bitwise(cuda, case):
+    """The update as CUDA graphs (the rollout step and the minibatch step captured
+    once, replayed) against the same trainer run eagerly on the card, from one
+    seed, over three updates, a resampled pool of another size, and a fourth
+    update on it: every metric, the parameters, Adam moments and count and the
+    final observations bitwise equal, and the launch counters equal (a replay
+    adds what its capture counted). Self-play's rollout graph reads the pool's
+    stacked snapshots in place and copies the opponent draw."""
+    selfplay, overrides = GRAPH_CASES[case]
+    runs = []
+    for eager in (False, True):
+        tr = _graph_trainer(cuda, selfplay, overrides, eager)
+        metrics, counts = [], []
+        for u in range(4):
+            if u == 3:  # a resampled pool of another size: the graphs are captured again
+                np.random.seed(2)
+                pool = trk.make_track_pool(trk.gen_tracks(2, seed=2), 6.0, device=cuda)
+                tr.set_track(trk.tiled_pooled_tracks(pool, tr.cfg.num_envs))
+            before = [getattr(m, a) for m, a in _COUNTERS]
+            tr.train(num_updates=1, on_update=lambda t, m: metrics.append(m))
+            torch.cuda.synchronize()
+            counts.append([getattr(m, a) - b for (m, a), b in zip(_COUNTERS, before)])
+        graphs = tr.update_step.graphs
+        assert (graphs is None) == eager
+        if not eager:
+            assert graphs.rollout is not None and graphs.minibatch_graph is not None
+            if selfplay:  # the pool's snapshots, written in place, are read in place
+                read = graphs.rollout.aux.tree["opp"]["params"]["actor"][0][0]
+                assert read is tr.pool["params"]["actor"][0][0]
+                assert ("opp", "idx") in graphs.rollout.aux.copied
+        runs.append((metrics, counts, _learner_state(tr)))
+    (gm, gc, gs), (em, ec, es) = runs
+    assert gc == ec
+    steps = 16
+    sensing = "raycast_walls_and_cars" if selfplay else "raycast_walls"
+    names = [a for _, a in _COUNTERS]
+    for c in gc:
+        assert c[names.index(f"{sensing}_launches")] >= steps
+        assert c[names.index("car_step_and_query_launches")] == steps
+        assert c[names.index("compute_gae_launches")] == 1
+    for a, b in zip(gm, em):
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    if "kl_exit" in case or "reset" in case:
+        assert any(m["kl_stopped"] for m in gm)
+    assert gs[1] == es[1]
+    for a, b in zip(gs[0] + list(gs[2:]), es[0] + list(es[2:])):
+        assert torch.equal(a, b)

@@ -19,9 +19,12 @@ Inputs are made with numpy from a seed and fed to both sides; JAX runs jitted.
   optax's, in float32 with x64 off (the JAX package's training setting) and in
   float64 with x64 on.
 - A full ``run_ppo_update`` from the same batch and permutations in float64: params
-  and Adam moments rtol 1e-8 / atol 1e-12, per-minibatch stats (float32) rtol 1e-5,
-  applied/computed flags and the exit exactly. Every approx_kl is asserted to lie
-  farther from kl_target than that tolerance, so the exit decision is well-posed.
+  and Adam moments rtol 1e-8 / atol 1e-12, per-minibatch stats (float32) rtol 1e-5 /
+  atol 1e-7 (every slot, the zeros past the exit among them), applied/computed
+  flags and the exit exactly, in ``UPDATE_CASES``: no exit, exits mid-epoch, on an
+  epoch's last minibatch and on the first, the clip taken on some minibatches and
+  never, two data shards. Every approx_kl is asserted to lie farther from
+  kl_target than that tolerance, so the exit decision is well-posed.
 """
 import numpy as np
 import pytest
@@ -235,22 +238,25 @@ def test_clip_and_adam_step_match_optax_f64(scale):
     tg = [torch.as_tensor(np.asarray(a)) for a in jax.tree.leaves(grads)]
     g_norm = tppo.global_norm(tg)
     np.testing.assert_allclose(float(g_norm), jnorm, rtol=1e-13)
-    clipped = tppo.clip_by_global_norm(tg, g_norm, float(g_norm) < cfg.max_grad_norm,
-                                       cfg.max_grad_norm)
-    upd, new_state = tppo.adam_update(clipped, train.opt_state)
-    assert new_state.count == int(jstate[1].count) == 3
+    clipped = tppo.clip_by_global_norm(tg, g_norm, cfg.max_grad_norm)
+    # the corrections of the next count, as the minibatch loop's table holds them
+    state0 = train.opt_state
+    bc1, bc2 = (torch.as_tensor(tppo.bias_correction_table(b, state0.count, 1,
+                                                           torch.float64))[0]
+                for b in (tppo.ADAM_B1, tppo.ADAM_B2))
+    upd, mu, nu = tppo.adam_update(clipped, state0.mu, state0.nu, bc1, bc2)
+    assert state0.count + 1 == int(jstate[1].count) == 3
     for got, want in zip(upd, jax.tree.leaves(jupd)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-15)
-    for got, want in zip(new_state.mu + new_state.nu,
+    for got, want in zip(mu + nu,
                          jax.tree.leaves(jstate[1].mu) + jax.tree.leaves(jstate[1].nu)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-18)
     # params + (-lr * u) with a float32 lr
     lr = np.float32(2.5e-4)
     want = optax.apply_updates(jax.tree.map(jnp.asarray, params),
                                jax.tree.map(lambda u: -jnp.asarray(lr) * u, jupd))
-    model = train.model
-    tppo.apply_updates(list(model.parameters()), upd, lr)
-    for got, w in zip(model.parameters(), jax.tree.leaves(want)):
+    new = tppo.apply_updates(list(train.model.parameters()), upd, lr)
+    for got, w in zip(new, jax.tree.leaves(want)):
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(w), rtol=1e-13)
 
 
@@ -268,22 +274,30 @@ def test_adam_bias_corrections_match_optax(x64, dtype):
 
 
 UPDATE_CASES = {
-    # name: (config overrides, learning rate)
-    "no_exit": (dict(kl_target=0.5), 3e-4),
-    "mid_exit": (dict(kl_target=0.02), 2e-2),
-    "two_shards": (dict(kl_target=0.5, data_shards=2), 3e-4),
+    # name: (config overrides, learning rate, batch seed, the exit: None, "mid" or
+    # its (computed, applied) minibatches)
+    "no_exit": (dict(kl_target=0.5), 3e-4, 5, None),
+    "mid_exit": (dict(kl_target=0.02), 2e-2, 5, "mid"),
+    "two_shards": (dict(kl_target=0.5, data_shards=2), 3e-4, 5, None),
+    "first_minibatch_exit": (dict(kl_target=0.0005), 3e-4, 9, (1, 0)),
+    "epoch_last_exit": (dict(kl_target=0.015), 8e-3, 5, (4, 3)),
+    "clip_some_minibatches": (dict(kl_target=0.5, max_grad_norm=1.8), 3e-4, 5, None),
+    "clip_never": (dict(kl_target=0.5, max_grad_norm=50.0), 3e-4, 5, None),
 }
 
 
-@pytest.mark.parametrize("case", sorted(UPDATE_CASES))
-def test_run_ppo_update_matches_jax_f64(case):
-    overrides, lr = UPDATE_CASES[case]
+def update_both(case, monkeypatch):
+    """One ``run_ppo_update`` of the port and of JAX for ``UPDATE_CASES[case]``,
+    from the same params, batch and permutation constants. Returns (cfg, the
+    port's (model, opt_state, stop, stats), JAX's (params, Adam state, stop,
+    stats), the global norms the port's loop took)."""
+    overrides, lr, seed, _ = UPDATE_CASES[case]
     kw = dict(num_envs=8, num_steps=16, num_minibatches=4, update_epochs=3,
               shuffle_block_size=4, total_timesteps=8 * 16 * 4, **overrides)
     cfg, jcfg = base_config(**kw), jbase_config(**kw)
     params = _params(4)
     log_std = np.full((ACT_DIM,), -0.9, np.float32)
-    b = _batch(params, cfg.batch_size, log_std, 5)
+    b = _batch(params, cfg.batch_size, log_std, seed)
     lr32 = np.float32(lr)
 
     opt = jppo.make_optimizer(jcfg)
@@ -301,38 +315,71 @@ def test_run_ppo_update_matches_jax_f64(case):
                                     consts=torch.as_tensor(consts))
     train = interop.train_state_from_jax(params, jax.tree.map(np.asarray, opt.init(jp)),
                                          0, dtype=torch.float64, device="cpu")
+    norms, global_norm = [], tppo.global_norm
+
+    def recorded(grads, tp=None):
+        n = global_norm(grads, tp)
+        norms.append(float(n))
+        return n
+
+    monkeypatch.setattr(tppo, "global_norm", recorded)
     opt_state, stop, stats = tppo.run_ppo_update(
         cfg, train.model, train.opt_state, torch.as_tensor(log_std), lr32,
         tppo.Batch(**{k: torch.as_tensor(v) for k, v in b.items()}), perms)
+    jout = (jparams, jstate[1], bool(jstop), {k: np.asarray(v) for k, v in jstats.items()})
+    return cfg, (train.model, opt_state, stop, stats), jout, np.asarray(norms)
 
-    jstats = {k: np.asarray(v) for k, v in jstats.items()}
-    assert stop == bool(jstop)
+
+@pytest.mark.parametrize("case", sorted(UPDATE_CASES))
+def test_run_ppo_update_matches_jax_f64(case, monkeypatch):
+    """The minibatch loop (JAX's masked carry: the KL exit and the clip decided on
+    the device, the exit flag read once an epoch) against JAX's: no exit, an exit
+    mid-epoch, on an epoch's last minibatch and on the very first, the clip taken
+    on some minibatches and never, and two data shards."""
+    cfg, (model, opt_state, stop, stats), jout, norms = update_both(case, monkeypatch)
+    jparams, jadam, jstop, jstats = jout
+    exit_at = UPDATE_CASES[case][3]
+    assert stop == jstop
     np.testing.assert_array_equal(stats["computed"], jstats["computed"])
     np.testing.assert_array_equal(stats["applied"], jstats["applied"])
     kl = stats["approx_kl"][stats["computed"] > 0]
     assert np.all(np.abs(kl - cfg.kl_target) > 1e-5 * cfg.kl_target)
-    n_done = int(stats["computed"].sum())
+    n_done, applied = int(stats["computed"].sum()), int(stats["applied"].sum())
     total = cfg.update_epochs * cfg.num_minibatches
-    if case == "mid_exit":
-        assert stop and 2 < n_done < total
-        assert stats["applied"].sum() == n_done - 1
-        assert tppo._last_computed(stats, "approx_kl") > cfg.kl_target
+    if exit_at is None:
+        assert not stop and n_done == applied == total
     else:
-        assert not stop and n_done == total
+        assert stop and applied == n_done - 1
+        assert tppo._last_computed(stats, "approx_kl") > cfg.kl_target
+        if exit_at == "mid":
+            assert 2 < n_done < total and n_done % cfg.num_minibatches
+        else:
+            assert (n_done, applied) == exit_at
+    # the exit's epoch runs masked and the epochs after it are skipped: the loop
+    # took the norm of every minibatch up to the end of the exit's epoch
+    epochs_run = -(-n_done // cfg.num_minibatches)
+    assert len(norms) == epochs_run * cfg.num_minibatches
+    below = norms[:n_done] < cfg.max_grad_norm
+    if case == "clip_some_minibatches":
+        assert below.any() and not below.all()
+    elif case == "clip_never":
+        assert below.all()
     for k in tppo.STAT_NAMES:
         np.testing.assert_allclose(stats[k], jstats[k], rtol=1e-5, atol=1e-7, err_msg=k)
-        assert stats[k].dtype == np.float32
+        assert stats[k].dtype == np.float32 and stats[k].shape == jstats[k].shape
+        assert not stats[k].reshape(-1)[n_done:].any(), k  # zeros past the exit
     assert np.float32(tppo._last_computed(stats, "pg_loss")) == np.float32(
         jppo._last_computed(jstats, "pg_loss"))
-    assert opt_state.count == int(jstate[1].count) == int(stats["applied"].sum())
-    got = list(train.model.parameters()) + opt_state.mu + opt_state.nu
-    want = (jax.tree.leaves(jparams) + jax.tree.leaves(jstate[1].mu)
-            + jax.tree.leaves(jstate[1].nu))
+    assert opt_state.count == int(jadam.count) == applied
+    got = list(model.parameters()) + opt_state.mu + opt_state.nu
+    want = (jax.tree.leaves(jparams) + jax.tree.leaves(jadam.mu)
+            + jax.tree.leaves(jadam.nu))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), rtol=1e-8, atol=1e-12)
-    # the update moved the parameters
-    assert not np.array_equal(next(train.model.parameters()).detach().numpy(),
-                           params["actor"][0][0])
+    # the update moved the parameters, where it applied a minibatch
+    moved = not np.array_equal(next(model.parameters()).detach().numpy(),
+                               _params(4)["actor"][0][0])
+    assert moved == (applied > 0)
 
 
 def test_train_state_round_trips_through_numpy():

@@ -121,12 +121,21 @@ g. the round robin of the 8B-, 4B- and 1B-step scale agents and
 and for data-parallel training over ``torch.distributed`` (after phase g):
 
 h. ``train scale``'s self-play (the canonical pool tiled over 4096 envs, 256 steps,
-   2 cars, snapshot_freq 1): two updates without torch.distributed, then the same
-   seeded run through ``parallel.mesh.distributed_init`` (NCCL, one process) with
-   ``shard()`` applied, so that every collective of the data-parallel path runs
-   over a group of one: parameters, Adam moments and count, every per-minibatch
-   stat, minibatches_applied, the pool and the PFSP counters bitwise equal, the
-   ms/update of both printed; then one update over two processes on the card
+   2 cars, snapshot_freq 1): two updates without torch.distributed (graphed),
+   then the same seeded run through ``parallel.mesh.distributed_init`` (NCCL, one
+   process) with ``shard()`` applied, so that every collective of the
+   data-parallel path runs over a group of one, twice: graphed (the collectives
+   captured with the steps; every replay under
+   ``torch.cuda.set_sync_debug_mode("error")``) and with ``eager=True``: both
+   runs' parameters, Adam moments and count, every per-minibatch stat,
+   minibatches_applied, the pool and the PFSP counters bitwise the run without a
+   group; the ms/update and the minibatch loop's ms of the three runs and the
+   graphed runs' capture seconds printed; the ``dist.all_reduce`` calls of the
+   eager world-1 run counted (3 and one a minibatch run: the advantage moments'
+   two, the gradients' one a minibatch, the metrics' one) against the count
+   before the moments were reduced once an update (1 and three a minibatch run),
+   and the all-reduces each graph captured; then one update over two processes
+   on the card
    (2048 envs each, in a gloo group, since NCCL refuses two ranks on one GPU)
    against one process with 4096 envs and ``data_shards = 2``: the final
    observations bitwise and the episodes equal (the same rollout),
@@ -171,8 +180,8 @@ j. tensor-parallel towers: two gloo processes on the one card (NCCL refuses two
    kernels (by row id) and K6 and K7 once an update; ms/update of both printed;
 
 and for the update as device programs (every trainer above runs its rollout and
-minibatch steps as replayed CUDA graphs, ``agent/ppo.py``, unless it has a process
-group):
+minibatch steps as replayed CUDA graphs, ``agent/ppo.py``, unless it has a gloo
+process group or ``eager=True``):
 
 k. graph against eager: single-car training (4096 x 256) and phase 10's self-play
    (4096 x 256 x 2 cars, ``snapshot_freq`` 1), each on the canonical pool gathered
@@ -203,8 +212,8 @@ path runs, with ``no_pairs_*`` beside them; K6 also its cold times; the three
 ``*_row_ids`` entries their row-id launches on the canonical pool tiled, with
 ``gathered_graph_ms`` and the ``procgen_*`` numbers beside them, and launches on
 phase c's runs; ``launches_match`` every kernel's count on phase g's tournament;
-``launches_data_parallel_world1`` its count on phase h's world-1 run of two
-updates and ``launches_data_parallel_ranks`` on each of the two ranks' update;
+``launches_data_parallel_world1`` its count on phase h's graphed world-1 run of two
+updates (counted from the replays) and ``launches_data_parallel_ranks`` on each of the two ranks' update;
 ``launches_adapter`` its count over phase i's two adapter episodes and
 ``launches_tensor_parallel`` on each of phase j's two ranks, its single-car and
 self-play updates summed; ``launches_graphed`` its count over phase k's graphed
@@ -2088,12 +2097,12 @@ def dp_config(data_shards: int = 1):
                             data_shards=data_shards)
 
 
-def dp_trainer(cfg, dev):
+def dp_trainer(cfg, dev, eager=False):
     """Phase h's self-play trainer on the canonical pool tiled over the envs, built
-    alike on every rank from the seed."""
+    alike on every rank from the seed (``eager`` as ``SelfPlayTrainer`` takes it)."""
     pool = canonical_bench_pool(NUM_TRACKS, device=dev)
     return SelfPlayTrainer(cfg, menv.MultiRacingConfig(num_agents=NUM_AGENTS, num_sensors=11),
-                           trk.tiled_pooled_tracks(pool, cfg.num_envs))
+                           trk.tiled_pooled_tracks(pool, cfg.num_envs), eager=eager)
 
 
 def dp_expected(cfg, updates: int):
@@ -2157,62 +2166,120 @@ def dp_state(trainer):
             "pool_wins": trainer.pool_wins.tolist(), "pool_games": trainer.pool_games.tolist()}
 
 
+@contextlib.contextmanager
+def all_reduce_calls():
+    """Counts the calls of ``dist.all_reduce`` inside the block: yields [calls
+    made eagerly (warm-ups included), calls made while a CUDA graph captures]."""
+    all_reduce = dist.all_reduce
+    calls = [0, 0]
+
+    def counting(*args, **kwargs):
+        calls[int(torch.cuda.is_available() and torch.cuda.is_current_stream_capturing())] += 1
+        return all_reduce(*args, **kwargs)
+
+    dist.all_reduce = counting
+    try:
+        yield calls
+    finally:
+        dist.all_reduce = all_reduce
+
+
+def minibatches_run(stats) -> int:
+    """The minibatches an update's loop ran: every epoch up to the exit's, whole
+    (the exit's epoch runs masked to its end)."""
+    e, m = stats["computed"].shape
+    return -(-int(stats["computed"].sum()) // m) * m
+
+
 def data_parallel_world_one(dev, card):
     """Phase h.1: two updates of train scale's self-play at 4096 x 256 x 2 cars
     without torch.distributed, then the same seeded run through
-    ``distributed_init`` (NCCL, one process) and ``shard()``: every collective
-    of the data-parallel path runs over a group of one, and the run must be the
-    undistributed one bitwise. Returns the sharded run's launches."""
+    ``distributed_init`` (NCCL, one process) and ``shard()``, graphed and with
+    ``eager=True``: every collective of the data-parallel path runs over a group
+    of one, and both runs must be the undistributed one bitwise. Returns the
+    graphed run's launches (counted from its replays)."""
     cfg = dp_config()
     plain = dp_trainer(cfg, dev)
     p_wall, p_metrics, p_stats, p_launches = dp_train(plain, DP_UPDATES)
+    p_capture = plain.update_step.graphs.capture_seconds
     want = dp_state(plain)
+    del plain
+    runs = {}
     pmesh.distributed_init(f"127.0.0.1:{free_port()}", 1, 0, device=dev)
     try:
         mesh = pmesh.make_mesh(dev)
         backend = dist.get_backend(mesh.group)
-        sharded = dp_trainer(cfg, dev)
-        sharded.shard(mesh)
-        s_wall, s_metrics, s_stats, s_launches = dp_train(sharded, DP_UPDATES)
+        for mode in ("graphed", "eager"):
+            sharded = dp_trainer(cfg, dev, eager=mode == "eager")
+            sharded.shard(mesh)
+            sync_check = replays_without_sync() if mode == "graphed" else \
+                contextlib.nullcontext([0])
+            with all_reduce_calls() as calls, sync_check as replays:
+                wall, metrics, stats, launches = dp_train(sharded, DP_UPDATES)
+            graphs = sharded.update_step.graphs
+            runs[mode] = {"wall": wall, "metrics": metrics, "stats": stats,
+                          "launches": launches, "state": dp_state(sharded),
+                          "calls": calls, "replays": replays[0], "graphs": graphs,
+                          "capture": 0.0 if graphs is None else graphs.capture_seconds}
+            del sharded
     finally:
         dist.destroy_process_group()
-    got = dp_state(sharded)
-    print(f"data parallel, world 1 ({backend}, shard() applied): {ms_line(s_wall)} "
-          f"ms/update (the minibatch loop's) against {ms_line(p_wall)} without "
-          f"torch.distributed "
-          f"({cfg.num_envs} x {cfg.num_steps} x {NUM_AGENTS} cars on {card}); "
-          f"minibatches_applied "
-          f"{[int(m['minibatches_applied']) for m in s_metrics]}; pool "
-          f"{got['num_snapshots']} snapshots, learner won {got['pool_wins']} of "
-          f"{got['pool_games']}; launches {s_launches}")
     if backend != ("nccl" if dev.type == "cuda" else "gloo") or mesh.world != 1:
         raise AssertionError(f"world-1 run on {backend} over {mesh.world} ranks")
-    for launches in (p_launches, s_launches):
-        if launches != dp_expected(cfg, DP_UPDATES):
-            raise AssertionError(f"data parallel world 1 launches {launches}, expected "
-                                 f"{dp_expected(cfg, DP_UPDATES)}")
-    diffs = [k for k in ("count", "num_snapshots", "pool_wins", "pool_games")
-             if got[k] != want[k]]
-    diffs += [k for k in ("params", "mu", "nu", "pool")
-              if not all(torch.equal(a, b) for a, b in zip(got[k], want[k]))]
-    for k in ppo.STAT_NAMES:
-        if not all(np.array_equal(a[k], b[k]) for a, b in zip(s_stats, p_stats)):
-            diffs.append(f"per-minibatch {k}")
-    if [m["minibatches_applied"] for m in s_metrics] != \
-            [m["minibatches_applied"] for m in p_metrics]:
-        diffs.append("minibatches_applied")
-    if diffs or len(s_stats) != DP_UPDATES:
-        raise AssertionError(f"data parallel world 1 differs from the undistributed run in "
-                             f"{diffs}")
-    print("data parallel, world 1: params, Adam moments and count, every per-minibatch "
-          "stat, minibatches_applied, the pool and the PFSP counters bitwise the "
-          "undistributed run's")
-    return s_launches
+    g, e = runs["graphed"], runs["eager"]
+    if dev.type == "cuda" and (
+            g["graphs"] is None or g["graphs"].minibatch_graph.moments_step is None
+            or e["graphs"] is not None or g["replays"] < DP_UPDATES * cfg.num_steps):
+        raise AssertionError(f"world 1: the NCCL run is not graphed ({g['replays']} replays) "
+                             f"or the eager run is")
+    run = [minibatches_run(st) for st in e["stats"]]
+    reduces, before = 3 * len(run) + sum(run), len(run) + 3 * sum(run)
+    print(f"data parallel, world 1 ({backend}, shard() applied), graphed: {ms_line(g['wall'])} "
+          f"ms/update (the minibatch loop's), capture {g['capture']:.3f} s, {g['replays']} "
+          f"replays without a sync; eager=True: {ms_line(e['wall'])}; without "
+          f"torch.distributed, graphed: {ms_line(p_wall)}, capture {p_capture:.3f} s "
+          f"({cfg.num_envs} x {cfg.num_steps} x {NUM_AGENTS} cars on {card}); "
+          f"minibatches_applied {[int(m['minibatches_applied']) for m in g['metrics']]}; pool "
+          f"{g['state']['num_snapshots']} snapshots, learner won {g['state']['pool_wins']} of "
+          f"{g['state']['pool_games']}; launches {g['launches']}")
+    print(f"data parallel, world 1: the eager run's updates ran {run} minibatches and made "
+          f"{e['calls'][0]} all-reduces ({reduces} = 3 an update + 1 a minibatch run; "
+          f"{before} = 1 an update + 3 a minibatch run before the advantage moments were "
+          f"reduced once an update); the graphed run's captures hold {g['calls'][1]} "
+          f"all-reduce nodes (the minibatch step's 1, the advantage moments' 2, at each "
+          f"capture) and it called {g['calls'][0]} eagerly (warm-ups and the metrics)")
+    if e["calls"] != [reduces, 0]:
+        raise AssertionError(f"world 1 eager: {e['calls']} all-reduces, expected {reduces}")
+    for mode, r in runs.items():
+        for launches in (p_launches, r["launches"]):
+            if launches != dp_expected(cfg, DP_UPDATES):
+                raise AssertionError(f"data parallel world 1 launches {launches}, expected "
+                                     f"{dp_expected(cfg, DP_UPDATES)}")
+        got = r["state"]
+        diffs = [k for k in ("count", "num_snapshots", "pool_wins", "pool_games")
+                 if got[k] != want[k]]
+        diffs += [k for k in ("params", "mu", "nu", "pool")
+                  if not all(torch.equal(a, b) for a, b in zip(got[k], want[k]))]
+        for k in ppo.STAT_NAMES:
+            if not all(np.array_equal(a[k], b[k]) for a, b in zip(r["stats"], p_stats)):
+                diffs.append(f"per-minibatch {k}")
+        if [m["minibatches_applied"] for m in r["metrics"]] != \
+                [m["minibatches_applied"] for m in p_metrics]:
+            diffs.append("minibatches_applied")
+        if diffs or len(r["stats"]) != DP_UPDATES:
+            raise AssertionError(f"data parallel world 1 ({mode}) differs from the "
+                                 f"undistributed run in {diffs}")
+    print("data parallel, world 1, graphed and eager=True: params, Adam moments and count, "
+          "every per-minibatch stat, minibatches_applied, the pool and the PFSP counters "
+          "bitwise the undistributed graphed run's")
+    return g["launches"]
 
 
-def dp_rank(rank, world, backend, port, out, cfg, device):
+def dp_rank(rank, world, backend, port, out, cfg, device, eager_too=False):
     """A rank of ``data_parallel_ranks``: its share of ``cfg``'s envs on
-    ``device``, one update, its results saved to ``out``."""
+    ``device``, one update (graphed where the group is NCCL's), and with
+    ``eager_too`` one more of a trainer built alike with ``eager=True``; the
+    results saved to ``out``."""
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -2223,13 +2290,17 @@ def dp_rank(rank, world, backend, port, out, cfg, device):
         warm.shard(mesh)
         dp_train(warm, 1)
         del warm
-        trainer = dp_trainer(cfg, dev)
-        trainer.shard(mesh)
-        wall, metrics, stats, launches = dp_train(trainer, 1)
-        result = {"backend": dist.get_backend(mesh.group), "world": mesh.world, "device": dev,
-                  "envs": trainer.runner.done.shape[0], "wall": wall, "metrics": metrics,
-                  "stats": stats, "launches": launches, "obs": trainer.runner.obs.cpu(),
-                  "params": [p.detach().cpu() for p in trainer.runner.train.model.parameters()]}
+        result = {"backend": dist.get_backend(mesh.group), "world": mesh.world, "device": dev}
+        for mode in ("default", "eager") if eager_too else ("default",):
+            trainer = dp_trainer(cfg, dev, eager=mode == "eager")
+            trainer.shard(mesh)
+            wall, metrics, stats, launches = dp_train(trainer, 1)
+            result[mode] = {
+                "graphed": trainer.update_step.graphs is not None,
+                "envs": trainer.runner.done.shape[0], "wall": wall, "metrics": metrics,
+                "stats": stats, "launches": launches, "obs": trainer.runner.obs.cpu(),
+                "params": [p.detach().cpu() for p in trainer.runner.train.model.parameters()]}
+            del trainer
     finally:
         dist.destroy_process_group()
     torch.save(result, out)
@@ -2239,17 +2310,86 @@ def max_abs(xs, ys) -> float:
     return max(float((x - y).abs().max()) for x, y in zip(xs, ys))
 
 
+def run_rank_processes(target, world, backend, per_rank, timeout):
+    """``target(r, world, backend, port, out_r, *per_rank(r))`` in ``world`` spawned
+    processes joining one port; each saves its result to ``out_r``. Kills them at
+    ``timeout`` seconds and raises unless all exit 0. Returns the results in rank
+    order."""
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(world)]
+        procs = [ctx.Process(target=target,
+                             args=(r, world, backend, port, outs[r], *per_rank(r)))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * world:
+            raise AssertionError(f"{target.__name__} ranks exited with {codes}")
+        return [torch.load(o, weights_only=False) for o in outs]
+
+
+def bitwise(a, b) -> bool:
+    """Whether two results (tensors, arrays, numbers, or dicts and lists of them)
+    are equal to the bit (NaN equal to NaN)."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(bitwise(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(bitwise(x, y) for x, y in zip(a, b))
+    return bool(np.array_equal(a, b, equal_nan=True))
+
+
+def graphed_against_eager(what, graphed, eager, control, keys=()):
+    """Holds a rank's graphed update against its ``eager=True`` update from the same
+    seed (``graphed``, ``eager``: dicts with "params", "metrics" and the ``keys``):
+    bitwise, or else the parameters within ``control`` (a one-ulp control's
+    distance) with the minibatches applied equal, the reason printed: the group's
+    sums round otherwise in a graph than eagerly (NCCL may pick another algorithm or
+    protocol inside a graph; ``NCCL_ALGO=Ring NCCL_PROTO=Simple`` fixes one for
+    both). Returns the max abs distance of the parameters."""
+    absd = max_abs(graphed["params"], eager["params"])
+    same = all(bitwise(graphed[k], eager[k]) for k in ("params", "metrics", *keys))
+    algo = (f"NCCL_ALGO={os.environ['NCCL_ALGO']} NCCL_PROTO={os.environ.get('NCCL_PROTO')}"
+            if "NCCL_ALGO" in os.environ else "NCCL's own choice of algorithm")
+    if same:
+        print(f"{what}: graphed = eager bitwise ({algo})")
+        return absd
+    applied = [m["minibatches_applied"] for m in graphed["metrics"]], \
+        [m["minibatches_applied"] for m in eager["metrics"]]
+    print(f"{what}: graphed != eager bitwise ({algo}): params "
+          f"{absd:.3e} apart, the one-ulp control {control:.3e}; minibatches_applied "
+          f"{applied[0]} and {applied[1]}: the group's sums round otherwise in the "
+          f"graphs' NCCL kernels than in the eager ones")
+    if absd > control or applied[0] != applied[1]:
+        raise AssertionError(f"{what}: graphed {absd:.3e} from eager, beyond the one-ulp "
+                             f"control's {control:.3e}, or another exit")
+    return absd
+
+
 def data_parallel_ranks(dev, card, world=DP_WORLD, backend="gloo", devices=None,
-                        rollout_bitwise=True):
+                        rollout_bitwise=True, eager_too=False):
     """One update over ``world`` processes (``4096 / world`` envs each, the group's
     ``backend``, rank r on ``devices[r]``, by default all on ``dev``) against one
     process on ``dev`` with 4096 envs and data_shards = world, and the same process
     from params one ulp up (the control); each process's timed update follows a
     warm-up update of a throwaway trainer. Phase h.2 runs two gloo processes on the
-    one card (NCCL refuses two ranks on one GPU; gloo all-reduces CUDA tensors);
-    ``scripts/data_parallel_cards.py`` one NCCL process a card. ``rollout_bitwise``
+    one card (NCCL refuses two ranks on one GPU; gloo all-reduces CUDA tensors), so
+    eagerly; ``scripts/data_parallel_cards.py`` one NCCL process a card, graphed,
+    and with ``eager_too`` each rank also runs the update with ``eager=True``,
+    held to the graphed one (``graphed_against_eager``). ``rollout_bitwise``
     requires every rank's final observations to be bitwise one process's rows;
-    otherwise they are counted and printed. Returns each rank's launches."""
+    otherwise they are counted and printed. Returns each rank's launches (of the
+    graphed update)."""
     devices = [str(dev)] * world if devices is None else devices
     cfg = dp_config(world)
     dp_train(dp_trainer(cfg, dev), 1)  # warm-up
@@ -2266,35 +2406,20 @@ def data_parallel_ranks(dev, card, world=DP_WORLD, backend="gloo", devices=None,
     control = max_abs([p.detach().cpu() for p in nudged.runner.train.model.parameters()], want)
     del nudged
     gc.collect()
-    torch.cuda.empty_cache()
-    ctx = mp.get_context("spawn")
-    port = free_port()
-    with tempfile.TemporaryDirectory() as tmp:
-        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(world)]
-        procs = [ctx.Process(target=dp_rank,
-                             args=(r, world, backend, port, outs[r], cfg, devices[r]))
-                 for r in range(world)]
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + 300
-        for p in procs:
-            p.join(max(0.0, deadline - time.monotonic()))
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-        codes = [p.exitcode for p in procs]
-        if codes != [0] * world:
-            raise AssertionError(f"data parallel ranks exited with {codes}")
-        ranks = [torch.load(o, weights_only=False) for o in outs]
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    ranks = run_rank_processes(dp_rank, world, backend,
+                               lambda r: (cfg, devices[r], eager_too), 300)
     m1 = o_metrics[0]
     print(f"data parallel, one process, data_shards={world}: {ms_line(o_wall)} ms/update "
           f"at {cfg.num_envs} envs; minibatches_applied {m1['minibatches_applied']:.0f}, "
           f"episodes {m1['episodes']:.0f}, mean_ep_return {m1['mean_ep_return']:.4f}; "
           f"from params one ulp up its params end {control:.3e} apart at most")
     n = cfg.num_envs // world
+    graphed = backend == "nccl" and dev.type == "cuda"
     equal = []
-    for r, got in enumerate(ranks):
+    for r, ranked in enumerate(ranks):
+        got = ranked["default"]
         m, st, ref = got["metrics"][0], got["stats"][0], o_stats[0]
         absd = max_abs(got["params"], want)
         same = int((got["obs"] == want_obs[r * n:(r + 1) * n]).all(dim=1).sum())
@@ -2302,8 +2427,12 @@ def data_parallel_ranks(dev, card, world=DP_WORLD, backend="gloo", devices=None,
         with np.errstate(invalid="ignore"):  # epochs past a KL exit are 0 / 0
             drift = {k: np.abs(st[k] - ref[k]).max(axis=1) / np.abs(ref[k]).max(axis=1)
                      for k in ("approx_kl", "loss")}
-        print(f"data parallel, rank {r} of {got['world']} ({got['backend']} on "
-              f"{got['device']}, {got['envs']} envs): {ms_line(got['wall'])} ms/update; "
+        eager = "" if "eager" not in ranked else \
+            f"; eager=True {ms_line(ranked['eager']['wall'])} ms/update"
+        print(f"data parallel, rank {r} of {ranked['world']} ({ranked['backend']} on "
+              f"{ranked['device']}, {got['envs']} envs, "
+              f"{'graphed' if got['graphed'] else 'eager'}): {ms_line(got['wall'])} "
+              f"ms/update{eager}; "
               f"minibatches_applied {m['minibatches_applied']:.0f}, episodes "
               f"{m['episodes']:.0f}, mean_ep_return {m['mean_ep_return']:.4f}; final obs "
               f"bitwise one process's rows in {same} of {n} envs; "
@@ -2312,9 +2441,10 @@ def data_parallel_ranks(dev, card, world=DP_WORLD, backend="gloo", devices=None,
               f"{np.array2string(drift['loss'], precision=2)}; params max abs {absd:.3e} "
               f"(atol {DP_ATOL:g}; the one-ulp control {control:.3e}); launches "
               f"{got['launches']}")
-        if (got["backend"], got["world"], got["envs"]) != (backend, world, n):
-            raise AssertionError(f"rank {r}: {got['backend']}, world {got['world']}, "
-                                 f"{got['envs']} envs")
+        if (ranked["backend"], ranked["world"], got["envs"]) != (backend, world, n) or \
+                got["graphed"] != graphed:
+            raise AssertionError(f"rank {r}: {ranked['backend']}, world {ranked['world']}, "
+                                 f"{got['envs']} envs, graphed {got['graphed']}")
         if rollout_bitwise and (m["episodes"] != m1["episodes"] or same != n):
             raise AssertionError(f"rank {r}: the rollout differs from one process's rows")
         if m["minibatches_applied"] != m1["minibatches_applied"]:
@@ -2328,19 +2458,26 @@ def data_parallel_ranks(dev, card, world=DP_WORLD, backend="gloo", devices=None,
         if absd > DP_ATOL:
             raise AssertionError(f"rank {r}: params {absd:.3e} from one process's, beyond "
                                  f"{DP_ATOL}")
-        if got["launches"] != dp_expected(cfg, 1):
-            raise AssertionError(f"rank {r} launches {got['launches']}, expected "
-                                 f"{dp_expected(cfg, 1)}")
-    if not all(torch.equal(a, b) for got in ranks[1:]
-               for a, b in zip(ranks[0]["params"], got["params"])):
-        raise AssertionError("the ranks hold different parameters")
+        for mode in ("default", "eager") if eager_too else ("default",):
+            if ranked[mode]["launches"] != dp_expected(cfg, 1):
+                raise AssertionError(f"rank {r} ({mode}) launches {ranked[mode]['launches']}, "
+                                     f"expected {dp_expected(cfg, 1)}")
+        if eager_too:
+            if ranked["eager"]["graphed"]:
+                raise AssertionError(f"rank {r}: the eager=True run built graphs")
+            graphed_against_eager(f"data parallel, rank {r}", got, ranked["eager"], control,
+                                  keys=("obs",))
+    for mode in ("default", "eager") if eager_too else ("default",):
+        if not all(torch.equal(a, b) for got in ranks[1:]
+                   for a, b in zip(ranks[0][mode]["params"], got[mode]["params"])):
+            raise AssertionError(f"the ranks hold different parameters ({mode})")
     rollout = ("the rollout bitwise one process's" if rollout_bitwise else
                f"final obs bitwise one process's in {sum(equal)} of {cfg.num_envs} envs")
-    print(f"data parallel, {world} ranks ({backend}): {rollout}, "
-          f"minibatches_applied equal, the first epoch's stats within rtol "
+    print(f"data parallel, {world} ranks ({backend}, {'graphed' if graphed else 'eager'}): "
+          f"{rollout}, minibatches_applied equal, the first epoch's stats within rtol "
           f"{DP_STAT_RTOL:g} / atol {DP_STAT_ATOL:g}, params within {DP_ATOL:g} of one "
           f"process's and bitwise equal on every rank, on {card}")
-    return [got["launches"] for got in ranks]
+    return [got["default"]["launches"] for got in ranks]
 
 
 def scaling_cli(card):
@@ -2598,14 +2735,15 @@ def tp_configs():
             "selfplay": dataclasses.replace(dp_config(), hidden=TP_HIDDEN)}
 
 
-def tp_trainer(name, cfg, dev):
+def tp_trainer(name, cfg, dev, eager=False):
     """Phase j's trainers on the canonical pool tiled: ``PPOTrainer`` for
-    "single", phase h's ``SelfPlayTrainer`` for "selfplay"."""
+    "single", phase h's ``SelfPlayTrainer`` for "selfplay" (``eager`` as the
+    trainers take it)."""
     if name == "selfplay":
-        return dp_trainer(cfg, dev)
+        return dp_trainer(cfg, dev, eager)
     pool = canonical_bench_pool(NUM_TRACKS, device=dev)
     return PPOTrainer(cfg, senv.RacingConfig(num_sensors=11),
-                      trk.tiled_pooled_tracks(pool, cfg.num_envs))
+                      trk.tiled_pooled_tracks(pool, cfg.num_envs), eager=eager)
 
 
 def tp_expected(cfg):
@@ -2615,20 +2753,21 @@ def tp_expected(cfg):
                   car_step_and_query_row_ids=n, compute_gae=1, mixbits_permutation=1)
 
 
-def tp_runs(cfgs, dev, mesh=None):
-    """One update of each of ``cfgs``' trainers (``tp_trainer``), sharded over
-    ``mesh`` when given, the first after a warm-up update of a throwaway trainer
-    (so that no timed update is the process's first); then a snapshot of the
-    self-play learner. Returns what phase j compares, on the host."""
+def tp_runs(cfgs, dev, mesh=None, eager=False, warm=True):
+    """One update of each of ``cfgs``' trainers (``tp_trainer``, ``eager`` as it
+    takes it), sharded over ``mesh`` when given, with ``warm`` the first after a
+    warm-up update of a throwaway trainer (so that no timed update is the
+    process's first); then a snapshot of the self-play learner. Returns what phase
+    j compares, on the host."""
     out = {}
     for i, (name, cfg) in enumerate(cfgs.items()):
-        if i == 0:
+        if i == 0 and warm:
             throwaway = tp_trainer(name, cfg, dev)
             if mesh is not None:
                 throwaway.shard(mesh)
             dp_train(throwaway, 1)
             del throwaway
-        trainer = tp_trainer(name, cfg, dev)
+        trainer = tp_trainer(name, cfg, dev, eager)
         if mesh is not None:
             trainer.shard(mesh)
         train = trainer.runner.train
@@ -2637,7 +2776,8 @@ def tp_runs(cfgs, dev, mesh=None):
         wall, metrics, _, launches = dp_train(trainer, 1)
         params = [p.cpu() for p in trainer.full_state()[0]]
         out[name] = {"wall": wall, "metrics": metrics, "launches": launches,
-                     "shapes": shapes, "params": params}
+                     "shapes": shapes, "params": params,
+                     "graphed": trainer.update_step.graphs is not None}
         if name == "selfplay":
             trainer.snapshot_agent()
             out[name]["slot"] = [t[0].cpu() for layers in trainer.pool["params"].values()
@@ -2645,34 +2785,39 @@ def tp_runs(cfgs, dev, mesh=None):
     return out
 
 
-def tp_rank(rank, world, backend, port, out, cfgs, device):
+def tp_rank(rank, world, backend, port, out, cfgs, device, eager_too=False):
     """A rank of ``tensor_parallel_ranks``: ``tp_runs`` on a mesh of
-    ``world / TP_MODEL`` data rows x ``TP_MODEL`` model ranks."""
+    ``world / TP_MODEL`` data rows x ``TP_MODEL`` model ranks (graphed where the
+    groups are NCCL's), and with ``eager_too`` again with ``eager=True``."""
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     pmesh.distributed_init(f"127.0.0.1:{port}", world, rank, backend=backend, device=dev)
     try:
         mesh = pmesh.make_mesh(dev, model_parallel=TP_MODEL)
-        result = tp_runs(cfgs, dev, mesh)
-        result["mesh"] = (dict(mesh.shape), mesh.rank, mesh.model_rank,
-                          dist.get_backend(mesh.all_group))
+        result = {"default": tp_runs(cfgs, dev, mesh),
+                  "mesh": (dict(mesh.shape), mesh.rank, mesh.model_rank,
+                           dist.get_backend(mesh.all_group))}
+        if eager_too:
+            result["eager"] = tp_runs(cfgs, dev, mesh, eager=True, warm=False)
     finally:
         dist.destroy_process_group()
     torch.save(result, out)
 
 
 def tensor_parallel_ranks(dev, card, world=TP_MODEL, backend="gloo", devices=None,
-                          cfgs=None):
+                          cfgs=None, eager_too=False):
     """Phase j: one single-car update (4096 x 256, towers of 128, the canonical
     pool tiled) and one self-play update (phase h's, towers of 128) over ``world``
     processes on a mesh of ``world / 2`` data rows x 2 model ranks (``backend``,
     rank r on ``devices[r]``, by default all on ``dev``), against one process
     unsharded with the same seed, and the same process from params one ulp up (the
     control). Phase j runs two gloo processes on the one card (NCCL refuses two
-    ranks on one GPU); ``scripts/tensor_parallel_cards.py`` one NCCL process a
-    card. ``cfgs``: ``tp_configs()`` unless given. Returns each rank's launches,
-    both updates summed."""
+    ranks on one GPU), so eagerly; ``scripts/tensor_parallel_cards.py`` one NCCL
+    process a card, graphed, and with ``eager_too`` each rank also runs both
+    updates with ``eager=True``, held to the graphed ones
+    (``graphed_against_eager``). ``cfgs``: ``tp_configs()`` unless given. Returns
+    each rank's launches (of the graphed updates), both updates summed."""
     devices = [str(dev)] * world if devices is None else devices
     cfgs = tp_configs() if cfgs is None else cfgs
     one = tp_runs(cfgs, dev)
@@ -2691,26 +2836,8 @@ def tensor_parallel_ranks(dev, card, world=TP_MODEL, backend="gloo", devices=Non
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    ctx = mp.get_context("spawn")
-    port = free_port()
-    with tempfile.TemporaryDirectory() as tmp:
-        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(world)]
-        procs = [ctx.Process(target=tp_rank,
-                             args=(r, world, backend, port, outs[r], cfgs, devices[r]))
-                 for r in range(world)]
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + 400
-        for p in procs:
-            p.join(max(0.0, deadline - time.monotonic()))
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-        codes = [p.exitcode for p in procs]
-        if codes != [0] * world:
-            raise AssertionError(f"tensor-parallel ranks exited with {codes}")
-        ranks = [torch.load(o, weights_only=False) for o in outs]
+    ranks = run_rank_processes(tp_rank, world, backend,
+                               lambda r: (cfgs, devices[r], eager_too), 400)
     for name in ("single", "selfplay"):
         m1 = one[name]["metrics"][0]
         print(f"tensor parallel, one process unsharded ({name}): "
@@ -2721,19 +2848,24 @@ def tensor_parallel_ranks(dev, card, world=TP_MODEL, backend="gloo", devices=Non
     obs_dim = senv.RacingConfig(num_sensors=11).obs_dim
     want_shapes = [(obs_dim, TP_HIDDEN[0] // TP_MODEL), (TP_HIDDEN[0] // TP_MODEL,),
                    (TP_HIDDEN[0] // TP_MODEL, TP_HIDDEN[1]), (TP_HIDDEN[1],)]
-    for r, got in enumerate(ranks):
-        shape, data_index, model_index, group_backend = got["mesh"]
+    graphed = backend == "nccl" and dev.type == "cuda"
+    for r, ranked in enumerate(ranks):
+        got = ranked["default"]
+        shape, data_index, model_index, group_backend = ranked["mesh"]
         if shape != {"data": world // TP_MODEL, "model": TP_MODEL} or \
                 (data_index, model_index) != (r // TP_MODEL, r % TP_MODEL) or \
                 group_backend != backend:
-            raise AssertionError(f"rank {r}: mesh {got['mesh']}")
+            raise AssertionError(f"rank {r}: mesh {ranked['mesh']}")
         for name in ("single", "selfplay"):
             g, o = got[name], one[name]
             m, m1 = g["metrics"][0], o["metrics"][0]
             absd = max_abs(g["params"], o["params"])
+            eager = "" if "eager" not in ranked else \
+                f"; eager=True {ms_line(ranked['eager'][name]['wall'])} ms/update"
             print(f"tensor parallel, rank {r} of {world} ({backend} on {devices[r]}, data "
-                  f"{data_index} x model {model_index}, {name}): {ms_line(g['wall'])} "
-                  f"ms/update; actor[0].w {g['shapes'][0][0]}, actor[1].w "
+                  f"{data_index} x model {model_index}, {name}, "
+                  f"{'graphed' if g['graphed'] else 'eager'}): {ms_line(g['wall'])} "
+                  f"ms/update{eager}; actor[0].w {g['shapes'][0][0]}, actor[1].w "
                   f"{g['shapes'][0][2]}; minibatches_applied {m['minibatches_applied']:.0f}, "
                   f"episodes {m['episodes']:.0f}, mean_ep_return {m['mean_ep_return']:.4f}; "
                   f"gathered params max abs {absd:.3e} from one process's (bound "
@@ -2751,9 +2883,16 @@ def tensor_parallel_ranks(dev, card, world=TP_MODEL, backend="gloo", devices=Non
                                      f"process's, beyond {bound[name]:.3e}")
             want = tp_expected(cfgs[name]) if name == "single" else \
                 dp_expected(cfgs[name], 1)
-            if g["launches"] != want:
+            if g["launches"] != want or g["graphed"] != graphed:
                 raise AssertionError(f"rank {r} ({name}) launches {g['launches']}, "
-                                     f"expected {want}")
+                                     f"expected {want}; graphed {g['graphed']}")
+            if eager_too:
+                e = ranked["eager"][name]
+                if e["launches"] != want or e["graphed"]:
+                    raise AssertionError(f"rank {r} ({name}, eager=True) launches "
+                                         f"{e['launches']}, graphed {e['graphed']}")
+                graphed_against_eager(f"tensor parallel, rank {r} ({name})", g, e,
+                                      control[name])
         slot, full = got["selfplay"]["slot"], got["selfplay"]["params"]
         if [t.shape for t in slot] != [t.shape for t in full] or \
                 not all(torch.equal(a, b) for a, b in zip(slot, full)):
@@ -2761,17 +2900,19 @@ def tensor_parallel_ranks(dev, card, world=TP_MODEL, backend="gloo", devices=Non
         snap = max_abs(slot, one["selfplay"]["slot"])
         if snap > bound["selfplay"]:
             raise AssertionError(f"rank {r}: the snapshot is {snap:.3e} from one process's")
-    for name in ("single", "selfplay"):
-        if not all(torch.equal(a, b) for got in ranks[1:]
-                   for a, b in zip(ranks[0][name]["params"], got[name]["params"])):
-            raise AssertionError(f"the ranks gather different parameters ({name})")
+    for mode in ("default", "eager") if eager_too else ("default",):
+        for name in ("single", "selfplay"):
+            if not all(torch.equal(a, b) for got in ranks[1:] for a, b in
+                       zip(ranks[0][mode][name]["params"], got[mode][name]["params"])):
+                raise AssertionError(f"the ranks gather different parameters ({name}, "
+                                     f"{mode})")
     print(f"tensor parallel, {world} ranks ({backend}): slices of the towers and their "
           f"Adam moments as param_shardings splits them, minibatches_applied equal, the "
           f"gathered params within max({TP_ATOL:g}, {TP_CONTROL_FACTOR} x the one-ulp "
           f"control) of one process's and bitwise equal on every rank, the self-play "
           f"snapshot the whole params, on {card}")
-    return [{k: got["single"]["launches"][k] + got["selfplay"]["launches"][k]
-             for k in COUNTERS} for got in ranks]
+    return [{k: got["default"]["single"]["launches"][k]
+             + got["default"]["selfplay"]["launches"][k] for k in COUNTERS} for got in ranks]
 
 
 

@@ -2,20 +2,27 @@
 """Data-parallel self-play across the cards of one host, one NCCL process a card.
 
   python scripts/data_parallel_cards.py [--world N]
+  NCCL_ALGO=Ring NCCL_PROTO=Simple python scripts/data_parallel_cards.py
 
 chip_smoke.py's phase h.2 comparison (``chip_smoke.data_parallel_ranks``) with
 rank r on ``cuda:r`` over NCCL: one update of ``train scale``'s self-play (4096
 envs in all, 256 steps, 2 cars, the canonical pool tiled, snapshot_freq 1) split
 over N processes with data_shards = N, against one process on cuda:0 with all 4096
-envs and data_shards = N. It holds what phase h holds (minibatches_applied, the
-first epoch's per-minibatch stats, the parameters within 1e-3 beside a control
-from params one ulp up, the ranks bitwise alike, the launches of a rank) but
-counts the envs whose final observations are bitwise one process's rather than
+envs and data_shards = N. Each rank runs the update as device programs (its
+all-reduces captured in the CUDA graphs) and then, from the same seed, with
+``eager=True``. It holds what phase h holds (minibatches_applied, the first
+epoch's per-minibatch stats, the parameters within 1e-3 beside a control from
+params one ulp up, the ranks bitwise alike, the launches of a rank) but counts
+the envs whose final observations are bitwise one process's rather than
 requiring all: at 1024 envs a rank's rollout need not round as the 4096-env one
-does (``scripts/row_invariance.py`` asks each op). It prints each rank's
-ms/update beside one process's, both after a warm-up update: strong scaling, the
-same 4096 envs over N cards. N defaults to the cards present (at
-least 2). Exits non-zero on any failure.
+does (``scripts/row_invariance.py`` asks each op). The graphed update is held to
+the eager one (``chip_smoke.graphed_against_eager``): bitwise, or else within the
+one-ulp control's distance with the same exit, the reason printed. The ranks
+inherit the environment, so ``NCCL_ALGO=Ring NCCL_PROTO=Simple`` before the
+command makes NCCL take one algorithm and protocol in the graphs and eagerly.
+It prints each rank's ms/update, graphed and eager, beside one process's, all
+after a warm-up update: strong scaling, the same 4096 envs over N cards. N
+defaults to the cards present (at least 2). Exits non-zero on any failure.
 """
 from __future__ import annotations
 
@@ -50,7 +57,7 @@ def main(argv=None) -> int:
     print(f"cards: {card}")
     launches = chip_smoke.data_parallel_ranks(
         torch.device("cuda", 0), card, world=world, backend="nccl",
-        devices=[f"cuda:{r}" for r in range(world)], rollout_bitwise=False)
+        devices=[f"cuda:{r}" for r in range(world)], rollout_bitwise=False, eager_too=True)
     print(json.dumps({"world": world, "backend": "nccl", "launches": launches}))
     return 0
 

@@ -2,6 +2,7 @@
 """Tensor-parallel towers across the cards of one host, one NCCL process a card.
 
   python scripts/tensor_parallel_cards.py [--world N]
+  NCCL_ALGO=Ring NCCL_PROTO=Simple python scripts/tensor_parallel_cards.py
 
 chip_smoke.py's phase j comparison (``chip_smoke.tensor_parallel_ranks``) with
 rank r on ``cuda:r`` over NCCL, on a mesh of N / 2 data rows x 2 model ranks
@@ -13,9 +14,15 @@ their Adam moments, minibatches_applied, the gathered parameters within the
 larger of 1e-3 and four times the distance of a control (one process from params
 one ulp up) of one process's, the ranks' gathered
 parameters bitwise alike, the self-play snapshot the whole parameters, and a
-rank's launches. It prints each rank's ms/update beside one process's. N
-defaults to the cards present (an even number, at least 2). Exits non-zero on
-any failure.
+rank's launches. Each rank runs both updates as device programs (the data and
+model groups' all-reduces captured in the CUDA graphs) and then, from the same
+seed, with ``eager=True``; the graphed updates are held to the eager ones
+(``chip_smoke.graphed_against_eager``): bitwise, or else within the one-ulp
+control's distance with the same exit, the reason printed. The ranks inherit
+the environment, so ``NCCL_ALGO=Ring NCCL_PROTO=Simple`` before the command makes
+NCCL take one algorithm and protocol in the graphs and eagerly. It prints each
+rank's ms/update, graphed and eager, beside one process's. N defaults to the
+cards present (an even number, at least 2). Exits non-zero on any failure.
 """
 from __future__ import annotations
 
@@ -51,7 +58,7 @@ def main(argv=None) -> int:
     print(f"cards: {card}")
     launches = chip_smoke.tensor_parallel_ranks(
         torch.device("cuda", 0), card, world=world, backend="nccl",
-        devices=[f"cuda:{r}" for r in range(world)])
+        devices=[f"cuda:{r}" for r in range(world)], eager_too=True)
     print(json.dumps({"world": world, "model_parallel": chip_smoke.TP_MODEL,
                       "backend": "nccl", "launches": launches}))
     return 0

@@ -21,6 +21,14 @@ writes them in place, copies where it hands new ones. Capturing moves no state:
   that one run of the body adds during the capture are recorded and added once a
   replay, so the counters read what eager runs would have counted.
 
+Collectives of an NCCL process group inside the body are captured as graph
+nodes: the first warm-up, on the caller's stream, makes the group's communicator
+(one a card, whichever stream issues), and the capture runs in
+``capture_error_mode="thread_local"`` wherever a process group exists, since the
+group's watchdog thread queries its events while this thread captures, which the
+default mode forbids to every thread of the process. Every rank of the group must
+capture, and replay, the same sequence of collectives.
+
 A capture or a replay that fails raises; nothing falls back to eager. Graphs are
 built only for CUDA tensors; the CPU never builds one.
 """
@@ -30,6 +38,7 @@ import dataclasses
 import functools
 
 import torch
+import torch.distributed as dist
 
 from ._tree import tree_map
 
@@ -93,7 +102,9 @@ class CapturedStep:
             self.graph = torch.cuda.CUDAGraph()
             for g in generators:
                 self.graph.register_generator_state(g)
-            with torch.cuda.graph(self.graph, stream=stream):
+            grouped = dist.is_available() and dist.is_initialized()
+            with torch.cuda.graph(self.graph, stream=stream,
+                                  capture_error_mode="thread_local" if grouped else "global"):
                 # entering the capture empties the allocator's cache: count from here
                 reserved = torch.cuda.memory_reserved(device)
                 body()

@@ -34,23 +34,29 @@ become ``torch.Generator``s: the rollout's action noise and the permutations' ro
 constants are drawn from the runner's generator, or passed in, so tests can feed
 the port and the JAX package the same numbers.
 
-On a CUDA device with no process group the update runs as device programs, the
-port's counterpart of the JAX package's one compiled update: the rollout step is
-captured once as a CUDA graph and replayed ``num_steps`` times, and so is the
-minibatch step, E x M times at most (``_graph.CapturedStep``). The graphs are
-captured at the first update and again when a shape, a dtype or the structure of
-what they read changes. ``make_update_step(..., eager=True)`` runs the same step
-functions eagerly on the card (the reference the graphs are held to); the CPU and
-the process-group paths always run them eagerly.
+On a CUDA device the update runs as device programs, the port's counterpart of the
+JAX package's one compiled update: the rollout step is captured once as a CUDA
+graph and replayed ``num_steps`` times, and so is the minibatch step, E x M times
+at most (``_graph.CapturedStep``). That holds with no process group and with one
+whose groups are NCCL's (``mesh.capturable``): the step's collectives are then
+captured with it as graph nodes, as JAX keeps its psums inside the one program. The
+graphs are captured at the first update and again when a shape, a dtype or the
+structure of what they read changes. ``make_update_step(..., eager=True)`` runs
+the same step functions eagerly on the card (the reference the graphs are held
+to); the CPU and a gloo group (whose collectives run on the host) always run them
+eagerly.
 
 Data parallelism (``make_update_step(..., mesh=...)``, a ``parallel.mesh.DataMesh``
 with a process group): each rank steps its own envs, draws the global noise and
 constants and keeps its rows, and reduces over the group what the JAX program
-reduces over the env or batch axis (``parallel/mesh.py`` lists them). Without a
-group the update is the single-process one, unchanged. On a ``TensorMesh`` the
-same reductions run over the data group, the model holds this rank's slices of the
-towers (its forward sums their partial products over the model group), Adam runs
-on the slices, and ``global_norm`` is the full gradient's.
+reduces over the env or batch axis (``parallel/mesh.py`` lists them): an update
+makes two all-reduces for every minibatch's advantage moments (formed before the
+loop, ``advantage_moments``), one a minibatch for the gradients and stats, one for
+the metrics, and two a rollout step for the observation normalizer when it is on.
+Without a group the update is the single-process one, unchanged. On a
+``TensorMesh`` the same reductions run over the data group, the model holds this
+rank's slices of the towers (its forward sums their partial products over the
+model group), Adam runs on the slices, and ``global_norm`` is the full gradient's.
 """
 from __future__ import annotations
 
@@ -219,17 +225,20 @@ STAT_NAMES = ("loss", "pg_loss", "v_loss", "entropy", "approx_kl", "clip_frac",
               "applied", "computed")
 
 
-def _ppo_loss(params, log_std, mb: Batch, cfg: PPOConfig, mesh=None):
+def _ppo_loss(params, log_std, mb: Batch, cfg: PPOConfig, moments=None):
+    """The clipped loss and its stats. The advantages are normalized by their own
+    mean and unbiased std, or by ``moments`` = (mean, std) where given (the whole
+    minibatch's over a group, ``advantage_moments``)."""
     new_lp, entropy, new_v = net.evaluate_action(params, log_std, mb.obs, mb.actions)
     log_ratio = new_lp - mb.logprobs
     ratio = torch.exp(log_ratio)
     approx_kl = torch.mean(-log_ratio)  # mean(old - new)
 
     adv = mb.advantages
-    if mesh is None:
+    if moments is None:
         adv = (adv - adv.mean()) / (adv.std(correction=1) + 1e-8)
     else:  # the minibatch is every rank's part: its global mean and std
-        mean, std = pmesh.global_mean_std(adv, mesh)
+        mean, std = moments
         adv = (adv - mean) / (std + 1e-8)
 
     pg1 = -adv * ratio
@@ -403,26 +412,54 @@ def minibatch_index(cfg: PPOConfig, perms) -> torch.Tensor:
             .transpose(1, 2).reshape(e_total * cfg.num_minibatches, d_shards * mb_units))
 
 
+def _minibatch_rows(cfg: PPOConfig, x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Field ``x`` of ``shard_blocks``' units (shard and unit axes merged) at the
+    units ``rows`` of one minibatch, flat: [minibatch_size, ...]."""
+    return x.index_select(0, rows).reshape((cfg.minibatch_size,) + x.shape[2:])
+
+
+def advantage_moments(cfg: PPOConfig, units: Batch, index, mesh) -> torch.Tensor:
+    """[E*M, 2]: row i the mean and unbiased std of minibatch i's advantages over
+    every rank's part, formed before the loop. Each minibatch's local moments come
+    from the gather and the calls the loop would make (``adv.mean()``,
+    ``adv.std(correction=1)`` of the flat minibatch; a row-wise reduction could
+    round otherwise), then ``pmesh.combine_mean_std`` combines all of them in two
+    all-reduces: bitwise the local moments with one rank."""
+    n = cfg.minibatch_size
+    means, stds = [], []
+    for i in range(index.shape[0]):
+        adv = _minibatch_rows(cfg, units.advantages, index[i])
+        means.append(adv.mean())
+        if n > 1:
+            stds.append(adv.std(correction=1))
+    mean, std = pmesh.combine_mean_std(torch.stack(means),
+                                       torch.stack(stds) if stds else None, n, mesh)
+    return torch.stack([mean, std], dim=1)
+
+
 def minibatch_step(cfg: PPOConfig, model: net.ActorCritic, log_std, lr, units: Batch,
-                   index, bc1, bc2, mu, nu, loop: MinibatchLoop, mesh=None) -> None:
+                   index, bc1, bc2, mu, nu, loop: MinibatchLoop, mesh=None,
+                   moments=None) -> None:
     """One minibatch of the clipped update, JAX's ``body_fn``, with no value deciding
     a host branch: minibatch ``loop.i`` gathered from ``units`` (``shard_blocks``'
     layout with the shard and unit axes merged) at its row of ``index``
-    (``minibatch_index``), the loss and its gradients (averaged over the group with
-    a ``mesh``), the global norm, the clip as a select, and Adam with the
-    corrections ``bc1[loop.applied]``, ``bc2[loop.applied]``. ``trig = approx_kl >
-    kl_target``: the parameters, ``mu`` and ``nu`` take the new values where the
-    loop is active (no earlier exit) and not ``trig``, in place; the stats row
-    ``loop.i`` records the minibatch where it is active (``applied`` and
-    ``computed`` its flags), zeros after the exit; the loop's counters and exit
-    flag advance on the device."""
+    (``minibatch_index``), the loss and its gradients (with a ``mesh``, the
+    advantages normalized by row ``loop.i`` of ``advantage_moments``' table
+    ``moments`` and the gradients averaged over the group), the global norm, the
+    clip as a select, and Adam with the corrections ``bc1[loop.applied]``,
+    ``bc2[loop.applied]``. ``trig = approx_kl > kl_target``: the parameters, ``mu``
+    and ``nu`` take the new values where the loop is active (no earlier exit) and
+    not ``trig``, in place; the stats row ``loop.i`` records the minibatch where it
+    is active (``applied`` and ``computed`` its flags), zeros after the exit; the
+    loop's counters and exit flag advance on the device."""
     params = list(model.parameters())
     dtype = params[0].dtype
     rows = index.index_select(0, loop.i)[0]
-    mb = Batch(*(x.index_select(0, rows).reshape((cfg.minibatch_size,) + x.shape[2:])
-                 for x in units))
+    mb = Batch(*(_minibatch_rows(cfg, x, rows) for x in units))
+    if mesh is not None:
+        moments = moments.index_select(0, loop.i)[0].unbind()
     with torch.enable_grad():
-        loss, st = _ppo_loss(model.params(), log_std, mb, cfg, mesh)
+        loss, st = _ppo_loss(model.params(), log_std, mb, cfg, moments)
         grads = torch.autograd.grad(loss, params)
     if mesh is not None:
         grads, st = _mean_over_group(grads, st, mesh)
@@ -449,30 +486,49 @@ def minibatch_step(cfg: PPOConfig, model: net.ActorCritic, log_std, lr, units: B
 class _MinibatchGraph:
     """``minibatch_step`` captured once (``_graph.CapturedStep``) over static copies
     of its inputs and of the Adam moments, the loop's carry and the model's
-    parameters read and trained in place. ``key`` is what the capture fixes."""
+    parameters read and trained in place. With a ``mesh`` the step's all-reduce is
+    captured with it, and ``advantage_moments`` is captured as a second graph
+    (``moments_step``) that ``load`` replays once an update, before the loop.
+    ``key`` is what the captures fix."""
 
-    def __init__(self, cfg, model, inputs, opt_state, key):
+    def __init__(self, cfg, model, inputs, opt_state, key, mesh=None):
         self.key = key
+        dev = inputs[0].device
         self.inputs = _graph.clone_tree(inputs)
         self.mu = [m.clone() for m in opt_state.mu]
         self.nu = [v.clone() for v in opt_state.nu]
-        self.loop = MinibatchLoop.zeros(inputs[3].shape[0], inputs[0].device)
+        self.loop = MinibatchLoop.zeros(inputs[3].shape[0], dev)
         self.loop.stop.fill_(True)  # the warm-up runs are masked: they move nothing
+        self.moments = self.moments_step = None
+        if mesh is not None:
+            units, index = self.inputs[2], self.inputs[3]
+            self.moments = torch.zeros((index.shape[0], 2), dtype=units.advantages.dtype,
+                                       device=dev)
+            self.moments_step = _graph.CapturedStep(
+                lambda: self.moments.copy_(advantage_moments(cfg, units, index, mesh)),
+                dev, [], lambda: None)
 
         def body():
-            minibatch_step(cfg, model, *self.inputs, self.mu, self.nu, self.loop)
+            minibatch_step(cfg, model, *self.inputs, self.mu, self.nu, self.loop, mesh,
+                           self.moments)
 
-        self.step = _graph.CapturedStep(body, inputs[0].device, [], self.loop.i.zero_)
+        self.step = _graph.CapturedStep(body, dev, [], self.loop.i.zero_)
 
     def load(self, inputs, opt_state) -> None:
         _graph.load_tree((self.inputs, self.mu, self.nu),
                          (inputs, opt_state.mu, opt_state.nu))
         self.loop.reset()
+        if self.moments_step is not None:
+            self.moments_step.replay()
 
     def owned(self) -> list:
-        """The tensors the graph owns outside its private pool."""
+        """The tensors the graph owns outside its private pools."""
         return [t for _, t in _graph.tensor_leaves((self.inputs, self.mu, self.nu,
-                                                    self.loop))]
+                                                    self.loop, self.moments))]
+
+    @property
+    def pool_bytes(self) -> int:
+        return sum(s.pool_bytes for s in (self.step, self.moments_step) if s is not None)
 
 
 def run_ppo_update(cfg: PPOConfig, model: net.ActorCritic, opt_state: AdamState,
@@ -488,8 +544,8 @@ def run_ppo_update(cfg: PPOConfig, model: net.ActorCritic, opt_state: AdamState,
 
     Each minibatch is ``minibatch_step``; the host reads the exit flag once an
     epoch and skips the epochs after an exit, then reads the stats and the applied
-    count once. With ``graphs`` (an ``UpdateGraphs``, CUDA and no group) the step
-    is a replayed CUDA graph; otherwise it runs eagerly.
+    count once. With ``graphs`` (an ``UpdateGraphs``: CUDA, and no group or an
+    NCCL one) the step is a replayed CUDA graph; otherwise it runs eagerly.
 
     Trains ``model``'s parameters in place. Returns (opt_state, stopped, stats):
     ``stats`` maps ``STAT_NAMES`` to [epochs, minibatches] float32 numpy arrays,
@@ -497,7 +553,8 @@ def run_ppo_update(cfg: PPOConfig, model: net.ActorCritic, opt_state: AdamState,
     ``applied`` the applied ones.
 
     With a ``mesh`` (a group), ``flat`` and ``perms`` are this rank's part of each
-    minibatch: the advantages are normalized by the global moments, and the
+    minibatch: the advantages are normalized by the global moments (every
+    minibatch's, reduced before the loop: ``advantage_moments``), and the
     gradients and stats are averaged over the group, so every rank applies the
     same update and takes the same exit.
     """
@@ -522,12 +579,13 @@ def run_ppo_update(cfg: PPOConfig, model: net.ActorCritic, opt_state: AdamState,
         mu = [m.clone() for m in opt_state.mu]
         nu = [v.clone() for v in opt_state.nu]
         loop = MinibatchLoop.zeros(steps, dev)
+        moments = None if mesh is None else advantage_moments(cfg, units, index, mesh)
 
         def run(times):
             for _ in range(times):
-                minibatch_step(cfg, model, *inputs, mu, nu, loop, mesh)
+                minibatch_step(cfg, model, *inputs, mu, nu, loop, mesh, moments)
     else:
-        g = graphs.minibatch(cfg, model, inputs, opt_state)
+        g = graphs.minibatch(cfg, model, inputs, opt_state, mesh)
         mu, nu, loop, run = g.mu, g.nu, g.loop, g.step.replay
     for e in range(e_total):
         run(m_total)
@@ -658,9 +716,11 @@ class _RolloutGraph:
     static [T, N, ...] buffers. The model's parameters are read in place, and so is
     the aux (``_graph.StaticTree``) but at the places in ``copied``: the tensors the
     trainer replaces between updates (the opponent draw, the speed-weight anneal, a
-    swapped track). ``key`` is what the capture fixes."""
+    swapped track). With a ``mesh`` the step's collectives (the normalizer's, a
+    tensor-parallel forward's) are captured with it. ``key`` is what the capture
+    fixes."""
 
-    def __init__(self, cfg, hooks, runner, aux, log_std, noise, key, copied):
+    def __init__(self, cfg, hooks, runner, aux, log_std, noise, key, copied, mesh=None):
         self.key, self.steps = key, cfg.num_steps
         self.carry = _graph.clone_tree(rollout_carry(runner))
         self.aux = _graph.StaticTree(aux, copied)
@@ -671,7 +731,7 @@ class _RolloutGraph:
 
         def body():
             new = rollout_step(cfg, hooks, self.aux.tree, params, *self.inputs, self.carry,
-                               self.out)
+                               self.out, mesh)
             _graph.load_tree(self.carry, new)
 
         self.step = _graph.CapturedStep(body, runner.obs.device,
@@ -698,15 +758,25 @@ class _RolloutGraph:
         return ([t for _, t in _graph.tensor_leaves((self.carry, self.inputs, self.out))]
                 + [t for p, t in _graph.tensor_leaves(self.aux.tree) if p in self.aux.copied])
 
+    @property
+    def pool_bytes(self) -> int:
+        return self.step.pool_bytes
+
 
 class UpdateGraphs:
     """The captured rollout and minibatch steps of one ``update_step`` on a CUDA
-    device with no process group: captured at its first update, and again when a
-    shape, a dtype or the structure of what a step reads changes (a resampled
-    pool of another size, another runner's parameters) or the trainer replaces an
-    aux tensor that the rollout graph reads in place (from then on the graph
-    copies it; the opponent draw, new each update, does this once, at the second
-    update). ``capture_seconds`` sums the time the captures took."""
+    device with no process group or an NCCL one: captured at its first update, and
+    again when a shape, a dtype or the structure of what a step reads changes (a
+    resampled pool of another size, another runner's parameters) or the trainer
+    replaces an aux tensor that the rollout graph reads in place (from then on the
+    graph copies it; the opponent draw, new each update, does this once, at the
+    second update). ``capture_seconds`` sums the time the captures took.
+
+    Under a group every rank must capture, and so run the warm-ups' collectives,
+    at the same update. Each decision compares what the caller hands with what the
+    graphs hold (shapes, dtypes, and tensors the graphs keep alive, so that a new
+    tensor never shows an old one's address): it changes where the trainer hands
+    new tensors or shapes, which every rank's trainer does at the same update."""
 
     def __init__(self):
         self.rollout = None
@@ -717,7 +787,7 @@ class UpdateGraphs:
         return tuple(p.data_ptr() for p in model.parameters())
 
     @torch.no_grad()
-    def rollout_phase(self, cfg, hooks, runner, aux, log_std, noise):
+    def rollout_phase(self, cfg, hooks, runner, aux, log_std, noise, mesh=None):
         key = (_graph.signature((runner.vec, runner.obs, runner.done, runner.obs_norm,
                                  aux, log_std, noise)),
                self._params_key(runner.train.model))
@@ -728,18 +798,19 @@ class UpdateGraphs:
             self.rollout = None  # free the old graph's buffers before the new capture
             t0 = time.perf_counter()
             self.rollout = _RolloutGraph(cfg, hooks, runner, aux, log_std, noise, key,
-                                         copied)
+                                         copied, mesh)
             self.capture_seconds += time.perf_counter() - t0
         return self.rollout.run(runner, aux, log_std, noise)
 
-    def minibatch(self, cfg, model, inputs, opt_state) -> _MinibatchGraph:
-        """The minibatch graph for ``inputs``, loaded with them and ``opt_state``."""
+    def minibatch(self, cfg, model, inputs, opt_state, mesh=None) -> _MinibatchGraph:
+        """The minibatch graph for ``inputs``, loaded with them and ``opt_state``
+        (with a ``mesh``, every minibatch's advantage moments formed too)."""
         key = (_graph.signature((inputs, opt_state.mu, opt_state.nu)),
                self._params_key(model))
         if self.minibatch_graph is None or self.minibatch_graph.key != key:
             self.minibatch_graph = None
             t0 = time.perf_counter()
-            self.minibatch_graph = _MinibatchGraph(cfg, model, inputs, opt_state, key)
+            self.minibatch_graph = _MinibatchGraph(cfg, model, inputs, opt_state, key, mesh)
             self.capture_seconds += time.perf_counter() - t0
         self.minibatch_graph.load(inputs, opt_state)
         return self.minibatch_graph
@@ -750,17 +821,19 @@ class UpdateGraphs:
         moments and carry) and their private pools."""
         graphs = [g for g in (self.rollout, self.minibatch_graph) if g is not None]
         return {"static_bytes": sum(t.nbytes for g in graphs for t in g.owned()),
-                "pool_bytes": sum(g.step.pool_bytes for g in graphs)}
+                "pool_bytes": sum(g.pool_bytes for g in graphs)}
 
 
 def _sharded_update(cfg: PPOConfig, mesh, model, opt_state, log_std, lr, batch: Batch,
-                    generator, perm_consts, device):
+                    generator, perm_consts, device, graphs=None):
     """The minibatch phase of a data-parallel update (``batch`` [T, n, ...], this
     rank's envs). ``data_shards`` = world: the shard-local layout, whose shard d is
     rank d's envs, so each rank runs the one-shard layout over its own envs with
     its row of the global permutation constants and the collectives make every
     minibatch the global one. ``data_shards`` = 1 on several ranks: the global
-    shuffle; every rank gathers the whole batch and runs the same update."""
+    shuffle; every rank gathers the whole batch and runs the same update, no
+    data-group collective inside its loop. ``graphs`` as ``run_ppo_update`` takes
+    it."""
     e_total, d_shards = cfg.update_epochs, cfg.data_shards
     _, n_units, _ = minibatch_layout(cfg)
     if d_shards == 1 and mesh.world > 1:
@@ -768,7 +841,8 @@ def _sharded_update(cfg: PPOConfig, mesh, model, opt_state, log_std, lr, batch: 
         flat = Batch(*(x.reshape((cfg.batch_size,) + x.shape[2:]) for x in full))
         perms = epoch_permutation(generator, n_units, shape=(e_total, 1),
                                   consts=perm_consts, device=device)
-        return run_ppo_update(cfg, model, opt_state, log_std, lr, flat, perms)
+        return run_ppo_update(cfg, model, opt_state, log_std, lr, flat, perms,
+                              graphs=graphs)
     if d_shards != mesh.world:
         raise ValueError(f"cfg.data_shards={d_shards} does not match the mesh's data "
                          f"axis ({mesh.world}); use data_shards={mesh.world} or 1")
@@ -783,7 +857,8 @@ def _sharded_update(cfg: PPOConfig, mesh, model, opt_state, log_std, lr, batch: 
         perms = epoch_permutation(generator, n_units, shape=(e_total, d_shards),
                                   device=device)[:, rank:rank + 1]
     flat = Batch(*(x.reshape((local.batch_size,) + x.shape[2:]) for x in batch))
-    return run_ppo_update(local, model, opt_state, log_std, lr, flat, perms, mesh=mesh)
+    return run_ppo_update(local, model, opt_state, log_std, lr, flat, perms, mesh=mesh,
+                          graphs=graphs)
 
 
 def make_update_step(cfg: PPOConfig, hooks: EnvHooks, action_dim: int = 2, mesh=None,
@@ -794,10 +869,12 @@ def make_update_step(cfg: PPOConfig, hooks: EnvHooks, action_dim: int = 2, mesh=
     draws from ``runner.generator``. ``metrics`` is the packed float32 numpy
     vector (``unpack_metrics``).
 
-    On a CUDA device with no process group the rollout and minibatch steps run as
-    CUDA graphs (``UpdateGraphs``, ``update_step.graphs``); ``eager=True`` runs
-    them eagerly there too, as the CPU and the group paths always do. Both give
-    the same numbers to the bit.
+    On a CUDA device with no process group, or with one whose groups are NCCL's
+    (``mesh.capturable``), the rollout and minibatch steps run as CUDA graphs, the
+    collectives captured with them (``UpdateGraphs``, ``update_step.graphs``);
+    ``eager=True`` runs them eagerly there too, as the CPU and a gloo group always
+    do. Both give the same numbers to the bit where the group's reductions round
+    alike graphed and eager (always with one rank).
 
     ``mesh``: a ``parallel.mesh.DataMesh``. With a process group, the runner and
     aux hold this rank's envs (``PPOTrainer.shard``), ``noise`` and
@@ -806,7 +883,7 @@ def make_update_step(cfg: PPOConfig, hooks: EnvHooks, action_dim: int = 2, mesh=
     with nothing initialized) the update is the single-process one."""
     if mesh is not None and mesh.group is None:
         mesh = None
-    graphs = None if eager or mesh is not None else UpdateGraphs()
+    graphs = None if eager or not (mesh is None or mesh.capturable) else UpdateGraphs()
 
     def update_step(runner: RunnerState, aux, noise=None, perm_consts=None):
         train = runner.train
@@ -827,7 +904,7 @@ def make_update_step(cfg: PPOConfig, hooks: EnvHooks, action_dim: int = 2, mesh=
             noise = shard_rows(noise, mesh.shard, dim=1)
         if graphed:
             vec, next_obs, next_done, norm, traj, sstats = graphs.rollout_phase(
-                cfg, hooks, runner, aux, log_std, noise)
+                cfg, hooks, runner, aux, log_std, noise, mesh)
         else:
             vec, next_obs, next_done, norm, traj, sstats = rollout_phase(
                 cfg, hooks, runner, aux, log_std, noise, mesh)
@@ -853,7 +930,7 @@ def make_update_step(cfg: PPOConfig, hooks: EnvHooks, action_dim: int = 2, mesh=
         else:
             opt_state, stopped, ustats = _sharded_update(
                 cfg, mesh, model, train.opt_state, log_std, lr, batch, gen, perm_consts,
-                dev)
+                dev, graphs=graphs if graphed else None)
 
         new_runner = RunnerState(
             train=TrainState(model=model, opt_state=opt_state, update=train.update + 1),

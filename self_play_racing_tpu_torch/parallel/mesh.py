@@ -13,8 +13,9 @@ gloo on the CPU):
   clip_frac) are averaged over the group in one flat all-reduce before the
   device decides the clip and the KL exit, so every rank clips by the global norm
   and takes the same exit (``agent/ppo.py:minibatch_step``);
-- the minibatch advantage normalization takes the global mean and unbiased std
-  (``global_mean_std``, two scalar all-reduces);
+- each minibatch's advantage normalization takes the global mean and unbiased
+  std: every minibatch's local moments are formed before the loop and combined
+  at once (``combine_mean_std``, two all-reduces an update);
 - the observation normalizer merges the global batch moments (``global_moments``);
 - the rollout's episode sums, the mean reward and the self-play PFSP win/game
   counters are summed over the group before the metrics reach the host.
@@ -26,7 +27,10 @@ run over D processes computes what one process computes with ``data_shards = D``
 on all the envs, up to the order of the sums.
 
 With no process group (one process, nothing initialized) no collective runs and
-the trainers keep their single-process path.
+the trainers keep their single-process path. A mesh whose groups are all NCCL's
+is ``capturable``: its collectives run on the card's streams and are captured
+with the update's steps as CUDA graph nodes (``agent/ppo.py``); gloo runs its
+collectives on the host, so a gloo group's update stays eager.
 
 Tensor parallelism (``make_mesh(model_parallel=m)``, a ``TensorMesh``): the JAX
 package's 2-D mesh ``devices.reshape(-1, m)`` with axes ``('data', 'model')``. Rank r
@@ -121,6 +125,12 @@ class DataMesh:
         """The group of every process (what replicated state is broadcast over)."""
         return self.group
 
+    @property
+    def capturable(self) -> bool:
+        """Whether the update's collectives can be captured in a CUDA graph: its
+        group is NCCL's (gloo's collectives run on the host)."""
+        return _all_nccl(self.group)
+
     model_parallel = 1
 
 
@@ -155,6 +165,16 @@ class TensorMesh:
     @property
     def shard(self) -> tuple:
         return (self.rank, self.world)
+
+    @property
+    def capturable(self) -> bool:
+        """Whether the update's collectives can be captured in a CUDA graph: its
+        data and model groups are both NCCL's."""
+        return _all_nccl(self.group, self.model_group)
+
+
+def _all_nccl(*groups) -> bool:
+    return all(g is not None and dist.get_backend(g) == "nccl" for g in groups)
 
 
 def make_mesh(devices=None, axis: str = "data", model_parallel: int = 1):
@@ -278,17 +298,16 @@ def all_reduce_sum_(x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
     return x
 
 
-def global_mean_std(x: torch.Tensor, mesh: DataMesh):
-    """Mean and unbiased std of the union of every rank's ``x`` (equal sizes), as
-    [1] tensors: the local moments combined by Chan's rule, one all-reduce for
-    the mean and one for the variance. With one rank both are ``x.mean()`` and
-    ``x.std(correction=1)`` bitwise: the weights are 1, the between-rank term 0,
-    and sqrt(s * s) == s in IEEE arithmetic."""
-    n, total = x.numel(), x.numel() * mesh.world
-    mean = x.mean()
-    gmean = all_reduce_sum_(((n / total) * mean).reshape(1), mesh)
+def combine_mean_std(mean: torch.Tensor, std: torch.Tensor, n: int, mesh: DataMesh):
+    """Each row's mean and unbiased std over the union of every rank's ``n``
+    samples, from the local ``mean`` and ``std`` of the rows (tensors of one
+    shape; ``std`` unused where ``n`` is 1) by Chan's rule: one all-reduce for all
+    the means and one for all the variances. With one rank both come back
+    bitwise: the weights are 1, the between-rank term 0, and sqrt(s * s) == s in
+    IEEE arithmetic."""
+    total = n * mesh.world
+    gmean = all_reduce_sum_((n / total) * mean, mesh)
     if n > 1:
-        std = x.std(correction=1)
         within = ((n - 1) / (total - 1)) * std * std
     else:  # one sample a rank: no spread within it
         within = torch.zeros_like(mean)
@@ -299,7 +318,7 @@ def global_mean_std(x: torch.Tensor, mesh: DataMesh):
 
 def global_moments(x: torch.Tensor, mesh: DataMesh):
     """Mean and biased variance over dim 0 of the union of every rank's ``x``
-    (equal row counts), combined from the local moments as ``global_mean_std``
+    (equal row counts), combined from the local moments as ``combine_mean_std``
     combines them: with one rank, ``x.mean(0)`` and ``x.var(0, correction=0)``
     bitwise."""
     w = 1.0 / mesh.world

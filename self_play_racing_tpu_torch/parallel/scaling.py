@@ -19,7 +19,11 @@ P processes, one card each: ONE command per process, every one with the same
       --baseline-json data/scaling_1proc.json --out data/scaling_Pproc.json
 
 Each process owns one device, so a run measures its whole group (a sweep over
-sizes is one launch per size). Rank 0 writes the artifact, schema
+sizes is one launch per size). The KL exit decides how many minibatches an update
+runs, and it is decided on the group's mean KL, so a row records the minibatches
+each timed update computed and applied; ``--kl-target inf`` turns the exit off,
+so that every size does the same work a device (update_epochs x
+num_minibatches minibatches of the same rows). Rank 0 writes the artifact, schema
 "scaling_sweep_v1":
 
   {"schema": "scaling_sweep_v1", "platform": ..., "num_processes": P,
@@ -51,9 +55,12 @@ from . import mesh as pmesh
 
 
 def measure(num_devices: int, envs_per_device: int = 512, num_steps: int = 128,
-            reps: int = 3, seed: int = 1, shard_local: bool = True, device=None):
+            reps: int = 3, seed: int = 1, shard_local: bool = True, device=None,
+            kl_target: float | None = None):
     """Updates/s and env-steps/s of a data-parallel PPO update over the process
-    group, which must hold ``num_devices`` processes (one device each).
+    group, which must hold ``num_devices`` processes (one device each), with the
+    minibatches each timed update computed (the KL exit's included) and applied.
+    ``kl_target`` replaces the config's (``inf``: no KL exit).
 
     ``shard_local`` takes the per-shard minibatch shuffle (``cfg.data_shards`` =
     num_devices: only the gradient and scalar all-reduces in the update phase);
@@ -64,9 +71,10 @@ def measure(num_devices: int, envs_per_device: int = 512, num_steps: int = 128,
         raise ValueError(f"measure: {num_devices} devices requested, the process group "
                          f"holds {mesh.world} (one device a process)")
     num_envs = envs_per_device * num_devices
+    kw = {} if kl_target is None else {"kl_target": kl_target}
     cfg = base_config(num_envs=num_envs, num_steps=num_steps,
                       total_timesteps=num_envs * num_steps * 100, seed=seed,
-                      data_shards=num_devices if shard_local else 1)
+                      data_shards=num_devices if shard_local else 1, **kw)
     np.random.seed(seed)  # gen_tracks draws each track's shape from the global RNG
     cps = trk.gen_tracks(16, seed=seed)
     pool = trk.make_track_pool(cps, [7.0] * 16, device=mesh.device)
@@ -77,10 +85,11 @@ def measure(num_devices: int, envs_per_device: int = 512, num_steps: int = 128,
 
     runner, metrics = trainer.update_step(runner, aux)  # warm-up
     unpack_metrics(metrics)  # the metrics reach the host: the update has ended
+    timed = []
     t0 = time.perf_counter()
     for _ in range(reps):
         runner, metrics = trainer.update_step(runner, aux)
-        unpack_metrics(metrics)
+        timed.append(unpack_metrics(metrics))
     dt = (time.perf_counter() - t0) / reps
     return {
         "devices": num_devices,
@@ -89,6 +98,11 @@ def measure(num_devices: int, envs_per_device: int = 512, num_steps: int = 128,
         "ms_per_update": dt * 1e3,
         "env_steps_per_s": cfg.batch_size / dt,
         "updates_per_s": 1.0 / dt,
+        "kl_target": cfg.kl_target,
+        # the exit's minibatch is computed and not applied
+        "minibatches_computed": [int(m["minibatches_applied"] + m["kl_stopped"])
+                                 for m in timed],
+        "minibatches_applied": [int(m["minibatches_applied"]) for m in timed],
     }
 
 
@@ -122,6 +136,9 @@ def main(argv=None):
     p.add_argument("--baseline-json", default=None, metavar="JSON",
                    help="single-process artifact to compute multi-process "
                         "efficiency against (its largest-device row)")
+    p.add_argument("--kl-target", type=float, default=None,
+                   help="the KL exit's threshold (default: the config's; inf: no exit, "
+                        "the same minibatches at every size)")
     p.add_argument("--device", default=None, help="default: cuda (NCCL); cpu: gloo")
     args = p.parse_args(argv)
 
@@ -133,7 +150,8 @@ def main(argv=None):
         print(f"--max-devices={args.max_devices} ignored: one device a process, the "
               f"group holds {mesh.world}", file=sys.stderr)
     row = measure(mesh.world, args.envs_per_device, args.num_steps,
-                  shard_local=not args.global_shuffle, device=mesh.device)
+                  shard_local=not args.global_shuffle, device=mesh.device,
+                  kl_target=args.kl_target)
     # against the sweep's first row, which is this row: the JAX package's rule
     # for a multi-process run, which measures its full mesh only
     row["efficiency"] = 1.0 / row["devices"]

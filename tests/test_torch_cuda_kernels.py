@@ -27,10 +27,14 @@ resident, env i reading row ``row_ids[i]``) each of K1, ``raycast_walls_and_cars
 and ``car_step_and_query`` is bitwise itself on the gathered rows, and its plain
 version as above, with ids that repeat, skip rows and come out of order.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+from test_torch_dist_workers import group_of_one
 from self_play_racing_tpu_torch.envs import track as trk
 from self_play_racing_tpu_torch.ops import dynamics
 from self_play_racing_tpu_torch.ops import gae
@@ -1043,3 +1047,62 @@ def test_graphed_update_is_the_eager_update_bitwise(cuda, case):
     assert gs[1] == es[1]
     for a, b in zip(gs[0] + list(gs[2:]), es[0] + list(es[2:])):
         assert torch.equal(a, b)
+
+
+WORLD_ONE_CASES = ("single_kl_exit", "single_normalized", "selfplay_per_env")
+
+
+@pytest.mark.parametrize("case", WORLD_ONE_CASES)
+def test_world_one_nccl_update_is_graphed_and_bitwise(cuda, case):
+    """A trainer sharded over an NCCL group of one runs its update as CUDA graphs,
+    the collectives captured with the steps (the normalizer's in the rollout, the
+    minibatch's all-reduce, the advantage moments' two in their own graph), and
+    is bitwise that group's ``eager=True`` run and the graphed run without a
+    group, over three updates and a fourth on a resampled pool: every metric, the
+    parameters, Adam moments and count, the final observations; the launch
+    counters equal; no replay synchronizes; the graphs report the memory they
+    hold."""
+    selfplay, overrides = GRAPH_CASES[case]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    runs = {}
+    for name in ("no group", "nccl", "nccl eager"):
+        group = group_of_one(dev) if name != "no group" else contextlib.nullcontext()
+        with group as mesh, chip_smoke.replays_without_sync() as replays:
+            tr = _graph_trainer(dev, selfplay, overrides, eager=name == "nccl eager")
+            if mesh is not None:
+                assert mesh.capturable and mesh.world == 1
+                tr.shard(mesh)
+            metrics, counts = [], []
+            for u in range(4):
+                if u == 3:
+                    np.random.seed(2)
+                    pool = trk.make_track_pool(trk.gen_tracks(2, seed=2), 6.0, device=dev)
+                    tr.set_track(trk.tiled_pooled_tracks(pool, tr.cfg.num_envs))
+                before = [getattr(m, a) for m, a in _COUNTERS]
+                tr.train(num_updates=1, on_update=lambda t, m: metrics.append(m))
+                torch.cuda.synchronize()
+                counts.append([getattr(m, a) - b for (m, a), b in zip(_COUNTERS, before)])
+            graphs = tr.update_step.graphs
+            if name == "nccl eager":
+                assert graphs is None and replays[0] == 0
+            else:
+                mb = graphs.minibatch_graph
+                assert graphs.rollout is not None and mb is not None
+                assert (mb.moments_step is not None) == (mesh is not None)
+                assert replays[0] >= 4 * tr.cfg.num_steps
+                held = graphs.memory()
+                assert held["static_bytes"] > 0 and held["pool_bytes"] > 0
+            runs[name] = (metrics, counts, _learner_state(tr))
+    want_m, want_c, want_s = runs["no group"]
+    for name in ("nccl", "nccl eager"):
+        got_m, got_c, got_s = runs[name]
+        assert got_c == want_c, name
+        for a, b in zip(got_m, want_m):
+            assert a.keys() == b.keys()
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=f"{name} {k}")
+        assert got_s[1] == want_s[1], name
+        for a, b in zip(got_s[0] + list(got_s[2:]), want_s[0] + list(want_s[2:])):
+            assert torch.equal(a, b), name
+    if "kl_exit" in case:
+        assert any(m["kl_stopped"] for m in want_m)

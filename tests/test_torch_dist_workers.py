@@ -29,6 +29,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+import chip_smoke
 from self_play_racing_tpu_torch import interop
 from self_play_racing_tpu_torch import train as ttrain
 from self_play_racing_tpu_torch._tree import shard_rows
@@ -105,6 +106,19 @@ def run_ranks(fn, world, *args, timeout=120.0, group=True):
     return results
 
 
+@contextlib.contextmanager
+def group_of_one(device="cpu"):
+    """This process joined through ``distributed_init`` as a group of one on
+    ``device`` (gloo on the CPU, NCCL on a card; a TCP store on a free localhost
+    port), left again on exit: the mesh path's collectives run over one rank.
+    Yields the mesh."""
+    pmesh.distributed_init(f"127.0.0.1:{_free_port()}", 1, 0, device=device)
+    try:
+        yield pmesh.make_mesh(device)
+    finally:
+        dist.destroy_process_group()
+
+
 # ------------------------------------------------------------- the ranks' work
 
 def train_state_numpy(train):
@@ -173,9 +187,12 @@ def update_step_rank(rank, build, feed):
 
 
 def ppo_update_rank(rank, cfg, init, flat, consts, lr):
-    """``ppo_update_once`` over the group, with this rank's envs."""
+    """``ppo_update_once`` over the group, with this rank's envs, and the count of
+    the all-reduces it made."""
     mesh = pmesh.make_mesh("cpu")
-    return ppo_update_once(cfg, init, flat, consts, lr, mesh)
+    with chip_smoke.all_reduce_calls() as reduces:
+        out = ppo_update_once(cfg, init, flat, consts, lr, mesh)
+    return out + (sum(reduces),)
 
 
 def ppo_update_once(cfg, init, flat, consts, lr, mesh=None):
@@ -242,11 +259,15 @@ class SingleBuild:
 
 
 def loss_rank(rank, mb, cfg):
-    """``_ppo_loss`` on this rank's half of the minibatch ``mb`` (numpy fields)."""
+    """``_ppo_loss`` on this rank's half of the minibatch ``mb`` (numpy fields), its
+    advantages normalized by the group's moments as the update forms them: the
+    local ``mean()`` and ``std(correction=1)`` through ``combine_mean_std``."""
     mesh = pmesh.make_mesh("cpu")
     params = net.init_params(torch.Generator().manual_seed(0), 15, 2, dtype=torch.float64)
     part = ppo.Batch(*(shard_rows(torch.as_tensor(x), mesh.shard) for x in mb))
-    loss, st = ppo._ppo_loss(params, torch.full((2,), -0.5), part, cfg, mesh)
+    adv = part.advantages
+    moments = pmesh.combine_mean_std(adv.mean(), adv.std(correction=1), adv.numel(), mesh)
+    loss, st = ppo._ppo_loss(params, torch.full((2,), -0.5), part, cfg, moments)
     return float(loss), {k: float(v) for k, v in st.items()}
 
 

@@ -17,7 +17,9 @@ two JAX processes own 4 virtual devices each).
   one-process run's; the float32 state within rtol 1e-5 / atol 1e-6 (the float32
   normalizer moments combined over the ranks).
 - The scaling CLI run as 2 processes writes its ``scaling_sweep_v1`` artifact with
-  JAX's keys, from rank 0.
+  JAX's keys, from rank 0, and each row the minibatches every timed update
+  computed and applied; with ``--kl-target inf`` (one process) every update
+  computes and applies all update_epochs x num_minibatches.
 - A checkpoint written by rank 0 of a sharded run resumes on both ranks, which
   continue alike and as one process resumed from its own checkpoint continues.
 - ``train_scale`` over 2 processes shards with ``data_shards = 2`` where the
@@ -47,7 +49,8 @@ from test_torch_dist_workers import (SelfPlayBuild, checkpoint_rank, checkpoint_
 from torch_port_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from self_play_racing_tpu_torch import interop
 from self_play_racing_tpu_torch.agent import ppo as tppo
-from self_play_racing_tpu_torch.configs import self_play_config
+from self_play_racing_tpu_torch.configs import base_config, self_play_config
+from self_play_racing_tpu_torch.parallel.scaling import main as scaling_main
 
 TIMEOUT = 180  # seconds for a 2-process run
 
@@ -195,11 +198,32 @@ def test_scaling_cli_two_process_artifact(tmp_path):
     assert len(art["rows"]) == 1 and art["rows"][0]["devices"] == 2
     assert set(art["rows"][0]) == {"devices", "num_envs", "shard_local_minibatch",
                                    "ms_per_update", "env_steps_per_s", "updates_per_s",
-                                   "efficiency"}
+                                   "efficiency", "kl_target", "minibatches_computed",
+                                   "minibatches_applied"}
+    cfg = base_config()
+    row = art["rows"][0]
+    assert row["kl_target"] == cfg.kl_target
+    assert len(row["minibatches_computed"]) == len(row["minibatches_applied"]) == 3
+    for computed, applied in zip(row["minibatches_computed"], row["minibatches_applied"]):
+        # the KL exit's minibatch is computed and not applied
+        assert computed - applied in (0, 1)
+        assert 1 <= computed <= cfg.update_epochs * cfg.num_minibatches
     assert art["baseline_env_steps_per_s"] == 300.0
     want = art["rows"][0]["env_steps_per_s"] / (2 * 300.0)
     assert art["efficiency_vs_baseline"] == pytest.approx(want)
     assert art["rows"][0]["shard_local_minibatch"] is True
+
+
+def test_scaling_cli_without_kl_exit_runs_every_minibatch(tmp_path):
+    out = tmp_path / "scaling_1proc.json"
+    rows = scaling_main(["--device", "cpu", "--envs-per-device", "4", "--num-steps", "8",
+                         "--kl-target", "inf", "--out", str(out)])
+    cfg = base_config()
+    every = cfg.update_epochs * cfg.num_minibatches
+    assert len(rows) == 1 and rows[0]["kl_target"] == float("inf")
+    assert rows[0]["minibatches_computed"] == [every] * 3
+    assert rows[0]["minibatches_applied"] == [every] * 3
+    assert json.loads(out.read_text())["rows"][0]["minibatches_applied"] == [every] * 3
 
 
 CKPT = dict(num_envs=16, num_steps=8, num_minibatches=2, update_epochs=2,

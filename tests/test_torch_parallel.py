@@ -39,8 +39,13 @@ from self_play_racing_tpu.envs import single as jenv
 from self_play_racing_tpu.envs import track as jtrack
 from self_play_racing_tpu.models import actor_critic as jnet
 from self_play_racing_tpu.parallel import mesh as jmesh
-from test_torch_dist_workers import (SingleBuild, loss_rank, ppo_update_once, ppo_update_rank,
-                                run_ranks, update_step_rank, world_one_rank)
+import chip_smoke
+from test_torch_dist_workers import (SingleBuild, _AdamLike, group_of_one, loss_rank,
+                                     ppo_update_once, ppo_update_rank, run_ranks,
+                                     update_step_rank, world_one_rank)
+from test_torch_learner import UPDATE_CASES as LEARNER_CASES
+from test_torch_learner import ACT_DIM, _batch, _params
+from test_torch_learner import _jax_consts as _learner_consts
 from torch_port_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from self_play_racing_tpu_torch import interop
 from self_play_racing_tpu_torch.agent import ppo as tppo
@@ -54,6 +59,7 @@ N, T = 16, 32
 SIZES = dict(num_envs=N, num_steps=T, num_minibatches=4, update_epochs=2,
              total_timesteps=N * T * 4)
 TIMEOUT = 150  # seconds for a 2-process run (each child: import, build, one update)
+KL_FIRST_EPOCH_EXIT = 0.001
 
 
 def _jax_mesh(n=2):
@@ -128,11 +134,14 @@ def _jax_learner(jcfg, params, flat, lr):
         {k: np.asarray(v) for k, v in stats.items()}
 
 
-@pytest.mark.parametrize("kl_target", [0.5, 0.004])
+@pytest.mark.parametrize("kl_target", [0.5, 0.004, KL_FIRST_EPOCH_EXIT])
 def test_minibatch_loop_two_processes_match_one_process_and_jax(kl_target):
     """run_ppo_update over 2 gloo ranks = one process with data_shards = 2 = JAX's
     sharded loop: every per-minibatch stat, the exit minibatch, parameters and
-    Adam moments (0.5: all 8 minibatches applied; 0.004: the KL exit midway)."""
+    Adam moments (0.5: all 8 minibatches applied; 0.004: the KL exit midway;
+    KL_FIRST_EPOCH_EXIT: the exit inside the first epoch, whose masked tail runs).
+    Every minibatch's advantage moments are reduced before the loop, so a rank
+    makes 2 all-reduces for them and 1 a minibatch run."""
     cfg, jcfg, params, flat = _learner_inputs(kl_target)
     lr = np.float32(3e-3)
     init, consts, jstate, jstopped, jstats = _jax_learner(jcfg, params, flat, lr)
@@ -142,12 +151,16 @@ def test_minibatch_loop_two_processes_match_one_process_and_jax(kl_target):
 
     applied = int(jstats["applied"].sum())
     assert (applied == 8) == (kl_target == 0.5) and applied >= 1
+    if kl_target == KL_FIRST_EPOCH_EXIT:
+        assert applied < cfg.num_minibatches
     assert one_stopped == jstopped == (applied < 8)
     _assert_stats_close(one_stats, jstats, rtol=1e-5, atol=1e-6)
     p, mu, nu, count, _ = one
     assert count == jstate[3] == applied
     _close_trees((p, mu, nu), jstate[:3], rtol=1e-6, atol=1e-7)
-    for stats, stopped, state in ranks:
+    run = -(-int(one_stats["computed"].sum()) // cfg.num_minibatches) * cfg.num_minibatches
+    for stats, stopped, state, reduces in ranks:
+        assert reduces == 2 + run
         assert stopped == one_stopped
         _assert_stats_close(stats, one_stats)
         assert state[3] == count
@@ -183,6 +196,86 @@ def test_advantage_normalization_is_global():
     np.testing.assert_allclose(global_loss, float(loss), rtol=1e-12)
     local_loss = 0.5 * float(local[0] + local[1])
     assert abs(local_loss - float(loss)) > 1e-3 * abs(float(loss))
+
+
+def _learner_case(case):
+    """The port's inputs of ``tests/test_torch_learner.py``'s ``UPDATE_CASES[case]``
+    (its ``update_both``): cfg, a fresh float64 model and Adam state, log_std, lr,
+    the flat batch and the epoch permutations."""
+    overrides, lr, seed, _ = LEARNER_CASES[case]
+    kw = dict(num_envs=8, num_steps=16, num_minibatches=4, update_epochs=3,
+              shuffle_block_size=4, total_timesteps=8 * 16 * 4, **overrides)
+    cfg = base_config(**kw)
+    params = _params(4)
+    log_std = np.full((ACT_DIM,), -0.9, np.float32)
+    b = _batch(params, cfg.batch_size, log_std, seed)
+    _, n_units, _ = tppo.minibatch_layout(cfg)
+    _, consts = _learner_consts(jax.random.key(11), cfg.update_epochs, cfg.data_shards)
+    perms = tppo.epoch_permutation(None, n_units, shape=consts.shape[:2],
+                                   consts=torch.as_tensor(consts))
+
+    def fresh():
+        zeros = jax.tree.map(np.zeros_like, params)
+        return interop.train_state_from_jax(
+            params, (_AdamLike(0, zeros, zeros),), 0, dtype=torch.float64, device="cpu")
+
+    flat = tppo.Batch(**{k: torch.as_tensor(v) for k, v in b.items()})
+    return cfg, fresh, torch.as_tensor(log_std), np.float32(lr), flat, perms
+
+
+@pytest.mark.parametrize("case", sorted(LEARNER_CASES))
+def test_advantage_moments_up_front_are_each_minibatchs_own(case, tmp_path, monkeypatch):
+    """On one process (a gloo group of one) every minibatch's advantage moments,
+    formed before the loop and reduced in two all-reduces, are bitwise the
+    minibatch's own ``adv.mean()`` and ``adv.std(correction=1)``, in each of the
+    learner's ``UPDATE_CASES`` (exits mid-epoch, on an epoch's last minibatch and on
+    the first, two data shards): every row of the table, and what each minibatch
+    run normalized by, against what the update without a group normalizes by. The
+    update over the group is then bitwise the one without: stats, parameters and
+    Adam state. It makes 2 all-reduces for the moments and 1 a minibatch run."""
+    cfg, fresh, log_std, lr, flat, perms = _learner_case(case)
+    seen = {"group": [], "none": []}
+    loss = tppo._ppo_loss
+
+    def recording(params, log_std, mb, cfg, moments=None):
+        adv = mb.advantages.detach()
+        seen["none" if moments is None else "group"].append(
+            (adv.mean(), adv.std(correction=1)) if moments is None else moments)
+        return loss(params, log_std, mb, cfg, moments)
+
+    monkeypatch.setattr(tppo, "_ppo_loss", recording)
+    runs = {}
+    with group_of_one() as mesh:
+        _, n_units, _ = tppo.minibatch_layout(cfg)
+        units = tppo.Batch(*(x.reshape((cfg.data_shards * n_units,) + x.shape[2:])
+                             for x in tppo.shard_blocks(cfg, flat)))
+        index = tppo.minibatch_index(cfg, perms)
+        table = tppo.advantage_moments(cfg, units, index, mesh)
+        for i in range(index.shape[0]):
+            adv = units.advantages.index_select(0, index[i]).reshape(cfg.minibatch_size)
+            assert torch.equal(table[i], torch.stack([adv.mean(), adv.std(correction=1)]))
+        for where in ("group", "none"):
+            train = fresh()
+            with chip_smoke.all_reduce_calls() as reduces:
+                opt, stop, stats = tppo.run_ppo_update(
+                    cfg, train.model, train.opt_state, log_std, lr, flat, perms,
+                    mesh=mesh if where == "group" else None)
+            runs[where] = (sum(reduces), stop, stats, opt,
+                           [p.detach() for p in train.model.parameters()])
+    (g_reduces, g_stop, g_stats, g_opt, g_params) = runs["group"]
+    (n_reduces, n_stop, n_stats, n_opt, n_params) = runs["none"]
+    run = len(seen["none"])
+    assert run == -(-int(n_stats["computed"].sum()) // cfg.num_minibatches) \
+        * cfg.num_minibatches
+    assert len(seen["group"]) == run and (g_reduces, n_reduces) == (2 + run, 0)
+    for (g_mean, g_std), (mean, std) in zip(seen["group"], seen["none"]):
+        assert torch.equal(g_mean, mean) and torch.equal(g_std, std)
+    assert g_stop == n_stop
+    for k in tppo.STAT_NAMES:
+        np.testing.assert_array_equal(g_stats[k], n_stats[k], err_msg=k)
+    assert g_opt.count == n_opt.count
+    for a, b in zip(g_params + g_opt.mu + g_opt.nu, n_params + n_opt.mu + n_opt.nu):
+        assert torch.equal(a, b)
 
 
 # ------------------------------------------------------------- the whole update

@@ -18,11 +18,15 @@ them bitwise to the eager steps.
   the final carry, float64 tracks and learner (tolerances below).
 - ``bias_correction_table`` equal to ``bias_correction`` at every count, across an
   exit: the next update's table starts at the count the exit left.
-- A CPU runner never touches ``torch.cuda.CUDAGraph``.
+- A CPU runner never touches ``torch.cuda.CUDAGraph``, with no process group or
+  over a gloo group, whose update stays eager wherever it runs (gloo's collectives
+  run on the host); a mesh whose groups are NCCL's is graphed unless ``eager``.
 """
 import numpy as np
 import pytest
 import torch
+
+import torch.distributed as dist
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +41,7 @@ from self_play_racing_tpu.envs import normalize as jobsnorm
 from self_play_racing_tpu.envs import single as jsingle
 from self_play_racing_tpu.envs import vector as jvector
 from self_play_racing_tpu.models import actor_critic as jnet
+from test_torch_dist_workers import group_of_one
 from test_torch_learner import ACT_DIM, _batch, _params, update_both
 from test_torch_selfplay import CONE, _Feed, _jax_pool, _jax_randoms, _jax_slots, _port_opp, _tracks
 from torch_port_threads import one_torch_thread  # noqa: F401  (autouse fixture)
@@ -48,6 +53,7 @@ from self_play_racing_tpu_torch.configs import base_config, self_play_config
 from self_play_racing_tpu_torch.envs import multi as tmulti
 from self_play_racing_tpu_torch.envs import single as tsingle
 from self_play_racing_tpu_torch.envs import track as ttrack
+from self_play_racing_tpu_torch.parallel import mesh as pmesh
 
 
 # ------------------------------------------------------- the bias corrections
@@ -276,10 +282,14 @@ def test_rollout_step_matches_jax_self_play(reset_each, monkeypatch):
 
 # ------------------------------------------------------------------- the CPU path
 
-def test_cpu_runner_never_builds_a_graph(monkeypatch):
+def test_cpu_runner_never_builds_a_graph(monkeypatch, tmp_path):
     """Two updates of a CPU trainer (graphs allowed: ``eager`` left False) with
     ``torch.cuda.CUDAGraph`` replaced by a class that raises: nothing touches it,
-    and the update step holds no captured graph."""
+    and the update step holds no captured graph. Then the trainer sharded over a
+    gloo group: the mesh is not ``capturable``, its update step has no graphs and
+    trains two more updates eagerly. Whether a group is graphed is its backend's
+    decision: the same mesh read as NCCL's is ``capturable`` and gets graphs, but
+    for ``eager=True``, and a tensor-parallel mesh needs both its groups NCCL's."""
     class NoGraph:
         def __init__(self, *args, **kwargs):
             raise AssertionError("a CPU run built a CUDA graph")
@@ -297,6 +307,23 @@ def test_cpu_runner_never_builds_a_graph(monkeypatch):
     assert graphs.rollout is None and graphs.minibatch_graph is None
     assert graphs.capture_seconds == 0.0
     assert tr.runner.train.update == 2
+
+    with group_of_one() as mesh:
+        assert mesh.group is not None and not mesh.capturable
+        tr.shard(mesh)
+        assert tr.update_step.graphs is None
+        tr.train(num_updates=2)
+        assert tr.runner.train.update == 4
+        with monkeypatch.context() as m:
+            m.setattr(dist, "get_backend", lambda group=None: "nccl")
+            assert mesh.capturable
+            assert tppo.make_update_step(cfg, tr.hooks, mesh=mesh).graphs is not None
+            assert tppo.make_update_step(cfg, tr.hooks, mesh=mesh, eager=True).graphs is None
+            tensor = pmesh.TensorMesh(world=1, rank=0, device=mesh.device, group=mesh.group,
+                                      model_parallel=2, model_rank=0, model_group=None,
+                                      process_rank=0, all_group=mesh.group)
+            assert not tensor.capturable
+            assert tppo.make_update_step(cfg, tr.hooks, mesh=tensor).graphs is None
 
 
 # ------------------------------------------------------------ the static inputs

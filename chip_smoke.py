@@ -196,7 +196,22 @@ k. graph against eager: single-car training (4096 x 256) and phase 10's self-pla
    ``torch.cuda.set_sync_debug_mode("error")``; the timed updates launch the env
    kernels 256 times and K6 and K7 once. Printed for every update: ms, the
    rollout's host and device ms a step (CUDA events), the minibatch loop's ms and
-   minibatches, the capture seconds, and for every run its peak memory.
+   minibatches, the capture seconds, and for every run its peak memory;
+
+and for the evaluation, match and recorder loops as device programs (on the card
+every loop of ``utils/metrics.py`` replays its step captured as a CUDA graph
+between its every-32-steps checks, so phases 13, e and g above run graphed):
+
+l. graph against eager (``eager=True``): the 40 x 5 evaluations of phase 13
+   (single car and two cars, sampled, seed 42; every per-episode field), phase g's
+   round robin (wins, draws and Elo; its 12 matches share one capture) and the
+   three recorders on the held-out track (``record_trajectory_single``, ``_multi``
+   and ``_match``, sampled from seed 0; every array), each bitwise with equal
+   launch counts and loop steps, every replay under
+   ``torch.cuda.set_sync_debug_mode("error")``. Printed for each: wall seconds
+   graphed and eager, ms a step (host, and device between CUDA events), the
+   captures and their seconds, the graphs' own buffers and private pools
+   (``pool_bytes``), the checked replays.
 
 The line before the last is one JSON object with every kernel's numbers (``ms`` the
 eager back-to-back time, ``graph_ms`` the CUDA-graph replay time, ``launches`` the
@@ -217,7 +232,8 @@ updates (counted from the replays) and ``launches_data_parallel_ranks`` on each 
 ``launches_adapter`` its count over phase i's two adapter episodes and
 ``launches_tensor_parallel`` on each of phase j's two ranks, its single-car and
 self-play updates summed; ``launches_graphed`` its count over phase k's graphed
-self-play run's 3 timed updates on the tiled pool); the last line is ``{"ok": true,
+self-play run's 3 timed updates on the tiled pool; ``launches_loops_graphed`` its
+count over phase l's graphed runs, as replays); the last line is ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -3131,6 +3147,171 @@ def graph_against_eager(pool, card):
     return out
 
 
+# ------------------------------------- phase (l): the loops as device programs
+
+
+@contextlib.contextmanager
+def eager_loops():
+    """Inside the block the evaluation, match and recorder loops run eagerly
+    (``utils/metrics.py``'s loops with ``eager=True``): the reference the graphed
+    loops are held to."""
+    real = (metrics._rollout_single_acc, metrics._rollout_multi_acc)
+    metrics._rollout_single_acc = functools.partial(real[0], eager=True)
+    metrics._rollout_multi_acc = functools.partial(real[1], eager=True)
+    try:
+        yield
+    finally:
+        metrics._rollout_single_acc, metrics._rollout_multi_acc = real
+
+
+@contextlib.contextmanager
+def loop_clock():
+    """Times every loop run inside the block (``metrics._run_loop``): the host
+    seconds of the call, ending in a synchronize, the device seconds between CUDA
+    events recorded around it, each less the seconds of a capture made inside the
+    call, and the steps its chunk loop (``metrics._drive``) ran. Yields a dict of
+    their sums and the number of loops."""
+    run, drive = metrics._run_loop, metrics._drive
+    total = {"host": 0.0, "device": 0.0, "steps": 0, "loops": 0}
+
+    def driven(*args, **kwargs):
+        steps = drive(*args, **kwargs)
+        total["steps"] += steps
+        return steps
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        captured = metrics.loop_graphs.capture_seconds
+        t = time.perf_counter()
+        start.record()
+        out = run(*args, **kwargs)
+        end.record()
+        torch.cuda.synchronize()
+        captured = metrics.loop_graphs.capture_seconds - captured
+        total["host"] += time.perf_counter() - t - captured
+        total["device"] += start.elapsed_time(end) / 1e3 - captured
+        total["loops"] += 1
+        return out
+
+    metrics._run_loop, metrics._drive = timed, driven
+    try:
+        yield total
+    finally:
+        metrics._run_loop, metrics._drive = run, drive
+
+
+def loop_run(fn, graphed: bool):
+    """``fn()`` graphed (every replay under ``set_sync_debug_mode("error")``, the
+    loop graphs' cache emptied first, so that the run's captures are counted) or
+    inside ``eager_loops``. Returns its result, wall seconds, launch counts, the
+    loop clock's sums, the captures, capture seconds and checked replays, and the
+    memory the run's loop graphs hold (``LoopGraphs.memory``)."""
+    graphs = metrics.loop_graphs
+    if graphed:
+        graphs.clear()
+    captures, capture_s = graphs.captures, graphs.capture_seconds
+    checks = replays_without_sync() if graphed else contextlib.nullcontext([0])
+    with (contextlib.nullcontext() if graphed else eager_loops()), checks as replays, \
+            loop_clock() as clock:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    return {"out": out, "wall": wall, "launches": launches, "clock": clock,
+            "captures": graphs.captures - captures,
+            "capture_s": graphs.capture_seconds - capture_s, "replays": replays[0],
+            "memory": graphs.memory()}
+
+
+def loop_line(what, g, e, card) -> str:
+    cg, ce = g["clock"], e["clock"]
+    return (f"{what}: graphed {g['wall']:.3f} s against eager {e['wall']:.3f} s on {card} "
+            f"({cg['loops']} loops, {cg['steps']} steps); a step graphed "
+            f"{cg['host'] / cg['steps'] * 1e3:.4f} ms host, "
+            f"{cg['device'] / cg['steps'] * 1e3:.4f} ms device (CUDA events), eager "
+            f"{ce['host'] / ce['steps'] * 1e3:.4f} ms host, "
+            f"{ce['device'] / ce['steps'] * 1e3:.4f} ms device (both less the captures); "
+            f"{g['captures']} captures in {g['capture_s']:.3f} s, the graphs' buffers "
+            f"{g['memory']['static_bytes'] / 2**20:,.2f} MiB and private pools "
+            f"{g['memory']['pool_bytes'] / 2**20:,.2f} MiB (pool_bytes); {g['replays']} "
+            f"replays without a sync; launches {({k: v for k, v in g['launches'].items() if v})}")
+
+
+def loops_graphed(dev, card):
+    """Phase l: the evaluation, match and recorder loops graphed against
+    ``eager=True``: the 40 x 5 evaluations (single car and two cars, sampled, seed
+    42), the round robin of ``TOURNAMENT_MODELS`` at the CLI's defaults and the
+    three recorders on the held-out track, each bitwise, with equal launch counts,
+    no replay syncing and one capture for the round robin's 12 matches. Returns
+    the launch counts of the graphed runs, summed."""
+    total = {k: 0 for k in COUNTERS}
+
+    def held(what, fn, same):
+        g, e = loop_run(fn, True), loop_run(fn, False)
+        if not same(g["out"], e["out"]):
+            raise AssertionError(f"phase l {what}: graphed differs from eager")
+        if g["launches"] != e["launches"]:
+            raise AssertionError(f"phase l {what}: launches graphed {g['launches']} != "
+                                 f"eager {e['launches']}")
+        if g["replays"] == 0 or g["clock"]["steps"] != e["clock"]["steps"]:
+            raise AssertionError(f"phase l {what}: {g['replays']} replays, steps graphed "
+                                 f"{g['clock']['steps']}, eager {e['clock']['steps']}")
+        for k, v in g["launches"].items():
+            total[k] += v
+        print(loop_line(f"phase l {what}", g, e, card))
+        return g, e
+
+    grid = metrics.build_eval_grid(40, 5, 42, device=dev)
+    for what, fn, path in (("eval 40 x 5", evaluate.evaluate_single_agent_overall, MODEL),
+                           ("eval --multi 40 x 5, 2 cars", evaluate.evaluate_multi_agent_overall,
+                            MULTI_MODEL)):
+        g, _ = held(what, lambda: fn(grid, path, seed=42),
+                    lambda a, b: a["all_episodes"] == b["all_episodes"] and a == b)
+        res = g["out"]
+        print(f"phase l {what} (sampled, seed 42): every per-episode field of the 200 "
+              f"episodes equal graphed and eager; success_rate={res['success_rate']:.3f} "
+              f"avg_steps={res['avg_steps']:.2f}")
+
+    g, _ = held("round robin", lambda: tournament.run_tournament(TOURNAMENT_MODELS, device=dev),
+                lambda a, b: (a["wins"], a["draws"], a["elo"]) == (b["wins"], b["draws"],
+                                                                   b["elo"]))
+    if g["captures"] != 1:
+        raise AssertionError(f"phase l round robin: {g['captures']} captures for its 12 "
+                             f"matches, expected 1")
+    print(f"phase l round robin: wins, draws and Elo equal graphed and eager; the 12 matches "
+          f"shared one capture ({g['capture_s']:.3f} s); ranking "
+          f"{[row['name'] for row in g['out']['ranking']]}")
+
+    _, track = render._held_out_track(123, 7.0, dev)
+    mcfg = menv.MultiRacingConfig(num_agents=2, num_sensors=11)
+    scfg = senv.RacingConfig(num_sensors=11)
+    bundles = [load_policy_bundle(p, dev) for p in TOURNAMENT_MODELS[:2]]
+    single = load_policy_bundle(MODEL, dev)
+    multi = load_policy_bundle(MULTI_MODEL, dev)
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    def same_traj(a, b):
+        return a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+
+    for what, fn in (
+            ("record_trajectory_single", lambda: viz.record_trajectory_single(
+                *single[:2], scfg, track, gen(), obs_norm=single[2])),
+            ("record_trajectory_multi", lambda: viz.record_trajectory_multi(
+                *multi[:2], mcfg, track, gen(), obs_norm=multi[2])),
+            ("record_trajectory_match", lambda: viz.record_trajectory_match(
+                bundles, mcfg, track, gen()))):
+        g, _ = held(what, fn, same_traj)
+        print(f"phase l {what} on the held-out track: {len(g['out']['x'])} rows "
+              f"{g['out']['x'].shape}, every array equal graphed and eager")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3212,6 +3393,8 @@ def main() -> int:
         tp_launches = tensor_parallel_ranks(dev, card)
     with timed("phase k (graph against eager)"):
         graph_launches = graph_against_eager(pool, card)
+    with timed("phase l (the loops as device programs)"):
+        loop_launches = loops_graphed(dev, card)
     for k in kernels:
         k["launches_match"] = match_launches[k["name"]]
         k["launches_data_parallel_world1"] = dp_world_one[k["name"]]
@@ -3219,6 +3402,7 @@ def main() -> int:
         k["launches_adapter"] = adapter_launches[k["name"]]
         k["launches_tensor_parallel"] = [r[k["name"]] for r in tp_launches]
         k["launches_graphed"] = graph_launches[k["name"]]
+        k["launches_loops_graphed"] = loop_launches[k["name"]]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,22 +1,26 @@
 #!/usr/bin/env python3
-"""A learning run of the PyTorch port on the card: ``train scale`` through its
-CLI, then ``evaluate --multi``'s evaluation of the policy it wrote.
+"""A learning run of the PyTorch port on the card: a ``train`` CLI, then the 40 x 5
+evaluation of the policy it wrote.
 
-  python scripts/learning_run.py [--out DIR]
+  python scripts/learning_run.py [--kind scale|single] [--out DIR]
 
-Runs ``python -m self_play_racing_tpu_torch.train scale --total-timesteps 50000000``
-(the step count of the JAX package's 50M scale agent) in a
-temporary working directory (the CLIs write ``models/`` and ``data/`` under it,
-which at the repo's root are tracked files), then what ``python -m
-self_play_racing_tpu_torch.evaluate --multi models/self_play_agent_scale_1B.npz``
-runs there, ``evaluate.eval()`` on the 40 x 5 grid (seed 42, sampled), writing
-``data/eval_info_self_play.json`` but no chart (the CLI's chart needs matplotlib,
-which the card's machine lacks). Prints the card's name and power
-limit, each command's wall seconds, the training curve's last logged mean reward,
-and the evaluation's success rate and avg_steps beside the JAX package's 50M-step
-scale agent's (``data/eval_info_self_play_scale_50M.json``); with ``--out`` it
-copies the run's JSON files there. Exits 1 without a card, and when the success
-rate is under 0.95 (the evaluation gate of chip_smoke.py).
+``--kind scale`` (the default) runs ``python -m self_play_racing_tpu_torch.train
+scale --total-timesteps 50000000`` (the step count of the JAX package's 50M scale
+agent), then what ``python -m self_play_racing_tpu_torch.evaluate --multi
+models/self_play_agent_scale_1B.npz`` runs there, beside the JAX package's 50M-step
+scale agent (``data/eval_info_self_play_scale_50M.json``). ``--kind single`` runs
+``train single`` at its defaults (16 envs x 2048 steps, 5M steps), then what
+``evaluate --single models/single_agent.npz`` runs, beside the JAX package's
+single-car agent (``data/eval_info_single.json``). Both train in a temporary
+working directory (the CLIs write ``models/`` and ``data/`` under it, which at the
+repo's root are tracked files) and evaluate through ``evaluate.eval()`` on the 40 x
+5 grid (seed 42, sampled), writing ``data/eval_info_<label>.json`` but no chart (the
+CLI's chart needs matplotlib, which the card's machine lacks). Prints the card's
+name and power limit, each command's wall seconds, the training curve's last
+logged mean reward, and the evaluation's success rate and avg_steps beside the JAX
+package's; with ``--out`` it copies the run's JSON files there. Exits 1 without a
+card, and when the success rate is under 0.95 (the evaluation gate of
+chip_smoke.py).
 """
 from __future__ import annotations
 
@@ -32,11 +36,17 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 SUCCESS_FLOOR = 0.95
-TOTAL_TIMESTEPS = 50_000_000
+# kind: (train arguments, the model it writes, eval label and kind, JAX's record)
+KINDS = {
+    "scale": (["scale", "--total-timesteps", "50000000"], "self_play_agent_scale_1B.npz",
+              ("self_play", "multi"), "eval_info_self_play_scale_50M.json"),
+    "single": (["single"], "single_agent.npz", ("single", "single"), "eval_info_single.json"),
+}
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--kind", choices=sorted(KINDS), default="scale")
     p.add_argument("--out", default=None, help="copy the run's JSON files here")
     args = p.parse_args(argv)
     import torch
@@ -49,18 +59,18 @@ def main(argv=None) -> int:
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     from self_play_racing_tpu_torch import evaluate
 
+    train_args, model_name, (label, kind), jax_record = KINDS[args.kind]
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        subprocess.run([sys.executable, "-m", "self_play_racing_tpu_torch.train", "scale",
-                        "--total-timesteps", str(TOTAL_TIMESTEPS)], cwd=tmp, env=env,
-                       check=True)
+        subprocess.run([sys.executable, "-m", "self_play_racing_tpu_torch.train", *train_args],
+                       cwd=tmp, env=env, check=True)
         train_s = time.perf_counter() - t0
         data = os.path.join(tmp, "data")
-        model = os.path.join(tmp, "models", "self_play_agent_scale_1B.npz")
+        model = os.path.join(tmp, "models", model_name)
         t0 = time.perf_counter()
-        evaluate.eval({"self_play": ("multi", model)}, 40, 5, 42, out_dir=data, chart=None)
+        evaluate.eval({label: (kind, model)}, 40, 5, 42, out_dir=data, chart=None)
         eval_s = time.perf_counter() - t0
-        with open(os.path.join(data, "eval_info_self_play.json")) as f:
+        with open(os.path.join(data, f"eval_info_{label}.json")) as f:
             info = json.load(f)
         curves = [n for n in os.listdir(data) if n.startswith("training_info")]
         with open(os.path.join(data, curves[0])) as f:
@@ -70,20 +80,21 @@ def main(argv=None) -> int:
             for name in os.listdir(data):
                 if name.endswith(".json"):
                     shutil.copy(os.path.join(data, name), args.out)
-    with open(os.path.join(REPO, "data", "eval_info_self_play_scale_50M.json")) as f:
+    with open(os.path.join(REPO, "data", jax_record)) as f:
         jax_info = json.load(f)
     result = {
         "card": card,
-        "total_timesteps": TOTAL_TIMESTEPS,
-        "train_scale_seconds": train_s,
+        "command": ["train", *train_args],
+        "train_seconds": train_s,
         "evaluate_seconds": eval_s,
         "last_mean_reward": curve["rewards"][-1] if curve.get("rewards") else None,
         "updates_logged": len(curve.get("steps", [])),
         "success_rate": info["success_rate"],
         "avg_steps": info["avg_steps"],
         "crash_rate": info["crash_rate"],
-        "jax_50M_success_rate": jax_info["success_rate"],
-        "jax_50M_avg_steps": jax_info["avg_steps"],
+        "jax_record": jax_record,
+        "jax_success_rate": jax_info["success_rate"],
+        "jax_avg_steps": jax_info["avg_steps"],
     }
     print(json.dumps(result, indent=1))
     return 0 if info["success_rate"] >= SUCCESS_FLOOR else 1

@@ -1,8 +1,10 @@
 """Trajectory recording and rendering (port of ``self_play_racing_tpu/utils/viz.py``).
 
 The recorders roll episodes on the tensors' device through the evaluation loops
-of ``utils/metrics.py`` (one policy, shared by every car, or one per seat), keep
-each step's poses on the device and copy them to the host once, at the end.
+of ``utils/metrics.py`` (one policy, shared by every car, or one per seat; on a
+CUDA device a replayed CUDA graph of the loop's step), whose step writes its poses
+into [max_steps, N, ...] device buffers at row ``t``, as the JAX recorders' scan
+stacks its outputs, and copy env 0's rows to the host once, at the end.
 Rendering is an offline host pass over those arrays: pygame frames written to an
 mp4 with OpenCV, a labeled grid of videos, and a learning-curve plot with
 matplotlib. pygame, cv2 and matplotlib are imported inside the functions that use
@@ -34,12 +36,12 @@ def _pygame():
 
 
 def _trimmed(trace):
-    """Env 0's host arrays [T] or [T, A] from a loop's per-step records, trimmed
-    to the rows active entering the step: 0 through the done step. The row after
-    that would re-step the frozen terminal state (re-firing e.g. the crash
-    penalty), so it is left out."""
-    traj = {k: torch.stack([rec[k] for rec in trace]).cpu().numpy()[:, 0]
-            for k in trace[0]}
+    """Env 0's host arrays [T] or [T, A] from a loop's trace buffers, copied to the
+    host once and trimmed to the rows active entering the step: 0 through the done
+    step. The row after that would re-step the frozen terminal state (re-firing
+    e.g. the crash penalty), so it is left out, and so are the rows an early exit
+    never wrote (inactive)."""
+    traj = {k: v[:, 0].cpu().numpy() for k, v in trace.items()}
     n = int(traj["active"].sum())
     return {k: v[:n] for k, v in traj.items()}
 
@@ -50,7 +52,7 @@ def record_trajectory_single(params, log_std, env_cfg: senv.RacingConfig,
     """Roll one (batch-1) episode on the track's device; return host arrays of x,
     y, angle, speed, progress, reward and active per step. Sampled mode draws from
     ``generator`` (on the track's device)."""
-    trace = []
+    trace = {}
     M._rollout_single_acc(params, log_std, env_cfg, track, generator, max_steps,
                           deterministic, obs_norm, trace=trace)
     return _trimmed(trace)
@@ -61,7 +63,7 @@ def record_trajectory_multi(params, log_std, env_cfg: menv.MultiRacingConfig,
                             deterministic=True, obs_norm=None):
     """Shared-policy multi-car episode; arrays shaped [T, A]. ``generator`` draws
     the start-grid slots (and the sampled actions' noise)."""
-    trace = []
+    trace = {}
     M._rollout_multi_acc(params, log_std, env_cfg, track, generator, max_steps,
                          deterministic, obs_norm, trace=trace)
     return _trimmed(trace)
@@ -74,7 +76,7 @@ def record_trajectory_match(bundles, env_cfg: menv.MultiRacingConfig,
     ``bundles`` is a list of (params, log_std, obs_norm_or_None), one per car.
     Arrays shaped [T, A]."""
     p, ls, nrm = stack_bundles(bundles, env_cfg.obs_dim)
-    trace = []
+    trace = {}
     M._rollout_multi_acc(p, ls, env_cfg, track, generator, max_steps, deterministic,
                          nrm, per_seat=True, trace=trace)
     return _trimmed(trace)

@@ -1106,3 +1106,80 @@ def test_world_one_nccl_update_is_graphed_and_bitwise(cuda, case):
             assert torch.equal(a, b), name
     if "kl_exit" in case:
         assert any(m["kl_stopped"] for m in want_m)
+
+
+# ------------------- the evaluation, match and recorder loops as CUDA graphs
+
+LOOP_STEPS = 300
+LOOP_CASES = ("single", "multi", "match", "match_noise", "record_single", "record_multi",
+              "record_match")
+
+
+def _loop_call(case, dev):
+    """``run(generator)`` for a ``LOOP_CASES`` case on a 4 x 2 grid (the recorders
+    on one of its tracks), sampled, and whether the output is a trajectory."""
+    from self_play_racing_tpu_torch import tournament
+    from self_play_racing_tpu_torch.envs import multi
+    from self_play_racing_tpu_torch.envs import single as senv
+    from self_play_racing_tpu_torch.evaluate import load_policy_bundle
+    from self_play_racing_tpu_torch.utils import metrics, viz
+
+    grid, _, _ = metrics.build_eval_grid(4, 2, 42, device=dev)
+    one = trk.gather_tracks(grid, [3])
+    scfg, mcfg = senv.RacingConfig(num_sensors=11), multi.MultiRacingConfig(num_agents=2)
+    single = load_policy_bundle(chip_smoke.MODEL, dev)
+    shared = load_policy_bundle(chip_smoke.MULTI_MODEL, dev)
+    bundles = [load_policy_bundle(p, dev) for p in chip_smoke.TOURNAMENT_MODELS[:2]]
+    stacks = tournament.stack_bundles(bundles, mcfg.obs_dim)
+    noise = torch.randn((LOOP_STEPS, 8, 2, 2), generator=torch.Generator(device=dev)
+                        .manual_seed(9), device=dev)
+    kw = dict(max_steps=LOOP_STEPS, deterministic=False)
+    return {
+        "single": lambda g: metrics.rollout_single(*single[:2], scfg, grid, g,
+                                                   obs_norm=single[2], **kw),
+        "multi": lambda g: metrics.rollout_multi(*shared[:2], mcfg, grid, g,
+                                                 obs_norm=shared[2], **kw),
+        "match": lambda g: metrics.rollout_match(*stacks, mcfg, grid, g, **kw),
+        "match_noise": lambda g: metrics.rollout_match(*stacks, mcfg, grid, g, noise=noise,
+                                                       **kw),
+        "record_single": lambda g: viz.record_trajectory_single(
+            *single[:2], scfg, one, g, obs_norm=single[2], **kw),
+        "record_multi": lambda g: viz.record_trajectory_multi(
+            *shared[:2], mcfg, one, g, obs_norm=shared[2], **kw),
+        "record_match": lambda g: viz.record_trajectory_match(bundles, mcfg, one, g, **kw),
+    }[case], case.startswith("record")
+
+
+@pytest.mark.parametrize("case", LOOP_CASES)
+def test_graphed_loop_is_the_eager_loop_bitwise(cuda, case):
+    """``utils/metrics.py``'s loops replayed as CUDA graphs against the same calls
+    with ``eager=True`` (``chip_smoke.eager_loops``): two calls from different
+    seeds through one capture, each bitwise the eager call (accumulators, or the
+    recorder's trimmed arrays), the caller's generator left where the eager loop
+    leaves it, the launch counts equal, no replay synchronizing."""
+    from self_play_racing_tpu_torch import _graph
+    from self_play_racing_tpu_torch.utils import metrics
+
+    run, traj = _loop_call(case, cuda)
+    metrics.loop_graphs.clear()
+    captures = metrics.loop_graphs.captures
+    for seed in (1, 2):
+        gens = [torch.Generator(device=cuda).manual_seed(seed) for _ in range(2)]
+        outs, counts = [], []
+        for gen, eager in zip(gens, (False, True)):
+            before = _graph.launch_counts()
+            with (chip_smoke.eager_loops() if eager else contextlib.nullcontext()), \
+                    chip_smoke.replays_without_sync() as replays:
+                outs.append(run(gen))
+                torch.cuda.synchronize()
+            after = _graph.launch_counts()
+            counts.append({k: after[k] - before[k] for k in after})
+            assert (replays[0] > 0) != eager
+        (got, want), (g_gen, e_gen) = outs, gens
+        assert sorted(got) == sorted(want)
+        for k in want:
+            same = np.array_equal(got[k], want[k]) if traj else torch.equal(got[k], want[k])
+            assert same, (seed, k)
+        assert torch.equal(g_gen.get_state(), e_gen.get_state())
+        assert counts[0] == counts[1] and any(counts[0].values())
+    assert metrics.loop_graphs.captures - captures == 1

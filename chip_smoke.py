@@ -59,8 +59,8 @@ just before each path is driven and read just after):
    ``snapshot_freq`` set to 1 so that every update after the first races pool
    opponents: one warm-up update, then timed updates with each update's
    ms, its rollout/minibatch split, the pool and the learner's win rate
-   (raycast_walls_and_cars = car_step_and_query = 256, K6 = K7 = 1 per update,
-   and the standalone K1, K2, K3, K4 and K5 not at all);
+   (the env step's multi_observe = multi_transition = 256, K6 = K7 = 1 per update,
+   and the narrow env kernels and the standalone K1, K2, K3, K4 and K5 not at all);
 11. the ``train scale`` and ``train multi`` entry points at their defaults for two
    updates each in a temporary directory; the saved policies must load and the
    repo's tracked models and data stay untouched;
@@ -108,9 +108,9 @@ g. the round robin of the 8B-, 4B- and 1B-step scale agents and
    accounts for its 40 envs, the ratings are finite, the 8B and 4B agents rank
    first and second in either order, then the 1B agent and last
    ``self_play_agent.npz``, as ``data/tournament.json`` ranks them (both win
-   matrices printed); ms a match and a step; launches one sensing
-   (``raycast_walls_and_cars``) and one transition (``car_step_and_query``) a step
-   plus the reset's sensing, the standalone K1-K5 none; one match played twice from
+   matrices printed); ms a match and a step; launches one observation
+   (``multi_observe``) and one transition (``multi_transition``) a step plus the
+   reset's observation, the narrow env kernels and the standalone K1-K5 none; one match played twice from
    its seed gives the same accumulators; the 1B agent beats a random-init policy;
    ``record_trajectory_match`` and ``record_trajectory_single`` on the held-out
    track (seed 123, width 7) give one row per step of the episode (no row after the
@@ -142,8 +142,9 @@ h. ``train scale``'s self-play (the canonical pool tiled over 4096 envs, 256 ste
    minibatches_applied equal, the first epoch's per-minibatch stats within rtol
    1e-4 / atol 1e-7, parameters within 1e-3 absolute (the float32 minibatch loop
    drifts over its 160 steps, ``DP_ATOL``; a control run from params one ulp up
-   prints its own distance) and bitwise equal on the two ranks; each rank launches ``raycast_walls_and_cars`` and ``car_step_and_query``
-   (by row id) 256 times and K6 and K7 once an update; last ``python -m
+   prints its own distance) and bitwise equal on the two ranks; each rank launches
+   ``multi_observe`` and ``multi_transition`` (by row id) 256 times and K6 and K7
+   once an update; last ``python -m
    self_play_racing_tpu_torch.parallel.scaling`` at world 1 writes its
    ``scaling_sweep_v1`` JSON into a temporary directory, printed, and no tracked
    file changes;
@@ -159,8 +160,8 @@ i. whether gymnasium imported (the adapters run on their stand-in spaces without
    launch a step (one more sensing for the reset), ms a step; ``MultiRacingEnv``
    (2 cars) behind ``SelfPlayWrapper`` with ``models/self_play_agent.npz``'s
    (params, log_std) as the opponent and the same policy's greedy action for the
-   agent, one episode: one ``raycast_walls_and_cars`` and one
-   ``car_step_and_query`` a step, the spaces printed; ``evaluate --sb3
+   agent, one episode: one ``multi_observe`` and one ``multi_transition`` a step,
+   the spaces printed; ``evaluate --sb3
    models/sb3_baseline_agent_general.zip`` through ``eval()`` on an 8 x 2 grid
    into a temporary directory, success_rate >= 0.95 and avg_steps printed; ``python
    -m self_play_racing_tpu_torch.train sb3 --num-envs 2 --total-timesteps 4096``
@@ -211,19 +212,38 @@ l. graph against eager (``eager=True``): the 40 x 5 evaluations of phase 13
    ``torch.cuda.set_sync_debug_mode("error")``. Printed for each: wall seconds
    graphed and eager, ms a step (host, and device between CUDA events), the
    captures and their seconds, the graphs' own buffers and private pools
-   (``pool_bytes``), the checked replays.
+   (``pool_bytes``), the checked replays;
+
+and for the multi-car env step as two kernels (``multi.transition`` runs the whole
+reward, termination and placement tail in ``car_step_and_query``'s block,
+``multi.observe`` writes the whole observation row in ``raycast_walls_and_cars``'s):
+
+m. m.1 (after 6b) both against their plain versions (the narrow kernels and PyTorch,
+   what the env ran before) on ``crafted_state`` at 1, 2, 3 and 8 cars over 4096
+   envs of the canonical pool, gathered and tiled, the sensing clamped and not:
+   every output bitwise (-0.0 apart from 0.0), every branch of the tail taken
+   (counts printed); timed at 4096 x 2 tiled, eager and in a CUDA graph, beside
+   their plain versions and bounds. m.2 and m.3 (after l): a 256-step self-play
+   rollout of ``SCALE_1B_MODEL`` (learner and every opponent) at 4096 x 2 on the
+   tiled pool, eager with every call also run as its plain version (every output
+   of every step bitwise), then graphed with the kernels and with the plain
+   versions (every step's buffers and the final state bitwise); the kernel nodes of
+   one captured rollout step of each (at least 100 fewer with the kernels) and its
+   device ms a step, in turns.
 
 The line before the last is one JSON object with every kernel's numbers (``ms`` the
 eager back-to-back time, ``graph_ms`` the CUDA-graph replay time, ``launches`` the
-count on the self-play path of phase 10, or for K1, which that path runs inside
-``raycast_walls_and_cars``, on the single-car main path of phase 7, as
-``launches_path`` says; K2, K3, K4 and K5 run on no path since their work moved
-into the envs' two kernels, and count 0; K1 and K2 also ``selfplay_ms``,
+count on the self-play path of phase 10, or for K1 and the single-car
+``car_step_and_query`` on the single-car main path of phase 7, as ``launches_path``
+says; the self-play path runs K1, K3, K4, K5 and K2 inside ``multi_observe`` and
+``multi_transition``, so the narrow ``raycast_walls_and_cars`` and K2-K5 count 0
+there; K1 and K2 also ``selfplay_ms``,
 ``selfplay_graph_ms`` and ``selfplay_bound_ms`` at the self-play launch and
 ``cold_graph_ms`` after the other kernel in the env step's order; the envs' two
-kernels also the ``chain_ms`` and ``chain_graph_ms`` of what they replace, the
-transition's numbers those of its pair-test instantiation, which the self-play
-path runs, with ``no_pairs_*`` beside them; K6 also its cold times; the three
+narrow kernels also the ``chain_ms`` and ``chain_graph_ms`` of what they replace, the
+transition's numbers those of its pair-test instantiation, with ``no_pairs_*``
+beside them; ``multi_observe`` and ``multi_transition`` their ``plain_graph_ms``,
+``launches_row_ids`` and phase m.3's ``rollout_step_nodes``; K6 also its cold times; the three
 ``*_row_ids`` entries their row-id launches on the canonical pool tiled, with
 ``gathered_graph_ms`` and the ``procgen_*`` numbers beside them, and launches on
 phase c's runs; ``launches_match`` every kernel's count on phase g's tournament;
@@ -286,6 +306,7 @@ from self_play_racing_tpu_torch.utils import viz
 from self_play_racing_tpu_torch.utils.profiling import canonical_bench_pool
 
 MODEL = "models/single_agent.npz"
+SCALE_1B_MODEL = "models/self_play_agent_scale_1B.npz"
 MULTI_MODEL = "models/self_play_agent.npz"
 # the domain-randomized agent the JAX package trained on procedural pools
 DR_MODEL = "models/self_play_agent_dr_500M.npz"
@@ -1375,6 +1396,10 @@ COUNTERS = {
     "raycast_walls_row_ids": (geo, "raycast_walls_row_id_launches"),
     "raycast_walls_and_cars_row_ids": (geo, "raycast_walls_and_cars_row_id_launches"),
     "car_step_and_query_row_ids": (dynamics, "car_step_and_query_row_id_launches"),
+    "multi_observe": (menv, "observe_launches"),
+    "multi_transition": (menv, "transition_launches"),
+    "multi_observe_row_ids": (menv, "observe_row_id_launches"),
+    "multi_transition_row_ids": (menv, "transition_row_id_launches"),
     "compute_gae": (gae, "compute_gae_launches"),
     "mixbits_permutation": (prng, "mixbits_permutation_launches"),
 }
@@ -1610,10 +1635,10 @@ def selfplay_training(make_track, card, label=""):
           f"{peak / 2**20:,.1f} MiB over the {base / 2**20:,.1f} MiB allocated before "
           f"(torch.cuda.max_memory_allocated {(peak + base) / 2**20:,.1f} MiB)")
     n = STEPS * SP_TRAIN_UPDATES
-    expected = counts(raycast_walls_and_cars=n, car_step_and_query=n,
+    expected = counts(multi_observe=n, multi_transition=n,
                       compute_gae=SP_TRAIN_UPDATES, mixbits_permutation=SP_TRAIN_UPDATES)
     if isinstance(track, trk.LAYOUTS):
-        expected.update(raycast_walls_and_cars_row_ids=n, car_step_and_query_row_ids=n)
+        expected.update(multi_observe_row_ids=n, multi_transition_row_ids=n)
     if launches != expected:
         raise AssertionError(f"{what} launches {launches}, expected {expected}")
     for m in metrics:
@@ -1658,7 +1683,7 @@ def selfplay_entry_points(card):
         # sensing: every step, the construction's reset, and train multi's forced
         # reset before each update
         sensed = steps + 1 + (2 if cfg.reset_envs_each_update else 0)
-        expected = counts(raycast_walls_and_cars=sensed, car_step_and_query=steps,
+        expected = counts(multi_observe=sensed, multi_transition=steps,
                           compute_gae=2, mixbits_permutation=2)
         print(f"train {mode}: {cfg.num_envs} envs x {cfg.num_steps} steps x 2 cars, 2 updates "
               f"in {dt:.1f} s on {card}; launches {launches}; saved policy loads "
@@ -1793,9 +1818,9 @@ def resampled_entry_points(card):
             steps = 2 * cfg.num_steps
             # sensing: every step, the construction's reset and the reset onto the
             # pool of update 1
-            expected = counts(raycast_walls_and_cars=steps + 2, car_step_and_query=steps,
-                              raycast_walls_and_cars_row_ids=steps + 2,
-                              car_step_and_query_row_ids=steps, compute_gae=2,
+            expected = counts(multi_observe=steps + 2, multi_transition=steps,
+                              multi_observe_row_ids=steps + 2,
+                              multi_transition_row_ids=steps, compute_gae=2,
                               mixbits_permutation=2)
             print(f"train scale --resample-tracks-every 1 --pooled-geometry {layout}: "
                   f"{cfg.num_envs} envs x {cfg.num_steps} steps, 2 updates in {dt:.1f} s on "
@@ -1870,8 +1895,8 @@ def capacity_probe(pool, dev):
         peak = torch.cuda.max_memory_allocated() - base
         if not (bool(torch.isfinite(obs).all()) and bool(torch.isfinite(stats["reward"]).all())):
             raise AssertionError(f"capacity probe {label}: non-finite observations or rewards")
-        row_ids = launches["raycast_walls_and_cars_row_ids"]
-        if (launches["raycast_walls_and_cars"], row_ids) != (
+        row_ids = launches["multi_observe_row_ids"]
+        if (launches["multi_observe"], row_ids) != (
                 CAPACITY_STEPS, CAPACITY_STEPS if label == "tiled" else 0):
             raise AssertionError(f"capacity probe {label}: launches {launches}")
         print(f"capacity probe, {label}: {CAPACITY_ENVS:,} envs x {CAPACITY_STEPS} steps x "
@@ -1946,8 +1971,7 @@ def tournament_play(dev, card):
     m = len(names)
     pairs = [(i, j) for i in range(m) for j in range(m) if i != j]
     steps = [mt["steps"] for mt in matches]
-    expected = counts(raycast_walls_and_cars=sum(steps) + len(pairs),
-                      car_step_and_query=sum(steps))
+    expected = counts(multi_observe=sum(steps) + len(pairs), multi_transition=sum(steps))
     print(f"tournament: {m} models, {len(pairs)} matches of 40 envs (20 tracks x 2 runs, "
           f"seed 42, sampled, 3000 steps at most) in {dt:.1f} s on {card}; "
           f"{statistics.median(mt['s'] for mt in matches) * 1e3:.1f} ms a match (median; "
@@ -1957,8 +1981,9 @@ def tournament_play(dev, card):
     if launches != expected:
         raise AssertionError(f"tournament launches {launches}, expected {expected}")
     print(f"tournament: one sensing and one transition a step plus the reset's sensing "
-          f"({launches['raycast_walls_and_cars'] / sum(steps):.4f} and "
-          f"{launches['car_step_and_query'] / sum(steps):.4f} a step); the standalone K1-K5 0")
+          f"({launches['multi_observe'] / sum(steps):.4f} and "
+          f"{launches['multi_transition'] / sum(steps):.4f} a step); the narrow env kernels "
+          f"and the standalone K1-K5 0")
     for (i, j), mt in zip(pairs, matches):
         if sum(mt["outcome"]) != 40:
             raise AssertionError(f"match {names[i]} vs {names[j]}: {mt['outcome']}")
@@ -2052,13 +2077,13 @@ def recorders(dev, card):
         ("match", lambda gen: viz.record_trajectory_match(bundles, mcfg, track, gen),
          lambda gen: metrics.rollout_match(*tournament.stack_bundles(bundles, mcfg.obs_dim),
                                            mcfg, track, gen, deterministic=True),
-         3000, "raycast_walls_and_cars"),
+         3000, ("multi_observe", "multi_transition")),
         ("single", lambda gen: viz.record_trajectory_single(params, log_std, scfg, track, gen),
          lambda gen: metrics.rollout_single(params, log_std, scfg, track, gen,
                                             deterministic=True),
-         2000, "raycast_walls"),
+         2000, ("raycast_walls", "car_step_and_query")),
     ]
-    for label, record, rollout_fn, horizon, sensing in cases:
+    for label, record, rollout_fn, horizon, (sensing, stepping) in cases:
         zero_counts()
         t0 = time.perf_counter()
         traj = record(torch.Generator(device=dev).manual_seed(0))
@@ -2072,13 +2097,13 @@ def recorders(dev, card):
                 and traj["active"].all() and np.isfinite(traj["x"]).all()):
             raise AssertionError(f"record_trajectory_{label}: {len(traj['x'])} rows of "
                                  f"{traj['x'].shape}, the episode ran {n} steps")
-        if launches != counts(**{sensing: steps + 1, "car_step_and_query": steps}):
+        if launches != counts(**{sensing: steps + 1, stepping: steps}):
             raise AssertionError(f"record_trajectory_{label} launches {launches}")
         print(f"record_trajectory_{label} on the held-out track (seed 123, width 7): {n} rows "
               f"{traj['x'].shape}, the episode's {n} steps, no row after the done step; final "
               f"progress {np.round(np.atleast_1d(traj['progress'][-1]), 4).tolist()}; "
               f"{dt * 1e3:.0f} ms on {card}; launches {sensing} {steps + 1}, "
-              f"car_step_and_query {steps}")
+              f"{stepping} {steps}")
 
 
 # ------------------------------------------------ phase (h): data-parallel training
@@ -2125,8 +2150,8 @@ def dp_expected(cfg, updates: int):
     """The launches of ``updates`` updates on one rank: the sensing and the
     transition (by row id) every step, K6 and K7 once an update."""
     n = cfg.num_steps * updates
-    return counts(raycast_walls_and_cars=n, car_step_and_query=n,
-                  raycast_walls_and_cars_row_ids=n, car_step_and_query_row_ids=n,
+    return counts(multi_observe=n, multi_transition=n,
+                  multi_observe_row_ids=n, multi_transition_row_ids=n,
                   compute_gae=updates, mixbits_permutation=updates)
 
 
@@ -2644,7 +2669,7 @@ def adapter_selfplay(dev, card):
           f"{info['finished']}; spaces {spaces}; launches {launches}")
     if not done:
         raise AssertionError("SelfPlayWrapper: the episode did not end in 3000 steps")
-    expected = counts(raycast_walls_and_cars=steps + 1, car_step_and_query=steps)
+    expected = counts(multi_observe=steps + 1, multi_transition=steps)
     if launches != expected:
         raise AssertionError(f"SelfPlayWrapper launches {launches}, expected {expected}")
     return launches
@@ -3128,12 +3153,12 @@ def graph_against_eager(pool, card):
                 raise AssertionError(f"{what}: no update took the KL exit")
             if g["replays"] < (GRAPH_UPDATES + 2) * cfg.num_steps:
                 raise AssertionError(f"{what}: {g['replays']} replays checked")
-            sensing = "raycast_walls_and_cars" if kind == "self-play" else "raycast_walls"
-            expected = counts(**{sensing: STEPS, "car_step_and_query": STEPS,
+            sensing, stepping = (("multi_observe", "multi_transition") if kind == "self-play"
+                                 else ("raycast_walls", "car_step_and_query"))
+            expected = counts(**{sensing: STEPS, stepping: STEPS,
                                  "compute_gae": 1, "mixbits_permutation": 1})
             if where == "tiled":
-                expected.update({f"{sensing}_row_ids": STEPS,
-                                 "car_step_and_query_row_ids": STEPS})
+                expected.update({f"{sensing}_row_ids": STEPS, f"{stepping}_row_ids": STEPS})
             if any(c != expected for c in g["launches"][:GRAPH_UPDATES]):
                 raise AssertionError(f"{what}: launches {g['launches']}, expected {expected}")
             print(f"{what}: graphed = eager bitwise over {len(g['metrics'])} updates (metrics, "
@@ -3312,6 +3337,444 @@ def loops_graphed(dev, card):
     return total
 
 
+# ------------------------------------ phase (m): the multi-car env step as two kernels
+
+# a config whose max_steps lets a car finish past step 4500, where the time bonus
+# (300 - steps / 15) clamps at 0
+CRAFTED_MAX_STEPS = 6000
+# the car scenarios of crafted_state: (lap fraction of the car's waypoint,
+# last_progress, cp25, cp50, cp75); None is drawn at random
+SCENARIOS = {
+    "finish": (0.02, 0.95, (True, True, True)),
+    "lap wrap backwards": (0.97, 0.05, None),
+    "cp25": (0.30, 0.29, (False, False, False)),
+    "cp50": (0.55, 0.54, (True, False, False)),
+    "cp75": (0.80, 0.79, (True, True, False)),
+    "skipped checkpoint": (0.55, 0.54, (False, False, False)),
+    "crash": (None, None, None),
+    "crashed before": (None, None, None),
+    "finished before": (None, None, (True, True, True)),
+    "driving": (None, None, None),
+}
+# an env's row of cars by env index % 8: 1 truncates, 2 finishes car 0 past step
+# 4500, 3 stacks every car on car 0 (touching pairs), 4 crashes every car before at
+# one progress (exact score ties, which the higher seat wins)
+ROW_TRUNCATES, ROW_LATE_FINISH, ROW_TOUCHING, ROW_TIES = 1, 2, 3, 4
+
+
+def crafted_state(track, num_agents, max_steps, seed, dtype=torch.float32, device=None):
+    """(state, action): a ``menv.MultiState`` on ``track`` (per-env rows or a
+    layout) whose envs drive every branch of the transition's tail, and actions
+    [N, A, 2] beyond the clip. Each car sits near a centreline waypoint in one of
+    ``SCENARIOS`` (a crash: 3 m beyond the track's width), heading along the track
+    at up to 35 m/s; rows by env index as the ``ROW_*`` constants say. Made with
+    NumPy from ``seed``, so that the JAX package can be handed the same state."""
+    rows = trk.resolve(track)
+    wx, wy, nx, ny = (getattr(rows, f).detach().cpu().double().numpy()
+                      for f in ("wp_x", "wp_y", "nrm_x", "nrm_y"))
+    n_wp = rows.n_wp.cpu().numpy().astype(np.int64)
+    width = rows.track_width.detach().cpu().double().numpy()
+    n, a = n_wp.shape[0], num_agents
+    rng = np.random.default_rng(seed)
+    names = list(SCENARIOS)
+    kind = rng.integers(0, len(names), (n, a))
+    steps = rng.integers(0, min(3000, max_steps - 1), n)
+    env = np.arange(n) % 8
+    steps[env == ROW_TRUNCATES] = max_steps - 1
+    steps[env == ROW_LATE_FINISH] = min(4600, max_steps - 1)
+    kind[env == ROW_LATE_FINISH, 0] = names.index("finish")
+    kind[env == ROW_TIES] = names.index("crashed before")
+    frac = rng.uniform(0.0, 1.0, (n, a))
+    lp = np.clip(frac - rng.uniform(0.0, 0.004, (n, a)), 0.0, None)
+    cps = rng.random((n, a, 3)) < 0.5
+    for i, name in enumerate(names):
+        f, last, flags = SCENARIOS[name]
+        sel = kind == i
+        if f is not None:
+            frac[sel], lp[sel] = f, last
+        if flags is not None:
+            cps[sel] = flags
+    tie = env == ROW_TIES
+    frac[tie] = frac[tie][:, :1]
+    lp[tie] = frac[tie]
+    crashed_before = kind == names.index("crashed before")
+    lp[crashed_before] = frac[crashed_before]
+    finished = kind == names.index("finished before")
+    finished_step = np.where(finished, rng.integers(1, np.maximum(steps, 1) + 1)[:, None], 0)
+
+    k = np.round(frac * n_wp[:, None]).astype(np.int64) % n_wp[:, None]
+    r = np.arange(n)[:, None]
+    nxt = (k + 1) % n_wp[:, None]
+    heading = np.arctan2(wy[r, nxt] - wy[r, k], wx[r, nxt] - wx[r, k])
+    heading = np.mod(heading + rng.normal(0.0, 0.2, (n, a)), 2 * np.pi)
+    off = rng.uniform(-1.0, 1.0, (n, a))
+    crash = kind == names.index("crash")
+    off[crash] = np.sign(off[crash] + 1e-9) * np.broadcast_to(width[:, None] + 3.0, (n, a))[crash]
+    x = wx[r, k] + nx[r, k] * off
+    y = wy[r, k] + ny[r, k] * off
+    speed = rng.uniform(0.0, 35.0, (n, a))
+    vx = speed * np.cos(heading) + rng.normal(0.0, 1.0, (n, a))
+    vy = speed * np.sin(heading) + rng.normal(0.0, 1.0, (n, a))
+    touch = env == ROW_TOUCHING
+    for j in range(1, a):
+        x[touch, j] = x[touch, 0] + 0.7 * j
+        y[touch, j] = y[touch, 0] - 0.4 * j
+        heading[touch, j] = heading[touch, 0]
+
+    def t(v, dt=dtype):
+        return torch.as_tensor(np.ascontiguousarray(v), dtype=dt, device=device)
+
+    b, i32 = torch.bool, torch.int32
+    state = menv.MultiState(
+        x=t(x), y=t(y), angle=t(heading), vx=t(vx), vy=t(vy), progress=t(lp),
+        crashed=t(crashed_before, b), finished=t(finished, b), steps=t(steps, i32),
+        last_progress=t(lp), last_steering=t(rng.uniform(-1.0, 1.0, (n, a))),
+        cp25=t(cps[..., 0], b), cp50=t(cps[..., 1], b), cp75=t(cps[..., 2], b),
+        has_crashed=t(crashed_before, b), finished_step=t(finished_step, i32),
+        placement=t(np.zeros((n, a)), i32))
+    action = np.stack([rng.uniform(-1.3, 1.3, (n, a)), rng.uniform(-1.4, 1.4, (n, a))], -1)
+    return state, t(action, torch.float32)
+
+
+def tail_branches(state, out):
+    """How many cars (or envs) of one transition took each branch of its tail."""
+    new, _, terminated, truncated, _ = out
+    fin = new.finished & ~state.finished
+    late = new.steps[:, None].expand_as(fin) > 4500
+    p, lp = new.progress, state.last_progress
+    same = lambda f: (f == f[:, :1]).all(dim=-1)
+    done = terminated | truncated
+    return {
+        "finish": int(fin.sum()), "finish past step 4500": int((fin & late).sum()),
+        "lap wrap forwards": int(((lp > 0.9) & (p < 0.1)).sum()),
+        "lap wrap backwards": int(((lp < 0.1) & (p > 0.9)).sum()),
+        "cp25": int((new.cp25 & ~state.cp25).sum()),
+        "cp50": int((new.cp50 & ~state.cp50).sum()),
+        "cp75": int((new.cp75 & ~state.cp75).sum()),
+        "skipped checkpoint": int((~state.cp25 & (p >= 0.5) & (p < 0.6) & ~new.cp50).sum()),
+        "crash": int((new.has_crashed & ~state.has_crashed).sum()),
+        "crashed before": int(state.has_crashed.sum()),
+        "truncated": int(truncated.sum()), "terminated": int(terminated.sum()),
+        "placed": int((new.placement > 0).sum()),
+        "exact ties": int((done & same(new.progress) & same(new.crashed)
+                           & same(new.finished) & same(new.finished_step)).sum())
+        if new.x.shape[1] > 1 else 0,
+    }
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two tensors hold the same bits: shape, dtype and every bit (-0.0 is
+    not 0.0)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        return torch.equal(a.contiguous().view(bits), b.contiguous().view(bits))
+    return torch.equal(a, b)
+
+
+def transition_fields(out) -> dict:
+    """Every output of ``multi.transition``, by name."""
+    state, reward, terminated, truncated, info = out
+    fields = {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
+    fields.update(reward=reward, terminated=terminated, truncated=truncated,
+                  **{f"info_{k}": v for k, v in info.items()})
+    return fields
+
+
+def differing(got: dict, want: dict) -> dict:
+    """The fields whose bits differ, with the number of elements that differ."""
+    return {k: int((got[k] != want[k]).sum()) if got[k].shape == want[k].shape else -1
+            for k in want if not same_bits(got[k], want[k])}
+
+
+def env_step_bound(cfg, track, state, action, outs, obs):
+    """The bounds of ``multi.transition`` and ``multi.observe`` on these inputs:
+    each input read once (the distinct rows of a layout once) and each output
+    written once over 3.35 TB/s, against the narrow kernels' operations (K1's
+    fold and K3's car pass counted from the data, K2's search, K5 and K4's pair
+    test) and the tails' (a few tens a car) over 67 TFLOP/s."""
+    rows, row_ids = trk.rows_of(track)
+    used = (rows.wp_x.shape[0] if row_ids is None
+            else int(torch.unique(row_ids).numel()))
+    n, a = state.x.shape
+    w, s, r = rows.wp_x.shape[-1], rows.seg_sx.shape[-1], cfg.num_sensors
+    fields = [getattr(state, f.name) for f in dataclasses.fields(state)]
+    per_env = trk.scalars_of(track)
+    t_in = nbytes(*fields, action, per_env.n_wp, per_env.track_width) + used * w * 2 * 4 \
+        + 8 * n * a * 4  # the rows' positions, the normals at the corners' winners
+    t_ops = n * a * (5 * w * K2_OPS_PER_PAIR + K5_OPS_PER_CAR + TAIL_OPS_PER_CAR) \
+        + n * a * a * (4 * K4_OPS_PER_PAIR_AXIS + 2)
+    transition = bound_ms(t_in + nbytes(*outs), t_ops)
+    cdx = state.x[:, None, :] - state.x[:, :, None]
+    cdy = state.y[:, None, :] - state.y[:, :, None]
+    seen = int((torch.sqrt(cdx * cdx + cdy * cdy) >= 0.5).sum()) * r
+    o_in = nbytes(state.x, state.y, state.angle, state.vx, state.vy, state.last_steering,
+                  per_env.max_track_distance) + used * s * 5 * 4
+    o_ops = (n * a * r * (s * K1_OPS_PER_PAIR + a * K3_OPS_PER_RAY_CAR)
+             + seen * 4 * K3_OPS_PER_RAY_EDGE + n * a * a * OBS_OPS_PER_PAIR)
+    return transition, bound_ms(o_in + nbytes(obs), o_ops)
+
+
+# per car, the transition's tail: the clip 5, progress and crash 3, delta 10, the
+# reward's terms and sums 24, the checkpoints 12, the score 8
+TAIL_OPS_PER_CAR = 62
+# per ordered pair of a row's cars, the observation's columns: cos and sin 2, four
+# rotated differences of 4 products and sums, 2 divisions, 4 clamps of 2
+OBS_OPS_PER_PAIR = 32
+
+
+def check_env_step(pool, rng, dev):
+    """Phase m.1: ``multi.transition`` and ``multi.observe``, one launch each on the
+    card, against their plain versions (the narrow kernels' wrappers and PyTorch,
+    what the env ran before) on ``crafted_state`` at 1, 2, 3 and 8 cars over 4096
+    envs of the canonical pool, gathered and tiled, the sensing unclamped and
+    clamped: every output bitwise; each branch of the tail taken (counts printed).
+    Then both timed at 4096 x 2 cars on the tiled pool, eager (the wrapper's host
+    work included) and in a CUDA graph, beside the plain versions and their bounds.
+    Returns the two kernels' entries."""
+    layouts = {"gathered": trk.gather_tracks(pool, np.arange(NUM_ENVS) % NUM_TRACKS),
+               "tiled": trk.tiled_pooled_tracks(pool, NUM_ENVS)}
+    for a in (1, NUM_AGENTS, 3, 8):
+        for where, track in layouts.items():
+            for clamp in (False, True):
+                cfg = menv.MultiRacingConfig(num_agents=a, num_sensors=11,
+                                             max_steps=CRAFTED_MAX_STEPS,
+                                             clamp_sensor_range=clamp)
+                state, action = crafted_state(track, a, cfg.max_steps, seed=a, device=dev)
+                before = (menv.transition_launches, menv.observe_launches,
+                          menv.transition_row_id_launches, menv.observe_row_id_launches)
+                out = menv.transition(cfg, track, state, action)
+                obs = menv.observe(cfg, track, out[0])
+                tiled = int(where == "tiled")
+                if (menv.transition_launches, menv.observe_launches,
+                        menv.transition_row_id_launches, menv.observe_row_id_launches) != (
+                        before[0] + 1, before[1] + 1, before[2] + tiled, before[3] + tiled):
+                    raise AssertionError(f"phase m.1 {a} cars {where}: the kernels' counters")
+                plain = menv.transition_plain(cfg, track, state, action)
+                plain_obs = menv.observe_plain(cfg, track, out[0])
+                got, want = transition_fields(out), transition_fields(plain)
+                bad = differing(got, want)
+                if bad or not same_bits(obs, plain_obs):
+                    raise AssertionError(
+                        f"phase m.1 {a} cars {where} clamp {clamp}: transition fields "
+                        f"{bad} and {int((obs != plain_obs).sum())} observation entries "
+                        f"differ from the plain versions")
+                branches = tail_branches(state, out)
+                if a > 1 and where == "tiled" and not clamp:
+                    missing = [k for k, v in branches.items() if v == 0]
+                    if missing:
+                        raise AssertionError(f"phase m.1 {a} cars: no car took {missing}")
+                print(f"phase m.1 multi.transition + multi.observe, {a} cars x {NUM_ENVS} envs "
+                      f"{where}{', sensing clamped' if clamp else ''}: every output bitwise "
+                      f"the plain versions; branches {branches}")
+    cfg = menv.MultiRacingConfig(num_agents=NUM_AGENTS, num_sensors=11)
+    track = layouts["tiled"]
+    state, action = crafted_state(track, NUM_AGENTS, cfg.max_steps, seed=7, device=dev)
+    out = menv.transition(cfg, track, state, action)
+    obs = menv.observe(cfg, track, state)
+    (t_bound, t_by), (o_bound, o_by) = env_step_bound(
+        cfg, track, state, action, transition_fields(out).values(), obs)
+    timing = {}
+    for name, fn, plain in (
+            ("multi_transition", lambda: menv.transition(cfg, track, state, action),
+             lambda: menv.transition_plain(cfg, track, state, action)),
+            ("multi_observe", lambda: menv.observe(cfg, track, state),
+             lambda: menv.observe_plain(cfg, track, state))):
+        timing[name] = (per_launch_ms(fn), graph_ms(fn),
+                        per_launch_ms(plain, windows=5, launches=5), graph_ms(plain))
+    entries = []
+    for name, source, replaces, (b_ms, b_by) in (
+            ("multi_transition", "self_play_racing_tpu_torch/csrc/car_step_and_query.cu",
+             "self_play_racing_tpu/envs/multi.py:266", (t_bound, t_by)),
+            ("multi_observe", "self_play_racing_tpu_torch/csrc/raycast_walls_and_cars.cu",
+             "self_play_racing_tpu/envs/multi.py:146", (o_bound, o_by))):
+        ms, g_ms, plain_ms, plain_g = timing[name]
+        print(f"phase m.1 {name} at {NUM_ENVS} x {NUM_AGENTS} cars on the tiled pool: "
+              f"{ms * 1e3:.1f} us eager back-to-back with the wrapper's host work "
+              f"({g_ms * 1e3:.1f} us in a CUDA graph), bound {b_ms * 1e3:.2f} us ({b_by}); "
+              f"the plain version (the narrow kernel and PyTorch, what the env ran before) "
+              f"{plain_ms * 1e3:.1f} us eager, {plain_g * 1e3:.1f} us in a CUDA graph")
+        entries.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "max_abs_err": 0.0, "ms": ms, "graph_ms": g_ms,
+                        "plain_ms": plain_ms, "plain_graph_ms": plain_g, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": None})
+    return entries
+
+
+def rollout_with(env_step, trainer, log_std, noise, gen_state, graphed):
+    """One rollout of ``trainer`` (its runner, aux and hooks) on ``noise``, from the
+    runner's generator at ``gen_state``, with ``multi.transition`` and
+    ``multi.observe`` as ``env_step`` gives them ("kernel": the two launches;
+    "plain": the plain versions, the narrow kernels and PyTorch, as the parent
+    ran). Graphed (``ppo.UpdateGraphs``) or eager. Returns (outputs, graphs)."""
+    gen = trainer.runner.vec.generator
+    real = (menv.transition, menv.observe)
+    if env_step == "plain":
+        menv.transition, menv.observe = menv.transition_plain, menv.observe_plain
+    try:
+        gen.set_state(gen_state)
+        if graphed:
+            graphs = ppo.UpdateGraphs()
+            out = graphs.rollout_phase(trainer.cfg, trainer.hooks, trainer.runner,
+                                       trainer.aux, log_std, noise)
+        else:
+            graphs = None
+            out = ppo.rollout_phase(trainer.cfg, trainer.hooks, trainer.runner, trainer.aux,
+                                    log_std, noise)
+        torch.cuda.synchronize()
+    finally:
+        menv.transition, menv.observe = real
+    vec, obs, done, _, traj, step_out = out
+    leaves = {f"final {p}": t for p, t in _graph.tensor_leaves((vec, obs, done))}
+    leaves.update({f"step {k}": v for k, v in step_out.items()})
+    return {k: v.clone() for k, v in leaves.items()}, graphs
+
+
+@contextlib.contextmanager
+def both_env_steps(mismatches):
+    """Inside the block ``multi.transition`` and ``multi.observe`` run the kernel
+    and, on the same inputs, the plain version, and return the kernel's outputs;
+    ``mismatches`` gains a device count of the outputs whose bits differ."""
+    real = (menv.transition, menv.observe)
+
+    def transition(cfg, track, state, action):
+        got = real[0](cfg, track, state, action)
+        want = transition_fields(menv.transition_plain(cfg, track, state, action))
+        for k, v in transition_fields(got).items():
+            mismatches.append(same_bits_device(v, want[k]))
+        return got
+
+    def observe(cfg, track, state):
+        got = real[1](cfg, track, state)
+        mismatches.append(same_bits_device(got, menv.observe_plain(cfg, track, state)))
+        return got
+
+    menv.transition, menv.observe = transition, observe
+    try:
+        yield mismatches
+    finally:
+        menv.transition, menv.observe = real
+
+
+def same_bits_device(a, b) -> torch.Tensor:
+    """A device flag: 1 where ``a`` and ``b`` differ in any bit, read later, so that
+    the check does not wait on the card every step."""
+    if a.is_floating_point():
+        bits = {4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.contiguous().view(bits), b.contiguous().view(bits)
+    return (a != b).any().to(torch.int32)
+
+
+def rollout_step_profile(rollout, steps: int) -> dict:
+    """A captured rollout step (``ppo.UpdateGraphs.rollout``): one replay under the
+    profiler (its kernel nodes, its copy and set nodes, the kernels' summed time),
+    then ``steps`` replays between CUDA events (device ms a step). The graph's step
+    counter is set back before each, so the replays stay inside its buffers.
+    ``scripts/torch_step_profile.py`` keeps a copy, so that it runs on a checkout
+    that predates this one."""
+    rollout.carry.t.zero_()
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        rollout.step.graph.replay()
+        torch.cuda.synchronize()
+    out = {"kernel_nodes": 0, "copy_nodes": 0, "kernel_us": 0.0}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "memcpy" in evt.name.lower() or "memset" in evt.name.lower():
+            out["copy_nodes"] += 1
+        else:
+            out["kernel_nodes"] += 1
+            out["kernel_us"] += evt.time_range.elapsed_us()
+    rollout.carry.t.zero_()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(steps):
+        rollout.step.graph.replay()
+    end.record()
+    end.synchronize()
+    out["ms_per_step"] = start.elapsed_time(end) / steps
+    return out
+
+
+def env_step_rollout(pool, dev, card):
+    """Phase m.2 and m.3: a 256-step self-play rollout at 4096 envs x 2 cars on the
+    tiled canonical pool, the learner and every opponent ``SCALE_1B_MODEL`` (its
+    parameters loaded into a ``SelfPlayTrainer``, and its snapshot the pool's one
+    member): eagerly with every ``multi.transition`` and ``multi.observe`` call also
+    run as its plain version on the same inputs (every output of every step
+    bitwise); then graphed (``ppo.UpdateGraphs``, as the trainer runs it) with the
+    two kernels and with the plain versions (the parent's composition): every
+    step's buffers and the final state bitwise. Then the kernel nodes of one
+    captured rollout step of each and its device time a step, and the kernel
+    graph's gain. Returns the node counts."""
+    cfg = self_play_config(num_envs=NUM_ENVS, num_steps=STEPS, total_timesteps=1_000_000_000,
+                           opponent_per_env=True, reset_envs_each_update=False,
+                           snapshot_freq=1)
+    env_cfg = menv.MultiRacingConfig(num_agents=NUM_AGENTS, num_sensors=11)
+    trainer = SelfPlayTrainer(cfg, env_cfg, trk.tiled_pooled_tracks(pool, NUM_ENVS))
+    agent, _ = interop.load_npz(SCALE_1B_MODEL, device=dev)
+    with torch.no_grad():
+        for p, q in zip(trainer.runner.train.model.parameters(), agent.parameters()):
+            p.copy_(q)
+        trainer.snapshot_agent()
+        trainer.pool["log_std"][0].copy_(agent.log_std)
+    trainer.select_opponent()
+    log_std = agent.log_std.detach().clone()
+    noise = net.sample_noise((STEPS, NUM_ENVS, 2), torch.Generator(device=dev).manual_seed(4),
+                             device=dev)
+    gen_state = trainer.runner.vec.generator.get_state()
+
+    flags = []
+    t0 = time.perf_counter()
+    with both_env_steps(flags):
+        eager, _ = rollout_with("kernel", trainer, log_std, noise, gen_state, graphed=False)
+    calls = len(flags)
+    bad = int(torch.stack(flags).sum()) if flags else -1
+    # a step: one transition (the state's fields, reward, the two flags, info's
+    # eight entries) and one observe (the refresh of the merged state)
+    if bad != 0 or calls != STEPS * (len(dataclasses.fields(menv.MultiState)) + 3 + 8 + 1):
+        raise AssertionError(f"phase m.2: {bad} of {calls} outputs differ from the plain "
+                             "versions over the eager rollout")
+    print(f"phase m.2 eager rollout, {STEPS} steps x {NUM_ENVS} envs x {NUM_AGENTS} cars "
+          f"({SCALE_1B_MODEL} learner and opponents, tiled pool): every output of every "
+          f"multi.transition and multi.observe call ({calls} outputs) bitwise the plain "
+          f"versions on the same inputs ({time.perf_counter() - t0:.1f} s); "
+          f"{int(eager['step ep_mask'].sum())} episodes ended")
+    runs = {}
+    for env_step in ("kernel", "plain"):
+        out, graphs = rollout_with(env_step, trainer, log_std, noise, gen_state, graphed=True)
+        runs[env_step] = (out, graphs)
+    (k_out, k_graphs), (p_out, p_graphs) = runs["kernel"], runs["plain"]
+    for what, got in (("graphed plain", p_out), ("eager", eager)):
+        bad = {k: int((k_out[k] != got[k]).sum()) for k in k_out if not same_bits(k_out[k], got[k])}
+        if bad or k_out.keys() != got.keys():
+            raise AssertionError(f"phase m.2: the graphed kernel rollout differs from the "
+                                 f"{what} rollout in {bad}")
+    print(f"phase m.2 graphed rollout ({STEPS} replays): the kernels' rollout bitwise the "
+          f"graphed plain versions' and the eager rollout's, every step's {len(k_out)} "
+          f"buffers and the final state")
+    nodes = {}
+    for env_step, graphs in (("kernel", k_graphs), ("plain", p_graphs), ("kernel", k_graphs),
+                             ("plain", p_graphs)):
+        nodes.setdefault(env_step, []).append(rollout_step_profile(graphs.rollout, STEPS))
+    k_nodes = nodes["kernel"][0]["kernel_nodes"]
+    p_nodes = nodes["plain"][0]["kernel_nodes"]
+    print(f"phase m.3 one captured self-play rollout step (4096 x 2 cars, tiled) on {card}: "
+          f"kernel nodes {k_nodes} with the two env kernels against {p_nodes} with the plain "
+          f"versions (the parent's env step), copy nodes {nodes['kernel'][0]['copy_nodes']} "
+          f"and {nodes['plain'][0]['copy_nodes']}; the kernels' time in one replay "
+          f"{nodes['kernel'][0]['kernel_us']:.1f} and {nodes['plain'][0]['kernel_us']:.1f} us; "
+          f"a step between CUDA events over {STEPS} replays, in turns kernel, plain, kernel, "
+          f"plain: {[round(r['ms_per_step'], 4) for r in nodes['kernel']]} ms and "
+          f"{[round(r['ms_per_step'], 4) for r in nodes['plain']]} ms")
+    if p_nodes - k_nodes < 100:
+        raise AssertionError(f"phase m.3: {k_nodes} kernel nodes a step against {p_nodes}; "
+                             "expected at least 100 fewer")
+    return nodes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3343,6 +3806,8 @@ def main() -> int:
     env_kernels = check_env_kernels(track, mcfg, rng, dev)
     check_contacts(track, mcfg, rng, dev, env_kernels[1])
     kernels += env_kernels
+    with timed("phase m.1 (the env step's two kernels against their plain versions)"):
+        kernels += check_env_step(pool, rng, dev)
     procgen = procgen_on_card(dev)
     kernels += check_row_ids(pool, procgen, cfg, mcfg, rng, dev)
     single_car, single_obs = main_path(track, cfg, dev, card)
@@ -3363,12 +3828,22 @@ def main() -> int:
           f"memory {tiled_peak / 2**20:,.1f} MiB tiled, {peak / 2**20:,.1f} MiB gathered "
           f"(the gathered rows are {gathered_row_bytes(pool, NUM_ENVS) / 2**20:,.1f} MiB)")
     for k in kernels:
-        # K1 runs on the self-play path inside raycast_walls_and_cars
-        if k["name"] in ("raycast_walls", "raycast_walls_row_ids"):
-            counted = single_car if k["name"] == "raycast_walls" else tiled_single
-            k["launches"] = counted[k["name"]]
-            k["launches_path"] = ("single-car main path" if k["name"] == "raycast_walls" else
-                                  "single-car main path on the tiled pool")
+        # K1 runs on the self-play path inside multi_observe, the single-car
+        # transition on the single-car path; the narrow sensing on no main path
+        if k["name"] in ("raycast_walls", "raycast_walls_row_ids", "car_step_and_query",
+                         "car_step_and_query_row_ids"):
+            tiled_path = k["name"].endswith("_row_ids")
+            k["launches"] = (tiled_single if tiled_path else single_car)[k["name"]]
+            k["launches_path"] = ("single-car main path on the tiled pool" if tiled_path else
+                                  "single-car main path")
+            k["launches_selfplay"] = (tiled if tiled_path else launches)[k["name"]]
+        elif k["name"] in ("raycast_walls_and_cars", "raycast_walls_and_cars_row_ids"):
+            k["launches"] = (tiled if k["name"].endswith("_row_ids") else launches)[k["name"]]
+            k["launches_path"] = ("self-play training: 0, the multi-car env's observe runs "
+                                  "its fold and car pass as multi_observe")
+        elif k["name"] in ("multi_observe", "multi_transition"):
+            k["launches"], k["launches_path"] = launches[k["name"]], "self-play training"
+            k["launches_row_ids"] = tiled[f"{k['name']}_row_ids"]
         elif k["name"].endswith("_row_ids"):
             k["launches"] = tiled[k["name"]]
             k["launches_path"] = "self-play training on the tiled pool"
@@ -3395,6 +3870,8 @@ def main() -> int:
         graph_launches = graph_against_eager(pool, card)
     with timed("phase l (the loops as device programs)"):
         loop_launches = loops_graphed(dev, card)
+    with timed("phase m.2-m.3 (the env step's kernels over a graphed rollout)"):
+        nodes = env_step_rollout(pool, dev, card)
     for k in kernels:
         k["launches_match"] = match_launches[k["name"]]
         k["launches_data_parallel_world1"] = dp_world_one[k["name"]]
@@ -3403,6 +3880,8 @@ def main() -> int:
         k["launches_tensor_parallel"] = [r[k["name"]] for r in tp_launches]
         k["launches_graphed"] = graph_launches[k["name"]]
         k["launches_loops_graphed"] = loop_launches[k["name"]]
+        if k["name"] in ("multi_observe", "multi_transition"):
+            k["rollout_step_nodes"] = nodes
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

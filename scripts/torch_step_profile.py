@@ -37,6 +37,8 @@ time and idle share and the kernels that take the most of it (graphed unless
 ``--eager``), then ``--steps`` steps of the eager self-play rollout (opponents,
 transition, autoreset, refresh: ``ppo.rollout_phase``) alone, unprofiled for the
 wall time and under the profiler for the device time, reported per env step.
+Graphed, it also reports the captured rollout step itself: the kernel and copy
+nodes of one replay and the device ms a step over ``num_steps`` replays.
 
 With ``--match`` it profiles one tournament match as chip_smoke.py's phase g plays
 it: the 8B- against the 4B-step scale agent, one policy per seat, on the 20 x 2
@@ -180,6 +182,9 @@ def profile_selfplay(args, dev) -> dict:
         torch.cuda.synchronize()
     update_kernels = _device_kernels(prof)
     update_busy_us = sum(t for t, _ in update_kernels.values())
+    graphs = getattr(trainer.update_step, "graphs", None)
+    graphed = (None if graphs is None or graphs.rollout is None
+               else _graphed_step(graphs.rollout, cfg.num_steps))
 
     short = dataclasses.replace(cfg, num_steps=args.steps)
     runner, log_std = trainer.runner, trainer.log_std
@@ -219,6 +224,7 @@ def profile_selfplay(args, dev) -> dict:
             {"name": name[:90], "ms": t / 1e3, "launches": c}
             for name, (t, c) in sorted(update_kernels.items(),
                                        key=lambda kv: -kv[1][0])[: args.top]],
+        "graphed_rollout_step": graphed,
         "rollout_steps_profiled": steps,
         "rollout_wall_ms_per_step": step_wall * 1e3,
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
@@ -228,6 +234,36 @@ def profile_selfplay(args, dev) -> dict:
         "top_kernels": [{"name": name[:90], "ms_per_step": t / 1e3 / steps,
                          "launches_per_step": c / steps} for name, (t, c) in top],
     }
+
+
+def _graphed_step(rollout, steps: int) -> dict:
+    """The trainer's captured rollout step (``ppo.UpdateGraphs.rollout``): one replay
+    under the profiler (its kernel nodes, its copy and set nodes, the kernels'
+    summed time), then ``steps`` replays between CUDA events (device ms a step).
+    The graph's step counter is set back before each, so the replays stay inside
+    its [T, N, ...] buffers. A copy of ``chip_smoke.rollout_step_profile``, kept
+    here so that this script runs on a checkout that predates it."""
+    rollout.carry.t.zero_()
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        rollout.step.graph.replay()
+        torch.cuda.synchronize()
+    nodes = collections.Counter()
+    busy_us = 0.0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            copy = "memcpy" in evt.name.lower() or "memset" in evt.name.lower()
+            nodes["copy_nodes" if copy else "kernel_nodes"] += 1
+            busy_us += 0.0 if copy else evt.time_range.elapsed_us()
+    rollout.carry.t.zero_()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(steps):
+        rollout.step.graph.replay()
+    end.record()
+    end.synchronize()
+    return {**nodes, "kernel_us_in_one_replay": busy_us,
+            "device_ms_per_step": start.elapsed_time(end) / steps}
 
 
 def profile_match(args, dev) -> dict:

@@ -46,8 +46,9 @@ WARMUP_RUNS = 3
 
 
 def _counter_modules():
+    from .envs import multi
     from .ops import dynamics, gae, geometry, prng
-    return (geometry, dynamics, gae, prng)
+    return (geometry, dynamics, gae, prng, multi)
 
 
 def launch_counts() -> dict:

@@ -13,11 +13,17 @@ import numpy as np
 import torch
 
 
+def f32_reciprocal(c: float) -> np.float32:
+    """``1 / c`` rounded to float32 as ``div_const`` rounds it for a float32 tensor
+    (the value a kernel multiplies by to divide as the plain version does)."""
+    return np.float32(1.0) / np.float32(c)
+
+
 def div_const(t: torch.Tensor, c: float) -> torch.Tensor:
     """``t / c`` for a constant ``c``, as XLA computes it: ``t * (1 / c)`` with the
     reciprocal rounded in ``t``'s dtype."""
     if t.dtype == torch.float32:
-        recip = float(np.float32(1.0) / np.float32(c))
+        recip = float(f32_reciprocal(c))
     elif t.dtype == torch.float64:
         recip = 1.0 / float(c)
     else:

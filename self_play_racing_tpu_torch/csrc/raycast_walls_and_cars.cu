@@ -39,6 +39,23 @@
 //     the fold: the fold's registers set how many blocks an SM holds;
 //   - with row ids (the capacity layouts) block b stages pool row row_ids[b]; the
 //     cars and rays stay env b's.
+//
+// The multi-car env's whole observation (kObs, entry multi_observe_f32): the same
+// block writes the f32 row [A, obs_dim] that the JAX package's observe
+// (self_play_racing_tpu/envs/multi.py: observe) returns, which XLA fuses on the
+// TPU and which the port ran as ~50 launches around this kernel: each ray's
+// distance, clamped to the range where the config asks, times the float32
+// reciprocal of the range (_numerics.py:div_const); then per car v_fwd and v_lat
+// (its velocity in its frame times the reciprocal of max_speed, clamped to +-1),
+// the constant 0 and last_steering; then per other seat in seat order the relative
+// position in the car's frame over the env's max_track_distance (an IEEE divide)
+// and the relative velocity over max_speed, each clamped to +-1. Thread p of the
+// block takes the car pair (p / A, p % A), the diagonal being the car's own four
+// features, while the row's segments arrive. cos/sin of the heading are cosf/sinf
+// as above; the sums in the source's order, built with -fmad=false, so the row is
+// bitwise the PyTorch composition (envs/multi.py:observe_plain) on the card. The
+// epilogue reads 24 bytes a car and writes 4 * obs_dim (76 at A = 2): ~0.7 MB at
+// the self-play shapes beside the kernel's 2.1 GFLOP, so its bound stays the fold's.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -66,7 +83,25 @@ __device__ __forceinline__ void ray_of(const float* x, const float* y, const flo
     dy = sinf(world);
 }
 
-template <int R>
+// torch.clamp(v, -1, 1) on the card: NaN passes
+__device__ __forceinline__ float clamp_unit(float v) {
+    return v < -1.0f ? -1.0f : (v > 1.0f ? 1.0f : v);
+}
+
+// The observation's inputs beyond the poses (kObs): the velocities and
+// last_steering [rows * A], max_track_distance [rows], and the float32
+// reciprocals of the sensor range and max_speed.
+struct ObsIn {
+    const float* vx;
+    const float* vy;
+    const float* last_steering;
+    const float* max_track_distance;
+    float inv_range;
+    float inv_max_speed;
+    int clamp_range;
+};
+
+template <int R, bool kObs>
 __global__ void __launch_bounds__(kMaxThreads) raycast_walls_and_cars_kernel(
         const float* __restrict__ x, const float* __restrict__ y,
         const float* __restrict__ angle, const float* __restrict__ rel,
@@ -75,7 +110,7 @@ __global__ void __launch_bounds__(kMaxThreads) raycast_walls_and_cars_kernel(
         const float* __restrict__ seg_c, const int* __restrict__ row_ids,
         float* __restrict__ out, int num_cars,
         int num_sensors, int num_segments, float half_length, float half_width,
-        float max_dist) {
+        float max_dist, ObsIn obs) {
     extern __shared__ __align__(16) float stage[];
     __shared__ uint64_t bar;
     const int S = num_segments;
@@ -109,6 +144,36 @@ __global__ void __launch_bounds__(kMaxThreads) raycast_walls_and_cars_kernel(
         }
         cars.x[a] = x[i];
         cars.y[a] = y[i];
+    }
+    // the observation's kinematic and opponent columns, while the row arrives
+    const int obs_dim = num_sensors + 4 * num_cars;  // R + 4 + 4 (A - 1)
+    if constexpr (kObs) {
+        const int A = num_cars;
+        for (int p = threadIdx.x; p < A * A; p += blockDim.x) {
+            const int i = p / A;
+            const int j = p - i * A;
+            const size_t ci = row * A + i;
+            float* o = out + ci * obs_dim + num_sensors;
+            const float ca = cosf(angle[ci]);
+            const float sa = sinf(angle[ci]);
+            if (i == j) {
+                const float vx = obs.vx[ci], vy = obs.vy[ci];
+                o[0] = clamp_unit((vx * ca + vy * sa) * obs.inv_max_speed);
+                o[1] = clamp_unit((-vx * sa + vy * ca) * obs.inv_max_speed);
+                o[2] = 0.0f;  // the reference's angular velocity, never written
+                o[3] = obs.last_steering[ci];
+            } else {
+                const size_t cj = row * A + j;
+                const float rx = x[cj] - x[ci], ry = y[cj] - y[ci];
+                const float rvx = obs.vx[cj] - obs.vx[ci], rvy = obs.vy[cj] - obs.vy[ci];
+                const float td = obs.max_track_distance[row];
+                float* q = o + 4 + 4 * (j < i ? j : j - 1);
+                q[0] = clamp_unit(__fdiv_rn(rx * ca + ry * sa, td));
+                q[1] = clamp_unit(__fdiv_rn(-rx * sa + ry * ca, td));
+                q[2] = clamp_unit((rvx * ca + rvy * sa) * obs.inv_max_speed);
+                q[3] = clamp_unit((-rvx * sa + rvy * ca) * obs.inv_max_speed);
+            }
+        }
     }
 
     // group g's rays g*R .. g*R + R-1 (the last ray repeated past the row's end),
@@ -155,26 +220,62 @@ __global__ void __launch_bounds__(kMaxThreads) raycast_walls_and_cars_kernel(
             const float wall = wall_fold::distance(wa, wd, max_dist);
             const float car = car_hits::nearest(cars, ox, oy, dx, dy, max_dist);
             // torch.minimum(wall, car) on the card: the first NaN, else fminf
-            out[row * rays_per_row + r] =
-                wall != wall ? wall : (car != car ? car : fminf(wall, car));
+            float d = wall != wall ? wall : (car != car ? car : fminf(wall, car));
+            if constexpr (kObs) {
+                // torch.clamp_max(d, range) keeps a NaN; then div_const(d, range)
+                if (obs.clamp_range) d = d > max_dist ? max_dist : d;
+                const int a = r / num_sensors;
+                out[(row * num_cars + a) * obs_dim + (r - a * num_sensors)] = d * obs.inv_range;
+            } else {
+                out[row * rays_per_row + r] = d;
+            }
         }
     }
 }
 
-template <int R>
+template <int R, bool kObs>
 int launch(const float* x, const float* y, const float* angle, const float* rel,
            const float* sx, const float* sy, const float* vx, const float* vy,
            const float* c, const int* row_ids, float* out, int rows, int num_cars,
            int num_sensors,
            int num_segments, float half_length, float half_width, float max_dist,
-           int threads, int smem, cudaStream_t stream) {
-    auto kernel = raycast_walls_and_cars_kernel<R>;
+           int threads, int smem, cudaStream_t stream, ObsIn obs) {
+    auto kernel = raycast_walls_and_cars_kernel<R, kObs>;
     const cudaError_t err = row_stage::allow_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
     kernel<<<rows, threads, smem, stream>>>(x, y, angle, rel, sx, sy, vx, vy, c, row_ids, out,
                                             num_cars, num_sensors, num_segments,
-                                            half_length, half_width, max_dist);
+                                            half_length, half_width, max_dist, obs);
     return (int)cudaGetLastError();
+}
+
+template <bool kObs>
+int launch_rays(const float* x, const float* y, const float* angle, const float* rel,
+                const float* seg_sx, const float* seg_sy, const float* seg_vx,
+                const float* seg_vy, const float* seg_c, const int* row_ids, float* out,
+                int rows, int num_cars, int num_sensors, int num_segments,
+                float half_length, float half_width, float max_dist, int threads, int smem,
+                int rays_per_lane, void* stream, ObsIn obs) {
+    if (rows == 0 || num_cars == 0 || num_sensors == 0) return 0;
+    if (threads % 32 != 0 || threads > kMaxThreads || num_segments < 1 || num_cars < 0
+            || num_sensors < 0 || seg_c == nullptr)
+        return (int)cudaErrorInvalidValue;
+    const auto st = (cudaStream_t)stream;
+#define RWC_LAUNCH(R) \
+    case R: return launch<R, kObs>(x, y, angle, rel, seg_sx, seg_sy, seg_vx, seg_vy, seg_c, \
+                                   row_ids, out, rows, num_cars, num_sensors, num_segments, \
+                                   half_length, half_width, max_dist, threads, smem, st, obs)
+    switch (rays_per_lane) {
+        RWC_LAUNCH(1);
+        RWC_LAUNCH(2);
+        RWC_LAUNCH(3);
+        RWC_LAUNCH(4);
+        RWC_LAUNCH(6);
+        RWC_LAUNCH(8);
+        RWC_LAUNCH(11);
+        default: return (int)cudaErrorInvalidValue;
+    }
+#undef RWC_LAUNCH
 }
 
 }  // namespace
@@ -195,26 +296,36 @@ extern "C" int raycast_walls_and_cars_f32(
         int threads, int smem, int rays_per_lane, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    if (rows == 0 || num_cars == 0 || num_sensors == 0) return 0;
-    if (threads % 32 != 0 || threads > kMaxThreads || num_segments < 1 || num_cars < 0
-            || num_sensors < 0 || seg_c == nullptr)
+    return launch_rays<false>(x, y, angle, rel, seg_sx, seg_sy, seg_vx, seg_vy, seg_c, row_ids,
+                              out, rows, num_cars, num_sensors, num_segments, half_length,
+                              half_width, max_dist, threads, smem, rays_per_lane, stream,
+                              ObsIn{});
+}
+
+// The multi-car env's observation (kObs): as raycast_walls_and_cars_f32, with the
+// velocities vx, vy and last_steering [rows * num_cars], max_track_distance
+// [rows], and obs [rows * num_cars * (num_sensors + 4 * num_cars)] in place of
+// out; inv_range and inv_max_speed the float32 reciprocals of max_dist and the
+// car's max_speed; clamp_range != 0 clamps each ray to max_dist first.
+extern "C" int multi_observe_f32(
+        const float* x, const float* y, const float* angle, const float* vx,
+        const float* vy, const float* last_steering, const float* max_track_distance,
+        const float* rel, const float* seg_sx, const float* seg_sy, const float* seg_vx,
+        const float* seg_vy, const float* seg_c, const int* row_ids, float* obs,
+        int rows, int num_cars, int num_sensors, int num_segments,
+        float half_length, float half_width, float max_dist, float inv_range,
+        float inv_max_speed, int clamp_range, int threads, int smem, int rays_per_lane,
+        int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (vx == nullptr || vy == nullptr || last_steering == nullptr
+            || max_track_distance == nullptr)
         return (int)cudaErrorInvalidValue;
-    const auto st = (cudaStream_t)stream;
-#define RWC_LAUNCH(R) \
-    case R: return launch<R>(x, y, angle, rel, seg_sx, seg_sy, seg_vx, seg_vy, seg_c, row_ids, out, \
-                             rows, num_cars, num_sensors, num_segments, half_length, \
-                             half_width, max_dist, threads, smem, st)
-    switch (rays_per_lane) {
-        RWC_LAUNCH(1);
-        RWC_LAUNCH(2);
-        RWC_LAUNCH(3);
-        RWC_LAUNCH(4);
-        RWC_LAUNCH(6);
-        RWC_LAUNCH(8);
-        RWC_LAUNCH(11);
-        default: return (int)cudaErrorInvalidValue;
-    }
-#undef RWC_LAUNCH
+    const ObsIn in{vx, vy, last_steering, max_track_distance, inv_range, inv_max_speed,
+                   clamp_range};
+    return launch_rays<true>(x, y, angle, rel, seg_sx, seg_sy, seg_vx, seg_vy, seg_c, row_ids,
+                             obs, rows, num_cars, num_sensors, num_segments, half_length,
+                             half_width, max_dist, threads, smem, rays_per_lane, stream, in);
 }
 
 extern "C" const char* raycast_walls_and_cars_error_string(int err) {

@@ -22,14 +22,23 @@ Branch-free over a ``[num_envs, num_agents]`` state layout:
  - start grid: cars side by side along the start normal, spacing width + 1.5,
    slot ``position_idx`` (given, or a random permutation per env).
 
-Each env step makes two kernel launches: the sensing (``raycast_walls_and_cars``:
-K1 and K3 of rays [N, A, R] against the segment rows [N, S] and the row's cars)
-and the transition (``car_step_and_query``: K5, the corners and K2 of cars [N, A]
-against waypoint rows [N, 1, W], and with more than one car K4 over each row's
-pairs and the velocity response). The JAX package's per-seat raycast unroll and
-its query-layout switch work around XLA fusion limits and have no counterpart
-here. The geometry is per-env ``TrackArrays`` or a capacity layout
-(``envs/track.py``), whose resident pool rows the two kernels read by row id.
+On the card an env step is two kernel launches, one block per env each:
+``observe`` is the sensing kernel (K1 and K3 of rays [N, A, R] against the segment
+rows [N, S] and the row's cars) writing the whole observation row, and
+``transition`` the transition kernel (K5, the corners and K2 of cars [N, A]
+against waypoint rows [N, 1, W], with more than one car K4 over each row's pairs
+and the velocity response) running the whole reward, termination and placement
+tail (``csrc/raycast_walls_and_cars.cu:multi_observe_f32``,
+``csrc/car_step_and_query.cu:multi_transition_f32``). On CPU tensors they run
+``observe_plain`` and ``transition_plain``: the narrow kernels' wrappers
+(``geo.raycast_walls_and_cars``, ``car_step_and_query``, which take their own plain
+versions there) and PyTorch around them, the composition the kernels are held to
+bitwise on the card. ``observe_launches`` and ``transition_launches`` count the
+kernels' launches (``*_row_id_launches`` those reading pool rows by id). The JAX
+package's per-seat raycast unroll and its query-layout switch work around XLA
+fusion limits and have no counterpart here. The geometry is per-env
+``TrackArrays`` or a capacity layout (``envs/track.py``), whose resident pool rows
+the two kernels read by row id.
 """
 from __future__ import annotations
 
@@ -39,12 +48,18 @@ import functools
 import numpy as np
 import torch
 
-from .._numerics import const_div, div_const
+from .._numerics import const_div, div_const, f32_reciprocal
 from .._tree import shard_rows
+from ..ops import _cuda
 from ..ops import geometry as geo
-from ..ops.dynamics import DEFAULT_CAR, CarSpec, car_step_and_query
+from ..ops.dynamics import DEFAULT_CAR, CarSpec, _step_constants, car_step_and_query
 from . import track as trk
 from .track import Track
+
+observe_launches = 0
+observe_row_id_launches = 0
+transition_launches = 0
+transition_row_id_launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,7 +190,19 @@ def _opponent_index(num_agents: int, device) -> torch.Tensor:
 
 
 def observe(cfg: MultiRacingConfig, track: Track, state: MultiState) -> torch.Tensor:
-    """Per-car observations, float32 [N, A, obs_dim]."""
+    """Per-car observations, float32 [N, A, obs_dim]: one kernel launch on the
+    card, ``observe_plain`` on the CPU."""
+    global observe_launches, observe_row_id_launches
+    if not geo._on_cuda(state.x, "multi.observe"):
+        return observe_plain(cfg, track, state)
+    out = _observe_cuda(cfg, track, state)
+    observe_launches += 1
+    observe_row_id_launches += isinstance(track, trk.LAYOUTS)
+    return out
+
+
+def observe_plain(cfg: MultiRacingConfig, track: Track, state: MultiState) -> torch.Tensor:
+    """Plain version of ``observe``: the sensing kernel's wrapper and PyTorch."""
     dtype, dev = state.x.dtype, state.x.device
     n, a = state.x.shape
     rel = _sensor_angles(cfg, dtype, dev)                             # [R]
@@ -216,10 +243,160 @@ def observe(cfg: MultiRacingConfig, track: Track, state: MultiState) -> torch.Te
     return torch.cat([rays, feats.to(torch.float32), opp.to(torch.float32)], dim=-1)
 
 
+def _car_fields(name, state, extra, dev):
+    """The state's float32 car fields and ``extra`` as the kernels take them:
+    contiguous [N, A] on ``dev`` (a no-op for the env's own tensors)."""
+    fields = [state.x, state.y, state.angle, state.vx, state.vy] + extra
+    geo._check_f32(name, fields, dev)
+    if any(t.shape != state.x.shape for t in fields) or state.x.ndim != 2:
+        raise ValueError(f"{name}: the car fields must share one shape [N, A]")
+    return [t.contiguous() for t in fields]
+
+
+def _env_rows(name, track, n, dev):
+    """(rows, row_ids) of ``track`` for one block per env: per-env rows [N, *] or
+    a layout's pool with N row ids."""
+    rows, row_ids = trk.rows_of(track)
+    if row_ids is not None:
+        geo._check_row_ids(name, row_ids, rows.wp_x.shape[0], dev)
+        if row_ids.shape[0] != n:
+            raise ValueError(f"{name}: {row_ids.shape[0]} row ids for {n} envs")
+    elif rows.wp_x.shape[0] != n:
+        raise ValueError(f"{name}: {rows.wp_x.shape[0]} track rows for {n} envs; the "
+                         "kernel runs one block per env")
+    return rows, row_ids
+
+
+def _observe_cuda(cfg: MultiRacingConfig, track: Track, state: MultiState) -> torch.Tensor:
+    """``observe`` on the card: one block per env, which stages the env's segment
+    row (pool row ``row_ids[i]`` with ids) and writes the env's [A, obs_dim] row."""
+    dev = state.x.device
+    n, a = state.x.shape
+    x, y, angle, vx, vy, last_steering = _car_fields("multi.observe", state,
+                                                     [state.last_steering], dev)
+    rows, row_ids = _env_rows("multi.observe", track, n, dev)
+    segs = [rows.seg_sx, rows.seg_sy, rows.seg_vx, rows.seg_vy, rows.seg_c]
+    geo._check_f32("multi.observe", segs, dev)
+    if any(t.ndim != 2 or t.shape != segs[0].shape or not t.is_contiguous() for t in segs):
+        raise ValueError("multi.observe: the segment fields must share one contiguous "
+                         "shape (rows, S)")
+    num_segments = segs[0].shape[-1]
+    _cuda.raycast_walls_and_cars_plan(a, cfg.num_sensors, num_segments)  # refuses first
+    max_td = trk.scalars_of(track).max_track_distance.to(torch.float32).contiguous()
+    rel = _sensor_angles(cfg, torch.float32, dev)
+    obs = torch.empty((n, a, cfg.obs_dim), dtype=torch.float32, device=dev)
+    f32 = np.float32
+    with torch.cuda.device(dev):
+        _cuda.launch_multi_observe(
+            x, y, angle, vx, vy, last_steering, max_td, rel, *segs, obs, n, a,
+            cfg.num_sensors, num_segments, f32(cfg.car.length / 2), f32(cfg.car.width / 2),
+            f32(cfg.max_sensor_range), f32_reciprocal(cfg.max_sensor_range),
+            f32_reciprocal(cfg.car.max_speed), cfg.clamp_sensor_range, row_ids=row_ids)
+    return obs
+
+
+def _transition_constants(cfg: MultiRacingConfig):
+    """The transition kernel's float32 constants, in
+    ``csrc/car_step_and_query.cu:multi_transition_f32``'s order: K5's eight, the
+    half length and width, the collision scale, then the reward's (the float32
+    reciprocals of max_speed and the time-bonus divisor, through which
+    ``div_const`` divides, and the touch penalty negated)."""
+    f32 = np.float32
+    return _step_constants(cfg.dt, cfg.car) + [
+        f32(cfg.car.length / 2), f32(cfg.car.width / 2), f32(cfg.collision_speed_scale),
+        f32(cfg.progress_scale), f32(cfg.speed_scale), f32_reciprocal(cfg.car.max_speed),
+        f32(cfg.checkpoint_bonus), f32(cfg.finish_bonus), f32(cfg.time_bonus_base),
+        f32_reciprocal(cfg.time_bonus_divisor), f32(cfg.crash_penalty),
+        f32(-cfg.touch_penalty), f32(cfg.winner_bonus)]
+
+
 def transition(cfg: MultiRacingConfig, track: Track, state: MultiState, action):
     """One step without sensing: (new_state, rewards [N, A], terminated [N],
     truncated [N], info). ``action`` [N, A, 2]. ``terminated`` is the shared
-    per-car done; the episode's done is ``terminated | truncated``."""
+    per-car done; the episode's done is ``terminated | truncated``. One kernel
+    launch on the card, ``transition_plain`` on the CPU."""
+    global transition_launches, transition_row_id_launches
+    if not geo._on_cuda(state.x, "multi.transition"):
+        return transition_plain(cfg, track, state, action)
+    out = _transition_cuda(cfg, track, state, action)
+    transition_launches += 1
+    transition_row_id_launches += isinstance(track, trk.LAYOUTS)
+    return out
+
+
+def _transition_cuda(cfg: MultiRacingConfig, track: Track, state: MultiState, action):
+    """``transition`` on the card: one block per env, which stages the env's
+    waypoint row (pool row ``row_ids[i]`` with ids), steps and queries its cars, runs
+    the pair test with more than one car, and writes every output."""
+    dev = state.x.device
+    n, a = state.x.shape
+    if action.shape != (n, a, 2) or action.device != dev:
+        raise ValueError(f"multi.transition: action {tuple(action.shape)} on "
+                         f"{action.device}, expected ({n}, {a}, 2) on {dev}")
+    action = action.to(torch.float32).contiguous()
+    cars = _car_fields("multi.transition", state, [state.progress, state.last_progress], dev)
+    flags = [state.crashed, state.finished, state.cp25, state.cp50, state.cp75,
+             state.has_crashed]
+    ints = [state.finished_step, state.steps]
+    if (any(t.dtype != torch.bool or t.shape != (n, a) or t.device != dev for t in flags)
+            or any(t.dtype != torch.int32 or t.device != dev for t in ints)
+            or state.finished_step.shape != (n, a) or state.steps.shape != (n,)):
+        raise TypeError("multi.transition: the flags must be bool [N, A], finished_step "
+                        "int32 [N, A] and steps int32 [N] on the cars' device")
+    flags = [t.contiguous() for t in flags]
+    ints = [t.contiguous() for t in ints]
+    rows, row_ids = _env_rows("multi.transition", track, n, dev)
+    wp = [rows.wp_x, rows.wp_y, rows.nrm_x, rows.nrm_y]
+    geo._check_f32("multi.transition", wp, dev)
+    if any(t.ndim != 2 or t.shape != wp[0].shape or not t.is_contiguous() for t in wp):
+        raise ValueError("multi.transition: the waypoint fields must share one contiguous "
+                         "shape (rows, W)")
+    num_waypoints = wp[0].shape[-1]
+    pairs = a > 1
+    _cuda.car_step_query_plan(a, num_waypoints, pairs, tail=True)  # refuses first
+    per_env = trk.scalars_of(track)
+    n_wp, width = per_env.n_wp, per_env.track_width
+    if (n_wp.dtype != torch.int32 or width.dtype != torch.float32 or n_wp.device != dev
+            or width.device != dev or n_wp.shape != (n,) or width.shape != (n,)):
+        raise TypeError("multi.transition: n_wp must be int32 [N] and track_width "
+                        "float32 [N] on the cars' device")
+
+    def new(dtype, shape=(n, a)):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    f32, b8, i32 = torch.float32, torch.bool, torch.int32
+    nx, ny, nang, nvx, nvy, progress, steering = (new(f32) for _ in range(7))
+    crashed, finished, cp25, cp50, cp75, has_crashed = (new(b8) for _ in range(6))
+    steps, finished_step, placement = new(i32, (n,)), new(i32), new(i32)
+    reward, speed, info_progress = new(f32), new(f32), new(f32)
+    terminated, truncated = new(b8, (n,)), new(b8, (n,))
+    x, y, angle, vx, vy, old_progress, last_progress = cars
+    ptrs = [x, y, angle, vx, vy, flags[0], action, *wp, row_ids, n_wp.contiguous(),
+            width.contiguous(), old_progress, last_progress, *flags[1:], *ints,
+            nx, ny, nang, nvx, nvy, progress, steering, crashed, finished, cp25, cp50,
+            cp75, has_crashed, steps, finished_step, placement, reward, terminated,
+            truncated, speed, info_progress]
+    with torch.cuda.device(dev):
+        _cuda.launch_multi_transition(ptrs, _transition_constants(cfg), n, a, num_waypoints,
+                                      pairs, cfg.max_steps, dev)
+    new_state = MultiState(
+        x=nx, y=ny, angle=nang, vx=nvx, vy=nvy,
+        progress=progress, crashed=crashed, finished=finished,
+        steps=steps, last_progress=progress, last_steering=steering,
+        cp25=cp25, cp50=cp50, cp75=cp75,
+        has_crashed=has_crashed, finished_step=finished_step, placement=placement,
+    )
+    info = {
+        "x": nx, "y": ny, "speed": speed, "progress": info_progress,
+        "crashed": crashed, "finished": finished,
+        "reward": reward, "placement": placement,
+    }
+    return new_state, reward, terminated, truncated, info
+
+
+def transition_plain(cfg: MultiRacingConfig, track: Track, state: MultiState, action):
+    """Plain version of ``transition``: the transition kernel's wrapper
+    (``car_step_and_query`` with the pair test) and PyTorch."""
     dtype = state.x.dtype
     n, a = state.x.shape
 

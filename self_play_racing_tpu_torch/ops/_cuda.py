@@ -50,6 +50,8 @@ _SIGNATURES = {
     "mixbits_permutation_i32": [_P, _P, _I, _I, _I, _P],
     "raycast_walls_and_cars_f32": [_P] * 11 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_I, _P],
     "car_step_and_query_f32": [_P] * 25 + [_I] * 5 + [_F] * 11 + [_I, _P],
+    "multi_transition_f32": [_P, _I, _P, _I] + [_I] * 7 + [_I, _P],
+    "multi_observe_f32": [_P] * 15 + [_I] * 4 + [_F] * 5 + [_I] * 4 + [_I, _P],
 }
 
 _lock = threading.Lock()
@@ -148,6 +150,12 @@ K2_FIELDS = 2
 K3_FLOATS_PER_CAR = 18  # corners, edge vectors and centre (csrc/car_hits.cuh)
 # the transition's pair test: corners and stepped velocity (csrc/car_step_and_query.cu)
 PAIR_FLOATS_PER_CAR = 10
+# the multi-car env's transition tail: raw progress, velocity, score, reward and
+# four flags a car (csrc/car_step_and_query.cu:kTailWords)
+TAIL_WORDS_PER_CAR = 9
+# multi_transition_f32's pointer and constant counts (csrc/car_step_and_query.cu)
+TRANSITION_PTRS = 44
+TRANSITION_CONSTS = 21
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,18 +232,21 @@ def raycast_walls_and_cars_plan(num_cars: int, num_sensors: int,
 
 @functools.lru_cache(maxsize=256)
 def car_step_query_plan(cars_per_row: int, num_waypoints: int,
-                        pairs: bool = False) -> LaunchPlan:
+                        pairs: bool = False, tail: bool = False) -> LaunchPlan:
     """The transition launch: K2's plan for the centre and four corners of each
     car (the kernel forms the corners itself). With the pair test, the row's cars
-    (10 floats each) sit beside the staged row. Raises ValueError where the two do
-    not fit in 227 KB."""
+    (10 floats each) sit beside the staged row; with the multi-car env's tail, 9
+    words a car after them. Raises ValueError where they do not fit in 227 KB."""
     plan = progress_collision_plan(cars_per_row, 4, num_waypoints)
-    if not pairs:
+    if not (pairs or tail):
         return plan
-    smem = plan.smem + PAIR_FLOATS_PER_CAR * cars_per_row * 4
+    smem = plan.smem + ((PAIR_FLOATS_PER_CAR if pairs else 0)
+                        + (TAIL_WORDS_PER_CAR if tail else 0)) * cars_per_row * 4
     if smem > BLOCK_SMEM_LIMIT:
-        raise ValueError(f"car_step_and_query: a row of {num_waypoints} waypoints and the "
-                         f"pair test of {cars_per_row} cars need {smem:,} bytes of shared "
+        parts = " and ".join(p for p, on in (("the pair test", pairs), ("the env's tail", tail))
+                             if on)
+        raise ValueError(f"car_step_and_query: a row of {num_waypoints} waypoints and "
+                         f"{parts} of {cars_per_row} cars need {smem:,} bytes of shared "
                          f"memory; a block has {BLOCK_SMEM_LIMIT:,}")
     return dataclasses.replace(plan, smem=smem)
 
@@ -335,6 +346,44 @@ def launch_car_step_and_query(x, y, angle, vx, vy, crashed, steering, throttle, 
                       progress, hit_wall, num_hits)),
           rows, cars_per_row, num_waypoints, plan.threads, plan.smem,
           *map(float, constants), float(collision_scale))
+
+
+def launch_multi_observe(x, y, angle, vx, vy, last_steering, max_track_distance, rel, sx,
+                         sy, seg_vx, seg_vy, c, obs, rows: int, num_cars: int,
+                         num_sensors: int, num_segments: int, half_length: float,
+                         half_width: float, max_dist: float, inv_range: float,
+                         inv_max_speed: float, clamp_range: bool, row_ids=None) -> None:
+    """Launch the multi-car env's observation (``raycast_walls_and_cars`` with the
+    whole row written) on ``obs.device``'s current stream, as
+    ``raycast_walls_and_cars_plan`` says. Tensors are contiguous f32 (the car
+    fields [rows * num_cars], ``max_track_distance`` [rows], ``obs`` [rows,
+    num_cars, num_sensors + 4 * num_cars]); the floats are float32 values."""
+    plan = raycast_walls_and_cars_plan(num_cars, num_sensors, num_segments)
+    _call("raycast_walls_and_cars", "multi_observe_f32", obs.device,
+          *map(_ptr, (x, y, angle, vx, vy, last_steering, max_track_distance, rel, sx, sy,
+                      seg_vx, seg_vy, c, row_ids, obs)),
+          rows, num_cars, num_sensors, num_segments, float(half_length), float(half_width),
+          float(max_dist), float(inv_range), float(inv_max_speed), int(clamp_range),
+          plan.threads, plan.smem, plan.rays_per_lane)
+
+
+def launch_multi_transition(ptrs, constants, rows: int, cars_per_row: int,
+                            num_waypoints: int, pairs: bool, max_steps: int,
+                            device: torch.device) -> None:
+    """Launch the multi-car env's transition (``car_step_and_query`` with the env's
+    tail) on ``device``'s current stream, as ``car_step_query_plan(..., tail=True)``
+    says: ``ptrs`` the ``TRANSITION_PTRS`` tensors (or None) in the order of
+    ``csrc/car_step_and_query.cu:multi_transition_f32``, ``constants`` its
+    ``TRANSITION_CONSTS`` float32 values."""
+    if len(ptrs) != TRANSITION_PTRS or len(constants) != TRANSITION_CONSTS:
+        raise ValueError(f"multi_transition: {len(ptrs)} pointers and {len(constants)} "
+                         f"constants, expected {TRANSITION_PTRS} and {TRANSITION_CONSTS}")
+    plan = car_step_query_plan(cars_per_row, num_waypoints, pairs, tail=True)
+    ptr_array = (ctypes.c_void_p * TRANSITION_PTRS)(*map(_ptr, ptrs))
+    const_array = (ctypes.c_float * TRANSITION_CONSTS)(*map(float, constants))
+    _call("car_step_and_query", "multi_transition_f32", device, ptr_array, TRANSITION_PTRS,
+          const_array, TRANSITION_CONSTS, rows, cars_per_row, num_waypoints, plan.threads,
+          plan.smem, int(pairs), int(max_steps))
 
 
 def launch_compute_gae(rewards, dones, values, next_value, next_done, adv, ret,

@@ -25,9 +25,15 @@ and with the pair test bitwise equal to that chain followed by K4, the mask, the
 and the velocity ladder. With row ids (the capacity layouts: the pool's rows
 resident, env i reading row ``row_ids[i]``) each of K1, ``raycast_walls_and_cars``
 and ``car_step_and_query`` is bitwise itself on the gathered rows, and its plain
-version as above, with ids that repeat, skip rows and come out of order.
+version as above, with ids that repeat, skip rows and come out of order. The
+multi-car env's step (``multi.transition`` and ``multi.observe``, one launch each:
+the narrow env kernels with the reward tail and the observation row in their
+blocks) bitwise, -0.0 apart from 0.0, equal to its plain version (the narrow kernel
+and PyTorch around it, what the env ran before) at 1, 2, 3 and 8 cars on per-env
+rows and by row id.
 """
 import contextlib
+import dataclasses
 
 import numpy as np
 import pytest
@@ -35,6 +41,7 @@ import torch
 
 import chip_smoke
 from test_torch_dist_workers import group_of_one
+from self_play_racing_tpu_torch.envs import multi as menv
 from self_play_racing_tpu_torch.envs import track as trk
 from self_play_racing_tpu_torch.ops import dynamics
 from self_play_racing_tpu_torch.ops import gae
@@ -514,11 +521,12 @@ def test_mixbits_kernel_matches_plain(cuda, n, lead):
 
 
 def test_selfplay_update_on_card_launches_all_seven_kernels(cuda):
-    """Three scale-mode self-play updates on the card: every env step launches
-    ``car_step_and_query`` (K5, K2 and K4's pair test) once (the transition) and
-    ``raycast_walls_and_cars`` (K1 and K3) once (the refresh that senses the merged
-    state); each update launches K6 and K7 once. The standalone K1, K2, K3, K4 and
-    K5 kernels are off the path."""
+    """Three scale-mode self-play updates on the card: every env step launches the
+    multi-car env's transition (K5, K2, K4's pair test and the reward tail in
+    ``car_step_and_query``'s block) once and its observation (K1, K3 and the
+    observation row in ``raycast_walls_and_cars``'s block) once (the refresh that
+    senses the merged state); each update launches K6 and K7 once. The narrow env
+    kernels and the standalone K1, K2, K3, K4 and K5 kernels are off the path."""
     from self_play_racing_tpu_torch.agent.self_play import SelfPlayTrainer
     from self_play_racing_tpu_torch.configs import self_play_config
     from self_play_racing_tpu_torch.envs import multi
@@ -531,17 +539,17 @@ def test_selfplay_update_on_card_launches_all_seven_kernels(cuda):
     pool = trk.make_track_pool(trk.gen_tracks(4, seed=1), 7.0, device=cuda)
     tr = SelfPlayTrainer(cfg, multi.MultiRacingConfig(num_agents=2),
                          trk.gather_tracks(pool, np.arange(envs) % 4))
-    counters = [(geo, "raycast_walls_and_cars_launches"),
-                (dynamics, "car_step_and_query_launches"),
+    counters = [(multi, "observe_launches"), (multi, "transition_launches"),
                 (geo, "rectangles_intersect_launches"), (gae, "compute_gae_launches"),
                 (prng, "mixbits_permutation_launches"), (geo, "raycast_walls_launches"),
                 (geo, "raycast_cars_launches"), (geo, "progress_and_collision_launches"),
-                (dynamics, "car_update_launches")]
+                (dynamics, "car_update_launches"), (geo, "raycast_walls_and_cars_launches"),
+                (dynamics, "car_step_and_query_launches")]
     before = [getattr(m, a) for m, a in counters]
     tr.train(num_updates=updates)
     after = [getattr(m, a) for m, a in counters]
     assert ([b - a for a, b in zip(before, after)]
-            == [steps * updates] * 2 + [0] + [updates] * 2 + [0] * 4)
+            == [steps * updates] * 2 + [0] + [updates] * 2 + [0] * 6)
     assert tr.num_snapshots == 2 and tr.pool_games.sum() > 0
     assert all(bool(torch.isfinite(p).all()) for p in tr.runner.train.model.parameters())
 
@@ -957,7 +965,9 @@ _COUNTERS = [(geo, "raycast_walls_launches"), (geo, "raycast_walls_and_cars_laun
              (dynamics, "car_step_and_query_launches"), (gae, "compute_gae_launches"),
              (prng, "mixbits_permutation_launches"), (geo, "raycast_walls_row_id_launches"),
              (geo, "raycast_walls_and_cars_row_id_launches"),
-             (dynamics, "car_step_and_query_row_id_launches")]
+             (dynamics, "car_step_and_query_row_id_launches"),
+             (menv, "observe_launches"), (menv, "transition_launches"),
+             (menv, "observe_row_id_launches"), (menv, "transition_row_id_launches")]
 
 GRAPH_CASES = {
     # name: (self-play, config overrides)
@@ -1032,11 +1042,12 @@ def test_graphed_update_is_the_eager_update_bitwise(cuda, case):
     (gm, gc, gs), (em, ec, es) = runs
     assert gc == ec
     steps = 16
-    sensing = "raycast_walls_and_cars" if selfplay else "raycast_walls"
+    sensing, stepping = (("observe", "transition") if selfplay
+                         else ("raycast_walls", "car_step_and_query"))
     names = [a for _, a in _COUNTERS]
     for c in gc:
         assert c[names.index(f"{sensing}_launches")] >= steps
-        assert c[names.index("car_step_and_query_launches")] == steps
+        assert c[names.index(f"{stepping}_launches")] == steps
         assert c[names.index("compute_gae_launches")] == 1
     for a, b in zip(gm, em):
         assert a.keys() == b.keys()
@@ -1183,3 +1194,107 @@ def test_graphed_loop_is_the_eager_loop_bitwise(cuda, case):
         assert torch.equal(g_gen.get_state(), e_gen.get_state())
         assert counts[0] == counts[1] and any(counts[0].values())
     assert metrics.loop_graphs.captures - captures == 1
+
+
+# ------------------------- the multi-car env step as two kernels (envs/multi.py)
+
+# more env rows than the card holds blocks at once, 626 of each of
+# chip_smoke.crafted_state's row kinds; a multiple of the canonical pool's 16 tracks
+ENV_STEP_ENVS = 5008
+
+
+def _env_step_track(cuda, where):
+    from self_play_racing_tpu_torch.utils.profiling import canonical_bench_pool
+
+    pool = canonical_bench_pool(16, device=cuda)
+    n = ENV_STEP_ENVS
+    if where == "gathered":
+        return trk.gather_tracks(pool, np.arange(n) % 16)
+    if where == "tiled":
+        return trk.tiled_pooled_tracks(pool, n)
+    # blocks of envs on repeated, skipped and unordered pool rows
+    return trk.grouped_pooled_tracks(pool, [5, 0, 7, 2, 2, 6, 1, 3, 15, 9, 9, 4, 11, 12, 0, 8],
+                                     n // 16)
+
+
+@pytest.mark.parametrize("cars", [1, 2, 3, 8])
+@pytest.mark.parametrize("where", ["gathered", "tiled", "grouped"])
+def test_multi_transition_kernel_is_its_plain_version_bitwise(cuda, cars, where):
+    """``multi.transition``, one launch (the step, the track query, the pair test and
+    the whole reward, termination and placement tail in ``car_step_and_query``'s
+    block), against ``multi.transition_plain`` (the narrow kernel and PyTorch) on
+    ``chip_smoke.crafted_state``: every output bitwise (-0.0 apart from 0.0), every
+    branch of the tail taken, then 16 more steps in lockstep on random actions."""
+    cfg = menv.MultiRacingConfig(num_agents=cars, num_sensors=11,
+                                 max_steps=chip_smoke.CRAFTED_MAX_STEPS)
+    track = _env_step_track(cuda, where)
+    state, action = chip_smoke.crafted_state(track, cars, cfg.max_steps, seed=cars,
+                                             device=cuda)
+    before = (menv.transition_launches, menv.transition_row_id_launches)
+    out = menv.transition(cfg, track, state, action)
+    assert (menv.transition_launches, menv.transition_row_id_launches) == (
+        before[0] + 1, before[1] + (where != "gathered"))
+    plain = menv.transition_plain(cfg, track, state, action)
+    torch.cuda.synchronize()
+    assert chip_smoke.differing(chip_smoke.transition_fields(out),
+                                chip_smoke.transition_fields(plain)) == {}
+    if cars > 1:
+        branches = chip_smoke.tail_branches(state, out)
+        assert all(branches.values()), branches
+    gen = torch.Generator(device=cuda).manual_seed(cars)
+    state = out[0]
+    for _ in range(16):
+        action = torch.rand((ENV_STEP_ENVS, cars, 2), generator=gen, device=cuda) * 2.6 - 1.3
+        out = menv.transition(cfg, track, state, action)
+        plain = menv.transition_plain(cfg, track, state, action)
+        assert chip_smoke.differing(chip_smoke.transition_fields(out),
+                                    chip_smoke.transition_fields(plain)) == {}
+        state = out[0]
+
+
+@pytest.mark.parametrize("cars,sensors", [(1, 11), (2, 11), (3, 7), (8, 11)])
+@pytest.mark.parametrize("where", ["gathered", "tiled", "grouped"])
+@pytest.mark.parametrize("clamp", [False, True])
+def test_multi_observe_kernel_is_its_plain_version_bitwise(cuda, cars, sensors, where, clamp):
+    """``multi.observe``, one launch (the sensing and the whole observation row in
+    ``raycast_walls_and_cars``'s block), against ``multi.observe_plain`` (the narrow
+    kernel and PyTorch) on ``chip_smoke.crafted_state`` (3 x 7 rays split a car
+    across two warps), the rays clamped to the range and not: bitwise."""
+    cfg = menv.MultiRacingConfig(num_agents=cars, num_sensors=sensors,
+                                 clamp_sensor_range=clamp)
+    track = _env_step_track(cuda, where)
+    state, _ = chip_smoke.crafted_state(track, cars, cfg.max_steps, seed=10 + cars,
+                                        device=cuda)
+    before = (menv.observe_launches, menv.observe_row_id_launches)
+    got = menv.observe(cfg, track, state)
+    assert (menv.observe_launches, menv.observe_row_id_launches) == (
+        before[0] + 1, before[1] + (where != "gathered"))
+    want = menv.observe_plain(cfg, track, state)
+    torch.cuda.synchronize()
+    assert got.shape == (ENV_STEP_ENVS, cars, cfg.obs_dim)
+    assert chip_smoke.same_bits(got, want), int((got != want).sum())
+
+
+def test_env_step_kernels_refuse_what_they_do_not_take(cuda):
+    """No fallback: on what the kernels do not take the two functions raise before
+    any launch, and count nothing."""
+    cfg = menv.MultiRacingConfig(num_agents=2)
+    track = _env_step_track(cuda, "tiled")
+    state, action = chip_smoke.crafted_state(track, 2, cfg.max_steps, seed=0, device=cuda)
+    counts = (menv.transition_launches, menv.observe_launches)
+    wide = dataclasses.replace(state, **{f: getattr(state, f).double() for f in
+                                         ("x", "y", "angle", "vx", "vy")})
+    with pytest.raises(TypeError):
+        menv.transition(cfg, track, wide, action)
+    with pytest.raises(TypeError):
+        menv.observe(cfg, track, wide)
+    with pytest.raises(ValueError):
+        menv.transition(cfg, track, state, action[..., :1])
+    with pytest.raises(TypeError):
+        menv.transition(cfg, track, dataclasses.replace(state, steps=state.steps.long()), action)
+    short = trk.gather_tracks(trk.resolve(track), np.arange(16))
+    with pytest.raises(ValueError):
+        menv.transition(cfg, short, state, action)
+    with pytest.raises(ValueError):
+        menv.observe(cfg, short, state)
+    assert (menv.transition_launches, menv.observe_launches) == counts

@@ -46,7 +46,8 @@
 // With row ids (the capacity layouts) block b stages pool row row_ids[b] and reads
 // its normals there; the cars, the waypoint count and the width stay env b's.
 //
-// The multi-car env's whole transition (kTail, entry multi_transition_f32): the
+// The multi-car env's whole transition (kTail, entry multi_transition_small_f32,
+// which the env launches below ops/_cuda.py:TRANSITION_SMALL_BELOW rows): the
 // same block also runs the rest of the JAX package's transition
 // (self_play_racing_tpu/envs/multi.py: transition, from the actions' clip to the
 // placement), which XLA fuses into the step program on the TPU and which the port
@@ -450,7 +451,7 @@ extern "C" int car_step_and_query_f32(
 constexpr int kTransitionPtrs = 44;
 constexpr int kTransitionConsts = 21;
 
-extern "C" int multi_transition_f32(void* const* ptrs, int num_ptrs, const float* consts,
+extern "C" int multi_transition_small_f32(void* const* ptrs, int num_ptrs, const float* consts,
                                     int num_consts, int rows, int cars_per_row,
                                     int num_waypoints, int threads, int smem, int pairs,
                                     int max_steps, int device, void* stream) {

@@ -40,7 +40,8 @@
 //   - with row ids (the capacity layouts) block b stages pool row row_ids[b]; the
 //     cars and rays stay env b's.
 //
-// The multi-car env's whole observation (kObs, entry multi_observe_f32): the same
+// The multi-car env's whole observation (kObs, entry multi_observe_small_f32,
+// which the env launches below ops/_cuda.py:OBSERVE_SMALL_BELOW rows): the same
 // block writes the f32 row [A, obs_dim] that the JAX package's observe
 // (self_play_racing_tpu/envs/multi.py: observe) returns, which XLA fuses on the
 // TPU and which the port ran as ~50 launches around this kernel: each ray's
@@ -307,7 +308,7 @@ extern "C" int raycast_walls_and_cars_f32(
 // [rows], and obs [rows * num_cars * (num_sensors + 4 * num_cars)] in place of
 // out; inv_range and inv_max_speed the float32 reciprocals of max_dist and the
 // car's max_speed; clamp_range != 0 clamps each ray to max_dist first.
-extern "C" int multi_observe_f32(
+extern "C" int multi_observe_small_f32(
         const float* x, const float* y, const float* angle, const float* vx,
         const float* vy, const float* last_steering, const float* max_track_distance,
         const float* rel, const float* seg_sx, const float* seg_sy, const float* seg_vx,

@@ -22,19 +22,21 @@ Branch-free over a ``[num_envs, num_agents]`` state layout:
  - start grid: cars side by side along the start normal, spacing width + 1.5,
    slot ``position_idx`` (given, or a random permutation per env).
 
-On the card an env step is two kernel launches, one block per env each:
-``observe`` is the sensing kernel (K1 and K3 of rays [N, A, R] against the segment
-rows [N, S] and the row's cars) writing the whole observation row, and
-``transition`` the transition kernel (K5, the corners and K2 of cars [N, A]
-against waypoint rows [N, 1, W], with more than one car K4 over each row's pairs
-and the velocity response) running the whole reward, termination and placement
-tail (``csrc/raycast_walls_and_cars.cu:multi_observe_f32``,
-``csrc/car_step_and_query.cu:multi_transition_f32``). On CPU tensors they run
-``observe_plain`` and ``transition_plain``: the narrow kernels' wrappers
+On the card an env step is two kernel launches, a block per env or per few envs
+(``ops/_cuda.py``'s plans): ``observe`` is the sensing kernel (K1 and K3 of rays
+[N, A, R] against the segment rows [N, S] and the row's cars) writing the whole
+observation row, and ``transition`` the transition kernel (K5, the corners and K2
+of cars [N, A] against waypoint rows [N, 1, W], with more than one car K4 over each
+row's pairs and the velocity response) running the whole reward, termination and
+placement tail (``csrc/multi_observe.cu``, ``csrc/multi_transition.cu``; on fewer
+rows than ``ops/_cuda.py``'s ``OBSERVE_SMALL_BELOW`` and ``TRANSITION_SMALL_BELOW``
+the first kernels, a block a row, whose chains are shorter). On CPU tensors they
+run ``observe_plain`` and ``transition_plain``: the narrow kernels' wrappers
 (``geo.raycast_walls_and_cars``, ``car_step_and_query``, which take their own plain
 versions there) and PyTorch around them, the composition the kernels are held to
 bitwise on the card. ``observe_launches`` and ``transition_launches`` count the
-kernels' launches (``*_row_id_launches`` those reading pool rows by id). The JAX
+kernels' launches (``*_row_id_launches`` those reading pool rows by id,
+``*_small_launches`` those of the first kernels). The JAX
 package's per-seat raycast unroll and its query-layout switch work around XLA
 fusion limits and have no counterpart here. The geometry is per-env
 ``TrackArrays`` or a capacity layout (``envs/track.py``), whose resident pool rows
@@ -58,8 +60,10 @@ from .track import Track
 
 observe_launches = 0
 observe_row_id_launches = 0
+observe_small_launches = 0
 transition_launches = 0
 transition_row_id_launches = 0
+transition_small_launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,12 +196,13 @@ def _opponent_index(num_agents: int, device) -> torch.Tensor:
 def observe(cfg: MultiRacingConfig, track: Track, state: MultiState) -> torch.Tensor:
     """Per-car observations, float32 [N, A, obs_dim]: one kernel launch on the
     card, ``observe_plain`` on the CPU."""
-    global observe_launches, observe_row_id_launches
+    global observe_launches, observe_row_id_launches, observe_small_launches
     if not geo._on_cuda(state.x, "multi.observe"):
         return observe_plain(cfg, track, state)
-    out = _observe_cuda(cfg, track, state)
+    out, small = _observe_cuda(cfg, track, state)
     observe_launches += 1
     observe_row_id_launches += isinstance(track, trk.LAYOUTS)
+    observe_small_launches += small
     return out
 
 
@@ -268,8 +273,9 @@ def _env_rows(name, track, n, dev):
 
 
 def _observe_cuda(cfg: MultiRacingConfig, track: Track, state: MultiState) -> torch.Tensor:
-    """``observe`` on the card: one block per env, which stages the env's segment
-    row (pool row ``row_ids[i]`` with ids) and writes the env's [A, obs_dim] row."""
+    """``observe`` on the card: a block per env or per few envs, which stages their
+    segment rows (pool row ``row_ids[i]`` with ids) and writes their [A, obs_dim]
+    rows. Returns (obs, whether the first kernel ran)."""
     dev = state.x.device
     n, a = state.x.shape
     x, y, angle, vx, vy, last_steering = _car_fields("multi.observe", state,
@@ -281,7 +287,7 @@ def _observe_cuda(cfg: MultiRacingConfig, track: Track, state: MultiState) -> to
         raise ValueError("multi.observe: the segment fields must share one contiguous "
                          "shape (rows, S)")
     num_segments = segs[0].shape[-1]
-    _cuda.raycast_walls_and_cars_plan(a, cfg.num_sensors, num_segments)  # refuses first
+    plan = _cuda.multi_observe_plan(a, cfg.num_sensors, num_segments, n)  # refuses first
     max_td = trk.scalars_of(track).max_track_distance.to(torch.float32).contiguous()
     rel = _sensor_angles(cfg, torch.float32, dev)
     obs = torch.empty((n, a, cfg.obs_dim), dtype=torch.float32, device=dev)
@@ -292,12 +298,12 @@ def _observe_cuda(cfg: MultiRacingConfig, track: Track, state: MultiState) -> to
             cfg.num_sensors, num_segments, f32(cfg.car.length / 2), f32(cfg.car.width / 2),
             f32(cfg.max_sensor_range), f32_reciprocal(cfg.max_sensor_range),
             f32_reciprocal(cfg.car.max_speed), cfg.clamp_sensor_range, row_ids=row_ids)
-    return obs
+    return obs, plan.small
 
 
 def _transition_constants(cfg: MultiRacingConfig):
     """The transition kernel's float32 constants, in
-    ``csrc/car_step_and_query.cu:multi_transition_f32``'s order: K5's eight, the
+    ``csrc/multi_transition.cu:multi_transition_f32``'s order: K5's eight, the
     half length and width, the collision scale, then the reward's (the float32
     reciprocals of max_speed and the time-bonus divisor, through which
     ``div_const`` divides, and the touch penalty negated)."""
@@ -315,19 +321,21 @@ def transition(cfg: MultiRacingConfig, track: Track, state: MultiState, action):
     truncated [N], info). ``action`` [N, A, 2]. ``terminated`` is the shared
     per-car done; the episode's done is ``terminated | truncated``. One kernel
     launch on the card, ``transition_plain`` on the CPU."""
-    global transition_launches, transition_row_id_launches
+    global transition_launches, transition_row_id_launches, transition_small_launches
     if not geo._on_cuda(state.x, "multi.transition"):
         return transition_plain(cfg, track, state, action)
-    out = _transition_cuda(cfg, track, state, action)
+    out, small = _transition_cuda(cfg, track, state, action)
     transition_launches += 1
     transition_row_id_launches += isinstance(track, trk.LAYOUTS)
+    transition_small_launches += small
     return out
 
 
 def _transition_cuda(cfg: MultiRacingConfig, track: Track, state: MultiState, action):
-    """``transition`` on the card: one block per env, which stages the env's
-    waypoint row (pool row ``row_ids[i]`` with ids), steps and queries its cars, runs
-    the pair test with more than one car, and writes every output."""
+    """``transition`` on the card: a block per env or per few envs, which stages
+    their waypoint rows (pool row ``row_ids[i]`` with ids), steps and queries their
+    cars, runs the pair test with more than one car, and writes every output.
+    Returns (``transition``'s outputs, whether the first kernel ran)."""
     dev = state.x.device
     n, a = state.x.shape
     if action.shape != (n, a, 2) or action.device != dev:
@@ -353,7 +361,7 @@ def _transition_cuda(cfg: MultiRacingConfig, track: Track, state: MultiState, ac
                          "shape (rows, W)")
     num_waypoints = wp[0].shape[-1]
     pairs = a > 1
-    _cuda.car_step_query_plan(a, num_waypoints, pairs, tail=True)  # refuses first
+    plan = _cuda.multi_transition_plan(a, num_waypoints, pairs, n)  # refuses first
     per_env = trk.scalars_of(track)
     n_wp, width = per_env.n_wp, per_env.track_width
     if (n_wp.dtype != torch.int32 or width.dtype != torch.float32 or n_wp.device != dev
@@ -391,7 +399,7 @@ def _transition_cuda(cfg: MultiRacingConfig, track: Track, state: MultiState, ac
         "crashed": crashed, "finished": finished,
         "reward": reward, "placement": placement,
     }
-    return new_state, reward, terminated, truncated, info
+    return (new_state, reward, terminated, truncated, info), plan.small
 
 
 def transition_plain(cfg: MultiRacingConfig, track: Track, state: MultiState, action):

@@ -29,7 +29,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("raycast_walls.cu", "progress_collision.cu", "raycast_cars.cu",
            "rectangles_intersect.cu", "car_update.cu", "gae.cu",
            "mixbits_permutation.cu", "raycast_walls_and_cars.cu",
-           "car_step_and_query.cu")
+           "car_step_and_query.cu", "multi_observe.cu", "multi_transition.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # PyTorch's eager ops never contract a*b+c into an FMA; neither may the kernels
@@ -50,8 +50,10 @@ _SIGNATURES = {
     "mixbits_permutation_i32": [_P, _P, _I, _I, _I, _P],
     "raycast_walls_and_cars_f32": [_P] * 11 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_I, _P],
     "car_step_and_query_f32": [_P] * 25 + [_I] * 5 + [_F] * 11 + [_I, _P],
-    "multi_transition_f32": [_P, _I, _P, _I] + [_I] * 7 + [_I, _P],
-    "multi_observe_f32": [_P] * 15 + [_I] * 4 + [_F] * 5 + [_I] * 4 + [_I, _P],
+    "multi_transition_small_f32": [_P, _I, _P, _I] + [_I] * 7 + [_I, _P],
+    "multi_observe_small_f32": [_P] * 15 + [_I] * 4 + [_F] * 5 + [_I] * 4 + [_I, _P],
+    "multi_transition_f32": [_P, _I, _P, _I] + [_I] * 8 + [_I, _P],
+    "multi_observe_f32": [_P] * 15 + [_I] * 4 + [_F] * 5 + [_I] * 7 + [_I, _P],
 }
 
 _lock = threading.Lock()
@@ -139,6 +141,8 @@ def _ptr(t):
 
 # A block may take 227 KB of an H100 SM's shared memory.
 BLOCK_SMEM_LIMIT = 232_448
+# what the redesigned env kernels' plans leave of it for their static shared memory
+STATIC_SMEM_RESERVE = 1024
 MAX_THREADS = 256  # the kernels' __launch_bounds__
 # K1: the rays a lane may hold (the kernel's instantiations), and how many it holds
 # at most: a row's rays are split into the fewest warps that hold at most
@@ -153,9 +157,33 @@ PAIR_FLOATS_PER_CAR = 10
 # the multi-car env's transition tail: raw progress, velocity, score, reward and
 # four flags a car (csrc/car_step_and_query.cu:kTailWords)
 TAIL_WORDS_PER_CAR = 9
-# multi_transition_f32's pointer and constant counts (csrc/car_step_and_query.cu)
+# multi_transition_f32's pointer and constant counts (csrc/multi_transition.cu)
 TRANSITION_PTRS = 44
 TRANSITION_CONSTS = 21
+# multi_observe (csrc/multi_observe.cu): the rows a block stages at most, and the
+# warps its plan aims at: rows_per_block = max(1, OBSERVE_WARPS // groups)
+OBSERVE_MAX_ROWS_PER_BLOCK = 8
+OBSERVE_WARPS = 4
+OBSERVE_RAY_FLOATS = 5      # a ray's origin, direction and u in the ray table
+OBSERVE_RUN_STRIDE = 33     # floats a ray's 32 run results take (run_fold.cuh:kRunStride)
+# multi_transition (csrc/multi_transition.cu): the rows a block serves at most, the
+# cars its plan aims at (rows_per_block = max(1, TRANSITION_CARS // cars_per_row)),
+# and the words a car (queries, velocity, progress, score, reward, three flags) and
+# a row (its waypoint count and width) take beside the staged positions
+TRANSITION_MAX_ROWS_PER_BLOCK = 32
+TRANSITION_CARS = 8
+TRANSITION_WORDS_PER_CAR = 18
+TRANSITION_WORDS_PER_ROW = 2
+# Below these many env rows the env step launches its first kernels, a block a row
+# (raycast_walls_and_cars.cu:multi_observe_small_f32 and
+# car_step_and_query.cu:multi_transition_small_f32): a launch of few rows (a match's
+# 40 envs, an evaluation's 200) takes about one block's chain, and theirs is the
+# shorter. On an H100 (scripts/env_kernel_split.py --sweep, 2 cars, canonical pool)
+# the first observation is the faster at 512 rows and the slower at 640; the first
+# transition the faster at 1536, at 2048 the slower on per-env rows (train scale's
+# default) and 2% the faster on the tiled pool.
+OBSERVE_SMALL_BELOW = 640
+TRANSITION_SMALL_BELOW = 2048
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,6 +277,125 @@ def car_step_query_plan(cars_per_row: int, num_waypoints: int,
                          f"{parts} of {cars_per_row} cars need {smem:,} bytes of shared "
                          f"memory; a block has {BLOCK_SMEM_LIMIT:,}")
     return dataclasses.replace(plan, smem=smem)
+
+
+@dataclasses.dataclass(frozen=True)
+class ObservePlan:
+    """How the multi-car observation is launched: one block of ``threads`` threads a
+    ``rows_per_block`` env rows, ``smem`` bytes of dynamic shared memory, the rays of
+    a row in groups of ``rays_per_lane`` (one car's rays where ``per_car``), a
+    (group, run) item a lane; the run results over the staged rows where
+    ``overlay``. Where ``small``, the first kernel (a block a row, as
+    ``raycast_walls_and_cars_plan`` says)."""
+    threads: int
+    smem: int
+    rays_per_lane: int
+    per_car: bool
+    rows_per_block: int
+    overlay: bool
+    small: bool = False
+
+
+def _observe_shape(num_cars: int, num_sensors: int, num_segments: int, rows_per_block: int,
+                   warps: int | None = None) -> ObservePlan:
+    """``multi_observe`` at ``rows_per_block`` rows and ``warps`` warps a block (by
+    default a warp a ray group and row, at most 8): the rays in K1's groups, the run
+    results over the staged rows wherever every (group, run) item has a thread and
+    the results fit there (more blocks an SM, for a barrier). Checks nothing."""
+    walls = raycast_walls_plan(num_cars * num_sensors, num_segments)
+    rays = num_cars * num_sensors
+    rpl = walls.rays_per_lane
+    groups = -(-rays // rpl)
+    slots = groups * rpl
+    warps = warps or min(MAX_THREADS // 32, rows_per_block * groups)
+    overlay = (warps >= rows_per_block * groups
+               and K1_FIELDS * _field_capacity(num_segments) >= 2 * slots * OBSERVE_RUN_STRIDE)
+    # csrc/multi_observe.cu:Layout: a block's staged rows (five fields of S floats, no
+    # padding), ray table, cars and (ray, car) minima, and the run results unless
+    # they overlay the rows
+    floats = (K1_FIELDS * _field_capacity(num_segments) + slots * OBSERVE_RAY_FLOATS
+              + K3_FLOATS_PER_CAR * num_cars + rays * num_cars
+              + (0 if overlay else 2 * slots * OBSERVE_RUN_STRIDE))
+    return ObservePlan(32 * warps, rows_per_block * floats * 4, rpl, rpl == num_sensors,
+                       rows_per_block, overlay)
+
+
+@functools.lru_cache(maxsize=256)
+def multi_observe_plan(num_cars: int, num_sensors: int, num_segments: int,
+                       rows: int | None = None) -> ObservePlan:
+    """The multi-car observation's launch of ``rows`` env rows (None: many). Under
+    ``OBSERVE_SMALL_BELOW`` rows the first kernel. Else ``multi_observe``: a row's
+    rays go in K1's groups (``raycast_walls_plan``: at most 11 rays a lane, as evenly
+    as the instantiations allow), which are one car's rays wherever that gives one
+    car a group (``per_car``: the kernel then forms each segment's cross term once a
+    car); a block stages as many rows as give it ``OBSERVE_WARPS`` warps of 32 runs a
+    ray group, fewer where they would not fit in 227 KB, and takes a warp a ray group
+    and row (at most 8). Raises ValueError where one row does not fit."""
+    if rows is not None and rows < OBSERVE_SMALL_BELOW:
+        first = raycast_walls_and_cars_plan(num_cars, num_sensors, num_segments)
+        return ObservePlan(first.threads, first.smem, first.rays_per_lane, False, 1, False,
+                           small=True)
+    groups = -(-num_cars * num_sensors
+               // raycast_walls_plan(num_cars * num_sensors, num_segments).rays_per_lane)
+    dynamic_limit = BLOCK_SMEM_LIMIT - STATIC_SMEM_RESERVE
+    plan = _observe_shape(num_cars, num_sensors, num_segments, max(1, OBSERVE_WARPS // groups))
+    while plan.rows_per_block > 1 and plan.smem > dynamic_limit:
+        plan = _observe_shape(num_cars, num_sensors, num_segments, plan.rows_per_block - 1)
+    if plan.smem > dynamic_limit:
+        raise ValueError(f"multi_observe: a row of {num_segments} segments and {num_cars} "
+                         f"cars needs {plan.smem:,} bytes of shared memory; a block has "
+                         f"{dynamic_limit:,} beside the kernel's own")
+    return plan
+
+
+@dataclasses.dataclass(frozen=True)
+class TransitionPlan:
+    """How the multi-car transition is launched: one block of ``threads`` threads per
+    ``rows_per_block`` env rows, ``smem`` bytes of dynamic shared memory. Where
+    ``small``, the first kernel (a block a row, as ``car_step_query_plan(...,
+    tail=True)`` says)."""
+    threads: int
+    smem: int
+    rows_per_block: int
+    small: bool = False
+
+
+def _transition_shape(cars_per_row: int, num_waypoints: int,
+                      rows_per_block: int) -> TransitionPlan:
+    """``multi_transition`` at ``rows_per_block`` rows a block: each row's two
+    position fields (W floats each) beside 18 words a car and 2 a row; a warp a car
+    for the search, at most 4. Checks nothing."""
+    smem = rows_per_block * (K2_FIELDS * _field_capacity(num_waypoints)
+                             + TRANSITION_WORDS_PER_ROW
+                             + TRANSITION_WORDS_PER_CAR * cars_per_row) * 4
+    return TransitionPlan(32 * min(4, max(1, rows_per_block * cars_per_row)), smem,
+                          rows_per_block)
+
+
+@functools.lru_cache(maxsize=256)
+def multi_transition_plan(cars_per_row: int, num_waypoints: int, pairs: bool,
+                          rows: int | None = None) -> TransitionPlan:
+    """The multi-car transition's launch of ``rows`` env rows (None: many), the pair
+    test run where ``pairs``. Under ``TRANSITION_SMALL_BELOW`` rows the first kernel.
+    Else ``multi_transition``: a block serves ``TRANSITION_CARS`` cars' worth of rows,
+    fewer where they would not fit in 227 KB; a thread a car for the step, the pair
+    test and the tail, a warp a car for the search (at most 4 warps, looping over the
+    rest). Raises ValueError where one row does not fit."""
+    if num_waypoints < 1:
+        raise ValueError("multi_transition: the kernel needs at least one waypoint")
+    if rows is not None and rows < TRANSITION_SMALL_BELOW:
+        first = car_step_query_plan(cars_per_row, num_waypoints, pairs, tail=True)
+        return TransitionPlan(first.threads, first.smem, 1, small=True)
+    dynamic_limit = BLOCK_SMEM_LIMIT - STATIC_SMEM_RESERVE
+    preferred = min(TRANSITION_MAX_ROWS_PER_BLOCK, TRANSITION_CARS // max(1, cars_per_row))
+    plan = _transition_shape(cars_per_row, num_waypoints, max(1, preferred))
+    while plan.rows_per_block > 1 and plan.smem > dynamic_limit:
+        plan = _transition_shape(cars_per_row, num_waypoints, plan.rows_per_block - 1)
+    if plan.smem > dynamic_limit:
+        raise ValueError(f"multi_transition: a row of {num_waypoints} waypoints and "
+                         f"{cars_per_row} cars needs {plan.smem:,} bytes of shared memory; "
+                         f"a block has {dynamic_limit:,} beside the kernel's own")
+    return plan
 
 
 def launch_raycast_walls(ox, oy, dx, dy, sx, sy, vx, vy, c, out,
@@ -353,37 +500,42 @@ def launch_multi_observe(x, y, angle, vx, vy, last_steering, max_track_distance,
                          num_sensors: int, num_segments: int, half_length: float,
                          half_width: float, max_dist: float, inv_range: float,
                          inv_max_speed: float, clamp_range: bool, row_ids=None) -> None:
-    """Launch the multi-car env's observation (``raycast_walls_and_cars`` with the
-    whole row written) on ``obs.device``'s current stream, as
-    ``raycast_walls_and_cars_plan`` says. Tensors are contiguous f32 (the car
-    fields [rows * num_cars], ``max_track_distance`` [rows], ``obs`` [rows,
-    num_cars, num_sensors + 4 * num_cars]); the floats are float32 values."""
-    plan = raycast_walls_and_cars_plan(num_cars, num_sensors, num_segments)
-    _call("raycast_walls_and_cars", "multi_observe_f32", obs.device,
-          *map(_ptr, (x, y, angle, vx, vy, last_steering, max_track_distance, rel, sx, sy,
-                      seg_vx, seg_vy, c, row_ids, obs)),
-          rows, num_cars, num_sensors, num_segments, float(half_length), float(half_width),
-          float(max_dist), float(inv_range), float(inv_max_speed), int(clamp_range),
-          plan.threads, plan.smem, plan.rays_per_lane)
+    """Launch the multi-car env's observation on ``obs.device``'s current stream, as
+    ``multi_observe_plan`` says. Tensors are contiguous f32 (the car fields [rows *
+    num_cars], ``max_track_distance`` [rows], ``obs`` [rows, num_cars, num_sensors +
+    4 * num_cars]); the floats are float32 values."""
+    plan = multi_observe_plan(num_cars, num_sensors, num_segments, rows)
+    args = (*map(_ptr, (x, y, angle, vx, vy, last_steering, max_track_distance, rel, sx, sy,
+                        seg_vx, seg_vy, c, row_ids, obs)),
+            rows, num_cars, num_sensors, num_segments, float(half_length), float(half_width),
+            float(max_dist), float(inv_range), float(inv_max_speed), int(clamp_range),
+            plan.threads, plan.smem, plan.rays_per_lane)
+    if plan.small:
+        _call("raycast_walls_and_cars", "multi_observe_small_f32", obs.device, *args)
+    else:
+        _call("multi_observe", "multi_observe_f32", obs.device, *args, int(plan.per_car),
+              plan.rows_per_block, int(plan.overlay))
 
 
 def launch_multi_transition(ptrs, constants, rows: int, cars_per_row: int,
                             num_waypoints: int, pairs: bool, max_steps: int,
                             device: torch.device) -> None:
-    """Launch the multi-car env's transition (``car_step_and_query`` with the env's
-    tail) on ``device``'s current stream, as ``car_step_query_plan(..., tail=True)``
-    says: ``ptrs`` the ``TRANSITION_PTRS`` tensors (or None) in the order of
-    ``csrc/car_step_and_query.cu:multi_transition_f32``, ``constants`` its
-    ``TRANSITION_CONSTS`` float32 values."""
+    """Launch the multi-car env's transition on ``device``'s current stream, as
+    ``multi_transition_plan`` says: ``ptrs`` the ``TRANSITION_PTRS`` tensors (or None)
+    in the order of ``csrc/multi_transition.cu:multi_transition_f32``, ``constants``
+    its ``TRANSITION_CONSTS`` float32 values (the first kernel takes the same)."""
     if len(ptrs) != TRANSITION_PTRS or len(constants) != TRANSITION_CONSTS:
         raise ValueError(f"multi_transition: {len(ptrs)} pointers and {len(constants)} "
                          f"constants, expected {TRANSITION_PTRS} and {TRANSITION_CONSTS}")
-    plan = car_step_query_plan(cars_per_row, num_waypoints, pairs, tail=True)
+    plan = multi_transition_plan(cars_per_row, num_waypoints, pairs, rows)
     ptr_array = (ctypes.c_void_p * TRANSITION_PTRS)(*map(_ptr, ptrs))
     const_array = (ctypes.c_float * TRANSITION_CONSTS)(*map(float, constants))
-    _call("car_step_and_query", "multi_transition_f32", device, ptr_array, TRANSITION_PTRS,
-          const_array, TRANSITION_CONSTS, rows, cars_per_row, num_waypoints, plan.threads,
-          plan.smem, int(pairs), int(max_steps))
+    args = (ptr_array, TRANSITION_PTRS, const_array, TRANSITION_CONSTS, rows, cars_per_row,
+            num_waypoints, plan.threads, plan.smem, int(pairs), int(max_steps))
+    if plan.small:
+        _call("car_step_and_query", "multi_transition_small_f32", device, *args)
+    else:
+        _call("multi_transition", "multi_transition_f32", device, *args, plan.rows_per_block)
 
 
 def launch_compute_gae(rewards, dones, values, next_value, next_done, adv, ret,

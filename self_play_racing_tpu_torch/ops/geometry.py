@@ -110,6 +110,52 @@ def raycast_walls_plain(ox, oy, dx, dy, seg_sx, seg_sy, seg_vx, seg_vy, max_dist
     return torch.where(torch.isinf(tmin), torch.full_like(tmin, max_dist), tmin)
 
 
+def raycast_walls_fold_shape(ox, oy, dx, dy, seg_sx, seg_sy, seg_vx, seg_vy, max_dist,
+                             seg_c=None, row_ids=None, stop_at_extent=False):
+    """``raycast_walls`` in the kernels' reduction shape (``csrc/wall_fold.cuh``):
+    per ray, run j folds segments [j*L, (j+1)*L) in index order (L = ceil(S/32), the
+    row padded to 32 runs with zero direction), and the 32 runs combine in the
+    warp's shuffle tree (``_ratio_min_fold``: neighbours at distance 1, 2, 4, 8, 16,
+    left before right). ``stop_at_extent`` stops each row's runs at its real extent
+    E, one past its last segment with a nonzero direction (the redesigned
+    observation's runs, ``csrc/run_fold.cuh``): such segments never take, so the
+    result is the same. A model of the shape for tests; no kernel path calls it."""
+    seg_sx, seg_sy, seg_vx, seg_vy, seg_c = pool_rows(row_ids, seg_sx, seg_sy, seg_vx,
+                                                      seg_vy, seg_c)
+    if seg_c is None:
+        seg_c = seg_vy * seg_sx - seg_vx * seg_sy
+    s = seg_sx.shape[-1]
+    length = -(-s // 32)
+    u = ox * dy - oy * dx
+    cn = oy[..., None] * seg_vx - ox[..., None] * seg_vy + seg_c
+    dotp = seg_vy * dx[..., None] - seg_vx * dy[..., None]
+    sn = seg_sx * dy[..., None] - seg_sy * dx[..., None] - u[..., None]
+    d = dotp.abs()
+    hit = (d > _PARALLEL_EPS) & (cn * dotp >= 0.0) & (sn * dotp >= 0.0) & (sn.abs() <= d)
+    if stop_at_extent:
+        real = (seg_vx != 0) | (seg_vy != 0)
+        index = torch.arange(1, s + 1, device=real.device)
+        extent = torch.where(real, index, 0).amax(dim=-1, keepdim=True)
+        hit = hit & (index - 1 < extent)
+    akey = torch.where(hit, cn.abs(), math.inf)
+    d = d.expand_as(akey)
+    pad = akey.shape[:-1] + (32 * length - s,)
+    akey = torch.cat([akey, akey.new_full(pad, math.inf)], dim=-1)
+    d = torch.cat([d, d.new_zeros(pad)], dim=-1)
+    runs_a = akey.reshape(akey.shape[:-1] + (32, length))
+    runs_d = d.reshape(d.shape[:-1] + (32, length))
+    pa = torch.full(runs_a.shape[:-1], math.inf, dtype=akey.dtype, device=akey.device)
+    pd = torch.ones_like(pa)
+    for k in range(length):
+        qa, qd = runs_a[..., k], runs_d[..., k]
+        take = qa * pd < pa * qd
+        pa = torch.where(take, qa, pa)
+        pd = torch.where(take, qd, pd)
+    amin, dmin = _ratio_min_fold(pa, pd)
+    tmin = amin / dmin
+    return torch.where(torch.isinf(tmin), torch.full_like(tmin, max_dist), tmin)
+
+
 def _ratio_min_fold(a, d):
     """Least a/d over the last axis without dividing: q beats p only on a strict
     ``qa * pd < pa * qd``. The axis is padded to a power of two with the identity
@@ -212,6 +258,51 @@ def nearest_waypoint(px, py, wp_x, wp_y):
     """
     d2 = (wp_x - px[..., None]) ** 2 + (wp_y - py[..., None]) ** 2
     return torch.argmin(d2, dim=-1)
+
+
+NO_WAYPOINT = 2**31 - 1  # the kernels' index where no waypoint's d^2 is finite
+
+
+def waypoint_search_model(qx, qy, wp_x, wp_y, n_wp, real_first=True):
+    """The kernels' nearest waypoint, as a model for tests (no kernel path calls
+    it): the first index of the least finite d^2 = dx*dx + dy*dy over a row's W
+    waypoints (``csrc/track_query.cuh``; a NaN or overflowed d^2 never wins), or
+    ``NO_WAYPOINT``. ``real_first`` searches as ``csrc/waypoint_search.cuh`` does:
+    the real waypoints [0, n_wp) first, then the padding only where the least d^2
+    its box allows is below the real winner's (or that is undefined).
+
+    qx, qy: queries ``B``; wp_x, wp_y: ``B + (W,)``; n_wp: broadcastable to ``B``.
+    Returns int64 ``B``."""
+    ddx = qx[..., None] - wp_x
+    ddy = qy[..., None] - wp_y
+    d2 = ddx * ddx + ddy * ddy
+    index = torch.arange(d2.shape[-1], device=d2.device)
+
+    def first_least(among):
+        v = torch.where(among & (d2 < math.inf), d2, math.inf)
+        best, i = v.min(dim=-1)
+        return best, torch.where(torch.isinf(best), NO_WAYPOINT, i)
+
+    _, i_all = first_least(torch.ones_like(d2, dtype=torch.bool))
+    if not real_first:
+        return i_all
+    n = torch.as_tensor(n_wp, device=d2.device).clamp(0, d2.shape[-1])
+    real = index < n[..., None]
+    best, i = first_least(real)
+    pad = ~real
+
+    def bounds(w):
+        inf = torch.full_like(w, math.inf)
+        lo = torch.where(pad & ~torch.isnan(w), w, inf).amin(dim=-1)
+        hi = torch.where(pad & ~torch.isnan(w), w, -inf).amax(dim=-1)
+        return lo, hi
+
+    (x0, x1), (y0, y1) = bounds(wp_x), bounds(wp_y)
+    zero = torch.zeros_like(qx)
+    gx = torch.fmax(torch.fmax(x0 - qx, qx - x1), zero)
+    gy = torch.fmax(torch.fmax(y0 - qy, qy - y1), zero)
+    padding_may_win = ~(best <= gx * gx + gy * gy)
+    return torch.where(padding_may_win, i_all, i)
 
 
 def track_progress(px, py, wp_x, wp_y, n_wp):

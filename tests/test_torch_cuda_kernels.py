@@ -30,7 +30,11 @@ multi-car env's step (``multi.transition`` and ``multi.observe``, one launch eac
 the narrow env kernels with the reward tail and the observation row in their
 blocks) bitwise, -0.0 apart from 0.0, equal to its plain version (the narrow kernel
 and PyTorch around it, what the env ran before) at 1, 2, 3 and 8 cars on per-env
-rows and by row id.
+rows and by row id. Their redesign (``csrc/multi_observe.cu``,
+``csrc/multi_transition.cu``) the same way on rows whose real extent sits at the
+fold's run boundaries, on rows off 16-byte alignment and with cars far off the
+track, the observation also bitwise the fold's shape model
+(``chip_smoke.shape_model_observe``).
 """
 import contextlib
 import dataclasses
@@ -43,6 +47,7 @@ import chip_smoke
 from test_torch_dist_workers import group_of_one
 from self_play_racing_tpu_torch.envs import multi as menv
 from self_play_racing_tpu_torch.envs import track as trk
+from self_play_racing_tpu_torch.ops import _cuda
 from self_play_racing_tpu_torch.ops import dynamics
 from self_play_racing_tpu_torch.ops import gae
 from self_play_racing_tpu_torch.ops import geometry as geo
@@ -1298,3 +1303,137 @@ def test_env_step_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         menv.observe(cfg, short, state)
     assert (menv.transition_launches, menv.observe_launches) == counts
+
+
+# ------------- the env step's kernels redesigned (csrc/multi_observe.cu, multi_transition.cu)
+
+# real extents of the 16 rows: at and around the runs' boundaries (L = 28 at S = 896),
+# a row of padding only (0) and the canonical pool's own (600, 660, 780)
+_L = 28
+EXTENTS = [1, _L - 1, _L, _L + 1, 23 * _L + 16, 896, 0, 600, 780, 2, 100, 31 * _L,
+           32 * _L - 1, 450, 333, 660]
+
+
+def _cut_pool(cuda, extents=None, segments=None, waypoints=None):
+    """The canonical pool with row r's segments cut to its first extents[r] (the rest
+    zero direction) and two zero-direction segments inside each row; or its fields
+    cut to ``segments`` and ``waypoints`` columns, so that rows start off 16 bytes."""
+    from self_play_racing_tpu_torch.utils.profiling import canonical_bench_pool
+
+    pool = canonical_bench_pool(16, device=cuda)
+    segs = {f: getattr(pool, f).clone() for f in ("seg_sx", "seg_sy", "seg_vx", "seg_vy",
+                                                  "seg_c")}
+    for r, e in enumerate(extents or []):
+        for t in segs.values():
+            t[r, e:] = 0.0
+            if e >= 4:
+                t[r, [e // 3, 3 * e // 4]] = 0.0
+    wps = {f: getattr(pool, f) for f in ("wp_x", "wp_y", "nrm_x", "nrm_y")}
+    if segments:
+        segs = {f: t[:, :segments].contiguous() for f, t in segs.items()}
+    if waypoints:
+        wps = {f: t[:, :waypoints].contiguous() for f, t in wps.items()}
+    return dataclasses.replace(pool, **segs, **wps)
+
+
+def _layout(pool, where, n=ENV_STEP_ENVS):
+    if where == "gathered":
+        return trk.gather_tracks(pool, np.arange(n) % 16)
+    if where == "tiled":
+        return trk.tiled_pooled_tracks(pool, n)
+    return trk.grouped_pooled_tracks(pool, [5, 0, 7, 2, 2, 6, 1, 3, 15, 9, 9, 4, 11, 12, 0, 8],
+                                     n // 16)
+
+
+def _observe_is_plain_and_shape(cfg, track, state):
+    got = menv.observe(cfg, track, state)
+    want = menv.observe_plain(cfg, track, state)
+    model = chip_smoke.shape_model_observe(cfg, track, state)
+    torch.cuda.synchronize()
+    assert chip_smoke.same_bits(got, want), int((got != want).sum())
+    assert chip_smoke.same_bits(got, model), int((got != model).sum())
+
+
+@pytest.mark.parametrize("cars,sensors", [(1, 11), (2, 11), (3, 7), (8, 11)])
+@pytest.mark.parametrize("where", ["gathered", "tiled", "grouped"])
+def test_redesigned_observe_at_the_real_extents_boundaries(cuda, cars, sensors, where):
+    """``multi_observe`` on rows whose real extent E sits at the runs' boundaries (1,
+    L - 1, L, L + 1, 23 L + 16, S), on a row of padding only and with zero-direction
+    segments inside the rows, 1, 2, 3 and 8 cars (3 x 7: a ray group spans two
+    cars), 5008 envs (more blocks than the card holds at once): bitwise its plain
+    version (the narrow kernel and PyTorch) and the fold's shape model."""
+    cfg = menv.MultiRacingConfig(num_agents=cars, num_sensors=sensors)
+    track = _layout(_cut_pool(cuda, extents=EXTENTS), where)
+    state, _ = chip_smoke.crafted_state(track, cars, cfg.max_steps, seed=20 + cars, device=cuda)
+    _observe_is_plain_and_shape(cfg, track, state)
+
+
+@pytest.mark.parametrize("cars", [1, 2, 3, 8])
+@pytest.mark.parametrize("where", ["gathered", "tiled"])
+def test_redesigned_env_step_on_rows_off_16_byte_alignment(cuda, cars, where):
+    """Segment rows of 893 and waypoint rows of 509 floats (row r starts 4r bytes off
+    16 for r = 1, 2, 3 mod 4): both kernels bitwise their plain versions, the
+    observation its shape model, over 8 steps in lockstep."""
+    cfg = menv.MultiRacingConfig(num_agents=cars, num_sensors=11,
+                                 max_steps=chip_smoke.CRAFTED_MAX_STEPS)
+    track = _layout(_cut_pool(cuda, segments=893, waypoints=509), where)
+    state, action = chip_smoke.crafted_state(track, cars, cfg.max_steps, seed=cars,
+                                             device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(cars)
+    for _ in range(8):
+        out = menv.transition(cfg, track, state, action)
+        plain = menv.transition_plain(cfg, track, state, action)
+        assert chip_smoke.differing(chip_smoke.transition_fields(out),
+                                    chip_smoke.transition_fields(plain)) == {}
+        state = out[0]
+        _observe_is_plain_and_shape(cfg, track, state)
+        action = torch.rand((ENV_STEP_ENVS, cars, 2), generator=gen, device=cuda) * 2.6 - 1.3
+
+
+@pytest.mark.parametrize("where", ["gathered", "tiled"])
+def test_redesigned_transition_far_off_the_track(cuda, where):
+    """Cars at 1e9 (a padding waypoint at 1e8 is their nearest, so the search must
+    visit the padding), at +-1e19, at infinity and at NaN: ``multi_transition``
+    bitwise its plain version, which searches every waypoint."""
+    cfg = menv.MultiRacingConfig(num_agents=2, num_sensors=11,
+                                 max_steps=chip_smoke.CRAFTED_MAX_STEPS)
+    track = _layout(_cut_pool(cuda), where)
+    state, action = chip_smoke.crafted_state(track, 2, cfg.max_steps, seed=5, device=cuda)
+    x, y = state.x.clone(), state.y.clone()
+    x[::7, 0], y[::7, 0] = 1e9, -1e9
+    x[::11, 1] = 1e19
+    y[::13, 0] = -1e19
+    x[::17, 1] = float("inf")
+    y[::19, 0] = float("nan")
+    state = dataclasses.replace(state, x=x, y=y)
+    out = menv.transition(cfg, track, state, action)
+    plain = menv.transition_plain(cfg, track, state, action)
+    assert chip_smoke.differing(chip_smoke.transition_fields(out),
+                                chip_smoke.transition_fields(plain)) == {}
+
+
+@pytest.mark.parametrize("envs", [40, 200, 1024, 2048])
+@pytest.mark.parametrize("cars", [2, 3])
+def test_redesigned_env_step_at_fewer_envs(cuda, envs, cars):
+    """At a match's 40 envs and an evaluation's 200 the env launches the first
+    kernels (under ``OBSERVE_SMALL_BELOW`` and ``TRANSITION_SMALL_BELOW`` rows), at
+    1024 the redesigned observation and the first transition, at 2048 both
+    redesigned ones, as the small-launch counters show: every launch bitwise its
+    plain version, the observation its shape model, over 8 steps in lockstep."""
+    cfg = menv.MultiRacingConfig(num_agents=cars, num_sensors=11,
+                                 max_steps=chip_smoke.CRAFTED_MAX_STEPS)
+    track = _layout(_cut_pool(cuda), "gathered", n=envs)
+    state, action = chip_smoke.crafted_state(track, cars, cfg.max_steps, seed=envs,
+                                             device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(envs)
+    small = (menv.observe_small_launches, menv.transition_small_launches)
+    for _ in range(8):
+        out = menv.transition(cfg, track, state, action)
+        plain = menv.transition_plain(cfg, track, state, action)
+        assert chip_smoke.differing(chip_smoke.transition_fields(out),
+                                    chip_smoke.transition_fields(plain)) == {}
+        state = out[0]
+        _observe_is_plain_and_shape(cfg, track, state)
+        action = torch.rand((envs, cars, 2), generator=gen, device=cuda) * 2.6 - 1.3
+    assert (menv.observe_small_launches - small[0], menv.transition_small_launches - small[1]) \
+        == (8 * (envs < _cuda.OBSERVE_SMALL_BELOW), 8 * (envs < _cuda.TRANSITION_SMALL_BELOW))

@@ -238,7 +238,24 @@ m. m.1 (after 6b) both against their plain versions (the narrow kernels and PyTo
    of every step bitwise), then graphed with the kernels and with the plain
    versions (every step's buffers and the final state bitwise); the kernel nodes of
    one captured rollout step of each (at least 100 fewer with the kernels) and its
-   device ms a step, in turns.
+   device ms a step, in turns;
+
+and for the PPO minibatch step's two kernels (``ops/minibatch.py``), right after m.1:
+
+n. ``ppo_head`` (the loss's per-row work, one launch forward and one backward) on
+   ``crafted_minibatch`` (rows that take every branch: the ratio clipped above,
+   below and not, pg1 == pg2, the value clipped, tied, at its clamp's bounds) at
+   65,536, 16,384, 4097 and 1 rows, with a group's moments and the minibatch's own,
+   its gradients from the loss and from given upstream gradients (also expanded):
+   every output and gradient bitwise the plain composition; ``adam_tail`` (the clip,
+   Adam, the masked apply, the stats row and the counters in one launch) bitwise its
+   plain version applied, clipped, masked by the KL exit and after it, also on a
+   group's flat-buffer views; one update of 160 minibatches at 4096 x 256 with the
+   kernels bitwise one with the plain versions; both timed eager and in a CUDA
+   graph beside their plain versions and bounds, the tail beside
+   ``torch._fused_adam_`` over the same 12 tensors. Every training path counts the
+   three launches once a minibatch step (``learner``: exactly from the loop's
+   computed minibatches where the phase times the loop, else checked whole epochs).
 
 The line before the last is one JSON object with every kernel's numbers (``ms`` the
 eager back-to-back time, ``graph_ms`` the CUDA-graph replay time, ``launches`` the
@@ -313,6 +330,7 @@ from self_play_racing_tpu_torch.ops import _cuda
 from self_play_racing_tpu_torch.ops import dynamics
 from self_play_racing_tpu_torch.ops import gae
 from self_play_racing_tpu_torch.ops import geometry as geo
+from self_play_racing_tpu_torch.ops import minibatch as mbops
 from self_play_racing_tpu_torch.ops import prng
 from self_play_racing_tpu_torch.parallel import mesh as pmesh
 from self_play_racing_tpu_torch.serve import Policy, bench
@@ -1423,7 +1441,12 @@ COUNTERS = {
     "multi_transition_small": (menv, "transition_small_launches"),
     "compute_gae": (gae, "compute_gae_launches"),
     "mixbits_permutation": (prng, "mixbits_permutation_launches"),
+    "ppo_head": (mbops, "ppo_head_launches"),
+    "ppo_head_backward": (mbops, "ppo_head_backward_launches"),
+    "adam_tail": (mbops, "adam_tail_launches"),
 }
+# the learner's kernels: one launch of each a minibatch_step
+LEARNER = ("ppo_head", "ppo_head_backward", "adam_tail")
 
 
 def zero_counts():
@@ -1455,6 +1478,24 @@ def counts(envs=None, **nonzero):
     if envs is not None and envs < _cuda.TRANSITION_SMALL_BELOW:
         out["multi_transition_small"] = out["multi_transition"]
     return out
+
+
+def learner(launches, cfg, updates: int, computed=None) -> dict:
+    """The learner kernels' expected launches in ``updates`` updates: one of each a
+    ``minibatch_step`` call, and the loop runs every epoch up to the KL exit's whole
+    (the exit's rest masked). With ``computed`` (the minibatches each update
+    computed) exactly that; without, the count ``launches`` holds, once it is the
+    same for the three and whole epochs, at least one and at most
+    ``cfg.update_epochs`` an update."""
+    m = cfg.num_minibatches
+    if computed is not None:
+        return dict.fromkeys(LEARNER, sum(-(-c // m) * m for c in computed))
+    n = launches["adam_tail"]
+    if (any(launches[k] != n for k in LEARNER) or n % m
+            or not updates * m <= n <= updates * cfg.update_epochs * m):
+        raise AssertionError(f"learner kernels {[launches[k] for k in LEARNER]} launches in "
+                             f"{updates} updates of {cfg.update_epochs} x {m} minibatches")
+    return dict.fromkeys(LEARNER, n)
 
 
 def rollout(params, log_std, cfg, track, vstate, obs, gen, steps):
@@ -1577,7 +1618,8 @@ def training(track, env_cfg, card):
           f"on {card}; launches {launches}")
     n = STEPS * TRAIN_UPDATES
     expected = counts(raycast_walls=n, car_step_and_query=n,
-                      compute_gae=TRAIN_UPDATES, mixbits_permutation=TRAIN_UPDATES)
+                      compute_gae=TRAIN_UPDATES, mixbits_permutation=TRAIN_UPDATES,
+                      **learner(launches, cfg, TRAIN_UPDATES, [c for _, c in loops]))
     if launches != expected:
         raise AssertionError(f"training launches {launches}, expected {expected}")
     for m in metrics:
@@ -1609,7 +1651,7 @@ def entry_point(card):
           f"({len(params['actor'])} layers per tower, log_std {log_std.tolist()})")
     steps = 2 * cfg.num_steps
     expected = counts(raycast_walls=steps + 1, car_step_and_query=steps, compute_gae=2,
-                      mixbits_permutation=2)
+                      mixbits_permutation=2, **learner(launches, cfg, 2))
     if launches != expected:
         raise AssertionError(f"train single launches {launches}, expected {expected}")
 
@@ -1674,7 +1716,8 @@ def selfplay_training(make_track, card, label=""):
           f"(torch.cuda.max_memory_allocated {(peak + base) / 2**20:,.1f} MiB)")
     n = STEPS * SP_TRAIN_UPDATES
     expected = counts(cfg.num_envs, multi_observe=n, multi_transition=n,
-                      compute_gae=SP_TRAIN_UPDATES, mixbits_permutation=SP_TRAIN_UPDATES)
+                      compute_gae=SP_TRAIN_UPDATES, mixbits_permutation=SP_TRAIN_UPDATES,
+                      **learner(launches, cfg, SP_TRAIN_UPDATES, [c for _, c in loops]))
     if isinstance(track, trk.LAYOUTS):
         expected.update(multi_observe_row_ids=n, multi_transition_row_ids=n)
     if launches != expected:
@@ -1722,7 +1765,7 @@ def selfplay_entry_points(card):
         # reset before each update
         sensed = steps + 1 + (2 if cfg.reset_envs_each_update else 0)
         expected = counts(cfg.num_envs, multi_observe=sensed, multi_transition=steps,
-                          compute_gae=2, mixbits_permutation=2)
+                          compute_gae=2, mixbits_permutation=2, **learner(launches, cfg, 2))
         print(f"train {mode}: {cfg.num_envs} envs x {cfg.num_steps} steps x 2 cars, 2 updates "
               f"in {dt:.1f} s on {card}; launches {launches}; saved policy loads "
               f"({params['actor'][0][0].shape[0]} inputs, log_std {log_std.tolist()})")
@@ -1859,7 +1902,7 @@ def resampled_entry_points(card):
             expected = counts(cfg.num_envs, multi_observe=steps + 2, multi_transition=steps,
                               multi_observe_row_ids=steps + 2,
                               multi_transition_row_ids=steps, compute_gae=2,
-                              mixbits_permutation=2)
+                              mixbits_permutation=2, **learner(launches, cfg, 2))
             print(f"train scale --resample-tracks-every 1 --pooled-geometry {layout}: "
                   f"{cfg.num_envs} envs x {cfg.num_steps} steps, 2 updates in {dt:.1f} s on "
                   f"{card}; pools by update {drawn}; the envs' geometry {type(track).__name__} "
@@ -2185,14 +2228,16 @@ def dp_trainer(cfg, dev, eager=False):
                            trk.tiled_pooled_tracks(pool, cfg.num_envs), eager=eager)
 
 
-def dp_expected(cfg, updates: int):
+def dp_expected(cfg, updates: int, launches):
     """The launches of ``updates`` updates on one rank (``num_envs / data_shards``
     envs): the sensing and the transition (by row id) every step, K6 and K7 once an
-    update."""
+    update, the learner's kernels once a minibatch run (``learner``, checked on
+    ``launches``)."""
     n = cfg.num_steps * updates
     return counts(cfg.num_envs // cfg.data_shards, multi_observe=n, multi_transition=n,
                   multi_observe_row_ids=n, multi_transition_row_ids=n,
-                  compute_gae=updates, mixbits_permutation=updates)
+                  compute_gae=updates, mixbits_permutation=updates,
+                  **learner(launches, cfg, updates))
 
 
 def dp_train(trainer, updates: int):
@@ -2333,9 +2378,9 @@ def data_parallel_world_one(dev, card):
         raise AssertionError(f"world 1 eager: {e['calls']} all-reduces, expected {reduces}")
     for mode, r in runs.items():
         for launches in (p_launches, r["launches"]):
-            if launches != dp_expected(cfg, DP_UPDATES):
+            if launches != dp_expected(cfg, DP_UPDATES, launches):
                 raise AssertionError(f"data parallel world 1 launches {launches}, expected "
-                                     f"{dp_expected(cfg, DP_UPDATES)}")
+                                     f"{dp_expected(cfg, DP_UPDATES, launches)}")
         got = r["state"]
         diffs = [k for k in ("count", "num_snapshots", "pool_wins", "pool_games")
                  if got[k] != want[k]]
@@ -2540,9 +2585,10 @@ def data_parallel_ranks(dev, card, world=DP_WORLD, backend="gloo", devices=None,
             raise AssertionError(f"rank {r}: params {absd:.3e} from one process's, beyond "
                                  f"{DP_ATOL}")
         for mode in ("default", "eager") if eager_too else ("default",):
-            if ranked[mode]["launches"] != dp_expected(cfg, 1):
+            expected = dp_expected(cfg, 1, ranked[mode]["launches"])
+            if ranked[mode]["launches"] != expected:
                 raise AssertionError(f"rank {r} ({mode}) launches {ranked[mode]['launches']}, "
-                                     f"expected {dp_expected(cfg, 1)}")
+                                     f"expected {expected}")
         if eager_too:
             if ranked["eager"]["graphed"]:
                 raise AssertionError(f"rank {r}: the eager=True run built graphs")
@@ -2827,11 +2873,13 @@ def tp_trainer(name, cfg, dev, eager=False):
                       trk.tiled_pooled_tracks(pool, cfg.num_envs), eager=eager)
 
 
-def tp_expected(cfg):
-    """A rank's launches in one single-car update on the tiled pool."""
+def tp_expected(cfg, launches):
+    """A rank's launches in one single-car update on the tiled pool (the learner's
+    kernels as ``learner`` checks them on ``launches``)."""
     n = cfg.num_steps
     return counts(raycast_walls=n, car_step_and_query=n, raycast_walls_row_ids=n,
-                  car_step_and_query_row_ids=n, compute_gae=1, mixbits_permutation=1)
+                  car_step_and_query_row_ids=n, compute_gae=1, mixbits_permutation=1,
+                  **learner(launches, cfg, 1))
 
 
 def tp_runs(cfgs, dev, mesh=None, eager=False, warm=True):
@@ -2962,8 +3010,8 @@ def tensor_parallel_ranks(dev, card, world=TP_MODEL, backend="gloo", devices=Non
             if absd > bound[name]:
                 raise AssertionError(f"rank {r} ({name}): params {absd:.3e} from one "
                                      f"process's, beyond {bound[name]:.3e}")
-            want = tp_expected(cfgs[name]) if name == "single" else \
-                dp_expected(cfgs[name], 1)
+            want = tp_expected(cfgs[name], g["launches"]) if name == "single" else \
+                dp_expected(cfgs[name], 1, g["launches"])
             if g["launches"] != want or g["graphed"] != graphed:
                 raise AssertionError(f"rank {r} ({name}) launches {g['launches']}, "
                                      f"expected {want}; graphed {g['graphed']}")
@@ -3199,7 +3247,8 @@ def graph_against_eager(pool, card):
                                                "compute_gae": 1, "mixbits_permutation": 1})
             if where == "tiled":
                 expected.update({f"{sensing}_row_ids": STEPS, f"{stepping}_row_ids": STEPS})
-            if any(c != expected for c in g["launches"][:GRAPH_UPDATES]):
+            if any(c != {**expected, **learner(c, cfg, 1)}
+                   for c in g["launches"][:GRAPH_UPDATES]):
                 raise AssertionError(f"{what}: launches {g['launches']}, expected {expected}")
             print(f"{what}: graphed = eager bitwise over {len(g['metrics'])} updates (metrics, "
                   f"parameters, Adam moments and count {g['count']}, observations, launches); "
@@ -4005,6 +4054,337 @@ def env_step_rollout(pool, dev, card):
     return nodes
 
 
+# ------------------------------------ phase (n): the minibatch step's two kernels
+
+# the minibatch of train scale's width (4096 x 256 / 16) and a four-card rank's part
+MINIBATCH_ROWS = (65_536, 16_384)
+HEAD_CLIP = 0.2  # base_config's clip_coef
+# rows of crafted_minibatch, by i % 8: 0 ratio and value unclipped (pg1 == pg2), 1 the
+# ratio clipped above, 2 below, 3 the advantage at the group's mean (normalized 0), 4
+# the value clipped, 5 the value losses tied, 6 the value at its old value, 7 the
+# value's clamp at its bounds
+HEAD_ROW_KINDS = 8
+# float32 operations a row: the head's forward (the log-prob 16, the ratio 3, the
+# advantage 3, the surrogates 7, the value loss 10, the flag 3) and its backward (the
+# forward again, then 30)
+HEAD_FORWARD_OPS = 42
+HEAD_BACKWARD_OPS = 72
+# the tail's float32 operations an element: the clip 2, the moments 6, the step 6,
+# the apply 2
+TAIL_OPS = 16
+
+
+def crafted_minibatch(n: int, rng, dtype=np.float32, clip: float = HEAD_CLIP,
+                      boundaries: bool = True) -> dict:
+    """An ``n``-row minibatch for the loss head (numpy arrays of ``dtype``) whose
+    rows take every branch, by ``i % HEAD_ROW_KINDS`` (see there): the actor's
+    ``mu`` [n, 2] and critic's ``v`` [n], the actions, old log-probs, advantages,
+    returns and old values, ``log_std`` [2], and ``moments`` (mean, std) as a group
+    hands them (kind 3 rows sit at the mean). ``boundaries``: kind 7 puts v - values
+    at exactly -+clip (its float in ``dtype``), where PyTorch's clamp passes the
+    gradient and JAX's clip halves it; else kind 7 rows are kind 0's."""
+    kind = np.arange(n) % HEAD_ROW_KINDS
+    log_std = np.array([-0.5, -0.9])
+    mu = rng.uniform(-0.95, 0.95, (n, 2))
+    actions = np.clip(mu + np.exp(log_std) * rng.normal(size=(n, 2)), -1.0, 1.0)
+    lp = (-((actions - mu) ** 2) / (2 * np.exp(2 * log_std)) - log_std
+          - 0.5 * np.log(2 * np.pi)).sum(-1)
+    log_ratio = np.select([kind == 1, kind == 2],
+                          [rng.uniform(0.3, 1.0, n), rng.uniform(-1.0, -0.3, n)],
+                          rng.uniform(-0.1, 0.1, n))
+    advantages = rng.normal(0.0, 2.0, n)
+    mean, std = 0.5, float(np.std(advantages, ddof=1)) if n > 1 else 1.0
+    advantages[kind == 3] = mean
+    v = rng.uniform(-2.0, 2.0, n)
+    sign = np.where(rng.random(n) < 0.5, -1.0, 1.0)
+    values = np.select([kind == 4, kind == 5, kind == 6],
+                       [v + sign * rng.uniform(0.3, 1.0, n), np.full(n, 0.25), v],
+                       v + rng.uniform(-0.15, 0.15, n))
+    v[kind == 5] = 0.375  # v - values = 0.125: v_clip is v, the two losses tie
+    if boundaries:
+        edge = kind == 7
+        values[edge] = 0.0
+        v[edge] = sign[edge] * float(dtype(clip))
+    returns = v + rng.normal(0.0, 1.0, n)
+    cast = lambda a: np.asarray(a, dtype)
+    return {"mu": cast(mu), "v": cast(v), "actions": cast(actions),
+            "logprobs": cast(lp - log_ratio), "advantages": cast(advantages),
+            "returns": cast(returns), "values": cast(values), "log_std": cast(log_std),
+            "moments": (cast(mean), cast(std))}
+
+
+def head_tensors(case: dict, dev, own_moments: bool = False) -> dict:
+    """``crafted_minibatch``'s arrays as tensors on ``dev`` (``mu`` and ``v``
+    requiring gradients), with the moments the loss would take: the group's, or
+    with ``own_moments`` the advantages' own mean and unbiased std, as PyTorch forms
+    them."""
+    t = {k: torch.as_tensor(v, device=dev) for k, v in case.items() if k != "moments"}
+    t["mu"].requires_grad_(True)
+    t["v"].requires_grad_(True)
+    adv = t["advantages"]
+    t["mean"], t["std"] = ((adv.mean(), adv.std(correction=1)) if own_moments else
+                           tuple(torch.as_tensor(m, device=dev) for m in case["moments"]))
+    return t
+
+
+HEAD_ARGS = ("mu", "v", "actions", "logprobs", "advantages", "returns", "values", "log_std",
+             "mean", "std")
+
+
+def head_outputs(head, t: dict, upstream=None):
+    """``head`` (``mbops.ppo_head`` or ``ppo_head_plain``) on tensors ``t``: its four
+    outputs, and the gradients of ``mu`` and ``v`` from ``upstream`` (the
+    gradients of the two maxima), or where None from the loss as ``_ppo_loss`` forms
+    it (its means and coefficients, ``base_config``'s)."""
+    out = head(*(t[k] for k in HEAD_ARGS), HEAD_CLIP)
+    if upstream is None:
+        cfg = base_config()
+        loss = out[1].mean() + cfg.vf_coef * (0.5 * out[2].mean())
+        grads = torch.autograd.grad(loss, (t["mu"], t["v"]))
+    else:
+        grads = torch.autograd.grad(out[1:3], (t["mu"], t["v"]), upstream)
+    return [o.detach() for o in out] + list(grads)
+
+
+HEAD_OUTPUTS = ("-log_ratio", "max(pg1, pg2)", "max of the value losses", "clip flag",
+                "d/d mu", "d/d v")
+
+
+def hold_head(t: dict, upstream, what: str) -> float:
+    """The head's kernels against the plain composition on ``t``: every output and
+    gradient bitwise. Returns the largest difference (0.0)."""
+    got = head_outputs(mbops.ppo_head, t, upstream)
+    want = head_outputs(mbops.ppo_head_plain, t, upstream)
+    torch.cuda.synchronize()
+    bad = [name for name, g, w in zip(HEAD_OUTPUTS, got, want) if not same_bits(g, w)]
+    if bad:
+        raise AssertionError(f"phase n ppo_head {what}: {bad} differ from the plain version")
+    return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+
+def tail_state(dev, seed: int, hidden=(64, 64), obs_dim: int = 19, steps: int = 160):
+    """A learner's tail inputs at ``train scale``'s widths: the 12 parameter tensors
+    of a ``obs_dim`` -> ``hidden`` -> {2, 1} policy, gradients, Adam moments after
+    some steps, the bias tables of an update of ``steps`` minibatches and a fresh
+    ``ppo.MinibatchLoop``."""
+    gen = torch.Generator().manual_seed(seed)
+    params = [p.detach().to(dev) for p in net.ActorCritic(
+        net.init_params(gen, obs_dim, 2, hidden=hidden), torch.zeros(2)).parameters()]
+    like = lambda p, s: (torch.randn(p.shape, generator=gen) * s).to(dev)
+    grads = [like(p, 0.003) for p in params]
+    mu = [like(p, 0.01) for p in params]
+    nu = [like(p, 0.001).square() for p in params]
+    bc1, bc2 = (torch.as_tensor(ppo.bias_correction_table(b, 7, steps, torch.float32),
+                                device=dev) for b in (ppo.ADAM_B1, ppo.ADAM_B2))
+    return params, grads, mu, nu, bc1, bc2, ppo.MinibatchLoop.zeros(steps, dev)
+
+
+# the tail's cases: (approx_kl, the loop's exit flag before, gradient scale): applied
+# below the clip, applied and clipped, masked by trig, masked by an earlier exit
+TAIL_CASES = {"applied": (0.001, False, 1.0), "applied, clipped": (0.001, False, 100.0),
+              "trig": (0.5, False, 1.0), "after the exit": (0.001, True, 1.0)}
+
+
+def run_tail(tail, state, kl: float, stop: bool, scale: float, dev, at: int = 3):
+    """``tail`` (``mbops.adam_tail`` or ``adam_tail_plain``) on a copy of ``state``'s
+    parameters and moments (its gradients as given, times ``scale``), with the loop at minibatch ``at`` (``at - 1`` applied, ``stop`` its exit flag)
+    and the stats' approx_kl ``kl``; returns everything it writes."""
+    params, grads, mu, nu, bc1, bc2, loop = state
+    params, mu, nu = ([x.clone() for x in xs] for xs in (params, mu, nu))
+    loop = ppo.MinibatchLoop(i=torch.full((1,), at, dtype=torch.int64, device=dev),
+                             applied=torch.full((1,), at - 1, dtype=torch.int64, device=dev),
+                             stop=torch.tensor(stop, device=dev), stats=loop.stats.clone())
+    if scale != 1.0:
+        grads = [g * scale for g in grads]
+    g_norm = ppo.global_norm(grads)
+    stats = [torch.tensor(x, device=dev) for x in (0.31, -0.02, 0.45, 1.9, kl, 0.11)]
+    lr = torch.tensor(2.5e-4, device=dev)
+    tail(params, grads, mu, nu, g_norm, stats, bc1, bc2, lr, loop, 0.5, 0.02)
+    return params + mu + nu + [loop.i, loop.applied, loop.stop, loop.stats]
+
+
+def plain_learner():
+    """The minibatch step's plain versions in place of its kernels, for the block
+    (``minibatch_step`` reaches both through ``ops.minibatch``'s attributes)."""
+    return _patched(mbops, ppo_head=mbops.ppo_head_plain, adam_tail=mbops.adam_tail_plain)
+
+
+@contextlib.contextmanager
+def _patched(module, **attrs):
+    saved = {k: getattr(module, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)
+
+
+def update_with(cfg, dev, seed: int, plain: bool):
+    """One ``run_ppo_update`` (eager) of a fresh policy on a seeded rollout-like batch
+    at ``cfg``'s width, with the kernels or their plain versions: what it trains and
+    returns."""
+    gen = torch.Generator().manual_seed(seed)
+    train = ppo.init_train_state(gen, cfg, 19, 2, device=dev)
+    b = cfg.batch_size
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape, s=1.0: torch.randn(shape, generator=g, device=dev) * s
+    obs = rnd(b, 19)
+    with torch.no_grad():
+        mu, v = train.model(obs)
+        actions = (mu + 0.6 * rnd(b, 2)).clamp(-1, 1)
+        lp = net.normal_log_prob(actions, mu, torch.full((2,), -0.5, device=dev))
+    flat = ppo.Batch(obs, actions, lp + rnd(b, s=0.05), rnd(b, s=2.0), v + rnd(b), v)
+    _, n_units, _ = ppo.minibatch_layout(cfg)
+    perms = prng.epoch_permutation(g, n_units, shape=(cfg.update_epochs, 1), device=dev)
+    with plain_learner() if plain else contextlib.nullcontext():
+        opt, stopped, stats = ppo.run_ppo_update(
+            cfg, train.model, train.opt_state, torch.full((2,), -0.5, device=dev), 2.5e-4,
+            flat, perms)
+    torch.cuda.synchronize()
+    return (list(train.model.parameters()) + opt.mu + opt.nu,
+            (stopped, {k: v.tobytes() for k, v in stats.items()}))
+
+
+def check_minibatch_kernels(dev, card):
+    """Phase n: ``ppo_head`` (forward and backward) and ``adam_tail`` against their
+    plain versions on the card, bitwise: the head on ``crafted_minibatch`` at
+    ``MINIBATCH_ROWS``, an odd count and one row, with the group's moments and its
+    own, the gradients from the loss and from random upstream gradients (also
+    expanded ones); the tail in ``TAIL_CASES`` on ``tail_state``'s 12 tensors and on
+    views of one flat buffer (a group's gradients); then one update of 160
+    minibatches at ``train scale``'s width with the kernels and with the plain
+    versions, every parameter, moment and stat bitwise. Timed as the kernels line
+    needs; returns its three entries."""
+    rng = np.random.default_rng(17)
+    head_err = 0.0
+    for n in MINIBATCH_ROWS + (4097, 1):
+        case = crafted_minibatch(n, rng)
+        for own in (False, True) if n > 1 else (False,):
+            t = head_tensors(case, dev, own)
+            g = torch.Generator(device=dev).manual_seed(n)
+            gp, gv = (torch.randn((n,), generator=g, device=dev) for _ in range(2))
+            for name, up in (("the loss", None), ("random upstream", (gp, gv)),
+                             ("expanded upstream", (gp[:1].expand(n), gv[:1].expand(n)))):
+                head_err = max(head_err, hold_head(t, up, f"{n} rows, {name}"))
+    print(f"phase n ppo_head: forward outputs and d/d mu, d/d v bitwise the plain "
+          f"composition at {MINIBATCH_ROWS + (4097, 1)} rows, every branch "
+          f"({HEAD_ROW_KINDS} row kinds), the group's moments and the minibatch's own")
+    state = tail_state(dev, 5)
+    tail_err = 0.0
+    for name, (kl, stop, scale) in TAIL_CASES.items():
+        got = run_tail(mbops.adam_tail, state, kl, stop, scale, dev)
+        want = run_tail(mbops.adam_tail_plain, state, kl, stop, scale, dev)
+        torch.cuda.synchronize()
+        if not all(same_bits(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"phase n adam_tail {name}: differs from the plain version")
+        tail_err = max(tail_err, max(float((a.double() - b.double()).abs().max())
+                                     for a, b in zip(got, want)))
+    params, grads, mu, nu, bc1, bc2, loop = state
+    flat = torch.cat([g.reshape(-1) for g in grads] + [torch.zeros(6, device=dev)])
+    views, at = [], 0
+    for g in grads:
+        views.append(flat[at:at + g.numel()].view_as(g))
+        at += g.numel()
+    got = run_tail(mbops.adam_tail, (params, views, mu, nu, bc1, bc2, loop), 0.001, False,
+                   1.0, dev)
+    want = run_tail(mbops.adam_tail_plain, state, 0.001, False, 1.0, dev)
+    if not all(same_bits(a, b) for a, b in zip(got, want)):
+        raise AssertionError("phase n adam_tail on a flat buffer's views: differs")
+    print(f"phase n adam_tail: parameters, moments, stats row and counters bitwise the "
+          f"plain composition ({', '.join(TAIL_CASES)}; a group's flat-buffer views)")
+    cfg = base_config(num_envs=NUM_ENVS, num_steps=STEPS, kl_target=float("inf"))
+    runs = [update_with(cfg, dev, 3, plain) for plain in (False, True)]
+    if not (all(same_bits(a, b) for a, b in zip(runs[0][0], runs[1][0]))
+            and runs[0][1] == runs[1][1]):
+        raise AssertionError("phase n: an update with the kernels differs from one with "
+                             "their plain versions")
+    print(f"phase n: one update of {cfg.update_epochs * cfg.num_minibatches} minibatches "
+          f"at {NUM_ENVS} x {STEPS} with the kernels bitwise the one with their plain "
+          f"versions (parameters, Adam moments, every stat)")
+    return time_minibatch_kernels(dev, card, head_err, tail_err)
+
+
+def time_minibatch_kernels(dev, card, head_err: float, tail_err: float):
+    """The kernels line's entries for ``ppo_head``, ``ppo_head_backward`` and
+    ``adam_tail``: at each of ``MINIBATCH_ROWS`` the head eager and in a CUDA graph
+    beside the plain composition and the bound, and the tail beside its plain
+    version and ``torch._fused_adam_`` over the same 12 tensors (a library call that
+    computes Adam alone, rounds otherwise and never runs on the path)."""
+    rng = np.random.default_rng(18)
+    head, back = {}, {}
+    for n in MINIBATCH_ROWS:
+        t = head_tensors(crafted_minibatch(n, rng), dev)
+        args = [t[k].detach() for k in HEAD_ARGS]
+        consts = mbops._head_constants(HEAD_CLIP)
+        outs = [torch.empty((n,), device=dev) for _ in range(4)]
+        fwd = lambda: _cuda.launch_ppo_head_forward(args, consts, outs, n)
+        g_mu, g_v = torch.empty((n, 2), device=dev), torch.empty((n,), device=dev)
+        up = torch.full((n,), 1.0 / n, device=dev)
+        bwd = lambda: _cuda.launch_ppo_head_backward(args, consts, up, 1, up, 1, g_mu, g_v, n)
+        plain_f = lambda: mbops.ppo_head_plain(*args, HEAD_CLIP)
+        mu_, v_ = args[0].clone().requires_grad_(True), args[1].clone().requires_grad_(True)
+
+        def plain_b():
+            out = mbops.ppo_head_plain(mu_, v_, *args[2:], HEAD_CLIP)
+            torch.autograd.grad(out[1:3], (mu_, v_), (up, up))
+
+        f_bound = bound_ms(nbytes(*args, *outs), n * HEAD_FORWARD_OPS)
+        b_bound = bound_ms(nbytes(*args, up, up, g_mu, g_v), n * HEAD_BACKWARD_OPS)
+        head[n] = (per_launch_ms(fwd), graph_ms(fwd), per_launch_ms(plain_f), *f_bound)
+        back[n] = (per_launch_ms(bwd), graph_ms(bwd), per_launch_ms(plain_b), *b_bound)
+        for what, (ms, g_ms, p_ms, b_ms, b_by) in (("forward", head[n]),
+                                                  ("backward", back[n])):
+            print(f"phase n ppo_head {what} at {n} rows: {ms * 1e3:.2f} us eager back-to-back, "
+                  f"{g_ms * 1e3:.2f} us in a CUDA graph; bound {b_ms * 1e3:.2f} us ({b_by}); "
+                  f"plain {p_ms * 1e3:.1f} us, on {card}")
+    # every timed launch applies a step: the loop's tables hold more rows than the
+    # windows take
+    params, grads, mu, nu, bc1, bc2, loop = tail_state(dev, 6, steps=4096)
+    stats = [torch.tensor(x, device=dev) for x in (0.31, -0.02, 0.45, 1.9, 0.001, 0.11)]
+    lr = torch.tensor(2.5e-4, device=dev)
+    g_norm = ppo.global_norm(grads)
+    tail = lambda fn: lambda: fn(params, grads, mu, nu, g_norm, stats, bc1, bc2, lr, loop,
+                                 0.5, 0.02)
+    t_ms, t_graph, t_plain = (per_launch_ms(tail(mbops.adam_tail)),
+                              graph_ms(tail(mbops.adam_tail)),
+                              per_launch_ms(tail(mbops.adam_tail_plain)))
+    if int(loop.applied) != int(loop.i) or int(loop.i) >= loop.stats.shape[0]:
+        raise AssertionError(f"phase n adam_tail timing: {int(loop.applied)} applied of "
+                             f"{int(loop.i)} launches")
+    steps = [torch.full((), 7.0, device=dev) for _ in params]
+    fused = lambda: torch._fused_adam_(params, grads, mu, nu, [], steps, lr=2.5e-4, beta1=0.9,
+                                       beta2=0.999, weight_decay=0.0, eps=1e-5, amsgrad=False,
+                                       maximize=False)
+    library = per_launch_ms(fused)
+    elements = sum(p.numel() for p in params)
+    t_bound = bound_ms(4 * nbytes(*params) + 3 * nbytes(*params), elements * TAIL_OPS)
+    print(f"phase n adam_tail over {len(params)} tensors ({elements} floats): "
+          f"{t_ms * 1e3:.2f} us eager back-to-back, {t_graph * 1e3:.2f} us in a CUDA graph; "
+          f"bound {t_bound[0] * 1e3:.3f} us "
+          f"({t_bound[1]}); plain {t_plain * 1e3:.1f} us; torch._fused_adam_ "
+          f"{library * 1e3:.2f} us, on {card}")
+    big, small = MINIBATCH_ROWS
+    entry = lambda name, src, replaces, err, d, lib: {
+        "name": name, "route": "cuda", "source": src, "replaces": replaces,
+        "max_abs_err": err, "ms": d[big][0], "graph_ms": d[big][1], "plain_ms": d[big][2],
+        "bound_ms": d[big][3], "bound_by": d[big][4], "library_ms": lib,
+        "rows": big, f"ms_{small}_rows": d[small][0], f"graph_ms_{small}_rows": d[small][1],
+        f"plain_ms_{small}_rows": d[small][2], f"bound_ms_{small}_rows": d[small][3]}
+    src = "self_play_racing_tpu_torch/csrc/ppo_head.cu"
+    return [entry("ppo_head", src, "self_play_racing_tpu/agent/ppo.py:189", head_err, head,
+                  None),
+            entry("ppo_head_backward", src, "self_play_racing_tpu/agent/ppo.py:313", head_err,
+                  back, None),
+            {"name": "adam_tail", "route": "cuda",
+             "source": "self_play_racing_tpu_torch/csrc/adam_tail.cu",
+             "replaces": "self_play_racing_tpu/agent/ppo.py:117", "max_abs_err": tail_err,
+             "ms": t_ms, "graph_ms": t_graph, "plain_ms": t_plain, "bound_ms": t_bound[0],
+             "bound_by": t_bound[1], "library_ms": library, "tensors": len(params),
+             "elements": elements}]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4038,6 +4418,8 @@ def main() -> int:
     kernels += env_kernels
     with timed("phase m.1 (the env step's two kernels against their plain versions)"):
         kernels += check_env_step(pool, rng, dev)
+    with timed("phase n (the minibatch step's two kernels against their plain versions)"):
+        kernels += check_minibatch_kernels(dev, card)
     procgen = procgen_on_card(dev)
     kernels += check_row_ids(pool, procgen, cfg, mcfg, rng, dev)
     single_car, single_obs = main_path(track, cfg, dev, card)

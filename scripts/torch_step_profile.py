@@ -40,6 +40,14 @@ wall time and under the profiler for the device time, reported per env step.
 Graphed, it also reports the captured rollout step itself: the kernel and copy
 nodes of one replay and the device ms a step over ``num_steps`` replays.
 
+With ``--eager``, ``--update`` and ``--selfplay`` also break the profiled
+minibatches down by the code that issued each launch (``minibatch_groups``): the
+gather, the MLPs forward, the loss head forward, the backward of each (a backward
+kernel is charged to the group of the forward operator whose autograd node launched
+it, by sequence number), the global norm, the clip/Adam/apply tail and the rest of
+``minibatch_step`` (masks, stats row, counters), as launches and device us a
+minibatch. Graph replays carry no operator, so the graphed loop reports only totals.
+
 With ``--match`` it profiles one tournament match as chip_smoke.py's phase g plays
 it: the 8B- against the 4B-step scale agent, one policy per seat, on the 20 x 2
 evaluation grid (40 envs, seed 42, sampled, pair seed ``pair_seed(42, 1)``), after
@@ -50,6 +58,8 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import functools
 import dataclasses
 import json
 import os
@@ -96,6 +106,113 @@ def _device_kernels(prof):
     return per_kernel
 
 
+# minibatch_step's parts, by the functions that issue them; each is wrapped in a
+# profiler range while the loop runs (``annotated``), where the checkout has it
+GROUPS = (
+    ("mb.step", [(ppo, "minibatch_step")]),
+    ("gather", [(ppo, "_minibatch_rows")]),
+    ("loss head", [(ppo, "_ppo_loss")]),
+    ("mlp", [(net, "actor_mu"), (net, "critic_value")]),
+    ("backward start", [(torch.autograd, "grad")]),
+    ("global norm", [(ppo, "global_norm")]),
+    ("tail", [(ppo, "clip_by_global_norm"), (ppo, "adam_update"), (ppo, "apply_updates"),
+              ("self_play_racing_tpu_torch.ops.minibatch", "adam_tail")]),
+)
+
+
+@contextlib.contextmanager
+def annotated():
+    """Each function of ``GROUPS`` (those the checkout has) runs inside a profiler
+    range named after its group, for the block."""
+    import importlib
+
+    saved = []
+
+    def wrap(fn, name):
+        @functools.wraps(fn)
+        def inner(*a, **k):
+            with torch.profiler.record_function(name):
+                return fn(*a, **k)
+        return inner
+
+    for name, places in GROUPS:
+        for module, attr in places:
+            if isinstance(module, str):
+                try:
+                    module = importlib.import_module(module)
+                except ImportError:
+                    continue
+            if hasattr(module, attr):
+                saved.append((module, attr, getattr(module, attr)))
+                setattr(module, attr, wrap(getattr(module, attr), name))
+    try:
+        yield
+    finally:
+        for module, attr, fn in reversed(saved):
+            setattr(module, attr, fn)
+
+
+def minibatch_groups(prof) -> dict | None:
+    """Launches and device us a minibatch by group, from a profile taken under
+    ``annotated``: a kernel belongs to the innermost group range around the operator
+    that launched it, or, launched by a backward node (on autograd's thread), to the
+    group of the forward operator with that node's sequence number, plus
+    " backward". Kernels inside ``minibatch_step`` but in no group are "other"."""
+    names = {n for n, _ in GROUPS}
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+
+    def group_of(evt):
+        """The innermost group around ``evt`` inside ``minibatch_step``, else None."""
+        group = None
+        while evt is not None:
+            if evt.name in names and group is None:
+                group = evt.name
+            if evt.name == "mb.step":
+                return group
+            evt = evt.cpu_parent
+        return None
+
+    def backward_node(evt):
+        while evt is not None:
+            if evt.sequence_nr >= 0 and "Backward" in evt.name:
+                return evt
+            evt = evt.cpu_parent
+        return None
+
+    forward = {}
+    for e in events:
+        if e.sequence_nr >= 0 and "Backward" not in e.name:
+            g = group_of(e)
+            if g is not None:
+                forward.setdefault(e.sequence_nr, g)
+    steps = sum(e.name == "mb.step" for e in events)
+    if not steps:
+        return None
+    out = collections.defaultdict(lambda: [0, 0.0])
+    for e in events:
+        if not e.kernels:
+            continue
+        node = backward_node(e)
+        if node is not None:
+            g = forward.get(node.sequence_nr)
+            g = f"{'other' if g == 'mb.step' else g} backward" if g else \
+                f"backward, unmapped: {node.name}"
+        else:
+            g = group_of(e)
+            if g is None:
+                continue  # outside minibatch_step: the loop's own reads
+            g = "other" if g == "mb.step" else g
+        for k in e.kernels:
+            out[g][0] += 1
+            out[g][1] += k.duration
+    return {"minibatch_steps": steps,
+            "by_group": {g: {"launches_per_minibatch": c / steps,
+                             "device_us_per_minibatch": us / steps}
+                         for g, (c, us) in sorted(out.items(), key=lambda kv: -kv[1][1])},
+            "launches_per_minibatch": sum(c for c, _ in out.values()) / steps,
+            "device_us_per_minibatch": sum(us for _, us in out.values()) / steps}
+
+
 def profile_update(args, dev) -> dict:
     cfg = base_config(num_envs=args.num_envs, num_steps=256,
                       total_timesteps=args.num_envs * 256 * 100)
@@ -111,7 +228,7 @@ def profile_update(args, dev) -> dict:
     (loop_s, mbs), = loops
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     prof = torch.profiler.profile(activities=activities)
-    with chip_smoke.minibatch_loops(1, around=lambda: prof) as loops:
+    with chip_smoke.minibatch_loops(1, around=lambda: prof) as loops, annotated():
         trainer.train(num_updates=1)
     (profiled_s, n), = loops
     per_kernel = _device_kernels(prof)
@@ -139,6 +256,7 @@ def profile_update(args, dev) -> dict:
         "top_host_ops": [{"name": e.key[:60], "host_ms_per_minibatch": e.self_cpu_time_total / 1e3 / n,
                           "calls_per_minibatch": e.count / n} for e in host],
         **_copies(prof, n),
+        "groups": minibatch_groups(prof),
     }
 
 
@@ -177,10 +295,11 @@ def profile_selfplay(args, dev) -> dict:
         wall = time.perf_counter() - t0
     (loop_s, mbs), = loops
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=activities) as prof, annotated():
         trainer.train(num_updates=1)
         torch.cuda.synchronize()
     update_kernels = _device_kernels(prof)
+    groups = minibatch_groups(prof)
     update_busy_us = sum(t for t, _ in update_kernels.values())
     graphs = getattr(trainer.update_step, "graphs", None)
     graphed = (None if graphs is None or graphs.rollout is None
@@ -224,6 +343,7 @@ def profile_selfplay(args, dev) -> dict:
             {"name": name[:90], "ms": t / 1e3, "launches": c}
             for name, (t, c) in sorted(update_kernels.items(),
                                        key=lambda kv: -kv[1][0])[: args.top]],
+        "minibatch_groups": groups,
         "graphed_rollout_step": graphed,
         "rollout_steps_profiled": steps,
         "rollout_wall_ms_per_step": step_wall * 1e3,

@@ -47,8 +47,8 @@ WARMUP_RUNS = 3
 
 def _counter_modules():
     from .envs import multi
-    from .ops import dynamics, gae, geometry, prng
-    return (geometry, dynamics, gae, prng, multi)
+    from .ops import dynamics, gae, geometry, minibatch, prng
+    return (geometry, dynamics, gae, prng, multi, minibatch)
 
 
 def launch_counts() -> dict:

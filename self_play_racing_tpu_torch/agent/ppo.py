@@ -24,7 +24,9 @@ JAX package:
   bias corrections from a host table of the update's counts
   (``bias_correction_table``) that the device's applied count indexes; not
   ``torch.optim``, whose Adam folds the bias corrections into the step size and
-  rounds otherwise;
+  rounds otherwise. On the card the loss's per-row work and everything after the
+  global norm are hand-written kernels (``ops/minibatch.py``: ``ppo_head``,
+  ``adam_tail``);
 - episode statistics harvested from the autoreset wrapper's records; the update's
   metrics packed into one float32 vector in ``METRIC_NAMES`` order.
 
@@ -73,15 +75,15 @@ from ..configs import PPOConfig
 from ..envs import normalize as obsnorm
 from ..envs import vector
 from ..models import actor_critic as net
+from ..ops import minibatch as mbops
 from ..ops.gae import compute_gae
+from ..ops.minibatch import (ADAM_B1, ADAM_B2, adam_update,  # noqa: F401
+                             apply_updates, clip_by_global_norm)
 from ..ops.prng import draw_constants, epoch_permutation
 from .. import _graph
 from .._tree import shard_rows
 from ..parallel import mesh as pmesh
 
-ADAM_B1 = 0.9
-ADAM_B2 = 0.999
-ADAM_EPS = 1e-5
 _INT32_MAX = 2**31 - 1
 
 
@@ -228,33 +230,25 @@ STAT_NAMES = ("loss", "pg_loss", "v_loss", "entropy", "approx_kl", "clip_frac",
 def _ppo_loss(params, log_std, mb: Batch, cfg: PPOConfig, moments=None):
     """The clipped loss and its stats. The advantages are normalized by their own
     mean and unbiased std, or by ``moments`` = (mean, std) where given (the whole
-    minibatch's over a group, ``advantage_moments``)."""
-    new_lp, entropy, new_v = net.evaluate_action(params, log_std, mb.obs, mb.actions)
-    log_ratio = new_lp - mb.logprobs
-    ratio = torch.exp(log_ratio)
-    approx_kl = torch.mean(-log_ratio)  # mean(old - new)
-
+    minibatch's over a group, ``advantage_moments``). The per-row work is
+    ``ops.minibatch.ppo_head`` (one launch each way on the card); the means, the
+    entropy and the loss stay PyTorch's reductions over its rows."""
+    mu = net.actor_mu(params, mb.obs)
+    new_v = net.critic_value(params, mb.obs)
     adv = mb.advantages
-    if moments is None:
-        adv = (adv - adv.mean()) / (adv.std(correction=1) + 1e-8)
-    else:  # the minibatch is every rank's part: its global mean and std
-        mean, std = moments
-        adv = (adv - mean) / (std + 1e-8)
-
-    pg1 = -adv * ratio
-    pg2 = -adv * torch.clamp(ratio, 1.0 - cfg.clip_coef, 1.0 + cfg.clip_coef)
-    pg_loss = torch.maximum(pg1, pg2).mean()
-
-    v_clip = mb.values + torch.clamp(new_v - mb.values, -cfg.clip_coef, cfg.clip_coef)
-    v_loss = 0.5 * torch.maximum(
-        (new_v - mb.returns) ** 2, (v_clip - mb.returns) ** 2).mean()
-
+    mean, std = (adv.mean(), adv.std(correction=1)) if moments is None else moments
+    neg_log_ratio, pg_max, v_max, clipped = mbops.ppo_head(
+        mu, new_v, mb.actions, mb.logprobs, adv, mb.returns, mb.values, log_std, mean, std,
+        cfg.clip_coef)
+    approx_kl = torch.mean(neg_log_ratio)  # mean(old - new)
+    pg_loss = pg_max.mean()
+    v_loss = 0.5 * v_max.mean()
+    entropy = net.normal_entropy(log_std, mu.shape[-1], neg_log_ratio.shape)
     e_loss = -entropy.mean()
     loss = pg_loss + cfg.ent_coef * e_loss + cfg.vf_coef * v_loss
     stats = {
         "loss": loss, "pg_loss": pg_loss, "v_loss": v_loss,
-        "entropy": -e_loss, "approx_kl": approx_kl,
-        "clip_frac": ((ratio - 1.0).abs() > cfg.clip_coef).to(torch.float32).mean(),
+        "entropy": -e_loss, "approx_kl": approx_kl, "clip_frac": clipped.mean(),
     }
     return loss, stats
 
@@ -274,16 +268,6 @@ def global_norm(grads, tp: net.TensorParallel = None) -> torch.Tensor:
     return (split + torch.stack(whole).sum() if whole else split).sqrt()
 
 
-def clip_by_global_norm(grads, g_norm: torch.Tensor, max_norm: float):
-    """``optax.clip_by_global_norm`` as a device select: each gradient as it is
-    where ``g_norm < max_norm``, else ``(g / g_norm) * max_norm``. The comparison
-    rounds ``max_norm`` to the gradients' dtype. (``torch.nn.utils.clip_grad_norm_``
-    divides by ``norm + 1e-6`` instead.)"""
-    below = g_norm < max_norm
-    clipped = torch._foreach_mul(torch._foreach_div(grads, g_norm), max_norm)
-    return [torch.where(below, g, c) for g, c in zip(grads, clipped)]
-
-
 def bias_correction(b: float, count: int, dtype: torch.dtype) -> float:
     """``1 - b**count`` taken in ``dtype``, as optax takes it from its int32 count
     and a weakly typed ``b``: a float32 pow for float32 moments, a float64 one for
@@ -301,34 +285,6 @@ def bias_correction_table(b: float, count: int, steps: int, dtype: torch.dtype):
     counts = [min(count + k + 1, _INT32_MAX) for k in range(steps)]
     return np.array([bias_correction(b, c, dtype) for c in counts],
                     dtype=np.dtype(str(dtype).removeprefix("torch.")))
-
-
-def adam_update(grads, mu, nu, bc1, bc2, b1: float = ADAM_B1, b2: float = ADAM_B2,
-                eps: float = ADAM_EPS):
-    """``optax.scale_by_adam`` in its order: the moments, then ``mu_hat /
-    (sqrt(nu_hat) + eps)`` with the bias corrections ``bc1``, ``bc2`` of the step's
-    count (0-d tensors of the moments' dtype, ``bias_correction_table``'s rows).
-    Returns (updates, new mu, new nu)."""
-    mu = torch._foreach_add(torch._foreach_mul(grads, 1 - b1), torch._foreach_mul(mu, b1))
-    nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2),
-                            torch._foreach_mul(nu, b2))
-    denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), eps)
-    updates = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
-    return list(updates), list(mu), list(nu)
-
-
-@torch.no_grad()
-def apply_updates(params, updates, lr) -> list:
-    """``params + (-lr * u)``: the new parameters (``lr`` a number or a 0-d tensor
-    of their dtype)."""
-    neg = -lr if isinstance(lr, torch.Tensor) else -float(lr)
-    return list(torch._foreach_add(params, torch._foreach_mul(updates, neg)))
-
-
-def _in_dtype(value: float, dtype: torch.dtype) -> float:
-    """``value`` rounded to ``dtype``, as a comparison against a tensor of that
-    dtype rounds its Python-float operand."""
-    return float(torch.tensor(value, dtype=dtype))
 
 
 def minibatch_layout(cfg: PPOConfig):
@@ -445,15 +401,14 @@ def minibatch_step(cfg: PPOConfig, model: net.ActorCritic, log_std, lr, units: B
     layout with the shard and unit axes merged) at its row of ``index``
     (``minibatch_index``), the loss and its gradients (with a ``mesh``, the
     advantages normalized by row ``loop.i`` of ``advantage_moments``' table
-    ``moments`` and the gradients averaged over the group), the global norm, the
-    clip as a select, and Adam with the corrections ``bc1[loop.applied]``,
-    ``bc2[loop.applied]``. ``trig = approx_kl > kl_target``: the parameters, ``mu``
-    and ``nu`` take the new values where the loop is active (no earlier exit) and
-    not ``trig``, in place; the stats row ``loop.i`` records the minibatch where it
-    is active (``applied`` and ``computed`` its flags), zeros after the exit; the
-    loop's counters and exit flag advance on the device."""
+    ``moments`` and the gradients averaged over the group), the global norm, then
+    ``ops.minibatch.adam_tail``: the clip as a select, and Adam with the corrections
+    ``bc1[loop.applied]``, ``bc2[loop.applied]``. ``trig = approx_kl > kl_target``:
+    the parameters, ``mu`` and ``nu`` take the new values where the loop is active
+    (no earlier exit) and not ``trig``, in place; the stats row ``loop.i`` records
+    the minibatch where it is active (``applied`` and ``computed`` its flags), zeros
+    after the exit; the loop's counters and exit flag advance on the device."""
     params = list(model.parameters())
-    dtype = params[0].dtype
     rows = index.index_select(0, loop.i)[0]
     mb = Batch(*(_minibatch_rows(cfg, x, rows) for x in units))
     if mesh is not None:
@@ -465,22 +420,8 @@ def minibatch_step(cfg: PPOConfig, model: net.ActorCritic, log_std, lr, units: B
         grads, st = _mean_over_group(grads, st, mesh)
     with torch.no_grad():
         g_norm = global_norm(grads, model.tensor_parallel)
-        trig = st["approx_kl"] > _in_dtype(cfg.kl_target, dtype)
-        active = ~loop.stop
-        apply = active & ~trig
-        grads = clip_by_global_norm(grads, g_norm, cfg.max_grad_norm)
-        updates, new_mu, new_nu = adam_update(grads, mu, nu,
-                                              bc1.index_select(0, loop.applied)[0],
-                                              bc2.index_select(0, loop.applied)[0])
-        new_params = apply_updates(params, updates, lr)
-        for old, new in zip(params + list(mu) + list(nu), new_params + new_mu + new_nu):
-            torch.where(apply, new, old, out=old)
-        row = torch.stack([st[k].detach().to(torch.float32) for k in STAT_NAMES[:6]]
-                          + [apply.to(torch.float32), active.to(torch.float32)])
-        loop.stats.index_copy_(0, loop.i, torch.where(active, row, 0.0)[None])
-        loop.i += 1
-        loop.applied += apply
-        loop.stop |= active & trig
+        mbops.adam_tail(params, list(grads), mu, nu, g_norm, [st[k] for k in STAT_NAMES[:6]],
+                        bc1, bc2, lr, loop, cfg.max_grad_norm, cfg.kl_target)
 
 
 class _MinibatchGraph:

@@ -283,7 +283,10 @@ class SelfPlayTrainer(PPOTrainer):
         for p, x in zip(model.parameters(), params):
             p.copy_(torch.as_tensor(np.asarray(x), dtype=p.dtype))
         like = [p.detach() for p in model.parameters()]
-        as_t = lambda xs: [torch.as_tensor(np.asarray(x), dtype=t.dtype, device=dev).clone()
+        # laid out as the parameters (the reference's moments arrive transposed),
+        # as the tail's kernel takes them
+        as_t = lambda xs: [torch.as_tensor(np.asarray(x), dtype=t.dtype, device=dev)
+                           .clone(memory_format=torch.contiguous_format)
                            for x, t in zip(xs, like)]
         self.runner.train = ppo.TrainState(
             model=model, opt_state=ppo.AdamState(count=int(count), mu=as_t(mu), nu=as_t(nu)),

@@ -29,7 +29,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("raycast_walls.cu", "progress_collision.cu", "raycast_cars.cu",
            "rectangles_intersect.cu", "car_update.cu", "gae.cu",
            "mixbits_permutation.cu", "raycast_walls_and_cars.cu",
-           "car_step_and_query.cu", "multi_observe.cu", "multi_transition.cu")
+           "car_step_and_query.cu", "multi_observe.cu", "multi_transition.cu",
+           "ppo_head.cu", "adam_tail.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # PyTorch's eager ops never contract a*b+c into an FMA; neither may the kernels
@@ -40,6 +41,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "raycast_walls_f32": [_P] * 11 + [_I, _I, _I, _F] + [_I] * 3 + [_I, _P],
     "progress_and_collision_f32": [_P] * 12 + [_I] * 6 + [_I, _P],
@@ -54,6 +56,9 @@ _SIGNATURES = {
     "multi_observe_small_f32": [_P] * 15 + [_I] * 4 + [_F] * 5 + [_I] * 4 + [_I, _P],
     "multi_transition_f32": [_P, _I, _P, _I] + [_I] * 8 + [_I, _P],
     "multi_observe_f32": [_P] * 15 + [_I] * 4 + [_F] * 5 + [_I] * 7 + [_I, _P],
+    "ppo_head_forward_f32": [_P, _I, _P, _I, _P, _L, _I, _P],
+    "ppo_head_backward_f32": [_P, _I, _P, _I, _P, _L, _P, _L, _P, _P, _L, _I, _P],
+    "adam_tail_f32": [_P, _P, _I, _P, _I, _P, _I, _L, _L, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -536,6 +541,66 @@ def launch_multi_transition(ptrs, constants, rows: int, cars_per_row: int,
         _call("car_step_and_query", "multi_transition_small_f32", device, *args)
     else:
         _call("multi_transition", "multi_transition_f32", device, *args, plan.rows_per_block)
+
+
+# ppo_head (csrc/ppo_head.cu): its input pointers and float32 constants
+PPO_HEAD_INPUTS = 10
+PPO_HEAD_CONSTS = 6
+# adam_tail (csrc/adam_tail.cu): the parameter tensors one launch takes at most, and
+# its loop pointers and float32 constants
+ADAM_TAIL_MAX_TENSORS = 32
+ADAM_TAIL_LOOP_PTRS = 14
+ADAM_TAIL_CONSTS = 7
+
+
+def _ptr_array(tensors):
+    return (ctypes.c_void_p * len(tensors))(*map(_ptr, tensors))
+
+
+def _float_array(values):
+    return (ctypes.c_float * len(values))(*map(float, values))
+
+
+def launch_ppo_head_forward(inputs, constants, outputs, n: int) -> None:
+    """Launch the loss head's forward on the current stream of ``outputs[0]``'s
+    device: ``inputs`` the ``PPO_HEAD_INPUTS`` tensors and ``constants`` the
+    ``PPO_HEAD_CONSTS`` float32 values in the order of
+    ``csrc/ppo_head.cu:HeadArgs``, ``outputs`` the four [n] tensors it writes."""
+    if len(inputs) != PPO_HEAD_INPUTS or len(constants) != PPO_HEAD_CONSTS:
+        raise ValueError(f"ppo_head: {len(inputs)} inputs and {len(constants)} constants, "
+                         f"expected {PPO_HEAD_INPUTS} and {PPO_HEAD_CONSTS}")
+    _call("ppo_head", "ppo_head_forward_f32", outputs[0].device, _ptr_array(inputs),
+          PPO_HEAD_INPUTS, _float_array(constants), PPO_HEAD_CONSTS, _ptr_array(outputs), n)
+
+
+def launch_ppo_head_backward(inputs, constants, g_pg, pg_stride: int, g_vm, vm_stride: int,
+                             g_mu, g_v, n: int) -> None:
+    """Launch the loss head's backward on the current stream of ``g_mu``'s device:
+    the forward's ``inputs`` and ``constants``, the upstream gradients of its two
+    maxima (None for none; stride 1, or 0 for an expanded one), out ``g_mu`` [n, 2]
+    and ``g_v`` [n]."""
+    _call("ppo_head", "ppo_head_backward_f32", g_mu.device, _ptr_array(inputs),
+          PPO_HEAD_INPUTS, _float_array(constants), PPO_HEAD_CONSTS, _ptr(g_pg), pg_stride,
+          _ptr(g_vm), vm_stride, _ptr(g_mu), _ptr(g_v), n)
+
+
+def launch_adam_tail(tensors, loop, constants, bc_rows: int, stats_rows: int,
+                     device: torch.device) -> None:
+    """Launch the minibatch step's tail on ``device``'s current stream: ``tensors``
+    (parameter, gradient, mu, nu) tuples of contiguous float32 tensors, ``loop`` the
+    ``ADAM_TAIL_LOOP_PTRS`` tensors and ``constants`` the ``ADAM_TAIL_CONSTS`` float32
+    values in the order of ``csrc/adam_tail.cu:Loop``."""
+    if not 1 <= len(tensors) <= ADAM_TAIL_MAX_TENSORS:
+        raise ValueError(f"adam_tail: {len(tensors)} parameter tensors; the kernel takes "
+                         f"1 to {ADAM_TAIL_MAX_TENSORS}")
+    if len(loop) != ADAM_TAIL_LOOP_PTRS or len(constants) != ADAM_TAIL_CONSTS:
+        raise ValueError(f"adam_tail: {len(loop)} loop tensors and {len(constants)} "
+                         f"constants, expected {ADAM_TAIL_LOOP_PTRS} and {ADAM_TAIL_CONSTS}")
+    sizes = (ctypes.c_longlong * len(tensors))(*(t[0].numel() for t in tensors))
+    _call("adam_tail", "adam_tail_f32", device,
+          _ptr_array([x for t in tensors for x in t]), sizes, len(tensors),
+          _ptr_array(loop), ADAM_TAIL_LOOP_PTRS, _float_array(constants), ADAM_TAIL_CONSTS,
+          bc_rows, stats_rows)
 
 
 def launch_compute_gae(rewards, dones, values, next_value, next_done, adv, ret,

@@ -34,7 +34,10 @@ rows and by row id. Their redesign (``csrc/multi_observe.cu``,
 ``csrc/multi_transition.cu``) the same way on rows whose real extent sits at the
 fold's run boundaries, on rows off 16-byte alignment and with cars far off the
 track, the observation also bitwise the fold's shape model
-(``chip_smoke.shape_model_observe``).
+(``chip_smoke.shape_model_observe``). The PPO minibatch step's two kernels
+(``ops/minibatch.py``): ``ppo_head``'s forward and backward and ``adam_tail``
+bitwise their plain compositions on rows that take every branch, at 1 to 65,536
+rows, on a group's flat-buffer gradients, and over a whole update.
 """
 import contextlib
 import dataclasses
@@ -51,6 +54,7 @@ from self_play_racing_tpu_torch.ops import _cuda
 from self_play_racing_tpu_torch.ops import dynamics
 from self_play_racing_tpu_torch.ops import gae
 from self_play_racing_tpu_torch.ops import geometry as geo
+from self_play_racing_tpu_torch.ops import minibatch as mbops
 from self_play_racing_tpu_torch.ops import prng
 
 pytestmark = pytest.mark.cuda
@@ -1437,3 +1441,91 @@ def test_redesigned_env_step_at_fewer_envs(cuda, envs, cars):
         action = torch.rand((envs, cars, 2), generator=gen, device=cuda) * 2.6 - 1.3
     assert (menv.observe_small_launches - small[0], menv.transition_small_launches - small[1]) \
         == (8 * (envs < _cuda.OBSERVE_SMALL_BELOW), 8 * (envs < _cuda.TRANSITION_SMALL_BELOW))
+
+
+# ------------------------------------ the minibatch step's two kernels (ops/minibatch.py)
+
+@pytest.mark.parametrize("rows", [65_536, 16_384, 4097, 1])
+@pytest.mark.parametrize("own_moments", [False, True])
+def test_ppo_head_kernels_match_plain(cuda, rows, own_moments):
+    """``ppo_head``'s forward and backward launches bitwise the plain composition
+    and its autograd, on rows that take every branch (``chip_smoke.crafted_minibatch``),
+    with the gradients from the loss, from given upstream gradients and from
+    expanded ones."""
+    if own_moments and rows == 1:
+        pytest.skip("one row has no unbiased std")
+    t = chip_smoke.head_tensors(
+        chip_smoke.crafted_minibatch(rows, np.random.default_rng(rows)), cuda, own_moments)
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    gp, gv = (torch.randn((rows,), generator=g, device=cuda) for _ in range(2))
+    before = (mbops.ppo_head_launches, mbops.ppo_head_backward_launches)
+    for upstream in (None, (gp, gv), (gp[:1].expand(rows), gv[:1].expand(rows))):
+        assert chip_smoke.hold_head(t, upstream, f"{rows} rows") == 0.0
+    assert (mbops.ppo_head_launches - before[0],
+            mbops.ppo_head_backward_launches - before[1]) == (3, 3)
+
+
+@pytest.mark.parametrize("case", sorted(chip_smoke.TAIL_CASES))
+@pytest.mark.parametrize("flat", [False, True])
+def test_adam_tail_kernel_matches_plain(cuda, case, flat):
+    """``adam_tail`` bitwise its plain version (parameters, moments, the stats row and
+    the loop's counters) applied, clipped, masked by the KL exit and after it, on
+    the gradients as tensors of their own and as views of one flat buffer (a
+    group's ``_mean_over_group``)."""
+    kl, stop, scale = chip_smoke.TAIL_CASES[case]
+    state = chip_smoke.tail_state(cuda, 11)
+    params, grads, mu, nu, bc1, bc2, loop = state
+    if flat:
+        buf = torch.cat([x.reshape(-1) for x in grads] + [torch.zeros(6, device=cuda)])
+        at = np.cumsum([0] + [x.numel() for x in grads])
+        grads = [buf[a:b].view_as(x) for a, b, x in zip(at[:-1], at[1:], grads)]
+    before = mbops.adam_tail_launches
+    got = chip_smoke.run_tail(mbops.adam_tail, (params, grads, mu, nu, bc1, bc2, loop),
+                              kl, stop, scale, cuda)
+    want = chip_smoke.run_tail(mbops.adam_tail_plain, state, kl, stop, scale, cuda)
+    assert mbops.adam_tail_launches == before + 1
+    assert all(chip_smoke.same_bits(a, b) for a, b in zip(got, want))
+    moved = not stop and kl < 0.02
+    assert all(torch.equal(a, b) for a, b in zip(got[:12], params)) != moved
+    assert int(got[-4]) == 4 and int(got[-3]) == 2 + moved and bool(got[-2]) == (not moved)
+
+
+def test_minibatch_kernels_reject_what_they_do_not_take(cuda):
+    t = chip_smoke.head_tensors(chip_smoke.crafted_minibatch(64, np.random.default_rng(0)),
+                                cuda)
+    args = [t[k] for k in chip_smoke.HEAD_ARGS]
+    with pytest.raises(TypeError, match="float32"):
+        mbops.ppo_head(*[a.double() for a in args], 0.2)
+    wide = torch.zeros((64, 4), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        mbops.ppo_head(wide[:, ::2], *args[1:], 0.2)
+    params, grads, mu, nu, bc1, bc2, loop = chip_smoke.tail_state(cuda, 1)
+    g_norm = torch.ones((), device=cuda)
+    stats = [torch.zeros((), device=cuda) for _ in range(6)]
+    lr = torch.tensor(1e-3, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        mbops.adam_tail([p.double() for p in params], [g.double() for g in grads],
+                        [m.double() for m in mu], [v.double() for v in nu], g_norm, stats,
+                        bc1, bc2, lr, loop, 0.5, 0.02)
+    w = params[2]  # [64, 64]
+    with pytest.raises(ValueError, match="contiguous"):
+        mbops.adam_tail([w.t()], [grads[2].t()], [mu[2].t()], [nu[2].t()], g_norm, stats,
+                        bc1, bc2, lr, loop, 0.5, 0.02)
+    assert int(loop.i) == 0  # nothing launched
+
+
+def test_update_with_the_learner_kernels_is_the_plain_update_bitwise(cuda):
+    """One eager update (4 epochs x 4 minibatches of 4096 rows) with ``ppo_head`` and
+    ``adam_tail`` bitwise the same update with their plain versions: parameters,
+    Adam moments and every stat; the kernels launched once a minibatch step."""
+    from self_play_racing_tpu_torch.configs import base_config
+
+    cfg = base_config(num_envs=256, num_steps=64, num_minibatches=4, update_epochs=4,
+                      kl_target=float("inf"))
+    before = [getattr(mbops, f"{k}_launches") for k in chip_smoke.LEARNER]
+    got = chip_smoke.update_with(cfg, cuda, 4, plain=False)
+    after = [getattr(mbops, f"{k}_launches") for k in chip_smoke.LEARNER]
+    want = chip_smoke.update_with(cfg, cuda, 4, plain=True)
+    assert [b - a for a, b in zip(before, after)] == [16] * 3
+    assert all(chip_smoke.same_bits(a, b) for a, b in zip(got[0], want[0]))
+    assert got[1] == want[1]

@@ -45,12 +45,14 @@ just before each path is driven and read just after):
    the mask, the sum and the ladder, and to its plain version, with the cars that
    touch 1, 2 and 3+ partners counted; timed beside that chain in one CUDA graph;
 7. the single-car main path: ``models/single_agent.npz`` driving 4096 envs for 256
-   steps of sample_action + vector.step (``car_step_and_query`` once per step, K1
-   once per step plus once for the reset);
+   steps of sample_action + vector.step (the env step's two launches: the
+   transition ``single_transition`` once per step, the observation
+   ``single_observe`` once per step plus once for the reset; the narrow K1 and
+   ``car_step_and_query`` not at all);
 8. single-car training: ``PPOTrainer`` at the bench width (the canonical pool
    gathered to 4096 envs, 256 steps, batch 1,048,576): one warm-up update, then
-   timed updates (K1 = car_step_and_query = 256, K6 = K7 = 1 per update), finite
-   losses and moved parameters;
+   timed updates (single_observe = single_transition = 256, K6 = K7 = 1 per
+   update), finite losses and moved parameters;
 9. the ``train single`` entry point at its defaults (16 envs x 2048 steps) for two
    updates in a temporary directory; the saved policy must load;
 10. this slice's main path, self-play training at ``train scale``'s width: a
@@ -156,8 +158,8 @@ i. whether gymnasium imported (the adapters run on their stand-in spaces without
    it); ``RacingEnv`` at float32 on the card against the same adapter on the CPU
    in float32 for one episode of seeded actions on the canonical pool's track 0
    (width 7): the same done step, the observations within ``ADAPTER_OBS_ATOL``
-   (largest gap printed), one ``raycast_walls`` and one ``car_step_and_query``
-   launch a step (one more sensing for the reset), ms a step; ``MultiRacingEnv``
+   (largest gap printed), one ``single_observe`` and one ``single_transition``
+   launch a step (one more observation for the reset), ms a step; ``MultiRacingEnv``
    (2 cars) behind ``SelfPlayWrapper`` with ``models/self_play_agent.npz``'s
    (params, log_std) as the opponent and the same policy's greedy action for the
    agent, one episode: one ``multi_observe`` and one ``multi_transition`` a step,
@@ -255,13 +257,43 @@ n. ``ppo_head`` (the loss's per-row work, one launch forward and one backward) o
    graph beside their plain versions and bounds, the tail beside
    ``torch._fused_adam_`` over the same 12 tensors. Every training path counts the
    three launches once a minibatch step (``learner``: exactly from the loop's
-   computed minibatches where the phase times the loop, else checked whole epochs).
+   computed minibatches where the phase times the loop, else checked whole epochs);
+
+and for the single-car env step as two launches (``single.transition`` runs
+``csrc/single_transition.cu``, the step, the track query and the whole reward and
+termination tail; ``single.observe`` the multi-car observation kernel at one car a
+row without its car pass, and under OBSERVE_SMALL_BELOW rows the first one; every
+single-car path above counts them as ``single_transition`` and ``single_observe``,
+and the narrow K1 and ``car_step_and_query`` 0):
+
+o. o.1 (right after n) both against their plain versions (the narrow kernels and
+   PyTorch, what the env ran before) on ``crafted_single_state`` at 1, 16, 48, 200
+   and 4096 env rows of the canonical pool, gathered and tiled, the speed weight
+   the config's (sensing unclamped) and an annealed tensor on the card (sensing
+   clamped), every eighth car 70 m off its track for the observation: every output
+   bitwise, every branch of the tail taken at 4096 (counts printed); o.4 both timed
+   at 4096 on the tiled pool, eager and in a CUDA graph, beside their plain versions
+   and bounds, with their registers, and the observation in turns with the narrow
+   K1 alone on the same rays (what its launch replaces), gathered and tiled. o.2
+   and o.3 (after m.3): a 256-step
+   single-car rollout of ``models/single_agent.npz`` at 4096 envs on the tiled
+   pool, the speed weight a tensor in the trainer's aux, eager with every call also
+   run as its plain version (every output of every step bitwise), then graphed with
+   the kernels and with the plain versions (every step's buffers and the final
+   state bitwise); the kernel nodes of one captured rollout step of each (at least
+   40 fewer with the kernels) and its device ms a step, in turns; then the anneal as
+   the trainer runs it, a new weight tensor at each of two more rollouts of the
+   captured graphs (the second taken in by copy at its replay), bitwise an eager
+   rollout at that weight and apart from the first.
 
 The line before the last is one JSON object with every kernel's numbers (``ms`` the
 eager back-to-back time, ``graph_ms`` the CUDA-graph replay time, ``launches`` the
-count on the self-play path of phase 10, or for K1 and the single-car
-``car_step_and_query`` on the single-car main path of phase 7, as ``launches_path``
-says; the self-play path runs K1, K3, K4, K5 and K2 inside ``multi_observe`` and
+count on the self-play path of phase 10, or for K1, the narrow
+``car_step_and_query`` and the single-car env's ``single_observe`` and
+``single_transition`` on the single-car main path of phase 7, as ``launches_path``
+says (the narrow two 0 there, and ``single_*`` also ``launches_row_ids`` on the
+tiled pool, phase o.3's ``rollout_step_nodes`` and the observation's
+``narrow_k1_in_turns_graph_us``); the self-play path runs K1, K3, K4, K5 and K2 inside ``multi_observe`` and
 ``multi_transition``, so the narrow ``raycast_walls_and_cars`` and K2-K5 count 0
 there; K1 and K2 also ``selfplay_ms``,
 ``selfplay_graph_ms`` and ``selfplay_bound_ms`` at the self-play launch and
@@ -1439,6 +1471,10 @@ COUNTERS = {
     "multi_transition_row_ids": (menv, "transition_row_id_launches"),
     "multi_observe_small": (menv, "observe_small_launches"),
     "multi_transition_small": (menv, "transition_small_launches"),
+    "single_observe": (senv, "observe_launches"),
+    "single_transition": (senv, "transition_launches"),
+    "single_observe_row_ids": (senv, "observe_row_id_launches"),
+    "single_transition_row_ids": (senv, "transition_row_id_launches"),
     "compute_gae": (gae, "compute_gae_launches"),
     "mixbits_permutation": (prng, "mixbits_permutation_launches"),
     "ppo_head": (mbops, "ppo_head_launches"),
@@ -1539,9 +1575,9 @@ def main_path(track, cfg, dev, card, label=""):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_counts()
-    expected = counts(raycast_walls=STEPS + 1, car_step_and_query=STEPS)
+    expected = counts(single_observe=STEPS + 1, single_transition=STEPS)
     if isinstance(track, trk.LAYOUTS):
-        expected.update(raycast_walls_row_ids=STEPS + 1, car_step_and_query_row_ids=STEPS)
+        expected.update(single_observe_row_ids=STEPS + 1, single_transition_row_ids=STEPS)
     what = f"main path{label}"
     print(f"{what}: {NUM_ENVS} envs x {STEPS} steps in {dt:.3f} s = "
           f"{NUM_ENVS * STEPS / dt:,.0f} env-steps/s on {card}; launches {launches}")
@@ -1617,7 +1653,7 @@ def training(track, env_cfg, card):
     print(f"train: median {statistics.median(wall) * 1e3:.1f} ms/update at {NUM_ENVS} x {STEPS} "
           f"on {card}; launches {launches}")
     n = STEPS * TRAIN_UPDATES
-    expected = counts(raycast_walls=n, car_step_and_query=n,
+    expected = counts(single_observe=n, single_transition=n,
                       compute_gae=TRAIN_UPDATES, mixbits_permutation=TRAIN_UPDATES,
                       **learner(launches, cfg, TRAIN_UPDATES, [c for _, c in loops]))
     if launches != expected:
@@ -1650,7 +1686,7 @@ def entry_point(card):
           f"{dt:.1f} s on {card}; launches {launches}; saved policy loads "
           f"({len(params['actor'])} layers per tower, log_std {log_std.tolist()})")
     steps = 2 * cfg.num_steps
-    expected = counts(raycast_walls=steps + 1, car_step_and_query=steps, compute_gae=2,
+    expected = counts(single_observe=steps + 1, single_transition=steps, compute_gae=2,
                       mixbits_permutation=2, **learner(launches, cfg, 2))
     if launches != expected:
         raise AssertionError(f"train single launches {launches}, expected {expected}")
@@ -2163,7 +2199,7 @@ def recorders(dev, card):
         ("single", lambda gen: viz.record_trajectory_single(params, log_std, scfg, track, gen),
          lambda gen: metrics.rollout_single(params, log_std, scfg, track, gen,
                                             deterministic=True),
-         2000, ("raycast_walls", "car_step_and_query")),
+         2000, ("single_observe", "single_transition")),
     ]
     for label, record, rollout_fn, horizon, (sensing, stepping) in cases:
         zero_counts()
@@ -2710,7 +2746,7 @@ def adapter_single(dev, card):
                              f"at {want_steps}")
     if gap > ADAPTER_OBS_ATOL:
         raise AssertionError(f"RacingEnv: observations {gap:.3e} from the CPU's")
-    expected = counts(raycast_walls=steps + 1, car_step_and_query=steps)
+    expected = counts(single_observe=steps + 1, single_transition=steps)
     if launches != expected:
         raise AssertionError(f"RacingEnv launches {launches}, expected {expected}")
     return launches, dt / steps
@@ -2877,8 +2913,8 @@ def tp_expected(cfg, launches):
     """A rank's launches in one single-car update on the tiled pool (the learner's
     kernels as ``learner`` checks them on ``launches``)."""
     n = cfg.num_steps
-    return counts(raycast_walls=n, car_step_and_query=n, raycast_walls_row_ids=n,
-                  car_step_and_query_row_ids=n, compute_gae=1, mixbits_permutation=1,
+    return counts(single_observe=n, single_transition=n, single_observe_row_ids=n,
+                  single_transition_row_ids=n, compute_gae=1, mixbits_permutation=1,
                   **learner(launches, cfg, 1))
 
 
@@ -3242,7 +3278,7 @@ def graph_against_eager(pool, card):
             if g["replays"] < (GRAPH_UPDATES + 2) * cfg.num_steps:
                 raise AssertionError(f"{what}: {g['replays']} replays checked")
             sensing, stepping = (("multi_observe", "multi_transition") if kind == "self-play"
-                                 else ("raycast_walls", "car_step_and_query"))
+                                 else ("single_observe", "single_transition"))
             expected = counts(cfg.num_envs, **{sensing: STEPS, stepping: STEPS,
                                                "compute_gae": 1, "mixbits_permutation": 1})
             if where == "tiled":
@@ -3523,6 +3559,55 @@ def crafted_state(track, num_agents, max_steps, seed, dtype=torch.float32, devic
         placement=t(np.zeros((n, a)), i32))
     action = np.stack([rng.uniform(-1.3, 1.3, (n, a)), rng.uniform(-1.4, 1.4, (n, a))], -1)
     return state, t(action, torch.float32)
+
+
+def crafted_single_state(track, max_steps, seed, dtype=torch.float32, device=None):
+    """(state, action): ``crafted_state`` at one car a row as a ``senv.RacingState``
+    and actions [N, 2] beyond the clip, whose envs drive every branch of the
+    single-car transition's tail (with ``CRAFTED_MAX_STEPS`` a finish past step
+    2000, where the time bonus, 200 - steps / 10, clamps at 0)."""
+    state, action = crafted_state(track, 1, max_steps, seed, dtype, device)
+
+    def one(t):
+        return t[:, 0].contiguous()
+
+    car = senv.CarState(**{f: one(getattr(state, f)) for f in
+                           ("x", "y", "angle", "vx", "vy", "progress", "crashed", "finished")})
+    return senv.RacingState(car=car, steps=state.steps, last_progress=one(state.last_progress),
+                            last_steering=one(state.last_steering), cp25=one(state.cp25),
+                            cp50=one(state.cp50), cp75=one(state.cp75)), one(action)
+
+
+def single_tail_branches(state, out):
+    """How many envs of one single-car transition took each branch of its tail."""
+    new, _, terminated, truncated, info = out
+    fin = new.car.finished & ~state.car.finished
+    p, lp = new.car.progress, state.last_progress
+    return {
+        "finish": int(fin.sum()), "finish past step 2000": int((fin & (new.steps > 2000)).sum()),
+        "lap wrap forwards": int(((lp > 0.9) & (p < 0.1)).sum()),
+        "lap wrap backwards": int(((lp < 0.1) & (p > 0.9)).sum()),
+        "cp25": int((new.cp25 & ~state.cp25).sum()),
+        "cp50": int((new.cp50 & ~state.cp50).sum()),
+        "cp75": int((new.cp75 & ~state.cp75).sum()),
+        "skipped checkpoint": int((~state.cp25 & (p >= 0.5) & (p < 0.6) & ~new.cp50).sum()),
+        "crash": int((new.car.crashed & ~state.car.crashed).sum()),
+        "crashed before": int(state.car.crashed.sum()),
+        "speed reward": int((~new.car.crashed & (info["progress_delta"] > 0)).sum()),
+        "truncated": int(truncated.sum()), "terminated": int(terminated.sum()),
+    }
+
+
+def single_transition_fields(out) -> dict:
+    """Every output of ``senv.transition``, by name."""
+    state, reward, terminated, truncated, info = out
+    fields = {f"car_{f.name}": getattr(state.car, f.name)
+              for f in dataclasses.fields(state.car)}
+    fields.update({f.name: getattr(state, f.name) for f in dataclasses.fields(state)
+                   if f.name != "car"})
+    fields.update(reward=reward, terminated=terminated, truncated=truncated,
+                  **{f"info_{k}": v for k, v in info.items()})
+    return fields
 
 
 def tail_branches(state, out):
@@ -3881,20 +3966,22 @@ def check_env_step(pool, rng, dev):
     return entries
 
 
-def rollout_with(env_step, trainer, log_std, noise, gen_state, graphed):
+def rollout_with(env_step, trainer, log_std, noise, gen_state, graphed, env=menv,
+                 graphs=None):
     """One rollout of ``trainer`` (its runner, aux and hooks) on ``noise``, from the
-    runner's generator at ``gen_state``, with ``multi.transition`` and
-    ``multi.observe`` as ``env_step`` gives them ("kernel": the two launches;
-    "plain": the plain versions, the narrow kernels and PyTorch, as the parent
-    ran). Graphed (``ppo.UpdateGraphs``) or eager. Returns (outputs, graphs)."""
+    runner's generator at ``gen_state``, with ``env.transition`` and
+    ``env.observe`` (the multi-car env's, or the single-car env's) as ``env_step``
+    gives them ("kernel": the two launches; "plain": the plain versions, the narrow
+    kernels and PyTorch, as the parent ran). Graphed (``ppo.UpdateGraphs``: new, or
+    ``graphs`` run again) or eager. Returns (outputs, graphs)."""
     gen = trainer.runner.vec.generator
-    real = (menv.transition, menv.observe)
+    real = (env.transition, env.observe)
     if env_step == "plain":
-        menv.transition, menv.observe = menv.transition_plain, menv.observe_plain
+        env.transition, env.observe = env.transition_plain, env.observe_plain
     try:
         gen.set_state(gen_state)
         if graphed:
-            graphs = ppo.UpdateGraphs()
+            graphs = graphs or ppo.UpdateGraphs()
             out = graphs.rollout_phase(trainer.cfg, trainer.hooks, trainer.runner,
                                        trainer.aux, log_std, noise)
         else:
@@ -3903,7 +3990,7 @@ def rollout_with(env_step, trainer, log_std, noise, gen_state, graphed):
                                     log_std, noise)
         torch.cuda.synchronize()
     finally:
-        menv.transition, menv.observe = real
+        env.transition, env.observe = real
     vec, obs, done, _, traj, step_out = out
     leaves = {f"final {p}": t for p, t in _graph.tensor_leaves((vec, obs, done))}
     leaves.update({f"step {k}": v for k, v in step_out.items()})
@@ -3911,29 +3998,30 @@ def rollout_with(env_step, trainer, log_std, noise, gen_state, graphed):
 
 
 @contextlib.contextmanager
-def both_env_steps(mismatches):
-    """Inside the block ``multi.transition`` and ``multi.observe`` run the kernel
-    and, on the same inputs, the plain version, and return the kernel's outputs;
-    ``mismatches`` gains a device count of the outputs whose bits differ."""
-    real = (menv.transition, menv.observe)
+def both_env_steps(mismatches, env=menv, fields=transition_fields):
+    """Inside the block ``env.transition`` and ``env.observe`` run the kernel and,
+    on the same inputs, the plain version, and return the kernel's outputs;
+    ``mismatches`` gains a device flag for each output (``fields``) whose bits
+    differ."""
+    real = (env.transition, env.observe)
 
-    def transition(cfg, track, state, action):
-        got = real[0](cfg, track, state, action)
-        want = transition_fields(menv.transition_plain(cfg, track, state, action))
-        for k, v in transition_fields(got).items():
+    def transition(*args, **kwargs):
+        got = real[0](*args, **kwargs)
+        want = fields(env.transition_plain(*args, **kwargs))
+        for k, v in fields(got).items():
             mismatches.append(same_bits_device(v, want[k]))
         return got
 
     def observe(cfg, track, state):
         got = real[1](cfg, track, state)
-        mismatches.append(same_bits_device(got, menv.observe_plain(cfg, track, state)))
+        mismatches.append(same_bits_device(got, env.observe_plain(cfg, track, state)))
         return got
 
-    menv.transition, menv.observe = transition, observe
+    env.transition, env.observe = transition, observe
     try:
         yield mismatches
     finally:
-        menv.transition, menv.observe = real
+        env.transition, env.observe = real
 
 
 def same_bits_device(a, b) -> torch.Tensor:
@@ -4385,6 +4473,292 @@ def time_minibatch_kernels(dev, card, head_err: float, tail_err: float):
              "elements": elements}]
 
 
+# ------------------------------------ phase (o): the single-car env step as two launches
+
+# the env rows phase o holds the launches at: the adapter's batch of one, `train
+# single`'s 16, a match's 48, an evaluation's 200 and the bench width
+SINGLE_ROWS = (1, 16, FEW_ENVS, 200, NUM_ENVS)
+# env index % 8 of the cars the observation's checks put 70 m off their track,
+# facing it, so that walls lie beyond the sensors' range
+OFF_TRACK_ROW = 6
+# per car, the single-car transition's tail: the clip 4, progress and crash 3,
+# delta 10, the reward's terms and selects 14, the checkpoints 12, the finish 9
+SINGLE_TAIL_OPS_PER_CAR = 52
+# per car, the observation's kinematic columns: cos and sin 2, two rotated components
+# of 2 products and a sum, 2 scalings and 2 clamps of 2
+SINGLE_OBS_OPS_PER_CAR = 14
+
+
+def by_row_id(pool, envs):
+    """The pool resident, env i reading pool row i % T: tiled where T divides
+    ``envs``, else by the same ids as an arbitrary assignment."""
+    if envs % pool.num_tracks == 0:
+        return trk.tiled_pooled_tracks(pool, envs)
+    return trk.pooled_tracks(pool, np.arange(envs) % pool.num_tracks)
+
+
+def single_off_track(track, state):
+    """``state`` with every env of index % 8 == OFF_TRACK_ROW 70 m off its track's
+    first waypoint along the normal, facing back at it."""
+    rows = trk.resolve(track)
+    n = state.car.x.shape[0]
+    sel = torch.arange(n, device=state.car.x.device) % 8 == OFF_TRACK_ROW
+    nx, ny = rows.nrm_x[:, 0], rows.nrm_y[:, 0]
+    car = state.car
+    x = torch.where(sel, rows.wp_x[:, 0] + 70.0 * nx, car.x)
+    y = torch.where(sel, rows.wp_y[:, 0] + 70.0 * ny, car.y)
+    angle = torch.where(sel, torch.remainder(torch.atan2(-ny, -nx), 2 * np.pi), car.angle)
+    return dataclasses.replace(state, car=dataclasses.replace(car, x=x, y=y, angle=angle))
+
+
+def distinct(tensors) -> list:
+    """The tensors, each once (an output two fields share is written once)."""
+    return list({id(t): t for t in tensors}.values())
+
+
+def single_step_bound(cfg, track, state, action, out, obs):
+    """The bounds of ``single.transition`` and ``single.observe`` on these inputs:
+    each input read once (the distinct rows of a layout once) and each output
+    written once over 3.35 TB/s, against the operations the data needs (K2's search
+    over each row's real waypoints, K5 and the tail; K1's fold over each row's real
+    segments, up to its last one of nonzero direction, and the kinematic columns)
+    over 67 TFLOP/s."""
+    rows, row_ids = trk.rows_of(track)
+    used = (rows.wp_x.shape[0] if row_ids is None
+            else int(torch.unique(row_ids).numel()))
+    n = state.car.x.shape[0]
+    w, s, r = rows.wp_x.shape[-1], rows.seg_sx.shape[-1], cfg.num_sensors
+    per_env = trk.scalars_of(track)
+    fields = [getattr(state.car, f.name) for f in dataclasses.fields(state.car)] + [
+        getattr(state, f.name) for f in dataclasses.fields(state) if f.name != "car"]
+    t_in = nbytes(*fields, action, per_env.n_wp, per_env.track_width) + used * w * 2 * 4 \
+        + 4 * n * 2 * 4  # the rows' positions, the normals at the corners' winners
+    real_wp = int(per_env.n_wp.clamp(0, w).sum())
+    t_ops = 5 * real_wp * K2_OPS_PER_PAIR + n * (K5_OPS_PER_CAR + SINGLE_TAIL_OPS_PER_CAR)
+    transition = bound_ms(t_in + nbytes(*distinct(single_transition_fields(out).values())),
+                          t_ops)
+    car = state.car
+    o_in = nbytes(car.x, car.y, car.angle, car.vx, car.vy, state.last_steering) \
+        + used * s * 5 * 4
+    seg_vx, seg_vy = geo.pool_rows(row_ids, rows.seg_vx, rows.seg_vy)
+    real = (seg_vx != 0) | (seg_vy != 0)
+    real_segs = int(torch.where(real, torch.arange(1, s + 1, device=real.device), 0)
+                    .amax(dim=-1).sum())
+    o_ops = r * real_segs * K1_OPS_PER_PAIR + n * SINGLE_OBS_OPS_PER_CAR
+    return transition, bound_ms(o_in + nbytes(obs), o_ops)
+
+
+def single_counters():
+    return (senv.transition_launches, senv.observe_launches, senv.transition_row_id_launches,
+            senv.observe_row_id_launches, geo.raycast_walls_launches,
+            dynamics.car_step_and_query_launches)
+
+
+def check_single_env_step(pool, dev, card):
+    """Phase o.1 and o.4: ``single.transition`` (``csrc/single_transition.cu``, a
+    warp a row) and ``single.observe`` (the multi-car
+    observation at one car a row without its car pass; under OBSERVE_SMALL_BELOW
+    rows the first kernel), one launch each, against their plain versions (the
+    narrow kernels and PyTorch, what the env ran before) on ``crafted_single_state``
+    at 1, 16, 48, 200 and 4096 env rows of the canonical pool, gathered and by row
+    id (tiled where 16 divides the rows), the speed weight the config's with the sensing unclamped and an annealed tensor
+    with it clamped, every eighth car 70 m off its track for the observation: every
+    output bitwise, each branch of the tail taken at 4096 (counts printed). Then
+    both timed at 4096 on the tiled pool, eager (the wrapper's host work included)
+    and in a CUDA graph, beside their plain versions and bounds, with their
+    registers; and the observation in turns with the narrow K1 alone on its rays (the
+    launch it replaces) at 4096 rows, gathered and tiled. Returns the two kernels'
+    entries."""
+    widths = {envs: {"gathered": trk.gather_tracks(pool, np.arange(envs) % NUM_TRACKS),
+                     "by row id": by_row_id(pool, envs)} for envs in SINGLE_ROWS}
+    for envs, where, clamp in itertools.product(SINGLE_ROWS, ("gathered", "by row id"),
+                                                (False, True)):
+        track = widths[envs][where]
+        what = f"phase o.1 {envs} envs {where}{', clamped, annealed' if clamp else ''}"
+        cfg = senv.RacingConfig(num_sensors=11, max_steps=CRAFTED_MAX_STEPS,
+                                clamp_sensor_range=clamp)
+        state, action = crafted_single_state(track, cfg.max_steps, seed=envs, device=dev)
+        sw = torch.tensor(5.3, device=dev) if clamp else None
+        before = single_counters()
+        out = senv.transition(cfg, track, state, action, speed_weight=sw)
+        far = single_off_track(track, out[0])
+        obs = senv.observe(cfg, track, far)
+        tiled = int(where != "gathered")
+        if [c - b for c, b in zip(single_counters(), before)] != [1, 1, tiled, tiled, 0, 0]:
+            raise AssertionError(f"{what}: the kernels' counters")
+        want = single_transition_fields(senv.transition_plain(cfg, track, state, action, sw))
+        bad = differing(single_transition_fields(out), want)
+        plain_obs = senv.observe_plain(cfg, track, far)
+        if bad or not same_bits(obs, plain_obs):
+            raise AssertionError(f"{what}: transition fields {bad} and "
+                                 f"{int((obs != plain_obs).sum())} observation entries "
+                                 "differ from the plain versions")
+        branches = single_tail_branches(state, out)
+        if envs == NUM_ENVS:
+            missing = [k for k, v in branches.items() if v == 0]
+            if missing:
+                raise AssertionError(f"{what}: no env took {missing}")
+        print(f"{what}: single.transition and single.observe bitwise the plain versions; {int((obs[:, :11] > 1).sum())} "
+              f"rays beyond the range; branches {branches}")
+
+    cfg = senv.RacingConfig(num_sensors=11)
+    track = widths[NUM_ENVS]["by row id"]
+    state, action = crafted_single_state(track, cfg.max_steps, seed=7, device=dev)
+    sw = torch.tensor(5.3, device=dev)
+    out = senv.transition(cfg, track, state, action, speed_weight=sw)
+    obs = senv.observe(cfg, track, state)
+    (t_bound, t_by), (o_bound, o_by) = single_step_bound(cfg, track, state, action, out, obs)
+    plan = _cuda.multi_observe_plan(1, cfg.num_sensors, trk.rows_of(track)[0].seg_sx.shape[-1],
+                                    NUM_ENVS)
+    calls = {
+        "single_transition": (
+            lambda: senv.transition(cfg, track, state, action, speed_weight=sw),
+            lambda: senv.transition_plain(cfg, track, state, action, speed_weight=sw),
+            "self_play_racing_tpu/envs/single.py:155", (t_bound, t_by),
+            "single_transition", "single_transition_kernel"),
+        "single_observe": (
+            lambda: senv.observe(cfg, track, state),
+            lambda: senv.observe_plain(cfg, track, state),
+            "self_play_racing_tpu/envs/single.py:126", (o_bound, o_by), "multi_observe",
+            f"multi_observe_kernelILi{plan.rays_per_lane}ELb{int(plan.per_car)}E")}
+    entries = []
+    for name, (fn, plain, replaces, (b_ms, b_by), library, word) in calls.items():
+        ms, g_ms = per_launch_ms(fn), graph_ms(fn)
+        plain_ms, plain_g = per_launch_ms(plain, windows=5, launches=5), graph_ms(plain)
+        regs = kernel_registers(_cuda.build_report.get(library, ""), word)
+        print(f"phase o.4 {name} at {NUM_ENVS} envs on the tiled pool: {ms * 1e3:.2f} us "
+              f"eager back-to-back with the wrapper's host work ({g_ms * 1e3:.2f} us in a "
+              f"CUDA graph), bound {b_ms * 1e3:.2f} us ({b_by}); registers "
+              f"{regs or 'not measured (cached build)'}; the plain version (the narrow "
+              f"kernel and PyTorch, what the env ran before) {plain_ms * 1e3:.1f} us eager, "
+              f"{plain_g * 1e3:.1f} us in a CUDA graph on {card}")
+        entries.append({"name": name, "route": "cuda",
+                        "source": f"self_play_racing_tpu_torch/csrc/{library}.cu",
+                        "replaces": replaces, "max_abs_err": 0.0, "ms": ms, "graph_ms": g_ms,
+                        "plain_ms": plain_ms, "plain_graph_ms": plain_g, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": None, "registers": regs,
+                        "timed_at": f"{NUM_ENVS} envs, tiled pool"})
+    # the observation in turns with the narrow K1 alone on the same rays, the launch
+    # it replaces (its inputs formed outside the timed calls)
+    turns = {}
+    for where in ("gathered", "by row id"):
+        track = widths[NUM_ENVS][where]
+        state, _ = crafted_single_state(track, cfg.max_steps, seed=7, device=dev)
+        rows, row_ids = trk.rows_of(track)
+        car = state.car
+        world = car.angle[:, None] + senv._sensor_angles(cfg, car.x.dtype, dev)[None, :]
+        k1_in = (car.x[:, None].expand(world.shape), car.y[:, None].expand(world.shape),
+                 torch.cos(world), torch.sin(world), rows.seg_sx[:, None, :],
+                 rows.seg_sy[:, None, :], rows.seg_vx[:, None, :], rows.seg_vy[:, None, :],
+                 cfg.max_sensor_range)
+        times = {"single_observe": [], "narrow K1": []}
+        for _ in range(2):
+            times["single_observe"].append(graph_ms(lambda: senv.observe(cfg, track, state)))
+            times["narrow K1"].append(graph_ms(lambda: geo.raycast_walls(
+                *k1_in, seg_c=rows.seg_c[:, None, :], row_ids=row_ids)))
+        turns[where] = {k: [round(t * 1e3, 2) for t in ts] for k, ts in times.items()}
+    print(f"phase o.4 single_observe against the narrow K1 alone on its rays at {NUM_ENVS} "
+          f"envs, us in a CUDA graph, in turns (observe, K1, observe, K1) on {card}: {turns}")
+    entries[1]["narrow_k1_in_turns_graph_us"] = turns
+    return entries
+
+
+def single_env_rollout(pool, dev, card):
+    """Phase o.2 and o.3: a 256-step single-car rollout at 4096 envs on the tiled
+    canonical pool, ``models/single_agent.npz``'s parameters loaded into a
+    ``PPOTrainer`` with the speed-weight anneal's tensor in its aux: eagerly with
+    every ``single.transition`` and ``single.observe`` call also run as its plain
+    version on the same inputs (every output of every step bitwise); then graphed
+    (``ppo.UpdateGraphs``, as the trainer runs it) with the two kernels and with the
+    plain versions (the parent's composition): every step's buffers and the final
+    state bitwise. Then the kernel nodes of one captured rollout step of each and its
+    device time a step, in turns. Returns the node counts."""
+    cfg = base_config(num_envs=NUM_ENVS, num_steps=STEPS,
+                      total_timesteps=NUM_ENVS * STEPS * 100, anneal_speed_weight=True)
+    trainer = PPOTrainer(cfg, senv.RacingConfig(num_sensors=11),
+                         trk.tiled_pooled_tracks(pool, NUM_ENVS))
+    agent, _ = interop.load_npz(MODEL, device=dev)
+    with torch.no_grad():
+        for p, q in zip(trainer.runner.train.model.parameters(), agent.parameters()):
+            p.copy_(q)
+    trainer.aux["speed_weight"] = trainer._f32(6.5)
+    log_std = agent.log_std.detach().clone()
+    noise = net.sample_noise((STEPS, NUM_ENVS, 2), torch.Generator(device=dev).manual_seed(4),
+                             device=dev)
+    gen_state = trainer.runner.vec.generator.get_state()
+
+    flags = []
+    t0 = time.perf_counter()
+    with both_env_steps(flags, senv, single_transition_fields):
+        eager, _ = rollout_with("kernel", trainer, log_std, noise, gen_state, graphed=False,
+                                env=senv)
+    calls = len(flags)
+    bad = int(torch.stack(flags).sum()) if flags else -1
+    # a step: one transition (its state's fields, reward, the two flags, info's eight
+    # entries) and one observe (of the merged state)
+    per_step = (len(dataclasses.fields(senv.CarState)) + len(dataclasses.fields(senv.RacingState))
+                - 1 + 3 + 8 + 1)
+    if bad != 0 or calls != STEPS * per_step:
+        raise AssertionError(f"phase o.2: {bad} of {calls} outputs differ from the plain "
+                             "versions over the eager rollout")
+    print(f"phase o.2 eager rollout, {STEPS} steps x {NUM_ENVS} envs ({MODEL}, tiled pool, "
+          f"speed weight 6.5 as a tensor): every output of every single.transition and "
+          f"single.observe call ({calls} outputs) bitwise the plain versions on the same "
+          f"inputs ({time.perf_counter() - t0:.1f} s); {int(eager['step ep_mask'].sum())} "
+          f"episodes ended")
+    runs = {}
+    for env_step in ("kernel", "plain"):
+        runs[env_step] = rollout_with(env_step, trainer, log_std, noise, gen_state,
+                                      graphed=True, env=senv)
+    (k_out, k_graphs), (p_out, p_graphs) = runs["kernel"], runs["plain"]
+    for what, got in (("graphed plain", p_out), ("eager", eager)):
+        bad = {k: int((k_out[k] != got[k]).sum()) for k in k_out if not same_bits(k_out[k], got[k])}
+        if bad or k_out.keys() != got.keys():
+            raise AssertionError(f"phase o.2: the graphed kernel rollout differs from the "
+                                 f"{what} rollout in {bad}")
+    print(f"phase o.2 graphed rollout ({STEPS} replays): the kernels' rollout bitwise the "
+          f"graphed plain versions' and the eager rollout's, every step's {len(k_out)} "
+          f"buffers and the final state")
+    nodes = {}
+    for env_step, graphs in (("kernel", k_graphs), ("plain", p_graphs), ("kernel", k_graphs),
+                             ("plain", p_graphs)):
+        nodes.setdefault(env_step, []).append(rollout_step_profile(graphs.rollout, STEPS))
+    k_nodes = nodes["kernel"][0]["kernel_nodes"]
+    p_nodes = nodes["plain"][0]["kernel_nodes"]
+    print(f"phase o.3 one captured single-car rollout step ({NUM_ENVS} envs, tiled) on {card}: "
+          f"kernel nodes {k_nodes} with the two env kernels against {p_nodes} with the plain "
+          f"versions (the parent's env step), copy nodes {nodes['kernel'][0]['copy_nodes']} "
+          f"and {nodes['plain'][0]['copy_nodes']}; the kernels' time in one replay "
+          f"{nodes['kernel'][0]['kernel_us']:.1f} and {nodes['plain'][0]['kernel_us']:.1f} us; "
+          f"a step between CUDA events over {STEPS} replays, in turns kernel, plain, kernel, "
+          f"plain: {[round(r['ms_per_step'], 4) for r in nodes['kernel']]} ms and "
+          f"{[round(r['ms_per_step'], 4) for r in nodes['plain']]} ms")
+    if p_nodes - k_nodes < 40:
+        raise AssertionError(f"phase o.3: {k_nodes} kernel nodes a step against {p_nodes}; "
+                             "expected at least 40 fewer")
+    # the anneal as the trainer runs it: a new weight tensor each update, which makes
+    # the captured rollout capture again and take the weight in by copy from then on;
+    # the second rollout replays that graph and must see its own weight
+    for weight in (9.25, 10.0):
+        trainer.aux["speed_weight"] = trainer._f32(weight)
+        replayed, k_graphs = rollout_with("kernel", trainer, log_std, noise, gen_state,
+                                          graphed=True, env=senv, graphs=k_graphs)
+    if ("speed_weight",) not in k_graphs.rollout.aux.copied:
+        raise AssertionError("phase o.2: the rollout graph does not copy the speed weight in")
+    eager, _ = rollout_with("kernel", trainer, log_std, noise, gen_state, graphed=False,
+                            env=senv)
+    bad = {k: int((replayed[k] != eager[k]).sum()) for k in eager
+           if not same_bits(replayed[k], eager[k])}
+    moved = [k for k in k_out if not same_bits(k_out[k], replayed[k])]
+    if bad or replayed.keys() != eager.keys() or not moved:
+        raise AssertionError(f"phase o.2: the replay at speed weight 10.0 differs from the "
+                             f"eager rollout in {bad}, or from the one at 6.5 in none")
+    print(f"phase o.2 anneal: the captured rollout replayed with a new speed-weight tensor "
+          f"(10.0, taken in by copy) bitwise the eager rollout at 10.0, and apart from the "
+          f"rollout at 6.5 in {moved}")
+    return nodes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4420,6 +4794,9 @@ def main() -> int:
         kernels += check_env_step(pool, rng, dev)
     with timed("phase n (the minibatch step's two kernels against their plain versions)"):
         kernels += check_minibatch_kernels(dev, card)
+    with timed("phase o.1 and o.4 (the single-car env step's two launches against their "
+               "plain versions)"):
+        kernels += check_single_env_step(pool, dev, card)
     procgen = procgen_on_card(dev)
     kernels += check_row_ids(pool, procgen, cfg, mcfg, rng, dev)
     single_car, single_obs = main_path(track, cfg, dev, card)
@@ -4441,15 +4818,20 @@ def main() -> int:
           f"(the gathered rows are {gathered_row_bytes(pool, NUM_ENVS) / 2**20:,.1f} MiB)")
     launches, tiled = per_kernel(launches), per_kernel(tiled)
     for k in kernels:
-        # K1 runs on the self-play path inside multi_observe, the single-car
-        # transition on the single-car path; the narrow sensing on no main path
+        # K1's fold runs inside multi_observe on both main paths, K2 and K5 inside
+        # single_transition and multi_transition; the narrow kernels on no main path
         if k["name"] in ("raycast_walls", "raycast_walls_row_ids", "car_step_and_query",
                          "car_step_and_query_row_ids"):
             tiled_path = k["name"].endswith("_row_ids")
             k["launches"] = (tiled_single if tiled_path else single_car)[k["name"]]
-            k["launches_path"] = ("single-car main path on the tiled pool" if tiled_path else
-                                  "single-car main path")
+            k["launches_path"] = ("single-car main path" + (" on the tiled pool" if tiled_path
+                                                            else "")
+                                  + ": 0, the env step runs its work as single_observe and "
+                                  "single_transition")
             k["launches_selfplay"] = (tiled if tiled_path else launches)[k["name"]]
+        elif k["name"] in ("single_observe", "single_transition"):
+            k["launches"], k["launches_path"] = single_car[k["name"]], "single-car main path"
+            k["launches_row_ids"] = tiled_single[f"{k['name']}_row_ids"]
         elif k["name"] in ("raycast_walls_and_cars", "raycast_walls_and_cars_row_ids"):
             k["launches"] = (tiled if k["name"].endswith("_row_ids") else launches)[k["name"]]
             k["launches_path"] = ("self-play training: 0, the multi-car env's observe runs "
@@ -4485,6 +4867,8 @@ def main() -> int:
         loop_launches = loops_graphed(dev, card)
     with timed("phase m.2-m.3 (the env step's kernels over a graphed rollout)"):
         nodes = env_step_rollout(pool, dev, card)
+    with timed("phase o.2-o.3 (the single-car env step's kernels over a graphed rollout)"):
+        single_nodes = single_env_rollout(pool, dev, card)
     # the kernels line counts by kernel (the redesigned env kernels apart from the
     # first ones, which run on few env rows)
     match_launches, dp_world_one, adapter_launches, graph_launches, loop_launches = map(
@@ -4501,6 +4885,8 @@ def main() -> int:
         k["launches_loops_graphed"] = loop_launches[k["name"]]
         if k["name"] in ("multi_observe", "multi_transition"):
             k["rollout_step_nodes"] = nodes
+        elif k["name"] in ("single_observe", "single_transition"):
+            k["rollout_step_nodes"] = single_nodes
         elif k["name"] in ("multi_observe_small", "multi_transition_small"):
             # the env launches the first kernels on few rows: a match's 40 envs
             k["launches"] = match_launches[k["name"]]

@@ -48,6 +48,16 @@ it, by sequence number), the global norm, the clip/Adam/apply tail and the rest 
 ``minibatch_step`` (masks, stats row, counters), as launches and device us a
 minibatch. Graph replays carry no operator, so the graphed loop reports only totals.
 
+With ``--update`` it also reports the single-car rollout step: the trainer's
+captured rollout step (``graphed_rollout_step``, where the checkout graphs it), the
+eager rollout (``ppo.rollout_phase``, ``--steps`` steps) by the code that issues
+each launch (``rollout_groups``: the env's transition and observe, the autoreset
+around them in ``vector.step``, the action sampling, the observation normaliser and
+the buffers' writes in the rest of ``rollout_step``), as launches and device us a
+step, and the graphed 40 x 5 single-car evaluation (``eval_step``: chip_smoke.py
+phase l's, ``models/single_agent.npz``, sampled, seed 42) as ms a step between CUDA
+events and launches a step.
+
 With ``--match`` it profiles one tournament match as chip_smoke.py's phase g plays
 it: the 8B- against the 4B-step scale agent, one policy per seat, on the 20 x 2
 evaluation grid (40 envs, seed 42, sampled, pair seed ``pair_seed(42, 1)``), after
@@ -77,7 +87,9 @@ from self_play_racing_tpu_torch.agent import ppo  # noqa: E402
 from self_play_racing_tpu_torch.agent.self_play import SelfPlayTrainer  # noqa: E402
 from self_play_racing_tpu_torch.agent.trainer import PPOTrainer  # noqa: E402
 from self_play_racing_tpu_torch.configs import base_config, self_play_config  # noqa: E402
+from self_play_racing_tpu_torch import evaluate  # noqa: E402
 from self_play_racing_tpu_torch.envs import multi as menv  # noqa: E402
+from self_play_racing_tpu_torch.envs import normalize as obsnorm  # noqa: E402
 from self_play_racing_tpu_torch.envs import single as senv  # noqa: E402
 from self_play_racing_tpu_torch.envs import track as trk  # noqa: E402
 from self_play_racing_tpu_torch.envs import vector  # noqa: E402
@@ -121,8 +133,8 @@ GROUPS = (
 
 
 @contextlib.contextmanager
-def annotated():
-    """Each function of ``GROUPS`` (those the checkout has) runs inside a profiler
+def annotated(groups=GROUPS):
+    """Each function of ``groups`` (those the checkout has) runs inside a profiler
     range named after its group, for the block."""
     import importlib
 
@@ -135,7 +147,7 @@ def annotated():
                 return fn(*a, **k)
         return inner
 
-    for name, places in GROUPS:
+    for name, places in groups:
         for module, attr in places:
             if isinstance(module, str):
                 try:
@@ -213,6 +225,114 @@ def minibatch_groups(prof) -> dict | None:
             "device_us_per_minibatch": sum(us for _, us in out.values()) / steps}
 
 
+# rollout_step's parts, by the functions that issue them (``rollout_groups``)
+ROLLOUT_GROUPS = (
+    ("rollout.step", [(ppo, "rollout_step")]),
+    ("autoreset", [(vector, "step")]),
+    ("env transition", [(senv, "transition")]),
+    ("env observe", [(senv, "observe")]),
+    ("sampling", [(net, "sample_action")]),
+    ("normaliser", [(obsnorm, "update"), (obsnorm, "apply")]),
+)
+
+
+# the env's hand-written kernels, launched through ctypes with no PyTorch operator
+# around them, go to their group by the kernel's name
+HAND_KERNELS = {"single_transition_kernel": "env transition",
+                "car_step_and_query_kernel": "env transition",
+                "multi_observe_kernel": "env observe",
+                "raycast_walls_and_cars_kernel": "env observe",
+                "raycast_walls_kernel": "env observe"}
+
+
+def _hand_group(name: str):
+    return next((g for k, g in HAND_KERNELS.items() if k in name), None)
+
+
+def rollout_groups(prof, steps: int) -> dict:
+    """Launches and device us a rollout step by group, from a profile taken under
+    ``annotated(ROLLOUT_GROUPS)``: a kernel belongs to the innermost group range
+    around the operator that launched it, a hand-written env kernel to its group by
+    name (``HAND_KERNELS``); kernels inside ``rollout_step`` but in no group are
+    "buffers" (the [T, N, ...] writes and the carry)."""
+    names = {n for n, _ in ROLLOUT_GROUPS}
+    out = collections.defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and _hand_group(e.name):
+            out[_hand_group(e.name)][0] += 1
+            out[_hand_group(e.name)][1] += e.time_range.elapsed_us()
+            continue
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        group, evt = None, e
+        while evt is not None:
+            if evt.name in names and group is None:
+                group = evt.name
+            if evt.name == "rollout.step":
+                break
+            evt = evt.cpu_parent
+        if evt is None:
+            continue
+        group = "buffers" if group == "rollout.step" else group
+        for k in e.kernels:
+            if _hand_group(k.name):
+                continue  # counted from the device events
+            out[group][0] += 1
+            out[group][1] += k.duration
+    return {"by_group": {g: {"launches_per_step": c / steps, "device_us_per_step": us / steps}
+                         for g, (c, us) in sorted(out.items(), key=lambda kv: -kv[1][1])},
+            "launches_per_step": sum(c for c, _ in out.values()) / steps,
+            "device_us_per_step": sum(us for _, us in out.values()) / steps}
+
+
+def profile_rollout(args, trainer, dev) -> dict:
+    """``--steps`` steps of the trainer's eager rollout under the profiler, by
+    group."""
+    cfg = dataclasses.replace(trainer.cfg, num_steps=args.steps)
+    runner = trainer.runner
+    noise = net.sample_noise((args.steps, args.num_envs, 2), runner.generator, device=dev)
+
+    def rollout():
+        with torch.no_grad():
+            ppo.rollout_phase(cfg, trainer.hooks, runner, trainer.aux, trainer.log_std, noise)
+        torch.cuda.synchronize()
+
+    rollout()
+    t0 = time.perf_counter()
+    rollout()
+    wall = (time.perf_counter() - t0) / args.steps
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof, annotated(ROLLOUT_GROUPS):
+        rollout()
+    return {"steps": args.steps, "eager_wall_ms_per_step": wall * 1e3,
+            **rollout_groups(prof, args.steps)}
+
+
+def profile_eval(dev) -> dict:
+    """The 40 x 5 single-car evaluation (sampled, seed 42) graphed where the
+    checkout graphs it: after a run that captures, one run between CUDA events
+    (``chip_smoke.loop_clock``) and one under the profiler."""
+    grid = metrics.build_eval_grid(40, 5, 42, device=dev)
+
+    def run():
+        out = evaluate.evaluate_single_agent_overall(grid, chip_smoke.MODEL, seed=42)
+        torch.cuda.synchronize()
+        return out
+
+    run()
+    with chip_smoke.loop_clock() as clock:
+        res = run()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run()
+    kernels = _device_kernels(prof)
+    steps = clock["steps"]
+    return {"loop_steps": steps, "success_rate": res["success_rate"],
+            "host_ms_per_step": clock["host"] / steps * 1e3,
+            "device_ms_per_step": clock["device"] / steps * 1e3,
+            "kernel_launches_per_step": sum(c for _, c in kernels.values()) / steps,
+            "kernel_us_per_step": sum(t for t, _ in kernels.values()) / steps}
+
+
 def profile_update(args, dev) -> dict:
     cfg = base_config(num_envs=args.num_envs, num_steps=256,
                       total_timesteps=args.num_envs * 256 * 100)
@@ -231,6 +351,9 @@ def profile_update(args, dev) -> dict:
     with chip_smoke.minibatch_loops(1, around=lambda: prof) as loops, annotated():
         trainer.train(num_updates=1)
     (profiled_s, n), = loops
+    graphs = getattr(trainer.update_step, "graphs", None)
+    graphed = (None if graphs is None or getattr(graphs, "rollout", None) is None
+               else _graphed_step(graphs.rollout, cfg.num_steps))
     per_kernel = _device_kernels(prof)
     busy_us = sum(t for t, _ in per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[: args.top]
@@ -257,6 +380,9 @@ def profile_update(args, dev) -> dict:
                           "calls_per_minibatch": e.count / n} for e in host],
         **_copies(prof, n),
         "groups": minibatch_groups(prof),
+        "graphed_rollout_step": graphed,
+        "rollout_groups": profile_rollout(args, trainer, dev),
+        "eval_step": profile_eval(dev),
     }
 
 

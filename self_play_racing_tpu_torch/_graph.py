@@ -46,9 +46,9 @@ WARMUP_RUNS = 3
 
 
 def _counter_modules():
-    from .envs import multi
+    from .envs import multi, single
     from .ops import dynamics, gae, geometry, minibatch, prng
-    return (geometry, dynamics, gae, prng, multi, minibatch)
+    return (geometry, dynamics, gae, prng, multi, single, minibatch)
 
 
 def launch_counts() -> dict:

@@ -75,6 +75,7 @@ struct Params {
     int overlay;  // the run results take the staged rows' place (one item a thread)
     float half_length, half_width, max_dist, inv_range, inv_max_speed;
     int clamp_range;
+    int cars;  // 0: no car pass, each ray its wall hit (the single-car env's rays)
 };
 
 // torch.clamp(v, -1, 1) on the card: NaN passes
@@ -164,7 +165,7 @@ __global__ void __launch_bounds__(kMaxThreads) multi_observe_kernel(Params p) {
         t[3] = dy;
         t[4] = ox * dy - oy * dx;
     }
-    for (int k = back; k < P * A; k += blockDim.x) {
+    for (int k = back; k < (p.cars ? P * A : 0); k += blockDim.x) {
         const int q = k / A;
         const int a = k - q * A;
         const car_hits::Cars cars =
@@ -213,7 +214,7 @@ __global__ void __launch_bounds__(kMaxThreads) multi_observe_kernel(Params p) {
 
     __syncthreads();  // the ray table and the cars are in
     // the car pass, a thread a (ray, car), while the rows still arrive
-    for (int k = back; k < P * rays * A; k += blockDim.x) {
+    for (int k = back; k < (p.cars ? P * rays * A : 0); k += blockDim.x) {
         const int qr = k / A;
         const int b = k - qr * A;
         const int q = qr / rays;
@@ -302,9 +303,12 @@ __global__ void __launch_bounds__(kMaxThreads) multi_observe_kernel(Params p) {
         run_fold::combine_runs(res_a + at, res_d + at, row_runs[q], wa, wd);
         const float w = wall_fold::distance(wa, wd, p.max_dist);
         // split: walls
-        const float car = run_fold::cars_nearest(car_t + k * A, A, p.max_dist);
-        // torch.minimum(wall, car) on the card: the first NaN, else fminf
-        float d = w != w ? w : (car != car ? car : fminf(w, car));
+        float d = w;
+        if (p.cars) {
+            const float car = run_fold::cars_nearest(car_t + k * A, A, p.max_dist);
+            // torch.minimum(wall, car) on the card: the first NaN, else fminf
+            d = w != w ? w : (car != car ? car : fminf(w, car));
+        }
         // torch.clamp_max(d, range) keeps a NaN; then div_const(d, range)
         if (p.clamp_range) d = d > p.max_dist ? p.max_dist : d;
         const int a = r / ns;
@@ -339,7 +343,10 @@ int launch(const Params& p, int per_car, int threads, int smem, cudaStream_t str
 // dynamic shared memory, `rays_per_lane` rays an item, grouped by car where
 // per_car != 0, the run results over the staged rows where overlay != 0 (the plan
 // has made sure that a thread folds one item at most and that they fit): the launch
-// plan, ops/_cuda.py:multi_observe_plan. Returns a cudaError_t (0 on success).
+// plan, ops/_cuda.py:multi_observe_plan. cars == 0 leaves out the car pass and the
+// minimum, so that each ray is its wall hit alone, unclamped unless clamp_range says
+// so: the single-car env's observation (envs/single.py:observe), at one car a row,
+// whose rays see no car. Returns a cudaError_t (0 on success).
 extern "C" int multi_observe_f32(
         const float* x, const float* y, const float* angle, const float* vx,
         const float* vy, const float* last_steering, const float* max_track_distance,
@@ -348,7 +355,7 @@ extern "C" int multi_observe_f32(
         int rows, int num_cars, int num_sensors, int num_segments,
         float half_length, float half_width, float max_dist, float inv_range,
         float inv_max_speed, int clamp_range, int threads, int smem, int rays_per_lane,
-        int per_car, int rows_per_block, int overlay, int device, void* stream) {
+        int per_car, int rows_per_block, int overlay, int cars, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (rows == 0 || num_cars == 0 || num_sensors == 0) return 0;
@@ -361,7 +368,7 @@ extern "C" int multi_observe_f32(
     const Params p{x, y, angle, vx, vy, last_steering, max_track_distance, rel,
                    {seg_sx, seg_sy, seg_vx, seg_vy, seg_c}, row_ids, obs, rows, num_cars,
                    num_sensors, num_segments, rows_per_block, overlay, half_length,
-                   half_width, max_dist, inv_range, inv_max_speed, clamp_range};
+                   half_width, max_dist, inv_range, inv_max_speed, clamp_range, cars};
     const auto st = (cudaStream_t)stream;
     switch (rays_per_lane) {
         case 1: return launch<1>(p, per_car, threads, smem, st);

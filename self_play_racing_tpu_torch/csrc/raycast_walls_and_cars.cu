@@ -100,6 +100,7 @@ struct ObsIn {
     float inv_range;
     float inv_max_speed;
     int clamp_range;
+    int cars;  // 0: no car pass, each ray its wall hit (the single-car env's rays)
 };
 
 template <int R, bool kObs>
@@ -219,9 +220,12 @@ __global__ void __launch_bounds__(kMaxThreads) raycast_walls_and_cars_kernel(
             float ox, oy, dx, dy;
             ray_of(x, y, angle, rel, row, num_cars, num_sensors, r, ox, oy, dx, dy);
             const float wall = wall_fold::distance(wa, wd, max_dist);
-            const float car = car_hits::nearest(cars, ox, oy, dx, dy, max_dist);
-            // torch.minimum(wall, car) on the card: the first NaN, else fminf
-            float d = wall != wall ? wall : (car != car ? car : fminf(wall, car));
+            float d = wall;
+            if (!kObs || obs.cars) {
+                const float car = car_hits::nearest(cars, ox, oy, dx, dy, max_dist);
+                // torch.minimum(wall, car) on the card: the first NaN, else fminf
+                d = wall != wall ? wall : (car != car ? car : fminf(wall, car));
+            }
             if constexpr (kObs) {
                 // torch.clamp_max(d, range) keeps a NaN; then div_const(d, range)
                 if (obs.clamp_range) d = d > max_dist ? max_dist : d;
@@ -307,7 +311,8 @@ extern "C" int raycast_walls_and_cars_f32(
 // velocities vx, vy and last_steering [rows * num_cars], max_track_distance
 // [rows], and obs [rows * num_cars * (num_sensors + 4 * num_cars)] in place of
 // out; inv_range and inv_max_speed the float32 reciprocals of max_dist and the
-// car's max_speed; clamp_range != 0 clamps each ray to max_dist first.
+// car's max_speed; clamp_range != 0 clamps each ray to max_dist first. cars == 0
+// leaves out the car pass and the minimum (multi_observe.cu's single-car rays).
 extern "C" int multi_observe_small_f32(
         const float* x, const float* y, const float* angle, const float* vx,
         const float* vy, const float* last_steering, const float* max_track_distance,
@@ -316,14 +321,14 @@ extern "C" int multi_observe_small_f32(
         int rows, int num_cars, int num_sensors, int num_segments,
         float half_length, float half_width, float max_dist, float inv_range,
         float inv_max_speed, int clamp_range, int threads, int smem, int rays_per_lane,
-        int device, void* stream) {
+        int cars, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (vx == nullptr || vy == nullptr || last_steering == nullptr
             || max_track_distance == nullptr)
         return (int)cudaErrorInvalidValue;
     const ObsIn in{vx, vy, last_steering, max_track_distance, inv_range, inv_max_speed,
-                   clamp_range};
+                   clamp_range, cars};
     return launch_rays<true>(x, y, angle, rel, seg_sx, seg_sy, seg_vx, seg_vy, seg_c, row_ids,
                              obs, rows, num_cars, num_sensors, num_segments, half_length,
                              half_width, max_dist, threads, smem, rays_per_lane, stream, in);

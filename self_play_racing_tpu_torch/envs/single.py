@@ -16,6 +16,20 @@ first and raycast once per step. Observations are float32: ray hits are cast to 
 before normalization, the other features are computed at state dtype and cast last.
 The geometry is per-env ``TrackArrays`` or a capacity layout (``envs/track.py``),
 whose resident pool rows the kernels read by row id.
+
+On the card an env step is two kernel launches: ``transition`` is
+``csrc/single_transition.cu`` (K5, the corners and K2 of each car against its
+waypoint row, and the whole reward and termination tail; a warp a row,
+``ops/_cuda.py:single_transition_plan``), and ``observe`` is the multi-car env's
+observation kernel at one car a row without its car pass (``csrc/multi_observe.cu``,
+and under ``ops/_cuda.py``'s ``OBSERVE_SMALL_BELOW`` rows the first kernel in
+``csrc/raycast_walls_and_cars.cu``), which writes the whole observation row. Both
+raise on what they do not take (float64 among it); nothing falls back. On CPU
+tensors they run ``transition_plain`` and ``observe_plain``: the narrow kernels'
+wrappers (``car_step_and_query``, ``geo.raycast_walls``, which take their own plain
+versions there) and PyTorch around them, the composition the kernels are held to
+bitwise on the card. ``transition_launches`` and ``observe_launches`` count the
+kernels' launches, ``*_row_id_launches`` those reading pool rows by id.
 """
 from __future__ import annotations
 
@@ -25,11 +39,18 @@ import functools
 import numpy as np
 import torch
 
-from .._numerics import div_const
+from .._numerics import div_const, f32_reciprocal
+from ..ops import _cuda
 from ..ops import geometry as geo
-from ..ops.dynamics import DEFAULT_CAR, CarSpec, car_step_and_query
+from ..ops.dynamics import DEFAULT_CAR, CarSpec, _step_constants, car_step_and_query
 from . import track as trk
+from .multi import _env_rows
 from .track import Track
+
+observe_launches = 0
+observe_row_id_launches = 0
+transition_launches = 0
+transition_row_id_launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,7 +146,19 @@ def _sensor_angles(cfg: RacingConfig, dtype, device) -> torch.Tensor:
 
 
 def observe(cfg: RacingConfig, track: Track, state: RacingState) -> torch.Tensor:
-    """Observation per env, float32 [N, num_sensors + 4]."""
+    """Observation per env, float32 [N, num_sensors + 4]: one kernel launch on the
+    card, ``observe_plain`` on the CPU."""
+    global observe_launches, observe_row_id_launches
+    if not geo._on_cuda(state.car.x, "single.observe"):
+        return observe_plain(cfg, track, state)
+    out = _observe_cuda(cfg, track, state)
+    observe_launches += 1
+    observe_row_id_launches += isinstance(track, trk.LAYOUTS)
+    return out
+
+
+def observe_plain(cfg: RacingConfig, track: Track, state: RacingState) -> torch.Tensor:
+    """Plain version of ``observe``: K1's wrapper and PyTorch."""
     car = state.car
     dtype = car.x.dtype
     rows, row_ids = trk.rows_of(track)
@@ -154,13 +187,162 @@ def observe(cfg: RacingConfig, track: Track, state: RacingState) -> torch.Tensor
     return torch.cat([rays, feats.to(torch.float32)], dim=-1)
 
 
+def _car_fields(name, fields, n, dev):
+    """The state's float32 fields as the kernels take them: contiguous [N] on
+    ``dev`` (a no-op for the env's own tensors)."""
+    geo._check_f32(name, fields, dev)
+    if any(t.shape != (n,) for t in fields):
+        raise ValueError(f"{name}: the car fields must share one shape [N]")
+    return [t.contiguous() for t in fields]
+
+
+def _observe_cuda(cfg: RacingConfig, track: Track, state: RacingState) -> torch.Tensor:
+    """``observe`` on the card: the multi-car observation at one car a row with the
+    car pass left out (a row's only car is the observer, whose rays see the walls
+    alone), writing the [N, num_sensors + 4] rows."""
+    car = state.car
+    dev, n = car.x.device, car.x.shape[0]
+    x, y, angle, vx, vy, last_steering = _car_fields(
+        "single.observe", [car.x, car.y, car.angle, car.vx, car.vy, state.last_steering], n,
+        dev)
+    rows, row_ids = _env_rows("single.observe", track, n, dev)
+    segs = [rows.seg_sx, rows.seg_sy, rows.seg_vx, rows.seg_vy, rows.seg_c]
+    geo._check_f32("single.observe", segs, dev)
+    if any(t.ndim != 2 or t.shape != segs[0].shape or not t.is_contiguous() for t in segs):
+        raise ValueError("single.observe: the segment fields must share one contiguous "
+                         "shape (rows, S)")
+    num_segments = segs[0].shape[-1]
+    _cuda.multi_observe_plan(1, cfg.num_sensors, num_segments, n)  # refuses first
+    max_td = trk.scalars_of(track).max_track_distance.to(torch.float32).contiguous()
+    rel = _sensor_angles(cfg, torch.float32, dev)
+    obs = torch.empty((n, cfg.obs_dim), dtype=torch.float32, device=dev)
+    f32 = np.float32
+    with torch.cuda.device(dev):
+        _cuda.launch_multi_observe(
+            x, y, angle, vx, vy, last_steering, max_td, rel, *segs, obs, n, 1,
+            cfg.num_sensors, num_segments, f32(cfg.car.length / 2), f32(cfg.car.width / 2),
+            f32(cfg.max_sensor_range), f32_reciprocal(cfg.max_sensor_range),
+            f32_reciprocal(cfg.car.max_speed), cfg.clamp_sensor_range, row_ids=row_ids,
+            cars=False)
+    return obs
+
+
+def _transition_constants(cfg: RacingConfig, speed_weight: float):
+    """The transition kernel's float32 constants, in
+    ``csrc/single_transition.cu:single_transition_f32``'s order: K5's eight, the
+    half length and width, then the tail's (the float32 reciprocals of max_speed and
+    the time-bonus divisor, through which ``div_const`` divides, and the speed weight
+    the kernel takes where no tensor is given)."""
+    f32 = np.float32
+    return _step_constants(cfg.dt, cfg.car) + [
+        f32(cfg.car.length / 2), f32(cfg.car.width / 2), f32(cfg.progress_scale),
+        f32(cfg.checkpoint_bonus), f32_reciprocal(cfg.car.max_speed), f32(speed_weight),
+        f32(cfg.crash_penalty), f32(cfg.finish_bonus), f32(cfg.time_bonus_base),
+        f32_reciprocal(cfg.time_bonus_divisor)]
+
+
 def transition(cfg: RacingConfig, track: Track, state: RacingState, action,
                speed_weight=None):
     """One env step without sensing: (new_state, reward, terminated, truncated, info).
 
     ``action``: [N, 2] raw policy output; steering clipped to [-1, 1], throttle to
     [0, 1]. ``speed_weight`` may be a tensor (annealing); defaults to the config's.
+    One kernel launch on the card, ``transition_plain`` on the CPU.
     """
+    global transition_launches, transition_row_id_launches
+    if not geo._on_cuda(state.car.x, "single.transition"):
+        return transition_plain(cfg, track, state, action, speed_weight)
+    out = _transition_cuda(cfg, track, state, action, speed_weight)
+    transition_launches += 1
+    transition_row_id_launches += isinstance(track, trk.LAYOUTS)
+    return out
+
+
+def _transition_cuda(cfg: RacingConfig, track: Track, state: RacingState, action,
+                     speed_weight=None):
+    """``transition`` on the card: a block (one warp) an env row, which stages its
+    waypoint row (pool row ``row_ids[i]`` with ids), steps and queries its car and
+    writes every output. A speed-weight tensor on the card is read
+    there (float32, one value), so that a captured rollout sees each update's anneal;
+    a number or a CPU tensor is taken as a float32 constant."""
+    car = state.car
+    dev, n = car.x.device, car.x.shape[0]
+    x, y, angle, vx, vy, old_progress, last_progress = _car_fields(
+        "single.transition", [car.x, car.y, car.angle, car.vx, car.vy, car.progress,
+                              state.last_progress], n, dev)
+    flags = [car.crashed, car.finished, state.cp25, state.cp50, state.cp75]
+    if (any(t.dtype != torch.bool or t.shape != (n,) or t.device != dev for t in flags)
+            or state.steps.dtype != torch.int32 or state.steps.shape != (n,)
+            or state.steps.device != dev):
+        raise TypeError("single.transition: the flags must be bool [N] and steps int32 [N] "
+                        "on the cars' device")
+    flags = [t.contiguous() for t in flags]
+    if action.device != dev or action.ndim != 2 or action.shape[0] != n or action.shape[1] < 2:
+        raise ValueError(f"single.transition: action {tuple(action.shape)} on "
+                         f"{action.device}, expected ({n}, 2) on {dev}")
+    action = action.to(torch.float32)
+    if action.stride(-1) != 1 or (n > 1 and action.stride(0) < 2):
+        action = action.contiguous()
+    on_card = isinstance(speed_weight, torch.Tensor) and speed_weight.device.type != "cpu"
+    if on_card and (speed_weight.device != dev or speed_weight.dtype != torch.float32
+                    or speed_weight.numel() != 1):
+        raise TypeError("single.transition: a speed-weight tensor on the card must be one "
+                        "float32 value on the cars' device")
+    sw = speed_weight if on_card else None
+    constants = _transition_constants(
+        cfg, cfg.speed_weight if speed_weight is None or on_card else float(speed_weight))
+    rows, row_ids = _env_rows("single.transition", track, n, dev)
+    wp = [rows.wp_x, rows.wp_y, rows.nrm_x, rows.nrm_y]
+    geo._check_f32("single.transition", wp, dev)
+    if any(t.ndim != 2 or t.shape != wp[0].shape or not t.is_contiguous() for t in wp):
+        raise ValueError("single.transition: the waypoint fields must share one contiguous "
+                         "shape (rows, W)")
+    num_waypoints = wp[0].shape[-1]
+    _cuda.single_transition_plan(num_waypoints)  # refuses first
+    per_env = trk.scalars_of(track)
+    n_wp, width = per_env.n_wp, per_env.track_width
+    if (n_wp.dtype != torch.int32 or width.dtype != torch.float32 or n_wp.device != dev
+            or width.device != dev or n_wp.shape != (n,) or width.shape != (n,)):
+        raise TypeError("single.transition: n_wp must be int32 [N] and track_width "
+                        "float32 [N] on the cars' device")
+
+    def new(dtype):
+        return torch.empty((n,), dtype=dtype, device=dev)
+
+    f32, b8 = torch.float32, torch.bool
+    nx, ny, nang, nvx, nvy, progress, steering = (new(f32) for _ in range(7))
+    crashed, finished, cp25, cp50, cp75 = (new(b8) for _ in range(5))
+    new_steps, reward, speed, info_progress, delta = (
+        new(torch.int32), new(f32), new(f32), new(f32), new(f32))
+    terminated, truncated = new(b8), new(b8)
+    ptrs = [x, y, angle, vx, vy, flags[0], action, *wp, row_ids, n_wp.contiguous(),
+            width.contiguous(), old_progress, last_progress, *flags[1:],
+            state.steps.contiguous(), sw,
+            nx, ny, nang, nvx, nvy, progress, steering, crashed, finished, cp25, cp50, cp75,
+            new_steps, reward, terminated, truncated, speed, info_progress, delta]
+    with torch.cuda.device(dev):
+        _cuda.launch_single_transition(ptrs, constants, n, num_waypoints, cfg.max_steps,
+                                       action.stride(0) if n > 1 else 2, dev)
+    new_state = RacingState(
+        car=CarState(x=nx, y=ny, angle=nang, vx=nvx, vy=nvy,
+                     progress=progress, crashed=crashed, finished=finished),
+        steps=new_steps,
+        last_progress=progress,
+        last_steering=steering,
+        cp25=cp25, cp50=cp50, cp75=cp75,
+    )
+    info = {
+        "x": nx, "y": ny, "speed": speed, "progress": info_progress,
+        "crashed": crashed, "finished": finished,
+        "reward": reward, "progress_delta": delta,
+    }
+    return new_state, reward, terminated, truncated, info
+
+
+def transition_plain(cfg: RacingConfig, track: Track, state: RacingState, action,
+                     speed_weight=None):
+    """Plain version of ``transition``: the transition kernel's wrapper
+    (``car_step_and_query``) and PyTorch."""
     dtype = state.car.x.dtype
     car = state.car
     sw = cfg.speed_weight if speed_weight is None else speed_weight

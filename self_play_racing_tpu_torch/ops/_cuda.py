@@ -30,7 +30,7 @@ SOURCES = ("raycast_walls.cu", "progress_collision.cu", "raycast_cars.cu",
            "rectangles_intersect.cu", "car_update.cu", "gae.cu",
            "mixbits_permutation.cu", "raycast_walls_and_cars.cu",
            "car_step_and_query.cu", "multi_observe.cu", "multi_transition.cu",
-           "ppo_head.cu", "adam_tail.cu")
+           "ppo_head.cu", "adam_tail.cu", "single_transition.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # PyTorch's eager ops never contract a*b+c into an FMA; neither may the kernels
@@ -53,12 +53,13 @@ _SIGNATURES = {
     "raycast_walls_and_cars_f32": [_P] * 11 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_I, _P],
     "car_step_and_query_f32": [_P] * 25 + [_I] * 5 + [_F] * 11 + [_I, _P],
     "multi_transition_small_f32": [_P, _I, _P, _I] + [_I] * 7 + [_I, _P],
-    "multi_observe_small_f32": [_P] * 15 + [_I] * 4 + [_F] * 5 + [_I] * 4 + [_I, _P],
+    "multi_observe_small_f32": [_P] * 15 + [_I] * 4 + [_F] * 5 + [_I] * 5 + [_I, _P],
     "multi_transition_f32": [_P, _I, _P, _I] + [_I] * 8 + [_I, _P],
-    "multi_observe_f32": [_P] * 15 + [_I] * 4 + [_F] * 5 + [_I] * 7 + [_I, _P],
+    "multi_observe_f32": [_P] * 15 + [_I] * 4 + [_F] * 5 + [_I] * 8 + [_I, _P],
     "ppo_head_forward_f32": [_P, _I, _P, _I, _P, _L, _I, _P],
     "ppo_head_backward_f32": [_P, _I, _P, _I, _P, _L, _P, _L, _P, _P, _L, _I, _P],
     "adam_tail_f32": [_P, _P, _I, _P, _I, _P, _I, _L, _L, _I, _P],
+    "single_transition_f32": [_P, _I, _P, _I] + [_I] * 5 + [_I, _P],
 }
 
 _lock = threading.Lock()
@@ -189,6 +190,12 @@ TRANSITION_WORDS_PER_ROW = 2
 # default) and 2% the faster on the tiled pool.
 OBSERVE_SMALL_BELOW = 640
 TRANSITION_SMALL_BELOW = 2048
+# single_transition (csrc/single_transition.cu): its pointer and constant counts. It
+# runs a block (one warp) a row; on an H100 (PERF.md, §6) that took 5.5-6.1 us in a
+# CUDA graph at 16 and 200 rows against 9.5-9.9 at 8 rows a block, and at 4096 rows
+# 13.4-13.6 against 13.6-13.7 gathered and 13.5 against 15.4-15.5 by row id.
+SINGLE_TRANSITION_PTRS = 41
+SINGLE_TRANSITION_CONSTS = 18
 
 
 @dataclasses.dataclass(frozen=True)
@@ -403,6 +410,22 @@ def multi_transition_plan(cars_per_row: int, num_waypoints: int, pairs: bool,
     return plan
 
 
+@functools.lru_cache(maxsize=256)
+def single_transition_plan(num_waypoints: int) -> TransitionPlan:
+    """The single-car transition's launch: a block (one warp) a row, which stages the
+    row's two position fields (W floats each). Raises ValueError where a row does not
+    fit."""
+    if num_waypoints < 1:
+        raise ValueError("single_transition: the kernel needs at least one waypoint")
+    smem = K2_FIELDS * _field_capacity(num_waypoints) * 4
+    dynamic_limit = BLOCK_SMEM_LIMIT - STATIC_SMEM_RESERVE
+    if smem > dynamic_limit:
+        raise ValueError(f"single_transition: a row of {num_waypoints} waypoints needs "
+                         f"{smem:,} bytes of shared memory; a block has "
+                         f"{dynamic_limit:,} beside the kernel's own")
+    return TransitionPlan(32, smem, 1)
+
+
 def launch_raycast_walls(ox, oy, dx, dy, sx, sy, vx, vy, c, out,
                          rows: int, rays_per_row: int, num_segments: int,
                          max_dist: float, row_ids=None) -> None:
@@ -504,11 +527,14 @@ def launch_multi_observe(x, y, angle, vx, vy, last_steering, max_track_distance,
                          sy, seg_vx, seg_vy, c, obs, rows: int, num_cars: int,
                          num_sensors: int, num_segments: int, half_length: float,
                          half_width: float, max_dist: float, inv_range: float,
-                         inv_max_speed: float, clamp_range: bool, row_ids=None) -> None:
+                         inv_max_speed: float, clamp_range: bool, row_ids=None,
+                         cars: bool = True) -> None:
     """Launch the multi-car env's observation on ``obs.device``'s current stream, as
     ``multi_observe_plan`` says. Tensors are contiguous f32 (the car fields [rows *
     num_cars], ``max_track_distance`` [rows], ``obs`` [rows, num_cars, num_sensors +
-    4 * num_cars]); the floats are float32 values."""
+    4 * num_cars]); the floats are float32 values. ``cars=False`` leaves out the rays'
+    car pass and its minimum: each ray is its wall hit alone (the single-car env's
+    observation, at one car a row)."""
     plan = multi_observe_plan(num_cars, num_sensors, num_segments, rows)
     args = (*map(_ptr, (x, y, angle, vx, vy, last_steering, max_track_distance, rel, sx, sy,
                         seg_vx, seg_vy, c, row_ids, obs)),
@@ -516,10 +542,11 @@ def launch_multi_observe(x, y, angle, vx, vy, last_steering, max_track_distance,
             float(max_dist), float(inv_range), float(inv_max_speed), int(clamp_range),
             plan.threads, plan.smem, plan.rays_per_lane)
     if plan.small:
-        _call("raycast_walls_and_cars", "multi_observe_small_f32", obs.device, *args)
+        _call("raycast_walls_and_cars", "multi_observe_small_f32", obs.device, *args,
+              int(cars))
     else:
         _call("multi_observe", "multi_observe_f32", obs.device, *args, int(plan.per_car),
-              plan.rows_per_block, int(plan.overlay))
+              plan.rows_per_block, int(plan.overlay), int(cars))
 
 
 def launch_multi_transition(ptrs, constants, rows: int, cars_per_row: int,
@@ -541,6 +568,23 @@ def launch_multi_transition(ptrs, constants, rows: int, cars_per_row: int,
         _call("car_step_and_query", "multi_transition_small_f32", device, *args)
     else:
         _call("multi_transition", "multi_transition_f32", device, *args, plan.rows_per_block)
+
+
+def launch_single_transition(ptrs, constants, rows: int, num_waypoints: int,
+                             max_steps: int, action_stride: int, device: torch.device) -> None:
+    """Launch the single-car env's transition on ``device``'s current stream, as
+    ``single_transition_plan`` says: ``ptrs`` the ``SINGLE_TRANSITION_PTRS`` tensors
+    (or None) in the order of ``csrc/single_transition.cu:single_transition_f32``,
+    ``constants`` its ``SINGLE_TRANSITION_CONSTS`` float32 values, the action's rows
+    ``action_stride`` floats apart."""
+    if len(ptrs) != SINGLE_TRANSITION_PTRS or len(constants) != SINGLE_TRANSITION_CONSTS:
+        raise ValueError(f"single_transition: {len(ptrs)} pointers and {len(constants)} "
+                         f"constants, expected {SINGLE_TRANSITION_PTRS} and "
+                         f"{SINGLE_TRANSITION_CONSTS}")
+    plan = single_transition_plan(num_waypoints)
+    _call("single_transition", "single_transition_f32", device, _ptr_array(ptrs),
+          SINGLE_TRANSITION_PTRS, _float_array(constants), SINGLE_TRANSITION_CONSTS, rows,
+          num_waypoints, plan.smem, int(max_steps), int(action_stride))
 
 
 # ppo_head (csrc/ppo_head.cu): its input pointers and float32 constants

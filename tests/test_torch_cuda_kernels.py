@@ -37,7 +37,12 @@ track, the observation also bitwise the fold's shape model
 (``chip_smoke.shape_model_observe``). The PPO minibatch step's two kernels
 (``ops/minibatch.py``): ``ppo_head``'s forward and backward and ``adam_tail``
 bitwise their plain compositions on rows that take every branch, at 1 to 65,536
-rows, on a group's flat-buffer gradients, and over a whole update.
+rows, on a group's flat-buffer gradients, and over a whole update. The single-car
+env's step (``single.transition``, ``csrc/single_transition.cu``, and
+``single.observe``, the multi-car observation kernel at one car a row without its
+car pass; one launch each) bitwise, -0.0 apart from 0.0, its plain version (the
+narrow kernels and PyTorch) at 1 to 5008 rows, per-env and by row id, with the
+speed weight a constant and an annealed tensor, the sensing clamped and not.
 """
 import contextlib
 import dataclasses
@@ -49,6 +54,7 @@ import torch
 import chip_smoke
 from test_torch_dist_workers import group_of_one
 from self_play_racing_tpu_torch.envs import multi as menv
+from self_play_racing_tpu_torch.envs import single as senv
 from self_play_racing_tpu_torch.envs import track as trk
 from self_play_racing_tpu_torch.ops import _cuda
 from self_play_racing_tpu_torch.ops import dynamics
@@ -940,8 +946,9 @@ def test_envs_on_card_read_a_procgen_layout_as_gathered_rows(cuda):
 
 def test_adapter_step_on_the_card_matches_the_cpu_adapter(cuda):
     """``RacingEnv`` at float32 on the card against the same adapter on the CPU,
-    one step from the reset: its sensing (K1) and transition (``car_step_and_query``)
-    launch once each at a batch of one, and the step returns the CPU's numbers
+    one step from the reset: its observation and transition kernels launch once each
+    at a batch of one (the narrow K1 and ``car_step_and_query`` not at all), and the
+    step returns the CPU's numbers
     within 1e-5 (the elementwise cos/sin/sqrt round differently on the card and in
     the CPU's math library)."""
     from self_play_racing_tpu_torch.envs import gym_adapter
@@ -956,10 +963,12 @@ def test_adapter_step_on_the_card_matches_the_cpu_adapter(cuda):
     cpu_obs, _ = cpu.reset()
     np.testing.assert_allclose(card_obs, cpu_obs, rtol=0, atol=1e-5)
     geo.raycast_walls_launches = dynamics.car_step_and_query_launches = 0
+    senv.observe_launches = senv.transition_launches = 0
     action = np.array([0.3, 0.8])
     got = card.step(action)
     want = cpu.step(action)
-    assert (geo.raycast_walls_launches, dynamics.car_step_and_query_launches) == (1, 1)
+    assert (senv.observe_launches, senv.transition_launches) == (1, 1)
+    assert (geo.raycast_walls_launches, dynamics.car_step_and_query_launches) == (0, 0)
     np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-5)
     assert got[2:4] == want[2:4]
     for k in ("speed", "progress", "reward", "progress_delta"):
@@ -976,13 +985,18 @@ _COUNTERS = [(geo, "raycast_walls_launches"), (geo, "raycast_walls_and_cars_laun
              (geo, "raycast_walls_and_cars_row_id_launches"),
              (dynamics, "car_step_and_query_row_id_launches"),
              (menv, "observe_launches"), (menv, "transition_launches"),
-             (menv, "observe_row_id_launches"), (menv, "transition_row_id_launches")]
+             (menv, "observe_row_id_launches"), (menv, "transition_row_id_launches"),
+             (senv, "observe_launches"), (senv, "transition_launches"),
+             (senv, "observe_row_id_launches"), (senv, "transition_row_id_launches")]
 
 GRAPH_CASES = {
     # name: (self-play, config overrides)
     "single": (False, dict()),
     "single_kl_exit": (False, dict(kl_target=1e-4)),
     "single_normalized": (False, dict(normalize_obs=True)),
+    # the speed weight annealed each update, a tensor on the card that the captured
+    # rollout's transition reads in place at every replay
+    "single_annealed": (False, dict(anneal_speed_weight=True)),
     "selfplay_per_env": (True, dict(opponent_per_env=True, reset_envs_each_update=False)),
     "selfplay_shared_reset": (True, dict(opponent_per_env=False,
                                          reset_envs_each_update=True, kl_target=1e-3)),
@@ -1051,13 +1065,13 @@ def test_graphed_update_is_the_eager_update_bitwise(cuda, case):
     (gm, gc, gs), (em, ec, es) = runs
     assert gc == ec
     steps = 16
-    sensing, stepping = (("observe", "transition") if selfplay
-                         else ("raycast_walls", "car_step_and_query"))
-    names = [a for _, a in _COUNTERS]
+    env = menv if selfplay else senv
     for c in gc:
-        assert c[names.index(f"{sensing}_launches")] >= steps
-        assert c[names.index(f"{stepping}_launches")] == steps
-        assert c[names.index("compute_gae_launches")] == 1
+        assert c[_COUNTERS.index((env, "observe_launches"))] >= steps
+        assert c[_COUNTERS.index((env, "transition_launches"))] == steps
+        assert c[_COUNTERS.index((gae, "compute_gae_launches"))] == 1
+        assert c[_COUNTERS.index((geo, "raycast_walls_launches"))] == 0
+        assert c[_COUNTERS.index((dynamics, "car_step_and_query_launches"))] == 0
     for a, b in zip(gm, em):
         assert a.keys() == b.keys()
         for k in a:
@@ -1529,3 +1543,114 @@ def test_update_with_the_learner_kernels_is_the_plain_update_bitwise(cuda):
     assert [b - a for a, b in zip(before, after)] == [16] * 3
     assert all(chip_smoke.same_bits(a, b) for a, b in zip(got[0], want[0]))
     assert got[1] == want[1]
+
+
+# ----------------------------- the single-car env step as two launches (envs/single.py)
+
+SINGLE_ROWS = [1, 16, 48, 200, 4096, ENV_STEP_ENVS]
+
+
+def _single_track(cuda, rows, where):
+    from self_play_racing_tpu_torch.utils.profiling import canonical_bench_pool
+
+    pool = canonical_bench_pool(16, device=cuda)
+    if where == "by row id":
+        return chip_smoke.by_row_id(pool, rows)
+    return trk.gather_tracks(pool, np.arange(rows) % 16)
+
+
+def _single_case(cuda, rows, where, seed, **cfg_kw):
+    cfg = senv.RacingConfig(num_sensors=11, max_steps=chip_smoke.CRAFTED_MAX_STEPS, **cfg_kw)
+    track = _single_track(cuda, rows, where)
+    state, action = chip_smoke.crafted_single_state(track, cfg.max_steps, seed=seed,
+                                                    device=cuda)
+    return cfg, track, state, action
+
+
+@pytest.mark.parametrize("rows", SINGLE_ROWS)
+@pytest.mark.parametrize("where", ["gathered", "by row id"])
+@pytest.mark.parametrize("annealed", [False, True])
+def test_single_transition_kernel_is_its_plain_version_bitwise(cuda, rows, where, annealed):
+    """``single.transition``, one launch (``csrc/single_transition.cu``), against
+    ``single.transition_plain`` (the narrow ``car_step_and_query`` and PyTorch) on
+    ``chip_smoke.crafted_single_state``, the speed weight the config's or a tensor
+    on the card: every output bitwise (-0.0 apart from 0.0); every branch of the tail taken from 4096 rows; then 16 more steps in lockstep on
+    random actions, the annealed weight rewritten in place between them."""
+    cfg, track, state, action = _single_case(cuda, rows, where, seed=rows)
+    sw = torch.tensor(5.3, device=cuda) if annealed else None
+    before = (senv.transition_launches, senv.transition_row_id_launches,
+              dynamics.car_step_and_query_launches)
+    out = senv.transition(cfg, track, state, action, speed_weight=sw)
+    assert (senv.transition_launches, senv.transition_row_id_launches,
+            dynamics.car_step_and_query_launches) == (
+        before[0] + 1, before[1] + (where != "gathered"), before[2])
+    plain = senv.transition_plain(cfg, track, state, action, speed_weight=sw)
+    torch.cuda.synchronize()
+    want = chip_smoke.single_transition_fields(plain)
+    assert chip_smoke.differing(chip_smoke.single_transition_fields(out), want) == {}
+    assert out[0].last_progress is out[0].car.progress
+    if rows >= 4096:
+        branches = chip_smoke.single_tail_branches(state, out)
+        assert all(branches.values()), branches
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    state = out[0]
+    for i in range(16):
+        if annealed:
+            sw.fill_(5.3 + 0.25 * i)
+        action = torch.rand((rows, 2), generator=gen, device=cuda) * 2.6 - 1.3
+        out = senv.transition(cfg, track, state, action, speed_weight=sw)
+        plain = senv.transition_plain(cfg, track, state, action, speed_weight=sw)
+        assert chip_smoke.differing(chip_smoke.single_transition_fields(out),
+                                    chip_smoke.single_transition_fields(plain)) == {}
+        state = out[0]
+
+
+@pytest.mark.parametrize("rows", SINGLE_ROWS)
+@pytest.mark.parametrize("where", ["gathered", "by row id"])
+@pytest.mark.parametrize("clamp", [False, True])
+def test_single_observe_kernel_is_its_plain_version_bitwise(cuda, rows, where, clamp):
+    """``single.observe``, one launch (the multi-car observation at one car a row
+    without its car pass; under ``OBSERVE_SMALL_BELOW`` rows the first kernel),
+    against ``single.observe_plain`` (the narrow K1 and PyTorch) on the crafted
+    states, every eighth car 70 m off its track facing it (walls beyond the range):
+    bitwise, clamped to the range and not."""
+    cfg, track, state, _ = _single_case(cuda, rows, where, seed=20 + rows,
+                                        clamp_sensor_range=clamp)
+    state = chip_smoke.single_off_track(track, state)
+    before = (senv.observe_launches, senv.observe_row_id_launches, geo.raycast_walls_launches)
+    got = senv.observe(cfg, track, state)
+    assert (senv.observe_launches, senv.observe_row_id_launches,
+            geo.raycast_walls_launches) == (before[0] + 1, before[1] + (where != "gathered"),
+                                            before[2])
+    want = senv.observe_plain(cfg, track, state)
+    torch.cuda.synchronize()
+    assert got.shape == (rows, cfg.obs_dim)
+    assert chip_smoke.same_bits(got, want), int((got != want).sum())
+    if rows >= 48 and not clamp:
+        assert got[:, :11].max() > 1.0  # the reference's hits beyond the range stay
+
+
+def test_single_env_step_kernels_refuse_what_they_do_not_take(cuda):
+    """No fallback: on what the kernels do not take the two functions raise before
+    any launch, and count nothing."""
+    cfg, track, state, action = _single_case(cuda, 64, "by row id", seed=0)
+    counts = (senv.transition_launches, senv.observe_launches)
+    wide = dataclasses.replace(state, car=dataclasses.replace(state.car,
+                                                              x=state.car.x.double()))
+    with pytest.raises(TypeError):
+        senv.transition(cfg, track, wide, action)
+    with pytest.raises(TypeError):
+        senv.observe(cfg, track, wide)
+    with pytest.raises(ValueError):
+        senv.transition(cfg, track, state, action[:, :1])
+    with pytest.raises(TypeError):
+        senv.transition(cfg, track, dataclasses.replace(state, steps=state.steps.long()), action)
+    with pytest.raises(TypeError):
+        senv.transition(cfg, track, state, action,
+                        speed_weight=torch.tensor(5.0, dtype=torch.float64, device=cuda))
+    short = trk.gather_tracks(trk.resolve(track), np.arange(16))
+    with pytest.raises(ValueError):
+        senv.transition(cfg, short, state, action)
+    with pytest.raises(ValueError):
+        senv.observe(cfg, short, state)
+    assert (senv.transition_launches, senv.observe_launches) == counts

@@ -46,7 +46,8 @@ just before each path is driven and read just after):
    touch 1, 2 and 3+ partners counted; timed beside that chain in one CUDA graph;
 7. the single-car main path: ``models/single_agent.npz`` driving 4096 envs for 256
    steps of sample_action + vector.step (the env step's two launches: the
-   transition ``single_transition`` once per step, the observation
+   transition ``single_transition`` once per step (on the tiled pool by its kernel
+   of several rows a block, ``single_transition_rows``), the observation
    ``single_observe`` once per step plus once for the reset; the narrow K1 and
    ``car_step_and_query`` not at all);
 8. single-car training: ``PPOTrainer`` at the bench width (the canonical pool
@@ -261,20 +262,27 @@ n. ``ppo_head`` (the loss's per-row work, one launch forward and one backward) o
 
 and for the single-car env step as two launches (``single.transition`` runs
 ``csrc/single_transition.cu``, the step, the track query and the whole reward and
-termination tail; ``single.observe`` the multi-car observation kernel at one car a
-row without its car pass, and under OBSERVE_SMALL_BELOW rows the first one; every
-single-car path above counts them as ``single_transition`` and ``single_observe``,
-and the narrow K1 and ``car_step_and_query`` 0):
+termination tail, a warp a row, and on the tiled pool from
+SINGLE_TRANSITION_ROWS_FROM rows its kernel of several rows a block, the step and
+the tail a thread a car, a block's rows sharing one staged pool row;
+``single.observe`` the multi-car observation kernel at one car a row without its car
+pass, a row's rays in four groups; every single-car path above counts them as
+``single_transition`` and ``single_observe``, the kernel of several rows a block
+also as ``single_transition_rows``, and the narrow K1 and ``car_step_and_query`` 0):
 
 o. o.1 (right after n) both against their plain versions (the narrow kernels and
-   PyTorch, what the env ran before) on ``crafted_single_state`` at 1, 16, 48, 200
-   and 4096 env rows of the canonical pool, gathered and tiled, the speed weight
-   the config's (sensing unclamped) and an annealed tensor on the card (sensing
-   clamped), every eighth car 70 m off its track for the observation: every output
-   bitwise, every branch of the tail taken at 4096 (counts printed); o.4 both timed
-   at 4096 on the tiled pool, eager and in a CUDA graph, beside their plain versions
-   and bounds, with their registers, and the observation in turns with the narrow
-   K1 alone on the same rays (what its launch replaces), gathered and tiled. o.2
+   PyTorch, what the env ran before these kernels) on ``crafted_single_state`` at 1, 16,
+   48, 200 and 4096 env rows of the canonical pool, gathered and tiled, the speed
+   weight the config's (sensing unclamped) and an annealed tensor on the card
+   (sensing clamped), every eighth car 70 m off its track for the observation, the
+   transition as the env picks it and, tiled, by each of its kernels: every output bitwise,
+   every branch of the tail taken at 4096 (counts printed); o.4 each kernel timed at
+   4096 where the env runs it (a warp a row gathered, the rest on the tiled pool),
+   eager and in a CUDA graph, beside its plain version, bound and issue floor, with
+   its registers, and at 4096, gathered and tiled, in turns: the observation at the
+   multi-car plan (a warp a row's 11 rays) and the narrow K1 alone on the same rays,
+   the transition's kernels (tiled both, gathered a warp a row, the only one it
+   takes). o.2
    and o.3 (after m.3): a 256-step
    single-car rollout of ``models/single_agent.npz`` at 4096 envs on the tiled
    pool, the speed weight a tensor in the trainer's aux, eager with every call also
@@ -292,8 +300,9 @@ count on the self-play path of phase 10, or for K1, the narrow
 ``car_step_and_query`` and the single-car env's ``single_observe`` and
 ``single_transition`` on the single-car main path of phase 7, as ``launches_path``
 says (the narrow two 0 there, and ``single_*`` also ``launches_row_ids`` on the
-tiled pool, phase o.3's ``rollout_step_nodes`` and the observation's
-``narrow_k1_in_turns_graph_us``); the self-play path runs K1, K3, K4, K5 and K2 inside ``multi_observe`` and
+tiled pool, phase o.3's ``rollout_step_nodes`` and ``in_turns_graph_us``; the
+transition's kernel of several rows a block, ``single_transition_rows``, on the
+single-car main path on the tiled pool); the self-play path runs K1, K3, K4, K5 and K2 inside ``multi_observe`` and
 ``multi_transition``, so the narrow ``raycast_walls_and_cars`` and K2-K5 count 0
 there; K1 and K2 also ``selfplay_ms``,
 ``selfplay_graph_ms`` and ``selfplay_bound_ms`` at the self-play launch and
@@ -1475,6 +1484,7 @@ COUNTERS = {
     "single_transition": (senv, "transition_launches"),
     "single_observe_row_ids": (senv, "observe_row_id_launches"),
     "single_transition_row_ids": (senv, "transition_row_id_launches"),
+    "single_transition_rows": (senv, "transition_rows_launches"),
     "compute_gae": (gae, "compute_gae_launches"),
     "mixbits_permutation": (prng, "mixbits_permutation_launches"),
     "ppo_head": (mbops, "ppo_head_launches"),
@@ -1495,24 +1505,31 @@ def read_counts():
 
 
 def per_kernel(launches):
-    """``launches`` (read_counts) by kernel: the env step's ``multi_observe`` and
-    ``multi_transition`` counters count every launch of the two functions, of which
-    ``*_small`` counts the first kernels'; here the redesigned kernels' alone."""
+    """``launches`` (read_counts) by kernel: the env steps' ``multi_observe``,
+    ``multi_transition`` and ``single_transition`` counters count every launch of the
+    three functions, of which ``*_small`` counts the first kernels' and
+    ``single_transition_rows`` that of several rows a block; here the other kernels'
+    alone."""
     out = dict(launches)
     for name in ("multi_observe", "multi_transition"):
         out[name] -= out[f"{name}_small"]
+    out["single_transition"] -= out["single_transition_rows"]
     return out
 
 
-def counts(envs=None, **nonzero):
+def counts(envs=None, tiled=False, **nonzero):
     """The expected counts: those given, every other kernel 0; on a multi-car path
     of ``envs`` env rows also its env-step launches by the first kernels, under
-    ``ops/_cuda.py``'s OBSERVE_SMALL_BELOW and TRANSITION_SMALL_BELOW rows."""
+    ``ops/_cuda.py``'s OBSERVE_SMALL_BELOW and TRANSITION_SMALL_BELOW rows, and on a
+    single-car path on the tiled layout (``tiled``) its transition's by the kernel of
+    several rows a block, from SINGLE_TRANSITION_ROWS_FROM rows."""
     out = {name: nonzero.get(name, 0) for name in COUNTERS}
     if envs is not None and envs < _cuda.OBSERVE_SMALL_BELOW:
         out["multi_observe_small"] = out["multi_observe"]
     if envs is not None and envs < _cuda.TRANSITION_SMALL_BELOW:
         out["multi_transition_small"] = out["multi_transition"]
+    if tiled and envs >= _cuda.SINGLE_TRANSITION_ROWS_FROM:
+        out["single_transition_rows"] = out["single_transition"]
     return out
 
 
@@ -1575,7 +1592,8 @@ def main_path(track, cfg, dev, card, label=""):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_counts()
-    expected = counts(single_observe=STEPS + 1, single_transition=STEPS)
+    expected = counts(NUM_ENVS, tiled=isinstance(track, trk.TiledPooledTracks),
+                      single_observe=STEPS + 1, single_transition=STEPS)
     if isinstance(track, trk.LAYOUTS):
         expected.update(single_observe_row_ids=STEPS + 1, single_transition_row_ids=STEPS)
     what = f"main path{label}"
@@ -1686,8 +1704,8 @@ def entry_point(card):
           f"{dt:.1f} s on {card}; launches {launches}; saved policy loads "
           f"({len(params['actor'])} layers per tower, log_std {log_std.tolist()})")
     steps = 2 * cfg.num_steps
-    expected = counts(single_observe=steps + 1, single_transition=steps, compute_gae=2,
-                      mixbits_permutation=2, **learner(launches, cfg, 2))
+    expected = counts(cfg.num_envs, single_observe=steps + 1, single_transition=steps,
+                      compute_gae=2, mixbits_permutation=2, **learner(launches, cfg, 2))
     if launches != expected:
         raise AssertionError(f"train single launches {launches}, expected {expected}")
 
@@ -2746,7 +2764,7 @@ def adapter_single(dev, card):
                              f"at {want_steps}")
     if gap > ADAPTER_OBS_ATOL:
         raise AssertionError(f"RacingEnv: observations {gap:.3e} from the CPU's")
-    expected = counts(single_observe=steps + 1, single_transition=steps)
+    expected = counts(1, single_observe=steps + 1, single_transition=steps)
     if launches != expected:
         raise AssertionError(f"RacingEnv launches {launches}, expected {expected}")
     return launches, dt / steps
@@ -2913,8 +2931,9 @@ def tp_expected(cfg, launches):
     """A rank's launches in one single-car update on the tiled pool (the learner's
     kernels as ``learner`` checks them on ``launches``)."""
     n = cfg.num_steps
-    return counts(single_observe=n, single_transition=n, single_observe_row_ids=n,
-                  single_transition_row_ids=n, compute_gae=1, mixbits_permutation=1,
+    return counts(cfg.num_envs, tiled=True, single_observe=n, single_transition=n,
+                  single_observe_row_ids=n, single_transition_row_ids=n, compute_gae=1,
+                  mixbits_permutation=1,
                   **learner(launches, cfg, 1))
 
 
@@ -3279,8 +3298,9 @@ def graph_against_eager(pool, card):
                 raise AssertionError(f"{what}: {g['replays']} replays checked")
             sensing, stepping = (("multi_observe", "multi_transition") if kind == "self-play"
                                  else ("single_observe", "single_transition"))
-            expected = counts(cfg.num_envs, **{sensing: STEPS, stepping: STEPS,
-                                               "compute_gae": 1, "mixbits_permutation": 1})
+            expected = counts(cfg.num_envs, tiled=where == "tiled",
+                              **{sensing: STEPS, stepping: STEPS, "compute_gae": 1,
+                                 "mixbits_permutation": 1})
             if where == "tiled":
                 expected.update({f"{sensing}_row_ids": STEPS, f"{stepping}_row_ids": STEPS})
             if any(c != {**expected, **learner(c, cfg, 1)}
@@ -3781,9 +3801,11 @@ def top_sm_clock_hz() -> float:
 
 def inner_loop(loops: list, select_per_step: int, kernel_word: str):
     """(instructions a step, the loop) of the loop with the most FSEL among those
-    of ``kernel_word``'s instantiations, taking ``select_per_step`` FSEL a step (two
-    a ray-segment step of the fold, one a query-waypoint step of the search)."""
-    mine = [lp for lp in loops if kernel_word in lp["function"]]
+    of ``kernel_word``'s instantiations that multiply (the fold's and the search's;
+    not the selects of a minimum over stored results), taking ``select_per_step``
+    FSEL a step (two a ray-segment step of the fold, one a query-waypoint step of the
+    search)."""
+    mine = [lp for lp in loops if kernel_word in lp["function"] and lp["ops"].get("FMUL")]
     loop = max(mine, key=lambda lp: lp["ops"].get("FSEL", 0), default=None)
     if not loop or not loop["ops"].get("FSEL"):
         return None, loop
@@ -3831,7 +3853,8 @@ def env_step_issue_floors(track, cfg):
     groups = -(-a * cfg.num_sensors // plan.rays_per_lane)
     rate = 132 * 4 * top_sm_clock_hz()
     # the instantiations this launch runs, by their mangled names:
-    # multi_observe_kernel<R, per_car>, multi_transition_kernel<pairs>, and the first
+    # multi_observe_kernel<R, per_car, shared row>, multi_transition_kernel<pairs>, and
+    # the first
     # kernels' raycast_walls_and_cars_kernel<R, kObs>, car_step_and_query_kernel<kPairs, kTail>
     if plan.small:
         observe = ("multi_observe_small", "raycast_walls_and_cars",
@@ -3839,7 +3862,7 @@ def env_step_issue_floors(track, cfg):
                    n * groups * -(-s // 32))
     else:
         observe = ("multi_observe", "multi_observe",
-                   f"multi_observe_kernelILi{plan.rays_per_lane}ELb{int(plan.per_car)}E",
+                   f"multi_observe_kernelILi{plan.rays_per_lane}ELb{int(plan.per_car)}ELb0E",
                    observe_warp_steps(extents.tolist(), -(-s // 32), groups,
                                       plan.rows_per_block, plan.threads))
     if tplan.small:
@@ -4550,25 +4573,91 @@ def single_step_bound(cfg, track, state, action, out, obs):
 
 def single_counters():
     return (senv.transition_launches, senv.observe_launches, senv.transition_row_id_launches,
-            senv.observe_row_id_launches, geo.raycast_walls_launches,
-            dynamics.car_step_and_query_launches)
+            senv.observe_row_id_launches, senv.transition_rows_launches,
+            geo.raycast_walls_launches, dynamics.car_step_and_query_launches)
+
+
+def multi_plan_observe():
+    """The single-car observation at the multi-car plan for the block: one car a row,
+    a warp a row's 11 rays."""
+    def plan(num_sensors, num_segments, shared_row=False, rows=None):
+        return _cuda.multi_observe_plan(1, num_sensors, num_segments)
+
+    return _patched(_cuda, single_observe_plan=plan)
+
+
+def forced_transition(by_rows):
+    """The single-car transition by its kernel of several rows a block (``by_rows``
+    True: at every width on the tiled layout, the only one it takes) or a warp a row
+    (False: at every width), for the block; None: as the env picks."""
+    if by_rows is None:
+        return contextlib.nullcontext()
+    return _patched(_cuda, SINGLE_TRANSITION_ROWS_FROM=0 if by_rows else sys.maxsize)
+
+
+def single_issue_floors(track, cfg):
+    """The issue floors of the single-car env step's launches on ``track``, as
+    ``env_step_issue_floors`` counts them: the observation's fold, its warp-steps from
+    each row's real extent in the plan's (row, run, group) items; the search of both
+    transition kernels, its 32-waypoint chunks over each row's real waypoints, a warp
+    a car; at one instruction a cycle on 132 SMs x 4 schedulers at the top SM clock,
+    from this build's SASS. Returns ({kernel: floor_ms}, {kernel: instructions a step
+    or None}, {kernel: (library, the instantiation's mangled-name fragment)}) for
+    "single_observe", "single_transition" (a warp a row) and "single_transition_rows"
+    (several rows a block)."""
+    rows, row_ids = trk.rows_of(track)
+    per_env = trk.scalars_of(track)
+    seg_vx, seg_vy = geo.pool_rows(row_ids, rows.seg_vx, rows.seg_vy)
+    s, w = seg_vx.shape[-1], rows.wp_x.shape[-1]
+    real = (seg_vx != 0) | (seg_vy != 0)
+    extents = torch.where(real, torch.arange(1, s + 1, device=real.device), 0).amax(dim=-1)
+    tiled = isinstance(track, trk.TiledPooledTracks)
+    plan = _cuda.single_observe_plan(cfg.num_sensors, s, tiled, per_env.n_wp.shape[0])
+    if tiled:  # a block's rows are a period apart: the rows in block order
+        period = rows.seg_vx.shape[0]
+        extents = extents.reshape(-1, period).T.reshape(-1)
+    groups = -(-cfg.num_sensors // plan.rays_per_lane)
+    chunks = int((-(-per_env.n_wp.clamp(0, w) // 32)).sum())
+    rate = 132 * 4 * top_sm_clock_hz()
+    launched = {
+        "single_observe": ("multi_observe",
+                           f"multi_observe_kernelILi{plan.rays_per_lane}ELb{int(plan.per_car)}"
+                           f"ELb{int(plan.shared_row)}E",
+                           2 * plan.rays_per_lane,
+                           observe_warp_steps(extents.tolist(), -(-s // 32), groups,
+                                              plan.rows_per_block, plan.threads)),
+        "single_transition": ("single_transition", "single_transition_kernel", 5, chunks),
+        "single_transition_rows": ("single_transition", "single_transition_rows_kernel", 5,
+                                   chunks)}
+    floors, per_step, words = {}, {}, {}
+    for name, (library, word, select, steps) in launched.items():
+        per_step[name], _ = inner_loop(sass_loops(kernel_sass(library), word), select, word)
+        words[name] = (library, word)
+        if per_step[name]:
+            floors[name] = steps * per_step[name] / rate * 1e3
+    return floors, per_step, words
 
 
 def check_single_env_step(pool, dev, card):
-    """Phase o.1 and o.4: ``single.transition`` (``csrc/single_transition.cu``, a
-    warp a row) and ``single.observe`` (the multi-car
-    observation at one car a row without its car pass; under OBSERVE_SMALL_BELOW
-    rows the first kernel), one launch each, against their plain versions (the
-    narrow kernels and PyTorch, what the env ran before) on ``crafted_single_state``
-    at 1, 16, 48, 200 and 4096 env rows of the canonical pool, gathered and by row
-    id (tiled where 16 divides the rows), the speed weight the config's with the sensing unclamped and an annealed tensor
-    with it clamped, every eighth car 70 m off its track for the observation: every
-    output bitwise, each branch of the tail taken at 4096 (counts printed). Then
-    both timed at 4096 on the tiled pool, eager (the wrapper's host work included)
-    and in a CUDA graph, beside their plain versions and bounds, with their
-    registers; and the observation in turns with the narrow K1 alone on its rays (the
-    launch it replaces) at 4096 rows, gathered and tiled. Returns the two kernels'
-    entries."""
+    """Phase o.1 and o.4: ``single.transition`` (``csrc/single_transition.cu``: a warp
+    a row, and on the tiled layout from SINGLE_TRANSITION_ROWS_FROM rows its kernel of
+    several rows a block, the step and the tail a thread a car, a block's rows sharing
+    one staged pool row) and ``single.observe`` (the multi-car observation at one car a
+    row without its car pass, a row's rays in four groups), one launch each, against
+    their plain versions (the narrow kernels and PyTorch, what the env ran before
+    these kernels) on ``crafted_single_state`` at 1, 16, 48, 200 and 4096 env rows of the
+    canonical pool, gathered and by row id (tiled where 16 divides the rows), the
+    speed weight the config's with the sensing unclamped and an annealed tensor with
+    it clamped, every eighth car 70 m off its track for the observation, the
+    transition as the env picks it and, on the tiled layout, by each kernel at every
+    width: every output
+    bitwise, each branch of the tail taken at 4096 (counts printed). Then each kernel
+    timed at 4096 where the env runs it (the observation and the transition of several
+    rows a block on the tiled pool, a warp a row gathered), eager (the wrapper's host
+    work included) and in a CUDA graph, beside its plain version, bound and issue
+    floor, with its registers; and at 4096, gathered and by row id, in turns: the
+    observation at the multi-car plan (a warp a row's 11 rays) and the narrow K1 alone
+    on its rays, the transition's two kernels. Returns the three kernels' entries."""
     widths = {envs: {"gathered": trk.gather_tracks(pool, np.arange(envs) % NUM_TRACKS),
                      "by row id": by_row_id(pool, envs)} for envs in SINGLE_ROWS}
     for envs, where, clamp in itertools.product(SINGLE_ROWS, ("gathered", "by row id"),
@@ -4579,71 +4668,91 @@ def check_single_env_step(pool, dev, card):
                                 clamp_sensor_range=clamp)
         state, action = crafted_single_state(track, cfg.max_steps, seed=envs, device=dev)
         sw = torch.tensor(5.3, device=dev) if clamp else None
-        before = single_counters()
-        out = senv.transition(cfg, track, state, action, speed_weight=sw)
-        far = single_off_track(track, out[0])
-        obs = senv.observe(cfg, track, far)
-        tiled = int(where != "gathered")
-        if [c - b for c, b in zip(single_counters(), before)] != [1, 1, tiled, tiled, 0, 0]:
-            raise AssertionError(f"{what}: the kernels' counters")
         want = single_transition_fields(senv.transition_plain(cfg, track, state, action, sw))
-        bad = differing(single_transition_fields(out), want)
-        plain_obs = senv.observe_plain(cfg, track, far)
-        if bad or not same_bits(obs, plain_obs):
-            raise AssertionError(f"{what}: transition fields {bad} and "
-                                 f"{int((obs != plain_obs).sum())} observation entries "
-                                 "differ from the plain versions")
+        ids = int(where != "gathered")
+        tiled = isinstance(track, trk.TiledPooledTracks)
+        by_rows = int(tiled and envs >= _cuda.SINGLE_TRANSITION_ROWS_FROM)
+        for force in (None, False, True) if tiled else (None,):
+            before = single_counters()
+            with forced_transition(force):
+                out = senv.transition(cfg, track, state, action, speed_weight=sw)
+            far = single_off_track(track, out[0])
+            obs = senv.observe(cfg, track, far)
+            rows = by_rows if force is None else int(force)
+            if [c - b for c, b in zip(single_counters(), before)] != [
+                    1, 1, ids, ids, rows, 0, 0]:
+                raise AssertionError(f"{what}: the kernels' counters")
+            bad = differing(single_transition_fields(out), want)
+            plain_obs = senv.observe_plain(cfg, track, far)
+            if bad or not same_bits(obs, plain_obs):
+                raise AssertionError(f"{what}{', rows a block' if rows else ''}: "
+                                     f"transition fields {bad} and "
+                                     f"{int((obs != plain_obs).sum())} observation entries "
+                                     "differ from the plain versions")
         branches = single_tail_branches(state, out)
         if envs == NUM_ENVS:
             missing = [k for k, v in branches.items() if v == 0]
             if missing:
                 raise AssertionError(f"{what}: no env took {missing}")
-        print(f"{what}: single.transition and single.observe bitwise the plain versions; {int((obs[:, :11] > 1).sum())} "
+        print(f"{what}: single.transition (the env's kernel: "
+              f"{'several rows a block' if by_rows else 'a warp a row'}"
+              f"{'; and each forced' if tiled else ''}) and "
+              f"single.observe bitwise the plain versions; {int((obs[:, :11] > 1).sum())} "
               f"rays beyond the range; branches {branches}")
 
     cfg = senv.RacingConfig(num_sensors=11)
-    track = widths[NUM_ENVS]["by row id"]
-    state, action = crafted_single_state(track, cfg.max_steps, seed=7, device=dev)
     sw = torch.tensor(5.3, device=dev)
-    out = senv.transition(cfg, track, state, action, speed_weight=sw)
-    obs = senv.observe(cfg, track, state)
-    (t_bound, t_by), (o_bound, o_by) = single_step_bound(cfg, track, state, action, out, obs)
-    plan = _cuda.multi_observe_plan(1, cfg.num_sensors, trk.rows_of(track)[0].seg_sx.shape[-1],
-                                    NUM_ENVS)
-    calls = {
-        "single_transition": (
-            lambda: senv.transition(cfg, track, state, action, speed_weight=sw),
-            lambda: senv.transition_plain(cfg, track, state, action, speed_weight=sw),
-            "self_play_racing_tpu/envs/single.py:155", (t_bound, t_by),
-            "single_transition", "single_transition_kernel"),
-        "single_observe": (
-            lambda: senv.observe(cfg, track, state),
-            lambda: senv.observe_plain(cfg, track, state),
-            "self_play_racing_tpu/envs/single.py:126", (o_bound, o_by), "multi_observe",
-            f"multi_observe_kernelILi{plan.rays_per_lane}ELb{int(plan.per_car)}E")}
     entries = []
-    for name, (fn, plain, replaces, (b_ms, b_by), library, word) in calls.items():
+    for name, where in (("single_transition", "gathered"),
+                        ("single_transition_rows", "by row id"),
+                        ("single_observe", "by row id")):
+        track = widths[NUM_ENVS][where]
+        state, action = crafted_single_state(track, cfg.max_steps, seed=7, device=dev)
+        out = senv.transition(cfg, track, state, action, speed_weight=sw)
+        obs = senv.observe(cfg, track, state)
+        (t_bound, t_by), (o_bound, o_by) = single_step_bound(cfg, track, state, action, out,
+                                                             obs)
+        floors, per_step, words = single_issue_floors(track, cfg)
+        if name == "single_observe":
+            fn = functools.partial(senv.observe, cfg, track, state)
+            plain = functools.partial(senv.observe_plain, cfg, track, state)
+            replaces, b_ms, b_by = "self_play_racing_tpu/envs/single.py:126", o_bound, o_by
+        else:
+            fn = functools.partial(senv.transition, cfg, track, state, action, speed_weight=sw)
+            plain = functools.partial(senv.transition_plain, cfg, track, state, action,
+                                      speed_weight=sw)
+            replaces, b_ms, b_by = "self_play_racing_tpu/envs/single.py:155", t_bound, t_by
+        before = senv.transition_rows_launches
         ms, g_ms = per_launch_ms(fn), graph_ms(fn)
+        if name.startswith("single_transition") and (
+                (senv.transition_rows_launches > before) != (name == "single_transition_rows")):
+            raise AssertionError(f"phase o.4: {name} is not the kernel the env runs {where}")
         plain_ms, plain_g = per_launch_ms(plain, windows=5, launches=5), graph_ms(plain)
+        library, word = words[name]
         regs = kernel_registers(_cuda.build_report.get(library, ""), word)
-        print(f"phase o.4 {name} at {NUM_ENVS} envs on the tiled pool: {ms * 1e3:.2f} us "
-              f"eager back-to-back with the wrapper's host work ({g_ms * 1e3:.2f} us in a "
-              f"CUDA graph), bound {b_ms * 1e3:.2f} us ({b_by}); registers "
+        floor = floors.get(name)
+        what = f"{NUM_ENVS} envs, {'tiled pool' if where == 'by row id' else 'gathered'}"
+        print(f"phase o.4 {name} at {what}: {ms * 1e3:.2f} us eager back-to-back with the "
+              f"wrapper's host work ({g_ms * 1e3:.2f} us in a CUDA graph), bound "
+              f"{b_ms * 1e3:.2f} us ({b_by}), issue floor "
+              f"{'not measured' if floor is None else f'{floor * 1e3:.2f} us'} "
+              f"({per_step.get(name)} SASS instructions an inner-loop step); registers "
               f"{regs or 'not measured (cached build)'}; the plain version (the narrow "
-              f"kernel and PyTorch, what the env ran before) {plain_ms * 1e3:.1f} us eager, "
-              f"{plain_g * 1e3:.1f} us in a CUDA graph on {card}")
+              f"kernel and PyTorch) {plain_ms * 1e3:.1f} us eager, {plain_g * 1e3:.1f} us "
+              f"in a CUDA graph on {card}")
         entries.append({"name": name, "route": "cuda",
                         "source": f"self_play_racing_tpu_torch/csrc/{library}.cu",
                         "replaces": replaces, "max_abs_err": 0.0, "ms": ms, "graph_ms": g_ms,
                         "plain_ms": plain_ms, "plain_graph_ms": plain_g, "bound_ms": b_ms,
-                        "bound_by": b_by, "library_ms": None, "registers": regs,
-                        "timed_at": f"{NUM_ENVS} envs, tiled pool"})
-    # the observation in turns with the narrow K1 alone on the same rays, the launch
-    # it replaces (its inputs formed outside the timed calls)
+                        "bound_by": b_by, "library_ms": None, "issue_floor_ms": floor,
+                        "registers": regs, "timed_at": what})
+    # at 4096 rows, in turns with the multi-car observation plan and the narrow K1 alone on
+    # the same rays (its inputs formed outside the timed calls), and the transition's
+    # two kernels
     turns = {}
     for where in ("gathered", "by row id"):
         track = widths[NUM_ENVS][where]
-        state, _ = crafted_single_state(track, cfg.max_steps, seed=7, device=dev)
+        state, action = crafted_single_state(track, cfg.max_steps, seed=7, device=dev)
         rows, row_ids = trk.rows_of(track)
         car = state.car
         world = car.angle[:, None] + senv._sensor_angles(cfg, car.x.dtype, dev)[None, :]
@@ -4651,15 +4760,32 @@ def check_single_env_step(pool, dev, card):
                  torch.cos(world), torch.sin(world), rows.seg_sx[:, None, :],
                  rows.seg_sy[:, None, :], rows.seg_vx[:, None, :], rows.seg_vy[:, None, :],
                  cfg.max_sensor_range)
-        times = {"single_observe": [], "narrow K1": []}
-        for _ in range(2):
-            times["single_observe"].append(graph_ms(lambda: senv.observe(cfg, track, state)))
-            times["narrow K1"].append(graph_ms(lambda: geo.raycast_walls(
-                *k1_in, seg_c=rows.seg_c[:, None, :], row_ids=row_ids)))
-        turns[where] = {k: [round(t * 1e3, 2) for t in ts] for k, ts in times.items()}
-    print(f"phase o.4 single_observe against the narrow K1 alone on its rays at {NUM_ENVS} "
-          f"envs, us in a CUDA graph, in turns (observe, K1, observe, K1) on {card}: {turns}")
-    entries[1]["narrow_k1_in_turns_graph_us"] = turns
+        observe = functools.partial(senv.observe, cfg, track, state)
+        transition = functools.partial(senv.transition, cfg, track, state, action,
+                                       speed_weight=sw)
+        runs = {  # the call and what it runs under
+            "single_observe": (observe, contextlib.nullcontext),
+            "single_observe (the multi-car plan)": (observe, multi_plan_observe),
+            "narrow K1": (lambda: geo.raycast_walls(*k1_in, seg_c=rows.seg_c[:, None, :],
+                                                    row_ids=row_ids),
+                          contextlib.nullcontext),
+            "single_transition": (transition, lambda: forced_transition(False))}
+        if isinstance(track, trk.TiledPooledTracks):  # the only layout it takes
+            runs["single_transition_rows"] = (transition, lambda: forced_transition(True))
+        times = {}
+        for name in [*runs, *reversed(list(runs))]:
+            fn, around = runs[name]
+            with around():
+                times.setdefault(name, []).append(round(graph_ms(fn) * 1e3, 2))
+        turns[where] = times
+    print(f"phase o.4 at {NUM_ENVS} envs, us in a CUDA graph, in turns (each in order, "
+          f"then in reverse) on {card}: {turns}")
+    for k in entries:
+        kernel = k["name"].removesuffix("_rows")
+        k["in_turns_graph_us"] = {w: {n: t for n, t in ts.items()
+                                      if n.startswith(kernel)
+                                      or (n == "narrow K1" and kernel == "single_observe")}
+                                  for w, ts in turns.items()}
     return entries
 
 
@@ -4829,9 +4955,23 @@ def main() -> int:
                                   + ": 0, the env step runs its work as single_observe and "
                                   "single_transition")
             k["launches_selfplay"] = (tiled if tiled_path else launches)[k["name"]]
-        elif k["name"] in ("single_observe", "single_transition"):
-            k["launches"], k["launches_path"] = single_car[k["name"]], "single-car main path"
-            k["launches_row_ids"] = tiled_single[f"{k['name']}_row_ids"]
+        elif k["name"] in ("single_observe", "single_transition", "single_transition_rows"):
+            # the transition's kernel of several rows a block runs on the tiled pool,
+            # a warp a row on the gathered rows
+            gathered_run, tiled_run = per_kernel(single_car), per_kernel(tiled_single)
+            by_ids = {"single_observe": tiled_run["single_observe_row_ids"],
+                      "single_transition": tiled_run["single_transition_row_ids"]
+                      - tiled_run["single_transition_rows"],
+                      "single_transition_rows": tiled_run["single_transition_rows"]}
+            if k["name"] == "single_transition_rows":
+                k["launches"] = tiled_run[k["name"]]
+                k["launches_path"] = "single-car main path on the tiled pool"
+            else:
+                k["launches"], k["launches_path"] = gathered_run[k["name"]], "single-car main path"
+            k["launches_row_ids"] = by_ids[k["name"]]
+            if not k["launches"]:
+                raise AssertionError(f"{k['name']}: no launch on {k['launches_path']}")
+
         elif k["name"] in ("raycast_walls_and_cars", "raycast_walls_and_cars_row_ids"):
             k["launches"] = (tiled if k["name"].endswith("_row_ids") else launches)[k["name"]]
             k["launches_path"] = ("self-play training: 0, the multi-car env's observe runs "
@@ -4885,7 +5025,7 @@ def main() -> int:
         k["launches_loops_graphed"] = loop_launches[k["name"]]
         if k["name"] in ("multi_observe", "multi_transition"):
             k["rollout_step_nodes"] = nodes
-        elif k["name"] in ("single_observe", "single_transition"):
+        elif k["name"] in ("single_observe", "single_transition", "single_transition_rows"):
             k["rollout_step_nodes"] = single_nodes
         elif k["name"] in ("multi_observe_small", "multi_transition_small"):
             # the env launches the first kernels on few rows: a match's 40 envs

@@ -239,6 +239,7 @@ ROLLOUT_GROUPS = (
 # the env's hand-written kernels, launched through ctypes with no PyTorch operator
 # around them, go to their group by the kernel's name
 HAND_KERNELS = {"single_transition_kernel": "env transition",
+                "single_transition_rows_kernel": "env transition",
                 "car_step_and_query_kernel": "env transition",
                 "multi_observe_kernel": "env observe",
                 "raycast_walls_and_cars_kernel": "env observe",

@@ -27,9 +27,9 @@
 //     extent E, and lays the (ray group, run) items of its rows that E leaves over
 //     its lanes one after another: run j of a row folds [j*L, min((j+1)*L, E)),
 //     with L = ceil(S/32) as before, so the pairs a near-tie compares are the same;
-//   - the cross term was formed for every ray: where the plan groups a warp's rays
-//     as one car's (ops/_cuda.py:multi_observe_plan), cn and |cn| are formed once a
-//     segment for the car's rays;
+//   - the cross term was formed for every ray: where each of the plan's ray groups
+//     is one car's rays (ops/_cuda.py:groups_are_cars), cn and |cn| are formed once
+//     a segment a group;
 //   - the 32 run results of a ray combine in shared memory, one thread a ray, in
 //     the shuffle tree's order;
 //   - the car pass ran after the fold, on 11 of 32 lanes, serially over the cars:
@@ -76,6 +76,10 @@ struct Params {
     float half_length, half_width, max_dist, inv_range, inv_max_speed;
     int clamp_range;
     int cars;  // 0: no car pass, each ray its wall hit (the single-car env's rays)
+    // 0: block b serves env rows b*P + q; T > 0: rows r + (c*P + q)*T with r = b % T
+    // and c = b / T, which all read one segment row (the tiled layout: env i reads
+    // pool row i % T), staged once
+    int row_period;
 };
 
 // torch.clamp(v, -1, 1) on the card: NaN passes
@@ -84,21 +88,25 @@ __device__ __forceinline__ float clamp_unit(float v) {
 }
 
 // The dynamic shared memory of a block, in floats from its start (the launch plan,
-// ops/_cuda.py:multi_observe_plan, sizes it the same way): the P rows' five staged
-// fields, their ray table (slots = groups * R a row), cars (18 floats a car) and
-// (ray, car) minima, then the run results (a then d, kRunStride a slot) unless they
-// take the staged rows' place once the fold is done (p.overlay).
+// ops/_cuda.py:_observe_shape, sizes it the same way): the staged rows' five fields
+// (P rows', or one row where the block's rows share it), the P rows' ray table (slots
+// = groups * R a row), cars (18 floats a car) and (ray, car) minima, then the run
+// results (a then d, kRunStride a slot) unless they take the staged rows' place once
+// the fold is done (p.overlay).
 struct Layout {
-    int P, A, cap, slots, rays;
-    __device__ Layout(const Params& p, int R) {
+    int P, A, cap, slots, rays, stages;
+    __device__ Layout(const Params& p, int R, bool shared) {
         P = p.rows_per_block;
         A = p.num_cars;
         cap = row_stage::field_capacity(p.num_segments);
         rays = p.num_cars * p.num_sensors;
         slots = ((rays + R - 1) / R) * R;
+        stages = shared ? 1 : P;
     }
-    __device__ float* stage(float* s, int q) const { return s + q * kFields * cap; }
-    __device__ float* ray_table(float* s) const { return s + P * kFields * cap; }
+    __device__ float* stage(float* s, int q) const {
+        return s + (stages == 1 ? 0 : q) * kFields * cap;
+    }
+    __device__ float* ray_table(float* s) const { return s + stages * kFields * cap; }
     __device__ float* cars(float* s) const { return ray_table(s) + P * slots * kRayFloats; }
     __device__ float* car_t(float* s) const {
         return cars(s) + P * car_hits::kFloatsPerCar * A;
@@ -106,8 +114,9 @@ struct Layout {
     __device__ float* run_a(float* s) const { return car_t(s) + P * rays * A; }
 };
 
-// Block b serves env rows [b*P, b*P + P), P = rows_per_block.
-template <int R, bool kCarGroups>
+// Block b serves P = rows_per_block env rows: b*P + q, or (kShared) rows a row period
+// apart, which share one staged row (Params::row_period).
+template <int R, bool kCarGroups, bool kShared>
 __global__ void __launch_bounds__(kMaxThreads) multi_observe_kernel(Params p) {
     extern __shared__ __align__(16) float smem[];
     __shared__ uint64_t bars[kMaxRowsPerBlock];  // a row's copies
@@ -118,13 +127,25 @@ __global__ void __launch_bounds__(kMaxThreads) multi_observe_kernel(Params p) {
     const int ns = p.num_sensors;
     const int S = p.num_segments;
     const int L = (S + 31) / 32;
-    const Layout lay(p, R);
+    const Layout lay(p, R, kShared);
     const int rays = lay.rays;
     const int slots = lay.slots;
     const int groups = slots / R;
-    const int first = blockIdx.x * p.rows_per_block;
-    const int P = min(p.rows_per_block, p.rows - first);  // the block's rows
-    const size_t row0 = first;
+    size_t row0;  // the block's first env row
+    int P;        // and its rows
+    if constexpr (kShared) {
+        const int T = p.row_period;
+        const int blk = blockIdx.x;
+        row0 = (size_t)(blk % T) + (size_t)(blk / T) * p.rows_per_block * T;
+        P = min(p.rows_per_block, (p.rows - blk % T + T - 1) / T - (blk / T) * p.rows_per_block);
+        if (P <= 0) return;  // the whole block: a residue with fewer rows
+    } else {
+        const int first = blockIdx.x * p.rows_per_block;
+        P = min(p.rows_per_block, p.rows - first);
+        row0 = first;
+    }
+    const int staged_rows = kShared ? 1 : P;
+    auto row_of = [&](int q) { return kShared ? row0 + (size_t)q * p.row_period : row0 + q; };
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const int obs_dim = ns + 4 * A;  // R + 4 + 4 (A - 1)
@@ -136,13 +157,18 @@ __global__ void __launch_bounds__(kMaxThreads) multi_observe_kernel(Params p) {
     float* car_t = lay.car_t(smem);
 
     __shared__ int srcs[kMaxRowsPerBlock];  // the segment row each env row stages
-    if (threadIdx.x < P) row_stage::init_barrier(&bars[threadIdx.x]);
+    if (threadIdx.x < staged_rows) row_stage::init_barrier(&bars[threadIdx.x]);
     __syncthreads();
     if (warp == 0) {
         // lane q reads env row q's segment row, for the copies and for later phases
-        const int lane_src = lane < P ? (int)row_stage::source_row(p.row_ids, row0 + lane) : 0;
+        const int lane_src = lane < P ? (int)row_stage::source_row(p.row_ids, row_of(lane)) : 0;
         if (lane < P) srcs[lane] = lane_src;
-        for (int q = 0; q < P; ++q) {
+        if constexpr (kShared) {
+            // one staged row for rows that must share it: other ids are a caller's error
+            const int src0 = __shfl_sync(0xffffffffu, lane_src, 0);
+            if (!__all_sync(0xffffffffu, lane >= P || lane_src == src0)) __trap();
+        }
+        for (int q = 0; q < staged_rows; ++q) {
             row_stage::stage_row(lay.stage(smem, q), p.seg, kFields,
                                  __shfl_sync(0xffffffffu, lane_src, q), S, lay.cap, &bars[q]);
         }
@@ -153,7 +179,7 @@ __global__ void __launch_bounds__(kMaxThreads) multi_observe_kernel(Params p) {
         const int q = k / slots;
         const int r = min(k - q * slots, rays - 1);  // the last ray repeated past the row
         const int a = r / ns;
-        const size_t i = (row0 + q) * A + a;
+        const size_t i = row_of(q) * A + a;
         const float ox = p.x[i], oy = p.y[i];
         const float world = p.angle[i] + p.rel[r - a * ns];
         const float dx = cosf(world);
@@ -170,7 +196,7 @@ __global__ void __launch_bounds__(kMaxThreads) multi_observe_kernel(Params p) {
         const int a = k - q * A;
         const car_hits::Cars cars =
             car_hits::layout(car_base + q * car_hits::kFloatsPerCar * A, A);
-        const size_t i = (row0 + q) * A + a;
+        const size_t i = row_of(q) * A + a;
         float cx[4], cy[4];
         car_step::corners(p.x[i], p.y[i], p.angle[i], p.half_length, p.half_width, cx, cy);
 #pragma unroll
@@ -188,7 +214,7 @@ __global__ void __launch_bounds__(kMaxThreads) multi_observe_kernel(Params p) {
         const int ij = k - q * A * A;
         const int i = ij / A;
         const int j = ij - i * A;
-        const size_t row = row0 + q;
+        const size_t row = row_of(q);
         const size_t ci = row * A + i;
         float* o = p.obs + ci * obs_dim + ns;
         const float ca = cosf(p.angle[ci]);
@@ -223,7 +249,7 @@ __global__ void __launch_bounds__(kMaxThreads) multi_observe_kernel(Params p) {
             car_hits::layout(car_base + q * car_hits::kFloatsPerCar * A, A);
         car_t[k] = run_fold::car_tmin(cars, b, t[0], t[1], t[2], t[3]);
     }
-    for (int q = 0; q < P; ++q) row_stage::wait_barrier(&bars[q]);
+    for (int q = 0; q < staged_rows; ++q) row_stage::wait_barrier(&bars[q]);
     __syncthreads();  // the rows (with their thread-copied parts) and the car pass are in
     // split: staged
     for (int k = threadIdx.x; k < P * kFields; k += blockDim.x) {
@@ -312,20 +338,35 @@ __global__ void __launch_bounds__(kMaxThreads) multi_observe_kernel(Params p) {
         // torch.clamp_max(d, range) keeps a NaN; then div_const(d, range)
         if (p.clamp_range) d = d > p.max_dist ? p.max_dist : d;
         const int a = r / ns;
-        p.obs[((row0 + q) * A + a) * obs_dim + (r - a * ns)] = d * p.inv_range;
+        p.obs[(row_of(q) * A + a) * obs_dim + (r - a * ns)] = d * p.inv_range;
     }
+}
+
+// whether each group of R rays (the last ray repeated past the row's) is one car's
+// rays alone (ops/_cuda.py:groups_are_cars)
+bool groups_are_cars(int num_cars, int num_sensors, int R) {
+    const int rays = num_cars * num_sensors;
+    for (int g = 0; g < rays; g += R) {
+        if (g / num_sensors != (min(g + R, rays) - 1) / num_sensors) return false;
+    }
+    return true;
 }
 
 template <int R>
 int launch(const Params& p, int per_car, int threads, int smem, cudaStream_t stream) {
-    auto kernel = per_car ? multi_observe_kernel<R, true> : multi_observe_kernel<R, false>;
+    // a shared staged row only for one car's rays a row (the single-car env)
+    auto kernel = p.row_period ? multi_observe_kernel<R, true, true>
+                               : per_car ? multi_observe_kernel<R, true, false>
+                                         : multi_observe_kernel<R, false, false>;
     // the dynamic shared memory and the static (under 1 KB) over the default 48 KB
     cudaError_t err = cudaSuccess;
     if (smem + 1024 > 48 * 1024) {
         err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     }
     if (err != cudaSuccess) return (int)err;
-    const int blocks = (p.rows + p.rows_per_block - 1) / p.rows_per_block;
+    const int T = p.row_period;
+    const int per_residue = T ? (p.rows + T - 1) / T : p.rows;
+    const int blocks = (T ? T : 1) * ((per_residue + p.rows_per_block - 1) / p.rows_per_block);
     kernel<<<blocks, threads, smem, stream>>>(p);
     return (int)cudaGetLastError();
 }
@@ -340,13 +381,16 @@ int launch(const Params& p, int per_car, int threads, int smem, cudaStream_t str
 // - vx*sy among them. inv_range and inv_max_speed are the float32 reciprocals of
 // max_dist and the car's max_speed; clamp_range != 0 clamps each ray to max_dist
 // first. One block of `threads` threads a `rows_per_block` rows, `smem` bytes of
-// dynamic shared memory, `rays_per_lane` rays an item, grouped by car where
-// per_car != 0, the run results over the staged rows where overlay != 0 (the plan
-// has made sure that a thread folds one item at most and that they fit): the launch
-// plan, ops/_cuda.py:multi_observe_plan. cars == 0 leaves out the car pass and the
-// minimum, so that each ray is its wall hit alone, unclamped unless clamp_range says
-// so: the single-car env's observation (envs/single.py:observe), at one car a row,
-// whose rays see no car. Returns a cudaError_t (0 on success).
+// dynamic shared memory, `rays_per_lane` rays an item, each group one car's rays
+// where per_car != 0, the run results over the staged rows where overlay != 0 (the
+// plan has made sure that a thread folds one item at most and that they fit): the
+// launch plan, ops/_cuda.py:multi_observe_plan. cars == 0 leaves out the car pass and
+// the minimum, so that each ray is its wall hit alone, unclamped unless clamp_range
+// says so: the single-car env's observation (envs/single.py:observe), at one car a
+// row, whose rays see no car, launched as ops/_cuda.py:single_observe_plan says (a
+// row's rays in several groups, each one car's). row_period T > 0 gives a block env
+// rows T apart, which must read one segment row (the tiled layout, env i reading row
+// i % T): it is staged once (the launch traps otherwise). Returns a cudaError_t (0 on success).
 extern "C" int multi_observe_f32(
         const float* x, const float* y, const float* angle, const float* vx,
         const float* vy, const float* last_steering, const float* max_track_distance,
@@ -355,7 +399,8 @@ extern "C" int multi_observe_f32(
         int rows, int num_cars, int num_sensors, int num_segments,
         float half_length, float half_width, float max_dist, float inv_range,
         float inv_max_speed, int clamp_range, int threads, int smem, int rays_per_lane,
-        int per_car, int rows_per_block, int overlay, int cars, int device, void* stream) {
+        int per_car, int rows_per_block, int overlay, int cars, int row_period, int device,
+        void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (rows == 0 || num_cars == 0 || num_sensors == 0) return 0;
@@ -363,12 +408,14 @@ extern "C" int multi_observe_f32(
             || num_sensors < 0 || rows_per_block < 1 || rows_per_block > kMaxRowsPerBlock
             || threads < 32 * rows_per_block || seg_c == nullptr || vx == nullptr
             || vy == nullptr || last_steering == nullptr || max_track_distance == nullptr
-            || (per_car && rays_per_lane != num_sensors))
+            || (per_car && !groups_are_cars(num_cars, num_sensors, rays_per_lane))
+            || row_period < 0 || (row_period > 0 && !per_car))
         return (int)cudaErrorInvalidValue;
     const Params p{x, y, angle, vx, vy, last_steering, max_track_distance, rel,
                    {seg_sx, seg_sy, seg_vx, seg_vy, seg_c}, row_ids, obs, rows, num_cars,
                    num_sensors, num_segments, rows_per_block, overlay, half_length,
-                   half_width, max_dist, inv_range, inv_max_speed, clamp_range, cars};
+                   half_width, max_dist, inv_range, inv_max_speed, clamp_range, cars,
+                   row_period};
     const auto st = (cudaStream_t)stream;
     switch (rays_per_lane) {
         case 1: return launch<1>(p, per_car, threads, smem, st);

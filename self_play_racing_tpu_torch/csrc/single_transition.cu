@@ -26,15 +26,27 @@
 // MB gathered, 5 us; the pool's 16 rows by id, 0.07 MB) and ~70 bytes a car of
 // state and outputs (chip_smoke.py: single_step_bound).
 //
-// Design: multi_transition.cu's at one car a row, without the pair test, and a block
-// (one warp) a row, as car_step_and_query runs: the warp stages the row's waypoint
-// positions with bulk copies (row_stage.cuh) and prefetches its normals into the L2;
-// while the row arrives every lane clips the action, steps the car and forms its
-// corners (the same values on each lane); then the warp runs the search over
-// [0, n_wp) and the padding only where its box could win (waypoint_search.cuh); then
-// lane 0 runs the tail and writes every output. Timed against 8 rows a block (a warp
-// a car), it was as fast or faster at 16 to 4096 rows, gathered and by row id
-// (PERF.md, the single_transition row).
+// Two kernels, the same step, search and tail (so the same bits):
+//   - single_transition_kernel, a block (one warp) a row, the one the env launches on
+//     per-env rows and on few rows: every lane steps the car (the same values on each)
+//     while the row arrives, the warp searches, lane 0 runs the tail;
+//   - single_transition_rows_kernel, for the tiled layout only (env i reads pool row
+//     i % T for the row period T > 0): `rows_per_block` env rows a block, T apart, which
+//     read one pool row. Warp 0 stages that row once with bulk copies; while it
+//     arrives, one warp steps the block's cars, a thread a car, and puts their queries
+//     and what their tails read in shared memory; then the block's warps run the
+//     track query a warp a car on the one staged row; then the stepping thread runs
+//     its car's tail. A car's step and tail take a thread's issue slots, not a warp's.
+//     On an H100 it was 1.1-4.3 us faster than a warp a row at 2048-8192 tiled rows
+//     (PERF.md), so the env launches it on the tiled layout from
+//     ops/_cuda.py:SINGLE_TRANSITION_ROWS_FROM rows.
+// The search is waypoint_search.cuh's over [0, n_wp), and the padding only where its
+// box could win.
+//
+// Split points for scripts/env_kernel_split.py, which builds this source with an
+// early return at one of them: "split: rows staged", "split: rows stepped",
+// "split: rows searched" (single_transition_rows_kernel) and "split: staged", "split:
+// stepped", "split: searched" (single_transition_kernel).
 #include <cuda_runtime.h>
 
 #include "car_step.cuh"
@@ -44,6 +56,20 @@
 namespace {
 
 constexpr int kQueries = waypoint_search::kQueries;  // the centre and the four corners
+constexpr int kMaxThreads = 256;
+constexpr int kMaxRowsPerBlock = 32;  // ops/_cuda.py:SINGLE_TRANSITION_MAX_ROWS_PER_BLOCK
+// After a block's staged row, its cars' words, field-major [k][P] over the block's
+// P rows (ops/_cuda.py:SINGLE_TRANSITION_WORDS_PER_CAR): the queries' x and y; as ints
+// the winner of the centre and the wall hit; what the tail reads, put there by the
+// stepping thread while the row arrives: the stepped car, the clipped steering, the
+// old progress, last progress and speed weight, as ints the steps, the row's
+// waypoint count and the flags (crashed, finished, cp25, cp50, cp75 as bits 0-4).
+constexpr int kQx = 0, kQy = kQx + kQueries, kBest = kQy + kQueries, kOutside = kBest + 1,
+              kCarX = kOutside + 1, kCarY = kCarX + 1, kCarAngle = kCarY + 1,
+              kCarVx = kCarAngle + 1, kCarVy = kCarVx + 1, kSteer = kCarVy + 1,
+              kProgress = kSteer + 1, kLastProgress = kProgress + 1,
+              kSpeedWeight = kLastProgress + 1, kSteps = kSpeedWeight + 1, kCount = kSteps + 1,
+              kFlags = kCount + 1, kCarWords = kFlags + 1;
 
 // The reward constants, rounded to float32 by the caller; inv_max_speed and
 // inv_time_bonus_divisor are the rounded reciprocals of _numerics.div_const, and
@@ -75,7 +101,7 @@ struct Params {
     float* reward;
     unsigned char *terminated, *truncated;
     float *speed, *info_progress, *delta;
-    int num_waypoints, action_stride;
+    int rows, num_waypoints, action_stride, rows_per_block, row_period;
     car_step::Spec k;
     float half_length, half_width;
     TailSpec ts;
@@ -94,21 +120,10 @@ constexpr float kCp25Lo = static_cast<float>(0.25), kCp25Hi = static_cast<float>
 constexpr float kCp50Lo = static_cast<float>(0.50), kCp50Hi = static_cast<float>(0.60);
 constexpr float kCp75Lo = static_cast<float>(0.75), kCp75Hi = static_cast<float>(0.85);
 
-__global__ void __launch_bounds__(32) single_transition_kernel(Params p) {
-    extern __shared__ __align__(16) float stage[];  // the row's x and y positions
-    __shared__ uint64_t bar;
+// The normals are read at the winners only: lanes 0 and 1 bring row `src`'s
+// 16-byte-aligned middles into the L2 ahead of them.
+__device__ __forceinline__ void prefetch_normals(const Params& p, size_t src, int lane) {
     const int W = p.num_waypoints;
-    const int cap = row_stage::field_capacity(W);
-    const size_t i = blockIdx.x;
-    const size_t src = row_stage::source_row(p.row_ids, i);  // the waypoint row staged
-    const int lane = threadIdx.x;
-    const float* positions[2] = {p.wp_x, p.wp_y};
-
-    if (lane == 0) row_stage::init_barrier(&bar);
-    __syncthreads();
-    row_stage::stage_row(stage, positions, 2, src, W, cap, &bar);
-    // the normals are read at the winners only: the row's 16-byte-aligned middles
-    // into the L2 ahead of them
     if (lane < 2) {
         const float* row_n = (lane == 0 ? p.nrm_x : p.nrm_y) + src * W;
         const uintptr_t lo = (reinterpret_cast<uintptr_t>(row_n) + 15) & ~uintptr_t(15);
@@ -118,39 +133,50 @@ __global__ void __launch_bounds__(32) single_transition_kernel(Params p) {
                          :: "l"(lo), "r"(static_cast<uint32_t>(hi - lo)) : "memory");
         }
     }
-    // while the row arrives, on every lane: the clipped action, the step and the
-    // corners (the queries)
+}
+
+// Car i's clipped action and step, and its queries: the stepped centre and corners.
+struct Stepped {
+    car_step::Car s;
+    float steer;
+    bool was_crashed;
+};
+
+__device__ __forceinline__ Stepped step_car(const Params& p, size_t i, float (&qx)[kQueries],
+                                            float (&qy)[kQueries]) {
     const float* a = p.action + i * (size_t)p.action_stride;
     const float steer = clamp(a[0], -1.0f, 1.0f);
     const float thr = clamp(a[1], 0.0f, 1.0f);
     const bool was_crashed = p.crashed[i];
     const car_step::Car s = car_step::step({p.x[i], p.y[i], p.angle[i], p.vx[i], p.vy[i]},
                                            was_crashed, steer, thr, p.k);
-    float qx[kQueries], qy[kQueries];
-    {
-        float cx[4], cy[4];
-        car_step::corners(s.x, s.y, s.angle, p.half_length, p.half_width, cx, cy);
-        qx[0] = s.x;
-        qy[0] = s.y;
+    float cx[4], cy[4];
+    car_step::corners(s.x, s.y, s.angle, p.half_length, p.half_width, cx, cy);
+    qx[0] = s.x;
+    qy[0] = s.y;
 #pragma unroll
-        for (int t = 0; t < 4; ++t) {
-            qx[1 + t] = cx[t];
-            qy[1 + t] = cy[t];
-        }
+    for (int t = 0; t < 4; ++t) {
+        qx[1 + t] = cx[t];
+        qy[1 + t] = cy[t];
     }
-    const int count = p.n_wp[i];
-    const float width = p.track_width[i];
-    row_stage::wait_barrier(&bar);
-    __syncthreads();  // the row (and its thread-copied parts) is in
+    return Stepped{s, steer, was_crashed};
+}
 
-    // the track query, by the warp
+// By a warp: the queries' winners over the row staged at `stage` (waypoint row
+// `src`, `count` real waypoints), and whether a corner lies outside the track (lane
+// t projects query t on its winner's normal). Returns the centre's winner, on every
+// lane.
+__device__ __forceinline__ int query_row(const Params& p, const float* stage, int cap,
+                                         size_t src, int count, float width, int lane,
+                                         const float (&qx)[kQueries],
+                                         const float (&qy)[kQueries], bool& outside) {
+    const int W = p.num_waypoints;
     const float* s_wx = row_stage::staged(stage, p.wp_x, src, W);
     const float* s_wy = row_stage::staged(stage + cap, p.wp_y, src, W);
     const int m = min(max(count, 0), W);
     const waypoint_search::Box box = waypoint_search::box_of(s_wx, s_wy, m, W, lane);
     int best[kQueries];
     waypoint_search::search(s_wx, s_wy, m, W, box, lane, qx, qy, best);
-    // lane t forms query t's projection on its winner's normal
     int w = best[0];
     float px = qx[0], py = qy[0];
 #pragma unroll
@@ -159,45 +185,63 @@ __global__ void __launch_bounds__(32) single_transition_kernel(Params p) {
         px = lane == t ? qx[t] : px;
         py = lane == t ? qy[t] : py;
     }
-    bool outside = false;
+    bool out = false;
     if (lane > 0 && lane < kQueries && w < W) {
         // w < W: there is no winner only where every d^2 is NaN or overflows
         const float ddx = px - s_wx[w];
         const float ddy = py - s_wy[w];
         const float proj = ddx * p.nrm_x[src * W + w] + ddy * p.nrm_y[src * W + w];
-        outside = fabsf(proj) > width;
+        out = fabsf(proj) > width;
     }
-    outside = __any_sync(0xffffffffu, outside);
-    if (lane != 0) return;
+    outside = __any_sync(0xffffffffu, out);
+    return best[0];
+}
 
-    // lane 0: the tail
+// Car i's state that the tail reads beside its step.
+struct TailIn {
+    float progress, last_progress, speed_weight;
+    int steps;
+    bool finished, cp25, cp50, cp75;
+};
+
+__device__ __forceinline__ TailIn tail_in(const Params& p, size_t i) {
+    return TailIn{p.progress[i], p.last_progress[i],
+                  p.speed_weight ? *p.speed_weight : p.ts.speed_weight, p.steps[i],
+                  p.finished[i] != 0, p.cp25[i] != 0, p.cp50[i] != 0, p.cp75[i] != 0};
+}
+
+// One thread: car i's tail from its step and state, its centre's winner best0 over
+// `count` waypoints and its wall hit, and every output.
+__device__ __forceinline__ void tail(const Params& p, size_t i, const Stepped& st,
+                                     const TailIn& in, int best0, int count, bool outside) {
     const TailSpec& ts = p.ts;
-    const int steps = p.steps[i] + 1;
-    const float pr = was_crashed ? p.progress[i] : __fdiv_rn((float)best[0], (float)count);
+    const car_step::Car& s = st.s;
+    const bool was_crashed = st.was_crashed;
+    const int steps = in.steps + 1;
+    const float pr = was_crashed ? in.progress : __fdiv_rn((float)best0, (float)count);
     const bool crashed = was_crashed || outside;
-    const float lp = p.last_progress[i];
+    const float lp = in.last_progress;
     float delta = pr - lp;
     delta = (lp > kLapHigh && pr < kLapLow) ? (1.0f - lp) + pr : delta;
     delta = (lp < kLapLow && pr > kLapHigh) ? -((1.0f - pr) + lp) : delta;
     float reward = delta * ts.progress_scale;
 
-    const bool hit25 = !p.cp25[i] && pr >= kCp25Lo && pr < kCp25Hi;
-    const bool cp25 = p.cp25[i] || hit25;
-    const bool hit50 = cp25 && !p.cp50[i] && pr >= kCp50Lo && pr < kCp50Hi;
-    const bool cp50 = p.cp50[i] || hit50;
-    const bool hit75 = cp50 && !p.cp75[i] && pr >= kCp75Lo && pr < kCp75Hi;
-    const bool cp75 = p.cp75[i] || hit75;
+    const bool hit25 = !in.cp25 && pr >= kCp25Lo && pr < kCp25Hi;
+    const bool cp25 = in.cp25 || hit25;
+    const bool hit50 = cp25 && !in.cp50 && pr >= kCp50Lo && pr < kCp50Hi;
+    const bool cp50 = in.cp50 || hit50;
+    const bool hit75 = cp50 && !in.cp75 && pr >= kCp75Lo && pr < kCp75Hi;
+    const bool cp75 = in.cp75 || hit75;
     reward = reward + ts.checkpoint_bonus * (float)(hit25 || hit50 || hit75);
 
     const float speed = __fsqrt_rn(s.vx * s.vx + s.vy * s.vy);
     const float ratio = clamp(speed * ts.inv_max_speed, 0.0f, 1.0f);
-    const float sw = p.speed_weight ? *p.speed_weight : ts.speed_weight;
-    reward = (!crashed && delta > 0.0f) ? reward + ratio * sw : reward;
+    reward = (!crashed && delta > 0.0f) ? reward + ratio * in.speed_weight : reward;
     reward = crashed ? reward - ts.crash_penalty : reward;
 
     const bool fin_now = cp25 && cp50 && cp75 && lp > kLapHigh && pr < kLapLow &&
                          delta > 0.0f;
-    const bool finished = p.finished[i] || fin_now;
+    const bool finished = in.finished || fin_now;
     float time_bonus = ts.time_bonus_base - (float)steps * ts.inv_time_bonus_divisor;
     time_bonus = time_bonus < 0.0f ? 0.0f : time_bonus;  // clamp_min: NaN passes
     reward = fin_now ? reward + ts.finish_bonus : reward;
@@ -208,7 +252,7 @@ __global__ void __launch_bounds__(32) single_transition_kernel(Params p) {
     p.nang[i] = s.angle;
     p.nvx[i] = s.vx;
     p.nvy[i] = s.vy;
-    p.last_steering[i] = steer;
+    p.last_steering[i] = st.steer;
     p.progress_out[i] = pr;
     p.crashed_out[i] = crashed;
     p.finished_out[i] = finished;
@@ -224,31 +268,165 @@ __global__ void __launch_bounds__(32) single_transition_kernel(Params p) {
     p.delta[i] = delta;
 }
 
-}  // namespace
+// The env rows block b serves, P = rows_per_block (at most 32) of them, one car each:
+// rows r + (c*P + q)*T with r = b % T and c = b / T for the row period T > 0 (on the
+// tiled layout env i reads pool row i % T), which read one pool row there.
+struct BlockRows {
+    size_t first, stride;
+    int count;
+    __device__ BlockRows(const Params& p) {
+        const int P = p.rows_per_block, T = p.row_period, b = blockIdx.x;
+        first = (size_t)(b % T) + (size_t)(b / T) * P * T;
+        stride = T;
+        count = min(P, (p.rows - b % T + T - 1) / T - (b / T) * P);
+    }
+    __device__ size_t operator()(int q) const { return first + q * stride; }
+};
 
-// The single-car env's whole transition: rows cars, one env row each, a block (one
-// warp) a row. ptrs holds kSinglePtrs device pointers in this order: the inputs
-// x, y, angle, vx, vy, crashed, action ([rows, action_stride], columns 0 and 1),
-// wp_x, wp_y, nrm_x, nrm_y, row_ids (null: row i), n_wp, track_width, progress,
-// last_progress, finished, cp25, cp50, cp75, steps, speed_weight (one float, or
-// null for the constant); then the outputs nx, ny, nang, nvx, nvy, progress,
-// last_steering, crashed, finished, cp25, cp50, cp75, steps, reward, terminated,
-// truncated, speed, info_progress, progress_delta. consts holds kSingleConsts
-// float32 values: K5's eight, the half length and width, then TailSpec's eight
-// floats in its order. `smem` bytes of dynamic shared memory a block: the launch plan,
-// ops/_cuda.py:single_transition_plan. Returns a cudaError_t (0 on success).
+__global__ void __launch_bounds__(kMaxThreads) single_transition_rows_kernel(Params p) {
+    extern __shared__ __align__(16) float smem[];  // the row's x and y, then the cars' words
+    __shared__ uint64_t bar;                       // the row's copies
+    const int W = p.num_waypoints;
+    const int cap = row_stage::field_capacity(W);
+    const int P = p.rows_per_block;
+    const BlockRows env(p);
+    const int E = env.count;  // the block's rows
+    if (E <= 0) return;       // the whole block: a residue with fewer rows
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int warps = blockDim.x >> 5;
+    float* words = smem + 2 * cap;  // [kCarWords][P]
+    int* iwords = reinterpret_cast<int*>(words);
+    const float* positions[2] = {p.wp_x, p.wp_y};
+    const size_t src = row_stage::source_row(p.row_ids, env(0));  // every car's waypoint row
+    if (threadIdx.x == 0) row_stage::init_barrier(&bar);
+    __syncthreads();
+    if (warp == 0) {
+        // one staged row for rows that must share it: other ids are a caller's error
+        const bool same = lane >= E || row_stage::source_row(p.row_ids, env(lane)) == src;
+        if (!__all_sync(0xffffffffu, same)) __trap();
+        row_stage::stage_row(smem, positions, 2, src, W, cap, &bar);
+        prefetch_normals(p, src, lane);
+    }
+    // split: rows staged
+    // while the row arrives, the last warp, a thread a car: the clipped action, the
+    // step and the queries
+    const int stepper = warps - 1;
+    auto word = [&](int k, int c) -> float& { return words[k * P + c]; };
+    auto iword = [&](int k, int c) -> int& { return iwords[k * P + c]; };
+    if (warp == stepper && lane < E) {
+        const size_t i = env(lane);
+        float qx[kQueries], qy[kQueries];
+        const Stepped st = step_car(p, i, qx, qy);
+        const TailIn in = tail_in(p, i);
+#pragma unroll
+        for (int t = 0; t < kQueries; ++t) {
+            word(kQx + t, lane) = qx[t];
+            word(kQy + t, lane) = qy[t];
+        }
+        word(kCarX, lane) = st.s.x;
+        word(kCarY, lane) = st.s.y;
+        word(kCarAngle, lane) = st.s.angle;
+        word(kCarVx, lane) = st.s.vx;
+        word(kCarVy, lane) = st.s.vy;
+        word(kSteer, lane) = st.steer;
+        word(kProgress, lane) = in.progress;
+        word(kLastProgress, lane) = in.last_progress;
+        word(kSpeedWeight, lane) = in.speed_weight;
+        iword(kSteps, lane) = in.steps;
+        iword(kCount, lane) = p.n_wp[i];
+        iword(kFlags, lane) = st.was_crashed | in.finished << 1 | in.cp25 << 2 | in.cp50 << 3
+                              | in.cp75 << 4;
+    }
+    __syncthreads();  // every car's queries, and the row's lane-copied head and tail
+    // split: rows stepped
+    // the track query, a warp a car, once the row's bulk part is in
+    row_stage::wait_barrier(&bar);
+    for (int c = warp; c < E; c += warps) {
+        const size_t i = env(c);
+        const int count = iword(kCount, c);
+        const float width = p.track_width[i];
+        float qx[kQueries], qy[kQueries];
+#pragma unroll
+        for (int t = 0; t < kQueries; ++t) {
+            qx[t] = words[(kQx + t) * P + c];
+            qy[t] = words[(kQy + t) * P + c];
+        }
+        bool outside;
+        const int best0 = query_row(p, smem, cap, src, count, width, lane, qx, qy, outside);
+        if (lane == 0) {
+            iword(kBest, c) = best0;
+            iword(kOutside, c) = outside;
+        }
+    }
+    __syncthreads();  // every car's winner and wall hit
+    // split: rows searched
+    if (warp == stepper && lane < E) {
+        const int flags = iword(kFlags, lane);
+        const Stepped st{{word(kCarX, lane), word(kCarY, lane), word(kCarAngle, lane),
+                          word(kCarVx, lane), word(kCarVy, lane)},
+                         word(kSteer, lane), (flags & 1) != 0};
+        const TailIn in{word(kProgress, lane), word(kLastProgress, lane),
+                        word(kSpeedWeight, lane), iword(kSteps, lane), (flags & 2) != 0,
+                        (flags & 4) != 0, (flags & 8) != 0, (flags & 16) != 0};
+        tail(p, env(lane), st, in, iword(kBest, lane), iword(kCount, lane),
+             iword(kOutside, lane) != 0);
+    }
+}
+
+// A block (one warp) a row.
+__global__ void __launch_bounds__(32) single_transition_kernel(Params p) {
+    extern __shared__ __align__(16) float stage[];  // the row's x and y positions
+    __shared__ uint64_t bar;
+    const int W = p.num_waypoints;
+    const int cap = row_stage::field_capacity(W);
+    const size_t i = blockIdx.x;
+    const size_t src = row_stage::source_row(p.row_ids, i);  // the waypoint row staged
+    const int lane = threadIdx.x;
+    const float* positions[2] = {p.wp_x, p.wp_y};
+
+    if (lane == 0) row_stage::init_barrier(&bar);
+    __syncthreads();
+    row_stage::stage_row(stage, positions, 2, src, W, cap, &bar);
+    prefetch_normals(p, src, lane);
+    // split: staged
+    // while the row arrives, on every lane: the clipped action, the step and the
+    // corners (the queries)
+    float qx[kQueries], qy[kQueries];
+    const Stepped st = step_car(p, i, qx, qy);
+    const int count = p.n_wp[i];
+    const float width = p.track_width[i];
+    row_stage::wait_barrier(&bar);
+    __syncthreads();  // the row (and its thread-copied parts) is in
+    // split: stepped
+
+    // the track query, by the warp
+    bool outside;
+    const int best0 = query_row(p, stage, cap, src, count, width, lane, qx, qy, outside);
+    // split: searched
+    if (lane != 0) return;
+    tail(p, i, st, tail_in(p, i), best0, count, outside);
+}
+
+// The single-car env's whole transition: rows cars, one env row each. ptrs holds
+// kSinglePtrs device pointers in this order: the inputs x, y, angle, vx, vy, crashed,
+// action ([rows, action_stride], columns 0 and 1), wp_x, wp_y, nrm_x, nrm_y, row_ids
+// (null: row i), n_wp, track_width, progress, last_progress, finished, cp25, cp50,
+// cp75, steps, speed_weight (one float, or null for the constant); then the outputs
+// nx, ny, nang, nvx, nvy, progress, last_steering, crashed, finished, cp25, cp50, cp75,
+// steps, reward, terminated, truncated, speed, info_progress, progress_delta. consts
+// holds kSingleConsts float32 values: K5's eight, the half length and width, then
+// TailSpec's eight floats in its order. Returns a cudaError_t (0 on success).
 constexpr int kSinglePtrs = 41;
 constexpr int kSingleConsts = 18;
 
-extern "C" int single_transition_f32(void* const* ptrs, int num_ptrs, const float* consts,
-                                     int num_consts, int rows, int num_waypoints,
-                                     int smem, int max_steps, int action_stride, int device,
-                                     void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
-    if (num_ptrs != kSinglePtrs || num_consts != kSingleConsts) return (int)cudaErrorInvalidValue;
-    if (rows == 0) return 0;
-    if (rows < 0 || num_waypoints < 1 || action_stride < 2) return (int)cudaErrorInvalidValue;
+// Params from the entries' arguments; false where they are not what the kernels take.
+bool params_of(void* const* ptrs, int num_ptrs, const float* consts, int num_consts,
+               int rows, int num_waypoints, int max_steps, int action_stride,
+               int rows_per_block, Params& p) {
+    if (num_ptrs != kSinglePtrs || num_consts != kSingleConsts || rows < 0
+            || num_waypoints < 1 || action_stride < 2)
+        return false;
     int i = 0;
     auto f = [&]() { return static_cast<const float*>(ptrs[i++]); };
     auto b = [&]() { return static_cast<const unsigned char*>(ptrs[i++]); };
@@ -256,7 +434,6 @@ extern "C" int single_transition_f32(void* const* ptrs, int num_ptrs, const floa
     auto fo = [&]() { return static_cast<float*>(ptrs[i++]); };
     auto bo = [&]() { return static_cast<unsigned char*>(ptrs[i++]); };
     auto no = [&]() { return static_cast<int*>(ptrs[i++]); };
-    Params p;
     p.x = f();
     p.y = f();
     p.angle = f();
@@ -298,18 +475,72 @@ extern "C" int single_transition_f32(void* const* ptrs, int num_ptrs, const floa
     p.speed = fo();
     p.info_progress = fo();
     p.delta = fo();
+    p.rows = rows;
     p.num_waypoints = num_waypoints;
     p.action_stride = action_stride;
+    p.rows_per_block = rows_per_block;
+    p.row_period = 0;
     p.k = car_step::Spec{consts[0], consts[1], consts[2], consts[3], consts[4], consts[5],
                          consts[6], consts[7]};
     p.half_length = consts[8];
     p.half_width = consts[9];
     p.ts = TailSpec{consts[10], consts[11], consts[12], consts[13], consts[14], consts[15],
                     consts[16], consts[17], max_steps};
+    return true;
+}
+
+}  // namespace
+
+// The same on the tiled layout: rows_per_block env rows a block (at most 32) of
+// `threads` threads (a multiple of 32, at most 256), `smem` bytes of dynamic shared
+// memory: the one staged row's two fields of field_capacity(num_waypoints) floats each
+// and kCarWords words a row; the launch plan, ops/_cuda.py:single_transition_rows_plan.
+// row_period T > 0 gives a block rows T apart (BlockRows), which must read one pool
+// row (env i reads row i % T); a block whose rows do not traps.
+extern "C" int single_transition_rows_f32(void* const* ptrs, int num_ptrs,
+                                          const float* consts, int num_consts, int rows,
+                                          int num_waypoints, int threads, int smem,
+                                          int max_steps, int action_stride,
+                                          int rows_per_block, int row_period, int device,
+                                          void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    Params p;
+    if (!params_of(ptrs, num_ptrs, consts, num_consts, rows, num_waypoints, max_steps,
+                   action_stride, rows_per_block, p)
+            || threads % 32 != 0 || threads < 32 || threads > kMaxThreads
+            || rows_per_block < 1 || rows_per_block > kMaxRowsPerBlock || row_period < 1)
+        return (int)cudaErrorInvalidValue;
+    p.row_period = row_period;
+    if (rows == 0) return 0;
     // the dynamic shared memory and the static (under 1 KB) over the default 48 KB
     if (smem + 1024 > 48 * 1024) {
-        err = cudaFuncSetAttribute(single_transition_kernel,
+        err = cudaFuncSetAttribute(single_transition_rows_kernel,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    const int per_residue = (rows + row_period - 1) / row_period;
+    const int blocks = row_period * ((per_residue + rows_per_block - 1) / rows_per_block);
+    single_transition_rows_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(p);
+    return (int)cudaGetLastError();
+}
+
+// A block (one warp) a row, `smem` bytes of dynamic shared memory for the row's two
+// position fields (ops/_cuda.py:single_transition_plan).
+extern "C" int single_transition_f32(void* const* ptrs, int num_ptrs, const float* consts,
+                                     int num_consts, int rows, int num_waypoints, int smem,
+                                     int max_steps, int action_stride, int device,
+                                     void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    Params p;
+    if (!params_of(ptrs, num_ptrs, consts, num_consts, rows, num_waypoints, max_steps,
+                   action_stride, 1, p))
+        return (int)cudaErrorInvalidValue;
+    if (rows == 0) return 0;
+    // the dynamic shared memory and the static (under 1 KB) over the default 48 KB
+    if (smem + 1024 > 48 * 1024) {
+        err = cudaFuncSetAttribute(single_transition_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (err != cudaSuccess) return (int)err;
     }
     single_transition_kernel<<<rows, 32, smem, (cudaStream_t)stream>>>(p);

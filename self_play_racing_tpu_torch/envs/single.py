@@ -20,16 +20,19 @@ whose resident pool rows the kernels read by row id.
 On the card an env step is two kernel launches: ``transition`` is
 ``csrc/single_transition.cu`` (K5, the corners and K2 of each car against its
 waypoint row, and the whole reward and termination tail; a warp a row,
-``ops/_cuda.py:single_transition_plan``), and ``observe`` is the multi-car env's
-observation kernel at one car a row without its car pass (``csrc/multi_observe.cu``,
-and under ``ops/_cuda.py``'s ``OBSERVE_SMALL_BELOW`` rows the first kernel in
-``csrc/raycast_walls_and_cars.cu``), which writes the whole observation row. Both
+``ops/_cuda.py:single_transition_plan``, and on the tiled layout from
+``SINGLE_TRANSITION_ROWS_FROM`` rows the same file's kernel of several rows a block,
+the step and the tail a thread a car, whose rows share one staged pool row), and
+``observe`` is the multi-car env's observation kernel at one car a row without its
+car pass, a row's rays in several groups (``csrc/multi_observe.cu``,
+``ops/_cuda.py:single_observe_plan``), which writes the whole observation row. Both
 raise on what they do not take (float64 among it); nothing falls back. On CPU
 tensors they run ``transition_plain`` and ``observe_plain``: the narrow kernels'
 wrappers (``car_step_and_query``, ``geo.raycast_walls``, which take their own plain
 versions there) and PyTorch around them, the composition the kernels are held to
 bitwise on the card. ``transition_launches`` and ``observe_launches`` count the
-kernels' launches, ``*_row_id_launches`` those reading pool rows by id.
+kernels' launches, ``*_row_id_launches`` those reading pool rows by id and
+``transition_rows_launches`` those of the transition's kernel of several rows a block.
 """
 from __future__ import annotations
 
@@ -51,6 +54,7 @@ observe_launches = 0
 observe_row_id_launches = 0
 transition_launches = 0
 transition_row_id_launches = 0
+transition_rows_launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,10 +200,16 @@ def _car_fields(name, fields, n, dev):
     return [t.contiguous() for t in fields]
 
 
+def _row_period(track: Track) -> int:
+    """T where env i reads pool row i % T (the tiled layout, whose rows T apart the
+    kernels stage once for a block), else 0."""
+    return trk.rows_of(track)[0].wp_x.shape[0] if isinstance(track, trk.TiledPooledTracks) else 0
+
+
 def _observe_cuda(cfg: RacingConfig, track: Track, state: RacingState) -> torch.Tensor:
     """``observe`` on the card: the multi-car observation at one car a row with the
     car pass left out (a row's only car is the observer, whose rays see the walls
-    alone), writing the [N, num_sensors + 4] rows."""
+    alone), as ``single_observe_plan`` says, writing the [N, num_sensors + 4] rows."""
     car = state.car
     dev, n = car.x.device, car.x.shape[0]
     x, y, angle, vx, vy, last_steering = _car_fields(
@@ -212,7 +222,8 @@ def _observe_cuda(cfg: RacingConfig, track: Track, state: RacingState) -> torch.
         raise ValueError("single.observe: the segment fields must share one contiguous "
                          "shape (rows, S)")
     num_segments = segs[0].shape[-1]
-    _cuda.multi_observe_plan(1, cfg.num_sensors, num_segments, n)  # refuses first
+    period = _row_period(track)
+    plan = _cuda.single_observe_plan(cfg.num_sensors, num_segments, period > 0, n)  # refuses first
     max_td = trk.scalars_of(track).max_track_distance.to(torch.float32).contiguous()
     rel = _sensor_angles(cfg, torch.float32, dev)
     obs = torch.empty((n, cfg.obs_dim), dtype=torch.float32, device=dev)
@@ -223,7 +234,7 @@ def _observe_cuda(cfg: RacingConfig, track: Track, state: RacingState) -> torch.
             cfg.num_sensors, num_segments, f32(cfg.car.length / 2), f32(cfg.car.width / 2),
             f32(cfg.max_sensor_range), f32_reciprocal(cfg.max_sensor_range),
             f32_reciprocal(cfg.car.max_speed), cfg.clamp_sensor_range, row_ids=row_ids,
-            cars=False)
+            cars=False, plan=plan, row_period=period)
     return obs
 
 
@@ -249,22 +260,26 @@ def transition(cfg: RacingConfig, track: Track, state: RacingState, action,
     [0, 1]. ``speed_weight`` may be a tensor (annealing); defaults to the config's.
     One kernel launch on the card, ``transition_plain`` on the CPU.
     """
-    global transition_launches, transition_row_id_launches
+    global transition_launches, transition_row_id_launches, transition_rows_launches
     if not geo._on_cuda(state.car.x, "single.transition"):
         return transition_plain(cfg, track, state, action, speed_weight)
-    out = _transition_cuda(cfg, track, state, action, speed_weight)
+    out, by_rows = _transition_cuda(cfg, track, state, action, speed_weight)
     transition_launches += 1
     transition_row_id_launches += isinstance(track, trk.LAYOUTS)
+    transition_rows_launches += by_rows
     return out
 
 
 def _transition_cuda(cfg: RacingConfig, track: Track, state: RacingState, action,
                      speed_weight=None):
-    """``transition`` on the card: a block (one warp) an env row, which stages its
-    waypoint row (pool row ``row_ids[i]`` with ids), steps and queries its car and
-    writes every output. A speed-weight tensor on the card is read
-    there (float32, one value), so that a captured rollout sees each update's anneal;
-    a number or a CPU tensor is taken as a float32 constant."""
+    """``transition`` on the card, as ``_cuda.launch_single_transition`` says (a
+    warp a row; on the tiled layout, whose period it is given, several rows a
+    block): each env row's waypoint row staged (pool row ``row_ids[i]`` with ids), its
+    car stepped, queried and its tail run, every output written. A speed-weight
+    tensor on the card is read there (float32, one value), so that a captured rollout
+    sees each update's anneal; a number or a CPU tensor is taken as a float32
+    constant. Returns the step's outputs and whether the kernel of several rows a
+    block ran."""
     car = state.car
     dev, n = car.x.device, car.x.shape[0]
     x, y, angle, vx, vy, old_progress, last_progress = _car_fields(
@@ -321,8 +336,9 @@ def _transition_cuda(cfg: RacingConfig, track: Track, state: RacingState, action
             nx, ny, nang, nvx, nvy, progress, steering, crashed, finished, cp25, cp50, cp75,
             new_steps, reward, terminated, truncated, speed, info_progress, delta]
     with torch.cuda.device(dev):
-        _cuda.launch_single_transition(ptrs, constants, n, num_waypoints, cfg.max_steps,
-                                       action.stride(0) if n > 1 else 2, dev)
+        by_rows = _cuda.launch_single_transition(
+            ptrs, constants, n, num_waypoints, cfg.max_steps,
+            action.stride(0) if n > 1 else 2, dev, row_period=_row_period(track))
     new_state = RacingState(
         car=CarState(x=nx, y=ny, angle=nang, vx=nvx, vy=nvy,
                      progress=progress, crashed=crashed, finished=finished),
@@ -336,7 +352,7 @@ def _transition_cuda(cfg: RacingConfig, track: Track, state: RacingState, action
         "crashed": crashed, "finished": finished,
         "reward": reward, "progress_delta": delta,
     }
-    return new_state, reward, terminated, truncated, info
+    return (new_state, reward, terminated, truncated, info), by_rows
 
 
 def transition_plain(cfg: RacingConfig, track: Track, state: RacingState, action,

@@ -55,11 +55,12 @@ _SIGNATURES = {
     "multi_transition_small_f32": [_P, _I, _P, _I] + [_I] * 7 + [_I, _P],
     "multi_observe_small_f32": [_P] * 15 + [_I] * 4 + [_F] * 5 + [_I] * 5 + [_I, _P],
     "multi_transition_f32": [_P, _I, _P, _I] + [_I] * 8 + [_I, _P],
-    "multi_observe_f32": [_P] * 15 + [_I] * 4 + [_F] * 5 + [_I] * 8 + [_I, _P],
+    "multi_observe_f32": [_P] * 15 + [_I] * 4 + [_F] * 5 + [_I] * 9 + [_I, _P],
     "ppo_head_forward_f32": [_P, _I, _P, _I, _P, _L, _I, _P],
     "ppo_head_backward_f32": [_P, _I, _P, _I, _P, _L, _P, _L, _P, _P, _L, _I, _P],
     "adam_tail_f32": [_P, _P, _I, _P, _I, _P, _I, _L, _L, _I, _P],
     "single_transition_f32": [_P, _I, _P, _I] + [_I] * 5 + [_I, _P],
+    "single_transition_rows_f32": [_P, _I, _P, _I] + [_I] * 8 + [_I, _P],
 }
 
 _lock = threading.Lock()
@@ -190,12 +191,45 @@ TRANSITION_WORDS_PER_ROW = 2
 # default) and 2% the faster on the tiled pool.
 OBSERVE_SMALL_BELOW = 640
 TRANSITION_SMALL_BELOW = 2048
-# single_transition (csrc/single_transition.cu): its pointer and constant counts. It
-# runs a block (one warp) a row; on an H100 (PERF.md, §6) that took 5.5-6.1 us in a
-# CUDA graph at 16 and 200 rows against 9.5-9.9 at 8 rows a block, and at 4096 rows
-# 13.4-13.6 against 13.6-13.7 gathered and 13.5 against 15.4-15.5 by row id.
+# single_transition (csrc/single_transition.cu): its pointer and constant counts; for
+# its kernel of several rows a block (single_transition_rows_f32), the rows a block
+# serves at most and the words a car takes beside the staged row (its queries, its
+# centre's winner and wall hit, and what its tail reads: the stepped car and the
+# state the step carries over)
 SINGLE_TRANSITION_PTRS = 41
 SINGLE_TRANSITION_CONSTS = 18
+SINGLE_TRANSITION_MAX_ROWS_PER_BLOCK = 32
+SINGLE_TRANSITION_WORDS_PER_CAR = 24
+# The single-car transition's kernel of several rows a block, for the tiled layout
+# alone (env i reads pool row i % T, so a block's rows T apart share one staged row):
+# its shape (rows and warps a block), and the env rows from which the env launches it
+# there. On an H100 (PERF.md, scripts/env_kernel_split.py --single --sweep) it was
+# 0.3-1.7 us faster than a warp a row at 1280-2048 tiled rows and 3.0 at 4096, as fast
+# at 1024-1152 and 0.25 us slower at 64. Of the port's paths only those on the
+# canonical bench pool's tiled layout (chip_smoke.py) run it; `train single`,
+# evaluation and the adapters gather a row an env and run a warp a row.
+SINGLE_TRANSITION_ROWS = 8
+SINGLE_TRANSITION_WARPS = 4
+SINGLE_TRANSITION_ROWS_FROM = 1280
+# the single-car observation: a row's rays in this many groups of one car's rays (the
+# fewest rays a lane of K1's instantiations that gives as many), and rows a block; on
+# the tiled layout (shared: a block's rows read one staged pool row) its own. On an
+# H100 (the same sweep and scripts/env_kernel_split.py --single's shapes) 4 groups of
+# 3 rays, a block a row, was the fastest of 11 shapes on per-env rows at 4096 rows,
+# and at 1-8192 rows faster than the first kernel (a block a row, which ran under 640
+# rows before) and the multi-car plan (a warp a row's 11 rays, at 4 rows a block),
+# but at 1024 (the first kernel 0.5 us faster) and at 1344-1536: there the grouped
+# plan's one wave, 10 blocks of a row an SM (1320 rows on 132 SMs), is spent and the
+# multi-car plan's, 3 blocks of 4 rows (1584 rows), is not, and the latter was 1.1-2.5
+# us faster. So on per-env rows the env runs the multi-car plan between those waves'
+# ends, SINGLE_OBSERVE_MULTI_PLAN_ROWS. On the tiled layout 2 groups of 6 rays, 4
+# rows a block sharing one staged row, was the fastest of 6 shapes at 4096 rows and
+# faster than both others at 1-8192.
+SINGLE_OBSERVE_GROUPS = 4
+SINGLE_OBSERVE_ROWS = 1
+SINGLE_OBSERVE_SHARED_GROUPS = 2
+SINGLE_OBSERVE_SHARED_ROWS = 4
+SINGLE_OBSERVE_MULTI_PLAN_ROWS = range(1321, 1585)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -298,7 +332,8 @@ class ObservePlan:
     a row in groups of ``rays_per_lane`` (one car's rays where ``per_car``), a
     (group, run) item a lane; the run results over the staged rows where
     ``overlay``. Where ``small``, the first kernel (a block a row, as
-    ``raycast_walls_and_cars_plan`` says)."""
+    ``raycast_walls_and_cars_plan`` says). Where ``shared_row``, a block's rows read
+    one segment row, staged once (the launch gives their period)."""
     threads: int
     smem: int
     rays_per_lane: int
@@ -306,30 +341,50 @@ class ObservePlan:
     rows_per_block: int
     overlay: bool
     small: bool = False
+    shared_row: bool = False
+
+
+def groups_are_cars(num_cars: int, num_sensors: int, rays_per_lane: int) -> bool:
+    """Whether each group of ``rays_per_lane`` rays (the last ray repeated past a
+    row's rays) holds one car's rays alone, so that they share its position as origin
+    (``csrc/multi_observe.cu``'s per_car)."""
+    rays = num_cars * num_sensors
+    return all(g // num_sensors == (min(g + rays_per_lane, rays) - 1) // num_sensors
+               for g in range(0, rays, rays_per_lane))
 
 
 def _observe_shape(num_cars: int, num_sensors: int, num_segments: int, rows_per_block: int,
-                   warps: int | None = None) -> ObservePlan:
+                   warps: int | None = None, rays_per_lane: int | None = None,
+                   shared_row: bool = False) -> ObservePlan:
     """``multi_observe`` at ``rows_per_block`` rows and ``warps`` warps a block (by
-    default a warp a ray group and row, at most 8): the rays in K1's groups, the run
-    results over the staged rows wherever every (group, run) item has a thread and
-    the results fit there (more blocks an SM, for a barrier). Checks nothing."""
-    walls = raycast_walls_plan(num_cars * num_sensors, num_segments)
+    default a warp a ray group and row, at most 8), the rays in groups of
+    ``rays_per_lane`` (by default K1's groups), the rows' segment row staged once
+    where ``shared_row``: the run results over the staged rows wherever every (group,
+    run) item has a thread and the results fit there (more blocks an SM, for a
+    barrier). Checks nothing."""
     rays = num_cars * num_sensors
-    rpl = walls.rays_per_lane
+    rpl = rays_per_lane or raycast_walls_plan(rays, num_segments).rays_per_lane
     groups = -(-rays // rpl)
     slots = groups * rpl
     warps = warps or min(MAX_THREADS // 32, rows_per_block * groups)
-    overlay = (warps >= rows_per_block * groups
-               and K1_FIELDS * _field_capacity(num_segments) >= 2 * slots * OBSERVE_RUN_STRIDE)
+    staged = K1_FIELDS * _field_capacity(num_segments) * (1 if shared_row else rows_per_block)
+    results = 2 * slots * OBSERVE_RUN_STRIDE * rows_per_block
+    overlay = warps >= rows_per_block * groups and staged >= results
     # csrc/multi_observe.cu:Layout: a block's staged rows (five fields of S floats, no
     # padding), ray table, cars and (ray, car) minima, and the run results unless
     # they overlay the rows
-    floats = (K1_FIELDS * _field_capacity(num_segments) + slots * OBSERVE_RAY_FLOATS
-              + K3_FLOATS_PER_CAR * num_cars + rays * num_cars
-              + (0 if overlay else 2 * slots * OBSERVE_RUN_STRIDE))
-    return ObservePlan(32 * warps, rows_per_block * floats * 4, rpl, rpl == num_sensors,
-                       rows_per_block, overlay)
+    per_row = slots * OBSERVE_RAY_FLOATS + K3_FLOATS_PER_CAR * num_cars + rays * num_cars
+    floats = staged + rows_per_block * per_row + (0 if overlay else results)
+    return ObservePlan(32 * warps, floats * 4, rpl, groups_are_cars(num_cars, num_sensors, rpl),
+                       rows_per_block, overlay, shared_row=shared_row)
+
+
+def _first_observe_plan(num_cars: int, num_sensors: int, num_segments: int) -> ObservePlan:
+    """The first observation kernel's launch: a block a row, as
+    ``raycast_walls_and_cars_plan`` says."""
+    first = raycast_walls_and_cars_plan(num_cars, num_sensors, num_segments)
+    return ObservePlan(first.threads, first.smem, first.rays_per_lane, False, 1, False,
+                       small=True)
 
 
 @functools.lru_cache(maxsize=256)
@@ -344,9 +399,7 @@ def multi_observe_plan(num_cars: int, num_sensors: int, num_segments: int,
     ray group, fewer where they would not fit in 227 KB, and takes a warp a ray group
     and row (at most 8). Raises ValueError where one row does not fit."""
     if rows is not None and rows < OBSERVE_SMALL_BELOW:
-        first = raycast_walls_and_cars_plan(num_cars, num_sensors, num_segments)
-        return ObservePlan(first.threads, first.smem, first.rays_per_lane, False, 1, False,
-                           small=True)
+        return _first_observe_plan(num_cars, num_sensors, num_segments)
     groups = -(-num_cars * num_sensors
                // raycast_walls_plan(num_cars * num_sensors, num_segments).rays_per_lane)
     dynamic_limit = BLOCK_SMEM_LIMIT - STATIC_SMEM_RESERVE
@@ -356,6 +409,44 @@ def multi_observe_plan(num_cars: int, num_sensors: int, num_segments: int,
     if plan.smem > dynamic_limit:
         raise ValueError(f"multi_observe: a row of {num_segments} segments and {num_cars} "
                          f"cars needs {plan.smem:,} bytes of shared memory; a block has "
+                         f"{dynamic_limit:,} beside the kernel's own")
+    return plan
+
+
+@functools.lru_cache(maxsize=256)
+def single_observe_plan(num_sensors: int, num_segments: int, shared_row: bool = False,
+                        rows: int | None = None) -> ObservePlan:
+    """The single-car observation's launch, one car a row: ``multi_observe`` with a
+    row's rays in ``SINGLE_OBSERVE_GROUPS`` groups (the fewest rays a lane that give
+    as many; every group is the one car's rays, so the kernel forms the cross term
+    once a segment a group), ``SINGLE_OBSERVE_ROWS`` rows a block (fewer where they
+    would not fit in 227 KB) and a warp a group and row. A staged row of 896 segments
+    takes 18.4 KB, so an SM holds 12 rows whatever the block; the groups set the warps
+    on each: 11 rays a lane (``multi_observe_plan(1, ...)``) one warp a row,
+    12 warps an SM; 4 groups of 3 rays 4 warps a row, and at the kernel's 48 registers
+    an SM holds 10 such blocks, 40 warps. ``shared_row`` (the tiled layout, whose
+    rows a period apart read one pool row): ``SINGLE_OBSERVE_SHARED_GROUPS`` groups
+    and ``SINGLE_OBSERVE_SHARED_ROWS`` rows a block, which stages that row once (a
+    quarter of the bytes at 4 rows). On per-env ``rows`` in
+    ``SINGLE_OBSERVE_MULTI_PLAN_ROWS``, ``multi_observe_plan(1, ...)``'s (a warp a
+    row's rays). Raises ValueError where one row does not fit."""
+    if num_segments < 1:
+        raise ValueError("single_observe: the kernel needs at least one segment")
+    if not shared_row and rows is not None and rows in SINGLE_OBSERVE_MULTI_PLAN_ROWS:
+        return multi_observe_plan(1, num_sensors, num_segments, rows)
+    even = -(-num_sensors // (SINGLE_OBSERVE_SHARED_GROUPS if shared_row
+                              else SINGLE_OBSERVE_GROUPS))
+    rpl = min(r for r in K1_RAYS_PER_LANE_CHOICES if r >= min(even, K1_RAYS_PER_LANE))
+    dynamic_limit = BLOCK_SMEM_LIMIT - STATIC_SMEM_RESERVE
+    rows = SINGLE_OBSERVE_SHARED_ROWS if shared_row else SINGLE_OBSERVE_ROWS
+    plan = _observe_shape(1, num_sensors, num_segments, rows, rays_per_lane=rpl,
+                          shared_row=shared_row)
+    while plan.rows_per_block > 1 and plan.smem > dynamic_limit:
+        plan = _observe_shape(1, num_sensors, num_segments, plan.rows_per_block - 1,
+                              rays_per_lane=rpl, shared_row=shared_row)
+    if plan.smem > dynamic_limit:
+        raise ValueError(f"single_observe: a row of {num_segments} segments needs "
+                         f"{plan.smem:,} bytes of shared memory; a block has "
                          f"{dynamic_limit:,} beside the kernel's own")
     return plan
 
@@ -410,6 +501,16 @@ def multi_transition_plan(cars_per_row: int, num_waypoints: int, pairs: bool,
     return plan
 
 
+def _fits(plan, what: str, num_waypoints: int) -> TransitionPlan:
+    """``plan``, or ValueError where its row buffers do not fit in 227 KB."""
+    dynamic_limit = BLOCK_SMEM_LIMIT - STATIC_SMEM_RESERVE
+    if plan.smem > dynamic_limit:
+        raise ValueError(f"{what}: a row of {num_waypoints} waypoints needs {plan.smem:,} "
+                         f"bytes of shared memory; a block has {dynamic_limit:,} beside the "
+                         "kernel's own")
+    return plan
+
+
 @functools.lru_cache(maxsize=256)
 def single_transition_plan(num_waypoints: int) -> TransitionPlan:
     """The single-car transition's launch: a block (one warp) a row, which stages the
@@ -417,13 +518,24 @@ def single_transition_plan(num_waypoints: int) -> TransitionPlan:
     fit."""
     if num_waypoints < 1:
         raise ValueError("single_transition: the kernel needs at least one waypoint")
-    smem = K2_FIELDS * _field_capacity(num_waypoints) * 4
-    dynamic_limit = BLOCK_SMEM_LIMIT - STATIC_SMEM_RESERVE
-    if smem > dynamic_limit:
-        raise ValueError(f"single_transition: a row of {num_waypoints} waypoints needs "
-                         f"{smem:,} bytes of shared memory; a block has "
-                         f"{dynamic_limit:,} beside the kernel's own")
-    return TransitionPlan(32, smem, 1)
+    return _fits(TransitionPlan(32, K2_FIELDS * _field_capacity(num_waypoints) * 4, 1),
+                 "single_transition", num_waypoints)
+
+
+@functools.lru_cache(maxsize=256)
+def single_transition_rows_plan(num_waypoints: int) -> TransitionPlan:
+    """The single-car transition's kernel of several rows a block, on the tiled
+    layout: ``SINGLE_TRANSITION_ROWS`` rows a block, which share one pool row, staged
+    once (its two position fields), and 24 words a row beside it; one warp stepping
+    them and running their tails a thread a car, ``SINGLE_TRANSITION_WARPS`` warps
+    searching them a warp a car. Raises ValueError where a row does not fit."""
+    if num_waypoints < 1:
+        raise ValueError("single_transition: the kernel needs at least one waypoint")
+    rows = SINGLE_TRANSITION_ROWS
+    smem = (K2_FIELDS * _field_capacity(num_waypoints)
+            + rows * SINGLE_TRANSITION_WORDS_PER_CAR) * 4
+    return _fits(TransitionPlan(32 * SINGLE_TRANSITION_WARPS, smem, rows),
+                 "single_transition", num_waypoints)
 
 
 def launch_raycast_walls(ox, oy, dx, dy, sx, sy, vx, vy, c, out,
@@ -528,14 +640,19 @@ def launch_multi_observe(x, y, angle, vx, vy, last_steering, max_track_distance,
                          num_sensors: int, num_segments: int, half_length: float,
                          half_width: float, max_dist: float, inv_range: float,
                          inv_max_speed: float, clamp_range: bool, row_ids=None,
-                         cars: bool = True) -> None:
+                         cars: bool = True, plan: ObservePlan | None = None,
+                         row_period: int = 0) -> None:
     """Launch the multi-car env's observation on ``obs.device``'s current stream, as
-    ``multi_observe_plan`` says. Tensors are contiguous f32 (the car fields [rows *
-    num_cars], ``max_track_distance`` [rows], ``obs`` [rows, num_cars, num_sensors +
-    4 * num_cars]); the floats are float32 values. ``cars=False`` leaves out the rays'
-    car pass and its minimum: each ray is its wall hit alone (the single-car env's
-    observation, at one car a row)."""
-    plan = multi_observe_plan(num_cars, num_sensors, num_segments, rows)
+    ``plan`` says (by default ``multi_observe_plan``'s). Tensors are contiguous f32
+    (the car fields [rows * num_cars], ``max_track_distance`` [rows], ``obs`` [rows,
+    num_cars, num_sensors + 4 * num_cars]); the floats are float32 values.
+    ``cars=False`` leaves out the rays' car pass and its minimum: each ray is its wall
+    hit alone (the single-car env's observation, at one car a row, with
+    ``single_observe_plan``). A plan with ``shared_row`` takes ``row_period`` T: env
+    row i reads segment row i % T (the tiled layout)."""
+    if plan is not None and plan.shared_row and row_period < 1:
+        raise ValueError("multi_observe: a plan that shares a staged row needs its period")
+    plan = plan or multi_observe_plan(num_cars, num_sensors, num_segments, rows)
     args = (*map(_ptr, (x, y, angle, vx, vy, last_steering, max_track_distance, rel, sx, sy,
                         seg_vx, seg_vy, c, row_ids, obs)),
             rows, num_cars, num_sensors, num_segments, float(half_length), float(half_width),
@@ -546,7 +663,8 @@ def launch_multi_observe(x, y, angle, vx, vy, last_steering, max_track_distance,
               int(cars))
     else:
         _call("multi_observe", "multi_observe_f32", obs.device, *args, int(plan.per_car),
-              plan.rows_per_block, int(plan.overlay), int(cars))
+              plan.rows_per_block, int(plan.overlay), int(cars),
+              int(row_period) if plan.shared_row else 0)
 
 
 def launch_multi_transition(ptrs, constants, rows: int, cars_per_row: int,
@@ -571,20 +689,34 @@ def launch_multi_transition(ptrs, constants, rows: int, cars_per_row: int,
 
 
 def launch_single_transition(ptrs, constants, rows: int, num_waypoints: int,
-                             max_steps: int, action_stride: int, device: torch.device) -> None:
-    """Launch the single-car env's transition on ``device``'s current stream, as
-    ``single_transition_plan`` says: ``ptrs`` the ``SINGLE_TRANSITION_PTRS`` tensors
-    (or None) in the order of ``csrc/single_transition.cu:single_transition_f32``,
-    ``constants`` its ``SINGLE_TRANSITION_CONSTS`` float32 values, the action's rows
-    ``action_stride`` floats apart."""
+                             max_steps: int, action_stride: int, device: torch.device,
+                             row_period: int = 0) -> bool:
+    """Launch the single-car env's transition on ``device``'s current stream:
+    ``ptrs`` the ``SINGLE_TRANSITION_PTRS`` tensors (or None) in the order of
+    ``csrc/single_transition.cu:single_transition_f32``, ``constants`` its
+    ``SINGLE_TRANSITION_CONSTS`` float32 values, the action's rows ``action_stride``
+    floats apart. A warp a row (``single_transition_plan``); where env i reads pool
+    row i % ``row_period`` (the tiled layout; 0: not known) and from
+    ``SINGLE_TRANSITION_ROWS_FROM`` rows, the kernel of several rows a block
+    (``single_transition_rows_plan``), which takes the same and gives a block rows
+    that period apart, which share one staged row. Returns whether the latter ran."""
     if len(ptrs) != SINGLE_TRANSITION_PTRS or len(constants) != SINGLE_TRANSITION_CONSTS:
         raise ValueError(f"single_transition: {len(ptrs)} pointers and {len(constants)} "
                          f"constants, expected {SINGLE_TRANSITION_PTRS} and "
                          f"{SINGLE_TRANSITION_CONSTS}")
-    plan = single_transition_plan(num_waypoints)
-    _call("single_transition", "single_transition_f32", device, _ptr_array(ptrs),
-          SINGLE_TRANSITION_PTRS, _float_array(constants), SINGLE_TRANSITION_CONSTS, rows,
-          num_waypoints, plan.smem, int(max_steps), int(action_stride))
+    args = (_ptr_array(ptrs), SINGLE_TRANSITION_PTRS, _float_array(constants),
+            SINGLE_TRANSITION_CONSTS, rows, num_waypoints)
+    by_rows = row_period > 0 and rows >= SINGLE_TRANSITION_ROWS_FROM
+    if by_rows:
+        plan = single_transition_rows_plan(num_waypoints)
+        _call("single_transition", "single_transition_rows_f32", device, *args, plan.threads,
+              plan.smem, int(max_steps), int(action_stride), plan.rows_per_block,
+              int(row_period))
+    else:
+        plan = single_transition_plan(num_waypoints)
+        _call("single_transition", "single_transition_f32", device, *args, plan.smem,
+              int(max_steps), int(action_stride))
+    return by_rows
 
 
 # ppo_head (csrc/ppo_head.cu): its input pointers and float32 constants

@@ -111,7 +111,8 @@ def raycast_walls_plain(ox, oy, dx, dy, seg_sx, seg_sy, seg_vx, seg_vy, max_dist
 
 
 def raycast_walls_fold_shape(ox, oy, dx, dy, seg_sx, seg_sy, seg_vx, seg_vy, max_dist,
-                             seg_c=None, row_ids=None, stop_at_extent=False):
+                             seg_c=None, row_ids=None, stop_at_extent=False,
+                             rays_per_group=None):
     """``raycast_walls`` in the kernels' reduction shape (``csrc/wall_fold.cuh``):
     per ray, run j folds segments [j*L, (j+1)*L) in index order (L = ceil(S/32), the
     row padded to 32 runs with zero direction), and the 32 runs combine in the
@@ -119,7 +120,10 @@ def raycast_walls_fold_shape(ox, oy, dx, dy, seg_sx, seg_sy, seg_vx, seg_vy, max
     left before right). ``stop_at_extent`` stops each row's runs at its real extent
     E, one past its last segment with a nonzero direction (the redesigned
     observation's runs, ``csrc/run_fold.cuh``): such segments never take, so the
-    result is the same. A model of the shape for tests; no kernel path calls it."""
+    result is the same. ``rays_per_group`` takes the rays of the last axis in groups
+    of that many and forms each segment's cross term once a group, from the group's
+    first ray's origin (``run_fold.cuh``'s kCarOrigin, where each group is one car's
+    rays). A model of the shape for tests; no kernel path calls it."""
     seg_sx, seg_sy, seg_vx, seg_vy, seg_c = pool_rows(row_ids, seg_sx, seg_sy, seg_vx,
                                                       seg_vy, seg_c)
     if seg_c is None:
@@ -127,7 +131,12 @@ def raycast_walls_fold_shape(ox, oy, dx, dy, seg_sx, seg_sy, seg_vx, seg_vy, max
     s = seg_sx.shape[-1]
     length = -(-s // 32)
     u = ox * dy - oy * dx
-    cn = oy[..., None] * seg_vx - ox[..., None] * seg_vy + seg_c
+    if rays_per_group:
+        first = torch.arange(ox.shape[-1], device=ox.device) // rays_per_group * rays_per_group
+        cx, cy = ox[..., first], oy[..., first]
+    else:
+        cx, cy = ox, oy
+    cn = cy[..., None] * seg_vx - cx[..., None] * seg_vy + seg_c
     dotp = seg_vy * dx[..., None] - seg_vx * dy[..., None]
     sn = seg_sx * dy[..., None] - seg_sy * dx[..., None] - u[..., None]
     d = dotp.abs()

@@ -42,10 +42,13 @@ env's step (``single.transition``, ``csrc/single_transition.cu``, and
 ``single.observe``, the multi-car observation kernel at one car a row without its
 car pass; one launch each) bitwise, -0.0 apart from 0.0, its plain version (the
 narrow kernels and PyTorch) at 1 to 5008 rows, per-env and by row id, with the
-speed weight a constant and an annealed tensor, the sensing clamped and not.
+speed weight a constant and an annealed tensor, the sensing clamped and not; the
+transition's kernel of several rows a block too (on no path, forced) at widths that
+leave a block part-filled.
 """
 import contextlib
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -1547,7 +1550,10 @@ def test_update_with_the_learner_kernels_is_the_plain_update_bitwise(cuda):
 
 # ----------------------------- the single-car env step as two launches (envs/single.py)
 
-SINGLE_ROWS = [1, 16, 48, 200, 4096, ENV_STEP_ENVS]
+# 1280: where the tiled layout's transition takes several rows a block; 1320 to
+# 1585: either side of the ends of the per-env observation's band of the multi-car
+# plan (``_cuda.SINGLE_OBSERVE_MULTI_PLAN_ROWS``)
+SINGLE_ROWS = [1, 16, 48, 200, 1280, 1320, 1321, 1584, 1585, 4096, ENV_STEP_ENVS]
 
 
 def _single_track(cuda, rows, where):
@@ -1571,7 +1577,8 @@ def _single_case(cuda, rows, where, seed, **cfg_kw):
 @pytest.mark.parametrize("where", ["gathered", "by row id"])
 @pytest.mark.parametrize("annealed", [False, True])
 def test_single_transition_kernel_is_its_plain_version_bitwise(cuda, rows, where, annealed):
-    """``single.transition``, one launch (``csrc/single_transition.cu``), against
+    """``single.transition``, one launch (``csrc/single_transition.cu``: a warp a
+    row, on the tiled pool from ``SINGLE_TRANSITION_ROWS_FROM`` rows several), against
     ``single.transition_plain`` (the narrow ``car_step_and_query`` and PyTorch) on
     ``chip_smoke.crafted_single_state``, the speed weight the config's or a tensor
     on the card: every output bitwise (-0.0 apart from 0.0); every branch of the tail taken from 4096 rows; then 16 more steps in lockstep on
@@ -1579,11 +1586,13 @@ def test_single_transition_kernel_is_its_plain_version_bitwise(cuda, rows, where
     cfg, track, state, action = _single_case(cuda, rows, where, seed=rows)
     sw = torch.tensor(5.3, device=cuda) if annealed else None
     before = (senv.transition_launches, senv.transition_row_id_launches,
-              dynamics.car_step_and_query_launches)
+              senv.transition_rows_launches, dynamics.car_step_and_query_launches)
     out = senv.transition(cfg, track, state, action, speed_weight=sw)
+    by_rows = (isinstance(track, trk.TiledPooledTracks)
+               and rows >= _cuda.SINGLE_TRANSITION_ROWS_FROM)  # rows a block on the tiled pool
     assert (senv.transition_launches, senv.transition_row_id_launches,
-            dynamics.car_step_and_query_launches) == (
-        before[0] + 1, before[1] + (where != "gathered"), before[2])
+            senv.transition_rows_launches, dynamics.car_step_and_query_launches) == (
+        before[0] + 1, before[1] + (where != "gathered"), before[2] + by_rows, before[3])
     plain = senv.transition_plain(cfg, track, state, action, speed_weight=sw)
     torch.cuda.synchronize()
     want = chip_smoke.single_transition_fields(plain)
@@ -1610,7 +1619,8 @@ def test_single_transition_kernel_is_its_plain_version_bitwise(cuda, rows, where
 @pytest.mark.parametrize("clamp", [False, True])
 def test_single_observe_kernel_is_its_plain_version_bitwise(cuda, rows, where, clamp):
     """``single.observe``, one launch (the multi-car observation at one car a row
-    without its car pass; under ``OBSERVE_SMALL_BELOW`` rows the first kernel),
+    without its car pass, a row's rays in groups: ``single_observe_plan``; on
+    per-env rows in its band the multi-car plan, a warp a row's 11 rays),
     against ``single.observe_plain`` (the narrow K1 and PyTorch) on the crafted
     states, every eighth car 70 m off its track facing it (walls beyond the range):
     bitwise, clamped to the range and not."""
@@ -1654,3 +1664,43 @@ def test_single_env_step_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         senv.observe(cfg, short, state)
     assert (senv.transition_launches, senv.observe_launches) == counts
+
+
+@pytest.mark.parametrize("rows", [16, 48, 80, 208, 4096, 5008])
+def test_single_transition_rows_kernel_is_its_plain_version_bitwise(cuda, monkeypatch, rows):
+    """The transition's kernel of several rows a block (the step and the tail a
+    thread a car, the search a warp a car; forced at every width) on the tiled layout,
+    the only one it takes (a block's rows 16 apart share one staged pool row): bitwise
+    its plain version at widths whose residues' last blocks are part-filled (48: 3 of
+    8 rows; 80: 5; 208: a second block of 5; 5008: a 40th of 1), the speed weight an
+    annealed tensor, counted as its own; then 8 more steps in lockstep on random
+    actions."""
+    monkeypatch.setattr(_cuda, "SINGLE_TRANSITION_ROWS_FROM", 0)
+    cfg, track, state, action = _single_case(cuda, rows, "by row id", seed=30 + rows)
+    assert isinstance(track, trk.TiledPooledTracks)
+    sw = torch.tensor(5.3, device=cuda)
+    before = senv.transition_rows_launches
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    for i in range(9):
+        out = senv.transition(cfg, track, state, action, speed_weight=sw)
+        plain = senv.transition_plain(cfg, track, state, action, speed_weight=sw)
+        assert chip_smoke.differing(chip_smoke.single_transition_fields(out),
+                                    chip_smoke.single_transition_fields(plain)) == {}
+        state = out[0]
+        action = torch.rand((rows, 2), generator=gen, device=cuda) * 2.6 - 1.3
+        sw.fill_(5.3 + 0.25 * i)
+    assert senv.transition_rows_launches == before + 9
+
+
+def test_single_transition_rows_kernel_refuses_rows_without_a_period(cuda):
+    """The kernel of several rows a block serves only rows a period apart that share
+    a pool row: its entry refuses a row period of 0 before any launch."""
+    plan = _cuda.single_transition_rows_plan(512)
+    args = (_cuda._ptr_array([None] * _cuda.SINGLE_TRANSITION_PTRS),
+            _cuda.SINGLE_TRANSITION_PTRS,
+            _cuda._float_array([0.0] * _cuda.SINGLE_TRANSITION_CONSTS),
+            _cuda.SINGLE_TRANSITION_CONSTS, 16, 512, plan.threads, plan.smem, 100, 2,
+            plan.rows_per_block)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        _cuda._call("single_transition", "single_transition_rows_f32",
+                    torch.device("cuda", torch.cuda.current_device()), *args, 0)

@@ -287,3 +287,112 @@ def test_transition_plan(cars, waypoints, rows, warps):
     assert plan.rows_per_block == rows and plan.threads == 32 * warps
     assert plan.smem == rows * (2 * (-(-waypoints // 4) * 4 + 4) + 2 + 18 * cars) * 4
     assert plan.smem <= _cuda.BLOCK_SMEM_LIMIT
+
+
+def _vertex_rows(rng, n, r, dtype):
+    """Rows of one car each: r rays from one origin, a segment soup [n, 1, S] whose
+    first segments form a diamond of vertices on the axes around the origin (a ray
+    along an axis passes exactly through a vertex shared by two segments; the rays
+    at +-pi/2 from cos and sin pass within the last bit of one), then random walls,
+    then zero-direction padding."""
+    ox, oy = np.zeros((2, n))
+    ox[1::2] = rng.uniform(-0.5, 0.5, n // 2)  # some origins off the axes' crossing
+    ang = np.concatenate([np.arange(8) * np.pi / 4, [np.pi / 2, -np.pi / 2, 1.0]])[:r]
+    dx = np.broadcast_to(np.cos(ang), (n, r)).copy()
+    dy = np.broadcast_to(np.sin(ang), (n, r)).copy()
+    dx[:, [0, 4]], dy[:, [0, 4]] = [1.0, -1.0], 0.0    # exactly along the x axis
+    dx[:, [2, 6]], dy[:, [2, 6]] = 0.0, [1.0, -1.0]    # and the y axis
+    _, segs = _soup(rng, n, r, S, np.float64, n_pad=S - 600)
+    corners = np.array([[10.0, 0.0], [0.0, 10.0], [-10.0, 0.0], [0.0, -10.0]])
+    for k in range(4):
+        a, b = corners[k], corners[(k + 1) % 4]
+        segs[0][:, :, k], segs[1][:, :, k] = a
+        segs[2][:, :, k], segs[3][:, :, k] = b - a
+    segs[4] = segs[3] * segs[0] - segs[2] * segs[1]
+    rays = [np.broadcast_to(ox[:, None], (n, r)), np.broadcast_to(oy[:, None], (n, r)), dx, dy]
+    return [a.astype(dtype) for a in rays], [a.astype(dtype) for a in segs]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("rays_per_group", [4, 6])
+def test_one_cars_rays_in_groups_are_the_ungrouped_fold_bitwise(dtype, rays_per_group):
+    """The single-car observation's shape (``ops/_cuda.py:single_observe_plan``): a
+    row's 11 rays, one car's, in groups of 4 or 6, each segment's cross term formed
+    once a group from the group's first ray: bitwise the ungrouped fold, stopped at
+    the real extent as the kernel stops, on the canonical pool's rows and on rows
+    whose rays pass through a vertex; the grouping rule holds these groups to be one
+    car's. Two cars' rays in groups of 6 are not (a group holds both cars' rays), and
+    there the grouped cross term would change the result."""
+    assert _cuda.groups_are_cars(1, 11, rays_per_group)
+    rng = np.random.default_rng(rays_per_group)
+    pool = canonical_bench_pool(16, dtype=torch.float64, device="cpu")
+    cases = [_pool_rays(rng, pool, 11, dtype), _vertex_rows(rng, 16, 11, dtype)]
+    for rays, segs in cases:
+        whole = _shape(rays, segs, stop_at_extent=True)
+        grouped = tgeo.raycast_walls_fold_shape(
+            *map(_t, rays), *map(_t, segs[:4]), MAX_DIST, seg_c=_t(segs[4]),
+            stop_at_extent=True, rays_per_group=rays_per_group)
+        assert torch.equal(_bits(whole), _bits(grouped))
+        assert bool((whole < MAX_DIST).any())
+    assert bool((whole[:, [0, 2, 4, 6]] < MAX_DIST).all())  # the diamond's vertices hit
+    # two cars a row: the second car's origin elsewhere
+    rays2 = [np.concatenate([a, a + (3.0 if k < 2 else 0.0)], axis=-1).astype(dtype)
+             for k, a in enumerate(cases[0][0])]
+    assert not _cuda.groups_are_cars(2, 11, 6)
+    whole = _shape(rays2, cases[0][1], stop_at_extent=True)
+    grouped = tgeo.raycast_walls_fold_shape(
+        *map(_t, rays2), *map(_t, cases[0][1][:4]), MAX_DIST, seg_c=_t(cases[0][1][4]),
+        stop_at_extent=True, rays_per_group=6)
+    assert not torch.equal(_bits(whole), _bits(grouped))
+
+
+@pytest.mark.parametrize("sensors,segments,rows_per_block", [
+    (11, 896, None), (11, 768, None), (7, 896, None), (11, 11_000, 1)])
+def test_single_observe_plan(sensors, segments, rows_per_block):
+    """The single-car observation's launch at every width: a row's rays in
+    ``SINGLE_OBSERVE_GROUPS`` groups of the fewest rays a lane that give as many (11
+    rays: 6 a lane for 2 groups, 4 for 3, 3 for 4), each group the one car's rays, so
+    the kernel forms the cross term once a group; ``SINGLE_OBSERVE_ROWS`` rows a
+    block, fewer where 227 KB do not hold them; a warp a group and row, the run
+    results over the staged rows. On per-env rows in ``SINGLE_OBSERVE_MULTI_PLAN_ROWS``
+    (where the grouped plan's one wave is spent and the multi-car plan's is not) the
+    multi-car plan; on the tiled layout the grouped plan at every width. The
+    multi-car plans are not moved (one car: a warp a row's 11 rays, four rows a block;
+    the first kernel on few rows)."""
+    plan = _cuda.single_observe_plan(sensors, segments)
+    band = _cuda.SINGLE_OBSERVE_MULTI_PLAN_ROWS
+    for rows in (1, 640, band[0] - 1, band[-1] + 1, 4096):
+        assert _cuda.single_observe_plan(sensors, segments, False, rows) == plan
+    for rows in (band[0], band[-1]):
+        assert _cuda.single_observe_plan(sensors, segments, False, rows) == (
+            _cuda.multi_observe_plan(1, sensors, segments, rows))
+        assert _cuda.single_observe_plan(sensors, segments, True, rows) == (
+            _cuda.single_observe_plan(sensors, segments, True))
+    groups = _cuda.SINGLE_OBSERVE_GROUPS
+    even = -(-sensors // groups)
+    assert plan.rays_per_lane == min(r for r in _cuda.K1_RAYS_PER_LANE_CHOICES if r >= even)
+    assert -(-sensors // plan.rays_per_lane) == groups and plan.per_car and not plan.small
+    assert plan.rows_per_block == (rows_per_block or _cuda.SINGLE_OBSERVE_ROWS)
+    assert plan.threads == 32 * min(8, plan.rows_per_block * groups) and plan.overlay
+    assert plan.smem <= _cuda.BLOCK_SMEM_LIMIT - _cuda.STATIC_SMEM_RESERVE
+    assert plan == _cuda._observe_shape(1, sensors, segments, plan.rows_per_block,
+                                        rays_per_lane=plan.rays_per_lane)
+    assert _cuda.multi_observe_plan(1, 11, 896) == _cuda.ObservePlan(
+        128, 4 * (5 * _cuda._field_capacity(896) + 11 * 5 + 18 + 11) * 4, 11, True, 4, True)
+    assert _cuda.multi_observe_plan(1, 11, 896, 1).small
+    # on the tiled layout a block's rows share one staged row: the five fields once,
+    # the ray tables and run results of every row (the results over the staged row)
+    shared = _cuda.single_observe_plan(sensors, segments, shared_row=True)
+    rows, groups = shared.rows_per_block, _cuda.SINGLE_OBSERVE_SHARED_GROUPS
+    assert shared.shared_row and rows <= _cuda.SINGLE_OBSERVE_SHARED_ROWS
+    assert -(-sensors // shared.rays_per_lane) == groups and shared.per_car
+    assert shared.threads == 32 * min(8, rows * groups)
+    slots = groups * shared.rays_per_lane
+    stage = 5 * _cuda._field_capacity(segments)
+    assert shared.overlay == (stage >= 2 * 33 * slots * rows)
+    assert shared.smem == (stage + rows * (5 * slots + 18 + sensors)
+                           + (0 if shared.overlay else 2 * 33 * slots * rows)) * 4
+    with pytest.raises(ValueError, match="shared memory"):
+        _cuda.single_observe_plan(11, 11_600)
+    with pytest.raises(ValueError, match="segment"):
+        _cuda.single_observe_plan(11, 0)

@@ -160,7 +160,7 @@ def test_env_step_on_the_cpu_never_reaches_the_kernels(monkeypatch):
                  "launch_raycast_walls", "launch_car_step_and_query"):
         monkeypatch.setattr(_cuda, name, refuse)
     counters = ("transition_launches", "observe_launches", "transition_row_id_launches",
-                "observe_row_id_launches")
+                "observe_row_id_launches", "transition_rows_launches")
     before = [getattr(tsingle, c) for c in counters]
     pool = tprof.canonical_bench_pool(16, device="cpu")
     cfg = tsingle.RacingConfig(num_sensors=11)
@@ -184,28 +184,45 @@ def _calls(monkeypatch):
 
 
 def test_transition_launch_passes_the_kernels_arguments(monkeypatch):
-    """What ``single._transition_cuda`` hands the kernel: the 41 pointers in the C
-    entry's order (the row ids in their slot, the speed weight null for a number),
+    """What ``single._transition_cuda`` hands the kernels: the 41 pointers in the C
+    entries' order (the row ids in their slot, the speed weight null for a number),
     the 18 float32 constants with the given speed weight in its slot, and the
-    launch's plan; float64 state is refused before any launch."""
+    launch's plan: a warp a row (``single_transition_f32``), and on the tiled layout
+    from ``SINGLE_TRANSITION_ROWS_FROM`` rows the kernel of several rows a block with
+    the layout's period (its blocks' rows share a pool row); float64 state is refused
+    before any launch."""
     pool = tprof.canonical_bench_pool(16, device="cpu")
-    track = _layout(pool, "tiled")
     cfg = tsingle.RacingConfig(num_sensors=11)
-    state, action = chip_smoke.crafted_single_state(track, cfg.max_steps, seed=4)
-    with _calls(monkeypatch) as calls:
-        tsingle._transition_cuda(cfg, track, state, action, speed_weight=ANNEALED)
-        (fn, args), = calls
-    assert fn == "single_transition_f32"
-    assert len(args) + 2 == len(_cuda._SIGNATURES[fn])
-    ptrs, num_ptrs, consts, num_consts, rows, w, smem, max_steps, stride = args
-    assert (num_ptrs, num_consts) == (_cuda.SINGLE_TRANSITION_PTRS,
-                                      _cuda.SINGLE_TRANSITION_CONSTS) == (len(ptrs), len(consts))
-    assert ptrs[11] == ttrack.rows_of(track)[1].data_ptr() and ptrs[21] is None
-    assert ptrs[0] == state.car.x.data_ptr() and ptrs[6] == action.data_ptr()
-    assert consts[13] == np.float32(ANNEALED)
-    assert consts[12] == np.float32(1.0) / np.float32(cfg.car.max_speed)
-    plan = _cuda.single_transition_plan(512)
-    assert (rows, w, smem, max_steps, stride) == (ENVS, 512, plan.smem, cfg.max_steps, 2)
+    assert _cuda.SINGLE_TRANSITION_ROWS_FROM > ENVS  # a warp a row at this width
+    tiled = ttrack.tiled_pooled_tracks(pool, ENVS)
+    pooled = ttrack.pooled_tracks(pool, np.arange(ENVS) % 16)
+    for track, rows_from, entry in (
+            (tiled, _cuda.SINGLE_TRANSITION_ROWS_FROM, "single_transition_f32"),
+            (tiled, ENVS, "single_transition_rows_f32"),
+            (pooled, ENVS, "single_transition_f32")):  # any ids: no period known
+        monkeypatch.setattr(_cuda, "SINGLE_TRANSITION_ROWS_FROM", rows_from)
+        state, action = chip_smoke.crafted_single_state(track, cfg.max_steps, seed=4)
+        with _calls(monkeypatch) as calls:
+            _, by_rows = tsingle._transition_cuda(cfg, track, state, action,
+                                                  speed_weight=ANNEALED)
+            (fn, args), = calls
+        assert fn == entry and len(args) + 2 == len(_cuda._SIGNATURES[fn])
+        assert by_rows == (entry == "single_transition_rows_f32")
+        ptrs, num_ptrs, consts, num_consts, rows, w, *shape = args
+        assert (num_ptrs, num_consts) == (_cuda.SINGLE_TRANSITION_PTRS,
+                                          _cuda.SINGLE_TRANSITION_CONSTS)
+        assert (len(ptrs), len(consts)) == (num_ptrs, num_consts)
+        assert ptrs[11] == ttrack.rows_of(track)[1].data_ptr() and ptrs[21] is None
+        assert ptrs[0] == state.car.x.data_ptr() and ptrs[6] == action.data_ptr()
+        assert consts[13] == np.float32(ANNEALED)
+        assert consts[12] == np.float32(1.0) / np.float32(cfg.car.max_speed)
+        assert (rows, w) == (ENVS, 512)
+        if by_rows:
+            plan = _cuda.single_transition_rows_plan(512)
+            # the tiled layout's period: its blocks' rows share a pool row
+            assert shape == [plan.threads, plan.smem, cfg.max_steps, 2, plan.rows_per_block, 16]
+        else:
+            assert shape == [_cuda.single_transition_plan(512).smem, cfg.max_steps, 2]
     wide = dataclasses.replace(state, car=dataclasses.replace(state.car, x=state.car.x.double()))
     with _calls(monkeypatch) as calls:
         with pytest.raises(TypeError):
@@ -217,34 +234,50 @@ def test_transition_launch_passes_the_kernels_arguments(monkeypatch):
 
 def test_observe_launch_is_multi_observe_at_one_car_without_the_car_pass(monkeypatch):
     """What ``single._observe_cuda`` hands the observation kernel: one car a row,
-    the single cone's 11 angles, the car pass off, the first kernel under
-    ``OBSERVE_SMALL_BELOW`` rows and the redesigned one above."""
+    the single cone's 11 angles, the car pass off, at every width the redesigned
+    kernel at ``single_observe_plan``'s shape (a row's rays in groups, each the
+    car's); on the tiled layout the shape whose blocks' rows share a staged pool row,
+    and the layout's period."""
     pool = tprof.canonical_bench_pool(16, device="cpu")
     cfg = tsingle.RacingConfig(num_sensors=11)
-    for envs, entry in ((ENVS, "multi_observe_small_f32"),
-                        (_cuda.OBSERVE_SMALL_BELOW, "multi_observe_f32")):
-        track = ttrack.tiled_pooled_tracks(pool, envs)
+    for track, shared in ((ttrack.pooled_tracks(pool, [3]), False),
+                          (ttrack.pooled_tracks(pool, np.arange(ENVS) % 16), False),
+                          (ttrack.tiled_pooled_tracks(pool, ENVS), True)):
+        envs = ttrack.rows_of(track)[1].shape[0]
+        plan = _cuda.single_observe_plan(11, 896, shared)
         state, _ = chip_smoke.crafted_single_state(track, cfg.max_steps, seed=4)
         with _calls(monkeypatch) as calls:
             tsingle._observe_cuda(cfg, track, state)
             (fn, args), = calls
-        assert fn == entry and len(args) + 2 == len(_cuda._SIGNATURES[fn])
-        assert args[15:19] == (envs, 1, 11, 896) and args[-1] == 0  # cars off
+        assert fn == "multi_observe_f32" and len(args) + 2 == len(_cuda._SIGNATURES[fn])
+        assert args[15:19] == (envs, 1, 11, 896) and args[-2] == 0  # cars off
+        assert args[-1] == (16 if shared else 0)  # the tiled layout's period
         assert args[13] == ttrack.rows_of(track)[1].data_ptr()
+        assert args[25:31] == (plan.threads, plan.smem, plan.rays_per_lane, 1,
+                               plan.rows_per_block, int(plan.overlay))
+        assert plan.rays_per_lane < 11 and plan.per_car and plan.shared_row == shared
 
 
 def test_single_transition_plan_sizes_its_shared_memory():
-    """The transition's launch: a block (one warp) a row, staging the row's two
-    position fields; a row that does not fit in 227 KB is refused, and so is a row
-    without waypoints."""
+    """The transition's launches. A warp a row (``single_transition_plan``),
+    staging the row's two position fields. The kernel of several rows a block, for
+    the tiled layout (``single_transition_rows_plan``): ``SINGLE_TRANSITION_ROWS``
+    rows a block of ``SINGLE_TRANSITION_WARPS`` warps, the one pool row they share
+    staged once, 24 words a row beside it. A row without waypoints, or one that does
+    not fit, is refused."""
     cap = _cuda._field_capacity(512)
     assert _cuda.single_transition_plan(512) == _cuda.TransitionPlan(32, 2 * cap * 4, 1)
-    big = _cuda.single_transition_plan(20_000)
-    assert big.smem <= _cuda.BLOCK_SMEM_LIMIT - _cuda.STATIC_SMEM_RESERVE
-    with pytest.raises(ValueError):
-        _cuda.single_transition_plan(40_000)
-    with pytest.raises(ValueError):
-        _cuda.single_transition_plan(0)
+    plan = _cuda.single_transition_rows_plan(512)
+    rows, warps = _cuda.SINGLE_TRANSITION_ROWS, _cuda.SINGLE_TRANSITION_WARPS
+    assert plan == _cuda.TransitionPlan(32 * warps, (2 * cap + 24 * rows) * 4, rows)
+    assert rows <= _cuda.SINGLE_TRANSITION_MAX_ROWS_PER_BLOCK and warps * 32 <= 256
+    limit = _cuda.BLOCK_SMEM_LIMIT - _cuda.STATIC_SMEM_RESERVE
+    for plan_fn in (_cuda.single_transition_plan, _cuda.single_transition_rows_plan):
+        assert plan_fn(20_000).smem <= limit
+        with pytest.raises(ValueError):
+            plan_fn(40_000)
+        with pytest.raises(ValueError):
+            plan_fn(0)
 
 
 def test_multi_observe_plan_at_one_car_and_11_rays():

@@ -349,6 +349,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from self_play_racing_tpu_torch import _graph
 from self_play_racing_tpu_torch import interop
@@ -4238,6 +4239,27 @@ def head_tensors(case: dict, dev, own_moments: bool = False) -> dict:
     return t
 
 
+def unit_head_tensors(n_units: int, block: int, ids, rng, dev, own_moments: bool = False):
+    """``head_tensors`` for a minibatch read through the unit index: a
+    ``crafted_minibatch`` over ``n_units`` units of ``block`` rows, the actions,
+    old log-probs, returns and old values as the rollout's units [n_units, block,
+    ...], ``mu``, ``v`` and the advantages the minibatch's rows at unit ids ``ids``
+    (``unit_ids``, int64), as ``minibatch_step`` hands them to the head."""
+    whole = head_tensors(crafted_minibatch(n_units * block, rng), dev)
+    ids = torch.as_tensor(np.asarray(ids), dtype=torch.int64, device=dev)
+    rows = (ids[:, None] * block + torch.arange(block, device=dev)).reshape(-1)
+    t = {k: whole[k].detach().reshape((n_units, block) + whole[k].shape[1:])
+         for k in ("actions", "logprobs", "returns", "values")}
+    t.update({k: whole[k].detach()[rows].contiguous() for k in ("mu", "v", "advantages")})
+    t["log_std"], t["unit_ids"] = whole["log_std"], ids
+    t["mu"].requires_grad_(True)
+    t["v"].requires_grad_(True)
+    adv = t["advantages"]
+    t["mean"], t["std"] = ((adv.mean(), adv.std(correction=1)) if own_moments else
+                           (whole["mean"], whole["std"]))
+    return t
+
+
 HEAD_ARGS = ("mu", "v", "actions", "logprobs", "advantages", "returns", "values", "log_std",
              "mean", "std")
 
@@ -4247,7 +4269,7 @@ def head_outputs(head, t: dict, upstream=None):
     outputs, and the gradients of ``mu`` and ``v`` from ``upstream`` (the
     gradients of the two maxima), or where None from the loss as ``_ppo_loss`` forms
     it (its means and coefficients, ``base_config``'s)."""
-    out = head(*(t[k] for k in HEAD_ARGS), HEAD_CLIP)
+    out = head(*(t[k] for k in HEAD_ARGS), HEAD_CLIP, t.get("unit_ids"))
     if upstream is None:
         cfg = base_config()
         loss = out[1].mean() + cfg.vf_coef * (0.5 * out[2].mean())
@@ -4314,6 +4336,29 @@ def run_tail(tail, state, kl: float, stop: bool, scale: float, dev, at: int = 3)
     return params + mu + nu + [loop.i, loop.applied, loop.stop, loop.stats]
 
 
+def gathered_minibatch_step(cfg, model, log_std, lr, units, index, bc1, bc2, mu, nu, loop,
+                            mesh=None, moments=None) -> None:
+    """``ppo.minibatch_step`` with every field of the minibatch gathered and the loss
+    on the gathered ``ppo.Batch`` (no unit index): the step before the loss head read
+    its fields through the unit ids, to hold the index route to and time it
+    against (patched in for ``ppo.minibatch_step``)."""
+    params = list(model.parameters())
+    rows = index.index_select(0, loop.i)[0]
+    mb = ppo.Batch(*(mbops.gather_units(x, rows) for x in units))
+    if mesh is not None:
+        moments = moments.index_select(0, loop.i)[0].unbind()
+    with torch.enable_grad():
+        loss, st = ppo._ppo_loss(model.params(), log_std, mb, cfg, moments)
+        grads = torch.autograd.grad(loss, params)
+    if mesh is not None:
+        grads, st = ppo._mean_over_group(grads, st, mesh)
+    with torch.no_grad():
+        g_norm = ppo.global_norm(grads, model.tensor_parallel)
+        mbops.adam_tail(params, list(grads), mu, nu, g_norm,
+                        [st[k] for k in ppo.STAT_NAMES[:6]], bc1, bc2, lr, loop,
+                        cfg.max_grad_norm, cfg.kl_target)
+
+
 def plain_learner():
     """The minibatch step's plain versions in place of its kernels, for the block
     (``minibatch_step`` reaches both through ``ops.minibatch``'s attributes)."""
@@ -4358,16 +4403,114 @@ def update_with(cfg, dev, seed: int, plain: bool):
             (stopped, {k: v.tobytes() for k, v in stats.items()}))
 
 
+# the minibatch step's unit index: the self-play minibatch's 1024 units of 64 rows,
+# a rank's 256, and an odd count of rows (units of 3: a chunk's rows read one by one)
+UNIT_BLOCKS = {65_536: 64, 16_384: 64, 4095: 3}
+
+
+def unit_case(n: int, rng, dev, own_moments: bool = False) -> dict:
+    """``unit_head_tensors`` for an ``n``-row minibatch of ``UNIT_BLOCKS[n]``-row units
+    drawn without repeats from twice as many."""
+    block = UNIT_BLOCKS[n]
+    ids = rng.permutation(2 * n // block)[:n // block]
+    return unit_head_tensors(2 * n // block, block, ids, rng, dev, own_moments)
+
+
+def hold_tail_replays(dev, replays: int = 16) -> None:
+    """One ``adam_tail`` launch captured in a CUDA graph and replayed ``replays``
+    times against as many eager steps of the plain version: parameters, moments and
+    stats rows bitwise, and the counters advanced once a replay."""
+    params, grads, mu, nu, bc1, bc2, loop = tail_state(dev, 8, steps=2 * replays)
+    ref = ([p.clone() for p in params], [m.clone() for m in mu], [v.clone() for v in nu],
+           ppo.MinibatchLoop.zeros(2 * replays, dev))
+    g_norm = ppo.global_norm(grads)
+    stats = [torch.tensor(x, device=dev) for x in (0.31, -0.02, 0.45, 1.9, 0.001, 0.11)]
+    lr = torch.tensor(2.5e-4, device=dev)
+    loop.stop.fill_(True)  # a masked warm-up: it moves the loop alone
+    mbops.adam_tail(params, grads, mu, nu, g_norm, stats, bc1, bc2, lr, loop, 0.5, 0.02)
+    loop.reset()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        mbops.adam_tail(params, grads, mu, nu, g_norm, stats, bc1, bc2, lr, loop, 0.5, 0.02)
+    torch.cuda.synchronize()
+    if int(loop.i):
+        raise AssertionError("phase n adam_tail: the capture ran the kernel")
+    for _ in range(replays):
+        graph.replay()
+        mbops.adam_tail_plain(ref[0], grads, ref[1], ref[2], g_norm, stats, bc1, bc2, lr,
+                              ref[3], 0.5, 0.02)
+    torch.cuda.synchronize()
+    if not (int(loop.i) == int(loop.applied) == replays and all(
+            same_bits(a, b) for a, b in zip(params + mu + nu + [loop.stats],
+                                            ref[0] + ref[1] + ref[2] + [ref[3].stats]))):
+        raise AssertionError(f"phase n adam_tail: {replays} graph replays differ from as "
+                             f"many plain steps (i {int(loop.i)}, applied "
+                             f"{int(loop.applied)})")
+
+
+class OpCounter(TorchDispatchMode):
+    """The ATen operators run inside the block, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        self.counts[name] = self.counts.get(name, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+def minibatch_inputs(cfg, dev, seed: int = 4):
+    """A fresh train state and ``minibatch_step``'s inputs (log_std, lr, units, index,
+    bc1, bc2) at ``cfg``'s width: random units in ``shard_blocks``' layout, the
+    epochs' minibatch index and the bias tables of a whole update."""
+    train = ppo.init_train_state(torch.Generator().manual_seed(seed), cfg, 19, 2, device=dev)
+    block, n_units, _ = ppo.minibatch_layout(cfg)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    units = ppo.Batch(rnd(n_units, block, 19), rnd(n_units, block, 2).clamp(-1, 1),
+                      rnd(n_units, block), rnd(n_units, block), rnd(n_units, block),
+                      rnd(n_units, block))
+    perms = prng.epoch_permutation(g, n_units, shape=(cfg.update_epochs, 1), device=dev)
+    index = ppo.minibatch_index(cfg, perms)
+    bc1, bc2 = (torch.as_tensor(ppo.bias_correction_table(b, 0, index.shape[0],
+                                                          torch.float32), device=dev)
+                for b in (ppo.ADAM_B1, ppo.ADAM_B2))
+    return train, (torch.full((2,), -0.5, device=dev), torch.tensor(2.5e-4, device=dev),
+                   units, index, bc1, bc2)
+
+
+def gathers_a_minibatch_step(dev) -> dict:
+    """The gathers (``index_select`` launches) one eager ``minibatch_step`` makes at
+    ``train scale``'s width, through the unit index and with every field gathered
+    (``gathered_minibatch_step``)."""
+    cfg = base_config(num_envs=NUM_ENVS, num_steps=STEPS)
+    train, inputs = minibatch_inputs(cfg, dev)
+    counts = {}
+    for name, step in (("unit index", ppo.minibatch_step),
+                       ("every field gathered", gathered_minibatch_step)):
+        opt = train.opt_state
+        with OpCounter() as ops:
+            step(cfg, train.model, *inputs, [m.clone() for m in opt.mu],
+                 [v.clone() for v in opt.nu], ppo.MinibatchLoop.zeros(inputs[3].shape[0], dev))
+        counts[name] = ops.counts.get("index_select", 0)
+    torch.cuda.synchronize()
+    return counts
+
+
 def check_minibatch_kernels(dev, card):
     """Phase n: ``ppo_head`` (forward and backward) and ``adam_tail`` against their
     plain versions on the card, bitwise: the head on ``crafted_minibatch`` at
     ``MINIBATCH_ROWS``, an odd count and one row, with the group's moments and its
     own, the gradients from the loss and from random upstream gradients (also
-    expanded ones); the tail in ``TAIL_CASES`` on ``tail_state``'s 12 tensors and on
-    views of one flat buffer (a group's gradients); then one update of 160
-    minibatches at ``train scale``'s width with the kernels and with the plain
-    versions, every parameter, moment and stat bitwise. Timed as the kernels line
-    needs; returns its three entries."""
+    expanded ones), and through the unit index at ``UNIT_BLOCKS``' rows; the tail,
+    one cluster, in ``TAIL_CASES`` on ``tail_state``'s 12 tensors and on views of one
+    flat buffer (a group's gradients), and over 16 replays of a CUDA graph; then one
+    update of 160 minibatches at ``train scale``'s width with the kernels, with the
+    plain versions and with every field gathered, every parameter, moment and stat
+    bitwise. Timed as the kernels line needs; returns its three entries."""
     rng = np.random.default_rng(17)
     head_err = 0.0
     for n in MINIBATCH_ROWS + (4097, 1):
@@ -4379,9 +4522,19 @@ def check_minibatch_kernels(dev, card):
             for name, up in (("the loss", None), ("random upstream", (gp, gv)),
                              ("expanded upstream", (gp[:1].expand(n), gv[:1].expand(n)))):
                 head_err = max(head_err, hold_head(t, up, f"{n} rows, {name}"))
+    for n in UNIT_BLOCKS:
+        for own in (False, True):
+            t = unit_case(n, rng, dev, own)
+            g = torch.Generator(device=dev).manual_seed(n)
+            gp, gv = (torch.randn((n,), generator=g, device=dev) for _ in range(2))
+            for name, up in (("the loss", None), ("random upstream", (gp, gv)),
+                             ("expanded upstream", (gp[:1].expand(n), gv[:1].expand(n)))):
+                head_err = max(head_err, hold_head(t, up, f"{n} rows by unit id, {name}"))
     print(f"phase n ppo_head: forward outputs and d/d mu, d/d v bitwise the plain "
-          f"composition at {MINIBATCH_ROWS + (4097, 1)} rows, every branch "
-          f"({HEAD_ROW_KINDS} row kinds), the group's moments and the minibatch's own")
+          f"composition at {MINIBATCH_ROWS + (4097, 1)} rows and through the unit index "
+          f"at {tuple(UNIT_BLOCKS)} rows (units of {tuple(UNIT_BLOCKS.values())}), every "
+          f"branch ({HEAD_ROW_KINDS} row kinds), the group's moments and the minibatch's "
+          f"own")
     state = tail_state(dev, 5)
     tail_err = 0.0
     for name, (kl, stop, scale) in TAIL_CASES.items():
@@ -4403,37 +4556,62 @@ def check_minibatch_kernels(dev, card):
     want = run_tail(mbops.adam_tail_plain, state, 0.001, False, 1.0, dev)
     if not all(same_bits(a, b) for a, b in zip(got, want)):
         raise AssertionError("phase n adam_tail on a flat buffer's views: differs")
-    print(f"phase n adam_tail: parameters, moments, stats row and counters bitwise the "
-          f"plain composition ({', '.join(TAIL_CASES)}; a group's flat-buffer views)")
+    hold_tail_replays(dev)
+    print(f"phase n adam_tail (one thread block cluster): parameters, moments, stats row "
+          f"and counters bitwise the plain "
+          f"composition ({', '.join(TAIL_CASES)}; a group's flat-buffer views; 16 graph "
+          f"replays, the counters at 16)")
     cfg = base_config(num_envs=NUM_ENVS, num_steps=STEPS, kl_target=float("inf"))
     runs = [update_with(cfg, dev, 3, plain) for plain in (False, True)]
-    if not (all(same_bits(a, b) for a, b in zip(runs[0][0], runs[1][0]))
-            and runs[0][1] == runs[1][1]):
-        raise AssertionError("phase n: an update with the kernels differs from one with "
-                             "their plain versions")
+    with _patched(ppo, minibatch_step=gathered_minibatch_step):
+        runs.append(update_with(cfg, dev, 3, False))
+    for what, run in (("their plain versions", runs[1]), ("every field gathered", runs[2])):
+        if not (all(same_bits(a, b) for a, b in zip(runs[0][0], run[0]))
+                and runs[0][1] == run[1]):
+            raise AssertionError(f"phase n: an update with the kernels differs from one "
+                                 f"with {what}")
     print(f"phase n: one update of {cfg.update_epochs * cfg.num_minibatches} minibatches "
-          f"at {NUM_ENVS} x {STEPS} with the kernels bitwise the one with their plain "
-          f"versions (parameters, Adam moments, every stat)")
-    return time_minibatch_kernels(dev, card, head_err, tail_err)
+          f"at {NUM_ENVS} x {STEPS} with the kernels (the head's fields through the unit "
+          f"index) bitwise the one with their plain versions and the one with every field "
+          f"gathered (parameters, Adam moments, every stat)")
+    gathers = gathers_a_minibatch_step(dev)
+    print(f"phase n: gathers (index_select launches) a minibatch step: {gathers}")
+    return time_minibatch_kernels(dev, card, head_err, tail_err, gathers)
 
 
-def time_minibatch_kernels(dev, card, head_err: float, tail_err: float):
+def head_bytes(n: int, backward: bool, unit_rows: int = 0) -> int:
+    """The bytes ``ppo_head`` must move at ``n`` rows: each row's inputs read once
+    (mu 2, v, the action 2, the old log-prob, the advantage, the return, the old value;
+    the backward also the two upstream gradients) and its outputs written once (4
+    floats forward, 3 backward), log_std and the moments, and with the unit index its
+    ``unit_rows`` int64 ids."""
+    floats = (11 + 3) if backward else (9 + 4)
+    return 4 * (n * floats + 4) + 8 * unit_rows
+
+
+def time_minibatch_kernels(dev, card, head_err: float, tail_err: float, gathers: dict):
     """The kernels line's entries for ``ppo_head``, ``ppo_head_backward`` and
-    ``adam_tail``: at each of ``MINIBATCH_ROWS`` the head eager and in a CUDA graph
-    beside the plain composition and the bound, and the tail beside its plain
-    version and ``torch._fused_adam_`` over the same 12 tensors (a library call that
-    computes Adam alone, rounds otherwise and never runs on the path)."""
+    ``adam_tail``: at each of ``MINIBATCH_ROWS`` the head eager and in a CUDA graph,
+    with every field gathered and through the unit index, beside the plain composition
+    and the bound, and the tail beside its plain version and ``torch._fused_adam_``
+    over the same 12 tensors, eager and in a CUDA graph (a library call that computes
+    Adam alone, rounds otherwise and never runs on the path)."""
     rng = np.random.default_rng(18)
     head, back = {}, {}
+    consts = mbops._head_constants(HEAD_CLIP)
     for n in MINIBATCH_ROWS:
         t = head_tensors(crafted_minibatch(n, rng), dev)
         args = [t[k].detach() for k in HEAD_ARGS]
-        consts = mbops._head_constants(HEAD_CLIP)
+        u = unit_case(n, rng, dev)
+        u_args, ids = [u[k].detach() for k in HEAD_ARGS], u["unit_ids"]
         outs = [torch.empty((n,), device=dev) for _ in range(4)]
         fwd = lambda: _cuda.launch_ppo_head_forward(args, consts, outs, n)
+        fwd_ids = lambda: _cuda.launch_ppo_head_forward(u_args, consts, outs, n, ids)
         g_mu, g_v = torch.empty((n, 2), device=dev), torch.empty((n,), device=dev)
         up = torch.full((n,), 1.0 / n, device=dev)
         bwd = lambda: _cuda.launch_ppo_head_backward(args, consts, up, 1, up, 1, g_mu, g_v, n)
+        bwd_ids = lambda: _cuda.launch_ppo_head_backward(u_args, consts, up, 1, up, 1, g_mu,
+                                                         g_v, n, ids)
         plain_f = lambda: mbops.ppo_head_plain(*args, HEAD_CLIP)
         mu_, v_ = args[0].clone().requires_grad_(True), args[1].clone().requires_grad_(True)
 
@@ -4441,15 +4619,21 @@ def time_minibatch_kernels(dev, card, head_err: float, tail_err: float):
             out = mbops.ppo_head_plain(mu_, v_, *args[2:], HEAD_CLIP)
             torch.autograd.grad(out[1:3], (mu_, v_), (up, up))
 
-        f_bound = bound_ms(nbytes(*args, *outs), n * HEAD_FORWARD_OPS)
-        b_bound = bound_ms(nbytes(*args, up, up, g_mu, g_v), n * HEAD_BACKWARD_OPS)
-        head[n] = (per_launch_ms(fwd), graph_ms(fwd), per_launch_ms(plain_f), *f_bound)
-        back[n] = (per_launch_ms(bwd), graph_ms(bwd), per_launch_ms(plain_b), *b_bound)
-        for what, (ms, g_ms, p_ms, b_ms, b_by) in (("forward", head[n]),
-                                                  ("backward", back[n])):
+        f_bound = bound_ms(head_bytes(n, False), n * HEAD_FORWARD_OPS)
+        b_bound = bound_ms(head_bytes(n, True), n * HEAD_BACKWARD_OPS)
+        head[n] = (per_launch_ms(fwd), graph_ms(fwd), per_launch_ms(plain_f), *f_bound,
+                   per_launch_ms(fwd_ids), graph_ms(fwd_ids),
+                   bound_ms(head_bytes(n, False, ids.numel()), n * HEAD_FORWARD_OPS)[0])
+        back[n] = (per_launch_ms(bwd), graph_ms(bwd), per_launch_ms(plain_b), *b_bound,
+                   per_launch_ms(bwd_ids), graph_ms(bwd_ids),
+                   bound_ms(head_bytes(n, True, ids.numel()), n * HEAD_BACKWARD_OPS)[0])
+        for what, d in (("forward", head[n]), ("backward", back[n])):
+            ms, g_ms, p_ms, b_ms, b_by, i_ms, i_g_ms, i_b_ms = d
             print(f"phase n ppo_head {what} at {n} rows: {ms * 1e3:.2f} us eager back-to-back, "
-                  f"{g_ms * 1e3:.2f} us in a CUDA graph; bound {b_ms * 1e3:.2f} us ({b_by}); "
-                  f"plain {p_ms * 1e3:.1f} us, on {card}")
+                  f"{g_ms * 1e3:.2f} us in a CUDA graph; through the unit index "
+                  f"{i_ms * 1e3:.2f} us eager, {i_g_ms * 1e3:.2f} us in a graph; bound "
+                  f"{b_ms * 1e3:.2f} us ({b_by}), {i_b_ms * 1e3:.2f} us by unit id; plain "
+                  f"{p_ms * 1e3:.1f} us, on {card}")
     # every timed launch applies a step: the loop's tables hold more rows than the
     # windows take
     params, grads, mu, nu, bc1, bc2, loop = tail_state(dev, 6, steps=4096)
@@ -4468,32 +4652,38 @@ def time_minibatch_kernels(dev, card, head_err: float, tail_err: float):
     fused = lambda: torch._fused_adam_(params, grads, mu, nu, [], steps, lr=2.5e-4, beta1=0.9,
                                        beta2=0.999, weight_decay=0.0, eps=1e-5, amsgrad=False,
                                        maximize=False)
-    library = per_launch_ms(fused)
+    library, library_graph = per_launch_ms(fused), graph_ms(fused)
     elements = sum(p.numel() for p in params)
     t_bound = bound_ms(4 * nbytes(*params) + 3 * nbytes(*params), elements * TAIL_OPS)
     print(f"phase n adam_tail over {len(params)} tensors ({elements} floats): "
           f"{t_ms * 1e3:.2f} us eager back-to-back, {t_graph * 1e3:.2f} us in a CUDA graph; "
           f"bound {t_bound[0] * 1e3:.3f} us "
           f"({t_bound[1]}); plain {t_plain * 1e3:.1f} us; torch._fused_adam_ "
-          f"{library * 1e3:.2f} us, on {card}")
+          f"{library * 1e3:.2f} us eager, {library_graph * 1e3:.2f} us in a graph, on {card}")
     big, small = MINIBATCH_ROWS
-    entry = lambda name, src, replaces, err, d, lib: {
+    registers = lambda word: kernel_registers(_cuda.build_report.get(
+        "ppo_head" if "head" in word else "adam_tail", ""), word)
+    entry = lambda name, src, replaces, err, d, word: {
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
         "max_abs_err": err, "ms": d[big][0], "graph_ms": d[big][1], "plain_ms": d[big][2],
-        "bound_ms": d[big][3], "bound_by": d[big][4], "library_ms": lib,
-        "rows": big, f"ms_{small}_rows": d[small][0], f"graph_ms_{small}_rows": d[small][1],
-        f"plain_ms_{small}_rows": d[small][2], f"bound_ms_{small}_rows": d[small][3]}
+        "bound_ms": d[big][3], "bound_by": d[big][4], "library_ms": None,
+        "unit_index_ms": d[big][5], "unit_index_graph_ms": d[big][6],
+        "unit_index_bound_ms": d[big][7], "rows": big, "registers": registers(word), "gathers_a_minibatch_step": gathers,
+        f"ms_{small}_rows": d[small][0], f"graph_ms_{small}_rows": d[small][1],
+        f"plain_ms_{small}_rows": d[small][2], f"bound_ms_{small}_rows": d[small][3],
+        f"unit_index_graph_ms_{small}_rows": d[small][6]}
     src = "self_play_racing_tpu_torch/csrc/ppo_head.cu"
     return [entry("ppo_head", src, "self_play_racing_tpu/agent/ppo.py:189", head_err, head,
-                  None),
+                  "ppo_head_forward"),
             entry("ppo_head_backward", src, "self_play_racing_tpu/agent/ppo.py:313", head_err,
-                  back, None),
+                  back, "ppo_head_backward"),
             {"name": "adam_tail", "route": "cuda",
              "source": "self_play_racing_tpu_torch/csrc/adam_tail.cu",
              "replaces": "self_play_racing_tpu/agent/ppo.py:117", "max_abs_err": tail_err,
              "ms": t_ms, "graph_ms": t_graph, "plain_ms": t_plain, "bound_ms": t_bound[0],
-             "bound_by": t_bound[1], "library_ms": library, "tensors": len(params),
-             "elements": elements}]
+             "bound_by": t_bound[1], "library_ms": library, "library_graph_ms": library_graph,
+             "tensors": len(params), "elements": elements,
+             "registers": registers("adam_tail")}]
 
 
 # ------------------------------------ phase (o): the single-car env step as two launches

@@ -122,7 +122,8 @@ def _device_kernels(prof):
 # profiler range while the loop runs (``annotated``), where the checkout has it
 GROUPS = (
     ("mb.step", [(ppo, "minibatch_step")]),
-    ("gather", [(ppo, "_minibatch_rows")]),
+    ("gather", [(ppo, "_minibatch_rows"),
+                ("self_play_racing_tpu_torch.ops.minibatch", "gather_units")]),
     ("loss head", [(ppo, "_ppo_loss")]),
     ("mlp", [(net, "actor_mu"), (net, "critic_value")]),
     ("backward start", [(torch.autograd, "grad")]),

@@ -223,23 +223,42 @@ class Batch(NamedTuple):
     values: torch.Tensor
 
 
+class UnitBatch(NamedTuple):
+    """A minibatch as ``minibatch_step`` hands it to the loss: ``obs`` and
+    ``advantages`` gathered, [n, ...] (the MLPs and the advantages' moments read
+    them), the actions, old log-probs, returns and old values as the rollout's units
+    [units, block, ...] (``shard_blocks``, shard and unit axes merged), and ``rows``
+    the minibatch's unit ids (int64 [n / block]): row r is unit ``rows[r // block]``,
+    offset ``r % block``. ``_ppo_loss`` tells the two batches apart by ``rows``: where
+    the batch has it, the loss head reads those four fields through it."""
+    obs: torch.Tensor
+    actions: torch.Tensor
+    logprobs: torch.Tensor
+    advantages: torch.Tensor
+    returns: torch.Tensor
+    values: torch.Tensor
+    rows: torch.Tensor
+
+
 STAT_NAMES = ("loss", "pg_loss", "v_loss", "entropy", "approx_kl", "clip_frac",
               "applied", "computed")
 
 
-def _ppo_loss(params, log_std, mb: Batch, cfg: PPOConfig, moments=None):
-    """The clipped loss and its stats. The advantages are normalized by their own
-    mean and unbiased std, or by ``moments`` = (mean, std) where given (the whole
-    minibatch's over a group, ``advantage_moments``). The per-row work is
-    ``ops.minibatch.ppo_head`` (one launch each way on the card); the means, the
-    entropy and the loss stay PyTorch's reductions over its rows."""
+def _ppo_loss(params, log_std, mb, cfg: PPOConfig, moments=None):
+    """The clipped loss and its stats, on a ``Batch`` or a ``UnitBatch``. The
+    advantages are normalized by their own mean and unbiased std, or by ``moments`` =
+    (mean, std) where given (the whole minibatch's over a group,
+    ``advantage_moments``). The per-row work is ``ops.minibatch.ppo_head`` (one
+    launch each way on the card; a ``UnitBatch``'s fields read through its unit
+    ids); the means, the entropy and the loss stay PyTorch's reductions over its
+    rows."""
     mu = net.actor_mu(params, mb.obs)
     new_v = net.critic_value(params, mb.obs)
     adv = mb.advantages
     mean, std = (adv.mean(), adv.std(correction=1)) if moments is None else moments
     neg_log_ratio, pg_max, v_max, clipped = mbops.ppo_head(
         mu, new_v, mb.actions, mb.logprobs, adv, mb.returns, mb.values, log_std, mean, std,
-        cfg.clip_coef)
+        cfg.clip_coef, getattr(mb, "rows", None))
     approx_kl = torch.mean(neg_log_ratio)  # mean(old - new)
     pg_loss = pg_max.mean()
     v_loss = 0.5 * v_max.mean()
@@ -368,12 +387,6 @@ def minibatch_index(cfg: PPOConfig, perms) -> torch.Tensor:
             .transpose(1, 2).reshape(e_total * cfg.num_minibatches, d_shards * mb_units))
 
 
-def _minibatch_rows(cfg: PPOConfig, x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """Field ``x`` of ``shard_blocks``' units (shard and unit axes merged) at the
-    units ``rows`` of one minibatch, flat: [minibatch_size, ...]."""
-    return x.index_select(0, rows).reshape((cfg.minibatch_size,) + x.shape[2:])
-
-
 def advantage_moments(cfg: PPOConfig, units: Batch, index, mesh) -> torch.Tensor:
     """[E*M, 2]: row i the mean and unbiased std of minibatch i's advantages over
     every rank's part, formed before the loop. Each minibatch's local moments come
@@ -384,7 +397,7 @@ def advantage_moments(cfg: PPOConfig, units: Batch, index, mesh) -> torch.Tensor
     n = cfg.minibatch_size
     means, stds = [], []
     for i in range(index.shape[0]):
-        adv = _minibatch_rows(cfg, units.advantages, index[i])
+        adv = mbops.gather_units(units.advantages, index[i])
         means.append(adv.mean())
         if n > 1:
             stds.append(adv.std(correction=1))
@@ -397,10 +410,11 @@ def minibatch_step(cfg: PPOConfig, model: net.ActorCritic, log_std, lr, units: B
                    index, bc1, bc2, mu, nu, loop: MinibatchLoop, mesh=None,
                    moments=None) -> None:
     """One minibatch of the clipped update, JAX's ``body_fn``, with no value deciding
-    a host branch: minibatch ``loop.i`` gathered from ``units`` (``shard_blocks``'
-    layout with the shard and unit axes merged) at its row of ``index``
-    (``minibatch_index``), the loss and its gradients (with a ``mesh``, the
-    advantages normalized by row ``loop.i`` of ``advantage_moments``' table
+    a host branch: minibatch ``loop.i`` of ``units`` (``shard_blocks``' layout with
+    the shard and unit axes merged) at its row of ``index`` (``minibatch_index``),
+    its observations and advantages gathered and its other fields read by the loss
+    head through the unit ids (``UnitBatch``), the loss and its gradients (with a
+    ``mesh``, the advantages normalized by row ``loop.i`` of ``advantage_moments``' table
     ``moments`` and the gradients averaged over the group), the global norm, then
     ``ops.minibatch.adam_tail``: the clip as a select, and Adam with the corrections
     ``bc1[loop.applied]``, ``bc2[loop.applied]``. ``trig = approx_kl > kl_target``:
@@ -410,7 +424,9 @@ def minibatch_step(cfg: PPOConfig, model: net.ActorCritic, log_std, lr, units: B
     after the exit; the loop's counters and exit flag advance on the device."""
     params = list(model.parameters())
     rows = index.index_select(0, loop.i)[0]
-    mb = Batch(*(_minibatch_rows(cfg, x, rows) for x in units))
+    mb = UnitBatch(mbops.gather_units(units.obs, rows), units.actions, units.logprobs,
+                   mbops.gather_units(units.advantages, rows), units.returns, units.values,
+                   rows)
     if mesh is not None:
         moments = moments.index_select(0, loop.i)[0].unbind()
     with torch.enable_grad():

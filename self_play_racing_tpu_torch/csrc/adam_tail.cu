@@ -26,18 +26,40 @@
 // active (zeros where not active); then i += 1, applied += apply, stop |= active &
 // trig. g_norm's reductions stay PyTorch's: their order sets its bits.
 //
-// The kernel reads the loop's counters and writes them, so it runs as one block:
-// thread 0 reads the counters and the scalars before a barrier, every thread
-// updates its elements, and thread 0 writes the counters after a second barrier.
-// At hidden (64, 64) the step moves 11,075 floats (read p, g, mu, nu, write three:
-// 310 KB, ~0.1 us at 3.35 TB/s): a launch costs more, so the kernel is
-// launch-bound whatever its form. A thread takes four elements at a time, their
-// loads issued before any arithmetic, so one block's memory latency overlaps.
+// Bound on an H100 SXM: at hidden (64, 64) the step moves 11,075 floats (read p, g,
+// mu, nu, write three: 310 KB, ~0.09 us at 3.35 TB/s). What a launch takes beyond the
+// launch itself is its chain of dependent memory round trips and the per-element
+// arithmetic (four IEEE divides and a square root in a dependent chain): one block
+// of 1024 threads took ~12 us on an H100, as one cluster of 16 blocks ~4.3 us. The
+// design:
+// - one thread block cluster (cudaLaunchKernelEx with a cluster dimension) of
+//   kCluster blocks of kThreads, each block a contiguous share of the flat element
+//   range (on an H100 at 11,075 floats, 16 blocks took 4.3 us, 8 4.8-5.8, 4 5.7-6.4, 2
+//   7.9-9.0; 256, 512 and 1024 threads a block within 0.1 us of each other, 128
+//   slower: PERF.md section 6);
+//   every thread issues the loads of its first kBatch elements at entry, before any
+//   scalar is known, finding each element's tensor by a binary search over the
+//   offsets in shared memory;
+// - thread 0 of every block reads the counters, the stats, g_norm and lr at once,
+//   then the bias corrections at the applied count;
+// - the loop's counters are read by every block and written by the cluster's rank 0
+//   alone, after a cluster barrier (barrier.cluster arrive/wait) that every block
+//   arrives at once its thread 0 has read them. Nothing in device memory orders the
+//   blocks, so a CUDA graph replays the launch as it is. Only rank 0 writes the
+//   stats row.
+// One cluster takes any element count (a block loops over its share), but its
+// arithmetic runs on at most 16 SMs: at 16 blocks of 256 a launch took 8.2 us at
+// hidden (128, 128) (38,531 floats) against 4.2 us at (64, 64), and 73 us at (512,
+// 512), against a 4.6 us byte bound. So from some tens of thousands of parameters a
+// grid of clusters, with the counters written by a second launch, would be the faster
+// shape (PERF.md section 6). The repo trains hidden (64, 64) (configs/base.py); its
+// tensor-parallel towers of 128 put about half of (128, 128) on each model rank.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kCluster = 16;  // above 8 blocks: a non-portable cluster size
+constexpr int kThreads = 256;
 constexpr int kMaxTensors = 32;
 constexpr int kBatch = 4;
 constexpr int kStatCols = 8;
@@ -79,36 +101,106 @@ __device__ __forceinline__ float adam_element(float p, float g, float* mu, float
     return __fadd_rn(p, __fmul_rn(u, neg_lr));
 }
 
+__device__ __forceinline__ unsigned cluster_rank() {
+    unsigned r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+    return r;
+}
+
+// the tensor that holds flat element e: the last k < count with start[k] <= e
+__device__ __forceinline__ int tensor_of(const long long* start, int count, long long e) {
+    int lo = 0, hi = count;
+    while (hi - lo > 1) {
+        const int mid = (lo + hi) >> 1;
+        if (start[mid] <= e) lo = mid; else hi = mid;
+    }
+    return lo;
+}
+
+// kBatch elements at a stride of the block from base, below end: their loads
+struct Batch {
+    float p[kBatch], g[kBatch], mu[kBatch], nu[kBatch];
+    int which[kBatch];
+    long long at[kBatch];
+};
+
+__device__ __forceinline__ void load_batch(const Tensors& t, const long long* start,
+                                           long long base, long long end, Batch& b) {
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+        const long long e = base + (long long)k * kThreads;
+        b.which[k] = -1;
+        if (e < end) {
+            const int w = tensor_of(start, t.count, e);
+            b.which[k] = w;
+            b.at[k] = e - start[w];
+            b.p[k] = t.p[w][b.at[k]];
+            b.g[k] = t.g[w][b.at[k]];
+            b.mu[k] = t.mu[w][b.at[k]];
+            b.nu[k] = t.nu[w][b.at[k]];
+        }
+    }
+}
+
+__device__ __forceinline__ void apply_batch(const Tensors& t, const Loop& l, Batch& b,
+                                            bool below, float g_norm, float bc1, float bc2,
+                                            float neg_lr) {
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+        if (b.which[k] < 0) continue;
+        const int w = b.which[k];
+        const float pn = adam_element(b.p[k], b.g[k], &b.mu[k], &b.nu[k], l, below, g_norm,
+                                      bc1, bc2, neg_lr);
+        t.p[w][b.at[k]] = pn;
+        t.mu[w][b.at[k]] = b.mu[k];
+        t.nu[w][b.at[k]] = b.nu[k];
+    }
+}
+
 __global__ void __launch_bounds__(kThreads) adam_tail_kernel(Tensors t, Loop l) {
-    __shared__ long long s_i, s_applied;
+    __shared__ long long s_start[kMaxTensors + 1];
     __shared__ int s_flags;  // bit 0 apply, bit 1 active, bit 2 trig, bit 3 below
     __shared__ float s_g_norm, s_bc1, s_bc2, s_neg_lr;
-    __shared__ long long s_start[kMaxTensors + 1];
     const int tid = threadIdx.x;
-    for (int k = tid; k <= t.count; k += blockDim.x) s_start[k] = t.start[k];
+    const unsigned rank = cluster_rank();
+    // thread 0's scalar loads go out first, all at once; nothing is stored before
+    // every one of them is read (a store might alias a later load)
+    long long i = 0, applied = 0;
+    unsigned char stop = 0;
+    float stat[6], g_norm = 0.0f, lr = 0.0f;
     if (tid == 0) {
-        // every scalar read before the first store (a store might alias a later
-        // load and serialize the round trips), the bias corrections after the count
-        const long long i = *l.i, applied = *l.applied;
-        const bool stop = *l.stop != 0;
-        float stat[6];
+        i = *l.i;
+        applied = *l.applied;
+        stop = *l.stop;
 #pragma unroll
         for (int k = 0; k < 6; ++k) stat[k] = *l.stat[k];
-        const float g_norm = *l.g_norm, lr = *l.lr;
+        g_norm = *l.g_norm;
+        lr = *l.lr;
+    }
+    for (int k = tid; k <= t.count; k += kThreads) s_start[k] = t.start[k];
+    __syncthreads();
+
+    // this block's share of the flat element range, its first batch loaded at once
+    const long long total = s_start[t.count];
+    const long long share = (total + kCluster - 1) / kCluster;
+    const long long lo = share * rank;
+    const long long hi = lo + share < total ? lo + share : total;
+    Batch b;
+    load_batch(t, s_start, lo + tid, hi, b);
+
+    if (tid == 0) {
         const bool trig = stat[4] > l.kl_target;
-        const bool active = !stop, apply = active && !trig;
+        const bool active = stop == 0, apply = active && !trig;
         if (apply && (applied < 0 || applied >= l.bc_rows)) __trap();  // as index_select
         const float bc1 = apply ? l.bc1[applied] : 0.0f;
         const float bc2 = apply ? l.bc2[applied] : 0.0f;
-        if (i >= 0 && i < l.stats_rows) {
+        if (rank == 0 && i >= 0 && i < l.stats_rows) {
             float* row = l.stats + i * kStatCols;
 #pragma unroll
             for (int k = 0; k < 6; ++k) row[k] = active ? stat[k] : 0.0f;
             row[6] = apply ? 1.0f : 0.0f;
             row[7] = active ? 1.0f : 0.0f;
         }
-        s_i = i;
-        s_applied = applied;
         s_flags = (apply ? 1 : 0) | (active ? 2 : 0) | (trig ? 4 : 0)
                   | (g_norm < l.max_norm ? 8 : 0);
         s_g_norm = g_norm;
@@ -117,61 +209,48 @@ __global__ void __launch_bounds__(kThreads) adam_tail_kernel(Tensors t, Loop l) 
         s_neg_lr = -lr;
     }
     __syncthreads();
+    // this block has read the counters: rank 0 may overwrite them once every block
+    // has arrived
+    asm volatile("barrier.cluster.arrive;" ::: "memory");
     const int flags = s_flags;
     if (flags & 1) {
         const bool below = (flags & 8) != 0;
-        const float g_norm = s_g_norm, bc1 = s_bc1, bc2 = s_bc2, neg_lr = s_neg_lr;
-        const long long total = s_start[t.count];
-        int tensor = 0;
-        for (long long base = (long long)tid; base < total;
-             base += (long long)kBatch * blockDim.x) {
-            // kBatch elements at a stride of the block: their loads first
-            float p[kBatch], g[kBatch], mu[kBatch], nu[kBatch];
-            int which[kBatch];
-            long long at[kBatch];
-#pragma unroll
-            for (int b = 0; b < kBatch; ++b) {
-                const long long e = base + (long long)b * blockDim.x;
-                which[b] = -1;
-                if (e < total) {
-                    while (e >= s_start[tensor + 1]) ++tensor;
-                    which[b] = tensor;
-                    at[b] = e - s_start[tensor];
-                    p[b] = t.p[tensor][at[b]];
-                    g[b] = t.g[tensor][at[b]];
-                    mu[b] = t.mu[tensor][at[b]];
-                    nu[b] = t.nu[tensor][at[b]];
-                }
-            }
-#pragma unroll
-            for (int b = 0; b < kBatch; ++b) {
-                if (which[b] < 0) continue;
-                const int k = which[b];
-                const float pn = adam_element(p[b], g[b], &mu[b], &nu[b], l, below, g_norm,
-                                              bc1, bc2, neg_lr);
-                t.p[k][at[b]] = pn;
-                t.mu[k][at[b]] = mu[b];
-                t.nu[k][at[b]] = nu[b];
-            }
+        const float gn = s_g_norm, bc1 = s_bc1, bc2 = s_bc2, neg_lr = s_neg_lr;
+        apply_batch(t, l, b, below, gn, bc1, bc2, neg_lr);
+        for (long long base = lo + tid + (long long)kBatch * kThreads; base < hi;
+             base += (long long)kBatch * kThreads) {
+            load_batch(t, s_start, base, hi, b);
+            apply_batch(t, l, b, below, gn, bc1, bc2, neg_lr);
         }
     }
-    __syncthreads();
-    if (tid == 0) {
+    asm volatile("barrier.cluster.wait;" ::: "memory");
+    if (rank == 0 && tid == 0) {
         const bool active = (flags & 2) != 0, trig = (flags & 4) != 0;
-        *l.i = s_i + 1;
-        *l.applied = s_applied + (flags & 1);
-        *l.stop = (!active || (active && trig)) ? 1 : 0;
+        *l.i = i + 1;
+        *l.applied = applied + (flags & 1);
+        *l.stop = (!active || trig) ? 1 : 0;
     }
 }
 
 constexpr int kLoopPtrs = 14;   // g_norm, 6 stats, bc1, bc2, lr, i, applied, stop, stats
 constexpr int kLoopConsts = 7;  // max_norm, kl_target, b1, 1 - b1, b2, 1 - b2, eps
 
+// once per device: the kernel allowed the non-portable cluster size
+cudaError_t allow_cluster(int device) {
+    static bool allowed[64] = {};
+    if (device >= 0 && device < 64 && allowed[device]) return cudaSuccess;
+    const cudaError_t err = cudaFuncSetAttribute(
+        adam_tail_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err == cudaSuccess && device >= 0 && device < 64) allowed[device] = true;
+    return err;
+}
+
 }  // namespace
 
 // tensors: 4 pointers a tensor (parameter, gradient, mu, nu; float32, contiguous),
 // sizes: each tensor's element count; loop: the kLoopPtrs pointers in Loop's order;
-// consts: the kLoopConsts float32 constants in Loop's order. Returns a cudaError_t.
+// consts: the kLoopConsts float32 constants in Loop's order. One cluster of kCluster
+// blocks. Returns a cudaError_t.
 extern "C" int adam_tail_f32(void* const* tensors, const long long* sizes, int num_tensors,
                              void* const* loop, int num_loop, const float* consts,
                              int num_consts, long long bc_rows, long long stats_rows,
@@ -211,7 +290,21 @@ extern "C" int adam_tail_f32(void* const* tensors, const long long* sizes, int n
     l.b2 = consts[4];
     l.one_minus_b2 = consts[5];
     l.eps = consts[6];
-    adam_tail_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(t, l);
+    err = allow_cluster(device);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(kCluster, 1, 1);
+    cfg.blockDim = dim3(kThreads, 1, 1);
+    cfg.stream = (cudaStream_t)stream;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = kCluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, adam_tail_kernel, t, l);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }
 

@@ -56,8 +56,8 @@ _SIGNATURES = {
     "multi_observe_small_f32": [_P] * 15 + [_I] * 4 + [_F] * 5 + [_I] * 5 + [_I, _P],
     "multi_transition_f32": [_P, _I, _P, _I] + [_I] * 8 + [_I, _P],
     "multi_observe_f32": [_P] * 15 + [_I] * 4 + [_F] * 5 + [_I] * 9 + [_I, _P],
-    "ppo_head_forward_f32": [_P, _I, _P, _I, _P, _L, _I, _P],
-    "ppo_head_backward_f32": [_P, _I, _P, _I, _P, _L, _P, _L, _P, _P, _L, _I, _P],
+    "ppo_head_forward_f32": [_P, _I, _P, _I, _P, _L, _L, _L, _I, _P],
+    "ppo_head_backward_f32": [_P, _I, _P, _I, _P, _L, _P, _L, _P, _P, _L, _L, _L, _I, _P],
     "adam_tail_f32": [_P, _P, _I, _P, _I, _P, _I, _L, _L, _I, _P],
     "single_transition_f32": [_P, _I, _P, _I] + [_I] * 5 + [_I, _P],
     "single_transition_rows_f32": [_P, _I, _P, _I] + [_I] * 8 + [_I, _P],
@@ -719,14 +719,20 @@ def launch_single_transition(ptrs, constants, rows: int, num_waypoints: int,
     return by_rows
 
 
-# ppo_head (csrc/ppo_head.cu): its input pointers and float32 constants
-PPO_HEAD_INPUTS = 10
+# ppo_head (csrc/ppo_head.cu): its input pointers (the unit ids last, null for none)
+# and float32 constants
+PPO_HEAD_INPUTS = 11
 PPO_HEAD_CONSTS = 6
 # adam_tail (csrc/adam_tail.cu): the parameter tensors one launch takes at most, and
 # its loop pointers and float32 constants
 ADAM_TAIL_MAX_TENSORS = 32
 ADAM_TAIL_LOOP_PTRS = 14
 ADAM_TAIL_CONSTS = 7
+# adam_tail's pointer and size tables by the pointers they hold: the eager paths (a
+# gloo rank, eager=True, a tensor-parallel rank) launch on one parameter set a
+# minibatch after another, so each set's ctypes tables are built once
+_ADAM_TAIL_TABLES: dict = {}
+_ADAM_TAIL_TABLES_MAX = 16
 
 
 def _ptr_array(tensors):
@@ -737,46 +743,78 @@ def _float_array(values):
     return (ctypes.c_float * len(values))(*map(float, values))
 
 
-def launch_ppo_head_forward(inputs, constants, outputs, n: int) -> None:
+def _head_inputs(inputs, unit_ids):
+    """The kernel's pointer table and the unit-indexed fields' (block, units): with
+    ``unit_ids``, the actions [units, block, 2] and old log-probs [units, block]."""
+    if len(inputs) != PPO_HEAD_INPUTS - 1:
+        raise ValueError(f"ppo_head: {len(inputs)} inputs, expected {PPO_HEAD_INPUTS - 1}")
+    if unit_ids is None:
+        return _ptr_array(list(inputs) + [None]), 0, 0
+    units, block = inputs[3].shape
+    return _ptr_array(list(inputs) + [unit_ids]), block, units
+
+
+def launch_ppo_head_forward(inputs, constants, outputs, n: int, unit_ids=None) -> None:
     """Launch the loss head's forward on the current stream of ``outputs[0]``'s
-    device: ``inputs`` the ``PPO_HEAD_INPUTS`` tensors and ``constants`` the
-    ``PPO_HEAD_CONSTS`` float32 values in the order of
-    ``csrc/ppo_head.cu:HeadArgs``, ``outputs`` the four [n] tensors it writes."""
-    if len(inputs) != PPO_HEAD_INPUTS or len(constants) != PPO_HEAD_CONSTS:
-        raise ValueError(f"ppo_head: {len(inputs)} inputs and {len(constants)} constants, "
-                         f"expected {PPO_HEAD_INPUTS} and {PPO_HEAD_CONSTS}")
-    _call("ppo_head", "ppo_head_forward_f32", outputs[0].device, _ptr_array(inputs),
-          PPO_HEAD_INPUTS, _float_array(constants), PPO_HEAD_CONSTS, _ptr_array(outputs), n)
+    device: ``inputs`` the ten tensors and ``constants`` the ``PPO_HEAD_CONSTS``
+    float32 values in the order of ``csrc/ppo_head.cu:HeadArgs``, ``outputs`` the
+    four [n] tensors it writes; with ``unit_ids`` (int64 [n / block]) the actions,
+    old log-probs, returns and old values are [units, block, ...] read through it."""
+    if len(constants) != PPO_HEAD_CONSTS:
+        raise ValueError(f"ppo_head: {len(constants)} constants, expected {PPO_HEAD_CONSTS}")
+    dev = outputs[0].device
+    ptrs, block, units = _head_inputs(inputs, unit_ids)
+    _call("ppo_head", "ppo_head_forward_f32", dev, ptrs, PPO_HEAD_INPUTS,
+          _float_array(constants), PPO_HEAD_CONSTS, _ptr_array(outputs), n, block, units)
 
 
 def launch_ppo_head_backward(inputs, constants, g_pg, pg_stride: int, g_vm, vm_stride: int,
-                             g_mu, g_v, n: int) -> None:
+                             g_mu, g_v, n: int, unit_ids=None) -> None:
     """Launch the loss head's backward on the current stream of ``g_mu``'s device:
-    the forward's ``inputs`` and ``constants``, the upstream gradients of its two
-    maxima (None for none; stride 1, or 0 for an expanded one), out ``g_mu`` [n, 2]
-    and ``g_v`` [n]."""
-    _call("ppo_head", "ppo_head_backward_f32", g_mu.device, _ptr_array(inputs),
-          PPO_HEAD_INPUTS, _float_array(constants), PPO_HEAD_CONSTS, _ptr(g_pg), pg_stride,
-          _ptr(g_vm), vm_stride, _ptr(g_mu), _ptr(g_v), n)
+    the forward's ``inputs``, ``constants`` and ``unit_ids``, the upstream gradients
+    of its two maxima (None for none; stride 1, or 0 for an expanded one), out
+    ``g_mu`` [n, 2] and ``g_v`` [n]."""
+    ptrs, block, units = _head_inputs(inputs, unit_ids)
+    _call("ppo_head", "ppo_head_backward_f32", g_mu.device, ptrs, PPO_HEAD_INPUTS,
+          _float_array(constants), PPO_HEAD_CONSTS, _ptr(g_pg), pg_stride, _ptr(g_vm),
+          vm_stride, _ptr(g_mu), _ptr(g_v), n, block, units)
+
+
+def _adam_tail_tables(tensors, loop):
+    """(pointer table of the (parameter, gradient, mu, nu) tuples ``tensors``, their
+    element counts, pointer table of ``loop``): built once for each set of pointers
+    and counts and kept (``_ADAM_TAIL_TABLES``)."""
+    ptrs = tuple(x.data_ptr() for t in tensors for x in t)
+    sizes = tuple(t[0].numel() for t in tensors)
+    key = (ptrs, sizes, tuple(x.data_ptr() for x in loop))
+    tables = _ADAM_TAIL_TABLES.get(key)
+    if tables is None:
+        if len(_ADAM_TAIL_TABLES) >= _ADAM_TAIL_TABLES_MAX:
+            _ADAM_TAIL_TABLES.clear()
+        tables = ((ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_longlong * len(sizes))(*sizes),
+                  (ctypes.c_void_p * len(loop))(*key[2]))
+        _ADAM_TAIL_TABLES[key] = tables
+    return tables
 
 
 def launch_adam_tail(tensors, loop, constants, bc_rows: int, stats_rows: int,
                      device: torch.device) -> None:
-    """Launch the minibatch step's tail on ``device``'s current stream: ``tensors``
-    (parameter, gradient, mu, nu) tuples of contiguous float32 tensors, ``loop`` the
-    ``ADAM_TAIL_LOOP_PTRS`` tensors and ``constants`` the ``ADAM_TAIL_CONSTS`` float32
-    values in the order of ``csrc/adam_tail.cu:Loop``."""
+    """Launch the minibatch step's tail on ``device``'s current stream, one thread
+    block cluster: ``tensors`` (parameter, gradient, mu, nu) tuples of
+    contiguous float32 tensors, ``loop`` the ``ADAM_TAIL_LOOP_PTRS`` tensors and
+    ``constants`` the ``ADAM_TAIL_CONSTS`` float32 values (a ctypes array, or values)
+    in the order of ``csrc/adam_tail.cu:Loop``."""
     if not 1 <= len(tensors) <= ADAM_TAIL_MAX_TENSORS:
         raise ValueError(f"adam_tail: {len(tensors)} parameter tensors; the kernel takes "
                          f"1 to {ADAM_TAIL_MAX_TENSORS}")
     if len(loop) != ADAM_TAIL_LOOP_PTRS or len(constants) != ADAM_TAIL_CONSTS:
         raise ValueError(f"adam_tail: {len(loop)} loop tensors and {len(constants)} "
                          f"constants, expected {ADAM_TAIL_LOOP_PTRS} and {ADAM_TAIL_CONSTS}")
-    sizes = (ctypes.c_longlong * len(tensors))(*(t[0].numel() for t in tensors))
-    _call("adam_tail", "adam_tail_f32", device,
-          _ptr_array([x for t in tensors for x in t]), sizes, len(tensors),
-          _ptr_array(loop), ADAM_TAIL_LOOP_PTRS, _float_array(constants), ADAM_TAIL_CONSTS,
-          bc_rows, stats_rows)
+    ptrs, sizes, loop_ptrs = _adam_tail_tables(tensors, loop)
+    if not isinstance(constants, ctypes.Array):
+        constants = _float_array(constants)
+    _call("adam_tail", "adam_tail_f32", device, ptrs, sizes, len(tensors), loop_ptrs,
+          ADAM_TAIL_LOOP_PTRS, constants, ADAM_TAIL_CONSTS, bc_rows, stats_rows)
 
 
 def launch_compute_gae(rewards, dones, values, next_value, next_done, adv, ret,

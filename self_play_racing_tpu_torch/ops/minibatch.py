@@ -5,16 +5,19 @@ The JAX package runs the whole minibatch body (``self_play_racing_tpu/agent/ppo.
 ``body_fn``: the loss, its gradient under ``jax.value_and_grad``, optax's
 ``clip_by_global_norm`` and ``scale_by_adam``, ``apply_updates`` and the KL exit's
 ``jnp.where`` masks) as one XLA program on the TPU. The port keeps the GEMMs, the
-gather and the reductions PyTorch's and runs the per-row and per-element work around
-them in two hand-written kernels (``csrc/ppo_head.cu``, ``csrc/adam_tail.cu``):
+gather of the observations and advantages and the reductions PyTorch's and runs the
+per-row and per-element work around them in two hand-written kernels
+(``csrc/ppo_head.cu``, ``csrc/adam_tail.cu``):
 
 - ``ppo_head`` dispatches on the device of ``mu``: a CPU tensor takes
   ``ppo_head_plain`` (the PyTorch composition, autograd for its gradient), a CUDA
   tensor ``PPOHead``, a ``torch.autograd.Function`` whose forward and backward are
-  one launch each; both are bitwise the plain composition on the card.
+  one launch each; both are bitwise the plain composition on the card. Given the
+  minibatch's unit ids, it reads the actions, old log-probs, returns and old values
+  where the rollout's units hold them (the plain version gathers them first).
 - ``adam_tail`` dispatches on the device of the parameters: a CPU tensor takes
   ``adam_tail_plain`` (the ``_foreach``/``where`` composition), a CUDA tensor one
-  launch, bitwise the composition on the card.
+  launch of one thread block cluster, bitwise the composition on the card.
 - A CUDA tensor of another dtype than float32, or one that is not contiguous,
   raises; there is no fallback from a kernel to its plain version.
 - ``ppo_head_launches``, ``ppo_head_backward_launches`` and ``adam_tail_launches``
@@ -22,6 +25,7 @@ them in two hand-written kernels (``csrc/ppo_head.cu``, ``csrc/adam_tail.cu``):
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -66,26 +70,42 @@ def _check_cuda(name: str, device: torch.device, tensors, dtype=torch.float32) -
 # ------------------------------------------------------------------- the loss head
 
 def ppo_head(mu, v, actions, old_logprobs, advantages, returns, values, log_std, mean, std,
-             clip_coef: float):
+             clip_coef: float, unit_ids=None):
     """The per-row part of the clipped PPO loss (``agent/ppo.py:_ppo_loss``).
 
     ``mu`` [n, 2] is the actor's mean (after its tanh), ``v`` [n] the critic's
     value; the minibatch's actions [n, 2], old log-probs, advantages, returns and old
     values [n]; ``log_std`` [2]; ``mean`` and ``std`` the advantages' moments (0-d).
+    With ``unit_ids`` (int64 [n / block], the minibatch's shuffle units) the actions,
+    old log-probs, returns and old values are the rollout's units instead,
+    [units, block, 2] and [units, block] (``agent/ppo.py:shard_blocks``), and row r
+    of the minibatch is unit ``unit_ids[r // block]``, offset ``r % block``: the
+    kernel reads them there, the plain version gathers them first.
     Returns (-log_ratio, max(pg1, pg2), max((v - R)^2, (v_clip - R)^2), clip flag),
     each [n] (the flag float32), differentiable in ``mu`` and ``v`` through the
     second and third."""
     if not _on_cuda(mu, "ppo_head"):
         return ppo_head_plain(mu, v, actions, old_logprobs, advantages, returns, values,
-                              log_std, mean, std, clip_coef)
+                              log_std, mean, std, clip_coef, unit_ids)
     return PPOHead.apply(mu, v, actions, old_logprobs, advantages, returns, values,
-                         log_std, mean, std, float(clip_coef))
+                         log_std, mean, std, float(clip_coef), unit_ids)
+
+
+def gather_units(x: torch.Tensor, unit_ids: torch.Tensor) -> torch.Tensor:
+    """The rows of units [units, block, ...] (``agent/ppo.py:shard_blocks``' layout,
+    shard and unit axes merged) at ``unit_ids``, flat: [ids * block, ...]; a
+    minibatch's field at its unit ids."""
+    return x.index_select(0, unit_ids).reshape((-1,) + x.shape[2:])
 
 
 def ppo_head_plain(mu, v, actions, old_logprobs, advantages, returns, values, log_std,
-                   mean, std, clip_coef: float):
-    """Plain PyTorch ``ppo_head``: the composition of ``normal_log_prob`` and the
-    loss's elementwise operations, as ``_ppo_loss`` forms them."""
+                   mean, std, clip_coef: float, unit_ids=None):
+    """Plain PyTorch ``ppo_head``: with ``unit_ids`` the four unit fields gathered
+    (``gather_units``), then the composition of ``normal_log_prob`` and the loss's
+    elementwise operations, as ``_ppo_loss`` forms them."""
+    if unit_ids is not None:
+        actions, old_logprobs, returns, values = (
+            gather_units(x, unit_ids) for x in (actions, old_logprobs, returns, values))
     log_ratio = net.normal_log_prob(actions, mu, log_std) - old_logprobs
     ratio = torch.exp(log_ratio)
     adv = (advantages - mean) / (std + ADV_EPS)
@@ -97,6 +117,7 @@ def ppo_head_plain(mu, v, actions, old_logprobs, advantages, returns, values, lo
     return -log_ratio, torch.maximum(pg1, pg2), v_max, clipped
 
 
+@functools.lru_cache(maxsize=64)
 def _head_constants(clip_coef: float):
     """The kernel's float32 constants (``csrc/ppo_head.cu:HeadArgs``), rounded as
     PyTorch rounds the Python scalars of ``ppo_head_plain``."""
@@ -117,32 +138,50 @@ def _upstream(g, n: int, device):
     return g, (g.stride()[0] if n > 1 else 1)
 
 
+def _check_head(inputs, unit_ids) -> None:
+    """The shapes ``PPOHead`` takes (see ``ppo_head``)."""
+    mu, v, actions, old_logprobs, advantages, returns, values, log_std, mean, std = inputs
+    n = mu.shape[0]
+    if unit_ids is None:
+        lead, what = (n,), "[n]"
+    else:
+        _check_cuda("ppo_head", mu.device, (unit_ids,), torch.int64)
+        block = actions.shape[1] if actions.ndim == 3 else 0
+        lead, what = (actions.shape[0], block), "[units, block] with n = ids * block"
+        if unit_ids.ndim != 1 or unit_ids.shape[0] * block != n:
+            raise ValueError(f"ppo_head: {tuple(unit_ids.shape)} unit ids of {block} rows "
+                             f"for {n} rows")
+    if (mu.shape != (n, 2) or actions.shape != lead + (2,) or log_std.shape != (2,)
+            or any(t.shape != (n,) for t in (v, advantages))
+            or any(t.shape != lead for t in (old_logprobs, returns, values))
+            or mean.numel() != 1 or std.numel() != 1):
+        raise ValueError(f"ppo_head: the kernel takes mu [n, 2], v and the advantages [n], "
+                         f"the actions, old log-probs, returns and old values {what} (the "
+                         f"actions with 2 more), log_std [2] and 0-d moments")
+
+
 class PPOHead(torch.autograd.Function):
     """``ppo_head`` on the card: the forward one launch of
     ``csrc/ppo_head.cu:ppo_head_forward_f32``, the backward one of
     ``ppo_head_backward_f32``, which recomputes the forward's intermediates from the
-    saved inputs. The -log_ratio and the clip flag are not differentiable (the loss
-    does not use them)."""
+    saved inputs (through the unit index where one is given). The -log_ratio and the
+    clip flag are not differentiable (the loss does not use them)."""
 
     @staticmethod
     def forward(ctx, mu, v, actions, old_logprobs, advantages, returns, values, log_std,
-                mean, std, clip_coef):
+                mean, std, clip_coef, unit_ids=None):
         global ppo_head_launches
         n = mu.shape[0]
         inputs = (mu, v, actions, old_logprobs, advantages, returns, values, log_std,
                   mean, std)
         _check_cuda("ppo_head", mu.device, inputs)
-        if (mu.shape != (n, 2) or actions.shape != (n, 2) or log_std.shape != (2,)
-                or any(t.shape != (n,) for t in (v, old_logprobs, advantages, returns, values))
-                or mean.numel() != 1 or std.numel() != 1):
-            raise ValueError("ppo_head: the kernel takes mu and actions [n, 2], v and the "
-                             "minibatch's fields [n], log_std [2] and 0-d moments")
+        _check_head(inputs, unit_ids)
         outputs = [torch.empty_like(v) for _ in range(4)]
         constants = _head_constants(clip_coef)
         with torch.cuda.device(mu.device):
-            _cuda.launch_ppo_head_forward(inputs, constants, outputs, n)
+            _cuda.launch_ppo_head_forward(inputs, constants, outputs, n, unit_ids)
         ppo_head_launches += 1
-        ctx.save_for_backward(*inputs)
+        ctx.save_for_backward(*inputs, unit_ids)
         ctx.constants = constants
         ctx.set_materialize_grads(False)
         ctx.mark_non_differentiable(outputs[0], outputs[3])
@@ -151,7 +190,7 @@ class PPOHead(torch.autograd.Function):
     @staticmethod
     def backward(ctx, _g_kl, g_pg, g_vm, _g_clipped):
         global ppo_head_backward_launches
-        inputs = ctx.saved_tensors
+        *inputs, unit_ids = ctx.saved_tensors
         mu, v = inputs[0], inputs[1]
         n = mu.shape[0]
         g_pg, pg_stride = _upstream(g_pg, n, mu.device)
@@ -160,9 +199,9 @@ class PPOHead(torch.autograd.Function):
         g_v = torch.empty_like(v)
         with torch.cuda.device(mu.device):
             _cuda.launch_ppo_head_backward(inputs, ctx.constants, g_pg, pg_stride, g_vm,
-                                           vm_stride, g_mu, g_v, n)
+                                           vm_stride, g_mu, g_v, n, unit_ids)
         ppo_head_backward_launches += 1
-        return (g_mu, g_v) + (None,) * 9
+        return (g_mu, g_v) + (None,) * 10
 
 
 # -------------------------------------------------------------------- the tail
@@ -199,12 +238,19 @@ def apply_updates(params, updates, lr) -> list:
     return list(torch._foreach_add(params, torch._foreach_mul(updates, neg)))
 
 
+@functools.lru_cache(maxsize=64)
 def _tail_constants(max_norm: float, kl_target: float):
     """The kernel's float32 constants (``csrc/adam_tail.cu:Loop``): max_norm,
     kl_target, b1, 1 - b1, b2, 1 - b2, eps, each rounded as PyTorch rounds the
     Python scalar of ``adam_tail_plain`` (``1 - b1`` taken in float64 first)."""
     return (_f32(max_norm), _in_dtype(kl_target, torch.float32), _f32(ADAM_B1),
             _f32(1 - ADAM_B1), _f32(ADAM_B2), _f32(1 - ADAM_B2), _f32(ADAM_EPS))
+
+
+@functools.lru_cache(maxsize=64)
+def _tail_constant_array(max_norm: float, kl_target: float):
+    """``_tail_constants`` as the ctypes array the launch takes, built once."""
+    return _cuda._float_array(_tail_constants(max_norm, kl_target))
 
 
 def adam_tail(params, grads, mu, nu, g_norm, stats, bc1, bc2, lr, loop, max_norm: float,
@@ -249,7 +295,7 @@ def adam_tail(params, grads, mu, nu, g_norm, stats, bc1, bc2, lr, loop, max_norm
         _cuda.launch_adam_tail(list(zip(params, grads, mu, nu)),
                                (g_norm, *stats, bc1, bc2, lr, loop.i, loop.applied,
                                 loop.stop, loop.stats),
-                               _tail_constants(max_norm, kl_target), bc1.shape[0],
+                               _tail_constant_array(max_norm, kl_target), bc1.shape[0],
                                loop.stats.shape[0], dev)
     adam_tail_launches += 1
 

@@ -37,7 +37,10 @@ track, the observation also bitwise the fold's shape model
 (``chip_smoke.shape_model_observe``). The PPO minibatch step's two kernels
 (``ops/minibatch.py``): ``ppo_head``'s forward and backward and ``adam_tail``
 bitwise their plain compositions on rows that take every branch, at 1 to 65,536
-rows, on a group's flat-buffer gradients, and over a whole update. The single-car
+rows, on a group's flat-buffer gradients, and over a whole update; the head also
+through the minibatch's unit index (the rollout's units read in place) and with an
+upstream gradient absent, the tail as one thread block cluster on 1 to 32 tensors
+and over 16 replays of a CUDA graph. The single-car
 env's step (``single.transition``, ``csrc/single_transition.cu``, and
 ``single.observe``, the multi-car observation kernel at one car a row without its
 car pass; one launch each) bitwise, -0.0 apart from 0.0, its plain version (the
@@ -1546,6 +1549,122 @@ def test_update_with_the_learner_kernels_is_the_plain_update_bitwise(cuda):
     assert [b - a for a, b in zip(before, after)] == [16] * 3
     assert all(chip_smoke.same_bits(a, b) for a, b in zip(got[0], want[0]))
     assert got[1] == want[1]
+
+
+# the redesigned minibatch kernels: the head's rows through the unit index, the tail's
+# cluster. Rows: the self-play minibatch, a four-card rank's part, an odd count (units
+# of 3 rows, a chunk's rows then read one by one)
+UNIT_ROWS = [65_536, 16_384, 4095]
+
+
+def _unit_head(cuda, rows, own_moments=False):
+    block = 3 if rows % 2 else 64
+    n_ids = rows // block
+    rng = np.random.default_rng(rows)
+    ids = rng.permutation(2 * n_ids)[:n_ids]
+    return chip_smoke.unit_head_tensors(2 * n_ids, block, ids, rng, cuda, own_moments)
+
+
+@pytest.mark.parametrize("rows", UNIT_ROWS)
+@pytest.mark.parametrize("own_moments", [False, True])
+def test_ppo_head_through_the_unit_index_matches_plain(cuda, rows, own_moments):
+    """``ppo_head`` reading the actions, old log-probs, returns and old values through
+    the minibatch's unit ids: forward and backward bitwise the plain version (the
+    gather, then the composition and its autograd) with the gradients from the loss
+    (stride 0), given (stride 1) and expanded, and bitwise the kernel on the same rows
+    gathered first."""
+    t = _unit_head(cuda, rows, own_moments)
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    gp, gv = (torch.randn((rows,), generator=g, device=cuda) for _ in range(2))
+    before = (mbops.ppo_head_launches, mbops.ppo_head_backward_launches)
+    for upstream in (None, (gp, gv), (gp[:1].expand(rows), gv[:1].expand(rows))):
+        assert chip_smoke.hold_head(t, upstream, f"{rows} rows by unit id") == 0.0
+    gathered = {k: x for k, x in t.items() if k != "unit_ids"}
+    for k in ("actions", "logprobs", "returns", "values"):
+        gathered[k] = mbops.gather_units(t[k], t["unit_ids"])
+    by_id = chip_smoke.head_outputs(mbops.ppo_head, t, (gp, gv))
+    assert all(chip_smoke.same_bits(a, b) for a, b in
+               zip(by_id, chip_smoke.head_outputs(mbops.ppo_head, gathered, (gp, gv))))
+    assert (mbops.ppo_head_launches - before[0],
+            mbops.ppo_head_backward_launches - before[1]) == (5, 5)
+
+
+@pytest.mark.parametrize("rows", [65_536, 4097])
+@pytest.mark.parametrize("by_id", [False, True])
+@pytest.mark.parametrize("used", ["pg", "v"])
+def test_ppo_head_backward_with_one_upstream_gradient_absent(cuda, rows, by_id, used):
+    """A loss of one maximum alone: autograd hands the head's backward no gradient
+    for the other (null, read as zeros). The used side's input gradient is bitwise
+    the plain autograd's, the other's is zero."""
+    if by_id:
+        t = _unit_head(cuda, 4095 if rows % 2 else rows)
+    else:
+        t = chip_smoke.head_tensors(
+            chip_smoke.crafted_minibatch(rows, np.random.default_rng(rows)), cuda)
+    n = t["mu"].shape[0]
+    grads = []
+    for head in (mbops.ppo_head, mbops.ppo_head_plain):
+        out = head(*(t[k] for k in chip_smoke.HEAD_ARGS), chip_smoke.HEAD_CLIP,
+                   t.get("unit_ids"))
+        loss = out[1].mean() if used == "pg" else out[2].mean()
+        grads.append(torch.autograd.grad(loss, (t["mu"], t["v"]), allow_unused=True))
+    (k_mu, k_v), (p_mu, p_v) = grads
+    if used == "pg":
+        assert chip_smoke.same_bits(k_mu, p_mu) and p_v is None
+        assert torch.equal(k_v, torch.zeros((n,), device=cuda))
+    else:
+        assert chip_smoke.same_bits(k_v, p_v) and p_mu is None
+        assert torch.equal(k_mu, torch.zeros((n, 2), device=cuda))
+
+
+def _tail_of_sizes(sizes, dev, seed):
+    """``chip_smoke.tail_state`` with parameters of the given element counts."""
+    gen = torch.Generator().manual_seed(seed)
+    like = lambda n, s: (torch.randn(n, generator=gen) * s).to(dev)
+    params = [like(n, 0.1) for n in sizes]
+    grads = [like(n, 0.003) for n in sizes]
+    mu = [like(n, 0.01) for n in sizes]
+    nu = [like(n, 0.001).square() for n in sizes]
+    return (params, grads, mu, nu) + chip_smoke.tail_state(dev, seed)[4:]
+
+
+# parameter sets at the kernel's cluster of 16 blocks of 256, 4 elements a thread at a
+# time: the (64, 64) policy's 12 tensors (a pass a block), one tensor of several passes
+# a block, 32 with empty ones (shares that end inside tensors, 3 passes a block), 3
+# elements (blocks with no share)
+TAIL_SIZES = {"12 tensors": None, "one tensor": [40_001],
+              "32 tensors": [(k * 977) % 3001 if k % 7 else 0 for k in range(32)],
+              "3 elements": [2, 0, 1]}
+
+
+@pytest.mark.parametrize("tensors", list(TAIL_SIZES))
+def test_adam_tail_cluster_matches_plain(cuda, tensors):
+    """``adam_tail`` as one thread block cluster bitwise its plain version in every
+    ``TAIL_CASES`` case (applied, clipped, masked by the KL exit and after it), on 1,
+    3, 12 and 32 tensors, the gradients as tensors and as views of one flat buffer."""
+    sizes = TAIL_SIZES[tensors]
+    state = (chip_smoke.tail_state(cuda, 13) if sizes is None
+             else _tail_of_sizes(sizes, cuda, 13))
+    params, grads, mu, nu, bc1, bc2, loop = state
+    buf = torch.cat([x.reshape(-1) for x in grads] + [torch.zeros(6, device=cuda)])
+    at = np.cumsum([0] + [x.numel() for x in grads])
+    views = [buf[a:b].view_as(x) for a, b, x in zip(at[:-1], at[1:], grads)]
+    for name, (kl, stop, scale) in chip_smoke.TAIL_CASES.items():
+        want = chip_smoke.run_tail(mbops.adam_tail_plain, state, kl, stop, scale, cuda)
+        for gs in (grads, views):
+            got = chip_smoke.run_tail(mbops.adam_tail, (params, gs, mu, nu, bc1, bc2, loop),
+                                      kl, stop, scale, cuda)
+            assert all(chip_smoke.same_bits(a, b) for a, b in zip(got, want)), name
+
+
+def test_adam_tail_graph_replays_advance_the_counters_once_each(cuda):
+    """One ``adam_tail`` launch captured in a CUDA graph and replayed 16 times is 16
+    eager steps of the plain version: parameters, moments, the 16 stats rows, and
+    ``i == applied == 16`` (the cluster's counters written once a replay;
+    ``chip_smoke.hold_tail_replays``)."""
+    before = mbops.adam_tail_launches
+    chip_smoke.hold_tail_replays(cuda)
+    assert mbops.adam_tail_launches == before + 2  # the warm-up and the capture
 
 
 # ----------------------------- the single-car env step as two launches (envs/single.py)

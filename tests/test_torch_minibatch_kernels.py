@@ -37,7 +37,18 @@ chip_smoke.py phase n). Here:
   constants (``_head_constants``, ``_tail_constants``), held bitwise in float32 to
   the autograd and ``_foreach`` composition it replaces: it catches an order or a
   rounding mistake before the card does.
+- Transcriptions of the kernels' reads: ``ppo_head``'s through the unit index (a
+  ``UnitBatch``'s actions, old log-probs, returns and values read where the
+  rollout's units hold them), bitwise the plain composition on the gathered rows;
+  ``adam_tail``'s cluster shares and tensor search, at the cluster shape its source
+  sets, taking every element once. Then
+  ``_ppo_loss`` on a ``UnitBatch`` bitwise on the gathered ``Batch`` and within the
+  tolerances above of JAX, and whole CPU updates through the unit index bitwise the
+  updates with every field gathered (``chip_smoke.gathered_minibatch_step``).
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -351,3 +362,174 @@ def test_loaded_adam_moments_are_laid_out_as_the_parameters():
         assert m.is_contiguous() and v.is_contiguous() and m.shape == v.shape == p.shape
         want = ck["state"][i]["exp_avg"].to(m.dtype)
         np.testing.assert_array_equal(m.numpy(), (want.T if want.ndim == 2 else want).numpy())
+
+
+# ------------------- the redesigned kernels' reads: the unit index, the cluster's shares
+
+# (rows a unit, unit ids): whole units, units of 3 (an odd row count), one-row units,
+# one unit, every unit in order
+UNIT_CASES = [(64, [5, 0, 3]), (3, [2, 7, 7, 1, 0]), (1, [4, 9, 2]), (16, [9]),
+              (5, list(range(10)))]
+
+
+@pytest.mark.parametrize("block,ids", UNIT_CASES)
+def test_head_reads_through_the_unit_index_are_the_plain_composition_bitwise(block, ids):
+    """``csrc/ppo_head.cu``'s thread for minibatch row r reads the actions, old
+    log-probs, returns and old values at unit ``ids[r // block]``, offset ``r %
+    block`` (``source_row``); the kernel's arithmetic (``_head_model``) on those reads
+    is bitwise ``ppo_head`` through the index on the CPU, which gathers
+    (``gather_units``) and runs the plain composition."""
+    n_units = 10
+    t = chip_smoke.unit_head_tensors(n_units, block, ids, np.random.default_rng(block), "cpu")
+    unit_ids = t["unit_ids"]
+    n = len(ids) * block
+    r = np.arange(n)
+    src = torch.as_tensor(unit_ids.numpy()[r // block] * block + r % block)
+    read = {k: t[k].reshape((n_units * block,) + t[k].shape[2:])[src]
+            for k in ("actions", "logprobs", "returns", "values")}
+    for k, x in read.items():
+        assert torch.equal(x, mbops.gather_units(t[k], unit_ids)), k
+    g = torch.Generator().manual_seed(n)
+    gp, gv = torch.randn(n, generator=g), torch.randn(n, generator=g)
+    model = _head_model(t["mu"].detach(), t["v"].detach(), read["actions"], read["logprobs"],
+                        t["advantages"], read["returns"], read["values"], t["log_std"],
+                        t["mean"], t["std"], gp, gv, mbops._head_constants(chip_smoke.HEAD_CLIP))
+    out = mbops.ppo_head(*(t[k] for k in chip_smoke.HEAD_ARGS), chip_smoke.HEAD_CLIP,
+                         unit_ids)
+    grads = torch.autograd.grad(out[1:3], (t["mu"], t["v"]), (gp, gv))
+    for name, a, b in zip(chip_smoke.HEAD_OUTPUTS, model, list(out) + list(grads)):
+        assert chip_smoke.same_bits(a, b.detach()), name
+    assert mbops.ppo_head_launches == mbops.ppo_head_backward_launches == 0
+
+
+def _tail_shape():
+    """(blocks of the cluster, threads a block, elements a thread loads at a time):
+    ``csrc/adam_tail.cu``'s kCluster, kThreads and kBatch, read from the source."""
+    src = (Path(__file__).resolve().parents[1] / "self_play_racing_tpu_torch" / "csrc"
+           / "adam_tail.cu").read_text()
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+                 for name in ("kCluster", "kThreads", "kBatch"))
+
+
+def _tail_walk(sizes):
+    """(tensor, offset) of every flat element as ``csrc/adam_tail.cu``'s cluster
+    takes them: block k of the cluster a contiguous share ceil(total / cluster) of the
+    flat range, its threads ``batch`` elements at a stride of the block a pass, each
+    element's tensor the last with start <= e (``tensor_of``'s binary search)."""
+    cluster, threads, batch = _tail_shape()
+    start = np.concatenate([[0], np.cumsum(sizes)])
+    count, total = len(sizes), int(start[-1])
+    share = -(-total // cluster)
+    seen = []
+    for rank in range(cluster):
+        lo, hi = share * rank, min(share * rank + share, total)
+        for tid in range(threads):
+            for base in range(lo + tid, hi, batch * threads):
+                for k in range(batch):
+                    e = base + k * threads
+                    if e >= hi:
+                        continue
+                    a, b = 0, count
+                    while b - a > 1:
+                        mid = (a + b) // 2
+                        a, b = (mid, b) if start[mid] <= e else (a, mid)
+                    seen.append((a, e - int(start[a])))
+    return seen
+
+
+@pytest.mark.parametrize("which", ["the (64, 64) policy", "one tensor", "32 with empty ones",
+                                   "a total that straddles the shares",
+                                   "fewer elements than blocks", "several passes a block"])
+def test_tail_walk_takes_every_element_once(which):
+    """The cluster's walk over the flat element range takes every element of every
+    tensor exactly once: empty tensors, shares that end inside a tensor, blocks with
+    no share and blocks that take several passes included."""
+    cluster, threads, batch = _tail_shape()
+    params = chip_smoke.tail_state("cpu", 1)[0]
+    sizes = {"the (64, 64) policy": [p.numel() for p in params],
+             "one tensor": [1],
+             "32 with empty ones": [(k * 37) % 50 if k % 5 else 0 for k in range(32)],
+             "a total that straddles the shares": [cluster * 97 + 3, 1, 2 * cluster + 5],
+             "fewer elements than blocks": [3, 0, 2],
+             "several passes a block": [cluster * threads * batch * 2 + 7, 5]}[which]
+    seen = _tail_walk(sizes)
+    want = [(t, i) for t, size in enumerate(sizes) for i in range(size)]
+    assert sorted(seen) == want
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_loss_through_the_unit_index_is_the_gathered_loss(dtype, monkeypatch):
+    """``_ppo_loss`` on a ``UnitBatch`` (what ``minibatch_step`` hands it: obs and
+    advantages gathered, the other fields as the rollout's units with the minibatch's
+    unit ids) is bitwise ``_ppo_loss`` on the gathered ``Batch``, loss, stats and
+    gradients, and within the file's tolerances JAX's ``_ppo_loss`` on the gathered
+    rows."""
+    block, n_units = 16, 64
+    unit_ids = torch.tensor([9, 3, 60, 3, 17, 0, 41, 22], dtype=torch.int64)
+    case = chip_smoke.crafted_minibatch(block * n_units, np.random.default_rng(5), dtype,
+                                        boundaries=False)
+    units = {k: torch.as_tensor(case[k]).reshape((n_units, block) + case[k].shape[1:])
+             for k in ("actions", "logprobs", "returns", "values")}
+    rows = (unit_ids[:, None] * block + torch.arange(block)).reshape(-1).numpy()
+    gathered = _port_loss(case, rows, monkeypatch)
+    mu = torch.tensor(case["mu"][rows], requires_grad=True)
+    v = torch.tensor(case["v"][rows], requires_grad=True)
+    mb = tppo.UnitBatch(obs=None, actions=units["actions"], logprobs=units["logprobs"],
+                        advantages=torch.as_tensor(case["advantages"][rows]),
+                        returns=units["returns"], values=units["values"], rows=unit_ids)
+    loss, st = tppo._ppo_loss({"mu": mu, "v": v}, torch.as_tensor(case["log_std"]), mb,
+                              base_config())
+    g_mu, g_v = torch.autograd.grad(loss, (mu, v))
+    w_mu, w_v = torch.autograd.grad(gathered[0], (gathered[2], gathered[3]))
+    assert chip_smoke.same_bits(loss, gathered[0])
+    assert all(chip_smoke.same_bits(st[k], gathered[1][k]) for k in STAT_KEYS)
+    assert chip_smoke.same_bits(g_mu, w_mu) and chip_smoke.same_bits(g_v, w_v)
+    jloss, jst, jg_mu, jg_v = _jax_loss(case, rows, monkeypatch)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(loss.item(), jloss, rtol=tol["loss"])
+    for k in STAT_KEYS:
+        np.testing.assert_allclose(st[k].item(), jst[k], rtol=tol["loss"],
+                                   atol=tol["stat_atol"], err_msg=k)
+    np.testing.assert_allclose(g_mu.numpy(), jg_mu, rtol=tol["grad_rtol"],
+                               atol=tol["grad_atol"])
+    np.testing.assert_allclose(g_v.numpy(), jg_v, rtol=tol["grad_rtol"],
+                               atol=tol["grad_atol"])
+
+
+@pytest.mark.parametrize("data_shards", [1, 2])
+def test_update_through_the_unit_index_is_the_gathered_update(data_shards, monkeypatch):
+    """A whole CPU update (4 epochs x 4 minibatches, no KL exit) through
+    ``minibatch_step``'s unit index is bitwise the same update with every field
+    gathered (``chip_smoke.gathered_minibatch_step``): parameters, Adam moments and
+    every stat."""
+    cfg = base_config(num_envs=32, num_steps=16, num_minibatches=4, update_epochs=4,
+                      shuffle_block_size=8, data_shards=data_shards, kl_target=float("inf"))
+    assert tppo.minibatch_layout(cfg)[0] == 8
+
+    def update():
+        gen = torch.Generator().manual_seed(3)
+        train = tppo.init_train_state(gen, cfg, 19, 2)
+        b = cfg.batch_size
+        rnd = lambda *shape, s=1.0: torch.randn(shape, generator=gen) * s
+        obs = rnd(b, 19)
+        with torch.no_grad():
+            mu, v = train.model(obs)
+            actions = (mu + 0.6 * rnd(b, 2)).clamp(-1, 1)
+            lp = tnet.normal_log_prob(actions, mu, torch.full((2,), -0.5))
+        flat = tppo.Batch(obs, actions, lp + rnd(b, s=0.05), rnd(b, s=2.0), v + rnd(b), v)
+        _, n_units, _ = tppo.minibatch_layout(cfg)
+        perms = torch.stack([torch.stack([torch.randperm(n_units, generator=gen)
+                                          for _ in range(data_shards)])
+                             for _ in range(cfg.update_epochs)])
+        opt, stopped, stats = tppo.run_ppo_update(cfg, train.model, train.opt_state,
+                                                  torch.full((2,), -0.5), 2.5e-4, flat, perms)
+        return list(train.model.parameters()) + opt.mu + opt.nu, stopped, stats
+
+    got = update()
+    with monkeypatch.context() as m:
+        m.setattr(tppo, "minibatch_step", chip_smoke.gathered_minibatch_step)
+        want = update()
+    assert all(chip_smoke.same_bits(a, b) for a, b in zip(got[0], want[0]))
+    assert got[1] == want[1]
+    assert all(np.array_equal(got[2][k], want[2][k]) for k in tppo.STAT_NAMES)
+    assert got[2]["applied"].sum() == cfg.update_epochs * cfg.num_minibatches

@@ -259,6 +259,29 @@ n. ``ppo_head`` (the loss's per-row work, one launch forward and one backward) o
    ``torch._fused_adam_`` over the same 12 tensors. Every training path counts the
    three launches once a minibatch step (``learner``: exactly from the loop's
    computed minibatches where the phase times the loop, else checked whole epochs);
+   the update's two runs both take the MLP kernels of phase p;
+
+and for the minibatch step's actor and critic MLPs (``ops/mlp.py``: one launch of
+``mlp_forward`` for both towers, one of ``mlp_backward`` and one of
+``mlp_grad_reduce`` a minibatch step, on every whole-tower training path; a
+tensor-parallel rank's slices keep the Megatron composition and launch none), right
+after n:
+
+p. the three kernels against the plain composition (cuBLAS and autograd) at the
+   towers of ``MLP_TOWERS`` (obs_dim 15, 19, 23, 43 and 184 on (64, 64), 15 and 19
+   on (128, 128); obs_dim is a run-time argument, the hidden widths are compiled)
+   and 65,536, 16,384, 4097 and 1 rows: mu, v and the 12 gradients each within
+   max(``MLP_REL_FLOOR`` x the tensor's scale, ``MLP_CONTROL_FACTOR`` x the plain
+   composition's own distance with the rows in two halves), both also against the
+   float64 composition (printed); two runs bitwise; through the unit index bitwise
+   the gathered rows; float64, non-contiguous, other hidden widths and an obs_dim
+   past a block's shared memory refused before any launch, the wrapper's shared
+   memory sum the kernel's; each kernel timed eager and in a CUDA graph (by row and
+   by unit id) beside its bound (the backward's its own operations, the forward it
+   recomputes a line of its own; the reduce's its adds, and its bytes only where its
+   partials outgrow the 50 MB L2, beside its launch floor) and the composition's forward and backward, at 65,536
+   and 16,384 rows; and ``train scale --agents 3`` (towers of 23 inputs), one update
+   at its defaults, launching the MLP kernels once a minibatch step;
 
 and for the single-car env step as two launches (``single.transition`` runs
 ``csrc/single_transition.cu``, the step, the track query and the whole reward and
@@ -270,7 +293,7 @@ pass, a row's rays in four groups; every single-car path above counts them as
 ``single_transition`` and ``single_observe``, the kernel of several rows a block
 also as ``single_transition_rows``, and the narrow K1 and ``car_step_and_query`` 0):
 
-o. o.1 (right after n) both against their plain versions (the narrow kernels and
+o. o.1 (right after p) both against their plain versions (the narrow kernels and
    PyTorch, what the env ran before these kernels) on ``crafted_single_state`` at 1, 16,
    48, 200 and 4096 env rows of the canonical pool, gathered and tiled, the speed
    weight the config's (sensing unclamped) and an annealed tensor on the card
@@ -324,7 +347,11 @@ updates (counted from the replays) and ``launches_data_parallel_ranks`` on each 
 ``launches_tensor_parallel`` on each of phase j's two ranks, its single-car and
 self-play updates summed; ``launches_graphed`` its count over phase k's graphed
 self-play run's 3 timed updates on the tiled pool; ``launches_loops_graphed`` its
-count over phase l's graphed runs, as replays); the last line is ``{"ok": true,
+count over phase l's graphed runs, as replays; the three MLP kernels of phase p
+their largest error and error over bound, the composition's forward and backward
+(``plain_ms``, the forward's ``plain_graph_ms``), the backward's
+``recompute_bound_ms`` (the forward it recomputes), the reduce's ``launch_floor_ms``
+and, under ``at``, the times at the other towers and rows); the last line is ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -373,6 +400,7 @@ from self_play_racing_tpu_torch.ops import dynamics
 from self_play_racing_tpu_torch.ops import gae
 from self_play_racing_tpu_torch.ops import geometry as geo
 from self_play_racing_tpu_torch.ops import minibatch as mbops
+from self_play_racing_tpu_torch.ops import mlp as mlpops
 from self_play_racing_tpu_torch.ops import prng
 from self_play_racing_tpu_torch.parallel import mesh as pmesh
 from self_play_racing_tpu_torch.serve import Policy, bench
@@ -1491,9 +1519,15 @@ COUNTERS = {
     "ppo_head": (mbops, "ppo_head_launches"),
     "ppo_head_backward": (mbops, "ppo_head_backward_launches"),
     "adam_tail": (mbops, "adam_tail_launches"),
+    "mlp_forward": (mlpops, "mlp_forward_launches"),
+    "mlp_backward": (mlpops, "mlp_backward_launches"),
+    "mlp_grad_reduce": (mlpops, "mlp_grad_reduce_launches"),
 }
 # the learner's kernels: one launch of each a minibatch_step
 LEARNER = ("ppo_head", "ppo_head_backward", "adam_tail")
+# the MLP kernels: one launch of each a minibatch_step on whole towers, none on a
+# tensor-parallel rank (its slices run the Megatron composition)
+TOWERS = ("mlp_forward", "mlp_backward", "mlp_grad_reduce")
 
 
 def zero_counts():
@@ -1534,22 +1568,24 @@ def counts(envs=None, tiled=False, **nonzero):
     return out
 
 
-def learner(launches, cfg, updates: int, computed=None) -> dict:
+def learner(launches, cfg, updates: int, computed=None, towers: bool = True) -> dict:
     """The learner kernels' expected launches in ``updates`` updates: one of each a
-    ``minibatch_step`` call, and the loop runs every epoch up to the KL exit's whole
-    (the exit's rest masked). With ``computed`` (the minibatches each update
-    computed) exactly that; without, the count ``launches`` holds, once it is the
-    same for the three and whole epochs, at least one and at most
-    ``cfg.update_epochs`` an update."""
+    ``minibatch_step`` call (with ``towers``, the whole-tower paths, the MLP kernels'
+    too; a tensor-parallel rank launches none of them), and the loop runs every epoch
+    up to the KL exit's whole (the exit's rest masked). With ``computed`` (the
+    minibatches each update computed) exactly that; without, the count ``launches``
+    holds, once it is the same for every one of them and whole epochs, at least one
+    and at most ``cfg.update_epochs`` an update."""
+    kernels = LEARNER + (TOWERS if towers else ())
     m = cfg.num_minibatches
     if computed is not None:
-        return dict.fromkeys(LEARNER, sum(-(-c // m) * m for c in computed))
+        return dict.fromkeys(kernels, sum(-(-c // m) * m for c in computed))
     n = launches["adam_tail"]
-    if (any(launches[k] != n for k in LEARNER) or n % m
+    if (any(launches[k] != n for k in kernels) or n % m
             or not updates * m <= n <= updates * cfg.update_epochs * m):
-        raise AssertionError(f"learner kernels {[launches[k] for k in LEARNER]} launches in "
+        raise AssertionError(f"learner kernels {[launches[k] for k in kernels]} launches in "
                              f"{updates} updates of {cfg.update_epochs} x {m} minibatches")
-    return dict.fromkeys(LEARNER, n)
+    return dict.fromkeys(kernels, n)
 
 
 def rollout(params, log_std, cfg, track, vstate, obs, gen, steps):
@@ -2283,16 +2319,16 @@ def dp_trainer(cfg, dev, eager=False):
                            trk.tiled_pooled_tracks(pool, cfg.num_envs), eager=eager)
 
 
-def dp_expected(cfg, updates: int, launches):
+def dp_expected(cfg, updates: int, launches, towers: bool = True):
     """The launches of ``updates`` updates on one rank (``num_envs / data_shards``
     envs): the sensing and the transition (by row id) every step, K6 and K7 once an
     update, the learner's kernels once a minibatch run (``learner``, checked on
-    ``launches``)."""
+    ``launches``; the MLP kernels where ``towers``, not on a tensor-parallel rank)."""
     n = cfg.num_steps * updates
     return counts(cfg.num_envs // cfg.data_shards, multi_observe=n, multi_transition=n,
                   multi_observe_row_ids=n, multi_transition_row_ids=n,
                   compute_gae=updates, mixbits_permutation=updates,
-                  **learner(launches, cfg, updates))
+                  **learner(launches, cfg, updates, towers=towers))
 
 
 def dp_train(trainer, updates: int):
@@ -2930,12 +2966,13 @@ def tp_trainer(name, cfg, dev, eager=False):
 
 def tp_expected(cfg, launches):
     """A rank's launches in one single-car update on the tiled pool (the learner's
-    kernels as ``learner`` checks them on ``launches``)."""
+    kernels as ``learner`` checks them on ``launches``; no MLP kernel: the rank's
+    slices run the Megatron composition)."""
     n = cfg.num_steps
     return counts(cfg.num_envs, tiled=True, single_observe=n, single_transition=n,
                   single_observe_row_ids=n, single_transition_row_ids=n, compute_gae=1,
                   mixbits_permutation=1,
-                  **learner(launches, cfg, 1))
+                  **learner(launches, cfg, 1, towers=False))
 
 
 def tp_runs(cfgs, dev, mesh=None, eager=False, warm=True):
@@ -3067,7 +3104,7 @@ def tensor_parallel_ranks(dev, card, world=TP_MODEL, backend="gloo", devices=Non
                 raise AssertionError(f"rank {r} ({name}): params {absd:.3e} from one "
                                      f"process's, beyond {bound[name]:.3e}")
             want = tp_expected(cfgs[name], g["launches"]) if name == "single" else \
-                dp_expected(cfgs[name], 1, g["launches"])
+                dp_expected(cfgs[name], 1, g["launches"], towers=False)
             if g["launches"] != want or g["graphed"] != graphed:
                 raise AssertionError(f"rank {r} ({name}) launches {g['launches']}, "
                                      f"expected {want}; graphed {g['graphed']}")
@@ -4686,6 +4723,359 @@ def time_minibatch_kernels(dev, card, head_err: float, tail_err: float, gathers:
              "registers": registers("adam_tail")}]
 
 
+# ------------------------------------------ phase (p): the minibatch step's MLPs
+
+# The MLP kernels (csrc/mlp_towers.cu) sum each product in their own order, the weight
+# and bias gradients over 128-row tiles and then the tiles in 8 groups; cuBLAS and
+# autograd sum in theirs. So each output and gradient tensor is held to the plain
+# composition within max(MLP_REL_FLOOR x the tensor's largest |plain value|,
+# MLP_CONTROL_FACTOR x the control), the control being the plain composition's own
+# distance when the same rows run in two halves (the halves' gradients summed): one
+# more order of the same sums, which the kernels' order is another draw of. The floor,
+# 1e-5 of the tensor's scale (~84 float32 ulps of it), covers what the control cannot
+# see: mu and v, whose rows cuBLAS may round alike at either row count. Bitwise where
+# nothing is summed otherwise: two runs, the unit index against the gathered rows, and
+# graph replays against eager.
+MLP_REL_FLOOR = 1e-5
+MLP_CONTROL_FACTOR = 8
+MLP_ROWS = (65_536, 16_384, 4097, 1)
+# the towers phase p holds the kernels at: single-car (15 inputs at 11 sensors) and
+# self-play at 2, 3 and 8 cars (11 + 4 x cars inputs) on every config's (64, 64), the
+# widest obs_dim a block takes there, and phase j's towers of 128
+MLP_TOWERS = ((15, 64, 64), (19, 64, 64), (23, 64, 64), (43, 64, 64), (184, 64, 64),
+              (15, 128, 128), (19, 128, 128))
+# the H100's L2 cache: the tiles' partials up to this size are still there when the
+# reduce reads them right after the backward wrote them
+L2_BYTES = 50_000_000
+MLP_OUTPUTS = ("mu", "v") + tuple(f"{tower}.{p}" for tower in ("actor", "critic")
+                                  for p in ("w1", "b1", "w2", "b2", "w3", "b3"))
+
+
+def mlp_macs(obs_dim: int, h1: int, h2: int):
+    """Multiply-adds a row of both towers: the forward, and the backward (every weight
+    gradient, the input gradients of the upper two layers a tower)."""
+    forward = 2 * (obs_dim * h1 + h1 * h2) + 3 * h2
+    backward = 2 * (obs_dim * h1 + 2 * h1 * h2) + 2 * 3 * h2
+    return forward, backward
+
+
+def mlp_case(obs_dim: int, hidden, n: int, seed: int, dtype=np.float32) -> dict:
+    """Whole towers obs_dim -> hidden -> {2, 1} in the JAX package's layout (weights
+    (in, out) ~ N(0, 1.5^2 / fan_in), biases ~ N(0, 0.2^2)), observations ~ N(0, 1)
+    [n, obs_dim] and the upstream gradients of mu [n, 2] and v [n] ~ N(0, 1) / n (the
+    loss takes means), numpy arrays of ``dtype`` drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    dims = (obs_dim,) + tuple(hidden)
+    cast = lambda a: np.asarray(a, dtype)
+
+    def tower(out):
+        return [(cast(rng.normal(0.0, 1.5 / np.sqrt(din), (din, dout))),
+                 cast(rng.normal(0.0, 0.2, dout)))
+                for din, dout in zip(dims, dims[1:] + (out,))]
+
+    return {"params": {"actor": tower(2), "critic": tower(1)},
+            "obs": cast(rng.normal(size=(n, obs_dim))),
+            "g_mu": cast(rng.normal(size=(n, 2)) / max(n, 1)),
+            "g_v": cast(rng.normal(size=n) / max(n, 1))}
+
+
+def mlp_tensors(case: dict, dev, dtype=None):
+    """``mlp_case``'s arrays on ``dev`` (cast to ``dtype`` where given): (params, the
+    12 parameter tensors requiring gradients in ``model.parameters()`` order, obs,
+    g_mu, g_v)."""
+    t = lambda a, **kw: torch.tensor(a, device=dev, dtype=dtype, **kw)
+    params = {tower: [tuple(t(a, requires_grad=True) for a in layer) for layer in layers]
+              for tower, layers in case["params"].items()}
+    leaves = [x for tower in ("actor", "critic") for layer in params[tower] for x in layer]
+    return (params, leaves) + tuple(t(case[k]) for k in ("obs", "g_mu", "g_v"))
+
+
+def mlp_run(fn, params, leaves, obs, g_mu, g_v, unit_ids=None) -> list:
+    """``fn`` (``mlpops.actor_critic_mlp`` or its plain version) and its gradients
+    from ``g_mu`` and ``g_v``: [mu, v, the 12 gradients]."""
+    mu, v = fn(params, obs, unit_ids)
+    return [mu.detach(), v.detach()] + list(
+        torch.autograd.grad((mu, v), leaves, (g_mu, g_v)))
+
+
+def mlp_control(params, leaves, obs, g_mu, g_v) -> list:
+    """The plain composition on the rows in two halves: mu and v concatenated, the
+    gradients the sum of the halves'."""
+    h = obs.shape[0] // 2
+    a, b = (mlp_run(mlpops.actor_critic_mlp_plain, params, leaves, obs[s], g_mu[s], g_v[s])
+            for s in (slice(0, h), slice(h, None)))
+    return [torch.cat([a[0], b[0]]), torch.cat([a[1], b[1]])] + [
+        x + y for x, y in zip(a[2:], b[2:])]
+
+
+def mlp_errors(got, want) -> list:
+    return [float((g.double() - w.double()).abs().max()) if g.numel() else 0.0
+            for g, w in zip(got, want)]
+
+
+def mlp_bounds(plain, control) -> list:
+    """Each tensor's tolerance (see MLP_REL_FLOOR)."""
+    return [max(MLP_REL_FLOOR * (float(p.abs().max()) if p.numel() else 0.0),
+                MLP_CONTROL_FACTOR * e) for p, e in zip(plain, mlp_errors(control, plain))]
+
+
+def mlp_counts():
+    return tuple(read_counts()[k] for k in TOWERS)
+
+
+def hold_mlp(dims, n: int, dev, seed: int) -> dict:
+    """The MLP kernels against the plain composition on the card at ``dims`` and ``n``
+    rows: every output and gradient within ``mlp_bounds``, a second run bitwise the
+    first, one launch of each kernel a run; and both against the float64 composition
+    (printed). Returns the largest error and error/bound ratio."""
+    d, h1, h2 = dims
+    case = mlp_case(d, (h1, h2), n, seed)
+    params, leaves, obs, g_mu, g_v = mlp_tensors(case, dev)
+    before = mlp_counts()
+    got = mlp_run(mlpops.actor_critic_mlp, params, leaves, obs, g_mu, g_v)
+    again = mlp_run(mlpops.actor_critic_mlp, params, leaves, obs, g_mu, g_v)
+    if [b - a for a, b in zip(before, mlp_counts())] != [2, 2, 2]:
+        raise AssertionError(f"phase p {dims} at {n} rows: launches {before} -> "
+                             f"{mlp_counts()}, expected 2 of each")
+    want = mlp_run(mlpops.actor_critic_mlp_plain, params, leaves, obs, g_mu, g_v)
+    bounds = mlp_bounds(want, mlp_control(params, leaves, obs, g_mu, g_v))
+    ref = mlp_run(mlpops.actor_critic_mlp_plain, *mlp_tensors(case, dev, torch.float64))
+    torch.cuda.synchronize()
+    if not all(same_bits(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"phase p {dims} at {n} rows: two runs differ")
+    errs = mlp_errors(got, want)
+    bad = {name: (e, b) for name, e, b in zip(MLP_OUTPUTS, errs, bounds) if not e <= b}
+    if bad:
+        raise AssertionError(f"phase p {dims} at {n} rows: beyond the tolerance "
+                             f"(error, bound): {bad}")
+    ratio, worst = max((e / b if b else 0.0, name) for name, e, b in
+                       zip(MLP_OUTPUTS, errs, bounds))
+    k64, p64 = max(mlp_errors(got, ref)), max(mlp_errors(want, ref))
+    print(f"phase p {dims} at {n} rows: every output and gradient within its bound, "
+          f"at most {ratio:.3f} of it ({worst}); largest error {max(errs):.3e}; against "
+          f"float64 the kernels {k64:.3e}, the plain composition {p64:.3e}; two runs "
+          f"bitwise")
+    return {"max_abs_err": max(errs), "ratio": ratio, "f64_kernels": k64, "f64_plain": p64}
+
+
+def mlp_units(case: dict, n: int, block: int, dev, seed: int):
+    """``case``'s observations as the rollout's units: [2 n / block, block, obs_dim]
+    (the case's rows among twice as many) and the unit ids that read them back in
+    order, int64."""
+    rng = np.random.default_rng(seed)
+    ids = rng.permutation(2 * n // block)[:n // block]
+    units = rng.normal(size=(2 * n // block, block, case["obs"].shape[1])).astype(np.float32)
+    units[ids] = case["obs"].reshape(n // block, block, -1)
+    return (torch.as_tensor(units, device=dev),
+            torch.as_tensor(ids, dtype=torch.int64, device=dev))
+
+
+def mlp_refusals(dev) -> None:
+    """No fallback: float64, non-contiguous tensors, hidden widths outside
+    ``_cuda.MLP_HIDDEN`` and an obs_dim past a block's shared memory raise before any
+    launch; and the wrapper's shared-memory sum is the kernel's own
+    (``mlp_shared_bytes``) at every obs_dim to 256 and a few widths, so what the
+    wrapper takes is what the kernels take."""
+    lib = _cuda._mlp_lib()
+    for h1, h2 in _cuda.MLP_HIDDEN + ((64, 32), (96, 96), (256, 256)):
+        for d in range(0, 257):
+            want = _cuda.mlp_shared_bytes(d, h1, h2) if _cuda.mlp_takes(d, h1, h2) else 0
+            if lib.mlp_shared_bytes(d, h1, h2) != want:
+                raise AssertionError(f"phase p: shared bytes at ({d}, {h1}, {h2}): kernel "
+                                     f"{lib.mlp_shared_bytes(d, h1, h2)}, wrapper {want}")
+    params, leaves, obs, _, _ = mlp_tensors(mlp_case(19, (64, 64), 256, 0), dev)
+    before = mlp_counts()
+    refused = 0
+    wide = {t: [tuple(x.double() for x in layer) for layer in ls] for t, ls in params.items()}
+    odd = mlp_tensors(mlp_case(19, (64, 32), 256, 0), dev)[0]
+    far, _, far_obs, _, _ = mlp_tensors(mlp_case(28, (128, 128), 256, 0), dev)
+    for what, p, o in (("float64", wide, obs.double()), ("non-contiguous", params,
+                                                          obs.t().contiguous().t()),
+                       ("towers (19, 64, 32)", odd, obs),
+                       ("towers (28, 128, 128)", far, far_obs)):
+        try:
+            mlpops.actor_critic_mlp(p, o)
+        except (TypeError, ValueError):
+            refused += 1
+        else:
+            raise AssertionError(f"phase p: actor_critic_mlp took {what} tensors")
+    if refused != 4 or mlp_counts() != before:
+        raise AssertionError("phase p: a refused call launched a kernel")
+
+
+def check_mlp_kernels(dev, card) -> dict:
+    """Phase p: ``ops.mlp.actor_critic_mlp``'s three kernels against the plain
+    composition (``hold_mlp``) at ``MLP_TOWERS`` and ``MLP_ROWS``; through the unit
+    index (``UNIT_BLOCKS``' rows and units, the main paths' towers) bitwise the
+    kernels on the gathered rows; the refusals. Returns what the kernels line needs
+    of it."""
+    out = {}
+    for i, dims in enumerate(MLP_TOWERS):
+        for n in MLP_ROWS:
+            out[dims, n] = hold_mlp(dims, n, dev, seed=100 * i + n % 97)
+    for dims in ((19, 64, 64), (15, 64, 64)):
+        for n, block in UNIT_BLOCKS.items():
+            case = mlp_case(dims[0], dims[1:], n, seed=n)
+            params, leaves, obs, g_mu, g_v = mlp_tensors(case, dev)
+            units, ids = mlp_units(case, n, block, dev, seed=n + 1)
+            got = mlp_run(mlpops.actor_critic_mlp, params, leaves, units, g_mu, g_v, ids)
+            want = mlp_run(mlpops.actor_critic_mlp, params, leaves,
+                           mbops.gather_units(units, ids), g_mu, g_v)
+            torch.cuda.synchronize()
+            if not all(same_bits(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"phase p {dims}: the unit index at {n} rows differs "
+                                     f"from the gathered rows")
+    mlp_refusals(dev)
+    print(f"phase p: the MLP kernels within max({MLP_REL_FLOOR:g} x scale, "
+          f"{MLP_CONTROL_FACTOR} x the two-halves control) of the plain composition at "
+          f"{MLP_TOWERS} x {MLP_ROWS} rows (largest ratio "
+          f"{max(r['ratio'] for r in out.values()):.3f}); through the unit index bitwise "
+          f"the gathered rows at {tuple(UNIT_BLOCKS.items())}; float64, non-contiguous, "
+          f"other hidden widths and an obs_dim past a block's memory refused, on {card}")
+    return out
+
+
+def mlp_bounds_ms(dims, n: int):
+    """(forward, backward, recompute, reduce) bounds at ``n`` rows, each (ms, by):
+    the forward's and the backward's multiply-adds (the backward's own: every weight
+    gradient and the upper layers' input gradients) against their bytes (the
+    observations, the upstream gradients, mu and v, the parameters, the tiles'
+    partials); the forward that the backward kernel recomputes, its own line, at
+    the forward's operations; the reduce's adds, and its bytes only where the
+    partials outgrow ``L2_BYTES``: below that they are in the L2 (the backward wrote
+    them just before), which the guide's table gives no rate for, so there the reduce
+    is read against its launch floor (``time_mlp_kernels``)."""
+    d, h1, h2 = dims
+    forward, backward = mlp_macs(d, h1, h2)
+    params = 2 * (d * h1 + h1 + h1 * h2 + h2) + 3 * h2 + 3
+    partial = 4 * _cuda.mlp_tiles(n) * params
+    return (bound_ms(4 * (n * (d + 3) + params), 2 * n * forward),
+            bound_ms(4 * (n * (d + 3) + params) + partial, 2 * n * backward),
+            bound_ms(0, 2 * n * forward),
+            bound_ms(partial + 4 * params if partial > L2_BYTES else 0,
+                     _cuda.mlp_tiles(n) * params))
+
+
+def time_mlp_kernels(dev, card, checked: dict) -> list:
+    """The kernels line's entries for ``mlp_forward``, ``mlp_backward`` and
+    ``mlp_grad_reduce``: each launch eager and in a CUDA graph at the main paths'
+    widths (65,536 and 16,384 rows; self-play's 19 inputs, single-car's 15, phase j's
+    towers of 128), by row and through the unit index, beside the bound; the plain
+    composition (cuBLAS, autograd), the forward eager and in a graph, the backward
+    eager (a plain capture of autograd's backward failed on the card); the reduce
+    beside ``torch.sum`` over the tiles (the one PyTorch call that computes it, never
+    on the path) and its own launch floor (one tile of one parameter, in a graph).
+    The towers of 3 and 8 cars (23 and 43 inputs) too."""
+    rows = {}
+    one, one_out = torch.zeros((1, 1), device=dev), torch.empty((1,), device=dev)
+    floor = graph_ms(lambda: _cuda.launch_mlp_grad_reduce(one, one_out))
+    for dims, n in (((19, 64, 64), 65_536), ((19, 64, 64), 16_384), ((15, 64, 64), 65_536),
+                    ((23, 64, 64), 65_536), ((43, 64, 64), 65_536), ((19, 128, 128), 65_536)):
+        case = mlp_case(dims[0], dims[1:], n, seed=7)
+        params, leaves, obs, g_mu, g_v = mlp_tensors(case, dev)
+        units, ids = mlp_units(case, n, 64, dev, seed=8)
+        w = [x.detach() for x in leaves]
+        mu, v = torch.empty((n, 2), device=dev), torch.empty((n,), device=dev)
+        partial = torch.empty((_cuda.mlp_tiles(n), sum(x.numel() for x in w)), device=dev)
+        flat = torch.empty((partial.shape[1],), device=dev)
+        fwd = lambda o=obs, i=None: _cuda.launch_mlp_forward(o, i, w, mu, v, n, dims)
+        bwd = lambda o=obs, i=None: _cuda.launch_mlp_backward(o, i, w, g_mu, g_v, partial, n,
+                                                              dims)
+        red = lambda: _cuda.launch_mlp_grad_reduce(partial, flat)
+        with torch.no_grad():
+            plain_f = lambda: mlpops.actor_critic_mlp_plain(params, obs)
+            p_f = (per_launch_ms(plain_f), graph_ms(plain_f))
+        mu_p, v_p = mlpops.actor_critic_mlp_plain(params, obs)
+        plain_b = lambda: torch.autograd.grad((mu_p, v_p), leaves, (g_mu, g_v),
+                                              retain_graph=True)
+        library = lambda: torch.sum(partial, 0)
+        f_b, b_b, c_b, r_b = mlp_bounds_ms(dims, n)
+        r = rows[dims, n] = {
+            "forward": (per_launch_ms(fwd), graph_ms(fwd), graph_ms(lambda: fwd(units, ids)),
+                        *p_f, *f_b),
+            "backward": (per_launch_ms(bwd), graph_ms(bwd), graph_ms(lambda: bwd(units, ids)),
+                         per_launch_ms(plain_b), *b_b, c_b[0]),
+            "reduce": (per_launch_ms(red), graph_ms(red), per_launch_ms(library),
+                       graph_ms(library), *r_b, floor)}
+        f, b, rd = r["forward"], r["backward"], r["reduce"]
+        print(f"phase p {dims} at {n} rows, us: forward {f[0] * 1e3:.2f} eager, "
+              f"{f[1] * 1e3:.2f} in a graph ({f[2] * 1e3:.2f} by unit id), bound "
+              f"{f[5] * 1e3:.2f} ({f[6]}), the composition {f[3] * 1e3:.1f} eager, "
+              f"{f[4] * 1e3:.1f} in a graph; backward {b[0] * 1e3:.2f} eager, "
+              f"{b[1] * 1e3:.2f} in a graph ({b[2] * 1e3:.2f} by unit id), bound "
+              f"{b[4] * 1e3:.2f} ({b[5]}; the forward it recomputes {b[6] * 1e3:.2f} more), "
+              f"the composition's backward {b[3] * 1e3:.1f} eager; reduce "
+              f"{rd[0] * 1e3:.2f} eager, {rd[1] * 1e3:.2f} in a graph, bound "
+              f"{rd[4] * 1e3:.3f} ({rd[5]}; {partial.numel() * 4 / 1e6:.1f} MB of partials), "
+              f"launch floor "
+              f"{rd[6] * 1e3:.2f} in a graph, torch.sum {rd[2] * 1e3:.2f} eager, "
+              f"{rd[3] * 1e3:.2f} in a graph, on {card}")
+    names = {"forward": ("ms", "graph_ms", "unit_index_graph_ms", "plain_ms", "plain_graph_ms",
+                         "bound_ms", "bound_by"),
+             "backward": ("ms", "graph_ms", "unit_index_graph_ms", "plain_ms", "bound_ms",
+                          "bound_by", "recompute_bound_ms"),
+             "reduce": ("ms", "graph_ms", "library_ms", "library_graph_ms", "bound_ms",
+                        "bound_by", "launch_floor_ms")}
+    ratio = max(c["ratio"] for c in checked.values())
+    common = {"route": "cuda", "source": "self_play_racing_tpu_torch/csrc/mlp_towers.cu",
+              "max_abs_err": max(c["max_abs_err"] for c in checked.values()),
+              "max_err_over_bound": ratio, "rows": 65_536, "towers": [19, 64, 64]}
+
+    def entry(name, key, replaces):
+        main = dict(zip(names[key], rows[(19, 64, 64), 65_536][key]))
+        return {"name": name, **common, "replaces": replaces, "library_ms": None,
+                "plain_ms": main.get("library_ms"), **main,
+                "at": {"x".join(map(str, dims)) + f"_{n}_rows": dict(zip(names[key],
+                                                                         rows[dims, n][key]))
+                       for dims, n in rows},
+                "registers": kernel_registers(_cuda.build_report.get("mlp_towers", ""),
+                                              f"{name}_kernel")}
+
+    return [entry("mlp_forward", "forward", "self_play_racing_tpu/models/actor_critic.py:68"),
+            entry("mlp_backward", "backward", "self_play_racing_tpu/agent/ppo.py:313"),
+            entry("mlp_grad_reduce", "reduce", "self_play_racing_tpu/agent/ppo.py:313")]
+
+
+def train_more_cars(card, cars: int = 3) -> None:
+    """``train scale --agents 3`` at its defaults, one update, in a temporary
+    directory: its towers of 11 + 4 x 3 = 23 inputs take the MLP kernels once a
+    minibatch step, the envs' kernels every step, and the saved policy has 23 finite
+    inputs."""
+    before = file_digests()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            zero_counts()
+            t0 = time.perf_counter()
+            trainer = ttrain.main(["scale", "--agents", str(cars), "--num-updates", "1"])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = read_counts()
+            params, _, _ = load_policy_bundle("models/self_play_agent_scale_1B.npz")
+        finally:
+            os.chdir(cwd)
+    cfg, obs_dim = trainer.cfg, trainer.env_cfg.obs_dim
+    # sensing: every step and the construction's reset
+    expected = counts(cfg.num_envs, multi_observe=cfg.num_steps + 1,
+                      multi_transition=cfg.num_steps, compute_gae=1, mixbits_permutation=1,
+                      **learner(launches, cfg, 1))
+    w1 = params["actor"][0][0]
+    print(f"phase p: train scale --agents {cars}: {cfg.num_envs} envs x {cfg.num_steps} "
+          f"steps x {cars} cars, towers of {obs_dim} inputs, 1 update in {dt:.1f} s on "
+          f"{card}; MLP kernels {[launches[k] for k in TOWERS]}; launches {launches}")
+    if launches != expected or not launches["mlp_forward"]:
+        raise AssertionError(f"train scale --agents {cars} launches {launches}, expected "
+                             f"{expected}")
+    if obs_dim != 11 + 4 * cars or tuple(w1.shape) != (obs_dim, 64) or not all(
+            bool(torch.isfinite(torch.as_tensor(x)).all()) for tower in params.values()
+            for layer in tower for x in layer):
+        raise AssertionError(f"train scale --agents {cars}: saved policy {tuple(w1.shape)}, "
+                             f"obs_dim {obs_dim}, or not finite")
+    if file_digests() != before:
+        raise AssertionError(f"train scale --agents {cars} wrote the repo's tracked files")
+
+
 # ------------------------------------ phase (o): the single-car env step as two launches
 
 # the env rows phase o holds the launches at: the adapter's batch of one, `train
@@ -5110,6 +5500,9 @@ def main() -> int:
         kernels += check_env_step(pool, rng, dev)
     with timed("phase n (the minibatch step's two kernels against their plain versions)"):
         kernels += check_minibatch_kernels(dev, card)
+    with timed("phase p (the minibatch step's MLP kernels against the plain composition)"):
+        kernels += time_mlp_kernels(dev, card, check_mlp_kernels(dev, card))
+        train_more_cars(card)
     with timed("phase o.1 and o.4 (the single-car env step's two launches against their "
                "plain versions)"):
         kernels += check_single_env_step(pool, dev, card)

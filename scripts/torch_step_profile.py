@@ -125,7 +125,8 @@ GROUPS = (
     ("gather", [(ppo, "_minibatch_rows"),
                 ("self_play_racing_tpu_torch.ops.minibatch", "gather_units")]),
     ("loss head", [(ppo, "_ppo_loss")]),
-    ("mlp", [(net, "actor_mu"), (net, "critic_value")]),
+    ("mlp", [(net, "actor_mu"), (net, "critic_value"),
+             ("self_play_racing_tpu_torch.ops.mlp", "actor_critic_mlp")]),
     ("backward start", [(torch.autograd, "grad")]),
     ("global norm", [(ppo, "global_norm")]),
     ("tail", [(ppo, "clip_by_global_norm"), (ppo, "adam_update"), (ppo, "apply_updates"),
@@ -165,14 +166,32 @@ def annotated(groups=GROUPS):
             setattr(module, attr, fn)
 
 
+# the minibatch step's hand-written kernels, launched through ctypes with no PyTorch
+# operator around them, go to their group by the kernel's name (the profiled window
+# holds the minibatch loop alone)
+MINIBATCH_HAND_KERNELS = {"mlp_forward_kernel": "mlp", "mlp_backward_kernel": "mlp backward",
+                          "mlp_grad_reduce_kernel": "mlp backward",
+                          "ppo_head_forward_kernel": "loss head",
+                          "ppo_head_backward_kernel": "loss head backward",
+                          "adam_tail_kernel": "tail"}
+
+
+def _minibatch_hand_group(name: str):
+    return next((g for k, g in MINIBATCH_HAND_KERNELS.items() if k in name), None)
+
+
 def minibatch_groups(prof) -> dict | None:
     """Launches and device us a minibatch by group, from a profile taken under
     ``annotated``: a kernel belongs to the innermost group range around the operator
     that launched it, or, launched by a backward node (on autograd's thread), to the
     group of the forward operator with that node's sequence number, plus
-    " backward". Kernels inside ``minibatch_step`` but in no group are "other"."""
+    " backward"; a hand-written kernel to its group by name
+    (``MINIBATCH_HAND_KERNELS``). Kernels inside ``minibatch_step`` but in no group are
+    "other"."""
     names = {n for n, _ in GROUPS}
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    hand = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and _minibatch_hand_group(e.name)]
 
     def group_of(evt):
         """The innermost group around ``evt`` inside ``minibatch_step``, else None."""
@@ -202,6 +221,9 @@ def minibatch_groups(prof) -> dict | None:
     if not steps:
         return None
     out = collections.defaultdict(lambda: [0, 0.0])
+    for e in hand:  # launched through ctypes: no operator carries them
+        out[_minibatch_hand_group(e.name)][0] += 1
+        out[_minibatch_hand_group(e.name)][1] += e.time_range.elapsed_us()
     for e in events:
         if not e.kernels:
             continue
@@ -216,6 +238,8 @@ def minibatch_groups(prof) -> dict | None:
                 continue  # outside minibatch_step: the loop's own reads
             g = "other" if g == "mb.step" else g
         for k in e.kernels:
+            if _minibatch_hand_group(k.name):
+                continue  # counted from the device events
             out[g][0] += 1
             out[g][1] += k.duration
     return {"minibatch_steps": steps,

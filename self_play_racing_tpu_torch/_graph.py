@@ -47,8 +47,8 @@ WARMUP_RUNS = 3
 
 def _counter_modules():
     from .envs import multi, single
-    from .ops import dynamics, gae, geometry, minibatch, prng
-    return (geometry, dynamics, gae, prng, multi, single, minibatch)
+    from .ops import dynamics, gae, geometry, minibatch, mlp, prng
+    return (geometry, dynamics, gae, prng, multi, single, minibatch, mlp)
 
 
 def launch_counts() -> dict:

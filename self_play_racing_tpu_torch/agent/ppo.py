@@ -24,9 +24,10 @@ JAX package:
   bias corrections from a host table of the update's counts
   (``bias_correction_table``) that the device's applied count indexes; not
   ``torch.optim``, whose Adam folds the bias corrections into the step size and
-  rounds otherwise. On the card the loss's per-row work and everything after the
-  global norm are hand-written kernels (``ops/minibatch.py``: ``ppo_head``,
-  ``adam_tail``);
+  rounds otherwise. On the card the actor's and critic's MLPs forward and backward
+  (``ops/mlp.py``: ``actor_critic_mlp``, whole towers; a tensor-parallel rank keeps
+  the Megatron composition), the loss's per-row work and everything after the global
+  norm are hand-written kernels (``ops/minibatch.py``: ``ppo_head``, ``adam_tail``);
 - episode statistics harvested from the autoreset wrapper's records; the update's
   metrics packed into one float32 vector in ``METRIC_NAMES`` order.
 
@@ -76,6 +77,7 @@ from ..envs import normalize as obsnorm
 from ..envs import vector
 from ..models import actor_critic as net
 from ..ops import minibatch as mbops
+from ..ops import mlp as mlpops
 from ..ops.gae import compute_gae
 from ..ops.minibatch import (ADAM_B1, ADAM_B2, adam_update,  # noqa: F401
                              apply_updates, clip_by_global_norm)
@@ -224,13 +226,13 @@ class Batch(NamedTuple):
 
 
 class UnitBatch(NamedTuple):
-    """A minibatch as ``minibatch_step`` hands it to the loss: ``obs`` and
-    ``advantages`` gathered, [n, ...] (the MLPs and the advantages' moments read
-    them), the actions, old log-probs, returns and old values as the rollout's units
-    [units, block, ...] (``shard_blocks``, shard and unit axes merged), and ``rows``
-    the minibatch's unit ids (int64 [n / block]): row r is unit ``rows[r // block]``,
-    offset ``r % block``. ``_ppo_loss`` tells the two batches apart by ``rows``: where
-    the batch has it, the loss head reads those four fields through it."""
+    """A minibatch as ``minibatch_step`` hands it to the loss: ``advantages``
+    gathered, [n] (the advantages' moments read them), the observations, actions, old
+    log-probs, returns and old values as the rollout's units [units, block, ...]
+    (``shard_blocks``, shard and unit axes merged), and ``rows`` the minibatch's unit
+    ids (int64 [n / block]): row r is unit ``rows[r // block]``, offset ``r % block``.
+    ``_ppo_loss`` tells the two batches apart by ``rows``: where the batch has it, the
+    MLPs and the loss head read those five fields through it."""
     obs: torch.Tensor
     actions: torch.Tensor
     logprobs: torch.Tensor
@@ -248,17 +250,20 @@ def _ppo_loss(params, log_std, mb, cfg: PPOConfig, moments=None):
     """The clipped loss and its stats, on a ``Batch`` or a ``UnitBatch``. The
     advantages are normalized by their own mean and unbiased std, or by ``moments`` =
     (mean, std) where given (the whole minibatch's over a group,
-    ``advantage_moments``). The per-row work is ``ops.minibatch.ppo_head`` (one
-    launch each way on the card; a ``UnitBatch``'s fields read through its unit
-    ids); the means, the entropy and the loss stay PyTorch's reductions over its
-    rows."""
-    mu = net.actor_mu(params, mb.obs)
-    new_v = net.critic_value(params, mb.obs)
+    ``advantage_moments``). The actor's mean and the critic's value are
+    ``ops.mlp.actor_critic_mlp`` (on the card one launch forward, two backward), and
+    the per-row work is ``ops.minibatch.ppo_head`` (one launch each way), a
+    ``UnitBatch``'s fields read through its unit ids; the means, the entropy and the
+    loss stay PyTorch's reductions over its rows. A tensor-parallel rank's sharded
+    parameters keep the Megatron composition of ``models/actor_critic.py`` (the
+    kernels take whole towers; ``actor_critic_mlp`` tells them apart)."""
+    rows = getattr(mb, "rows", None)
+    mu, new_v = mlpops.actor_critic_mlp(params, mb.obs, rows)
     adv = mb.advantages
     mean, std = (adv.mean(), adv.std(correction=1)) if moments is None else moments
     neg_log_ratio, pg_max, v_max, clipped = mbops.ppo_head(
         mu, new_v, mb.actions, mb.logprobs, adv, mb.returns, mb.values, log_std, mean, std,
-        cfg.clip_coef, getattr(mb, "rows", None))
+        cfg.clip_coef, rows)
     approx_kl = torch.mean(neg_log_ratio)  # mean(old - new)
     pg_loss = pg_max.mean()
     v_loss = 0.5 * v_max.mean()
@@ -412,8 +417,8 @@ def minibatch_step(cfg: PPOConfig, model: net.ActorCritic, log_std, lr, units: B
     """One minibatch of the clipped update, JAX's ``body_fn``, with no value deciding
     a host branch: minibatch ``loop.i`` of ``units`` (``shard_blocks``' layout with
     the shard and unit axes merged) at its row of ``index`` (``minibatch_index``),
-    its observations and advantages gathered and its other fields read by the loss
-    head through the unit ids (``UnitBatch``), the loss and its gradients (with a
+    its advantages gathered and its other fields read by the MLPs and the loss head
+    through the unit ids (``UnitBatch``), the loss and its gradients (with a
     ``mesh``, the advantages normalized by row ``loop.i`` of ``advantage_moments``' table
     ``moments`` and the gradients averaged over the group), the global norm, then
     ``ops.minibatch.adam_tail``: the clip as a select, and Adam with the corrections
@@ -424,7 +429,7 @@ def minibatch_step(cfg: PPOConfig, model: net.ActorCritic, log_std, lr, units: B
     after the exit; the loop's counters and exit flag advance on the device."""
     params = list(model.parameters())
     rows = index.index_select(0, loop.i)[0]
-    mb = UnitBatch(mbops.gather_units(units.obs, rows), units.actions, units.logprobs,
+    mb = UnitBatch(units.obs, units.actions, units.logprobs,
                    mbops.gather_units(units.advantages, rows), units.returns, units.values,
                    rows)
     if mesh is not None:

@@ -30,7 +30,7 @@ SOURCES = ("raycast_walls.cu", "progress_collision.cu", "raycast_cars.cu",
            "rectangles_intersect.cu", "car_update.cu", "gae.cu",
            "mixbits_permutation.cu", "raycast_walls_and_cars.cu",
            "car_step_and_query.cu", "multi_observe.cu", "multi_transition.cu",
-           "ppo_head.cu", "adam_tail.cu", "single_transition.cu")
+           "ppo_head.cu", "adam_tail.cu", "single_transition.cu", "mlp_towers.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # PyTorch's eager ops never contract a*b+c into an FMA; neither may the kernels
@@ -61,6 +61,11 @@ _SIGNATURES = {
     "adam_tail_f32": [_P, _P, _I, _P, _I, _P, _I, _L, _L, _I, _P],
     "single_transition_f32": [_P, _I, _P, _I] + [_I] * 5 + [_I, _P],
     "single_transition_rows_f32": [_P, _I, _P, _I] + [_I] * 8 + [_I, _P],
+    "mlp_forward_f32": [_P, _I, _L, _L, _L, _I, _I, _I, _I, _P],
+    "mlp_backward_f32": [_P, _I, _L, _L, _L, _I, _I, _I, _I, _P],
+    "mlp_grad_reduce_f32": [_P, _P, _L, _L, _I, _P],
+    "mlp_rows_per_tile": [],
+    "mlp_shared_bytes": [_I, _I, _I],
 }
 
 _lock = threading.Lock()
@@ -831,3 +836,91 @@ def launch_mixbits_permutation(consts, out, num_perms: int, log2_n: int) -> None
     [num_perms, 8], ``out`` contiguous int32 [num_perms, 2^log2_n]."""
     _call("mixbits_permutation", "mixbits_permutation_i32", out.device,
           _ptr(consts), _ptr(out), num_perms, log2_n)
+
+
+# the actor's and critic's MLPs (csrc/mlp_towers.cu): the hidden widths (h1, h2) it
+# is instantiated for (its MLP_HIDDEN; obs_dim is a run-time argument), the rows a
+# tile (its kRows: a block's rows, and a row of the backward's partials), its
+# pointer counts
+MLP_HIDDEN = ((64, 64), (128, 128))
+MLP_ROWS_PER_TILE = 128
+MLP_TENSORS = 12
+MLP_INPUTS = 2 + MLP_TENSORS
+
+
+def mlp_shared_bytes(obs_dim: int, h1: int, h2: int) -> int:
+    """A block's shared memory at towers obs_dim -> h1 -> h2: the actor's parameters
+    (16-byte aligned), then a tile's x (obs_dim padded to 4), h1, h2 and the output
+    gradients [2], each feature ``MLP_ROWS_PER_TILE`` + 4 floats
+    (``csrc/mlp_towers.cu:Layout``; its ``mlp_shared_bytes`` on the card)."""
+    size = obs_dim * h1 + h1 + h1 * h2 + h2 + 2 * h2 + 2
+    features = -(-obs_dim // 4) * 4 + h1 + h2 + 2
+    return 4 * (-(-size // 4) * 4 + features * (MLP_ROWS_PER_TILE + 4))
+
+
+def mlp_takes(obs_dim: int, h1: int, h2: int) -> bool:
+    """Whether the kernels take towers obs_dim -> h1 -> h2: widths in ``MLP_HIDDEN``
+    and a block's shared memory within ``BLOCK_SMEM_LIMIT``."""
+    return ((h1, h2) in MLP_HIDDEN and obs_dim >= 1
+            and mlp_shared_bytes(obs_dim, h1, h2) <= BLOCK_SMEM_LIMIT)
+
+
+def mlp_max_obs_dim(h1: int, h2: int) -> int:
+    """The largest obs_dim the kernels take at hidden (h1, h2), 0 for none."""
+    d = 0
+    while mlp_takes(d + 1, h1, h2):
+        d += 1
+    return d
+
+
+def mlp_tiles(n: int) -> int:
+    """The tiles (blocks of each tower) of ``n`` rows: the rows of the backward's
+    partials."""
+    return -(-n // MLP_ROWS_PER_TILE)
+
+
+@functools.lru_cache(maxsize=None)
+def _mlp_lib():
+    lib = build()["mlp_towers"]
+    if lib.mlp_rows_per_tile() != MLP_ROWS_PER_TILE:
+        raise RuntimeError(f"csrc/mlp_towers.cu tiles {lib.mlp_rows_per_tile()} rows, "
+                           f"ops/_cuda.py MLP_ROWS_PER_TILE {MLP_ROWS_PER_TILE}")
+    return lib
+
+
+def _mlp_inputs(obs, unit_ids, params):
+    """The kernels' input pointers (the observations, the unit ids or null, the 12
+    parameters) and the unit-indexed observations' (block, units)."""
+    if len(params) != MLP_TENSORS:
+        raise ValueError(f"mlp: {len(params)} parameter tensors, expected {MLP_TENSORS}")
+    if unit_ids is None:
+        return [obs, None, *params], 0, 0
+    return [obs, unit_ids, *params], obs.shape[1], obs.shape[0]
+
+
+def launch_mlp_forward(obs, unit_ids, params, mu, v, n: int, dims) -> None:
+    """Launch both towers' forward on the current stream of ``mu``'s device:
+    ``obs`` [n, D] (or [units, block, D] read through ``unit_ids``), ``params`` the
+    12 tensors in ``model.parameters()`` order, out ``mu`` [n, 2] and ``v`` [n];
+    ``dims`` = (D, h1, h2), towers the kernels take (``mlp_takes``)."""
+    _mlp_lib()
+    ptrs, block, units = _mlp_inputs(obs, unit_ids, params)
+    _call("mlp_towers", "mlp_forward_f32", mu.device, _ptr_array(ptrs + [mu, v]),
+          MLP_INPUTS + 2, n, block, units, *dims)
+
+
+def launch_mlp_backward(obs, unit_ids, params, g_mu, g_v, partial, n: int, dims) -> None:
+    """Launch both towers' backward on the current stream of ``partial``'s device:
+    the forward's inputs, the upstream gradients ``g_mu`` [n, 2] and ``g_v`` [n]
+    (contiguous), out the tiles' gradients ``partial`` [mlp_tiles(n), params]."""
+    _mlp_lib()
+    ptrs, block, units = _mlp_inputs(obs, unit_ids, params)
+    _call("mlp_towers", "mlp_backward_f32", partial.device,
+          _ptr_array(ptrs + [g_mu, g_v, partial]), MLP_INPUTS + 3, n, block, units, *dims)
+
+
+def launch_mlp_grad_reduce(partial, out) -> None:
+    """Launch the sum of the tiles' gradients ``partial`` [tiles, params] into
+    ``out`` [params] on the current stream of ``out``'s device."""
+    _call("mlp_towers", "mlp_grad_reduce_f32", out.device, _ptr(partial), _ptr(out),
+          partial.shape[0], partial.shape[1])

@@ -1,0 +1,140 @@
+"""The PPO minibatch step's actor and critic MLPs, forward and backward, as
+hand-written kernels (``csrc/mlp_towers.cu``).
+
+The JAX package runs ``_mlp`` (``self_play_racing_tpu/models/actor_critic.py:68``)
+for the actor's mean and the critic's value inside ``_ppo_loss``, and its gradient
+under ``jax.value_and_grad`` (``self_play_racing_tpu/agent/ppo.py:313``), as part of
+the minibatch step's one XLA program on the TPU. In PyTorch ``_mlp`` is a cuBLAS GEMM,
+a bias add and a tanh a layer, and autograd's backward of each.
+
+- ``actor_critic_mlp`` dispatches on the parameters' layout and the device of
+  ``obs``: a tensor-parallel rank's ``ShardedParams`` (``params.tp`` set) and a CPU
+  tensor take ``actor_critic_mlp_plain`` (the rows gathered through the unit ids,
+  then ``net.actor_mu`` and ``net.critic_value``, autograd for the gradient; on a
+  rank, the Megatron composition of ``models/actor_critic.py``, since the kernels
+  take whole towers), a CUDA tensor of whole towers ``MLPTowers``, a ``torch.autograd.Function`` whose forward is one launch of
+  ``mlp_forward_f32`` (both towers) and whose backward is two, ``mlp_backward_f32``
+  (each 128-row tile's weight and bias gradients, recomputing the tile's forward)
+  and ``mlp_grad_reduce_f32`` (the tiles summed in a fixed order into one flat buffer
+  whose views the 12 gradients are). The kernels read the observations through the
+  minibatch's unit ids in place. They sum in another order than cuBLAS, so they are
+  held to the plain composition within a stated tolerance (chip_smoke.py phase p),
+  not bitwise; equal inputs give equal bits, eager and in a CUDA graph.
+- The kernels take whole towers obs_dim -> h1 -> h2 -> {2, 1}: any obs_dim (a
+  run-time argument) that fits a block's shared memory with (h1, h2) in
+  ``_cuda.MLP_HIDDEN`` (``_cuda.mlp_takes``). A CUDA tensor they do not take (not
+  float32, not contiguous, another shape) raises; there is no fallback to the plain
+  version.
+- ``mlp_forward_launches``, ``mlp_backward_launches`` and
+  ``mlp_grad_reduce_launches`` count kernel launches (plain integers, incremented only
+  where a kernel launched).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _cuda
+from .geometry import _on_cuda
+from .minibatch import _check_cuda, gather_units
+from ..models import actor_critic as net
+
+mlp_forward_launches = 0
+mlp_backward_launches = 0
+mlp_grad_reduce_launches = 0
+
+
+def actor_critic_mlp(params, obs, unit_ids=None):
+    """(mu [n, 2], v [n]): the actor's tanh-bounded mean and the critic's value of the
+    parameter dict ``params`` (whole towers, ``{"actor": [(w, b)] * 3, "critic": ...}``,
+    weights (in, out)) on ``obs`` [n, obs_dim]; with ``unit_ids`` (int64 [n / block],
+    the minibatch's shuffle units) ``obs`` is the rollout's units [units, block,
+    obs_dim] and row r is unit ``unit_ids[r // block]``, offset ``r % block``: the
+    kernels read it there, the plain version gathers it first. Differentiable in the
+    parameters (not in ``obs``). A tensor-parallel rank's sharded parameters take the
+    plain version on any device."""
+    if getattr(params, "tp", None) is not None or not _on_cuda(obs, "actor_critic_mlp"):
+        return actor_critic_mlp_plain(params, obs, unit_ids)
+    leaves = [t for tower in ("actor", "critic") for layer in params[tower] for t in layer]
+    dims = _check_towers(obs, unit_ids, leaves)
+    return MLPTowers.apply(obs, unit_ids, dims, *leaves)
+
+
+def actor_critic_mlp_plain(params, obs, unit_ids=None):
+    """Plain PyTorch ``actor_critic_mlp``: with ``unit_ids`` the rows gathered
+    (``gather_units``), then ``net.actor_mu`` and ``net.critic_value``."""
+    if unit_ids is not None:
+        obs = gather_units(obs, unit_ids)
+    return net.actor_mu(params, obs), net.critic_value(params, obs)
+
+
+def _check_towers(obs, unit_ids, leaves) -> tuple:
+    """The (obs_dim, h1, h2) of whole towers the kernels take, or a raise."""
+    dev = obs.device
+    _check_cuda("actor_critic_mlp", dev, [obs] + leaves)
+    shapes = [tuple(t.shape) for t in leaves]
+    d, h1 = shapes[0] if len(shapes[0]) == 2 else (None, None)
+    h2 = shapes[2][-1] if len(shapes) > 2 and shapes[2] else None
+    want = [(d, h1), (h1,), (h1, h2), (h2,), (h2, 2), (2,)] + \
+           [(d, h1), (h1,), (h1, h2), (h2,), (h2, 1), (1,)]
+    if shapes != want or not _cuda.mlp_takes(d, h1, h2):
+        takes = ", ".join(f"hidden {h} with obs_dim 1 to {_cuda.mlp_max_obs_dim(*h)}"
+                          for h in _cuda.MLP_HIDDEN)
+        raise ValueError(f"actor_critic_mlp: the kernels take two towers of three layers, "
+                         f"2 actor and 1 critic outputs, at {takes}; got tensors {shapes}")
+    if unit_ids is None:
+        if obs.ndim != 2 or obs.shape[1] != d:
+            raise ValueError(f"actor_critic_mlp: obs {tuple(obs.shape)}, expected [n, {d}]")
+    else:
+        _check_cuda("actor_critic_mlp", dev, (unit_ids,), torch.int64)
+        if obs.ndim != 3 or obs.shape[2] != d or unit_ids.ndim != 1:
+            raise ValueError(f"actor_critic_mlp: obs {tuple(obs.shape)} and unit ids "
+                             f"{tuple(unit_ids.shape)}, expected [units, block, {d}] and [ids]")
+    return d, h1, h2
+
+
+def _rows(obs, unit_ids) -> int:
+    return obs.shape[0] if unit_ids is None else unit_ids.shape[0] * obs.shape[1]
+
+
+class MLPTowers(torch.autograd.Function):
+    """``actor_critic_mlp`` on the card: the forward one launch of
+    ``csrc/mlp_towers.cu:mlp_forward_f32``, the backward one of ``mlp_backward_f32``
+    and one of ``mlp_grad_reduce_f32``, which return the gradients of the 12
+    parameter tensors as views of one flat buffer (none for the observations)."""
+
+    @staticmethod
+    def forward(ctx, obs, unit_ids, dims, *leaves):
+        global mlp_forward_launches
+        n = _rows(obs, unit_ids)
+        mu = torch.empty((n, 2), dtype=obs.dtype, device=obs.device)
+        v = torch.empty((n,), dtype=obs.dtype, device=obs.device)
+        if n:
+            with torch.cuda.device(obs.device):
+                _cuda.launch_mlp_forward(obs, unit_ids, leaves, mu, v, n, dims)
+            mlp_forward_launches += 1
+        ctx.save_for_backward(obs, unit_ids, *leaves)
+        ctx.dims = dims
+        return mu, v
+
+    @staticmethod
+    def backward(ctx, g_mu, g_v):
+        global mlp_backward_launches, mlp_grad_reduce_launches
+        obs, unit_ids, *leaves = ctx.saved_tensors
+        n = _rows(obs, unit_ids)
+        if n == 0:
+            return (None, None, None) + tuple(torch.zeros_like(t) for t in leaves)
+        total = sum(t.numel() for t in leaves)
+        partial = torch.empty((_cuda.mlp_tiles(n), total), dtype=obs.dtype, device=obs.device)
+        flat = torch.empty((total,), dtype=obs.dtype, device=obs.device)
+        g_mu, g_v = g_mu.contiguous(), g_v.contiguous()
+        _check_cuda("actor_critic_mlp backward", obs.device, (g_mu, g_v))
+        with torch.cuda.device(obs.device):
+            _cuda.launch_mlp_backward(obs, unit_ids, leaves, g_mu, g_v, partial, n, ctx.dims)
+            mlp_backward_launches += 1
+            _cuda.launch_mlp_grad_reduce(partial, flat)
+            mlp_grad_reduce_launches += 1
+        grads, at = [], 0
+        for t in leaves:
+            grads.append(flat[at:at + t.numel()].view_as(t))
+            at += t.numel()
+        return (None, None, None) + tuple(grads)

@@ -47,7 +47,13 @@ car pass; one launch each) bitwise, -0.0 apart from 0.0, its plain version (the
 narrow kernels and PyTorch) at 1 to 5008 rows, per-env and by row id, with the
 speed weight a constant and an annealed tensor, the sensing clamped and not; the
 transition's kernel of several rows a block too (on no path, forced) at widths that
-leave a block part-filled.
+leave a block part-filled. The minibatch step's actor and critic MLPs
+(``ops/mlp.py``, ``csrc/mlp_towers.cu``: one launch forward, two backward) within
+chip_smoke.py phase p's tolerance of the plain composition (cuBLAS and autograd) at
+every instantiated (obs_dim, hidden) and 1 to 65,536 rows, two runs bitwise,
+through the unit index bitwise the gathered rows, graph replays bitwise eager, an
+update launching each kernel once a minibatch step, and float64, non-contiguous and
+unlisted towers refused.
 """
 import contextlib
 import dataclasses
@@ -67,6 +73,7 @@ from self_play_racing_tpu_torch.ops import dynamics
 from self_play_racing_tpu_torch.ops import gae
 from self_play_racing_tpu_torch.ops import geometry as geo
 from self_play_racing_tpu_torch.ops import minibatch as mbops
+from self_play_racing_tpu_torch.ops import mlp as mlpops
 from self_play_racing_tpu_torch.ops import prng
 
 pytestmark = pytest.mark.cuda
@@ -1823,3 +1830,108 @@ def test_single_transition_rows_kernel_refuses_rows_without_a_period(cuda):
     with pytest.raises(RuntimeError, match="invalid argument"):
         _cuda._call("single_transition", "single_transition_rows_f32",
                     torch.device("cuda", torch.cuda.current_device()), *args, 0)
+
+
+# ------------------------------ the minibatch step's actor and critic MLPs (ops/mlp.py)
+
+@pytest.mark.parametrize("rows", list(chip_smoke.MLP_ROWS))
+@pytest.mark.parametrize("dims", list(chip_smoke.MLP_TOWERS))
+def test_mlp_kernels_match_plain(cuda, dims, rows):
+    """The three MLP kernels (forward, the tiles' backward, the reduce) against the
+    plain composition: mu, v and the 12 gradients within phase p's tolerance
+    (``chip_smoke.hold_mlp``: max(1e-5 of each tensor's scale, 8 x the composition's
+    own distance with the rows in two halves)), a second run bitwise the first, one
+    launch of each kernel a run."""
+    assert chip_smoke.hold_mlp(dims, rows, cuda, seed=rows)["ratio"] <= 1.0
+
+
+@pytest.mark.parametrize("rows,block", list(chip_smoke.UNIT_BLOCKS.items()))
+@pytest.mark.parametrize("obs_dim", [15, 19])
+def test_mlp_kernels_through_the_unit_index_are_the_gathered_rows(cuda, rows, block,
+                                                                  obs_dim):
+    """The kernels reading the rollout's units through the minibatch's unit ids are
+    bitwise the kernels on the gathered rows: mu, v and every gradient."""
+    case = chip_smoke.mlp_case(obs_dim, (64, 64), rows, seed=rows)
+    params, leaves, obs, g_mu, g_v = chip_smoke.mlp_tensors(case, cuda)
+    units, ids = chip_smoke.mlp_units(case, rows, block, cuda, seed=rows + 1)
+    assert torch.equal(mbops.gather_units(units, ids), obs)
+    got = chip_smoke.mlp_run(mlpops.actor_critic_mlp, params, leaves, units, g_mu, g_v, ids)
+    want = chip_smoke.mlp_run(mlpops.actor_critic_mlp, params, leaves, obs, g_mu, g_v)
+    assert all(chip_smoke.same_bits(a, b) for a, b in zip(got, want))
+
+
+def test_mlp_kernels_in_a_graph_are_eager_bitwise(cuda):
+    """The forward and both backward launches captured (through autograd) in a CUDA
+    graph and replayed twice give the eager run's bits, and the counters count the
+    capture's launches once."""
+    case = chip_smoke.mlp_case(19, (64, 64), 4097, seed=5)
+    params, leaves, obs, g_mu, g_v = chip_smoke.mlp_tensors(case, cuda)
+    eager = chip_smoke.mlp_run(mlpops.actor_critic_mlp, params, leaves, obs, g_mu, g_v)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chip_smoke.mlp_run(mlpops.actor_critic_mlp, params, leaves, obs, g_mu, g_v)
+    torch.cuda.current_stream().wait_stream(side)
+    before = chip_smoke.mlp_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = chip_smoke.mlp_run(mlpops.actor_critic_mlp, params, leaves, obs, g_mu, g_v)
+    assert [b - a for a, b in zip(before, chip_smoke.mlp_counts())] == [1, 1, 1]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(chip_smoke.same_bits(a, b) for a, b in zip(out, eager))
+
+
+def test_mlp_kernels_refuse_what_they_do_not_take(cuda):
+    """No fallback: float64, non-contiguous tensors, hidden widths outside
+    ``_cuda.MLP_HIDDEN`` and an obs_dim past a block's shared memory raise before any
+    launch, the wrapper's shared-memory sum being the kernel's
+    (``chip_smoke.mlp_refusals``), and so do unit ids that are not int64."""
+    chip_smoke.mlp_refusals(cuda)
+    case = chip_smoke.mlp_case(19, (64, 64), 256, seed=0)
+    params, _, obs, _, _ = chip_smoke.mlp_tensors(case, cuda)
+    before = chip_smoke.mlp_counts()
+    with pytest.raises(TypeError, match="float32"):
+        mlpops.actor_critic_mlp(params, obs.double())
+    with pytest.raises(TypeError, match="int64"):
+        mlpops.actor_critic_mlp(params, obs.reshape(4, 64, 19),
+                                torch.tensor([0, 1], dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="MLP|towers|three layers"):
+        mlpops.actor_critic_mlp({"actor": params["actor"][:2], "critic": params["critic"]},
+                                obs)
+    assert chip_smoke.mlp_counts() == before
+
+
+def test_update_launches_the_mlp_kernels_once_a_minibatch_step(cuda):
+    """One eager update (4 epochs x 4 minibatches) launches each MLP kernel once a
+    minibatch step, as it launches the loss head and the tail."""
+    from self_play_racing_tpu_torch.configs import base_config
+
+    cfg = base_config(num_envs=256, num_steps=64, num_minibatches=4, update_epochs=4,
+                      kl_target=float("inf"))
+    before = chip_smoke.mlp_counts()
+    params, _ = chip_smoke.update_with(cfg, cuda, 4, plain=False)
+    assert [b - a for a, b in zip(before, chip_smoke.mlp_counts())] == [16] * 3
+    assert all(bool(torch.isfinite(p).all()) for p in params)
+
+
+def test_train_scale_with_three_cars_launches_the_mlp_kernels(cuda, tmp_path, monkeypatch):
+    """``train scale --agents 3`` (towers of 11 + 4 x 3 = 23 inputs) trains on the
+    card through the MLP kernels: one launch of each a minibatch step, as the loss
+    head's and the tail's, and a finite policy of 23 inputs saved."""
+    from self_play_racing_tpu_torch import train as ttrain
+    from self_play_racing_tpu_torch.evaluate import load_policy_bundle
+
+    monkeypatch.chdir(tmp_path)
+    before = chip_smoke.read_counts()
+    tr = ttrain.main(["scale", "--num-envs", "64", "--total-timesteps", str(64 * 256 * 3),
+                      "--num-updates", "1", "--agents", "3"])
+    launches = {k: n - before[k] for k, n in chip_smoke.read_counts().items()}
+    assert tr.env_cfg.num_agents == 3 and tr.env_cfg.obs_dim == 23
+    want = chip_smoke.learner(launches, tr.cfg, 1)
+    assert {k: launches[k] for k in want} == want and launches["mlp_forward"] > 0
+    params, _, _ = load_policy_bundle("models/self_play_agent_scale_1B.npz", device="cpu")
+    assert params["actor"][0][0].shape == (23, 64)
+    assert all(bool(torch.isfinite(x).all()) for tower in params.values() for layer in tower
+               for x in layer)

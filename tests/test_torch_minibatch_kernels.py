@@ -66,6 +66,7 @@ from self_play_racing_tpu_torch.agent import ppo as tppo
 from self_play_racing_tpu_torch.configs import base_config
 from self_play_racing_tpu_torch.models import actor_critic as tnet
 from self_play_racing_tpu_torch.ops import minibatch as mbops
+from self_play_racing_tpu_torch.ops import mlp as mlpops
 
 ROWS = 512
 STAT_KEYS = ("loss", "pg_loss", "v_loss", "entropy", "approx_kl", "clip_frac")
@@ -110,9 +111,10 @@ def _jax_loss(case, rows, monkeypatch):
 
 def _port_loss(case, rows, monkeypatch, moments=None):
     monkeypatch.setattr(tppo, "net", _PortHead)
+    monkeypatch.setattr(mlpops, "net", _PortHead)
     mu = torch.tensor(case["mu"][rows], requires_grad=True)
     v = torch.tensor(case["v"][rows], requires_grad=True)
-    mb = tppo.Batch(obs=None, **{k: torch.as_tensor(case[k][rows]) for k in
+    mb = tppo.Batch(obs=torch.zeros((len(rows), 1)), **{k: torch.as_tensor(case[k][rows]) for k in
                                  ("actions", "logprobs", "advantages", "returns", "values")})
     loss, st = tppo._ppo_loss({"mu": mu, "v": v}, torch.as_tensor(case["log_std"]), mb,
                               base_config(), moments)
@@ -474,7 +476,7 @@ def test_loss_through_the_unit_index_is_the_gathered_loss(dtype, monkeypatch):
     gathered = _port_loss(case, rows, monkeypatch)
     mu = torch.tensor(case["mu"][rows], requires_grad=True)
     v = torch.tensor(case["v"][rows], requires_grad=True)
-    mb = tppo.UnitBatch(obs=None, actions=units["actions"], logprobs=units["logprobs"],
+    mb = tppo.UnitBatch(obs=torch.zeros((n_units, block, 1)), actions=units["actions"], logprobs=units["logprobs"],
                         advantages=torch.as_tensor(case["advantages"][rows]),
                         returns=units["returns"], values=units["values"], rows=unit_ids)
     loss, st = tppo._ppo_loss({"mu": mu, "v": v}, torch.as_tensor(case["log_std"]), mb,

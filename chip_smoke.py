@@ -276,12 +276,16 @@ p. the three kernels against the plain composition (cuBLAS and autograd) at the
    float64 composition (printed); two runs bitwise; through the unit index bitwise
    the gathered rows; float64, non-contiguous, other hidden widths and an obs_dim
    past a block's shared memory refused before any launch, the wrapper's shared
-   memory sum the kernel's; each kernel timed eager and in a CUDA graph (by row and
-   by unit id) beside its bound (the backward's its own operations, the forward it
-   recomputes a line of its own; the reduce's its adds, and its bytes only where its
-   partials outgrow the 50 MB L2, beside its launch floor) and the composition's forward and backward, at 65,536
-   and 16,384 rows; and ``train scale --agents 3`` (towers of 23 inputs), one update
-   at its defaults, launching the MLP kernels once a minibatch step;
+   memory sum the kernel's; the forward row-invariant bitwise (``mlp_row_invariance``);
+   each kernel timed eager and in a CUDA graph (by row and by unit id) beside its
+   bound (the backward's its own operations, the forward it recomputes a line of its
+   own, each as float32 FFMA and as the 3xTF32 tensor-core floor; the reduce's its
+   adds, and its bytes only where its partials outgrow the 50 MB L2, beside its launch
+   floor) and the composition's forward and backward, at 65,536 and 16,384 rows; the
+   FFMA kernels these replaced, built from their commit where the checkout has it, in
+   turns with these at the main paths' towers (``mlp_parent_turns``); and ``train scale --agents
+   3`` (towers of 23 inputs), one update at its defaults, launching the MLP kernels
+   once a minibatch step;
 
 and for the single-car env step as two launches (``single.transition`` runs
 ``csrc/single_transition.cu``, the step, the track query and the whole reward and
@@ -437,6 +441,8 @@ STEPS = 256
 # Published H100 SXM peaks: HBM bandwidth and f32 outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+# and the dense TF32 rate of its tensor cores
+PEAK_TF32_OPS_PER_S = 495e12
 # f32 operations per ray-segment pair in K1: cn 4, dotp 3, sn 4, |dotp| 1, hit test
 # 7 (2 products, 4 compares, |sn|), |cn| + select 2, the ratio compare 5
 K1_OPS_PER_PAIR = 26
@@ -4725,9 +4731,9 @@ def time_minibatch_kernels(dev, card, head_err: float, tail_err: float, gathers:
 
 # ------------------------------------------ phase (p): the minibatch step's MLPs
 
-# The MLP kernels (csrc/mlp_towers.cu) sum each product in their own order, the weight
-# and bias gradients over 128-row tiles and then the tiles in 8 groups; cuBLAS and
-# autograd sum in theirs. So each output and gradient tensor is held to the plain
+# The MLP kernels (csrc/mlp_towers.cu) sum each product in their own order (3xTF32 on
+# the tensor cores), the weight and bias gradients over each block's 64-row tiles and
+# then the blocks in 8 groups; cuBLAS and autograd sum in theirs. So each output and gradient tensor is held to the plain
 # composition within max(MLP_REL_FLOOR x the tensor's largest |plain value|,
 # MLP_CONTROL_FACTOR x the control), the control being the plain composition's own
 # distance when the same rows run in two halves (the halves' gradients summed): one
@@ -4744,11 +4750,97 @@ MLP_ROWS = (65_536, 16_384, 4097, 1)
 # widest obs_dim a block takes there, and phase j's towers of 128
 MLP_TOWERS = ((15, 64, 64), (19, 64, 64), (23, 64, 64), (43, 64, 64), (184, 64, 64),
               (15, 128, 128), (19, 128, 128))
-# the H100's L2 cache: the tiles' partials up to this size are still there when the
+# the towers and rows phase p times against the FFMA kernels in turns: the main paths'
+MLP_TURNS = (((19, 64, 64), 65_536), ((15, 64, 64), 65_536))
+# the H100's L2 cache: the blocks' partials up to this size are still there when the
 # reduce reads them right after the backward wrote them
 L2_BYTES = 50_000_000
 MLP_OUTPUTS = ("mu", "v") + tuple(f"{tower}.{p}" for tower in ("actor", "critic")
                                   for p in ("w1", "b1", "w2", "b2", "w3", "b3"))
+
+
+# the commit whose MLP kernels (the FFMA design, a block a tower and a 128-row tile)
+# the tensor-core kernels replaced: phase p times both in turns
+PARENT_MLP = "e8016a7"
+MLP_SOURCE = "self_play_racing_tpu_torch/csrc/mlp_towers.cu"
+
+
+def parent_mlp_source():
+    """The MLP kernels' source at ``PARENT_MLP``: from ``git show`` where the
+    checkout has its history, else from a ``git archive`` of that commit unpacked into
+    the git-ignored ``scratch_checkout/PARENT_MLP/``; None where neither is there."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    try:
+        return subprocess.run(["git", "show", f"{PARENT_MLP}:{MLP_SOURCE}"], cwd=root,
+                              check=True, capture_output=True, text=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        pass
+    path = os.path.join(root, "scratch_checkout", PARENT_MLP, MLP_SOURCE)
+    if os.path.exists(path):
+        with open(path) as f:
+            return f.read()
+    return None
+
+
+def build_mlp_lib(text: str, tag: str, defines=(), out_dir=None):
+    """``text`` (an MLP kernels' source) compiled with the port's flags into
+    ``out_dir`` (a new temporary directory by default), loaded, its entry points
+    bound as ``_cuda`` binds them; the compiler's report on ``.report``."""
+    import ctypes
+
+    out_dir = out_dir or tempfile.mkdtemp(prefix="mlp_variant_")
+    src = os.path.join(out_dir, f"{tag}.cu")
+    with open(src, "w") as f:
+        f.write(text)
+    out = os.path.join(out_dir, f"{tag}.so")
+    proc = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, *(f"-D{d}" for d in defines),
+                           "-o", out, src], capture_output=True, text=True, timeout=900)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc {tag}:\n{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(out)
+    for fn, argtypes in _cuda._SIGNATURES.items():
+        if fn.startswith("mlp_") and hasattr(lib, fn):
+            getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, ctypes.c_int
+    lib.report = proc.stdout + proc.stderr
+    return lib
+
+
+def lib_partial_rows(lib, n: int) -> int:
+    """The rows of ``lib``'s backward partials at ``n`` rows (the FFMA kernels': a row a
+    128-row tile)."""
+    if hasattr(lib, "mlp_partial_rows"):
+        return lib.mlp_partial_rows(n)
+    return -(-n // lib.mlp_rows_per_tile())
+
+
+def mlp_lib_calls(lib, obs, unit_ids, w, mu, v, g_mu, g_v, n: int, dims):
+    """(forward, backward, reduce) launches of ``lib``'s three entry points on the
+    current stream, as ``_cuda.launch_mlp_*`` launch the port's, with their own
+    partials buffer."""
+    dev = obs.device
+    params = sum(x.numel() for x in w)
+    partial = torch.empty((lib_partial_rows(lib, n), params), device=dev)
+    flat = torch.empty((params,), device=dev)
+    ptrs, block, units = _cuda._mlp_inputs(obs, unit_ids, w)
+    fwd_ptrs = _cuda._ptr_array(ptrs + [mu, v])
+    bwd_ptrs = _cuda._ptr_array(ptrs + [g_mu, g_v, partial])
+
+    keep = (obs, unit_ids, w, mu, v, g_mu, g_v, partial, flat)
+
+    def call(fn, *args):
+        # the closure holds the tensors: a CUDA graph's capture empties the
+        # allocator's cache, so a freed buffer's pointer would dangle
+        assert keep
+        err = getattr(lib, fn)(*args, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"{fn}: cudaError {err}")
+
+    return (lambda: call("mlp_forward_f32", fwd_ptrs, _cuda.MLP_INPUTS + 2, n, block, units,
+                         *dims),
+            lambda: call("mlp_backward_f32", bwd_ptrs, _cuda.MLP_INPUTS + 3, n, block, units,
+                         *dims),
+            lambda: call("mlp_grad_reduce_f32", _cuda._ptr(partial), _cuda._ptr(flat),
+                         partial.shape[0], partial.shape[1]))
 
 
 def mlp_macs(obs_dim: int, h1: int, h2: int):
@@ -4888,11 +4980,12 @@ def mlp_refusals(dev) -> None:
     refused = 0
     wide = {t: [tuple(x.double() for x in layer) for layer in ls] for t, ls in params.items()}
     odd = mlp_tensors(mlp_case(19, (64, 32), 256, 0), dev)[0]
-    far, _, far_obs, _, _ = mlp_tensors(mlp_case(28, (128, 128), 256, 0), dev)
+    past = _cuda.mlp_max_obs_dim(128, 128) + 1
+    far, _, far_obs, _, _ = mlp_tensors(mlp_case(past, (128, 128), 256, 0), dev)
     for what, p, o in (("float64", wide, obs.double()), ("non-contiguous", params,
                                                           obs.t().contiguous().t()),
                        ("towers (19, 64, 32)", odd, obs),
-                       ("towers (28, 128, 128)", far, far_obs)):
+                       (f"towers ({past}, 128, 128)", far, far_obs)):
         try:
             mlpops.actor_critic_mlp(p, o)
         except (TypeError, ValueError):
@@ -4901,6 +4994,27 @@ def mlp_refusals(dev) -> None:
             raise AssertionError(f"phase p: actor_critic_mlp took {what} tensors")
     if refused != 4 or mlp_counts() != before:
         raise AssertionError("phase p: a refused call launched a kernel")
+
+
+def mlp_row_invariance(dims, dev) -> None:
+    """The forward is row-invariant, bitwise: on a permutation of 4097 rows it gives
+    the permutation of its outputs, and on row 0 alone row 0 of its outputs at 65,536
+    rows (what ROADMAP.md's row-invariance rests on)."""
+    d, h1, h2 = dims
+    case = mlp_case(d, (h1, h2), 65_536, seed=21)
+    params, _, obs, _, _ = mlp_tensors(case, dev)
+    perm = torch.as_tensor(np.random.default_rng(22).permutation(4097), device=dev)
+    with torch.no_grad():
+        some = mlpops.actor_critic_mlp(params, obs[:4097].contiguous())
+        permuted = mlpops.actor_critic_mlp(params, obs[:4097][perm].contiguous())
+        every = mlpops.actor_critic_mlp(params, obs)
+        first = mlpops.actor_critic_mlp(params, obs[:1].contiguous())
+    torch.cuda.synchronize()
+    if not all(same_bits(p, x[perm]) for p, x in zip(permuted, some)):
+        raise AssertionError(f"phase p {dims}: the forward of permuted rows is not the "
+                             f"permuted forward")
+    if not all(same_bits(f, x[:1]) for f, x in zip(first, every)):
+        raise AssertionError(f"phase p {dims}: row 0 alone differs from row 0 of 65,536")
 
 
 def check_mlp_kernels(dev, card) -> dict:
@@ -4925,47 +5039,102 @@ def check_mlp_kernels(dev, card) -> dict:
             if not all(same_bits(a, b) for a, b in zip(got, want)):
                 raise AssertionError(f"phase p {dims}: the unit index at {n} rows differs "
                                      f"from the gathered rows")
+    for dims in MLP_TOWERS:
+        mlp_row_invariance(dims, dev)
     mlp_refusals(dev)
     print(f"phase p: the MLP kernels within max({MLP_REL_FLOOR:g} x scale, "
           f"{MLP_CONTROL_FACTOR} x the two-halves control) of the plain composition at "
           f"{MLP_TOWERS} x {MLP_ROWS} rows (largest ratio "
           f"{max(r['ratio'] for r in out.values()):.3f}); through the unit index bitwise "
-          f"the gathered rows at {tuple(UNIT_BLOCKS.items())}; float64, non-contiguous, "
+          f"the gathered rows at {tuple(UNIT_BLOCKS.items())}; the forward row-invariant "
+          f"bitwise (4097 rows permuted, row 0 alone against 65,536); float64, non-contiguous, "
           f"other hidden widths and an obs_dim past a block's memory refused, on {card}")
     return out
 
 
 def mlp_bounds_ms(dims, n: int):
     """(forward, backward, recompute, reduce) bounds at ``n`` rows, each (ms, by):
-    the forward's and the backward's multiply-adds (the backward's own: every weight
-    gradient and the upper layers' input gradients) against their bytes (the
-    observations, the upstream gradients, mu and v, the parameters, the tiles'
-    partials); the forward that the backward kernel recomputes, its own line, at
-    the forward's operations; the reduce's adds, and its bytes only where the
+    the forward's and the backward's multiply-adds as float32 FFMA (the backward's
+    own: every weight gradient and the upper layers' input gradients) against their
+    bytes (the observations, the upstream gradients, mu and v, the parameters, the
+    blocks' partials); the forward that the backward kernel recomputes, its own line,
+    at the forward's operations; the reduce's adds, and its bytes only where the
     partials outgrow ``L2_BYTES``: below that they are in the L2 (the backward wrote
     them just before), which the guide's table gives no rate for, so there the reduce
-    is read against its launch floor (``time_mlp_kernels``)."""
+    is read against its launch floor (``time_mlp_kernels``). Then the tensor-core
+    floors of the same products as the kernels run them (``mlp_tensor_core_ms``)."""
     d, h1, h2 = dims
     forward, backward = mlp_macs(d, h1, h2)
     params = 2 * (d * h1 + h1 + h1 * h2 + h2) + 3 * h2 + 3
-    partial = 4 * _cuda.mlp_tiles(n) * params
+    partial = 4 * _cuda.mlp_partial_rows(n) * params
     return (bound_ms(4 * (n * (d + 3) + params), 2 * n * forward),
             bound_ms(4 * (n * (d + 3) + params) + partial, 2 * n * backward),
             bound_ms(0, 2 * n * forward),
             bound_ms(partial + 4 * params if partial > L2_BYTES else 0,
-                     _cuda.mlp_tiles(n) * params))
+                     _cuda.mlp_partial_rows(n) * params))
+
+
+def mlp_tensor_core_ms(dims, n: int):
+    """The (forward, backward, recompute) floors of the MLP kernels' multiply-adds in
+    error-compensated 3xTF32: three TF32 products each, 2 operations a product, at
+    the H100's dense TF32 tensor-core rate (``PEAK_TF32_OPS_PER_S``)."""
+    forward, backward = mlp_macs(*dims)
+    return tuple(3 * 2 * n * macs / PEAK_TF32_OPS_PER_S * 1e3
+                 for macs in (forward, backward, forward))
+
+
+def mlp_parent_turns(dev, card) -> dict:
+    """The FFMA MLP kernels (``parent_mlp_source``, built into a temporary directory)
+    and the port's in turns, each launch in a CUDA graph (parent, this, this, parent)
+    at ``MLP_TURNS``: the forward, the backward and the reduce, us. Empty, with a
+    line saying so, where the parent's source is not in the checkout."""
+    text = parent_mlp_source()
+    if text is None:
+        print(f"phase p: no source of {PARENT_MLP} in this checkout (no git history, no "
+              f"scratch_checkout/{PARENT_MLP}/): the kernels are not timed against the FFMA ones")
+        return {}
+    parent = build_mlp_lib(text, f"mlp_towers_{PARENT_MLP}")
+    out = {}
+    for dims, n in MLP_TURNS:
+        case = mlp_case(dims[0], dims[1:], n, seed=7)
+        _, leaves, obs, g_mu, g_v = mlp_tensors(case, dev)
+        w = [x.detach() for x in leaves]
+        mu, v = torch.empty((n, 2), device=dev), torch.empty((n,), device=dev)
+        theirs = mlp_lib_calls(parent, obs, None, w, mu, v, g_mu, g_v, n, dims)
+        ours = mlp_lib_calls(_cuda._mlp_lib(), obs, None, w, mu, v, g_mu, g_v, n, dims)
+        times = {}
+        for i, key in enumerate(("forward", "backward", "reduce")):
+            order = (theirs[i], ours[i], ours[i], theirs[i])
+            times[key] = [graph_ms(f) * 1e3 for f in order]
+        out[dims, n] = times
+        print(f"phase p {dims} at {n} rows, us in a graph, FFMA | these | these | FFMA: "
+              + "; ".join(f"{k} " + " | ".join(f"{t:.2f}" for t in ts)
+                          for k, ts in times.items()) + f", on {card}")
+    return out
+
+
+def mlp_occupancy(dims) -> dict:
+    """The forward's and the backward's shared bytes and blocks an SM at ``dims``
+    (the kernel's ``mlp_blocks_per_sm``, from the CUDA occupancy calculator)."""
+    lib, plan = _cuda._mlp_lib(), _cuda.mlp_plan(*dims)
+    return {"forward_shared_bytes": plan["forward_bytes"],
+            "backward_shared_bytes": plan["backward_bytes"],
+            "forward_blocks_per_sm": lib.mlp_blocks_per_sm(*dims, 0),
+            "backward_blocks_per_sm": lib.mlp_blocks_per_sm(*dims, 1),
+            "backward_accumulates_in_shared_memory": plan["accumulate_shared"]}
 
 
 def time_mlp_kernels(dev, card, checked: dict) -> list:
     """The kernels line's entries for ``mlp_forward``, ``mlp_backward`` and
     ``mlp_grad_reduce``: each launch eager and in a CUDA graph at the main paths'
     widths (65,536 and 16,384 rows; self-play's 19 inputs, single-car's 15, phase j's
-    towers of 128), by row and through the unit index, beside the bound; the plain
-    composition (cuBLAS, autograd), the forward eager and in a graph, the backward
-    eager (a plain capture of autograd's backward failed on the card); the reduce
-    beside ``torch.sum`` over the tiles (the one PyTorch call that computes it, never
-    on the path) and its own launch floor (one tile of one parameter, in a graph).
-    The towers of 3 and 8 cars (23 and 43 inputs) too."""
+    towers of 128), by row and through the unit index, beside the FFMA bound and the
+    3xTF32 tensor-core floor; the plain composition (cuBLAS, autograd), the forward
+    eager and in a graph, the backward eager (a plain capture of autograd's backward
+    failed on the card); the reduce beside ``torch.sum`` over the blocks' partials
+    (the one PyTorch call that computes it, never on the path) and its own launch
+    floor (one row of one parameter, in a graph). The towers of 3 and 8 cars (23 and
+    43 inputs) too; and the FFMA kernels in turns (``mlp_parent_turns``)."""
     rows = {}
     one, one_out = torch.zeros((1, 1), device=dev), torch.empty((1,), device=dev)
     floor = graph_ms(lambda: _cuda.launch_mlp_grad_reduce(one, one_out))
@@ -4976,7 +5145,8 @@ def time_mlp_kernels(dev, card, checked: dict) -> list:
         units, ids = mlp_units(case, n, 64, dev, seed=8)
         w = [x.detach() for x in leaves]
         mu, v = torch.empty((n, 2), device=dev), torch.empty((n,), device=dev)
-        partial = torch.empty((_cuda.mlp_tiles(n), sum(x.numel() for x in w)), device=dev)
+        partial = torch.empty((_cuda.mlp_partial_rows(n), sum(x.numel() for x in w)),
+                              device=dev)
         flat = torch.empty((partial.shape[1],), device=dev)
         fwd = lambda o=obs, i=None: _cuda.launch_mlp_forward(o, i, w, mu, v, n, dims)
         bwd = lambda o=obs, i=None: _cuda.launch_mlp_backward(o, i, w, g_mu, g_v, partial, n,
@@ -4990,30 +5160,34 @@ def time_mlp_kernels(dev, card, checked: dict) -> list:
                                               retain_graph=True)
         library = lambda: torch.sum(partial, 0)
         f_b, b_b, c_b, r_b = mlp_bounds_ms(dims, n)
+        f_tc, b_tc, c_tc = mlp_tensor_core_ms(dims, n)
         r = rows[dims, n] = {
             "forward": (per_launch_ms(fwd), graph_ms(fwd), graph_ms(lambda: fwd(units, ids)),
-                        *p_f, *f_b),
+                        *p_f, *f_b, f_tc),
             "backward": (per_launch_ms(bwd), graph_ms(bwd), graph_ms(lambda: bwd(units, ids)),
-                         per_launch_ms(plain_b), *b_b, c_b[0]),
+                         per_launch_ms(plain_b), *b_b, c_b[0], b_tc, c_tc),
             "reduce": (per_launch_ms(red), graph_ms(red), per_launch_ms(library),
                        graph_ms(library), *r_b, floor)}
         f, b, rd = r["forward"], r["backward"], r["reduce"]
         print(f"phase p {dims} at {n} rows, us: forward {f[0] * 1e3:.2f} eager, "
               f"{f[1] * 1e3:.2f} in a graph ({f[2] * 1e3:.2f} by unit id), bound "
-              f"{f[5] * 1e3:.2f} ({f[6]}), the composition {f[3] * 1e3:.1f} eager, "
-              f"{f[4] * 1e3:.1f} in a graph; backward {b[0] * 1e3:.2f} eager, "
-              f"{b[1] * 1e3:.2f} in a graph ({b[2] * 1e3:.2f} by unit id), bound "
-              f"{b[4] * 1e3:.2f} ({b[5]}; the forward it recomputes {b[6] * 1e3:.2f} more), "
-              f"the composition's backward {b[3] * 1e3:.1f} eager; reduce "
+              f"{f[5] * 1e3:.2f} ({f[6]}; 3xTF32 on the tensor cores {f[7] * 1e3:.2f}), the "
+              f"composition {f[3] * 1e3:.1f} eager, {f[4] * 1e3:.1f} in a graph; backward "
+              f"{b[0] * 1e3:.2f} eager, {b[1] * 1e3:.2f} in a graph ({b[2] * 1e3:.2f} by unit "
+              f"id), bound {b[4] * 1e3:.2f} ({b[5]}; the forward it recomputes "
+              f"{b[6] * 1e3:.2f} more; 3xTF32 {b[7] * 1e3:.2f} + {b[8] * 1e3:.2f}), the "
+              f"composition's backward {b[3] * 1e3:.1f} eager; reduce "
               f"{rd[0] * 1e3:.2f} eager, {rd[1] * 1e3:.2f} in a graph, bound "
               f"{rd[4] * 1e3:.3f} ({rd[5]}; {partial.numel() * 4 / 1e6:.1f} MB of partials), "
               f"launch floor "
               f"{rd[6] * 1e3:.2f} in a graph, torch.sum {rd[2] * 1e3:.2f} eager, "
-              f"{rd[3] * 1e3:.2f} in a graph, on {card}")
+              f"{rd[3] * 1e3:.2f} in a graph; {mlp_occupancy(dims)}, on {card}")
+    turns = mlp_parent_turns(dev, card)
     names = {"forward": ("ms", "graph_ms", "unit_index_graph_ms", "plain_ms", "plain_graph_ms",
-                         "bound_ms", "bound_by"),
+                         "bound_ms", "bound_by", "tensor_core_bound_ms"),
              "backward": ("ms", "graph_ms", "unit_index_graph_ms", "plain_ms", "bound_ms",
-                          "bound_by", "recompute_bound_ms"),
+                          "bound_by", "recompute_bound_ms", "tensor_core_bound_ms",
+                          "recompute_tensor_core_bound_ms"),
              "reduce": ("ms", "graph_ms", "library_ms", "library_graph_ms", "bound_ms",
                         "bound_by", "launch_floor_ms")}
     ratio = max(c["ratio"] for c in checked.values())
@@ -5028,8 +5202,12 @@ def time_mlp_kernels(dev, card, checked: dict) -> list:
                 "at": {"x".join(map(str, dims)) + f"_{n}_rows": dict(zip(names[key],
                                                                          rows[dims, n][key]))
                        for dims, n in rows},
+                "parent_turns_us": {"x".join(map(str, dims)) + f"_{n}_rows": t[key]
+                                    for (dims, n), t in turns.items()},
                 "registers": kernel_registers(_cuda.build_report.get("mlp_towers", ""),
-                                              f"{name}_kernel")}
+                                              f"{name}_kernel"),
+                "occupancy": {"x".join(map(str, dims)): mlp_occupancy(dims)
+                              for dims in MLP_TOWERS}}
 
     return [entry("mlp_forward", "forward", "self_play_racing_tpu/models/actor_critic.py:68"),
             entry("mlp_backward", "backward", "self_play_racing_tpu/agent/ppo.py:313"),

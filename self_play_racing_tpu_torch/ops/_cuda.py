@@ -66,6 +66,8 @@ _SIGNATURES = {
     "mlp_grad_reduce_f32": [_P, _P, _L, _L, _I, _P],
     "mlp_rows_per_tile": [],
     "mlp_shared_bytes": [_I, _I, _I],
+    "mlp_partial_rows": [_L],
+    "mlp_blocks_per_sm": [_I, _I, _I, _I],
 }
 
 _lock = threading.Lock()
@@ -840,29 +842,67 @@ def launch_mixbits_permutation(consts, out, num_perms: int, log2_n: int) -> None
 
 # the actor's and critic's MLPs (csrc/mlp_towers.cu): the hidden widths (h1, h2) it
 # is instantiated for (its MLP_HIDDEN; obs_dim is a run-time argument), the rows a
-# tile (its kRows: a block's rows, and a row of the backward's partials), its
-# pointer counts
+# tile (its kRows: 16 a warp, 4 warps a block), the backward's fixed blocks a tower
+# (its kBackwardBlocks: the rows of its partials), its pointer counts
 MLP_HIDDEN = ((64, 64), (128, 128))
-MLP_ROWS_PER_TILE = 128
+MLP_ROWS_PER_TILE = 64
+MLP_BACKWARD_BLOCKS = 128
+MLP_WARPS = 4
 MLP_TENSORS = 12
 MLP_INPUTS = 2 + MLP_TENSORS
 
 
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def mlp_plan(obs_dim: int, h1: int, h2: int) -> dict:
+    """The kernels' shared memory at towers obs_dim -> h1 -> h2, as
+    ``csrc/mlp_towers.cu:Layout`` and ``plan`` lay it out (floats): a tower's staged
+    parameters (w1 padded to 8 rows, b1, w2, b2, w3 and b3 of two outputs, to 4
+    floats); a tile of observations [rows][xs] (xs the first stride of 8 mod 32 from
+    obs_dim rounded up to 16); the forward both towers and 2 tiles (1 where 2 do not
+    fit a block), the backward one tower, its tiles, h1 [rows][h1 + 8], g2 [rows][h2 +
+    8], the warps' narrow sums and, where they fit (tried first), the gradients it
+    accumulates. Returns the bytes of each kernel (0 where nothing fits) and the
+    choices."""
+    dk, d16 = _round_up(obs_dim, 8), _round_up(obs_dim, 16)
+    xs = d16 + (8 - d16) % 32
+    tower = _round_up(dk * h1 + h1 + h1 * h2 + h2 + 2 * h2 + 2, 4)
+    xtile = MLP_ROWS_PER_TILE * xs
+    fits = lambda floats: 4 * floats <= BLOCK_SMEM_LIMIT
+    plan = {"forward_bytes": 0, "backward_bytes": 0, "forward_tiles": 0, "backward_tiles": 0,
+            "accumulate_shared": False}
+    for nbuf in (2, 1):
+        if fits(2 * tower + nbuf * xtile):
+            plan.update(forward_bytes=4 * (2 * tower + nbuf * xtile), forward_tiles=nbuf)
+            break
+    base = (tower + MLP_ROWS_PER_TILE * (h1 + 8) + MLP_ROWS_PER_TILE * (h2 + 8)
+            + _round_up(MLP_WARPS * (h1 + 3 * h2 + 2), 4))
+    acc = _round_up(obs_dim * (h1 + 8) + h1 + h1 * (h2 + 8) + h2 + 2 * h2 + 2, 4)
+    for shared in (True, False):
+        for nbuf in (2, 1):
+            floats = base + nbuf * xtile + (acc if shared else 0)
+            if fits(floats) and not plan["backward_tiles"]:
+                plan.update(backward_bytes=4 * floats, backward_tiles=nbuf,
+                            accumulate_shared=shared)
+    return plan
+
+
 def mlp_shared_bytes(obs_dim: int, h1: int, h2: int) -> int:
-    """A block's shared memory at towers obs_dim -> h1 -> h2: the actor's parameters
-    (16-byte aligned), then a tile's x (obs_dim padded to 4), h1, h2 and the output
-    gradients [2], each feature ``MLP_ROWS_PER_TILE`` + 4 floats
-    (``csrc/mlp_towers.cu:Layout``; its ``mlp_shared_bytes`` on the card)."""
-    size = obs_dim * h1 + h1 + h1 * h2 + h2 + 2 * h2 + 2
-    features = -(-obs_dim // 4) * 4 + h1 + h2 + 2
-    return 4 * (-(-size // 4) * 4 + features * (MLP_ROWS_PER_TILE + 4))
+    """The larger of the two kernels' shared bytes a block at towers obs_dim -> h1 ->
+    h2 (``mlp_plan``; the kernel's own ``mlp_shared_bytes`` on the card), 0 where one
+    of them does not fit."""
+    plan = mlp_plan(obs_dim, h1, h2)
+    if not plan["forward_bytes"] or not plan["backward_bytes"]:
+        return 0
+    return max(plan["forward_bytes"], plan["backward_bytes"])
 
 
 def mlp_takes(obs_dim: int, h1: int, h2: int) -> bool:
     """Whether the kernels take towers obs_dim -> h1 -> h2: widths in ``MLP_HIDDEN``
-    and a block's shared memory within ``BLOCK_SMEM_LIMIT``."""
-    return ((h1, h2) in MLP_HIDDEN and obs_dim >= 1
-            and mlp_shared_bytes(obs_dim, h1, h2) <= BLOCK_SMEM_LIMIT)
+    and both kernels' shared memory within ``BLOCK_SMEM_LIMIT``."""
+    return (h1, h2) in MLP_HIDDEN and obs_dim >= 1 and mlp_shared_bytes(obs_dim, h1, h2) > 0
 
 
 def mlp_max_obs_dim(h1: int, h2: int) -> int:
@@ -874,17 +914,24 @@ def mlp_max_obs_dim(h1: int, h2: int) -> int:
 
 
 def mlp_tiles(n: int) -> int:
-    """The tiles (blocks of each tower) of ``n`` rows: the rows of the backward's
-    partials."""
+    """The tiles of ``n`` rows (``MLP_ROWS_PER_TILE`` each)."""
     return -(-n // MLP_ROWS_PER_TILE)
+
+
+def mlp_partial_rows(n: int) -> int:
+    """The rows of the backward's partials at ``n`` rows: a row a block of its fixed
+    grid, fewer where there are fewer tiles."""
+    return min(mlp_tiles(n), MLP_BACKWARD_BLOCKS)
 
 
 @functools.lru_cache(maxsize=None)
 def _mlp_lib():
     lib = build()["mlp_towers"]
-    if lib.mlp_rows_per_tile() != MLP_ROWS_PER_TILE:
-        raise RuntimeError(f"csrc/mlp_towers.cu tiles {lib.mlp_rows_per_tile()} rows, "
-                           f"ops/_cuda.py MLP_ROWS_PER_TILE {MLP_ROWS_PER_TILE}")
+    if (lib.mlp_rows_per_tile(), lib.mlp_partial_rows(1 << 40)) != (
+            MLP_ROWS_PER_TILE, MLP_BACKWARD_BLOCKS):
+        raise RuntimeError(f"csrc/mlp_towers.cu tiles {lib.mlp_rows_per_tile()} rows and "
+                           f"{lib.mlp_partial_rows(1 << 40)} blocks a tower, ops/_cuda.py "
+                           f"{MLP_ROWS_PER_TILE} and {MLP_BACKWARD_BLOCKS}")
     return lib
 
 
@@ -912,7 +959,7 @@ def launch_mlp_forward(obs, unit_ids, params, mu, v, n: int, dims) -> None:
 def launch_mlp_backward(obs, unit_ids, params, g_mu, g_v, partial, n: int, dims) -> None:
     """Launch both towers' backward on the current stream of ``partial``'s device:
     the forward's inputs, the upstream gradients ``g_mu`` [n, 2] and ``g_v`` [n]
-    (contiguous), out the tiles' gradients ``partial`` [mlp_tiles(n), params]."""
+    (contiguous), out the blocks' gradients ``partial`` [mlp_partial_rows(n), params]."""
     _mlp_lib()
     ptrs, block, units = _mlp_inputs(obs, unit_ids, params)
     _call("mlp_towers", "mlp_backward_f32", partial.device,
@@ -920,7 +967,7 @@ def launch_mlp_backward(obs, unit_ids, params, g_mu, g_v, partial, n: int, dims)
 
 
 def launch_mlp_grad_reduce(partial, out) -> None:
-    """Launch the sum of the tiles' gradients ``partial`` [tiles, params] into
+    """Launch the sum of the blocks' gradients ``partial`` [rows, params] into
     ``out`` [params] on the current stream of ``out``'s device."""
     _call("mlp_towers", "mlp_grad_reduce_f32", out.device, _ptr(partial), _ptr(out),
           partial.shape[0], partial.shape[1])

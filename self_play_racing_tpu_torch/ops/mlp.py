@@ -14,12 +14,15 @@ a bias add and a tanh a layer, and autograd's backward of each.
   rank, the Megatron composition of ``models/actor_critic.py``, since the kernels
   take whole towers), a CUDA tensor of whole towers ``MLPTowers``, a ``torch.autograd.Function`` whose forward is one launch of
   ``mlp_forward_f32`` (both towers) and whose backward is two, ``mlp_backward_f32``
-  (each 128-row tile's weight and bias gradients, recomputing the tile's forward)
-  and ``mlp_grad_reduce_f32`` (the tiles summed in a fixed order into one flat buffer
-  whose views the 12 gradients are). The kernels read the observations through the
-  minibatch's unit ids in place. They sum in another order than cuBLAS, so they are
-  held to the plain composition within a stated tolerance (chip_smoke.py phase p),
-  not bitwise; equal inputs give equal bits, eager and in a CUDA graph.
+  (each block of a fixed grid its 64-row tiles' weight and bias gradients, the tiles'
+  forward recomputed, one partial row a block) and ``mlp_grad_reduce_f32`` (the rows
+  summed in a fixed order into one flat buffer whose views the 12 gradients are).
+  Their products run on the tensor cores in error-compensated 3xTF32 (float32
+  accurate). The kernels read the observations through the minibatch's unit ids in
+  place. They sum in another order than cuBLAS, so they are held to the plain
+  composition within a stated tolerance (chip_smoke.py phase p), not bitwise; equal
+  inputs give equal bits, eager and in a CUDA graph, and the forward is
+  row-invariant.
 - The kernels take whole towers obs_dim -> h1 -> h2 -> {2, 1}: any obs_dim (a
   run-time argument) that fits a block's shared memory with (h1, h2) in
   ``_cuda.MLP_HIDDEN`` (``_cuda.mlp_takes``). A CUDA tensor they do not take (not
@@ -124,7 +127,8 @@ class MLPTowers(torch.autograd.Function):
         if n == 0:
             return (None, None, None) + tuple(torch.zeros_like(t) for t in leaves)
         total = sum(t.numel() for t in leaves)
-        partial = torch.empty((_cuda.mlp_tiles(n), total), dtype=obs.dtype, device=obs.device)
+        partial = torch.empty((_cuda.mlp_partial_rows(n), total), dtype=obs.dtype,
+                              device=obs.device)
         flat = torch.empty((total,), dtype=obs.dtype, device=obs.device)
         g_mu, g_v = g_mu.contiguous(), g_v.contiguous()
         _check_cuda("actor_critic_mlp backward", obs.device, (g_mu, g_v))

@@ -51,9 +51,9 @@ leave a block part-filled. The minibatch step's actor and critic MLPs
 (``ops/mlp.py``, ``csrc/mlp_towers.cu``: one launch forward, two backward) within
 chip_smoke.py phase p's tolerance of the plain composition (cuBLAS and autograd) at
 every instantiated (obs_dim, hidden) and 1 to 65,536 rows, two runs bitwise,
-through the unit index bitwise the gathered rows, graph replays bitwise eager, an
-update launching each kernel once a minibatch step, and float64, non-contiguous and
-unlisted towers refused.
+through the unit index bitwise the gathered rows, graph replays bitwise eager, the
+forward row-invariant bitwise, an update launching each kernel once a minibatch
+step, and float64, non-contiguous and unlisted towers refused.
 """
 import contextlib
 import dataclasses
@@ -1858,6 +1858,14 @@ def test_mlp_kernels_through_the_unit_index_are_the_gathered_rows(cuda, rows, bl
     got = chip_smoke.mlp_run(mlpops.actor_critic_mlp, params, leaves, units, g_mu, g_v, ids)
     want = chip_smoke.mlp_run(mlpops.actor_critic_mlp, params, leaves, obs, g_mu, g_v)
     assert all(chip_smoke.same_bits(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dims", list(chip_smoke.MLP_TOWERS))
+def test_mlp_forward_is_row_invariant(cuda, dims):
+    """The forward of a permutation of 4097 rows is the permutation of the forward,
+    and row 0 alone is row 0 at 65,536 rows, bitwise (``chip_smoke.mlp_row_invariance``,
+    as phase p runs it)."""
+    chip_smoke.mlp_row_invariance(dims, cuda)
 
 
 def test_mlp_kernels_in_a_graph_are_eager_bitwise(cuda):

@@ -17,13 +17,17 @@ tolerance of chip_smoke.py phase p (``tests/test_torch_cuda_kernels.py``). Here:
 - the unit-id read (the rollout's units [units, block, obs_dim] through the
   minibatch's unit ids, repeats and all) bitwise the plain route on the gathered
   rows, gradients too;
-- a PyTorch transcription of the kernels' order (each 128-row tile's forward, its
-  weight and bias gradients from the backward kernel's formulas, then the tiles
-  summed in 8 groups of consecutive tiles and the groups in order) within phase p's
-  tolerance of the plain version (``chip_smoke.mlp_bounds``: max(1e-5 of the
-  tensor's scale, 8 x the plain composition's own distance with the rows in two
-  halves)): it catches a transposed weight, the actor's final tanh or the critic's
-  missing one before the card does;
+- a PyTorch transcription of the kernels' order (``kernel_order``: the products in
+  3xTF32 as the tensor cores take them, the operands split as ``cvt.rna`` splits them
+  on their int32 view, the narrow sums over the lanes in the kernel's shuffle tree,
+  each 64-row tile's weight and bias gradients accumulated by its block of the fixed
+  grid in tile order, then the blocks' rows summed in 8 groups of consecutive rows
+  and the groups in order) within phase p's tolerance of the plain version
+  (``chip_smoke.mlp_bounds``: max(1e-5 of the tensor's scale, 8 x the plain
+  composition's own distance with the rows in two halves)): it catches a transposed
+  weight, the actor's final tanh or the critic's missing one, one TF32 product in
+  place of three, and weights without their low part, before the card does; and
+  the split itself (low 13 bits zero, ties away from zero, hi + lo within 2^-22);
 - what the kernels take and refuse, checked on CPU tensors (``_check_towers``: any
   obs_dim that fits a block's shared memory with hidden widths in
   ``_cuda.MLP_HIDDEN``; float64, non-contiguous, other widths refused) and the tile
@@ -112,47 +116,181 @@ def test_unit_ids_read_the_gathered_rows(block, ids):
     assert all(chip_smoke.same_bits(a, b) for a, b in zip(got, want))
 
 
-def kernel_order(params, obs, g_mu, g_v, tile=_cuda.MLP_ROWS_PER_TILE, groups=8):
-    """The kernels' order in PyTorch (``csrc/mlp_towers.cu``): each tile of ``tile``
-    rows through both towers, its weight and bias gradients from the backward
-    kernel's formulas (g3 = d mu * (1 - mu^2) through the actor's tanh, d v for the
-    critic; g2 = (g3 W3^T) * (1 - h2^2); g1 = (g2 W2^T) * (1 - h1^2); x^T g1, h1^T g2,
-    h2^T g3 and the row sums), then the tiles' gradients summed in ``groups`` groups of
-    consecutive tiles, each in tile order from zero, and the group sums in order.
-    Returns [mu, v, the 12 gradients]."""
-    n = obs.shape[0]
+def tf32(x):
+    """``cvt.rna.tf32.f32`` on the int32 view: round to the nearest 10-bit mantissa,
+    ties away from zero (the magnitude's bits plus half of the dropped 13, then
+    cut)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split(x):
+    """A float32 tensor as TF32 (hi, lo): hi = tf32(x), lo = tf32(x - hi)."""
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def mma3(acc, a, b, products=3, weight_lo=True, b_is_weight=False):
+    """``acc`` + ``a`` @ ``b`` over one step of 8 k as the kernels issue it: a and b
+    split, the products lo*hi, hi*lo and hi*hi in that order, each step's 8 products
+    summed exactly onto the float32 accumulator (float64 here, one rounding).
+    ``products=1`` keeps hi*hi alone, ``weight_lo=False`` drops b's low part where b
+    is a weight: the mistakes the tolerance must catch."""
+    (a_hi, a_lo), (b_hi, b_lo) = split(a), split(b)
+    terms = [(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)]
+    if products == 1:
+        terms = terms[2:]
+    elif b_is_weight and not weight_lo:
+        terms = [terms[0], terms[2]]
+    for p, q in terms:
+        acc = (acc.double() + p.double() @ q.double()).float()
+    return acc
+
+
+def product(a, b, acc=None, **kw):
+    """``acc`` (zero) + ``a`` [M, K] @ ``b`` [K, N] in steps of 8 k in order (K padded
+    with zeros to 8s)."""
+    k = a.shape[1]
+    pad = -k % 8
+    a = torch.nn.functional.pad(a, (0, pad))
+    b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    acc = torch.zeros((a.shape[0], b.shape[1])) if acc is None else acc
+    for k0 in range(0, k + pad, 8):
+        acc = mma3(acc, a[:, k0:k0 + 8], b[k0:k0 + 8], **kw)
+    return acc
+
+
+def fma(a, b, c):
+    return (a.double() * b.double() + c.double()).float()
+
+
+def butterfly(p):
+    """The sum over the last axis of 8 (a warp's g) by the shuffle tree: pairs g, g^1,
+    then g^2, then g^4."""
+    for m in (1, 2, 4):
+        idx = torch.arange(8) ^ m
+        p = p + p[..., idx]
+    return p[..., 0]
+
+
+def last_layer(h2, w3):
+    """z = h2 W3 as the kernel's lanes sum it: lane t chains its columns 8 j + 2t, + 1
+    in order by FMA, then (z0 + z1) + (z2 + z3)."""
+    rows, h = h2.shape
+    cols = h2.reshape(rows, h // 8, 4, 2)
+    w = w3.reshape(h // 8, 4, 2, -1)
+    z = torch.zeros((rows, 4, w3.shape[1]))
+    for j in range(h // 8):
+        for e in range(2):
+            z = fma(cols[:, j, :, e, None], w[j, :, e], z)
+    return (z[:, 0] + z[:, 1]) + (z[:, 2] + z[:, 3])
+
+
+def warp_sums(v):
+    """A tile's [64, C] per-row pairs as the kernel sums them: a warp's rows g and g +
+    8 a lane's value (``v`` holds it already paired: [4 warps, 8 g, C]), the
+    butterfly over g, then the 4 warps in order."""
+    per = butterfly(v.permute(0, 2, 1))
+    total = per[0]
+    for w in range(1, per.shape[0]):
+        total = total + per[w]
+    return total
+
+
+def kernel_order(params, obs, g_mu, g_v, tile=_cuda.MLP_ROWS_PER_TILE,
+                 blocks=_cuda.MLP_BACKWARD_BLOCKS, groups=8, products=3, weight_lo=True):
+    """The kernels' order in PyTorch (``csrc/mlp_towers.cu``): the hidden layers'
+    products and the weight gradients in 3xTF32 (``mma3``: steps of 8 k in order, the
+    operands split as ``cvt.rna`` splits them), the last layer and the narrow sums
+    over the lanes in the kernel's tree, each ``tile``-row tile's gradients (g3 = d mu
+    * (1 - mu^2) through the actor's tanh, d v for the critic; g2 = (g3 W3^T) * (1 -
+    h2^2); g1 = (g2 W2^T) * (1 - h1^2); h2^T g3, h1^T g2, x^T g1 and the bias sums)
+    accumulated by block b over its tiles b, b + G, ... in order (G = min(tiles,
+    ``blocks``)), then the blocks' rows summed in ``groups`` groups of consecutive
+    rows, each in order from zero, and the group sums in order. Returns [mu, v, the 12
+    gradients]."""
+    n, d = obs.shape
     tiles = -(-n // tile)
-    parts, outs = [], {"actor": [], "critic": []}
-    for t in range(tiles):
-        x = obs[t * tile:(t + 1) * tile]
-        part = []
-        for tower, g_out, final_tanh in (("actor", g_mu, True), ("critic", g_v[:, None], False)):
-            (w1, b1), (w2, b2), (w3, b3) = params[tower]
-            h1 = torch.tanh(x @ w1 + b1)
-            h2 = torch.tanh(h1 @ w2 + b2)
-            z = h2 @ w3 + b3
-            y = torch.tanh(z) if final_tanh else z
-            g = g_out[t * tile:(t + 1) * tile]
-            g3 = g * (1 - y * y) if final_tanh else g
-            g2 = (g3 @ w3.T) * (1 - h2 * h2)
-            g1 = (g2 @ w2.T) * (1 - h1 * h1)
-            part += [x.T @ g1, g1.sum(0), h1.T @ g2, g2.sum(0), h2.T @ g3, g3.sum(0)]
-            outs[tower].append(y)
-        parts.append(part)
-    per = -(-tiles // groups)
-    grads = []
-    for i in range(len(parts[0])):
-        sums = []
-        for k in range(groups):
-            s = torch.zeros_like(parts[0][i])
-            for part in parts[k * per:(k + 1) * per]:
-                s = s + part[i]
-            sums.append(s)
-        total = sums[0]
-        for s in sums[1:]:
-            total = total + s
-        grads.append(total)
-    return [torch.cat(outs["actor"]), torch.cat(outs["critic"])[:, 0]] + grads
+    nblk = min(tiles, blocks)
+    pad = tiles * tile - n
+    x = torch.nn.functional.pad(obs, (0, 0, 0, pad))
+    mm = functools.partial(product, products=products, weight_lo=weight_lo, b_is_weight=True)
+    outs, grads = [], []
+    for tower, g_out, final_tanh in (("actor", g_mu, True), ("critic", g_v[:, None], False)):
+        (w1, b1), (w2, b2), (w3, b3) = params[tower]
+        h1 = torch.tanh(mm(obs, w1) + b1)
+        h2 = torch.tanh(mm(h1, w2) + b2)
+        z = last_layer(h2, w3) + b3
+        y = torch.tanh(z) if final_tanh else z
+        outs.append(y)
+        # rows past n: zero upstream gradients, so every product of theirs is zero
+        h1, h2, y = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (h1, h2, y))
+        g = torch.nn.functional.pad(g_out, (0, 0, 0, pad))
+        g3 = g * (1 - y * y) if final_tanh else g
+        d2 = g3[:, :1] * w3[:, 0]
+        if w3.shape[1] == 2:
+            d2 = fma(g3[:, 1:], w3[:, 1], d2)
+        g2 = d2 * (1 - h2 * h2)
+        g1 = mm(g2, w2.T) * (1 - h1 * h1)
+        acc = [[torch.zeros_like(p) for p in (w1, b1, w2, b2, w3, b3)] for _ in range(nblk)]
+        for t in range(tiles):
+            rows = slice(t * tile, (t + 1) * tile)
+            a = acc[t % nblk]
+
+            def pairs(u, v=None):
+                """[4 warps, 8 g, C]: rows g and g + 8 of each warp's 16 as the lane
+                pairs them (u + v, or fma(u_{g+8}, v_{g+8}, u_g v_g) with v)."""
+                u = u[rows].reshape(4, 2, 8, -1)
+                if v is None:
+                    return u[:, 0] + u[:, 1]
+                v = v[rows].reshape(4, 2, 8, -1)
+                return fma(u[:, 1], v[:, 1], u[:, 0] * v[:, 0])
+
+            a[4] = a[4] + warp_sums(torch.stack(
+                [pairs(h2, g3[:, o:o + 1].expand_as(h2)) for o in range(g3.shape[1])],
+                -1).reshape(4, 8, -1)).reshape(w3.shape)
+            a[5] = a[5] + warp_sums(pairs(g3))
+            a[3] = a[3] + warp_sums(pairs(g2))
+            a[1] = a[1] + warp_sums(pairs(g1))
+            a[2] = product(h1[rows].T, g2[rows], a[2], products=products)
+            a[0] = product(x[rows].T, g1[rows], a[0], products=products)
+        per = -(-nblk // groups)
+        for i in range(6):
+            sums = []
+            for k in range(groups):
+                s = torch.zeros_like(acc[0][i])
+                for part in acc[k * per:(k + 1) * per]:
+                    s = s + part[i]
+                sums.append(s)
+            total = sums[0]
+            for s in sums[1:]:
+                total = total + s
+            grads.append(total)
+    return [outs[0], outs[1][:, 0]] + grads
+
+
+@pytest.mark.parametrize("x", [1.0, -1.0, 1.0 + 2 ** -11, -(1.0 + 2 ** -11), 1.0 + 3 * 2 ** -12,
+                               3.14159265, -2.718281828e-3, 6.1e-5, 1e30])
+def test_tf32_split_is_cvt_rna(x):
+    """The split the kernels issue: hi = cvt.rna.tf32(x) has its low 13 bits zero and
+    is x rounded to the nearest 10-bit mantissa, ties away from zero; lo = the same of
+    x - hi; hi + lo is x within 2^-22 of it."""
+    t = torch.tensor([x], dtype=torch.float32)
+    hi, lo = split(t)
+    assert int(hi.view(torch.int32)) & 0x1FFF == 0 and int(lo.view(torch.int32)) & 0x1FFF == 0
+    v = float(t)
+    ulp = 2.0 ** (np.floor(np.log2(abs(v))) - 10)
+    assert abs(float(hi) - v) <= ulp / 2
+    if abs(float(hi) - v) == ulp / 2:  # a tie: away from zero
+        assert abs(float(hi)) > abs(v)
+    assert abs(float(hi) + float(lo) - v) <= 2.0 ** -22 * abs(v)
+
+
+def test_tf32_split_rounds_ties_away_from_zero():
+    """Ties at the 13th dropped bit go away from zero, for either sign; below a tie
+    the mantissa is cut."""
+    one = 1.0 + 2 ** -11  # exactly half a TF32 ulp past 1
+    got = tf32(torch.tensor([one, -one, 1.0 + 2 ** -12], dtype=torch.float32))
+    assert got.tolist() == [1.0 + 2 ** -10, -(1.0 + 2 ** -10), 1.0]
 
 
 @pytest.mark.parametrize("rows", [1, 127, 4097])
@@ -174,7 +312,8 @@ def test_kernel_order_is_the_plain_version_within_phase_p_tolerance(obs_dim, hid
 
 
 @pytest.mark.parametrize("mistake", ["w2 transposed", "actor without its final tanh",
-                                     "critic with a final tanh"])
+                                     "critic with a final tanh", "one TF32 product",
+                                     "weights without their low part"])
 def test_kernel_order_mistakes_break_the_tolerance(mistake, monkeypatch):
     """The transcription with one of the mistakes the tolerance must catch falls
     outside it: the check is not too loose to see them."""
@@ -190,6 +329,10 @@ def test_kernel_order_mistakes_break_the_tolerance(mistake, monkeypatch):
             for t in wrong:
                 wrong[t][1] = (wrong[t][1][0].T.contiguous(), wrong[t][1][1])
             got = kernel_order(wrong, obs, g_mu, g_v)
+        elif mistake == "one TF32 product":
+            got = kernel_order(params, obs, g_mu, g_v, products=1)
+        elif mistake == "weights without their low part":
+            got = kernel_order(params, obs, g_mu, g_v, weight_lo=False)
         else:
             real_tanh = torch.tanh
             calls = {"n": 0}
@@ -211,17 +354,25 @@ def test_kernel_order_mistakes_break_the_tolerance(mistake, monkeypatch):
 
 
 def test_tiles_and_the_instantiated_towers():
-    """The backward's partials have a row a 128-row tile; the kernels are built for
-    towers (64, 64) (every config's default) and (128, 128) (chip_smoke.py phase
-    j's), obs_dim a run-time argument: at (64, 64) every single-car sensor count and
-    self-play at 1 to 8 cars of 11 sensors (11 + 4 x cars inputs) fit a block's
-    shared memory, to obs_dim 184; at (128, 128) to 27."""
-    assert [_cuda.mlp_tiles(n) for n in (1, 127, 128, 129, 4097, 65_536)] == \
-        [1, 1, 1, 2, 33, 512]
+    """The kernels' tiles are 64 rows and the backward's partials a row a block of its
+    fixed grid (128 blocks a tower); they are built for towers (64, 64) (every
+    config's default) and (128, 128) (chip_smoke.py phase j's), obs_dim a run-time
+    argument: at (64, 64) every single-car sensor count and self-play at 1 to 8 cars
+    of 11 sensors (11 + 4 x cars inputs) fit a block's shared memory, to obs_dim 248
+    (the FFMA kernels before took 184); at (128, 128) to 64 (27 before)."""
+    assert [_cuda.mlp_tiles(n) for n in (1, 64, 65, 127, 128, 129, 4097, 65_536)] == \
+        [1, 1, 2, 2, 2, 3, 65, 1024]
+    assert [_cuda.mlp_partial_rows(n) for n in (1, 127, 4097, 8192, 8193, 65_536)] == \
+        [1, 2, 65, 128, 128, 128]
     assert _cuda.MLP_HIDDEN == ((64, 64), (128, 128))
-    assert _cuda.mlp_max_obs_dim(64, 64) == 184 and _cuda.mlp_max_obs_dim(128, 128) == 27
-    assert _cuda.mlp_shared_bytes(19, 64, 64) == 101_488
-    assert _cuda.mlp_shared_bytes(19, 128, 128) == 224_112
+    assert _cuda.mlp_max_obs_dim(64, 64) == 248 and _cuda.mlp_max_obs_dim(128, 128) == 64
+    assert _cuda.mlp_max_obs_dim(64, 64) >= 184 and _cuda.mlp_max_obs_dim(128, 128) >= 27
+    plan = _cuda.mlp_plan(19, 64, 64)
+    assert (plan["forward_bytes"], plan["backward_bytes"]) == (67_616, 109_984)
+    assert plan["forward_tiles"] == plan["backward_tiles"] == 2 and plan["accumulate_shared"]
+    assert _cuda.mlp_shared_bytes(19, 64, 64) == 109_984
+    assert _cuda.mlp_shared_bytes(19, 128, 128) == 180_256
+    assert not _cuda.mlp_plan(19, 128, 128)["accumulate_shared"]
     assert all(_cuda.mlp_takes(11 + 4 * cars, 64, 64) for cars in range(1, 9))
     assert not _cuda.mlp_takes(19, 64, 32) and not _cuda.mlp_takes(0, 64, 64)
     assert chip_smoke.mlp_macs(19, 64, 64) == (10_816, 19_200)
@@ -235,7 +386,7 @@ def _leaves(obs_dim, hidden, dtype=torch.float32):
 
 @pytest.mark.parametrize("obs_dim,hidden", SHAPES + [
     (1, (64, 64)), (11, (64, 64)), (23, (64, 64)), (43, (64, 64)), (184, (64, 64)),
-    (27, (128, 128))])
+    (27, (128, 128)), (248, (64, 64)), (64, (128, 128))])
 def test_check_takes_the_instantiated_towers(obs_dim, hidden):
     _, leaves, obs = _leaves(obs_dim, hidden)
     assert mlpops._check_towers(obs, None, leaves) == (obs_dim,) + hidden
@@ -244,7 +395,7 @@ def test_check_takes_the_instantiated_towers(obs_dim, hidden):
 
 
 @pytest.mark.parametrize("what", ["float64", "non-contiguous obs", "towers (19, 64, 32)",
-                                  "obs 28 at (128, 128)", "obs 185", "towers (19, 96, 96)",
+                                  "obs 65 at (128, 128)", "obs 249", "towers (19, 96, 96)",
                                   "a third hidden layer", "int32 unit ids",
                                   "obs [n, d] with unit ids", "obs 11 against towers of 19"])
 def test_check_refuses_what_the_kernels_do_not_take(what):
@@ -258,10 +409,10 @@ def test_check_refuses_what_the_kernels_do_not_take(what):
         obs = obs.t().contiguous().t()
     elif what == "towers (19, 64, 32)":
         _, leaves, obs = _leaves(19, (64, 32))
-    elif what == "obs 28 at (128, 128)":
-        _, leaves, obs = _leaves(28, (128, 128))
-    elif what == "obs 185":
-        _, leaves, obs = _leaves(185, (64, 64))
+    elif what == "obs 65 at (128, 128)":
+        _, leaves, obs = _leaves(65, (128, 128))
+    elif what == "obs 249":
+        _, leaves, obs = _leaves(249, (64, 64))
     elif what == "towers (19, 96, 96)":
         _, leaves, obs = _leaves(19, (96, 96))
     elif what == "obs 11 against towers of 19":

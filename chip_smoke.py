@@ -275,15 +275,16 @@ p. the three kernels against the plain composition (cuBLAS and autograd) at the
    composition's own distance with the rows in two halves), both also against the
    float64 composition (printed); two runs bitwise; through the unit index bitwise
    the gathered rows; float64, non-contiguous, other hidden widths and an obs_dim
-   past a block's shared memory refused before any launch, the wrapper's shared
-   memory sum the kernel's; the forward row-invariant bitwise (``mlp_row_invariance``);
+   past a block's shared memory refused before any launch, the wrapper's least
+   shared bytes the kernel's; the forward row-invariant bitwise (``mlp_row_invariance``);
    each kernel timed eager and in a CUDA graph (by row and by unit id) beside its
-   bound (the backward's its own operations, the forward it recomputes a line of its
-   own, each as float32 FFMA and as the 3xTF32 tensor-core floor; the reduce's its
-   adds, and its bytes only where its partials outgrow the 50 MB L2, beside its launch
-   floor) and the composition's forward and backward, at 65,536 and 16,384 rows; the
-   FFMA kernels these replaced, built from their commit where the checkout has it, in
-   turns with these at the main paths' towers (``mlp_parent_turns``); and ``train scale --agents
+   bound (the forward's and the backward's own operations as 3xTF32 on the tensor
+   cores, the forward the backward recomputes a line of its own, each also as
+   float32 FFMA; the reduce's its adds, and its bytes only where its partials outgrow
+   the 50 MB L2, beside its launch floor) and the composition's forward and backward,
+   at 65,536 and 16,384 rows; the FFMA kernels these replaced, built from their commit
+   where the checkout has it, in turns with these at ``MLP_TURNS``
+   (``mlp_parent_turns``); and ``train scale --agents
    3`` (towers of 23 inputs), one update at its defaults, launching the MLP kernels
    once a minibatch step;
 
@@ -354,7 +355,8 @@ self-play run's 3 timed updates on the tiled pool; ``launches_loops_graphed`` it
 count over phase l's graphed runs, as replays; the three MLP kernels of phase p
 their largest error and error over bound, the composition's forward and backward
 (``plain_ms``, the forward's ``plain_graph_ms``), the backward's
-``recompute_bound_ms`` (the forward it recomputes), the reduce's ``launch_floor_ms``
+``recompute_bound_ms`` (the forward it recomputes), the forward's and the backward's
+``ffma_bound_ms`` (and ``recompute_ffma_bound_ms``), the reduce's ``launch_floor_ms``
 and, under ``at``, the times at the other towers and rows); the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -518,9 +520,9 @@ def graph_ms(fn, windows=21, launches=20) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: int, ops: int):
+def bound_ms(nbytes: int, ops: int, ops_per_s: float = PEAK_F32_OPS_PER_S):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -4750,8 +4752,10 @@ MLP_ROWS = (65_536, 16_384, 4097, 1)
 # widest obs_dim a block takes there, and phase j's towers of 128
 MLP_TOWERS = ((15, 64, 64), (19, 64, 64), (23, 64, 64), (43, 64, 64), (184, 64, 64),
               (15, 128, 128), (19, 128, 128))
-# the towers and rows phase p times against the FFMA kernels in turns: the main paths'
-MLP_TURNS = (((19, 64, 64), 65_536), ((15, 64, 64), 65_536))
+# the towers and rows phase p times against the FFMA kernels in turns: the main paths',
+# the 8-car towers of ``train scale --agents 8`` and phase j's width
+MLP_TURNS = (((19, 64, 64), 65_536), ((15, 64, 64), 65_536), ((43, 64, 64), 65_536),
+             ((19, 128, 128), 65_536))
 # the H100's L2 cache: the blocks' partials up to this size are still there when the
 # reduce reads them right after the backward wrote them
 L2_BYTES = 50_000_000
@@ -4965,7 +4969,7 @@ def mlp_units(case: dict, n: int, block: int, dev, seed: int):
 def mlp_refusals(dev) -> None:
     """No fallback: float64, non-contiguous tensors, hidden widths outside
     ``_cuda.MLP_HIDDEN`` and an obs_dim past a block's shared memory raise before any
-    launch; and the wrapper's shared-memory sum is the kernel's own
+    launch; and the wrapper's least shared bytes are the kernel's own
     (``mlp_shared_bytes``) at every obs_dim to 256 and a few widths, so what the
     wrapper takes is what the kernels take."""
     lib = _cuda._mlp_lib()
@@ -5054,33 +5058,28 @@ def check_mlp_kernels(dev, card) -> dict:
 
 def mlp_bounds_ms(dims, n: int):
     """(forward, backward, recompute, reduce) bounds at ``n`` rows, each (ms, by):
-    the forward's and the backward's multiply-adds as float32 FFMA (the backward's
-    own: every weight gradient and the upper layers' input gradients) against their
-    bytes (the observations, the upstream gradients, mu and v, the parameters, the
-    blocks' partials); the forward that the backward kernel recomputes, its own line,
-    at the forward's operations; the reduce's adds, and its bytes only where the
-    partials outgrow ``L2_BYTES``: below that they are in the L2 (the backward wrote
-    them just before), which the guide's table gives no rate for, so there the reduce
-    is read against its launch floor (``time_mlp_kernels``). Then the tensor-core
-    floors of the same products as the kernels run them (``mlp_tensor_core_ms``)."""
+    the forward's and the backward's multiply-adds (the backward's own: every weight
+    gradient and the upper layers' input gradients) as the kernels run them, 3xTF32
+    on the tensor cores (three TF32 products a multiply-add, 2 operations each, at
+    ``PEAK_TF32_OPS_PER_S``), against their bytes (the observations, the upstream
+    gradients, mu and v, the parameters, the blocks' partials); the forward that the
+    backward kernel recomputes, its own line, at the forward's operations; the
+    reduce's adds, and its bytes only where the partials outgrow ``L2_BYTES``: below
+    that they are in the L2 (the backward wrote them just before), which the guide's
+    table gives no rate for, so there the reduce is read against its launch floor
+    (``time_mlp_kernels``). Then the (forward, backward, recompute) bounds of the same
+    multiply-adds as float32 FFMA."""
     d, h1, h2 = dims
     forward, backward = mlp_macs(d, h1, h2)
     params = 2 * (d * h1 + h1 + h1 * h2 + h2) + 3 * h2 + 3
     partial = 4 * _cuda.mlp_partial_rows(n) * params
-    return (bound_ms(4 * (n * (d + 3) + params), 2 * n * forward),
-            bound_ms(4 * (n * (d + 3) + params) + partial, 2 * n * backward),
-            bound_ms(0, 2 * n * forward),
-            bound_ms(partial + 4 * params if partial > L2_BYTES else 0,
-                     _cuda.mlp_partial_rows(n) * params))
-
-
-def mlp_tensor_core_ms(dims, n: int):
-    """The (forward, backward, recompute) floors of the MLP kernels' multiply-adds in
-    error-compensated 3xTF32: three TF32 products each, 2 operations a product, at
-    the H100's dense TF32 tensor-core rate (``PEAK_TF32_OPS_PER_S``)."""
-    forward, backward = mlp_macs(*dims)
-    return tuple(3 * 2 * n * macs / PEAK_TF32_OPS_PER_S * 1e3
-                 for macs in (forward, backward, forward))
+    moved = (4 * (n * (d + 3) + params), 4 * (n * (d + 3) + params) + partial, 0)
+    macs = (forward, backward, forward)
+    tf32 = [bound_ms(b, 3 * 2 * n * m, PEAK_TF32_OPS_PER_S) for b, m in zip(moved, macs)]
+    ffma = tuple(bound_ms(b, 2 * n * m)[0] for b, m in zip(moved, macs))
+    reduce = bound_ms(partial + 4 * params if partial > L2_BYTES else 0,
+                      _cuda.mlp_partial_rows(n) * params)
+    return (*tf32, reduce), ffma
 
 
 def mlp_parent_turns(dev, card) -> dict:
@@ -5115,21 +5114,26 @@ def mlp_parent_turns(dev, card) -> dict:
 
 def mlp_occupancy(dims) -> dict:
     """The forward's and the backward's shared bytes and blocks an SM at ``dims``
-    (the kernel's ``mlp_blocks_per_sm``, from the CUDA occupancy calculator)."""
-    lib, plan = _cuda._mlp_lib(), _cuda.mlp_plan(*dims)
-    return {"forward_shared_bytes": plan["forward_bytes"],
-            "backward_shared_bytes": plan["backward_bytes"],
+    (the kernel's ``mlp_launch_plan``, and ``mlp_blocks_per_sm`` from the CUDA
+    occupancy calculator), and whether the backward accumulates in shared memory."""
+    import ctypes
+
+    lib, plan = _cuda._mlp_lib(), (ctypes.c_longlong * 5)()
+    err = lib.mlp_launch_plan(*dims, plan)
+    if err:
+        raise RuntimeError(f"mlp_launch_plan{dims}: cudaError {err}")
+    return {"forward_shared_bytes": plan[1], "backward_shared_bytes": plan[3],
             "forward_blocks_per_sm": lib.mlp_blocks_per_sm(*dims, 0),
             "backward_blocks_per_sm": lib.mlp_blocks_per_sm(*dims, 1),
-            "backward_accumulates_in_shared_memory": plan["accumulate_shared"]}
+            "backward_accumulates_in_shared_memory": bool(plan[4])}
 
 
 def time_mlp_kernels(dev, card, checked: dict) -> list:
     """The kernels line's entries for ``mlp_forward``, ``mlp_backward`` and
     ``mlp_grad_reduce``: each launch eager and in a CUDA graph at the main paths'
     widths (65,536 and 16,384 rows; self-play's 19 inputs, single-car's 15, phase j's
-    towers of 128), by row and through the unit index, beside the FFMA bound and the
-    3xTF32 tensor-core floor; the plain composition (cuBLAS, autograd), the forward
+    towers of 128), by row and through the unit index, beside the 3xTF32 bound and
+    the FFMA one; the plain composition (cuBLAS, autograd), the forward
     eager and in a graph, the backward eager (a plain capture of autograd's backward
     failed on the card); the reduce beside ``torch.sum`` over the blocks' partials
     (the one PyTorch call that computes it, never on the path) and its own launch
@@ -5159,23 +5163,23 @@ def time_mlp_kernels(dev, card, checked: dict) -> list:
         plain_b = lambda: torch.autograd.grad((mu_p, v_p), leaves, (g_mu, g_v),
                                               retain_graph=True)
         library = lambda: torch.sum(partial, 0)
-        f_b, b_b, c_b, r_b = mlp_bounds_ms(dims, n)
-        f_tc, b_tc, c_tc = mlp_tensor_core_ms(dims, n)
+        (f_b, b_b, c_b, r_b), (f_ffma, b_ffma, c_ffma) = mlp_bounds_ms(dims, n)
         r = rows[dims, n] = {
             "forward": (per_launch_ms(fwd), graph_ms(fwd), graph_ms(lambda: fwd(units, ids)),
-                        *p_f, *f_b, f_tc),
+                        *p_f, *f_b, f_ffma),
             "backward": (per_launch_ms(bwd), graph_ms(bwd), graph_ms(lambda: bwd(units, ids)),
-                         per_launch_ms(plain_b), *b_b, c_b[0], b_tc, c_tc),
+                         per_launch_ms(plain_b), *b_b, c_b[0], b_ffma, c_ffma),
             "reduce": (per_launch_ms(red), graph_ms(red), per_launch_ms(library),
                        graph_ms(library), *r_b, floor)}
         f, b, rd = r["forward"], r["backward"], r["reduce"]
         print(f"phase p {dims} at {n} rows, us: forward {f[0] * 1e3:.2f} eager, "
               f"{f[1] * 1e3:.2f} in a graph ({f[2] * 1e3:.2f} by unit id), bound "
-              f"{f[5] * 1e3:.2f} ({f[6]}; 3xTF32 on the tensor cores {f[7] * 1e3:.2f}), the "
+              f"{f[5] * 1e3:.2f} (3xTF32 on the tensor cores, {f[6]}; as FFMA "
+              f"{f[7] * 1e3:.2f}), the "
               f"composition {f[3] * 1e3:.1f} eager, {f[4] * 1e3:.1f} in a graph; backward "
               f"{b[0] * 1e3:.2f} eager, {b[1] * 1e3:.2f} in a graph ({b[2] * 1e3:.2f} by unit "
-              f"id), bound {b[4] * 1e3:.2f} ({b[5]}; the forward it recomputes "
-              f"{b[6] * 1e3:.2f} more; 3xTF32 {b[7] * 1e3:.2f} + {b[8] * 1e3:.2f}), the "
+              f"id), bound {b[4] * 1e3:.2f} (3xTF32, {b[5]}; the forward it recomputes "
+              f"{b[6] * 1e3:.2f} more; as FFMA {b[7] * 1e3:.2f} + {b[8] * 1e3:.2f}), the "
               f"composition's backward {b[3] * 1e3:.1f} eager; reduce "
               f"{rd[0] * 1e3:.2f} eager, {rd[1] * 1e3:.2f} in a graph, bound "
               f"{rd[4] * 1e3:.3f} ({rd[5]}; {partial.numel() * 4 / 1e6:.1f} MB of partials), "
@@ -5184,10 +5188,10 @@ def time_mlp_kernels(dev, card, checked: dict) -> list:
               f"{rd[3] * 1e3:.2f} in a graph; {mlp_occupancy(dims)}, on {card}")
     turns = mlp_parent_turns(dev, card)
     names = {"forward": ("ms", "graph_ms", "unit_index_graph_ms", "plain_ms", "plain_graph_ms",
-                         "bound_ms", "bound_by", "tensor_core_bound_ms"),
+                         "bound_ms", "bound_by", "ffma_bound_ms"),
              "backward": ("ms", "graph_ms", "unit_index_graph_ms", "plain_ms", "bound_ms",
-                          "bound_by", "recompute_bound_ms", "tensor_core_bound_ms",
-                          "recompute_tensor_core_bound_ms"),
+                          "bound_by", "recompute_bound_ms", "ffma_bound_ms",
+                          "recompute_ffma_bound_ms"),
              "reduce": ("ms", "graph_ms", "library_ms", "library_graph_ms", "bound_ms",
                         "bound_by", "launch_floor_ms")}
     ratio = max(c["ratio"] for c in checked.values())

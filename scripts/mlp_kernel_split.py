@@ -2,7 +2,7 @@
 """What holds the MLP kernels back, on the card.
 
   python scripts/mlp_kernel_split.py [--kernels parent new] [--rows N] [--out FILE]
-      [--forward-blocks N ...] [--rates]
+      [--rates]
 
 Builds stripped variants of ``mlp_forward_f32`` and ``mlp_backward_f32`` (the source
 compiled with an early exit at one split point, ``-DMLP_SPLIT_STOP=k``) and times
@@ -34,8 +34,7 @@ outputs are wrong): forward no_tanh (the hidden layers' tanh left out); backward
 no_dw (the tensor-core weight gradients h1^T g2 and x^T g1 left out), no_tanh,
 no_narrow (W3's gradient and the bias sums), no_g1 (the product g2 W2^T).
 
-``--forward-blocks N ...`` also times the port's full forward with its fixed grid
-(``kForwardBlocks``) set to each N. ``--rates`` also builds ``scripts/mma_tf32_rate.cu`` and prints the card's rates
+``--rates`` also builds ``scripts/mma_tf32_rate.cu`` and prints the card's rates
 for what the products issue: mma.sync.m16n8k8 TF32 back to back, the same with the B
 operand split first, and FFMA, at 4, 8 and 16 warps an SM.
 
@@ -72,6 +71,16 @@ BACKWARD = (("staged", 10), ("recompute", 11), ("g3_w3", 12), ("w2_grad", 13), (
 FORWARD_NEW = (("no_tanh", 3),)
 BACKWARD_NEW = (("no_dw", 20), ("no_tanh", 21), ("no_narrow", 22), ("no_g1", 23))
 STOP = "#ifndef MLP_SPLIT_STOP\n#define MLP_SPLIT_STOP 99\n#endif\n"
+# what a stripped variant of the port's kernels computed, kept (``sink(v, out)`` at
+# its split points) so that the compiler does not drop it
+SINK = """template <int NJ>
+__device__ __forceinline__ void sink(const float (&v)[NJ][4], float* out) {
+    float s = 0.0f;
+    for (int j = 0; j < NJ; ++j)
+        for (int e = 0; e < 4; ++e) s += v[j][e];
+    if (s == 1234.5f) *out = s;
+}
+"""
 
 # the parent's split points: (anchor, replacement), applied in order, each anchor
 # found once (the port's source marks its own with "// split: <kernel> <name>" lines)
@@ -116,7 +125,7 @@ def patched(text: str, source: str) -> str:
                 out.append(f"{indent}if ({cond}){tail.strip() or ' return;'}\n")
             else:
                 out.append(line)
-        return STOP + "".join(out)
+        return STOP + SINK + "".join(out)
     for anchor, replacement in PARENT_EDITS:
         if text.count(anchor) != 1:
             raise RuntimeError(f"{source}: anchor found {text.count(anchor)} times: {anchor!r}")
@@ -202,9 +211,6 @@ def main(argv=None) -> int:
                     choices=["parent", "new"])
     ap.add_argument("--rows", type=int, default=65_536)
     ap.add_argument("--out", default=None)
-    ap.add_argument("--forward-blocks", type=int, nargs="*", default=[],
-                    help="also time the port's full forward with its fixed grid set to each "
-                         "of these block counts (kForwardBlocks)")
     ap.add_argument("--rates", action="store_true",
                     help="also time scripts/mma_tf32_rate.cu (the tensor cores' and FFMA's "
                          "rates)")
@@ -215,14 +221,6 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     card = chip_smoke.card_line()
     libs = build_all(sources(args.kernels))
-    grids = {}
-    if args.forward_blocks:
-        text = (_cuda.CSRC_DIR / "mlp_towers.cu").read_text()
-        anchor = re.search(r"constexpr int kForwardBlocks = (\d+);", text)
-        for blocks in args.forward_blocks:
-            grids[blocks] = chip_smoke.build_mlp_lib(
-                text.replace(anchor.group(0), f"constexpr int kForwardBlocks = {blocks};"),
-                f"grid_{blocks}")
     result = {"card": card, "rows": args.rows, "registers": {}, "towers": {},
               "rates": rates(dev) if args.rates else None}
     for (kind, stop), lib in libs.items():
@@ -252,10 +250,6 @@ def main(argv=None) -> int:
                             raise AssertionError(f"{kind} {dims}: forward beyond the "
                                                  f"tolerance {errs} {bounds}")
                     calls.append((f"{kind}.{part}.{name}", fwd if part == "forward" else bwd))
-        for blocks, lib in grids.items():
-            mu, v = torch.empty((n, 2), device=dev), torch.empty((n,), device=dev)
-            fwd = chip_smoke.mlp_lib_calls(lib, obs, None, w, mu, v, g_mu, g_v, n, dims)[0]
-            calls.append((f"new.forward.grid_{blocks}", fwd))
         times = {k: [] for k, _ in calls}
         for order in (calls, calls[::-1]):
             for key, fn in order:

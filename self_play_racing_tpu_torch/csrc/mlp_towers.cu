@@ -60,12 +60,15 @@
 //   weights are staged as float32 and split at load: split copies would not fit
 //   beside the tiles (the backward needs W2 both ways; at (64, 64) the forward's
 //   three blocks an SM would drop to two).
-// - The backward runs a tower a block (two blocks an SM at (64, 64)): the tile's
-//   forward recomputed, g3, g2 = (g3 W3^T)(1 - h2^2) and g1 = (g2 W2^T)(1 - h1^2) in
-//   registers, h1, g2 and then g1 through shared memory for the weight gradients
-//   h1^T g2 and x^T g1, whose K is the tile's rows in order. Each block accumulates
-//   its tiles in order, in shared memory where it fits (else in its row of the
-//   partials, in device memory), and writes one partial row a block.
+// - The backward runs a tower a block: the tile's forward recomputed, g3, g2 =
+//   (g3 W3^T)(1 - h2^2) and g1 = (g2 W2^T)(1 - h1^2) in registers, h1, g2 and then g1
+//   through shared memory for the weight gradients h1^T g2 and x^T g1, whose K is the
+//   tile's rows in order. Each block accumulates its tiles in order and writes one
+//   partial row a block: in shared memory where that keeps two blocks an SM ((64,
+//   64) to 40 inputs), else in its row of the partials (in device memory, the same
+//   sums in the same order) where that keeps two (to 96 inputs), else where it fits.
+//   Two blocks an SM in the partial row beat one in shared memory (35 and 43 inputs);
+//   three in the partial row lose to two in shared memory (19 inputs).
 //
 // mlp_grad_reduce_f32: out[p] = the sum of partial[b][p] over the backward's blocks
 // b: 8 groups of consecutive rows, each summed in order, then the 8 group sums in
@@ -99,7 +102,12 @@ constexpr int kBackwardBlocks = 128;     // the backward's blocks a tower: parti
 constexpr int kParams = 12;              // the towers' tensors in model.parameters() order
 constexpr int kGroups = 8;               // the reduce's groups of consecutive rows
 constexpr int kReduceLanes = 32;         // parameters a reduce block
-constexpr int kMaxSharedBytes = 232448;  // a block's shared memory on an H100
+constexpr int kSmSharedBytes = 233472;     // an SM's shared memory on an H100
+constexpr int kBlockReservedBytes = 1024;  // of it, what the runtime keeps a block
+constexpr int kMaxSharedBytes = kSmSharedBytes - kBlockReservedBytes;  // a block's
+// the backward's blocks an SM that its layout keeps where one does (timed:
+// scripts/mlp_backward_plans.py)
+constexpr int kBackwardBlocksPerSm = 2;
 
 struct Args {
     const float* obs;            // [n, d], or [units, block, d] through the unit index
@@ -113,8 +121,10 @@ __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / 
 
 // Shared memory, in floats. A tower's parameters: w1 [dk][H1] and w2 [H1][H2] (each
 // row swizzled, swz), b1, b2, w3 [H2][2] and b3 [2] (the critic uses one column);
-// the tile's observations x [kRows][xs], features zero from d, xs = 8 mod 32 and at
-// least d rounded up to 16 (the backward's x^T g1 reads 16 features at a time).
+// the tile's observations x [kRows][xs], features zero from d, xs d rounded up to 16
+// (the backward's x^T g1 reads 16 features at a time) and 8 more: 8 mod 16, so that
+// the rows' banks lie 8 or 24 apart and the forward's pairs (rows g, 2t) and the
+// backward's columns (rows t, column g) fall on 32 different banks.
 // Backward: the activations a [kRows][H1 + 8] (h1, then g1) and g [kRows][H2 + 8]
 // (g2), the warps' narrow sums, and the gradients accumulated over the block's tiles
 // (w1 [d][H1 + 8], b1, w2 [H1][H2 + 8], b2, w3 [H2][2], b3) where they fit.
@@ -124,7 +134,7 @@ struct Layout {
     int d, dk, xs, w1, b1, w2, b2, w3, b3, tower, xtile;
     __host__ __device__ explicit Layout(int obs_dim)
         : d(obs_dim), dk(round_up(obs_dim, 8)),
-          xs(round_up(obs_dim, 16) + ((8 - round_up(obs_dim, 16)) % 32 + 32) % 32),
+          xs(round_up(obs_dim, 16) + 8),
           w1(0), b1(dk * H1), w2(b1 + H1), b2(w2 + H1 * H2), w3(b2 + H2), b3(w3 + 2 * H2),
           tower(round_up(b3 + 2, 4)), xtile(kRows * xs) {}
     // the forward: both towers, then nbuf x tiles
@@ -146,8 +156,10 @@ struct Layout {
 };
 
 // The kernels' choices at obs_dim: the x tiles (2 to prefetch the next tile, else 1)
-// and whether the backward accumulates in shared memory, the first of each that fits;
-// bytes 0 where none does.
+// and whether the backward accumulates in shared memory. The forward takes the first
+// that fits a block; the backward the first, in the order (shared memory, 2 tiles),
+// (shared, 1), (partial row, 2), (partial row, 1), that keeps kBackwardBlocksPerSm
+// blocks an SM, else the first that fits a block. Bytes 0 where none fits.
 struct Plan {
     int forward_nbuf, backward_nbuf;
     bool acc_shared;
@@ -164,12 +176,15 @@ Plan plan(int obs_dim) {
             p.forward_bytes = 4LL * L.forward_floats(nbuf);
         }
     }
-    for (int shared = 1; shared >= 0 && !p.backward_nbuf; --shared) {
-        for (int nbuf = 2; nbuf >= 1 && !p.backward_nbuf; --nbuf) {
-            if (4LL * L.backward_floats(nbuf, shared) <= kMaxSharedBytes) {
-                p.backward_nbuf = nbuf;
-                p.acc_shared = shared;
-                p.backward_bytes = 4LL * L.backward_floats(nbuf, shared);
+    for (int blocks = kBackwardBlocksPerSm; blocks >= 1 && !p.backward_nbuf; --blocks) {
+        const long long limit = kSmSharedBytes / blocks - kBlockReservedBytes;
+        for (int shared = 1; shared >= 0 && !p.backward_nbuf; --shared) {
+            for (int nbuf = 2; nbuf >= 1 && !p.backward_nbuf; --nbuf) {
+                if (4LL * L.backward_floats(nbuf, shared) <= limit) {
+                    p.backward_nbuf = nbuf;
+                    p.acc_shared = shared;
+                    p.backward_bytes = 4LL * L.backward_floats(nbuf, shared);
+                }
             }
         }
     }
@@ -332,17 +347,6 @@ __device__ __forceinline__ void bias_tanh(float (&acc)[NJ][4], const float* b, c
         acc[j][2] = tanhf(acc[j][2] + bb.x);
         acc[j][3] = tanhf(acc[j][3] + bb.y);
     }
-}
-
-// keeps what a stripped variant computed (scripts/mlp_kernel_split.py)
-template <int NJ>
-__device__ __forceinline__ void sink(const float (&v)[NJ][4], float* out) {
-    float s = 0.0f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s += v[j][e];
-    if (s == 1234.5f) *out = s;
 }
 
 // the sum over the lanes whose bits `mask` differ, by a butterfly in a fixed order:
@@ -891,15 +895,17 @@ int backward_launch(const Args& a, const float* g_mu, const float* g_v, float* p
 // the instantiated hidden widths (h1, h2): ops/_cuda.py:MLP_HIDDEN
 #define MLP_HIDDEN(X) X(64, 64) X(128, 128)
 
-// the larger of the two kernels' shared bytes at (obs_dim, h1, h2), or 0 where they
-// do not take it: widths not instantiated, obs_dim < 1, or more than a block holds
+// the least shared bytes a block of either kernel needs at (obs_dim, h1, h2) (one x
+// tile; the backward's gradients in its partial row), or 0 where they do not take
+// it: widths not instantiated, obs_dim < 1, or more than a block holds
 long long takes(int obs_dim, int h1, int h2) {
     if (obs_dim < 1) return 0;
 #define MLP_TAKES(w1, w2)                                                         \
     if (h1 == w1 && h2 == w2) {                                                   \
-        const Plan p = plan<w1, w2>(obs_dim);                                     \
-        if (!p.forward_bytes || !p.backward_bytes) return 0;                      \
-        return p.forward_bytes > p.backward_bytes ? p.forward_bytes : p.backward_bytes; \
+        const Layout<w1, w2> L(obs_dim);                                          \
+        const long long f = 4LL * L.forward_floats(1), b = 4LL * L.backward_floats(1, false); \
+        const long long least = f > b ? f : b;                                    \
+        return least <= kMaxSharedBytes ? least : 0;                              \
     }
     MLP_HIDDEN(MLP_TAKES)
 #undef MLP_TAKES
@@ -928,11 +934,28 @@ bool mlp_args(const void* const* ptrs, long long n, long long block, long long u
 
 }  // namespace
 
-// The larger of the two kernels' shared bytes a block for (obs_dim, h1, h2), or 0
+// The least shared bytes a block of either kernel needs for (obs_dim, h1, h2), or 0
 // where the kernels below do not take it (hidden widths other than MLP_HIDDEN, or a
 // block's memory exceeded).
 extern "C" int mlp_shared_bytes(int obs_dim, int h1, int h2) {
     return (int)takes(obs_dim, h1, h2);
+}
+
+// The launches' plan for (obs_dim, h1, h2) into out[5]: the forward's x tiles and
+// shared bytes, the backward's x tiles and shared bytes, and 1 where the backward
+// accumulates in shared memory (0: in its partial row). Returns a cudaError_t.
+extern "C" int mlp_launch_plan(int obs_dim, int h1, int h2, long long* out) {
+    if (takes(obs_dim, h1, h2) == 0) return (int)cudaErrorInvalidValue;
+#define MLP_PLAN(w1, w2)                                                          \
+    if (h1 == w1 && h2 == w2) {                                                   \
+        const Plan p = plan<w1, w2>(obs_dim);                                     \
+        const long long v[5] = {p.forward_nbuf, p.forward_bytes, p.backward_nbuf, \
+                                p.backward_bytes, p.acc_shared ? 1 : 0};          \
+        for (int i = 0; i < 5; ++i) out[i] = v[i];                                \
+    }
+    MLP_HIDDEN(MLP_PLAN)
+#undef MLP_PLAN
+    return 0;
 }
 
 // The forward: ptrs the obs (float32 contiguous), the unit ids (int64, or null) and

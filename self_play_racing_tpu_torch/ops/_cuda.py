@@ -68,6 +68,7 @@ _SIGNATURES = {
     "mlp_shared_bytes": [_I, _I, _I],
     "mlp_partial_rows": [_L],
     "mlp_blocks_per_sm": [_I, _I, _I, _I],
+    "mlp_launch_plan": [_I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -856,47 +857,23 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def mlp_plan(obs_dim: int, h1: int, h2: int) -> dict:
-    """The kernels' shared memory at towers obs_dim -> h1 -> h2, as
-    ``csrc/mlp_towers.cu:Layout`` and ``plan`` lay it out (floats): a tower's staged
-    parameters (w1 padded to 8 rows, b1, w2, b2, w3 and b3 of two outputs, to 4
-    floats); a tile of observations [rows][xs] (xs the first stride of 8 mod 32 from
-    obs_dim rounded up to 16); the forward both towers and 2 tiles (1 where 2 do not
-    fit a block), the backward one tower, its tiles, h1 [rows][h1 + 8], g2 [rows][h2 +
-    8], the warps' narrow sums and, where they fit (tried first), the gradients it
-    accumulates. Returns the bytes of each kernel (0 where nothing fits) and the
-    choices."""
-    dk, d16 = _round_up(obs_dim, 8), _round_up(obs_dim, 16)
-    xs = d16 + (8 - d16) % 32
-    tower = _round_up(dk * h1 + h1 + h1 * h2 + h2 + 2 * h2 + 2, 4)
-    xtile = MLP_ROWS_PER_TILE * xs
-    fits = lambda floats: 4 * floats <= BLOCK_SMEM_LIMIT
-    plan = {"forward_bytes": 0, "backward_bytes": 0, "forward_tiles": 0, "backward_tiles": 0,
-            "accumulate_shared": False}
-    for nbuf in (2, 1):
-        if fits(2 * tower + nbuf * xtile):
-            plan.update(forward_bytes=4 * (2 * tower + nbuf * xtile), forward_tiles=nbuf)
-            break
-    base = (tower + MLP_ROWS_PER_TILE * (h1 + 8) + MLP_ROWS_PER_TILE * (h2 + 8)
-            + _round_up(MLP_WARPS * (h1 + 3 * h2 + 2), 4))
-    acc = _round_up(obs_dim * (h1 + 8) + h1 + h1 * (h2 + 8) + h2 + 2 * h2 + 2, 4)
-    for shared in (True, False):
-        for nbuf in (2, 1):
-            floats = base + nbuf * xtile + (acc if shared else 0)
-            if fits(floats) and not plan["backward_tiles"]:
-                plan.update(backward_bytes=4 * floats, backward_tiles=nbuf,
-                            accumulate_shared=shared)
-    return plan
-
-
 def mlp_shared_bytes(obs_dim: int, h1: int, h2: int) -> int:
-    """The larger of the two kernels' shared bytes a block at towers obs_dim -> h1 ->
-    h2 (``mlp_plan``; the kernel's own ``mlp_shared_bytes`` on the card), 0 where one
-    of them does not fit."""
-    plan = mlp_plan(obs_dim, h1, h2)
-    if not plan["forward_bytes"] or not plan["backward_bytes"]:
-        return 0
-    return max(plan["forward_bytes"], plan["backward_bytes"])
+    """The least shared bytes a block of either MLP kernel needs at towers obs_dim ->
+    h1 -> h2 (the kernel's own ``mlp_shared_bytes``, held equal to this in
+    chip_smoke.py phase p), 0 over ``BLOCK_SMEM_LIMIT``. As ``csrc/mlp_towers.cu:Layout``
+    lays it out (floats): a tower's staged parameters (w1 padded to 8 rows, b1, w2,
+    b2, w3 and b3 of two outputs, to 4 floats) and a tile of observations [rows][xs]
+    (xs obs_dim rounded up to 16, and 8 more); the forward both
+    towers and the tile, the backward one tower, the tile, h1 [rows][h1 + 8], g2
+    [rows][h2 + 8] and the warps' narrow sums. Where more fits, the kernel's launch
+    plan uses it (``mlp_launch_plan``)."""
+    dk, d16 = _round_up(obs_dim, 8), _round_up(obs_dim, 16)
+    xtile = MLP_ROWS_PER_TILE * (d16 + 8)
+    tower = _round_up(dk * h1 + h1 + h1 * h2 + h2 + 2 * h2 + 2, 4)
+    backward = (tower + xtile + MLP_ROWS_PER_TILE * (h1 + 8) + MLP_ROWS_PER_TILE * (h2 + 8)
+                + _round_up(MLP_WARPS * (h1 + 3 * h2 + 2), 4))
+    least = 4 * max(2 * tower + xtile, backward)
+    return least if least <= BLOCK_SMEM_LIMIT else 0
 
 
 def mlp_takes(obs_dim: int, h1: int, h2: int) -> bool:

@@ -1894,7 +1894,7 @@ def test_mlp_kernels_in_a_graph_are_eager_bitwise(cuda):
 def test_mlp_kernels_refuse_what_they_do_not_take(cuda):
     """No fallback: float64, non-contiguous tensors, hidden widths outside
     ``_cuda.MLP_HIDDEN`` and an obs_dim past a block's shared memory raise before any
-    launch, the wrapper's shared-memory sum being the kernel's
+    launch, the wrapper's least shared bytes being the kernel's
     (``chip_smoke.mlp_refusals``), and so do unit ids that are not int64."""
     chip_smoke.mlp_refusals(cuda)
     case = chip_smoke.mlp_case(19, (64, 64), 256, seed=0)
@@ -1909,6 +1909,20 @@ def test_mlp_kernels_refuse_what_they_do_not_take(cuda):
         mlpops.actor_critic_mlp({"actor": params["actor"][:2], "critic": params["critic"]},
                                 obs)
     assert chip_smoke.mlp_counts() == before
+
+
+@pytest.mark.parametrize("cars", range(1, 9))
+def test_mlp_backward_keeps_two_blocks_an_sm(cuda, cars):
+    """Self-play's towers at 1 to 8 cars of 11 sensors (11 + 4 x cars inputs): the
+    backward's launch plan keeps two blocks an SM, accumulating in shared memory to
+    40 inputs and in its partial row from 41 (``scripts/mlp_backward_plans.py`` times
+    both); the forward keeps two or more."""
+    dims = (11 + 4 * cars, 64, 64)
+    occupancy = chip_smoke.mlp_occupancy(dims)
+    assert occupancy["backward_blocks_per_sm"] == 2
+    assert occupancy["backward_accumulates_in_shared_memory"] == (dims[0] <= 40)
+    assert occupancy["forward_blocks_per_sm"] >= 2
+    assert occupancy["backward_shared_bytes"] >= _cuda.mlp_shared_bytes(*dims)
 
 
 def test_update_launches_the_mlp_kernels_once_a_minibatch_step(cuda):

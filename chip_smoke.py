@@ -263,9 +263,11 @@ n. ``ppo_head`` (the loss's per-row work, one launch forward and one backward) o
 
 and for the minibatch step's actor and critic MLPs (``ops/mlp.py``: one launch of
 ``mlp_forward`` for both towers, one of ``mlp_backward`` and one of
-``mlp_grad_reduce`` a minibatch step, on every whole-tower training path; a
-tensor-parallel rank's slices keep the Megatron composition and launch none), right
-after n:
+``mlp_grad_reduce`` a minibatch step, on every whole-tower training path, the
+reduce also giving the gradients' global norm in that launch where there is no group;
+with a group the reduce's norm-only mode, ``mlp_grad_norm``, once a minibatch step
+after the all-reduce (phase h counts it); a tensor-parallel rank's slices keep the
+Megatron composition and ``ppo.global_norm`` and launch none), right after n:
 
 p. the three kernels against the plain composition (cuBLAS and autograd) at the
    towers of ``MLP_TOWERS`` (obs_dim 15, 19, 23, 43 and 184 on (64, 64), 15 and 19
@@ -282,11 +284,16 @@ p. the three kernels against the plain composition (cuBLAS and autograd) at the
    cores, the forward the backward recomputes a line of its own, each also as
    float32 FFMA; the reduce's its adds, and its bytes only where its partials outgrow
    the 50 MB L2, beside its launch floor) and the composition's forward and backward,
-   at 65,536 and 16,384 rows; the FFMA kernels these replaced, built from their commit
-   where the checkout has it, in turns with these at ``MLP_TURNS``
-   (``mlp_parent_turns``); and ``train scale --agents
-   3`` (towers of 23 inputs), one update at its defaults, launching the MLP kernels
-   once a minibatch step;
+   at 65,536 and 16,384 rows; the reduce's global norm (``ppo.norm_route``) at every
+   tower of ``MLP_TOWERS`` at 65,536 and 4097 rows (``hold_grad_norm``): within
+   max(``MLP_REL_FLOOR`` x the float64 norm of the same flat, ``MLP_CONTROL_FACTOR`` x
+   ``ppo.global_norm``'s own distance from it), the flat bitwise the norm-less
+   launch's, the norm-only mode over that flat bitwise the fused norm, and three
+   replays of a CUDA graph bitwise with the ticket's counter back at 0
+   (``hold_norm_replays``), the reduce timed with its norm beside ``torch.sum`` and
+   the composition it replaces in a graph; and ``train scale --agents 3`` (towers of
+   23 inputs), one update at its defaults, launching the MLP kernels once a
+   minibatch step;
 
 and for the single-car env step as two launches (``single.transition`` runs
 ``csrc/single_transition.cu``, the step, the track query and the whole reward and
@@ -1530,11 +1537,13 @@ COUNTERS = {
     "mlp_forward": (mlpops, "mlp_forward_launches"),
     "mlp_backward": (mlpops, "mlp_backward_launches"),
     "mlp_grad_reduce": (mlpops, "mlp_grad_reduce_launches"),
+    "mlp_grad_norm": (mlpops, "mlp_grad_norm_launches"),
 }
 # the learner's kernels: one launch of each a minibatch_step
 LEARNER = ("ppo_head", "ppo_head_backward", "adam_tail")
 # the MLP kernels: one launch of each a minibatch_step on whole towers, none on a
-# tensor-parallel rank (its slices run the Megatron composition)
+# tensor-parallel rank (its slices run the Megatron composition); with a group also
+# the reduce's norm-only mode once a minibatch_step (ppo.norm_route)
 TOWERS = ("mlp_forward", "mlp_backward", "mlp_grad_reduce")
 
 
@@ -1576,15 +1585,17 @@ def counts(envs=None, tiled=False, **nonzero):
     return out
 
 
-def learner(launches, cfg, updates: int, computed=None, towers: bool = True) -> dict:
+def learner(launches, cfg, updates: int, computed=None, towers: bool = True,
+            group: bool = False) -> dict:
     """The learner kernels' expected launches in ``updates`` updates: one of each a
     ``minibatch_step`` call (with ``towers``, the whole-tower paths, the MLP kernels'
-    too; a tensor-parallel rank launches none of them), and the loop runs every epoch
-    up to the KL exit's whole (the exit's rest masked). With ``computed`` (the
-    minibatches each update computed) exactly that; without, the count ``launches``
-    holds, once it is the same for every one of them and whole epochs, at least one
-    and at most ``cfg.update_epochs`` an update."""
-    kernels = LEARNER + (TOWERS if towers else ())
+    too, and with a ``group`` also the reduce's norm-only mode; a tensor-parallel rank
+    launches none of them), and the loop runs every epoch up to the KL exit's whole
+    (the exit's rest masked). With ``computed`` (the minibatches each update
+    computed) exactly that; without, the count ``launches`` holds, once it is the
+    same for every one of them and whole epochs, at least one and at most
+    ``cfg.update_epochs`` an update."""
+    kernels = LEARNER + (TOWERS + (("mlp_grad_norm",) if group else ()) if towers else ())
     m = cfg.num_minibatches
     if computed is not None:
         return dict.fromkeys(kernels, sum(-(-c // m) * m for c in computed))
@@ -2327,16 +2338,17 @@ def dp_trainer(cfg, dev, eager=False):
                            trk.tiled_pooled_tracks(pool, cfg.num_envs), eager=eager)
 
 
-def dp_expected(cfg, updates: int, launches, towers: bool = True):
+def dp_expected(cfg, updates: int, launches, towers: bool = True, group: bool = True):
     """The launches of ``updates`` updates on one rank (``num_envs / data_shards``
     envs): the sensing and the transition (by row id) every step, K6 and K7 once an
     update, the learner's kernels once a minibatch run (``learner``, checked on
-    ``launches``; the MLP kernels where ``towers``, not on a tensor-parallel rank)."""
+    ``launches``; the MLP kernels where ``towers``, not on a tensor-parallel rank,
+    and in a ``group`` the reduce's norm-only mode with them)."""
     n = cfg.num_steps * updates
     return counts(cfg.num_envs // cfg.data_shards, multi_observe=n, multi_transition=n,
                   multi_observe_row_ids=n, multi_transition_row_ids=n,
                   compute_gae=updates, mixbits_permutation=updates,
-                  **learner(launches, cfg, updates, towers=towers))
+                  **learner(launches, cfg, updates, towers=towers, group=group))
 
 
 def dp_train(trainer, updates: int):
@@ -2476,10 +2488,10 @@ def data_parallel_world_one(dev, card):
     if e["calls"] != [reduces, 0]:
         raise AssertionError(f"world 1 eager: {e['calls']} all-reduces, expected {reduces}")
     for mode, r in runs.items():
-        for launches in (p_launches, r["launches"]):
-            if launches != dp_expected(cfg, DP_UPDATES, launches):
+        for launches, group in ((p_launches, False), (r["launches"], True)):
+            if launches != dp_expected(cfg, DP_UPDATES, launches, group=group):
                 raise AssertionError(f"data parallel world 1 launches {launches}, expected "
-                                     f"{dp_expected(cfg, DP_UPDATES, launches)}")
+                                     f"{dp_expected(cfg, DP_UPDATES, launches, group=group)}")
         got = r["state"]
         diffs = [k for k in ("count", "num_snapshots", "pool_wins", "pool_games")
                  if got[k] != want[k]]
@@ -2497,6 +2509,11 @@ def data_parallel_world_one(dev, card):
     print("data parallel, world 1, graphed and eager=True: params, Adam moments and count, "
           "every per-minibatch stat, minibatches_applied, the pool and the PFSP counters "
           "bitwise the undistributed graphed run's")
+    print(f"data parallel, world 1: the reduce's norm-only mode launched "
+          f"{g['launches']['mlp_grad_norm']} times graphed and {e['launches']['mlp_grad_norm']} "
+          f"eager (once a minibatch step, as mlp_grad_reduce: "
+          f"{g['launches']['mlp_grad_reduce']}), without torch.distributed "
+          f"{p_launches['mlp_grad_norm']} (the norm fused into the reduce)")
     return g["launches"]
 
 
@@ -2699,6 +2716,9 @@ def data_parallel_ranks(dev, card, world=DP_WORLD, backend="gloo", devices=None,
             raise AssertionError(f"the ranks hold different parameters ({mode})")
     rollout = ("the rollout bitwise one process's" if rollout_bitwise else
                f"final obs bitwise one process's in {sum(equal)} of {cfg.num_envs} envs")
+    print(f"data parallel, {world} ranks: the reduce's norm-only mode launched "
+          f"{[got['default']['launches']['mlp_grad_norm'] for got in ranks]} times on the ranks "
+          f"(mlp_grad_reduce {[got['default']['launches']['mlp_grad_reduce'] for got in ranks]})")
     print(f"data parallel, {world} ranks ({backend}, {'graphed' if graphed else 'eager'}): "
           f"{rollout}, minibatches_applied equal, the first epoch's stats within rtol "
           f"{DP_STAT_RTOL:g} / atol {DP_STAT_ATOL:g}, params within {DP_ATOL:g} of one "
@@ -3222,6 +3242,35 @@ def replays_without_sync():
         _graph.CapturedStep.replay = replay
 
 
+def replay_nodes(graph) -> dict:
+    """One replay of the CUDA graph ``graph`` under the profiler: its kernel nodes, its
+    copy and set nodes and the kernels' summed time (us)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    out = {"kernel_nodes": 0, "copy_nodes": 0, "kernel_us": 0.0}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "memcpy" in evt.name.lower() or "memset" in evt.name.lower():
+            out["copy_nodes"] += 1
+        else:
+            out["kernel_nodes"] += 1
+            out["kernel_us"] += evt.time_range.elapsed_us()
+    return out
+
+
+def minibatch_step_nodes(graph) -> dict:
+    """``replay_nodes`` of a captured minibatch step (``ppo.UpdateGraphs.minibatch_graph``)
+    with the loop's exit flag set, so that it moves no parameter or moment (the
+    warm-ups' mask). The loop's carry is reset after it."""
+    graph.loop.reset()
+    graph.loop.stop.fill_(True)
+    out = replay_nodes(graph.step.graph)
+    graph.loop.reset()
+    return out
+
+
 def graph_run(kind, cfg, pool, layout, eager, card):
     """One phase-k trainer on ``layout(pool)``: a warm-up update (the graphs'
     first capture), ``GRAPH_UPDATES`` timed updates, one on a resampled pool
@@ -3275,10 +3324,12 @@ def graph_run(kind, cfg, pool, layout, eager, card):
     params, mu, nu = trainer.full_state()
     state = [t.detach().cpu() for t in params + mu + nu] + [
         trainer.runner.obs.cpu(), trainer.runner.done.cpu()]
+    nodes = None if graphs is None else minibatch_step_nodes(graphs.minibatch_graph)
     return {"metrics": metrics, "walls": walls, "rollouts": rollouts, "loops": loops,
             "launches": launches, "labels": labels, "captures": captures, "warm": warm,
             "peak": peak, "base": base, "held": held, "replays": replays[0], "state": state,
-            "count": trainer.runner.train.opt_state.count, "steps": cfg.num_steps}
+            "count": trainer.runner.train.opt_state.count, "steps": cfg.num_steps,
+            "minibatch_nodes": nodes}
 
 
 def graph_against_eager(pool, card):
@@ -3319,6 +3370,11 @@ def graph_against_eager(pool, card):
                     f" (the last update's graphs own {r['held']['static_bytes'] / 2**20:,.1f} "
                     f"MiB of buffers and reserved {r['held']['pool_bytes'] / 2**20:,.1f} MiB "
                     f"for their private pools)")
+                if r["minibatch_nodes"] is not None:
+                    mb = r["minibatch_nodes"]
+                    print(f"{what}: one replay of the captured minibatch step (masked): "
+                          f"{mb['kernel_nodes']} kernel nodes, {mb['copy_nodes']} copy and "
+                          f"set nodes, the kernels {mb['kernel_us']:.1f} us on {card}")
                 print(f"{what}: trainer and warm-up update {r['warm']:.1f} s (capture "
                       f"{r['captures'][0]:.3f} s); timed median "
                       f"{statistics.median(r['walls'][:GRAPH_UPDATES]) * 1e3:.1f} ms/update; "
@@ -4110,19 +4166,7 @@ def rollout_step_profile(rollout, steps: int) -> dict:
     ``scripts/torch_step_profile.py`` keeps a copy, so that it runs on a checkout
     that predates this one."""
     rollout.carry.t.zero_()
-    activities = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        rollout.step.graph.replay()
-        torch.cuda.synchronize()
-    out = {"kernel_nodes": 0, "copy_nodes": 0, "kernel_us": 0.0}
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        if "memcpy" in evt.name.lower() or "memset" in evt.name.lower():
-            out["copy_nodes"] += 1
-        else:
-            out["kernel_nodes"] += 1
-            out["kernel_us"] += evt.time_range.elapsed_us()
+    out = replay_nodes(rollout.step.graph)
     rollout.carry.t.zero_()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
@@ -4387,21 +4431,9 @@ def gathered_minibatch_step(cfg, model, log_std, lr, units, index, bc1, bc2, mu,
     on the gathered ``ppo.Batch`` (no unit index): the step before the loss head read
     its fields through the unit ids, to hold the index route to and time it
     against (patched in for ``ppo.minibatch_step``)."""
-    params = list(model.parameters())
     rows = index.index_select(0, loop.i)[0]
     mb = ppo.Batch(*(mbops.gather_units(x, rows) for x in units))
-    if mesh is not None:
-        moments = moments.index_select(0, loop.i)[0].unbind()
-    with torch.enable_grad():
-        loss, st = ppo._ppo_loss(model.params(), log_std, mb, cfg, moments)
-        grads = torch.autograd.grad(loss, params)
-    if mesh is not None:
-        grads, st = ppo._mean_over_group(grads, st, mesh)
-    with torch.no_grad():
-        g_norm = ppo.global_norm(grads, model.tensor_parallel)
-        mbops.adam_tail(params, list(grads), mu, nu, g_norm,
-                        [st[k] for k in ppo.STAT_NAMES[:6]], bc1, bc2, lr, loop,
-                        cfg.max_grad_norm, cfg.kl_target)
+    ppo.apply_minibatch(cfg, model, log_std, lr, mb, bc1, bc2, mu, nu, loop, mesh, moments)
 
 
 def plain_learner():
@@ -4752,99 +4784,11 @@ MLP_ROWS = (65_536, 16_384, 4097, 1)
 # widest obs_dim a block takes there, and phase j's towers of 128
 MLP_TOWERS = ((15, 64, 64), (19, 64, 64), (23, 64, 64), (43, 64, 64), (184, 64, 64),
               (15, 128, 128), (19, 128, 128))
-# the towers and rows phase p times against the FFMA kernels in turns: the main paths',
-# the 8-car towers of ``train scale --agents 8`` and phase j's width
-MLP_TURNS = (((19, 64, 64), 65_536), ((15, 64, 64), 65_536), ((43, 64, 64), 65_536),
-             ((19, 128, 128), 65_536))
 # the H100's L2 cache: the blocks' partials up to this size are still there when the
 # reduce reads them right after the backward wrote them
 L2_BYTES = 50_000_000
 MLP_OUTPUTS = ("mu", "v") + tuple(f"{tower}.{p}" for tower in ("actor", "critic")
                                   for p in ("w1", "b1", "w2", "b2", "w3", "b3"))
-
-
-# the commit whose MLP kernels (the FFMA design, a block a tower and a 128-row tile)
-# the tensor-core kernels replaced: phase p times both in turns
-PARENT_MLP = "e8016a7"
-MLP_SOURCE = "self_play_racing_tpu_torch/csrc/mlp_towers.cu"
-
-
-def parent_mlp_source():
-    """The MLP kernels' source at ``PARENT_MLP``: from ``git show`` where the
-    checkout has its history, else from a ``git archive`` of that commit unpacked into
-    the git-ignored ``scratch_checkout/PARENT_MLP/``; None where neither is there."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    try:
-        return subprocess.run(["git", "show", f"{PARENT_MLP}:{MLP_SOURCE}"], cwd=root,
-                              check=True, capture_output=True, text=True, timeout=60).stdout
-    except (OSError, subprocess.SubprocessError):
-        pass
-    path = os.path.join(root, "scratch_checkout", PARENT_MLP, MLP_SOURCE)
-    if os.path.exists(path):
-        with open(path) as f:
-            return f.read()
-    return None
-
-
-def build_mlp_lib(text: str, tag: str, defines=(), out_dir=None):
-    """``text`` (an MLP kernels' source) compiled with the port's flags into
-    ``out_dir`` (a new temporary directory by default), loaded, its entry points
-    bound as ``_cuda`` binds them; the compiler's report on ``.report``."""
-    import ctypes
-
-    out_dir = out_dir or tempfile.mkdtemp(prefix="mlp_variant_")
-    src = os.path.join(out_dir, f"{tag}.cu")
-    with open(src, "w") as f:
-        f.write(text)
-    out = os.path.join(out_dir, f"{tag}.so")
-    proc = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, *(f"-D{d}" for d in defines),
-                           "-o", out, src], capture_output=True, text=True, timeout=900)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc {tag}:\n{proc.stdout}{proc.stderr}")
-    lib = ctypes.CDLL(out)
-    for fn, argtypes in _cuda._SIGNATURES.items():
-        if fn.startswith("mlp_") and hasattr(lib, fn):
-            getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, ctypes.c_int
-    lib.report = proc.stdout + proc.stderr
-    return lib
-
-
-def lib_partial_rows(lib, n: int) -> int:
-    """The rows of ``lib``'s backward partials at ``n`` rows (the FFMA kernels': a row a
-    128-row tile)."""
-    if hasattr(lib, "mlp_partial_rows"):
-        return lib.mlp_partial_rows(n)
-    return -(-n // lib.mlp_rows_per_tile())
-
-
-def mlp_lib_calls(lib, obs, unit_ids, w, mu, v, g_mu, g_v, n: int, dims):
-    """(forward, backward, reduce) launches of ``lib``'s three entry points on the
-    current stream, as ``_cuda.launch_mlp_*`` launch the port's, with their own
-    partials buffer."""
-    dev = obs.device
-    params = sum(x.numel() for x in w)
-    partial = torch.empty((lib_partial_rows(lib, n), params), device=dev)
-    flat = torch.empty((params,), device=dev)
-    ptrs, block, units = _cuda._mlp_inputs(obs, unit_ids, w)
-    fwd_ptrs = _cuda._ptr_array(ptrs + [mu, v])
-    bwd_ptrs = _cuda._ptr_array(ptrs + [g_mu, g_v, partial])
-
-    keep = (obs, unit_ids, w, mu, v, g_mu, g_v, partial, flat)
-
-    def call(fn, *args):
-        # the closure holds the tensors: a CUDA graph's capture empties the
-        # allocator's cache, so a freed buffer's pointer would dangle
-        assert keep
-        err = getattr(lib, fn)(*args, dev.index, torch.cuda.current_stream(dev).cuda_stream)
-        if err:
-            raise RuntimeError(f"{fn}: cudaError {err}")
-
-    return (lambda: call("mlp_forward_f32", fwd_ptrs, _cuda.MLP_INPUTS + 2, n, block, units,
-                         *dims),
-            lambda: call("mlp_backward_f32", bwd_ptrs, _cuda.MLP_INPUTS + 3, n, block, units,
-                         *dims),
-            lambda: call("mlp_grad_reduce_f32", _cuda._ptr(partial), _cuda._ptr(flat),
-                         partial.shape[0], partial.shape[1]))
 
 
 def mlp_macs(obs_dim: int, h1: int, h2: int):
@@ -4954,6 +4898,101 @@ def hold_mlp(dims, n: int, dev, seed: int) -> dict:
     return {"max_abs_err": max(errs), "ratio": ratio, "f64_kernels": k64, "f64_plain": p64}
 
 
+def norm_bound(flat, composition) -> tuple:
+    """(the float64 norm of the flat gradient ``flat``, the reduce's tolerance on its
+    norm: max(MLP_REL_FLOOR x that norm, MLP_CONTROL_FACTOR x the distance of
+    ``composition``, ``ppo.global_norm``'s float32 norm of the same flat, from it))."""
+    n64 = float(flat.double().square().sum().sqrt())
+    return n64, max(MLP_REL_FLOOR * n64, MLP_CONTROL_FACTOR * abs(float(composition) - n64))
+
+
+def hold_grad_norm(dims, n: int, dev, seed: int) -> dict:
+    """The reduce's global norm at ``dims`` and ``n`` rows through
+    ``actor_critic_mlp(..., norm)``: the 12 gradients bitwise those of the norm-less
+    launch, the norm within ``norm_bound`` of the float64 norm of the same flat, and
+    ``mlpops.grad_norm`` (the norm-only mode) over that flat bitwise the fused norm;
+    one launch of each mode a call. Returns the error, its bound and their ratio."""
+    d, h1, h2 = dims
+    case = mlp_case(d, (h1, h2), n, seed)
+    params, leaves, obs, g_mu, g_v = mlp_tensors(case, dev)
+    norm = torch.full((), float("nan"), device=dev)
+    before = read_counts()
+    mu, v = mlpops.actor_critic_mlp(params, obs, None, norm)
+    fused = torch.autograd.grad((mu, v), leaves, (g_mu, g_v))
+    plain = mlp_run(mlpops.actor_critic_mlp, params, leaves, obs, g_mu, g_v)[2:]
+    flat = torch.cat([g.reshape(-1) for g in fused])
+    only = mlpops.grad_norm(flat)
+    composition = ppo.global_norm(list(fused))
+    torch.cuda.synchronize()
+    got = {k: read_counts()[k] - before[k] for k in ("mlp_grad_reduce", "mlp_grad_norm")}
+    if got != {"mlp_grad_reduce": 2, "mlp_grad_norm": 1}:
+        raise AssertionError(f"phase p norm {dims} at {n} rows: launches {got}")
+    if not all(same_bits(a, b) for a, b in zip(fused, plain)):
+        raise AssertionError(f"phase p norm {dims} at {n} rows: the flat gradient differs "
+                             f"from the norm-less launch's")
+    if not same_bits(only, norm):
+        raise AssertionError(f"phase p norm {dims} at {n} rows: the norm-only mode "
+                             f"{float(only)!r} differs from the fused norm {float(norm)!r}")
+    n64, bound = norm_bound(flat, composition)
+    err = abs(float(norm) - n64)
+    if not err <= bound:
+        raise AssertionError(f"phase p norm {dims} at {n} rows: {float(norm)!r} is {err:.3e} "
+                             f"from the float64 norm {n64!r}, beyond {bound:.3e}")
+    return {"err": err, "bound": bound, "ratio": err / bound if bound else 0.0,
+            "composition_err": abs(float(composition) - n64), "norm": n64}
+
+
+def hold_norm_replays(dev, replays: int = 3) -> None:
+    """The reduce with its norm (train scale's partials: towers (19, 64, 64) at
+    65,536 rows) captured in a CUDA graph and replayed ``replays`` times: the flat
+    gradient and the norm bitwise the eager launch's after each, and the ticket's
+    counter 0 after each."""
+    dims, n = (19, 64, 64), 65_536
+    _, leaves, obs, g_mu, g_v = mlp_tensors(mlp_case(dims[0], dims[1:], n, seed=31), dev)
+    w = [x.detach() for x in leaves]
+    partial = torch.empty((_cuda.mlp_partial_rows(n), sum(x.numel() for x in w)), device=dev)
+    _cuda.launch_mlp_backward(obs, None, w, g_mu, g_v, partial, n, dims)
+    flat, norm = torch.empty((partial.shape[1],), device=dev), torch.empty((), device=dev)
+    _cuda.launch_mlp_grad_reduce(partial, flat, norm)
+    want = (flat.clone(), norm.clone())
+    ticket = _cuda.grad_norm_ticket(dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _cuda.launch_mlp_grad_reduce(partial, flat, norm)
+    for i in range(replays):
+        flat.zero_()
+        norm.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        if not (same_bits(flat, want[0]) and same_bits(norm, want[1])):
+            raise AssertionError(f"phase p norm: replay {i + 1} differs from the eager launch")
+        if int(ticket.item()) != 0:
+            raise AssertionError(f"phase p norm: the ticket's counter is {int(ticket.item())} "
+                                 f"after replay {i + 1}")
+
+
+def check_grad_norm(dev, card) -> dict:
+    """The reduce's norm: ``hold_grad_norm`` at every tower of ``MLP_TOWERS`` at
+    65,536 and 4097 rows, and ``hold_norm_replays``. Returns the largest error over
+    its bound."""
+    out = {}
+    for i, dims in enumerate(MLP_TOWERS):
+        for n in (65_536, 4097):
+            out[dims, n] = hold_grad_norm(dims, n, dev, seed=500 + 10 * i + n % 7)
+    hold_norm_replays(dev)
+    worst = max(out, key=lambda k: out[k]["ratio"])
+    print(f"phase p norm: the reduce's global norm within max({MLP_REL_FLOOR:g} x the "
+          f"float64 norm of the same flat, {MLP_CONTROL_FACTOR} x ppo.global_norm's distance "
+          f"from it) at {MLP_TOWERS} x (65536, 4097) rows, at most "
+          f"{out[worst]['ratio']:.3f} of it ({worst}: error {out[worst]['err']:.3e}, the "
+          f"composition's {out[worst]['composition_err']:.3e}, norm {out[worst]['norm']:.6g}); "
+          f"the flat gradient bitwise the norm-less launch's, the norm-only mode bitwise the "
+          f"fused norm, three graph replays bitwise with the ticket's counter at 0, on {card}")
+    return {"norm_max_err": max(c["err"] for c in out.values()),
+            "norm_max_err_over_bound": out[worst]["ratio"],
+            "norm_composition_max_err": max(c["composition_err"] for c in out.values())}
+
+
 def mlp_units(case: dict, n: int, block: int, dev, seed: int):
     """``case``'s observations as the rollout's units: [2 n / block, block, obs_dim]
     (the case's rows among twice as many) and the unit ids that read them back in
@@ -5025,8 +5064,9 @@ def check_mlp_kernels(dev, card) -> dict:
     """Phase p: ``ops.mlp.actor_critic_mlp``'s three kernels against the plain
     composition (``hold_mlp``) at ``MLP_TOWERS`` and ``MLP_ROWS``; through the unit
     index (``UNIT_BLOCKS``' rows and units, the main paths' towers) bitwise the
-    kernels on the gathered rows; the refusals. Returns what the kernels line needs
-    of it."""
+    kernels on the gathered rows; the refusals; the reduce's global norm
+    (``check_grad_norm``). Returns what the kernels line needs of it: the kernels'
+    errors by (towers, rows), and the norm's."""
     out = {}
     for i, dims in enumerate(MLP_TOWERS):
         for n in MLP_ROWS:
@@ -5046,6 +5086,7 @@ def check_mlp_kernels(dev, card) -> dict:
     for dims in MLP_TOWERS:
         mlp_row_invariance(dims, dev)
     mlp_refusals(dev)
+    norm = check_grad_norm(dev, card)
     print(f"phase p: the MLP kernels within max({MLP_REL_FLOOR:g} x scale, "
           f"{MLP_CONTROL_FACTOR} x the two-halves control) of the plain composition at "
           f"{MLP_TOWERS} x {MLP_ROWS} rows (largest ratio "
@@ -5053,7 +5094,7 @@ def check_mlp_kernels(dev, card) -> dict:
           f"the gathered rows at {tuple(UNIT_BLOCKS.items())}; the forward row-invariant "
           f"bitwise (4097 rows permuted, row 0 alone against 65,536); float64, non-contiguous, "
           f"other hidden widths and an obs_dim past a block's memory refused, on {card}")
-    return out
+    return out, norm
 
 
 def mlp_bounds_ms(dims, n: int):
@@ -5067,8 +5108,9 @@ def mlp_bounds_ms(dims, n: int):
     reduce's adds, and its bytes only where the partials outgrow ``L2_BYTES``: below
     that they are in the L2 (the backward wrote them just before), which the guide's
     table gives no rate for, so there the reduce is read against its launch floor
-    (``time_mlp_kernels``). Then the (forward, backward, recompute) bounds of the same
-    multiply-adds as float32 FFMA."""
+    (``time_mlp_kernels``); its operations are the adds, and the norm's square and add
+    a parameter and add a block. Then the (forward, backward, recompute) bounds of the
+    same multiply-adds as float32 FFMA."""
     d, h1, h2 = dims
     forward, backward = mlp_macs(d, h1, h2)
     params = 2 * (d * h1 + h1 + h1 * h2 + h2) + 3 * h2 + 3
@@ -5078,38 +5120,9 @@ def mlp_bounds_ms(dims, n: int):
     tf32 = [bound_ms(b, 3 * 2 * n * m, PEAK_TF32_OPS_PER_S) for b, m in zip(moved, macs)]
     ffma = tuple(bound_ms(b, 2 * n * m)[0] for b, m in zip(moved, macs))
     reduce = bound_ms(partial + 4 * params if partial > L2_BYTES else 0,
-                      _cuda.mlp_partial_rows(n) * params)
+                      _cuda.mlp_partial_rows(n) * params + 2 * params
+                      + _cuda.mlp_grad_norm_blocks(params))
     return (*tf32, reduce), ffma
-
-
-def mlp_parent_turns(dev, card) -> dict:
-    """The FFMA MLP kernels (``parent_mlp_source``, built into a temporary directory)
-    and the port's in turns, each launch in a CUDA graph (parent, this, this, parent)
-    at ``MLP_TURNS``: the forward, the backward and the reduce, us. Empty, with a
-    line saying so, where the parent's source is not in the checkout."""
-    text = parent_mlp_source()
-    if text is None:
-        print(f"phase p: no source of {PARENT_MLP} in this checkout (no git history, no "
-              f"scratch_checkout/{PARENT_MLP}/): the kernels are not timed against the FFMA ones")
-        return {}
-    parent = build_mlp_lib(text, f"mlp_towers_{PARENT_MLP}")
-    out = {}
-    for dims, n in MLP_TURNS:
-        case = mlp_case(dims[0], dims[1:], n, seed=7)
-        _, leaves, obs, g_mu, g_v = mlp_tensors(case, dev)
-        w = [x.detach() for x in leaves]
-        mu, v = torch.empty((n, 2), device=dev), torch.empty((n,), device=dev)
-        theirs = mlp_lib_calls(parent, obs, None, w, mu, v, g_mu, g_v, n, dims)
-        ours = mlp_lib_calls(_cuda._mlp_lib(), obs, None, w, mu, v, g_mu, g_v, n, dims)
-        times = {}
-        for i, key in enumerate(("forward", "backward", "reduce")):
-            order = (theirs[i], ours[i], ours[i], theirs[i])
-            times[key] = [graph_ms(f) * 1e3 for f in order]
-        out[dims, n] = times
-        print(f"phase p {dims} at {n} rows, us in a graph, FFMA | these | these | FFMA: "
-              + "; ".join(f"{k} " + " | ".join(f"{t:.2f}" for t in ts)
-                          for k, ts in times.items()) + f", on {card}")
-    return out
 
 
 def mlp_occupancy(dims) -> dict:
@@ -5128,17 +5141,21 @@ def mlp_occupancy(dims) -> dict:
             "backward_accumulates_in_shared_memory": bool(plan[4])}
 
 
-def time_mlp_kernels(dev, card, checked: dict) -> list:
+def time_mlp_kernels(dev, card, checked) -> list:
     """The kernels line's entries for ``mlp_forward``, ``mlp_backward`` and
     ``mlp_grad_reduce``: each launch eager and in a CUDA graph at the main paths'
     widths (65,536 and 16,384 rows; self-play's 19 inputs, single-car's 15, phase j's
     towers of 128), by row and through the unit index, beside the 3xTF32 bound and
     the FFMA one; the plain composition (cuBLAS, autograd), the forward
     eager and in a graph, the backward eager (a plain capture of autograd's backward
-    failed on the card); the reduce beside ``torch.sum`` over the blocks' partials
-    (the one PyTorch call that computes it, never on the path) and its own launch
-    floor (one row of one parameter, in a graph). The towers of 3 and 8 cars (23 and
-    43 inputs) too; and the FFMA kernels in turns (``mlp_parent_turns``)."""
+    failed on the card); the reduce as the main path launches it, with the global
+    norm, beside the same launch without it, its norm-only mode over the flat,
+    ``torch.sum`` over the blocks' partials (the one PyTorch call that sums them,
+    never on the path), the ``ppo.global_norm`` composition over the 12 gradients
+    that the norm replaces, in a graph, and the reduce's own launch floor (one row of
+    one parameter, in a graph). The towers of 3 and 8 cars (23 and 43 inputs) too.
+    ``checked``: ``check_mlp_kernels``' result."""
+    checked, norm_checked = checked
     rows = {}
     one, one_out = torch.zeros((1, 1), device=dev), torch.empty((1,), device=dev)
     floor = graph_ms(lambda: _cuda.launch_mlp_grad_reduce(one, one_out))
@@ -5151,11 +5168,13 @@ def time_mlp_kernels(dev, card, checked: dict) -> list:
         mu, v = torch.empty((n, 2), device=dev), torch.empty((n,), device=dev)
         partial = torch.empty((_cuda.mlp_partial_rows(n), sum(x.numel() for x in w)),
                               device=dev)
-        flat = torch.empty((partial.shape[1],), device=dev)
+        flat, norm = torch.empty((partial.shape[1],), device=dev), torch.empty((), device=dev)
         fwd = lambda o=obs, i=None: _cuda.launch_mlp_forward(o, i, w, mu, v, n, dims)
         bwd = lambda o=obs, i=None: _cuda.launch_mlp_backward(o, i, w, g_mu, g_v, partial, n,
                                                               dims)
-        red = lambda: _cuda.launch_mlp_grad_reduce(partial, flat)
+        red = lambda: _cuda.launch_mlp_grad_reduce(partial, flat, norm)
+        bare = lambda: _cuda.launch_mlp_grad_reduce(partial, flat)
+        only = lambda: _cuda.launch_mlp_grad_norm(flat, norm)
         with torch.no_grad():
             plain_f = lambda: mlpops.actor_critic_mlp_plain(params, obs)
             p_f = (per_launch_ms(plain_f), graph_ms(plain_f))
@@ -5163,6 +5182,13 @@ def time_mlp_kernels(dev, card, checked: dict) -> list:
         plain_b = lambda: torch.autograd.grad((mu_p, v_p), leaves, (g_mu, g_v),
                                               retain_graph=True)
         library = lambda: torch.sum(partial, 0)
+        bwd()
+        red()
+        views, at = [], 0
+        for x in w:
+            views.append(flat[at:at + x.numel()].view_as(x))
+            at += x.numel()
+        composition = lambda: ppo.global_norm(views)
         (f_b, b_b, c_b, r_b), (f_ffma, b_ffma, c_ffma) = mlp_bounds_ms(dims, n)
         r = rows[dims, n] = {
             "forward": (per_launch_ms(fwd), graph_ms(fwd), graph_ms(lambda: fwd(units, ids)),
@@ -5170,7 +5196,8 @@ def time_mlp_kernels(dev, card, checked: dict) -> list:
             "backward": (per_launch_ms(bwd), graph_ms(bwd), graph_ms(lambda: bwd(units, ids)),
                          per_launch_ms(plain_b), *b_b, c_b[0], b_ffma, c_ffma),
             "reduce": (per_launch_ms(red), graph_ms(red), per_launch_ms(library),
-                       graph_ms(library), *r_b, floor)}
+                       graph_ms(library), *r_b, floor, graph_ms(bare), graph_ms(only),
+                       per_launch_ms(composition), graph_ms(composition))}
         f, b, rd = r["forward"], r["backward"], r["reduce"]
         print(f"phase p {dims} at {n} rows, us: forward {f[0] * 1e3:.2f} eager, "
               f"{f[1] * 1e3:.2f} in a graph ({f[2] * 1e3:.2f} by unit id), bound "
@@ -5180,34 +5207,35 @@ def time_mlp_kernels(dev, card, checked: dict) -> list:
               f"{b[0] * 1e3:.2f} eager, {b[1] * 1e3:.2f} in a graph ({b[2] * 1e3:.2f} by unit "
               f"id), bound {b[4] * 1e3:.2f} (3xTF32, {b[5]}; the forward it recomputes "
               f"{b[6] * 1e3:.2f} more; as FFMA {b[7] * 1e3:.2f} + {b[8] * 1e3:.2f}), the "
-              f"composition's backward {b[3] * 1e3:.1f} eager; reduce "
-              f"{rd[0] * 1e3:.2f} eager, {rd[1] * 1e3:.2f} in a graph, bound "
+              f"composition's backward {b[3] * 1e3:.1f} eager; reduce with the norm "
+              f"{rd[0] * 1e3:.2f} eager, {rd[1] * 1e3:.2f} in a graph (without the norm "
+              f"{rd[7] * 1e3:.2f}, the norm-only mode {rd[8] * 1e3:.2f}), bound "
               f"{rd[4] * 1e3:.3f} ({rd[5]}; {partial.numel() * 4 / 1e6:.1f} MB of partials), "
               f"launch floor "
               f"{rd[6] * 1e3:.2f} in a graph, torch.sum {rd[2] * 1e3:.2f} eager, "
-              f"{rd[3] * 1e3:.2f} in a graph; {mlp_occupancy(dims)}, on {card}")
-    turns = mlp_parent_turns(dev, card)
+              f"{rd[3] * 1e3:.2f} in a graph, the global_norm composition "
+              f"{rd[9] * 1e3:.2f} eager, {rd[10] * 1e3:.2f} in a graph; "
+              f"{mlp_occupancy(dims)}, on {card}")
     names = {"forward": ("ms", "graph_ms", "unit_index_graph_ms", "plain_ms", "plain_graph_ms",
                          "bound_ms", "bound_by", "ffma_bound_ms"),
              "backward": ("ms", "graph_ms", "unit_index_graph_ms", "plain_ms", "bound_ms",
                           "bound_by", "recompute_bound_ms", "ffma_bound_ms",
                           "recompute_ffma_bound_ms"),
              "reduce": ("ms", "graph_ms", "library_ms", "library_graph_ms", "bound_ms",
-                        "bound_by", "launch_floor_ms")}
+                        "bound_by", "launch_floor_ms", "without_norm_graph_ms",
+                        "norm_only_graph_ms", "global_norm_ms", "global_norm_graph_ms")}
     ratio = max(c["ratio"] for c in checked.values())
     common = {"route": "cuda", "source": "self_play_racing_tpu_torch/csrc/mlp_towers.cu",
               "max_abs_err": max(c["max_abs_err"] for c in checked.values()),
               "max_err_over_bound": ratio, "rows": 65_536, "towers": [19, 64, 64]}
 
-    def entry(name, key, replaces):
+    def entry(name, key, replaces, **extra):
         main = dict(zip(names[key], rows[(19, 64, 64), 65_536][key]))
         return {"name": name, **common, "replaces": replaces, "library_ms": None,
-                "plain_ms": main.get("library_ms"), **main,
+                "plain_ms": main.get("library_ms"), **main, **extra,
                 "at": {"x".join(map(str, dims)) + f"_{n}_rows": dict(zip(names[key],
                                                                          rows[dims, n][key]))
                        for dims, n in rows},
-                "parent_turns_us": {"x".join(map(str, dims)) + f"_{n}_rows": t[key]
-                                    for (dims, n), t in turns.items()},
                 "registers": kernel_registers(_cuda.build_report.get("mlp_towers", ""),
                                               f"{name}_kernel"),
                 "occupancy": {"x".join(map(str, dims)): mlp_occupancy(dims)
@@ -5215,7 +5243,8 @@ def time_mlp_kernels(dev, card, checked: dict) -> list:
 
     return [entry("mlp_forward", "forward", "self_play_racing_tpu/models/actor_critic.py:68"),
             entry("mlp_backward", "backward", "self_play_racing_tpu/agent/ppo.py:313"),
-            entry("mlp_grad_reduce", "reduce", "self_play_racing_tpu/agent/ppo.py:313")]
+            entry("mlp_grad_reduce", "reduce", "self_play_racing_tpu/agent/ppo.py:313",
+                  replaces_norm="self_play_racing_tpu/agent/ppo.py:121", **norm_checked)]
 
 
 def train_more_cars(card, cars: int = 3) -> None:
@@ -5788,6 +5817,9 @@ def main() -> int:
         k["launches_tensor_parallel"] = [r[k["name"]] for r in tp_launches]
         k["launches_graphed"] = graph_launches[k["name"]]
         k["launches_loops_graphed"] = loop_launches[k["name"]]
+        if k["name"] == "mlp_grad_reduce":  # its norm-only mode, on the group paths
+            k["norm_only_launches_data_parallel_world1"] = dp_world_one["mlp_grad_norm"]
+            k["norm_only_launches_data_parallel_ranks"] = [r["mlp_grad_norm"] for r in dp_ranks]
         if k["name"] in ("multi_observe", "multi_transition"):
             k["rollout_step_nodes"] = nodes
         elif k["name"] in ("single_observe", "single_transition", "single_transition_rows"):

@@ -10,7 +10,7 @@ of these, in that order, that keeps ``kBackwardBlocksPerSm`` blocks an SM, else 
 first that fits a block. This script builds the source with the backward forced to
 each layout (``shared`` or ``partial``, 2 or 1 tiles: the first from there that fits
 a block), beside the source as it is (``plan``) and the FFMA kernels it replaced
-(``parent``: ``chip_smoke.parent_mlp_source``), and times each backward in turns
+(``parent``: ``mlp_variants.parent_mlp_source``), and times each backward in turns
 (in order, then in reverse order) in a CUDA graph (``chip_smoke.graph_ms``) at
 ``--rows`` rows (default 65,536) on ``chip_smoke.mlp_case``'s inputs, at self-play's
 towers of 1 to 8 cars of 11 sensors (11 + 4 x cars inputs: one car's are the
@@ -33,6 +33,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
+import mlp_variants  # noqa: E402
 from self_play_racing_tpu_torch.ops import _cuda  # noqa: E402
 
 TOWERS = tuple((11 + 4 * cars, 64, 64) for cars in range(1, 9)) + ((19, 128, 128),)
@@ -57,7 +58,7 @@ def backward_calls(lib, obs, w, g_mu, g_v, n: int, dims):
     """(the backward, the reduce) of ``lib`` on the current stream, and the reduced
     gradients' buffer."""
     params = sum(x.numel() for x in w)
-    partial = torch.empty((chip_smoke.lib_partial_rows(lib, n), params), device=obs.device)
+    partial = torch.empty((mlp_variants.lib_partial_rows(lib, n), params), device=obs.device)
     flat = torch.empty((params,), device=obs.device)
     ptrs, block, units = _cuda._mlp_inputs(obs, None, w)
     table = _cuda._ptr_array(ptrs + [g_mu, g_v, partial])
@@ -89,7 +90,7 @@ def main(argv=None) -> int:
         return 1
     dev, card, n = torch.device("cuda", 0), chip_smoke.card_line(), args.rows
     text = (_cuda.CSRC_DIR / "mlp_towers.cu").read_text()
-    parent = chip_smoke.parent_mlp_source()
+    parent = mlp_variants.parent_mlp_source()
     sources = {"plan": text}
     for shared, place in ((1, "shared"), (0, "partial")):
         for nbuf in (2, 1):
@@ -97,9 +98,9 @@ def main(argv=None) -> int:
     if parent is not None:
         sources["parent"] = parent
     else:
-        print(f"no source of {chip_smoke.PARENT_MLP}: the FFMA kernels are not timed")
+        print(f"no source of {mlp_variants.PARENT_MLP}: the FFMA kernels are not timed")
     with concurrent.futures.ThreadPoolExecutor(max_workers=len(sources)) as pool:
-        jobs = {k: pool.submit(chip_smoke.build_mlp_lib, t, k) for k, t in sources.items()}
+        jobs = {k: pool.submit(mlp_variants.build_mlp_lib, t, k) for k, t in sources.items()}
         libs = {k: f.result() for k, f in jobs.items()}
     result = {"card": card, "rows": n, "towers": {}}
     for dims in TOWERS:

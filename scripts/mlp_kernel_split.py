@@ -11,8 +11,8 @@ replays, CUDA events) at ``--rows`` (default 65,536: a minibatch of ``train scal
 and ``train single``) rows, towers (19, 64, 64), (15, 64, 64) and (19, 128, 128), on
 ``chip_smoke.mlp_case``'s inputs. Two sources:
 
-- ``parent``: the FFMA kernels these replaced (``chip_smoke.parent_mlp_source``: commit
-  ``chip_smoke.PARENT_MLP``), a block a tower and a 128-row tile;
+- ``parent``: the FFMA kernels these replaced (``mlp_variants.parent_mlp_source``: commit
+  ``mlp_variants.PARENT_MLP``), a block a tower and a 128-row tile;
 - ``new``: the port's ``csrc/mlp_towers.cu``, the products on the tensor cores.
 
 The split points, each variant everything before it:
@@ -60,6 +60,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
+import mlp_variants  # noqa: E402
 from self_play_racing_tpu_torch.ops import _cuda  # noqa: E402
 from self_play_racing_tpu_torch.ops import mlp as mlpops  # noqa: E402
 
@@ -139,11 +140,11 @@ def sources(kinds) -> dict:
         if kind == "new":
             out[kind] = (_cuda.CSRC_DIR / "mlp_towers.cu").read_text()
         else:
-            text = chip_smoke.parent_mlp_source()
+            text = mlp_variants.parent_mlp_source()
             if text is None:
-                raise RuntimeError(f"no source of {chip_smoke.PARENT_MLP}: unpack `git archive "
-                                   f"{chip_smoke.PARENT_MLP}` into scratch_checkout/"
-                                   f"{chip_smoke.PARENT_MLP}/")
+                raise RuntimeError(f"no source of {mlp_variants.PARENT_MLP}: unpack `git archive "
+                                   f"{mlp_variants.PARENT_MLP}` into scratch_checkout/"
+                                   f"{mlp_variants.PARENT_MLP}/")
             out[kind] = text
     return out
 
@@ -156,7 +157,7 @@ def build_all(texts: dict) -> dict:
             code = patched(text, kind)
             stops = FORWARD + BACKWARD + (FORWARD_NEW + BACKWARD_NEW if kind == "new" else ())
             for stop in sorted({s for _, s in stops}):
-                jobs[kind, stop] = pool.submit(chip_smoke.build_mlp_lib, code,
+                jobs[kind, stop] = pool.submit(mlp_variants.build_mlp_lib, code,
                                                f"{kind}_{stop}", (f"MLP_SPLIT_STOP={stop}",))
         return {k: f.result() for k, f in jobs.items()}
 
@@ -240,7 +241,7 @@ def main(argv=None) -> int:
                                 ("backward", BACKWARD + (BACKWARD_NEW if extra else ()))):
                 for name, stop in stops:
                     mu, v = torch.empty((n, 2), device=dev), torch.empty((n,), device=dev)
-                    fwd, bwd, _ = chip_smoke.mlp_lib_calls(libs[kind, stop], obs, None, w, mu,
+                    fwd, bwd, _ = mlp_variants.mlp_lib_calls(libs[kind, stop], obs, None, w, mu,
                                                            v, g_mu, g_v, n, dims)
                     if part == "forward" and name == "full":
                         fwd()

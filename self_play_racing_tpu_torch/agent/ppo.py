@@ -27,7 +27,9 @@ JAX package:
   rounds otherwise. On the card the actor's and critic's MLPs forward and backward
   (``ops/mlp.py``: ``actor_critic_mlp``, whole towers; a tensor-parallel rank keeps
   the Megatron composition), the loss's per-row work and everything after the global
-  norm are hand-written kernels (``ops/minibatch.py``: ``ppo_head``, ``adam_tail``);
+  norm are hand-written kernels (``ops/minibatch.py``: ``ppo_head``, ``adam_tail``),
+  and the global norm comes out of the MLP backward's reduce launch, or out of its
+  norm-only mode after a group's all-reduce (``norm_route``);
 - episode statistics harvested from the autoreset wrapper's records; the update's
   metrics packed into one float32 vector in ``METRIC_NAMES`` order.
 
@@ -246,7 +248,7 @@ STAT_NAMES = ("loss", "pg_loss", "v_loss", "entropy", "approx_kl", "clip_frac",
               "applied", "computed")
 
 
-def _ppo_loss(params, log_std, mb, cfg: PPOConfig, moments=None):
+def _ppo_loss(params, log_std, mb, cfg: PPOConfig, moments=None, norm=None):
     """The clipped loss and its stats, on a ``Batch`` or a ``UnitBatch``. The
     advantages are normalized by their own mean and unbiased std, or by ``moments`` =
     (mean, std) where given (the whole minibatch's over a group,
@@ -256,9 +258,11 @@ def _ppo_loss(params, log_std, mb, cfg: PPOConfig, moments=None):
     ``UnitBatch``'s fields read through its unit ids; the means, the entropy and the
     loss stay PyTorch's reductions over its rows. A tensor-parallel rank's sharded
     parameters keep the Megatron composition of ``models/actor_critic.py`` (the
-    kernels take whole towers; ``actor_critic_mlp`` tells them apart)."""
+    kernels take whole towers; ``actor_critic_mlp`` tells them apart). ``norm``
+    (the kernels' route only, a 0-d tensor) receives the gradients' global norm from
+    the MLPs' backward."""
     rows = getattr(mb, "rows", None)
-    mu, new_v = mlpops.actor_critic_mlp(params, mb.obs, rows)
+    mu, new_v = mlpops.actor_critic_mlp(params, mb.obs, rows, norm)
     adv = mb.advantages
     mean, std = (adv.mean(), adv.std(correction=1)) if moments is None else moments
     neg_log_ratio, pg_max, v_max, clipped = mbops.ppo_head(
@@ -327,7 +331,9 @@ def minibatch_layout(cfg: PPOConfig):
 
 def _mean_over_group(grads, st, mesh):
     """The gradients and the minibatch's stats averaged over the group (each rank's
-    minibatch part is an equal share), in one flat all-reduce."""
+    minibatch part is an equal share), in one flat all-reduce. Returns the
+    gradients (views of the flat buffer, which opens with them), the stats and the
+    flat buffer."""
     stat = torch.stack([st[k].detach().to(grads[0].dtype) for k in STAT_NAMES[:6]])
     flat = torch.cat([g.reshape(-1) for g in grads] + [stat])
     pmesh.all_reduce_sum_(flat, mesh).div_(mesh.world)
@@ -335,7 +341,7 @@ def _mean_over_group(grads, st, mesh):
     for g in grads:
         out.append(flat[at:at + g.numel()].view_as(g))
         at += g.numel()
-    return out, dict(zip(STAT_NAMES[:6], flat[at:]))
+    return out, dict(zip(STAT_NAMES[:6], flat[at:])), flat
 
 
 def shard_blocks(cfg: PPOConfig, flat: Batch) -> Batch:
@@ -411,6 +417,18 @@ def advantage_moments(cfg: PPOConfig, units: Batch, index, mesh) -> torch.Tensor
     return torch.stack([mean, std], dim=1)
 
 
+def norm_route(device: torch.device, mesh, tp) -> str:
+    """Where a minibatch step's global norm comes from: ``"fused"`` on a card with no
+    group and whole towers (the MLPs' backward writes it in its reduce launch),
+    ``"norm-only"`` on a card with a group and whole towers (one launch of the
+    reduce's norm-only mode over the all-reduced flat gradient), ``"composition"``
+    on the CPU and on a tensor-parallel rank (``global_norm``: the MLP kernels do
+    not run there, and a rank's norm needs the split squares' all-reduce)."""
+    if tp is not None or device.type != "cuda":
+        return "composition"
+    return "fused" if mesh is None else "norm-only"
+
+
 def minibatch_step(cfg: PPOConfig, model: net.ActorCritic, log_std, lr, units: Batch,
                    index, bc1, bc2, mu, nu, loop: MinibatchLoop, mesh=None,
                    moments=None) -> None:
@@ -418,29 +436,42 @@ def minibatch_step(cfg: PPOConfig, model: net.ActorCritic, log_std, lr, units: B
     a host branch: minibatch ``loop.i`` of ``units`` (``shard_blocks``' layout with
     the shard and unit axes merged) at its row of ``index`` (``minibatch_index``),
     its advantages gathered and its other fields read by the MLPs and the loss head
-    through the unit ids (``UnitBatch``), the loss and its gradients (with a
-    ``mesh``, the advantages normalized by row ``loop.i`` of ``advantage_moments``' table
-    ``moments`` and the gradients averaged over the group), the global norm, then
-    ``ops.minibatch.adam_tail``: the clip as a select, and Adam with the corrections
-    ``bc1[loop.applied]``, ``bc2[loop.applied]``. ``trig = approx_kl > kl_target``:
-    the parameters, ``mu`` and ``nu`` take the new values where the loop is active
-    (no earlier exit) and not ``trig``, in place; the stats row ``loop.i`` records
-    the minibatch where it is active (``applied`` and ``computed`` its flags), zeros
-    after the exit; the loop's counters and exit flag advance on the device."""
-    params = list(model.parameters())
+    through the unit ids (``UnitBatch``), then ``apply_minibatch``."""
     rows = index.index_select(0, loop.i)[0]
     mb = UnitBatch(units.obs, units.actions, units.logprobs,
                    mbops.gather_units(units.advantages, rows), units.returns, units.values,
                    rows)
+    apply_minibatch(cfg, model, log_std, lr, mb, bc1, bc2, mu, nu, loop, mesh, moments)
+
+
+def apply_minibatch(cfg: PPOConfig, model: net.ActorCritic, log_std, lr, mb, bc1, bc2,
+                    mu, nu, loop: MinibatchLoop, mesh=None, moments=None) -> None:
+    """The loss on the minibatch ``mb`` and its gradients (with a ``mesh``, the
+    advantages normalized by row ``loop.i`` of ``advantage_moments``' table
+    ``moments`` and the gradients averaged over the group), the global norm
+    (``norm_route``), then ``ops.minibatch.adam_tail``: the clip as a select, and
+    Adam with the corrections ``bc1[loop.applied]``, ``bc2[loop.applied]``. ``trig =
+    approx_kl > kl_target``: the parameters, ``mu`` and ``nu`` take the new values
+    where the loop is active (no earlier exit) and not ``trig``, in place; the stats
+    row ``loop.i`` records the minibatch where it is active (``applied`` and
+    ``computed`` its flags), zeros after the exit; the loop's counters and exit flag
+    advance on the device."""
+    params = list(model.parameters())
+    route = norm_route(params[0].device, mesh, model.tensor_parallel)
+    g_norm = (torch.empty((), dtype=params[0].dtype, device=params[0].device)
+              if route == "fused" else None)
     if mesh is not None:
         moments = moments.index_select(0, loop.i)[0].unbind()
     with torch.enable_grad():
-        loss, st = _ppo_loss(model.params(), log_std, mb, cfg, moments)
+        loss, st = _ppo_loss(model.params(), log_std, mb, cfg, moments, g_norm)
         grads = torch.autograd.grad(loss, params)
     if mesh is not None:
-        grads, st = _mean_over_group(grads, st, mesh)
+        grads, st, flat = _mean_over_group(grads, st, mesh)
     with torch.no_grad():
-        g_norm = global_norm(grads, model.tensor_parallel)
+        if route == "norm-only":
+            g_norm = mlpops.grad_norm(flat[:sum(g.numel() for g in grads)])
+        elif route == "composition":
+            g_norm = global_norm(grads, model.tensor_parallel)
         mbops.adam_tail(params, list(grads), mu, nu, g_norm, [st[k] for k in STAT_NAMES[:6]],
                         bc1, bc2, lr, loop, cfg.max_grad_norm, cfg.kl_target)
 

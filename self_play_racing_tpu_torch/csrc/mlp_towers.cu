@@ -74,6 +74,27 @@
 // b: 8 groups of consecutive rows, each summed in order, then the 8 group sums in
 // order. The rows, the tiles of each and every sum's order are a function of n
 // alone: equal inputs give equal bits, eager and in a CUDA graph; no float atomics.
+//
+// mlp_grad_reduce_norm_f32 is the same launch that also writes the global norm of
+// what it sums, sqrt(sum over p of out[p]^2), optax.global_norm of the 12 gradients
+// (self_play_racing_tpu/agent/ppo.py:121, clip_by_global_norm, which XLA fuses into
+// the update program on the TPU; in PyTorch a _foreach_mul, 12 sums, a stack, a sum
+// and a sqrt: 16 launches a minibatch step). Its work is its launch: 11,075
+// parameters of 128 rows that the backward has just written to the L2, so what it
+// is held to is its launch floor. The design keeps the norm inside that launch:
+// - each block of 32 parameters squares its sums and adds them over its lanes by a
+//   shuffle tree (lane l takes l + 16, then l + 8, l + 4, l + 2, l + 1): one float
+//   a block, written to block_sq;
+// - the block that finishes last, found by a ticket (__threadfence, then one
+//   integer atomicInc on a counter), sums those floats one after another in
+//   block-index order and writes sqrtf of the total. That order holds whatever
+//   order the blocks finish in, so the norm's bits are a function of the input
+//   alone; no float atomics;
+// - atomicInc wraps the counter back to 0 at the last ticket, so it is 0 after
+//   every launch and a replayed CUDA graph needs no memset node.
+// With out null and one row (the norm-only mode) the launch gives the norm of a
+// flat gradient already summed, in the same blocks and order: over equal flats the
+// two modes give equal bits (x + 0.0f is x, and the square of -0.0f is +0.0f).
 // The partials and the output are flat in model.parameters() order (actor w1, b1, w2,
 // b2, w3, b3, then the critic's), so the 12 gradients are views of the output. A
 // row's outputs depend on that row alone, in an order fixed by the kernel, so the
@@ -833,11 +854,18 @@ __global__ void __launch_bounds__(kThreads) mlp_backward_kernel(
 }
 
 // out[p] = sum over r of partial[r * params + p]: group g of kGroups sums its
-// consecutive rows in order, then the group sums in order.
+// consecutive rows in order, then the group sums in order (out null: not written).
+// With norm: each block's squares of its sums, over its lanes by the shuffle tree,
+// into block_sq[block]; the last block to take a ticket writes *norm = sqrtf of the
+// blocks' squares summed in block-index order (the file's head says why). The
+// counter behind the ticket is 0 before and after every launch.
 __global__ void __launch_bounds__(kGroups * kReduceLanes) mlp_grad_reduce_kernel(
         const float* __restrict__ partial, float* __restrict__ out, long long rows,
-        long long params) {
+        long long params, float* __restrict__ block_sq, unsigned int* __restrict__ ticket,
+        float* __restrict__ norm) {
     __shared__ float sums[kGroups][kReduceLanes];
+    __shared__ float stage[kGroups * kReduceLanes];
+    __shared__ bool last;
     const int lane = threadIdx.x, g = threadIdx.y;
     const long long p = (long long)blockIdx.x * kReduceLanes + lane;
     const long long per = (rows + kGroups - 1) / kGroups;
@@ -849,12 +877,41 @@ __global__ void __launch_bounds__(kGroups * kReduceLanes) mlp_grad_reduce_kernel
     }
     sums[g][lane] = s;
     __syncthreads();
-    if (g == 0 && p < params) {
+    if (g == 0) {
         float total = sums[0][lane];
 #pragma unroll
         for (int i = 1; i < kGroups; ++i) total += sums[i][lane];
-        out[p] = total;
+        if (p < params && out != nullptr) out[p] = total;
+        if (norm != nullptr) {
+            float sq = p < params ? total * total : 0.0f;
+#pragma unroll
+            for (int o = kReduceLanes / 2; o > 0; o >>= 1)
+                sq += __shfl_down_sync(0xffffffffu, sq, o);
+            if (lane == 0) {
+                block_sq[blockIdx.x] = sq;
+                __threadfence();  // the square is visible before the ticket is taken
+                last = atomicInc(ticket, gridDim.x - 1) == gridDim.x - 1;
+            }
+        }
     }
+    if (norm == nullptr) return;
+    __syncthreads();
+    if (!last) return;
+    // the last block: every other block's square is in the L2 (read past the L1)
+    __threadfence();
+    const int tid = g * kReduceLanes + lane;
+    float total = 0.0f;
+    for (unsigned b0 = 0; b0 < gridDim.x; b0 += kGroups * kReduceLanes) {
+        if (b0 + tid < gridDim.x) stage[tid] = __ldcg(block_sq + b0 + tid);
+        __syncthreads();
+        if (tid == 0) {
+            const unsigned m = gridDim.x - b0 < kGroups * kReduceLanes
+                ? gridDim.x - b0 : kGroups * kReduceLanes;
+            for (unsigned i = 0; i < m; ++i) total += stage[i];
+        }
+        __syncthreads();
+    }
+    if (tid == 0) *norm = sqrtf(total);
 }
 
 long long tiles_for(long long n) { return (n + kRows - 1) / kRows; }
@@ -1035,16 +1092,50 @@ extern "C" int mlp_blocks_per_sm(int obs_dim, int h1, int h2, int backward) {
 extern "C" int mlp_rows_per_tile() { return kRows; }
 extern "C" int mlp_partial_rows(long long n) { return (int)backward_blocks(n); }
 
+static long long reduce_blocks(long long params) {
+    return (params + kReduceLanes - 1) / kReduceLanes;
+}
+
+static int reduce_launch(const float* partial, float* out, long long rows,
+                         long long params, float* block_sq, unsigned int* ticket,
+                         float* norm, int device, cudaStream_t stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (rows < 1 || params < 1 || reduce_blocks(params) > 0x7fffffffLL)
+        return (int)cudaErrorInvalidValue;
+    mlp_grad_reduce_kernel<<<(unsigned)reduce_blocks(params), dim3(kReduceLanes, kGroups),
+                             0, stream>>>(partial, out, rows, params, block_sq, ticket,
+                                          norm);
+    return (int)cudaGetLastError();
+}
+
 // out[p] (params floats) = the sum over the rows of partial[r][p], in the order above.
 extern "C" int mlp_grad_reduce_f32(const float* partial, float* out, long long rows,
                                    long long params, int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
-    if (rows < 1 || params < 1) return (int)cudaErrorInvalidValue;
-    const long long blocks = (params + kReduceLanes - 1) / kReduceLanes;
-    mlp_grad_reduce_kernel<<<(unsigned)blocks, dim3(kReduceLanes, kGroups), 0,
-                             (cudaStream_t)stream>>>(partial, out, rows, params);
-    return (int)cudaGetLastError();
+    if (out == nullptr) return (int)cudaErrorInvalidValue;
+    return reduce_launch(partial, out, rows, params, nullptr, nullptr, nullptr, device,
+                         (cudaStream_t)stream);
+}
+
+// The same launch with the norm of out: *norm (one float) = sqrt of the sum over p of
+// out[p]^2, in the order above; block_sq mlp_grad_norm_blocks(params) floats of
+// scratch; ticket one unsigned int, 0 before the launch and left 0 after it, which
+// no other launch may use while this one runs. With out null the launch writes the
+// norm alone (the norm-only mode: partial the flat gradient, one row).
+extern "C" int mlp_grad_reduce_norm_f32(const float* partial, float* out, float* norm,
+                                        float* block_sq, unsigned int* ticket,
+                                        long long rows, long long params, int device,
+                                        void* stream) {
+    if (norm == nullptr || block_sq == nullptr || ticket == nullptr)
+        return (int)cudaErrorInvalidValue;
+    return reduce_launch(partial, out, rows, params, block_sq, ticket, norm, device,
+                         (cudaStream_t)stream);
+}
+
+// The reduce's blocks (and so the norm's squares) at params parameters, -1 past an
+// int.
+extern "C" int mlp_grad_norm_blocks(long long params) {
+    return reduce_blocks(params) > 0x7fffffffLL ? -1 : (int)reduce_blocks(params);
 }
 
 extern "C" const char* mlp_towers_error_string(int err) {

@@ -64,6 +64,8 @@ _SIGNATURES = {
     "mlp_forward_f32": [_P, _I, _L, _L, _L, _I, _I, _I, _I, _P],
     "mlp_backward_f32": [_P, _I, _L, _L, _L, _I, _I, _I, _I, _P],
     "mlp_grad_reduce_f32": [_P, _P, _L, _L, _I, _P],
+    "mlp_grad_reduce_norm_f32": [_P] * 5 + [_L, _L, _I, _P],
+    "mlp_grad_norm_blocks": [_L],
     "mlp_rows_per_tile": [],
     "mlp_shared_bytes": [_I, _I, _I],
     "mlp_partial_rows": [_L],
@@ -844,10 +846,12 @@ def launch_mixbits_permutation(consts, out, num_perms: int, log2_n: int) -> None
 # the actor's and critic's MLPs (csrc/mlp_towers.cu): the hidden widths (h1, h2) it
 # is instantiated for (its MLP_HIDDEN; obs_dim is a run-time argument), the rows a
 # tile (its kRows: 16 a warp, 4 warps a block), the backward's fixed blocks a tower
-# (its kBackwardBlocks: the rows of its partials), its pointer counts
+# (its kBackwardBlocks: the rows of its partials), the reduce's parameters a block
+# (its kReduceLanes: a block's square of the norm), its pointer counts
 MLP_HIDDEN = ((64, 64), (128, 128))
 MLP_ROWS_PER_TILE = 64
 MLP_BACKWARD_BLOCKS = 128
+MLP_REDUCE_LANES = 32
 MLP_WARPS = 4
 MLP_TENSORS = 12
 MLP_INPUTS = 2 + MLP_TENSORS
@@ -904,11 +908,13 @@ def mlp_partial_rows(n: int) -> int:
 @functools.lru_cache(maxsize=None)
 def _mlp_lib():
     lib = build()["mlp_towers"]
-    if (lib.mlp_rows_per_tile(), lib.mlp_partial_rows(1 << 40)) != (
-            MLP_ROWS_PER_TILE, MLP_BACKWARD_BLOCKS):
-        raise RuntimeError(f"csrc/mlp_towers.cu tiles {lib.mlp_rows_per_tile()} rows and "
-                           f"{lib.mlp_partial_rows(1 << 40)} blocks a tower, ops/_cuda.py "
-                           f"{MLP_ROWS_PER_TILE} and {MLP_BACKWARD_BLOCKS}")
+    got = (lib.mlp_rows_per_tile(), lib.mlp_partial_rows(1 << 40),
+           lib.mlp_grad_norm_blocks(MLP_REDUCE_LANES + 1))
+    if got != (MLP_ROWS_PER_TILE, MLP_BACKWARD_BLOCKS, 2):
+        raise RuntimeError(f"csrc/mlp_towers.cu tiles {got[0]} rows, {got[1]} blocks a "
+                           f"tower and reduces {MLP_REDUCE_LANES + 1} parameters in {got[2]} "
+                           f"blocks; ops/_cuda.py {MLP_ROWS_PER_TILE}, "
+                           f"{MLP_BACKWARD_BLOCKS} and 2")
     return lib
 
 
@@ -943,8 +949,60 @@ def launch_mlp_backward(obs, unit_ids, params, g_mu, g_v, partial, n: int, dims)
           _ptr_array(ptrs + [g_mu, g_v, partial]), MLP_INPUTS + 3, n, block, units, *dims)
 
 
-def launch_mlp_grad_reduce(partial, out) -> None:
+def mlp_grad_norm_blocks(params: int) -> int:
+    """The reduce's blocks at ``params`` parameters: the squares the norm sums."""
+    return -(-params // MLP_REDUCE_LANES)
+
+
+# The counter behind the reduce's norm ticket (csrc/mlp_towers.cu): one int32 a card,
+# owned by this module, made 0 at its first launch on that card (outside any CUDA
+# graph capture, then a synchronize, so that every stream sees the 0) and left 0 by
+# every launch, so the captures take its address and replays need no memset. No
+# two launches on one card overlap on any path: the port launches the reduce on its
+# caller's current stream alone, and the minibatch step that calls it runs one at a
+# time from one thread, eagerly on the current stream or as replays of graphs
+# captured on the card's one capture stream (``_graph._capture_stream``), which
+# replay on the current stream in turn; two ranks on one card are processes, each
+# with a counter of its own.
+_norm_tickets: dict[int, torch.Tensor] = {}
+
+
+def grad_norm_ticket(device: torch.device) -> torch.Tensor:
+    """The card's norm ticket counter (int32 [1]), made at its first call."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    ticket = _norm_tickets.get(index)
+    if ticket is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("mlp_grad_reduce: the norm's first launch on a card is inside "
+                               "a CUDA graph capture; launch it once eagerly first")
+        ticket = torch.zeros((1,), dtype=torch.int32, device=torch.device("cuda", index))
+        torch.cuda.synchronize(index)
+        ticket = _norm_tickets.setdefault(index, ticket)
+    return ticket
+
+
+def launch_mlp_grad_reduce(partial, out, norm=None) -> None:
     """Launch the sum of the blocks' gradients ``partial`` [rows, params] into
-    ``out`` [params] on the current stream of ``out``'s device."""
-    _call("mlp_towers", "mlp_grad_reduce_f32", out.device, _ptr(partial), _ptr(out),
-          partial.shape[0], partial.shape[1])
+    ``out`` [params] on the current stream of ``out``'s device; with ``norm`` (0-d
+    float32 on that card) in the same launch its global norm, sqrt(sum of out**2),
+    into ``norm``."""
+    if norm is None:
+        _call("mlp_towers", "mlp_grad_reduce_f32", out.device, _ptr(partial), _ptr(out),
+              partial.shape[0], partial.shape[1])
+    else:
+        _launch_reduce_norm(partial, out, norm)
+
+
+def launch_mlp_grad_norm(flat, norm) -> None:
+    """Launch the reduce's norm-only mode on the current stream of ``norm``'s device:
+    the global norm of the flat gradient ``flat`` [params] (contiguous float32) into
+    ``norm`` (0-d float32), in the fused launch's blocks and order."""
+    _launch_reduce_norm(flat.view(1, -1), None, norm)
+
+
+def _launch_reduce_norm(partial, out, norm) -> None:
+    dev = norm.device
+    params = partial.shape[1]
+    block_sq = torch.empty((mlp_grad_norm_blocks(params),), dtype=torch.float32, device=dev)
+    _call("mlp_towers", "mlp_grad_reduce_norm_f32", dev, _ptr(partial), _ptr(out),
+          _ptr(norm), _ptr(block_sq), _ptr(grad_norm_ticket(dev)), partial.shape[0], params)

@@ -28,9 +28,19 @@ a bias add and a tanh a layer, and autograd's backward of each.
   ``_cuda.MLP_HIDDEN`` (``_cuda.mlp_takes``). A CUDA tensor they do not take (not
   float32, not contiguous, another shape) raises; there is no fallback to the plain
   version.
-- ``mlp_forward_launches``, ``mlp_backward_launches`` and
-  ``mlp_grad_reduce_launches`` count kernel launches (plain integers, incremented only
-  where a kernel launched).
+- The global norm of the 12 gradients (``optax.clip_by_global_norm``'s, which XLA
+  fuses into the update program on the TPU) comes out of the same reduce launch:
+  given ``norm`` (a 0-d float32 on the card), the backward's ``mlp_grad_reduce``
+  writes sqrt(sum of squares) of the flat gradient into it (each block of 32
+  parameters its squares over its lanes, the last block the blocks' in index order;
+  ``csrc/mlp_towers.cu``). ``grad_norm`` is the same kernel's norm-only mode over a
+  flat gradient already summed (a group's all-reduced one), in the same blocks and
+  order: over equal flats the two give equal bits. Their plain version is
+  ``grad_norm_plain`` (``agent/ppo.py:global_norm``'s composition), held to within
+  chip_smoke.py phase p's tolerance.
+- ``mlp_forward_launches``, ``mlp_backward_launches``, ``mlp_grad_reduce_launches``
+  and ``mlp_grad_norm_launches`` (the norm-only mode) count kernel launches (plain
+  integers, incremented only where a kernel launched).
 """
 from __future__ import annotations
 
@@ -44,9 +54,10 @@ from ..models import actor_critic as net
 mlp_forward_launches = 0
 mlp_backward_launches = 0
 mlp_grad_reduce_launches = 0
+mlp_grad_norm_launches = 0
 
 
-def actor_critic_mlp(params, obs, unit_ids=None):
+def actor_critic_mlp(params, obs, unit_ids=None, norm=None):
     """(mu [n, 2], v [n]): the actor's tanh-bounded mean and the critic's value of the
     parameter dict ``params`` (whole towers, ``{"actor": [(w, b)] * 3, "critic": ...}``,
     weights (in, out)) on ``obs`` [n, obs_dim]; with ``unit_ids`` (int64 [n / block],
@@ -54,12 +65,16 @@ def actor_critic_mlp(params, obs, unit_ids=None):
     obs_dim] and row r is unit ``unit_ids[r // block]``, offset ``r % block``: the
     kernels read it there, the plain version gathers it first. Differentiable in the
     parameters (not in ``obs``). A tensor-parallel rank's sharded parameters take the
-    plain version on any device."""
+    plain version on any device. ``norm`` (kernels only: a 0-d float32 on the card)
+    receives the global norm of the 12 gradients when the backward runs."""
     if getattr(params, "tp", None) is not None or not _on_cuda(obs, "actor_critic_mlp"):
+        if norm is not None:
+            raise ValueError("actor_critic_mlp: the norm comes out of the kernels' backward; "
+                             "the plain version has none (take ppo.global_norm)")
         return actor_critic_mlp_plain(params, obs, unit_ids)
     leaves = [t for tower in ("actor", "critic") for layer in params[tower] for t in layer]
     dims = _check_towers(obs, unit_ids, leaves)
-    return MLPTowers.apply(obs, unit_ids, dims, *leaves)
+    return MLPTowers.apply(obs, unit_ids, dims, norm, *leaves)
 
 
 def actor_critic_mlp_plain(params, obs, unit_ids=None):
@@ -99,15 +114,27 @@ def _rows(obs, unit_ids) -> int:
     return obs.shape[0] if unit_ids is None else unit_ids.shape[0] * obs.shape[1]
 
 
+def _check_norm(norm, obs) -> None:
+    """``norm``: None, or a 0-d float32 tensor on ``obs``'s device."""
+    if norm is None:
+        return
+    if norm.device != obs.device or norm.dtype != torch.float32 or norm.ndim != 0:
+        raise ValueError(f"MLPTowers: the norm is a 0-d float32 on {obs.device}; got "
+                         f"{tuple(norm.shape)} {norm.dtype} on {norm.device}")
+
+
 class MLPTowers(torch.autograd.Function):
     """``actor_critic_mlp`` on the card: the forward one launch of
     ``csrc/mlp_towers.cu:mlp_forward_f32``, the backward one of ``mlp_backward_f32``
     and one of ``mlp_grad_reduce_f32``, which return the gradients of the 12
-    parameter tensors as views of one flat buffer (none for the observations)."""
+    parameter tensors as views of one flat buffer (none for the observations); with
+    ``norm`` the reduce is ``mlp_grad_reduce_norm_f32`` and also writes the flat
+    gradient's global norm into it."""
 
     @staticmethod
-    def forward(ctx, obs, unit_ids, dims, *leaves):
+    def forward(ctx, obs, unit_ids, dims, norm, *leaves):
         global mlp_forward_launches
+        _check_norm(norm, obs)
         n = _rows(obs, unit_ids)
         mu = torch.empty((n, 2), dtype=obs.dtype, device=obs.device)
         v = torch.empty((n,), dtype=obs.dtype, device=obs.device)
@@ -116,7 +143,7 @@ class MLPTowers(torch.autograd.Function):
                 _cuda.launch_mlp_forward(obs, unit_ids, leaves, mu, v, n, dims)
             mlp_forward_launches += 1
         ctx.save_for_backward(obs, unit_ids, *leaves)
-        ctx.dims = dims
+        ctx.dims, ctx.norm = dims, norm
         return mu, v
 
     @staticmethod
@@ -125,7 +152,9 @@ class MLPTowers(torch.autograd.Function):
         obs, unit_ids, *leaves = ctx.saved_tensors
         n = _rows(obs, unit_ids)
         if n == 0:
-            return (None, None, None) + tuple(torch.zeros_like(t) for t in leaves)
+            if ctx.norm is not None:
+                ctx.norm.zero_()
+            return (None,) * 4 + tuple(torch.zeros_like(t) for t in leaves)
         total = sum(t.numel() for t in leaves)
         partial = torch.empty((_cuda.mlp_partial_rows(n), total), dtype=obs.dtype,
                               device=obs.device)
@@ -135,10 +164,33 @@ class MLPTowers(torch.autograd.Function):
         with torch.cuda.device(obs.device):
             _cuda.launch_mlp_backward(obs, unit_ids, leaves, g_mu, g_v, partial, n, ctx.dims)
             mlp_backward_launches += 1
-            _cuda.launch_mlp_grad_reduce(partial, flat)
+            _cuda.launch_mlp_grad_reduce(partial, flat, ctx.norm)
             mlp_grad_reduce_launches += 1
         grads, at = [], 0
         for t in leaves:
             grads.append(flat[at:at + t.numel()].view_as(t))
             at += t.numel()
-        return (None, None, None) + tuple(grads)
+        return (None,) * 4 + tuple(grads)
+
+
+def grad_norm(flat):
+    """The global norm (0-d) of the flat gradient ``flat`` [params], float32: on the
+    card one launch of the reduce's norm-only mode (bitwise the norm that the fused
+    reduce gives of an equal flat), on the CPU ``grad_norm_plain``."""
+    global mlp_grad_norm_launches
+    if not _on_cuda(flat, "grad_norm"):
+        return grad_norm_plain(flat)
+    _check_cuda("grad_norm", flat.device, (flat,))
+    if flat.ndim != 1 or flat.numel() == 0:
+        raise ValueError(f"grad_norm: a flat gradient [params], got {tuple(flat.shape)}")
+    norm = torch.empty((), dtype=flat.dtype, device=flat.device)
+    with torch.cuda.device(flat.device):
+        _cuda.launch_mlp_grad_norm(flat, norm)
+    mlp_grad_norm_launches += 1
+    return norm
+
+
+def grad_norm_plain(flat):
+    """Plain PyTorch ``grad_norm``: ``agent/ppo.py:global_norm``'s composition on one
+    tensor, sqrt(sum(flat * flat))."""
+    return torch.stack([torch.sum(flat * flat)]).sum().sqrt()

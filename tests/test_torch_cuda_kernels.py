@@ -53,7 +53,11 @@ chip_smoke.py phase p's tolerance of the plain composition (cuBLAS and autograd)
 every instantiated (obs_dim, hidden) and 1 to 65,536 rows, two runs bitwise,
 through the unit index bitwise the gathered rows, graph replays bitwise eager, the
 forward row-invariant bitwise, an update launching each kernel once a minibatch
-step, and float64, non-contiguous and unlisted towers refused.
+step, and float64, non-contiguous and unlisted towers refused. The reduce's global
+norm (``ppo.norm_route``): within phase p's norm tolerance of the float64 norm of
+the same flat at every tower, the flat bitwise the norm-less launch's, the
+norm-only mode bitwise the fused norm, graph replays bitwise with the ticket's
+counter back at 0, and no ``global_norm`` composition left in a no-group update.
 """
 import contextlib
 import dataclasses
@@ -65,6 +69,7 @@ import torch
 
 import chip_smoke
 from test_torch_dist_workers import group_of_one
+from self_play_racing_tpu_torch.agent import ppo as tppo
 from self_play_racing_tpu_torch.envs import multi as menv
 from self_play_racing_tpu_torch.envs import single as senv
 from self_play_racing_tpu_torch.envs import track as trk
@@ -1925,16 +1930,73 @@ def test_mlp_backward_keeps_two_blocks_an_sm(cuda, cars):
     assert occupancy["backward_shared_bytes"] >= _cuda.mlp_shared_bytes(*dims)
 
 
-def test_update_launches_the_mlp_kernels_once_a_minibatch_step(cuda):
+@pytest.mark.parametrize("dims", list(chip_smoke.MLP_TOWERS))
+def test_grad_reduce_norm_is_within_tolerance(cuda, dims):
+    """The reduce's global norm through ``actor_critic_mlp(..., norm)`` at 65,536 rows
+    (``chip_smoke.hold_grad_norm``): within max(1e-5 x the float64 norm of the same
+    flat, 8 x ``ppo.global_norm``'s distance from it), the 12 gradients bitwise the
+    norm-less launch's, the norm-only mode over their flat bitwise the fused norm."""
+    assert chip_smoke.hold_grad_norm(dims, 65_536, cuda, seed=dims[0])["ratio"] <= 1.0
+
+
+def test_grad_reduce_norm_modes_agree_bitwise(cuda):
+    """At the launch level, on train scale's partials: the fused launch's flat is
+    bitwise the norm-less launch's, and the norm-only mode over that flat gives the
+    fused norm's bits; the ticket's counter is 0 after each launch."""
+    dims, n = (19, 64, 64), 65_536
+    _, leaves, obs, g_mu, g_v = chip_smoke.mlp_tensors(
+        chip_smoke.mlp_case(dims[0], dims[1:], n, seed=3), cuda)
+    w = [x.detach() for x in leaves]
+    partial = torch.empty((_cuda.mlp_partial_rows(n), sum(x.numel() for x in w)),
+                          device=cuda)
+    _cuda.launch_mlp_backward(obs, None, w, g_mu, g_v, partial, n, dims)
+    bare, fused = (torch.empty((partial.shape[1],), device=cuda) for _ in range(2))
+    norm, only = torch.empty((), device=cuda), torch.empty((), device=cuda)
+    _cuda.launch_mlp_grad_reduce(partial, bare)
+    _cuda.launch_mlp_grad_reduce(partial, fused, norm)
+    _cuda.launch_mlp_grad_norm(fused, only)
+    torch.cuda.synchronize()
+    assert chip_smoke.same_bits(bare, fused) and chip_smoke.same_bits(norm, only)
+    assert int(_cuda.grad_norm_ticket(cuda).item()) == 0
+    assert torch.isfinite(norm) and float(norm) > 0.0
+
+
+def test_grad_reduce_norm_graph_replays_are_bitwise(cuda):
+    """The reduce with its norm captured in a CUDA graph: three replays bitwise the
+    eager launch, the ticket's counter back at 0 after each
+    (``chip_smoke.hold_norm_replays``)."""
+    chip_smoke.hold_norm_replays(cuda, replays=3)
+
+
+def test_grad_reduce_refuses_a_norm_it_cannot_write(cuda):
+    """A norm on the CPU, of float64 or not 0-d is refused before any launch."""
+    case = chip_smoke.mlp_case(19, (64, 64), 256, seed=0)
+    params, _, obs, _, _ = chip_smoke.mlp_tensors(case, cuda)
+    before = chip_smoke.mlp_counts()
+    for norm in (torch.empty(()), torch.empty((), dtype=torch.float64, device=cuda),
+                 torch.empty((1,), device=cuda)):
+        with pytest.raises(ValueError, match="norm"):
+            mlpops.actor_critic_mlp(params, obs, None, norm)
+    assert chip_smoke.mlp_counts() == before
+
+
+def test_update_launches_the_mlp_kernels_once_a_minibatch_step(cuda, monkeypatch):
     """One eager update (4 epochs x 4 minibatches) launches each MLP kernel once a
-    minibatch step, as it launches the loss head and the tail."""
+    minibatch step, as it launches the loss head and the tail; the global norm comes
+    out of the reduce: no call of the ``global_norm`` composition and no norm-only
+    launch in a minibatch step without a group."""
     from self_play_racing_tpu_torch.configs import base_config
 
+    calls = []
+    composition = tppo.global_norm
+    monkeypatch.setattr(tppo, "global_norm", lambda *a: calls.append(1) or composition(*a))
     cfg = base_config(num_envs=256, num_steps=64, num_minibatches=4, update_epochs=4,
                       kl_target=float("inf"))
-    before = chip_smoke.mlp_counts()
+    before = chip_smoke.mlp_counts() + (mlpops.mlp_grad_norm_launches,)
     params, _ = chip_smoke.update_with(cfg, cuda, 4, plain=False)
-    assert [b - a for a, b in zip(before, chip_smoke.mlp_counts())] == [16] * 3
+    after = chip_smoke.mlp_counts() + (mlpops.mlp_grad_norm_launches,)
+    assert [b - a for a, b in zip(before, after)] == [16] * 3 + [0]
+    assert not calls
     assert all(bool(torch.isfinite(p).all()) for p in params)
 
 

@@ -197,7 +197,8 @@ def warp_sums(v):
 
 
 def kernel_order(params, obs, g_mu, g_v, tile=_cuda.MLP_ROWS_PER_TILE,
-                 blocks=_cuda.MLP_BACKWARD_BLOCKS, groups=8, products=3, weight_lo=True):
+                 blocks=_cuda.MLP_BACKWARD_BLOCKS, groups=8, products=3, weight_lo=True,
+                 partials=None):
     """The kernels' order in PyTorch (``csrc/mlp_towers.cu``): the hidden layers'
     products and the weight gradients in 3xTF32 (``mma3``: steps of 8 k in order, the
     operands split as ``cvt.rna`` splits them), the last layer and the narrow sums
@@ -207,7 +208,8 @@ def kernel_order(params, obs, g_mu, g_v, tile=_cuda.MLP_ROWS_PER_TILE,
     accumulated by block b over its tiles b, b + G, ... in order (G = min(tiles,
     ``blocks``)), then the blocks' rows summed in ``groups`` groups of consecutive
     rows, each in order from zero, and the group sums in order. Returns [mu, v, the 12
-    gradients]."""
+    gradients]; given a list ``partials``, appends each tower's blocks' rows to it
+    ([blocks, the tower's parameters], its 6 tensors flat in order)."""
     n, d = obs.shape
     tiles = -(-n // tile)
     nblk = min(tiles, blocks)
@@ -253,6 +255,8 @@ def kernel_order(params, obs, g_mu, g_v, tile=_cuda.MLP_ROWS_PER_TILE,
             a[1] = a[1] + warp_sums(pairs(g1))
             a[2] = product(h1[rows].T, g2[rows], a[2], products=products)
             a[0] = product(x[rows].T, g1[rows], a[0], products=products)
+        if partials is not None:
+            partials.append(torch.stack([torch.cat([p.reshape(-1) for p in a]) for a in acc]))
         per = -(-nblk // groups)
         for i in range(6):
             sums = []

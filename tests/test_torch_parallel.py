@@ -237,11 +237,11 @@ def test_advantage_moments_up_front_are_each_minibatchs_own(case, tmp_path, monk
     seen = {"group": [], "none": []}
     loss = tppo._ppo_loss
 
-    def recording(params, log_std, mb, cfg, moments=None):
+    def recording(params, log_std, mb, cfg, moments=None, norm=None):
         adv = mb.advantages.detach()
         seen["none" if moments is None else "group"].append(
             (adv.mean(), adv.std(correction=1)) if moments is None else moments)
-        return loss(params, log_std, mb, cfg, moments)
+        return loss(params, log_std, mb, cfg, moments, norm)
 
     monkeypatch.setattr(tppo, "_ppo_loss", recording)
     runs = {}

@@ -295,6 +295,31 @@ p. the three kernels against the plain composition (cuBLAS and autograd) at the
    23 inputs), one update at its defaults, launching the MLP kernels once a
    minibatch step;
 
+and for the rollout step's policy as two kernels (``ops/policy.py``,
+``csrc/policy.cu``: kernel A ``policy_act`` runs the normaliser, both towers, the
+sample and its log-prob and writes row t of the rollout's obs, actions, log-probs
+and values, once a rollout step on every path with whole towers, and the actor alone
+for evaluation, serving and the adapters; kernel B ``pool_act`` the pool opponents'
+actions, once a self-play step, and a match's one policy a seat):
+
+q. (right after p) both against the plain composition at the towers of
+   ``POLICY_TOWERS`` (obs_dim 15, 19, 23, 43 on (64, 64), 19 on (128, 128)) and 1,
+   64, 4096, 4097 and 8192 rows (kernel B at ``POOL_SHAPES`` envs x opponent seats):
+   mu and v within phase p's rule, and kernel A's bitwise ``mlp_forward``'s on the
+   same rows; everything after the towers (the normaliser's row, the sample, its
+   log-prob, the uniform actions, the ``use_policy`` select, car 0) bitwise the
+   composition applied to the kernels' own mu, sampled and greedy, with and without
+   the normaliser and the critic, kernel B with an [envs] index of 5 members, a 0-d
+   index and one member a seat, through ``opponent_actions``,
+   ``opponent_actions_all_seats`` and ``_seat_actions``; the buffers' other rows
+   untouched, two runs bitwise, a row (an env) alone bitwise its row in a batch,
+   graphed bitwise eager; float64, strided rows, other widths, a float index and a
+   noise of another shape refused before any launch; each timed eager and in a CUDA
+   graph at 4096 rows of (19, 64, 64) and (15, 64, 64) beside the composition it
+   replaces in a graph, its bound (3xTF32 on the tensor cores) and the launch floor;
+   every update's first minibatch of phases 10 and k has approx_kl and clip_frac
+   exactly 0 (``first_minibatches_exact``);
+
 and for the single-car env step as two launches (``single.transition`` runs
 ``csrc/single_transition.cu``, the step, the track query and the whole reward and
 termination tail, a warp a row, and on the tiled pool from
@@ -399,7 +424,9 @@ from self_play_racing_tpu_torch.agent.self_play import SelfPlayTrainer
 from self_play_racing_tpu_torch.agent.trainer import PPOTrainer
 from self_play_racing_tpu_torch.configs import base_config, self_play_config
 from self_play_racing_tpu_torch.envs import multi as menv
+from self_play_racing_tpu_torch.envs import normalize as obsnorm
 from self_play_racing_tpu_torch.envs import procgen as pg
+from self_play_racing_tpu_torch.envs import selfplay
 from self_play_racing_tpu_torch.envs import single as senv
 from self_play_racing_tpu_torch.envs import track as trk
 from self_play_racing_tpu_torch.envs import vector
@@ -414,6 +441,7 @@ from self_play_racing_tpu_torch.ops import gae
 from self_play_racing_tpu_torch.ops import geometry as geo
 from self_play_racing_tpu_torch.ops import minibatch as mbops
 from self_play_racing_tpu_torch.ops import mlp as mlpops
+from self_play_racing_tpu_torch.ops import policy as polops
 from self_play_racing_tpu_torch.ops import prng
 from self_play_racing_tpu_torch.parallel import mesh as pmesh
 from self_play_racing_tpu_torch.serve import Policy, bench
@@ -1538,6 +1566,8 @@ COUNTERS = {
     "mlp_backward": (mlpops, "mlp_backward_launches"),
     "mlp_grad_reduce": (mlpops, "mlp_grad_reduce_launches"),
     "mlp_grad_norm": (mlpops, "mlp_grad_norm_launches"),
+    "policy_act": (polops, "policy_act_launches"),
+    "pool_act": (polops, "pool_act_launches"),
 }
 # the learner's kernels: one launch of each a minibatch_step
 LEARNER = ("ppo_head", "ppo_head_backward", "adam_tail")
@@ -1545,6 +1575,14 @@ LEARNER = ("ppo_head", "ppo_head_backward", "adam_tail")
 # tensor-parallel rank (its slices run the Megatron composition); with a group also
 # the reduce's norm-only mode once a minibatch_step (ppo.norm_route)
 TOWERS = ("mlp_forward", "mlp_backward", "mlp_grad_reduce")
+
+
+def policy(steps: int, selfplay: bool = False, towers: bool = True) -> dict:
+    """The rollout policy's expected launches in ``steps`` rollout steps: kernel A
+    (``policy_act``) once a step where the towers are whole (none on a
+    tensor-parallel rank, whose slices keep the composition), kernel B
+    (``pool_act``) once a self-play step (the pool is whole on every rank)."""
+    return {"policy_act": steps if towers else 0, "pool_act": steps if selfplay else 0}
 
 
 def zero_counts():
@@ -1583,6 +1621,18 @@ def counts(envs=None, tiled=False, **nonzero):
     if tiled and envs >= _cuda.SINGLE_TRANSITION_ROWS_FROM:
         out["single_transition_rows"] = out["single_transition"]
     return out
+
+
+def first_minibatches_exact(first: list, what: str) -> None:
+    """Every update's first minibatch recomputes the rollout's log-probs from the
+    same parameters: the rollout's policy kernel and the minibatch step's MLP and
+    loss-head kernels share their device code (``csrc/mlp_tower.cuh``,
+    ``csrc/normal_lp.cuh``), so its approx_kl and clip_frac are exactly 0."""
+    if not first or any(kl != 0.0 or clip != 0.0 for kl, clip in first):
+        raise AssertionError(f"{what}: the first minibatches' (approx_kl, clip_frac) "
+                             f"{first}, expected exactly 0 each")
+    print(f"{what}: approx_kl and clip_frac exactly 0 at the first minibatch of each of "
+          f"{len(first)} updates")
 
 
 def learner(launches, cfg, updates: int, computed=None, towers: bool = True,
@@ -1649,7 +1699,7 @@ def main_path(track, cfg, dev, card, label=""):
     dt = time.perf_counter() - t0
     launches = read_counts()
     expected = counts(NUM_ENVS, tiled=isinstance(track, trk.TiledPooledTracks),
-                      single_observe=STEPS + 1, single_transition=STEPS)
+                      single_observe=STEPS + 1, single_transition=STEPS, **policy(STEPS))
     if isinstance(track, trk.LAYOUTS):
         expected.update(single_observe_row_ids=STEPS + 1, single_transition_row_ids=STEPS)
     what = f"main path{label}"
@@ -1665,11 +1715,12 @@ def main_path(track, cfg, dev, card, label=""):
 
 
 @contextlib.contextmanager
-def minibatch_loops(updates: int, around=contextlib.nullcontext):
+def minibatch_loops(updates: int, around=contextlib.nullcontext, first=None):
     """Times the minibatch loop of each update run inside the block, so that an
     update's wall time splits into its rollout, GAE and permutations (before the
     loop) and the loop. Yields a list that gains ``(seconds, computed
-    minibatches)`` per update; each loop runs inside ``around()``. The loop is
+    minibatches)`` per update; each loop runs inside ``around()``; ``first`` (a
+    list) gains each update's first minibatch's (approx_kl, clip_frac). The loop is
     ``ppo.run_ppo_update``, which ``update_step`` calls through its module, so it
     is swapped there for the block; the block fails unless exactly ``updates``
     loops were timed."""
@@ -1683,6 +1734,8 @@ def minibatch_loops(updates: int, around=contextlib.nullcontext):
             out = run_update(*args, **kwargs)
             torch.cuda.synchronize()
         loops.append((time.perf_counter() - t, int(out[2]["computed"].sum())))
+        if first is not None:
+            first.append((float(out[2]["approx_kl"][0, 0]), float(out[2]["clip_frac"][0, 0])))
         return out
 
     ppo.run_ppo_update = timed
@@ -1727,7 +1780,7 @@ def training(track, env_cfg, card):
     print(f"train: median {statistics.median(wall) * 1e3:.1f} ms/update at {NUM_ENVS} x {STEPS} "
           f"on {card}; launches {launches}")
     n = STEPS * TRAIN_UPDATES
-    expected = counts(single_observe=n, single_transition=n,
+    expected = counts(single_observe=n, single_transition=n, **policy(n),
                       compute_gae=TRAIN_UPDATES, mixbits_permutation=TRAIN_UPDATES,
                       **learner(launches, cfg, TRAIN_UPDATES, [c for _, c in loops]))
     if launches != expected:
@@ -1761,7 +1814,8 @@ def entry_point(card):
           f"({len(params['actor'])} layers per tower, log_std {log_std.tolist()})")
     steps = 2 * cfg.num_steps
     expected = counts(cfg.num_envs, single_observe=steps + 1, single_transition=steps,
-                      compute_gae=2, mixbits_permutation=2, **learner(launches, cfg, 2))
+                      compute_gae=2, mixbits_permutation=2, **learner(launches, cfg, 2),
+                      **policy(steps))
     if launches != expected:
         raise AssertionError(f"train single launches {launches}, expected {expected}")
 
@@ -1797,8 +1851,8 @@ def selfplay_training(make_track, card, label=""):
     torch.cuda.synchronize()
     print(f"{what}: trainer built and warm-up update in {time.perf_counter() - t0:.1f} s")
     zero_counts()
-    wall, pools = [], []
-    with minibatch_loops(SP_TRAIN_UPDATES) as loops:
+    wall, pools, first = [], [], []
+    with minibatch_loops(SP_TRAIN_UPDATES, first=first) as loops:
         for _ in range(SP_TRAIN_UPDATES):
             t = time.perf_counter()
             trainer.train(num_updates=1, on_update=lambda tr, m: metrics.append(m))
@@ -1826,6 +1880,7 @@ def selfplay_training(make_track, card, label=""):
           f"(torch.cuda.max_memory_allocated {(peak + base) / 2**20:,.1f} MiB)")
     n = STEPS * SP_TRAIN_UPDATES
     expected = counts(cfg.num_envs, multi_observe=n, multi_transition=n,
+                      **policy(n, selfplay=True),
                       compute_gae=SP_TRAIN_UPDATES, mixbits_permutation=SP_TRAIN_UPDATES,
                       **learner(launches, cfg, SP_TRAIN_UPDATES, [c for _, c in loops]))
     if isinstance(track, trk.LAYOUTS):
@@ -1837,6 +1892,7 @@ def selfplay_training(make_track, card, label=""):
             raise AssertionError(f"{what}: non-finite metrics {m}")
     if pools != [1, 2, 3] or sum(m["_extra"][cfg.pool_size:].sum() for m in metrics[1:]) == 0:
         raise AssertionError(f"{what}: pool counts {pools} or no race against the pool")
+    first_minibatches_exact(first, what)
     return launches, seeded, peak
 
 
@@ -1875,7 +1931,8 @@ def selfplay_entry_points(card):
         # reset before each update
         sensed = steps + 1 + (2 if cfg.reset_envs_each_update else 0)
         expected = counts(cfg.num_envs, multi_observe=sensed, multi_transition=steps,
-                          compute_gae=2, mixbits_permutation=2, **learner(launches, cfg, 2))
+                          compute_gae=2, mixbits_permutation=2, **learner(launches, cfg, 2),
+                          **policy(steps, selfplay=True))
         print(f"train {mode}: {cfg.num_envs} envs x {cfg.num_steps} steps x 2 cars, 2 updates "
               f"in {dt:.1f} s on {card}; launches {launches}; saved policy loads "
               f"({params['actor'][0][0].shape[0]} inputs, log_std {log_std.tolist()})")
@@ -2012,7 +2069,8 @@ def resampled_entry_points(card):
             expected = counts(cfg.num_envs, multi_observe=steps + 2, multi_transition=steps,
                               multi_observe_row_ids=steps + 2,
                               multi_transition_row_ids=steps, compute_gae=2,
-                              mixbits_permutation=2, **learner(launches, cfg, 2))
+                              mixbits_permutation=2, **learner(launches, cfg, 2),
+                              **policy(steps, selfplay=True))
             print(f"train scale --resample-tracks-every 1 --pooled-geometry {layout}: "
                   f"{cfg.num_envs} envs x {cfg.num_steps} steps, 2 updates in {dt:.1f} s on "
                   f"{card}; pools by update {drawn}; the envs' geometry {type(track).__name__} "
@@ -2163,7 +2221,7 @@ def tournament_play(dev, card):
     pairs = [(i, j) for i in range(m) for j in range(m) if i != j]
     steps = [mt["steps"] for mt in matches]
     expected = counts(TOURNAMENT_ENVS, multi_observe=sum(steps) + len(pairs),
-                      multi_transition=sum(steps))
+                      multi_transition=sum(steps), pool_act=sum(steps))
     print(f"tournament: {m} models, {len(pairs)} matches of 40 envs (20 tracks x 2 runs, "
           f"seed 42, sampled, 3000 steps at most) in {dt:.1f} s on {card}; "
           f"{statistics.median(mt['s'] for mt in matches) * 1e3:.1f} ms a match (median; "
@@ -2269,13 +2327,14 @@ def recorders(dev, card):
         ("match", lambda gen: viz.record_trajectory_match(bundles, mcfg, track, gen),
          lambda gen: metrics.rollout_match(*tournament.stack_bundles(bundles, mcfg.obs_dim),
                                            mcfg, track, gen, deterministic=True),
-         3000, ("multi_observe", "multi_transition")),
+         3000, ("multi_observe", "multi_transition"), "pool_act"),
         ("single", lambda gen: viz.record_trajectory_single(params, log_std, scfg, track, gen),
          lambda gen: metrics.rollout_single(params, log_std, scfg, track, gen,
                                             deterministic=True),
-         2000, ("single_observe", "single_transition")),
+         2000, ("single_observe", "single_transition"), "policy_act"),
     ]
-    for label, record, rollout_fn, horizon, (sensing, stepping) in cases:
+    # the policy: one policy a seat in a match (kernel B's seat mode), kernel A alone
+    for label, record, rollout_fn, horizon, (sensing, stepping), acting in cases:
         zero_counts()
         t0 = time.perf_counter()
         traj = record(torch.Generator(device=dev).manual_seed(0))
@@ -2289,7 +2348,7 @@ def recorders(dev, card):
                 and traj["active"].all() and np.isfinite(traj["x"]).all()):
             raise AssertionError(f"record_trajectory_{label}: {len(traj['x'])} rows of "
                                  f"{traj['x'].shape}, the episode ran {n} steps")
-        if launches != counts(1, **{sensing: steps + 1, stepping: steps}):
+        if launches != counts(1, **{sensing: steps + 1, stepping: steps, acting: steps}):
             raise AssertionError(f"record_trajectory_{label} launches {launches}")
         print(f"record_trajectory_{label} on the held-out track (seed 123, width 7): {n} rows "
               f"{traj['x'].shape}, the episode's {n} steps, no row after the done step; final "
@@ -2347,6 +2406,7 @@ def dp_expected(cfg, updates: int, launches, towers: bool = True, group: bool = 
     n = cfg.num_steps * updates
     return counts(cfg.num_envs // cfg.data_shards, multi_observe=n, multi_transition=n,
                   multi_observe_row_ids=n, multi_transition_row_ids=n,
+                  **policy(n, selfplay=True, towers=towers),
                   compute_gae=updates, mixbits_permutation=updates,
                   **learner(launches, cfg, updates, towers=towers, group=group))
 
@@ -2874,7 +2934,9 @@ def adapter_selfplay(dev, card):
           f"{info['finished']}; spaces {spaces}; launches {launches}")
     if not done:
         raise AssertionError("SelfPlayWrapper: the episode did not end in 3000 steps")
-    expected = counts(1, multi_observe=steps + 1, multi_transition=steps)
+    # kernel A twice a step: the agent's greedy action and the opponent's sample
+    expected = counts(1, multi_observe=steps + 1, multi_transition=steps,
+                      policy_act=2 * steps)
     if launches != expected:
         raise AssertionError(f"SelfPlayWrapper launches {launches}, expected {expected}")
     return launches
@@ -2999,7 +3061,7 @@ def tp_expected(cfg, launches):
     n = cfg.num_steps
     return counts(cfg.num_envs, tiled=True, single_observe=n, single_transition=n,
                   single_observe_row_ids=n, single_transition_row_ids=n, compute_gae=1,
-                  mixbits_permutation=1,
+                  mixbits_permutation=1, **policy(n, towers=False),
                   **learner(launches, cfg, 1, towers=False))
 
 
@@ -3295,7 +3357,9 @@ def graph_run(kind, cfg, pool, layout, eager, card):
     walls, launches, labels = [], [], []
     n = GRAPH_UPDATES + 2
     sync_check = contextlib.nullcontext([0]) if eager else replays_without_sync()
-    with rollout_clock() as rollouts, minibatch_loops(n) as loops, sync_check as replays:
+    first = []
+    with rollout_clock() as rollouts, minibatch_loops(n, first=first) as loops, \
+            sync_check as replays:
         for u in range(n):
             label = "timed"
             if u == GRAPH_UPDATES:
@@ -3325,6 +3389,7 @@ def graph_run(kind, cfg, pool, layout, eager, card):
     state = [t.detach().cpu() for t in params + mu + nu] + [
         trainer.runner.obs.cpu(), trainer.runner.done.cpu()]
     nodes = None if graphs is None else minibatch_step_nodes(graphs.minibatch_graph)
+    first_minibatches_exact(first, f"phase k {kind} {'eager' if eager else 'graphed'}")
     return {"metrics": metrics, "walls": walls, "rollouts": rollouts, "loops": loops,
             "launches": launches, "labels": labels, "captures": captures, "warm": warm,
             "peak": peak, "base": base, "held": held, "replays": replays[0], "state": state,
@@ -3402,7 +3467,8 @@ def graph_against_eager(pool, card):
                                  else ("single_observe", "single_transition"))
             expected = counts(cfg.num_envs, tiled=where == "tiled",
                               **{sensing: STEPS, stepping: STEPS, "compute_gae": 1,
-                                 "mixbits_permutation": 1})
+                                 "mixbits_permutation": 1},
+                              **policy(STEPS, selfplay=kind == "self-play"))
             if where == "tiled":
                 expected.update({f"{sensing}_row_ids": STEPS, f"{stepping}_row_ids": STEPS})
             if any(c != {**expected, **learner(c, cfg, 1)}
@@ -5270,7 +5336,7 @@ def train_more_cars(card, cars: int = 3) -> None:
     # sensing: every step and the construction's reset
     expected = counts(cfg.num_envs, multi_observe=cfg.num_steps + 1,
                       multi_transition=cfg.num_steps, compute_gae=1, mixbits_permutation=1,
-                      **learner(launches, cfg, 1))
+                      **learner(launches, cfg, 1), **policy(cfg.num_steps, selfplay=True))
     w1 = params["actor"][0][0]
     print(f"phase p: train scale --agents {cars}: {cfg.num_envs} envs x {cfg.num_steps} "
           f"steps x {cars} cars, towers of {obs_dim} inputs, 1 update in {dt:.1f} s on "
@@ -5676,6 +5742,496 @@ def single_env_rollout(pool, dev, card):
     return nodes
 
 
+# ------------------------------------------ phase (q): the rollout step's policy
+
+# Kernel A (policy_act) and kernel B (pool_act) run their towers with the minibatch
+# forward's device code (csrc/mlp_tower.cuh): mu and v are held to the plain
+# composition (cuBLAS) within phase p's rule, max(MLP_REL_FLOOR x the tensor's scale,
+# MLP_CONTROL_FACTOR x the composition's own distance with the rows in two halves).
+# Everything after the towers is bitwise the composition applied to the kernels' own
+# mu, and kernel A's mu and v bitwise mlp_forward's on the same rows.
+POLICY_ROWS = (1, 64, 4096, 4097, 8192)
+POLICY_STEPS = 3         # a case's noise and buffer rows; the kernel writes row POLICY_T
+POLICY_T = 1
+POLICY_SENTINEL = 7.0    # what the buffers' other rows hold: the kernel leaves them
+POOL_MEMBERS = 5         # phase 10's pool
+# (envs, opponent seats) of kernel B's cases: phase 10's 4096 x 1 and its neighbours,
+# 3 cars and 8
+POOL_SHAPES = ((1, 1), (64, 1), (4096, 1), (4097, 1), (8192, 1), (2048, 2), (512, 7))
+POOL_MODES = ("per env", "one", "seat")
+# the towers of the bundles the paths run: single-car 15 inputs, self-play 19, 3 cars
+# 23, 8 cars 43, at (64, 64); phase j's (128, 128)
+POLICY_TOWERS = ((15, 64, 64), (19, 64, 64), (23, 64, 64), (43, 64, 64), (19, 128, 128))
+
+
+def policy_case(dims, n: int, seed: int, dev) -> dict:
+    """``mlp_case``'s towers and observations at ``dims`` and ``n`` rows on ``dev``,
+    with a normaliser (mean ~ N(0, 0.5), var ~ U(0.05, 2), feature 0's 1e-4 so that
+    its values pass the +-10 clamp), log_std [-0.4, -0.9], noise [POLICY_STEPS, n, 2]
+    ~ N(0, 1) and ``t`` = POLICY_T (int64 [1])."""
+    d, h1, h2 = dims
+    case = mlp_case(d, (h1, h2), n, seed)
+    rng = np.random.default_rng(seed + 7)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    var = rng.uniform(0.05, 2.0, d)
+    var[0] = 1e-4
+    return {"params": {tower: [tuple(f32(a) for a in layer) for layer in layers]
+                       for tower, layers in case["params"].items()},
+            "obs": f32(case["obs"]),
+            "norm": obsnorm.ObsNormState(f32(rng.normal(0.0, 0.5, d)), f32(var), None),
+            "log_std": f32([-0.4, -0.9]),
+            "noise": f32(rng.standard_normal((POLICY_STEPS, n, 2))),
+            "t": torch.full((1,), POLICY_T, dtype=torch.int64, device=dev)}
+
+
+def policy_buffers(n: int, d: int, dev) -> dict:
+    """The rollout's obs, actions, log-probs and values buffers, POLICY_SENTINEL."""
+    out = polops.rollout_buffers({}, POLICY_STEPS, torch.empty((n, d), device=dev))
+    for v in out.values():
+        v.fill_(POLICY_SENTINEL)
+    return out
+
+
+def halves(fn, x):
+    """``fn`` on the rows of ``x`` in two halves, concatenated: the control."""
+    h = x.shape[0] // 2
+    return torch.cat([fn(x[:h]), fn(x[h:])])
+
+
+def hold_towers(got, plain, control, what: str) -> list:
+    """``got`` (the kernels' mu, v) within phase p's rule of ``plain``; returns each
+    (error, bound)."""
+    errs, bounds = mlp_errors(got, plain), mlp_bounds(plain, control)
+    bad = [(e, b) for e, b in zip(errs, bounds) if not e <= b]
+    if bad:
+        raise AssertionError(f"phase q {what}: beyond the tolerance (error, bound): {bad}")
+    return list(zip(errs, bounds))
+
+
+def untouched(buf, what: str) -> None:
+    """The buffer's rows other than POLICY_T still hold POLICY_SENTINEL."""
+    others = torch.cat([buf[:POLICY_T], buf[POLICY_T + 1:]])
+    if not bool((others == POLICY_SENTINEL).all()):
+        raise AssertionError(f"phase q {what}: the kernel wrote outside row {POLICY_T}")
+
+
+def hold_policy_act(dims, n: int, dev, seed: int) -> list:
+    """Kernel A at ``dims`` and ``n`` rows, without and with the normaliser: its mu
+    (greedy, the actor alone; the same with the critic given) and v within phase p's
+    rule of the composition, and bitwise ``mlp_forward``'s on the rows it wrote; the
+    rollout mode's obs row bitwise ``obsnorm.apply``, its action and log-prob rows
+    bitwise the composition's sample and log-prob on the kernel's mu (and so its
+    returned action, ``sample_action``'s with and without a critic, the sampled
+    ``policy_action``'s), the other rows untouched, a second run bitwise; rows run
+    alone bitwise their rows in the batch; one launch a call. Returns each (error,
+    bound) of mu and v."""
+    c = policy_case(dims, n, seed, dev)
+    params, obs, norm, ls, noise, t = (c[k] for k in ("params", "obs", "norm", "log_std",
+                                                      "noise", "t"))
+    actor = {"actor": params["actor"]}
+    nt = noise[POLICY_T]
+    before, launches, held = read_counts()["policy_act"], 0, []
+    for nrm in (None, norm):
+        what = f"{dims} at {n} rows, {'with' if nrm else 'without'} the normaliser"
+        x = obs if nrm is None else obsnorm.apply(nrm, obs)
+        mu = polops.policy_action(actor, ls, obs, None, nrm)
+        mu_critic = polops.policy_action(params, ls, obs, None, nrm)
+        out, again = policy_buffers(n, dims[0], dev), policy_buffers(n, dims[0], dev)
+        act = polops.rollout_sample(params, ls, obs, noise, t, nrm, out)
+        polops.rollout_sample(params, ls, obs, noise, t, nrm, again)
+        a_s, lp_s, v_s = polops.sample_action(params, ls, x, nt)
+        a_n, lp_n, v_n = polops.sample_action(actor, ls, x, nt)
+        a_p = polops.policy_action(actor, ls, obs, nt, nrm)
+        greedy = polops.deterministic_action(params, x)
+        launches += 8
+        with torch.no_grad():
+            mu_f, v_f = mlpops.actor_critic_mlp(params, out["obs"][POLICY_T])
+        a_want = torch.clamp(mu + torch.exp(ls) * nt, -1.0, 1.0)
+        lp_want = net.normal_log_prob(a_want, mu, ls)
+        row = {k: out[k][POLICY_T] for k in out}
+        torch.cuda.synchronize()
+        checks = {
+            "the obs row is obsnorm.apply's": same_bits(row["obs"], x),
+            "mu with the critic given": same_bits(mu_critic, mu),
+            "mu is mlp_forward's": same_bits(mu, mu_f),
+            "v is mlp_forward's": same_bits(row["values"], v_f),
+            "the action row": same_bits(row["actions"], a_want),
+            "the returned action": same_bits(act, a_want),
+            "the log-prob row": same_bits(row["logprobs"], lp_want),
+            "sample_action": (same_bits(a_s, a_want) and same_bits(lp_s, lp_want)
+                              and same_bits(v_s, row["values"])),
+            "sample_action without a critic": (same_bits(a_n, a_want)
+                                               and same_bits(lp_n, lp_want) and v_n is None),
+            "the sampled policy_action": same_bits(a_p, a_want),
+            "deterministic_action": same_bits(greedy, mu),
+            "a second run": all(same_bits(out[k], again[k]) for k in out),
+        }
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"phase q policy_act {what}: not bitwise: {bad}")
+        for k in out:
+            untouched(out[k], f"policy_act {what} {k}")
+        with torch.no_grad():
+            plain = [net.actor_mu(params, x), net.critic_value(params, x)]
+            control = [halves(lambda r: net.actor_mu(params, r), x),
+                       halves(lambda r: net.critic_value(params, r), x)]
+        held += hold_towers([mu, row["values"]], plain, control, f"policy_act {what}")
+        for k in sorted({0, n // 2, n - 1}):
+            alone = policy_buffers(1, dims[0], dev)
+            polops.rollout_sample(params, ls, obs[k:k + 1], noise[:, k:k + 1].contiguous(), t,
+                                  nrm, alone)
+            launches += 1
+            torch.cuda.synchronize()
+            if not all(same_bits(alone[f][POLICY_T], out[f][POLICY_T][k:k + 1]) for f in out):
+                raise AssertionError(f"phase q policy_act {what}: row {k} alone differs from "
+                                     f"its row in the batch")
+    if read_counts()["policy_act"] - before != launches:
+        raise AssertionError(f"phase q policy_act {dims} at {n} rows: "
+                             f"{read_counts()['policy_act'] - before} launches, expected "
+                             f"{launches}")
+    return held
+
+
+def pool_case(dims, envs: int, seats: int, mode: str, seed: int, dev) -> dict:
+    """Kernel B's inputs: a pool of ``POOL_MEMBERS`` actor towers (``mlp_case``'s; a
+    member a seat in seat mode) stacked [P, in, out], log_std [P, 2] ~ U(-1.2, -0.2),
+    each member's normaliser as ``policy_case``'s, the env's observations [envs, 1 +
+    seats, D] (car 0 the learner's; in seat mode [envs, seats, D]), the noise and
+    uniforms [envs x seats, 2], the learner's actions [envs, 2], the members by
+    ``mode`` ("per env": an int32 [envs] index over the pool, "one": a 0-d index 3,
+    "seat": none) and ``use_policy`` (per env: [envs] bool, about 70% True; one:
+    0-d True)."""
+    d, h1, h2 = dims
+    members = seats if mode == "seat" else POOL_MEMBERS
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    towers = [mlp_case(d, (h1, h2), 0, seed + 1 + p)["params"]["actor"] for p in range(members)]
+    actor = [tuple(f32(np.stack([towers[p][i][j] for p in range(members)])) for j in range(2))
+             for i in range(3)]
+    var = rng.uniform(0.05, 2.0, (members, d))
+    var[:, 0] = 1e-4
+    rows = envs * seats
+    case = {"actor": actor, "log_std": f32(rng.uniform(-1.2, -0.2, (members, 2))),
+            "mean": f32(rng.normal(0.0, 0.5, (members, d))), "var": f32(var),
+            "obs_all": f32(rng.normal(size=(envs, seats + (mode != "seat"), d))),
+            "noise": f32(rng.standard_normal((rows, 2))), "uniforms": f32(rng.random((rows, 2))),
+            "first": f32(rng.uniform(-1, 1, (envs, 2))), "mode": mode}
+    if mode == "per env":
+        case["member"] = torch.tensor(rng.integers(0, members, envs), dtype=torch.int32,
+                                      device=dev)
+        case["use"] = torch.tensor(rng.random(envs) < 0.7, device=dev)
+    elif mode == "one":
+        case["member"] = torch.tensor(3, dtype=torch.int32, device=dev)
+        case["use"] = torch.tensor(True, device=dev)
+    else:
+        case["member"] = case["use"] = None
+    return case
+
+
+def pool_rows(case, envs: int, seats: int):
+    """The members and use_policy flags of the launch's rows (env-major), [rows]."""
+    dev = case["obs_all"].device
+    if case["mode"] == "seat":
+        return torch.arange(seats, device=dev).repeat(envs), None
+    member = case["member"].long().expand(envs).repeat_interleave(seats)
+    return member, case["use"].expand(envs).repeat_interleave(seats)
+
+
+def pool_plain_mu(case, obs, member_rows, normalize: bool):
+    """The composition's mu of each row under its member (``_pool_actor_mu`` over every
+    member, each on its normalised rows, then gathered), [rows, 2]."""
+    x = obs.reshape(-1, obs.shape[-1])
+    if normalize:
+        x = selfplay._normalized(case["mean"][:, None, :], case["var"][:, None, :], x)
+    mus = selfplay._pool_actor_mu({"actor": case["actor"]}, x)      # [P, rows, 2]
+    return mus[member_rows, torch.arange(mus.shape[1], device=x.device)]
+
+
+def hold_pool_act(dims, envs: int, seats: int, mode: str, dev, seed: int) -> list:
+    """Kernel B at ``dims``, ``envs`` x ``seats`` rows and the member ``mode``,
+    without and with the members' normalisers: its mu (greedy) within phase p's rule
+    of the composition; sampled, with the uniform actions and ``use_policy`` and the
+    learner's action as car 0 (not in seat mode), bitwise the composition on the
+    kernel's mu; the same through ``selfplay.opponent_actions`` (the flat rows) and
+    ``opponent_actions_all_seats`` (the env's draws), in seat mode through
+    ``metrics._seat_actions``; a second run bitwise; envs alone bitwise their rows in
+    the batch; one launch a call. Returns the (error, bound) of mu."""
+    c = pool_case(dims, envs, seats, mode, seed, dev)
+    seat = mode == "seat"
+    obs = c["obs_all"] if seat else c["obs_all"][:, 1:]
+    member_rows, use_rows = pool_rows(c, envs, seats)
+    low, high = selfplay._action_bounds(torch.float32, dev)
+    before, launches, held = read_counts()["pool_act"], 0, []
+    for normalize in (False, True):
+        what = (f"{dims}, {envs} envs x {seats} seats, {mode}, "
+                f"{'with' if normalize else 'without'} the normalisers")
+        mean, var = (c["mean"], c["var"]) if normalize else (None, None)
+        kw = {} if seat else dict(uniforms=c["uniforms"], use_policy=c["use"],
+                                  low=selfplay._ACTION_LOW, high=selfplay._ACTION_HIGH,
+                                  first=c["first"])
+        mu = polops.pool_act(c["actor"], c["log_std"], obs, None, c["member"], mean, var)
+        acts = polops.pool_act(c["actor"], c["log_std"], obs, c["noise"], c["member"], mean,
+                               var, **kw)
+        again = polops.pool_act(c["actor"], c["log_std"], obs, c["noise"], c["member"], mean,
+                                var, **kw)
+        launches += 3
+        mu_rows = mu.reshape(-1, 2)
+        want = torch.clamp(mu_rows + torch.exp(c["log_std"])[member_rows] * c["noise"], -1.0,
+                           1.0)
+        if seat:
+            got = acts.reshape(-1, 2)
+            routes = []
+            if normalize:  # the match loop's stacked seats always carry a normaliser
+                routes.append((metrics._seat_actions(
+                    {"actor": c["actor"]}, c["log_std"], obs,
+                    c["noise"].reshape(envs, seats, 2),
+                    obsnorm.ObsNormState(c["mean"], c["var"], None)), acts))
+                launches += 1
+        else:
+            rand = torch.maximum(low, c["uniforms"] * (high - low) + low)
+            want = torch.where(use_rows[:, None], want, rand)
+            got = acts[:, 1:].reshape(-1, 2)
+            opp = {"params": {"actor": c["actor"]}, "log_std": c["log_std"],
+                   "idx": c["member"], "use_policy": c["use"], "norm_mean": mean,
+                   "norm_var": var}
+            flat = dict(opp, idx=c["member"] if c["member"].ndim == 0 else
+                        c["member"].repeat_interleave(seats),
+                        use_policy=c["use"] if c["use"].ndim == 0 else use_rows)
+            flat_acts = selfplay.opponent_actions(None, flat, obs.reshape(-1, dims[0]),
+                                                  c["noise"], c["uniforms"])
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            state = gen.get_state()
+            all_seats = selfplay.opponent_actions_all_seats(None, opp, obs, gen,
+                                                            first=c["first"])
+            gen.set_state(state)
+            noise, uniforms = selfplay.opponent_randoms(gen, envs * seats, torch.float32, dev)
+            drawn = polops.pool_act(c["actor"], c["log_std"], obs, noise, c["member"], mean,
+                                    var, uniforms, c["use"], selfplay._ACTION_LOW,
+                                    selfplay._ACTION_HIGH, c["first"])
+            launches += 3
+            routes = [(flat_acts, got), (all_seats, drawn), (acts[:, 0], c["first"])]
+        torch.cuda.synchronize()
+        if not same_bits(got, want):
+            raise AssertionError(f"phase q pool_act {what}: not bitwise the composition on "
+                                 f"its mu")
+        if not (all(same_bits(a, b) for a, b in routes) and same_bits(acts, again)):
+            raise AssertionError(f"phase q pool_act {what}: its routes or a second run differ")
+        h = envs // 2
+        with torch.no_grad():
+            plain = pool_plain_mu(c, obs, member_rows, normalize)
+            control = torch.cat([pool_plain_mu(c, obs[:h], member_rows[:h * seats], normalize),
+                                 pool_plain_mu(c, obs[h:], member_rows[h * seats:], normalize)])
+        held += hold_towers([mu_rows], [plain], [control], f"pool_act {what}")
+        for e in sorted({0, envs // 2, envs - 1}):
+            one = lambda x: x if x is None or x.ndim == 0 else x[e:e + 1]
+            rows = slice(e * seats, (e + 1) * seats)
+            alone_kw = {} if seat else dict(kw, uniforms=c["uniforms"][rows],
+                                            use_policy=one(c["use"]), first=c["first"][e:e + 1])
+            alone = polops.pool_act(c["actor"], c["log_std"], obs[e:e + 1], c["noise"][rows],
+                                    one(c["member"]), mean, var, **alone_kw)
+            launches += 1
+            torch.cuda.synchronize()
+            if not same_bits(alone, acts[e:e + 1]):
+                raise AssertionError(f"phase q pool_act {what}: env {e} alone differs from "
+                                     f"its rows in the batch")
+    if read_counts()["pool_act"] - before != launches:
+        raise AssertionError(f"phase q pool_act {dims} {envs} x {seats} {mode}: "
+                             f"{read_counts()['pool_act'] - before} launches, expected "
+                             f"{launches}")
+    return held
+
+
+def policy_graphs(dev) -> None:
+    """Each kernel captured in a CUDA graph at the main path's shapes (19, 64, 64),
+    4096 rows with the normaliser, and replayed twice: bitwise its eager launch."""
+    c = policy_case((19, 64, 64), 4096, 41, dev)
+    p = pool_case((19, 64, 64), 4096, 1, "per env", 43, dev)
+    obs = p["obs_all"][:, 1:]
+    bufs = [policy_buffers(4096, 19, dev) for _ in range(2)]
+
+    def a(out):
+        return polops.rollout_sample(c["params"], c["log_std"], c["obs"], c["noise"], c["t"],
+                                     c["norm"], out)
+
+    def b():
+        return polops.pool_act(p["actor"], p["log_std"], obs, p["noise"], p["member"],
+                               p["mean"], p["var"], p["uniforms"], p["use"],
+                               selfplay._ACTION_LOW, selfplay._ACTION_HIGH, p["first"])
+
+    want_a, want_b = a(bufs[0]), b()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got_a, got_b = a(bufs[1]), b()
+    for i in range(2):
+        for v in bufs[1].values():
+            v.fill_(POLICY_SENTINEL)
+        got_a.zero_()
+        got_b.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        if not (same_bits(got_a, want_a) and same_bits(got_b, want_b)
+                and all(same_bits(bufs[0][k], bufs[1][k]) for k in bufs[0])):
+            raise AssertionError(f"phase q: graph replay {i + 1} differs from the eager launches")
+
+
+def policy_refusals(dev) -> None:
+    """What the kernels do not take raises before any launch: float64, non-contiguous
+    rows, other hidden widths, an index of another dtype, a noise of another shape."""
+    c = policy_case((19, 64, 64), 64, 51, dev)
+    p = pool_case((19, 64, 64), 64, 1, "per env", 53, dev)
+    obs, ls, noise = c["obs"], c["log_std"], c["noise"][POLICY_T]
+    narrow = {t: [(w[:, :32].contiguous() if w.ndim == 2 and w.shape[1] == 64 else w[:32]
+                   if w.ndim == 1 and w.shape[0] == 64 else w, b) for w, b in c["params"][t]]
+              for t in ("actor", "critic")}
+    cases = {
+        "float64 obs": lambda: polops.sample_action(c["params"], ls, obs.double(), noise),
+        "strided features": lambda: polops.deterministic_action(c["params"], obs[:, ::2]),
+        "other widths": lambda: polops.deterministic_action(narrow, obs),
+        "noise of another shape": lambda: polops.sample_action(c["params"], ls, obs, noise[:7]),
+        "a float index": lambda: polops.pool_act(p["actor"], p["log_std"], p["obs_all"][:, 1:],
+                                                 p["noise"], p["member"].float()),
+        "float64 pool": lambda: polops.pool_act([tuple(t.double() for t in l) for l in p["actor"]],
+                                                p["log_std"], p["obs_all"][:, 1:], p["noise"],
+                                                p["member"]),
+    }
+    before = read_counts()
+    refused = 0
+    for name, call in cases.items():
+        try:
+            call()
+        except (TypeError, ValueError):
+            refused += 1
+        else:
+            raise AssertionError(f"phase q: {name} was taken")
+    if read_counts() != before:
+        raise AssertionError("phase q: a refused call launched")
+
+
+def check_policy_kernels(dev, card) -> dict:
+    """Phase q: kernel A (``hold_policy_act``) at ``POLICY_TOWERS`` x ``POLICY_ROWS``,
+    kernel B (``hold_pool_act``) at its ``POOL_SHAPES`` in each of ``POOL_MODES`` on
+    (19, 64, 64), and every tower at 4096 x 1 per env; graphed against eager
+    (``policy_graphs``); the refusals. Returns each kernel's largest error and ratio."""
+    a, b = [], []
+    for i, dims in enumerate(POLICY_TOWERS):
+        for n in POLICY_ROWS:
+            a += hold_policy_act(dims, n, dev, seed=300 + 10 * i + n % 7)
+    for j, (envs, seats) in enumerate(POOL_SHAPES):
+        for mode in POOL_MODES:
+            b += hold_pool_act((19, 64, 64), envs, seats, mode, dev, seed=400 + 10 * j)
+    for i, dims in enumerate(POLICY_TOWERS):
+        for mode in POOL_MODES:
+            b += hold_pool_act(dims, 4096, 1, mode, dev, seed=480 + i)
+    policy_graphs(dev)
+    policy_refusals(dev)
+    out = {}
+    for name, held in (("policy_act", a), ("pool_act", b)):
+        out[name] = {"max_abs_err": max(e for e, _ in held),
+                     "ratio": max(e / bd if bd else 0.0 for e, bd in held)}
+    print(f"phase q policy_act: mu and v within max({MLP_REL_FLOOR:g} x scale, "
+          f"{MLP_CONTROL_FACTOR} x the two-halves control) of the composition at "
+          f"{POLICY_TOWERS} x {POLICY_ROWS} rows, without and with the normaliser (largest "
+          f"ratio {out['policy_act']['ratio']:.3f}, error "
+          f"{out['policy_act']['max_abs_err']:.3e}); mu and v bitwise mlp_forward's; the "
+          f"obs, action and log-prob rows bitwise the composition on its mu, the other rows "
+          f"untouched; sample_action with and without a critic, policy_action greedy and "
+          f"sampled, deterministic_action bitwise; two runs and rows alone bitwise, on {card}")
+    print(f"phase q pool_act: mu within the same rule at {POOL_SHAPES} (envs x opponent "
+          f"seats) x {POOL_MODES} on (19, 64, 64) and {POLICY_TOWERS} at 4096 x 1 (largest "
+          f"ratio {out['pool_act']['ratio']:.3f}, error {out['pool_act']['max_abs_err']:.3e}); "
+          f"the sample, the uniform actions, the mixed use_policy select and car 0 bitwise "
+          f"the composition on its mu, and through opponent_actions, "
+          f"opponent_actions_all_seats and _seat_actions; two runs and envs alone bitwise; "
+          f"both kernels graphed bitwise eager; float64, strided rows, other widths, a "
+          f"float index and a noise of another shape refused, on {card}")
+    return out
+
+
+def policy_bytes_ops(kind: str, n: int, dims, members: int = POOL_MEMBERS):
+    """(bytes, operations) that a call at ``n`` rows must move and do: each input read
+    once and each output written once; a row's multiply-adds (kernel A both towers,
+    kernel B one member's actor) as 3 TF32 products of 2 operations (3xTF32)."""
+    d, h1, h2 = dims
+    actor = d * h1 + h1 + h1 * h2 + h2 + 2 * h2 + 2
+    critic = d * h1 + h1 + h1 * h2 + h2 + h2 + 1
+    macs_actor = d * h1 + h1 * h2 + 2 * h2
+    if kind == "policy_act":
+        floats = (n * d + 2 * n + 2 * d + 2 + actor + critic       # obs, noise, norm, log_std
+                  + n * d + 2 * 2 * n + 2 * n)                    # obs row, actions, lp, v
+        ops = 6 * n * (macs_actor + d * h1 + h1 * h2 + h2)
+        return 4 * floats + 8, ops                                # t
+    floats = (n * d + 4 * n + members * (actor + 2 * d + 2)      # obs, noise, uniforms, pool
+              + 2 * n + 2 * 2 * n)                               # first; out (2 cars)
+    return 4 * floats + 4 * n + n, 6 * n * macs_actor             # index, use_policy
+
+
+def time_policy_kernels(dev, card, checked) -> list:
+    """The kernels line's entries for ``policy_act`` and ``pool_act`` at the self-play
+    main path's shapes ((19, 64, 64), 4096 rows with the normaliser; the pool of 5 per
+    env, one opponent seat, mixed use_policy): each eager (back to back, with the
+    wrapper's host work) and in a CUDA graph, beside the plain composition it replaces
+    eager and in a graph (kernel A: the normaliser's apply, the noise row's
+    index_select, ``sample_action_plain``, the four index_copy_; kernel B:
+    ``opponent_actions_plain`` on the repeated index and the cat), the bound and the
+    launch floor (a one-row reduce launch in a graph); also at single-car's 15
+    inputs."""
+    one, one_out = torch.zeros((1, 1), device=dev), torch.empty((1,), device=dev)
+    floor = graph_ms(lambda: _cuda.launch_mlp_grad_reduce(one, one_out))
+    cfg = dataclasses.replace(self_play_config(), normalize_obs=True)
+    entries, times = [], {}
+    for dims in ((19, 64, 64), (15, 64, 64)):
+        c = policy_case(dims, NUM_ENVS, 61, dev)
+        out, plain_out = policy_buffers(NUM_ENVS, dims[0], dev), policy_buffers(NUM_ENVS,
+                                                                                dims[0], dev)
+        a = lambda: polops.rollout_sample(c["params"], c["log_std"], c["obs"], c["noise"],
+                                          c["t"], c["norm"], out)
+
+        def a_plain():
+            _, rows = ppo.rollout_policy_plain(cfg, c["params"], c["log_std"], c["noise"],
+                                               c["obs"], c["t"], c["norm"])
+            for k, v in rows.items():
+                plain_out[k].index_copy_(0, c["t"], v[None])
+
+        p = pool_case(dims, NUM_ENVS, 1, "per env", 63, dev)
+        obs = p["obs_all"][:, 1:]
+        opp = {"params": {"actor": p["actor"]}, "log_std": p["log_std"],
+               "idx": p["member"].repeat_interleave(1), "use_policy": p["use"],
+               "norm_mean": p["mean"], "norm_var": p["var"]}
+        b = lambda: polops.pool_act(p["actor"], p["log_std"], obs, p["noise"], p["member"],
+                                    p["mean"], p["var"], p["uniforms"], p["use"],
+                                    selfplay._ACTION_LOW, selfplay._ACTION_HIGH, p["first"])
+
+        def b_plain():
+            acts = selfplay.opponent_actions_plain(None, opp, obs.reshape(NUM_ENVS, -1),
+                                                   p["noise"], p["uniforms"])
+            return torch.cat([p["first"][:, None], acts[:, None]], dim=1)
+
+        with torch.no_grad():
+            for name, fn, plain in (("policy_act", a, a_plain), ("pool_act", b, b_plain)):
+                nb, ops = policy_bytes_ops(name, NUM_ENVS, dims)
+                times[name, dims] = (per_launch_ms(fn), graph_ms(fn), per_launch_ms(plain),
+                                     graph_ms(plain), *bound_ms(nb, ops, PEAK_TF32_OPS_PER_S))
+    for name, replaces in (("policy_act", "self_play_racing_tpu/agent/ppo.py:362"),
+                           ("pool_act", "self_play_racing_tpu/envs/selfplay.py:53")):
+        ms, g, p_ms, p_g, bound, by = times[name, (19, 64, 64)]
+        s = times[name, (15, 64, 64)]
+        print(f"phase q {name} at {NUM_ENVS} rows (19, 64, 64), us: {ms * 1e3:.2f} eager, "
+              f"{g * 1e3:.2f} in a graph, bound {bound * 1e3:.3f} ({by}; 3xTF32 on the tensor "
+              f"cores), launch floor {floor * 1e3:.2f}; the composition it replaces "
+              f"{p_ms * 1e3:.1f} eager, {p_g * 1e3:.1f} in a graph; at 15 inputs "
+              f"{s[1] * 1e3:.2f} in a graph (the composition {s[3] * 1e3:.1f}), on {card}")
+        entries.append({
+            "name": name, "route": "cuda", "source": "self_play_racing_tpu_torch/csrc/policy.cu",
+            "replaces": replaces, "max_abs_err": checked[name]["max_abs_err"],
+            "max_err_over_bound": checked[name]["ratio"], "ms": ms, "graph_ms": g,
+            "plain_ms": p_ms, "plain_graph_ms": p_g, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "launch_floor_ms": floor,
+            "at": {"15 inputs": {"graph_ms": s[1], "plain_graph_ms": s[3],
+                                 "bound_ms": s[4]}}})
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5714,6 +6270,8 @@ def main() -> int:
     with timed("phase p (the minibatch step's MLP kernels against the plain composition)"):
         kernels += time_mlp_kernels(dev, card, check_mlp_kernels(dev, card))
         train_more_cars(card)
+    with timed("phase q (the rollout step's policy kernels against the plain composition)"):
+        kernels += time_policy_kernels(dev, card, check_policy_kernels(dev, card))
     with timed("phase o.1 and o.4 (the single-car env step's two launches against their "
                "plain versions)"):
         kernels += check_single_env_step(pool, dev, card)
@@ -5782,6 +6340,8 @@ def main() -> int:
                                   "car_step_and_query's block")
         else:
             k["launches"], k["launches_path"] = launches[k["name"]], "self-play training"
+            if k["name"] in ("policy_act", "pool_act"):
+                k["launches_single_car"] = per_kernel(single_car)[k["name"]]
     selfplay_entry_points(card)
     resampled_entry_points(card)
     checkpoints(track, dev)

@@ -7,11 +7,13 @@ for its rollout to be bitwise the one-process rollout's rows.
 
 At N = 4096 and k = 2, 4 and 8, on seeded float32 inputs: each GEMM layer of the
 learner's 19 -> 64 -> 64 -> {2, 1} MLP (``x @ w + b``), ``actor_mu``,
-``critic_value``, ``sample_action`` and the opponent pool's stacked actor
-(``envs/selfplay._pool_actor_mu``, 5 members), each called on the first N / k rows
-and held against the same rows of the call on all N. (The hand kernels stage one
-row a block, so their rows do not depend on N.) Prints one JSON object: the card,
-and per op and k whether the rows are bitwise equal and their max abs difference.
+``critic_value``, ``sample_action`` (on the card one launch of the rollout policy's
+kernel A, ``ops/policy.py``), the opponent pool's stacked actor
+(``envs/selfplay._pool_actor_mu``, 5 members) and, on the card, the pool's kernel B
+on a per-env index (``ops.policy.pool_act``), each called on the first N / k rows
+and held against the same rows of the call on all N. Prints one JSON object: the
+card, and per op and k whether the rows are bitwise equal and their max abs
+difference.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from self_play_racing_tpu_torch._device import resolve_device  # noqa: E402
 from self_play_racing_tpu_torch.envs import selfplay as sp  # noqa: E402
 from self_play_racing_tpu_torch.models import actor_critic as net  # noqa: E402
+from self_play_racing_tpu_torch.ops import policy as polops  # noqa: E402
 
 N = 4096
 SPLITS = (2, 4, 8)
@@ -58,6 +61,11 @@ def ops(dev):
             params, log_std, obs[:r], noise[:r])], dim=1),
         "pool actor (5 members)": lambda r: sp._pool_actor_mu(pool, obs[:r]).transpose(0, 1),
     }
+    if dev.type == "cuda":  # kernel B, on the card only
+        member = torch.randint(0, POOL, (N,), generator=g, device=dev)
+        pool_std = log_std.expand(POOL, 2).contiguous()
+        out["pool_act (5 members, per env)"] = lambda r: polops.pool_act(
+            pool["actor"], pool_std, obs[:r, None], noise[:r], member[:r])[:, 0]
     return out
 
 

@@ -36,7 +36,9 @@ and its rollout/minibatch split, one update under the profiler for its device
 time and idle share and the kernels that take the most of it (graphed unless
 ``--eager``), then ``--steps`` steps of the eager self-play rollout (opponents,
 transition, autoreset, refresh: ``ppo.rollout_phase``) alone, unprofiled for the
-wall time and under the profiler for the device time, reported per env step.
+wall time and under the profiler for the device time, reported per env step and
+by group (``rollout_groups``, with the pool's ``opponents``:
+``selfplay.opponent_actions_all_seats``, its draws and kernel B).
 Graphed, it also reports the captured rollout step itself: the kernel and copy
 nodes of one replay and the device ms a step over ``num_steps`` replays.
 
@@ -52,8 +54,9 @@ With ``--update`` it also reports the single-car rollout step: the trainer's
 captured rollout step (``graphed_rollout_step``, where the checkout graphs it), the
 eager rollout (``ppo.rollout_phase``, ``--steps`` steps) by the code that issues
 each launch (``rollout_groups``: the env's transition and observe, the autoreset
-around them in ``vector.step``, the action sampling, the observation normaliser and
-the buffers' writes in the rest of ``rollout_step``), as launches and device us a
+around them in ``vector.step``, the action sampling (kernel A, which also writes
+the policy's buffer rows, where the checkout has it), the observation normaliser
+and the buffers' writes in the rest of ``rollout_step``), as launches and device us a
 step, and the graphed 40 x 5 single-car evaluation (``eval_step``: chip_smoke.py
 phase l's, ``models/single_agent.npz``, sampled, seed 42) as ms a step between CUDA
 events and launches a step.
@@ -90,6 +93,7 @@ from self_play_racing_tpu_torch.configs import base_config, self_play_config  # 
 from self_play_racing_tpu_torch import evaluate  # noqa: E402
 from self_play_racing_tpu_torch.envs import multi as menv  # noqa: E402
 from self_play_racing_tpu_torch.envs import normalize as obsnorm  # noqa: E402
+from self_play_racing_tpu_torch.envs import selfplay  # noqa: E402
 from self_play_racing_tpu_torch.envs import single as senv  # noqa: E402
 from self_play_racing_tpu_torch.envs import track as trk  # noqa: E402
 from self_play_racing_tpu_torch.envs import vector  # noqa: E402
@@ -254,9 +258,11 @@ def minibatch_groups(prof) -> dict | None:
 ROLLOUT_GROUPS = (
     ("rollout.step", [(ppo, "rollout_step")]),
     ("autoreset", [(vector, "step")]),
-    ("env transition", [(senv, "transition")]),
-    ("env observe", [(senv, "observe")]),
-    ("sampling", [(net, "sample_action")]),
+    ("env transition", [(senv, "transition"), (menv, "transition")]),
+    ("env observe", [(senv, "observe"), (menv, "observe")]),
+    ("opponents", [(selfplay, "opponent_actions_all_seats")]),
+    ("sampling", [(net, "sample_action"), (ppo, "rollout_policy_plain"),
+                  ("self_play_racing_tpu_torch.ops.policy", "rollout_sample")]),
     ("normaliser", [(obsnorm, "update"), (obsnorm, "apply")]),
 )
 
@@ -265,7 +271,10 @@ ROLLOUT_GROUPS = (
 # around them, go to their group by the kernel's name
 HAND_KERNELS = {"single_transition_kernel": "env transition",
                 "single_transition_rows_kernel": "env transition",
+                "multi_transition_kernel": "env transition",
                 "car_step_and_query_kernel": "env transition",
+                "policy_act_kernel": "sampling",
+                "pool_act_kernel": "opponents",
                 "multi_observe_kernel": "env observe",
                 "raycast_walls_and_cars_kernel": "env observe",
                 "raycast_walls_kernel": "env observe"}
@@ -470,7 +479,7 @@ def profile_selfplay(args, dev) -> dict:
     t0 = time.perf_counter()
     rollout()
     step_wall = (time.perf_counter() - t0) / args.steps
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=activities) as prof, annotated(ROLLOUT_GROUPS):
         rollout()
     per_kernel = _device_kernels(prof)
     busy_us = sum(t for t, _ in per_kernel.values())
@@ -505,6 +514,7 @@ def profile_selfplay(args, dev) -> dict:
         "kernel_launches_per_step": sum(c for _, c in per_kernel.values()) / steps,
         "top_kernels": [{"name": name[:90], "ms_per_step": t / 1e3 / steps,
                          "launches_per_step": c / steps} for name, (t, c) in top],
+        "rollout_groups": rollout_groups(prof, steps),
     }
 
 
@@ -573,6 +583,7 @@ def profile_match(args, dev) -> dict:
         "kernel_launches_per_step": sum(c for _, c in per_kernel.values()) / steps,
         "top_kernels": [{"name": name[:90], "ms_per_step": t / 1e3 / steps,
                          "launches_per_step": c / steps} for name, (t, c) in top],
+        "rollout_groups": rollout_groups(prof, steps),
     }
 
 

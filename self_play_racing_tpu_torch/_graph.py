@@ -47,8 +47,8 @@ WARMUP_RUNS = 3
 
 def _counter_modules():
     from .envs import multi, single
-    from .ops import dynamics, gae, geometry, minibatch, mlp, prng
-    return (geometry, dynamics, gae, prng, multi, single, minibatch, mlp)
+    from .ops import dynamics, gae, geometry, minibatch, mlp, policy, prng
+    return (geometry, dynamics, gae, prng, multi, single, minibatch, mlp, policy)
 
 
 def launch_counts() -> dict:

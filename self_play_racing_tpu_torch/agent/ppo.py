@@ -80,6 +80,7 @@ from ..envs import vector
 from ..models import actor_critic as net
 from ..ops import minibatch as mbops
 from ..ops import mlp as mlpops
+from ..ops import policy as polops
 from ..ops.gae import compute_gae
 from ..ops.minibatch import (ADAM_B1, ADAM_B2, adam_update,  # noqa: F401
                              apply_updates, clip_by_global_norm)
@@ -635,7 +636,10 @@ def rollout_step(cfg: PPOConfig, hooks: EnvHooks, aux, params, log_std, noise,
     """One vector env step under the current policy, JAX's ``one_step``: the
     normalizer update, ``sample_action`` on ``noise[t]`` ([T, N, A], N this rank's
     envs; with a ``mesh`` the normalizer merges every rank's observations),
-    ``vector.step`` with the hooks. Writes row ``t`` of the [T, N, ...] buffers in
+    ``vector.step`` with the hooks. On the card with whole towers the policy is one
+    launch (``ops.policy.rollout_sample``: the normalizer's apply, both towers, the
+    sample and its log-prob, and the obs, actions, logprobs and values rows written
+    in place); on the CPU and a tensor-parallel rank ``rollout_policy_plain``. Writes row ``t`` of the [T, N, ...] buffers in
     ``out`` (made at the first call): obs, actions, logprobs, values, reward
     (float32), done_entering, and the episode records' ep_return, ep_length and
     ep_mask; adds ``hooks.stats`` into ``out["extra"]``. Returns the next carry.
@@ -644,11 +648,14 @@ def rollout_step(cfg: PPOConfig, hooks: EnvHooks, aux, params, log_std, noise,
     t, norm = carry.t, carry.norm
     if cfg.normalize_obs:
         norm = obsnorm.update(norm, carry.obs, mesh)
-        policy_obs = obsnorm.apply(norm, carry.obs)
+    if polops.whole_towers(params, carry.obs):
+        # one launch: the normaliser, both towers, the sample and its log-prob, row t
+        # of the obs, actions, log-probs and values buffers written in place
+        action = polops.rollout_sample(params, log_std, carry.obs, noise, t,
+                                       norm if cfg.normalize_obs else None, out)
+        rows = {}
     else:
-        policy_obs = carry.obs
-    action, logprob, value = net.sample_action(params, log_std, policy_obs,
-                                               noise.index_select(0, t)[0])
+        action, rows = rollout_policy_plain(cfg, params, log_std, noise, carry.obs, t, norm)
     vec, next_obs, reward, next_done, _, _, info, rec = vector.step(
         carry.vec, action,
         lambda s, a, g: hooks.transition(aux, s, a, g),
@@ -658,13 +665,12 @@ def rollout_step(cfg: PPOConfig, hooks: EnvHooks, aux, params, log_std, noise,
                     else (lambda s: hooks.refresh(aux, s))),
         info_fn=(None if hooks.info is None else (lambda s: hooks.info(aux, s))),
     )
-    rows = {
-        "obs": policy_obs, "actions": action, "logprobs": logprob, "values": value,
+    rows.update({
         "reward": reward.to(torch.float32), "done_entering": carry.done,
         "ep_return": torch.where(rec["mask"], rec["return"], 0.0),
         "ep_length": torch.where(rec["mask"], rec["length"], 0),
         "ep_mask": rec["mask"],
-    }
+    })
     for k, v in rows.items():
         if k not in out:
             out[k] = v.new_empty((noise.shape[0],) + v.shape)
@@ -676,6 +682,17 @@ def rollout_step(cfg: PPOConfig, hooks: EnvHooks, aux, params, log_std, noise,
         out["extra"].add_(st)
     return RolloutCarry(vec=vec, obs=next_obs.to(torch.float32), done=next_done,
                         norm=norm, t=t + 1)
+
+
+def rollout_policy_plain(cfg: PPOConfig, params, log_std, noise, obs, t, norm):
+    """Plain PyTorch policy of ``rollout_step``: the normaliser's ``apply``,
+    ``net.sample_action_plain`` on ``noise[t]``. Returns the action and the rows the
+    step writes at ``t`` (obs, actions, logprobs, values)."""
+    policy_obs = obsnorm.apply(norm, obs) if cfg.normalize_obs else obs
+    action, logprob, value = net.sample_action_plain(params, log_std, policy_obs,
+                                                     noise.index_select(0, t)[0])
+    return action, {"obs": policy_obs, "actions": action, "logprobs": logprob,
+                    "values": value}
 
 
 def _rollout_outputs(carry: RolloutCarry, out: dict):
@@ -894,7 +911,9 @@ def make_update_step(cfg: PPOConfig, hooks: EnvHooks, action_dim: int = 2, mesh=
             noise = net.sample_noise((cfg.num_steps, cfg.num_envs, action_dim), gen,
                                      dtype=dtype, device=dev)
         if mesh is not None:
-            noise = shard_rows(noise, mesh.shard, dim=1)
+            # this rank's envs' columns, made contiguous: the rollout's policy kernel
+            # reads noise row t as one [N, A] block
+            noise = shard_rows(noise, mesh.shard, dim=1).contiguous()
         if graphed:
             vec, next_obs, next_done, norm, traj, sstats = graphs.rollout_phase(
                 cfg, hooks, runner, aux, log_std, noise, mesh)

@@ -47,6 +47,8 @@
 // (PERF.md section 6).
 #include <cuda_runtime.h>
 
+#include "normal_lp.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -117,7 +119,7 @@ __device__ __forceinline__ Inputs load_row(const HeadArgs& a, long long r) {
     x.val = a.val[s];
     // var = exp(2.0 * log_std), den = 2.0 * var
 #pragma unroll
-    for (int j = 0; j < 2; ++j) x.den[j] = 2.0f * expf(2.0f * x.ls[j]);
+    for (int j = 0; j < 2; ++j) x.den[j] = normal_lp::denominator(x.ls[j]);
     x.std_eps = __fadd_rn(x.std_eps, a.adv_eps);
     return x;
 }
@@ -135,12 +137,11 @@ __device__ __forceinline__ Row head_row(const HeadArgs& a, const Inputs& x) {
     float lp2[2];
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-        // -((action - mu) ** 2) / (2.0 * var) - log_std - c
+        // -((action - mu) ** 2) / (2.0 * var) - log_std - c (normal_lp.cuh)
         r.d[j] = __fsub_rn(x.act[j], x.mu[j]);
-        const float q = __fdiv_rn(-__fmul_rn(r.d[j], r.d[j]), x.den[j]);
-        lp2[j] = __fsub_rn(__fsub_rn(q, x.ls[j]), a.half_log_2pi);
+        lp2[j] = normal_lp::term(r.d[j], x.den[j], x.ls[j], a.half_log_2pi);
     }
-    const float lp = __fadd_rn(__fadd_rn(lp2[0], lp2[1]), 0.0f);
+    const float lp = normal_lp::sum2(lp2[0], lp2[1]);
     const float log_ratio = __fsub_rn(lp, x.old_lp);
     r.ratio = expf(log_ratio);
     r.neg_log_ratio = -log_ratio;

@@ -31,6 +31,8 @@ import functools
 import torch
 
 from .._tree import shard_rows
+from ..ops import policy as polops
+from ..ops.geometry import _on_cuda
 from . import multi
 from . import normalize as obsnorm
 from .track import Track
@@ -82,12 +84,31 @@ def _action_bounds(dtype, device):
             torch.tensor(_ACTION_HIGH, dtype=dtype, device=device))
 
 
+def _pool_kernel(opp, obs, noise, uniforms, member, use_policy, first=None):
+    """The pool's actions from ``ops.policy.pool_act`` (kernel B): ``obs`` [envs,
+    seats, D], ``member`` and ``use_policy`` [envs] or 0-d."""
+    return polops.pool_act(opp["params"]["actor"], opp["log_std"], obs, noise, member,
+                           opp.get("norm_mean"), opp.get("norm_var"), uniforms, use_policy,
+                           _ACTION_LOW, _ACTION_HIGH, first)
+
+
 def opponent_actions(cfg: multi.MultiRacingConfig, opp, opp_obs, noise, uniforms):
     """Frozen-opponent actions [N, 2] for one batch of opponent cars.
 
     ``opp_obs`` [N, obs_dim] (previous-step observations); ``noise`` and
     ``uniforms`` [N, 2] (``opponent_randoms``). A 0-d ``opp["idx"]`` runs that one
-    member; an [N] index runs every member on the shared noise and gathers."""
+    member; an [N] index runs every member on the shared noise and gathers. On the
+    card one launch of kernel B (``ops.policy.pool_act``), on the CPU
+    ``opponent_actions_plain``."""
+    if not _on_cuda(opp_obs, "opponent_actions"):
+        return opponent_actions_plain(cfg, opp, opp_obs, noise, uniforms)
+    return _pool_kernel(opp, opp_obs[:, None], noise, uniforms, opp["idx"],
+                        opp["use_policy"])[:, 0]
+
+
+def opponent_actions_plain(cfg: multi.MultiRacingConfig, opp, opp_obs, noise, uniforms):
+    """Plain PyTorch ``opponent_actions``: the pool's batched GEMMs (every member on
+    an [N] index, then the gather), the sample, the uniform action and the select."""
     idx = torch.as_tensor(opp["idx"], device=opp_obs.device)
     normalize = opp.get("norm_mean") is not None
     if idx.ndim == 0:
@@ -117,35 +138,43 @@ def opponent_actions(cfg: multi.MultiRacingConfig, opp, opp_obs, noise, uniforms
 
 
 def opponent_actions_all_seats(cfg: multi.MultiRacingConfig, opp, obs_seats, generator,
-                               shard=None):
+                               shard=None, first=None):
     """Frozen-opponent actions [N, seats, 2] for all opponent seats in one batch.
 
     ``obs_seats`` [N, seats, obs_dim]. Each env's opponent drives all of its seats,
     so the seat axis folds into the batch env-major ((env 0, seat 1), (env 0,
     seat 2), ...). The noise and uniforms come from ``opponent_randoms``; with
     ``shard`` = (rank, world) they are this rank's rows of the draw for all
-    ``world`` ranks' envs (a data-parallel run)."""
+    ``world`` ranks' envs (a data-parallel run). With ``first`` [N, 2] (the
+    learner's actions) the multi env's whole action [N, 1 + seats, 2], ``first`` as
+    car 0. On the card one launch of kernel B (``ops.policy.pool_act``, which reads
+    the seats where ``obs_seats`` views them and writes car 0 itself), on the CPU
+    ``opponent_actions_plain`` and a cat."""
     n, seats, d = obs_seats.shape
-    flat_opp = dict(opp)
-    for field in ("idx", "use_policy"):
-        v = torch.as_tensor(opp[field], device=obs_seats.device)
-        if v.ndim != 0:
-            flat_opp[field] = v.repeat_interleave(seats)
     dtype = opp["params"]["actor"][0][0].dtype
     if shard is None:
         noise, uniforms = opponent_randoms(generator, n * seats, dtype, obs_seats.device)
     else:
         noise, uniforms = (shard_rows(r, shard) for r in opponent_randoms(
             generator, n * seats * shard[1], dtype, obs_seats.device))
-    acts = opponent_actions(cfg, flat_opp, obs_seats.reshape(n * seats, d), noise,
-                            uniforms)
-    return acts.reshape(n, seats, 2)
+    if _on_cuda(obs_seats, "opponent_actions_all_seats"):
+        return _pool_kernel(opp, obs_seats, noise, uniforms, opp["idx"], opp["use_policy"],
+                            None if first is None else first.to(torch.float32))
+    flat_opp = dict(opp)
+    for field in ("idx", "use_policy"):
+        v = torch.as_tensor(opp[field], device=obs_seats.device)
+        if v.ndim != 0:
+            flat_opp[field] = v.repeat_interleave(seats)
+    acts = opponent_actions_plain(cfg, flat_opp, obs_seats.reshape(n * seats, d), noise,
+                                  uniforms).reshape(n, seats, 2)
+    if first is None:
+        return acts
+    return torch.cat([first.to(torch.float32)[:, None].to(acts.dtype), acts], dim=1)
 
 
 def _step_inner(cfg, track, opp, state, action0, generator, shard=None):
-    opp_acts = opponent_actions_all_seats(cfg, opp, state.obs_all[:, 1:], generator, shard)
-    actions = torch.cat([action0.to(torch.float32)[:, None].to(opp_acts.dtype), opp_acts],
-                        dim=1)                                        # [N, A, 2]
+    actions = opponent_actions_all_seats(cfg, opp, state.obs_all[:, 1:], generator, shard,
+                                         first=action0)               # [N, A, 2]
     return multi.transition(cfg, track, state.inner, actions)
 
 

@@ -159,9 +159,29 @@ def sample_noise(shape, generator: torch.Generator, dtype=torch.float32, device=
     return torch.randn(shape, generator=generator, dtype=dtype, device=device)
 
 
+def _kernels(params, obs) -> bool:
+    """Whether the policy kernels (``ops/policy.py``) take ``params`` on ``obs``: a
+    CUDA tensor and whole towers; the CPU and a tensor-parallel rank's slices take
+    the plain versions."""
+    from ..ops import policy as polops  # the kernels' module imports this one
+
+    return polops.whole_towers(params, obs)
+
+
 def sample_action(params, log_std, obs, noise):
     """(action, log_prob, value): ``mu + exp(log_std) * noise`` clamped to [-1, 1],
-    and the log-prob of the clamped action."""
+    and the log-prob of the clamped action. On the card with whole towers one launch
+    of ``ops/policy.py``'s kernel A (value None for a bundle without a critic), else
+    ``sample_action_plain``."""
+    if _kernels(params, obs):
+        from ..ops import policy as polops
+
+        return polops.sample_action(params, log_std, obs, noise)
+    return sample_action_plain(params, log_std, obs, noise)
+
+
+def sample_action_plain(params, log_std, obs, noise):
+    """Plain PyTorch ``sample_action``: cuBLAS GEMMs and the elementwise chain."""
     mu = actor_mu(params, obs)
     action = torch.clamp(mu + torch.exp(log_std) * noise, -1.0, 1.0)
     return action, normal_log_prob(action, mu, log_std), critic_value(params, obs)
@@ -176,7 +196,18 @@ def evaluate_action(params, log_std, obs, action):
 
 
 def deterministic_action(params, obs):
-    """Greedy action = tanh-bounded mu."""
+    """Greedy action = tanh-bounded mu: on the card with whole towers one launch of
+    ``ops/policy.py``'s kernel A (the actor alone), else
+    ``deterministic_action_plain``."""
+    if _kernels(params, obs):
+        from ..ops import policy as polops
+
+        return polops.deterministic_action(params, obs)
+    return deterministic_action_plain(params, obs)
+
+
+def deterministic_action_plain(params, obs):
+    """Plain PyTorch ``deterministic_action``: ``actor_mu``."""
     return actor_mu(params, obs)
 
 

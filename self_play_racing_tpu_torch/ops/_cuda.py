@@ -30,7 +30,8 @@ SOURCES = ("raycast_walls.cu", "progress_collision.cu", "raycast_cars.cu",
            "rectangles_intersect.cu", "car_update.cu", "gae.cu",
            "mixbits_permutation.cu", "raycast_walls_and_cars.cu",
            "car_step_and_query.cu", "multi_observe.cu", "multi_transition.cu",
-           "ppo_head.cu", "adam_tail.cu", "single_transition.cu", "mlp_towers.cu")
+           "ppo_head.cu", "adam_tail.cu", "single_transition.cu", "mlp_towers.cu",
+           "policy.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # PyTorch's eager ops never contract a*b+c into an FMA; neither may the kernels
@@ -71,6 +72,10 @@ _SIGNATURES = {
     "mlp_partial_rows": [_L],
     "mlp_blocks_per_sm": [_I, _I, _I, _I],
     "mlp_launch_plan": [_I, _I, _I, _P],
+    "policy_act_f32": [_P, _I, _L, _L, _L, _I, _I, _I, _P, _I, _I, _P],
+    "pool_act_f32": [_P, _I, _L, _L, _L, _L, _L] + [_I] * 7 + [_P, _I, _I, _P],
+    "policy_shared_bytes": [_I] * 4,
+    "policy_rows_per_block": [_I],
 }
 
 _lock = threading.Lock()
@@ -1006,3 +1011,67 @@ def _launch_reduce_norm(partial, out, norm) -> None:
     block_sq = torch.empty((mlp_grad_norm_blocks(params),), dtype=torch.float32, device=dev)
     _call("mlp_towers", "mlp_grad_reduce_norm_f32", dev, _ptr(partial), _ptr(out),
           _ptr(norm), _ptr(block_sq), _ptr(grad_norm_ticket(dev)), partial.shape[0], params)
+
+
+# the rollout step's policy (csrc/policy.cu): policy_act's rows a block (two warps a
+# tower, 16 rows each) and pool_act's (a member's tower, four warps of 16 rows), their
+# pointer counts, and the observation normaliser's constants (envs/normalize.py:apply)
+POLICY_ACT_ROWS = 32
+POOL_ACT_ROWS = 64
+POLICY_ACT_PTRS = 23
+POOL_ACT_PTRS = 16
+POOL_SEAT, POOL_PER_ENV, POOL_ONE = 0, 1, 2
+
+
+def policy_shared_bytes(pool: bool, obs_dim: int, h1: int, h2: int) -> int:
+    """The shared bytes a block of ``policy_act_f32`` (``pool`` False: both towers and
+    a tile of ``POLICY_ACT_ROWS`` observations) or ``pool_act_f32`` (True: one actor
+    tower and ``POOL_ACT_ROWS``) takes at towers obs_dim -> h1 -> h2, as
+    ``csrc/mlp_tower.cuh:Layout`` lays them out (the kernel's own
+    ``policy_shared_bytes``, held equal to this in chip_smoke.py phase q); 0 where
+    the kernels do not take them (widths not in ``MLP_HIDDEN``, over a block's
+    memory)."""
+    if (h1, h2) not in MLP_HIDDEN or obs_dim < 1:
+        return 0
+    dk, xs = _round_up(obs_dim, 8), _round_up(obs_dim, 16) + 8
+    tower = _round_up(dk * h1 + h1 + h1 * h2 + h2 + 2 * h2 + 2, 4)
+    floats = tower + POOL_ACT_ROWS * xs if pool else 2 * tower + POLICY_ACT_ROWS * xs
+    return 4 * floats if 4 * floats <= BLOCK_SMEM_LIMIT else 0
+
+
+@functools.lru_cache(maxsize=None)
+def _policy_lib():
+    lib = build()["policy"]
+    got = (lib.policy_rows_per_block(0), lib.policy_rows_per_block(1))
+    if got != (POLICY_ACT_ROWS, POOL_ACT_ROWS):
+        raise RuntimeError(f"csrc/policy.cu takes {got} rows a block; ops/_cuda.py "
+                           f"{(POLICY_ACT_ROWS, POOL_ACT_ROWS)}")
+    return lib
+
+
+def launch_policy_act(ptrs, n: int, steps: int, stride: int, dims, consts) -> None:
+    """Launch ``policy_act_f32`` on the current stream of the observations' device:
+    ``ptrs`` the ``POLICY_ACT_PTRS`` tensors (or None) in the kernel's order (obs, t,
+    noise, mean, var, log_std, the 12 tower tensors, action, obs_rows, action_rows,
+    logprob_rows, value_rows), ``n`` rows of obs at a row stride of ``stride``
+    floats, ``steps`` the buffers' rows, ``dims`` = (D, h1, h2), ``consts`` (eps,
+    clip, 0.5 log 2 pi)."""
+    _policy_lib()
+    _call("policy", "policy_act_f32", ptrs[0].device, _ptr_array(ptrs), POLICY_ACT_PTRS,
+          n, steps, stride, *dims, _float_array(consts), len(consts))
+
+
+def launch_pool_act(ptrs, rows: int, seats: int, cars: int, off: int, env_stride: int,
+                    members: int, kind: int, member64: bool, use_per_env: bool, dims,
+                    consts) -> None:
+    """Launch ``pool_act_f32`` on the current stream of the observations' device:
+    ``ptrs`` the ``POOL_ACT_PTRS`` tensors (or None) in the kernel's order (obs, the
+    6 stacked actor tensors, log_std, mean, var, member, noise, uniforms, use_policy,
+    first, out); ``rows`` env-major, seat r % seats of env r / seats, read at an env
+    stride of ``env_stride`` floats and written to car ``off`` + r % seats of out
+    [envs, cars, 2]; ``kind`` one of ``POOL_SEAT``, ``POOL_PER_ENV``, ``POOL_ONE``;
+    ``dims`` = (D, h1, h2); ``consts`` (eps, clip, low0, low1, high0, high1)."""
+    _policy_lib()
+    _call("policy", "pool_act_f32", ptrs[0].device, _ptr_array(ptrs), POOL_ACT_PTRS, rows,
+          seats, cars, off, env_stride, members, kind, int(member64), int(use_per_env),
+          *dims, _float_array(consts), len(consts))

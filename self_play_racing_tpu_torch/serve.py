@@ -18,6 +18,7 @@ from ._device import resolve_device
 from .envs import normalize as obsnorm
 from .evaluate import load_policy_bundle
 from .models import actor_critic as net
+from .ops import policy as polops
 
 
 class Policy:
@@ -43,18 +44,19 @@ class Policy:
 
     @torch.no_grad()
     def act(self, obs) -> np.ndarray:
-        """obs: [batch, obs_dim] (or [obs_dim]) -> actions in [-1, 1]."""
-        x = self._input(obs)
+        """obs: [batch, obs_dim] (or [obs_dim]) -> actions in [-1, 1]: the
+        normaliser and the actor in one launch on the card
+        (``ops.policy.policy_action``)."""
+        x = torch.as_tensor(np.asarray(obs, np.float32), device=self.device)
         squeeze = x.ndim == 1
         if squeeze:
             x = x[None]
-        if self.deterministic:
-            a = net.deterministic_action(self.params, x)
-        else:
+        noise = None
+        if not self.deterministic:
             noise = net.sample_noise((x.shape[0], self.log_std.shape[-1]),
                                      self.generator, dtype=self.log_std.dtype,
                                      device=self.device)
-            a, _, _ = net.sample_action(self.params, self.log_std, x, noise)
+        a = polops.policy_action(self.params, self.log_std, x, noise, self.obs_norm)
         a = a.cpu().numpy()
         return a[0] if squeeze else a
 

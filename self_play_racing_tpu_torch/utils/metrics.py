@@ -45,11 +45,11 @@ import torch
 from .. import _graph
 from .._tree import where_rows
 from ..envs import multi as menv
-from ..envs import normalize as obsnorm
 from ..envs import selfplay
 from ..envs import single as senv
 from ..envs import track as trk
 from ..models import actor_critic as net
+from ..ops import policy as polops
 
 # rows that finished freeze, so the loop may stop once none is active; it checks
 # (one host sync) every this many steps
@@ -60,20 +60,28 @@ TRACE_KEYS = ("x", "y", "angle", "speed", "progress", "reward", "active")
 
 def _policy_action(params, log_std, obs, noise, obs_norm=None):
     """The policy's action on ``obs``: greedy (tanh mu) when ``noise`` is None,
-    else sampled with that standard-normal noise."""
-    if obs_norm is not None:
-        obs = obsnorm.apply(obs_norm, obs)
-    if noise is None:
-        return net.deterministic_action(params, obs)
-    action, _, _ = net.sample_action(params, log_std, obs, noise)
-    return action
+    else sampled with that standard-normal noise (``ops.policy.policy_action``: on
+    the card one launch of kernel A, the normaliser and the actor alone)."""
+    return polops.policy_action(params, log_std, obs, noise, obs_norm)
 
 
 def _seat_actions(params, log_std, obs, noise, obs_norm):
     """One policy per seat: ``params``, ``log_std`` [A, act] and ``obs_norm``
     (mean, var [A, D]) carry a leading seat axis; ``obs`` [N, A, D] and ``noise``
-    [N, A, act] or None (greedy). The seats run as one stacked MLP (the self-play
-    pool's), seat-major. Returns actions [N, A, act]."""
+    [N, A, act] or None (greedy). On the card one launch of kernel B in seat mode
+    (``ops.policy.pool_act``), else ``_seat_actions_plain``. Returns actions [N, A,
+    act]."""
+    if not polops.whole_towers(params, obs):
+        return _seat_actions_plain(params, log_std, obs, noise, obs_norm)
+    n, a, _ = obs.shape
+    return polops.pool_act(params["actor"], log_std, obs,
+                           None if noise is None else noise.reshape(n * a, -1),
+                           mean=obs_norm.mean, var=obs_norm.var)
+
+
+def _seat_actions_plain(params, log_std, obs, noise, obs_norm):
+    """Plain PyTorch ``_seat_actions``: the seats as one stacked MLP (the self-play
+    pool's), seat-major."""
     x = obs.transpose(0, 1)                                           # [A, N, D]
     x = selfplay._normalized(obs_norm.mean[:, None, :], obs_norm.var[:, None, :], x)
     act = selfplay._pool_actor_mu(params, x)                          # [A, N, act]

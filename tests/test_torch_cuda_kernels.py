@@ -58,6 +58,14 @@ norm (``ppo.norm_route``): within phase p's norm tolerance of the float64 norm o
 the same flat at every tower, the flat bitwise the norm-less launch's, the
 norm-only mode bitwise the fused norm, graph replays bitwise with the ticket's
 counter back at 0, and no ``global_norm`` composition left in a no-group update.
+The rollout step's policy (``ops/policy.py``, ``csrc/policy.cu``): kernel A (the
+normaliser, both towers, the sample and its log-prob, row t of the rollout's
+buffers) and kernel B (the pool opponents' actions) as chip_smoke.py phase q holds
+them: mu and v within phase p's tolerance of the composition, everything after the
+towers bitwise the composition on the kernels' own mu, graph replays bitwise eager,
+refusals before any launch; a rollout launching kernel A once a step and kernel B
+once a self-play step, and each update's first minibatch at approx_kl and clip_frac
+exactly 0.
 """
 import contextlib
 import dataclasses
@@ -2019,3 +2027,61 @@ def test_train_scale_with_three_cars_launches_the_mlp_kernels(cuda, tmp_path, mo
     assert params["actor"][0][0].shape == (23, 64)
     assert all(bool(torch.isfinite(x).all()) for tower in params.values() for layer in tower
                for x in layer)
+
+
+# ------------------------------ the rollout step's policy (ops/policy.py, csrc/policy.cu)
+
+@pytest.mark.parametrize("rows", list(chip_smoke.POLICY_ROWS))
+@pytest.mark.parametrize("dims", list(chip_smoke.POLICY_TOWERS))
+def test_policy_act_matches_plain(cuda, dims, rows):
+    """Kernel A against the composition (``chip_smoke.hold_policy_act``, as phase q
+    runs it): mu and v within phase p's tolerance and bitwise ``mlp_forward``'s, the
+    normaliser's row, the sample and its log-prob bitwise the composition on the
+    kernel's mu, the buffers' other rows untouched, two runs and rows alone bitwise."""
+    held = chip_smoke.hold_policy_act(dims, rows, cuda, seed=rows)
+    assert held and all(e <= b for e, b in held)
+
+
+@pytest.mark.parametrize("mode", list(chip_smoke.POOL_MODES))
+@pytest.mark.parametrize("envs,seats", list(chip_smoke.POOL_SHAPES))
+def test_pool_act_matches_plain(cuda, envs, seats, mode):
+    """Kernel B in each member mode (an [envs] index of 5 members, a 0-d index, a
+    member a seat) against the composition (``chip_smoke.hold_pool_act``): mu within
+    phase p's tolerance; the sample, the uniform actions, the ``use_policy`` select and
+    car 0 bitwise the composition on the kernel's mu, also through the env's entry
+    points; two runs and envs alone bitwise."""
+    held = chip_smoke.hold_pool_act((19, 64, 64), envs, seats, mode, cuda, seed=envs + seats)
+    assert held and all(e <= b for e, b in held)
+
+
+def test_policy_kernels_in_a_graph_are_eager_bitwise(cuda):
+    """Both kernels captured in a CUDA graph at the main path's shapes and replayed
+    twice give their eager launches' bits (``chip_smoke.policy_graphs``)."""
+    chip_smoke.policy_graphs(cuda)
+
+
+def test_policy_kernels_refuse_what_they_do_not_take(cuda):
+    """No fallback: float64, strided rows, other hidden widths, a float index and a
+    noise of another shape raise before any launch (``chip_smoke.policy_refusals``)."""
+    chip_smoke.policy_refusals(cuda)
+
+
+@pytest.mark.parametrize("mode", ["single", "scale"])
+def test_rollout_launches_the_policy_kernels_and_the_first_minibatch_ratio_is_one(
+        cuda, tmp_path, monkeypatch, mode):
+    """Two updates of ``train single|scale`` on the card: kernel A once a rollout
+    step, kernel B once a self-play step, and each update's first minibatch
+    recomputes the rollout's log-probs bitwise (approx_kl and clip_frac exactly 0)."""
+    from self_play_racing_tpu_torch import train as ttrain
+
+    monkeypatch.chdir(tmp_path)
+    first = []
+    before = chip_smoke.read_counts()
+    with chip_smoke.minibatch_loops(2, first=first):
+        tr = ttrain.main([mode, "--num-envs", "64", "--total-timesteps",
+                          str(64 * 2048 * 2), "--num-updates", "2"])
+    launches = {k: n - before[k] for k, n in chip_smoke.read_counts().items()}
+    steps = 2 * tr.cfg.num_steps
+    want = chip_smoke.policy(steps, selfplay=mode == "scale")
+    assert {k: launches[k] for k in want} == want
+    chip_smoke.first_minibatches_exact(first, f"train {mode}")

@@ -313,12 +313,17 @@ q. (right after p) both against the plain composition at the towers of
    index and one member a seat, through ``opponent_actions``,
    ``opponent_actions_all_seats`` and ``_seat_actions``; the buffers' other rows
    untouched, two runs bitwise, a row (an env) alone bitwise its row in a batch,
-   graphed bitwise eager; float64, strided rows, other widths, a float index and a
-   noise of another shape refused before any launch; each timed eager and in a CUDA
-   graph at 4096 rows of (19, 64, 64) and (15, 64, 64) beside the composition it
-   replaces in a graph, its bound (3xTF32 on the tensor cores) and the launch floor;
-   every update's first minibatch of phases 10 and k has approx_kl and clip_frac
-   exactly 0 (``first_minibatches_exact``);
+   graphed bitwise eager; kernel B's mu bitwise ``mlp_forward``'s actor on each
+   member's rows, also with the per-env members of ``POOL_DISTRIBUTIONS`` (skewed,
+   two live, absent from whole ranges, all random); every tower tensor an unaligned
+   view bitwise the aligned; float64, strided rows, other widths, a float index and a
+   noise of another shape refused before any launch; the kernels' shared bytes as
+   ``_cuda.policy_shared_bytes`` counts them; each timed eager and in a CUDA graph at
+   4096 rows of (19, 64, 64) and (15, 64, 64) beside the composition it replaces in
+   a graph, its bound (3xTF32 on the tensor cores), the launch floor and, where the
+   checkout holds their source, the kernels they replaced in turns
+   (``parent_graph_ms``); every update's first minibatch of phases 10 and k has
+   approx_kl and clip_frac exactly 0 (``first_minibatches_exact``);
 
 and for the single-car env step as two launches (``single.transition`` runs
 ``csrc/single_transition.cu``, the step, the track query and the whole reward and
@@ -394,6 +399,7 @@ and, under ``at``, the times at the other towers and rows); the last line is ``{
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -5762,6 +5768,11 @@ POOL_MODES = ("per env", "one", "seat")
 # the towers of the bundles the paths run: single-car 15 inputs, self-play 19, 3 cars
 # 23, 8 cars 43, at (64, 64); phase j's (128, 128)
 POLICY_TOWERS = ((15, 64, 64), (19, 64, 64), (23, 64, 64), (43, 64, 64), (19, 128, 128))
+# kernel B's per-env index at the members the trainer's path meets (use_policy all
+# True): uniform over the pool, one member on >= 80% of the envs, two live slots of
+# five; members in runs of envs, each absent from whole ranges of a block; and the
+# empty pool's index (all zeros, use_policy all False: every action random)
+POOL_DISTRIBUTIONS = ("uniform", "skewed", "two live", "runs", "all random")
 
 
 def policy_case(dims, n: int, seed: int, dev) -> dict:
@@ -5928,6 +5939,30 @@ def pool_case(dims, envs: int, seats: int, mode: str, seed: int, dev) -> dict:
     return case
 
 
+def with_members(case, dist: str, seed: int) -> dict:
+    """``case`` (a per-env ``pool_case``) with its [envs] index and ``use_policy``
+    drawn by ``dist``, one of ``POOL_DISTRIBUTIONS``."""
+    envs = case["member"].shape[0]
+    rng = np.random.default_rng(seed + 11)
+    use = np.ones(envs, bool)
+    if dist == "uniform":
+        member = rng.integers(0, POOL_MEMBERS, envs)
+    elif dist == "skewed":
+        member = rng.integers(1, POOL_MEMBERS, envs)
+        member[rng.permutation(envs)[:-(-4 * envs // 5)]] = 0
+    elif dist == "two live":
+        member = rng.integers(0, 2, envs)
+    elif dist == "runs":
+        member = np.arange(envs) * POOL_MEMBERS // envs
+    elif dist == "all random":
+        member, use = np.zeros(envs, np.int64), np.zeros(envs, bool)
+    else:
+        raise ValueError(f"with_members: {dist!r} is not one of {POOL_DISTRIBUTIONS}")
+    dev = case["member"].device
+    return dict(case, member=torch.tensor(member, dtype=torch.int32, device=dev),
+                use=torch.tensor(use, device=dev))
+
+
 def pool_rows(case, envs: int, seats: int):
     """The members and use_policy flags of the launch's rows (env-major), [rows]."""
     dev = case["obs_all"].device
@@ -5947,16 +5982,41 @@ def pool_plain_mu(case, obs, member_rows, normalize: bool):
     return mus[member_rows, torch.arange(mus.shape[1], device=x.device)]
 
 
-def hold_pool_act(dims, envs: int, seats: int, mode: str, dev, seed: int) -> list:
-    """Kernel B at ``dims``, ``envs`` x ``seats`` rows and the member ``mode``,
-    without and with the members' normalisers: its mu (greedy) within phase p's rule
-    of the composition; sampled, with the uniform actions and ``use_policy`` and the
-    learner's action as car 0 (not in seat mode), bitwise the composition on the
-    kernel's mu; the same through ``selfplay.opponent_actions`` (the flat rows) and
-    ``opponent_actions_all_seats`` (the env's draws), in seat mode through
-    ``metrics._seat_actions``; a second run bitwise; envs alone bitwise their rows in
-    the batch; one launch a call. Returns the (error, bound) of mu."""
+def member_mu_is_mlp_forward(c, obs, mu_rows, member_rows, normalize: bool) -> bool:
+    """Kernel B's greedy mu on each member's rows bitwise ``mlp_forward``'s actor mu
+    (``mlpops.actor_critic_mlp``, the member's actor with a one-output critic cut from
+    it) on those rows, normalised by the member's normaliser where ``normalize``."""
+    x = obs.reshape(-1, obs.shape[-1])
+    for p in sorted(set(member_rows.tolist())):
+        sel = member_rows == p
+        xp = x[sel]
+        if normalize:
+            xp = obsnorm.apply(obsnorm.ObsNormState(c["mean"][p], c["var"][p], None), xp)
+        actor = [(w[p], b[p]) for w, b in c["actor"]]
+        critic = actor[:2] + [(actor[2][0][:, :1].contiguous(), actor[2][1][:1].contiguous())]
+        with torch.no_grad():
+            mu_f, _ = mlpops.actor_critic_mlp({"actor": actor, "critic": critic}, xp)
+        if not same_bits(mu_rows[sel], mu_f):
+            return False
+    return True
+
+
+def hold_pool_act(dims, envs: int, seats: int, mode: str, dev, seed: int,
+                  dist: str | None = None) -> list:
+    """Kernel B at ``dims``, ``envs`` x ``seats`` rows and the member ``mode`` (per
+    env: with the index and ``use_policy`` drawn by ``dist`` of
+    ``POOL_DISTRIBUTIONS``, None: ``pool_case``'s), without and with the members'
+    normalisers: its mu (greedy) within phase p's rule of the composition and, on
+    each member's rows, bitwise ``mlp_forward``'s actor mu; sampled, with the uniform
+    actions and ``use_policy`` and the learner's action as car 0 (not in seat mode),
+    bitwise the composition on the kernel's mu; the same through
+    ``selfplay.opponent_actions`` (the flat rows) and ``opponent_actions_all_seats``
+    (the env's draws), in seat mode through ``metrics._seat_actions``; a second run
+    bitwise; envs alone bitwise their rows in the batch; one launch a call. Returns
+    the (error, bound) of mu."""
     c = pool_case(dims, envs, seats, mode, seed, dev)
+    if dist is not None:
+        c = with_members(c, dist, seed)
     seat = mode == "seat"
     obs = c["obs_all"] if seat else c["obs_all"][:, 1:]
     member_rows, use_rows = pool_rows(c, envs, seats)
@@ -6011,9 +6071,13 @@ def hold_pool_act(dims, envs: int, seats: int, mode: str, dev, seed: int) -> lis
             launches += 3
             routes = [(flat_acts, got), (all_seats, drawn), (acts[:, 0], c["first"])]
         torch.cuda.synchronize()
+        what += "" if dist is None else f", members {dist}"
         if not same_bits(got, want):
             raise AssertionError(f"phase q pool_act {what}: not bitwise the composition on "
                                  f"its mu")
+        if not member_mu_is_mlp_forward(c, obs, mu_rows, member_rows, normalize):
+            raise AssertionError(f"phase q pool_act {what}: mu is not mlp_forward's on a "
+                                 f"member's rows")
         if not (all(same_bits(a, b) for a, b in routes) and same_bits(acts, again)):
             raise AssertionError(f"phase q pool_act {what}: its routes or a second run differ")
         h = envs // 2
@@ -6108,11 +6172,55 @@ def policy_refusals(dev) -> None:
         raise AssertionError("phase q: a refused call launched")
 
 
+def offset_views(tensors, dev):
+    """Copies of ``tensors`` as views into one flat buffer, each starting one float
+    past a 16-byte boundary (as a view into a flat parameter buffer can): the
+    kernels copy such a tensor a float at a time."""
+    flat = torch.empty((sum(-(-t.numel() // 4) * 4 + 4 for t in tensors),), device=dev)
+    out, at = [], 1
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].view(t.shape).copy_(t))
+        at = -(-(at + t.numel()) // 4) * 4 + 1
+    return out
+
+
+def policy_offset_views(dev) -> None:
+    """Both kernels with every tower tensor an unaligned view (``offset_views``):
+    bitwise their launches on the aligned tensors."""
+    c = policy_case((19, 64, 64), 64, 71, dev)
+    p = pool_case((19, 64, 64), 64, 1, "per env", 73, dev)
+    obs = p["obs_all"][:, 1:]
+
+    def views(layers):
+        flat = offset_views([t for layer in layers for t in layer], dev)
+        if not all(t.data_ptr() % 16 for t in flat):
+            raise AssertionError("phase q: an offset view is 16-byte aligned")
+        return [tuple(flat[i:i + 2]) for i in range(0, len(flat), 2)]
+
+    def both(params, actor):
+        out = policy_buffers(64, 19, dev)
+        polops.rollout_sample(params, c["log_std"], c["obs"], c["noise"], c["t"], c["norm"], out)
+        acts = polops.pool_act(actor, p["log_std"], obs, p["noise"], p["member"], p["mean"],
+                               p["var"], p["uniforms"], p["use"], selfplay._ACTION_LOW,
+                               selfplay._ACTION_HIGH, p["first"])
+        return [*out.values(), acts]
+
+    want = both(c["params"], p["actor"])
+    got = both({k: views(v) for k, v in c["params"].items()}, views(p["actor"]))
+    torch.cuda.synchronize()
+    if not all(same_bits(a, b) for a, b in zip(got, want)):
+        raise AssertionError("phase q: the kernels on unaligned tower views differ from the "
+                             "aligned tensors")
+
+
 def check_policy_kernels(dev, card) -> dict:
     """Phase q: kernel A (``hold_policy_act``) at ``POLICY_TOWERS`` x ``POLICY_ROWS``,
     kernel B (``hold_pool_act``) at its ``POOL_SHAPES`` in each of ``POOL_MODES`` on
-    (19, 64, 64), and every tower at 4096 x 1 per env; graphed against eager
-    (``policy_graphs``); the refusals. Returns each kernel's largest error and ratio."""
+    (19, 64, 64), every tower at 4096 x 1 per env, and the per-env index at each of
+    ``POOL_DISTRIBUTIONS`` (4096 x 1, 2048 x 2, 8192 x 1 and 512 x 7); graphed against
+    eager (``policy_graphs``); unaligned tower views (``policy_offset_views``); the
+    refusals; the kernels' shared bytes as ``_cuda.policy_shared_bytes`` counts them.
+    Returns each kernel's largest error and ratio."""
     a, b = [], []
     for i, dims in enumerate(POLICY_TOWERS):
         for n in POLICY_ROWS:
@@ -6123,8 +6231,20 @@ def check_policy_kernels(dev, card) -> dict:
     for i, dims in enumerate(POLICY_TOWERS):
         for mode in POOL_MODES:
             b += hold_pool_act(dims, 4096, 1, mode, dev, seed=480 + i)
+    for j, dist in enumerate(POOL_DISTRIBUTIONS):
+        for envs, seats in ((4096, 1), (2048, 2), (8192, 1), (512, 7)):
+            b += hold_pool_act((19, 64, 64), envs, seats, "per env", dev, seed=500 + 10 * j,
+                               dist=dist)
     policy_graphs(dev)
+    policy_offset_views(dev)
     policy_refusals(dev)
+    lib = _cuda.build()["policy"]
+    for dims in POLICY_TOWERS + ((48, 128, 128), (49, 128, 128)):
+        for pool in (0, 1):
+            if lib.policy_shared_bytes(pool, *dims) != _cuda.policy_shared_bytes(bool(pool), *dims):
+                raise AssertionError(f"phase q: policy_shared_bytes({pool}, {dims}) "
+                                     f"{lib.policy_shared_bytes(pool, *dims)} on the card, "
+                                     f"{_cuda.policy_shared_bytes(bool(pool), *dims)} in ops/_cuda.py")
     out = {}
     for name, held in (("policy_act", a), ("pool_act", b)):
         out[name] = {"max_abs_err": max(e for e, _ in held),
@@ -6142,16 +6262,20 @@ def check_policy_kernels(dev, card) -> dict:
           f"ratio {out['pool_act']['ratio']:.3f}, error {out['pool_act']['max_abs_err']:.3e}); "
           f"the sample, the uniform actions, the mixed use_policy select and car 0 bitwise "
           f"the composition on its mu, and through opponent_actions, "
-          f"opponent_actions_all_seats and _seat_actions; two runs and envs alone bitwise; "
-          f"both kernels graphed bitwise eager; float64, strided rows, other widths, a "
-          f"float index and a noise of another shape refused, on {card}")
+          f"opponent_actions_all_seats and _seat_actions; mu bitwise mlp_forward's actor on "
+          f"each member's rows, also at the per-env members {POOL_DISTRIBUTIONS}; two runs "
+          f"and envs alone bitwise; both kernels graphed bitwise eager and on unaligned tower "
+          f"views bitwise the aligned; float64, strided rows, other widths, a float index "
+          f"and a noise of another shape refused, on {card}")
     return out
 
 
-def policy_bytes_ops(kind: str, n: int, dims, members: int = POOL_MEMBERS):
+def policy_bytes_ops(kind: str, n: int, dims, members: int = POOL_MEMBERS,
+                     tower_rows: int | None = None):
     """(bytes, operations) that a call at ``n`` rows must move and do: each input read
     once and each output written once; a row's multiply-adds (kernel A both towers,
-    kernel B one member's actor) as 3 TF32 products of 2 operations (3xTF32)."""
+    kernel B one member's actor on the ``tower_rows`` rows whose use_policy holds,
+    default all) as 3 TF32 products of 2 operations (3xTF32)."""
     d, h1, h2 = dims
     actor = d * h1 + h1 + h1 * h2 + h2 + 2 * h2 + 2
     critic = d * h1 + h1 + h1 * h2 + h2 + h2 + 1
@@ -6163,10 +6287,28 @@ def policy_bytes_ops(kind: str, n: int, dims, members: int = POOL_MEMBERS):
         return 4 * floats + 8, ops                                # t
     floats = (n * d + 4 * n + members * (actor + 2 * d + 2)      # obs, noise, uniforms, pool
               + 2 * n + 2 * 2 * n)                               # first; out (2 cars)
-    return 4 * floats + 4 * n + n, 6 * n * macs_actor             # index, use_policy
+    tower_rows = n if tower_rows is None else tower_rows
+    return 4 * floats + 4 * n + n, 6 * tower_rows * macs_actor    # index, use_policy
 
 
-def time_policy_kernels(dev, card, checked) -> list:
+def parent_policy_lib():
+    """(``scripts/policy_kernel_split.py`` as a module, its build of the policy kernels
+    the port's replaced, ``PARENT``'s ``csrc/policy.cu``), or None where the checkout
+    holds neither that commit's history nor its unpacked ``scratch_checkout/``."""
+    import importlib.util
+
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "policy_kernel_split.py")
+    spec = importlib.util.spec_from_file_location("policy_kernel_split", path)
+    split_script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(split_script)
+    files = split_script.parent_files()
+    return None if files is None else (split_script,
+                                       split_script.build_lib(files, "parent", 99))
+
+
+def time_policy_kernels(dev, card, checked, parent=None) -> list:
     """The kernels line's entries for ``policy_act`` and ``pool_act`` at the self-play
     main path's shapes ((19, 64, 64), 4096 rows with the normaliser; the pool of 5 per
     env, one opponent seat, mixed use_policy): each eager (back to back, with the
@@ -6174,8 +6316,11 @@ def time_policy_kernels(dev, card, checked) -> list:
     eager and in a graph (kernel A: the normaliser's apply, the noise row's
     index_select, ``sample_action_plain``, the four index_copy_; kernel B:
     ``opponent_actions_plain`` on the repeated index and the cat), the bound and the
-    launch floor (a one-row reduce launch in a graph); also at single-car's 15
+    launch floor (a one-row reduce launch in a graph); in turns with the kernels they
+    replaced (``parent``: ``parent_policy_lib``'s build, where the checkout holds
+    its source) in a graph, new, parent, parent, new; also at single-car's 15
     inputs."""
+    split_script, parent = parent if parent is not None else (None, None)
     one, one_out = torch.zeros((1, 1), device=dev), torch.empty((1,), device=dev)
     floor = graph_ms(lambda: _cuda.launch_mlp_grad_reduce(one, one_out))
     cfg = dataclasses.replace(self_play_config(), normalize_obs=True)
@@ -6209,13 +6354,31 @@ def time_policy_kernels(dev, card, checked) -> list:
 
         with torch.no_grad():
             for name, fn, plain in (("policy_act", a, a_plain), ("pool_act", b, b_plain)):
-                nb, ops = policy_bytes_ops(name, NUM_ENVS, dims)
+                nb, ops = policy_bytes_ops(name, NUM_ENVS, dims,
+                                           tower_rows=int(p["use"].sum()) if name == "pool_act"
+                                           else None)
+                turns = [graph_ms(fn)]
+                if parent is not None:
+                    for _ in range(2):
+                        with split_script.routed(parent):
+                            turns.append(graph_ms(fn))
+                    turns.append(graph_ms(fn))
                 times[name, dims] = (per_launch_ms(fn), graph_ms(fn), per_launch_ms(plain),
-                                     graph_ms(plain), *bound_ms(nb, ops, PEAK_TF32_OPS_PER_S))
+                                     graph_ms(plain), *bound_ms(nb, ops, PEAK_TF32_OPS_PER_S),
+                                     turns)
     for name, replaces in (("policy_act", "self_play_racing_tpu/agent/ppo.py:362"),
                            ("pool_act", "self_play_racing_tpu/envs/selfplay.py:53")):
-        ms, g, p_ms, p_g, bound, by = times[name, (19, 64, 64)]
+        ms, g, p_ms, p_g, bound, by, turns = times[name, (19, 64, 64)]
         s = times[name, (15, 64, 64)]
+        parent_ms = (None if len(turns) == 1 else statistics.mean(turns[1:3]),
+                     None if len(s[6]) == 1 else statistics.mean(s[6][1:3]))
+        if parent_ms[0] is None:
+            print(f"phase q {name}: the parent's source is not in this checkout; no turns")
+        else:
+            print(f"phase q {name} in turns with the kernel it redesigned, us in a graph, new | "
+                  f"parent | parent | new: {' | '.join(f'{t * 1e3:.2f}' for t in turns)} at "
+                  f"(19, 64, 64), {' | '.join(f'{t * 1e3:.2f}' for t in s[6])} at (15, 64, 64), "
+                  f"on {card}")
         print(f"phase q {name} at {NUM_ENVS} rows (19, 64, 64), us: {ms * 1e3:.2f} eager, "
               f"{g * 1e3:.2f} in a graph, bound {bound * 1e3:.3f} ({by}; 3xTF32 on the tensor "
               f"cores), launch floor {floor * 1e3:.2f}; the composition it replaces "
@@ -6227,8 +6390,10 @@ def time_policy_kernels(dev, card, checked) -> list:
             "max_err_over_bound": checked[name]["ratio"], "ms": ms, "graph_ms": g,
             "plain_ms": p_ms, "plain_graph_ms": p_g, "bound_ms": bound, "bound_by": by,
             "library_ms": None, "launch_floor_ms": floor,
+            "parent_graph_ms": parent_ms[0], "turns_graph_ms": turns,
             "at": {"15 inputs": {"graph_ms": s[1], "plain_graph_ms": s[3],
-                                 "bound_ms": s[4]}}})
+                                 "bound_ms": s[4], "parent_graph_ms": parent_ms[1],
+                                 "turns_graph_ms": s[6]}}})
     return entries
 
 
@@ -6241,6 +6406,8 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
+    # the policy kernels the port's replaced, built beside the port's for phase q's turns
+    parent_policy = concurrent.futures.ThreadPoolExecutor(1).submit(parent_policy_lib)
     _cuda.build()
     print(f"kernels built in {_cuda.build_seconds:.1f} s")
     for name, report in _cuda.build_report.items():
@@ -6271,7 +6438,8 @@ def main() -> int:
         kernels += time_mlp_kernels(dev, card, check_mlp_kernels(dev, card))
         train_more_cars(card)
     with timed("phase q (the rollout step's policy kernels against the plain composition)"):
-        kernels += time_policy_kernels(dev, card, check_policy_kernels(dev, card))
+        kernels += time_policy_kernels(dev, card, check_policy_kernels(dev, card),
+                                       parent_policy.result())
     with timed("phase o.1 and o.4 (the single-car env step's two launches against their "
                "plain versions)"):
         kernels += check_single_env_step(pool, dev, card)

@@ -285,6 +285,69 @@ __device__ __forceinline__ void stage_tower(const Layout<H1, H2>& L, const float
     cp_async_commit();
 }
 
+// --------------------------------------------- wide staging (the policy kernels)
+
+// 16 bytes (zero-filled where !valid); the source 16-byte aligned. Through L1 (.ca),
+// as cp_async4: the blocks that share an SM read the same towers.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src),
+                 "r"(valid ? 16 : 0));
+}
+// wait until at most `pending` of this thread's newest commit groups are in flight
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;" ::"n"(pending) : "memory");
+}
+__device__ __forceinline__ bool aligned16(const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// stage_weight's layout by `threads` threads, 4 floats a copy where the source is
+// 16-byte aligned: swz moves bits 3-4 of the column, so 4 columns from a multiple of
+// 4 stay contiguous and in order; an unaligned source (a view into a flat buffer, a
+// stacked member's odd offset) a float a copy
+template <int N, int threads>
+__device__ __forceinline__ void stage_weight_wide(float* dst, const float* w, int k_real, int k) {
+    if (aligned16(w)) {
+        for (int e = threadIdx.x; e < k * (N / 4); e += threads) {
+            const int r = e / (N / 4), c = 4 * (e - r * (N / 4));
+            cp_async16(dst + r * N + swz(r, c), w + (r < k_real ? r * N + c : 0), r < k_real);
+        }
+    } else {
+        for (int e = threadIdx.x; e < k * N; e += threads) {
+            const int r = e / N, c = e - r * N;
+            cp_async4(dst + r * N + swz(r, c), w + (r < k_real ? e : 0), r < k_real);
+        }
+    }
+}
+
+// count floats to a 16-byte aligned dst, 4 a copy where the source is aligned
+template <int threads>
+__device__ __forceinline__ void stage_plain_wide(float* dst, const float* w, int count) {
+    const int wide = aligned16(w) ? count / 4 : 0;
+    for (int e = threadIdx.x; e < wide; e += threads) cp_async16(dst + 4 * e, w + 4 * e, true);
+    for (int e = 4 * wide + threadIdx.x; e < count; e += threads) cp_async4(dst + e, w + e, true);
+}
+
+// A tower in stage_tower's layout in two parts, each the caller's commit group: the
+// first layer (w1, b1), then the rest (w2, b2, w3, b3), so that layer1 can run while
+// the rest is in flight.
+template <int H1, int H2, int threads>
+__device__ __forceinline__ void stage_first_layer(const Layout<H1, H2>& L, const float* const* w,
+                                                  float* s) {
+    stage_weight_wide<H1, threads>(s + L.w1, w[0], L.d, L.dk);
+    stage_plain_wide<threads>(s + L.b1, w[1], H1);
+}
+template <int H1, int H2, int threads>
+__device__ __forceinline__ void stage_later_layers(const Layout<H1, H2>& L, const float* const* w,
+                                                   float* s, int O) {
+    stage_weight_wide<H2, threads>(s + L.w2, w[2], H1, H1);
+    stage_plain_wide<threads>(s + L.b2, w[3], H2);
+    stage_plain_wide<threads>(s + L.w3, w[4], H2 * O);
+    stage_plain_wide<threads>(s + L.b3, w[5], O);
+}
+
 // ------------------------------------------------------------------ a warp's forward
 
 // The hidden layers of this warp's 16 rows x (stride xs): h1 = tanh(x W1 + b1),
@@ -365,5 +428,117 @@ __device__ __forceinline__ void tower_forward(const Layout<H1, H2>& L, const flo
             if (o < O) out[r * O + o] = l.t == 0 ? y0[o] : y1[o];
     }
 }
+
+// ------------------------------------------- a fragment by a group of warps (policy.cu)
+
+// n-tiles [c0, c0 + NT) of times_weight, c0 known at run time: the same B fragments
+// (weight_b's addresses, the offsets formed from the lane's keys), each accumulator's
+// products in the same order
+template <int N, int NT>
+__device__ __forceinline__ void times_weight_cols(float (&acc)[NT][4], const FragA& a,
+                                                  const float* W, int kk, int c0, const Lane& l) {
+    constexpr int kChunk = NT < 8 ? NT : 8;
+    const float* r0 = W + (8 * kk + 2 * l.t) * N;
+    const int k0 = row_key(2 * l.t), k1 = row_key(2 * l.t + 1);
+#pragma unroll
+    for (int c = 0; c < NT; c += kChunk) {
+        FragB b[kChunk];
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) {
+            const int n = c0 + c + j, base = 8 * (n & ~3) + l.g;
+            b[j] = frag_b(r0[base + 8 * ((n & 3) ^ k0)], r0[N + base + 8 * ((n & 3) ^ k1)]);
+        }
+        mma3(acc, c, a, b);
+    }
+}
+
+// rows g and g + 8 of a tile (row stride S) at columns 8 kk + 2t, + 1 as an A
+// fragment: layer1's read of x, and acc_as_a of the accumulator store_rows wrote there
+__device__ __forceinline__ FragA rows_as_a(const float* tile, int S, int kk, const Lane& l) {
+    const float2 p = *reinterpret_cast<const float2*>(tile + l.g * S + 8 * kk + 2 * l.t);
+    const float2 q = *reinterpret_cast<const float2*>(tile + (l.g + 8) * S + 8 * kk + 2 * l.t);
+    return frag_a(p.x, q.x, p.y, q.y);
+}
+
+// a named barrier of `threads` (whole warps, each converged first: bar.sync is aligned)
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+    __syncwarp();
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// One 16-row fragment through one tower by a group of S warps, this warp the group's
+// w-th, the group's named barrier `bar`: each warp takes n-tiles [w NT, (w + 1) NT) of
+// both hidden layers (layer1's and layer2's products, each element summed over k in
+// their order), h1 and then h2 pass through the group's tile t [16][max(H1, H2) + 8],
+// and warp 0 reads all of h2 back in the register layout for last_layer. So the
+// outputs are tower_forward's bits. At S = 1, layer1, layer2 and last_layer as they
+// are, the activations in registers.
+template <int H1, int H2, int S>
+struct GroupTower {
+    static_assert(H1 % (8 * S) == 0 && H2 % (8 * S) == 0, "n-tiles a warp");
+    static constexpr int NT1 = H1 / 8 / S, NT2 = H2 / 8 / S;
+    static constexpr int stride = (H1 > H2 ? H1 : H2) + 8;
+    static constexpr int floats = S == 1 ? 0 : 16 * stride;
+    float h1[NT1][4];
+    float* t;
+    int w, bar;
+    __device__ GroupTower(float* tile, int warp_in_group, int barrier)
+        : t(tile), w(warp_in_group), bar(barrier) {}
+
+    __device__ __forceinline__ void sync() const {
+        if constexpr (S > 1) bar_sync(bar, 32 * S);
+    }
+
+    // layer 1 of the 16 rows of x (stride L.xs); `reuse`: the tile may still be read
+    // (the group's previous fragment). The group's h1 is whole after the group's
+    // barrier (sync(), or the block's).
+    __device__ __forceinline__ void first(const Layout<H1, H2>& L, const float* T,
+                                          const float* x, bool reuse, const Lane& l) {
+        zero(h1);
+        for (int kk = 0; kk < L.dk / 8; ++kk)
+            times_weight_cols<H1, NT1>(h1, rows_as_a(x, L.xs, kk, l), T + L.w1, kk, w * NT1, l);
+        bias_tanh(h1, T + L.b1 + 8 * w * NT1, l);
+        if constexpr (S > 1) {
+            if (reuse) sync();
+            store_rows<NT1, stride>(t + 8 * w * NT1, h1, l);
+        }
+    }
+
+    // layer 2 and the last layer (O outputs): true on the warp that holds (y0, y1),
+    // rows g and g + 8
+    __device__ __forceinline__ bool rest(const Layout<H1, H2>& L, const float* T, int O,
+                                         float (&y0)[2], float (&y1)[2], const Lane& l) {
+        float h2[H2 / 8][4];
+        if constexpr (S == 1) {
+            layer2(L, T, h1, h2, l);
+            // split: tower layer2 { sink(h2); return false; }
+        } else {
+            float part[NT2][4];
+            zero(part);
+#pragma unroll
+            for (int kk = 0; kk < H1 / 8; ++kk)
+                times_weight_cols<H2, NT2>(part, rows_as_a(t, stride, kk, l), T + L.w2, kk,
+                                           w * NT2, l);
+            bias_tanh(part, T + L.b2 + 8 * w * NT2, l);
+            // split: tower layer2 { sink(part); return false; }
+            sync();  // every warp has read h1
+            store_rows<NT2, stride>(t + 8 * w * NT2, part, l);
+            sync();
+            if (w != 0) return false;
+#pragma unroll
+            for (int j = 0; j < H2 / 8; ++j) {
+                const float2 p = *reinterpret_cast<const float2*>(t + l.g * stride + 8 * j + 2 * l.t);
+                const float2 q =
+                    *reinterpret_cast<const float2*>(t + (l.g + 8) * stride + 8 * j + 2 * l.t);
+                h2[j][0] = p.x;
+                h2[j][1] = p.y;
+                h2[j][2] = q.x;
+                h2[j][3] = q.y;
+            }
+        }
+        last_layer<H2>(T + L.w3, T + L.b3, h2, O, y0, y1, l);
+        return true;
+    }
+};
 
 }  // namespace mlp_tower

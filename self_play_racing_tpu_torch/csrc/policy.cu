@@ -14,31 +14,49 @@
 // the cat with the learner's action).
 //
 // policy_act_f32: whole towers obs -> H1 -> H2 -> {2, 1} (the critic may be absent)
-// on a tile of 32 rows a block: the block stages both towers (mlp_tower.cuh's
-// stage_tower) and the tile's observations, normalised on the way where a normaliser
-// is given, ((obs - mean) / sqrt(var + eps)) clamped to +-clip, in
-// envs/normalize.py's order, each normalised row also written to its place in the
-// rollout's obs buffer. Warps 0-1 run the actor on 16 rows each, warps 2-3 the
-// critic, with mlp_tower.cuh's layer1, layer2 and last_layer: the code that
-// mlp_forward_f32 runs, so a row's mu and v are bitwise that kernel's on the same
-// row. The actor's lanes then form the sample, clamp(mu + exp(log_std) * noise,
-// -1, 1), with noise row t of [T, n, 2] (t read on the card), and its log-prob
-// with normal_lp.cuh (ppo_head.cu's code), and write row t of the actions,
+// on a tile of rows a block. The block stages both towers in 16-byte cp.async copies
+// (mlp_tower.cuh's stage_first_layer and stage_later_layers) in two commit groups,
+// the first layers with the tile's observations, then the rest; the observations
+// are copied as they are, then normalised in shared memory where a normaliser is
+// given, ((obs - mean) / sqrt(var + eps)) clamped to +-clip, in envs/normalize.py's
+// order, each normalised row also written to its place in the rollout's obs buffer.
+// Layer 1 runs while the second group is in flight. Groups of warps, (actor, critic)
+// x the tile's 16-row fragments, each run one fragment through one tower
+// (mlp_tower.cuh's GroupTower: the warps split each hidden layer's n-tiles, h1 and
+// h2 pass through the group's shared tile, one warp runs the last layer), so that
+// the three-layer chain of mma.sync products is spread over the SM's four
+// schedulers. A tile of 32 rows and four warps a fragment while the blocks fit one
+// an SM; beyond that (several blocks an SM, where the issue of the products and
+// tanh, not their latency, sets the time) 64 rows and a warp a fragment, which stage
+// the towers once for twice the rows. Each output element is summed in
+// mlp_forward_f32's order, so a row's mu and v are bitwise that kernel's on the
+// same row. The actor's lanes then form the sample, clamp(mu + exp(log_std) *
+// noise, -1, 1), with noise row t of [T, n, 2] (t read on the card), and its
+// log-prob with normal_lp.cuh (ppo_head.cu's code), and write row t of the actions,
 // log-probs and values; with no noise the action is mu (greedy) and no log-prob is
 // written. So the rollout's log-prob is bitwise the one the first minibatch
 // recomputes: approx_kl and clip_frac come out exactly 0 there.
 //
-// pool_act_f32: one member's actor tower a block, on a grid of 64-row tiles x the
-// members present, rows env-major: row r is car off + r % seats of env r / seats of
-// obs [envs, cars, d]. A row's member is the env's entry of an [envs] index (all P
-// members present; a block writes only its member's rows), a one-entry index (one
-// member present) or, in seat mode, the car itself. Each member's frozen normaliser
-// applies where the pool carries one; the sample takes that member's exp(log_std).
-// Then, with uniforms, the random action maximum(low, u * (high - low) + low) and
-// the use_policy select, and the action goes to its car's place in out [envs, cars,
-// 2]; given the learner's action, the tile's first seat's blocks of member 0 write
-// it to car 0, so the multi env's action needs no cat. Staging all P towers in one
-// block would split a warp's m16 fragment across members.
+// pool_act_f32: the members' actor towers on env-major rows: row r is car off + r %
+// seats of env r / seats of obs [envs, cars, d]. A row's member is the env's entry of
+// an [envs] index, a one-entry index (one member for all) or, in seat mode, the car
+// itself. A block owns kPoolRange consecutive rows and one member (a grid of ranges x
+// the members present): it takes, in row order, the range's rows of its member whose
+// use_policy holds (a ballot and popc a warp, the warps' counts added in order), packs
+// them into 16-row fragments, and gathers their observations into its tile; a block
+// with no such row returns before it stages anything. So each row's tower runs once,
+// under its own member, and no tower runs for a row whose use_policy is False, which
+// the same block gives its uniform action, maximum(low, u * (high - low) + low). A
+// row's fragment position does not change its bits (a row's products depend on that
+// row alone). Eight warps, two a fragment (GroupTower), run the packed fragments in
+// waves of one a group; with 128 rows a range, a pool of 5 per env fills about one
+// wave and one member on 80% of the envs two (a range of 256 or four warps were
+// slower at 4096 rows, scripts/policy_kernel_split.py). Registers for two blocks an
+// SM at (64, 64). Each member's frozen normaliser applies where the pool carries
+// one; the sample takes that member's exp(log_std). Given the learner's action, the first
+// member's block of each range writes it to car 0, so the multi env's action needs no
+// cat. Staging all P towers in one block would split a warp's m16 fragment across
+// members.
 //
 // Everything after the towers is float32 in PyTorch's order of operations on the
 // card (-fmad=false, IEEE divides and square roots, expf, the NaN rules of clamp and
@@ -48,11 +66,10 @@
 //
 // Bounds on an H100 SXM at 4096 rows and (19, 64, 64), the products as 3xTF32 at 495
 // TFLOP/s: policy_act both towers, 10,816 multiply-adds a row, 0.54 us; pool_act one
-// member's actor, 5,440 a row, 0.27 us (a pool of 5 per env computes 5 times that);
-// the bytes (observations, buffers, noise, weights) are under 1 MB, ~0.3 us. Both
-// are far under the launch floor (~1.7 us): a launch is its latency, the staging of
-// the towers and the chain of three layers a warp. At 4096 rows policy_act runs 128
-// blocks (of the card's 132 SMs) with each warp on one tower, the shorter chain.
+// member's actor, 5,440 a row, 0.27 us; the bytes (observations, buffers, noise,
+// weights) are under 1 MB, ~0.3 us. Both are far under the launch floor (~1.5 us): a
+// launch is its latency, the staging of the towers and the chain of three layers.
+// scripts/policy_kernel_split.py splits the time by the `// split:` stops below.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -65,9 +82,26 @@ namespace {
 using namespace mlp_tower;
 
 constexpr int kTower = 6;       // a tower's tensors: w1 b1 w2 b2 w3 b3
-constexpr int kActRows = 32;    // policy_act's rows a block: two warps a tower
+// policy_act's tiles: rows a block and warps on one fragment of one tower; a block
+// runs (actor, critic) x its fragments. The narrow tile while the blocks fit one an
+// SM, the wide one (where its block fits) when they outnumber the SMs: then a block
+// stages the towers for twice the rows, a warp a fragment.
+constexpr int kActRows = 32;
+constexpr int kActSplit = 4;
+constexpr int kActWideRows = 64;
+constexpr int kActWideSplit = 1;
+template <int rows, int split>
+__host__ __device__ constexpr int act_threads() { return 32 * 2 * (rows / 16) * split; }
+constexpr int kPoolRange = 128;  // pool_act's rows a block
+constexpr int kPoolWarps = 8;
+constexpr int kPoolSplit = 2;    // pool_act's warps on one fragment
+constexpr int kPoolMinBlocks = 2;  // pool_act's blocks an SM at (64, 64): registers for two
+constexpr int kPoolThreads = 32 * kPoolWarps;
+constexpr int kPoolGroups = kPoolWarps / kPoolSplit;
+constexpr int kPoolWave = 16 * kPoolGroups;  // pool_act's packed rows staged at once
 constexpr int kActPtrs = 6 + 2 * kTower + 5;
 constexpr int kPoolPtrs = 1 + kTower + 9;
+static_assert(kPoolRange % 16 == 0 && kPoolWarps % kPoolSplit == 0, "pool_act's shape");
 
 // torch.clamp on the card: NaN passes through
 __device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
@@ -91,29 +125,22 @@ struct Rows {
     }
 };
 
-// The tile's observations, rows [row0, row0 + rows), into x [rows][xs]: row r read at
-// obs + (r / seats) * env_stride + (r % seats) * d (seat r % seats of env r / seats),
-// normalised where mean is given ((o - m) / sqrt(v + eps), clamped to +-clip),
-// features from d and rows from n zero; each normalised row also written to out
-// [n, d] (null: not). Loads while the towers' copies are in flight.
-__device__ __forceinline__ void stage_obs(const float* obs, long long seats,
-                                          long long env_stride, long long n, int d, int xs,
-                                          int rows, long long row0, const float* mean,
-                                          const float* var, float eps, float clip,
-                                          float* x, float* out) {
-    for (int e = threadIdx.x; e < rows * xs; e += kThreads) {
-        const int r = e / xs, c = e - r * xs;
-        const long long row = row0 + r;
-        float value = 0.0f;
-        if (row < n && c < d) {
-            value = obs[(row / seats) * env_stride + (row % seats) * d + c];
-            if (mean != nullptr) {
-                const float scale = __fsqrt_rn(__fadd_rn(var[c], eps));
-                value = clamp_nan(__fdiv_rn(__fsub_rn(value, mean[c]), scale), -clip, clip);
-            }
-            if (out != nullptr) out[row * d + c] = value;
-        }
-        x[e] = value;
+// envs/normalize.py:apply of feature c: (o - m) / sqrt(v + eps), clamped to +-clip
+__device__ __forceinline__ float normalised(float value, const float* mean, const float* var,
+                                            int c, float eps, float clip) {
+    const float scale = __fsqrt_rn(__fadd_rn(var[c], eps));
+    return clamp_nan(__fdiv_rn(__fsub_rn(value, mean[c]), scale), -clip, clip);
+}
+
+// A normaliser's mean and var [d] into mv [2][xs], a float a copy: part of the
+// caller's commit group with the observations. The observations are copied as they
+// are (every load in flight at once) and normalised in shared memory once they land.
+template <int threads>
+__device__ __forceinline__ void stage_norm(const float* mean, const float* var, int d, int xs,
+                                           float* mv) {
+    for (int c = threadIdx.x; c < d; c += threads) {
+        cp_async4(mv + c, mean + c, true);
+        cp_async4(mv + xs + c, var + c, true);
     }
 }
 
@@ -131,17 +158,6 @@ __device__ __forceinline__ void sample(const float (&mu)[2], const float* log_st
                                    half_log_2pi);
     }
     *lp = normal_lp::sum2(terms[0], terms[1]);
-}
-
-// A warp's tower over its 16 rows of x: (y0, y1) the outputs of rows g and g + 8.
-template <int H1, int H2>
-__device__ __forceinline__ void warp_tower(const Layout<H1, H2>& L, const float* T,
-                                           const float* x, int O, float (&y0)[2],
-                                           float (&y1)[2], const Lane& l) {
-    float h1[H1 / 8][4], h2[H2 / 8][4];
-    layer1(L, T, x, h1, l);
-    layer2(L, T, h1, h2, l);
-    last_layer<H2>(T + L.w3, T + L.b3, h2, O, y0, y1, l);
 }
 
 // ------------------------------------------------------------------ policy_act
@@ -164,35 +180,93 @@ struct ActArgs {
     float eps, clip, half_log_2pi;
 };
 
-template <int H1, int H2>
-__host__ __device__ int act_floats(int d) {
-    const Layout<H1, H2> L(d);
-    return 2 * L.tower + kActRows * L.xs;
+// The tile's observations, rows [row0, row0 + rows) of obs at a row stride, into
+// x [rows][xs] as they are (features from d and rows from n zero-filled), and the
+// normaliser into mv: the first commit group's, in flight with the towers' copies.
+template <int rows, int threads>
+__device__ __forceinline__ void stage_obs(const ActArgs& a, int xs, long long row0, float* x,
+                                          float* mv) {
+    for (int e = threadIdx.x; e < rows * xs; e += threads) {
+        const int r = e / xs, c = e - r * xs;
+        const bool valid = row0 + r < a.n && c < a.d;
+        cp_async4(x + e, valid ? a.obs + (row0 + r) * a.stride + c : a.obs, valid);
+    }
+    if (a.mean != nullptr) stage_norm<threads>(a.mean, a.var, a.d, xs, mv);
 }
 
-template <int H1, int H2>
-__global__ void __launch_bounds__(kThreads) policy_act_kernel(ActArgs a) {
+// Once the tile has landed: its rows normalised in place where a normaliser is given,
+// and each row (normalised or not) written to out [n, d] (null: not).
+template <int rows, int threads>
+__device__ __forceinline__ void finish_obs(const ActArgs& a, int xs, long long row0, float* x,
+                                           const float* mv, float* out) {
+    for (int e = threadIdx.x; e < rows * xs; e += threads) {
+        const int r = e / xs, c = e - r * xs;
+        const long long row = row0 + r;
+        if (row < a.n && c < a.d) {
+            float value = x[e];
+            if (a.mean != nullptr) {
+                value = normalised(value, mv, mv + xs, c, a.eps, a.clip);
+                x[e] = value;
+            }
+            if (out != nullptr) out[row * a.d + c] = value;
+        }
+    }
+}
+
+template <int H1, int H2, int rows, int split>
+__host__ __device__ int act_floats(int d) {
+    const Layout<H1, H2> L(d);
+    // both towers, the tile, the normaliser's mean and var, the groups' tiles
+    return 2 * L.tower + rows * L.xs + 2 * L.xs
+        + 2 * (rows / 16) * GroupTower<H1, H2, split>::floats;
+}
+
+template <int H1, int H2, int rows, int split>
+__global__ void __launch_bounds__(act_threads<rows, split>()) policy_act_kernel(ActArgs a) {
+    using Group = GroupTower<H1, H2, split>;
+    constexpr int threads = act_threads<rows, split>(), frags = rows / 16;
     extern __shared__ float4 smem4[];
     float* s = reinterpret_cast<float*>(smem4);
     const Layout<H1, H2> L(a.d);
     const bool critic = a.w[kTower] != nullptr;
     float* x = s + 2 * L.tower;
-    stage_tower(L, a.w, s, 2);
-    if (critic) stage_tower(L, a.w + kTower, s + L.tower, 1);
+    float* mv = x + rows * L.xs;
+    const long long row0 = (long long)blockIdx.x * rows;
+    // two commit groups: both towers' first layers and the tile, then the rest
+    stage_first_layer<H1, H2, threads>(L, a.w, s);
+    if (critic) stage_first_layer<H1, H2, threads>(L, a.w + kTower, s + L.tower);
+    stage_obs<rows, threads>(a, L.xs, row0, x, mv);
+    cp_async_commit();
+    stage_later_layers<H1, H2, threads>(L, a.w, s, 2);
+    if (critic) stage_later_layers<H1, H2, threads>(L, a.w + kTower, s + L.tower, 1);
+    cp_async_commit();
     const long long t = a.t == nullptr ? 0 : *a.t;
     if (t < 0 || t >= a.steps) __trap();  // as index_select and index_copy_
-    const long long row0 = (long long)blockIdx.x * kActRows;
-    stage_obs(a.obs, 1, a.stride, a.n, a.d, L.xs, kActRows, row0, a.mean, a.var,
-              a.eps, a.clip, x, a.obs_rows == nullptr ? nullptr : a.obs_rows + t * a.n * a.d);
-    cp_async_wait_all();
+    cp_async_wait<1>();
     __syncthreads();
-    const int warp = threadIdx.x >> 5, tower = warp >> 1;  // warps 0-1 actor, 2-3 critic
-    if (tower == 1 && !critic) return;
+    if (a.mean != nullptr || a.obs_rows != nullptr) {
+        finish_obs<rows, threads>(a, L.xs, row0, x, mv,
+                                  a.obs_rows == nullptr ? nullptr : a.obs_rows + t * a.n * a.d);
+        __syncthreads();
+    }
+    // split: act staged { cp_async_wait<0>(); return; }
+    // groups [0, frags) the actor, [frags, 2 frags) the critic, fragment f on the
+    // tile's rows [16 f, 16 f + 16)
+    const int warp = threadIdx.x >> 5, group = warp / split;
+    const int tower = group / frags, frag = group - tower * frags;
+    const bool active = (tower == 0 || critic) && row0 + 16 * frag < a.n;
     const Lane l(threadIdx.x & 31);
+    Group gt(mv + 2 * L.xs + group * Group::floats, warp % split, 1 + group);
+    const float* T = s + tower * L.tower;
+    if (active) gt.first(L, T, x + 16 * frag * L.xs, false, l);
+    // split: act layer1 { if (active) sink(gt.h1); return; }
+    cp_async_wait<0>();
+    __syncthreads();
     float y0[2], y1[2];
-    warp_tower(L, s + tower * L.tower, x + 16 * (warp & 1) * L.xs, 2 - tower, y0, y1, l);
+    if (!active || !gt.rest(L, T, 2 - tower, y0, y1, l)) return;
+    // split: act towers { sink(y0, y1); return; }
     // lane t 0 writes row g, lane 1 row g + 8 (every lane of the row holds its sums)
-    const long long r = row0 + 16 * (warp & 1) + (l.t == 0 ? l.g : l.g + 8);
+    const long long r = row0 + 16 * frag + (l.t == 0 ? l.g : l.g + 8);
     if (l.t >= 2 || r >= a.n) return;
     const long long at = t * a.n + r;
     const float mu[2] = {l.t == 0 ? y0[0] : y1[0], l.t == 0 ? y0[1] : y1[1]};
@@ -242,64 +316,179 @@ __device__ __forceinline__ int member_at(const PoolArgs& a, long long i) {
     return (int)m;
 }
 
-template <int H1, int H2>
-__host__ __device__ int pool_floats(int d) {
-    const Layout<H1, H2> L(d);
-    return L.tower + kRows * L.xs;
+// The block's rows of member p: of rows r0 + i (i < kPoolRange, r < rows), those whose
+// member is p and whose use_policy holds, their offsets i into list and their
+// observations' offsets in obs into bases, in row order (a ballot a warp, the warps'
+// counts added in warp order); returns how many. On the way, each of member p's rows
+// whose use_policy is False gets its uniform action, and, where the learner's action
+// is given, the grid's first member's block writes car 0 of each env that starts in
+// its range.
+__device__ __forceinline__ int pack_rows(const PoolArgs& a, int p, long long r0, int* list,
+                                         long long* bases, int* counts) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int total = 0;
+    for (int base = 0; base < kPoolRange; base += kPoolThreads) {
+        const int i = base + threadIdx.x;
+        const long long r = r0 + i;
+        bool take = false;
+        long long obs_at = 0;
+        if (i < kPoolRange && r < a.rows) {
+            const long long env = r / a.map.seats, seat = r - env * a.map.seats;
+            const long long place = env * a.map.cars + a.map.off + seat;
+            const bool use = a.uniforms == nullptr || a.use_policy[a.use_per_env ? env : 0];
+            // the row's member: the one index, the env's entry, or (seat mode) its car
+            const int mine = a.kind == kOne ? p
+                : a.kind == kPerEnv ? member_at(a, env) : (int)(a.map.off + seat);
+            if (a.first != nullptr && blockIdx.y == 0 && seat == 0) {
+#pragma unroll
+                for (int j = 0; j < 2; ++j)
+                    a.out[2 * env * a.map.cars + j] = a.first[2 * env + j];
+            }
+            if (mine == p) {
+                take = use;
+                obs_at = env * a.env_stride + seat * a.d;
+                if (!take) {
+#pragma unroll
+                    for (int j = 0; j < 2; ++j) {
+                        const float u = __fmul_rn(a.uniforms[2 * r + j],
+                                                  __fsub_rn(a.high[j], a.low[j]));
+                        a.out[2 * place + j] = max_nan(a.low[j], __fadd_rn(u, a.low[j]));
+                    }
+                }
+            }
+        }
+        const unsigned mask = __ballot_sync(0xffffffffu, take);
+        if (lane == 0) counts[warp] = __popc(mask);
+        __syncthreads();
+        int at = total;
+#pragma unroll
+        for (int v = 0; v < kPoolWarps; ++v) {
+            if (v < warp) at += counts[v];
+            total += counts[v];
+        }
+        if (take) {
+            at += __popc(mask & ((1u << lane) - 1u));
+            list[at] = i;
+            bases[at] = obs_at;
+        }
+        __syncthreads();
+    }
+    return total;
+}
+
+// Packed rows [0, count) (at most a wave) into x [kPoolWave][xs] as they are, packed
+// row j from obs + bases[j] (features from d and the last fragment's rows from count
+// zero-filled): cp.async copies, a float each, the caller's commit group.
+__device__ __forceinline__ void gather_obs(const PoolArgs& a, const long long* bases, int count,
+                                           int xs, float* x) {
+    const int rows = round_up(count, 16);
+    for (int e = threadIdx.x; e < rows * xs; e += kPoolThreads) {
+        const int j = e / xs, c = e - j * xs;
+        const bool valid = j < count && c < a.d;
+        cp_async4(x + e, valid ? a.obs + bases[j] + c : a.obs, valid);
+    }
+}
+
+// Once the wave has landed: its rows [0, count) normalised in place by mv [2][xs]
+__device__ __forceinline__ void normalise_obs(const PoolArgs& a, int count, int xs,
+                                              const float* mv, float* x) {
+    for (int e = threadIdx.x; e < count * xs; e += kPoolThreads) {
+        const int j = e / xs, c = e - j * xs;
+        if (c < a.d) x[e] = normalised(x[e], mv, mv + xs, c, a.eps, a.clip);
+    }
 }
 
 template <int H1, int H2>
-__global__ void __launch_bounds__(kThreads) pool_act_kernel(PoolArgs a) {
+__host__ __device__ int pool_floats(int d) {
+    const Layout<H1, H2> L(d);
+    // the tower, a wave's tile, the normaliser's mean and var, the groups' activation
+    // tiles, then the range's packed rows' observation offsets (int64) and offsets,
+    // and the warps' counts
+    return L.tower + kPoolWave * L.xs + 2 * L.xs
+        + kPoolGroups * GroupTower<H1, H2, kPoolSplit>::floats + 3 * kPoolRange + kPoolWarps;
+}
+
+template <int H1, int H2>
+__global__ void __launch_bounds__(kPoolThreads, H1 == 64 ? kPoolMinBlocks : 1)
+    pool_act_kernel(PoolArgs a) {
+    using Group = GroupTower<H1, H2, kPoolSplit>;
     extern __shared__ float4 smem4[];
     float* s = reinterpret_cast<float*>(smem4);
     const Layout<H1, H2> L(a.d);
+    float* x = s + L.tower;
+    float* mv = x + kPoolWave * L.xs;
+    float* tiles = mv + 2 * L.xs;
+    long long* bases = reinterpret_cast<long long*>(tiles + kPoolGroups * Group::floats);
+    int* list = reinterpret_cast<int*>(bases + kPoolRange);
     const int p = a.kind == kOne ? member_at(a, 0) : (int)blockIdx.y;
+    const long long r0 = (long long)blockIdx.x * kPoolRange;
+    const int count = pack_rows(a, p, r0, list, bases, list + kPoolRange);
+    // split: pool packed { if (count == 12345) a.out[0] = 0.0f; return; }
+    if (count == 0) return;
     const long long sizes[kTower] = {(long long)a.d * H1, H1, H1 * H2, H2, 2 * H2, 2};
     const float* w[kTower];
 #pragma unroll
     for (int i = 0; i < kTower; ++i) w[i] = a.w[i] + p * sizes[i];
-    float* x = s + L.tower;
-    stage_tower(L, w, s, 2);
-    const long long row0 = (long long)blockIdx.x * kRows;
-    stage_obs(a.obs, a.map.seats, a.env_stride, a.rows, a.d, L.xs, kRows, row0,
-              a.mean == nullptr ? nullptr : a.mean + (long long)p * a.d,
-              a.var == nullptr ? nullptr : a.var + (long long)p * a.d, a.eps, a.clip, x,
-              nullptr);
-    cp_async_wait_all();
-    __syncthreads();
-    const int warp = threadIdx.x >> 5;
+    // two commit groups: the first layer, the normaliser and the first wave's rows,
+    // then the rest
+    stage_first_layer<H1, H2, kPoolThreads>(L, w, s);
+    if (a.mean != nullptr)
+        stage_norm<kPoolThreads>(a.mean + (long long)p * a.d, a.var + (long long)p * a.d, a.d,
+                                 L.xs, mv);
+    gather_obs(a, bases, min(count, kPoolWave), L.xs, x);
+    cp_async_commit();
+    stage_later_layers<H1, H2, kPoolThreads>(L, w, s, 2);
+    cp_async_commit();
+    // split: pool staged { cp_async_wait<0>(); return; }
+    const int warp = threadIdx.x >> 5, group = warp / kPoolSplit;
+    const int frags = (count + 15) / 16;
     const Lane l(threadIdx.x & 31);
-    float y0[2], y1[2];
-    warp_tower(L, s, x + 16 * warp * L.xs, 2, y0, y1, l);
-    const long long r = row0 + 16 * warp + (l.t == 0 ? l.g : l.g + 8);
-    if (l.t >= 2 || r >= a.rows) return;
-    const long long env = r / a.map.seats, place = a.map.place(r);
-    if (a.first != nullptr && blockIdx.y == 0 && r % a.map.seats == 0) {
+    Group gt(tiles + group * Group::floats, warp % kPoolSplit, 1 + group);
+    // waves of a fragment a group: the first wave's layer 1 runs while the towers'
+    // later layers are in flight
+    for (int f0 = 0; f0 < frags; f0 += kPoolGroups) {
+        const int rows = min(count - 16 * f0, kPoolWave);
+        if (f0 == 0) {
+            cp_async_wait<1>();
+        } else {
+            __syncthreads();  // the last wave is done with x and the tiles
+            gather_obs(a, bases + 16 * f0, rows, L.xs, x);
+            cp_async_commit();
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+        if (a.mean != nullptr) {
+            normalise_obs(a, rows, L.xs, mv, x);
+            __syncthreads();
+        }
+        const int f = f0 + group;
+        if (f < frags) gt.first(L, s, x + 16 * group * L.xs, false, l);
+        if (f0 == 0) {
+            cp_async_wait<0>();
+            __syncthreads();
+        } else if (f < frags) {
+            gt.sync();
+        }
+        // split: pool layer1 { if (f < frags) sink(gt.h1); continue; }
+        float y0[2], y1[2];
+        if (f >= frags || !gt.rest(L, s, 2, y0, y1, l)) continue;
+        const int j = 16 * f + (l.t == 0 ? l.g : l.g + 8);
+        if (l.t < 2 && j < count) {
+            const long long r = r0 + list[j], place = a.map.place(r);
+            const float mu[2] = {l.t == 0 ? y0[0] : y1[0], l.t == 0 ? y0[1] : y1[1]};
+            float act[2] = {mu[0], mu[1]};
+            if (a.noise != nullptr) {
 #pragma unroll
-        for (int j = 0; j < 2; ++j) a.out[2 * env * a.map.cars + j] = a.first[2 * env + j];
-    }
-    // the row's member: the one index, the env's entry, or (seat mode) its car
-    const int mine = a.kind == kOne ? p
-        : a.kind == kPerEnv ? member_at(a, env) : (int)(place - env * a.map.cars);
-    if (mine != p) return;
-    const float mu[2] = {l.t == 0 ? y0[0] : y1[0], l.t == 0 ? y0[1] : y1[1]};
-    float act[2] = {mu[0], mu[1]};
-    if (a.noise != nullptr) {
+                for (int k = 0; k < 2; ++k) {
+                    act[k] = clamp_nan(__fadd_rn(mu[k], __fmul_rn(expf(a.log_std[2 * p + k]),
+                                                                  a.noise[2 * r + k])),
+                                       -1.0f, 1.0f);
+                }
+            }
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-            act[j] = clamp_nan(__fadd_rn(mu[j], __fmul_rn(expf(a.log_std[2 * p + j]),
-                                                          a.noise[2 * r + j])), -1.0f, 1.0f);
+            for (int k = 0; k < 2; ++k) a.out[2 * place + k] = act[k];
         }
     }
-    if (a.uniforms != nullptr && !a.use_policy[a.use_per_env ? env : 0]) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-            const float u = __fmul_rn(a.uniforms[2 * r + j], __fsub_rn(a.high[j], a.low[j]));
-            act[j] = max_nan(a.low[j], __fadd_rn(u, a.low[j]));
-        }
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) a.out[2 * place + j] = act[j];
 }
 
 // ------------------------------------------------------------------ launches
@@ -320,7 +509,8 @@ long long shared_bytes(int pool, int d, int h1, int h2) {
     if (d < 1) return 0;
 #define POLICY_BYTES(w1, w2)                                                          \
     if (h1 == w1 && h2 == w2) {                                                       \
-        const long long b = 4LL * (pool ? pool_floats<w1, w2>(d) : act_floats<w1, w2>(d)); \
+        const long long b = 4LL * (pool ? pool_floats<w1, w2>(d)                      \
+                                        : act_floats<w1, w2, kActRows, kActSplit>(d));   \
         return b <= kMaxSharedBytes ? b : 0;                                          \
     }
     POLICY_HIDDEN(POLICY_BYTES)
@@ -336,8 +526,8 @@ extern "C" int policy_shared_bytes(int pool, int obs_dim, int h1, int h2) {
     return (int)shared_bytes(pool, obs_dim, h1, h2);
 }
 
-// The rows a block of policy_act_f32 and of pool_act_f32.
-extern "C" int policy_rows_per_block(int pool) { return pool ? kRows : kActRows; }
+// The rows a block of policy_act_f32 and of pool_act_f32 (its range) takes.
+extern "C" int policy_rows_per_block(int pool) { return pool ? kPoolRange : kActRows; }
 
 // policy_act: ptrs the kActPtrs pointers in ActArgs' order (obs, t, noise, mean,
 // var, log_std, the 12 tower tensors, action, obs_rows, action_rows, logprob_rows,
@@ -389,17 +579,30 @@ extern "C" int policy_act_f32(const void* const* ptrs, int num_ptrs, long long n
             || (a.action == nullptr && a.action_rows == nullptr))
         return (int)cudaErrorInvalidValue;
     if (n == 0) return 0;
-    const long long bytes = shared_bytes(0, obs_dim, h1, h2);
-    const unsigned blocks = (unsigned)((n + kActRows - 1) / kActRows);
-#define POLICY_LAUNCH(w1, w2)                                                         \
-    if (h1 == w1 && h2 == w2) {                                                       \
-        err = allow_smem(policy_act_kernel<w1, w2>, bytes);                           \
+    int sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
+    const bool wide = (n + kActRows - 1) / kActRows > sms;
+#define POLICY_TILE(w1, w2, rows, split)                                              \
+    {                                                                                 \
+        const long long bytes = 4LL * act_floats<w1, w2, rows, split>(obs_dim);       \
+        err = allow_smem(policy_act_kernel<w1, w2, rows, split>, bytes);              \
         if (err != cudaSuccess) return (int)err;                                      \
-        policy_act_kernel<w1, w2><<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(a); \
+        const unsigned blocks = (unsigned)((n + rows - 1) / rows);                     \
+        constexpr int threads = act_threads<rows, split>();                           \
+        policy_act_kernel<w1, w2, rows, split><<<blocks, threads, bytes, (cudaStream_t)stream>>>(a); \
         return (int)cudaGetLastError();                                               \
     }
+    // the wide tile where the blocks outnumber the SMs and its block fits (64-wide
+    // towers), else the narrow one
+    if (h1 == 64 && h2 == 64 && wide && 4LL * act_floats<64, 64, kActWideRows, kActWideSplit>(
+            obs_dim) <= kMaxSharedBytes)
+        POLICY_TILE(64, 64, kActWideRows, kActWideSplit)
+#define POLICY_LAUNCH(w1, w2) \
+    if (h1 == w1 && h2 == w2) POLICY_TILE(w1, w2, kActRows, kActSplit)
     POLICY_HIDDEN(POLICY_LAUNCH)
 #undef POLICY_LAUNCH
+#undef POLICY_TILE
     return (int)cudaErrorInvalidValue;
 }
 
@@ -423,7 +626,7 @@ extern "C" int pool_act_f32(const void* const* ptrs, int num_ptrs, long long row
             || off < 0 || off + seats > cars || env_stride < seats * obs_dim
             || members < 1 || members > 65535
             || kind < kSeat || kind > kOne || shared_bytes(1, obs_dim, h1, h2) == 0
-            || (rows + kRows - 1) / kRows > 0x7fffffffLL)
+            || (rows + kPoolRange - 1) / kPoolRange > 0x7fffffffLL)
         return (int)cudaErrorInvalidValue;
     PoolArgs a;
     a.obs = static_cast<const float*>(ptrs[0]);
@@ -461,12 +664,13 @@ extern "C" int pool_act_f32(const void* const* ptrs, int num_ptrs, long long row
         return (int)cudaErrorInvalidValue;
     if (rows == 0) return 0;
     const long long bytes = shared_bytes(1, obs_dim, h1, h2);
-    const dim3 grid((unsigned)((rows + kRows - 1) / kRows), kind == kOne ? 1u : (unsigned)members);
+    const dim3 grid((unsigned)((rows + kPoolRange - 1) / kPoolRange),
+                    kind == kOne ? 1u : (unsigned)members);
 #define POOL_LAUNCH(w1, w2)                                                           \
     if (h1 == w1 && h2 == w2) {                                                       \
         err = allow_smem(pool_act_kernel<w1, w2>, bytes);                             \
         if (err != cudaSuccess) return (int)err;                                      \
-        pool_act_kernel<w1, w2><<<grid, kThreads, bytes, (cudaStream_t)stream>>>(a);  \
+        pool_act_kernel<w1, w2><<<grid, kPoolThreads, bytes, (cudaStream_t)stream>>>(a); \
         return (int)cudaGetLastError();                                               \
     }
     POLICY_HIDDEN(POOL_LAUNCH)

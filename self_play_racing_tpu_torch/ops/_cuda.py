@@ -1013,29 +1013,45 @@ def _launch_reduce_norm(partial, out, norm) -> None:
           _ptr(norm), _ptr(block_sq), _ptr(grad_norm_ticket(dev)), partial.shape[0], params)
 
 
-# the rollout step's policy (csrc/policy.cu): policy_act's rows a block (two warps a
-# tower, 16 rows each) and pool_act's (a member's tower, four warps of 16 rows), their
-# pointer counts, and the observation normaliser's constants (envs/normalize.py:apply)
+# the rollout step's policy (csrc/policy.cu): policy_act's rows a block (two 16-row
+# fragments, each through each tower by a group of POLICY_ACT_SPLIT warps) and
+# pool_act's range (a block's rows, of which it takes its member's: POOL_ACT_WARPS
+# warps in groups of POOL_ACT_SPLIT a fragment), their pointer counts, and the member
+# modes
 POLICY_ACT_ROWS = 32
-POOL_ACT_ROWS = 64
+POLICY_ACT_SPLIT = 4
+POOL_ACT_RANGE = 128
+POOL_ACT_WARPS = 8
+POOL_ACT_SPLIT = 2
 POLICY_ACT_PTRS = 23
 POOL_ACT_PTRS = 16
 POOL_SEAT, POOL_PER_ENV, POOL_ONE = 0, 1, 2
 
 
 def policy_shared_bytes(pool: bool, obs_dim: int, h1: int, h2: int) -> int:
-    """The shared bytes a block of ``policy_act_f32`` (``pool`` False: both towers and
-    a tile of ``POLICY_ACT_ROWS`` observations) or ``pool_act_f32`` (True: one actor
-    tower and ``POOL_ACT_ROWS``) takes at towers obs_dim -> h1 -> h2, as
-    ``csrc/mlp_tower.cuh:Layout`` lays them out (the kernel's own
-    ``policy_shared_bytes``, held equal to this in chip_smoke.py phase q); 0 where
-    the kernels do not take them (widths not in ``MLP_HIDDEN``, over a block's
-    memory)."""
+    """The shared bytes a block of ``policy_act_f32`` (``pool`` False: both towers, a
+    tile of ``POLICY_ACT_ROWS`` observations, the normaliser's mean and var and four
+    groups' activation tiles) or ``pool_act_f32`` (True: one actor tower, a tile of a
+    wave's rows, a fragment a group, the normaliser, its groups' activation tiles,
+    then its range's packed rows' observation offsets as int64, their offsets and the
+    warps' counts as int32) takes at towers obs_dim -> h1 -> h2, as ``csrc/mlp_tower.cuh:Layout`` and
+    ``GroupTower`` lay them out (the kernel's own ``policy_shared_bytes``, held equal
+    to this in chip_smoke.py phase q); 0 where the kernels do not take them (widths
+    not in ``MLP_HIDDEN``, over a block's memory)."""
     if (h1, h2) not in MLP_HIDDEN or obs_dim < 1:
         return 0
     dk, xs = _round_up(obs_dim, 8), _round_up(obs_dim, 16) + 8
     tower = _round_up(dk * h1 + h1 + h1 * h2 + h2 + 2 * h2 + 2, 4)
-    floats = tower + POOL_ACT_ROWS * xs if pool else 2 * tower + POLICY_ACT_ROWS * xs
+
+    def group(split: int) -> int:
+        return 0 if split == 1 else 16 * (max(h1, h2) + 8)
+
+    if pool:
+        groups = POOL_ACT_WARPS // POOL_ACT_SPLIT
+        floats = (tower + 16 * groups * xs + 2 * xs + groups * group(POOL_ACT_SPLIT)
+                  + 3 * POOL_ACT_RANGE + POOL_ACT_WARPS)
+    else:
+        floats = 2 * tower + POLICY_ACT_ROWS * xs + 2 * xs + 4 * group(POLICY_ACT_SPLIT)
     return 4 * floats if 4 * floats <= BLOCK_SMEM_LIMIT else 0
 
 
@@ -1043,9 +1059,9 @@ def policy_shared_bytes(pool: bool, obs_dim: int, h1: int, h2: int) -> int:
 def _policy_lib():
     lib = build()["policy"]
     got = (lib.policy_rows_per_block(0), lib.policy_rows_per_block(1))
-    if got != (POLICY_ACT_ROWS, POOL_ACT_ROWS):
+    if got != (POLICY_ACT_ROWS, POOL_ACT_RANGE):
         raise RuntimeError(f"csrc/policy.cu takes {got} rows a block; ops/_cuda.py "
-                           f"{(POLICY_ACT_ROWS, POOL_ACT_ROWS)}")
+                           f"{(POLICY_ACT_ROWS, POOL_ACT_RANGE)}")
     return lib
 
 

@@ -21,6 +21,7 @@ inside the rollout program that XLA compiles for the TPU (``one_step``,
   rollout's log-prob bitwise.
 - ``pool_act_f32`` (kernel B) runs a pool of stacked actor towers [P, in, out] on
   env-major rows: a row's member from an [envs] index, a 0-d index or its seat; each
+  row's tower once, under its member, and none where ``use_policy`` is False; each
   member's frozen normaliser and ``exp(log_std)``; then the uniform random action
   and the ``use_policy`` select; out [envs, cars, 2] with the learner's action as
   car 0 where given (``pool_act``).

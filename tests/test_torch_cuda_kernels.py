@@ -2054,6 +2054,26 @@ def test_pool_act_matches_plain(cuda, envs, seats, mode):
     assert held and all(e <= b for e, b in held)
 
 
+@pytest.mark.parametrize("envs,seats", [(4096, 1), (2048, 2), (512, 7)])
+@pytest.mark.parametrize("dist", ["skewed", "all random", "two live", "runs"])
+def test_pool_act_members_each_row_under_its_own(cuda, dist, envs, seats):
+    """Kernel B on the per-env index at the members of ``chip_smoke.with_members``:
+    one member on >= 80% of the envs, the empty pool's all-random index (no tower
+    runs), two live members of five, members in runs absent from whole ranges. Mu
+    bitwise ``mlp_forward``'s actor on each member's rows and within phase p's
+    tolerance, the actions bitwise the composition on it (``hold_pool_act``)."""
+    held = chip_smoke.hold_pool_act((19, 64, 64), envs, seats, "per env", cuda,
+                                    seed=envs + seats, dist=dist)
+    assert held and all(e <= b for e, b in held)
+
+
+def test_policy_kernels_on_unaligned_tower_views_are_bitwise(cuda):
+    """Every tower tensor a view one float past a 16-byte boundary: the kernels copy it
+    a float at a time, bitwise their launches on aligned tensors
+    (``chip_smoke.policy_offset_views``)."""
+    chip_smoke.policy_offset_views(cuda)
+
+
 def test_policy_kernels_in_a_graph_are_eager_bitwise(cuda):
     """Both kernels captured in a CUDA graph at the main path's shapes and replayed
     twice give their eager launches' bits (``chip_smoke.policy_graphs``)."""

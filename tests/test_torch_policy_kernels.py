@@ -19,6 +19,7 @@ The kernels (``csrc/policy.cu``) run only on the card (chip_smoke.py phase q and
 - ``ShardedParams`` and CPU tensors routed to the plain versions.
 """
 import math
+import re
 
 import numpy as np
 import pytest
@@ -438,18 +439,148 @@ def test_the_kernels_refuse_what_they_do_not_take(kernels, case):
     assert kernels() == {"policy_act": 0, "pool_act": 0}
 
 
+def _policy_constant(name: str) -> int:
+    """A ``constexpr int`` of ``csrc/policy.cu``."""
+    src = (_cuda.CSRC_DIR / "policy.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
 def test_shared_bytes_transcribe_the_layout():
-    """``policy_shared_bytes`` as ``csrc/mlp_tower.cuh:Layout`` lays a block out: at
-    (19, 64, 64) a tower is round_up(24 x 64 + 64 + 64 x 64 + 64 + 2 x 64 + 2, 4) =
-    5892 floats and a row of observations 40; kernel A both towers and 32 rows,
-    kernel B one tower and 64."""
-    assert _cuda.policy_shared_bytes(False, 19, 64, 64) == 4 * (2 * 5892 + 32 * 40)
-    assert _cuda.policy_shared_bytes(True, 19, 64, 64) == 4 * (5892 + 64 * 40)
+    """``policy_shared_bytes`` as ``csrc/mlp_tower.cuh:Layout`` and ``GroupTower`` lay a
+    block out, with ``csrc/policy.cu``'s constants: at (19, 64, 64) a tower is
+    round_up(24 x 64 + 64 + 64 x 64 + 64 + 2 x 64 + 2, 4) = 5892 floats, a row of
+    observations 40 and a group's activation tile 16 x 72; kernel A both towers, 32 rows,
+    the normaliser's mean and var and four groups' tiles (its warps split each
+    fragment); kernel B one tower, a wave of 16 rows a group of two warps, the
+    normaliser, its groups' tiles, then its range's observation offsets (int64) and
+    row offsets and the warps' counts."""
+    assert (_cuda.POLICY_ACT_ROWS, _cuda.POLICY_ACT_SPLIT, _cuda.POOL_ACT_RANGE,
+            _cuda.POOL_ACT_WARPS, _cuda.POOL_ACT_SPLIT) == tuple(
+        _policy_constant(k) for k in ("kActRows", "kActSplit", "kPoolRange", "kPoolWarps",
+                                      "kPoolSplit"))
+    assert _cuda.POLICY_ACT_SPLIT == 4 and _cuda.POOL_ACT_SPLIT == 2
+    r, warps = _cuda.POOL_ACT_RANGE, _cuda.POOL_ACT_WARPS
+    assert _cuda.policy_shared_bytes(False, 19, 64, 64) == 4 * (2 * 5892 + 32 * 40 + 2 * 40
+                                                                + 4 * 16 * 72)
+    assert _cuda.policy_shared_bytes(True, 19, 64, 64) == 4 * (5892 + 8 * warps * 40 + 2 * 40
+                                                               + warps // 2 * 16 * 72
+                                                               + 3 * r + warps)
+    assert _cuda.policy_shared_bytes(True, 184, 64, 64) > 0
     assert _cuda.policy_shared_bytes(False, 19, 32, 32) == 0
     assert _cuda.policy_shared_bytes(False, 0, 64, 64) == 0
     widest = max(d for d in range(1, 400) if _cuda.policy_shared_bytes(False, d, 128, 128))
     assert _cuda.policy_shared_bytes(False, widest + 1, 128, 128) == 0
     assert 4 * (2 * (8 * 12 * 128 + 16898 + 2) + 32 * (widest + 8)) > 0 and widest >= 43
+
+
+# ------------------------------------------ kernel B's packing, transcribed
+
+def pool_blocks(rows: int, seats: int, cars: int, off: int, kind: int, member, use,
+                members: int) -> dict:
+    """A numpy transcription of ``pool_act_f32``'s packing (``csrc/policy.cu``:
+    ``pack_rows``): the block of range b (rows [b R, (b + 1) R), R = ``kPoolRange`` read
+    from the source) and grid member y takes member p = y (the 0-d index's entry for
+    a 0-d index) and, of its range's rows whose member is p, those whose ``use`` holds
+    (None: no uniforms, all), in row order: packed row j is fragment j // 16, position
+    j % 16; the rest of them get their uniform action there. Returns {(b, p): (taken
+    rows, uniform rows)}."""
+    width = _policy_constant("kPoolRange")
+    r = np.arange(rows)
+    env = r // seats
+    if kind == _cuda.POOL_SEAT:
+        m = off + r % seats
+    elif kind == _cuda.POOL_PER_ENV:
+        m = np.asarray(member)[env]
+    else:
+        m = np.full(rows, int(np.asarray(member).reshape(-1)[0]))
+    u = np.ones(rows, bool) if use is None else np.asarray(use).reshape(-1)[
+        env if np.asarray(use).size > 1 else 0 * env]
+    out = {}
+    for b in range(-(-rows // width)):
+        span = r[b * width:(b + 1) * width]
+        for y in range(1 if kind == _cuda.POOL_ONE else members):
+            p = int(m[0]) if kind == _cuda.POOL_ONE else y
+            mine = span[m[span] == p]
+            out[b, p] = (mine[u[mine]], mine[~u[mine]])
+    return out
+
+
+def _members(dist: str, envs: int, rng):
+    """An [envs] index over a pool of 5 and its use_policy, as
+    chip_smoke.with_members draws them."""
+    use = np.ones(envs, bool)
+    if dist == "uniform":
+        member = rng.integers(0, 5, envs)
+    elif dist == "skewed":
+        member = rng.integers(1, 5, envs)
+        member[rng.permutation(envs)[:-(-4 * envs // 5)]] = 0
+        assert (member == 0).mean() >= 0.8
+    elif dist == "two live":
+        member = rng.integers(0, 2, envs)
+    elif dist == "runs":
+        member = np.arange(envs) * 5 // envs
+    elif dist == "mixed":
+        member, use = rng.integers(0, 5, envs), rng.random(envs) < 0.7
+    else:  # "all random": the empty pool's index
+        member, use = np.zeros(envs, np.int64), np.zeros(envs, bool)
+    return member, use
+
+
+def _hold_packing(blocks, rows: int, seats: int, cars: int, off: int, member_of, use_of):
+    """Every row whose use holds taken exactly once, by a block of its own member, at
+    consecutive fragment positions in row order; every other row taken by none and
+    given its uniform action once, by its own member's block."""
+    taken, uniform = np.zeros(rows, int), np.zeros(rows, int)
+    for (b, p), (take, rand) in blocks.items():
+        assert all(member_of(r) == p for r in np.concatenate([take, rand]))
+        assert np.all(np.diff(take) > 0) and np.all(take // _cuda.POOL_ACT_RANGE == b)
+        # fragment j // 16, position j % 16: no block computes a fragment of no rows
+        assert -(-len(take) // 16) == len({j // 16 for j in range(len(take))})
+        taken[take] += 1
+        uniform[rand] += 1
+    use = np.array([use_of(r) for r in range(rows)], bool)
+    assert np.all(taken[use] == 1) and np.all(taken[~use] == 0)
+    assert np.all(uniform[~use] == 1) and np.all(uniform[use] == 0)
+
+
+@pytest.mark.parametrize("dist", ["uniform", "skewed", "two live", "runs", "mixed",
+                                  "all random"])
+@pytest.mark.parametrize("envs,seats", [(1, 1), (64, 1), (4095, 1), (4096, 1), (8192, 1),
+                                        (2048, 2), (700, 3), (512, 7)])
+def test_pool_packing_takes_each_policy_row_once_under_its_member(dist, envs, seats):
+    """Kernel B's packing (``pool_blocks``) on the per-env index: each row whose
+    use_policy holds runs its tower once, in its own member's block; a row whose
+    use_policy is False runs none and gets its uniform action once; a block whose
+    member has no such row in its range has nothing to stage. For uniform, skewed
+    (one member on >= 80%), two live of five, members in runs (absent from whole
+    ranges), mixed use_policy and the empty pool (all random), 1-8192 envs, 1-7
+    seats."""
+    rng = np.random.default_rng(envs + seats)
+    member, use = _members(dist, envs, rng)
+    rows = envs * seats
+    blocks = pool_blocks(rows, seats, seats + 1, 1, _cuda.POOL_PER_ENV, member, use, 5)
+    _hold_packing(blocks, rows, seats, seats + 1, 1, lambda r: member[r // seats],
+                  lambda r: use[r // seats])
+    if dist == "runs" and rows >= 5 * _cuda.POOL_ACT_RANGE:
+        assert sum(len(t) == 0 for t, _ in blocks.values()) >= len(blocks) // 2
+    if dist == "all random":
+        assert all(len(t) == 0 for t, _ in blocks.values())
+
+
+@pytest.mark.parametrize("seats", [1, 2, 3, 5, 7])
+@pytest.mark.parametrize("envs", [1, 64, 4096, 8192])
+def test_pool_packing_seat_and_one_member_modes(seats, envs):
+    """Seat mode (seat s's rows r = s mod seats, member s, P = seats) and a 0-d index
+    (every row the one member's; use_policy 0-d True, then an [envs] mix): each row's
+    tower runs once, under its member."""
+    rows = envs * seats
+    blocks = pool_blocks(rows, seats, seats, 0, _cuda.POOL_SEAT, None, None, seats)
+    _hold_packing(blocks, rows, seats, seats, 0, lambda r: r % seats, lambda r: True)
+    for use in (np.array(True), np.random.default_rng(envs).random(envs) < 0.5):
+        blocks = pool_blocks(rows, seats, seats + 1, 1, _cuda.POOL_ONE, np.array(3), use, 5)
+        assert set(p for _, p in blocks) == {3}
+        _hold_packing(blocks, rows, seats, seats + 1, 1, lambda r: 3,
+                      lambda r: bool(use.reshape(-1)[r // seats if use.size > 1 else 0]))
 
 
 # ----------------------------------------------- what takes the plain version

@@ -359,6 +359,36 @@ o. o.1 (right after p) both against their plain versions (the narrow kernels and
    captured graphs (the second taken in by copy at its replay), bitwise an eager
    rollout at that weight and apart from the first.
 
+and for the NEXT_STEP autoreset inside the transitions' launch (``csrc/autoreset.cuh``:
+each transition entry's autoreset mode writes the reset rows' fresh state and info,
+the masks, the episode statistics, the rollout's reward, done and episode rows and
+t + 1, and on the multi-car env the PFSP counts; every path above whose vector steps
+run on the card, phases 7, 8, 9, 10, 11, c, h, j and k, takes that fused route, one
+transition launch a step, counted also as ``single_transition_autoreset`` (and
+``single_transition_rows_autoreset``) and ``multi_transition_autoreset`` (and
+``multi_transition_small_autoreset``); phases m.2 and o.2 keep the composition
+route, to hold the plain mode over a rollout):
+
+r. r.1 (after o.1) the four entries in their autoreset mode against the composition,
+   the same kernel's plain mode followed by the PyTorch glue, called explicitly, on
+   ``crafted_state`` (rows that finish, crash and truncate this step) with pending
+   resets on none, some and all rows, at 16, 48 and 4096 env rows gathered and tiled,
+   1 and 2 cars, the pool's index one for all and per env: every state field, info,
+   reward, flag, record, buffer row, t + 1 and ``extra`` bitwise (-0.0 apart from
+   0.0), one autoreset launch by the kernel the env picks; each entry graphed
+   bitwise eager; r.3 each entry timed where ``AUTORESET_TIMED`` says, eager and in a
+   CUDA graph, beside the composition, its plain mode alone and its bound (the
+   autoreset's bytes added); r.2 (last) 256-step rollouts, graphed, through the fused
+   route and through the composition, self-play at 4096 envs x 2 cars on the tiled
+   pool (phase m.2's) and single-car at 4096 envs (phase o.2's): every step's
+   buffers, ``extra`` and the final state bitwise, the autoreset mode launched once
+   a step; a captured rollout step's kernel and copy nodes and its device ms a step,
+   in turns.
+
+Phases k, m.3, o.3 and r.2 count a captured step's nodes from the graph itself
+(``graph_nodes``: those phases capture under ``kept_graphs``, ``keep_graph=True``); a
+profiled replay, which can drop events, only times the kernels it recorded.
+
 The line before the last is one JSON object with every kernel's numbers (``ms`` the
 eager back-to-back time, ``graph_ms`` the CUDA-graph replay time, ``launches`` the
 count on the self-play path of phase 10, or for K1, the narrow
@@ -391,7 +421,12 @@ self-play updates summed; ``launches_graphed`` its count over phase k's graphed
 self-play run's 3 timed updates on the tiled pool; ``launches_loops_graphed`` its
 count over phase l's graphed runs, as replays; the three MLP kernels of phase p
 their largest error and error over bound, the composition's forward and backward
-(``plain_ms``, the forward's ``plain_graph_ms``), the backward's
+(``plain_ms``, the forward's ``plain_graph_ms``), the four ``*_autoreset`` entries
+phase r.3's times (``plain_ms`` and ``plain_graph_ms`` the composition's,
+``plain_mode_graph_ms`` the plain mode's alone, ``no_pool_graph_ms`` the multi-car
+entries' without the PFSP counts), their ``launches`` on the single-car
+main path (gathered; the rows kernel tiled), self-play training and ``train multi``
+(the first kernel) and phase r.2's ``rollout_step_nodes``, the backward's
 ``recompute_bound_ms`` (the forward it recomputes), the forward's and the backward's
 ``ffma_bound_ms`` (and ``recompute_ffma_bound_ms``), the reduce's ``launch_floor_ms``
 and, under ``at``, the times at the other towers and rows); the last line is ``{"ok": true,
@@ -399,8 +434,10 @@ and, under ``at``, the times at the other towers and rows); the last line is ``{
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import gc
@@ -427,7 +464,7 @@ from self_play_racing_tpu_torch import interop
 from self_play_racing_tpu_torch import train as ttrain
 from self_play_racing_tpu_torch.agent import ppo
 from self_play_racing_tpu_torch.agent.self_play import SelfPlayTrainer
-from self_play_racing_tpu_torch.agent.trainer import PPOTrainer
+from self_play_racing_tpu_torch.agent.trainer import PPOTrainer, make_single_env_hooks
 from self_play_racing_tpu_torch.configs import base_config, self_play_config
 from self_play_racing_tpu_torch.envs import multi as menv
 from self_play_racing_tpu_torch.envs import normalize as obsnorm
@@ -1563,6 +1600,10 @@ COUNTERS = {
     "single_observe_row_ids": (senv, "observe_row_id_launches"),
     "single_transition_row_ids": (senv, "transition_row_id_launches"),
     "single_transition_rows": (senv, "transition_rows_launches"),
+    "multi_transition_autoreset": (menv, "transition_autoreset_launches"),
+    "multi_transition_small_autoreset": (menv, "transition_autoreset_small_launches"),
+    "single_transition_autoreset": (senv, "transition_autoreset_launches"),
+    "single_transition_rows_autoreset": (senv, "transition_autoreset_rows_launches"),
     "compute_gae": (gae, "compute_gae_launches"),
     "mixbits_permutation": (prng, "mixbits_permutation_launches"),
     "ppo_head": (mbops, "ppo_head_launches"),
@@ -1605,20 +1646,25 @@ def per_kernel(launches):
     ``multi_transition`` and ``single_transition`` counters count every launch of the
     three functions, of which ``*_small`` counts the first kernels' and
     ``single_transition_rows`` that of several rows a block; here the other kernels'
-    alone."""
+    alone; the same for the transitions' autoreset mode (``*_autoreset``, the
+    launches of the vector step's fused route, also counted without the suffix)."""
     out = dict(launches)
     for name in ("multi_observe", "multi_transition"):
         out[name] -= out[f"{name}_small"]
+    out["multi_transition_autoreset"] -= out["multi_transition_small_autoreset"]
     out["single_transition"] -= out["single_transition_rows"]
+    out["single_transition_autoreset"] -= out["single_transition_rows_autoreset"]
     return out
 
 
-def counts(envs=None, tiled=False, **nonzero):
+def counts(envs=None, tiled=False, autoreset=False, **nonzero):
     """The expected counts: those given, every other kernel 0; on a multi-car path
     of ``envs`` env rows also its env-step launches by the first kernels, under
     ``ops/_cuda.py``'s OBSERVE_SMALL_BELOW and TRANSITION_SMALL_BELOW rows, and on a
     single-car path on the tiled layout (``tiled``) its transition's by the kernel of
-    several rows a block, from SINGLE_TRANSITION_ROWS_FROM rows."""
+    several rows a block, from SINGLE_TRANSITION_ROWS_FROM rows. On a path whose
+    vector steps take the fused route (``autoreset``: every rollout) every transition
+    launch is also the autoreset mode's."""
     out = {name: nonzero.get(name, 0) for name in COUNTERS}
     if envs is not None and envs < _cuda.OBSERVE_SMALL_BELOW:
         out["multi_observe_small"] = out["multi_observe"]
@@ -1626,6 +1672,10 @@ def counts(envs=None, tiled=False, **nonzero):
         out["multi_transition_small"] = out["multi_transition"]
     if tiled and envs >= _cuda.SINGLE_TRANSITION_ROWS_FROM:
         out["single_transition_rows"] = out["single_transition"]
+    if autoreset:
+        for name in ("multi_transition", "multi_transition_small", "single_transition",
+                     "single_transition_rows"):
+            out[f"{name}_autoreset"] = out[name]
     return out
 
 
@@ -1664,20 +1714,19 @@ def learner(launches, cfg, updates: int, computed=None, towers: bool = True,
 
 
 def rollout(params, log_std, cfg, track, vstate, obs, gen, steps):
-    """The bench loop: sample_action + vector.step with NEXT_STEP autoreset.
+    """The bench loop: sample_action + vector.step with NEXT_STEP autoreset, through
+    the single-car hooks' step (the transition kernel's autoreset mode).
     Returns the final (vstate, obs), a device flag that every obs and reward was
     finite, and the device count of episodes that ended."""
     finite = torch.ones((), dtype=torch.bool, device=obs.device)
     ended = torch.zeros((), dtype=torch.int64, device=obs.device)
+    hooks = make_single_env_hooks(cfg)
     for _ in range(steps):
         noise = net.sample_noise((obs.shape[0], cfg.action_dim), gen, device=obs.device)
         action, _, _ = net.sample_action(params, log_std, obs, noise)
         vstate, obs, reward, done, *_ = vector.step(
-            vstate, action,
-            lambda s, a, g: senv.transition(cfg, track, s, a),
-            lambda s: senv.observe(cfg, track, s),
-            lambda g: senv.reset_state(cfg, track),
-            info_fn=lambda s: senv.info_from_state(cfg, track, s))
+            vstate, action, lambda s, a, g, p, st: hooks.step(track, s, a, g, p, st, None),
+            lambda s: hooks.observe(track, s))
         finite &= torch.isfinite(obs).all() & torch.isfinite(reward).all()
         ended += done.sum()
     return vstate, obs, finite, ended
@@ -1704,7 +1753,7 @@ def main_path(track, cfg, dev, card, label=""):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_counts()
-    expected = counts(NUM_ENVS, tiled=isinstance(track, trk.TiledPooledTracks),
+    expected = counts(NUM_ENVS, tiled=isinstance(track, trk.TiledPooledTracks), autoreset=True,
                       single_observe=STEPS + 1, single_transition=STEPS, **policy(STEPS))
     if isinstance(track, trk.LAYOUTS):
         expected.update(single_observe_row_ids=STEPS + 1, single_transition_row_ids=STEPS)
@@ -1786,7 +1835,7 @@ def training(track, env_cfg, card):
     print(f"train: median {statistics.median(wall) * 1e3:.1f} ms/update at {NUM_ENVS} x {STEPS} "
           f"on {card}; launches {launches}")
     n = STEPS * TRAIN_UPDATES
-    expected = counts(single_observe=n, single_transition=n, **policy(n),
+    expected = counts(autoreset=True, single_observe=n, single_transition=n, **policy(n),
                       compute_gae=TRAIN_UPDATES, mixbits_permutation=TRAIN_UPDATES,
                       **learner(launches, cfg, TRAIN_UPDATES, [c for _, c in loops]))
     if launches != expected:
@@ -1819,7 +1868,8 @@ def entry_point(card):
           f"{dt:.1f} s on {card}; launches {launches}; saved policy loads "
           f"({len(params['actor'])} layers per tower, log_std {log_std.tolist()})")
     steps = 2 * cfg.num_steps
-    expected = counts(cfg.num_envs, single_observe=steps + 1, single_transition=steps,
+    expected = counts(cfg.num_envs, autoreset=True, single_observe=steps + 1,
+                      single_transition=steps,
                       compute_gae=2, mixbits_permutation=2, **learner(launches, cfg, 2),
                       **policy(steps))
     if launches != expected:
@@ -1885,7 +1935,7 @@ def selfplay_training(make_track, card, label=""):
           f"{peak / 2**20:,.1f} MiB over the {base / 2**20:,.1f} MiB allocated before "
           f"(torch.cuda.max_memory_allocated {(peak + base) / 2**20:,.1f} MiB)")
     n = STEPS * SP_TRAIN_UPDATES
-    expected = counts(cfg.num_envs, multi_observe=n, multi_transition=n,
+    expected = counts(cfg.num_envs, autoreset=True, multi_observe=n, multi_transition=n,
                       **policy(n, selfplay=True),
                       compute_gae=SP_TRAIN_UPDATES, mixbits_permutation=SP_TRAIN_UPDATES,
                       **learner(launches, cfg, SP_TRAIN_UPDATES, [c for _, c in loops]))
@@ -1913,11 +1963,13 @@ def file_digests():
 
 def selfplay_entry_points(card):
     """``train scale`` and ``train multi`` at their defaults, two updates each, in
-    temporary directories; the repo's tracked files must not change."""
+    temporary directories; the repo's tracked files must not change. Returns each
+    run's launch counts by mode."""
     before = file_digests()
     cwd = os.getcwd()
     runs = {"scale": "models/self_play_agent_scale_1B.npz",
             "multi": "models/self_play_agent.npz"}
+    by_mode = {}
     for mode, out in runs.items():
         with tempfile.TemporaryDirectory() as tmp:
             os.chdir(tmp)
@@ -1936,7 +1988,8 @@ def selfplay_entry_points(card):
         # sensing: every step, the construction's reset, and train multi's forced
         # reset before each update
         sensed = steps + 1 + (2 if cfg.reset_envs_each_update else 0)
-        expected = counts(cfg.num_envs, multi_observe=sensed, multi_transition=steps,
+        expected = counts(cfg.num_envs, autoreset=True, multi_observe=sensed,
+                          multi_transition=steps,
                           compute_gae=2, mixbits_permutation=2, **learner(launches, cfg, 2),
                           **policy(steps, selfplay=True))
         print(f"train {mode}: {cfg.num_envs} envs x {cfg.num_steps} steps x 2 cars, 2 updates "
@@ -1944,9 +1997,11 @@ def selfplay_entry_points(card):
               f"({params['actor'][0][0].shape[0]} inputs, log_std {log_std.tolist()})")
         if launches != expected:
             raise AssertionError(f"train {mode} launches {launches}, expected {expected}")
+        by_mode[mode] = launches
     if file_digests() != before:
         raise AssertionError("the self-play entry points wrote the repo's tracked files")
     print(f"train scale/multi left the repo's tracked files untouched ({len(before)} checked)")
+    return by_mode
 
 
 def checkpoints(track, dev):
@@ -2072,7 +2127,8 @@ def resampled_entry_points(card):
             steps = 2 * cfg.num_steps
             # sensing: every step, the construction's reset and the reset onto the
             # pool of update 1
-            expected = counts(cfg.num_envs, multi_observe=steps + 2, multi_transition=steps,
+            expected = counts(cfg.num_envs, autoreset=True, multi_observe=steps + 2,
+                              multi_transition=steps,
                               multi_observe_row_ids=steps + 2,
                               multi_transition_row_ids=steps, compute_gae=2,
                               mixbits_permutation=2, **learner(launches, cfg, 2),
@@ -2410,7 +2466,8 @@ def dp_expected(cfg, updates: int, launches, towers: bool = True, group: bool = 
     ``launches``; the MLP kernels where ``towers``, not on a tensor-parallel rank,
     and in a ``group`` the reduce's norm-only mode with them)."""
     n = cfg.num_steps * updates
-    return counts(cfg.num_envs // cfg.data_shards, multi_observe=n, multi_transition=n,
+    return counts(cfg.num_envs // cfg.data_shards, autoreset=True, multi_observe=n,
+                  multi_transition=n,
                   multi_observe_row_ids=n, multi_transition_row_ids=n,
                   **policy(n, selfplay=True, towers=towers),
                   compute_gae=updates, mixbits_permutation=updates,
@@ -3065,7 +3122,8 @@ def tp_expected(cfg, launches):
     kernels as ``learner`` checks them on ``launches``; no MLP kernel: the rank's
     slices run the Megatron composition)."""
     n = cfg.num_steps
-    return counts(cfg.num_envs, tiled=True, single_observe=n, single_transition=n,
+    return counts(cfg.num_envs, autoreset=True, tiled=True, single_observe=n,
+                  single_transition=n,
                   single_observe_row_ids=n, single_transition_row_ids=n, compute_gae=1,
                   mixbits_permutation=1, **policy(n, towers=False),
                   **learner(launches, cfg, 1, towers=False))
@@ -3310,22 +3368,78 @@ def replays_without_sync():
         _graph.CapturedStep.replay = replay
 
 
+@contextlib.contextmanager
+def kept_graphs():
+    """Inside the block the CUDA graphs PyTorch captures keep their graph
+    (``keep_graph=True``; still instantiated at the end of the capture, as by
+    default), so that ``graph_nodes`` can count a captured step's nodes."""
+    real = torch.cuda.CUDAGraph
+
+    class Kept(real):
+        def __init__(self, keep_graph=False):
+            super().__init__(True)
+
+        def capture_end(self):
+            super().capture_end()
+            self.instantiate()
+
+    torch.cuda.CUDAGraph = Kept
+    try:
+        yield
+    finally:
+        torch.cuda.CUDAGraph = real
+
+
+def graph_nodes(graph) -> dict:
+    """The nodes of a CUDA graph captured under ``kept_graphs``, counted from the graph
+    itself (the driver's ``cuGraphGetNodes`` and ``cuGraphNodeGetType``): its kernel
+    nodes, its copy and set nodes (memcpy, memset) and any others."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+                                     ctypes.POINTER(ctypes.c_size_t)]
+    cuda.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    handle = graph.raw_cuda_graph()
+    count = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = collections.Counter()
+    kind = ctypes.c_int(-1)
+    for node in nodes:
+        if cuda.cuGraphNodeGetType(node, ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kinds[kind.value] += 1
+    # CUgraphNodeType: 0 kernel, 1 memcpy, 2 memset
+    return {"kernel_nodes": kinds.pop(0, 0), "copy_nodes": kinds.pop(1, 0) + kinds.pop(2, 0),
+            "other_nodes": sum(kinds.values())}
+
+
 def replay_nodes(graph) -> dict:
-    """One replay of the CUDA graph ``graph`` under the profiler: its kernel nodes, its
-    copy and set nodes and the kernels' summed time (us)."""
+    """A captured step (``graph``, captured under ``kept_graphs``): its nodes by type
+    from the graph itself (``graph_nodes``), then one replay under the profiler: the
+    kernels it recorded (``profiled_kernels``) and their summed time (us). The
+    profiler can drop a replay's events, and it also records what the replay launches
+    outside the graph (with a registered generator, PyTorch's two fills of its seed
+    and offset before the graph), so the nodes are not counted from it."""
+    out = graph_nodes(graph)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         graph.replay()
         torch.cuda.synchronize()
-    out = {"kernel_nodes": 0, "copy_nodes": 0, "kernel_us": 0.0}
+    out.update(profiled_kernels=0, kernel_us=0.0)
     for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        if "memcpy" in evt.name.lower() or "memset" in evt.name.lower():
-            out["copy_nodes"] += 1
-        else:
-            out["kernel_nodes"] += 1
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and "memcpy" not in evt.name.lower() and "memset" not in evt.name.lower()):
+            out["profiled_kernels"] += 1
             out["kernel_us"] += evt.time_range.elapsed_us()
     return out
+
+
+def profiled(nodes) -> str:
+    """What the profiler saw of ``replay_nodes``' replay, as the phases print it."""
+    return (f"{nodes['kernel_us']:.1f} us over the {nodes['profiled_kernels']} kernels the "
+            f"profiler recorded")
 
 
 def minibatch_step_nodes(graph) -> dict:
@@ -3445,7 +3559,8 @@ def graph_against_eager(pool, card):
                     mb = r["minibatch_nodes"]
                     print(f"{what}: one replay of the captured minibatch step (masked): "
                           f"{mb['kernel_nodes']} kernel nodes, {mb['copy_nodes']} copy and "
-                          f"set nodes, the kernels {mb['kernel_us']:.1f} us on {card}")
+                          f"set nodes (counted from the graph), the kernels {profiled(mb)} "
+                          f"on {card}")
                 print(f"{what}: trainer and warm-up update {r['warm']:.1f} s (capture "
                       f"{r['captures'][0]:.3f} s); timed median "
                       f"{statistics.median(r['walls'][:GRAPH_UPDATES]) * 1e3:.1f} ms/update; "
@@ -3471,7 +3586,7 @@ def graph_against_eager(pool, card):
                 raise AssertionError(f"{what}: {g['replays']} replays checked")
             sensing, stepping = (("multi_observe", "multi_transition") if kind == "self-play"
                                  else ("single_observe", "single_transition"))
-            expected = counts(cfg.num_envs, tiled=where == "tiled",
+            expected = counts(cfg.num_envs, autoreset=True, tiled=where == "tiled",
                               **{sensing: STEPS, stepping: STEPS, "compute_gae": 1,
                                  "mixbits_permutation": 1},
                               **policy(STEPS, selfplay=kind == "self-play"))
@@ -3856,14 +3971,14 @@ def differing(got: dict, want: dict) -> dict:
             for k in want if not same_bits(got[k], want[k])}
 
 
-def env_step_bound(cfg, track, state, action, outs, obs):
+def env_step_bound(cfg, track, state, action, outs, obs, extra=(0, 0)):
     """The bounds of ``multi.transition`` and ``multi.observe`` on these inputs:
     each input read once (the distinct rows of a layout once) and each output
     written once over 3.35 TB/s, against the operations the data needs (K1's fold
     over each row's real segments, up to its last one of nonzero direction, and
     K3's car pass counted from the cars' places; K2's search over each row's real
     waypoints; K5 and K4's pair test) and the tails' (a few tens a car) over 67
-    TFLOP/s."""
+    TFLOP/s; ``extra`` (bytes, operations) the transition's beside them."""
     rows, row_ids = trk.rows_of(track)
     used = (rows.wp_x.shape[0] if row_ids is None
             else int(torch.unique(row_ids).numel()))
@@ -3876,7 +3991,7 @@ def env_step_bound(cfg, track, state, action, outs, obs):
     real_wp = int(per_env.n_wp.clamp(0, w).sum())
     t_ops = a * 5 * real_wp * K2_OPS_PER_PAIR \
         + n * a * (K5_OPS_PER_CAR + TAIL_OPS_PER_CAR) + n * a * a * (4 * K4_OPS_PER_PAIR_AXIS + 2)
-    transition = bound_ms(t_in + nbytes(*outs), t_ops)
+    transition = bound_ms(t_in + nbytes(*outs) + extra[0], t_ops + extra[1])
     cdx = state.x[:, None, :] - state.x[:, :, None]
     cdy = state.y[:, None, :] - state.y[:, :, None]
     seen = int((torch.sqrt(cdx * cdx + cdy * cdy) >= 0.5).sum()) * r
@@ -4231,8 +4346,8 @@ def same_bits_device(a, b) -> torch.Tensor:
 
 
 def rollout_step_profile(rollout, steps: int) -> dict:
-    """A captured rollout step (``ppo.UpdateGraphs.rollout``): one replay under the
-    profiler (its kernel nodes, its copy and set nodes, the kernels' summed time),
+    """A captured rollout step (``ppo.UpdateGraphs.rollout``, captured under
+    ``kept_graphs``): its nodes and one replay under the profiler (``replay_nodes``),
     then ``steps`` replays between CUDA events (device ms a step). The graph's step
     counter is set back before each, so the replays stay inside its buffers.
     ``scripts/torch_step_profile.py`` keeps a copy, so that it runs on a checkout
@@ -4250,17 +4365,11 @@ def rollout_step_profile(rollout, steps: int) -> dict:
     return out
 
 
-def env_step_rollout(pool, dev, card):
-    """Phase m.2 and m.3: a 256-step self-play rollout at 4096 envs x 2 cars on the
-    tiled canonical pool, the learner and every opponent ``SCALE_1B_MODEL`` (its
-    parameters loaded into a ``SelfPlayTrainer``, and its snapshot the pool's one
-    member): eagerly with every ``multi.transition`` and ``multi.observe`` call also
-    run as its plain version on the same inputs (every output of every step
-    bitwise); then graphed (``ppo.UpdateGraphs``, as the trainer runs it) with the
-    two kernels and with the plain versions (the parent's composition): every
-    step's buffers and the final state bitwise. Then the kernel nodes of one
-    captured rollout step of each and its device time a step, and the kernel
-    graph's gain. Returns the node counts."""
+def selfplay_rollout_trainer(pool, dev):
+    """Phase m.2's and r.2's self-play rollout: (trainer, log_std, noise, the vector
+    env's generator state) of a ``SelfPlayTrainer`` at 4096 envs x 2 cars on the tiled
+    canonical pool, the learner and every opponent ``SCALE_1B_MODEL`` (its
+    parameters loaded, and its snapshot the pool's one member), opponents per env."""
     cfg = self_play_config(num_envs=NUM_ENVS, num_steps=STEPS, total_timesteps=1_000_000_000,
                            opponent_per_env=True, reset_envs_each_update=False,
                            snapshot_freq=1)
@@ -4276,7 +4385,24 @@ def env_step_rollout(pool, dev, card):
     log_std = agent.log_std.detach().clone()
     noise = net.sample_noise((STEPS, NUM_ENVS, 2), torch.Generator(device=dev).manual_seed(4),
                              device=dev)
-    gen_state = trainer.runner.vec.generator.get_state()
+    return trainer, log_std, noise, trainer.runner.vec.generator.get_state()
+
+
+def env_step_rollout(pool, dev, card):
+    """Phase m.2 and m.3: a 256-step self-play rollout at 4096 envs x 2 cars on the
+    tiled canonical pool, the learner and every opponent ``SCALE_1B_MODEL`` (its
+    parameters loaded into a ``SelfPlayTrainer``, and its snapshot the pool's one
+    member): eagerly with every ``multi.transition`` and ``multi.observe`` call also
+    run as its plain version on the same inputs (every output of every step
+    bitwise); then graphed (``ppo.UpdateGraphs``, as the trainer runs it) with the
+    two kernels and with the plain versions (the parent's composition): every
+    step's buffers and the final state bitwise. Then the kernel nodes of one
+    captured rollout step of each and its device time a step, and the kernel
+    graph's gain. The vector steps take the composition route (the transition's
+    plain mode and the autoreset in PyTorch; phase r holds the fused route). Returns
+    the node counts."""
+    trainer, log_std, noise, gen_state = selfplay_rollout_trainer(pool, dev)
+    trainer.hooks = composed_hooks(trainer.hooks)
 
     flags = []
     t0 = time.perf_counter()
@@ -4316,8 +4442,9 @@ def env_step_rollout(pool, dev, card):
     print(f"phase m.3 one captured self-play rollout step (4096 x 2 cars, tiled) on {card}: "
           f"kernel nodes {k_nodes} with the two env kernels against {p_nodes} with the plain "
           f"versions (the parent's env step), copy nodes {nodes['kernel'][0]['copy_nodes']} "
-          f"and {nodes['plain'][0]['copy_nodes']}; the kernels' time in one replay "
-          f"{nodes['kernel'][0]['kernel_us']:.1f} and {nodes['plain'][0]['kernel_us']:.1f} us; "
+          f"and {nodes['plain'][0]['copy_nodes']} (counted from the graphs); the kernels' "
+          f"time in one replay {profiled(nodes['kernel'][0])} and "
+          f"{profiled(nodes['plain'][0])}; "
           f"a step between CUDA events over {STEPS} replays, in turns kernel, plain, kernel, "
           f"plain: {[round(r['ms_per_step'], 4) for r in nodes['kernel']]} ms and "
           f"{[round(r['ms_per_step'], 4) for r in nodes['plain']]} ms")
@@ -5340,7 +5467,7 @@ def train_more_cars(card, cars: int = 3) -> None:
             os.chdir(cwd)
     cfg, obs_dim = trainer.cfg, trainer.env_cfg.obs_dim
     # sensing: every step and the construction's reset
-    expected = counts(cfg.num_envs, multi_observe=cfg.num_steps + 1,
+    expected = counts(cfg.num_envs, autoreset=True, multi_observe=cfg.num_steps + 1,
                       multi_transition=cfg.num_steps, compute_gae=1, mixbits_permutation=1,
                       **learner(launches, cfg, 1), **policy(cfg.num_steps, selfplay=True))
     w1 = params["actor"][0][0]
@@ -5402,13 +5529,13 @@ def distinct(tensors) -> list:
     return list({id(t): t for t in tensors}.values())
 
 
-def single_step_bound(cfg, track, state, action, out, obs):
+def single_step_bound(cfg, track, state, action, out, obs, extra=(0, 0)):
     """The bounds of ``single.transition`` and ``single.observe`` on these inputs:
     each input read once (the distinct rows of a layout once) and each output
     written once over 3.35 TB/s, against the operations the data needs (K2's search
     over each row's real waypoints, K5 and the tail; K1's fold over each row's real
     segments, up to its last one of nonzero direction, and the kinematic columns)
-    over 67 TFLOP/s."""
+    over 67 TFLOP/s; ``extra`` (bytes, operations) the transition's beside them."""
     rows, row_ids = trk.rows_of(track)
     used = (rows.wp_x.shape[0] if row_ids is None
             else int(torch.unique(row_ids).numel()))
@@ -5421,8 +5548,8 @@ def single_step_bound(cfg, track, state, action, out, obs):
         + 4 * n * 2 * 4  # the rows' positions, the normals at the corners' winners
     real_wp = int(per_env.n_wp.clamp(0, w).sum())
     t_ops = 5 * real_wp * K2_OPS_PER_PAIR + n * (K5_OPS_PER_CAR + SINGLE_TAIL_OPS_PER_CAR)
-    transition = bound_ms(t_in + nbytes(*distinct(single_transition_fields(out).values())),
-                          t_ops)
+    transition = bound_ms(t_in + nbytes(*distinct(single_transition_fields(out).values()))
+                          + extra[0], t_ops + extra[1])
     car = state.car
     o_in = nbytes(car.x, car.y, car.angle, car.vx, car.vy, state.last_steering) \
         + used * s * 5 * 4
@@ -5652,16 +5779,11 @@ def check_single_env_step(pool, dev, card):
     return entries
 
 
-def single_env_rollout(pool, dev, card):
-    """Phase o.2 and o.3: a 256-step single-car rollout at 4096 envs on the tiled
-    canonical pool, ``models/single_agent.npz``'s parameters loaded into a
-    ``PPOTrainer`` with the speed-weight anneal's tensor in its aux: eagerly with
-    every ``single.transition`` and ``single.observe`` call also run as its plain
-    version on the same inputs (every output of every step bitwise); then graphed
-    (``ppo.UpdateGraphs``, as the trainer runs it) with the two kernels and with the
-    plain versions (the parent's composition): every step's buffers and the final
-    state bitwise. Then the kernel nodes of one captured rollout step of each and its
-    device time a step, in turns. Returns the node counts."""
+def single_rollout_trainer(pool, dev):
+    """Phase o.2's and r.2's single-car rollout: (trainer, log_std, noise, the vector
+    env's generator state) of a ``PPOTrainer`` at 4096 envs on the tiled canonical
+    pool, ``MODEL``'s parameters loaded, the speed-weight anneal's tensor (6.5) in its
+    aux."""
     cfg = base_config(num_envs=NUM_ENVS, num_steps=STEPS,
                       total_timesteps=NUM_ENVS * STEPS * 100, anneal_speed_weight=True)
     trainer = PPOTrainer(cfg, senv.RacingConfig(num_sensors=11),
@@ -5674,7 +5796,23 @@ def single_env_rollout(pool, dev, card):
     log_std = agent.log_std.detach().clone()
     noise = net.sample_noise((STEPS, NUM_ENVS, 2), torch.Generator(device=dev).manual_seed(4),
                              device=dev)
-    gen_state = trainer.runner.vec.generator.get_state()
+    return trainer, log_std, noise, trainer.runner.vec.generator.get_state()
+
+
+def single_env_rollout(pool, dev, card):
+    """Phase o.2 and o.3: a 256-step single-car rollout at 4096 envs on the tiled
+    canonical pool, ``models/single_agent.npz``'s parameters loaded into a
+    ``PPOTrainer`` with the speed-weight anneal's tensor in its aux: eagerly with
+    every ``single.transition`` and ``single.observe`` call also run as its plain
+    version on the same inputs (every output of every step bitwise); then graphed
+    (``ppo.UpdateGraphs``, as the trainer runs it) with the two kernels and with the
+    plain versions (the parent's composition): every step's buffers and the final
+    state bitwise. Then the kernel nodes of one captured rollout step of each and its
+    device time a step, in turns. The vector steps take the composition route (the
+    transition's plain mode and the autoreset in PyTorch; phase r holds the fused
+    route). Returns the node counts."""
+    trainer, log_std, noise, gen_state = single_rollout_trainer(pool, dev)
+    trainer.hooks = composed_hooks(trainer.hooks)
 
     flags = []
     t0 = time.perf_counter()
@@ -5717,8 +5855,9 @@ def single_env_rollout(pool, dev, card):
     print(f"phase o.3 one captured single-car rollout step ({NUM_ENVS} envs, tiled) on {card}: "
           f"kernel nodes {k_nodes} with the two env kernels against {p_nodes} with the plain "
           f"versions (the parent's env step), copy nodes {nodes['kernel'][0]['copy_nodes']} "
-          f"and {nodes['plain'][0]['copy_nodes']}; the kernels' time in one replay "
-          f"{nodes['kernel'][0]['kernel_us']:.1f} and {nodes['plain'][0]['kernel_us']:.1f} us; "
+          f"and {nodes['plain'][0]['copy_nodes']} (counted from the graphs); the kernels' "
+          f"time in one replay {profiled(nodes['kernel'][0])} and "
+          f"{profiled(nodes['plain'][0])}; "
           f"a step between CUDA events over {STEPS} replays, in turns kernel, plain, kernel, "
           f"plain: {[round(r['ms_per_step'], 4) for r in nodes['kernel']]} ms and "
           f"{[round(r['ms_per_step'], 4) for r in nodes['plain']]} ms")
@@ -5746,6 +5885,427 @@ def single_env_rollout(pool, dev, card):
           f"(10.0, taken in by copy) bitwise the eager rollout at 10.0, and apart from the "
           f"rollout at 6.5 in {moved}")
     return nodes
+
+
+# -------------------------- phase (r): the NEXT_STEP autoreset in the transition kernels
+
+# phase r.1's cases: their rollout buffers' rows (the step writes AUTORESET_T; the other
+# rows hold what the case put there), the env rows and the pool's slots
+AUTORESET_STEPS = 4
+AUTORESET_T = 2
+AUTORESET_ROWS = (16, FEW_ENVS, NUM_ENVS)
+AUTORESET_POOL = 5
+# per env row, the autoreset's operations (the return's add, the length's, the
+# selects of the record, the stats and the rows, the masks), and per car the start
+# grid's four
+AUTORESET_OPS_PER_ROW = 12
+AUTORESET_OPS_PER_CAR = 4
+# the four entries: (env, layout, env rows, cars) where phase r.3 times them, as the
+# env picks the kernel there
+AUTORESET_TIMED = {
+    "single_transition_autoreset": ("single", "gathered", NUM_ENVS, 1),
+    "single_transition_rows_autoreset": ("single", "tiled", NUM_ENVS, 1),
+    "multi_transition_autoreset": ("multi", "tiled", NUM_ENVS, NUM_AGENTS),
+    "multi_transition_small_autoreset": ("multi", "tiled", FEW_ENVS, NUM_AGENTS),
+}
+
+
+def autoreset_inputs(n, dev, seed, pending, pfsp=None):
+    """(pending_reset, stats, rows, pfsp) of a phase r.1 case at ``n`` env rows: the
+    rows that reset on none, some (40%) or all of them; a running return and length;
+    the rollout's [AUTORESET_STEPS, n] buffers filled with noise, their row
+    AUTORESET_T the step's; with ``pfsp`` ("one" or "per env") the pool's
+    AUTORESET_POOL slots (an index int64 0-d, or int32 per env with some out of the
+    pool; use_policy likewise), ``extra`` at whole counts and the kernel's count
+    scratch, zero."""
+    rng = np.random.default_rng(seed)
+    mask = {"none": np.zeros(n, bool), "all": np.ones(n, bool),
+            "some": rng.random(n) < 0.4}[pending]
+
+    def t(v, dtype):
+        return torch.as_tensor(np.ascontiguousarray(v), dtype=dtype, device=dev)
+
+    pending_reset = t(mask, torch.bool)
+    stats = vector.EpisodeStats(t(rng.normal(0.0, 50.0, n), torch.float32),
+                                t(rng.integers(0, 500, n), torch.int32))
+    out = {}
+    vector.rollout_buffers(out, AUTORESET_STEPS,
+                           vector.VecState(None, pending_reset, stats, None))
+    for k, v in out.items():
+        v.copy_(t(rng.integers(0, 2, v.shape) if v.dtype == torch.bool
+                  else rng.integers(-9, 9, v.shape), v.dtype))
+    rows = vector.RolloutRows(out, t([AUTORESET_T], torch.int64),
+                              t(rng.random(n) < 0.5, torch.bool),
+                              torch.empty((1,), dtype=torch.int64, device=dev))
+    if pfsp is None:
+        return pending_reset, stats, rows, None
+    p = AUTORESET_POOL
+    if pfsp == "per env":
+        idx, use = t(rng.integers(-1, p + 1, n), torch.int32), t(rng.random(n) < 0.8, torch.bool)
+    else:
+        idx = torch.tensor(2, dtype=torch.int64, device=dev)
+        use = torch.tensor(True, device=dev)
+    return pending_reset, stats, rows, menv.PFSP(
+        idx, use, t(rng.integers(0, 999, 2 * p), torch.float32),
+        torch.zeros((2 * p + 1,), dtype=torch.int32, device=dev))
+
+
+def autoreset_copy(inputs):
+    """``inputs`` with the buffers the step writes cloned, so that two runs start
+    from the same rows and counts."""
+    pending_reset, stats, rows, pfsp = inputs
+    rows = vector.RolloutRows({k: v.clone() for k, v in rows.out.items()}, rows.t,
+                              rows.entering, torch.empty_like(rows.t_next))
+    if pfsp is not None:
+        pfsp = pfsp._replace(extra=pfsp.extra.clone(), counts=pfsp.counts.clone())
+    return pending_reset, stats, rows, pfsp
+
+
+def autoreset_calls(kind, cfg, track, state, action, inputs, slots=None, sw=None,
+                    copy=True):
+    """(fused, composed): the two runs of one phase r case, each returning (its
+    ``vector.StepOut``, its inputs); on ``inputs``' copies where ``copy`` (else on
+    ``inputs``, as the timings run them). ``fused`` is the env's
+    ``transition_autoreset`` (the kernel's autoreset mode); ``composed`` the same
+    kernel's plain mode (``transition``) followed by today's PyTorch glue
+    (``transition_autoreset_plain`` with ``transition_plain`` patched to the kernel),
+    called explicitly."""
+    def args():
+        return autoreset_copy(inputs) if copy else inputs
+
+    def fused():
+        pending_reset, stats, rows, pfsp = copy = args()
+        if kind == "single":
+            out = senv.transition_autoreset(cfg, track, state, action, pending_reset, stats,
+                                            sw, rows)
+        else:
+            out = menv.transition_autoreset(cfg, track, state, action, pending_reset, stats,
+                                            slots, rows, pfsp)
+        return out, copy
+
+    def composed():
+        pending_reset, stats, rows, pfsp = copy = args()
+        if kind == "single":
+            out = composed_single(cfg, track, state, action, pending_reset, stats, sw, rows)
+        else:
+            out = composed_multi(cfg, track, state, action, pending_reset, stats, slots, rows,
+                                 pfsp)
+        return out, copy
+
+    return fused, composed
+
+
+def composed_single(cfg, track, state, action, pending_reset, stats, speed_weight=None,
+                    rows=None):
+    """``single.transition_autoreset`` as the composition: ``single.transition`` (the
+    kernel's plain mode, or what a phase puts in its place) and the PyTorch glue,
+    ``single.autoreset_plain``."""
+    return senv.autoreset_plain(
+        cfg, track, senv.transition(cfg, track, state, action, speed_weight=speed_weight),
+        pending_reset, stats, rows)
+
+
+def composed_multi(cfg, track, state, action, pending_reset, stats, position_idx, rows=None,
+                   pfsp=None):
+    """``multi.transition_autoreset`` as the composition: ``multi.transition`` and
+    ``multi.autoreset_plain``."""
+    return menv.autoreset_plain(cfg, track, menv.transition(cfg, track, state, action),
+                                pending_reset, stats, position_idx, rows, pfsp)
+
+
+def composed_hooks(hooks):
+    """``hooks`` (a trainer's) with their step on the composition route: the envs'
+    ``transition_autoreset`` replaced, for each call, by ``composed_single`` and
+    ``composed_multi``, so that the vector step runs the transition's plain mode and
+    the PyTorch glue in place of its autoreset mode."""
+    def step(*args):
+        with _patched(senv, transition_autoreset=composed_single), \
+                _patched(menv, transition_autoreset=composed_multi):
+            return hooks.step(*args)
+
+    return hooks._replace(step=step)
+
+
+def autoreset_leaves(run) -> dict:
+    """Every tensor a run wrote or returned, by place: the step's outputs, the
+    rollout's buffers, t + 1 and the PFSP counts."""
+    out, (_, _, rows, pfsp) = run
+    leaves = {f"step {p}": v for p, v in _graph.tensor_leaves(out)}
+    leaves.update({f"rows {k}": v for k, v in rows.out.items()})
+    leaves["t_next"] = rows.t_next
+    if pfsp is not None:
+        leaves["extra"] = pfsp.extra
+    return leaves
+
+
+def autoreset_counters():
+    return (senv.transition_autoreset_launches, senv.transition_autoreset_rows_launches,
+            menv.transition_autoreset_launches, menv.transition_autoreset_small_launches)
+
+
+def autoreset_bytes_ops(inputs, n, cars, multi, out) -> tuple:
+    """(bytes, operations) the autoreset adds to its transition's: its inputs read
+    once (the pending flags, the running return and length, the start pose and on
+    the multi-car env its normal and the grid slots, the entering flags and t) and its
+    outputs written once (done, the next pending flags, the record, the stats, the
+    rows' five entries a row, t + 1, the counts read and written into ``extra``)."""
+    pending_reset, stats, rows, pfsp = inputs
+    b = nbytes(pending_reset, stats.ep_return, stats.ep_length, rows.entering, rows.t,
+               rows.t_next, out.done, out.pending_reset, out.record["return"],
+               out.record["length"], out.stats.ep_return, out.stats.ep_length)
+    b += n * 4 * 3 + (n * 4 * 2 + n * cars * 8 if multi else 0)
+    b += sum(v[0].numel() * v.element_size() for v in rows.out.values())
+    if pfsp is not None:
+        b += 2 * nbytes(pfsp.extra) + nbytes(pfsp.idx, pfsp.use_policy)
+    return b, n * AUTORESET_OPS_PER_ROW + n * cars * AUTORESET_OPS_PER_CAR
+
+
+def autoreset_setup(kind, track, cars, envs, dev, seed, max_steps=CRAFTED_MAX_STEPS):
+    """(cfg, state, action, slots, speed weight) of a phase r case: ``crafted_state``
+    (its rows finish, crash and truncate this step) of ``kind`` ("single" or
+    "multi"), the multi-car env's grid slots drawn, the single-car speed weight a
+    tensor on the card."""
+    if kind == "single":
+        cfg = senv.RacingConfig(num_sensors=11, max_steps=max_steps)
+        state, action = crafted_single_state(track, cfg.max_steps, seed, device=dev)
+        return cfg, state, action, None, torch.tensor(5.3, device=dev)
+    cfg = menv.MultiRacingConfig(num_agents=cars, num_sensors=11, max_steps=max_steps)
+    state, action = crafted_state(track, cars, cfg.max_steps, seed, device=dev)
+    slots = menv.random_grid_slots(envs, cars, torch.Generator(device=dev).manual_seed(seed),
+                                   device=dev)
+    return cfg, state, action, slots, None
+
+
+def autoreset_case(kind, track, cars, envs, pending, pfsp, dev, seed):
+    """One phase r.1 case: the fused run against the composition, every output,
+    buffer row, t + 1 and ``extra`` bitwise, and one autoreset launch, by the kernel
+    the env picks at ``envs`` rows on ``track`` (AssertionError otherwise). Returns
+    (the fused run's ``vector.StepOut``, its inputs, the case's inputs)."""
+    cfg, state, action, slots, sw = autoreset_setup(kind, track, cars, envs, dev, seed)
+    inputs = autoreset_inputs(envs, dev, seed, pending, pfsp)
+    fused, composed = autoreset_calls(kind, cfg, track, state, action, inputs, slots, sw)
+    what = (f"{kind} {cars} car{'s' if cars > 1 else ''} x {envs} envs "
+            f"{type(track).__name__}, pending {pending}, pool index {pfsp}")
+    before = autoreset_counters()
+    got = fused()
+    ran = [a - b for a, b in zip(autoreset_counters(), before)]
+    want = composed()
+    if [a - b for a, b in zip(autoreset_counters(), before)] != ran:
+        raise AssertionError(f"phase r.1 {what}: the composition ran the autoreset mode")
+    small = kind == "multi" and envs < _cuda.TRANSITION_SMALL_BELOW
+    by_rows = (kind == "single" and isinstance(track, trk.TiledPooledTracks)
+               and envs >= _cuda.SINGLE_TRANSITION_ROWS_FROM)
+    first = 0 if kind == "single" else 2
+    expect = [0, 0, 0, 0]
+    expect[first] = 1
+    expect[first + 1] = int(small or by_rows)
+    if ran != expect:
+        raise AssertionError(f"phase r.1 {what}: autoreset launches {ran}, expected {expect}")
+    g, w = autoreset_leaves(got), autoreset_leaves(want)
+    bad = [k for k in w if k not in g or not same_bits(g[k].contiguous(), w[k])]
+    if bad or g.keys() != w.keys():
+        raise AssertionError(f"phase r.1 {what}: {bad} differ from the composition")
+    return got[0], got[1], inputs
+
+
+def autoreset_graphed(kind, track, cars, envs, dev, seed=31) -> None:
+    """The autoreset mode captured in a CUDA graph and replayed once gives the eager
+    launch's bits in every output, buffer row, t + 1 and ``extra`` (the PFSP counts
+    left at 0 by every launch, so a replay needs no memset)."""
+    cfg, state, action, slots, sw = autoreset_setup(kind, track, cars, envs, dev, seed)
+    inputs = autoreset_inputs(envs, dev, seed, "some", "per env" if kind == "multi" else None)
+    eager = autoreset_calls(kind, cfg, track, state, action, inputs, slots, sw)[0]()
+    static = autoreset_copy(inputs)
+    fused = autoreset_calls(kind, cfg, track, state, action, static, slots, sw, copy=False)[0]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fused()
+    graph.replay()
+    torch.cuda.synchronize()
+    g, w = autoreset_leaves(captured), autoreset_leaves(eager)
+    bad = [k for k in w if not same_bits(g[k].contiguous(), w[k])]
+    if bad:
+        raise AssertionError(f"phase r {kind} {envs} envs: the graph replay differs from the "
+                             f"eager launch in {bad}")
+
+
+def check_autoreset(pool, dev, card) -> list:
+    """Phase r.1 and r.3: the four transition entries in their autoreset mode
+    (``csrc/autoreset.cuh``: the NEXT_STEP reset, the merge, the reset info, the masks,
+    the episode statistics, the rollout's rows of the step and the PFSP counts in the
+    transition's launch) against the composition on the card: the same kernel's plain
+    mode and the PyTorch glue (``autoreset_calls``). On ``crafted_state`` (rows that
+    finish, crash and truncate this step) with pending resets on none, some and all
+    rows, at 16 and 48 env rows (a warp a row, the first multi-car kernel) and 4096
+    (the single-car kernel of several rows a block on the tiled pool, a warp a row
+    gathered, the redesigned multi-car kernel), gathered and tiled, 1 and 2 cars, the
+    pool's index one for all and per env: every state field, info, reward, flag,
+    record, buffer row, t + 1 and ``extra`` bitwise (-0.0 apart from 0.0), one
+    autoreset launch each, the plain mode's for the composition. Then each entry timed
+    where ``AUTORESET_TIMED`` says, eager (with the wrapper's host work) and in a CUDA
+    graph, beside the composition, the plain mode alone and its bound. Returns the
+    kernels line's four entries."""
+    layouts = {}
+    cases = 0
+    for envs, where in itertools.product(AUTORESET_ROWS, ("gathered", "tiled")):
+        layouts[envs, where] = (trk.tiled_pooled_tracks(pool, envs) if where == "tiled"
+                                else trk.gather_tracks(pool, np.arange(envs) % NUM_TRACKS))
+    for (envs, where), track in layouts.items():
+        seen = collections.Counter()
+        for kind, cars, pending, pfsp in itertools.chain(
+                (("single", 1, p, None) for p in ("none", "some", "all")),
+                (("multi", a, p, m) for a in (1, NUM_AGENTS) for p in ("none", "some", "all")
+                 for m in ("one", "per env"))):
+            out, ran_inputs, inputs = autoreset_case(kind, track, cars, envs, pending, pfsp,
+                                                     dev, seed=1000 + cases)
+            seen["cases"] += 1
+            seen["reset rows"] += int(inputs[0].sum())
+            seen["done rows"] += int(out.done.sum())
+            seen["truncated rows"] += int(out.truncated.sum())
+            if pfsp is not None:
+                seen["pfsp counts"] += int((ran_inputs[3].extra - inputs[3].extra).sum())
+            cases += 1
+        if not (seen["done rows"] and seen["truncated rows"] and seen["reset rows"]
+                and seen["pfsp counts"]):
+            raise AssertionError(f"phase r.1 {envs} envs {where}: a branch untaken {seen}")
+        print(f"phase r.1 {envs} envs {where}: the autoreset mode bitwise the composition "
+              f"(the plain mode and the PyTorch glue) in every output, buffer row, t + 1 "
+              f"and extra; {dict(seen)}")
+    for kind, where, envs, cars in AUTORESET_TIMED.values():
+        autoreset_graphed(kind, layouts[envs, where], cars, envs, dev)
+    print("phase r.1: each entry's autoreset mode graphed bitwise eager")
+
+    entries = []
+    for name, (kind, where, envs, cars) in AUTORESET_TIMED.items():
+        track = layouts[envs, where]
+        seed = 77
+        cfg, state, action, slots, sw = autoreset_setup(kind, track, cars, envs, dev, seed,
+                                                        max_steps=3000)
+        if kind == "single":
+            plain_mode = functools.partial(senv.transition, cfg, track, state, action,
+                                           speed_weight=sw)
+        else:
+            plain_mode = functools.partial(menv.transition, cfg, track, state, action)
+        inputs = autoreset_inputs(envs, dev, seed, "some",
+                                  "per env" if kind == "multi" else None)
+        fused, composed = autoreset_calls(kind, cfg, track, state, action, inputs, slots, sw,
+                                          copy=False)
+        before = autoreset_counters()
+        out = fused()[0]
+        ran = [a - b for a, b in zip(autoreset_counters(), before)]
+        if name.endswith(("_rows_autoreset", "_small_autoreset")) != (ran[1] + ran[3] == 1):
+            raise AssertionError(f"phase r.3: {name} is not the kernel the env runs here")
+        plain_out = plain_mode()
+        if kind == "single":
+            obs = senv.observe(cfg, track, out.env)
+            extra = autoreset_bytes_ops(inputs, envs, 1, False, out)
+            (b_ms, b_by), _ = single_step_bound(cfg, track, state, action, plain_out, obs,
+                                                extra)
+        else:
+            obs = menv.observe(cfg, track, out.env)
+            extra = autoreset_bytes_ops(inputs, envs, cars, True, out)
+            (b_ms, b_by), _ = env_step_bound(cfg, track, state, action,
+                                             transition_fields(plain_out).values(), obs, extra)
+        ms, g_ms = per_launch_ms(fused), graph_ms(fused)
+        plain_ms, plain_g = (per_launch_ms(composed, windows=5, launches=5),
+                             graph_ms(composed))
+        mode_g = graph_ms(plain_mode)
+        # the multi-car entries also without the pool: what the PFSP counts and their
+        # ticket cost
+        no_pool = None if kind == "single" else graph_ms(autoreset_calls(
+            kind, cfg, track, state, action, inputs[:3] + (None,), slots, sw, copy=False)[0])
+        what = f"{envs} envs x {cars} car{'s' if cars > 1 else ''}, {where}"
+        print(f"phase r.3 {name} at {what}: {ms * 1e3:.2f} us eager back-to-back with the "
+              f"wrapper's host work, {g_ms * 1e3:.2f} us in a CUDA graph; its plain mode "
+              f"alone {mode_g * 1e3:.2f} us in a graph"
+              f"{'' if no_pool is None else f', without the pool {no_pool * 1e3:.2f} us'}; "
+              f"bound {b_ms * 1e3:.2f} us ({b_by}, "
+              f"{extra[0]:,} bytes of it the autoreset's); the composition it replaces (the "
+              f"plain mode and the PyTorch glue) {plain_ms * 1e3:.1f} us eager, "
+              f"{plain_g * 1e3:.1f} us in a CUDA graph, on {card}")
+        library = "single_transition" if kind == "single" else (
+            "car_step_and_query" if envs < _cuda.TRANSITION_SMALL_BELOW else "multi_transition")
+        replaces = ["self_play_racing_tpu/envs/vector.py:57",
+                    "self_play_racing_tpu/agent/ppo.py:373-385"]
+        if kind == "multi":
+            replaces.append("self_play_racing_tpu/agent/self_play.py:65")
+        entries.append({"name": name, "route": "cuda",
+                        "source": f"self_play_racing_tpu_torch/csrc/{library}.cu",
+                        "replaces": replaces[0], "also_replaces": replaces[1:],
+                        "max_abs_err": 0.0, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
+                        "plain_graph_ms": plain_g, "plain_mode_graph_ms": mode_g,
+                        "no_pool_graph_ms": no_pool,
+                        "bound_ms": b_ms, "bound_by": b_by, "autoreset_bytes": extra[0],
+                        "library_ms": None, "timed_at": what, "cases_checked": cases})
+    return entries
+
+
+def autoreset_rollouts(pool, dev, card) -> dict:
+    """Phase r.2: 256-step rollouts at the slice's full width, graphed as the trainer
+    runs them (``ppo.UpdateGraphs``), each through the vector step's fused route (the
+    transition's autoreset mode) and through the composition (``composed_hooks``: the
+    plain mode and the PyTorch glue): self-play at 4096 envs x 2 cars on the tiled
+    canonical pool with pool opponents per env (phase m.2's), and single-car at 4096
+    envs (phase o.2's, the speed weight a tensor), each from ``crafted_state`` with
+    pending resets on 40% of the rows, so that rows reset at the first step and end
+    at it (the crafted rows that finish, crash and truncate), and drive on after.
+    Every step's buffers, ``extra`` and the final state bitwise; the fused route launches the autoreset mode once a step
+    and the composition never. Then one captured rollout step of each route: its
+    kernel and copy nodes and its device ms a step, in turns fused, composed, fused,
+    composed. Returns the node counts by env."""
+    results = {}
+    for env, make, kernel in (("self-play", selfplay_rollout_trainer,
+                               "multi_transition_autoreset"),
+                              ("single-car", single_rollout_trainer,
+                               "single_transition_autoreset")):
+        trainer, log_std, noise, gen_state = make(pool, dev)
+        track, runner = trainer.aux["track"], trainer.runner
+        if env == "self-play":
+            inner, _ = crafted_state(track, NUM_AGENTS, trainer.env_cfg.max_steps, 17,
+                                     device=dev)
+            state = selfplay.SelfPlayState(inner=inner,
+                                           obs_all=menv.observe(trainer.env_cfg, track, inner))
+        else:
+            state, _ = crafted_single_state(track, trainer.env_cfg.max_steps, 17, device=dev)
+        pending = autoreset_inputs(NUM_ENVS, dev, 17, "some")[0]
+        trainer.runner = dataclasses.replace(runner, vec=dataclasses.replace(
+            runner.vec, env=state, pending_reset=pending))
+        hooks = {"fused": trainer.hooks, "composed": composed_hooks(trainer.hooks)}
+        runs, launches = {}, {}
+        for route in ("fused", "composed"):
+            trainer.hooks = hooks[route]
+            zero_counts()
+            runs[route] = rollout_with("kernel", trainer, log_std, noise, gen_state,
+                                       graphed=True)
+            launches[route] = read_counts()[kernel]
+        (f_out, f_graphs), (c_out, c_graphs) = runs["fused"], runs["composed"]
+        bad = [k for k in c_out if k not in f_out or not same_bits(f_out[k], c_out[k])]
+        if bad or f_out.keys() != c_out.keys():
+            raise AssertionError(f"phase r.2 {env}: the fused rollout differs from the "
+                                 f"composed one in {bad}")
+        if launches != {"fused": STEPS, "composed": 0}:
+            raise AssertionError(f"phase r.2 {env}: {kernel} launches {launches}")
+        nodes = {}
+        for route, graphs in (("fused", f_graphs), ("composed", c_graphs),
+                              ("fused", f_graphs), ("composed", c_graphs)):
+            nodes.setdefault(route, []).append(rollout_step_profile(graphs.rollout, STEPS))
+        results[env] = nodes
+        f0, c0 = nodes["fused"][0], nodes["composed"][0]
+        print(f"phase r.2 {env} rollout, {STEPS} steps x {NUM_ENVS} envs, graphed: fused "
+              f"bitwise composed in every step's {len(f_out)} buffers, extra and the final "
+              f"state ({int(f_out['step ep_mask'].sum())} episodes ended); {kernel} "
+              f"{launches['fused']} launches; one captured rollout step on {card}: kernel "
+              f"nodes {f0['kernel_nodes']} fused against {c0['kernel_nodes']} composed, copy "
+              f"nodes {f0['copy_nodes']} and {c0['copy_nodes']} (counted from the graphs), "
+              f"the kernels' time in one replay {profiled(f0)} and {profiled(c0)}; a step between "
+              f"CUDA events over {STEPS} replays, in turns fused, composed, fused, composed: "
+              f"{[round(r['ms_per_step'], 4) for r in nodes['fused']]} ms and "
+              f"{[round(r['ms_per_step'], 4) for r in nodes['composed']]} ms")
+        if c0["kernel_nodes"] - f0["kernel_nodes"] < 20:
+            raise AssertionError(f"phase r.2 {env}: {f0['kernel_nodes']} kernel nodes a step "
+                                 f"against {c0['kernel_nodes']}; expected at least 20 fewer")
+    return results
 
 
 # ------------------------------------------ phase (q): the rollout step's policy
@@ -6443,6 +7003,8 @@ def main() -> int:
     with timed("phase o.1 and o.4 (the single-car env step's two launches against their "
                "plain versions)"):
         kernels += check_single_env_step(pool, dev, card)
+    with timed("phase r.1 and r.3 (the transitions' autoreset mode against the composition)"):
+        kernels += check_autoreset(pool, dev, card)
     procgen = procgen_on_card(dev)
     kernels += check_row_ids(pool, procgen, cfg, mcfg, rng, dev)
     single_car, single_obs = main_path(track, cfg, dev, card)
@@ -6459,6 +7021,7 @@ def main() -> int:
         lambda: trk.tiled_pooled_tracks(pool, NUM_ENVS), card, " (tiled pool, row ids)")
     if tiled_seeded != seeded:
         raise AssertionError(f"self-play tiled {tiled_seeded} differs from gathered {seeded}")
+    entry_launches = selfplay_entry_points(card)
     print(f"self-play tiled: every update's seeded numbers equal the gathered run's; peak "
           f"memory {tiled_peak / 2**20:,.1f} MiB tiled, {peak / 2**20:,.1f} MiB gathered "
           f"(the gathered rows are {gathered_row_bytes(pool, NUM_ENVS) / 2**20:,.1f} MiB)")
@@ -6492,6 +7055,20 @@ def main() -> int:
             if not k["launches"]:
                 raise AssertionError(f"{k['name']}: no launch on {k['launches_path']}")
 
+        elif k["name"] in ("single_transition_autoreset", "single_transition_rows_autoreset"):
+            # the bench loop's fused route: a warp a row gathered, several rows a block
+            # on the tiled pool
+            tiled_path = k["name"] == "single_transition_rows_autoreset"
+            k["launches"] = per_kernel(tiled_single if tiled_path else single_car)[k["name"]]
+            k["launches_path"] = "single-car main path" + (" on the tiled pool" if tiled_path
+                                                           else "")
+            if not k["launches"]:
+                raise AssertionError(f"{k['name']}: no launch on {k['launches_path']}")
+        elif k["name"] == "multi_transition_small_autoreset":
+            k["launches"] = per_kernel(entry_launches["multi"])[k["name"]]
+            k["launches_path"] = "train multi (16 envs)"
+            if not k["launches"]:
+                raise AssertionError(f"{k['name']}: no launch in {k['launches_path']}")
         elif k["name"] in ("raycast_walls_and_cars", "raycast_walls_and_cars_row_ids"):
             k["launches"] = (tiled if k["name"].endswith("_row_ids") else launches)[k["name"]]
             k["launches_path"] = ("self-play training: 0, the multi-car env's observe runs "
@@ -6510,7 +7087,8 @@ def main() -> int:
             k["launches"], k["launches_path"] = launches[k["name"]], "self-play training"
             if k["name"] in ("policy_act", "pool_act"):
                 k["launches_single_car"] = per_kernel(single_car)[k["name"]]
-    selfplay_entry_points(card)
+            if k["name"] == "multi_transition_autoreset" and not k["launches"]:
+                raise AssertionError(f"{k['name']}: no launch in self-play training")
     resampled_entry_points(card)
     checkpoints(track, dev)
     evaluation(dev)
@@ -6523,14 +7101,19 @@ def main() -> int:
         adapter_launches = adapters(dev, card)
     with timed("phase j (tensor-parallel towers)"):
         tp_launches = tensor_parallel_ranks(dev, card)
-    with timed("phase k (graph against eager)"):
+    # the phases that count a captured step's nodes keep their graphs to count them
+    with timed("phase k (graph against eager)"), kept_graphs():
         graph_launches = graph_against_eager(pool, card)
     with timed("phase l (the loops as device programs)"):
         loop_launches = loops_graphed(dev, card)
-    with timed("phase m.2-m.3 (the env step's kernels over a graphed rollout)"):
+    with timed("phase m.2-m.3 (the env step's kernels over a graphed rollout)"), kept_graphs():
         nodes = env_step_rollout(pool, dev, card)
-    with timed("phase o.2-o.3 (the single-car env step's kernels over a graphed rollout)"):
+    with timed("phase o.2-o.3 (the single-car env step's kernels over a graphed rollout)"), \
+            kept_graphs():
         single_nodes = single_env_rollout(pool, dev, card)
+    with timed("phase r.2 (the fused route's rollouts against the composition's)"), \
+            kept_graphs():
+        autoreset_nodes = autoreset_rollouts(pool, dev, card)
     # the kernels line counts by kernel (the redesigned env kernels apart from the
     # first ones, which run on few env rows)
     match_launches, dp_world_one, adapter_launches, graph_launches, loop_launches = map(
@@ -6552,6 +7135,9 @@ def main() -> int:
             k["rollout_step_nodes"] = nodes
         elif k["name"] in ("single_observe", "single_transition", "single_transition_rows"):
             k["rollout_step_nodes"] = single_nodes
+        elif k["name"].endswith("_autoreset"):
+            k["rollout_step_nodes"] = autoreset_nodes[
+                "single-car" if k["name"].startswith("single") else "self-play"]
         elif k["name"] in ("multi_observe_small", "multi_transition_small"):
             # the env launches the first kernels on few rows: a match's 40 envs
             k["launches"] = match_launches[k["name"]]

@@ -39,8 +39,10 @@ transition, autoreset, refresh: ``ppo.rollout_phase``) alone, unprofiled for the
 wall time and under the profiler for the device time, reported per env step and
 by group (``rollout_groups``, with the pool's ``opponents``:
 ``selfplay.opponent_actions_all_seats``, its draws and kernel B).
-Graphed, it also reports the captured rollout step itself: the kernel and copy
-nodes of one replay and the device ms a step over ``num_steps`` replays.
+Graphed, it also reports the captured rollout step itself: its kernel and copy
+nodes counted from the graph (the graphs are captured with ``keep_graph=True``), the
+kernels' time in one profiled replay and the device ms a step over ``num_steps``
+replays.
 
 With ``--eager``, ``--update`` and ``--selfplay`` also break the profiled
 minibatches down by the code that issued each launch (``minibatch_groups``): the
@@ -57,7 +59,10 @@ each launch (``rollout_groups``: the env's transition and observe, the autoreset
 around them in ``vector.step``, the action sampling (kernel A, which also writes
 the policy's buffer rows, where the checkout has it), the observation normaliser
 and the buffers' writes in the rest of ``rollout_step``), as launches and device us a
-step, and the graphed 40 x 5 single-car evaluation (``eval_step``: chip_smoke.py
+step (where the checkout has the vector step's fused route, the envs'
+``transition_autoreset``, its launch is the transition's and the autoreset, the
+rows and the PFSP counts run in it: what is left of "autoreset" is self-play's
+start-grid draw, of "buffers" nothing), and the graphed 40 x 5 single-car evaluation (``eval_step``: chip_smoke.py
 phase l's, ``models/single_agent.npz``, sampled, seed 42) as ms a step between CUDA
 events and launches a step.
 
@@ -72,6 +77,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import ctypes
 import functools
 import dataclasses
 import json
@@ -258,7 +264,8 @@ def minibatch_groups(prof) -> dict | None:
 ROLLOUT_GROUPS = (
     ("rollout.step", [(ppo, "rollout_step")]),
     ("autoreset", [(vector, "step")]),
-    ("env transition", [(senv, "transition"), (menv, "transition")]),
+    ("env transition", [(senv, "transition"), (menv, "transition"),
+                        (senv, "transition_autoreset"), (menv, "transition_autoreset")]),
     ("env observe", [(senv, "observe"), (menv, "observe")]),
     ("opponents", [(selfplay, "opponent_actions_all_seats")]),
     ("sampling", [(net, "sample_action"), (ppo, "rollout_policy_plain"),
@@ -518,25 +525,76 @@ def profile_selfplay(args, dev) -> dict:
     }
 
 
+@contextlib.contextmanager
+def kept_graphs():
+    """Inside the block the CUDA graphs PyTorch captures keep their graph
+    (``keep_graph=True``, still instantiated at the end of the capture), so that
+    ``graph_nodes`` can count their nodes. A copy of ``chip_smoke.kept_graphs``."""
+    real = torch.cuda.CUDAGraph
+
+    class Kept(real):
+        def __init__(self, keep_graph=False):
+            super().__init__(True)
+
+        def capture_end(self):
+            super().capture_end()
+            self.instantiate()
+
+    torch.cuda.CUDAGraph = Kept
+    try:
+        yield
+    finally:
+        torch.cuda.CUDAGraph = real
+
+
+def graph_nodes(graph) -> dict:
+    """A graph's kernel nodes, copy and set nodes and any others, counted from the graph
+    itself (``cuGraphGetNodes``, ``cuGraphNodeGetType``). A copy of
+    ``chip_smoke.graph_nodes``."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+                                     ctypes.POINTER(ctypes.c_size_t)]
+    cuda.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    handle = graph.raw_cuda_graph()
+    count = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = collections.Counter()
+    kind = ctypes.c_int(-1)
+    for node in nodes:
+        if cuda.cuGraphNodeGetType(node, ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kinds[kind.value] += 1
+    # CUgraphNodeType: 0 kernel, 1 memcpy, 2 memset
+    return {"kernel_nodes": kinds.pop(0, 0), "copy_nodes": kinds.pop(1, 0) + kinds.pop(2, 0),
+            "other_nodes": sum(kinds.values())}
+
+
 def _graphed_step(rollout, steps: int) -> dict:
-    """The trainer's captured rollout step (``ppo.UpdateGraphs.rollout``): one replay
-    under the profiler (its kernel nodes, its copy and set nodes, the kernels'
-    summed time), then ``steps`` replays between CUDA events (device ms a step).
-    The graph's step counter is set back before each, so the replays stay inside
-    its [T, N, ...] buffers. A copy of ``chip_smoke.rollout_step_profile``, kept
-    here so that this script runs on a checkout that predates it."""
+    """The trainer's captured rollout step (``ppo.UpdateGraphs.rollout``, captured
+    under ``kept_graphs``): its nodes counted from the graph (``graph_nodes``), one
+    replay under the profiler (the kernels it recorded and their summed time: it can
+    drop events, and it records the replay's two fills of a registered generator's
+    seed and offset, outside the graph), then ``steps`` replays between CUDA events
+    (device ms a step). The graph's step counter is set back before each, so the
+    replays stay inside its [T, N, ...] buffers. A copy of
+    ``chip_smoke.rollout_step_profile``, kept here so that this script runs on a
+    checkout that predates it."""
+    nodes = graph_nodes(rollout.step.graph)
     rollout.carry.t.zero_()
     activities = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         rollout.step.graph.replay()
         torch.cuda.synchronize()
-    nodes = collections.Counter()
-    busy_us = 0.0
+    profiled, busy_us = 0, 0.0
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            copy = "memcpy" in evt.name.lower() or "memset" in evt.name.lower()
-            nodes["copy_nodes" if copy else "kernel_nodes"] += 1
-            busy_us += 0.0 if copy else evt.time_range.elapsed_us()
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and "memcpy" not in evt.name.lower() and "memset" not in evt.name.lower()):
+            profiled += 1
+            busy_us += evt.time_range.elapsed_us()
     rollout.carry.t.zero_()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
@@ -544,7 +602,7 @@ def _graphed_step(rollout, steps: int) -> dict:
         rollout.step.graph.replay()
     end.record()
     end.synchronize()
-    return {**nodes, "kernel_us_in_one_replay": busy_us,
+    return {**nodes, "profiled_kernels": profiled, "kernel_us_in_one_replay": busy_us,
             "device_ms_per_step": start.elapsed_time(end) / steps}
 
 
@@ -610,13 +668,14 @@ def main(argv=None) -> int:
         return 1
     dev = torch.device("cuda", 0)
     if args.update:
-        print(json.dumps(profile_update(args, dev), indent=1))
+        with kept_graphs():
+            print(json.dumps(profile_update(args, dev), indent=1))
         return 0
     if args.match:
         print(json.dumps(profile_match(args, dev), indent=1))
         return 0
     if args.selfplay:
-        with torch.enable_grad():
+        with torch.enable_grad(), kept_graphs():
             print(json.dumps(profile_selfplay(args, dev), indent=1))
         return 0
     cfg = senv.RacingConfig(num_sensors=11)

@@ -97,19 +97,19 @@ class EnvHooks(NamedTuple):
     (track geometry, ...) passed to every call."""
 
     reset: Callable       # (aux, generator) -> env_state  (batched)
-    transition: Callable  # (aux, env_state, action, generator) -> (state, rew, term, trunc, info)
+    # (aux, env_state, action, generator, pending_reset, stats, rows) ->
+    # vector.StepOut: the transition with its NEXT_STEP autoreset (the reset, the
+    # merge, the info, the masks and the statistics; the envs' ``transition_autoreset``,
+    # on the card the transition kernel's autoreset mode), which also writes ``rows``
+    # (a ``vector.RolloutRows``: row t of the rollout's reward, done and episode
+    # buffers, t + 1, and self-play's per-slot wins and games into ``rows.out["extra"]``,
+    # which the rollout's outputs carry to the packed metrics' "_extra")
+    step: Callable
     observe: Callable     # (aux, env_state) -> obs [N, obs_dim] float32
     # optional: (aux, env_state) -> (env_state, obs), for envs that cache their
     # observations in the state (self-play): called once per vector step on the
     # merged state, in place of observe (see envs.vector.step)
     refresh: Callable = None
-    # optional: (aux, env_state) -> info with transition-info structure, for the
-    # NEXT_STEP reset-info contract (see envs.vector.step)
-    info: Callable = None
-    # optional: (aux, info, episode_record) -> [S] float32 per rollout step, summed
-    # over the rollout and appended to the packed metrics (``unpack_metrics``'s
-    # "_extra"; self-play's per-slot wins and games)
-    stats: Callable = None
 
 
 @dataclasses.dataclass
@@ -639,12 +639,14 @@ def rollout_step(cfg: PPOConfig, hooks: EnvHooks, aux, params, log_std, noise,
     ``vector.step`` with the hooks. On the card with whole towers the policy is one
     launch (``ops.policy.rollout_sample``: the normalizer's apply, both towers, the
     sample and its log-prob, and the obs, actions, logprobs and values rows written
-    in place); on the CPU and a tensor-parallel rank ``rollout_policy_plain``. Writes row ``t`` of the [T, N, ...] buffers in
+    in place); on the CPU and a tensor-parallel rank ``rollout_policy_plain``. Writes
+    row ``t`` of the [T, N, ...] buffers in
     ``out`` (made at the first call): obs, actions, logprobs, values, reward
     (float32), done_entering, and the episode records' ep_return, ep_length and
-    ep_mask; adds ``hooks.stats`` into ``out["extra"]``. Returns the next carry.
-    Reads the device only through ``t``, so one CUDA graph of it serves every
-    step."""
+    ep_mask (the env step's ``hooks.step`` writes these, on the card in the
+    transition's launch, with t + 1), and self-play's per-slot wins and games summed
+    into ``out["extra"]``. Returns the next carry. Reads the device only through
+    ``t``, so one CUDA graph of it serves every step."""
     t, norm = carry.t, carry.norm
     if cfg.normalize_obs:
         norm = obsnorm.update(norm, carry.obs, mesh)
@@ -656,32 +658,22 @@ def rollout_step(cfg: PPOConfig, hooks: EnvHooks, aux, params, log_std, noise,
         rows = {}
     else:
         action, rows = rollout_policy_plain(cfg, params, log_std, noise, carry.obs, t, norm)
-    vec, next_obs, reward, next_done, _, _, info, rec = vector.step(
-        carry.vec, action,
-        lambda s, a, g: hooks.transition(aux, s, a, g),
-        lambda s: hooks.observe(aux, s),
-        lambda g: hooks.reset(aux, g),
-        refresh_fn=(None if hooks.refresh is None
-                    else (lambda s: hooks.refresh(aux, s))),
-        info_fn=(None if hooks.info is None else (lambda s: hooks.info(aux, s))),
-    )
-    rows.update({
-        "reward": reward.to(torch.float32), "done_entering": carry.done,
-        "ep_return": torch.where(rec["mask"], rec["return"], 0.0),
-        "ep_length": torch.where(rec["mask"], rec["length"], 0),
-        "ep_mask": rec["mask"],
-    })
     for k, v in rows.items():
         if k not in out:
             out[k] = v.new_empty((noise.shape[0],) + v.shape)
         out[k].index_copy_(0, t, v[None])
-    if hooks.stats is not None:
-        st = hooks.stats(aux, info, rec)
-        if "extra" not in out:
-            out["extra"] = torch.zeros_like(st)
-        out["extra"].add_(st)
+    # the env step's rows, made ahead of it: the step writes them
+    vector.rollout_buffers(out, noise.shape[0], carry.vec)
+    step_rows = vector.RolloutRows(out, t, carry.done, torch.empty_like(t))
+    vec, next_obs, _, next_done, *_ = vector.step(
+        carry.vec, action,
+        lambda s, a, g, pending, stats: hooks.step(aux, s, a, g, pending, stats, step_rows),
+        lambda s: hooks.observe(aux, s),
+        refresh_fn=(None if hooks.refresh is None
+                    else (lambda s: hooks.refresh(aux, s))),
+    )
     return RolloutCarry(vec=vec, obs=next_obs.to(torch.float32), done=next_done,
-                        norm=norm, t=t + 1)
+                        norm=norm, t=step_rows.t_next)
 
 
 def rollout_policy_plain(cfg: PPOConfig, params, log_std, noise, obs, t, norm):
@@ -698,7 +690,8 @@ def rollout_policy_plain(cfg: PPOConfig, params, log_std, noise, obs, t, norm):
 def _rollout_outputs(carry: RolloutCarry, out: dict):
     traj = Batch(obs=out["obs"], actions=out["actions"], logprobs=out["logprobs"],
                  advantages=None, returns=None, values=out["values"])
-    return carry.vec, carry.obs, carry.done, carry.norm, traj, out
+    stats = {k: v for k, v in out.items() if k != vector.PFSP_COUNTS}
+    return carry.vec, carry.obs, carry.done, carry.norm, traj, stats
 
 
 @torch.no_grad()
@@ -710,8 +703,9 @@ def rollout_phase(cfg: PPOConfig, hooks: EnvHooks, runner: RunnerState, aux, log
     with a ``mesh`` the observation normalizer merges every rank's). Returns (vec,
     next_obs, next_done, obs_norm, traj, step_stats): ``traj`` a ``Batch`` of
     [T, N, ...] tensors (advantages and returns empty), ``step_stats`` the
-    per-step rewards (float32), done-entering flags and episode records, and the
-    rollout's sum of ``hooks.stats`` under "extra" when the hooks have one."""
+    per-step rewards (float32), done-entering flags and episode records, and
+    self-play's per-slot wins and games summed over the rollout under "extra" where
+    its hooks have a pool."""
     params = runner.train.model.params()
     carry, out = rollout_carry(runner), {}
     for _ in range(cfg.num_steps):
@@ -955,7 +949,7 @@ def make_update_step(cfg: PPOConfig, hooks: EnvHooks, action_dim: int = 2, mesh=
             ep_count.to(torch.float32),
             rewards.mean(),
         ])
-        if "extra" in sstats:  # the hook's sums ride the same transfer
+        if "extra" in sstats:  # self-play's wins and games ride the same transfer
             device_vals = torch.cat([device_vals, sstats["extra"].to(torch.float32)])
         if mesh is not None:  # every rank's sums; the mean reward of equal shards
             pmesh.all_reduce_sum_(device_vals, mesh)
@@ -982,7 +976,7 @@ def make_update_step(cfg: PPOConfig, hooks: EnvHooks, action_dim: int = 2, mesh=
             "mean_reward": mean_reward,
         }
         assert tuple(metrics) == METRIC_NAMES
-        # the hook's sums ride after the named metrics ("_extra")
+        # the rollout's "extra" sums ride after the named metrics ("_extra")
         packed = np.concatenate([np.array(list(metrics.values()), dtype=np.float32),
                                  host[4:]])
         return new_runner, packed
@@ -1000,7 +994,8 @@ METRIC_NAMES = (
 
 def unpack_metrics(packed):
     """Packed f32 metric vector -> {name: value}. Values past the named metrics
-    (an ``EnvHooks.stats`` tail) land under ``"_extra"`` as an array."""
+    (the rollout's "extra": self-play's per-slot wins and games) land under
+    ``"_extra"`` as an array."""
     vals = np.asarray(packed)
     out = dict(zip(METRIC_NAMES, vals))
     if len(vals) > len(METRIC_NAMES):

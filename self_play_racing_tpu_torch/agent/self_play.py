@@ -11,9 +11,9 @@
    (``cfg.opponent_per_env``), uniformly or by PFSP weights; an empty pool means
    random opponents.
  - PFSP: per-slot wins and games of the learner, counted on device from rollout
-   episodes that ended against a policy opponent (the ``EnvHooks.stats`` tail of
-   the packed metrics), reach the host one update late and are zeroed when a slot
-   is overwritten.
+   episodes that ended against a policy opponent (in the env step's launch on the
+   card; the rollout's "extra", the packed metrics' "_extra" tail), reach the host
+   one update late and are zeroed when a slot is overwritten.
  - A full checkpoint (format v1 of ``utils.checkpoint``, with the JAX package's
    leaf names) every ``checkpoint_every`` updates and at the end of ``train()``
    on the interval, with ``resume_from`` for v1 and v0 files and the reference's
@@ -49,20 +49,22 @@ from .trainer import PPOTrainer
 
 def make_selfplay_hooks(env_cfg: menv.MultiRacingConfig, pool_size: int = 0,
                         shard=None) -> ppo.EnvHooks:
-    """EnvHooks over the self-play view; aux = {"track": ..., "opp": ...}.
+    """EnvHooks over the self-play view; aux = {"track": ..., "opp": ...}. The step
+    is ``selfplay.transition_autoreset``.
 
-    ``pool_size`` > 0 adds the stats hook: per-slot [wins..., games...] of the
-    learner against each pool opponent, from the episodes that ended (placement 1
-    is a win), the signal PFSP sampling feeds on. ``shard`` = (rank, world): the
-    aux holds this rank's envs of a data-parallel run, and the start-grid and
-    opponent draws are this rank's rows of the draws for all envs."""
+    ``pool_size`` > 0: the step also counts per-slot [wins..., games...] of the
+    learner against each pool opponent into the rollout's "extra", from the episodes
+    that ended (placement 1 is a win), the signal PFSP sampling feeds on. ``shard`` =
+    (rank, world): the aux holds this rank's envs of a data-parallel run, and the
+    start-grid and opponent draws are this rank's rows of the draws for all envs."""
 
     def reset(aux, generator):
         return sp.reset_state_deferred(env_cfg, aux["track"], generator, shard=shard)
 
-    def transition(aux, state, action, generator):
-        return sp.transition_deferred(env_cfg, aux["track"], aux["opp"], state, action,
-                                      generator, shard=shard)
+    def step(aux, state, action, generator, pending_reset, stats, rows):
+        return sp.transition_autoreset(env_cfg, aux["track"], aux["opp"], state, action,
+                                       pending_reset, stats, generator, shard=shard, rows=rows,
+                                       pool_size=pool_size)
 
     def observe(aux, state):
         return sp.observe(state)
@@ -70,23 +72,7 @@ def make_selfplay_hooks(env_cfg: menv.MultiRacingConfig, pool_size: int = 0,
     def refresh(aux, state):
         return sp.refresh(env_cfg, aux["track"], state)
 
-    def info(aux, state):
-        return sp.info0_from_state(env_cfg, aux["track"], state)
-
-    def stats(aux, info, rec):
-        opp = aux["opp"]
-        mask = rec["mask"]  # episodes that ended this step
-        idx = opp["idx"].expand(mask.shape)
-        ended = mask & opp["use_policy"].expand(mask.shape)
-        won = ended & (info["placement"] == 1)
-        onehot = idx[:, None] == torch.arange(pool_size, device=idx.device)[None, :]
-        wins = torch.sum(onehot & won[:, None], dim=0, dtype=torch.float32)
-        games = torch.sum(onehot & ended[:, None], dim=0, dtype=torch.float32)
-        return torch.cat([wins, games])
-
-    return ppo.EnvHooks(reset=reset, transition=transition, observe=observe,
-                        refresh=refresh, info=info,
-                        stats=stats if pool_size > 0 else None)
+    return ppo.EnvHooks(reset=reset, step=step, observe=observe, refresh=refresh)
 
 
 def empty_pool(pool_size: int, obs_dim: int, action_dim: int, hidden, normalize_obs: bool,

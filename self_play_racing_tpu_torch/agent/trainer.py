@@ -29,28 +29,24 @@ from . import ppo
 def make_single_env_hooks(env_cfg: senv.RacingConfig) -> ppo.EnvHooks:
     """EnvHooks over the single-car env. aux is either the geometry (per-env
     TrackArrays or a capacity layout, ``envs/track.py``) or a dict {"track": the
-    geometry, "speed_weight": scalar tensor} (annealed variant)."""
+    geometry, "speed_weight": scalar tensor} (annealed variant). The step is
+    ``single.transition_autoreset``."""
 
     def track_of(aux):
         return aux["track"] if isinstance(aux, dict) else aux
 
-    def sw_of(aux):
-        return aux.get("speed_weight") if isinstance(aux, dict) else None
-
     def reset(aux, generator):
         return senv.reset_state(env_cfg, track_of(aux))
 
-    def transition(aux, state, action, generator):
-        return senv.transition(env_cfg, track_of(aux), state, action,
-                               speed_weight=sw_of(aux))
+    def step(aux, state, action, generator, pending_reset, stats, rows):
+        return senv.transition_autoreset(
+            env_cfg, track_of(aux), state, action, pending_reset, stats,
+            speed_weight=aux.get("speed_weight") if isinstance(aux, dict) else None, rows=rows)
 
     def observe(aux, state):
         return senv.observe(env_cfg, track_of(aux), state)
 
-    def info(aux, state):
-        return senv.info_from_state(env_cfg, track_of(aux), state)
-
-    return ppo.EnvHooks(reset=reset, transition=transition, observe=observe, info=info)
+    return ppo.EnvHooks(reset=reset, step=step, observe=observe)
 
 
 class DivergenceError(RuntimeError):

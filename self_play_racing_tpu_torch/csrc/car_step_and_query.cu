@@ -64,9 +64,14 @@
 // products with the float32 reciprocals the caller rounds
 // (_numerics.py:div_const), and the comparisons against the constants rounded to
 // float32 as PyTorch rounds a Python scalar. The epilogue reads and writes ~40
-// bytes a car beside the 17 MB of waypoint rows, so the bound stays K2's.
+// bytes a car beside the 17 MB of waypoint rows, so the bound stays K2's. With the
+// autoreset's pointers (autoreset.cuh) the last phase also runs the vector step's
+// NEXT_STEP autoreset, as multi_transition.cu's does: a resetting row's cars written
+// again as the fresh state, thread 0 the row's done, seat 0's episode statistics, the
+// rollout's row t and the PFSP counts.
 #include <cuda_runtime.h>
 
+#include "autoreset.cuh"
 #include "car_step.cuh"
 #include "rect_sat.cuh"
 #include "row_stage.cuh"
@@ -158,7 +163,8 @@ __global__ void __launch_bounds__(kMaxThreads) car_step_and_query_kernel(
         float* __restrict__ ccy, float* __restrict__ progress,
         unsigned char* __restrict__ hit_wall, int* __restrict__ num_hits,
         int cars_per_row, int num_waypoints, car_step::Spec k, float half_length,
-        float half_width, float collision_scale, TailIn tin, TailOut tout, TailSpec ts) {
+        float half_width, float collision_scale, TailIn tin, TailOut tout, TailSpec ts,
+        autoreset::Args ar) {
     extern __shared__ __align__(16) float stage[];
     __shared__ uint64_t bar;
     const int W = num_waypoints;
@@ -368,10 +374,11 @@ __global__ void __launch_bounds__(kMaxThreads) car_step_and_query_kernel(
         const bool terminated = any_finished || all_crashed;
         const bool truncated = steps >= ts.max_steps;
         const bool done = terminated || truncated;
+        const bool reset = autoreset::resets(ar, row);
         if (threadIdx.x == 0) {
-            tout.steps[row] = steps;
-            tout.terminated[row] = terminated;
-            tout.truncated[row] = truncated;
+            tout.steps[row] = reset ? 0 : steps;
+            tout.terminated[row] = terminated && !reset;
+            tout.truncated[row] = truncated && !reset;
         }
         // car a's place: 1 + the cars that beat it (a higher score, or an equal
         // score from a higher seat)
@@ -384,9 +391,22 @@ __global__ void __launch_bounds__(kMaxThreads) car_step_and_query_kernel(
                 beaten += (sa < sb) || (sa == sb && a < b);
             }
             const int place = 1 + beaten;
-            tout.placement[car] = done ? place : 0;
-            tout.reward[car] = s_tail[4 * A + a] + ((done && place == 1) ? ts.winner_bonus : 0.0f);
+            const int placement = done ? place : 0;
+            const float reward =
+                s_tail[4 * A + a] + ((done && place == 1) ? ts.winner_bonus : 0.0f);
+            if (reset) {
+                autoreset::fresh_car(ar, row, car, nx, ny, nang, nvx, nvy, tout);
+            } else {
+                tout.placement[car] = placement;
+                tout.reward[car] = reward;
+            }
+            if (a == 0 && ar.on) {
+                autoreset::row_tail(ar, row, gridDim.x, autoreset::row_in(ar, row), reset,
+                                    reset ? 0.0f : reward, terminated && !reset,
+                                    truncated && !reset, !reset && placement == 1);
+            }
         }
+        autoreset::pfsp_finish(ar);
     }
 }
 
@@ -429,7 +449,7 @@ extern "C" int car_step_and_query_f32(
             x, y, angle, vx, vy, crashed, steering, throttle, wp_x, wp_y, nrm_x, nrm_y,
             row_ids, n_wp, track_width, nx, ny, nang, nvx, nvy, ccx, ccy, progress, hit_wall,
             num_hits, cars_per_row, num_waypoints, k, half_length, half_width,
-            collision_scale, TailIn{}, TailOut{}, TailSpec{});
+            collision_scale, TailIn{}, TailOut{}, TailSpec{}, autoreset::Args{});
         return cudaGetLastError();
     };
     err = num_hits ? launch(car_step_and_query_kernel<true, false>)
@@ -445,16 +465,20 @@ extern "C" int car_step_and_query_f32(
 // finished, cp25, cp50, cp75, has_crashed, finished_step, steps; then the outputs
 // nx, ny, nang, nvx, nvy, progress, last_steering, crashed, finished, cp25, cp50,
 // cp75, has_crashed, steps, finished_step, placement, reward, terminated, truncated,
-// speed, info_progress. consts holds kTransitionConsts float32 values: K5's eight,
-// the half length and width, collision_scale, then TailSpec's ten floats in its
-// order. The launch plan: ops/_cuda.py:car_step_query_plan(..., tail=True).
-constexpr int kTransitionPtrs = 44;
-constexpr int kTransitionConsts = 21;
+// speed, info_progress; then autoreset.cuh's kPtrs (all null: the plain transition),
+// with `steps`, `pool` and `pfsp_mode` as multi_transition_f32 takes them. consts
+// holds kTransitionConsts float32 values: K5's eight, the half length and width,
+// collision_scale, then TailSpec's ten floats in its order, then the start grid's
+// center and spacing. The launch plan: ops/_cuda.py:car_step_query_plan(...,
+// tail=True).
+constexpr int kTransitionPtrs = 44 + autoreset::kPtrs;
+constexpr int kTransitionConsts = 23;
 
 extern "C" int multi_transition_small_f32(void* const* ptrs, int num_ptrs, const float* consts,
                                     int num_consts, int rows, int cars_per_row,
                                     int num_waypoints, int threads, int smem, int pairs,
-                                    int max_steps, int device, void* stream) {
+                                    int max_steps, int steps, int pool, int pfsp_mode,
+                                    int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (num_ptrs != kTransitionPtrs || num_consts != kTransitionConsts)
@@ -509,6 +533,10 @@ extern "C" int multi_transition_small_f32(void* const* ptrs, int num_ptrs, const
     const float half_length = consts[8], half_width = consts[9], collision_scale = consts[10];
     const TailSpec ts{consts[11], consts[12], consts[13], consts[14], consts[15], consts[16],
                       consts[17], consts[18], consts[19], consts[20], max_steps};
+    autoreset::Args ar;
+    if (!autoreset::parse(ptrs + i, steps, pool, pfsp_mode, consts[21], consts[22], ar)
+            || (ar.on && !(ar.start_nx && ar.start_ny && ar.slot)))
+        return (int)cudaErrorInvalidValue;
     auto launch = [&](auto kernel) {
         cudaError_t e = row_stage::allow_smem(kernel, smem);
         if (e != cudaSuccess) return e;
@@ -516,7 +544,7 @@ extern "C" int multi_transition_small_f32(void* const* ptrs, int num_ptrs, const
             x, y, angle, vx, vy, crashed, nullptr, nullptr, wp_x, wp_y, nrm_x, nrm_y,
             row_ids, n_wp, track_width, nx, ny, nang, nvx, nvy, nullptr, nullptr, nullptr,
             nullptr, nullptr, cars_per_row, num_waypoints, k, half_length, half_width,
-            collision_scale, tin, tout, ts);
+            collision_scale, tin, tout, ts, ar);
         return cudaGetLastError();
     };
     err = pairs ? launch(car_step_and_query_kernel<true, true>)

@@ -37,10 +37,19 @@
 // after a bulk prefetch of the rows' normals into the L2: staging them too would
 // double the stage and halve the blocks an SM holds.
 //
+// With the autoreset's pointers (autoreset.cuh) the last phase also runs the vector
+// step's NEXT_STEP autoreset: the cars of a row whose pending_reset is set are
+// written again as the fresh state on the start grid (after the barrier that orders
+// them behind the phases that wrote the stepped car) with their info, reward 0 and
+// the row's flags False; the row's first car's thread its done, seat 0's episode
+// statistics and record, inside a rollout row t of the rollout's buffers, and with a
+// pool the PFSP counts. Null pointers: the plain transition, as before.
+//
 // Split points for scripts/env_kernel_split.py, which builds this source with an
 // early return at one of them: "split: staged", "split: searched", "split: paired".
 #include <cuda_runtime.h>
 
+#include "autoreset.cuh"
 #include "car_step.cuh"
 #include "rect_sat.cuh"
 #include "row_stage.cuh"
@@ -120,6 +129,7 @@ struct Params {
     TailIn tin;
     TailOut tout;
     TailSpec ts;
+    autoreset::Args ar;
 };
 
 // torch.clamp on the card: NaN passes, else min(max(v, lo), hi)
@@ -365,10 +375,11 @@ __global__ void __launch_bounds__(kMaxThreads) multi_transition_kernel(Params p)
         const bool terminated = any_finished || all_crashed;
         const bool truncated = steps >= p.ts.max_steps;
         const bool done = terminated || truncated;
+        const bool reset = autoreset::resets(p.ar, row);
         if (a == 0) {
-            p.tout.steps[row] = steps;
-            p.tout.terminated[row] = terminated;
-            p.tout.truncated[row] = truncated;
+            p.tout.steps[row] = reset ? 0 : steps;
+            p.tout.terminated[row] = terminated && !reset;
+            p.tout.truncated[row] = truncated && !reset;
         }
         const float sa = word(kScore, c);
         int beaten = 0;
@@ -377,10 +388,21 @@ __global__ void __launch_bounds__(kMaxThreads) multi_transition_kernel(Params p)
             beaten += (sa < sb) || (sa == sb && a < b);
         }
         const int place = 1 + beaten;
-        p.tout.placement[car0 + c] = done ? place : 0;
-        p.tout.reward[car0 + c] =
-            word(kReward, c) + ((done && place == 1) ? p.ts.winner_bonus : 0.0f);
+        const int placement = done ? place : 0;
+        const float reward = word(kReward, c) + ((done && place == 1) ? p.ts.winner_bonus : 0.0f);
+        if (reset) {
+            autoreset::fresh_car(p.ar, row, car0 + c, p.nx, p.ny, p.nang, p.nvx, p.nvy, p.tout);
+        } else {
+            p.tout.placement[car0 + c] = placement;
+            p.tout.reward[car0 + c] = reward;
+        }
+        if (a == 0 && p.ar.on) {
+            autoreset::row_tail(p.ar, row, p.rows, autoreset::row_in(p.ar, row), reset,
+                                reset ? 0.0f : reward, terminated && !reset,
+                                truncated && !reset, !reset && placement == 1);
+        }
     }
+    autoreset::pfsp_finish(p.ar);
 }
 
 }  // namespace
@@ -392,20 +414,23 @@ __global__ void __launch_bounds__(kMaxThreads) multi_transition_kernel(Params p)
 // (null: row i), n_wp, track_width, progress, last_progress, finished, cp25, cp50,
 // cp75, has_crashed, finished_step, steps; then the outputs nx, ny, nang, nvx, nvy,
 // progress, last_steering, crashed, finished, cp25, cp50, cp75, has_crashed, steps,
-// finished_step, placement, reward, terminated, truncated, speed, info_progress.
-// consts holds kTransitionConsts float32 values: K5's eight, the half length and
-// width, collision_scale, then TailSpec's ten floats in its order. One block of
+// finished_step, placement, reward, terminated, truncated, speed, info_progress; then
+// autoreset.cuh's kPtrs (all null: the plain transition), with `steps` the rollout's
+// rows, `pool` the PFSP slots and `pfsp_mode` autoreset.cuh's bits. consts holds
+// kTransitionConsts float32 values: K5's eight, the half length and width,
+// collision_scale, then TailSpec's ten floats in its order, then the start grid's
+// center and spacing (the autoreset's). One block of
 // `threads` threads a `rows_per_block` env rows and `smem` bytes of dynamic shared
 // memory: the launch plan, ops/_cuda.py:multi_transition_plan. Returns a
 // cudaError_t (0 on success).
-constexpr int kTransitionPtrs = 44;
-constexpr int kTransitionConsts = 21;
+constexpr int kTransitionPtrs = 44 + autoreset::kPtrs;
+constexpr int kTransitionConsts = 23;
 
 extern "C" int multi_transition_f32(void* const* ptrs, int num_ptrs, const float* consts,
                                     int num_consts, int rows, int cars_per_row,
                                     int num_waypoints, int threads, int smem, int pairs,
-                                    int max_steps, int rows_per_block, int device,
-                                    void* stream) {
+                                    int max_steps, int rows_per_block, int steps, int pool,
+                                    int pfsp_mode, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (num_ptrs != kTransitionPtrs || num_consts != kTransitionConsts)
@@ -477,6 +502,9 @@ extern "C" int multi_transition_f32(void* const* ptrs, int num_ptrs, const float
     p.collision_scale = consts[10];
     p.ts = TailSpec{consts[11], consts[12], consts[13], consts[14], consts[15], consts[16],
                     consts[17], consts[18], consts[19], consts[20], max_steps};
+    if (!autoreset::parse(ptrs + i, steps, pool, pfsp_mode, consts[21], consts[22], p.ar)
+            || (p.ar.on && !(p.ar.start_nx && p.ar.start_ny && p.ar.slot)))
+        return (int)cudaErrorInvalidValue;
     auto launch = [&](auto kernel) {
         // the dynamic shared memory and the static (under 1 KB) over the default 48 KB
         cudaError_t e = cudaSuccess;

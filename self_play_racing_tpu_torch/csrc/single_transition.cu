@@ -26,6 +26,12 @@
 // MB gathered, 5 us; the pool's 16 rows by id, 0.07 MB) and ~70 bytes a car of
 // state and outputs (chip_smoke.py: single_step_bound).
 //
+// With the autoreset's pointers (autoreset.cuh) the tail also runs the vector step's
+// NEXT_STEP autoreset: a row whose pending_reset is set writes the fresh state (the
+// track's start pose and zeros) and its info, reward 0 and its flags False; every
+// row its done, episode statistics and record, and inside a rollout its row t of
+// the rollout's buffers. Null pointers: the plain transition, as before.
+//
 // Two kernels, the same step, search and tail (so the same bits):
 //   - single_transition_kernel, a block (one warp) a row, the one the env launches on
 //     per-env rows and on few rows: every lane steps the car (the same values on each)
@@ -49,6 +55,7 @@
 // stepped", "split: searched" (single_transition_kernel).
 #include <cuda_runtime.h>
 
+#include "autoreset.cuh"
 #include "car_step.cuh"
 #include "row_stage.cuh"
 #include "waypoint_search.cuh"
@@ -63,13 +70,17 @@ constexpr int kMaxRowsPerBlock = 32;  // ops/_cuda.py:SINGLE_TRANSITION_MAX_ROWS
 // the winner of the centre and the wall hit; what the tail reads, put there by the
 // stepping thread while the row arrives: the stepped car, the clipped steering, the
 // old progress, last progress and speed weight, as ints the steps, the row's
-// waypoint count and the flags (crashed, finished, cp25, cp50, cp75 as bits 0-4).
+// waypoint count and the flags (crashed, finished, cp25, cp50, cp75 and the
+// autoreset's pending_reset as bits 0-5); then the autoreset's inputs: the start
+// pose, the running return, as ints the running length and the entering done flag.
 constexpr int kQx = 0, kQy = kQx + kQueries, kBest = kQy + kQueries, kOutside = kBest + 1,
               kCarX = kOutside + 1, kCarY = kCarX + 1, kCarAngle = kCarY + 1,
               kCarVx = kCarAngle + 1, kCarVy = kCarVx + 1, kSteer = kCarVy + 1,
               kProgress = kSteer + 1, kLastProgress = kProgress + 1,
               kSpeedWeight = kLastProgress + 1, kSteps = kSpeedWeight + 1, kCount = kSteps + 1,
-              kFlags = kCount + 1, kCarWords = kFlags + 1;
+              kFlags = kCount + 1, kStartX = kFlags + 1, kStartY = kStartX + 1,
+              kStartAngle = kStartY + 1, kEpReturn = kStartAngle + 1, kEpLength = kEpReturn + 1,
+              kEntering = kEpLength + 1, kCarWords = kEntering + 1;
 
 // The reward constants, rounded to float32 by the caller; inv_max_speed and
 // inv_time_bonus_divisor are the rounded reciprocals of _numerics.div_const, and
@@ -105,6 +116,7 @@ struct Params {
     car_step::Spec k;
     float half_length, half_width;
     TailSpec ts;
+    autoreset::Args ar;
 };
 
 // torch.clamp on the card: NaN passes, else min(max(v, lo), hi)
@@ -197,17 +209,25 @@ __device__ __forceinline__ int query_row(const Params& p, const float* stage, in
     return best[0];
 }
 
-// Car i's state that the tail reads beside its step.
+// Car i's state that the tail reads beside its step, and the autoreset's: whether
+// the row resets, the start pose and the running episode.
 struct TailIn {
     float progress, last_progress, speed_weight;
     int steps;
     bool finished, cp25, cp50, cp75;
+    bool reset;
+    float start_x, start_y, start_angle;
+    autoreset::RowIn row;
 };
 
 __device__ __forceinline__ TailIn tail_in(const Params& p, size_t i) {
+    const bool on = p.ar.on;
     return TailIn{p.progress[i], p.last_progress[i],
                   p.speed_weight ? *p.speed_weight : p.ts.speed_weight, p.steps[i],
-                  p.finished[i] != 0, p.cp25[i] != 0, p.cp50[i] != 0, p.cp75[i] != 0};
+                  p.finished[i] != 0, p.cp25[i] != 0, p.cp50[i] != 0, p.cp75[i] != 0,
+                  autoreset::resets(p.ar, i), on ? p.ar.start_x[i] : 0.0f,
+                  on ? p.ar.start_y[i] : 0.0f, on ? p.ar.start_angle[i] : 0.0f,
+                  autoreset::row_in(p.ar, i)};
 }
 
 // One thread: car i's tail from its step and state, its centre's winner best0 over
@@ -247,6 +267,32 @@ __device__ __forceinline__ void tail(const Params& p, size_t i, const Stepped& s
     reward = fin_now ? reward + ts.finish_bonus : reward;
     reward = fin_now ? reward + time_bonus : reward;
 
+    if (in.reset) {
+        // the autoreset: the fresh state (single.py:reset_state), its info
+        // (info_from_state: speed sqrt(0 * 0 + 0 * 0), progress 0, reward and delta
+        // 0), reward 0 and the flags False
+        p.nx[i] = in.start_x;
+        p.ny[i] = in.start_y;
+        p.nang[i] = in.start_angle;
+        p.nvx[i] = 0.0f;
+        p.nvy[i] = 0.0f;
+        p.last_steering[i] = 0.0f;
+        p.progress_out[i] = 0.0f;
+        p.crashed_out[i] = 0;
+        p.finished_out[i] = 0;
+        p.cp25_out[i] = 0;
+        p.cp50_out[i] = 0;
+        p.cp75_out[i] = 0;
+        p.steps_out[i] = 0;
+        p.reward[i] = 0.0f;
+        p.terminated[i] = 0;
+        p.truncated[i] = 0;
+        p.speed[i] = 0.0f;
+        p.info_progress[i] = 0.0f;
+        p.delta[i] = 0.0f;
+        autoreset::row_tail(p.ar, i, p.rows, in.row, true, 0.0f, false, false, false);
+        return;
+    }
     p.nx[i] = s.x;
     p.ny[i] = s.y;
     p.nang[i] = s.angle;
@@ -266,6 +312,10 @@ __device__ __forceinline__ void tail(const Params& p, size_t i, const Stepped& s
     p.speed[i] = speed;
     p.info_progress[i] = finished ? 1.0f : pr;
     p.delta[i] = delta;
+    if (p.ar.on) {
+        autoreset::row_tail(p.ar, i, p.rows, in.row, false, reward, crashed || finished,
+                            steps >= ts.max_steps, false);
+    }
 }
 
 // The env rows block b serves, P = rows_per_block (at most 32) of them, one car each:
@@ -336,7 +386,13 @@ __global__ void __launch_bounds__(kMaxThreads) single_transition_rows_kernel(Par
         iword(kSteps, lane) = in.steps;
         iword(kCount, lane) = p.n_wp[i];
         iword(kFlags, lane) = st.was_crashed | in.finished << 1 | in.cp25 << 2 | in.cp50 << 3
-                              | in.cp75 << 4;
+                              | in.cp75 << 4 | in.reset << 5;
+        word(kStartX, lane) = in.start_x;
+        word(kStartY, lane) = in.start_y;
+        word(kStartAngle, lane) = in.start_angle;
+        word(kEpReturn, lane) = in.row.ep_return;
+        iword(kEpLength, lane) = in.row.ep_length;
+        iword(kEntering, lane) = in.row.entering;
     }
     __syncthreads();  // every car's queries, and the row's lane-copied head and tail
     // split: rows stepped
@@ -368,7 +424,11 @@ __global__ void __launch_bounds__(kMaxThreads) single_transition_rows_kernel(Par
                          word(kSteer, lane), (flags & 1) != 0};
         const TailIn in{word(kProgress, lane), word(kLastProgress, lane),
                         word(kSpeedWeight, lane), iword(kSteps, lane), (flags & 2) != 0,
-                        (flags & 4) != 0, (flags & 8) != 0, (flags & 16) != 0};
+                        (flags & 4) != 0, (flags & 8) != 0, (flags & 16) != 0,
+                        (flags & 32) != 0, word(kStartX, lane), word(kStartY, lane),
+                        word(kStartAngle, lane),
+                        autoreset::RowIn{word(kEpReturn, lane), iword(kEpLength, lane),
+                                         iword(kEntering, lane) != 0}};
         tail(p, env(lane), st, in, iword(kBest, lane), iword(kCount, lane),
              iword(kOutside, lane) != 0);
     }
@@ -414,16 +474,18 @@ __global__ void __launch_bounds__(32) single_transition_kernel(Params p) {
 // (null: row i), n_wp, track_width, progress, last_progress, finished, cp25, cp50,
 // cp75, steps, speed_weight (one float, or null for the constant); then the outputs
 // nx, ny, nang, nvx, nvy, progress, last_steering, crashed, finished, cp25, cp50, cp75,
-// steps, reward, terminated, truncated, speed, info_progress, progress_delta. consts
+// steps, reward, terminated, truncated, speed, info_progress, progress_delta; then
+// autoreset.cuh's kPtrs (all null: the plain transition; start_nx, start_ny, the
+// grid slots and the pool's four null), with `steps` the rollout's rows. consts
 // holds kSingleConsts float32 values: K5's eight, the half length and width, then
 // TailSpec's eight floats in its order. Returns a cudaError_t (0 on success).
-constexpr int kSinglePtrs = 41;
+constexpr int kSinglePtrs = 41 + autoreset::kPtrs;
 constexpr int kSingleConsts = 18;
 
 // Params from the entries' arguments; false where they are not what the kernels take.
 bool params_of(void* const* ptrs, int num_ptrs, const float* consts, int num_consts,
                int rows, int num_waypoints, int max_steps, int action_stride,
-               int rows_per_block, Params& p) {
+               int rows_per_block, int steps, Params& p) {
     if (num_ptrs != kSinglePtrs || num_consts != kSingleConsts || rows < 0
             || num_waypoints < 1 || action_stride < 2)
         return false;
@@ -475,6 +537,10 @@ bool params_of(void* const* ptrs, int num_ptrs, const float* consts, int num_con
     p.speed = fo();
     p.info_progress = fo();
     p.delta = fo();
+    // the single-car env has no grid and no pool
+    if (!autoreset::parse(ptrs + i, steps, 0, 0, 0.0f, 0.0f, p.ar) || p.ar.start_nx
+            || p.ar.start_ny || p.ar.slot || p.ar.extra)
+        return false;
     p.rows = rows;
     p.num_waypoints = num_waypoints;
     p.action_stride = action_stride;
@@ -501,13 +567,13 @@ extern "C" int single_transition_rows_f32(void* const* ptrs, int num_ptrs,
                                           const float* consts, int num_consts, int rows,
                                           int num_waypoints, int threads, int smem,
                                           int max_steps, int action_stride,
-                                          int rows_per_block, int row_period, int device,
-                                          void* stream) {
+                                          int rows_per_block, int row_period, int steps,
+                                          int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     Params p;
     if (!params_of(ptrs, num_ptrs, consts, num_consts, rows, num_waypoints, max_steps,
-                   action_stride, rows_per_block, p)
+                   action_stride, rows_per_block, steps, p)
             || threads % 32 != 0 || threads < 32 || threads > kMaxThreads
             || rows_per_block < 1 || rows_per_block > kMaxRowsPerBlock || row_period < 1)
         return (int)cudaErrorInvalidValue;
@@ -529,13 +595,13 @@ extern "C" int single_transition_rows_f32(void* const* ptrs, int num_ptrs,
 // position fields (ops/_cuda.py:single_transition_plan).
 extern "C" int single_transition_f32(void* const* ptrs, int num_ptrs, const float* consts,
                                      int num_consts, int rows, int num_waypoints, int smem,
-                                     int max_steps, int action_stride, int device,
+                                     int max_steps, int action_stride, int steps, int device,
                                      void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     Params p;
     if (!params_of(ptrs, num_ptrs, consts, num_consts, rows, num_waypoints, max_steps,
-                   action_stride, 1, p))
+                   action_stride, 1, steps, p))
         return (int)cudaErrorInvalidValue;
     if (rows == 0) return 0;
     // the dynamic shared memory and the static (under 1 KB) over the default 48 KB

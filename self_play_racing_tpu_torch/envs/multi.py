@@ -41,11 +41,21 @@ package's per-seat raycast unroll and its query-layout switch work around XLA
 fusion limits and have no counterpart here. The geometry is per-env
 ``TrackArrays`` or a capacity layout (``envs/track.py``), whose resident pool rows
 the two kernels read by row id.
+
+``transition_autoreset`` is a vector step's transition with its NEXT_STEP autoreset
+over seat 0's episode, self-play's view (``vector.autoreset``: the reset rows' cars
+on the start grid of given slots, their info, the masks, seat 0's episode
+statistics, a rollout's rows of the step, and with a pool the PFSP counts
+``pfsp_counts`` defines): on the card the same launch in the kernels' autoreset mode
+(``csrc/autoreset.cuh``), counted also as ``transition_autoreset_launches``
+(``transition_autoreset_small_launches`` by the first kernel); on the CPU
+``transition_autoreset_plain``, the composition the mode is held to bitwise.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -56,6 +66,7 @@ from ..ops import _cuda
 from ..ops import geometry as geo
 from ..ops.dynamics import DEFAULT_CAR, CarSpec, _step_constants, car_step_and_query
 from . import track as trk
+from . import vector
 from .track import Track
 
 observe_launches = 0
@@ -64,6 +75,8 @@ observe_small_launches = 0
 transition_launches = 0
 transition_row_id_launches = 0
 transition_small_launches = 0
+transition_autoreset_launches = 0
+transition_autoreset_small_launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +147,16 @@ def random_grid_slots(num_envs: int, num_agents: int, generator: torch.Generator
     return torch.argsort(u, dim=-1)
 
 
+def draw_grid_slots(num_envs: int, num_agents: int, generator: torch.Generator, device,
+                    shard=None) -> torch.Tensor:
+    """``random_grid_slots`` for ``num_envs`` envs; with ``shard`` = (rank, world) this
+    rank's rows of the draw for all ``world`` ranks' envs."""
+    if shard is None:
+        return random_grid_slots(num_envs, num_agents, generator, device=device)
+    return shard_rows(random_grid_slots(num_envs * shard[1], num_agents, generator,
+                                        device=device), shard)
+
+
 def reset_state(cfg: MultiRacingConfig, track: Track, generator=None,
                 position_idx=None, shard=None) -> MultiState:
     """Fresh state on the staggered start grid. ``position_idx`` [N, A] gives each
@@ -150,11 +173,7 @@ def reset_state(cfg: MultiRacingConfig, track: Track, generator=None,
     if position_idx is None:
         if generator is None:
             raise ValueError("reset_state needs a generator or explicit position_idx")
-        if shard is None:
-            position_idx = random_grid_slots(n, a, generator, device=dev)
-        else:
-            position_idx = shard_rows(random_grid_slots(n * shard[1], a, generator,
-                                                        device=dev), shard)
+        position_idx = draw_grid_slots(n, a, generator, dev, shard)
     position_idx = torch.as_tensor(position_idx, device=dev)
 
     spacing = cfg.car.width + 1.5
@@ -306,14 +325,16 @@ def _transition_constants(cfg: MultiRacingConfig):
     ``csrc/multi_transition.cu:multi_transition_f32``'s order: K5's eight, the
     half length and width, the collision scale, then the reward's (the float32
     reciprocals of max_speed and the time-bonus divisor, through which
-    ``div_const`` divides, and the touch penalty negated)."""
+    ``div_const`` divides, and the touch penalty negated), then ``reset_state``'s
+    start-grid center and spacing as PyTorch takes the Python scalars."""
     f32 = np.float32
     return _step_constants(cfg.dt, cfg.car) + [
         f32(cfg.car.length / 2), f32(cfg.car.width / 2), f32(cfg.collision_speed_scale),
         f32(cfg.progress_scale), f32(cfg.speed_scale), f32_reciprocal(cfg.car.max_speed),
         f32(cfg.checkpoint_bonus), f32(cfg.finish_bonus), f32(cfg.time_bonus_base),
         f32_reciprocal(cfg.time_bonus_divisor), f32(cfg.crash_penalty),
-        f32(-cfg.touch_penalty), f32(cfg.winner_bonus)]
+        f32(-cfg.touch_penalty), f32(cfg.winner_bonus),
+        f32((cfg.num_agents - 1) / 2.0), f32(cfg.car.width + 1.5)]
 
 
 def transition(cfg: MultiRacingConfig, track: Track, state: MultiState, action):
@@ -331,11 +352,14 @@ def transition(cfg: MultiRacingConfig, track: Track, state: MultiState, action):
     return out
 
 
-def _transition_cuda(cfg: MultiRacingConfig, track: Track, state: MultiState, action):
+def _transition_cuda(cfg: MultiRacingConfig, track: Track, state: MultiState, action,
+                     reset=None):
     """``transition`` on the card: a block per env or per few envs, which stages
     their waypoint rows (pool row ``row_ids[i]`` with ids), steps and queries their
-    cars, runs the pair test with more than one car, and writes every output.
-    Returns (``transition``'s outputs, whether the first kernel ran)."""
+    cars, runs the pair test with more than one car, and writes every output. With
+    ``reset`` = (pending_reset, stats, rows, position_idx, pfsp) the kernel's
+    autoreset mode. Returns (``transition``'s outputs, with ``reset`` a
+    ``vector.StepOut``, and whether the first kernel ran)."""
     dev = state.x.device
     n, a = state.x.shape
     if action.shape != (n, a, 2) or action.device != dev:
@@ -379,14 +403,24 @@ def _transition_cuda(cfg: MultiRacingConfig, track: Track, state: MultiState, ac
     reward, speed, info_progress = new(f32), new(f32), new(f32)
     terminated, truncated = new(b8, (n,)), new(b8, (n,))
     x, y, angle, vx, vy, old_progress, last_progress = cars
+    if reset is None:
+        reset_ptrs, outs, rollout_steps, pool, mode = [None] * _cuda.AUTORESET_PTRS, None, 0, 0, 0
+    else:
+        if a != cfg.num_agents:
+            raise ValueError(f"multi.transition_autoreset: {a} cars a row, the config's "
+                             f"start grid {cfg.num_agents}")
+        pending_reset, stats, rows, position_idx, pfsp = reset
+        reset_ptrs, outs, rollout_steps, pool, mode = vector.autoreset_args(
+            "multi.transition_autoreset", n, dev, pending_reset, stats, rows, per_env,
+            position_idx, pfsp, a)
     ptrs = [x, y, angle, vx, vy, flags[0], action, *wp, row_ids, n_wp.contiguous(),
             width.contiguous(), old_progress, last_progress, *flags[1:], *ints,
             nx, ny, nang, nvx, nvy, progress, steering, crashed, finished, cp25, cp50,
             cp75, has_crashed, steps, finished_step, placement, reward, terminated,
-            truncated, speed, info_progress]
+            truncated, speed, info_progress, *reset_ptrs]
     with torch.cuda.device(dev):
         _cuda.launch_multi_transition(ptrs, _transition_constants(cfg), n, a, num_waypoints,
-                                      pairs, cfg.max_steps, dev)
+                                      pairs, cfg.max_steps, dev, rollout_steps, pool, mode)
     new_state = MultiState(
         x=nx, y=ny, angle=nang, vx=nvx, vy=nvy,
         progress=progress, crashed=crashed, finished=finished,
@@ -399,7 +433,92 @@ def _transition_cuda(cfg: MultiRacingConfig, track: Track, state: MultiState, ac
         "crashed": crashed, "finished": finished,
         "reward": reward, "placement": placement,
     }
-    return (new_state, reward, terminated, truncated, info), plan.small
+    if reset is None:
+        return (new_state, reward, terminated, truncated, info), plan.small
+    return outs.step_out(new_state, reward[:, 0], terminated, truncated, info,
+                         reset[0]), plan.small
+
+
+class PFSP(NamedTuple):
+    """A pool's opponents for the PFSP counts: ``idx`` the slot (int32 or int64, [N]
+    or 0-d), ``use_policy`` (bool, [N] or 0-d), ``extra`` float32 [2 * pool] that
+    ``pfsp_counts`` is added into; on the card ``counts``, the kernel's scratch: int32
+    [2 * pool + 1] (the slots' wins, their games, then the launch's ticket), zero,
+    which every launch leaves zero, so that a CUDA graph's replays need no memset."""
+
+    idx: torch.Tensor
+    use_policy: torch.Tensor
+    extra: torch.Tensor
+    counts: torch.Tensor = None
+
+
+def pfsp_counts(idx, use_policy, mask, placement, pool: int) -> torch.Tensor:
+    """Per-slot [wins..., games...] float32 [2 * pool] of the episodes that ended
+    (``mask`` [N]) against a policy opponent, a win where seat 0's ``placement`` [N]
+    is 1 (the JAX package's ``agent/self_play.py:65`` stats)."""
+    idx = idx.expand(mask.shape)
+    ended = mask & use_policy.expand(mask.shape)
+    won = ended & (placement == 1)
+    onehot = idx[:, None] == torch.arange(pool, device=idx.device)[None, :]
+    wins = torch.sum(onehot & won[:, None], dim=0, dtype=torch.float32)
+    games = torch.sum(onehot & ended[:, None], dim=0, dtype=torch.float32)
+    return torch.cat([wins, games])
+
+
+def transition_autoreset(cfg: MultiRacingConfig, track: Track, state: MultiState, action,
+                         pending_reset, stats: vector.EpisodeStats, position_idx,
+                         rows: vector.RolloutRows = None,
+                         pfsp: PFSP = None) -> vector.StepOut:
+    """``transition``, ``reset_state`` on the grid slots ``position_idx`` [N, A] and
+    ``vector.autoreset`` (with ``info_from_state``) in one, over seat 0's episode: the
+    rows in ``pending_reset`` [N] take the fresh state, ``stats`` and the returned
+    reward are seat 0's (the info stays every seat's). With ``rows``, also row
+    ``rows.t`` of a rollout's buffers and ``rows.t_next``; with ``pfsp``,
+    ``pfsp_counts`` added into ``pfsp.extra``. One launch of the transition kernel in
+    its autoreset mode on the card, ``transition_autoreset_plain`` on the CPU."""
+    global transition_launches, transition_row_id_launches, transition_small_launches
+    global transition_autoreset_launches, transition_autoreset_small_launches
+    if not geo._on_cuda(state.x, "multi.transition_autoreset"):
+        return transition_autoreset_plain(cfg, track, state, action, pending_reset, stats,
+                                          position_idx, rows, pfsp)
+    out, small = _transition_cuda(cfg, track, state, action,
+                                  reset=(pending_reset, stats, rows, position_idx, pfsp))
+    transition_launches += 1
+    transition_row_id_launches += isinstance(track, trk.LAYOUTS)
+    transition_small_launches += small
+    transition_autoreset_launches += 1
+    transition_autoreset_small_launches += small
+    return out
+
+
+def transition_autoreset_plain(cfg: MultiRacingConfig, track: Track, state: MultiState,
+                               action, pending_reset, stats: vector.EpisodeStats,
+                               position_idx, rows: vector.RolloutRows = None,
+                               pfsp: PFSP = None) -> vector.StepOut:
+    """Plain version of ``transition_autoreset``: ``transition_plain``, then
+    ``autoreset_plain``."""
+    return autoreset_plain(cfg, track, transition_plain(cfg, track, state, action),
+                           pending_reset, stats, position_idx, rows, pfsp)
+
+
+def autoreset_plain(cfg: MultiRacingConfig, track: Track, transitioned, pending_reset,
+                    stats: vector.EpisodeStats, position_idx,
+                    rows: vector.RolloutRows = None, pfsp: PFSP = None) -> vector.StepOut:
+    """What the autoreset mode adds to a transition, in PyTorch, after
+    ``transitioned`` (``transition``'s outputs): ``reset_state`` on the grid slots,
+    ``vector.autoreset`` on seat 0's reward with ``info_from_state``, the rows as
+    ``vector.write_rows`` writes them and ``pfsp_counts`` added into ``pfsp.extra``."""
+    stepped, rewards, terminated, truncated, info = transitioned
+    fresh = reset_state(cfg, track, position_idx=position_idx)
+    out = vector.autoreset(pending_reset, stats, stepped, fresh, rewards[:, 0], terminated,
+                           truncated, info, lambda merged: info_from_state(cfg, track, merged))
+    if rows is not None:
+        vector.write_rows(rows, out.reward, out.record)
+        torch.add(rows.t, 1, out=rows.t_next)
+    if pfsp is not None:
+        pfsp.extra.add_(pfsp_counts(pfsp.idx, pfsp.use_policy, out.record["mask"],
+                                    out.info["placement"][:, 0], pfsp.extra.shape[0] // 2))
+    return out
 
 
 def transition_plain(cfg: MultiRacingConfig, track: Track, state: MultiState, action):

@@ -35,6 +35,7 @@ from ..ops import policy as polops
 from ..ops.geometry import _on_cuda
 from . import multi
 from . import normalize as obsnorm
+from . import vector
 from .track import Track
 
 _ACTION_LOW = (-1.0, 0.0)
@@ -218,11 +219,39 @@ def transition_deferred(cfg: multi.MultiRacingConfig, track: Track, opp,
     return new_state, rewards[:, 0], terminated | truncated, truncated, info0
 
 
-def info0_from_state(cfg: multi.MultiRacingConfig, track: Track,
-                     state: SelfPlayState):
-    """Seat 0's view of ``multi.info_from_state`` (the reset-info contract)."""
-    info = multi.info_from_state(cfg, track, state.inner)
-    return {k: v[:, 0] for k, v in info.items()}
+def transition_autoreset(cfg: multi.MultiRacingConfig, track: Track, opp,
+                         state: SelfPlayState, action0, pending_reset,
+                         stats: vector.EpisodeStats, generator=None, shard=None,
+                         rows: vector.RolloutRows = None, pool_size: int = 0):
+    """Seat 0's vector step with its NEXT_STEP autoreset, the trainer's: the
+    opponents' draws and kernel B, then the start-grid slots drawn as ``reset_state``
+    draws them (every step, in the order the JAX package's composition takes
+    ``generator``'s stream), then ``multi.transition_autoreset``, which on the card is
+    one launch. The state's ``obs_all`` is left stale for ``refresh``, which senses
+    every row. With ``rows`` and ``pool_size`` > 0 the pool's per-slot wins and games
+    (``multi.pfsp_counts``) are added into ``rows.out["extra"]``, made where missing
+    (on the card with the kernel's count scratch beside it, under
+    ``vector.PFSP_COUNTS``). Returns seat 0's ``vector.StepOut``."""
+    actions = opponent_actions_all_seats(cfg, opp, state.obs_all[:, 1:], generator, shard,
+                                         first=action0)               # [N, A, 2]
+    n = state.inner.x.shape[0]
+    dev = state.inner.x.device
+    slots = multi.draw_grid_slots(n, cfg.num_agents, generator, dev, shard)
+    pfsp = None
+    if rows is not None and pool_size > 0:
+        if "extra" not in rows.out:
+            rows.out["extra"] = torch.zeros((2 * pool_size,), dtype=torch.float32, device=dev)
+            if dev.type == "cuda":
+                rows.out[vector.PFSP_COUNTS] = torch.zeros((2 * pool_size + 1,),
+                                                           dtype=torch.int32, device=dev)
+        pfsp = multi.PFSP(torch.as_tensor(opp["idx"], device=dev),
+                          torch.as_tensor(opp["use_policy"], device=dev), rows.out["extra"],
+                          rows.out.get(vector.PFSP_COUNTS))
+    out = multi.transition_autoreset(cfg, track, state.inner, actions, pending_reset, stats,
+                                     slots, rows, pfsp)
+    return out._replace(env=SelfPlayState(inner=out.env, obs_all=state.obs_all),
+                        terminated=out.done,
+                        info={k: v[:, 0] for k, v in out.info.items()})
 
 
 def refresh(cfg: multi.MultiRacingConfig, track: Track, state: SelfPlayState):

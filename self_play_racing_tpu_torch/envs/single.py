@@ -33,6 +33,14 @@ versions there) and PyTorch around them, the composition the kernels are held to
 bitwise on the card. ``transition_launches`` and ``observe_launches`` count the
 kernels' launches, ``*_row_id_launches`` those reading pool rows by id and
 ``transition_rows_launches`` those of the transition's kernel of several rows a block.
+
+``transition_autoreset`` is a vector step's transition with its NEXT_STEP autoreset
+(``vector.autoreset``: the reset rows' fresh state and info, the masks, the episode
+statistics and a rollout's rows of the step): on the card the same launch in the
+kernels' autoreset mode (``csrc/autoreset.cuh``), counted also as
+``transition_autoreset_launches`` (``transition_autoreset_rows_launches`` by the
+kernel of several rows a block); on the CPU ``transition_autoreset_plain``, the
+composition the mode is held to bitwise on the card.
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ from ..ops import _cuda
 from ..ops import geometry as geo
 from ..ops.dynamics import DEFAULT_CAR, CarSpec, _step_constants, car_step_and_query
 from . import track as trk
+from . import vector
 from .multi import _env_rows
 from .track import Track
 
@@ -55,6 +64,8 @@ observe_row_id_launches = 0
 transition_launches = 0
 transition_row_id_launches = 0
 transition_rows_launches = 0
+transition_autoreset_launches = 0
+transition_autoreset_rows_launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -271,15 +282,16 @@ def transition(cfg: RacingConfig, track: Track, state: RacingState, action,
 
 
 def _transition_cuda(cfg: RacingConfig, track: Track, state: RacingState, action,
-                     speed_weight=None):
+                     speed_weight=None, reset=None):
     """``transition`` on the card, as ``_cuda.launch_single_transition`` says (a
     warp a row; on the tiled layout, whose period it is given, several rows a
     block): each env row's waypoint row staged (pool row ``row_ids[i]`` with ids), its
     car stepped, queried and its tail run, every output written. A speed-weight
     tensor on the card is read there (float32, one value), so that a captured rollout
     sees each update's anneal; a number or a CPU tensor is taken as a float32
-    constant. Returns the step's outputs and whether the kernel of several rows a
-    block ran."""
+    constant. With ``reset`` = (pending_reset, stats, rows) the kernel's autoreset
+    mode. Returns the step's outputs (with ``reset`` a ``vector.StepOut``) and whether
+    the kernel of several rows a block ran."""
     car = state.car
     dev, n = car.x.device, car.x.shape[0]
     x, y, angle, vx, vy, old_progress, last_progress = _car_fields(
@@ -330,15 +342,21 @@ def _transition_cuda(cfg: RacingConfig, track: Track, state: RacingState, action
     new_steps, reward, speed, info_progress, delta = (
         new(torch.int32), new(f32), new(f32), new(f32), new(f32))
     terminated, truncated = new(b8), new(b8)
+    if reset is None:
+        reset_ptrs, outs, steps = [None] * _cuda.AUTORESET_PTRS, None, 0
+    else:
+        reset_ptrs, outs, steps, _, _ = vector.autoreset_args(
+            "single.transition_autoreset", n, dev, *reset, per_env)
     ptrs = [x, y, angle, vx, vy, flags[0], action, *wp, row_ids, n_wp.contiguous(),
             width.contiguous(), old_progress, last_progress, *flags[1:],
             state.steps.contiguous(), sw,
             nx, ny, nang, nvx, nvy, progress, steering, crashed, finished, cp25, cp50, cp75,
-            new_steps, reward, terminated, truncated, speed, info_progress, delta]
+            new_steps, reward, terminated, truncated, speed, info_progress, delta,
+            *reset_ptrs]
     with torch.cuda.device(dev):
         by_rows = _cuda.launch_single_transition(
             ptrs, constants, n, num_waypoints, cfg.max_steps,
-            action.stride(0) if n > 1 else 2, dev, row_period=_row_period(track))
+            action.stride(0) if n > 1 else 2, dev, row_period=_row_period(track), steps=steps)
     new_state = RacingState(
         car=CarState(x=nx, y=ny, angle=nang, vx=nvx, vy=nvy,
                      progress=progress, crashed=crashed, finished=finished),
@@ -352,7 +370,59 @@ def _transition_cuda(cfg: RacingConfig, track: Track, state: RacingState, action
         "crashed": crashed, "finished": finished,
         "reward": reward, "progress_delta": delta,
     }
-    return (new_state, reward, terminated, truncated, info), by_rows
+    if reset is None:
+        return (new_state, reward, terminated, truncated, info), by_rows
+    return outs.step_out(new_state, reward, terminated, truncated, info, reset[0]), by_rows
+
+
+def transition_autoreset(cfg: RacingConfig, track: Track, state: RacingState, action,
+                         pending_reset, stats: vector.EpisodeStats, speed_weight=None,
+                         rows: vector.RolloutRows = None) -> vector.StepOut:
+    """``transition``, ``reset_state`` and ``vector.autoreset`` (with
+    ``info_from_state``) in one: the rows in ``pending_reset`` [N] take the fresh
+    state, and ``stats`` the step's reward. With ``rows``, also row ``rows.t`` of a
+    rollout's buffers and ``rows.t_next``. One launch of the transition kernel in its
+    autoreset mode on the card, ``transition_autoreset_plain`` on the CPU."""
+    global transition_launches, transition_row_id_launches, transition_rows_launches
+    global transition_autoreset_launches, transition_autoreset_rows_launches
+    if not geo._on_cuda(state.car.x, "single.transition_autoreset"):
+        return transition_autoreset_plain(cfg, track, state, action, pending_reset, stats,
+                                          speed_weight, rows)
+    out, by_rows = _transition_cuda(cfg, track, state, action, speed_weight,
+                                    reset=(pending_reset, stats, rows))
+    transition_launches += 1
+    transition_row_id_launches += isinstance(track, trk.LAYOUTS)
+    transition_rows_launches += by_rows
+    transition_autoreset_launches += 1
+    transition_autoreset_rows_launches += by_rows
+    return out
+
+
+def transition_autoreset_plain(cfg: RacingConfig, track: Track, state: RacingState, action,
+                               pending_reset, stats: vector.EpisodeStats, speed_weight=None,
+                               rows: vector.RolloutRows = None) -> vector.StepOut:
+    """Plain version of ``transition_autoreset``: ``transition_plain``, then
+    ``autoreset_plain``."""
+    return autoreset_plain(cfg, track,
+                           transition_plain(cfg, track, state, action, speed_weight),
+                           pending_reset, stats, rows)
+
+
+def autoreset_plain(cfg: RacingConfig, track: Track, transitioned, pending_reset,
+                    stats: vector.EpisodeStats,
+                    rows: vector.RolloutRows = None) -> vector.StepOut:
+    """What the autoreset mode adds to a transition, in PyTorch, after
+    ``transitioned`` (``transition``'s outputs): ``reset_state``,
+    ``vector.autoreset`` with ``info_from_state`` and the rows as
+    ``vector.write_rows`` writes them."""
+    stepped, reward, terminated, truncated, info = transitioned
+    out = vector.autoreset(pending_reset, stats, stepped, reset_state(cfg, track), reward,
+                           terminated, truncated, info,
+                           lambda merged: info_from_state(cfg, track, merged))
+    if rows is not None:
+        vector.write_rows(rows, out.reward, out.record)
+        torch.add(rows.t, 1, out=rows.t_next)
+    return out
 
 
 def transition_plain(cfg: RacingConfig, track: Track, state: RacingState, action,

@@ -53,15 +53,15 @@ _SIGNATURES = {
     "mixbits_permutation_i32": [_P, _P, _I, _I, _I, _P],
     "raycast_walls_and_cars_f32": [_P] * 11 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_I, _P],
     "car_step_and_query_f32": [_P] * 25 + [_I] * 5 + [_F] * 11 + [_I, _P],
-    "multi_transition_small_f32": [_P, _I, _P, _I] + [_I] * 7 + [_I, _P],
+    "multi_transition_small_f32": [_P, _I, _P, _I] + [_I] * 10 + [_I, _P],
     "multi_observe_small_f32": [_P] * 15 + [_I] * 4 + [_F] * 5 + [_I] * 5 + [_I, _P],
-    "multi_transition_f32": [_P, _I, _P, _I] + [_I] * 8 + [_I, _P],
+    "multi_transition_f32": [_P, _I, _P, _I] + [_I] * 11 + [_I, _P],
     "multi_observe_f32": [_P] * 15 + [_I] * 4 + [_F] * 5 + [_I] * 9 + [_I, _P],
     "ppo_head_forward_f32": [_P, _I, _P, _I, _P, _L, _L, _L, _I, _P],
     "ppo_head_backward_f32": [_P, _I, _P, _I, _P, _L, _P, _L, _P, _P, _L, _L, _L, _I, _P],
     "adam_tail_f32": [_P, _P, _I, _P, _I, _P, _I, _L, _L, _I, _P],
-    "single_transition_f32": [_P, _I, _P, _I] + [_I] * 5 + [_I, _P],
-    "single_transition_rows_f32": [_P, _I, _P, _I] + [_I] * 8 + [_I, _P],
+    "single_transition_f32": [_P, _I, _P, _I] + [_I] * 6 + [_I, _P],
+    "single_transition_rows_f32": [_P, _I, _P, _I] + [_I] * 9 + [_I, _P],
     "mlp_forward_f32": [_P, _I, _L, _L, _L, _I, _I, _I, _I, _P],
     "mlp_backward_f32": [_P, _I, _L, _L, _L, _I, _I, _I, _I, _P],
     "mlp_grad_reduce_f32": [_P, _P, _L, _L, _I, _P],
@@ -179,9 +179,16 @@ PAIR_FLOATS_PER_CAR = 10
 # the multi-car env's transition tail: raw progress, velocity, score, reward and
 # four flags a car (csrc/car_step_and_query.cu:kTailWords)
 TAIL_WORDS_PER_CAR = 9
-# multi_transition_f32's pointer and constant counts (csrc/multi_transition.cu)
-TRANSITION_PTRS = 44
-TRANSITION_CONSTS = 21
+# the pointers the transition entries take after their own for the NEXT_STEP
+# autoreset (csrc/autoreset.cuh:kPtrs; all None: the plain transition), and the bits
+# of their pfsp_mode: the opponent index per env (else one for all) and int64 (else
+# int32), use_policy per env
+AUTORESET_PTRS = 27
+PFSP_IDX_PER_ENV, PFSP_IDX_WIDE, PFSP_USE_PER_ENV = 1, 2, 4
+# multi_transition_f32's pointer and constant counts (csrc/multi_transition.cu): its
+# own 44 and the autoreset's; the tail's 21 constants and the start grid's two
+TRANSITION_PTRS = 44 + AUTORESET_PTRS
+TRANSITION_CONSTS = 23
 # multi_observe (csrc/multi_observe.cu): the rows a block stages at most, and the
 # warps its plan aims at: rows_per_block = max(1, OBSERVE_WARPS // groups)
 OBSERVE_MAX_ROWS_PER_BLOCK = 8
@@ -206,15 +213,16 @@ TRANSITION_WORDS_PER_ROW = 2
 # default) and 2% the faster on the tiled pool.
 OBSERVE_SMALL_BELOW = 640
 TRANSITION_SMALL_BELOW = 2048
-# single_transition (csrc/single_transition.cu): its pointer and constant counts; for
-# its kernel of several rows a block (single_transition_rows_f32), the rows a block
-# serves at most and the words a car takes beside the staged row (its queries, its
-# centre's winner and wall hit, and what its tail reads: the stepped car and the
-# state the step carries over)
-SINGLE_TRANSITION_PTRS = 41
+# single_transition (csrc/single_transition.cu): its pointer and constant counts (its
+# own 41 and the autoreset's); for its kernel of several rows a block
+# (single_transition_rows_f32), the rows a block serves at most and the words a car
+# takes beside the staged row (its queries, its centre's winner and wall hit, and what
+# its tail reads: the stepped car, the state the step carries over and the
+# autoreset's start pose and running episode)
+SINGLE_TRANSITION_PTRS = 41 + AUTORESET_PTRS
 SINGLE_TRANSITION_CONSTS = 18
 SINGLE_TRANSITION_MAX_ROWS_PER_BLOCK = 32
-SINGLE_TRANSITION_WORDS_PER_CAR = 24
+SINGLE_TRANSITION_WORDS_PER_CAR = 30
 # The single-car transition's kernel of several rows a block, for the tiled layout
 # alone (env i reads pool row i % T, so a block's rows T apart share one staged row):
 # its shape (rows and warps a block), and the env rows from which the env launches it
@@ -541,7 +549,7 @@ def single_transition_plan(num_waypoints: int) -> TransitionPlan:
 def single_transition_rows_plan(num_waypoints: int) -> TransitionPlan:
     """The single-car transition's kernel of several rows a block, on the tiled
     layout: ``SINGLE_TRANSITION_ROWS`` rows a block, which share one pool row, staged
-    once (its two position fields), and 24 words a row beside it; one warp stepping
+    once (its two position fields), and 30 words a row beside it; one warp stepping
     them and running their tails a thread a car, ``SINGLE_TRANSITION_WARPS`` warps
     searching them a warp a car. Raises ValueError where a row does not fit."""
     if num_waypoints < 1:
@@ -684,11 +692,13 @@ def launch_multi_observe(x, y, angle, vx, vy, last_steering, max_track_distance,
 
 def launch_multi_transition(ptrs, constants, rows: int, cars_per_row: int,
                             num_waypoints: int, pairs: bool, max_steps: int,
-                            device: torch.device) -> None:
+                            device: torch.device, steps: int = 0, pool: int = 0,
+                            pfsp_mode: int = 0) -> None:
     """Launch the multi-car env's transition on ``device``'s current stream, as
     ``multi_transition_plan`` says: ``ptrs`` the ``TRANSITION_PTRS`` tensors (or None)
     in the order of ``csrc/multi_transition.cu:multi_transition_f32``, ``constants``
-    its ``TRANSITION_CONSTS`` float32 values (the first kernel takes the same)."""
+    its ``TRANSITION_CONSTS`` float32 values (the first kernel takes the same); for
+    the autoreset the rollout's ``steps``, the ``pool``'s slots and ``pfsp_mode``."""
     if len(ptrs) != TRANSITION_PTRS or len(constants) != TRANSITION_CONSTS:
         raise ValueError(f"multi_transition: {len(ptrs)} pointers and {len(constants)} "
                          f"constants, expected {TRANSITION_PTRS} and {TRANSITION_CONSTS}")
@@ -697,15 +707,17 @@ def launch_multi_transition(ptrs, constants, rows: int, cars_per_row: int,
     const_array = (ctypes.c_float * TRANSITION_CONSTS)(*map(float, constants))
     args = (ptr_array, TRANSITION_PTRS, const_array, TRANSITION_CONSTS, rows, cars_per_row,
             num_waypoints, plan.threads, plan.smem, int(pairs), int(max_steps))
+    reset = (int(steps), int(pool), int(pfsp_mode))
     if plan.small:
-        _call("car_step_and_query", "multi_transition_small_f32", device, *args)
+        _call("car_step_and_query", "multi_transition_small_f32", device, *args, *reset)
     else:
-        _call("multi_transition", "multi_transition_f32", device, *args, plan.rows_per_block)
+        _call("multi_transition", "multi_transition_f32", device, *args, plan.rows_per_block,
+              *reset)
 
 
 def launch_single_transition(ptrs, constants, rows: int, num_waypoints: int,
                              max_steps: int, action_stride: int, device: torch.device,
-                             row_period: int = 0) -> bool:
+                             row_period: int = 0, steps: int = 0) -> bool:
     """Launch the single-car env's transition on ``device``'s current stream:
     ``ptrs`` the ``SINGLE_TRANSITION_PTRS`` tensors (or None) in the order of
     ``csrc/single_transition.cu:single_transition_f32``, ``constants`` its
@@ -714,7 +726,8 @@ def launch_single_transition(ptrs, constants, rows: int, num_waypoints: int,
     row i % ``row_period`` (the tiled layout; 0: not known) and from
     ``SINGLE_TRANSITION_ROWS_FROM`` rows, the kernel of several rows a block
     (``single_transition_rows_plan``), which takes the same and gives a block rows
-    that period apart, which share one staged row. Returns whether the latter ran."""
+    that period apart, which share one staged row. ``steps``: the rollout's rows, for
+    the autoreset's row writes. Returns whether the latter ran."""
     if len(ptrs) != SINGLE_TRANSITION_PTRS or len(constants) != SINGLE_TRANSITION_CONSTS:
         raise ValueError(f"single_transition: {len(ptrs)} pointers and {len(constants)} "
                          f"constants, expected {SINGLE_TRANSITION_PTRS} and "
@@ -726,11 +739,11 @@ def launch_single_transition(ptrs, constants, rows: int, num_waypoints: int,
         plan = single_transition_rows_plan(num_waypoints)
         _call("single_transition", "single_transition_rows_f32", device, *args, plan.threads,
               plan.smem, int(max_steps), int(action_stride), plan.rows_per_block,
-              int(row_period))
+              int(row_period), int(steps))
     else:
         plan = single_transition_plan(num_waypoints)
         _call("single_transition", "single_transition_f32", device, *args, plan.smem,
-              int(max_steps), int(action_stride))
+              int(max_steps), int(action_stride), int(steps))
     return by_rows
 
 

@@ -65,7 +65,11 @@ them: mu and v within phase p's tolerance of the composition, everything after t
 towers bitwise the composition on the kernels' own mu, graph replays bitwise eager,
 refusals before any launch; a rollout launching kernel A once a step and kernel B
 once a self-play step, and each update's first minibatch at approx_kl and clip_frac
-exactly 0.
+exactly 0. The transitions' autoreset mode (``csrc/autoreset.cuh``: the NEXT_STEP reset,
+the merge, the info, the masks, the episode statistics, the rollout's rows and the PFSP
+counts in the transition's launch) bitwise the composition, the plain mode and the
+PyTorch glue, at 16, 1279/1280, 2047/2048 and 4096 rows, and graph replays bitwise
+eager.
 """
 import contextlib
 import dataclasses
@@ -88,6 +92,7 @@ from self_play_racing_tpu_torch.ops import geometry as geo
 from self_play_racing_tpu_torch.ops import minibatch as mbops
 from self_play_racing_tpu_torch.ops import mlp as mlpops
 from self_play_racing_tpu_torch.ops import prng
+from self_play_racing_tpu_torch.utils.profiling import canonical_bench_pool
 
 pytestmark = pytest.mark.cuda
 
@@ -1842,7 +1847,7 @@ def test_single_transition_rows_kernel_refuses_rows_without_a_period(cuda):
             plan.rows_per_block)
     with pytest.raises(RuntimeError, match="invalid argument"):
         _cuda._call("single_transition", "single_transition_rows_f32",
-                    torch.device("cuda", torch.cuda.current_device()), *args, 0)
+                    torch.device("cuda", torch.cuda.current_device()), *args, 0, 0)
 
 
 # ------------------------------ the minibatch step's actor and critic MLPs (ops/mlp.py)
@@ -2105,3 +2110,53 @@ def test_rollout_launches_the_policy_kernels_and_the_first_minibatch_ratio_is_on
     want = chip_smoke.policy(steps, selfplay=mode == "scale")
     assert {k: launches[k] for k in want} == want
     chip_smoke.first_minibatches_exact(first, f"train {mode}")
+
+
+# ---------------------- the NEXT_STEP autoreset in the transition kernels (autoreset.cuh)
+
+def _autoreset_track(pool, rows, where):
+    if where == "gathered":
+        return trk.gather_tracks(pool, np.arange(rows) % 16)
+    return chip_smoke.by_row_id(pool, rows)
+
+
+@pytest.mark.parametrize("rows", [16, 1279, 1280, 4096])
+@pytest.mark.parametrize("where", ["gathered", "by row id"])
+def test_single_transition_autoreset_matches_the_composition(cuda, rows, where):
+    """``single.transition_autoreset`` (a warp a row; on the tiled layout from
+    ``SINGLE_TRANSITION_ROWS_FROM`` rows the kernel of several rows a block) bitwise the
+    composition, the plain mode and the PyTorch glue, in every output, buffer row,
+    t + 1, with pending resets on none, some and all rows (``chip_smoke.autoreset_case``,
+    which also counts one autoreset launch by the kernel the env picks)."""
+    pool = canonical_bench_pool(16, device=cuda)
+    track = _autoreset_track(pool, rows, where)
+    for i, pending in enumerate(("none", "some", "all")):
+        chip_smoke.autoreset_case("single", track, 1, rows, pending, None, cuda, seed=rows + i)
+
+
+@pytest.mark.parametrize("rows", [16, 2047, 2048, 4096])
+@pytest.mark.parametrize("cars", [1, 2])
+def test_multi_transition_autoreset_matches_the_composition(cuda, rows, cars):
+    """``multi.transition_autoreset`` (the first kernel under
+    ``TRANSITION_SMALL_BELOW`` rows, the redesigned one from it) bitwise the
+    composition, with the start grid's slots, seat 0's episode, the rollout's rows
+    and the PFSP counts into ``extra`` (the pool's index one for all and per env),
+    gathered and by row id."""
+    pool = canonical_bench_pool(16, device=cuda)
+    for where in ("gathered", "by row id"):
+        track = _autoreset_track(pool, rows, where)
+        for i, (pending, pfsp) in enumerate(
+                (p, m) for p in ("none", "some", "all") for m in ("one", "per env")):
+            chip_smoke.autoreset_case("multi", track, cars, rows, pending, pfsp, cuda,
+                                      seed=rows + i)
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.AUTORESET_TIMED))
+def test_transition_autoreset_graphed_is_eager(cuda, name):
+    """Each entry's autoreset mode captured in a CUDA graph, replayed, bitwise its eager
+    launch (``chip_smoke.autoreset_graphed``)."""
+    kind, where, envs, cars = chip_smoke.AUTORESET_TIMED[name]
+    pool = canonical_bench_pool(16, device=cuda)
+    track = (trk.tiled_pooled_tracks(pool, envs) if where == "tiled"
+             else trk.gather_tracks(pool, np.arange(envs) % 16))
+    chip_smoke.autoreset_graphed(kind, track, cars, envs, cuda)

@@ -123,10 +123,9 @@ def test_vector_autoreset_forced_crashes():
     def tstep(vs, a):
         return tvec.step(
             vs, a,
-            lambda s, a_, g: tenv.transition(tcfg, ttr, s, a_),
-            lambda s: tenv.observe(tcfg, ttr, s),
-            lambda g: tenv.reset_state(tcfg, ttr),
-            info_fn=lambda s: tenv.info_from_state(tcfg, ttr, s))
+            lambda s, a_, g, pending, stats: tenv.transition_autoreset(tcfg, ttr, s, a_, pending,
+                                                                       stats),
+            lambda s: tenv.observe(tcfg, ttr, s))
 
     rng = np.random.default_rng(1)
     autoresets = 0

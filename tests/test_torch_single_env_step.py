@@ -185,7 +185,9 @@ def _calls(monkeypatch):
 
 def test_transition_launch_passes_the_kernels_arguments(monkeypatch):
     """What ``single._transition_cuda`` hands the kernels: the 41 pointers in the C
-    entries' order (the row ids in their slot, the speed weight null for a number),
+    entries' order (the row ids in their slot, the speed weight null for a number)
+    and the autoreset's ``AUTORESET_PTRS`` after them, all null (the plain
+    transition, ``tests/test_torch_autoreset.py`` holds the other mode),
     the 18 float32 constants with the given speed weight in its slot, and the
     launch's plan: a warp a row (``single_transition_f32``), and on the tiled layout
     from ``SINGLE_TRANSITION_ROWS_FROM`` rows the kernel of several rows a block with
@@ -212,6 +214,7 @@ def test_transition_launch_passes_the_kernels_arguments(monkeypatch):
         assert (num_ptrs, num_consts) == (_cuda.SINGLE_TRANSITION_PTRS,
                                           _cuda.SINGLE_TRANSITION_CONSTS)
         assert (len(ptrs), len(consts)) == (num_ptrs, num_consts)
+        assert ptrs[41:] == [None] * _cuda.AUTORESET_PTRS
         assert ptrs[11] == ttrack.rows_of(track)[1].data_ptr() and ptrs[21] is None
         assert ptrs[0] == state.car.x.data_ptr() and ptrs[6] == action.data_ptr()
         assert consts[13] == np.float32(ANNEALED)
@@ -220,9 +223,10 @@ def test_transition_launch_passes_the_kernels_arguments(monkeypatch):
         if by_rows:
             plan = _cuda.single_transition_rows_plan(512)
             # the tiled layout's period: its blocks' rows share a pool row
-            assert shape == [plan.threads, plan.smem, cfg.max_steps, 2, plan.rows_per_block, 16]
+            assert shape == [plan.threads, plan.smem, cfg.max_steps, 2, plan.rows_per_block, 16,
+                             0]
         else:
-            assert shape == [_cuda.single_transition_plan(512).smem, cfg.max_steps, 2]
+            assert shape == [_cuda.single_transition_plan(512).smem, cfg.max_steps, 2, 0]
     wide = dataclasses.replace(state, car=dataclasses.replace(state.car, x=state.car.x.double()))
     with _calls(monkeypatch) as calls:
         with pytest.raises(TypeError):
@@ -263,13 +267,14 @@ def test_single_transition_plan_sizes_its_shared_memory():
     staging the row's two position fields. The kernel of several rows a block, for
     the tiled layout (``single_transition_rows_plan``): ``SINGLE_TRANSITION_ROWS``
     rows a block of ``SINGLE_TRANSITION_WARPS`` warps, the one pool row they share
-    staged once, 24 words a row beside it. A row without waypoints, or one that does
-    not fit, is refused."""
+    staged once, 30 words a row beside it (the autoreset's start pose and running
+    episode among them). A row without waypoints, or one that does not fit, is
+    refused."""
     cap = _cuda._field_capacity(512)
     assert _cuda.single_transition_plan(512) == _cuda.TransitionPlan(32, 2 * cap * 4, 1)
     plan = _cuda.single_transition_rows_plan(512)
     rows, warps = _cuda.SINGLE_TRANSITION_ROWS, _cuda.SINGLE_TRANSITION_WARPS
-    assert plan == _cuda.TransitionPlan(32 * warps, (2 * cap + 24 * rows) * 4, rows)
+    assert plan == _cuda.TransitionPlan(32 * warps, (2 * cap + 30 * rows) * 4, rows)
     assert rows <= _cuda.SINGLE_TRANSITION_MAX_ROWS_PER_BLOCK and warps * 32 <= 256
     limit = _cuda.BLOCK_SMEM_LIMIT - _cuda.STATIC_SMEM_RESERVE
     for plan_fn in (_cuda.single_transition_plan, _cuda.single_transition_rows_plan):

@@ -200,7 +200,10 @@ k. graph against eager: single-car training (4096 x 256) and phase 10's self-pla
    ``torch.cuda.set_sync_debug_mode("error")``; the timed updates launch the env
    kernels 256 times and K6 and K7 once. Printed for every update: ms, the
    rollout's host and device ms a step (CUDA events), the minibatch loop's ms and
-   minibatches, the capture seconds, and for every run its peak memory;
+   minibatches, the capture seconds, and for every run its peak memory; a captured
+   minibatch step's kernel nodes, counted from the graph and listed by name
+   (``kernel_node_names``, with its moments graph's), at most
+   ``MINIBATCH_KERNEL_NODES``;
 
 and for the evaluation, match and recorder loops as device programs (on the card
 every loop of ``utils/metrics.py`` replays its step captured as a CUDA graph
@@ -243,23 +246,34 @@ m. m.1 (after 6b) both against their plain versions (the narrow kernels and PyTo
    one captured rollout step of each (at least 100 fewer with the kernels) and its
    device ms a step, in turns;
 
-and for the PPO minibatch step's two kernels (``ops/minibatch.py``), right after m.1:
+and for the PPO minibatch step's kernels around the MLPs (``ops/minibatch.py``), right
+after m.1:
 
-n. ``ppo_head`` (the loss's per-row work, one launch forward and one backward) on
+n. ``ppo_head`` (the whole loss past the MLPs: the per-row work, the means, the
+   entropy and the loss's sum, one launch forward and one backward) on
    ``crafted_minibatch`` (rows that take every branch: the ratio clipped above,
    below and not, pg1 == pg2, the value clipped, tied, at its clamp's bounds) at
-   65,536, 16,384, 4097 and 1 rows, with a group's moments and the minibatch's own,
-   its gradients from the loss and from given upstream gradients (also expanded):
-   every output and gradient bitwise the plain composition; ``adam_tail`` (the clip,
-   Adam, the masked apply, the stats row and the counters in one launch) bitwise its
-   plain version applied, clipped, masked by the KL exit and after it, also on a
-   group's flat-buffer views; one update of 160 minibatches at 4096 x 256 with the
-   kernels bitwise one with the plain versions; both timed eager and in a CUDA
-   graph beside their plain versions and bounds, the tail beside
-   ``torch._fused_adam_`` over the same 12 tensors. Every training path counts the
-   three launches once a minibatch step (``learner``: exactly from the loop's
+   65,536, 16,384, 4097 and 1 rows and through the unit index, with a group's moments
+   and the minibatch's own at a row of a moments table, its gradients from the loss at
+   1 and 0.7: d/d mu and d/d v bitwise the plain composition's autograd, the loss and
+   stats bitwise their numpy transcription (``head_sums_model``) and within
+   ``ops/minibatch.py``'s stated tolerance of the float64 sums, clip_frac bitwise the
+   composition's; ``advantage_moments`` (every minibatch's advantage mean and std, one
+   launch an update) bitwise its transcription (``moments_model``) and within the
+   tolerance of float64 at ``train scale``'s width, two shards, units of 3 and 1, one
+   row (std NaN); ``adam_tail`` (the clip, Adam, the masked apply, the stats row and
+   the counters in one launch) bitwise its plain version applied, clipped, masked by
+   the KL exit and after it, also on a group's flat-buffer views; one update of 160
+   minibatches at 4096 x 256 with the kernels bitwise run to run and with every field
+   gathered, and its parameters and Adam moments bitwise the same update with the
+   head and tail plain on the kernel's moments (the stats within 1e-5); a minibatch
+   step runs no PyTorch reduction; all timed eager and in a CUDA graph beside their
+   plain versions and bounds, the tail beside ``torch._fused_adam_`` over the same 12
+   tensors and the moments beside ``torch.std_mean`` on the gathered minibatches.
+   Every training path counts the head's and the tail's launches once a minibatch
+   step and the moments' once an update (``learner``: exactly from the loop's
    computed minibatches where the phase times the loop, else checked whole epochs);
-   the update's two runs both take the MLP kernels of phase p;
+   the update's runs take the MLP kernels of phase p;
 
 and for the minibatch step's actor and critic MLPs (``ops/mlp.py``: one launch of
 ``mlp_forward`` for both towers, one of ``mlp_backward`` and one of
@@ -452,6 +466,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -523,6 +538,8 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 # and the dense TF32 rate of its tensor cores
 PEAK_TF32_OPS_PER_S = 495e12
+# and float64 outside the tensor cores (NVIDIA's H100 SXM data sheet)
+PEAK_F64_OPS_PER_S = 34e12
 # f32 operations per ray-segment pair in K1: cn 4, dotp 3, sn 4, |dotp| 1, hit test
 # 7 (2 products, 4 compares, |sn|), |cn| + select 2, the ratio compare 5
 K1_OPS_PER_PAIR = 26
@@ -1609,6 +1626,7 @@ COUNTERS = {
     "ppo_head": (mbops, "ppo_head_launches"),
     "ppo_head_backward": (mbops, "ppo_head_backward_launches"),
     "adam_tail": (mbops, "adam_tail_launches"),
+    "advantage_moments": (mbops, "advantage_moments_launches"),
     "mlp_forward": (mlpops, "mlp_forward_launches"),
     "mlp_backward": (mlpops, "mlp_backward_launches"),
     "mlp_grad_reduce": (mlpops, "mlp_grad_reduce_launches"),
@@ -1616,8 +1634,10 @@ COUNTERS = {
     "policy_act": (polops, "policy_act_launches"),
     "pool_act": (polops, "pool_act_launches"),
 }
-# the learner's kernels: one launch of each a minibatch_step
+# the learner's kernels: one launch of each a minibatch_step; and the advantages'
+# moments, one launch an update
 LEARNER = ("ppo_head", "ppo_head_backward", "adam_tail")
+MOMENTS = "advantage_moments"
 # the MLP kernels: one launch of each a minibatch_step on whole towers, none on a
 # tensor-parallel rank (its slices run the Megatron composition); with a group also
 # the reduce's norm-only mode once a minibatch_step (ppo.norm_route)
@@ -1697,20 +1717,21 @@ def learner(launches, cfg, updates: int, computed=None, towers: bool = True,
     ``minibatch_step`` call (with ``towers``, the whole-tower paths, the MLP kernels'
     too, and with a ``group`` also the reduce's norm-only mode; a tensor-parallel rank
     launches none of them), and the loop runs every epoch up to the KL exit's whole
-    (the exit's rest masked). With ``computed`` (the minibatches each update
-    computed) exactly that; without, the count ``launches`` holds, once it is the
-    same for every one of them and whole epochs, at least one and at most
-    ``cfg.update_epochs`` an update."""
+    (the exit's rest masked); the advantages' moments once an update. With
+    ``computed`` (the minibatches each update computed) exactly that; without, the
+    count ``launches`` holds, once it is the same for every one of them and whole
+    epochs, at least one and at most ``cfg.update_epochs`` an update."""
     kernels = LEARNER + (TOWERS + (("mlp_grad_norm",) if group else ()) if towers else ())
     m = cfg.num_minibatches
     if computed is not None:
-        return dict.fromkeys(kernels, sum(-(-c // m) * m for c in computed))
+        return {**dict.fromkeys(kernels, sum(-(-c // m) * m for c in computed)),
+                MOMENTS: updates}
     n = launches["adam_tail"]
     if (any(launches[k] != n for k in kernels) or n % m
             or not updates * m <= n <= updates * cfg.update_epochs * m):
         raise AssertionError(f"learner kernels {[launches[k] for k in kernels]} launches in "
                              f"{updates} updates of {cfg.update_epochs} x {m} minibatches")
-    return dict.fromkeys(kernels, n)
+    return {**dict.fromkeys(kernels, n), MOMENTS: updates}
 
 
 def rollout(params, log_std, cfg, track, vstate, obs, gen, steps):
@@ -3295,6 +3316,10 @@ def tensor_parallel_ranks(dev, card, world=TP_MODEL, backend="gloo", devices=Non
 # ------------------------------------------------ phase (k): graph against eager
 
 GRAPH_UPDATES = 3
+# a captured minibatch step with no group holds at most this many kernel nodes: the
+# rows' index_select, the MLP forward, the loss head, the loss's unit gradient, the
+# head's backward, the MLP backward and reduce, the tail (8) and room for two
+MINIBATCH_KERNEL_NODES = 10
 # the last update of each run: a reset of every env (the stale-observation rebuild)
 # and a target low enough that it takes the KL exit
 GRAPH_KL_TARGET = 0.002
@@ -3416,6 +3441,62 @@ def graph_nodes(graph) -> dict:
             "other_nodes": sum(kinds.values())}
 
 
+class _KernelNodeParams(ctypes.Structure):
+    """``CUDA_KERNEL_NODE_PARAMS_v2`` (cuda.h)."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared_bytes", ctypes.c_uint),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def kernel_node_names(graph) -> dict:
+    """The kernel nodes of a CUDA graph captured under ``kept_graphs``, counted by the
+    name of the kernel each launches (``cuGraphKernelNodeGetParams``, then
+    ``cuFuncGetName`` or ``cuKernelGetName``), demangled by ``c++filt`` where the
+    machine has it and cut at 100 characters; "?" where neither call names it."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+                                     ctypes.POINTER(ctypes.c_size_t)]
+    cuda.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    cuda.cuGraphKernelNodeGetParams_v2.argtypes = [ctypes.c_void_p,
+                                                   ctypes.POINTER(_KernelNodeParams)]
+    handle = graph.raw_cuda_graph()
+    count = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    getters = [(field, getattr(cuda, fn)) for field, fn in (("func", "cuFuncGetName"),
+                                                            ("kern", "cuKernelGetName"))
+               if hasattr(cuda, fn)]
+    for _, fn in getters:
+        fn.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.c_void_p]
+    mangled = []
+    kind = ctypes.c_int(-1)
+    for node in nodes:
+        if cuda.cuGraphNodeGetType(node, ctypes.byref(kind)) != 0 or kind.value != 0:
+            continue
+        p = _KernelNodeParams()
+        name = "?"
+        if cuda.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(p)) == 0:
+            for field, fn in getters:
+                out = ctypes.c_char_p()
+                if getattr(p, field) and fn(ctypes.byref(out), getattr(p, field)) == 0 \
+                        and out.value:
+                    name = out.value.decode()
+                    break
+        mangled.append(name)
+    try:
+        plain = subprocess.run(["c++filt"], input="\n".join(mangled), capture_output=True,
+                               text=True, check=True, timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        plain = mangled
+    if len(plain) != len(mangled):
+        plain = mangled
+    return dict(collections.Counter(n.removeprefix("void ")[:100] for n in plain))
+
+
 def replay_nodes(graph) -> dict:
     """A captured step (``graph``, captured under ``kept_graphs``): its nodes by type
     from the graph itself (``graph_nodes``), then one replay under the profiler: the
@@ -3445,11 +3526,14 @@ def profiled(nodes) -> str:
 def minibatch_step_nodes(graph) -> dict:
     """``replay_nodes`` of a captured minibatch step (``ppo.UpdateGraphs.minibatch_graph``)
     with the loop's exit flag set, so that it moves no parameter or moment (the
-    warm-ups' mask). The loop's carry is reset after it."""
+    warm-ups' mask), and the kernel nodes by name of the step and of its moments
+    graph (``kernel_node_names``). The loop's carry is reset after it."""
     graph.loop.reset()
     graph.loop.stop.fill_(True)
     out = replay_nodes(graph.step.graph)
     graph.loop.reset()
+    out["kernels"] = kernel_node_names(graph.step.graph)
+    out["moments_kernels"] = kernel_node_names(graph.moments_step.graph)
     return out
 
 
@@ -3560,7 +3644,11 @@ def graph_against_eager(pool, card):
                     print(f"{what}: one replay of the captured minibatch step (masked): "
                           f"{mb['kernel_nodes']} kernel nodes, {mb['copy_nodes']} copy and "
                           f"set nodes (counted from the graph), the kernels {profiled(mb)} "
-                          f"on {card}")
+                          f"on {card}; its kernel nodes {mb['kernels']}; the moments "
+                          f"graph's {mb['moments_kernels']}")
+                    if mb["kernel_nodes"] > MINIBATCH_KERNEL_NODES:
+                        raise AssertionError(f"{what}: {mb['kernel_nodes']} kernel nodes in a "
+                                             f"minibatch step, over {MINIBATCH_KERNEL_NODES}")
                 print(f"{what}: trainer and warm-up update {r['warm']:.1f} s (capture "
                       f"{r['captures'][0]:.3f} s); timed median "
                       f"{statistics.median(r['walls'][:GRAPH_UPDATES]) * 1e3:.1f} ms/update; "
@@ -4466,12 +4554,20 @@ HEAD_CLIP = 0.2  # base_config's clip_coef
 HEAD_ROW_KINDS = 8
 # float32 operations a row: the head's forward (the log-prob 16, the ratio 3, the
 # advantage 3, the surrogates 7, the value loss 10, the flag 3) and its backward (the
-# forward again, then 30)
+# maxima's two upstream gradients 4, the forward again, then 30); float64 operations
+# a row: the forward's four sums, and the moments' add, deviation, square and add
 HEAD_FORWARD_OPS = 42
-HEAD_BACKWARD_OPS = 72
+HEAD_BACKWARD_OPS = 76
+HEAD_SUM_OPS = 4
+MOMENT_OPS = 4
 # the tail's float32 operations an element: the clip 2, the moments 6, the step 6,
 # the apply 2
 TAIL_OPS = 16
+# the loss's coefficients the head cases take: base_config's clip_coef, ent_coef and
+# vf_coef
+HEAD_COEFS = (HEAD_CLIP, 0.01, 0.5)
+# the moments table's row a head case reads: the rows before it hold other moments
+MOMENT_ROW = 2
 
 
 def crafted_minibatch(n: int, rng, dtype=np.float32, clip: float = HEAD_CLIP,
@@ -4513,74 +4609,289 @@ def crafted_minibatch(n: int, rng, dtype=np.float32, clip: float = HEAD_CLIP,
             "moments": (cast(mean), cast(std))}
 
 
+def flat_moments(advantages: torch.Tensor):
+    """(moments, at) for ``ppo._ppo_loss`` on one flat minibatch: its advantages [n]
+    normalized by their own mean and unbiased std, as ``run_ppo_update`` forms them
+    without a group (``ppo.advantage_moments`` of the rows as one unit), and row 0."""
+    at = torch.zeros((1,), dtype=torch.int64, device=advantages.device)
+    return mbops.advantage_moments(advantages.reshape(1, -1), at.reshape(1, 1)), at
+
+
+def sum_bound(x: np.ndarray, torch_mean: float) -> tuple[float, float]:
+    """(the float64 mean of the float32 rows ``x``, the distance a kernel's mean of
+    them may lie from it): max(``mbops.SUM_REL_FLOOR`` x mean(|x|), ``mbops.SUM_CONTROL_FACTOR``
+    x |``torch_mean``, PyTorch's float32 mean of the same rows, - the float64
+    mean|)."""
+    x = np.asarray(x, np.float64)
+    mean = float(x.mean())
+    return mean, max(mbops.SUM_REL_FLOOR * float(np.abs(x).mean()),
+                     mbops.SUM_CONTROL_FACTOR * abs(float(torch_mean) - mean))
+
+
+def std_bound(x: np.ndarray, torch_std: float) -> tuple[float, float]:
+    """``sum_bound`` for the unbiased std: the float64 std of the rows ``x`` and
+    max(``mbops.SUM_REL_FLOOR`` x it, ``mbops.SUM_CONTROL_FACTOR`` x |``torch_std`` - it|)."""
+    x = np.asarray(x, np.float64)
+    std = float(x.std(ddof=1)) if x.size > 1 else float("nan")
+    return std, max(mbops.SUM_REL_FLOOR * std, mbops.SUM_CONTROL_FACTOR * abs(float(torch_std) - std))
+
+
+def moments_table(mean: torch.Tensor, std: torch.Tensor):
+    """(table, at): a moments table [MOMENT_ROW + 1, 2] whose row ``MOMENT_ROW``
+    holds (``mean``, ``std``) and the rows before it other moments, and that row
+    (int64 [1]), as the update's table and ``loop.i`` hand them to the head."""
+    row = torch.stack([mean, std]).detach()
+    table = torch.stack([row * 2.0 + 1.0 for _ in range(MOMENT_ROW)] + [row])
+    return table, torch.full((1,), MOMENT_ROW, dtype=torch.int64, device=row.device)
+
+
 def head_tensors(case: dict, dev, own_moments: bool = False) -> dict:
     """``crafted_minibatch``'s arrays as tensors on ``dev`` (``mu`` and ``v``
     requiring gradients), with the moments the loss would take: the group's, or
-    with ``own_moments`` the advantages' own mean and unbiased std, as PyTorch forms
-    them."""
+    with ``own_moments`` the advantages' own mean and unbiased std as the update
+    forms them (``flat_moments``: on the card the moments kernel). ``mean`` and
+    ``std`` 0-d for the per-row version, and ``moments`` and ``at``
+    (``moments_table``) for the head."""
     t = {k: torch.as_tensor(v, device=dev) for k, v in case.items() if k != "moments"}
     t["mu"].requires_grad_(True)
     t["v"].requires_grad_(True)
-    adv = t["advantages"]
-    t["mean"], t["std"] = ((adv.mean(), adv.std(correction=1)) if own_moments else
-                           tuple(torch.as_tensor(m, device=dev) for m in case["moments"]))
+    if own_moments:
+        table, _ = flat_moments(t["advantages"])
+        t["mean"], t["std"] = table[0].unbind()
+    else:
+        t["mean"], t["std"] = (torch.as_tensor(m, device=dev) for m in case["moments"])
+    t["moments"], t["at"] = moments_table(t["mean"], t["std"])
     return t
 
 
 def unit_head_tensors(n_units: int, block: int, ids, rng, dev, own_moments: bool = False):
     """``head_tensors`` for a minibatch read through the unit index: a
     ``crafted_minibatch`` over ``n_units`` units of ``block`` rows, the actions,
-    old log-probs, returns and old values as the rollout's units [n_units, block,
-    ...], ``mu``, ``v`` and the advantages the minibatch's rows at unit ids ``ids``
-    (``unit_ids``, int64), as ``minibatch_step`` hands them to the head."""
+    old log-probs, advantages, returns and old values as the rollout's units
+    [n_units, block, ...], ``mu`` and ``v`` the minibatch's rows at unit ids ``ids``
+    (``unit_ids``, int64), as ``minibatch_step`` hands them to the head; with
+    ``own_moments`` the moments of the minibatch's own advantages
+    (``mbops.advantage_moments`` at its ids)."""
     whole = head_tensors(crafted_minibatch(n_units * block, rng), dev)
     ids = torch.as_tensor(np.asarray(ids), dtype=torch.int64, device=dev)
     rows = (ids[:, None] * block + torch.arange(block, device=dev)).reshape(-1)
     t = {k: whole[k].detach().reshape((n_units, block) + whole[k].shape[1:])
-         for k in ("actions", "logprobs", "returns", "values")}
-    t.update({k: whole[k].detach()[rows].contiguous() for k in ("mu", "v", "advantages")})
+         for k in ("actions", "logprobs", "advantages", "returns", "values")}
+    t.update({k: whole[k].detach()[rows].contiguous() for k in ("mu", "v")})
     t["log_std"], t["unit_ids"] = whole["log_std"], ids
     t["mu"].requires_grad_(True)
     t["v"].requires_grad_(True)
-    adv = t["advantages"]
-    t["mean"], t["std"] = ((adv.mean(), adv.std(correction=1)) if own_moments else
-                           (whole["mean"], whole["std"]))
+    if own_moments:
+        t["mean"], t["std"] = mbops.advantage_moments(t["advantages"], ids[None])[0].unbind()
+    else:
+        t["mean"], t["std"] = whole["mean"], whole["std"]
+    t["moments"], t["at"] = moments_table(t["mean"], t["std"])
     return t
 
 
+# the head's arguments (``mbops.ppo_head``), and the per-row version's
+# (``mbops.ppo_head_plain``, on gathered rows)
 HEAD_ARGS = ("mu", "v", "actions", "logprobs", "advantages", "returns", "values", "log_std",
-             "mean", "std")
+             "moments", "at")
+ROW_ARGS = HEAD_ARGS[:-2] + ("mean", "std")
 
 
-def head_outputs(head, t: dict, upstream=None):
-    """``head`` (``mbops.ppo_head`` or ``ppo_head_plain``) on tensors ``t``: its four
-    outputs, and the gradients of ``mu`` and ``v`` from ``upstream`` (the
-    gradients of the two maxima), or where None from the loss as ``_ppo_loss`` forms
-    it (its means and coefficients, ``base_config``'s)."""
-    out = head(*(t[k] for k in HEAD_ARGS), HEAD_CLIP, t.get("unit_ids"))
-    if upstream is None:
-        cfg = base_config()
-        loss = out[1].mean() + cfg.vf_coef * (0.5 * out[2].mean())
-        grads = torch.autograd.grad(loss, (t["mu"], t["v"]))
-    else:
-        grads = torch.autograd.grad(out[1:3], (t["mu"], t["v"]), upstream)
-    return [o.detach() for o in out] + list(grads)
+def head_outputs(head, t: dict, g_loss: float = 1.0):
+    """``head`` (``mbops.ppo_head`` or ``ppo_head_loss_plain``) on tensors ``t``:
+    its loss and stats, and the gradients of ``mu`` and ``v`` from the loss's
+    upstream gradient ``g_loss``."""
+    loss, stats = head(*(t[k] for k in HEAD_ARGS), *HEAD_COEFS, t.get("unit_ids"))
+    grads = torch.autograd.grad(loss, (t["mu"], t["v"]), torch.full_like(loss, g_loss))
+    return [loss.detach(), stats] + list(grads)
 
 
-HEAD_OUTPUTS = ("-log_ratio", "max(pg1, pg2)", "max of the value losses", "clip flag",
-                "d/d mu", "d/d v")
+HEAD_OUTPUTS = ("loss", "stats", "d/d mu", "d/d v")
+# what hold_head holds: the per-row values the sums take, and the stats
+HEAD_ROW_VALUES = ("-log_ratio", "max(pg1, pg2)", "max of the value losses", "clip flag")
+STAT_KEYS = ppo.STAT_NAMES[:6]
 
 
-def hold_head(t: dict, upstream, what: str) -> float:
-    """The head's kernels against the plain composition on ``t``: every output and
-    gradient bitwise. Returns the largest difference (0.0)."""
-    got = head_outputs(mbops.ppo_head, t, upstream)
-    want = head_outputs(mbops.ppo_head_plain, t, upstream)
+def gathered_rows(t: dict) -> dict:
+    """``t``'s unit-indexed fields gathered at its unit ids (``t`` itself without
+    ids)."""
+    if t.get("unit_ids") is None:
+        return t
+    out = dict(t)
+    for k in ("actions", "logprobs", "advantages", "returns", "values"):
+        out[k] = mbops.gather_units(t[k], t["unit_ids"])
+    return out
+
+
+def head_row_values(t: dict) -> list:
+    """The four per-row float32 values the head's sums take, by the plain per-row
+    composition on ``t``'s gathered rows, as numpy arrays."""
+    g = gathered_rows(t)
+    with torch.no_grad():
+        rows = mbops.ppo_head_plain(*(g[k].detach() for k in ROW_ARGS), HEAD_CLIP)
+    return [r.cpu().numpy() for r in rows]
+
+
+def head_stat_bounds(values: list, t: dict) -> list:
+    """(float64 value, bound) of each of ``STAT_KEYS`` from the per-row ``values``
+    (``head_row_values``): the means by ``sum_bound`` (PyTorch's float32 mean
+    of the same rows as the control), v_loss half the value maximum's, the entropy
+    exact, clip_frac 0 (bitwise), the loss the sum of its three terms' bounds."""
+    f32 = np.float32
+    clip, ent_coef, vf_coef = HEAD_COEFS
+    torch_mean = lambda x: float(torch.as_tensor(x).mean())
+    kl, pg, vm = (sum_bound(x, torch_mean(x)) for x in values[:3])
+    ls = t["log_std"].detach().cpu().numpy().astype(np.float64)
+    ent = float(f32(f32(f32(ls[0]) + f32(0.5 + 0.5 * np.log(2 * np.pi)))
+                    + f32(f32(ls[1]) + f32(0.5 + 0.5 * np.log(2 * np.pi)))))
+    v_loss = (0.5 * vm[0], 0.5 * vm[1])
+    loss = (pg[0] - ent_coef * ent + vf_coef * v_loss[0],
+            pg[1] + vf_coef * v_loss[1] + abs(ent_coef * ent) * mbops.SUM_REL_FLOOR)
+    n = values[3].size
+    clip_frac = (float(f32(f32(values[3].sum()) * (f32(1.0) / f32(n)))), 0.0)
+    return [loss, pg, v_loss, (ent, 0.0), kl, clip_frac]
+
+
+def head_sums_shape() -> tuple:
+    """(threads a block of the head, threads a block of the moments, blocks a cluster
+    of the moments): ``csrc/ppo_head.cu``'s kThreads, kMomentThreads and
+    kMomentCluster, read from the source."""
+    src = (Path(__file__).resolve().parent / "self_play_racing_tpu_torch" / "csrc"
+           / "ppo_head.cu").read_text()
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+                 for name in ("kThreads", "kMomentThreads", "kMomentCluster"))
+
+
+def warp_tree(v: np.ndarray) -> np.ndarray:
+    """Lane 0's sum after ``csrc/ppo_head.cu:warp_sum``'s shuffle tree (offsets 16,
+    8, 4, 2, 1) of the lanes' float64 values ``v`` [..., 32]."""
+    v = np.array(v, np.float64)
+    for o in (16, 8, 4, 2, 1):
+        v[..., :32 - o] = v[..., :32 - o] + v[..., o:]
+    return v[..., 0]
+
+
+def in_order(v: np.ndarray) -> np.ndarray:
+    """``v`` [..., k] summed over its last axis from the first, one add at a time."""
+    t = v[..., 0].copy()
+    for j in range(1, v.shape[-1]):
+        t = t + v[..., j]
+    return t
+
+
+def block_tree(v: np.ndarray) -> np.ndarray:
+    """A block's threads' float64 values ``v`` [..., threads] summed as the kernels'
+    block sums take them: each warp's by ``warp_tree``, then the warps' in order."""
+    return in_order(warp_tree(v.reshape(v.shape[:-1] + (v.shape[-1] // 32, 32))))
+
+
+def head_sums_model(values: list, log_std, coefs=HEAD_COEFS) -> np.ndarray:
+    """``csrc/ppo_head.cu``'s forward past the rows, in numpy: the four per-row float32
+    ``values`` [n] (``head_row_values``) summed in float64, block b of kThreads rows
+    by ``block_tree``; the last block's thread t the blocks' partials t, t +
+    kThreads, ... in order from 0, then ``block_tree``; the stats formed in float32
+    as the kernel forms them. Returns the stats [6] (``STAT_KEYS``; the loss is the
+    first) as float32."""
+    threads, _, _ = head_sums_shape()
+    f32 = np.float32
+    n = values[0].size
+    blocks = -(-n // threads)
+    rows = np.zeros((4, blocks * threads))
+    rows[:, :n] = np.stack([np.asarray(x, np.float64) for x in values])
+    partial = block_tree(rows.reshape(4, blocks, threads))
+    passes = -(-blocks // threads)
+    padded = np.zeros((4, passes * threads))
+    padded[:, :blocks] = partial
+    acc = np.zeros((4, threads))
+    for j in range(passes):
+        acc = acc + padded[:, j * threads:(j + 1) * threads]
+    total = block_tree(acc)
+    clip, ent_coef, vf_coef = coefs
+    ls = np.asarray(log_std, f32)
+    c = f32(0.5 + 0.5 * np.log(2 * np.pi))
+    approx_kl, pg_loss = f32(total[0] / n), f32(total[1] / n)
+    v_loss = f32(f32(total[2] / n) * f32(0.5))
+    entropy = f32(f32(f32(ls[0] + c) + f32(ls[1] + c)) + f32(0.0))
+    clip_frac = f32(f32(total[3]) * (f32(1.0) / f32(n)))
+    loss = f32(f32(pg_loss + f32(f32(-entropy) * f32(ent_coef))) + f32(v_loss * f32(vf_coef)))
+    return np.array([loss, pg_loss, v_loss, entropy, approx_kl, clip_frac], np.float32)
+
+
+def moment_order(n: int, threads: int) -> np.ndarray:
+    """The moments kernel's order over a minibatch's ``n`` flat rows (row r: unit
+    ``ids[r // block]``, offset ``r % block``) among a cluster's ``threads`` threads:
+    [passes, threads], entry [i, g] the row thread g adds i-th, g + i x threads, or -1
+    past the last row."""
+    r = np.arange(-(-n // threads) * threads).reshape(-1, threads)
+    return np.where(r < n, r, -1)
+
+
+def thread_sums(values: np.ndarray, order: np.ndarray) -> np.ndarray:
+    """Each thread's float64 sum from 0 of ``values`` at its rows of ``order`` in
+    order (``moment_order``)."""
+    acc = np.zeros(order.shape[1])
+    for i in range(order.shape[0]):
+        acc = acc + np.where(order[i] >= 0, values[np.maximum(order[i], 0)], 0.0)
+    return acc
+
+
+def moments_model(advantages: np.ndarray, index: np.ndarray) -> np.ndarray:
+    """``csrc/ppo_head.cu:advantage_moments_kernel`` in numpy: the advantages
+    [units, block] float32 at each row of ``index`` [rows, ids], flat; each of the
+    cluster's threads' deviations d from the minibatch's first row (``moment_order``)
+    summed in float64, d and d * d, each block's threads by ``block_tree`` and the
+    blocks in rank order from 0; mean = shift + S / n, var = (Q - S * S / n) / (n - 1),
+    negative var 0; [rows, 2] float32."""
+    _, threads, cluster = head_sums_shape()
+    x = np.asarray(advantages, np.float64)
+    out = []
+    for ids in np.asarray(index):
+        rows = x[ids].reshape(-1)
+        n = rows.size
+        order = moment_order(n, cluster * threads)
+        d = rows - rows[0]
+        sums = []
+        for v in (d, d * d):
+            blocks = block_tree(thread_sums(v, order).reshape(cluster, threads))
+            total = 0.0
+            for c in range(cluster):
+                total = total + blocks[c]
+            sums.append(total)
+        s, q = sums
+        with np.errstate(invalid="ignore", divide="ignore"):
+            var = (q - s * s / n) / (n - 1)
+            std = np.sqrt(0.0 if var < 0.0 else var)
+        out.append((np.float32(rows[0] + s / n), np.float32(std)))
+    return np.array(out, np.float32).reshape(-1, 2)
+
+
+def hold_head(t: dict, g_loss: float, what: str) -> float:
+    """The head's kernels against the plain composition on ``t``: d/d mu and d/d v
+    bitwise (given the same moments), the stats bitwise ``head_sums_model`` (the
+    kernel's order, from the per-row values) and within ``head_stat_bounds`` of the
+    float64 sums, clip_frac bitwise the composition's, the loss the first stat.
+    Returns the largest distance of a stat from the composition's."""
+    got = head_outputs(mbops.ppo_head, t, g_loss)
+    want = head_outputs(mbops.ppo_head_loss_plain, t, g_loss)
     torch.cuda.synchronize()
-    bad = [name for name, g, w in zip(HEAD_OUTPUTS, got, want) if not same_bits(g, w)]
+    bad = [name for name, g, w in zip(HEAD_OUTPUTS[2:], got[2:], want[2:])
+           if not same_bits(g, w)]
     if bad:
         raise AssertionError(f"phase n ppo_head {what}: {bad} differ from the plain version")
-    return max(float((g - w).abs().max()) for g, w in zip(got, want))
+    stats = got[1].cpu().numpy()
+    values = head_row_values(t)
+    model = head_sums_model(values, t["log_std"].detach().cpu().numpy())
+    if not np.array_equal(stats.view(np.int32), model.view(np.int32)):
+        raise AssertionError(f"phase n ppo_head {what}: the stats {stats} are not the "
+                             f"transcription's {model}")
+    if not same_bits(got[0], got[1][0]) or not same_bits(got[1][5], want[1][5]):
+        raise AssertionError(f"phase n ppo_head {what}: the loss is not its first stat or "
+                             f"clip_frac differs from the composition's")
+    for k, s, (ref, bound) in zip(STAT_KEYS, stats, head_stat_bounds(values, t)):
+        if not abs(float(s) - ref) <= bound:
+            raise AssertionError(f"phase n ppo_head {what}: {k} {float(s)!r} is "
+                                 f"{abs(float(s) - ref):.3g} from the float64 {ref!r}, "
+                                 f"over its bound {bound:.3g}")
+    return float((got[1].double() - want[1].double()).abs().max())
 
 
 def tail_state(dev, seed: int, hidden=(64, 64), obs_dim: int = 19, steps: int = 160):
@@ -4606,6 +4917,11 @@ TAIL_CASES = {"applied": (0.001, False, 1.0), "applied, clipped": (0.001, False,
               "trig": (0.5, False, 1.0), "after the exit": (0.001, True, 1.0)}
 
 
+def tail_stats(kl: float, dev, dtype=torch.float32) -> torch.Tensor:
+    """Six stats [6] (``STAT_KEYS``) with approx_kl ``kl``, as the head writes them."""
+    return torch.tensor([0.31, -0.02, 0.45, 1.9, kl, 0.11], dtype=dtype, device=dev)
+
+
 def run_tail(tail, state, kl: float, stop: bool, scale: float, dev, at: int = 3):
     """``tail`` (``mbops.adam_tail`` or ``adam_tail_plain``) on a copy of ``state``'s
     parameters and moments (its gradients as given, times ``scale``), with the loop at minibatch ``at`` (``at - 1`` applied, ``stop`` its exit flag)
@@ -4618,27 +4934,29 @@ def run_tail(tail, state, kl: float, stop: bool, scale: float, dev, at: int = 3)
     if scale != 1.0:
         grads = [g * scale for g in grads]
     g_norm = ppo.global_norm(grads)
-    stats = [torch.tensor(x, device=dev) for x in (0.31, -0.02, 0.45, 1.9, kl, 0.11)]
     lr = torch.tensor(2.5e-4, device=dev)
-    tail(params, grads, mu, nu, g_norm, stats, bc1, bc2, lr, loop, 0.5, 0.02)
+    tail(params, grads, mu, nu, g_norm, tail_stats(kl, dev), bc1, bc2, lr, loop, 0.5, 0.02)
     return params + mu + nu + [loop.i, loop.applied, loop.stop, loop.stats]
 
 
 def gathered_minibatch_step(cfg, model, log_std, lr, units, index, bc1, bc2, mu, nu, loop,
-                            mesh=None, moments=None) -> None:
+                            moments, mesh=None) -> None:
     """``ppo.minibatch_step`` with every field of the minibatch gathered and the loss
     on the gathered ``ppo.Batch`` (no unit index): the step before the loss head read
     its fields through the unit ids, to hold the index route to and time it
     against (patched in for ``ppo.minibatch_step``)."""
     rows = index.index_select(0, loop.i)[0]
     mb = ppo.Batch(*(mbops.gather_units(x, rows) for x in units))
-    ppo.apply_minibatch(cfg, model, log_std, lr, mb, bc1, bc2, mu, nu, loop, mesh, moments)
+    ppo.apply_minibatch(cfg, model, log_std, lr, mb, bc1, bc2, mu, nu, loop, moments, mesh)
 
 
-def plain_learner():
-    """The minibatch step's plain versions in place of its kernels, for the block
-    (``minibatch_step`` reaches both through ``ops.minibatch``'s attributes)."""
-    return _patched(mbops, ppo_head=mbops.ppo_head_plain, adam_tail=mbops.adam_tail_plain)
+def plain_head_and_tail():
+    """The minibatch step's head and tail as their plain versions for the block, on
+    the moments kernel's table (``minibatch_step`` reaches them through
+    ``ops.minibatch``'s attributes), so that every gradient is the kernels' bitwise
+    and only the stats' sums round otherwise."""
+    return _patched(mbops, ppo_head=mbops.ppo_head_loss_plain,
+                    adam_tail=mbops.adam_tail_plain)
 
 
 @contextlib.contextmanager
@@ -4653,10 +4971,10 @@ def _patched(module, **attrs):
             setattr(module, k, v)
 
 
-def update_with(cfg, dev, seed: int, plain: bool):
+def update_with(cfg, dev, seed: int, plain=None):
     """One ``run_ppo_update`` (eager) of a fresh policy on a seeded rollout-like batch
-    at ``cfg``'s width, with the kernels or their plain versions: what it trains and
-    returns."""
+    at ``cfg``'s width, with the kernels or inside ``plain()``
+    (``plain_head_and_tail``): what it trains and its stats."""
     gen = torch.Generator().manual_seed(seed)
     train = ppo.init_train_state(gen, cfg, 19, 2, device=dev)
     b = cfg.batch_size
@@ -4670,13 +4988,17 @@ def update_with(cfg, dev, seed: int, plain: bool):
     flat = ppo.Batch(obs, actions, lp + rnd(b, s=0.05), rnd(b, s=2.0), v + rnd(b), v)
     _, n_units, _ = ppo.minibatch_layout(cfg)
     perms = prng.epoch_permutation(g, n_units, shape=(cfg.update_epochs, 1), device=dev)
-    with plain_learner() if plain else contextlib.nullcontext():
+    with plain() if plain is not None else contextlib.nullcontext():
         opt, stopped, stats = ppo.run_ppo_update(
             cfg, train.model, train.opt_state, torch.full((2,), -0.5, device=dev), 2.5e-4,
             flat, perms)
     torch.cuda.synchronize()
-    return (list(train.model.parameters()) + opt.mu + opt.nu,
-            (stopped, {k: v.tobytes() for k, v in stats.items()}))
+    return list(train.model.parameters()) + opt.mu + opt.nu, (stopped, stats)
+
+
+def same_stats(a: dict, b: dict) -> bool:
+    """Two updates' per-minibatch stats (``run_ppo_update``'s) bitwise equal."""
+    return all(np.array_equal(a[k], b[k]) for k in ppo.STAT_NAMES)
 
 
 # the minibatch step's unit index: the self-play minibatch's 1024 units of 64 rows,
@@ -4700,7 +5022,7 @@ def hold_tail_replays(dev, replays: int = 16) -> None:
     ref = ([p.clone() for p in params], [m.clone() for m in mu], [v.clone() for v in nu],
            ppo.MinibatchLoop.zeros(2 * replays, dev))
     g_norm = ppo.global_norm(grads)
-    stats = [torch.tensor(x, device=dev) for x in (0.31, -0.02, 0.45, 1.9, 0.001, 0.11)]
+    stats = tail_stats(0.001, dev)
     lr = torch.tensor(2.5e-4, device=dev)
     loop.stop.fill_(True)  # a masked warm-up: it moves the loop alone
     mbops.adam_tail(params, grads, mu, nu, g_norm, stats, bc1, bc2, lr, loop, 0.5, 0.02)
@@ -4738,6 +5060,11 @@ class OpCounter(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+# the ATen reductions of the loss and the advantages that a minibatch step on the
+# card no longer makes
+LOSS_REDUCTIONS = ("mean", "std", "var", "std_mean", "var_mean", "sum")
+
+
 def minibatch_inputs(cfg, dev, seed: int = 4):
     """A fresh train state and ``minibatch_step``'s inputs (log_std, lr, units, index,
     bc1, bc2) at ``cfg``'s width: random units in ``shard_blocks``' layout, the
@@ -4758,59 +5085,110 @@ def minibatch_inputs(cfg, dev, seed: int = 4):
                    units, index, bc1, bc2)
 
 
-def gathers_a_minibatch_step(dev) -> dict:
-    """The gathers (``index_select`` launches) one eager ``minibatch_step`` makes at
-    ``train scale``'s width, through the unit index and with every field gathered
+def ops_of_a_minibatch_step(dev) -> dict:
+    """The ATen operators one eager ``minibatch_step`` runs at ``train scale``'s
+    width, by name, through the unit index and with every field gathered
     (``gathered_minibatch_step``)."""
     cfg = base_config(num_envs=NUM_ENVS, num_steps=STEPS)
     train, inputs = minibatch_inputs(cfg, dev)
+    moments = ppo.advantage_moments(cfg, inputs[2], inputs[3])
     counts = {}
     for name, step in (("unit index", ppo.minibatch_step),
                        ("every field gathered", gathered_minibatch_step)):
         opt = train.opt_state
         with OpCounter() as ops:
             step(cfg, train.model, *inputs, [m.clone() for m in opt.mu],
-                 [v.clone() for v in opt.nu], ppo.MinibatchLoop.zeros(inputs[3].shape[0], dev))
-        counts[name] = ops.counts.get("index_select", 0)
+                 [v.clone() for v in opt.nu], ppo.MinibatchLoop.zeros(inputs[3].shape[0], dev),
+                 moments)
+        counts[name] = ops.counts
     torch.cuda.synchronize()
     return counts
 
 
+def hold_moments(dev) -> float:
+    """``advantage_moments``' kernel against its transcription (bitwise) and the
+    float64 moments of the same rows (within ``sum_bound``, ``std_bound``; the
+    plain table the control) at ``train scale``'s width (160 minibatches of 1024
+    units of 64), a rank's of two data shards, units of 3 and of 1, and one-row
+    minibatches (std NaN, as the plain version's). Returns the largest distance from
+    the plain table."""
+    err = 0.0
+    cases = {"train scale": (base_config(num_envs=NUM_ENVS, num_steps=STEPS), 2),
+             "two shards": (base_config(num_envs=NUM_ENVS, num_steps=STEPS, data_shards=2), 2),
+             "units of 3": (base_config(num_envs=96, num_steps=64, shuffle_block_size=3), 160),
+             "units of 1": (base_config(num_envs=64, num_steps=64, shuffle_block_size=1), 160)}
+    for name, (cfg, model_rows) in cases.items():
+        _, inputs = minibatch_inputs(cfg, dev)
+        units, index = inputs[2], inputs[3]
+        adv = units.advantages
+        got = mbops.advantage_moments(adv, index).cpu().numpy()
+        plain = mbops.advantage_moments_plain(adv, index).cpu().numpy()
+        x, ids = adv.cpu().numpy(), index.cpu().numpy()
+        model = moments_model(x, ids[:model_rows])
+        if not np.array_equal(got[:model_rows].view(np.int32), model.view(np.int32)):
+            raise AssertionError(f"phase n advantage_moments {name}: not the transcription's")
+        rows = x[ids].reshape(ids.shape[0], -1)
+        for i in range(ids.shape[0]):
+            for j, bound in ((0, sum_bound), (1, std_bound)):
+                ref, tol = bound(rows[i], float(plain[i, j]))
+                if not abs(float(got[i, j]) - ref) <= tol:
+                    raise AssertionError(f"phase n advantage_moments {name}, minibatch {i}: "
+                                         f"{'std' if j else 'mean'} {float(got[i, j])!r} is "
+                                         f"{abs(float(got[i, j]) - ref):.3g} from {ref!r}, "
+                                         f"over {tol:.3g}")
+        err = max(err, float(np.abs(got.astype(np.float64) - plain).max()))
+        print(f"phase n advantage_moments {name}: {index.shape[0]} minibatches of "
+              f"{index.shape[1]} units of {adv.shape[1]}: within max({mbops.SUM_REL_FLOOR} x "
+              f"the scale, {mbops.SUM_CONTROL_FACTOR} x the plain table's distance) of "
+              f"float64, the first {model_rows} bitwise the transcription; largest distance "
+              f"from the plain table {err:.3g}")
+    one = torch.randn((4, 1), device=dev)
+    idx = torch.arange(4, device=dev)[:, None]
+    got, plain = mbops.advantage_moments(one, idx), mbops.advantage_moments_plain(one, idx)
+    if not (torch.equal(got[:, 0], plain[:, 0]) and bool(got[:, 1].isnan().all())
+            and bool(plain[:, 1].isnan().all())):
+        raise AssertionError("phase n advantage_moments: one-row minibatches are not (x, NaN)")
+    return err
+
+
 def check_minibatch_kernels(dev, card):
     """Phase n: ``ppo_head`` (forward and backward) and ``adam_tail`` against their
-    plain versions on the card, bitwise: the head on ``crafted_minibatch`` at
+    plain versions on the card: the head on ``crafted_minibatch`` at
     ``MINIBATCH_ROWS``, an odd count and one row, with the group's moments and its
-    own, the gradients from the loss and from random upstream gradients (also
-    expanded ones), and through the unit index at ``UNIT_BLOCKS``' rows; the tail,
-    one cluster, in ``TAIL_CASES`` on ``tail_state``'s 12 tensors and on views of one
+    own (row ``MOMENT_ROW`` of a table), d/d mu and d/d v bitwise the composition's
+    from the loss at gradient 1 and 0.7, the stats bitwise their transcription and
+    within the stated tolerance of float64, and through the unit index at
+    ``UNIT_BLOCKS``' rows; ``advantage_moments`` (``hold_moments``); the tail, one
+    cluster, in ``TAIL_CASES`` on ``tail_state``'s 12 tensors and on views of one
     flat buffer (a group's gradients), and over 16 replays of a CUDA graph; then one
     update of 160 minibatches at ``train scale``'s width with the kernels, with the
-    plain versions and with every field gathered, every parameter, moment and stat
-    bitwise. Timed as the kernels line needs; returns its three entries."""
+    head and tail plain on the kernel's moments (parameters and Adam moments bitwise,
+    the stats within the tolerance) and with every field gathered (bitwise), and run
+    to run (bitwise). Timed as the kernels line needs; returns its four entries."""
     rng = np.random.default_rng(17)
     head_err = 0.0
     for n in MINIBATCH_ROWS + (4097, 1):
         case = crafted_minibatch(n, rng)
         for own in (False, True) if n > 1 else (False,):
             t = head_tensors(case, dev, own)
-            g = torch.Generator(device=dev).manual_seed(n)
-            gp, gv = (torch.randn((n,), generator=g, device=dev) for _ in range(2))
-            for name, up in (("the loss", None), ("random upstream", (gp, gv)),
-                             ("expanded upstream", (gp[:1].expand(n), gv[:1].expand(n)))):
-                head_err = max(head_err, hold_head(t, up, f"{n} rows, {name}"))
+            for g_loss in (1.0, 0.7):
+                head_err = max(head_err, hold_head(t, g_loss, f"{n} rows, gradient {g_loss}"))
     for n in UNIT_BLOCKS:
         for own in (False, True):
             t = unit_case(n, rng, dev, own)
-            g = torch.Generator(device=dev).manual_seed(n)
-            gp, gv = (torch.randn((n,), generator=g, device=dev) for _ in range(2))
-            for name, up in (("the loss", None), ("random upstream", (gp, gv)),
-                             ("expanded upstream", (gp[:1].expand(n), gv[:1].expand(n)))):
-                head_err = max(head_err, hold_head(t, up, f"{n} rows by unit id, {name}"))
-    print(f"phase n ppo_head: forward outputs and d/d mu, d/d v bitwise the plain "
-          f"composition at {MINIBATCH_ROWS + (4097, 1)} rows and through the unit index "
-          f"at {tuple(UNIT_BLOCKS)} rows (units of {tuple(UNIT_BLOCKS.values())}), every "
-          f"branch ({HEAD_ROW_KINDS} row kinds), the group's moments and the minibatch's "
-          f"own")
+            for g_loss in (1.0, 0.7):
+                head_err = max(head_err, hold_head(t, g_loss, f"{n} rows by unit id, "
+                                                              f"gradient {g_loss}"))
+    print(f"phase n ppo_head: d/d mu, d/d v bitwise the plain composition's autograd; the "
+          f"loss and stats bitwise the kernel's transcription and within "
+          f"max({mbops.SUM_REL_FLOOR} x mean(|x|), {mbops.SUM_CONTROL_FACTOR} x |torch's "
+          f"float32 mean - float64|) of the float64 sums (the loss on its three terms, "
+          f"clip_frac bitwise the composition's), at {MINIBATCH_ROWS + (4097, 1)} rows and "
+          f"through the unit index at {tuple(UNIT_BLOCKS)} rows (units of "
+          f"{tuple(UNIT_BLOCKS.values())}), every branch ({HEAD_ROW_KINDS} row kinds), the "
+          f"group's moments and the minibatch's own; largest stat distance from the "
+          f"composition {head_err:.3g}")
+    moments_err = hold_moments(dev)
     state = tail_state(dev, 5)
     tail_err = 0.0
     for name, (kl, stop, scale) in TAIL_CASES.items():
@@ -4838,68 +5216,106 @@ def check_minibatch_kernels(dev, card):
           f"composition ({', '.join(TAIL_CASES)}; a group's flat-buffer views; 16 graph "
           f"replays, the counters at 16)")
     cfg = base_config(num_envs=NUM_ENVS, num_steps=STEPS, kl_target=float("inf"))
-    runs = [update_with(cfg, dev, 3, plain) for plain in (False, True)]
+    runs = {"kernels": update_with(cfg, dev, 3), "again": update_with(cfg, dev, 3),
+            "plain head and tail": update_with(cfg, dev, 3, plain_head_and_tail)}
     with _patched(ppo, minibatch_step=gathered_minibatch_step):
-        runs.append(update_with(cfg, dev, 3, False))
-    for what, run in (("their plain versions", runs[1]), ("every field gathered", runs[2])):
-        if not (all(same_bits(a, b) for a, b in zip(runs[0][0], run[0]))
-                and runs[0][1] == run[1]):
+        runs["every field gathered"] = update_with(cfg, dev, 3)
+    kern = runs["kernels"]
+    for what in ("again", "every field gathered"):
+        if not (all(same_bits(a, b) for a, b in zip(kern[0], runs[what][0]))
+                and kern[1][0] == runs[what][1][0] and same_stats(kern[1][1], runs[what][1][1])):
             raise AssertionError(f"phase n: an update with the kernels differs from one "
-                                 f"with {what}")
+                                 f"{what}")
+    plain = runs["plain head and tail"]
+    if not all(same_bits(a, b) for a, b in zip(kern[0], plain[0])):
+        raise AssertionError("phase n: an update with the kernels trains otherwise than one "
+                             "with the head and tail plain on the same moments")
+    if not np.array_equal(kern[1][1]["clip_frac"], plain[1][1]["clip_frac"]):
+        raise AssertionError("phase n: the update's clip_frac differs from the plain head's")
+    stat_gap = {k: float(np.abs(kern[1][1][k].astype(np.float64) - plain[1][1][k]).max())
+                for k in STAT_KEYS}
+    scale = {k: float(np.abs(plain[1][1][k]).max()) for k in STAT_KEYS}
+    if any(stat_gap[k] > mbops.SUM_REL_FLOOR * max(scale[k], 1.0) for k in STAT_KEYS):
+        raise AssertionError(f"phase n: the update's stats {stat_gap} from the plain head's")
     print(f"phase n: one update of {cfg.update_epochs * cfg.num_minibatches} minibatches "
-          f"at {NUM_ENVS} x {STEPS} with the kernels (the head's fields through the unit "
-          f"index) bitwise the one with their plain versions and the one with every field "
-          f"gathered (parameters, Adam moments, every stat)")
-    gathers = gathers_a_minibatch_step(dev)
-    print(f"phase n: gathers (index_select launches) a minibatch step: {gathers}")
-    return time_minibatch_kernels(dev, card, head_err, tail_err, gathers)
+          f"at {NUM_ENVS} x {STEPS} with the kernels bitwise run to run and bitwise the one "
+          f"with every field gathered (parameters, Adam moments, every stat); the head and "
+          f"tail plain on the kernel's moments train the same parameters and Adam moments "
+          f"bitwise, clip_frac bitwise, the other stats at most {stat_gap} apart")
+    ops = ops_of_a_minibatch_step(dev)
+    reductions = {k: v for k, v in ops["unit index"].items() if k in LOSS_REDUCTIONS}
+    if reductions:
+        raise AssertionError(f"phase n: a minibatch step runs PyTorch reductions {reductions}")
+    gathers = {k: v.get("index_select", 0) for k, v in ops.items()}
+    print(f"phase n: a minibatch step's ATen operators through the unit index "
+          f"{ops['unit index']} (no reduction of the loss or the advantages); gathers "
+          f"(index_select) {gathers}")
+    return time_minibatch_kernels(dev, card, head_err, moments_err, tail_err, gathers)
 
 
 def head_bytes(n: int, backward: bool, unit_rows: int = 0) -> int:
     """The bytes ``ppo_head`` must move at ``n`` rows: each row's inputs read once
-    (mu 2, v, the action 2, the old log-prob, the advantage, the return, the old value;
-    the backward also the two upstream gradients) and its outputs written once (4
-    floats forward, 3 backward), log_std and the moments, and with the unit index its
-    ``unit_rows`` int64 ids."""
-    floats = (11 + 3) if backward else (9 + 4)
-    return 4 * (n * floats + 4) + 8 * unit_rows
+    (mu 2, v, the action 2, the old log-prob, the advantage, the return, the old
+    value), log_std, the moments' row and its index; the forward's outputs written
+    once (the loss and six stats), the backward's (3 floats a row) and its upstream
+    gradient; with the unit index its ``unit_rows`` int64 ids."""
+    out = 3 * n + 1 if backward else 7
+    return 4 * (9 * n + 2 + 2 + out) + 8 + 8 * unit_rows
 
 
-def time_minibatch_kernels(dev, card, head_err: float, tail_err: float, gathers: dict):
-    """The kernels line's entries for ``ppo_head``, ``ppo_head_backward`` and
-    ``adam_tail``: at each of ``MINIBATCH_ROWS`` the head eager and in a CUDA graph,
-    with every field gathered and through the unit index, beside the plain composition
-    and the bound, and the tail beside its plain version and ``torch._fused_adam_``
-    over the same 12 tensors, eager and in a CUDA graph (a library call that computes
-    Adam alone, rounds otherwise and never runs on the path)."""
+def moments_bytes(adv: torch.Tensor, index: torch.Tensor) -> int:
+    """The bytes the moments launch must move: each distinct advantage row it reads
+    once, the unit ids, the table written."""
+    distinct = int(torch.unique(index).numel()) * adv.shape[1]
+    return 4 * distinct + 8 * index.numel() + 4 * 2 * index.shape[0]
+
+
+def f64_as_f32_ops(ops: int) -> float:
+    """``ops`` float64 operations as float32 ones at the card's two peaks."""
+    return ops * PEAK_F32_OPS_PER_S / PEAK_F64_OPS_PER_S
+
+
+def time_minibatch_kernels(dev, card, head_err: float, moments_err: float, tail_err: float,
+                           gathers: dict):
+    """The kernels line's entries for ``ppo_head``, ``ppo_head_backward``,
+    ``advantage_moments`` and ``adam_tail``: at each of ``MINIBATCH_ROWS`` the head
+    eager and in a CUDA graph, with every field gathered and through the unit index,
+    beside the plain composition and the bound; the moments at ``train scale``'s
+    width, eager and in a graph, beside the plain loop, its bound and
+    ``torch.std_mean`` on the gathered minibatches (two calls with the gather: no
+    library call computes it, so its line's library_ms is null); and the tail beside
+    its plain version and ``torch._fused_adam_`` over the same 12 tensors, eager and in
+    a CUDA graph (a library call that computes Adam alone, rounds otherwise and never
+    runs on the path)."""
     rng = np.random.default_rng(18)
     head, back = {}, {}
-    consts = mbops._head_constants(HEAD_CLIP)
+    consts = mbops._head_constants(*HEAD_COEFS)
     for n in MINIBATCH_ROWS:
         t = head_tensors(crafted_minibatch(n, rng), dev)
         args = [t[k].detach() for k in HEAD_ARGS]
         u = unit_case(n, rng, dev)
         u_args, ids = [u[k].detach() for k in HEAD_ARGS], u["unit_ids"]
-        outs = [torch.empty((n,), device=dev) for _ in range(4)]
-        fwd = lambda: _cuda.launch_ppo_head_forward(args, consts, outs, n)
-        fwd_ids = lambda: _cuda.launch_ppo_head_forward(u_args, consts, outs, n, ids)
+        loss, stats = torch.empty((), device=dev), torch.empty((6,), device=dev)
+        fwd = lambda: _cuda.launch_ppo_head_forward(args, consts, loss, stats, n)
+        fwd_ids = lambda: _cuda.launch_ppo_head_forward(u_args, consts, loss, stats, n, ids)
         g_mu, g_v = torch.empty((n, 2), device=dev), torch.empty((n,), device=dev)
-        up = torch.full((n,), 1.0 / n, device=dev)
-        bwd = lambda: _cuda.launch_ppo_head_backward(args, consts, up, 1, up, 1, g_mu, g_v, n)
-        bwd_ids = lambda: _cuda.launch_ppo_head_backward(u_args, consts, up, 1, up, 1, g_mu,
-                                                         g_v, n, ids)
-        plain_f = lambda: mbops.ppo_head_plain(*args, HEAD_CLIP)
+        one = torch.ones((), device=dev)
+        bwd = lambda: _cuda.launch_ppo_head_backward(args, consts, one, g_mu, g_v, n)
+        bwd_ids = lambda: _cuda.launch_ppo_head_backward(u_args, consts, one, g_mu, g_v, n,
+                                                         ids)
+        plain_f = lambda: mbops.ppo_head_loss_plain(*args, *HEAD_COEFS)
         mu_, v_ = args[0].clone().requires_grad_(True), args[1].clone().requires_grad_(True)
 
         def plain_b():
-            out = mbops.ppo_head_plain(mu_, v_, *args[2:], HEAD_CLIP)
-            torch.autograd.grad(out[1:3], (mu_, v_), (up, up))
+            out = mbops.ppo_head_loss_plain(mu_, v_, *args[2:], *HEAD_COEFS)
+            torch.autograd.grad(out[0], (mu_, v_))
 
-        f_bound = bound_ms(head_bytes(n, False), n * HEAD_FORWARD_OPS)
+        f_ops = n * HEAD_FORWARD_OPS + f64_as_f32_ops(n * HEAD_SUM_OPS)
+        f_bound = bound_ms(head_bytes(n, False), f_ops)
         b_bound = bound_ms(head_bytes(n, True), n * HEAD_BACKWARD_OPS)
         head[n] = (per_launch_ms(fwd), graph_ms(fwd), per_launch_ms(plain_f), *f_bound,
                    per_launch_ms(fwd_ids), graph_ms(fwd_ids),
-                   bound_ms(head_bytes(n, False, ids.numel()), n * HEAD_FORWARD_OPS)[0])
+                   bound_ms(head_bytes(n, False, ids.numel()), f_ops)[0])
         back[n] = (per_launch_ms(bwd), graph_ms(bwd), per_launch_ms(plain_b), *b_bound,
                    per_launch_ms(bwd_ids), graph_ms(bwd_ids),
                    bound_ms(head_bytes(n, True, ids.numel()), n * HEAD_BACKWARD_OPS)[0])
@@ -4910,10 +5326,28 @@ def time_minibatch_kernels(dev, card, head_err: float, tail_err: float, gathers:
                   f"{i_ms * 1e3:.2f} us eager, {i_g_ms * 1e3:.2f} us in a graph; bound "
                   f"{b_ms * 1e3:.2f} us ({b_by}), {i_b_ms * 1e3:.2f} us by unit id; plain "
                   f"{p_ms * 1e3:.1f} us, on {card}")
+    cfg = base_config(num_envs=NUM_ENVS, num_steps=STEPS)
+    _, inputs = minibatch_inputs(cfg, dev)
+    adv, index = inputs[2].advantages, inputs[3]
+    table = torch.empty((index.shape[0], 2), device=dev)
+    mom = lambda: _cuda.launch_advantage_moments(adv, index, table)
+    gathered = adv[index].reshape(index.shape[0], -1)
+    m_ms, m_graph = per_launch_ms(mom), graph_ms(mom)
+    m_plain = per_launch_ms(lambda: mbops.advantage_moments_plain(adv, index), windows=5,
+                            launches=2)
+    std_mean = per_launch_ms(lambda: torch.std_mean(gathered, dim=1))
+    m_bound = bound_ms(moments_bytes(adv, index), f64_as_f32_ops(index.numel() * adv.shape[1]
+                                                                  * MOMENT_OPS))
+    print(f"phase n advantage_moments: {index.shape[0]} minibatches of {index.shape[1]} "
+          f"units of {adv.shape[1]}: {m_ms * 1e3:.2f} us eager, {m_graph * 1e3:.2f} us in a "
+          f"CUDA graph; bound {m_bound[0] * 1e3:.2f} us ({m_bound[1]}: the "
+          f"{moments_bytes(adv, index) / 1e6:.1f} MB of distinct rows); plain "
+          f"{m_plain * 1e3:.1f} us; torch.std_mean on the minibatches gathered "
+          f"{std_mean * 1e3:.2f} us, on {card}")
     # every timed launch applies a step: the loop's tables hold more rows than the
     # windows take
     params, grads, mu, nu, bc1, bc2, loop = tail_state(dev, 6, steps=4096)
-    stats = [torch.tensor(x, device=dev) for x in (0.31, -0.02, 0.45, 1.9, 0.001, 0.11)]
+    stats = tail_stats(0.001, dev)
     lr = torch.tensor(2.5e-4, device=dev)
     g_norm = ppo.global_norm(grads)
     tail = lambda fn: lambda: fn(params, grads, mu, nu, g_norm, stats, bc1, bc2, lr, loop,
@@ -4937,14 +5371,14 @@ def time_minibatch_kernels(dev, card, head_err: float, tail_err: float, gathers:
           f"({t_bound[1]}); plain {t_plain * 1e3:.1f} us; torch._fused_adam_ "
           f"{library * 1e3:.2f} us eager, {library_graph * 1e3:.2f} us in a graph, on {card}")
     big, small = MINIBATCH_ROWS
-    registers = lambda word: kernel_registers(_cuda.build_report.get(
-        "ppo_head" if "head" in word else "adam_tail", ""), word)
+    registers = lambda src, word: kernel_registers(_cuda.build_report.get(src, ""), word)
     entry = lambda name, src, replaces, err, d, word: {
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
         "max_abs_err": err, "ms": d[big][0], "graph_ms": d[big][1], "plain_ms": d[big][2],
         "bound_ms": d[big][3], "bound_by": d[big][4], "library_ms": None,
         "unit_index_ms": d[big][5], "unit_index_graph_ms": d[big][6],
-        "unit_index_bound_ms": d[big][7], "rows": big, "registers": registers(word), "gathers_a_minibatch_step": gathers,
+        "unit_index_bound_ms": d[big][7], "rows": big,
+        "registers": registers("ppo_head", word), "gathers_a_minibatch_step": gathers,
         f"ms_{small}_rows": d[small][0], f"graph_ms_{small}_rows": d[small][1],
         f"plain_ms_{small}_rows": d[small][2], f"bound_ms_{small}_rows": d[small][3],
         f"unit_index_graph_ms_{small}_rows": d[small][6]}
@@ -4953,13 +5387,19 @@ def time_minibatch_kernels(dev, card, head_err: float, tail_err: float, gathers:
                   "ppo_head_forward"),
             entry("ppo_head_backward", src, "self_play_racing_tpu/agent/ppo.py:313", head_err,
                   back, "ppo_head_backward"),
+            {"name": "advantage_moments", "route": "cuda", "source": src,
+             "replaces": "self_play_racing_tpu/agent/ppo.py:195", "max_abs_err": moments_err,
+             "ms": m_ms, "graph_ms": m_graph, "plain_ms": m_plain, "bound_ms": m_bound[0],
+             "bound_by": m_bound[1], "library_ms": None, "std_mean_on_gathered_ms": std_mean,
+             "minibatches": index.shape[0], "rows": index.shape[1] * adv.shape[1],
+             "registers": registers("ppo_head", "advantage_moments")},
             {"name": "adam_tail", "route": "cuda",
              "source": "self_play_racing_tpu_torch/csrc/adam_tail.cu",
              "replaces": "self_play_racing_tpu/agent/ppo.py:117", "max_abs_err": tail_err,
              "ms": t_ms, "graph_ms": t_graph, "plain_ms": t_plain, "bound_ms": t_bound[0],
              "bound_by": t_bound[1], "library_ms": library, "library_graph_ms": library_graph,
              "tensors": len(params), "elements": elements,
-             "registers": registers("adam_tail")}]
+             "registers": registers("adam_tail", "adam_tail")}]
 
 
 # ------------------------------------------ phase (p): the minibatch step's MLPs

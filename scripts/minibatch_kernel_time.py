@@ -46,24 +46,24 @@ TAIL_WIDTHS = [(64, 64), (128, 128), (256, 256), (512, 512), (1024, 1024)]
 
 def time_head(dev) -> dict:
     rng = chip_smoke.np.random.default_rng(5)
-    consts = mbops._head_constants(chip_smoke.HEAD_CLIP)
+    consts = mbops._head_constants(*chip_smoke.HEAD_COEFS)
     out = {}
     for n in chip_smoke.MINIBATCH_ROWS:
         t = chip_smoke.head_tensors(chip_smoke.crafted_minibatch(n, rng), dev)
         u = chip_smoke.unit_case(n, rng, dev)
         args = [t[k].detach() for k in chip_smoke.HEAD_ARGS]
         u_args, ids = [u[k].detach() for k in chip_smoke.HEAD_ARGS], u["unit_ids"]
-        outs = [torch.empty((n,), device=dev) for _ in range(4)]
+        loss, stats = torch.empty((), device=dev), torch.empty((6,), device=dev)
         g_mu, g_v = torch.empty((n, 2), device=dev), torch.empty((n,), device=dev)
-        up = torch.full((n,), 1.0 / n, device=dev)
+        one = torch.ones((), device=dev)
         calls = {
-            "forward": lambda: _cuda.launch_ppo_head_forward(args, consts, outs, n),
-            "forward_by_id": lambda: _cuda.launch_ppo_head_forward(u_args, consts, outs, n,
-                                                                   ids),
-            "backward": lambda: _cuda.launch_ppo_head_backward(args, consts, up, 1, up, 1,
-                                                               g_mu, g_v, n),
+            "forward": lambda: _cuda.launch_ppo_head_forward(args, consts, loss, stats, n),
+            "forward_by_id": lambda: _cuda.launch_ppo_head_forward(u_args, consts, loss,
+                                                                   stats, n, ids),
+            "backward": lambda: _cuda.launch_ppo_head_backward(args, consts, one, g_mu, g_v,
+                                                               n),
             "backward_by_id": lambda: _cuda.launch_ppo_head_backward(
-                u_args, consts, up, 1, up, 1, g_mu, g_v, n, ids)}
+                u_args, consts, one, g_mu, g_v, n, ids)}
         out[n] = {k: chip_smoke.graph_ms(f) * 1e3 for k, f in calls.items()}
     return out
 
@@ -73,7 +73,7 @@ def tail_call(state):
     applied step."""
     params, grads, mu, nu, bc1, bc2, loop = state
     dev = params[0].device
-    stats = [torch.tensor(x, device=dev) for x in (0.31, -0.02, 0.45, 1.9, 0.001, 0.11)]
+    stats = torch.tensor([0.31, -0.02, 0.45, 1.9, 0.001, 0.11], device=dev)
     lr = torch.tensor(2.5e-4, device=dev)
     g_norm = ppo.global_norm(grads)
     return lambda: mbops.adam_tail(params, grads, mu, nu, g_norm, stats, bc1, bc2, lr, loop,
@@ -113,9 +113,11 @@ def step_graph(cfg, dev, gathered: bool):
              if gathered else contextlib.nullcontext())
     with patch:
         graph = ppo._MinibatchGraph(cfg, train.model, inputs, train.opt_state, key=None)
+        moments = ppo.advantage_moments(cfg, inputs[2], inputs[3])
         launches = count_launches(lambda: ppo.minibatch_step(
             cfg, train.model, *inputs, [m.clone() for m in train.opt_state.mu],
-            [v.clone() for v in train.opt_state.nu], ppo.MinibatchLoop.zeros(steps, dev)))
+            [v.clone() for v in train.opt_state.nu], ppo.MinibatchLoop.zeros(steps, dev),
+            moments))
     return graph, inputs, train.opt_state, launches
 
 

@@ -52,6 +52,13 @@ it, by sequence number), the global norm, the clip/Adam/apply tail and the rest 
 ``minibatch_step`` (masks, stats row, counters), as launches and device us a
 minibatch. Graph replays carry no operator, so the graphed loop reports only totals.
 
+Graphed, ``--update`` and ``--selfplay`` also report the captured minibatch step
+(``graphed_minibatch_step``, replayed with the loop's exit flag set so that it moves
+nothing): its kernel and copy nodes counted from the graph and its kernel nodes by the
+name of the kernel each launches (``kernel_node_names``), its advantage moments
+graph's kernel nodes by name, the kernels' time in one profiled replay and the device
+ms a replay between CUDA events.
+
 With ``--update`` it also reports the single-car rollout step: the trainer's
 captured rollout step (``graphed_rollout_step``, where the checkout graphs it), the
 eager rollout (``ppo.rollout_phase``, ``--steps`` steps) by the code that issues
@@ -82,6 +89,7 @@ import functools
 import dataclasses
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -183,6 +191,7 @@ MINIBATCH_HAND_KERNELS = {"mlp_forward_kernel": "mlp", "mlp_backward_kernel": "m
                           "mlp_grad_reduce_kernel": "mlp backward",
                           "ppo_head_forward_kernel": "loss head",
                           "ppo_head_backward_kernel": "loss head backward",
+                          "advantage_moments_kernel": "advantage moments (once an update)",
                           "adam_tail_kernel": "tail"}
 
 
@@ -396,6 +405,8 @@ def profile_update(args, dev) -> dict:
     graphs = getattr(trainer.update_step, "graphs", None)
     graphed = (None if graphs is None or getattr(graphs, "rollout", None) is None
                else _graphed_step(graphs.rollout, cfg.num_steps))
+    graphed_mb = (None if graphs is None or getattr(graphs, "minibatch_graph", None) is None
+                  else _graphed_minibatch(graphs.minibatch_graph))
     per_kernel = _device_kernels(prof)
     busy_us = sum(t for t, _ in per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[: args.top]
@@ -423,6 +434,7 @@ def profile_update(args, dev) -> dict:
         **_copies(prof, n),
         "groups": minibatch_groups(prof),
         "graphed_rollout_step": graphed,
+        "graphed_minibatch_step": graphed_mb,
         "rollout_groups": profile_rollout(args, trainer, dev),
         "eval_step": profile_eval(dev),
     }
@@ -472,6 +484,8 @@ def profile_selfplay(args, dev) -> dict:
     graphs = getattr(trainer.update_step, "graphs", None)
     graphed = (None if graphs is None or graphs.rollout is None
                else _graphed_step(graphs.rollout, cfg.num_steps))
+    graphed_mb = (None if graphs is None or getattr(graphs, "minibatch_graph", None) is None
+                  else _graphed_minibatch(graphs.minibatch_graph))
 
     short = dataclasses.replace(cfg, num_steps=args.steps)
     runner, log_std = trainer.runner, trainer.log_std
@@ -513,6 +527,7 @@ def profile_selfplay(args, dev) -> dict:
                                        key=lambda kv: -kv[1][0])[: args.top]],
         "minibatch_groups": groups,
         "graphed_rollout_step": graphed,
+        "graphed_minibatch_step": graphed_mb,
         "rollout_steps_profiled": steps,
         "rollout_wall_ms_per_step": step_wall * 1e3,
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
@@ -571,6 +586,96 @@ def graph_nodes(graph) -> dict:
     # CUgraphNodeType: 0 kernel, 1 memcpy, 2 memset
     return {"kernel_nodes": kinds.pop(0, 0), "copy_nodes": kinds.pop(1, 0) + kinds.pop(2, 0),
             "other_nodes": sum(kinds.values())}
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """``CUDA_KERNEL_NODE_PARAMS_v2`` (cuda.h)."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared_bytes", ctypes.c_uint),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def kernel_node_names(graph) -> dict:
+    """A graph's kernel nodes counted by the name of the kernel each launches
+    (``cuGraphKernelNodeGetParams``, then ``cuFuncGetName`` or ``cuKernelGetName``),
+    demangled by ``c++filt`` where the machine has it, cut at 100 characters; "?"
+    where neither call names it. A copy of ``chip_smoke.kernel_node_names``."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+                                     ctypes.POINTER(ctypes.c_size_t)]
+    cuda.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    cuda.cuGraphKernelNodeGetParams_v2.argtypes = [ctypes.c_void_p,
+                                                   ctypes.POINTER(_KernelNodeParams)]
+    handle = graph.raw_cuda_graph()
+    count = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    getters = [(field, getattr(cuda, fn)) for field, fn in (("func", "cuFuncGetName"),
+                                                            ("kern", "cuKernelGetName"))
+               if hasattr(cuda, fn)]
+    for _, fn in getters:
+        fn.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.c_void_p]
+    mangled = []
+    kind = ctypes.c_int(-1)
+    for node in nodes:
+        if cuda.cuGraphNodeGetType(node, ctypes.byref(kind)) != 0 or kind.value != 0:
+            continue
+        p = _KernelNodeParams()
+        name = "?"
+        if cuda.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(p)) == 0:
+            for field, fn in getters:
+                out = ctypes.c_char_p()
+                if getattr(p, field) and fn(ctypes.byref(out), getattr(p, field)) == 0 \
+                        and out.value:
+                    name = out.value.decode()
+                    break
+        mangled.append(name)
+    try:
+        plain = subprocess.run(["c++filt"], input="\n".join(mangled), capture_output=True,
+                               text=True, check=True, timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        plain = mangled
+    if len(plain) != len(mangled):
+        plain = mangled
+    return dict(collections.Counter(n.removeprefix("void ")[:100] for n in plain))
+
+
+def _graphed_minibatch(mb, replays: int = 20) -> dict:
+    """The trainer's captured minibatch step (``ppo.UpdateGraphs.minibatch_graph``,
+    captured under ``kept_graphs``) with the loop's exit flag set, so that its
+    replays move no parameter or moment: its nodes counted from the graph
+    (``graph_nodes``) and its kernel nodes by name (``kernel_node_names``), one
+    replay under the profiler (the kernels it recorded and their summed time), and
+    ``replays`` replays between CUDA events (device ms a replay); the kernel nodes by
+    name of its advantage moments graph where the checkout captures one. The loop's
+    carry is reset after it."""
+    out = {**graph_nodes(mb.step.graph), "kernels": kernel_node_names(mb.step.graph)}
+    moments = getattr(mb, "moments_step", None)
+    out["moments_graph_kernels"] = None if moments is None else kernel_node_names(moments.graph)
+    mb.loop.reset()
+    mb.loop.stop.fill_(True)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        mb.step.graph.replay()
+        torch.cuda.synchronize()
+    times = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    mb.loop.reset()
+    mb.loop.stop.fill_(True)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(replays):
+        mb.step.graph.replay()
+    end.record()
+    end.synchronize()
+    mb.loop.reset()
+    return {**out, "profiled_kernels": len(times),
+            "kernel_us_in_one_replay": sum(t for _, t in times),
+            "profiled_us_by_kernel": {n[:90]: t for n, t in times},
+            "device_ms_per_replay": start.elapsed_time(end) / replays}
 
 
 def _graphed_step(rollout, steps: int) -> dict:

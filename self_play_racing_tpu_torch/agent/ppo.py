@@ -14,7 +14,9 @@ JAX package:
   record it with ``computed=1`` and ``applied=0``. The host reads the exit flag
   once an epoch and skips the epochs after it; the minibatches left in the exit's
   epoch run masked, changing nothing and recording zeros;
-- per-minibatch advantage normalization with the unbiased std plus 1e-8;
+- per-minibatch advantage normalization with the unbiased std plus 1e-8, each
+  minibatch's moments formed before the loop (``advantage_moments``) and read by
+  the loss at the loop's minibatch;
 - clipped value loss 0.5*max(unclipped, clipped); the entropy bonus is a constant
   (log_std is an annealed buffer, not a parameter);
 - lr anneal frac*lr -> 0 and log_std anneal start -> end by update index, in
@@ -26,10 +28,12 @@ JAX package:
   ``torch.optim``, whose Adam folds the bias corrections into the step size and
   rounds otherwise. On the card the actor's and critic's MLPs forward and backward
   (``ops/mlp.py``: ``actor_critic_mlp``, whole towers; a tensor-parallel rank keeps
-  the Megatron composition), the loss's per-row work and everything after the global
-  norm are hand-written kernels (``ops/minibatch.py``: ``ppo_head``, ``adam_tail``),
-  and the global norm comes out of the MLP backward's reduce launch, or out of its
-  norm-only mode after a group's all-reduce (``norm_route``);
+  the Megatron composition), the rest of the loss and its backward, every
+  minibatch's advantage moments (one launch an update) and everything after the
+  global norm are hand-written kernels (``ops/minibatch.py``: ``ppo_head``,
+  ``advantage_moments``, ``adam_tail``), and the global norm comes out of the MLP
+  backward's reduce launch, or out of its norm-only mode after a group's all-reduce
+  (``norm_route``);
 - episode statistics harvested from the autoreset wrapper's records; the update's
   metrics packed into one float32 vector in ``METRIC_NAMES`` order.
 
@@ -55,8 +59,8 @@ Data parallelism (``make_update_step(..., mesh=...)``, a ``parallel.mesh.DataMes
 with a process group): each rank steps its own envs, draws the global noise and
 constants and keeps its rows, and reduces over the group what the JAX program
 reduces over the env or batch axis (``parallel/mesh.py`` lists them): an update
-makes two all-reduces for every minibatch's advantage moments (formed before the
-loop, ``advantage_moments``), one a minibatch for the gradients and stats, one for
+makes two all-reduces for every minibatch's advantage moments (``advantage_moments``
+combines the local table), one a minibatch for the gradients and stats, one for
 the metrics, and two a rollout step for the observation normalizer when it is on.
 Without a group the update is the single-process one, unchanged. On a
 ``TensorMesh`` the same reductions run over the data group, the model holds this
@@ -229,13 +233,12 @@ class Batch(NamedTuple):
 
 
 class UnitBatch(NamedTuple):
-    """A minibatch as ``minibatch_step`` hands it to the loss: ``advantages``
-    gathered, [n] (the advantages' moments read them), the observations, actions, old
-    log-probs, returns and old values as the rollout's units [units, block, ...]
-    (``shard_blocks``, shard and unit axes merged), and ``rows`` the minibatch's unit
-    ids (int64 [n / block]): row r is unit ``rows[r // block]``, offset ``r % block``.
-    ``_ppo_loss`` tells the two batches apart by ``rows``: where the batch has it, the
-    MLPs and the loss head read those five fields through it."""
+    """A minibatch as ``minibatch_step`` hands it to the loss: every field as the
+    rollout's units [units, block, ...] (``shard_blocks``, shard and unit axes
+    merged), and ``rows`` the minibatch's unit ids (int64 [n / block]): row r is
+    unit ``rows[r // block]``, offset ``r % block``. ``_ppo_loss`` tells the two
+    batches apart by ``rows``: where the batch has it, the MLPs and the loss head
+    read the fields through it."""
     obs: torch.Tensor
     actions: torch.Tensor
     logprobs: torch.Tensor
@@ -249,37 +252,24 @@ STAT_NAMES = ("loss", "pg_loss", "v_loss", "entropy", "approx_kl", "clip_frac",
               "applied", "computed")
 
 
-def _ppo_loss(params, log_std, mb, cfg: PPOConfig, moments=None, norm=None):
-    """The clipped loss and its stats, on a ``Batch`` or a ``UnitBatch``. The
-    advantages are normalized by their own mean and unbiased std, or by ``moments`` =
-    (mean, std) where given (the whole minibatch's over a group,
-    ``advantage_moments``). The actor's mean and the critic's value are
-    ``ops.mlp.actor_critic_mlp`` (on the card one launch forward, two backward), and
-    the per-row work is ``ops.minibatch.ppo_head`` (one launch each way), a
-    ``UnitBatch``'s fields read through its unit ids; the means, the entropy and the
-    loss stay PyTorch's reductions over its rows. A tensor-parallel rank's sharded
-    parameters keep the Megatron composition of ``models/actor_critic.py`` (the
-    kernels take whole towers; ``actor_critic_mlp`` tells them apart). ``norm``
-    (the kernels' route only, a 0-d tensor) receives the gradients' global norm from
-    the MLPs' backward."""
+def _ppo_loss(params, log_std, mb, cfg: PPOConfig, moments, at, norm=None):
+    """The clipped loss and its stats [6] (``STAT_NAMES[:6]``), on a ``Batch`` or a
+    ``UnitBatch``, the advantages normalized by row ``at`` (int64 [1]) of the table
+    ``moments`` [rows, 2] (``advantage_moments``: each minibatch's own mean and
+    unbiased std, over a group the whole minibatch's). The actor's mean and the
+    critic's value are ``ops.mlp.actor_critic_mlp`` (on the card one launch forward,
+    two backward), the rest of the loss ``ops.minibatch.ppo_head`` (one launch each
+    way: the per-row work, the means, the entropy and the loss's sum), a
+    ``UnitBatch``'s fields read through its unit ids. A tensor-parallel rank's
+    sharded parameters keep the Megatron composition of ``models/actor_critic.py``
+    (the MLP kernels take whole towers; ``actor_critic_mlp`` tells them apart) and
+    the same head. ``norm`` (the kernels' route only, a 0-d tensor) receives the
+    gradients' global norm from the MLPs' backward."""
     rows = getattr(mb, "rows", None)
     mu, new_v = mlpops.actor_critic_mlp(params, mb.obs, rows, norm)
-    adv = mb.advantages
-    mean, std = (adv.mean(), adv.std(correction=1)) if moments is None else moments
-    neg_log_ratio, pg_max, v_max, clipped = mbops.ppo_head(
-        mu, new_v, mb.actions, mb.logprobs, adv, mb.returns, mb.values, log_std, mean, std,
-        cfg.clip_coef, rows)
-    approx_kl = torch.mean(neg_log_ratio)  # mean(old - new)
-    pg_loss = pg_max.mean()
-    v_loss = 0.5 * v_max.mean()
-    entropy = net.normal_entropy(log_std, mu.shape[-1], neg_log_ratio.shape)
-    e_loss = -entropy.mean()
-    loss = pg_loss + cfg.ent_coef * e_loss + cfg.vf_coef * v_loss
-    stats = {
-        "loss": loss, "pg_loss": pg_loss, "v_loss": v_loss,
-        "entropy": -e_loss, "approx_kl": approx_kl, "clip_frac": clipped.mean(),
-    }
-    return loss, stats
+    return mbops.ppo_head(mu, new_v, mb.actions, mb.logprobs, mb.advantages, mb.returns,
+                          mb.values, log_std, moments, at, cfg.clip_coef, cfg.ent_coef,
+                          cfg.vf_coef, rows)
 
 
 def global_norm(grads, tp: net.TensorParallel = None) -> torch.Tensor:
@@ -330,19 +320,18 @@ def minibatch_layout(cfg: PPOConfig):
     return block, b_sub // block, mb_sub // block
 
 
-def _mean_over_group(grads, st, mesh):
-    """The gradients and the minibatch's stats averaged over the group (each rank's
-    minibatch part is an equal share), in one flat all-reduce. Returns the
-    gradients (views of the flat buffer, which opens with them), the stats and the
-    flat buffer."""
-    stat = torch.stack([st[k].detach().to(grads[0].dtype) for k in STAT_NAMES[:6]])
-    flat = torch.cat([g.reshape(-1) for g in grads] + [stat])
+def _mean_over_group(grads, stats, mesh):
+    """The gradients and the minibatch's stats [6] averaged over the group (each
+    rank's minibatch part is an equal share), in one flat all-reduce. Returns the
+    gradients (views of the flat buffer, which opens with them), the stats (its
+    last six) and the flat buffer."""
+    flat = torch.cat([g.reshape(-1) for g in grads] + [stats.to(grads[0].dtype)])
     pmesh.all_reduce_sum_(flat, mesh).div_(mesh.world)
     out, at = [], 0
     for g in grads:
         out.append(flat[at:at + g.numel()].view_as(g))
         at += g.numel()
-    return out, dict(zip(STAT_NAMES[:6], flat[at:])), flat
+    return out, flat[at:], flat
 
 
 def shard_blocks(cfg: PPOConfig, flat: Batch) -> Batch:
@@ -399,22 +388,18 @@ def minibatch_index(cfg: PPOConfig, perms) -> torch.Tensor:
             .transpose(1, 2).reshape(e_total * cfg.num_minibatches, d_shards * mb_units))
 
 
-def advantage_moments(cfg: PPOConfig, units: Batch, index, mesh) -> torch.Tensor:
-    """[E*M, 2]: row i the mean and unbiased std of minibatch i's advantages over
-    every rank's part, formed before the loop. Each minibatch's local moments come
-    from the gather and the calls the loop would make (``adv.mean()``,
-    ``adv.std(correction=1)`` of the flat minibatch; a row-wise reduction could
-    round otherwise), then ``pmesh.combine_mean_std`` combines all of them in two
-    all-reduces: bitwise the local moments with one rank."""
-    n = cfg.minibatch_size
-    means, stds = [], []
-    for i in range(index.shape[0]):
-        adv = mbops.gather_units(units.advantages, index[i])
-        means.append(adv.mean())
-        if n > 1:
-            stds.append(adv.std(correction=1))
-    mean, std = pmesh.combine_mean_std(torch.stack(means),
-                                       torch.stack(stds) if stds else None, n, mesh)
+def advantage_moments(cfg: PPOConfig, units: Batch, index, mesh=None) -> torch.Tensor:
+    """[E*M, 2]: row i the mean and unbiased std of minibatch i's advantages, formed
+    before the loop: ``ops.minibatch.advantage_moments`` of the units at ``index``
+    (on the card one launch; on the CPU each minibatch's ``adv.mean()`` and
+    ``adv.std(correction=1)`` of the gathered rows, what the loss would form). With
+    a ``mesh`` the rows are this rank's part of each minibatch, and
+    ``pmesh.combine_mean_std`` combines the local table over every rank's in two
+    all-reduces: bitwise the local table with one rank."""
+    local = mbops.advantage_moments(units.advantages, index)
+    if mesh is None:
+        return local
+    mean, std = pmesh.combine_mean_std(local[:, 0], local[:, 1], cfg.minibatch_size, mesh)
     return torch.stack([mean, std], dim=1)
 
 
@@ -431,25 +416,23 @@ def norm_route(device: torch.device, mesh, tp) -> str:
 
 
 def minibatch_step(cfg: PPOConfig, model: net.ActorCritic, log_std, lr, units: Batch,
-                   index, bc1, bc2, mu, nu, loop: MinibatchLoop, mesh=None,
-                   moments=None) -> None:
+                   index, bc1, bc2, mu, nu, loop: MinibatchLoop, moments,
+                   mesh=None) -> None:
     """One minibatch of the clipped update, JAX's ``body_fn``, with no value deciding
     a host branch: minibatch ``loop.i`` of ``units`` (``shard_blocks``' layout with
     the shard and unit axes merged) at its row of ``index`` (``minibatch_index``),
-    its advantages gathered and its other fields read by the MLPs and the loss head
-    through the unit ids (``UnitBatch``), then ``apply_minibatch``."""
+    its fields read by the MLPs and the loss head through the unit ids
+    (``UnitBatch``), then ``apply_minibatch``."""
     rows = index.index_select(0, loop.i)[0]
-    mb = UnitBatch(units.obs, units.actions, units.logprobs,
-                   mbops.gather_units(units.advantages, rows), units.returns, units.values,
-                   rows)
-    apply_minibatch(cfg, model, log_std, lr, mb, bc1, bc2, mu, nu, loop, mesh, moments)
+    apply_minibatch(cfg, model, log_std, lr, UnitBatch(*units, rows), bc1, bc2, mu, nu,
+                    loop, moments, mesh)
 
 
 def apply_minibatch(cfg: PPOConfig, model: net.ActorCritic, log_std, lr, mb, bc1, bc2,
-                    mu, nu, loop: MinibatchLoop, mesh=None, moments=None) -> None:
-    """The loss on the minibatch ``mb`` and its gradients (with a ``mesh``, the
-    advantages normalized by row ``loop.i`` of ``advantage_moments``' table
-    ``moments`` and the gradients averaged over the group), the global norm
+                    mu, nu, loop: MinibatchLoop, moments, mesh=None) -> None:
+    """The loss on the minibatch ``mb`` and its gradients, the advantages normalized
+    by row ``loop.i`` of ``advantage_moments``' table ``moments`` (with a ``mesh``,
+    the gradients and stats averaged over the group), the global norm
     (``norm_route``), then ``ops.minibatch.adam_tail``: the clip as a select, and
     Adam with the corrections ``bc1[loop.applied]``, ``bc2[loop.applied]``. ``trig =
     approx_kl > kl_target``: the parameters, ``mu`` and ``nu`` take the new values
@@ -461,28 +444,27 @@ def apply_minibatch(cfg: PPOConfig, model: net.ActorCritic, log_std, lr, mb, bc1
     route = norm_route(params[0].device, mesh, model.tensor_parallel)
     g_norm = (torch.empty((), dtype=params[0].dtype, device=params[0].device)
               if route == "fused" else None)
-    if mesh is not None:
-        moments = moments.index_select(0, loop.i)[0].unbind()
     with torch.enable_grad():
-        loss, st = _ppo_loss(model.params(), log_std, mb, cfg, moments, g_norm)
+        loss, stats = _ppo_loss(model.params(), log_std, mb, cfg, moments, loop.i, g_norm)
         grads = torch.autograd.grad(loss, params)
     if mesh is not None:
-        grads, st, flat = _mean_over_group(grads, st, mesh)
+        grads, stats, flat = _mean_over_group(grads, stats, mesh)
     with torch.no_grad():
         if route == "norm-only":
             g_norm = mlpops.grad_norm(flat[:sum(g.numel() for g in grads)])
         elif route == "composition":
             g_norm = global_norm(grads, model.tensor_parallel)
-        mbops.adam_tail(params, list(grads), mu, nu, g_norm, [st[k] for k in STAT_NAMES[:6]],
-                        bc1, bc2, lr, loop, cfg.max_grad_norm, cfg.kl_target)
+        mbops.adam_tail(params, list(grads), mu, nu, g_norm, stats, bc1, bc2, lr, loop,
+                        cfg.max_grad_norm, cfg.kl_target)
 
 
 class _MinibatchGraph:
     """``minibatch_step`` captured once (``_graph.CapturedStep``) over static copies
     of its inputs and of the Adam moments, the loop's carry and the model's
-    parameters read and trained in place. With a ``mesh`` the step's all-reduce is
-    captured with it, and ``advantage_moments`` is captured as a second graph
-    (``moments_step``) that ``load`` replays once an update, before the loop.
+    parameters read and trained in place, and ``advantage_moments`` captured as a
+    second graph (``moments_step``: one launch, with a ``mesh`` also its two
+    all-reduces) that ``load`` replays once an update, before the loop, into the
+    table the step reads. With a ``mesh`` the step's all-reduce is captured with it.
     ``key`` is what the captures fix."""
 
     def __init__(self, cfg, model, inputs, opt_state, key, mesh=None):
@@ -493,18 +475,16 @@ class _MinibatchGraph:
         self.nu = [v.clone() for v in opt_state.nu]
         self.loop = MinibatchLoop.zeros(inputs[3].shape[0], dev)
         self.loop.stop.fill_(True)  # the warm-up runs are masked: they move nothing
-        self.moments = self.moments_step = None
-        if mesh is not None:
-            units, index = self.inputs[2], self.inputs[3]
-            self.moments = torch.zeros((index.shape[0], 2), dtype=units.advantages.dtype,
-                                       device=dev)
-            self.moments_step = _graph.CapturedStep(
-                lambda: self.moments.copy_(advantage_moments(cfg, units, index, mesh)),
-                dev, [], lambda: None)
+        units, index = self.inputs[2], self.inputs[3]
+        self.moments = torch.zeros((index.shape[0], 2), dtype=units.advantages.dtype,
+                                   device=dev)
+        self.moments_step = _graph.CapturedStep(
+            lambda: self.moments.copy_(advantage_moments(cfg, units, index, mesh)),
+            dev, [], lambda: None)
 
         def body():
-            minibatch_step(cfg, model, *self.inputs, self.mu, self.nu, self.loop, mesh,
-                           self.moments)
+            minibatch_step(cfg, model, *self.inputs, self.mu, self.nu, self.loop,
+                           self.moments, mesh)
 
         self.step = _graph.CapturedStep(body, dev, [], self.loop.i.zero_)
 
@@ -512,8 +492,7 @@ class _MinibatchGraph:
         _graph.load_tree((self.inputs, self.mu, self.nu),
                          (inputs, opt_state.mu, opt_state.nu))
         self.loop.reset()
-        if self.moments_step is not None:
-            self.moments_step.replay()
+        self.moments_step.replay()
 
     def owned(self) -> list:
         """The tensors the graph owns outside its private pools."""
@@ -522,7 +501,7 @@ class _MinibatchGraph:
 
     @property
     def pool_bytes(self) -> int:
-        return sum(s.pool_bytes for s in (self.step, self.moments_step) if s is not None)
+        return self.step.pool_bytes + self.moments_step.pool_bytes
 
 
 def run_ppo_update(cfg: PPOConfig, model: net.ActorCritic, opt_state: AdamState,
@@ -546,11 +525,11 @@ def run_ppo_update(cfg: PPOConfig, model: net.ActorCritic, opt_state: AdamState,
     zero past the exit, with ``computed`` marking the executed minibatches and
     ``applied`` the applied ones.
 
-    With a ``mesh`` (a group), ``flat`` and ``perms`` are this rank's part of each
-    minibatch: the advantages are normalized by the global moments (every
-    minibatch's, reduced before the loop: ``advantage_moments``), and the
-    gradients and stats are averaged over the group, so every rank applies the
-    same update and takes the same exit.
+    Every minibatch's advantage moments are formed before the loop
+    (``advantage_moments``). With a ``mesh`` (a group), ``flat`` and ``perms`` are
+    this rank's part of each minibatch: the moments are the whole minibatch's
+    (combined over the group), and the gradients and stats are averaged over the
+    group, so every rank applies the same update and takes the same exit.
     """
     d_shards = cfg.data_shards
     e_total, m_total = cfg.update_epochs, cfg.num_minibatches
@@ -573,11 +552,11 @@ def run_ppo_update(cfg: PPOConfig, model: net.ActorCritic, opt_state: AdamState,
         mu = [m.clone() for m in opt_state.mu]
         nu = [v.clone() for v in opt_state.nu]
         loop = MinibatchLoop.zeros(steps, dev)
-        moments = None if mesh is None else advantage_moments(cfg, units, index, mesh)
+        moments = advantage_moments(cfg, units, index, mesh)
 
         def run(times):
             for _ in range(times):
-                minibatch_step(cfg, model, *inputs, mu, nu, loop, mesh, moments)
+                minibatch_step(cfg, model, *inputs, mu, nu, loop, moments, mesh)
     else:
         g = graphs.minibatch(cfg, model, inputs, opt_state, mesh)
         mu, nu, loop, run = g.mu, g.nu, g.loop, g.step.replay
@@ -807,8 +786,8 @@ class UpdateGraphs:
         return self.rollout.run(runner, aux, log_std, noise)
 
     def minibatch(self, cfg, model, inputs, opt_state, mesh=None) -> _MinibatchGraph:
-        """The minibatch graph for ``inputs``, loaded with them and ``opt_state``
-        (with a ``mesh``, every minibatch's advantage moments formed too)."""
+        """The minibatch graph for ``inputs``, loaded with them and ``opt_state``,
+        every minibatch's advantage moments formed."""
         key = (_graph.signature((inputs, opt_state.mu, opt_state.nu)),
                self._params_key(model))
         if self.minibatch_graph is None or self.minibatch_graph.key != key:

@@ -57,8 +57,10 @@ _SIGNATURES = {
     "multi_observe_small_f32": [_P] * 15 + [_I] * 4 + [_F] * 5 + [_I] * 5 + [_I, _P],
     "multi_transition_f32": [_P, _I, _P, _I] + [_I] * 11 + [_I, _P],
     "multi_observe_f32": [_P] * 15 + [_I] * 4 + [_F] * 5 + [_I] * 9 + [_I, _P],
-    "ppo_head_forward_f32": [_P, _I, _P, _I, _P, _L, _L, _L, _I, _P],
-    "ppo_head_backward_f32": [_P, _I, _P, _I, _P, _L, _P, _L, _P, _P, _L, _L, _L, _I, _P],
+    "ppo_head_forward_f32": [_P, _I, _P, _I, _P, _P, _P, _P, _L, _L, _L, _L, _I, _P],
+    "ppo_head_backward_f32": [_P, _I, _P, _I, _P, _P, _P, _L, _L, _L, _L, _I, _P],
+    "ppo_head_partials": [_L],
+    "advantage_moments_f32": [_P, _P, _P, _L, _L, _L, _L, _I, _P],
     "adam_tail_f32": [_P, _P, _I, _P, _I, _P, _I, _L, _L, _I, _P],
     "single_transition_f32": [_P, _I, _P, _I] + [_I] * 6 + [_I, _P],
     "single_transition_rows_f32": [_P, _I, _P, _I] + [_I] * 9 + [_I, _P],
@@ -750,7 +752,7 @@ def launch_single_transition(ptrs, constants, rows: int, num_waypoints: int,
 # ppo_head (csrc/ppo_head.cu): its input pointers (the unit ids last, null for none)
 # and float32 constants
 PPO_HEAD_INPUTS = 11
-PPO_HEAD_CONSTS = 6
+PPO_HEAD_CONSTS = 9
 # adam_tail (csrc/adam_tail.cu): the parameter tensors one launch takes at most, and
 # its loop pointers and float32 constants
 ADAM_TAIL_MAX_TENSORS = 32
@@ -772,40 +774,57 @@ def _float_array(values):
 
 
 def _head_inputs(inputs, unit_ids):
-    """The kernel's pointer table and the unit-indexed fields' (block, units): with
-    ``unit_ids``, the actions [units, block, 2] and old log-probs [units, block]."""
+    """The kernel's pointer table, the unit-indexed fields' (block, units) and the
+    moments' rows: with ``unit_ids``, the actions [units, block, 2] and old log-probs
+    [units, block]."""
     if len(inputs) != PPO_HEAD_INPUTS - 1:
         raise ValueError(f"ppo_head: {len(inputs)} inputs, expected {PPO_HEAD_INPUTS - 1}")
+    moment_rows = inputs[8].shape[0]
     if unit_ids is None:
-        return _ptr_array(list(inputs) + [None]), 0, 0
+        return _ptr_array(list(inputs) + [None]), 0, 0, moment_rows
     units, block = inputs[3].shape
-    return _ptr_array(list(inputs) + [unit_ids]), block, units
+    return _ptr_array(list(inputs) + [unit_ids]), block, units, moment_rows
 
 
-def launch_ppo_head_forward(inputs, constants, outputs, n: int, unit_ids=None) -> None:
-    """Launch the loss head's forward on the current stream of ``outputs[0]``'s
-    device: ``inputs`` the ten tensors and ``constants`` the ``PPO_HEAD_CONSTS``
-    float32 values in the order of ``csrc/ppo_head.cu:HeadArgs``, ``outputs`` the
-    four [n] tensors it writes; with ``unit_ids`` (int64 [n / block]) the actions,
-    old log-probs, returns and old values are [units, block, ...] read through it."""
+def launch_ppo_head_forward(inputs, constants, loss, stats, n: int, unit_ids=None) -> None:
+    """Launch the loss head's forward on the current stream of ``loss``'s device:
+    ``inputs`` the ten tensors and ``constants`` the ``PPO_HEAD_CONSTS`` float32 values
+    in the order of ``csrc/ppo_head.cu:HeadArgs``, ``loss`` (one float32) and ``stats``
+    [6] what it writes; with ``unit_ids`` (int64 [n / block]) the actions, old
+    log-probs, advantages, returns and old values are [units, block, ...] read
+    through it. Its partial sums' scratch comes from the caller's allocator, its
+    ticket is the card's (``ticket_counter``)."""
     if len(constants) != PPO_HEAD_CONSTS:
         raise ValueError(f"ppo_head: {len(constants)} constants, expected {PPO_HEAD_CONSTS}")
-    dev = outputs[0].device
-    ptrs, block, units = _head_inputs(inputs, unit_ids)
+    dev = loss.device
+    ptrs, block, units, rows = _head_inputs(inputs, unit_ids)
+    partial = torch.empty((build()["ppo_head"].ppo_head_partials(n),), dtype=torch.float64,
+                          device=dev)
     _call("ppo_head", "ppo_head_forward_f32", dev, ptrs, PPO_HEAD_INPUTS,
-          _float_array(constants), PPO_HEAD_CONSTS, _ptr_array(outputs), n, block, units)
+          _float_array(constants), PPO_HEAD_CONSTS, _ptr(partial),
+          _ptr(ticket_counter(dev, "ppo_head")), _ptr(loss), _ptr(stats), n, block, units,
+          rows)
 
 
-def launch_ppo_head_backward(inputs, constants, g_pg, pg_stride: int, g_vm, vm_stride: int,
-                             g_mu, g_v, n: int, unit_ids=None) -> None:
+def launch_ppo_head_backward(inputs, constants, g_loss, g_mu, g_v, n: int,
+                             unit_ids=None) -> None:
     """Launch the loss head's backward on the current stream of ``g_mu``'s device:
-    the forward's ``inputs``, ``constants`` and ``unit_ids``, the upstream gradients
-    of its two maxima (None for none; stride 1, or 0 for an expanded one), out
-    ``g_mu`` [n, 2] and ``g_v`` [n]."""
-    ptrs, block, units = _head_inputs(inputs, unit_ids)
+    the forward's ``inputs``, ``constants`` and ``unit_ids``, the loss's upstream
+    gradient ``g_loss`` (one float32), out ``g_mu`` [n, 2] and ``g_v`` [n]."""
+    ptrs, block, units, rows = _head_inputs(inputs, unit_ids)
     _call("ppo_head", "ppo_head_backward_f32", g_mu.device, ptrs, PPO_HEAD_INPUTS,
-          _float_array(constants), PPO_HEAD_CONSTS, _ptr(g_pg), pg_stride, _ptr(g_vm),
-          vm_stride, _ptr(g_mu), _ptr(g_v), n, block, units)
+          _float_array(constants), PPO_HEAD_CONSTS, _ptr(g_loss), _ptr(g_mu), _ptr(g_v), n,
+          block, units, rows)
+
+
+def launch_advantage_moments(advantages, index, table) -> None:
+    """Launch every minibatch's advantage moments on the current stream of
+    ``table``'s device: ``advantages`` [units, block] float32, ``index`` [rows, ids]
+    int64 unit ids, out ``table`` [rows, 2] float32 (mean, unbiased std)."""
+    units, block = advantages.shape
+    rows, ids = index.shape
+    _call("ppo_head", "advantage_moments_f32", table.device, _ptr(advantages), _ptr(index),
+          _ptr(table), rows, ids, block, units)
 
 
 def _adam_tail_tables(tensors, loop):
@@ -972,31 +991,37 @@ def mlp_grad_norm_blocks(params: int) -> int:
     return -(-params // MLP_REDUCE_LANES)
 
 
-# The counter behind the reduce's norm ticket (csrc/mlp_towers.cu): one int32 a card,
-# owned by this module, made 0 at its first launch on that card (outside any CUDA
-# graph capture, then a synchronize, so that every stream sees the 0) and left 0 by
-# every launch, so the captures take its address and replays need no memset. No
-# two launches on one card overlap on any path: the port launches the reduce on its
-# caller's current stream alone, and the minibatch step that calls it runs one at a
-# time from one thread, eagerly on the current stream or as replays of graphs
-# captured on the card's one capture stream (``_graph._capture_stream``), which
-# replay on the current stream in turn; two ranks on one card are processes, each
-# with a counter of its own.
-_norm_tickets: dict[int, torch.Tensor] = {}
+# The counters behind the cross-block tickets (the reduce's norm in
+# csrc/mlp_towers.cu, the loss head's sums in csrc/ppo_head.cu): one int32 a kernel
+# and card, owned by this module, made 0 at its first launch on that card (outside
+# any CUDA graph capture, then a synchronize, so that every stream sees the 0) and
+# left 0 by every launch, so the captures take its address and replays need no
+# memset. No two launches of one kernel on one card overlap on any path: the port
+# launches each on its caller's current stream alone, and the minibatch step that
+# calls them runs one at a time from one thread, eagerly on the current stream or as
+# replays of graphs captured on the card's one capture stream
+# (``_graph._capture_stream``), which replay on the current stream in turn; two ranks
+# on one card are processes, each with counters of its own.
+_tickets: dict[tuple[str, int], torch.Tensor] = {}
+
+
+def ticket_counter(device: torch.device, kernel: str) -> torch.Tensor:
+    """The card's ticket counter (int32 [1]) of ``kernel``, made at its first call."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    ticket = _tickets.get((kernel, index))
+    if ticket is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{kernel}: its first launch on a card is inside a CUDA graph "
+                               f"capture; launch it once eagerly first")
+        ticket = torch.zeros((1,), dtype=torch.int32, device=torch.device("cuda", index))
+        torch.cuda.synchronize(index)
+        ticket = _tickets.setdefault((kernel, index), ticket)
+    return ticket
 
 
 def grad_norm_ticket(device: torch.device) -> torch.Tensor:
     """The card's norm ticket counter (int32 [1]), made at its first call."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    ticket = _norm_tickets.get(index)
-    if ticket is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("mlp_grad_reduce: the norm's first launch on a card is inside "
-                               "a CUDA graph capture; launch it once eagerly first")
-        ticket = torch.zeros((1,), dtype=torch.int32, device=torch.device("cuda", index))
-        torch.cuda.synchronize(index)
-        ticket = _norm_tickets.setdefault(index, ticket)
-    return ticket
+    return ticket_counter(device, "mlp_grad_reduce")
 
 
 def launch_mlp_grad_reduce(partial, out, norm=None) -> None:

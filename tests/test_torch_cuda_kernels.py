@@ -35,12 +35,17 @@ rows and by row id. Their redesign (``csrc/multi_observe.cu``,
 fold's run boundaries, on rows off 16-byte alignment and with cars far off the
 track, the observation also bitwise the fold's shape model
 (``chip_smoke.shape_model_observe``). The PPO minibatch step's two kernels
-(``ops/minibatch.py``): ``ppo_head``'s forward and backward and ``adam_tail``
-bitwise their plain compositions on rows that take every branch, at 1 to 65,536
-rows, on a group's flat-buffer gradients, and over a whole update; the head also
-through the minibatch's unit index (the rollout's units read in place) and with an
-upstream gradient absent, the tail as one thread block cluster on 1 to 32 tensors
-and over 16 replays of a CUDA graph. The single-car
+(``ops/minibatch.py``): ``ppo_head``'s forward and backward (the loss past the MLPs
+and its gradients) and ``adam_tail`` against their plain compositions on rows that
+take every branch, at 1 to 65,536 rows, on a group's flat-buffer gradients, and over
+a whole update: d/d mu, d/d v and the tail bitwise, the head's stats bitwise its
+transcription (``chip_smoke.head_sums_model``) and within ``ops/minibatch.py``'s
+``SUM_REL_FLOOR`` / ``SUM_CONTROL_FACTOR`` rule of the float64 sums, clip_frac
+bitwise; the head also through the minibatch's unit index (the rollout's units read
+in place) and with one input's gradient not asked for, the tail as one thread block
+cluster on 1 to 32 tensors and over 16 replays of a CUDA graph; the advantage
+moments (``advantage_moments``, one launch an update) bitwise their transcription
+and within the same rule (``chip_smoke.hold_moments``). The single-car
 env's step (``single.transition``, ``csrc/single_transition.cu``, and
 ``single.observe``, the multi-car observation kernel at one car a row without its
 car pass; one launch each) bitwise, -0.0 apart from 0.0, its plain version (the
@@ -1153,7 +1158,7 @@ def test_world_one_nccl_update_is_graphed_and_bitwise(cuda, case):
             else:
                 mb = graphs.minibatch_graph
                 assert graphs.rollout is not None and mb is not None
-                assert (mb.moments_step is not None) == (mesh is not None)
+                assert mb.moments_step is not None
                 assert replays[0] >= 4 * tr.cfg.num_steps
                 held = graphs.memory()
                 assert held["static_bytes"] > 0 and held["pool_bytes"] > 0
@@ -1493,21 +1498,34 @@ def test_redesigned_env_step_at_fewer_envs(cuda, envs, cars):
 @pytest.mark.parametrize("rows", [65_536, 16_384, 4097, 1])
 @pytest.mark.parametrize("own_moments", [False, True])
 def test_ppo_head_kernels_match_plain(cuda, rows, own_moments):
-    """``ppo_head``'s forward and backward launches bitwise the plain composition
+    """``ppo_head``'s forward and backward launches against the plain composition
     and its autograd, on rows that take every branch (``chip_smoke.crafted_minibatch``),
-    with the gradients from the loss, from given upstream gradients and from
-    expanded ones."""
+    with the gradients from the loss at 1 and 0.7 (``chip_smoke.hold_head``: d/d mu and
+    d/d v bitwise, the stats bitwise their transcription and within the stated
+    tolerance of float64, clip_frac bitwise)."""
     if own_moments and rows == 1:
         pytest.skip("one row has no unbiased std")
     t = chip_smoke.head_tensors(
         chip_smoke.crafted_minibatch(rows, np.random.default_rng(rows)), cuda, own_moments)
-    g = torch.Generator(device=cuda).manual_seed(rows)
-    gp, gv = (torch.randn((rows,), generator=g, device=cuda) for _ in range(2))
     before = (mbops.ppo_head_launches, mbops.ppo_head_backward_launches)
-    for upstream in (None, (gp, gv), (gp[:1].expand(rows), gv[:1].expand(rows))):
-        assert chip_smoke.hold_head(t, upstream, f"{rows} rows") == 0.0
+    for g_loss in (1.0, 0.7):
+        chip_smoke.hold_head(t, g_loss, f"{rows} rows")
     assert (mbops.ppo_head_launches - before[0],
-            mbops.ppo_head_backward_launches - before[1]) == (3, 3)
+            mbops.ppo_head_backward_launches - before[1]) == (2, 2)
+
+
+def test_advantage_moments_kernel_matches_its_transcription(cuda):
+    """``advantage_moments``' one launch at ``train scale``'s width, a rank's of two
+    shards, units of 3 and of 1 and one-row minibatches
+    (``chip_smoke.hold_moments``): bitwise the transcription, within the stated
+    tolerance of the float64 moments, two launches bitwise alike."""
+    before = mbops.advantage_moments_launches
+    chip_smoke.hold_moments(cuda)
+    assert mbops.advantage_moments_launches - before == 5
+    _, inputs = chip_smoke.minibatch_inputs(
+        chip_smoke.base_config(num_envs=1024, num_steps=64), cuda)
+    adv, index = inputs[2].advantages, inputs[3]
+    assert torch.equal(mbops.advantage_moments(adv, index), mbops.advantage_moments(adv, index))
 
 
 @pytest.mark.parametrize("case", sorted(chip_smoke.TAIL_CASES))
@@ -1539,11 +1557,26 @@ def test_minibatch_kernels_reject_what_they_do_not_take(cuda):
     t = chip_smoke.head_tensors(chip_smoke.crafted_minibatch(64, np.random.default_rng(0)),
                                 cuda)
     args = [t[k] for k in chip_smoke.HEAD_ARGS]
+    before = (mbops.ppo_head_launches, mbops.advantage_moments_launches)
     with pytest.raises(TypeError, match="float32"):
-        mbops.ppo_head(*[a.double() for a in args], 0.2)
+        mbops.ppo_head(*[a.double() if a.is_floating_point() else a for a in args],
+                       *chip_smoke.HEAD_COEFS)
     wide = torch.zeros((64, 4), device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
-        mbops.ppo_head(wide[:, ::2], *args[1:], 0.2)
+        mbops.ppo_head(wide[:, ::2], *args[1:], *chip_smoke.HEAD_COEFS)
+    with pytest.raises(TypeError, match="int64"):
+        mbops.ppo_head(*args[:-1], args[-1].int(), *chip_smoke.HEAD_COEFS)
+    with pytest.raises(ValueError, match="moments"):
+        mbops.ppo_head(*args[:-2], args[-2].reshape(-1), args[-1], *chip_smoke.HEAD_COEFS)
+    adv = torch.zeros((8, 4), device=cuda)
+    index = torch.zeros((3, 2), dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        mbops.advantage_moments(adv.double(), index)
+    with pytest.raises(ValueError, match="contiguous"):
+        mbops.advantage_moments(torch.zeros((4, 8), device=cuda).t(), index)
+    with pytest.raises(TypeError, match="int64"):
+        mbops.advantage_moments(adv, index.int())
+    assert (mbops.ppo_head_launches, mbops.advantage_moments_launches) == before
     params, grads, mu, nu, bc1, bc2, loop = chip_smoke.tail_state(cuda, 1)
     g_norm = torch.ones((), device=cuda)
     stats = [torch.zeros((), device=cuda) for _ in range(6)]
@@ -1560,20 +1593,29 @@ def test_minibatch_kernels_reject_what_they_do_not_take(cuda):
 
 
 def test_update_with_the_learner_kernels_is_the_plain_update_bitwise(cuda):
-    """One eager update (4 epochs x 4 minibatches of 4096 rows) with ``ppo_head`` and
-    ``adam_tail`` bitwise the same update with their plain versions: parameters,
-    Adam moments and every stat; the kernels launched once a minibatch step."""
+    """One eager update (4 epochs x 4 minibatches of 4096 rows) with ``ppo_head``,
+    ``advantage_moments`` and ``adam_tail``, against the same update with the head
+    and the tail plain on the kernel's moments: parameters and Adam moments bitwise
+    (the gradients are the composition's bits), clip_frac bitwise, the other stats
+    within 1e-5 of their scale (the sums round otherwise); the head and tail
+    launched once a minibatch step, the moments once."""
     from self_play_racing_tpu_torch.configs import base_config
 
     cfg = base_config(num_envs=256, num_steps=64, num_minibatches=4, update_epochs=4,
                       kl_target=float("inf"))
-    before = [getattr(mbops, f"{k}_launches") for k in chip_smoke.LEARNER]
-    got = chip_smoke.update_with(cfg, cuda, 4, plain=False)
-    after = [getattr(mbops, f"{k}_launches") for k in chip_smoke.LEARNER]
-    want = chip_smoke.update_with(cfg, cuda, 4, plain=True)
-    assert [b - a for a, b in zip(before, after)] == [16] * 3
+    kernels = chip_smoke.LEARNER + (chip_smoke.MOMENTS,)
+    before = [getattr(mbops, f"{k}_launches") for k in kernels]
+    got = chip_smoke.update_with(cfg, cuda, 4)
+    after = [getattr(mbops, f"{k}_launches") for k in kernels]
+    want = chip_smoke.update_with(cfg, cuda, 4, chip_smoke.plain_head_and_tail)
+    assert [b - a for a, b in zip(before, after)] == [16] * 3 + [1]
     assert all(chip_smoke.same_bits(a, b) for a, b in zip(got[0], want[0]))
-    assert got[1] == want[1]
+    assert got[1][0] == want[1][0]
+    np.testing.assert_array_equal(got[1][1]["clip_frac"], want[1][1]["clip_frac"])
+    for k in chip_smoke.STAT_KEYS:
+        scale = max(float(np.abs(want[1][1][k]).max()), 1.0)
+        np.testing.assert_allclose(got[1][1][k], want[1][1][k], rtol=0, atol=1e-5 * scale,
+                                   err_msg=k)
 
 
 # the redesigned minibatch kernels: the head's rows through the unit index, the tail's
@@ -1593,53 +1635,44 @@ def _unit_head(cuda, rows, own_moments=False):
 @pytest.mark.parametrize("rows", UNIT_ROWS)
 @pytest.mark.parametrize("own_moments", [False, True])
 def test_ppo_head_through_the_unit_index_matches_plain(cuda, rows, own_moments):
-    """``ppo_head`` reading the actions, old log-probs, returns and old values through
-    the minibatch's unit ids: forward and backward bitwise the plain version (the
-    gather, then the composition and its autograd) with the gradients from the loss
-    (stride 0), given (stride 1) and expanded, and bitwise the kernel on the same rows
-    gathered first."""
+    """``ppo_head`` reading the actions, old log-probs, advantages, returns and old
+    values through the minibatch's unit ids: against the plain version (the gather,
+    then the composition and its autograd) as ``chip_smoke.hold_head`` holds it, with
+    the gradients from the loss at 1 and 0.7, and bitwise (loss, stats and
+    gradients) the kernel on the same rows gathered first."""
     t = _unit_head(cuda, rows, own_moments)
-    g = torch.Generator(device=cuda).manual_seed(rows)
-    gp, gv = (torch.randn((rows,), generator=g, device=cuda) for _ in range(2))
     before = (mbops.ppo_head_launches, mbops.ppo_head_backward_launches)
-    for upstream in (None, (gp, gv), (gp[:1].expand(rows), gv[:1].expand(rows))):
-        assert chip_smoke.hold_head(t, upstream, f"{rows} rows by unit id") == 0.0
-    gathered = {k: x for k, x in t.items() if k != "unit_ids"}
-    for k in ("actions", "logprobs", "returns", "values"):
-        gathered[k] = mbops.gather_units(t[k], t["unit_ids"])
-    by_id = chip_smoke.head_outputs(mbops.ppo_head, t, (gp, gv))
+    for g_loss in (1.0, 0.7):
+        chip_smoke.hold_head(t, g_loss, f"{rows} rows by unit id")
+    gathered = {k: x for k, x in chip_smoke.gathered_rows(t).items() if k != "unit_ids"}
+    by_id = chip_smoke.head_outputs(mbops.ppo_head, t, 0.7)
     assert all(chip_smoke.same_bits(a, b) for a, b in
-               zip(by_id, chip_smoke.head_outputs(mbops.ppo_head, gathered, (gp, gv))))
+               zip(by_id, chip_smoke.head_outputs(mbops.ppo_head, gathered, 0.7)))
     assert (mbops.ppo_head_launches - before[0],
-            mbops.ppo_head_backward_launches - before[1]) == (5, 5)
+            mbops.ppo_head_backward_launches - before[1]) == (4, 4)
 
 
 @pytest.mark.parametrize("rows", [65_536, 4097])
 @pytest.mark.parametrize("by_id", [False, True])
 @pytest.mark.parametrize("used", ["pg", "v"])
 def test_ppo_head_backward_with_one_upstream_gradient_absent(cuda, rows, by_id, used):
-    """A loss of one maximum alone: autograd hands the head's backward no gradient
-    for the other (null, read as zeros). The used side's input gradient is bitwise
-    the plain autograd's, the other's is zero."""
+    """The head's backward takes one upstream gradient, the loss's; autograd asks it
+    for one input's gradient alone (``mu`` for "pg", ``v`` for "v") where the other is
+    not wanted. The asked gradient is bitwise the plain autograd's, from the loss
+    and from the loss scaled by 0.25."""
     if by_id:
         t = _unit_head(cuda, 4095 if rows % 2 else rows)
     else:
         t = chip_smoke.head_tensors(
             chip_smoke.crafted_minibatch(rows, np.random.default_rng(rows)), cuda)
-    n = t["mu"].shape[0]
-    grads = []
-    for head in (mbops.ppo_head, mbops.ppo_head_plain):
-        out = head(*(t[k] for k in chip_smoke.HEAD_ARGS), chip_smoke.HEAD_CLIP,
-                   t.get("unit_ids"))
-        loss = out[1].mean() if used == "pg" else out[2].mean()
-        grads.append(torch.autograd.grad(loss, (t["mu"], t["v"]), allow_unused=True))
-    (k_mu, k_v), (p_mu, p_v) = grads
-    if used == "pg":
-        assert chip_smoke.same_bits(k_mu, p_mu) and p_v is None
-        assert torch.equal(k_v, torch.zeros((n,), device=cuda))
-    else:
-        assert chip_smoke.same_bits(k_v, p_v) and p_mu is None
-        assert torch.equal(k_mu, torch.zeros((n, 2), device=cuda))
+    wanted = t["mu"] if used == "pg" else t["v"]
+    for scale in (1.0, 0.25):
+        grads = []
+        for head in (mbops.ppo_head, mbops.ppo_head_loss_plain):
+            loss, _ = head(*(t[k] for k in chip_smoke.HEAD_ARGS), *chip_smoke.HEAD_COEFS,
+                           t.get("unit_ids"))
+            grads.append(torch.autograd.grad(loss * scale, wanted)[0])
+        assert chip_smoke.same_bits(*grads)
 
 
 def _tail_of_sizes(sizes, dev, seed):
@@ -2006,7 +2039,7 @@ def test_update_launches_the_mlp_kernels_once_a_minibatch_step(cuda, monkeypatch
     cfg = base_config(num_envs=256, num_steps=64, num_minibatches=4, update_epochs=4,
                       kl_target=float("inf"))
     before = chip_smoke.mlp_counts() + (mlpops.mlp_grad_norm_launches,)
-    params, _ = chip_smoke.update_with(cfg, cuda, 4, plain=False)
+    params, _ = chip_smoke.update_with(cfg, cuda, 4)
     after = chip_smoke.mlp_counts() + (mlpops.mlp_grad_norm_launches,)
     assert [b - a for a, b in zip(before, after)] == [16] * 3 + [0]
     assert not calls

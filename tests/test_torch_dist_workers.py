@@ -266,9 +266,11 @@ def loss_rank(rank, mb, cfg):
     params = net.init_params(torch.Generator().manual_seed(0), 15, 2, dtype=torch.float64)
     part = ppo.Batch(*(shard_rows(torch.as_tensor(x), mesh.shard) for x in mb))
     adv = part.advantages
-    moments = pmesh.combine_mean_std(adv.mean(), adv.std(correction=1), adv.numel(), mesh)
-    loss, st = ppo._ppo_loss(params, torch.full((2,), -0.5), part, cfg, moments)
-    return float(loss), {k: float(v) for k, v in st.items()}
+    mean, std = pmesh.combine_mean_std(adv.mean(), adv.std(correction=1), adv.numel(), mesh)
+    at = torch.zeros((1,), dtype=torch.int64)
+    loss, st = ppo._ppo_loss(params, torch.full((2,), -0.5), part, cfg,
+                             torch.stack([mean, std])[None], at)
+    return float(loss), {k: float(v) for k, v in zip(ppo.STAT_NAMES, st)}
 
 
 def world_one_rank(rank, build, feed):

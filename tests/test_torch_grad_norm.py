@@ -186,8 +186,9 @@ def _steps(cfg, model, inputs, opt_state, steps):
     mu = [m.clone() for m in opt_state.mu]
     nu = [v.clone() for v in opt_state.nu]
     loop = tppo.MinibatchLoop.zeros(inputs[3].shape[0], torch.device("cpu"))
+    moments = tppo.advantage_moments(cfg, inputs[2], inputs[3])
     for _ in range(steps):
-        tppo.minibatch_step(cfg, model, *inputs, mu, nu, loop)
+        tppo.minibatch_step(cfg, model, *inputs, mu, nu, loop, moments)
     return loop
 
 

@@ -34,6 +34,7 @@ import jax
 import jax.numpy as jnp
 import optax
 
+import chip_smoke
 from self_play_racing_tpu.agent import ppo as jppo
 from self_play_racing_tpu.configs import base_config as jbase_config
 from self_play_racing_tpu.models import actor_critic as jnet
@@ -203,9 +204,10 @@ def test_ppo_loss_and_grads_match_jax_f64():
         jppo.Batch(**{k: jnp.asarray(v) for k, v in b.items()}),
         jbase_config(num_envs=8, num_steps=16))
     model = _model(params)
-    loss, st = tppo._ppo_loss(model.params(), torch.as_tensor(log_std),
-                              tppo.Batch(**{k: torch.as_tensor(v) for k, v in b.items()}),
-                              cfg)
+    batch = tppo.Batch(**{k: torch.as_tensor(v) for k, v in b.items()})
+    loss, st = tppo._ppo_loss(model.params(), torch.as_tensor(log_std), batch, cfg,
+                              *chip_smoke.flat_moments(batch.advantages))
+    st = dict(zip(tppo.STAT_NAMES, st))
     grads = torch.autograd.grad(loss, list(model.parameters()))
     assert loss.dtype == torch.float64
     # the entropy is a float32 mean (log_std is float32), summed in another order

@@ -2,20 +2,22 @@
 the JAX package, and transcriptions of the kernels' arithmetic against the plain
 versions, on the CPU.
 
-``ppo_head`` is the loss's per-row work (the log-prob, ratio, normalized advantage,
-clipped surrogate and clipped value loss) with its backward; ``adam_tail``
-everything after the global norm (the clip, Adam, the masked apply, the stats row
-and the loop's counters). On the card each is one launch (two for the head), held
-bitwise to these plain versions there (``tests/test_torch_cuda_kernels.py``,
-chip_smoke.py phase n). Here:
+``ppo_head`` is the loss past the MLPs (the per-row log-prob, ratio, normalized
+advantage, clipped surrogate and clipped value loss, then the means, the entropy
+and the loss's sum) with its backward; ``adam_tail`` everything after the global norm
+(the clip, Adam, the masked apply, the stats row and the loop's counters). On the
+card each is one launch (two for the head), held to these plain versions there
+(``tests/test_torch_cuda_kernels.py``, chip_smoke.py phase n): the gradients and
+the tail bitwise, the head's sums within the stated tolerance of float64
+(``tests/test_torch_loss_sums.py`` transcribes them). Here:
 
 - ``_ppo_loss`` on given ``mu`` and ``v`` (the MLPs bypassed on both sides, so
   the head is what is compared) against jitted JAX ``_ppo_loss`` under
   ``value_and_grad``, on ``chip_smoke.crafted_minibatch``'s rows (the ratio clipped
   above, below and not, pg1 == pg2 ties, the value clipped, tied and at its old
-  value); with the minibatch's own moments, and with a group's (two halves
-  normalized by the whole minibatch's moments, averaged, against JAX on the
-  whole). float64: the loss and stats within rtol 1e-12 (and atol 1e-15), the
+  value); with the minibatch's own moments (``chip_smoke.flat_moments``, the
+  table the update forms without a group), and with a group's (two halves normalized by the
+  whole minibatch's moments, averaged, against JAX on the whole). float64: the loss and stats within rtol 1e-12 (and atol 1e-15), the
   gradients within rtol 1e-12 and atol 1e-15 (transcendentals and means round apart
   in XLA's and PyTorch's CPU math). float32: rtol 2e-6 and atol 1e-9 on the
   gradients (XLA's CPU jit contracts products into FMAs), rtol 1e-6 and atol 1e-7
@@ -38,8 +40,9 @@ chip_smoke.py phase n). Here:
   the autograd and ``_foreach`` composition it replaces: it catches an order or a
   rounding mistake before the card does.
 - Transcriptions of the kernels' reads: ``ppo_head``'s through the unit index (a
-  ``UnitBatch``'s actions, old log-probs, returns and values read where the
-  rollout's units hold them), bitwise the plain composition on the gathered rows;
+  ``UnitBatch``'s actions, old log-probs, advantages, returns and values read where
+  the rollout's units hold them, the moments at the table's row), bitwise the plain
+  composition on the gathered rows;
   ``adam_tail``'s cluster shares and tensor search, at the cluster shape its source
   sets, taking every element once. Then
   ``_ppo_loss`` on a ``UnitBatch`` bitwise on the gathered ``Batch`` and within the
@@ -110,15 +113,19 @@ def _jax_loss(case, rows, monkeypatch):
 
 
 def _port_loss(case, rows, monkeypatch, moments=None):
+    """The port's ``_ppo_loss`` on ``rows`` of ``case``: (loss, stats by name, mu, v),
+    the advantages normalized by ``moments`` ((table, row)), else by their own
+    (``chip_smoke.flat_moments``)."""
     monkeypatch.setattr(tppo, "net", _PortHead)
     monkeypatch.setattr(mlpops, "net", _PortHead)
     mu = torch.tensor(case["mu"][rows], requires_grad=True)
     v = torch.tensor(case["v"][rows], requires_grad=True)
     mb = tppo.Batch(obs=torch.zeros((len(rows), 1)), **{k: torch.as_tensor(case[k][rows]) for k in
                                  ("actions", "logprobs", "advantages", "returns", "values")})
+    moments = chip_smoke.flat_moments(mb.advantages) if moments is None else moments
     loss, st = tppo._ppo_loss({"mu": mu, "v": v}, torch.as_tensor(case["log_std"]), mb,
-                              base_config(), moments)
-    return loss, st, mu, v
+                              base_config(), *moments)
+    return loss, dict(zip(STAT_KEYS, st)), mu, v
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
@@ -151,8 +158,7 @@ def test_plain_head_matches_jax_with_a_groups_moments(dtype, monkeypatch):
                                         boundaries=False)
     everything = np.arange(ROWS)
     jloss, jst, jg_mu, jg_v = _jax_loss(case, everything, monkeypatch)
-    adv = torch.as_tensor(case["advantages"])
-    moments = (adv.mean(), adv.std(correction=1))
+    moments = chip_smoke.flat_moments(torch.as_tensor(case["advantages"]))
     halves = [_port_loss(case, h, monkeypatch, moments) for h in np.split(everything, 2)]
     loss = (halves[0][0] + halves[1][0]) / 2
     grads = torch.autograd.grad(loss, [h[2] for h in halves] + [h[3] for h in halves])
@@ -172,7 +178,7 @@ def test_crafted_rows_take_every_branch():
     case = chip_smoke.crafted_minibatch(ROWS, np.random.default_rng(3))
     t = chip_smoke.head_tensors(case, "cpu")
     neg_log_ratio, pg_max, v_max, clipped = mbops.ppo_head_plain(
-        *(t[k] for k in chip_smoke.HEAD_ARGS), chip_smoke.HEAD_CLIP)
+        *(t[k] for k in chip_smoke.ROW_ARGS), chip_smoke.HEAD_CLIP)
     kind = np.arange(ROWS) % chip_smoke.HEAD_ROW_KINDS
     ratio = torch.exp(-neg_log_ratio).detach().numpy()
     lo, hi = np.float32(0.8), np.float32(1.2)
@@ -189,11 +195,15 @@ def test_crafted_rows_take_every_branch():
     assert (v_clip[kind == 5] - t["returns"].numpy()[kind == 5] == e1).all()  # a tie
 
 
+ROW_OUTPUTS = chip_smoke.HEAD_ROW_VALUES + ("d/d mu", "d/d v")
+
+
 def _head_model(mu, v, actions, old_lp, adv_raw, returns, values, log_std, mean, std,
                 gp, gv, constants):
-    """``csrc/ppo_head.cu``'s forward and backward, operation by operation in its
-    order, in float32 PyTorch: the four outputs and d/d mu, d/d v."""
-    lo, hi, neg_clip, clip, half_log_2pi, adv_eps = (torch.tensor(c) for c in constants)
+    """``csrc/ppo_head.cu``'s per-row forward and backward, operation by operation in
+    its order, in float32 PyTorch: the four per-row values its sums take and d/d mu,
+    d/d v from the maxima's upstream gradients ``gp``, ``gv``."""
+    lo, hi, neg_clip, clip, half_log_2pi, adv_eps = (torch.tensor(c) for c in constants[:6])
     clamp = lambda x, a, b: torch.where(torch.isnan(x), x, torch.minimum(torch.maximum(x, a), b))
     max_nan = lambda a, b: torch.where(a != a, a, torch.where(b != b, b, torch.maximum(a, b)))
     den = 2.0 * torch.exp(2.0 * log_std)
@@ -236,12 +246,12 @@ def test_head_transcription_is_the_plain_composition_bitwise(rows):
     g = torch.Generator().manual_seed(rows)
     for gp, gv in ((torch.randn(rows, generator=g), torch.randn(rows, generator=g)),
                    (torch.full((rows,), 1.0 / rows), torch.full((rows,), 0.5 / rows))):
-        plain = mbops.ppo_head_plain(*(t[k] for k in chip_smoke.HEAD_ARGS),
+        plain = mbops.ppo_head_plain(*(t[k] for k in chip_smoke.ROW_ARGS),
                                      chip_smoke.HEAD_CLIP)
         grads = torch.autograd.grad(plain[1:3], (t["mu"], t["v"]), (gp, gv))
-        model = _head_model(*(t[k].detach() for k in chip_smoke.HEAD_ARGS), gp, gv,
-                            mbops._head_constants(chip_smoke.HEAD_CLIP))
-        for name, a, b in zip(chip_smoke.HEAD_OUTPUTS, model, list(plain) + list(grads)):
+        model = _head_model(*(t[k].detach() for k in chip_smoke.ROW_ARGS), gp, gv,
+                            mbops._head_constants(*chip_smoke.HEAD_COEFS))
+        for name, a, b in zip(ROW_OUTPUTS, model, list(plain) + list(grads)):
             assert chip_smoke.same_bits(a, b.detach()), name
 
 
@@ -277,7 +287,7 @@ def test_tail_transcription_is_the_plain_composition_bitwise(case):
     params, grads, mu, nu, bc1, bc2, loop = chip_smoke.tail_state("cpu", 9)
     grads = [g * scale for g in grads]
     g_norm = tppo.global_norm(grads)
-    stats = [torch.tensor(x) for x in (0.31, -0.02, 0.45, 1.9, kl, 0.11)]
+    stats = chip_smoke.tail_stats(kl, "cpu")
     lr = torch.tensor(2.5e-4)
     loop.i.fill_(3)
     loop.applied.fill_(2)
@@ -313,7 +323,7 @@ def test_plain_tail_matches_optax_and_the_exit(dtype, rtol, atol, scale):
     lr = torch.tensor(float(lr_value), dtype=tdtype)
 
     def tail(gs, kl):
-        stats = [torch.tensor(x, dtype=tdtype) for x in (0.31, -0.02, 0.45, 1.9, kl, 0.11)]
+        stats = chip_smoke.tail_stats(kl, "cpu", tdtype)
         mbops.adam_tail(params, gs, mu, nu, tppo.global_norm(gs), stats, bc1, bc2, lr, loop,
                         cfg.max_grad_norm, cfg.kl_target)
 
@@ -374,13 +384,24 @@ UNIT_CASES = [(64, [5, 0, 3]), (3, [2, 7, 7, 1, 0]), (1, [4, 9, 2]), (16, [9]),
               (5, list(range(10)))]
 
 
+def _upstream(n: int, coefs=chip_smoke.HEAD_COEFS):
+    """The upstream gradients autograd hands the head's two maxima from the loss on
+    the CPU: the loss's gradient 1 through ``_ppo_loss``'s sum, products and means."""
+    _, ent_coef, vf_coef = coefs
+    pg_max, v_max = (torch.zeros(n, requires_grad=True) for _ in range(2))
+    loss = pg_max.mean() + ent_coef * -torch.ones(()) + vf_coef * (0.5 * v_max.mean())
+    return torch.autograd.grad(loss, (pg_max, v_max))
+
+
 @pytest.mark.parametrize("block,ids", UNIT_CASES)
 def test_head_reads_through_the_unit_index_are_the_plain_composition_bitwise(block, ids):
     """``csrc/ppo_head.cu``'s thread for minibatch row r reads the actions, old
-    log-probs, returns and old values at unit ``ids[r // block]``, offset ``r %
-    block`` (``source_row``); the kernel's arithmetic (``_head_model``) on those reads
-    is bitwise ``ppo_head`` through the index on the CPU, which gathers
-    (``gather_units``) and runs the plain composition."""
+    log-probs, advantages, returns and old values at unit ``ids[r // block]``, offset
+    ``r % block`` (``load_row``), and the moments at row ``at`` of the table; the
+    kernel's per-row arithmetic (``_head_model``) on those reads, from the upstream
+    gradients the loss's backward hands the maxima, is bitwise ``ppo_head`` through the
+    index on the CPU, which gathers (``gather_units``) and runs the plain composition:
+    d/d mu and d/d v, and the stats are the means of the model's rows."""
     n_units = 10
     t = chip_smoke.unit_head_tensors(n_units, block, ids, np.random.default_rng(block), "cpu")
     unit_ids = t["unit_ids"]
@@ -388,19 +409,22 @@ def test_head_reads_through_the_unit_index_are_the_plain_composition_bitwise(blo
     r = np.arange(n)
     src = torch.as_tensor(unit_ids.numpy()[r // block] * block + r % block)
     read = {k: t[k].reshape((n_units * block,) + t[k].shape[2:])[src]
-            for k in ("actions", "logprobs", "returns", "values")}
+            for k in ("actions", "logprobs", "advantages", "returns", "values")}
     for k, x in read.items():
         assert torch.equal(x, mbops.gather_units(t[k], unit_ids)), k
-    g = torch.Generator().manual_seed(n)
-    gp, gv = torch.randn(n, generator=g), torch.randn(n, generator=g)
+    mean, std = t["moments"][int(t["at"])]
+    assert torch.equal(mean, t["mean"]) and torch.equal(std, t["std"])
+    loss, stats = mbops.ppo_head(*(t[k] for k in chip_smoke.HEAD_ARGS), *chip_smoke.HEAD_COEFS,
+                                 unit_ids)
+    g_mu, g_v = torch.autograd.grad(loss, (t["mu"], t["v"]))
     model = _head_model(t["mu"].detach(), t["v"].detach(), read["actions"], read["logprobs"],
-                        t["advantages"], read["returns"], read["values"], t["log_std"],
-                        t["mean"], t["std"], gp, gv, mbops._head_constants(chip_smoke.HEAD_CLIP))
-    out = mbops.ppo_head(*(t[k] for k in chip_smoke.HEAD_ARGS), chip_smoke.HEAD_CLIP,
-                         unit_ids)
-    grads = torch.autograd.grad(out[1:3], (t["mu"], t["v"]), (gp, gv))
-    for name, a, b in zip(chip_smoke.HEAD_OUTPUTS, model, list(out) + list(grads)):
-        assert chip_smoke.same_bits(a, b.detach()), name
+                        read["advantages"], read["returns"], read["values"], t["log_std"],
+                        mean, std, *_upstream(n), mbops._head_constants(*chip_smoke.HEAD_COEFS))
+    assert chip_smoke.same_bits(model[4], g_mu) and chip_smoke.same_bits(model[5], g_v)
+    kl, pg, vm, clipped = (x.mean() for x in model[:4])
+    for got, want in ((stats[4], kl), (stats[1], pg), (stats[2], 0.5 * vm), (stats[5], clipped),
+                      (stats[0], loss.detach())):
+        assert chip_smoke.same_bits(got, want)
     assert mbops.ppo_head_launches == mbops.ppo_head_backward_launches == 0
 
 
@@ -461,26 +485,26 @@ def test_tail_walk_takes_every_element_once(which):
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 def test_loss_through_the_unit_index_is_the_gathered_loss(dtype, monkeypatch):
-    """``_ppo_loss`` on a ``UnitBatch`` (what ``minibatch_step`` hands it: obs and
-    advantages gathered, the other fields as the rollout's units with the minibatch's
-    unit ids) is bitwise ``_ppo_loss`` on the gathered ``Batch``, loss, stats and
-    gradients, and within the file's tolerances JAX's ``_ppo_loss`` on the gathered
-    rows."""
+    """``_ppo_loss`` on a ``UnitBatch`` (what ``minibatch_step`` hands it: every field
+    as the rollout's units, with the minibatch's unit ids, and the update's moments
+    table, ``advantage_moments``) is bitwise ``_ppo_loss`` on the gathered ``Batch``
+    with its own moments, loss, stats and gradients, and within the file's
+    tolerances JAX's ``_ppo_loss`` on the gathered rows."""
     block, n_units = 16, 64
     unit_ids = torch.tensor([9, 3, 60, 3, 17, 0, 41, 22], dtype=torch.int64)
     case = chip_smoke.crafted_minibatch(block * n_units, np.random.default_rng(5), dtype,
                                         boundaries=False)
     units = {k: torch.as_tensor(case[k]).reshape((n_units, block) + case[k].shape[1:])
-             for k in ("actions", "logprobs", "returns", "values")}
+             for k in ("actions", "logprobs", "advantages", "returns", "values")}
     rows = (unit_ids[:, None] * block + torch.arange(block)).reshape(-1).numpy()
     gathered = _port_loss(case, rows, monkeypatch)
     mu = torch.tensor(case["mu"][rows], requires_grad=True)
     v = torch.tensor(case["v"][rows], requires_grad=True)
-    mb = tppo.UnitBatch(obs=torch.zeros((n_units, block, 1)), actions=units["actions"], logprobs=units["logprobs"],
-                        advantages=torch.as_tensor(case["advantages"][rows]),
-                        returns=units["returns"], values=units["values"], rows=unit_ids)
+    mb = tppo.UnitBatch(obs=torch.zeros((n_units, block, 1)), **units, rows=unit_ids)
+    moments = tppo.advantage_moments(base_config(), mb, unit_ids[None])
     loss, st = tppo._ppo_loss({"mu": mu, "v": v}, torch.as_tensor(case["log_std"]), mb,
-                              base_config())
+                              base_config(), moments, torch.zeros((1,), dtype=torch.int64))
+    st = dict(zip(STAT_KEYS, st))
     g_mu, g_v = torch.autograd.grad(loss, (mu, v))
     w_mu, w_v = torch.autograd.grad(gathered[0], (gathered[2], gathered[3]))
     assert chip_smoke.same_bits(loss, gathered[0])

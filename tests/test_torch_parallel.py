@@ -185,10 +185,11 @@ def test_advantage_normalization_is_global():
                                   dtype=torch.float64)
     log_std = torch.full((2,), -0.5)
     whole = tppo.Batch(*(torch.as_tensor(x) for x in mb))
-    loss, _ = tppo._ppo_loss(params, log_std, whole, cfg)
-    local = [tppo._ppo_loss(params, log_std,
-                            tppo.Batch(*(torch.as_tensor(x[h * m // 2:(h + 1) * m // 2])
-                                         for x in mb)), cfg)[0] for h in range(2)]
+    loss, _ = tppo._ppo_loss(params, log_std, whole, cfg, *chip_smoke.flat_moments(whole.advantages))
+    halves = [tppo.Batch(*(torch.as_tensor(x[h * m // 2:(h + 1) * m // 2]) for x in mb))
+              for h in range(2)]
+    local = [tppo._ppo_loss(params, log_std, half, cfg, *chip_smoke.flat_moments(half.advantages))[0]
+             for half in halves]
 
     ranks = run_ranks(loss_rank, 2, mb, cfg, timeout=TIMEOUT)
     assert ranks[0][1]["approx_kl"] != ranks[1][1]["approx_kl"]  # each its own half
@@ -229,19 +230,23 @@ def test_advantage_moments_up_front_are_each_minibatchs_own(case, tmp_path, monk
     formed before the loop and reduced in two all-reduces, are bitwise the
     minibatch's own ``adv.mean()`` and ``adv.std(correction=1)``, in each of the
     learner's ``UPDATE_CASES`` (exits mid-epoch, on an epoch's last minibatch and on
-    the first, two data shards): every row of the table, and what each minibatch
-    run normalized by, against what the update without a group normalizes by. The
-    update over the group is then bitwise the one without: stats, parameters and
-    Adam state. It makes 2 all-reduces for the moments and 1 a minibatch run."""
+    the first, two data shards): every row of the table, bitwise the table the
+    update forms without a group, and what each minibatch run normalized by (the
+    table's row at the loop's minibatch), against the minibatch's own moments and
+    what the update without a group normalizes by. The update over the group is then
+    bitwise the one without: stats, parameters and Adam state. It makes 2
+    all-reduces for the moments and 1 a minibatch run."""
     cfg, fresh, log_std, lr, flat, perms = _learner_case(case)
     seen = {"group": [], "none": []}
     loss = tppo._ppo_loss
+    where = None
 
-    def recording(params, log_std, mb, cfg, moments=None, norm=None):
-        adv = mb.advantages.detach()
-        seen["none" if moments is None else "group"].append(
-            (adv.mean(), adv.std(correction=1)) if moments is None else moments)
-        return loss(params, log_std, mb, cfg, moments, norm)
+    def recording(params, log_std, mb, cfg, moments, at, norm=None):
+        adv = tppo.mbops.gather_units(mb.advantages, mb.rows).detach()
+        row = moments.index_select(0, at)[0]
+        assert torch.equal(row, torch.stack([adv.mean(), adv.std(correction=1)]))
+        seen[where].append(row)
+        return loss(params, log_std, mb, cfg, moments, at, norm)
 
     monkeypatch.setattr(tppo, "_ppo_loss", recording)
     runs = {}
@@ -251,6 +256,7 @@ def test_advantage_moments_up_front_are_each_minibatchs_own(case, tmp_path, monk
                              for x in tppo.shard_blocks(cfg, flat)))
         index = tppo.minibatch_index(cfg, perms)
         table = tppo.advantage_moments(cfg, units, index, mesh)
+        assert torch.equal(table, tppo.advantage_moments(cfg, units, index))
         for i in range(index.shape[0]):
             adv = units.advantages.index_select(0, index[i]).reshape(cfg.minibatch_size)
             assert torch.equal(table[i], torch.stack([adv.mean(), adv.std(correction=1)]))
@@ -268,8 +274,8 @@ def test_advantage_moments_up_front_are_each_minibatchs_own(case, tmp_path, monk
     assert run == -(-int(n_stats["computed"].sum()) // cfg.num_minibatches) \
         * cfg.num_minibatches
     assert len(seen["group"]) == run and (g_reduces, n_reduces) == (2 + run, 0)
-    for (g_mean, g_std), (mean, std) in zip(seen["group"], seen["none"]):
-        assert torch.equal(g_mean, mean) and torch.equal(g_std, std)
+    for g_row, row in zip(seen["group"], seen["none"]):
+        assert torch.equal(g_row, row)
     assert g_stop == n_stop
     for k in tppo.STAT_NAMES:
         np.testing.assert_array_equal(g_stats[k], n_stats[k], err_msg=k)

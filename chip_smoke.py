@@ -398,6 +398,22 @@ r. r.1 (after o.1) the four entries in their autoreset mode against the composit
    buffers, ``extra`` and the final state bitwise, the autoreset mode launched once
    a step; a captured rollout step's kernel and copy nodes and its device ms a step,
    in turns.
+s. the general route (``csrc/mlp_general.cu``, ``csrc/policy_general.cu`` on
+   ``csrc/mlp_stream.cuh``: towers the compiled kernels do not take): s.1 (after q)
+   at every tower of ``GENERAL_TOWERS`` x ``GENERAL_ROWS`` and ``GENERAL_WIDE`` x
+   ``GENERAL_WIDE_ROWS`` the forward, backward and norm within phase p's rule of the
+   plain composition (``hold_general``), run to run, by unit ids against the gathered
+   rows, graphed against eager and the forward's first rows alone bitwise, kernels A
+   and B bitwise the forward's mu and v (``general_policy_bits``), each kernel's plan
+   the library's own; each timed eager and in a CUDA graph beside the composition and
+   the 3xTF32 bound at ``GENERAL_TIMED``, and ``adam_tail`` on (19, 256, 256)'s
+   parameters; s.2 (after the self-play entry points) two graphed ``train scale``
+   updates at hidden (256, 256), first minibatches exact, graphed = ``eager=True`` =
+   an NCCL group of one bitwise, the captured rollout and minibatch steps' kernel
+   nodes by name with no library kernel, the launches; s.3 ``evaluate``, a round robin,
+   ``serve`` and a ``RacingEnv`` episode on (32, 16, 8) and (32, 32) checkpoints that
+   the port trains on the card, each launching the general kernels and no compiled
+   one.
 
 Phases k, m.3, o.3 and r.2 count a captured step's nodes from the graph itself
 (``graph_nodes``: those phases capture under ``kept_graphs``, ``keep_graph=True``); a
@@ -443,7 +459,9 @@ main path (gathered; the rows kernel tiled), self-play training and ``train mult
 (the first kernel) and phase r.2's ``rollout_step_nodes``, the backward's
 ``recompute_bound_ms`` (the forward it recomputes), the forward's and the backward's
 ``ffma_bound_ms`` (and ``recompute_ffma_bound_ms``), the reduce's ``launch_floor_ms``
-and, under ``at``, the times at the other towers and rows); the last line is ``{"ok": true,
+and, under ``at``, the times at the other towers and rows; the general route's four
+kernels phase s.1's times and ``launches`` on phase s.2's updates, with
+``launches_entry_points`` on phase s.3's); the last line is ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -1633,6 +1651,12 @@ COUNTERS = {
     "mlp_grad_norm": (mlpops, "mlp_grad_norm_launches"),
     "policy_act": (polops, "policy_act_launches"),
     "pool_act": (polops, "pool_act_launches"),
+    "mlp_general_forward": (mlpops, "mlp_general_forward_launches"),
+    "mlp_general_backward": (mlpops, "mlp_general_backward_launches"),
+    "mlp_general_grad_reduce": (mlpops, "mlp_general_grad_reduce_launches"),
+    "mlp_general_grad_norm": (mlpops, "mlp_general_grad_norm_launches"),
+    "policy_general_act": (polops, "policy_general_act_launches"),
+    "pool_general_act": (polops, "pool_general_act_launches"),
 }
 # the learner's kernels: one launch of each a minibatch_step; and the advantages'
 # moments, one launch an update
@@ -1644,12 +1668,14 @@ MOMENTS = "advantage_moments"
 TOWERS = ("mlp_forward", "mlp_backward", "mlp_grad_reduce")
 
 
-def policy(steps: int, selfplay: bool = False, towers: bool = True) -> dict:
-    """The rollout policy's expected launches in ``steps`` rollout steps: kernel A
-    (``policy_act``) once a step where the towers are whole (none on a
-    tensor-parallel rank, whose slices keep the composition), kernel B
-    (``pool_act``) once a self-play step (the pool is whole on every rank)."""
-    return {"policy_act": steps if towers else 0, "pool_act": steps if selfplay else 0}
+def policy(steps: int, selfplay: bool = False, towers: bool = True, updates: int = 0) -> dict:
+    """The rollout policy's expected launches in ``steps`` rollout steps of
+    ``updates`` updates: kernel A (``policy_act``) once a step and once an update (the
+    bootstrap value, ``polops.policy_value``) where the towers are whole (none on a
+    tensor-parallel rank, whose slices keep the composition), kernel B (``pool_act``)
+    once a self-play step (the pool is whole on every rank)."""
+    return {"policy_act": steps + updates if towers else 0,
+            "pool_act": steps if selfplay else 0}
 
 
 def zero_counts():
@@ -1856,7 +1882,8 @@ def training(track, env_cfg, card):
     print(f"train: median {statistics.median(wall) * 1e3:.1f} ms/update at {NUM_ENVS} x {STEPS} "
           f"on {card}; launches {launches}")
     n = STEPS * TRAIN_UPDATES
-    expected = counts(autoreset=True, single_observe=n, single_transition=n, **policy(n),
+    expected = counts(autoreset=True, single_observe=n, single_transition=n,
+                      **policy(n, updates=TRAIN_UPDATES),
                       compute_gae=TRAIN_UPDATES, mixbits_permutation=TRAIN_UPDATES,
                       **learner(launches, cfg, TRAIN_UPDATES, [c for _, c in loops]))
     if launches != expected:
@@ -1892,7 +1919,7 @@ def entry_point(card):
     expected = counts(cfg.num_envs, autoreset=True, single_observe=steps + 1,
                       single_transition=steps,
                       compute_gae=2, mixbits_permutation=2, **learner(launches, cfg, 2),
-                      **policy(steps))
+                      **policy(steps, updates=2))
     if launches != expected:
         raise AssertionError(f"train single launches {launches}, expected {expected}")
 
@@ -1957,7 +1984,7 @@ def selfplay_training(make_track, card, label=""):
           f"(torch.cuda.max_memory_allocated {(peak + base) / 2**20:,.1f} MiB)")
     n = STEPS * SP_TRAIN_UPDATES
     expected = counts(cfg.num_envs, autoreset=True, multi_observe=n, multi_transition=n,
-                      **policy(n, selfplay=True),
+                      **policy(n, selfplay=True, updates=SP_TRAIN_UPDATES),
                       compute_gae=SP_TRAIN_UPDATES, mixbits_permutation=SP_TRAIN_UPDATES,
                       **learner(launches, cfg, SP_TRAIN_UPDATES, [c for _, c in loops]))
     if isinstance(track, trk.LAYOUTS):
@@ -2012,7 +2039,7 @@ def selfplay_entry_points(card):
         expected = counts(cfg.num_envs, autoreset=True, multi_observe=sensed,
                           multi_transition=steps,
                           compute_gae=2, mixbits_permutation=2, **learner(launches, cfg, 2),
-                          **policy(steps, selfplay=True))
+                          **policy(steps, selfplay=True, updates=2))
         print(f"train {mode}: {cfg.num_envs} envs x {cfg.num_steps} steps x 2 cars, 2 updates "
               f"in {dt:.1f} s on {card}; launches {launches}; saved policy loads "
               f"({params['actor'][0][0].shape[0]} inputs, log_std {log_std.tolist()})")
@@ -2153,7 +2180,7 @@ def resampled_entry_points(card):
                               multi_observe_row_ids=steps + 2,
                               multi_transition_row_ids=steps, compute_gae=2,
                               mixbits_permutation=2, **learner(launches, cfg, 2),
-                              **policy(steps, selfplay=True))
+                              **policy(steps, selfplay=True, updates=2))
             print(f"train scale --resample-tracks-every 1 --pooled-geometry {layout}: "
                   f"{cfg.num_envs} envs x {cfg.num_steps} steps, 2 updates in {dt:.1f} s on "
                   f"{card}; pools by update {drawn}; the envs' geometry {type(track).__name__} "
@@ -2490,7 +2517,7 @@ def dp_expected(cfg, updates: int, launches, towers: bool = True, group: bool = 
     return counts(cfg.num_envs // cfg.data_shards, autoreset=True, multi_observe=n,
                   multi_transition=n,
                   multi_observe_row_ids=n, multi_transition_row_ids=n,
-                  **policy(n, selfplay=True, towers=towers),
+                  **policy(n, selfplay=True, towers=towers, updates=updates),
                   compute_gae=updates, mixbits_permutation=updates,
                   **learner(launches, cfg, updates, towers=towers, group=group))
 
@@ -3677,7 +3704,7 @@ def graph_against_eager(pool, card):
             expected = counts(cfg.num_envs, autoreset=True, tiled=where == "tiled",
                               **{sensing: STEPS, stepping: STEPS, "compute_gae": 1,
                                  "mixbits_permutation": 1},
-                              **policy(STEPS, selfplay=kind == "self-play"))
+                              **policy(STEPS, selfplay=kind == "self-play", updates=1))
             if where == "tiled":
                 expected.update({f"{sensing}_row_ids": STEPS, f"{stepping}_row_ids": STEPS})
             if any(c != {**expected, **learner(c, cfg, 1)}
@@ -5645,11 +5672,13 @@ def mlp_units(case: dict, n: int, block: int, dev, seed: int):
 
 
 def mlp_refusals(dev) -> None:
-    """No fallback: float64, non-contiguous tensors, hidden widths outside
-    ``_cuda.MLP_HIDDEN`` and an obs_dim past a block's shared memory raise before any
-    launch; and the wrapper's least shared bytes are the kernel's own
-    (``mlp_shared_bytes``) at every obs_dim to 256 and a few widths, so what the
-    wrapper takes is what the kernels take."""
+    """No fallback: float64, non-contiguous tensors, int32 unit ids and towers past
+    the general route's limits (a width of 1025, an obs_dim of 1025, eight hidden
+    layers) raise before any launch; towers the compiled kernels do not take ((19,
+    64, 32), the first obs_dim past (128, 128)'s memory) take the general route
+    (phase s holds it); and the wrapper's least shared bytes are the compiled
+    kernel's own (``mlp_shared_bytes``) at every obs_dim to 256 and a few widths, so
+    what the wrapper sends there is what the compiled kernels take."""
     lib = _cuda._mlp_lib()
     for h1, h2 in _cuda.MLP_HIDDEN + ((64, 32), (96, 96), (256, 256)):
         for d in range(0, 257):
@@ -5658,23 +5687,33 @@ def mlp_refusals(dev) -> None:
                 raise AssertionError(f"phase p: shared bytes at ({d}, {h1}, {h2}): kernel "
                                      f"{lib.mlp_shared_bytes(d, h1, h2)}, wrapper {want}")
     params, leaves, obs, _, _ = mlp_tensors(mlp_case(19, (64, 64), 256, 0), dev)
-    before = mlp_counts()
+    past = _cuda.mlp_max_obs_dim(128, 128) + 1
+    for dims in ((19, 64, 32), (past, 128, 128)):
+        if _cuda.mlp_route(dims[0], dims[1:]) != "general":
+            raise AssertionError(f"phase p: towers {dims} do not take the general route")
+    before = mlp_counts() + tuple(read_counts()[k] for k in GENERAL_MLP)
     refused = 0
     wide = {t: [tuple(x.double() for x in layer) for layer in ls] for t, ls in params.items()}
-    odd = mlp_tensors(mlp_case(19, (64, 32), 256, 0), dev)[0]
-    past = _cuda.mlp_max_obs_dim(128, 128) + 1
-    far, _, far_obs, _, _ = mlp_tensors(mlp_case(past, (128, 128), 256, 0), dev)
-    for what, p, o in (("float64", wide, obs.double()), ("non-contiguous", params,
-                                                          obs.t().contiguous().t()),
-                       ("towers (19, 64, 32)", odd, obs),
-                       (f"towers ({past}, 128, 128)", far, far_obs)):
+    broad = mlp_tensors(mlp_case(19, (64, 1025), 256, 0), dev)[0]
+    far, _, far_obs, _, _ = mlp_tensors(mlp_case(1025, (128, 128), 256, 0), dev)
+    deep = mlp_tensors(mlp_case(19, (8,) * 8, 256, 0), dev)[0]
+    units = obs.reshape(4, 64, 19)
+    ids32 = torch.arange(4, dtype=torch.int32, device=dev)
+    cases = (("float64", wide, obs.double(), None),
+             ("non-contiguous", params, obs.t().contiguous().t(), None),
+             ("int32 unit ids", params, units, ids32),
+             ("towers (19, 64, 1025)", broad, obs, None),
+             ("towers (1025, 128, 128)", far, far_obs, None),
+             ("eight hidden layers", deep, obs, None))
+    for what, p, o, ids in cases:
         try:
-            mlpops.actor_critic_mlp(p, o)
+            mlpops.actor_critic_mlp(p, o, ids)
         except (TypeError, ValueError):
             refused += 1
         else:
             raise AssertionError(f"phase p: actor_critic_mlp took {what} tensors")
-    if refused != 4 or mlp_counts() != before:
+    after = mlp_counts() + tuple(read_counts()[k] for k in GENERAL_MLP)
+    if refused != len(cases) or after != before:
         raise AssertionError("phase p: a refused call launched a kernel")
 
 
@@ -5732,7 +5771,7 @@ def check_mlp_kernels(dev, card) -> dict:
           f"{max(r['ratio'] for r in out.values()):.3f}); through the unit index bitwise "
           f"the gathered rows at {tuple(UNIT_BLOCKS.items())}; the forward row-invariant "
           f"bitwise (4097 rows permuted, row 0 alone against 65,536); float64, non-contiguous, "
-          f"other hidden widths and an obs_dim past a block's memory refused, on {card}")
+          f"int32 unit ids and towers past the general route's limits refused, on {card}")
     return out, norm
 
 
@@ -5909,7 +5948,8 @@ def train_more_cars(card, cars: int = 3) -> None:
     # sensing: every step and the construction's reset
     expected = counts(cfg.num_envs, autoreset=True, multi_observe=cfg.num_steps + 1,
                       multi_transition=cfg.num_steps, compute_gae=1, mixbits_permutation=1,
-                      **learner(launches, cfg, 1), **policy(cfg.num_steps, selfplay=True))
+                      **learner(launches, cfg, 1),
+                      **policy(cfg.num_steps, selfplay=True, updates=1))
     w1 = params["actor"][0][0]
     print(f"phase p: train scale --agents {cars}: {cfg.num_envs} envs x {cfg.num_steps} "
           f"steps x {cars} cars, towers of {obs_dim} inputs, 1 update in {dt:.1f} s on "
@@ -6780,8 +6820,8 @@ def policy_case(dims, n: int, seed: int, dev) -> dict:
     with a normaliser (mean ~ N(0, 0.5), var ~ U(0.05, 2), feature 0's 1e-4 so that
     its values pass the +-10 clamp), log_std [-0.4, -0.9], noise [POLICY_STEPS, n, 2]
     ~ N(0, 1) and ``t`` = POLICY_T (int64 [1])."""
-    d, h1, h2 = dims
-    case = mlp_case(d, (h1, h2), n, seed)
+    d = dims[0]
+    case = mlp_case(d, dims[1:], n, seed)
     rng = np.random.default_rng(seed + 7)
     f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
     var = rng.uniform(0.05, 2.0, d)
@@ -6912,13 +6952,13 @@ def pool_case(dims, envs: int, seats: int, mode: str, seed: int, dev) -> dict:
     ``mode`` ("per env": an int32 [envs] index over the pool, "one": a 0-d index 3,
     "seat": none) and ``use_policy`` (per env: [envs] bool, about 70% True; one:
     0-d True)."""
-    d, h1, h2 = dims
+    d = dims[0]
     members = seats if mode == "seat" else POOL_MEMBERS
     rng = np.random.default_rng(seed)
     f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
-    towers = [mlp_case(d, (h1, h2), 0, seed + 1 + p)["params"]["actor"] for p in range(members)]
+    towers = [mlp_case(d, dims[1:], 0, seed + 1 + p)["params"]["actor"] for p in range(members)]
     actor = [tuple(f32(np.stack([towers[p][i][j] for p in range(members)])) for j in range(2))
-             for i in range(3)]
+             for i in range(len(dims))]
     var = rng.uniform(0.05, 2.0, (members, d))
     var[:, 0] = 1e-4
     rows = envs * seats
@@ -6993,7 +7033,8 @@ def member_mu_is_mlp_forward(c, obs, mu_rows, member_rows, normalize: bool) -> b
         if normalize:
             xp = obsnorm.apply(obsnorm.ObsNormState(c["mean"][p], c["var"][p], None), xp)
         actor = [(w[p], b[p]) for w, b in c["actor"]]
-        critic = actor[:2] + [(actor[2][0][:, :1].contiguous(), actor[2][1][:1].contiguous())]
+        critic = actor[:-1] + [(actor[-1][0][:, :1].contiguous(),
+                                actor[-1][1][:1].contiguous())]
         with torch.no_grad():
             mu_f, _ = mlpops.actor_critic_mlp({"actor": actor, "critic": critic}, xp)
         if not same_bits(mu_rows[sel], mu_f):
@@ -7271,24 +7312,28 @@ def check_policy_kernels(dev, card) -> dict:
 
 
 def policy_bytes_ops(kind: str, n: int, dims, members: int = POOL_MEMBERS,
-                     tower_rows: int | None = None):
-    """(bytes, operations) that a call at ``n`` rows must move and do: each input read
-    once and each output written once; a row's multiply-adds (kernel A both towers,
-    kernel B one member's actor on the ``tower_rows`` rows whose use_policy holds,
-    default all) as 3 TF32 products of 2 operations (3xTF32)."""
-    d, h1, h2 = dims
-    actor = d * h1 + h1 + h1 * h2 + h2 + 2 * h2 + 2
-    critic = d * h1 + h1 + h1 * h2 + h2 + h2 + 1
-    macs_actor = d * h1 + h1 * h2 + 2 * h2
+                     tower_rows: int | None = None, norm: bool = True, first: bool = True):
+    """(bytes, operations) that a call at ``n`` rows must move and do at towers
+    ``dims`` = (obs_dim, *hidden): each input read once and each output written once
+    (``norm``: the normalisers read; kernel B's ``first``: the learner's actions read
+    and its car written beside the opponent's); a row's multiply-adds (kernel A both
+    towers, kernel B one member's actor on the ``tower_rows`` rows whose use_policy
+    holds, default all) as 3 TF32 products of 2 operations (3xTF32)."""
+    d, h = dims[0], dims[-1]
+    layers = list(zip(dims, dims[1:]))
+    hidden = sum(a * b + b for a, b in layers)
+    actor, critic = hidden + 2 * h + 2, hidden + h + 1
+    macs = sum(a * b for a, b in layers)
+    macs_actor, macs_critic = macs + 2 * h, macs + h
     if kind == "policy_act":
-        floats = (n * d + 2 * n + 2 * d + 2 + actor + critic       # obs, noise, norm, log_std
-                  + n * d + 2 * 2 * n + 2 * n)                    # obs row, actions, lp, v
-        ops = 6 * n * (macs_actor + d * h1 + h1 * h2 + h2)
-        return 4 * floats + 8, ops                                # t
-    floats = (n * d + 4 * n + members * (actor + 2 * d + 2)      # obs, noise, uniforms, pool
-              + 2 * n + 2 * 2 * n)                               # first; out (2 cars)
+        floats = (n * d + 2 * n + 2 * d * norm + 2 + actor + critic  # obs, noise, norm, log_std
+                  + n * d + 2 * 2 * n + 2 * n)                      # obs row, actions, lp, v
+        ops = 6 * n * (macs_actor + macs_critic)
+        return 4 * floats + 8, ops                                  # t
+    floats = (n * d + 4 * n + members * (actor + 2 * d * norm + 2)  # obs, noise, uniforms, pool
+              + (2 * n + 2 * 2 * n if first else 2 * n))            # first; out (1 or 2 cars)
     tower_rows = n if tower_rows is None else tower_rows
-    return 4 * floats + 4 * n + n, 6 * tower_rows * macs_actor    # index, use_policy
+    return 4 * floats + 4 * n + n, 6 * tower_rows * macs_actor      # index, use_policy
 
 
 def parent_policy_lib():
@@ -7397,6 +7442,652 @@ def time_policy_kernels(dev, card, checked, parent=None) -> list:
     return entries
 
 
+# ---------------------------------------------------------------- phase s
+# The general route (csrc/mlp_general.cu and csrc/policy_general.cu on
+# csrc/mlp_stream.cuh): towers the compiled kernels do not take, held to the plain
+# composition by phase p's rule at every tower of GENERAL_TOWERS x GENERAL_ROWS and
+# GENERAL_WIDE x GENERAL_WIDE_ROWS, directly and through unit ids.
+GENERAL_TOWERS = ((19, 32, 32), (19, 32, 16, 8), (19, 65, 65), (19, 32, 32, 32), (19, 256, 256),
+                  (43, 256, 256, 256), (19, 400, 300), (184, 128, 128))
+GENERAL_ROWS = (1, 4095, 65_536)
+GENERAL_WIDE = ((19, 1024, 1024), (1, 1))
+GENERAL_WIDE_ROWS = (1, 4095)
+# the slice's path: train scale's width with PPOConfig(hidden=(256, 256))
+GENERAL_SLICE = (19, 256, 256)
+GENERAL_TIMED = ((19, 32, 16, 8), (19, 256, 256), (43, 256, 256, 256), (19, 1024, 1024))
+GENERAL_MLP = ("mlp_general_forward", "mlp_general_backward", "mlp_general_grad_reduce")
+# the compiled route's kernels, which a general tower launches none of
+COMPILED = ("mlp_forward", "mlp_backward", "mlp_grad_reduce", "mlp_grad_norm", "policy_act",
+            "pool_act")
+GENERAL_POLICY = ("policy_general_act", "pool_general_act")
+GENERAL_UNIT_BLOCK = 64
+
+
+def general_delta(before) -> dict:
+    """The launches since ``before`` (read_counts) of the MLP and policy kernels of
+    both routes."""
+    now = read_counts()
+    return {k: now[k] - before[k] for k in COMPILED + GENERAL_MLP + GENERAL_POLICY
+            + ("mlp_general_grad_norm",)}
+
+
+def general_names(dims) -> tuple:
+    """mu, v and each tensor's name in model.parameters() order at ``dims``."""
+    layers = len(dims)
+    return ("mu", "v") + tuple(f"{tower}.{kind}{i + 1}" for tower in ("actor", "critic")
+                               for i in range(layers) for kind in ("w", "b"))
+
+
+def hold_general(dims, n: int, dev, seed: int) -> dict:
+    """The general route's forward, backward and reduce with its norm at ``dims`` and
+    ``n`` rows against the plain composition, by phase p's rule (``mlp_bounds``):
+    every output and gradient within its bound, the norm within ``norm_bound`` of the
+    float64 norm and the norm-only mode bitwise it, a second run bitwise the first,
+    the gradients of the norm-less launch bitwise those with the norm, one launch of
+    each general kernel a run and none of the compiled ones; through the unit ids
+    bitwise the gathered rows. Returns the largest error and error/bound ratio."""
+    case = mlp_case(dims[0], dims[1:], n, seed)
+    params, leaves, obs, g_mu, g_v = mlp_tensors(case, dev)
+    before = read_counts()
+    norm = torch.full((), float("nan"), device=dev)
+    mu, v = mlpops.actor_critic_mlp(params, obs, None, norm)
+    got = [mu.detach(), v.detach()] + list(torch.autograd.grad((mu, v), leaves, (g_mu, g_v)))
+    again = mlp_run(mlpops.actor_critic_mlp, params, leaves, obs, g_mu, g_v)
+    launched = general_delta(before)
+    want_launches = {k: 0 for k in launched}
+    want_launches.update({k: 2 for k in GENERAL_MLP})
+    if launched != want_launches:
+        raise AssertionError(f"phase s {dims} at {n} rows: launches {launched}, expected "
+                             f"{want_launches}")
+    flat = torch.cat([g.reshape(-1) for g in got[2:]])
+    only = mlpops.grad_norm(flat, leaves)
+    composition = ppo.global_norm(list(got[2:]))
+    want = mlp_run(mlpops.actor_critic_mlp_plain, params, leaves, obs, g_mu, g_v)
+    bounds = mlp_bounds(want, mlp_control(params, leaves, obs, g_mu, g_v))
+    ref = mlp_run(mlpops.actor_critic_mlp_plain, *mlp_tensors(case, dev, torch.float64))
+    torch.cuda.synchronize()
+    names = general_names(dims)
+    if not all(same_bits(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"phase s {dims} at {n} rows: two runs (with and without the "
+                             f"norm) differ")
+    if not same_bits(only, norm):
+        raise AssertionError(f"phase s {dims} at {n} rows: the norm-only mode differs from "
+                             f"the fused norm")
+    errs = mlp_errors(got, want)
+    bad = {name: (e, b) for name, e, b in zip(names, errs, bounds) if not e <= b}
+    if bad:
+        raise AssertionError(f"phase s {dims} at {n} rows: beyond the tolerance (error, "
+                             f"bound): {bad}")
+    n64, nbound = norm_bound(flat, composition)
+    nerr = abs(float(norm) - n64)
+    if not nerr <= nbound:
+        raise AssertionError(f"phase s {dims} at {n} rows: the norm {float(norm)!r} is "
+                             f"{nerr:.3e} from the float64 norm, beyond {nbound:.3e}")
+    if n >= GENERAL_UNIT_BLOCK and n % GENERAL_UNIT_BLOCK == 0:
+        units, ids = mlp_units(case, n, GENERAL_UNIT_BLOCK, dev, seed=n + 1)
+        by_id = mlp_run(mlpops.actor_critic_mlp, params, leaves, units, g_mu, g_v, ids)
+        torch.cuda.synchronize()
+        if not all(same_bits(a, b) for a, b in zip(by_id, got)):
+            raise AssertionError(f"phase s {dims} at {n} rows: the unit ids differ from the "
+                                 f"gathered rows")
+    ratio, worst = max((e / b if b else 0.0, name) for name, e, b in zip(names, errs, bounds))
+    return {"max_abs_err": max(errs), "ratio": ratio, "worst": worst,
+            "f64_kernels": max(mlp_errors(got, ref)), "f64_plain": max(mlp_errors(want, ref)),
+            "norm_ratio": nerr / nbound if nbound else 0.0}
+
+
+def general_direct(dims, n: int, dev, seed: int):
+    """The general kernels launched directly on ``mlp_case``'s tensors (no autograd):
+    a function that runs the forward, the backward and the reduce with its norm into
+    its own buffers, and those buffers (mu, v, flat, norm)."""
+    case = mlp_case(dims[0], dims[1:], n, seed)
+    _, leaves, obs, g_mu, g_v = mlp_tensors(case, dev)
+    w = [x.detach() for x in leaves]
+    total = sum(x.numel() for x in w)
+    mu, v = torch.empty((n, 2), device=dev), torch.empty((n,), device=dev)
+    partial = torch.empty((_cuda.general_partial_rows(n, dims), total), device=dev)
+    flat, norm = torch.empty((total,), device=dev), torch.empty((), device=dev)
+    _cuda.grad_norm_ticket(dev)
+
+    def run():
+        _cuda.launch_mlp_general_forward(obs, None, w, mu, v, n, dims)
+        _cuda.launch_mlp_general_backward(obs, None, w, g_mu, g_v, partial, n, dims)
+        _cuda.launch_general_grad_reduce(partial, flat, norm)
+
+    return run, (mu, v, flat, norm), (obs, w, g_mu, g_v, partial)
+
+
+def general_sizes_refused(dev) -> None:
+    """The general backward's entry refuses partials of another shape than its plan's
+    (a row short, a row over, a column short) and, at (19, 1024, 1024), a scratch a
+    float short, before it launches: nothing is written past a buffer or left
+    unwritten for the reduce to sum."""
+    for dims, n in (((19, 256, 256), 4095), ((19, 1024, 1024), 100)):
+        _, _, (obs, w, g_mu, g_v, partial) = general_direct(dims, n, dev, seed=7)
+        rows, cols = partial.shape
+        cases = [torch.empty((rows - 1, cols), device=dev), torch.empty((rows + 1, cols),
+                                                                        device=dev),
+                 torch.empty((rows, cols - 1), device=dev)]
+        for bad in cases:
+            try:
+                _cuda.launch_mlp_general_backward(obs, None, w, g_mu, g_v, bad, n, dims)
+            except RuntimeError:
+                continue
+            raise AssertionError(f"phase s: the general backward at {dims} x {n} took "
+                                 f"partials {tuple(bad.shape)}, its plan's are {(rows, cols)}")
+        if _cuda.general_plan("backward", dims).acts_global:
+            short = _cuda.general_scratch(n, dims, dev)[:-1]
+            try:
+                _cuda.launch_mlp_general_backward(obs, None, w, g_mu, g_v, partial, n, dims,
+                                                  short)
+            except RuntimeError:
+                continue
+            raise AssertionError(f"phase s: the general backward at {dims} x {n} took a "
+                                 f"scratch a float short")
+    torch.cuda.synchronize()
+
+
+def general_graph_and_rows(dims, dev) -> None:
+    """At ``dims``: the general kernels captured in a CUDA graph and replayed give
+    the eager launches' bits (mu, v, the flat gradient, the norm), and the forward
+    is row-invariant: the first 2048, 1024 and 512 of 4096 rows, and row 0 alone, give
+    the 4096 rows' bits."""
+    run, outs, _ = general_direct(dims, 4096, dev, seed=41)
+    run()
+    torch.cuda.synchronize()
+    eager = [x.clone() for x in outs]
+    for x in outs:
+        x.fill_(float("nan"))
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        run()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        if not all(same_bits(a, b) for a, b in zip(outs, eager)):
+            raise AssertionError(f"phase s {dims}: the graphed kernels differ from eager")
+    case = mlp_case(dims[0], dims[1:], 4096, seed=41)
+    params, _, obs, _, _ = mlp_tensors(case, dev)
+    with torch.no_grad():
+        every = mlpops.actor_critic_mlp(params, obs)
+        for k in (2048, 1024, 512, 1):
+            some = mlpops.actor_critic_mlp(params, obs[:k].contiguous())
+            torch.cuda.synchronize()
+            if not all(same_bits(a, b[:k]) for a, b in zip(some, every)):
+                raise AssertionError(f"phase s {dims}: the first {k} rows alone differ from "
+                                     f"those of 4096")
+
+
+def general_policy_bits(dims, n: int, dev, seed: int) -> None:
+    """Kernel A's and B's mu and v on the general route bitwise the general forward's
+    (``mlpops.actor_critic_mlp``) on the same rows: A greedy with and without the
+    critic, sampled (its value, and its log-prob the composition's on its own mu),
+    ``policy_value`` and the rollout mode (the normalised rows written, then the
+    forward on them); B at a pool of ``POOL_MEMBERS`` per env, one member for all and
+    a member a seat, with and without the members' normalisers (greedy mu against
+    each member's forward)."""
+    c = policy_case(dims, n, seed, dev)
+    params, x = c["params"], c["obs"]
+    actor = {"actor": params["actor"]}
+    before = read_counts()
+    with torch.no_grad():
+        mu_f, v_f = mlpops.actor_critic_mlp(params, x)
+        greedy = polops.deterministic_action(actor, x)
+        greedy_critic = polops.deterministic_action(params, x)
+        noise = c["noise"][POLICY_T]
+        a_s, lp_s, v_s = polops.sample_action(params, c["log_std"], x, noise)
+        value = polops.policy_value(params, x)
+        out = {}
+        polops.rollout_sample(params, c["log_std"], x, c["noise"], c["t"], c["norm"], out)
+        mu_r, v_r = mlpops.actor_critic_mlp(params, out["obs"][POLICY_T])
+        lp_want = net.normal_log_prob(a_s, mu_f, c["log_std"])
+        rollout_want = torch.clamp(mu_r + torch.exp(c["log_std"]) * noise, -1.0, 1.0)
+    torch.cuda.synchronize()
+    checks = {"A greedy": same_bits(greedy, mu_f), "A greedy beside the critic":
+              same_bits(greedy_critic, mu_f), "A sampled value": same_bits(v_s, v_f),
+              "policy_value": same_bits(value, v_f),
+              "A sampled action": same_bits(a_s, torch.clamp(
+                  mu_f + torch.exp(c["log_std"]) * noise, -1.0, 1.0)),
+              "A log-prob": bool(torch.allclose(lp_s, lp_want, rtol=0, atol=1e-5)),
+              "rollout values": same_bits(out["values"][POLICY_T], v_r),
+              "rollout actions": same_bits(out["actions"][POLICY_T], rollout_want)}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"phase s {dims} at {n} rows: kernel A differs from the general "
+                             f"forward in {bad}")
+    envs = max(n // 2, 1)
+    for mode, seats in (("per env", 1), ("one", 1), ("seat", 2)):
+        pc = pool_case(dims, envs, seats, mode, seed + 3, dev)
+        obs = pc["obs_all"] if mode == "seat" else pc["obs_all"][:, 1:]
+        member_rows, _ = pool_rows(pc, envs, seats)
+        for normalize in (False, True):
+            mean, var = (pc["mean"], pc["var"]) if normalize else (None, None)
+            with torch.no_grad():
+                mu = polops.pool_act(pc["actor"], pc["log_std"], obs, None, pc["member"], mean,
+                                     var)
+            if not member_mu_is_mlp_forward(pc, obs, mu.reshape(-1, 2), member_rows,
+                                            normalize):
+                raise AssertionError(f"phase s {dims}: kernel B ({mode}, normalisers "
+                                     f"{normalize}) differs from the general forward")
+    launched = general_delta(before)
+    if any(launched[k] for k in COMPILED) \
+            or launched["policy_general_act"] != 5 or launched["pool_general_act"] != 6:
+        raise AssertionError(f"phase s {dims}: launches {launched}")
+
+
+def check_general_kernels(dev, card) -> dict:
+    """Phase s.1: the general route at every tower of ``GENERAL_TOWERS`` x
+    ``GENERAL_ROWS`` and ``GENERAL_WIDE`` x ``GENERAL_WIDE_ROWS``: ``hold_general``
+    (the plain composition, the norm, run to run, the unit ids), the graph and the
+    row-invariance (``general_graph_and_rows``), kernels A and B bitwise the forward
+    (``general_policy_bits``), and each kernel's plan as the library gives it equal to
+    ``_cuda.general_plan``. Returns the errors by (towers, rows)."""
+    out = {}
+    towers = [(d, n) for d in GENERAL_TOWERS for n in GENERAL_ROWS] + \
+        [(d, n) for d in GENERAL_WIDE for n in GENERAL_WIDE_ROWS]
+    for i, (dims, n) in enumerate(towers):
+        if _cuda.mlp_route(dims[0], dims[1:]) != "general":
+            raise AssertionError(f"phase s: {dims} takes the compiled route")
+        for kind, (stem, fn) in (("forward", ("mlp_general", "mlp_general_plan")),
+                                 ("backward", ("mlp_general", "mlp_general_plan")),
+                                 ("act", ("policy_general", "policy_general_plan")),
+                                 ("pool", ("policy_general", "policy_general_plan"))):
+            mine = _cuda.general_plan(kind, dims).as_tuple()
+            theirs = _cuda.kernel_plan(stem, fn, kind, dims)
+            if mine != theirs:
+                raise AssertionError(f"phase s: the {kind} plan at {dims}: kernel {theirs}, "
+                                     f"ops/_cuda.py {mine}")
+        if _cuda.kernel_partial_rows(n, dims) != _cuda.general_partial_rows(n, dims):
+            raise AssertionError(f"phase s: the backward's partial rows at {dims} x {n}: "
+                                 f"kernel {_cuda.kernel_partial_rows(n, dims)}, ops/_cuda.py "
+                                 f"{_cuda.general_partial_rows(n, dims)}")
+        out[dims, n] = hold_general(dims, n, dev, seed=300 + i)
+        print(f"phase s {dims} at {n} rows: within phase p's rule (largest ratio "
+              f"{out[dims, n]['ratio']:.3f}, {out[dims, n]['worst']}; norm "
+              f"{out[dims, n]['norm_ratio']:.3f}); against float64 the kernels "
+              f"{out[dims, n]['f64_kernels']:.3e}, the composition "
+              f"{out[dims, n]['f64_plain']:.3e}; run to run bitwise")
+    general_sizes_refused(dev)
+    for i, dims in enumerate(GENERAL_TOWERS + GENERAL_WIDE):
+        general_graph_and_rows(dims, dev)
+        for n in (1, 4095):
+            general_policy_bits(dims, n, dev, seed=500 + i)
+    print(f"phase s.1: the general route within max({MLP_REL_FLOOR:g} x scale, "
+          f"{MLP_CONTROL_FACTOR} x the two-halves control) of the plain composition at "
+          f"{len(out)} (towers, rows) (largest ratio "
+          f"{max(r['ratio'] for r in out.values()):.3f}), the norm within norm_bound's rule; "
+          f"run to run, graphed against eager, unit ids against gathered rows and the "
+          f"forward's rows alone bitwise; kernels A and B bitwise the forward's mu and v at "
+          f"1 and 4095 rows of every tower; the plans equal the kernels', on {card}")
+    return out
+
+
+def general_macs(dims):
+    """Multiply-adds a row of both towers at ``dims`` = (obs_dim, *hidden): the
+    forward, and the backward's own (every weight gradient, and the input gradients
+    of every layer but the first)."""
+    layers = [(a, b) for a, b in zip(dims, dims[1:])]
+    forward = sum(2 * a * b for a, b in layers) + 3 * dims[-1]
+    backward = 2 * sum(2 * a * b for a, b in layers[1:]) + 2 * layers[0][0] * layers[0][1] \
+        + 2 * 3 * dims[-1]
+    return forward, backward
+
+
+def general_bounds_ms(dims, n: int) -> dict:
+    """The forward's and the backward's bounds at ``n`` rows (3xTF32 on the tensor
+    cores, three TF32 products a multiply-add at ``PEAK_TF32_OPS_PER_S``, against the
+    observations, gradients, outputs, parameters and partials they move), the forward
+    the backward recomputes, and both as float32 FFMA."""
+    forward, backward = general_macs(dims)
+    params = sum(2 * (a * b + b) for a, b in zip(dims, dims[1:])) + 3 * dims[-1] + 3
+    partial = 4 * _cuda.general_partial_rows(n, dims) * params
+    moved = (4 * (n * (dims[0] + 3) + params), 4 * (n * (dims[0] + 3) + params) + partial)
+    tf32 = [bound_ms(b, 3 * 2 * n * m, PEAK_TF32_OPS_PER_S) for b, m in
+            zip(moved, (forward, backward))]
+    return {"forward": tf32[0], "backward": tf32[1],
+            "recompute": bound_ms(0, 3 * 2 * n * forward, PEAK_TF32_OPS_PER_S)[0],
+            "forward_ffma": bound_ms(moved[0], 2 * n * forward)[0],
+            "backward_ffma": bound_ms(moved[1], 2 * n * backward)[0]}
+
+
+def time_general_kernels(dev, card, checked) -> list:
+    """The kernels line's entries for the general route's four kernels: the forward
+    and the backward (with the reduce, which ``mlp_grad_reduce``'s entry times) at
+    ``GENERAL_TIMED`` (65,536 rows; (19, 1024, 1024) at 4095), eager and in a CUDA
+    graph, beside the plain composition (cuBLAS and autograd: the forward eager and
+    in a graph, the backward eager) and the 3xTF32 bound; kernels A (the rollout
+    step's launch) and B (a pool of ``POOL_MEMBERS`` per env) at 4096 rows beside the
+    composition's ``sample_action_plain`` and ``opponent_actions_plain``."""
+    at, policy_at = {}, {}
+    for dims in GENERAL_TIMED:
+        n = 4095 if dims == (19, 1024, 1024) else 65_536
+        run, _, (obs, w, g_mu, g_v, partial) = general_direct(dims, n, dev, seed=61)
+        mu, v = torch.empty((n, 2), device=dev), torch.empty((n,), device=dev)
+        fwd = lambda: _cuda.launch_mlp_general_forward(obs, None, w, mu, v, n, dims)
+        bwd = lambda: _cuda.launch_mlp_general_backward(obs, None, w, g_mu, g_v, partial, n,
+                                                        dims)
+        params = {"actor": [(w[i], w[i + 1]) for i in range(0, len(w) // 2, 2)],
+                  "critic": [(w[i], w[i + 1]) for i in range(len(w) // 2, len(w), 2)]}
+        leaves = [x.clone().requires_grad_() for x in w]
+        grad_params = {"actor": [(leaves[i], leaves[i + 1]) for i in range(0, len(w) // 2, 2)],
+                       "critic": [(leaves[i], leaves[i + 1])
+                                  for i in range(len(w) // 2, len(w), 2)]}
+        plain_f = lambda: mlpops.actor_critic_mlp_plain(params, obs)
+        plain_b = lambda: torch.autograd.grad(mlpops.actor_critic_mlp_plain(grad_params, obs),
+                                              leaves, (g_mu, g_v))
+        b = general_bounds_ms(dims, n)
+        row = at["x".join(map(str, dims)) + f"_{n}_rows"] = {
+            "forward_ms": per_launch_ms(fwd), "forward_graph_ms": graph_ms(fwd),
+            "forward_plain_ms": per_launch_ms(plain_f),
+            "forward_plain_graph_ms": graph_ms(plain_f),
+            "forward_bound_ms": b["forward"][0], "forward_ffma_bound_ms": b["forward_ffma"],
+            "backward_ms": per_launch_ms(bwd), "backward_graph_ms": graph_ms(bwd),
+            "backward_plain_ms": per_launch_ms(plain_b), "backward_bound_ms": b["backward"][0],
+            "recompute_bound_ms": b["recompute"], "backward_ffma_bound_ms": b["backward_ffma"],
+            "forward_plan": _cuda.general_plan("forward", dims).as_tuple(),
+            "backward_plan": _cuda.general_plan("backward", dims).as_tuple()}
+        print(f"phase s {dims} at {n} rows: forward {row['forward_graph_ms'] * 1e3:.1f} us in a "
+              f"graph (composition {row['forward_plain_graph_ms'] * 1e3:.1f}, bound "
+              f"{b['forward'][0] * 1e3:.1f}); backward {row['backward_graph_ms'] * 1e3:.1f} us "
+              f"(composition eager {row['backward_plain_ms'] * 1e3:.1f}, bound "
+              f"{b['backward'][0] * 1e3:.1f} + recompute {b['recompute'] * 1e3:.1f}) on {card}")
+    for dims in ((19, 32, 16, 8), GENERAL_SLICE):
+        c = policy_case(dims, 4096, 71, dev)
+        out = polops.rollout_buffers({}, POLICY_STEPS, c["obs"])
+        act = lambda: polops.rollout_sample(c["params"], c["log_std"], c["obs"], c["noise"],
+                                            c["t"], c["norm"], out)
+        x = obsnorm.apply(c["norm"], c["obs"])
+        plain_a = lambda: net.sample_action_plain(c["params"], c["log_std"],
+                                                  obsnorm.apply(c["norm"], c["obs"]),
+                                                  c["noise"][POLICY_T])
+        pc = pool_case(dims, 4096, 1, "per env", 73, dev)
+        obs = pc["obs_all"][:, 1:]
+        opp = {"params": {"actor": pc["actor"]}, "log_std": pc["log_std"], "idx": pc["member"],
+               "use_policy": pc["use"], "norm_mean": None, "norm_var": None}
+        pool = lambda: polops.pool_act(pc["actor"], pc["log_std"], obs, pc["noise"],
+                                       pc["member"], uniforms=pc["uniforms"],
+                                       use_policy=pc["use"], low=selfplay._ACTION_LOW,
+                                       high=selfplay._ACTION_HIGH)
+        plain_p = lambda: selfplay.opponent_actions_plain(None, opp, obs[:, 0], pc["noise"],
+                                                          pc["uniforms"])
+        # kernel B runs a tower only on the rows whose use_policy holds
+        tower_rows = int(pc["use"].sum())
+        act_bound = bound_ms(*policy_bytes_ops("policy_act", 4096, dims), PEAK_TF32_OPS_PER_S)
+        pool_bound = bound_ms(*policy_bytes_ops("pool_act", 4096, dims, tower_rows=tower_rows,
+                                                norm=False, first=False), PEAK_TF32_OPS_PER_S)
+        policy_at["x".join(map(str, dims)) + "_4096_rows"] = {
+            "act_ms": per_launch_ms(act), "act_graph_ms": graph_ms(act),
+            "act_plain_ms": per_launch_ms(plain_a), "act_plain_graph_ms": graph_ms(plain_a),
+            "act_bound_ms": act_bound[0], "act_bound_by": act_bound[1],
+            "pool_ms": per_launch_ms(pool), "pool_graph_ms": graph_ms(pool),
+            "pool_plain_ms": per_launch_ms(plain_p), "pool_plain_graph_ms": graph_ms(plain_p),
+            "pool_bound_ms": pool_bound[0], "pool_bound_by": pool_bound[1],
+            "pool_tower_rows": tower_rows,
+            "act_plan": _cuda.general_plan("act", dims).as_tuple(),
+            "pool_plan": _cuda.general_plan("pool", dims).as_tuple()}
+        r = policy_at["x".join(map(str, dims)) + "_4096_rows"]
+        print(f"phase s {dims} at 4096 rows: kernel A {r['act_graph_ms'] * 1e3:.1f} us in a "
+              f"graph (composition {r['act_plain_graph_ms'] * 1e3:.1f}, bound "
+              f"{r['act_bound_ms'] * 1e3:.2f}); kernel B {r['pool_graph_ms'] * 1e3:.1f} us "
+              f"(composition {r['pool_plain_graph_ms'] * 1e3:.1f}, bound "
+              f"{r['pool_bound_ms'] * 1e3:.2f}) on {card}")
+    # adam_tail (unchanged: one cluster of 16 x 256) on the slice's 142,599 parameters,
+    # every call an applied step
+    params, grads, mu_t, nu_t, bc1, bc2, loop = tail_state(dev, 6, hidden=GENERAL_SLICE[1:],
+                                                           steps=4096)
+    stats = torch.tensor([0.31, -0.02, 0.45, 1.9, 0.001, 0.11], device=dev)
+    lr, g_norm = torch.tensor(2.5e-4, device=dev), ppo.global_norm(grads)
+    tail_ms = graph_ms(lambda: mbops.adam_tail(params, grads, mu_t, nu_t, g_norm, stats, bc1,
+                                               bc2, lr, loop, 0.5, 0.02))
+    print(f"phase s: adam_tail on the {sum(p.numel() for p in params):,} parameters of "
+          f"{GENERAL_SLICE} {tail_ms * 1e3:.2f} us in a graph (applied steps) on {card}")
+    # the general reduce with its norm on the slice's partials
+    _, (_, _, flat, norm), (_, w, _, _, partial) = general_direct(GENERAL_SLICE, 65_536, dev, 61)
+    red = lambda: _cuda.launch_general_grad_reduce(partial, flat, norm)
+    library = lambda: torch.sum(partial, 0)
+    params_n = partial.shape[1]
+    reduce_ms = {"ms": per_launch_ms(red), "graph_ms": graph_ms(red),
+                 "library_ms": per_launch_ms(library), "library_graph_ms": graph_ms(library),
+                 "composition_graph_ms": graph_ms(lambda: ppo.global_norm([torch.sum(partial, 0)])),
+                 "bound": bound_ms(4 * (partial.numel() + params_n),
+                                   partial.numel() + 2 * params_n)}
+    print(f"phase s: the general reduce with its norm on {partial.shape[0]} x {params_n:,} "
+          f"partials {reduce_ms['graph_ms'] * 1e3:.2f} us in a graph (torch.sum "
+          f"{reduce_ms['library_graph_ms'] * 1e3:.2f}, bound "
+          f"{reduce_ms['bound'][0] * 1e3:.2f}, {reduce_ms['bound'][1]}) on {card}")
+    key = "x".join(map(str, GENERAL_SLICE))
+    main_mlp, main_pol = at[f"{key}_65536_rows"], policy_at[f"{key}_4096_rows"]
+    b = general_bounds_ms(GENERAL_SLICE, 65_536)
+    err = max(c["max_abs_err"] for c in checked.values())
+    ratio = max(c["ratio"] for c in checked.values())
+    common = {"route": "cuda", "library_ms": None, "max_abs_err": err,
+              "max_err_over_bound": ratio, "towers": list(GENERAL_SLICE)}
+    mlp_src = "self_play_racing_tpu_torch/csrc/mlp_general.cu"
+    pol_src = "self_play_racing_tpu_torch/csrc/policy_general.cu"
+    return [
+        {"name": "mlp_general_forward", **common, "source": mlp_src, "rows": 65_536,
+         "replaces": "self_play_racing_tpu/models/actor_critic.py:68",
+         "ms": main_mlp["forward_graph_ms"], "eager_ms": main_mlp["forward_ms"],
+         "plain_ms": main_mlp["forward_plain_graph_ms"], "bound_ms": b["forward"][0],
+         "bound_by": b["forward"][1], "at": at, "adam_tail_graph_ms_at_towers": tail_ms},
+        {"name": "mlp_general_backward", **common, "source": mlp_src, "rows": 65_536,
+         "replaces": "self_play_racing_tpu/agent/ppo.py:313",
+         "ms": main_mlp["backward_graph_ms"], "eager_ms": main_mlp["backward_ms"],
+         "plain_ms": main_mlp["backward_plain_ms"], "bound_ms": b["backward"][0],
+         "bound_by": b["backward"][1], "recompute_bound_ms": b["recompute"]},
+        {"name": "mlp_general_grad_reduce", **common, "source": mlp_src, "rows": 65_536,
+         "replaces": "self_play_racing_tpu/agent/ppo.py:313",
+         "replaces_norm": "self_play_racing_tpu/agent/ppo.py:121",
+         "ms": reduce_ms["graph_ms"], "eager_ms": reduce_ms["ms"],
+         "plain_ms": reduce_ms["composition_graph_ms"], "bound_ms": reduce_ms["bound"][0],
+         "bound_by": reduce_ms["bound"][1], "library_ms": reduce_ms["library_graph_ms"],
+         "norm_max_err_over_bound": max(c["norm_ratio"] for c in checked.values())},
+        {"name": "policy_general_act", **common, "source": pol_src, "rows": 4096,
+         "replaces": "self_play_racing_tpu/agent/ppo.py:354",
+         "ms": main_pol["act_graph_ms"], "eager_ms": main_pol["act_ms"],
+         "plain_ms": main_pol["act_plain_graph_ms"], "bound_ms": main_pol["act_bound_ms"],
+         "bound_by": main_pol["act_bound_by"], "at": policy_at},
+        {"name": "pool_general_act", **common, "source": pol_src, "rows": 4096,
+         "replaces": "self_play_racing_tpu/envs/selfplay.py:53",
+         "ms": main_pol["pool_graph_ms"], "eager_ms": main_pol["pool_ms"],
+         "plain_ms": main_pol["pool_plain_graph_ms"], "bound_ms": main_pol["pool_bound_ms"],
+         "bound_by": main_pol["pool_bound_by"], "tower_rows": main_pol["pool_tower_rows"]}]
+
+
+LIBRARY_KERNELS = ("gemm", "gemv", "cublas", "splitk", "xmma", "cutlass", "addmm")
+
+
+def as_compiled(launches) -> dict:
+    """``launches`` with the general route's counts under the compiled kernels' names
+    (and 0 under its own), for the expectations that name the compiled ones."""
+    out = dict(launches)
+    for general, compiled in (("mlp_general_forward", "mlp_forward"),
+                              ("mlp_general_backward", "mlp_backward"),
+                              ("mlp_general_grad_reduce", "mlp_grad_reduce"),
+                              ("mlp_general_grad_norm", "mlp_grad_norm"),
+                              ("policy_general_act", "policy_act"),
+                              ("pool_general_act", "pool_act")):
+        out[compiled], out[general] = out[compiled] + out[general], 0
+    return out
+
+
+def general_run(cfg, dev, eager=False, mesh=None, first=None):
+    """``GENERAL_UPDATES`` updates of ``dp_trainer`` at ``cfg`` (graphed unless
+    ``eager``; ``shard(mesh)`` where given): (ms, metrics, launches, state, graphs)."""
+    trainer = dp_trainer(cfg, dev, eager=eager)
+    if mesh is not None:
+        trainer.shard(mesh)
+    with minibatch_loops(GENERAL_UPDATES, first=first):
+        ms, metrics, _, launches = dp_train(trainer, GENERAL_UPDATES)
+    return ms, metrics, launches, dp_state(trainer), trainer.update_step.graphs
+
+
+def library_free(names: dict, what: str) -> None:
+    bad = [n for n in names if any(k in n.lower() for k in LIBRARY_KERNELS)]
+    if bad:
+        raise AssertionError(f"phase s.2: {what} holds library kernels {bad}")
+
+
+def profiled_by_name(graph) -> dict:
+    """One replay of ``graph`` under the profiler: the device us of each kernel name."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    out = collections.Counter()
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            out[evt.name[:60]] += evt.time_range.elapsed_us()
+    return dict(out)
+
+
+GENERAL_UPDATES = 2
+
+
+def general_training(dev, card) -> dict:
+    """Phase s.2: ``GENERAL_UPDATES`` graphed updates of train scale at ``hidden=(256,
+    256)`` (4096 x 256 x 2 cars, a pool of 5, 16 minibatches of 65,536 rows, 10
+    epochs) from a fresh policy: every update's first minibatch exact, graphed bitwise
+    ``eager=True`` and an NCCL group of one bitwise no group (parameters, Adam state,
+    pool, PFSP counts); the captured rollout step's and minibatch step's kernel nodes
+    by name, none a library's; the launches. Returns the graphed run's launches."""
+    cfg = dataclasses.replace(dp_config(), hidden=GENERAL_SLICE[1:])
+    first = []
+    with kept_graphs():
+        ms, metrics, launches, state, graphs = general_run(cfg, dev, first=first)
+        rollout_names = kernel_node_names(graphs.rollout.step.graph)
+        minibatch = minibatch_step_nodes(graphs.minibatch_graph)
+        graphs.minibatch_graph.loop.reset()
+        graphs.minibatch_graph.loop.stop.fill_(True)
+        by_name = profiled_by_name(graphs.minibatch_graph.step.graph)
+        graphs.minibatch_graph.loop.reset()
+    first_minibatches_exact(first, "phase s.2 train scale at (256, 256)")
+    library_free(rollout_names, "the captured rollout step")
+    library_free(minibatch["kernels"], "the captured minibatch step")
+    e_ms, e_metrics, e_launches, e_state, _ = general_run(cfg, dev, eager=True)
+    pmesh.distributed_init(f"127.0.0.1:{free_port()}", 1, 0, device=dev)
+    try:
+        g_ms, _, g_launches, g_state, _ = general_run(cfg, dev, mesh=pmesh.make_mesh(dev))
+    finally:
+        dist.destroy_process_group()
+    for what, other in (("eager=True", e_state), ("an NCCL group of one", g_state)):
+        for k in state:
+            a, b = state[k], other[k]
+            same = (all(same_bits(x, y) for x, y in zip(a, b)) and len(a) == len(b)
+                    if isinstance(a, list) and a and isinstance(a[0], torch.Tensor)
+                    else (same_bits(a, b) if isinstance(a, torch.Tensor) else a == b))
+            if not same:
+                raise AssertionError(f"phase s.2: {what} differs from the graphed run in {k}")
+    if [m["minibatches_applied"] for m in metrics] != \
+            [m["minibatches_applied"] for m in e_metrics]:
+        raise AssertionError("phase s.2: graphed and eager applied different minibatches")
+    for what, got, group in (("graphed", launches, False), ("eager", e_launches, False),
+                             ("group of one", g_launches, True)):
+        if any(got[k] for k in COMPILED) or \
+                not all(got[k] for k in GENERAL_MLP + GENERAL_POLICY):
+            raise AssertionError(f"phase s.2 {what}: launches {got}")
+        want = dp_expected(cfg, GENERAL_UPDATES, as_compiled(got), group=group)
+        if as_compiled(got) != want:
+            raise AssertionError(f"phase s.2 {what}: launches {as_compiled(got)}, expected "
+                                 f"{want} (the general route's under the compiled names)")
+    general = {k: launches[k] for k in GENERAL_MLP + GENERAL_POLICY}
+    adam = {k: v for k, v in by_name.items() if "adam" in k.lower()}
+    print(f"phase s.2 train scale at hidden {GENERAL_SLICE[1:]} ({cfg.num_envs} x "
+          f"{cfg.num_steps} x {NUM_AGENTS} cars, {cfg.num_minibatches} minibatches, "
+          f"{cfg.update_epochs} epochs), graphed: {ms_line(ms)} ms/update (minibatch "
+          f"loop's), so rollout and the rest "
+          f"{[round(w - l, 1) for w, l in zip(ms['wall'], ms['loop'])]} ms; eager=True "
+          f"{ms_line(e_ms)}; group of one {ms_line(g_ms)}; minibatches_applied "
+          f"{[int(m['minibatches_applied']) for m in metrics]}; general kernels' launches "
+          f"{general} on {card}")
+    print(f"phase s.2: graphed = eager=True = an NCCL group of one, bitwise (parameters, Adam "
+          f"state and count, pool, PFSP counts); the captured rollout step's kernels "
+          f"{rollout_names}; the minibatch step's {minibatch['kernels']} "
+          f"({minibatch['kernel_nodes']} kernel nodes), no library kernel in either; one "
+          f"profiled minibatch replay by kernel (us) {by_name}; adam_tail {adam} us")
+    return {"launches": launches, "by_name": by_name, "ms": ms,
+            "rollout_kernels": rollout_names, "minibatch_kernels": minibatch["kernels"]}
+
+
+def general_checkpoints(dev, tmp):
+    """Checkpoints written by the port on the card: a single-car policy at (32, 16, 8)
+    and three self-play policies at (32, 32) (after each of three updates), trained at
+    64 envs x 64 steps; their paths."""
+    pool = canonical_bench_pool(NUM_TRACKS, device=dev)
+    single = PPOTrainer(base_config(num_envs=64, num_steps=64, total_timesteps=64 * 64 * 10,
+                                    hidden=(32, 16, 8)), senv.RacingConfig(num_sensors=11),
+                        trk.tiled_pooled_tracks(pool, 64))
+    single.train(num_updates=1)
+    paths = {"single": os.path.join(tmp, "single_32_16_8.npz")}
+    single.save(paths["single"])
+    sp = SelfPlayTrainer(self_play_config(num_envs=64, num_steps=64, total_timesteps=64 * 64 * 10,
+                                          hidden=(32, 32), snapshot_freq=1),
+                         menv.MultiRacingConfig(num_agents=NUM_AGENTS, num_sensors=11),
+                         trk.tiled_pooled_tracks(pool, 64))
+    paths["multi"] = []
+    for u in range(3):
+        sp.train(num_updates=1)
+        paths["multi"].append(os.path.join(tmp, f"self_play_32_32_{u}.npz"))
+        sp.save(paths["multi"][-1])
+    return paths
+
+
+def general_entry_points(dev, card) -> dict:
+    """Phase s.3: the other entry points on the general route, on checkpoints of
+    (32, 16, 8) and (32, 32) written by the port on the card: ``evaluate --single`` and
+    ``--multi`` (``evaluate.eval``, 40 x 5), a round robin of three (32, 32) agents,
+    ``serve`` at batch 1 and 4096 (greedy: the general forward's mu bitwise), and a
+    ``RacingEnv`` episode driven by the served policy. Each counts launches of the
+    general kernels and none of the compiled ones. Returns the launches."""
+    from self_play_racing_tpu_torch import serve
+    from self_play_racing_tpu_torch.envs import gym_adapter
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = general_checkpoints(dev, tmp)
+        zero_counts()
+        evaluate.eval({"single": ("single", paths["single"]),
+                       "self_play": ("multi", paths["multi"][-1])}, 40, 5, 42,
+                      out_dir=tmp, chart=None, device=dev)
+        out["evaluate"] = read_counts()
+        zero_counts()
+        res = tournament.run_tournament(paths["multi"], num_tracks=4, num_runs=1, device=dev)
+        out["tournament"] = read_counts()
+        zero_counts()
+        policy = serve.Policy(paths["single"], device=dev)
+        rng = np.random.default_rng(5)
+        for batch in (1, 4096):
+            obs = rng.normal(size=(batch, policy.obs_dim)).astype(np.float32)
+            act = policy.act(obs)
+            x = policy._input(obs)
+            with torch.no_grad():
+                mu, _ = mlpops.actor_critic_mlp(policy.params, x)
+            if act.shape != (batch, 2) or not np.array_equal(act, mu.cpu().numpy()):
+                raise AssertionError(f"phase s.3 serve at batch {batch}: not the general "
+                                     f"forward's mu")
+        out["serve"] = read_counts()
+        zero_counts()
+        env = gym_adapter.RacingEnv(num_sensors=11, track_pool=canonical_control_points(),
+                                    track_id=0, track_width=ADAPTER_TRACK_WIDTH, device=dev)
+        obs, _ = env.reset()
+        for steps in range(1, 3001):
+            obs, _, term, trunc, _ = env.step(policy.act(obs))
+            if term or trunc:
+                break
+        out["racing_env"] = read_counts()
+    for what, got in out.items():
+        if any(got[k] for k in COMPILED) or \
+                not (got["policy_general_act"] or got["pool_general_act"]):
+            raise AssertionError(f"phase s.3 {what}: launches {got}")
+    print(f"phase s.3: evaluate --single (32, 16, 8) and --multi (32, 32) on 40 x 5, a round "
+          f"robin of three (32, 32) agents (wins {res['wins']}), serve at batch 1 and 4096 "
+          f"(bitwise the general forward's mu), a RacingEnv episode of {steps} steps, on "
+          f"{card}; the general kernels' launches "
+          f"{ {w: {k: g[k] for k in GENERAL_POLICY + GENERAL_MLP} for w, g in out.items()} }, "
+          f"the compiled ones' 0")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7440,6 +8131,8 @@ def main() -> int:
     with timed("phase q (the rollout step's policy kernels against the plain composition)"):
         kernels += time_policy_kernels(dev, card, check_policy_kernels(dev, card),
                                        parent_policy.result())
+    with timed("phase s.1 (the general route's kernels against the plain composition)"):
+        kernels += time_general_kernels(dev, card, check_general_kernels(dev, card))
     with timed("phase o.1 and o.4 (the single-car env step's two launches against their "
                "plain versions)"):
         kernels += check_single_env_step(pool, dev, card)
@@ -7462,6 +8155,10 @@ def main() -> int:
     if tiled_seeded != seeded:
         raise AssertionError(f"self-play tiled {tiled_seeded} differs from gathered {seeded}")
     entry_launches = selfplay_entry_points(card)
+    with timed("phase s.2 (train scale at hidden (256, 256) on the general route)"):
+        general = general_training(dev, card)
+    with timed("phase s.3 (the entry points on the general route)"):
+        general_entries = general_entry_points(dev, card)
     print(f"self-play tiled: every update's seeded numbers equal the gathered run's; peak "
           f"memory {tiled_peak / 2**20:,.1f} MiB tiled, {peak / 2**20:,.1f} MiB gathered "
           f"(the gathered rows are {gathered_row_bytes(pool, NUM_ENVS) / 2**20:,.1f} MiB)")
@@ -7509,6 +8206,12 @@ def main() -> int:
             k["launches_path"] = "train multi (16 envs)"
             if not k["launches"]:
                 raise AssertionError(f"{k['name']}: no launch in {k['launches_path']}")
+        elif k["name"] in GENERAL_MLP + GENERAL_POLICY:
+            k["launches"] = general["launches"][k["name"]]
+            k["launches_path"] = f"train scale at hidden {GENERAL_SLICE[1:]} (phase s.2)"
+            k["launches_entry_points"] = {w: g[k["name"]] for w, g in general_entries.items()}
+            if not k["launches"]:
+                raise AssertionError(f"{k['name']}: no launch in {k['launches_path']}")
         elif k["name"] in ("raycast_walls_and_cars", "raycast_walls_and_cars_row_ids"):
             k["launches"] = (tiled if k["name"].endswith("_row_ids") else launches)[k["name"]]
             k["launches_path"] = ("self-play training: 0, the multi-car env's observe runs "
@@ -7525,6 +8228,8 @@ def main() -> int:
                                   "car_step_and_query's block")
         else:
             k["launches"], k["launches_path"] = launches[k["name"]], "self-play training"
+            if k["name"] in ("adam_tail", "ppo_head", "ppo_head_backward"):
+                k["launches_general"] = general["launches"][k["name"]]
             if k["name"] in ("policy_act", "pool_act"):
                 k["launches_single_car"] = per_kernel(single_car)[k["name"]]
             if k["name"] == "multi_transition_autoreset" and not k["launches"]:

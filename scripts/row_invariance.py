@@ -8,7 +8,9 @@ for its rollout to be bitwise the one-process rollout's rows.
 At N = 4096 and k = 2, 4 and 8, on seeded float32 inputs: each GEMM layer of the
 learner's 19 -> 64 -> 64 -> {2, 1} MLP (``x @ w + b``), ``actor_mu``,
 ``critic_value``, ``sample_action`` (on the card one launch of the rollout policy's
-kernel A, ``ops/policy.py``), the opponent pool's stacked actor
+kernel A, ``ops/policy.py``), the update's bootstrap value ``policy_value`` (kernel A's
+critic on the card) at the default towers and at (256, 256), the opponent pool's
+stacked actor
 (``envs/selfplay._pool_actor_mu``, 5 members) and, on the card, the pool's kernel B
 on a per-env index (``ops.policy.pool_act``), each called on the first N / k rows
 and held against the same rows of the call on all N. Prints one JSON object: the
@@ -42,6 +44,7 @@ def ops(dev):
     """name -> fn(rows) giving the op's output on the first ``rows`` rows."""
     gen = torch.Generator().manual_seed(0)
     params = net.init_params(gen, OBS_DIM, 2, device=dev)
+    wide = net.init_params(gen, OBS_DIM, 2, hidden=(256, 256), device=dev)
     pool = {"actor": [(torch.stack([w] * POOL) * (1 + 0.1 * torch.arange(
         POOL, device=dev))[:, None, None], torch.stack([b] * POOL))
         for w, b in params["actor"]]}
@@ -60,6 +63,10 @@ def ops(dev):
         "sample_action": lambda r: torch.cat([t.reshape(r, -1) for t in net.sample_action(
             params, log_std, obs[:r], noise[:r])], dim=1),
         "pool actor (5 members)": lambda r: sp._pool_actor_mu(pool, obs[:r]).transpose(0, 1),
+        # the update's bootstrap value (on the card kernel A's critic), at the default
+        # towers (the compiled route) and at (256, 256) (the general route)
+        "policy_value": lambda r: polops.policy_value(params, obs[:r]),
+        "policy_value at (256, 256)": lambda r: polops.policy_value(wide, obs[:r]),
     }
     if dev.type == "cuda":  # kernel B, on the card only
         member = torch.randint(0, POOL, (N,), generator=g, device=dev)

@@ -451,7 +451,7 @@ def apply_minibatch(cfg: PPOConfig, model: net.ActorCritic, log_std, lr, mb, bc1
         grads, stats, flat = _mean_over_group(grads, stats, mesh)
     with torch.no_grad():
         if route == "norm-only":
-            g_norm = mlpops.grad_norm(flat[:sum(g.numel() for g in grads)])
+            g_norm = mlpops.grad_norm(flat[:sum(g.numel() for g in grads)], params)
         elif route == "composition":
             g_norm = global_norm(grads, model.tensor_parallel)
         mbops.adam_tail(params, list(grads), mu, nu, g_norm, stats, bc1, bc2, lr, loop,
@@ -898,7 +898,9 @@ def make_update_step(cfg: PPOConfig, hooks: EnvHooks, action_dim: int = 2, mesh=
         with torch.no_grad():
             next_policy_obs = (obsnorm.apply(norm, next_obs) if cfg.normalize_obs
                                else next_obs)
-            next_value = net.critic_value(model.params(), next_policy_obs)
+            # on the card kernel A's critic: row-invariant, so a shard's rows give the
+            # values that the whole batch's would
+            next_value = polops.policy_value(model.params(), next_policy_obs)
             advantages, returns = compute_gae(
                 rewards, sstats["done_entering"], traj.values, next_value, next_done,
                 cfg.gamma, cfg.gae_lambda)

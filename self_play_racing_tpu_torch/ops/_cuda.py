@@ -31,7 +31,7 @@ SOURCES = ("raycast_walls.cu", "progress_collision.cu", "raycast_cars.cu",
            "mixbits_permutation.cu", "raycast_walls_and_cars.cu",
            "car_step_and_query.cu", "multi_observe.cu", "multi_transition.cu",
            "ppo_head.cu", "adam_tail.cu", "single_transition.cu", "mlp_towers.cu",
-           "policy.cu")
+           "policy.cu", "mlp_general.cu", "policy_general.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # PyTorch's eager ops never contract a*b+c into an FMA; neither may the kernels
@@ -78,6 +78,14 @@ _SIGNATURES = {
     "pool_act_f32": [_P, _I, _L, _L, _L, _L, _L] + [_I] * 7 + [_P, _I, _I, _P],
     "policy_shared_bytes": [_I] * 4,
     "policy_rows_per_block": [_I],
+    "mlp_general_plan": [_I, _P, _I, _P],
+    "mlp_general_partial_rows": [_L, _P, _I],
+    "mlp_general_forward_f32": [_P, _I, _L, _L, _L, _P, _I, _I, _P],
+    "mlp_general_backward_f32": [_P, _I, _L, _L, _L, _P, _I, _L, _L, _L, _I, _P],
+    "general_grad_reduce_f32": [_P] * 5 + [_L, _L, _I, _P],
+    "policy_general_plan": [_I, _P, _I, _P],
+    "policy_general_act_f32": [_P, _I, _L, _L, _L, _P, _I, _P, _I, _I, _P],
+    "policy_general_pool_f32": [_P, _I, _L, _L, _L, _L, _L] + [_I] * 4 + [_P, _I, _P, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -1129,3 +1137,244 @@ def launch_pool_act(ptrs, rows: int, seats: int, cars: int, off: int, env_stride
     _call("policy", "pool_act_f32", ptrs[0].device, _ptr_array(ptrs), POOL_ACT_PTRS, rows,
           seats, cars, off, env_stride, members, kind, int(member64), int(use_per_env),
           *dims, _float_array(consts), len(consts))
+
+
+# The general route (csrc/mlp_stream.cuh; mlp_general.cu's forward and backward,
+# policy_general.cu's kernels A and B): towers of any depth and width within these
+# limits, a tile of rows through the layers one at a time with each weight streamed
+# through shared memory in chunks. mlp_route says which route a tower takes; one
+# route for all four kernels, so that kernel A's and B's mu and v are bitwise the
+# minibatch forward's on every tower.
+MLP_MAX_HIDDEN_LAYERS = 7   # adam_tail's 32-tensor table holds 4 (L + 1) tensors
+MLP_MAX_WIDTH = 1024        # a hidden width or obs_dim
+# mlp_stream.cuh's constants: a block's warps (at most; the plan's 16 or 8, and the
+# widest width from which the forward and backward take 16), its tile rows (from
+# GENERAL_TILE_MAX down to 16), the n-tiles a warp holds in a column pass (at most), a
+# staged chunk's weight rows, the chunks' ring, kernel B's range; mlp_general.cu's
+# grids
+GENERAL_MAX_WARPS = 16
+GENERAL_WIDE_WARPS_FROM = 128
+GENERAL_TILE_MAX = 64
+GENERAL_MAX_TILES = 8
+GENERAL_CHUNK_ROWS = 16
+GENERAL_STAGES = 3
+GENERAL_POOL_RANGE = 128
+GENERAL_FORWARD_BLOCKS = 264
+GENERAL_BACKWARD_BLOCKS = 128
+GENERAL_KINDS = ("forward", "act", "pool", "backward")
+# an SM's shared memory and what the runtime keeps a block (mlp_tower.cuh)
+SM_SMEM_BYTES = 233_472
+BLOCK_RESERVED_BYTES = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class GeneralPlan:
+    """A general-route kernel's launch plan (``csrc/mlp_stream.cuh:make_plan``): the
+    block's warps, the tile's rows, the activation tiles' row stride (floats), the
+    warps on a 16-row fragment, the n-tiles a warp holds, a column pass's columns, one
+    staged chunk's floats, whether the backward keeps its activations in device
+    scratch, the shared bytes a block and the scratch floats a block."""
+    warps: int
+    rows: int
+    stride: int
+    groups: int
+    tiles: int
+    cols: int
+    chunk: int
+    acts_global: bool
+    shared_bytes: int
+    scratch_floats: int
+
+    def as_tuple(self) -> tuple:
+        return dataclasses.astuple(self)
+
+
+def _check_limits(obs_dim: int, hidden) -> None:
+    if not 1 <= len(hidden) <= MLP_MAX_HIDDEN_LAYERS or not 1 <= obs_dim <= MLP_MAX_WIDTH \
+            or any(not 1 <= h <= MLP_MAX_WIDTH for h in hidden):
+        raise ValueError(f"the MLP kernels take towers of 1 to {MLP_MAX_HIDDEN_LAYERS} hidden "
+                         f"layers of widths 1 to {MLP_MAX_WIDTH} on obs_dim 1 to "
+                         f"{MLP_MAX_WIDTH}; got obs_dim {obs_dim}, hidden {tuple(hidden)}")
+
+
+def mlp_route(obs_dim: int, hidden) -> str:
+    """``"compiled"`` where the compiled kernels (``mlp_towers.cu``'s and ``policy.cu``'s,
+    three layers at ``MLP_HIDDEN``) all take towers obs_dim -> hidden, else
+    ``"general"``; past the general route's limits (``MLP_MAX_HIDDEN_LAYERS`` hidden
+    layers, widths and obs_dim to ``MLP_MAX_WIDTH``) a ``ValueError`` that names them."""
+    hidden = tuple(int(h) for h in hidden)
+    _check_limits(int(obs_dim), hidden)
+    if len(hidden) == 2 and mlp_takes(obs_dim, *hidden) \
+            and policy_shared_bytes(False, obs_dim, *hidden) \
+            and policy_shared_bytes(True, obs_dim, *hidden):
+        return "compiled"
+    return "general"
+
+
+def _general_plan_at(kind: str, dims, rows: int, max_tiles: int,
+                     acts_global: bool) -> GeneralPlan:
+    widest = max(dims)
+    stride = _round_up(widest, 32) + 4
+    wide = kind in ("forward", "backward") and widest >= GENERAL_WIDE_WARPS_FROM
+    warps = GENERAL_MAX_WARPS if wide else GENERAL_MAX_WARPS // 2
+    groups = warps // (rows // 16)
+    per = -(-(-(-widest // 8)) // groups)
+    tiles = min(per, max_tiles)
+    cols = 8 * groups * tiles
+    forward = GENERAL_CHUNK_ROWS * (_round_up(cols, 32) + 8)
+    chunk = max(forward, cols * (GENERAL_CHUNK_ROWS + 4)) if kind == "backward" else forward
+    extra = _round_up(3 * rows, 4)
+    if kind == "act":
+        extra += 2 * stride
+    elif kind == "pool":
+        extra += 2 * stride + _round_up(3 * GENERAL_POOL_RANGE + GENERAL_MAX_WARPS, 4)
+    tiles_held = len(dims) + 2 if kind == "backward" else 2
+    floats = GENERAL_STAGES * chunk + extra + (0 if acts_global else tiles_held * rows * stride)
+    return GeneralPlan(warps, rows, stride, groups, tiles, cols, chunk, acts_global,
+                       4 * floats, tiles_held * rows * stride if acts_global else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def general_plan(kind: str, dims) -> GeneralPlan:
+    """The plan of a general-route kernel (``kind`` one of ``GENERAL_KINDS``) at
+    towers ``dims`` = (obs_dim, *hidden), the first that fits by the most n-tiles a
+    warp (8, 4, 2, 1), then the most tile rows (64, 32, 16): the forward and the
+    backward within a block's memory, kernels A and B first within half an SM's; the
+    backward, where none fits, with its activations in device scratch at 16 rows (the
+    kernels' own ``make_plan``, held equal to this in chip_smoke.py phase s)."""
+    dims = tuple(int(x) for x in dims)
+    _check_limits(dims[0], dims[1:])
+    if kind not in GENERAL_KINDS:
+        raise ValueError(f"general_plan: kind {kind!r}, expected one of {GENERAL_KINDS}")
+    limits = (SM_SMEM_BYTES // 2 - BLOCK_RESERVED_BYTES, BLOCK_SMEM_LIMIT)
+    tile_counts = [GENERAL_MAX_TILES >> i for i in range(GENERAL_MAX_TILES.bit_length())]
+    for limit in limits[kind in ("forward", "backward"):]:
+        for tiles in tile_counts:
+            for rows in (GENERAL_TILE_MAX, GENERAL_TILE_MAX // 2, GENERAL_TILE_MAX // 4):
+                plan = _general_plan_at(kind, dims, rows, tiles, False)
+                if plan.shared_bytes <= limit:
+                    return plan
+    if kind == "backward":
+        for tiles in tile_counts:
+            plan = _general_plan_at(kind, dims, 16, tiles, True)
+            if plan.shared_bytes <= BLOCK_SMEM_LIMIT:
+                return plan
+    raise ValueError(f"general_plan: no {kind} plan at towers {dims}")
+
+
+def general_partial_rows(n: int, dims) -> int:
+    """The general backward's partial rows at ``n`` rows: a row a block of its fixed
+    grid (``GENERAL_BACKWARD_BLOCKS``), fewer where there are fewer tiles."""
+    return min(-(-n // general_plan("backward", tuple(dims)).rows), GENERAL_BACKWARD_BLOCKS)
+
+
+def general_scratch(n: int, dims, device) -> torch.Tensor | None:
+    """The general backward's device scratch at ``n`` rows (a block and tower's
+    activation tiles where the plan keeps them off shared memory), None where the
+    plan keeps them in shared memory."""
+    plan = general_plan("backward", tuple(dims))
+    if not plan.acts_global:
+        return None
+    return torch.empty((general_partial_rows(n, dims) * 2 * plan.scratch_floats,),
+                       dtype=torch.float32, device=device)
+
+
+def _int_array(values):
+    return (ctypes.c_int * len(values))(*map(int, values))
+
+
+def kernel_plan(stem: str, fn: str, kind: str, dims) -> tuple:
+    """A general-route kernel's plan as the library gives it (``mlp_general_plan`` or
+    ``policy_general_plan``), to hold against ``general_plan``."""
+    out = (ctypes.c_longlong * 10)()
+    err = getattr(build()[stem], fn)(GENERAL_KINDS.index(kind), _int_array(dims), len(dims), out)
+    if err:
+        raise RuntimeError(f"{fn}({kind}, {tuple(dims)}): cudaError {err}")
+    return tuple(out[:7]) + (bool(out[7]),) + tuple(out[8:])
+
+
+def kernel_partial_rows(n: int, dims) -> int:
+    """The general backward's partial rows at ``n`` rows as the library gives them
+    (``mlp_general_partial_rows``), to hold against ``general_partial_rows``."""
+    rows = build()["mlp_general"].mlp_general_partial_rows(n, _int_array(dims), len(dims))
+    if rows < 0:
+        raise RuntimeError(f"mlp_general_partial_rows({n}, {tuple(dims)}): not taken")
+    return rows
+
+
+def general_params(dims, towers: int = 2) -> int:
+    """The towers' tensors on the general route: 2 (L + 1) a tower."""
+    return towers * 2 * len(dims)
+
+
+def launch_mlp_general_forward(obs, unit_ids, params, mu, v, n: int, dims) -> None:
+    """Launch both towers' general forward on the current stream of ``mu``'s device:
+    ``obs`` [n, D] (or [units, block, D] read through ``unit_ids``), ``params`` the 4
+    (L + 1) tensors in ``model.parameters()`` order, out ``mu`` [n, 2] and ``v`` [n];
+    ``dims`` = (D, *hidden)."""
+    if len(params) != general_params(dims):
+        raise ValueError(f"mlp: {len(params)} parameter tensors, expected "
+                         f"{general_params(dims)}")
+    block, units = (0, 0) if unit_ids is None else (obs.shape[1], obs.shape[0])
+    ptrs = [obs, unit_ids, *params, mu, v]
+    _call("mlp_general", "mlp_general_forward_f32", mu.device, _ptr_array(ptrs), len(ptrs), n,
+          block, units, _int_array(dims), len(dims))
+
+
+def launch_mlp_general_backward(obs, unit_ids, params, g_mu, g_v, partial, n: int,
+                                dims, scratch=None) -> None:
+    """Launch both towers' general backward on the current stream of ``partial``'s
+    device: the forward's inputs, the upstream gradients ``g_mu`` [n, 2] and ``g_v``
+    [n] (contiguous), out the blocks' gradients ``partial`` [general_partial_rows(n),
+    params]; its ``scratch`` where given, else ``general_scratch`` from the caller's
+    allocator. The entry is told both buffers' sizes and refuses any other than its
+    own plan's."""
+    if len(params) != general_params(dims):
+        raise ValueError(f"mlp: {len(params)} parameter tensors, expected "
+                         f"{general_params(dims)}")
+    block, units = (0, 0) if unit_ids is None else (obs.shape[1], obs.shape[0])
+    if scratch is None:
+        scratch = general_scratch(n, dims, partial.device)
+    ptrs = [obs, unit_ids, *params, g_mu, g_v, partial, scratch]
+    _call("mlp_general", "mlp_general_backward_f32", partial.device, _ptr_array(ptrs), len(ptrs),
+          n, block, units, _int_array(dims), len(dims), partial.shape[0], partial.shape[1],
+          0 if scratch is None else scratch.numel())
+
+
+def launch_policy_general_act(ptrs, n: int, steps: int, stride: int, dims, consts) -> None:
+    """Launch the general kernel A on the current stream of the observations' device:
+    ``ptrs`` as ``launch_policy_act``'s with each tower's 2 (L + 1) tensors (the
+    critic's all None where absent), ``dims`` = (D, *hidden)."""
+    if len(ptrs) != 6 + general_params(dims) + 5:
+        raise ValueError(f"policy_act: {len(ptrs)} pointers at towers {tuple(dims)}")
+    _call("policy_general", "policy_general_act_f32", ptrs[0].device, _ptr_array(ptrs),
+          len(ptrs), n, steps, stride, _int_array(dims), len(dims), _float_array(consts),
+          len(consts))
+
+
+def launch_policy_general_pool(ptrs, rows: int, seats: int, cars: int, off: int,
+                               env_stride: int, members: int, kind: int, member64: bool,
+                               use_per_env: bool, dims, consts) -> None:
+    """Launch the general kernel B on the current stream of the observations' device:
+    ``ptrs`` as ``launch_pool_act``'s with the actor's 2 (L + 1) stacked tensors,
+    ``dims`` = (D, *hidden)."""
+    if len(ptrs) != 1 + general_params(dims, 1) + 9:
+        raise ValueError(f"pool_act: {len(ptrs)} pointers at towers {tuple(dims)}")
+    _call("policy_general", "policy_general_pool_f32", ptrs[0].device, _ptr_array(ptrs),
+          len(ptrs), rows, seats, cars, off, env_stride, members, kind, int(member64),
+          int(use_per_env), _int_array(dims), len(dims), _float_array(consts), len(consts))
+
+
+def launch_general_grad_reduce(partial, out, norm=None) -> None:
+    """The general route's reduce (``csrc/mlp_general.cu:general_grad_reduce_f32``) on
+    the current stream of ``partial``'s device: ``out`` [params] the sum of the
+    blocks' gradients ``partial`` [rows, params] (None: not written, the norm-only mode
+    of one row) and, with ``norm`` (0-d float32), their global norm; its ticket is the
+    card's (``ticket_counter``)."""
+    dev = partial.device
+    params = partial.shape[1]
+    block_sq = (None if norm is None else
+                torch.empty((mlp_grad_norm_blocks(params),), dtype=torch.float32, device=dev))
+    ticket = None if norm is None else ticket_counter(dev, "general_grad_reduce")
+    _call("mlp_general", "general_grad_reduce_f32", dev, _ptr(partial), _ptr(out), _ptr(norm),
+          _ptr(block_sq), _ptr(ticket), partial.shape[0], params)

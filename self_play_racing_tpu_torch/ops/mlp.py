@@ -16,19 +16,28 @@ a bias add and a tanh a layer, and autograd's backward of each.
   ``mlp_forward_f32`` (both towers) and whose backward is two, ``mlp_backward_f32``
   (each block of a fixed grid its 64-row tiles' weight and bias gradients, the tiles'
   forward recomputed, one partial row a block) and ``mlp_grad_reduce_f32`` (the rows
-  summed in a fixed order into one flat buffer whose views the 12 gradients are).
+  summed in a fixed order into one flat buffer whose views the gradients are).
   Their products run on the tensor cores in error-compensated 3xTF32 (float32
   accurate). The kernels read the observations through the minibatch's unit ids in
   place. They sum in another order than cuBLAS, so they are held to the plain
   composition within a stated tolerance (chip_smoke.py phase p), not bitwise; equal
   inputs give equal bits, eager and in a CUDA graph, and the forward is
   row-invariant.
-- The kernels take whole towers obs_dim -> h1 -> h2 -> {2, 1}: any obs_dim (a
-  run-time argument) that fits a block's shared memory with (h1, h2) in
-  ``_cuda.MLP_HIDDEN`` (``_cuda.mlp_takes``). A CUDA tensor they do not take (not
-  float32, not contiguous, another shape) raises; there is no fallback to the plain
-  version.
-- The global norm of the 12 gradients (``optax.clip_by_global_norm``'s, which XLA
+- The kernels take whole towers obs_dim -> hidden -> {2, 1} by one of two routes
+  (``_cuda.mlp_route``). The compiled route (``csrc/mlp_towers.cu``, above): three
+  layers with (h1, h2) in ``_cuda.MLP_HIDDEN`` and an obs_dim that fits a block's
+  shared memory (``_cuda.mlp_takes``) and the policy kernels'. The general route
+  (``csrc/mlp_general.cu`` on ``csrc/mlp_stream.cuh``): every other tower of 1 to
+  ``_cuda.MLP_MAX_HIDDEN_LAYERS`` hidden layers, widths and obs_dim 1 to
+  ``_cuda.MLP_MAX_WIDTH``; a tile of rows through the layers one at a time, each
+  weight streamed through shared memory in chunks, the products in 3xTF32; the
+  backward (the forward recomputed with every activation kept, the weight and bias
+  gradients on each block's partial row, g W^T through the same streamed product)
+  writes partial rows, which its own reduce sums (the compiled reduce's blocks and
+  order; the norm's last step in float64). A CUDA tensor neither
+  takes (not float32, not contiguous, another shape, past the limits) raises; there
+  is no fallback to the plain version.
+- The global norm of the gradients (``optax.clip_by_global_norm``'s, which XLA
   fuses into the update program on the TPU) comes out of the same reduce launch:
   given ``norm`` (a 0-d float32 on the card), the backward's ``mlp_grad_reduce``
   writes sqrt(sum of squares) of the flat gradient into it (each block of 32
@@ -39,8 +48,12 @@ a bias add and a tanh a layer, and autograd's backward of each.
   ``grad_norm_plain`` (``agent/ppo.py:global_norm``'s composition), held to within
   chip_smoke.py phase p's tolerance.
 - ``mlp_forward_launches``, ``mlp_backward_launches``, ``mlp_grad_reduce_launches``
-  and ``mlp_grad_norm_launches`` (the norm-only mode) count kernel launches (plain
-  integers, incremented only where a kernel launched).
+  and ``mlp_grad_norm_launches`` (the norm-only mode) count the compiled route's
+  kernel launches, ``mlp_general_forward_launches``, ``mlp_general_backward_launches``,
+  ``mlp_general_grad_reduce_launches`` and ``mlp_general_grad_norm_launches`` the
+  general route's (``csrc/mlp_general.cu``'s reduce: the compiled one's blocks and
+  order, the norm's last step in float64) (plain integers, incremented only where a
+  kernel launched).
 """
 from __future__ import annotations
 
@@ -55,18 +68,22 @@ mlp_forward_launches = 0
 mlp_backward_launches = 0
 mlp_grad_reduce_launches = 0
 mlp_grad_norm_launches = 0
+mlp_general_forward_launches = 0
+mlp_general_backward_launches = 0
+mlp_general_grad_reduce_launches = 0
+mlp_general_grad_norm_launches = 0
 
 
 def actor_critic_mlp(params, obs, unit_ids=None, norm=None):
     """(mu [n, 2], v [n]): the actor's tanh-bounded mean and the critic's value of the
-    parameter dict ``params`` (whole towers, ``{"actor": [(w, b)] * 3, "critic": ...}``,
+    parameter dict ``params`` (whole towers, ``{"actor": [(w, b)] * (L + 1), "critic": ...}``,
     weights (in, out)) on ``obs`` [n, obs_dim]; with ``unit_ids`` (int64 [n / block],
     the minibatch's shuffle units) ``obs`` is the rollout's units [units, block,
     obs_dim] and row r is unit ``unit_ids[r // block]``, offset ``r % block``: the
     kernels read it there, the plain version gathers it first. Differentiable in the
     parameters (not in ``obs``). A tensor-parallel rank's sharded parameters take the
     plain version on any device. ``norm`` (kernels only: a 0-d float32 on the card)
-    receives the global norm of the 12 gradients when the backward runs."""
+    receives the global norm of the gradients when the backward runs."""
     if getattr(params, "tp", None) is not None or not _on_cuda(obs, "actor_critic_mlp"):
         if norm is not None:
             raise ValueError("actor_critic_mlp: the norm comes out of the kernels' backward; "
@@ -85,20 +102,37 @@ def actor_critic_mlp_plain(params, obs, unit_ids=None):
     return net.actor_mu(params, obs), net.critic_value(params, obs)
 
 
+def tower_shapes(leaves, outputs: int, stacked: int = 0):
+    """(obs_dim, *hidden) of one tower's 2 (L + 1) tensors with ``outputs`` outputs
+    (weights (in, out), each with a leading axis of ``stacked`` P > 0 where given), or
+    None where they are not such a tower."""
+    shapes = [tuple(t.shape) for t in leaves]
+    lead = (stacked,) if stacked else ()
+    if len(shapes) < 4 or len(shapes) % 2 or len(shapes[0]) != 2 + bool(stacked):
+        return None
+    dims = [shapes[0][-2]] + [s[-1] for s in shapes[0::2]]
+    want = []
+    for i in range(len(dims) - 1):
+        want += [lead + (dims[i], dims[i + 1]), lead + (dims[i + 1],)]
+    if shapes != want or dims[-1] != outputs:
+        return None
+    return tuple(dims[:-1])
+
+
 def _check_towers(obs, unit_ids, leaves) -> tuple:
-    """The (obs_dim, h1, h2) of whole towers the kernels take, or a raise."""
+    """The (obs_dim, *hidden) of whole towers the kernels take (``_cuda.mlp_route``'s
+    compiled or general route), or a raise."""
     dev = obs.device
     _check_cuda("actor_critic_mlp", dev, [obs] + leaves)
-    shapes = [tuple(t.shape) for t in leaves]
-    d, h1 = shapes[0] if len(shapes[0]) == 2 else (None, None)
-    h2 = shapes[2][-1] if len(shapes) > 2 and shapes[2] else None
-    want = [(d, h1), (h1,), (h1, h2), (h2,), (h2, 2), (2,)] + \
-           [(d, h1), (h1,), (h1, h2), (h2,), (h2, 1), (1,)]
-    if shapes != want or not _cuda.mlp_takes(d, h1, h2):
-        takes = ", ".join(f"hidden {h} with obs_dim 1 to {_cuda.mlp_max_obs_dim(*h)}"
-                          for h in _cuda.MLP_HIDDEN)
-        raise ValueError(f"actor_critic_mlp: the kernels take two towers of three layers, "
-                         f"2 actor and 1 critic outputs, at {takes}; got tensors {shapes}")
+    half = len(leaves) // 2
+    dims = tower_shapes(leaves[:half], 2)
+    if dims is None or tower_shapes(leaves[half:], 1) != dims:
+        raise ValueError(f"actor_critic_mlp: the kernels take whole towers, an actor of 2 "
+                         f"and a critic of 1 outputs, each obs_dim -> hidden -> outputs with "
+                         f"the same hidden widths; got tensors "
+                         f"{[tuple(t.shape) for t in leaves]}")
+    _cuda.mlp_route(dims[0], dims[1:])  # raises past the general route's limits
+    d = dims[0]
     if unit_ids is None:
         if obs.ndim != 2 or obs.shape[1] != d:
             raise ValueError(f"actor_critic_mlp: obs {tuple(obs.shape)}, expected [n, {d}]")
@@ -107,7 +141,7 @@ def _check_towers(obs, unit_ids, leaves) -> tuple:
         if obs.ndim != 3 or obs.shape[2] != d or unit_ids.ndim != 1:
             raise ValueError(f"actor_critic_mlp: obs {tuple(obs.shape)} and unit ids "
                              f"{tuple(unit_ids.shape)}, expected [units, block, {d}] and [ids]")
-    return d, h1, h2
+    return dims
 
 
 def _rows(obs, unit_ids) -> int:
@@ -125,30 +159,38 @@ def _check_norm(norm, obs) -> None:
 
 class MLPTowers(torch.autograd.Function):
     """``actor_critic_mlp`` on the card: the forward one launch of
-    ``csrc/mlp_towers.cu:mlp_forward_f32``, the backward one of ``mlp_backward_f32``
-    and one of ``mlp_grad_reduce_f32``, which return the gradients of the 12
-    parameter tensors as views of one flat buffer (none for the observations); with
-    ``norm`` the reduce is ``mlp_grad_reduce_norm_f32`` and also writes the flat
-    gradient's global norm into it."""
+    ``csrc/mlp_towers.cu:mlp_forward_f32`` (the compiled route) or
+    ``csrc/mlp_general.cu:mlp_general_forward_f32`` (the general route,
+    ``_cuda.mlp_route``), the backward one of that route's backward and one of
+    ``mlp_grad_reduce_f32``, which return the gradients of the 4 (L + 1) parameter
+    tensors as views of one flat buffer (none for the observations); with ``norm``
+    the reduce is ``mlp_grad_reduce_norm_f32`` and also writes the flat gradient's
+    global norm into it."""
 
     @staticmethod
     def forward(ctx, obs, unit_ids, dims, norm, *leaves):
-        global mlp_forward_launches
+        global mlp_forward_launches, mlp_general_forward_launches
         _check_norm(norm, obs)
         n = _rows(obs, unit_ids)
+        general = _cuda.mlp_route(dims[0], dims[1:]) == "general"
         mu = torch.empty((n, 2), dtype=obs.dtype, device=obs.device)
         v = torch.empty((n,), dtype=obs.dtype, device=obs.device)
         if n:
             with torch.cuda.device(obs.device):
-                _cuda.launch_mlp_forward(obs, unit_ids, leaves, mu, v, n, dims)
-            mlp_forward_launches += 1
+                if general:
+                    _cuda.launch_mlp_general_forward(obs, unit_ids, leaves, mu, v, n, dims)
+                    mlp_general_forward_launches += 1
+                else:
+                    _cuda.launch_mlp_forward(obs, unit_ids, leaves, mu, v, n, dims)
+                    mlp_forward_launches += 1
         ctx.save_for_backward(obs, unit_ids, *leaves)
-        ctx.dims, ctx.norm = dims, norm
+        ctx.dims, ctx.norm, ctx.general = dims, norm, general
         return mu, v
 
     @staticmethod
     def backward(ctx, g_mu, g_v):
-        global mlp_backward_launches, mlp_grad_reduce_launches
+        global mlp_backward_launches, mlp_general_backward_launches, mlp_grad_reduce_launches
+        global mlp_general_grad_reduce_launches
         obs, unit_ids, *leaves = ctx.saved_tensors
         n = _rows(obs, unit_ids)
         if n == 0:
@@ -156,16 +198,25 @@ class MLPTowers(torch.autograd.Function):
                 ctx.norm.zero_()
             return (None,) * 4 + tuple(torch.zeros_like(t) for t in leaves)
         total = sum(t.numel() for t in leaves)
-        partial = torch.empty((_cuda.mlp_partial_rows(n), total), dtype=obs.dtype,
-                              device=obs.device)
+        rows = (_cuda.general_partial_rows(n, ctx.dims) if ctx.general
+                else _cuda.mlp_partial_rows(n))
+        partial = torch.empty((rows, total), dtype=obs.dtype, device=obs.device)
         flat = torch.empty((total,), dtype=obs.dtype, device=obs.device)
         g_mu, g_v = g_mu.contiguous(), g_v.contiguous()
         _check_cuda("actor_critic_mlp backward", obs.device, (g_mu, g_v))
         with torch.cuda.device(obs.device):
-            _cuda.launch_mlp_backward(obs, unit_ids, leaves, g_mu, g_v, partial, n, ctx.dims)
-            mlp_backward_launches += 1
-            _cuda.launch_mlp_grad_reduce(partial, flat, ctx.norm)
-            mlp_grad_reduce_launches += 1
+            if ctx.general:
+                _cuda.launch_mlp_general_backward(obs, unit_ids, leaves, g_mu, g_v, partial, n,
+                                                  ctx.dims)
+                mlp_general_backward_launches += 1
+                _cuda.launch_general_grad_reduce(partial, flat, ctx.norm)
+                mlp_general_grad_reduce_launches += 1
+            else:
+                _cuda.launch_mlp_backward(obs, unit_ids, leaves, g_mu, g_v, partial, n,
+                                          ctx.dims)
+                mlp_backward_launches += 1
+                _cuda.launch_mlp_grad_reduce(partial, flat, ctx.norm)
+                mlp_grad_reduce_launches += 1
         grads, at = [], 0
         for t in leaves:
             grads.append(flat[at:at + t.numel()].view_as(t))
@@ -173,20 +224,35 @@ class MLPTowers(torch.autograd.Function):
         return (None,) * 4 + tuple(grads)
 
 
-def grad_norm(flat):
+def grad_norm(flat, params=None):
     """The global norm (0-d) of the flat gradient ``flat`` [params], float32: on the
-    card one launch of the reduce's norm-only mode (bitwise the norm that the fused
-    reduce gives of an equal flat), on the CPU ``grad_norm_plain``."""
-    global mlp_grad_norm_launches
+    card one launch of the norm-only mode of the reduce of the route that the towers
+    take (``_cuda.mlp_route`` of ``params``, the 4 (L + 1) tensors in
+    ``model.parameters()`` order whose gradient ``flat`` is; None: the compiled
+    route's), bitwise the norm that that route's fused reduce gives of an equal flat;
+    on the CPU ``grad_norm_plain``."""
+    global mlp_grad_norm_launches, mlp_general_grad_norm_launches
     if not _on_cuda(flat, "grad_norm"):
         return grad_norm_plain(flat)
     _check_cuda("grad_norm", flat.device, (flat,))
     if flat.ndim != 1 or flat.numel() == 0:
         raise ValueError(f"grad_norm: a flat gradient [params], got {tuple(flat.shape)}")
+    general = False
+    if params is not None:
+        params = list(params)
+        dims = tower_shapes(params[:len(params) // 2], 2)
+        if dims is None or sum(t.numel() for t in params) != flat.numel():
+            raise ValueError(f"grad_norm: params are not whole towers of {flat.numel()} "
+                             f"parameters: {[tuple(t.shape) for t in params]}")
+        general = _cuda.mlp_route(dims[0], dims[1:]) == "general"
     norm = torch.empty((), dtype=flat.dtype, device=flat.device)
     with torch.cuda.device(flat.device):
-        _cuda.launch_mlp_grad_norm(flat, norm)
-    mlp_grad_norm_launches += 1
+        if general:
+            _cuda.launch_general_grad_reduce(flat.view(1, -1), None, norm)
+            mlp_general_grad_norm_launches += 1
+        else:
+            _cuda.launch_mlp_grad_norm(flat, norm)
+            mlp_grad_norm_launches += 1
     return norm
 
 

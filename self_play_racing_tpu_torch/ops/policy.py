@@ -28,7 +28,8 @@ inside the rollout program that XLA compiles for the TPU (``one_step``,
 
 Dispatch, as every kernel of the port: ``whole_towers`` (a CUDA tensor and whole
 towers) takes the kernels; a CUDA tensor they do not take (not float32, not
-contiguous where they read it contiguous, other widths) raises, with no fallback.
+contiguous where they read it contiguous, towers past the general route's limits)
+raises, with no fallback.
 The CPU, and a tensor-parallel rank's ``ShardedParams`` (the Megatron composition,
 as ``ops/mlp.py`` keeps it), take the plain versions, which stay in their modules:
 ``models/actor_critic.py:sample_action_plain`` and ``deterministic_action_plain``,
@@ -38,8 +39,17 @@ towers' sums run in another order than cuBLAS's, so mu and v are held to the
 composition within a stated tolerance (chip_smoke.py phase q); everything after
 them is bitwise the composition on the kernels' own mu.
 
-``policy_act_launches`` and ``pool_act_launches`` count kernel launches (plain
-integers, incremented only where a kernel launched).
+Each kernel has two routes (``_cuda.mlp_route``, one for a tower in all four MLP
+kernels): the compiled one above (three layers at ``_cuda.MLP_HIDDEN``), and the
+general one, ``csrc/policy_general.cu``'s ``policy_general_act_f32`` and
+``policy_general_pool_f32``, for towers of 1 to ``_cuda.MLP_MAX_HIDDEN_LAYERS`` hidden
+layers and widths and obs_dim 1 to ``_cuda.MLP_MAX_WIDTH``: the same arguments and
+outputs, the towers run by ``csrc/mlp_stream.cuh``'s per-element routine, so that mu
+and v are bitwise ``ops/mlp.py``'s general forward's.
+
+``policy_act_launches`` and ``pool_act_launches`` (the compiled route),
+``policy_general_act_launches`` and ``pool_general_act_launches`` (the general route)
+count kernel launches (plain integers, incremented only where a kernel launched).
 """
 from __future__ import annotations
 
@@ -52,16 +62,18 @@ import torch
 from . import _cuda
 from .geometry import _on_cuda
 from .minibatch import _check_cuda
+from .mlp import tower_shapes
 from ..envs import normalize as obsnorm
 from ..models import actor_critic as net
 
 policy_act_launches = 0
 pool_act_launches = 0
+policy_general_act_launches = 0
+pool_general_act_launches = 0
 
 # envs/normalize.py:apply's defaults
 NORM_CLIP = 10.0
 NORM_EPS = 1e-8
-_TOWER = 6
 
 
 def _f32(value: float) -> float:
@@ -88,20 +100,15 @@ def _layers(params, tower: str) -> list:
 
 
 def _tower_dims(leaves, outputs: int, name: str, stacked: int = 0):
-    """(D, h1, h2) of one tower's six tensors of ``outputs`` outputs (with ``stacked``
-    P > 0, each with a leading axis of P), or a raise."""
-    shapes = [tuple(t.shape) for t in leaves]
-    lead = (stacked,) if stacked else ()
-    d, h1 = shapes[0][-2:] if len(shapes) == _TOWER and len(shapes[0]) == 2 + bool(stacked) \
-        else (None, None)
-    h2 = shapes[2][-1] if len(shapes) == _TOWER and shapes[2] else None
-    want = [lead + s for s in ((d, h1), (h1,), (h1, h2), (h2,), (h2, outputs), (outputs,))]
-    if shapes != want or d is None or _cuda.policy_shared_bytes(bool(stacked), d, h1, h2) == 0:
-        takes = ", ".join(str(h) for h in _cuda.MLP_HIDDEN)
-        raise ValueError(f"{name}: the kernel takes towers of three layers with {outputs} "
-                         f"outputs at hidden {takes}, whose weights fit a block; got tensors "
-                         f"{shapes}")
-    return d, h1, h2
+    """(D, *hidden) of one tower's 2 (L + 1) tensors of ``outputs`` outputs (with
+    ``stacked`` P > 0, each with a leading axis of P) that a route of the kernels
+    takes (``_cuda.mlp_route``), or a raise."""
+    dims = tower_shapes(leaves, outputs, stacked)
+    if dims is None:
+        raise ValueError(f"{name}: the kernel takes towers obs_dim -> hidden -> {outputs} "
+                         f"outputs; got tensors {[tuple(t.shape) for t in leaves]}")
+    _cuda.mlp_route(dims[0], dims[1:])  # raises past the general route's limits
+    return dims
 
 
 def _check_obs(name: str, obs, d: int) -> None:
@@ -133,12 +140,13 @@ def _launch_act(name, params, obs, log_std=None, noise=None, norm=None, t=None, 
     any stride, each contiguous), ``noise`` [steps, n, 2] or [n, 2] (None: greedy)
     with ``log_std`` [2], ``norm`` an ``ObsNormState`` or None, ``t`` int64 [1] on
     the card (None: row 0), and the outputs (None: not written)."""
-    global policy_act_launches
+    global policy_act_launches, policy_general_act_launches
     dev = obs.device
     actor = _layers(params, "actor")
-    d, h1, h2 = _tower_dims(actor, 2, name)
+    dims = _tower_dims(actor, 2, name)
+    d = dims[0]
     critic_leaves = _layers(params, "critic") if critic else []
-    if critic_leaves and _tower_dims(critic_leaves, 1, name) != (d, h1, h2):
+    if critic_leaves and _tower_dims(critic_leaves, 1, name) != dims:
         raise ValueError(f"{name}: the critic's towers differ from the actor's")
     _check_obs(name, obs, d)
     n = obs.shape[0]
@@ -158,11 +166,15 @@ def _launch_act(name, params, obs, log_std=None, noise=None, norm=None, t=None, 
     if n == 0:
         return
     ptrs = ([obs, t, noise, mean, var, log_std if noise is not None else None] + actor
-            + (critic_leaves or [None] * _TOWER) + outs)
+            + (critic_leaves or [None] * len(actor)) + outs)
+    stride = obs.stride(0) if n > 1 else d
     with torch.cuda.device(dev):
-        _cuda.launch_policy_act(ptrs, n, steps, obs.stride(0) if n > 1 else d, (d, h1, h2),
-                                _act_constants())
-    policy_act_launches += 1
+        if _cuda.mlp_route(d, dims[1:]) == "general":
+            _cuda.launch_policy_general_act(ptrs, n, steps, stride, dims, _act_constants())
+            policy_general_act_launches += 1
+        else:
+            _cuda.launch_policy_act(ptrs, n, steps, stride, dims, _act_constants())
+            policy_act_launches += 1
 
 
 def sample_action(params, log_std, obs, noise):
@@ -196,6 +208,19 @@ def policy_action(params, log_std, obs, noise=None, norm=None):
     _launch_act("policy_action", params, obs, log_std, noise, norm, action=action,
                 critic=False)
     return action
+
+
+def policy_value(params, obs):
+    """The critic's value [n] of ``obs`` [n, D]: on the card one launch of kernel A
+    (both towers, greedy, the action into a scratch), bitwise the value that the
+    minibatch forward (``ops/mlp.py``) gives each row, and row-invariant; on the CPU
+    and a tensor-parallel rank ``net.critic_value``."""
+    if not whole_towers(params, obs):
+        return net.critic_value(params, obs)
+    action = obs.new_empty((obs.shape[0], 2))
+    value = obs.new_empty((1, obs.shape[0]))
+    _launch_act("policy_value", params, obs, action=action, value_rows=value)
+    return value[0]
 
 
 def policy_action_plain(params, log_std, obs, noise=None, norm=None):
@@ -254,7 +279,7 @@ def pool_act(actor, log_std, obs, noise=None, member=None, mean=None, var=None,
              uniforms=None, use_policy=None, low=None, high=None, first=None):
     """A pool of frozen actors on the card, one launch of kernel B.
 
-    ``actor``: the pool's actor layers, stacked [(w [P, in, out], b [P, out])] * 3;
+    ``actor``: the pool's actor layers, stacked [(w [P, in, out], b [P, out])] * (L + 1);
     ``log_std`` [P, 2]; ``obs`` [envs, seats, D] (seat and feature axes contiguous,
     envs at any stride: a view of the env's [envs, cars, D] observations), row r of
     the launch seat r % seats of env r // seats; ``member`` the rows' members: an
@@ -265,12 +290,13 @@ def pool_act(actor, log_std, obs, noise=None, member=None, mean=None, var=None,
     floats each): where ``use_policy`` is False the action is ``maximum(low, u * (high
     - low) + low)``. Returns the actions [envs, seats, 2], or with ``first`` [envs, 2]
     (the learner's) [envs, 1 + seats, 2] with ``first`` as car 0."""
-    global pool_act_launches
+    global pool_act_launches, pool_general_act_launches
     name = "pool_act"
     dev = obs.device
     leaves = [t for layer in actor for t in layer]
     members = leaves[0].shape[0] if leaves and leaves[0].ndim == 3 else 0
-    d, h1, h2 = _tower_dims(leaves, 2, name, stacked=members)
+    dims = _tower_dims(leaves, 2, name, stacked=members)
+    d = dims[0]
     _check_cuda(name, dev, leaves)
     if obs.dtype != torch.float32 or obs.ndim != 3 or obs.shape[2] != d \
             or (obs.shape[2] > 1 and obs.stride(2) != 1) \
@@ -321,9 +347,13 @@ def pool_act(actor, log_std, obs, noise=None, member=None, mean=None, var=None,
                                                   (*map(_f32, low), *map(_f32, high))))
     ptrs = [obs, *leaves, log_std if noise is not None else None, mean, var, index, noise,
             uniforms, use, first, out]
+    args = (rows, seats, cars, int(first is not None), obs.stride(0) if envs > 1 else seats * d,
+            members, kind, wide, use is not None and use.ndim == 1, dims, consts)
     with torch.cuda.device(dev):
-        _cuda.launch_pool_act(ptrs, rows, seats, cars, int(first is not None),
-                              obs.stride(0) if envs > 1 else seats * d, members, kind, wide,
-                              use is not None and use.ndim == 1, (d, h1, h2), consts)
-    pool_act_launches += 1
+        if _cuda.mlp_route(d, dims[1:]) == "general":
+            _cuda.launch_policy_general_pool(ptrs, *args)
+            pool_general_act_launches += 1
+        else:
+            _cuda.launch_pool_act(ptrs, *args)
+            pool_act_launches += 1
     return out

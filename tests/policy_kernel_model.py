@@ -1,4 +1,5 @@
-"""A CPU model of the rollout policy's two kernels (``csrc/policy.cu``), in float32
+"""A CPU model of the rollout policy's two kernels (``csrc/policy.cu``, and on the
+general route ``csrc/policy_general.cu``), in float32
 PyTorch operations in the kernels' order, taking the tensors that
 ``ops/_cuda.py:launch_policy_act`` and ``launch_pool_act`` turn into pointers.
 
@@ -18,6 +19,8 @@ from self_play_racing_tpu_torch.ops import _cuda
 LOW = (-1.0, 0.0)
 HIGH = (1.0, 1.0)
 calls = {"policy_act": 0, "pool_act": 0}
+# the general route's launches (csrc/policy_general.cu)
+general_calls = {"policy_act": 0, "pool_act": 0}
 
 
 def _invalid(what):
@@ -37,18 +40,32 @@ def log_prob(action, mu, log_std, half_log_2pi):
     return (terms[..., 0] + terms[..., 1]) + 0.0
 
 
-def policy_act(ptrs, n, steps, stride, dims, consts):
-    """``policy_act_f32`` on the tensors ``ptrs`` (``ops/_cuda.py``'s order)."""
-    calls["policy_act"] += 1
-    if len(ptrs) != _cuda.POLICY_ACT_PTRS or len(consts) != 3 or n < 0 or steps < 1:
+def _takes(general: bool, kind: str, dims) -> bool:
+    """Whether the route's kernel takes towers ``dims``: the compiled one as its
+    shared bytes say, the general one where ``mlp_route`` sends them there."""
+    if not general:
+        return _cuda.policy_shared_bytes(kind == "pool", *dims) > 0
+    try:
+        return _cuda.mlp_route(dims[0], dims[1:]) == "general"
+    except ValueError:
+        return False
+
+
+def policy_act(ptrs, n, steps, stride, dims, consts, general=False):
+    """``policy_act_f32`` (``general``: ``policy_general_act_f32``) on the tensors
+    ``ptrs`` (``ops/_cuda.py``'s order)."""
+    (general_calls if general else calls)["policy_act"] += 1
+    per = 2 * len(dims)
+    if len(ptrs) != 6 + 2 * per + 5 or (not general and len(ptrs) != _cuda.POLICY_ACT_PTRS) \
+            or len(consts) != 3 or n < 0 or steps < 1:
         _invalid("counts")
     obs, t, noise, mean, var, log_std = ptrs[:6]
-    w = ptrs[6:18]
-    action, obs_rows, action_rows, lp_rows, v_rows = ptrs[18:]
+    w = ptrs[6:6 + 2 * per]
+    action, obs_rows, action_rows, lp_rows, v_rows = ptrs[6 + 2 * per:]
     d = dims[0]
-    if stride < d or _cuda.policy_shared_bytes(False, *dims) == 0:
+    if stride < d or not _takes(general, "act", dims):
         _invalid("shape")
-    actor, critic = w[:6], w[6:]
+    actor, critic = w[:per], w[per:]
     if any(x is None for x in actor) or (any(x is None for x in critic)
                                          and any(x is not None for x in critic)):
         _invalid("towers")
@@ -66,7 +83,7 @@ def policy_act(ptrs, n, steps, stride, dims, consts):
     row = 0 if t is None else int(t[0])
     if not 0 <= row < steps:
         _invalid("t")
-    pairs = lambda ts: [(ts[i], ts[i + 1]) for i in range(0, 6, 2)]
+    pairs = lambda ts: [(ts[i], ts[i + 1]) for i in range(0, per, 2)]
     mu = net.actor_mu({"actor": pairs(actor)}, x)
     act = mu
     if noise is not None:
@@ -85,16 +102,18 @@ def policy_act(ptrs, n, steps, stride, dims, consts):
 
 
 def pool_act(ptrs, rows, seats, cars, off, env_stride, members, kind, member64, use_per_env,
-             dims, consts):
-    """``pool_act_f32`` on the tensors ``ptrs`` (``ops/_cuda.py``'s order)."""
-    calls["pool_act"] += 1
-    d = dims[0]
-    if len(ptrs) != _cuda.POOL_ACT_PTRS or len(consts) != 6 or rows < 0 or seats < 1 \
+             dims, consts, general=False):
+    """``pool_act_f32`` (``general``: ``policy_general_pool_f32``) on the tensors
+    ``ptrs`` (``ops/_cuda.py``'s order)."""
+    (general_calls if general else calls)["pool_act"] += 1
+    d, per = dims[0], 2 * len(dims)
+    if len(ptrs) != 1 + per + 9 or (not general and len(ptrs) != _cuda.POOL_ACT_PTRS) \
+            or len(consts) != 6 or rows < 0 or seats < 1 \
             or off < 0 or off + seats > cars or env_stride < seats * d or members < 1 \
-            or _cuda.policy_shared_bytes(True, *dims) == 0:
+            or not _takes(general, "pool", dims):
         _invalid("shape")
-    obs, *w = ptrs[:7]
-    log_std, mean, var, member, noise, uniforms, use, first, out = ptrs[7:]
+    obs, *w = ptrs[:1 + per]
+    log_std, mean, var, member, noise, uniforms, use, first, out = ptrs[1 + per:]
     if (mean is None) != (var is None) or (noise is not None and log_std is None) \
             or ((kind == _cuda.POOL_SEAT) != (member is None)) \
             or (kind == _cuda.POOL_SEAT and members != cars) \
@@ -118,7 +137,7 @@ def pool_act(ptrs, rows, seats, cars, off, env_stride, members, kind, member64, 
     mu = torch.empty((rows, 2), dtype=torch.float32)
     for p in range(members):
         sel = m == p
-        layers = [(w[i][p], w[i + 1][p]) for i in range(0, 6, 2)]
+        layers = [(w[i][p], w[i + 1][p]) for i in range(0, per, 2)]
         mu[sel] = net.actor_mu({"actor": layers}, x[sel])
     act = mu
     if noise is not None:
@@ -147,6 +166,10 @@ def patch(monkeypatch, on_cpu_kernels: bool = True):
 
     monkeypatch.setattr(_cuda, "launch_policy_act", policy_act)
     monkeypatch.setattr(_cuda, "launch_pool_act", pool_act)
+    monkeypatch.setattr(_cuda, "launch_policy_general_act",
+                        lambda *a: policy_act(*a, general=True))
+    monkeypatch.setattr(_cuda, "launch_policy_general_pool",
+                        lambda *a: pool_act(*a, general=True))
     if on_cpu_kernels:
         monkeypatch.setattr(polops, "_on_cuda", lambda t, name: True)
         monkeypatch.setattr(selfplay, "_on_cuda", lambda t, name: True)

@@ -1943,10 +1943,11 @@ def test_mlp_kernels_in_a_graph_are_eager_bitwise(cuda):
 
 
 def test_mlp_kernels_refuse_what_they_do_not_take(cuda):
-    """No fallback: float64, non-contiguous tensors, hidden widths outside
-    ``_cuda.MLP_HIDDEN`` and an obs_dim past a block's shared memory raise before any
-    launch, the wrapper's least shared bytes being the kernel's
-    (``chip_smoke.mlp_refusals``), and so do unit ids that are not int64."""
+    """No fallback: float64, non-contiguous tensors, unit ids that are not int64 and
+    towers past the general route's limits raise before any launch, the wrapper's
+    least shared bytes being the compiled kernel's (``chip_smoke.mlp_refusals``;
+    towers outside ``_cuda.MLP_HIDDEN`` and obs_dims past the compiled kernels'
+    memory take the general route, ``test_general_route_*``)."""
     chip_smoke.mlp_refusals(cuda)
     case = chip_smoke.mlp_case(19, (64, 64), 256, seed=0)
     params, _, obs, _, _ = chip_smoke.mlp_tensors(case, cuda)
@@ -1960,6 +1961,42 @@ def test_mlp_kernels_refuse_what_they_do_not_take(cuda):
         mlpops.actor_critic_mlp({"actor": params["actor"][:2], "critic": params["critic"]},
                                 obs)
     assert chip_smoke.mlp_counts() == before
+
+
+@pytest.mark.parametrize("dims", chip_smoke.GENERAL_TOWERS + chip_smoke.GENERAL_WIDE)
+def test_general_route_matches_the_plain_composition(cuda, dims):
+    """The general route's forward, backward and norm within phase p's rule of the
+    plain composition at 1 and 4095 rows, run to run and by unit ids bitwise, graphed
+    against eager and the forward's rows alone bitwise (``chip_smoke.hold_general``,
+    ``general_graph_and_rows``)."""
+    for n in (1, 4095):
+        chip_smoke.hold_general(dims, n, cuda, seed=n + sum(dims))
+    chip_smoke.general_graph_and_rows(dims, cuda)
+
+
+@pytest.mark.parametrize("dims", chip_smoke.GENERAL_TOWERS + chip_smoke.GENERAL_WIDE)
+def test_general_policy_kernels_give_the_forwards_bits(cuda, dims):
+    """Kernels A and B on the general route: mu and v bitwise the general forward's
+    (``chip_smoke.general_policy_bits``)."""
+    chip_smoke.general_policy_bits(dims, 4095, cuda, seed=sum(dims))
+
+
+@pytest.mark.parametrize("dims", chip_smoke.GENERAL_TOWERS + chip_smoke.GENERAL_WIDE)
+def test_general_plans_are_the_kernels(cuda, dims):
+    for kind, stem, fn in (("forward", "mlp_general", "mlp_general_plan"),
+                           ("backward", "mlp_general", "mlp_general_plan"),
+                           ("act", "policy_general", "policy_general_plan"),
+                           ("pool", "policy_general", "policy_general_plan")):
+        assert _cuda.kernel_plan(stem, fn, kind, dims) == \
+            _cuda.general_plan(kind, dims).as_tuple()
+    for n in (1, 4095, 65_536):
+        assert _cuda.kernel_partial_rows(n, dims) == _cuda.general_partial_rows(n, dims)
+
+
+def test_general_backward_refuses_buffers_of_another_size(cuda):
+    """The general backward's entry is told the partials' shape and the scratch's
+    size and refuses any other than its plan's (``chip_smoke.general_sizes_refused``)."""
+    chip_smoke.general_sizes_refused(cuda)
 
 
 @pytest.mark.parametrize("cars", range(1, 9))
@@ -2140,7 +2177,7 @@ def test_rollout_launches_the_policy_kernels_and_the_first_minibatch_ratio_is_on
                           str(64 * 2048 * 2), "--num-updates", "2"])
     launches = {k: n - before[k] for k, n in chip_smoke.read_counts().items()}
     steps = 2 * tr.cfg.num_steps
-    want = chip_smoke.policy(steps, selfplay=mode == "scale")
+    want = chip_smoke.policy(steps, selfplay=mode == "scale", updates=2)
     assert {k: launches[k] for k in want} == want
     chip_smoke.first_minibatches_exact(first, f"train {mode}")
 

@@ -396,31 +396,44 @@ def test_check_takes_the_instantiated_towers(obs_dim, hidden):
     assert mlpops._check_towers(units, torch.tensor([1, 0]), leaves) == (obs_dim,) + hidden
 
 
-@pytest.mark.parametrize("what", ["float64", "non-contiguous obs", "towers (19, 64, 32)",
-                                  "obs 73 at (128, 128)", "obs 249", "towers (19, 96, 96)",
-                                  "a third hidden layer", "int32 unit ids",
-                                  "obs [n, d] with unit ids", "obs 11 against towers of 19"])
+@pytest.mark.parametrize("obs_dim,hidden", [(19, (64, 32)), (73, (128, 128)), (249, (64, 64)),
+                                            (19, (96, 96)), (19, (64, 64, 64))])
+def test_check_takes_the_general_towers(obs_dim, hidden):
+    """Towers the compiled kernels do not take go to the general route
+    (``_cuda.mlp_route``), checked as the compiled ones are."""
+    _, leaves, obs = _leaves(obs_dim, hidden)
+    assert _cuda.mlp_route(obs_dim, hidden) == "general"
+    assert mlpops._check_towers(obs, None, leaves) == (obs_dim,) + hidden
+
+
+@pytest.mark.parametrize("what", ["float64", "non-contiguous obs", "towers (19, 64, 1025)",
+                                  "obs 1025 at (128, 128)", "eight hidden layers",
+                                  "a critic of other widths", "a last layer of 3 outputs",
+                                  "int32 unit ids", "obs [n, d] with unit ids",
+                                  "obs 11 against towers of 19"])
 def test_check_refuses_what_the_kernels_do_not_take(what):
     """What a CUDA tensor would raise on, before any launch (``_check_towers`` on CPU
-    tensors; on the card ``tests/test_torch_cuda_kernels.py`` and phase p)."""
+    tensors; on the card ``tests/test_torch_cuda_kernels.py`` and phase p): float64,
+    non-contiguous, towers past the general route's limits (widths and obs_dim to
+    1024, 7 hidden layers) or not an actor-critic pair."""
     params, leaves, obs = _leaves(19, (64, 64))
     ids = None
     if what == "float64":
         _, leaves, obs = _leaves(19, (64, 64), torch.float64)
     elif what == "non-contiguous obs":
         obs = obs.t().contiguous().t()
-    elif what == "towers (19, 64, 32)":
-        _, leaves, obs = _leaves(19, (64, 32))
-    elif what == "obs 73 at (128, 128)":
-        _, leaves, obs = _leaves(73, (128, 128))
-    elif what == "obs 249":
-        _, leaves, obs = _leaves(249, (64, 64))
-    elif what == "towers (19, 96, 96)":
-        _, leaves, obs = _leaves(19, (96, 96))
+    elif what == "towers (19, 64, 1025)":
+        _, leaves, obs = _leaves(19, (64, 1025))
+    elif what == "obs 1025 at (128, 128)":
+        _, leaves, obs = _leaves(1025, (128, 128))
+    elif what == "eight hidden layers":
+        _, leaves, obs = _leaves(19, (8,) * 8)
+    elif what == "a critic of other widths":
+        leaves = leaves[:6] + _leaves(19, (96, 96))[1][6:]
+    elif what == "a last layer of 3 outputs":
+        leaves = leaves[:4] + [torch.zeros(64, 3), torch.zeros(3)] + leaves[6:]
     elif what == "obs 11 against towers of 19":
         obs = _leaves(11, (64, 64))[2]
-    elif what == "a third hidden layer":
-        _, leaves, obs = _leaves(19, (64, 64, 64))
     elif what == "int32 unit ids":
         obs, ids = obs.reshape(2, 4, 19), torch.tensor([0, 1], dtype=torch.int32)
     else:

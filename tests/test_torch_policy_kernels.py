@@ -407,8 +407,8 @@ def _refusals():
         "two layers": lambda: polops.deterministic_action({"actor": p["actor"][:2]}, obs),
         "a critic of other inputs": lambda: polops.sample_action(
             {"actor": p["actor"], "critic": _act_case(15)[0]["critic"]}, ls, obs, noise),
-        "an obs_dim past a block": lambda: polops.deterministic_action(
-            _act_case(200, 10, (128, 128))[0], _act_case(200, 10, (128, 128))[2]),
+        "an obs_dim past the general route's": lambda: polops.deterministic_action(
+            _act_case(1025, 10, (128, 128))[0], _act_case(1025, 10, (128, 128))[2]),
         "noise of another shape": lambda: polops.sample_action(p, ls, obs, noise[:7]),
         "a log_std of another shape": lambda: polops.sample_action(p, ls[:1], obs, noise),
         "t of another dtype": lambda: polops.rollout_sample(

@@ -398,15 +398,17 @@ r. r.1 (after o.1) the four entries in their autoreset mode against the composit
    buffers, ``extra`` and the final state bitwise, the autoreset mode launched once
    a step; a captured rollout step's kernel and copy nodes and its device ms a step,
    in turns.
-s. the general route (``csrc/mlp_general.cu``, ``csrc/policy_general.cu`` on
-   ``csrc/mlp_stream.cuh``: towers the compiled kernels do not take): s.1 (after q)
+s. the general route (``csrc/mlp_general.cu``'s layer-major forward and backward,
+   ``csrc/policy_general.cu`` on ``csrc/mlp_stream.cuh``: towers the compiled kernels
+   do not take): s.1 (after q)
    at every tower of ``GENERAL_TOWERS`` x ``GENERAL_ROWS`` and ``GENERAL_WIDE`` x
    ``GENERAL_WIDE_ROWS`` the forward, backward and norm within phase p's rule of the
    plain composition (``hold_general``), run to run, by unit ids against the gathered
    rows, graphed against eager and the forward's first rows alone bitwise, kernels A
    and B bitwise the forward's mu and v (``general_policy_bits``), each kernel's plan
-   the library's own; each timed eager and in a CUDA graph beside the composition and
-   the 3xTF32 bound at ``GENERAL_TIMED``, and ``adam_tail`` on (19, 256, 256)'s
+   the library's own; each timed eager and in a CUDA graph beside the composition
+   (the forward in a graph, autograd's backward eager and in a graph) and the 3xTF32
+   bound at ``GENERAL_TIMED``, and ``adam_tail`` on (19, 256, 256)'s
    parameters; s.2 (after the self-play entry points) two graphed ``train scale``
    updates at hidden (256, 256), first minibatches exact, graphed = ``eager=True`` =
    an NCCL group of one bitwise, the captured rollout and minibatch steps' kernel
@@ -7557,13 +7559,29 @@ def general_direct(dims, n: int, dev, seed: int):
     return run, (mu, v, flat, norm), (obs, w, g_mu, g_v, partial)
 
 
+def general_kept_is_computed_again(dims, n: int, dev, seed: int) -> None:
+    """The general backward that reads the activations a forward with ``keep`` left in
+    its scratch (the minibatch step's, ``MLPTowers``) writes the partials bit for bit
+    as the one that computes them again."""
+    _, (mu, v, _, _), (obs, w, g_mu, g_v, partial) = general_direct(dims, n, dev, seed)
+    scratch = _cuda.general_scratch(n, dims, dev)
+    again = torch.empty_like(partial)
+    _cuda.launch_mlp_general_forward(obs, None, w, mu, v, n, dims, scratch, True)
+    _cuda.launch_mlp_general_backward(obs, None, w, g_mu, g_v, partial, n, dims, scratch, True)
+    _cuda.launch_mlp_general_backward(obs, None, w, g_mu, g_v, again, n, dims)
+    torch.cuda.synchronize()
+    if not same_bits(partial, again):
+        raise AssertionError(f"phase s {dims} at {n} rows: the backward on the kept "
+                             f"activations differs from the one that computes them again")
+
+
 def general_sizes_refused(dev) -> None:
     """The general backward's entry refuses partials of another shape than its plan's
-    (a row short, a row over, a column short) and, at (19, 1024, 1024), a scratch a
-    float short, before it launches: nothing is written past a buffer or left
-    unwritten for the reduce to sum."""
+    (a row short, a row over, a column short) and a scratch a float short, and the
+    forward's a scratch a float short, before they launch: nothing is written past a
+    buffer or left unwritten for the reduce to sum."""
     for dims, n in (((19, 256, 256), 4095), ((19, 1024, 1024), 100)):
-        _, _, (obs, w, g_mu, g_v, partial) = general_direct(dims, n, dev, seed=7)
+        _, (mu, v, _, _), (obs, w, g_mu, g_v, partial) = general_direct(dims, n, dev, seed=7)
         rows, cols = partial.shape
         cases = [torch.empty((rows - 1, cols), device=dev), torch.empty((rows + 1, cols),
                                                                         device=dev),
@@ -7575,14 +7593,17 @@ def general_sizes_refused(dev) -> None:
                 continue
             raise AssertionError(f"phase s: the general backward at {dims} x {n} took "
                                  f"partials {tuple(bad.shape)}, its plan's are {(rows, cols)}")
-        if _cuda.general_plan("backward", dims).acts_global:
-            short = _cuda.general_scratch(n, dims, dev)[:-1]
+        for kind, launch in (
+                ("backward", lambda x: _cuda.launch_mlp_general_backward(
+                    obs, None, w, g_mu, g_v, partial, n, dims, x)),
+                ("forward", lambda x: _cuda.launch_mlp_general_forward(obs, None, w, mu, v, n,
+                                                                       dims, x))):
+            short = _cuda.general_scratch(n, dims, dev, kind)[:-1]
             try:
-                _cuda.launch_mlp_general_backward(obs, None, w, g_mu, g_v, partial, n, dims,
-                                                  short)
+                launch(short)
             except RuntimeError:
                 continue
-            raise AssertionError(f"phase s: the general backward at {dims} x {n} took a "
+            raise AssertionError(f"phase s: the general {kind} at {dims} x {n} took a "
                                  f"scratch a float short")
     torch.cuda.synchronize()
 
@@ -7682,22 +7703,22 @@ def check_general_kernels(dev, card) -> dict:
     (the plain composition, the norm, run to run, the unit ids), the graph and the
     row-invariance (``general_graph_and_rows``), kernels A and B bitwise the forward
     (``general_policy_bits``), and each kernel's plan as the library gives it equal to
-    ``_cuda.general_plan``. Returns the errors by (towers, rows)."""
+    ``_cuda.general_gemm_plan`` and ``_cuda.general_plan``. Returns the errors by
+    (towers, rows)."""
     out = {}
     towers = [(d, n) for d in GENERAL_TOWERS for n in GENERAL_ROWS] + \
         [(d, n) for d in GENERAL_WIDE for n in GENERAL_WIDE_ROWS]
     for i, (dims, n) in enumerate(towers):
         if _cuda.mlp_route(dims[0], dims[1:]) != "general":
             raise AssertionError(f"phase s: {dims} takes the compiled route")
-        for kind, (stem, fn) in (("forward", ("mlp_general", "mlp_general_plan")),
-                                 ("backward", ("mlp_general", "mlp_general_plan")),
-                                 ("act", ("policy_general", "policy_general_plan")),
-                                 ("pool", ("policy_general", "policy_general_plan"))):
-            mine = _cuda.general_plan(kind, dims).as_tuple()
-            theirs = _cuda.kernel_plan(stem, fn, kind, dims)
+        plans = [(kind, _cuda.general_gemm_plan(kind, dims, n).as_tuple(),
+                  _cuda.kernel_gemm_plan(kind, dims, n)) for kind in ("forward", "backward")]
+        plans += [(kind, _cuda.general_plan(kind, dims).as_tuple(), _cuda.kernel_plan(kind, dims))
+                  for kind in ("act", "pool")]
+        for kind, mine, theirs in plans:
             if mine != theirs:
-                raise AssertionError(f"phase s: the {kind} plan at {dims}: kernel {theirs}, "
-                                     f"ops/_cuda.py {mine}")
+                raise AssertionError(f"phase s: the {kind} plan at {dims} x {n}: kernel "
+                                     f"{theirs}, ops/_cuda.py {mine}")
         if _cuda.kernel_partial_rows(n, dims) != _cuda.general_partial_rows(n, dims):
             raise AssertionError(f"phase s: the backward's partial rows at {dims} x {n}: "
                                  f"kernel {_cuda.kernel_partial_rows(n, dims)}, ops/_cuda.py "
@@ -7710,6 +7731,7 @@ def check_general_kernels(dev, card) -> dict:
               f"{out[dims, n]['f64_plain']:.3e}; run to run bitwise")
     general_sizes_refused(dev)
     for i, dims in enumerate(GENERAL_TOWERS + GENERAL_WIDE):
+        general_kept_is_computed_again(dims, 4095, dev, seed=700 + i)
         general_graph_and_rows(dims, dev)
         for n in (1, 4095):
             general_policy_bits(dims, n, dev, seed=500 + i)
@@ -7717,7 +7739,8 @@ def check_general_kernels(dev, card) -> dict:
           f"{MLP_CONTROL_FACTOR} x the two-halves control) of the plain composition at "
           f"{len(out)} (towers, rows) (largest ratio "
           f"{max(r['ratio'] for r in out.values()):.3f}), the norm within norm_bound's rule; "
-          f"run to run, graphed against eager, unit ids against gathered rows and the "
+          f"run to run, graphed against eager, unit ids against gathered rows, the backward "
+          f"on the forward's kept activations against the one computing them again and the "
           f"forward's rows alone bitwise; kernels A and B bitwise the forward's mu and v at "
           f"1 and 4095 rows of every tower; the plans equal the kernels', on {card}")
     return out
@@ -7732,6 +7755,47 @@ def general_macs(dims):
     backward = 2 * sum(2 * a * b for a, b in layers[1:]) + 2 * layers[0][0] * layers[0][1] \
         + 2 * 3 * dims[-1]
     return forward, backward
+
+
+def autograd_graph_ms(fn, windows=21, launches=20):
+    """``graph_ms`` of ``fn`` (an autograd backward of the plain composition), captured
+    as ``torch.cuda.make_graphed_callables`` captures a backward: warmed up on a side
+    stream first, the capture's error mode relaxed (the autograd engine's thread
+    launches the backward's kernels), once more where that fails (a process's first
+    such capture has failed on the card and the next held). None where both fail (the
+    composition's backward is then timed eager alone)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    for _ in range(2):
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+                for _ in range(launches):
+                    fn()
+            break
+        except RuntimeError as err:
+            torch.cuda.synchronize()
+            print(f"phase s: autograd's backward did not capture in a CUDA graph "
+                  f"({str(err).splitlines()[0]})")
+    else:
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
 
 
 def general_bounds_ms(dims, n: int) -> dict:
@@ -7755,8 +7819,11 @@ def time_general_kernels(dev, card, checked) -> list:
     """The kernels line's entries for the general route's four kernels: the forward
     and the backward (with the reduce, which ``mlp_grad_reduce``'s entry times) at
     ``GENERAL_TIMED`` (65,536 rows; (19, 1024, 1024) at 4095), eager and in a CUDA
-    graph, beside the plain composition (cuBLAS and autograd: the forward eager and
-    in a graph, the backward eager) and the 3xTF32 bound; kernels A (the rollout
+    graph, as the minibatch step runs them (the forward keeping its activations for
+    the backward where ``_cuda.general_keeps``; the backward that computes them again
+    beside), next to the plain composition (cuBLAS and autograd: the forward eager and
+    in a graph, autograd's backward with its forward and alone on a kept graph, each
+    eager and in a graph, ``autograd_graph_ms``) and the 3xTF32 bound; kernels A (the rollout
     step's launch) and B (a pool of ``POOL_MEMBERS`` per env) at 4096 rows beside the
     composition's ``sample_action_plain`` and ``opponent_actions_plain``."""
     at, policy_at = {}, {}
@@ -7764,9 +7831,14 @@ def time_general_kernels(dev, card, checked) -> list:
         n = 4095 if dims == (19, 1024, 1024) else 65_536
         run, _, (obs, w, g_mu, g_v, partial) = general_direct(dims, n, dev, seed=61)
         mu, v = torch.empty((n, 2), device=dev), torch.empty((n,), device=dev)
-        fwd = lambda: _cuda.launch_mlp_general_forward(obs, None, w, mu, v, n, dims)
+        keep = _cuda.general_keeps(n, dims)
+        scratch = _cuda.general_scratch(n, dims, dev, "backward" if keep else "forward")
+        fwd = lambda: _cuda.launch_mlp_general_forward(obs, None, w, mu, v, n, dims, scratch,
+                                                       keep)
         bwd = lambda: _cuda.launch_mlp_general_backward(obs, None, w, g_mu, g_v, partial, n,
-                                                        dims)
+                                                        dims, scratch if keep else None, keep)
+        again = lambda: _cuda.launch_mlp_general_backward(obs, None, w, g_mu, g_v, partial, n,
+                                                          dims)
         params = {"actor": [(w[i], w[i + 1]) for i in range(0, len(w) // 2, 2)],
                   "critic": [(w[i], w[i + 1]) for i in range(len(w) // 2, len(w), 2)]}
         leaves = [x.clone().requires_grad_() for x in w]
@@ -7776,21 +7848,35 @@ def time_general_kernels(dev, card, checked) -> list:
         plain_f = lambda: mlpops.actor_critic_mlp_plain(params, obs)
         plain_b = lambda: torch.autograd.grad(mlpops.actor_critic_mlp_plain(grad_params, obs),
                                               leaves, (g_mu, g_v))
+        kept = mlpops.actor_critic_mlp_plain(grad_params, obs)
+        plain_alone = lambda: torch.autograd.grad(kept, leaves, (g_mu, g_v), retain_graph=True)
         b = general_bounds_ms(dims, n)
+        plain_b_graph = autograd_graph_ms(plain_b)
+        plain_alone_graph = autograd_graph_ms(plain_alone)
+        fwd_graph = graph_ms(fwd)  # leaves the kept activations for bwd
         row = at["x".join(map(str, dims)) + f"_{n}_rows"] = {
-            "forward_ms": per_launch_ms(fwd), "forward_graph_ms": graph_ms(fwd),
+            "forward_ms": per_launch_ms(fwd), "forward_graph_ms": fwd_graph,
             "forward_plain_ms": per_launch_ms(plain_f),
             "forward_plain_graph_ms": graph_ms(plain_f),
             "forward_bound_ms": b["forward"][0], "forward_ffma_bound_ms": b["forward_ffma"],
             "backward_ms": per_launch_ms(bwd), "backward_graph_ms": graph_ms(bwd),
-            "backward_plain_ms": per_launch_ms(plain_b), "backward_bound_ms": b["backward"][0],
+            "backward_kept": keep, "backward_again_graph_ms": graph_ms(again),
+            "backward_plain_ms": per_launch_ms(plain_b), "backward_plain_graph_ms": plain_b_graph,
+            "backward_alone_plain_ms": per_launch_ms(plain_alone),
+            "backward_alone_plain_graph_ms": plain_alone_graph,
+            "backward_bound_ms": b["backward"][0],
             "recompute_bound_ms": b["recompute"], "backward_ffma_bound_ms": b["backward_ffma"],
-            "forward_plan": _cuda.general_plan("forward", dims).as_tuple(),
-            "backward_plan": _cuda.general_plan("backward", dims).as_tuple()}
+            "forward_plan": _cuda.general_gemm_plan("forward", dims, n).as_tuple(),
+            "backward_plan": _cuda.general_gemm_plan("backward", dims, n).as_tuple()}
         print(f"phase s {dims} at {n} rows: forward {row['forward_graph_ms'] * 1e3:.1f} us in a "
               f"graph (composition {row['forward_plain_graph_ms'] * 1e3:.1f}, bound "
               f"{b['forward'][0] * 1e3:.1f}); backward {row['backward_graph_ms'] * 1e3:.1f} us "
-              f"(composition eager {row['backward_plain_ms'] * 1e3:.1f}, bound "
+              f"(activations kept {keep}; computed again "
+              f"{row['backward_again_graph_ms'] * 1e3:.1f}; autograd with its forward eager "
+              f"{row['backward_plain_ms'] * 1e3:.1f}, in a graph "
+              f"{plain_b_graph * 1e3 if plain_b_graph else float('nan'):.1f}, alone eager "
+              f"{row['backward_alone_plain_ms'] * 1e3:.1f}, in a graph "
+              f"{plain_alone_graph * 1e3 if plain_alone_graph else float('nan'):.1f}; bound "
               f"{b['backward'][0] * 1e3:.1f} + recompute {b['recompute'] * 1e3:.1f}) on {card}")
     for dims in ((19, 32, 16, 8), GENERAL_SLICE):
         c = policy_case(dims, 4096, 71, dev)
@@ -7874,7 +7960,11 @@ def time_general_kernels(dev, card, checked) -> list:
         {"name": "mlp_general_backward", **common, "source": mlp_src, "rows": 65_536,
          "replaces": "self_play_racing_tpu/agent/ppo.py:313",
          "ms": main_mlp["backward_graph_ms"], "eager_ms": main_mlp["backward_ms"],
-         "plain_ms": main_mlp["backward_plain_ms"], "bound_ms": b["backward"][0],
+         "plain_ms": main_mlp["backward_plain_ms"],
+         "plain_graph_ms": main_mlp["backward_plain_graph_ms"],
+         "plain_alone_ms": main_mlp["backward_alone_plain_ms"],
+         "plain_alone_graph_ms": main_mlp["backward_alone_plain_graph_ms"],
+         "again_ms": main_mlp["backward_again_graph_ms"], "bound_ms": b["backward"][0],
          "bound_by": b["backward"][1], "recompute_bound_ms": b["recompute"]},
         {"name": "mlp_general_grad_reduce", **common, "source": mlp_src, "rows": 65_536,
          "replaces": "self_play_racing_tpu/agent/ppo.py:313",

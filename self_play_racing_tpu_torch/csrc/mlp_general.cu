@@ -1,7 +1,7 @@
 // The actor's and critic's MLPs of the PPO minibatch step on the general route:
 // towers of any depth (1 to 7 hidden layers) and width (1 to 1024, obs_dim 1 to
 // 1024), forward and backward, for NVIDIA Hopper (sm_90a), their products on the
-// tensor cores in 3xTF32 (mlp_stream.cuh).
+// tensor cores in 3xTF32 (mma.sync.m16n8k8).
 //
 // Replaces the JAX package's _mlp (self_play_racing_tpu/models/actor_critic.py:68)
 // for actor_mu and critic_value inside _ppo_loss, and its gradient under
@@ -14,30 +14,54 @@
 // 141,568 multiply-adds a row forward, 273,408 of the backward's own (every weight
 // gradient, the input gradients of all but the first layer) and the forward it
 // recomputes; as 3xTF32 at 495 TFLOP/s 112 us forward, 217 + 112 us backward. The
-// bytes (observations, mu, v, the weights, the partials) are a few MB: bound by
-// operations. mma.sync reaches ~211 TFLOP/s on this card (scripts/mma_tf32_rate.cu),
-// so ~2.3x those floors is what this design can approach.
+// bytes they must move (observations, mu, v, the weights, the partials) are a few
+// MB: bound by operations. mma.sync reaches ~211 TFLOP/s on this card
+// (scripts/mma_tf32_rate.cu), so ~2.3x those floors is what this design can approach.
 //
-// mlp_general_forward_f32: a fixed grid of kForwardBlocks walks the tiles (the plan's
-// rows: 64, 32 or 16, as the widest width leaves room); a block stages a tile's
-// observations (through the unit ids where given), runs the actor's layers, stages
-// the tile again and runs the critic's (a third tile would not fit at width 1024),
-// each layer's weight streamed through shared memory in chunks. A row's outputs are
-// stream_product's and narrow_layer's per-element sums: row-invariant, and bitwise
-// what the general policy kernels give the row.
+// Layer-major: both entries run the minibatch a layer at a time, each layer one
+// launch over the whole card, the activations in device scratch between launches. A
+// (256, 256) weight (256 KB) does not fit a block; streaming every weight through
+// shared memory for each tile of 32 or 64 rows ran the products at a third of
+// mma.sync's rate, and a weight gradient summed a tile at a time on a partial row in
+// device memory made 35% of the backward. Here a block's tile is 128 x 128 outputs (8
+// warps of 32 x 64), each staged chunk (16 deep, a ring of three) feeds 48 mma.sync a
+// warp, a weight gradient's block sums its chunk of 512 rows (or more) in registers
+// and writes once, and the output tile leaves through shared memory in 16-byte
+// stores. The rows go in slabs of the scratch budget's rows (one slab at (19, 256,
+// 256) and 65,536 rows). A kernel a job kind (layer_kernel<kLayer | kGprop | kWgrad>),
+// so that each has its own registers.
 //
-// mlp_general_backward_f32: a fixed grid of (kBackwardBlocks, 2), a tower a block,
-// each block its tiles t = blockIdx.x + k gridDim.x in order: the forward again with
-// every layer's activations kept (shared memory where they fit, else the block's
-// device scratch), g through the narrow layer, then a layer at a time down: the
-// weight gradient x^T g and the bias sums added on the block's partial row in
-// device memory (each element its rows in order), and g W^T (1 - x^2) for the layer
-// below through the streamed product, the weight's chunks read transposed. One
-// partial row a block, [blocks, params] in model.parameters() order; then
-// general_grad_reduce_f32, mlp_towers.cu's reduce with the norm's last step in
-// float64 (below), sums them and forms the global norm.
-// Every sum's order is a function of the shape and n: equal inputs give equal bits,
-// eager and in a CUDA graph; no float atomics.
+// The products: C[m][n] = the sum over k of A[m][k] B[k][n], each element's k-steps
+// of 8 in order from k = 0, each k-step's three TF32 products lo*hi, hi*lo, hi*hi
+// from zero on the tensor cores, then one float32 add rounded to nearest onto the
+// element's sum (mlp_stream.cuh's mma3: the tensor cores' own accumulation drifts
+// over a long k, and a weight gradient sums thousands of rows). So a forward element
+// is mlp_stream.cuh's per-tile sequence exactly, whatever the tile: mu and v are
+// bitwise what the general policy kernels (policy_general.cu) give the row. The
+// weights are split into TF32 hi/lo once a call (split_kernel) and staged as (hi, lo)
+// pairs; the activations are split where a warp loads them.
+//
+// mlp_general_forward_f32, a slab: split_kernel, then a layer launch a hidden layer
+// (both towers: tanh(x W + b), the observations read through the unit ids for the
+// first), then rows_kernel (a warp a row: the narrow layer, lane l its features l,
+// l + 32, ... by fmaf in order, the butterfly, the bias, tanh for the actor) writes
+// mu and v. With `keep` (the minibatch step's forward, where the backward's scratch
+// is one slab) every hidden layer's activations and the split weights stay in the
+// backward's scratch, which the backward then reads (`saved`) instead of computing
+// them again.
+//
+// mlp_general_backward_f32, a slab: the forward's launches with every hidden layer's
+// activations kept (unless saved), rows_kernel's backward mode (the narrow layer
+// again, g3 = the upstream gradient through the actor's tanh, and G_L = (g3 W^T) (1 -
+// h^2)), then two launches a layer l from the top: the weight gradient H_{l-1}^T G_l
+// (a kWgrad job: its blocks a 128 x 128 tile of the gradient over a chunk of
+// chunk_rows rows, the bias sums in float64 over the same rows, each into the chunk's
+// partial row; at the top also the narrow layer's H_L^T g3), then G_{l-1} = G_l W_l^T
+// (1 - h^2) for the layer below (a kGprop job). One partial row a chunk of the
+// minibatch's rows, at most 128; then general_grad_reduce_f32 (below) sums them and
+// forms the global norm. Every sum's order is a function of the shape and n: equal
+// inputs give equal bits, eager and in a CUDA graph, kept or computed again; no
+// float atomics.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -47,14 +71,56 @@
 namespace {
 
 using namespace mlp_stream;
+using mlp_tower::FragA;
+using mlp_tower::FragB;
 
-constexpr int kForwardBlocks = 264;   // the forward's grid
-constexpr int kBackwardBlocks = 128;  // the backward's blocks a tower: partial rows
-constexpr int kGroups = 8;            // the reduce's groups of consecutive rows
-constexpr int kReduceLanes = 32;      // parameters a reduce block
+constexpr int kBM = 128;                   // a tile's rows (m)
+constexpr int kBN = 128;                   // a tile's columns (n)
+constexpr int kBK = 16;                    // the contraction of a staged chunk: two k-steps
+constexpr int kRing = 3;                   // staged chunks: two in flight ahead of the one read
+constexpr int kFM = 2;                     // a warp's m16 fragments: 32 rows
+constexpr int kFN = 8;                     // a warp's n8 tiles: 64 columns
+constexpr int kWarpsM = kBM / (16 * kFM);  // a layer launch's block: 4 (m) x 2 (n) warps
+constexpr int kWarpsN = kBN / (8 * kFN);
+constexpr int kWarps = kWarpsM * kWarpsN;
+constexpr int kThreads = 32 * kWarps;
+// blocks an SM, so 128 registers a thread: a few bytes spill (4-18), and one block of 8
+// warps an SM without spills (204 registers) was 20-25% slower on an H100
+constexpr int kMinBlocks = 2;
+constexpr int kRowWarps = 8;               // rows_kernel: a warp a row
+constexpr int kRowBlocks = 528;            // rows_kernel's blocks a tower at most: with
+                                           // both, 8 blocks an SM
+constexpr int kMinChunkRows = 512;         // the rows a partial row sums, at least
+constexpr int kMaxPartialRows = 128;       // partial rows, at most
+constexpr long long kScratchBudget = 1LL << 28;  // a call's scratch floats, about
+constexpr int kMaxJobs = 4;                // jobs a layer launch
+constexpr int kSplitBlocks = 264;          // split_kernel's blocks a tower
+constexpr int kGroups = 8;                 // the reduce's groups of consecutive rows
+constexpr int kReduceLanes = 32;           // parameters a reduce block
+
+// A staged chunk's tiles (floats), each laid so that a warp's fragment loads fall on
+// 32 banks: A by rows [kBM][kAK] (k contiguous); B a split weight by contraction
+// [kBK][kBNs] or by column [kBN][kBKs], (hi, lo) pairs. A weight gradient's chunk
+// (wgrad_tile) lays its rows of H and G by contraction at the tile's widths + 8.
+constexpr int kAK = kBK + 4;
+constexpr int kBNs = 2 * kBN + 8;
+constexpr int kBKs = 2 * kBK + 8;
+constexpr int kAFloats = kBM * kAK;
+constexpr int kBFloats = kBN * kBKs > kBK * kBNs ? kBN * kBKs : kBK * kBNs;
+constexpr int kStageFloats = kAFloats + kBFloats;
+constexpr int kLayerSharedBytes = 4 * kRing * kStageFloats;  // 92,160: two blocks an SM
+static_assert(kWarps * 16 * kFM * (8 * kFN + 8) <= kRing * kStageFloats
+                  && 8 * (kBM + kBN + 16) <= kStageFloats,
+              "the output tile's regions fit the ring, a weight gradient's 8 rows a slot");
+
+// A job's products: a hidden layer's tanh(A W + b) (A the previous layer's
+// activations or the observations); g W^T (1 - h^2) for the layer below; a weight
+// gradient H^T G over a chunk's rows with its bias sums (the narrow layer's too, G
+// then g3).
+enum JobKind { kLayer = 0, kGprop = 1, kWgrad = 2 };
 
 // Both towers: the shape, and each tower's weights and biases a layer (the actor's
-// 2 outputs, the critic's 1; the critic null where absent).
+// 2 outputs, the critic's 1).
 struct Net {
     Shape s;
     const float* w[2][kMaxLayers];
@@ -77,142 +143,441 @@ __device__ __forceinline__ const float* row_at(const Rows& a, long long r) {
     return a.obs + (u * a.block + r % a.block) * a.d;
 }
 
-__global__ void __launch_bounds__(kMaxThreads) general_forward_kernel(Net net, Rows a, Plan p,
-                                                                   float* __restrict__ mu,
-                                                                   float* __restrict__ v) {
-    extern __shared__ float4 smem4[];
-    float* s = reinterpret_cast<float*>(smem4);
-    float* a0 = s;
-    float* a1 = a0 + p.rows * p.stride;
-    float* chunk = a1 + p.rows * p.stride;
-    float* y = chunk + kStages * p.chunk;
-    const long long tiles = (a.n + p.rows - 1) / p.rows;
-    for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const long long row0 = tile * p.rows;
-        // the actor (2 outputs, mu), then the critic (1, v)
-        for (int tw = 0; tw < 2; ++tw) {
-            stage_rows(a0, p.stride, p.rows, a.d, [&](int r) { return row_at(a, row0 + r); });
-            __syncthreads();
-            tower_forward(p, net.s, net.w[tw], net.b[tw], 2 - tw, a0, a1, chunk, y, 2 * tw);
-        }
-        for (int r = threadIdx.x; r < p.rows; r += blockDim.x) {
-            const long long row = row0 + r;
-            if (row < a.n) {
-                mu[2 * row] = y[3 * r];
-                mu[2 * row + 1] = y[3 * r + 1];
-                v[row] = y[3 * r + 2];
+// One job of a layer launch: C [M][N] over the contraction K (kWgrad: over a chunk's
+// rows, K unused). a: A's rows at lda floats (null: the observations), or kWgrad's
+// H; b: a split weight [K][2 round_up(N, 2)] (kLayer), [N][2 round_up(K, 2)]
+// (kGprop), or G's rows at ldb (kWgrad; the narrow layer's g3 [rows][4]); out at ldo (the
+// slab's rows) or, for the gradients, the partials' first row's place of the weight
+// (bias_out: of the bias). tiles_n tiles across, tiles_mn a part, tiles in all.
+struct Job {
+    int kind, M, N, K, tiles_n, tiles_mn, tiles;
+    const float* a;
+    long long lda;
+    const float* b;
+    long long ldb;
+    const float* bias;
+    const float* h;
+    long long ldh;
+    float* out;
+    long long ldo;
+    float* bias_out;
+};
+
+// A layer launch: its jobs (blocks [first[j], first[j + 1]) job j's), the slab's rows
+// [row0, row0 + rows) of the minibatch, and the partial rows: a part a chunk of
+// chunk_rows slab rows, the slab's first part row part0, part_stride floats a row.
+struct Launch {
+    Job job[kMaxJobs];
+    int first[kMaxJobs + 1];
+    int jobs, rows, chunk_rows;
+    Rows obs;
+    long long row0, part0, part_stride;
+};
+
+// row i of the slab in a rows operand: a's own, or the observations' (a null);
+// null past the slab
+__device__ __forceinline__ const float* rows_at(const Launch& L, const float* a, long long lda,
+                                                int i) {
+    if (i >= L.rows) return nullptr;
+    return a != nullptr ? a + i * lda : row_at(L.obs, L.row0 + i);
+}
+
+__device__ __forceinline__ bool wide_rows(const float* a, long long lda) {
+    return mlp_tower::aligned16(a) && (lda & 3) == 0;
+}
+
+// `lines` lines of (4 << shift) floats into dst (line stride ls): line i from src(i)
+// (null: zeros), its floats [0, valid) real and the rest zero; 16 bytes a copy where
+// the lines are 16-byte aligned (`wide`) and a group lies whole in [0, valid), 16
+// bytes of zeros where none of it does (`any`: a 16-byte aligned address that is not
+// read), else a float a copy. Only the first `lines_read` lines and `width_read`
+// floats (a multiple of 4), what the tile's active warps read, are staged. The caller
+// commits.
+__host__ __device__ constexpr int log2i(int x) { return x > 1 ? 1 + log2i(x / 2) : 0; }
+
+template <class Src>
+__device__ __forceinline__ void stage_lines(float* dst, int ls, int lines, int shift, Src src,
+                                            int valid, bool wide, const float* any,
+                                            int lines_read, int width_read) {
+    for (int e = threadIdx.x; e < lines << shift; e += kThreads) {
+        const int line = e >> shift, c = 4 * (e & ((1 << shift) - 1));
+        if (line >= lines_read || c >= width_read) continue;
+        const float* s = src(line);
+        float* d = dst + line * ls + c;
+        if (s == nullptr || c >= valid) {
+            mlp_tower::cp_async16(d, any, false);
+        } else if (wide && c + 4 <= valid) {
+            mlp_tower::cp_async16(d, s + c, true);
+        } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const bool ok = c + q < valid;
+                mlp_tower::cp_async4(d + q, ok ? s + c + q : any, ok);
             }
         }
-        __syncthreads();
     }
 }
 
-// One tower's backward over the block's tiles into its partial row `part` (the
-// tower's parameters in order), g_out [n, outputs] the upstream gradient.
-__device__ void tower_backward(const Net& net, int tower, const Rows& a, const Plan& p,
-                               const float* g_out, float* part, float* acts, float* chunk,
-                               float* y) {
-    const Shape& S = net.s;
-    const int L = S.hidden, O = tower == 0 ? 2 : 1;
-    const float* const* w = net.w[tower];
-    const float* const* b = net.b[tower];
-    const long long tile_floats = (long long)p.rows * p.stride;
-    // act[l] (l <= L): x and the hidden layers' activations; then two gradient tiles
-    float* act[kMaxLayers];
-    for (int l = 0; l <= L; ++l) act[l] = acts + l * tile_floats;
-    float* grads[2] = {acts + (L + 1) * tile_floats, acts + (L + 2) * tile_floats};
-    // each tensor's place in the partial row
-    long long w_at[kMaxLayers], b_at[kMaxLayers], at = 0;
-    for (int l = 0; l <= L; ++l) {
-        const int out = l < L ? S.dims[l + 1] : O;
-        w_at[l] = at;
-        at += (long long)S.dims[l] * out;
-        b_at[l] = at;
-        at += out;
+// the split script's variant without the split: hi the raw bits, lo zero
+__device__ __forceinline__ FragA raw_a(float a0, float a1, float a2, float a3) {
+    return {{__float_as_uint(a0), __float_as_uint(a1), __float_as_uint(a2), __float_as_uint(a3)},
+            {0u, 0u, 0u, 0u}};
+}
+__device__ __forceinline__ FragB raw_b(float b0, float b1) {
+    return {{__float_as_uint(b0), __float_as_uint(b1)}, {0u, 0u}};
+}
+// an A fragment's TF32 hi/lo (mlp_tower.cuh's split, as the per-tile routine's)
+__device__ __forceinline__ FragA split_a(float a0, float a1, float a2, float a3) {
+    // split: any no_split return raw_a(a0, a1, a2, a3);
+    return mlp_tower::frag_a(a0, a1, a2, a3);
+}
+__device__ __forceinline__ FragB split_b(float b0, float b1) {
+    // split: any no_split return raw_b(b0, b1);
+    return mlp_tower::frag_b(b0, b1);
+}
+// a pre-split (hi, lo) pair's B fragment: rows t and t + 4 at p0, p1
+__device__ __forceinline__ FragB pair_b(const float* p0, const float* p1) {
+    const float2 x = *reinterpret_cast<const float2*>(p0);
+    const float2 y = *reinterpret_cast<const float2*>(p1);
+    return {{__float_as_uint(x.x), __float_as_uint(y.x)},
+            {__float_as_uint(x.y), __float_as_uint(y.y)}};
+}
+
+// One k-step (k kl .. kl + 7 of the staged chunk) of a warp's 32 x 64 outputs; la and
+// lb the A and B tiles' line strides.
+template <int kKind>
+__device__ __forceinline__ void k_step(const float* As, const float* Bs, int la, int lb, int kl,
+                                       int wm, int wn, int g, int t, float (&acc)[kFM][kFN][4]) {
+    FragA fa[kFM];
+#pragma unroll
+    for (int f = 0; f < kFM; ++f) {
+        const int ra = wm + 16 * f + g, rb = ra + 8;
+        fa[f] = kKind == kWgrad
+            ? split_a(As[(kl + t) * la + ra], As[(kl + t) * la + rb],
+                      As[(kl + t + 4) * la + ra], As[(kl + t + 4) * la + rb])
+            : split_a(As[ra * la + kl + t], As[rb * la + kl + t], As[ra * la + kl + t + 4],
+                      As[rb * la + kl + t + 4]);
     }
-    for (long long e = threadIdx.x; e < at; e += blockDim.x) part[e] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kFN; ++j) {
+        const int n = wn + 8 * j + g;
+        FragB fb;
+        if (kKind == kLayer)
+            fb = pair_b(Bs + (kl + t) * lb + 2 * n, Bs + (kl + t + 4) * lb + 2 * n);
+        else if (kKind == kGprop)
+            fb = pair_b(Bs + n * lb + 2 * (kl + t), Bs + n * lb + 2 * (kl + t + 4));
+        else
+            fb = split_b(Bs[(kl + t) * lb + n], Bs[(kl + t + 4) * lb + n]);
+#pragma unroll
+        for (int f = 0; f < kFM; ++f) mma3(acc[f][j], fa[f], fb);
+    }
+}
+
+// The block's outputs out (rows x cols at line stride ld) from the warps' sums: each
+// group gk of warps' in its region of the ring (rows of ls floats, wm_n 32-row warps
+// down), every warp done with the ring; the groups' sums added in order, then
+// kLayer's tanh(v + b) or kGprop's v (1 - h^2); 16 bytes a store where the row allows.
+template <int kKind>
+__device__ __forceinline__ void store_tile(const Job& J, int m0, int n0, int rows, int cols,
+                                           float* out, long long ld, float* ring, int wm_n,
+                                           int wn_n, int kg, int gk, int wm, int wn, bool active,
+                                           const float (&acc)[kFM][kFN][4]) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const int ls = 8 * kFN * wn_n + 8, region = 16 * kFM * wm_n * ls;
     __syncthreads();
-    const long long tiles = (a.n + p.rows - 1) / p.rows;
-    const int K = S.dims[L], kp = round_up(K, 8);
-    for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const long long row0 = tile * p.rows;
-        stage_rows(act[0], p.stride, p.rows, a.d, [&](int r) { return row_at(a, row0 + r); });
-        __syncthreads();
-        // the forward again, every layer's activations kept
-        for (int l = 0; l < L; ++l)
-            stream_product<false>(p, act[l], act[l + 1], nullptr, w[l], b[l], S.dims[l],
-                                  S.dims[l + 1], chunk);
-        narrow_layer(p, act[L], K, O, w[L], b[L], O == 2, y, 0);
-        __syncthreads();
-        // g3 = d out (1 - out^2) through the actor's tanh (autograd's tanh_backward), d v
-        // as it is for the critic; rows past n zero
-        for (int e = threadIdx.x; e < p.rows * O; e += blockDim.x) {
-            const int r = e / O, o = e - r * O;
-            const long long row = row0 + r;
-            const float g = row < a.n ? g_out[row * O + o] : 0.0f;
-            const float out = y[3 * r + o];
-            y[3 * r + o] = O == 2 ? g * (1.0f - out * out) : g;
+    if (active) {
+        float* cs = ring + gk * region;
+#pragma unroll
+        for (int f = 0; f < kFM; ++f)
+#pragma unroll
+            for (int j = 0; j < kFN; ++j)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                    *reinterpret_cast<float2*>(cs + (wm + 16 * f + g + 8 * h) * ls + wn + 8 * j
+                                               + 2 * t) =
+                        make_float2(acc[f][j][2 * h], acc[f][j][2 * h + 1]);
+    }
+    __syncthreads();
+    const bool wide = wide_rows(out, ld);
+    const int groups = (cols + 3) / 4;
+    for (int e = threadIdx.x; e < rows * groups; e += kThreads) {
+        const int r = e / groups, c = 4 * (e - r * groups);
+        float v[4];
+        *reinterpret_cast<float4*>(v) = *reinterpret_cast<const float4*>(ring + r * ls + c);
+        for (int k = 1; k < kg; ++k) {
+            const float4 w = *reinterpret_cast<const float4*>(ring + k * region + r * ls + c);
+            v[0] += w.x;
+            v[1] += w.y;
+            v[2] += w.z;
+            v[3] += w.w;
         }
-        __syncthreads();
-        // the last layer's weight and bias gradients: each element the tile's rows in
-        // order in float64 (the products of two floats exact), then one float32 add
-        for (int e = threadIdx.x; e < K * O; e += blockDim.x) {
-            const int k = e / O, o = e - k * O;
-            double s = 0.0;
-            for (int r = 0; r < p.rows; ++r)
-                s += (double)act[L][r * p.stride + k] * (double)y[3 * r + o];
-            part[w_at[L] + e] += (float)s;
+        const int q_end = cols - c < 4 ? cols - c : 4;
+        if (kKind == kLayer) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+                if (q < q_end) v[q] = tanhf(v[q] + J.bias[n0 + c + q]);
+        } else if (kKind == kGprop) {
+            const float* hr = J.h + (m0 + r) * J.ldh + n0 + c;
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+                if (q < q_end) v[q] *= 1.0f - hr[q] * hr[q];
         }
-        for (int o = threadIdx.x; o < O; o += blockDim.x) {
-            double s = 0.0;
-            for (int r = 0; r < p.rows; ++r) s += (double)y[3 * r + o];
-            part[b_at[L] + o] += (float)s;
+        float* o = out + r * ld + c;
+        if (wide && q_end == 4) {
+            *reinterpret_cast<float4*>(o) = *reinterpret_cast<const float4*>(v);
+        } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+                if (q < q_end) o[q] = v[q];
         }
-        // g = (g3 W^T) (1 - h^2) into the first gradient tile, zero past K
-        float* cur = grads[0];
-        float* other = grads[1];
-        for (int e = threadIdx.x; e < p.rows * kp; e += blockDim.x) {
-            const int r = e / kp, k = e - r * kp;
-            float value = 0.0f;
-            if (k < K) {
-                float d = y[3 * r] * w[L][k * O];
-                if (O == 2) d = __fmaf_rn(y[3 * r + 1], w[L][k * O + 1], d);
-                const float h = act[L][r * p.stride + k];
-                value = d * (1.0f - h * h);
-            }
-            cur[r * p.stride + k] = value;
-        }
-        __syncthreads();
-        // a hidden layer at a time, from the top
-        for (int l = L - 1; l >= 0; --l) {
-            weight_grad(p, act[l], cur, S.dims[l], S.dims[l + 1], part + w_at[l]);
-            bias_grad(p, cur, S.dims[l + 1], part + b_at[l]);
-            if (l > 0) {
-                stream_product<true>(p, cur, other, act[l], w[l], nullptr, S.dims[l + 1],
-                                     S.dims[l], chunk);
-                float* next = other;
-                other = cur;
-                cur = next;
-            }
-        }
-        __syncthreads();
     }
 }
 
-__global__ void __launch_bounds__(kMaxThreads) general_backward_kernel(
-        Net net, Rows a, Plan p, const float* __restrict__ g_mu, const float* __restrict__ g_v,
-        float* __restrict__ partial, float* __restrict__ scratch) {
+__device__ __forceinline__ void zero(float (&acc)[kFM][kFN][4]) {
+#pragma unroll
+    for (int f = 0; f < kFM; ++f)
+#pragma unroll
+        for (int j = 0; j < kFN; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[f][j][e] = 0.0f;
+}
+
+// A kLayer or kGprop block's tile (tm, tn) over the contraction K, the warps 4 (m) x 2
+// (n) of 32 x 64, through a ring of kRing staged chunks of kBK (one commit group each,
+// one barrier a chunk). A warp whose rows or columns all lie past the real ones skips
+// the products, and what no active warp reads is not staged.
+template <int kKind>
+__device__ void layer_tile(const Launch& L, const Job& J, int tm, int tn, float* ring) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int m0 = kBM * tm, n0 = kBN * tn;
+    const int wm = 16 * kFM * (warp / kWarpsN), wn = 8 * kFN * (warp % kWarpsN);
+    const int chunks = (J.K + kBK - 1) / kBK;
+    const bool active = m0 + wm < J.M && n0 + wn < J.N;
+    const int m_read = min(kBM, round_up(J.M - m0, 16 * kFM));
+    const int n_read = min(kBN, round_up(J.N - n0, 8 * kFN));
+    const bool a_wide = J.a != nullptr ? wide_rows(J.a, J.lda) : wide_rows(L.obs.obs, L.obs.d);
+    const bool b_wide = wide_rows(J.b, J.ldb);
+    constexpr int la = kAK, lb = kKind == kLayer ? kBNs : kBKs;
+    auto stage = [&](int c) {
+        if (c < chunks) {
+            float* As = ring + (c % kRing) * kStageFloats;
+            float* Bs = As + kAFloats;
+            const int k0 = c * kBK;
+            // A: the tile's rows m0.., their k0..; B: the weight's rows k0.. and columns
+            // n0.. (kLayer) or rows n0.. and columns k0.. (kGprop), (hi, lo) pairs
+            stage_lines(As, la, kBM, log2i(kBK / 4), [&](int i) {
+                const float* r = m0 + i < J.M ? rows_at(L, J.a, J.lda, m0 + i) : nullptr;
+                return r != nullptr ? r + k0 : nullptr;
+            }, J.K - k0, a_wide, J.b, m_read, kBK);
+            if (kKind == kLayer)
+                stage_lines(Bs, lb, kBK, log2i(2 * kBN / 4), [&](int i) {
+                    return k0 + i < J.K ? J.b + (k0 + i) * J.ldb + 2 * n0 : nullptr;
+                }, 2 * (J.N - n0), b_wide, J.b, kBK, 2 * n_read);
+            else
+                stage_lines(Bs, lb, kBN, log2i(2 * kBK / 4), [&](int i) {
+                    return n0 + i < J.N ? J.b + (n0 + i) * J.ldb + 2 * k0 : nullptr;
+                }, 2 * (J.K - k0), b_wide, J.b, n_read, 2 * kBK);
+        }
+        mlp_tower::cp_async_commit();
+    };
+    float acc[kFM][kFN][4];
+    zero(acc);
+#pragma unroll
+    for (int c = 0; c < kRing - 1; ++c) stage(c);
+    for (int c = 0; c < chunks; ++c) {
+        mlp_tower::cp_async_wait<kRing - 2>();  // chunk c has landed
+        __syncthreads();  // every thread's copies of it; every warp done with chunk c - 1
+        stage(c + kRing - 1);  // into chunk c - 1's slot
+        const float* As = ring + (c % kRing) * kStageFloats;
+        const float* Bs = As + kAFloats;
+        if (active) {
+            k_step<kKind>(As, Bs, la, lb, 0, wm, wn, g, t, acc);
+            if (J.K - c * kBK > 8) k_step<kKind>(As, Bs, la, lb, 8, wm, wn, g, t, acc);
+        }
+    }
+    store_tile<kKind>(J, m0, n0, min(kBM, J.M - m0), min(kBN, J.N - n0), J.out + m0 * J.ldo + n0,
+                      J.ldo, ring, kWarpsM, kWarpsN, 1, 0, wm, wn, active, acc);
+}
+
+// A kWgrad block's tile (tm, tn) of H^T G over part `part`'s rows into the part's
+// partial row, with the bias sums. Its rows a staged chunk as many as the ring's slot
+// holds at the tile's widths (up to 64: a narrow layer's gradient stages 64 rows a
+// chunk, a 128 x 128 tile 24), its warps the tile's 32 x 64 pieces, wm_n x wn_n, and
+// the kg = kWarps / (wm_n wn_n) groups of them each the same outputs over every kg-th
+// k-step (group gk from k-step gk), the groups' sums added in order at the end: so a
+// narrow tile keeps every warp busy and few chunks in flight cover its rows. The
+// bias sums: a thread a column of the tiles at m0 = 0, its rows in order in float64.
+__device__ void wgrad_tile(const Launch& L, const Job& J, int tm, int tn, int part, float* ring) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int m0 = kBM * tm, n0 = kBN * tn;
+    const int rows = min(kBM, J.M - m0), cols = min(kBN, J.N - n0);
+    int wm_n = kWarpsM, wn_n = kWarpsN;
+    while (wm_n > 1 && (wm_n / 2) * 16 * kFM >= rows) wm_n /= 2;
+    while (wn_n > 1 && (wn_n / 2) * 8 * kFN >= cols) wn_n /= 2;
+    const int kg = kWarps / (wm_n * wn_n), gk = warp / (wm_n * wn_n);
+    const int wq = warp - gk * wm_n * wn_n;
+    const int wm = 16 * kFM * (wq / wn_n), wn = 8 * kFN * (wq % wn_n);
+    // the staged widths (powers of 2) and line strides, the rows a chunk
+    const int m_read = 16 * kFM * wm_n, n_read = 8 * kFN * wn_n;
+    const int la = m_read + 8, lb = n_read + 8;
+    int ck = kStageFloats / (la + lb) / 8 * 8;
+    ck = ck < 64 ? ck : 64;
+    const int kbeg = part * L.chunk_rows, kend = min(kbeg + L.chunk_rows, L.rows);
+    const int chunks = (kend - kbeg + ck - 1) / ck;
+    const bool a_wide = J.a != nullptr ? wide_rows(J.a, J.lda) : wide_rows(L.obs.obs, L.obs.d);
+    const bool b_wide = wide_rows(J.b, J.ldb);
+    const int a_shift = __ffs(m_read / 4) - 1, b_shift = __ffs(n_read / 4) - 1;
+    auto stage = [&](int c) {
+        if (c < chunks) {
+            float* As = ring + (c % kRing) * kStageFloats;
+            float* Bs = As + ck * la;
+            const int k0 = kbeg + c * ck;
+            // A: rows k0.. of H, its features m0..; B: rows k0.. of G, columns n0..
+            stage_lines(As, la, ck, a_shift, [&](int i) {
+                const float* r = k0 + i < kend ? rows_at(L, J.a, J.lda, k0 + i) : nullptr;
+                return r != nullptr ? r + m0 : nullptr;
+            }, J.M - m0, a_wide, J.b, ck, m_read);
+            stage_lines(Bs, lb, ck, b_shift, [&](int i) {
+                return k0 + i < kend ? J.b + (k0 + i) * J.ldb + n0 : nullptr;
+            }, J.N - n0, b_wide, J.b, ck, n_read);
+        }
+        mlp_tower::cp_async_commit();
+    };
+    float acc[kFM][kFN][4];
+    zero(acc);
+    const bool bias_sums = tm == 0 && (int)threadIdx.x < cols;
+    double bsum = 0.0;
+#pragma unroll
+    for (int c = 0; c < kRing - 1; ++c) stage(c);
+    for (int c = 0; c < chunks; ++c) {
+        mlp_tower::cp_async_wait<kRing - 2>();  // chunk c has landed
+        __syncthreads();  // every thread's copies of it; every warp done with chunk c - 1
+        stage(c + kRing - 1);  // into chunk c - 1's slot
+        const float* As = ring + (c % kRing) * kStageFloats;
+        const float* Bs = As + ck * la;
+        const int steps = (min(ck, kend - kbeg - c * ck) + 7) / 8;
+        // the chunk's k-steps of group gk: global k-step c ck / 8 + ks = gk mod kg
+        for (int ks = (gk - c * (ck / 8) % kg + kg) % kg; ks < steps; ks += kg)
+            k_step<kWgrad>(As, Bs, la, lb, 8 * ks, wm, wn, g, t, acc);
+        if (bias_sums)
+            for (int i = 0; i < ck; ++i) bsum += (double)Bs[i * lb + threadIdx.x];
+    }
+    const long long row = (L.part0 + part) * L.part_stride;
+    if (bias_sums) J.bias_out[row + n0 + threadIdx.x] = (float)bsum;
+    store_tile<kWgrad>(J, m0, n0, rows, cols, J.out + row + (long long)m0 * J.N + n0, J.N, ring,
+                       wm_n, wn_n, kg, gk, wm, wn, true, acc);
+}
+
+// A layer launch: every job of one kind, a kernel a kind so that each has its own
+// registers.
+template <int kKind>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    layer_kernel(const __grid_constant__ Launch L) {
     extern __shared__ float4 smem4[];
-    float* s = reinterpret_cast<float*>(smem4);
-    float* chunk = s;
-    float* y = chunk + kStages * p.chunk;
-    float* acts = y + round_up(3 * p.rows, 4);
-    const int tower = blockIdx.y;
-    if (p.acts_global)
-        acts = scratch + ((long long)blockIdx.x * 2 + tower) * p.scratch_floats;
-    const long long actor = tower_params(net.s, 2);
-    float* part = partial + blockIdx.x * (actor + tower_params(net.s, 1)) + (tower ? actor : 0);
-    tower_backward(net, tower, a, p, tower ? g_v : g_mu, part, acts, chunk, y);
+    float* ring = reinterpret_cast<float*>(smem4);
+    int j = 0;
+    while (j + 1 < L.jobs && (int)blockIdx.x >= L.first[j + 1]) ++j;
+    const Job& J = L.job[j];
+    const int t = blockIdx.x - L.first[j];
+    const int part = t / J.tiles_mn, mn = t - part * J.tiles_mn;
+    const int tm = mn / J.tiles_n, tn = mn - tm * J.tiles_n;
+    if constexpr (kKind == kWgrad)
+        wgrad_tile(L, J, tm, tn, part, ring);
+    else
+        layer_tile<kKind>(L, J, tm, tn, ring);
+}
+
+// Each tower's hidden weights as (hi, lo) TF32 pairs: out[l] [K][2 round_up(N, 2)],
+// zero past N.
+struct SplitArgs {
+    const float* w[2][kMaxHidden];
+    float* out[2][kMaxHidden];
+    int K[kMaxHidden], N[kMaxHidden];
+    int layers;
+};
+
+__global__ void __launch_bounds__(kThreads) split_kernel(const __grid_constant__ SplitArgs A) {
+    const int tw = blockIdx.y;
+    for (int l = 0; l < A.layers; ++l) {
+        const int N = A.N[l], Np = round_up(N, 2);
+        const long long count = (long long)A.K[l] * Np;
+        for (long long e = blockIdx.x * (long long)kThreads + threadIdx.x; e < count;
+             e += (long long)gridDim.x * kThreads) {
+            const long long k = e / Np;
+            const int c = (int)(e - k * Np);
+            uint32_t hi = 0u, lo = 0u;
+            if (c < N) mlp_tower::split(A.w[tw][l][k * N + c], hi, lo);
+            reinterpret_cast<uint2*>(A.out[tw][l])[e] = make_uint2(hi, lo);
+        }
+    }
+}
+
+// The narrow layer of the slab's rows, a warp a row, both towers (blockIdx.y): the
+// forward writes mu and v; the backward g3 [rows][4] (zero past the outputs) and G_L.
+struct RowArgs {
+    const float* h[2];  // each tower's last hidden layer [rows][ldh]
+    const float* w[2];  // the narrow layer [K][O]
+    const float* b[2];
+    long long ldh, row0, ldg;
+    int K, rows, backward;
+    float* mu;
+    float* v;
+    const float* g_mu;
+    const float* g_v;
+    float* g3[2];
+    float* gl[2];       // G_L [rows][ldg]
+};
+
+// row i of tower tw (O outputs): the narrow layer, then the forward's mu or v, or the
+// backward's g3 and G_L; a warp's
+__device__ __forceinline__ void narrow_row(const RowArgs& A, int tw, int O, int i, int lane) {
+    const float* x = A.h[tw] + i * A.ldh;
+    const float* w = A.w[tw];
+    const long long row = A.row0 + i;
+    float y[2] = {0.0f, 0.0f};
+    for (int o = 0; o < O; ++o) {
+        float z = 0.0f;
+        for (int k = lane; k < A.K; k += 32) z = __fmaf_rn(x[k], w[k * O + o], z);
+        z = mlp_tower::lanes_sum(z, 1, 16) + A.b[tw][o];
+        y[o] = O == 2 ? tanhf(z) : z;
+    }
+    if (!A.backward) {
+        if (lane == 0) {
+            if (tw == 0) {
+                A.mu[2 * row] = y[0];
+                A.mu[2 * row + 1] = y[1];
+            } else {
+                A.v[row] = y[0];
+            }
+        }
+        return;
+    }
+    // g3 through the actor's tanh (autograd's tanh_backward), d v as it is
+    float g0, g1 = 0.0f;
+    if (tw == 0) {
+        g0 = A.g_mu[2 * row] * (1.0f - y[0] * y[0]);
+        g1 = A.g_mu[2 * row + 1] * (1.0f - y[1] * y[1]);
+    } else {
+        g0 = A.g_v[row];
+    }
+    if (lane < 4) A.g3[tw][4 * i + lane] = lane == 0 ? g0 : lane == 1 ? g1 : 0.0f;
+    float* gl = A.gl[tw] + i * A.ldg;
+    for (int k = lane; k < A.K; k += 32) {
+        float d = g0 * w[k * O];
+        if (O == 2) d = __fmaf_rn(g1, w[k * O + 1], d);
+        const float h = x[k];
+        gl[k] = d * (1.0f - h * h);
+    }
+}
+
+// a warp a row, the warps striding over the rows (a grid of at most kRowBlocks)
+__global__ void __launch_bounds__(32 * kRowWarps) rows_kernel(const __grid_constant__ RowArgs A) {
+    const int tw = blockIdx.y, lane = threadIdx.x & 31;
+    for (int i = blockIdx.x * kRowWarps + (threadIdx.x >> 5); i < A.rows;
+         i += gridDim.x * kRowWarps)
+        narrow_row(A, tw, tw == 0 ? 2 : 1, i, lane);
 }
 
 // mlp_towers.cu's mlp_grad_reduce in its blocks and order (out[p] = the sum over the
@@ -280,10 +645,68 @@ __global__ void __launch_bounds__(kGroups * kReduceLanes) general_grad_reduce_ke
     }
 }
 
-long long tiles_for(long long n, int rows) { return (n + rows - 1) / rows; }
+long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
+long long round_up_ll(long long a, long long b) { return ceil_div(a, b) * b; }
 
-long long backward_blocks(long long n, int rows) {
-    return tiles_for(n, rows) < kBackwardBlocks ? tiles_for(n, rows) : kBackwardBlocks;
+// A call's geometry at n rows: the rows a partial row sums (the backward) and the
+// partial rows, the slab's rows, the scratch floats, and where each buffer lies in
+// the scratch: each tower's split weights, then a slab's activations (the forward two
+// buffers a tower in turn; the backward every hidden layer's), the backward's two G
+// buffers and g3 a tower. Row strides round the widths up to 4 floats (16 bytes).
+struct Geometry {
+    long long chunk_rows, partial_rows, slab_rows, slabs, scratch_floats;
+    long long split_at[2][kMaxHidden], act_at[2][kMaxHidden], g_at[2][2], g3_at[2];
+    long long ld[kMaxHidden + 1], ldg;
+};
+
+Geometry geometry(int kind, const Shape& s, long long n) {
+    Geometry G{};
+    const int L = s.hidden;
+    const bool backward = kind == kBackward;
+    G.chunk_rows = n > 0 ? round_up_ll(ceil_div(n, kMaxPartialRows), kBK) : 0;
+    if (G.chunk_rows < kMinChunkRows) G.chunk_rows = kMinChunkRows;
+    G.partial_rows = ceil_div(n, G.chunk_rows);
+    long long widest = 0, acts = 0;
+    for (int l = 1; l <= L; ++l) {
+        G.ld[l] = round_up_ll(s.dims[l], 4);
+        widest = G.ld[l] > widest ? G.ld[l] : widest;
+        acts += G.ld[l];
+    }
+    G.ldg = widest;
+    long long at = 0;
+    for (int tw = 0; tw < 2; ++tw)
+        for (int l = 0; l < L; ++l) {
+            G.split_at[tw][l] = at;
+            at += (long long)s.dims[l] * 2 * round_up_ll(s.dims[l + 1], 2);
+        }
+    const long long split = at;
+    const long long per_row = backward ? 2 * (acts + 2 * widest + 4) : 2 * 2 * widest;
+    const long long unit = backward ? G.chunk_rows : kBM;
+    long long slab = (kScratchBudget - split) / per_row / unit * unit;
+    slab = slab > unit ? slab : unit;
+    G.slab_rows = n > 0 ? (slab < round_up_ll(n, unit) ? slab : round_up_ll(n, unit)) : 0;
+    G.slabs = G.slab_rows > 0 ? ceil_div(n, G.slab_rows) : 0;
+    for (int tw = 0; tw < 2; ++tw) {
+        if (backward) {
+            for (int l = 1; l <= L; ++l) {
+                G.act_at[tw][l - 1] = at;
+                at += G.slab_rows * G.ld[l];
+            }
+            for (int q = 0; q < 2; ++q) {
+                G.g_at[tw][q] = at;
+                at += G.slab_rows * G.ldg;
+            }
+            G.g3_at[tw] = at;
+            at += G.slab_rows * 4;
+        } else {
+            for (int q = 0; q < 2; ++q) {
+                G.act_at[tw][q] = at;
+                at += G.slab_rows * G.ldg;
+            }
+        }
+    }
+    G.scratch_floats = at;
+    return G;
 }
 
 constexpr int kHeader = 2;  // obs, unit ids
@@ -313,99 +736,353 @@ bool net_args(const void* const* ptrs, int num_ptrs, int extra, long long n, lon
     return true;
 }
 
+// Job builders: the tiles over the slab's rows (M) or a weight's rows (kWgrad).
+Job tiled(Job J, int parts) {
+    J.tiles_n = (int)ceil_div(J.N, kBN);
+    J.tiles_mn = (int)ceil_div(J.M, kBM) * J.tiles_n;
+    J.tiles = J.tiles_mn * parts;
+    return J;
+}
+
+// hidden layer l (1-based) of tower tw: tanh(A W_l + b_l) into out [rows][ldo]
+Job layer_job(const Net& net, const Geometry& G, float* scratch, int tw, int l, int rows,
+              const float* a, long long lda, float* out, long long ldo) {
+    Job J{};
+    J.kind = kLayer;
+    J.M = rows;
+    J.N = net.s.dims[l];
+    J.K = net.s.dims[l - 1];
+    J.a = a;
+    J.lda = lda;
+    J.b = scratch + G.split_at[tw][l - 1];
+    J.ldb = 2 * round_up_ll(J.N, 2);
+    J.bias = net.b[tw][l - 1];
+    J.out = out;
+    J.ldo = ldo;
+    return tiled(J, 1);
+}
+
+// A launch of the jobs of one kind (kind: kLayer, kGprop or kWgrad)
+int launch_jobs(Launch& L, int kind, cudaStream_t stream) {
+    int blocks = 0;
+    for (int j = 0; j < L.jobs; ++j) {
+        L.first[j] = blocks;
+        blocks += L.job[j].tiles;
+    }
+    L.first[L.jobs] = blocks;
+    if (blocks == 0) return 0;
+    if (kind == kLayer)
+        layer_kernel<kLayer><<<blocks, kThreads, kLayerSharedBytes, stream>>>(L);
+    else if (kind == kGprop)
+        layer_kernel<kGprop><<<blocks, kThreads, kLayerSharedBytes, stream>>>(L);
+    else
+        layer_kernel<kWgrad><<<blocks, kThreads, kLayerSharedBytes, stream>>>(L);
+    return (int)cudaGetLastError();
+}
+
+// the three kernels' dynamic shared memory past 48 KB
+cudaError_t allow_layer_smem() {
+    cudaError_t err = allow_smem(layer_kernel<kLayer>, kLayerSharedBytes);
+    if (err == cudaSuccess) err = allow_smem(layer_kernel<kGprop>, kLayerSharedBytes);
+    if (err == cudaSuccess) err = allow_smem(layer_kernel<kWgrad>, kLayerSharedBytes);
+    return err;
+}
+
+int launch_split(const Net& net, const Geometry& G, float* scratch, cudaStream_t stream) {
+    SplitArgs A{};
+    A.layers = net.s.hidden;
+    for (int tw = 0; tw < 2; ++tw)
+        for (int l = 0; l < net.s.hidden; ++l) {
+            A.w[tw][l] = net.w[tw][l];
+            A.out[tw][l] = scratch + G.split_at[tw][l];
+            A.K[l] = net.s.dims[l];
+            A.N[l] = net.s.dims[l + 1];
+        }
+    split_kernel<<<dim3(kSplitBlocks, 2), kThreads, 0, stream>>>(A);
+    return (int)cudaGetLastError();
+}
+
+int launch_rows(RowArgs& A, cudaStream_t stream) {
+    const long long blocks = ceil_div(A.rows, kRowWarps);
+    rows_kernel<<<dim3((unsigned)(blocks < kRowBlocks ? blocks : kRowBlocks), 2), 32 * kRowWarps,
+                  0, stream>>>(A);
+    return (int)cudaGetLastError();
+}
+
+Launch slab_launch(const Rows& obs, long long row0, int rows, const Geometry& G,
+                   long long params) {
+    Launch L{};
+    L.obs = obs;
+    L.row0 = row0;
+    L.rows = rows;
+    L.chunk_rows = (int)G.chunk_rows;
+    L.part0 = row0 / G.chunk_rows;
+    L.part_stride = params;
+    return L;
+}
+
+// The hidden layers 1 .. upto of the slab's rows, a launch a layer (both towers):
+// every layer's activations at its own place (`all`: the backward's layout) or in the
+// two buffers in turn.
+int hidden_layers(const Net& net, const Rows& obs, const Geometry& G, float* scratch,
+                  long long row0, int rows, bool all, int upto, cudaStream_t stream) {
+    auto at = [&](int tw, int l) { return scratch + G.act_at[tw][all ? l - 1 : (l - 1) % 2]; };
+    auto ld = [&](int l) { return all ? G.ld[l] : G.ldg; };
+    for (int l = 1; l <= upto; ++l) {
+        Launch L = slab_launch(obs, row0, rows, G, 0);
+        L.jobs = 2;
+        for (int tw = 0; tw < 2; ++tw)
+            L.job[tw] = layer_job(net, G, scratch, tw, l, rows, l == 1 ? nullptr : at(tw, l - 1),
+                                  ld(l - 1), at(tw, l), ld(l));
+        const int err = launch_jobs(L, kLayer, stream);
+        if (err) return err;
+    }
+    return 0;
+}
+
+// the forward's slabs: the hidden layers, then the narrow rows (mu and v); `keep`: the
+// backward's layout, so that it reads them instead of computing them again
+int forward(const Net& net, const Rows& obs, const Geometry& G, float* scratch, float* mu,
+            float* v, bool keep, cudaStream_t stream) {
+    const int L_ = net.s.hidden;
+    int upto = L_;
+    bool narrow = true;
+    // split: forward layer1 upto = 1, narrow = false;
+    // split: forward layer2 upto = 2, narrow = false;
+    // split: forward layer3 upto = 3, narrow = false;
+    upto = upto < L_ ? upto : L_;
+    for (long long row0 = 0; row0 < obs.n; row0 += G.slab_rows) {
+        const int rows = (int)(obs.n - row0 < G.slab_rows ? obs.n - row0 : G.slab_rows);
+        int err = hidden_layers(net, obs, G, scratch, row0, rows, keep, upto, stream);
+        if (err) return err;
+        if (!narrow) continue;
+        RowArgs A{};
+        for (int tw = 0; tw < 2; ++tw) {
+            A.h[tw] = scratch + G.act_at[tw][keep ? L_ - 1 : (L_ - 1) % 2];
+            A.w[tw] = net.w[tw][L_];
+            A.b[tw] = net.b[tw][L_];
+        }
+        A.ldh = keep ? G.ld[L_] : G.ldg;
+        A.row0 = row0;
+        A.K = net.s.dims[L_];
+        A.rows = rows;
+        A.mu = mu;
+        A.v = v;
+        err = launch_rows(A, stream);
+        if (err) return err;
+    }
+    return 0;
+}
+
+// the backward's slabs: the hidden layers with every activation kept (unless `saved`:
+// the forward kept them, one slab), the narrow rows' backward, then a launch a layer
+// from the top
+int backward(const Net& net, const Rows& obs, const Geometry& G, float* scratch,
+             const float* g_mu, const float* g_v, float* partial, bool saved,
+             cudaStream_t stream) {
+    const Shape& S = net.s;
+    const int L_ = S.hidden;
+    const long long actor = tower_params(S, 2), params = actor + tower_params(S, 1);
+    // each tensor's place in a partial row
+    long long w_at[2][kMaxLayers], b_at[2][kMaxLayers];
+    for (int tw = 0; tw < 2; ++tw) {
+        long long at = tw ? actor : 0;
+        for (int l = 0; l <= L_; ++l) {
+            const int out = l < L_ ? S.dims[l + 1] : 2 - tw;
+            w_at[tw][l] = at;
+            at += (long long)S.dims[l] * out;
+            b_at[tw][l] = at;
+            at += out;
+        }
+    }
+    bool with_dw = true, with_gprop = true;
+    // split: backward no_dw with_dw = false;
+    // split: backward no_gprop with_gprop = false;
+    auto act = [&](int tw, int l) { return scratch + G.act_at[tw][l - 1]; };
+    auto gbuf = [&](int tw, int l) { return scratch + G.g_at[tw][l % 2]; };
+    for (long long row0 = 0; row0 < obs.n; row0 += G.slab_rows) {
+        const int rows = (int)(obs.n - row0 < G.slab_rows ? obs.n - row0 : G.slab_rows);
+        const int parts = (int)ceil_div(rows, G.chunk_rows);
+        if (!saved) {
+            const int err = hidden_layers(net, obs, G, scratch, row0, rows, true, L_, stream);
+            if (err) return err;
+        }
+        RowArgs A{};
+        for (int tw = 0; tw < 2; ++tw) {
+            A.h[tw] = act(tw, L_);
+            A.w[tw] = net.w[tw][L_];
+            A.b[tw] = net.b[tw][L_];
+            A.g3[tw] = scratch + G.g3_at[tw];
+            A.gl[tw] = gbuf(tw, L_);
+        }
+        A.ldh = G.ld[L_];
+        A.ldg = G.ldg;
+        A.row0 = row0;
+        A.K = S.dims[L_];
+        A.rows = rows;
+        A.backward = 1;
+        A.g_mu = g_mu;
+        A.g_v = g_v;
+        int err = launch_rows(A, stream);
+        if (err) return err;
+        // split: backward top continue;
+        // two launches a hidden layer l from the top: W_l's gradient (and, in the first,
+        // the narrow layer's), and G_{l-1} for the next
+        for (int l = L_; l >= 1; --l) {
+            Launch L = slab_launch(obs, row0, rows, G, params);
+            for (int tw = 0; tw < 2 && with_dw; ++tw) {
+                if (l == L_) {
+                    // the narrow layer's: H_L^T g3
+                    Job J{};
+                    J.kind = kWgrad;
+                    J.M = S.dims[L_];
+                    J.N = 2 - tw;
+                    J.a = act(tw, L_);
+                    J.lda = G.ld[L_];
+                    J.b = scratch + G.g3_at[tw];
+                    J.ldb = 4;
+                    J.out = partial + w_at[tw][L_];
+                    J.bias_out = partial + b_at[tw][L_];
+                    L.job[L.jobs++] = tiled(J, parts);
+                }
+                Job J{};
+                J.kind = kWgrad;
+                J.M = S.dims[l - 1];
+                J.N = S.dims[l];
+                J.a = l == 1 ? nullptr : act(tw, l - 1);
+                J.lda = G.ld[l - 1];
+                J.b = gbuf(tw, l);
+                J.ldb = G.ldg;
+                J.out = partial + w_at[tw][l - 1];
+                J.bias_out = partial + b_at[tw][l - 1];
+                L.job[L.jobs++] = tiled(J, parts);
+            }
+            err = launch_jobs(L, kWgrad, stream);
+            if (err) return err;
+            L.jobs = 0;
+            for (int tw = 0; tw < 2 && with_gprop && l > 1; ++tw) {
+                Job J{};
+                J.kind = kGprop;
+                J.M = rows;
+                J.N = S.dims[l - 1];
+                J.K = S.dims[l];
+                J.a = gbuf(tw, l);
+                J.lda = G.ldg;
+                J.b = scratch + G.split_at[tw][l - 1];
+                J.ldb = 2 * round_up_ll(J.K, 2);
+                J.h = act(tw, l - 1);
+                J.ldh = G.ld[l - 1];
+                J.out = gbuf(tw, l - 1);
+                J.ldo = G.ldg;
+                L.job[L.jobs++] = tiled(J, 1);
+            }
+            err = launch_jobs(L, kGprop, stream);
+            if (err) return err;
+        }
+    }
+    return 0;
+}
+
 }  // namespace
 
-// The plan of the kind (0 the forward, 1 policy_act, 2 pool_act, 3 the backward) at
-// towers dims[0] -> dims[1] -> ... -> dims[num_dims - 1] into out[10]: the block's
-// warps, the tile's rows, the activation tiles' row stride, the warps on a fragment, the n-tiles a warp, a
-// pass's columns, a chunk's floats, 1 where the backward's activations are in its
-// device scratch, the shared bytes, the scratch floats a block. Returns a
-// cudaError_t (invalid where the route does not take the towers).
-extern "C" int mlp_general_plan(int kind, const int* dims, int num_dims, long long* out) {
+// The geometry of the forward (kind 0) or the backward (kind 3) at n rows of towers
+// dims[0] -> dims[1] -> ... -> dims[num_dims - 1] into out[10]: a layer launch's
+// threads, a tile's rows, columns and contraction chunk, the rows a partial row sums,
+// the partial rows, a slab's rows, the slabs, the scratch floats and a layer launch's
+// shared bytes. Returns a cudaError_t (invalid where the route does not take them).
+extern "C" int mlp_general_gemm_plan(int kind, long long n, const int* dims, int num_dims,
+                                     long long* out) {
     Shape s;
-    if (kind < kForward || kind > kBackward || !shape_of(dims, num_dims, &s))
+    if ((kind != kForward && kind != kBackward) || n < 0 || !shape_of(dims, num_dims, &s))
         return (int)cudaErrorInvalidValue;
-    const Plan p = make_plan(kind, s);
-    if (p.rows == 0) return (int)cudaErrorInvalidValue;
-    const long long v[10] = {p.warps, p.rows, p.stride, p.groups, p.tiles, p.cols, p.chunk,
-                             p.acts_global, p.shared_bytes, p.scratch_floats};
+    const Geometry G = geometry(kind, s, n);
+    const long long v[10] = {kThreads, kBM, kBN, kBK, G.chunk_rows, G.partial_rows, G.slab_rows,
+                             G.slabs, G.scratch_floats, kLayerSharedBytes};
     for (int i = 0; i < 10; ++i) out[i] = v[i];
     return 0;
 }
 
-// The rows of the backward's partials at n rows: a row a block of its fixed grid,
-// fewer where there are fewer tiles; -1 where the towers are not taken.
+// The rows of the backward's partials at n rows: a row a chunk of the rows; -1 where
+// the towers are not taken.
 extern "C" int mlp_general_partial_rows(long long n, const int* dims, int num_dims) {
     Shape s;
-    if (!shape_of(dims, num_dims, &s)) return -1;
-    const Plan p = make_plan(kBackward, s);
-    return p.rows == 0 ? -1 : (int)backward_blocks(n, p.rows);
+    if (n < 0 || !shape_of(dims, num_dims, &s)) return -1;
+    return (int)geometry(kBackward, s, n).partial_rows;
 }
 
 // The forward: ptrs the obs (float32 contiguous), the unit ids (int64, or null), both
 // towers' 4 (L + 1) tensors in model.parameters() order, then mu [n, 2] and v [n]
-// out; block and units the observations' [units, block] with ids; dims the towers'
-// (obs_dim, hidden widths). Returns a cudaError_t.
+// out and the scratch; block and units the observations' [units, block] with ids;
+// dims the towers' (obs_dim, hidden widths); scratch_floats the scratch's allocated
+// floats, invalid under the plan's; keep: the backward's plan (one slab, else
+// invalid), every hidden layer's activations and the split weights left in the
+// scratch for mlp_general_backward_f32(..., saved = 1). Returns a cudaError_t.
 extern "C" int mlp_general_forward_f32(const void* const* ptrs, int num_ptrs, long long n,
                                        long long block, long long units, const int* dims,
-                                       int num_dims, int device, void* stream) {
+                                       int num_dims, long long scratch_floats, int keep,
+                                       int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     Net net;
     Rows a;
-    if (!net_args(ptrs, num_ptrs, 2, n, block, units, dims, num_dims, &net, &a))
+    if (!net_args(ptrs, num_ptrs, 3, n, block, units, dims, num_dims, &net, &a))
         return (int)cudaErrorInvalidValue;
-    const Plan p = make_plan(kForward, net.s);
-    if (p.rows == 0 || tiles_for(n, p.rows) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const Geometry G = geometry(keep ? kBackward : kForward, net.s, n);
+    float* mu = static_cast<float*>(const_cast<void*>(ptrs[num_ptrs - 3]));
+    float* v = static_cast<float*>(const_cast<void*>(ptrs[num_ptrs - 2]));
+    float* scratch = static_cast<float*>(const_cast<void*>(ptrs[num_ptrs - 1]));
+    if (mu == nullptr || v == nullptr || scratch == nullptr || scratch_floats < G.scratch_floats
+            || (keep && G.slabs > 1) || ceil_div(G.slab_rows, kBM) * 8 > 0x7fffffffLL)
+        return (int)cudaErrorInvalidValue;
     if (n == 0) return 0;
-    float* mu = static_cast<float*>(const_cast<void*>(ptrs[num_ptrs - 2]));
-    float* v = static_cast<float*>(const_cast<void*>(ptrs[num_ptrs - 1]));
-    err = allow_smem(general_forward_kernel, p.shared_bytes);
+    err = allow_layer_smem();
     if (err != cudaSuccess) return (int)err;
-    const long long tiles = tiles_for(n, p.rows);
-    general_forward_kernel<<<(unsigned)(tiles < kForwardBlocks ? tiles : kForwardBlocks),
-                             32 * p.warps, p.shared_bytes, (cudaStream_t)stream>>>(net, a, p, mu,
-                                                                                   v);
-    return (int)cudaGetLastError();
+    const cudaStream_t s = (cudaStream_t)stream;
+    const int e = launch_split(net, G, scratch, s);
+    if (e) return e;
+    // split: forward split_weights return 0;
+    return forward(net, a, G, scratch, mu, v, keep != 0, s);
 }
 
 // The backward: ptrs as the forward's inputs, then d mu [n, 2] and d v [n]
 // (contiguous), the partials [mlp_general_partial_rows(n), params] out, and the
-// scratch (the plan's scratch floats x partial rows x 2; null where the plan keeps the
-// activations in shared memory). partial_rows and partial_cols are the partials'
-// allocated shape and scratch_floats the scratch's allocated floats: invalid unless
-// the shape is the plan's exactly (the reduce sums every row) and the scratch holds
-// what the plan writes. Returns a cudaError_t.
+// scratch. partial_rows and partial_cols are the partials' allocated shape and
+// scratch_floats the scratch's allocated floats: invalid unless the shape is the
+// plan's exactly (the reduce sums every row) and the scratch holds what the plan
+// writes. saved: the scratch holds what the forward kept of these inputs (keep = 1;
+// one slab, else invalid), so the hidden layers are not computed again. Every partial
+// row is written. Returns a cudaError_t.
 extern "C" int mlp_general_backward_f32(const void* const* ptrs, int num_ptrs, long long n,
                                         long long block, long long units, const int* dims,
                                         int num_dims, long long partial_rows,
                                         long long partial_cols, long long scratch_floats,
-                                        int device, void* stream) {
+                                        int saved, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     Net net;
     Rows a;
     if (!net_args(ptrs, num_ptrs, 4, n, block, units, dims, num_dims, &net, &a))
         return (int)cudaErrorInvalidValue;
-    const Plan p = make_plan(kBackward, net.s);
-    if (p.rows == 0 || tiles_for(n, p.rows) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const Geometry G = geometry(kBackward, net.s, n);
     const float* g_mu = static_cast<const float*>(ptrs[num_ptrs - 4]);
     const float* g_v = static_cast<const float*>(ptrs[num_ptrs - 3]);
     float* partial = static_cast<float*>(const_cast<void*>(ptrs[num_ptrs - 2]));
     float* scratch = static_cast<float*>(const_cast<void*>(ptrs[num_ptrs - 1]));
-    const long long blocks = backward_blocks(n, p.rows);
-    if (g_mu == nullptr || g_v == nullptr || partial == nullptr || partial_rows != blocks
+    if (g_mu == nullptr || g_v == nullptr || partial == nullptr || scratch == nullptr
+            || partial_rows != G.partial_rows
             || partial_cols != tower_params(net.s, 2) + tower_params(net.s, 1)
-            || (p.acts_global && (scratch == nullptr
-                                  || scratch_floats < blocks * 2 * p.scratch_floats)))
+            || scratch_floats < G.scratch_floats || (saved && G.slabs > 1)
+            || ceil_div(G.slab_rows, kBM) * 8 * 2 * 2 > 0x7fffffffLL)
         return (int)cudaErrorInvalidValue;
     if (n == 0) return 0;
-    err = allow_smem(general_backward_kernel, p.shared_bytes);
+    err = allow_layer_smem();
     if (err != cudaSuccess) return (int)err;
-    general_backward_kernel<<<dim3((unsigned)blocks, 2), 32 * p.warps,
-                              p.shared_bytes, (cudaStream_t)stream>>>(net, a, p, g_mu, g_v,
-                                                                      partial, scratch);
-    return (int)cudaGetLastError();
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (!saved) {
+        const int e = launch_split(net, G, scratch, s);
+        if (e) return e;
+    }
+    return backward(net, a, G, scratch, g_mu, g_v, partial, saved != 0, s);
 }
 
 // The reduce (general_grad_reduce_kernel): out[p] (params floats) = the sum over the

@@ -1,8 +1,9 @@
 // The actor's and critic's towers of any depth and width on the tensor cores, for
-// NVIDIA Hopper (sm_90a): the general route's device code, shared by the minibatch
-// step's general forward and backward (mlp_general.cu) and the rollout's general
-// policy kernels (policy_general.cu), so that a row's mu and v come out of one
-// per-element routine, bit for bit, wherever it runs.
+// NVIDIA Hopper (sm_90a): the general route's per-tile forward, run by the rollout's
+// general policy kernels (policy_general.cu), and the shapes and the 3xTF32 k-step
+// (mma3) that the minibatch step's layer-major kernels (mlp_general.cu) share with
+// it, so that a row's mu and v come out of one per-element sequence, bit for bit,
+// wherever they run.
 //
 // The compiled route (mlp_tower.cuh: three layers at (64, 64) and (128, 128), the
 // whole tower staged in a block and the activations in a warp's registers) cannot
@@ -27,10 +28,6 @@
 // lane l its features l, l + 32, ... by fmaf in order, the butterfly over the lanes
 // (xor 1, 2, 4, 8, 16), then the bias; tanh for the actor.
 //
-// The backward's products run through the same streamed routine: g W^T reads the
-// staged chunks transposed, and the weight gradients x^T g are mma products over
-// the tile's rows in order.
-//
 // Limits: 1 to kMaxHidden hidden layers, widths and obs_dim 1 to kMaxWidth.
 #pragma once
 
@@ -46,8 +43,7 @@ using mlp_tower::FragA;
 using mlp_tower::FragB;
 using mlp_tower::round_up;
 
-constexpr int kMaxWarps = 16;                 // a block's warps: 16, or 8 (Plan::warps)
-constexpr int kWideWarpsFrom = 128;           // the widest width from which 16 (plan_warps)
+constexpr int kMaxWarps = 16;                 // a block's warps at most (the plans take 8)
 constexpr int kMaxThreads = 32 * kMaxWarps;
 constexpr int kMaxHidden = 7;                 // hidden layers a tower
 constexpr int kMaxLayers = kMaxHidden + 1;    // and the narrow last layer
@@ -55,8 +51,6 @@ constexpr int kMaxWidth = 1024;               // a hidden width or obs_dim
 constexpr int kMaxTiles = 8;                  // n-tiles a warp holds in a column pass
 constexpr int kChunkRows = 16;                // weight rows a staged chunk: two k-steps
 constexpr int kStages = 3;                    // the chunks' ring: two in flight ahead
-constexpr int kGradTiles = 4;                 // n-tiles a warp's weight-gradient item
-constexpr int kTransStride = kChunkRows + 4;  // a transposed chunk's row stride
 constexpr int kPoolRange = 128;               // kernel B's rows a block
 constexpr int kTileMax = 64;                  // tile rows: kTileMax, then halves to 16
 constexpr int kSmSharedBytes = mlp_tower::kSmSharedBytes;
@@ -64,6 +58,8 @@ constexpr int kBlockReservedBytes = mlp_tower::kBlockReservedBytes;
 constexpr int kMaxSharedBytes = mlp_tower::kMaxSharedBytes;
 constexpr int kTwoBlockBytes = kSmSharedBytes / 2 - kBlockReservedBytes;
 
+// the general route's kernels: the minibatch forward and backward (mlp_general.cu),
+// kernels A and B (policy_general.cu, on the plans below)
 enum Kind { kForward = 0, kAct = 1, kPool = 2, kBackward = 3 };
 
 // A tower's shape: obs_dim and the hidden widths (the outputs are the caller's).
@@ -104,21 +100,19 @@ __host__ __device__ inline long long tower_params(const Shape& s, int outputs) {
     return p;
 }
 
-// The launch plan at a shape: the block's warps, the tile's rows (16 a fragment), the activation
-// tiles' row stride (the widest width to 32, and 4: rows 4 banks apart), the warps on
-// a fragment, the n-tiles a warp holds, a column pass's columns (warps on a fragment x
-// n-tiles a warp x 8), the floats of one staged chunk (kStages of them), whether the
-// backward keeps its activations in device memory, the shared bytes and the
-// backward's device scratch a block (floats).
+// Kernel A's or B's launch plan at a shape: the block's warps, the tile's rows (16 a
+// fragment), the activation tiles' row stride (the widest width to 32, and 4: rows 4
+// banks apart), the warps on a fragment, the n-tiles a warp holds, a column pass's
+// columns (warps on a fragment x n-tiles a warp x 8), the floats of one staged chunk
+// (kStages of them) and the shared bytes.
 struct Plan {
-    int warps, rows, frags, stride, groups, tiles, cols, chunk, acts_global;
-    long long shared_bytes, scratch_floats;
+    int warps, rows, frags, stride, groups, tiles, cols, chunk;
+    long long shared_bytes;
 };
 
 __host__ __device__ inline int forward_chunk(int cols) {
     return kChunkRows * (round_up(cols, 32) + 8);
 }
-__host__ __device__ inline int transposed_chunk(int cols) { return cols * kTransStride; }
 
 // the floats a kind needs besides the activation tiles and chunks
 __host__ __device__ inline int extra_floats(int kind, int rows, int stride) {
@@ -128,19 +122,11 @@ __host__ __device__ inline int extra_floats(int kind, int rows, int stride) {
     return y;
 }
 
-// A block's warps: 16 for the forward and the backward of towers 128 wide or wider
-// (more mma.sync chains in flight: at (19, 256, 256) 16 warps took the forward from 1.35
-// to 0.87 ms on an H100), else 8 (at (19, 32, 16, 8), and for kernels A and B at 4096
-// rows, 16 were slower: the n-tiles a warp too few).
-__host__ __device__ inline int plan_warps(int kind, const Shape& s) {
-    const bool minibatch = kind == kForward || kind == kBackward;
-    return minibatch && widest(s) >= kWideWarpsFrom ? kMaxWarps : kMaxWarps / 2;
-}
-
-__host__ __device__ inline Plan plan_at(int kind, const Shape& s, int rows, int max_tiles,
-                                        bool acts_global) {
+// 8 warps a block (for kernels A and B at 4096 rows, 16 were slower on an H100: the
+// n-tiles a warp too few)
+__host__ __device__ inline Plan plan_at(int kind, const Shape& s, int rows, int max_tiles) {
     Plan p;
-    p.warps = plan_warps(kind, s);
+    p.warps = kMaxWarps / 2;
     p.rows = rows;
     p.frags = rows / 16;
     p.stride = round_up(widest(s), 32) + 4;
@@ -149,44 +135,30 @@ __host__ __device__ inline Plan plan_at(int kind, const Shape& s, int rows, int 
     const int per = (ntiles + p.groups - 1) / p.groups;
     p.tiles = per < max_tiles ? per : max_tiles;
     p.cols = 8 * p.groups * p.tiles;
-    const int f = forward_chunk(p.cols), t = transposed_chunk(p.cols);
-    p.chunk = kind == kBackward ? (f > t ? f : t) : f;
-    p.acts_global = acts_global ? 1 : 0;
-    const long long tile = (long long)rows * p.stride;
-    // the forward family: two activation tiles; the backward: x, the hidden layers'
-    // activations and two gradient tiles, in shared memory or in its scratch
-    const long long act_tiles = kind == kBackward ? (long long)(s.hidden + 3) : 2;
+    p.chunk = forward_chunk(p.cols);
+    // two activation tiles
     const long long floats = (long long)kStages * p.chunk + extra_floats(kind, rows, p.stride)
-        + (acts_global ? 0 : act_tiles * tile);
+        + 2LL * rows * p.stride;
     p.shared_bytes = 4 * floats;
-    p.scratch_floats = acts_global ? act_tiles * tile : 0;
     return p;
 }
 
-// The plan of `kind` at `s`, the first that fits, by the most n-tiles a warp (8, 4,
-// 2, 1: the mma.sync products between two barriers), then the most rows a tile (64,
-// 32, 16: the rows each staged chunk serves). The forward and the backward (a
-// minibatch's rows) take a block's memory; kernels A and B (a rollout step's few
-// thousand rows) first what leaves room for two blocks an SM, so that more blocks
-// share the card. The backward, where none fits, keeps its activations in its device
-// scratch at 16 rows. rows 0: not taken.
+// Kernel A's or B's plan at `s`, the first that fits, by the most n-tiles a warp (8,
+// 4, 2, 1: the mma.sync products between two barriers), then the most rows a tile
+// (64, 32, 16: the rows each staged chunk serves): first within room for two blocks
+// an SM (a rollout step's few thousand rows, so that more blocks share the card),
+// then within a block's memory. rows 0: not taken.
 __host__ __device__ inline Plan make_plan(int kind, const Shape& s) {
     Plan none{};
-    if (!valid_shape(s)) return none;
-    const bool minibatch = kind == kForward || kind == kBackward;
-    for (int limit = minibatch ? 1 : 0; limit < 2; ++limit) {
+    if ((kind != kAct && kind != kPool) || !valid_shape(s)) return none;
+    for (int limit = 0; limit < 2; ++limit) {
         const long long bytes = limit == 0 ? kTwoBlockBytes : kMaxSharedBytes;
         for (int tiles = kMaxTiles; tiles >= 1; tiles /= 2)
             for (int rows = kTileMax; rows >= 16; rows /= 2) {
-                const Plan p = plan_at(kind, s, rows, tiles, false);
+                const Plan p = plan_at(kind, s, rows, tiles);
                 if (p.shared_bytes <= bytes) return p;
             }
     }
-    if (kind == kBackward)
-        for (int tiles = kMaxTiles; tiles >= 1; tiles /= 2) {
-            const Plan p = plan_at(kind, s, 16, tiles, true);
-            if (p.shared_bytes <= kMaxSharedBytes) return p;
-        }
     return none;
 }
 
@@ -215,28 +187,26 @@ __device__ __forceinline__ void mma3(float (&acc)[4], const FragA& a, const Frag
     for (int e = 0; e < 4; ++e) acc[e] = __fadd_rn(acc[e], d[e]);
 }
 
-// A chunk's copies: forward, the weight w [K][N]'s rows [k0, k0 + kChunkRows) and
-// columns [c0, c0 + cols) at chunk[kr][round_up(cols, 32) + 8]; transposed, w's rows
-// [c0, c0 + cols) and columns [k0, k0 + kChunkRows) at chunk[c][kTransStride]; zero
-// where past the tensor. Four consecutive floats a copy: 16 bytes where all four lie
-// in the tensor and the source is 16-byte aligned (w aligned and N a multiple of 4;
-// k0, c0 and cols are multiples of 4), else a float a copy. A thread's groups are
-// stepped without a division. The caller commits.
-template <bool kTransposed>
+// A chunk's copies: the weight w [K][N]'s rows [k0, k0 + kChunkRows) and columns
+// [c0, c0 + cols) at chunk[kr][round_up(cols, 32) + 8]; zero where past the tensor.
+// Four consecutive floats a copy: 16 bytes where all four lie in the tensor and the
+// source is 16-byte aligned (w aligned and N a multiple of 4; c0 and cols are
+// multiples of 4), else a float a copy. A thread's groups are stepped without a
+// division. The caller commits.
 __device__ __forceinline__ void stage_chunk(float* chunk, const float* w, int K, int N, int k0,
                                             int c0, int cols) {
     const bool wide = mlp_tower::aligned16(w) && (N & 3) == 0;
-    // groups of 4 a line: a chunk row of cols (forward) or a staged row of kChunkRows
-    const int per_line = (kTransposed ? kChunkRows : cols) / 4;
-    const int lines = kTransposed ? cols : kChunkRows;
-    const int ls = kTransposed ? kTransStride : round_up(cols, 32) + 8;
+    // groups of 4 a line: a chunk row of cols
+    const int per_line = cols / 4;
+    const int lines = kChunkRows;
+    const int ls = round_up(cols, 32) + 8;
     const int threads = blockDim.x;
     const int step_lines = threads / per_line, step_groups = threads - step_lines * per_line;
     int line = threadIdx.x / per_line, g = threadIdx.x - line * per_line;
     for (; line < lines;) {
         // w's row and first column of the group
-        const int row = kTransposed ? c0 + line : k0 + line;
-        const int col = kTransposed ? k0 + 4 * g : c0 + 4 * g;
+        const int row = k0 + line;
+        const int col = c0 + 4 * g;
         float* dst = chunk + line * ls + 4 * g;
         const bool in_rows = row < K;
         if (wide && in_rows && col + 3 < N) {
@@ -258,17 +228,14 @@ __device__ __forceinline__ void stage_chunk(float* chunk, const float* w, int K,
 }
 
 // One streamed product over the tile: out[r][c] for c < round_up(cols_out, 8) =
-// the epilogue of the sum over k < round_up(contract, 8) of in[r][k] B(k, c), B(k, c)
-// = w[k][c] (forward: w [contract][cols_out]; tanh(acc + b[c]), b 0 past cols_out) or
-// w[c][k] (transposed: w [cols_out][contract]; acc (1 - h^2), h = prev[r][c]). in,
-// out, prev: [rows][stride] tiles (shared or device memory); chunk: kStages slots of
-// p.chunk floats in shared memory. The chunks go in column passes of p.cols, each
-// pass its contraction's chunks in order, kStages - 1 in flight while one is read.
-// Every thread of the block calls it; it returns after a barrier, with out whole.
-template <bool kTransposed>
-__device__ void stream_product(const Plan& p, const float* in, float* out, const float* prev,
-                               const float* w, const float* b, int contract, int cols_out,
-                               float* chunk) {
+// tanh(acc + b[c]) (b 0 past cols_out), acc the sum over k < round_up(contract, 8) of
+// in[r][k] w[k][c], w [contract][cols_out]. in, out: [rows][stride] tiles in shared
+// memory; chunk: kStages slots of p.chunk floats in shared memory. The chunks go in
+// column passes of p.cols, each pass its contraction's chunks in order, kStages - 1 in
+// flight while one is read. Every thread of the block calls it; it returns after a
+// barrier, with out whole.
+__device__ void stream_product(const Plan& p, const float* in, float* out, const float* w,
+                               const float* b, int contract, int cols_out, float* chunk) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
     const int frag = warp / p.groups, grp = warp - frag * p.groups;
@@ -276,9 +243,7 @@ __device__ void stream_product(const Plan& p, const float* in, float* out, const
     const int chunks = (kp + kChunkRows - 1) / kChunkRows;
     const int passes = (np + p.cols - 1) / p.cols;
     const int total = passes * chunks;
-    const int wr = kTransposed ? cols_out : contract;  // w's rows
-    const int wc = kTransposed ? contract : cols_out;  // w's columns
-    const int cs = kTransposed ? kTransStride : round_up(p.cols, 32) + 8;
+    const int cs = round_up(p.cols, 32) + 8;
     const int r0 = 16 * frag + g, r1 = r0 + 8;
     const float* ar0 = in + r0 * p.stride;
     const float* ar1 = in + r1 * p.stride;
@@ -288,8 +253,8 @@ __device__ void stream_product(const Plan& p, const float* in, float* out, const
     auto stage = [&](int j) {
         if (j < total) {
             const int pj = j / chunks, cj = j - pj * chunks;
-            stage_chunk<kTransposed>(chunk + (j % kStages) * p.chunk, w, wr, wc,
-                                     cj * kChunkRows, pj * p.cols, p.cols);
+            stage_chunk(chunk + (j % kStages) * p.chunk, w, contract, cols_out, cj * kChunkRows,
+                        pj * p.cols, p.cols);
         }
         mlp_tower::cp_async_commit();
     };
@@ -318,9 +283,7 @@ __device__ void stream_product(const Plan& p, const float* in, float* out, const
                 const int n = col0 + 8 * j;
                 if (j < p.tiles && n < np) {
                     const int nl = n - pass * p.cols + g;
-                    const FragB fb = kTransposed
-                        ? mlp_tower::frag_b(ch[nl * cs + kl], ch[nl * cs + kl + 4])
-                        : mlp_tower::frag_b(ch[kl * cs + nl], ch[(kl + 4) * cs + nl]);
+                    const FragB fb = mlp_tower::frag_b(ch[kl * cs + nl], ch[(kl + 4) * cs + nl]);
                     mma3(acc[j], fa, fb);
                 }
             }
@@ -331,21 +294,12 @@ __device__ void stream_product(const Plan& p, const float* in, float* out, const
                 const int n = col0 + 8 * j + 2 * t;
                 if (j < p.tiles && n < np) {
                     float v[4];
-                    if (!kTransposed) {
-                        const float b0 = n < cols_out ? b[n] : 0.0f;
-                        const float b1 = n + 1 < cols_out ? b[n + 1] : 0.0f;
-                        v[0] = tanhf(acc[j][0] + b0);
-                        v[1] = tanhf(acc[j][1] + b1);
-                        v[2] = tanhf(acc[j][2] + b0);
-                        v[3] = tanhf(acc[j][3] + b1);
-                    } else {
-                        const float* h0 = prev + r0 * p.stride + n;
-                        const float* h1 = prev + r1 * p.stride + n;
-                        v[0] = acc[j][0] * (1.0f - h0[0] * h0[0]);
-                        v[1] = acc[j][1] * (1.0f - h0[1] * h0[1]);
-                        v[2] = acc[j][2] * (1.0f - h1[0] * h1[0]);
-                        v[3] = acc[j][3] * (1.0f - h1[1] * h1[1]);
-                    }
+                    const float b0 = n < cols_out ? b[n] : 0.0f;
+                    const float b1 = n + 1 < cols_out ? b[n + 1] : 0.0f;
+                    v[0] = tanhf(acc[j][0] + b0);
+                    v[1] = tanhf(acc[j][1] + b1);
+                    v[2] = tanhf(acc[j][2] + b0);
+                    v[3] = tanhf(acc[j][3] + b1);
                     out[r0 * p.stride + n] = v[0];
                     out[r0 * p.stride + n + 1] = v[1];
                     out[r1 * p.stride + n] = v[2];
@@ -386,7 +340,7 @@ __device__ __forceinline__ void tower_forward(const Plan& p, const Shape& s, con
     float* in = a0;
     float* out = a1;
     for (int l = 0; l < s.hidden; ++l) {
-        stream_product<false>(p, in, out, nullptr, w[l], b[l], s.dims[l], s.dims[l + 1], chunk);
+        stream_product(p, in, out, w[l], b[l], s.dims[l], s.dims[l + 1], chunk);
         float* next = out;
         out = in;
         in = next;
@@ -397,7 +351,7 @@ __device__ __forceinline__ void tower_forward(const Plan& p, const Shape& s, con
 
 // rows [0, rows) of a tile into x [rows][stride]: features c < round_up(d, 8), from
 // row_at(r) (a row's first float, null for none) and zero past d or where null.
-// Plain loads and stores (x in shared or device memory); the caller's barrier.
+// Plain loads and stores; the caller's barrier.
 template <class RowAt>
 __device__ __forceinline__ void stage_rows(float* x, int stride, int rows, int d, RowAt row_at) {
     const int dk = round_up(d, 8);
@@ -405,67 +359,6 @@ __device__ __forceinline__ void stage_rows(float* x, int stride, int rows, int d
         const int r = e / dk, c = e - r * dk;
         const float* src = row_at(r);
         x[r * stride + c] = src != nullptr && c < d ? src[c] : 0.0f;
-    }
-}
-
-// ------------------------------------------------------------------- the backward
-
-// dst[m][n] (device memory, row stride N) += the sum over the tile's rows of A[r][m]
-// G[r][n], m < M, n < N (A, G [rows][stride]): each element its k-steps of 8 rows in
-// order on its running value. Items of 16 m x kGradTiles n-tiles over the warps, a
-// fixed item a warp every tile; no barrier.
-__device__ __forceinline__ void weight_grad(const Plan& p, const float* A, const float* G, int M,
-                                            int N, float* dst) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int mt = (M + 15) / 16, nt = (N + 7) / 8, ng = (nt + kGradTiles - 1) / kGradTiles;
-    for (int item = warp; item < mt * ng; item += p.warps) {
-        const int m0 = 16 * (item % mt), j0 = kGradTiles * (item / mt);
-        const int ma = m0 + g, mb = ma + 8;
-        float acc[kGradTiles][4];
-#pragma unroll
-        for (int j = 0; j < kGradTiles; ++j) {
-            const int n = 8 * (j0 + j) + 2 * t;
-            const bool live = j0 + j < nt;
-            acc[j][0] = live && ma < M && n < N ? dst[(long long)ma * N + n] : 0.0f;
-            acc[j][1] = live && ma < M && n + 1 < N ? dst[(long long)ma * N + n + 1] : 0.0f;
-            acc[j][2] = live && mb < M && n < N ? dst[(long long)mb * N + n] : 0.0f;
-            acc[j][3] = live && mb < M && n + 1 < N ? dst[(long long)mb * N + n + 1] : 0.0f;
-        }
-        for (int ks = 0; ks < p.rows / 8; ++ks) {
-            const float* ra = A + (8 * ks + t) * p.stride;
-            const float* rb = ra + 4 * p.stride;
-            const FragA fa = mlp_tower::frag_a(ra[ma], ra[mb], rb[ma], rb[mb]);
-            const float* ga = G + (8 * ks + t) * p.stride + g;
-#pragma unroll
-            for (int j = 0; j < kGradTiles; ++j) {
-                if (j0 + j < nt) {
-                    const int n = 8 * (j0 + j);
-                    mma3(acc[j], fa, mlp_tower::frag_b(ga[n], ga[4 * p.stride + n]));
-                }
-            }
-        }
-#pragma unroll
-        for (int j = 0; j < kGradTiles; ++j) {
-            const int n = 8 * (j0 + j) + 2 * t;
-            if (j0 + j >= nt) continue;
-            if (ma < M && n < N) dst[(long long)ma * N + n] = acc[j][0];
-            if (ma < M && n + 1 < N) dst[(long long)ma * N + n + 1] = acc[j][1];
-            if (mb < M && n < N) dst[(long long)mb * N + n] = acc[j][2];
-            if (mb < M && n + 1 < N) dst[(long long)mb * N + n + 1] = acc[j][3];
-        }
-    }
-}
-
-// dst[n] += the sum over the tile's rows of G[r][n], a thread a column: the rows in
-// order in float64, then one float32 add (a float32 running sum over the rows came
-// 1.1e-5 from the composition's tree sum of a bias gradient whose rows cancel, on an
-// H100)
-__device__ __forceinline__ void bias_grad(const Plan& p, const float* G, int N, float* dst) {
-    for (int n = threadIdx.x; n < N; n += blockDim.x) {
-        double s = 0.0;
-        for (int r = 0; r < p.rows; ++r) s += (double)G[r * p.stride + n];
-        dst[n] += (float)s;
     }
 }
 

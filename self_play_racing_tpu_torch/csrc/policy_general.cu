@@ -346,17 +346,18 @@ bool tower_of(const void* const* ptrs, int L, Tower* t, bool* present) {
 }  // namespace
 
 // The plan of kernel A (kind 1) or kernel B (kind 2) at towers dims (obs_dim, the
-// hidden widths) into out[10], as mlp_general.cu's mlp_general_plan. Returns a
-// cudaError_t.
+// hidden widths) into out[8]: the block's warps, the tile's rows, the activation
+// tiles' row stride, the warps on a fragment, the n-tiles a warp, a pass's columns, a
+// chunk's floats and the shared bytes. Returns a cudaError_t.
 extern "C" int policy_general_plan(int kind, const int* dims, int num_dims, long long* out) {
     Shape s;
     if ((kind != kAct && kind != kPool) || !shape_of(dims, num_dims, &s))
         return (int)cudaErrorInvalidValue;
     const Plan p = make_plan(kind, s);
     if (p.rows == 0) return (int)cudaErrorInvalidValue;
-    const long long v[10] = {p.warps, p.rows, p.stride, p.groups, p.tiles, p.cols, p.chunk,
-                             p.acts_global, p.shared_bytes, p.scratch_floats};
-    for (int i = 0; i < 10; ++i) out[i] = v[i];
+    const long long v[8] = {p.warps, p.rows, p.stride, p.groups, p.tiles, p.cols, p.chunk,
+                            p.shared_bytes};
+    for (int i = 0; i < 8; ++i) out[i] = v[i];
     return 0;
 }
 

@@ -78,10 +78,10 @@ _SIGNATURES = {
     "pool_act_f32": [_P, _I, _L, _L, _L, _L, _L] + [_I] * 7 + [_P, _I, _I, _P],
     "policy_shared_bytes": [_I] * 4,
     "policy_rows_per_block": [_I],
-    "mlp_general_plan": [_I, _P, _I, _P],
+    "mlp_general_gemm_plan": [_I, _L, _P, _I, _P],
     "mlp_general_partial_rows": [_L, _P, _I],
-    "mlp_general_forward_f32": [_P, _I, _L, _L, _L, _P, _I, _I, _P],
-    "mlp_general_backward_f32": [_P, _I, _L, _L, _L, _P, _I, _L, _L, _L, _I, _P],
+    "mlp_general_forward_f32": [_P, _I, _L, _L, _L, _P, _I, _L, _I, _I, _P],
+    "mlp_general_backward_f32": [_P, _I, _L, _L, _L, _P, _I, _L, _L, _L, _I, _I, _P],
     "general_grad_reduce_f32": [_P] * 5 + [_L, _L, _I, _P],
     "policy_general_plan": [_I, _P, _I, _P],
     "policy_general_act_f32": [_P, _I, _L, _L, _L, _P, _I, _P, _I, _I, _P],
@@ -1139,29 +1139,33 @@ def launch_pool_act(ptrs, rows: int, seats: int, cars: int, off: int, env_stride
           *dims, _float_array(consts), len(consts))
 
 
-# The general route (csrc/mlp_stream.cuh; mlp_general.cu's forward and backward,
-# policy_general.cu's kernels A and B): towers of any depth and width within these
-# limits, a tile of rows through the layers one at a time with each weight streamed
-# through shared memory in chunks. mlp_route says which route a tower takes; one
-# route for all four kernels, so that kernel A's and B's mu and v are bitwise the
-# minibatch forward's on every tower.
+# The general route (csrc/mlp_general.cu's forward and backward, layer-major over the
+# card; csrc/policy_general.cu's kernels A and B on csrc/mlp_stream.cuh's per-tile
+# forward): towers of any depth and width within these limits. mlp_route says which
+# route a tower takes; one route for all four kernels, so that kernel A's and B's mu
+# and v are bitwise the minibatch forward's on every tower.
 MLP_MAX_HIDDEN_LAYERS = 7   # adam_tail's 32-tensor table holds 4 (L + 1) tensors
 MLP_MAX_WIDTH = 1024        # a hidden width or obs_dim
-# mlp_stream.cuh's constants: a block's warps (at most; the plan's 16 or 8, and the
-# widest width from which the forward and backward take 16), its tile rows (from
-# GENERAL_TILE_MAX down to 16), the n-tiles a warp holds in a column pass (at most), a
-# staged chunk's weight rows, the chunks' ring, kernel B's range; mlp_general.cu's
-# grids
+# mlp_stream.cuh's constants (kernels A and B): a block's warps at most (the plans take
+# half), the tile rows (from GENERAL_TILE_MAX down to 16), the n-tiles a warp holds in
+# a column pass (at most), a staged chunk's weight rows, the chunks' ring, kernel B's
+# range
 GENERAL_MAX_WARPS = 16
-GENERAL_WIDE_WARPS_FROM = 128
 GENERAL_TILE_MAX = 64
 GENERAL_MAX_TILES = 8
 GENERAL_CHUNK_ROWS = 16
 GENERAL_STAGES = 3
 GENERAL_POOL_RANGE = 128
-GENERAL_FORWARD_BLOCKS = 264
-GENERAL_BACKWARD_BLOCKS = 128
 GENERAL_KINDS = ("forward", "act", "pool", "backward")
+# mlp_general.cu's constants: a layer launch's threads and tile (rows, columns,
+# contraction chunk), the rows a partial row sums at least, the partial rows at most,
+# the scratch floats a call (about), a layer launch's shared bytes
+GENERAL_GEMM_THREADS = 256
+GENERAL_GEMM_TILE = (128, 128, 16)
+GENERAL_MIN_CHUNK_ROWS = 512
+GENERAL_MAX_PARTIAL_ROWS = 128
+GENERAL_SCRATCH_BUDGET = 1 << 28
+GENERAL_GEMM_SHARED_BYTES = 92_160
 # an SM's shared memory and what the runtime keeps a block (mlp_tower.cuh)
 SM_SMEM_BYTES = 233_472
 BLOCK_RESERVED_BYTES = 1024
@@ -1169,11 +1173,10 @@ BLOCK_RESERVED_BYTES = 1024
 
 @dataclasses.dataclass(frozen=True)
 class GeneralPlan:
-    """A general-route kernel's launch plan (``csrc/mlp_stream.cuh:make_plan``): the
-    block's warps, the tile's rows, the activation tiles' row stride (floats), the
-    warps on a 16-row fragment, the n-tiles a warp holds, a column pass's columns, one
-    staged chunk's floats, whether the backward keeps its activations in device
-    scratch, the shared bytes a block and the scratch floats a block."""
+    """Kernel A's or B's launch plan (``csrc/mlp_stream.cuh:make_plan``): the block's
+    warps, the tile's rows, the activation tiles' row stride (floats), the warps on a
+    16-row fragment, the n-tiles a warp holds, a column pass's columns, one staged
+    chunk's floats and the shared bytes a block."""
     warps: int
     rows: int
     stride: int
@@ -1181,9 +1184,28 @@ class GeneralPlan:
     tiles: int
     cols: int
     chunk: int
-    acts_global: bool
     shared_bytes: int
+
+    def as_tuple(self) -> tuple:
+        return dataclasses.astuple(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    """The general forward's or backward's geometry at ``n`` rows
+    (``csrc/mlp_general.cu:geometry``): a layer launch's threads and tile (rows,
+    columns, contraction chunk), the rows a partial row sums, the partial rows, a
+    slab's rows, the slabs, the scratch floats and a layer launch's shared bytes."""
+    threads: int
+    tile_m: int
+    tile_n: int
+    tile_k: int
+    chunk_rows: int
+    partial_rows: int
+    slab_rows: int
+    slabs: int
     scratch_floats: int
+    shared_bytes: int
 
     def as_tuple(self) -> tuple:
         return dataclasses.astuple(self)
@@ -1211,86 +1233,123 @@ def mlp_route(obs_dim: int, hidden) -> str:
     return "general"
 
 
-def _general_plan_at(kind: str, dims, rows: int, max_tiles: int,
-                     acts_global: bool) -> GeneralPlan:
+def _general_plan_at(kind: str, dims, rows: int, max_tiles: int) -> GeneralPlan:
     widest = max(dims)
     stride = _round_up(widest, 32) + 4
-    wide = kind in ("forward", "backward") and widest >= GENERAL_WIDE_WARPS_FROM
-    warps = GENERAL_MAX_WARPS if wide else GENERAL_MAX_WARPS // 2
+    warps = GENERAL_MAX_WARPS // 2
     groups = warps // (rows // 16)
     per = -(-(-(-widest // 8)) // groups)
     tiles = min(per, max_tiles)
     cols = 8 * groups * tiles
-    forward = GENERAL_CHUNK_ROWS * (_round_up(cols, 32) + 8)
-    chunk = max(forward, cols * (GENERAL_CHUNK_ROWS + 4)) if kind == "backward" else forward
-    extra = _round_up(3 * rows, 4)
-    if kind == "act":
-        extra += 2 * stride
-    elif kind == "pool":
-        extra += 2 * stride + _round_up(3 * GENERAL_POOL_RANGE + GENERAL_MAX_WARPS, 4)
-    tiles_held = len(dims) + 2 if kind == "backward" else 2
-    floats = GENERAL_STAGES * chunk + extra + (0 if acts_global else tiles_held * rows * stride)
-    return GeneralPlan(warps, rows, stride, groups, tiles, cols, chunk, acts_global,
-                       4 * floats, tiles_held * rows * stride if acts_global else 0)
+    chunk = GENERAL_CHUNK_ROWS * (_round_up(cols, 32) + 8)
+    extra = _round_up(3 * rows, 4) + 2 * stride
+    if kind == "pool":
+        extra += _round_up(3 * GENERAL_POOL_RANGE + GENERAL_MAX_WARPS, 4)
+    floats = GENERAL_STAGES * chunk + extra + 2 * rows * stride
+    return GeneralPlan(warps, rows, stride, groups, tiles, cols, chunk, 4 * floats)
+
+
+def _dims(dims) -> tuple:
+    dims = tuple(int(x) for x in dims)
+    _check_limits(dims[0], dims[1:])
+    return dims
 
 
 @functools.lru_cache(maxsize=None)
 def general_plan(kind: str, dims) -> GeneralPlan:
-    """The plan of a general-route kernel (``kind`` one of ``GENERAL_KINDS``) at
-    towers ``dims`` = (obs_dim, *hidden), the first that fits by the most n-tiles a
-    warp (8, 4, 2, 1), then the most tile rows (64, 32, 16): the forward and the
-    backward within a block's memory, kernels A and B first within half an SM's; the
-    backward, where none fits, with its activations in device scratch at 16 rows (the
-    kernels' own ``make_plan``, held equal to this in chip_smoke.py phase s)."""
-    dims = tuple(int(x) for x in dims)
-    _check_limits(dims[0], dims[1:])
-    if kind not in GENERAL_KINDS:
-        raise ValueError(f"general_plan: kind {kind!r}, expected one of {GENERAL_KINDS}")
-    limits = (SM_SMEM_BYTES // 2 - BLOCK_RESERVED_BYTES, BLOCK_SMEM_LIMIT)
+    """The plan of kernel A (``kind`` ``"act"``) or B (``"pool"``) at towers ``dims`` =
+    (obs_dim, *hidden), the first that fits by the most n-tiles a warp (8, 4, 2, 1),
+    then the most tile rows (64, 32, 16): first within half an SM's memory, then within
+    a block's (the kernels' own ``make_plan``, held equal to this in chip_smoke.py
+    phase s)."""
+    dims = _dims(dims)
+    if kind not in ("act", "pool"):
+        raise ValueError(f"general_plan: kind {kind!r}, expected 'act' or 'pool'")
     tile_counts = [GENERAL_MAX_TILES >> i for i in range(GENERAL_MAX_TILES.bit_length())]
-    for limit in limits[kind in ("forward", "backward"):]:
+    for limit in (SM_SMEM_BYTES // 2 - BLOCK_RESERVED_BYTES, BLOCK_SMEM_LIMIT):
         for tiles in tile_counts:
             for rows in (GENERAL_TILE_MAX, GENERAL_TILE_MAX // 2, GENERAL_TILE_MAX // 4):
-                plan = _general_plan_at(kind, dims, rows, tiles, False)
+                plan = _general_plan_at(kind, dims, rows, tiles)
                 if plan.shared_bytes <= limit:
                     return plan
-    if kind == "backward":
-        for tiles in tile_counts:
-            plan = _general_plan_at(kind, dims, 16, tiles, True)
-            if plan.shared_bytes <= BLOCK_SMEM_LIMIT:
-                return plan
     raise ValueError(f"general_plan: no {kind} plan at towers {dims}")
 
 
+@functools.lru_cache(maxsize=None)
+def general_gemm_plan(kind: str, dims, n: int) -> GemmPlan:
+    """The general forward's (``kind`` ``"forward"``) or backward's (``"backward"``)
+    geometry at ``n`` rows of towers ``dims`` (the kernels' own ``geometry``, held
+    equal to this in chip_smoke.py phase s): a partial row sums chunk_rows =
+    max(GENERAL_MIN_CHUNK_ROWS, n / GENERAL_MAX_PARTIAL_ROWS rounded up to the tile's
+    contraction chunk) rows; the rows go in slabs, the most whole units (the backward's
+    chunks, the forward's 128-row tiles) whose scratch fits GENERAL_SCRATCH_BUDGET
+    beside the split weights, at least one; the scratch holds each tower's hidden
+    weights as (hi, lo) pairs and a slab's activations (the forward two buffers a
+    tower, the backward every hidden layer's, two gradient buffers and g3)."""
+    dims = _dims(dims)
+    if kind not in ("forward", "backward") or n < 0:
+        raise ValueError(f"general_gemm_plan: kind {kind!r} at {n} rows")
+    threads, (tm, tn, tk) = GENERAL_GEMM_THREADS, GENERAL_GEMM_TILE
+    chunk_rows = max(GENERAL_MIN_CHUNK_ROWS,
+                     _round_up(-(-n // GENERAL_MAX_PARTIAL_ROWS), tk) if n else 0)
+    partial_rows = -(-n // chunk_rows)
+    lds = [_round_up(d, 4) for d in dims[1:]]
+    widest = max(lds)
+    split = 2 * sum(k * 2 * _round_up(m, 2) for k, m in zip(dims, dims[1:]))
+    backward = kind == "backward"
+    per_row = 2 * (sum(lds) + 2 * widest + 4) if backward else 4 * widest
+    unit = chunk_rows if backward else tm
+    slab = max(unit, (GENERAL_SCRATCH_BUDGET - split) // per_row // unit * unit)
+    slab_rows = min(slab, _round_up(n, unit)) if n else 0
+    slabs = -(-n // slab_rows) if slab_rows else 0
+    return GemmPlan(threads, tm, tn, tk, chunk_rows, partial_rows, slab_rows, slabs,
+                    split + slab_rows * per_row, GENERAL_GEMM_SHARED_BYTES)
+
+
 def general_partial_rows(n: int, dims) -> int:
-    """The general backward's partial rows at ``n`` rows: a row a block of its fixed
-    grid (``GENERAL_BACKWARD_BLOCKS``), fewer where there are fewer tiles."""
-    return min(-(-n // general_plan("backward", tuple(dims)).rows), GENERAL_BACKWARD_BLOCKS)
+    """The general backward's partial rows at ``n`` rows: a row a chunk of
+    ``general_gemm_plan(...).chunk_rows`` rows, at most ``GENERAL_MAX_PARTIAL_ROWS``."""
+    return general_gemm_plan("backward", tuple(dims), n).partial_rows
 
 
-def general_scratch(n: int, dims, device) -> torch.Tensor | None:
-    """The general backward's device scratch at ``n`` rows (a block and tower's
-    activation tiles where the plan keeps them off shared memory), None where the
-    plan keeps them in shared memory."""
-    plan = general_plan("backward", tuple(dims))
-    if not plan.acts_global:
-        return None
-    return torch.empty((general_partial_rows(n, dims) * 2 * plan.scratch_floats,),
-                       dtype=torch.float32, device=device)
+def general_scratch(n: int, dims, device, kind: str = "backward") -> torch.Tensor:
+    """The general forward's or backward's device scratch at ``n`` rows (the split
+    weights and a slab's activations)."""
+    plan = general_gemm_plan(kind, tuple(dims), n)
+    return torch.empty((plan.scratch_floats,), dtype=torch.float32, device=device)
+
+
+def general_keeps(n: int, dims) -> bool:
+    """Whether the general forward can keep every hidden layer's activations at ``n``
+    rows for the backward (its plan one slab): then a forward with ``keep`` into the
+    backward's scratch lets the backward skip computing them again."""
+    return general_gemm_plan("backward", tuple(dims), n).slabs == 1
 
 
 def _int_array(values):
     return (ctypes.c_int * len(values))(*map(int, values))
 
 
-def kernel_plan(stem: str, fn: str, kind: str, dims) -> tuple:
-    """A general-route kernel's plan as the library gives it (``mlp_general_plan`` or
-    ``policy_general_plan``), to hold against ``general_plan``."""
-    out = (ctypes.c_longlong * 10)()
-    err = getattr(build()[stem], fn)(GENERAL_KINDS.index(kind), _int_array(dims), len(dims), out)
+def kernel_plan(kind: str, dims) -> tuple:
+    """Kernel A's or B's plan as the library gives it (``policy_general_plan``), to
+    hold against ``general_plan``."""
+    out = (ctypes.c_longlong * 8)()
+    err = build()["policy_general"].policy_general_plan(GENERAL_KINDS.index(kind),
+                                                        _int_array(dims), len(dims), out)
     if err:
-        raise RuntimeError(f"{fn}({kind}, {tuple(dims)}): cudaError {err}")
-    return tuple(out[:7]) + (bool(out[7]),) + tuple(out[8:])
+        raise RuntimeError(f"policy_general_plan({kind}, {tuple(dims)}): cudaError {err}")
+    return tuple(out)
+
+
+def kernel_gemm_plan(kind: str, dims, n: int) -> tuple:
+    """The general forward's or backward's geometry at ``n`` rows as the library gives
+    it (``mlp_general_gemm_plan``), to hold against ``general_gemm_plan``."""
+    out = (ctypes.c_longlong * 10)()
+    err = build()["mlp_general"].mlp_general_gemm_plan(GENERAL_KINDS.index(kind), n,
+                                                       _int_array(dims), len(dims), out)
+    if err:
+        raise RuntimeError(f"mlp_general_gemm_plan({kind}, {n}, {tuple(dims)}): cudaError {err}")
+    return tuple(out)
 
 
 def kernel_partial_rows(n: int, dims) -> int:
@@ -1307,28 +1366,35 @@ def general_params(dims, towers: int = 2) -> int:
     return towers * 2 * len(dims)
 
 
-def launch_mlp_general_forward(obs, unit_ids, params, mu, v, n: int, dims) -> None:
+def launch_mlp_general_forward(obs, unit_ids, params, mu, v, n: int, dims, scratch=None,
+                               keep: bool = False) -> None:
     """Launch both towers' general forward on the current stream of ``mu``'s device:
     ``obs`` [n, D] (or [units, block, D] read through ``unit_ids``), ``params`` the 4
     (L + 1) tensors in ``model.parameters()`` order, out ``mu`` [n, 2] and ``v`` [n];
-    ``dims`` = (D, *hidden)."""
+    ``dims`` = (D, *hidden); its ``scratch`` where given, else ``general_scratch``
+    from the caller's allocator (the entry refuses one under its plan's). ``keep``
+    (where ``general_keeps``): the scratch is the backward's and keeps every hidden
+    layer's activations for ``launch_mlp_general_backward(..., saved=True)``."""
     if len(params) != general_params(dims):
         raise ValueError(f"mlp: {len(params)} parameter tensors, expected "
                          f"{general_params(dims)}")
     block, units = (0, 0) if unit_ids is None else (obs.shape[1], obs.shape[0])
-    ptrs = [obs, unit_ids, *params, mu, v]
+    if scratch is None:
+        scratch = general_scratch(n, dims, mu.device, "backward" if keep else "forward")
+    ptrs = [obs, unit_ids, *params, mu, v, scratch]
     _call("mlp_general", "mlp_general_forward_f32", mu.device, _ptr_array(ptrs), len(ptrs), n,
-          block, units, _int_array(dims), len(dims))
+          block, units, _int_array(dims), len(dims), scratch.numel(), int(keep))
 
 
 def launch_mlp_general_backward(obs, unit_ids, params, g_mu, g_v, partial, n: int,
-                                dims, scratch=None) -> None:
+                                dims, scratch=None, saved: bool = False) -> None:
     """Launch both towers' general backward on the current stream of ``partial``'s
     device: the forward's inputs, the upstream gradients ``g_mu`` [n, 2] and ``g_v``
-    [n] (contiguous), out the blocks' gradients ``partial`` [general_partial_rows(n),
+    [n] (contiguous), out the chunks' gradients ``partial`` [general_partial_rows(n),
     params]; its ``scratch`` where given, else ``general_scratch`` from the caller's
-    allocator. The entry is told both buffers' sizes and refuses any other than its
-    own plan's."""
+    allocator; ``saved``: the scratch holds what a forward with ``keep`` left of these
+    inputs. The entry is told both buffers' sizes and refuses any other than its own
+    plan's."""
     if len(params) != general_params(dims):
         raise ValueError(f"mlp: {len(params)} parameter tensors, expected "
                          f"{general_params(dims)}")
@@ -1338,7 +1404,7 @@ def launch_mlp_general_backward(obs, unit_ids, params, g_mu, g_v, partial, n: in
     ptrs = [obs, unit_ids, *params, g_mu, g_v, partial, scratch]
     _call("mlp_general", "mlp_general_backward_f32", partial.device, _ptr_array(ptrs), len(ptrs),
           n, block, units, _int_array(dims), len(dims), partial.shape[0], partial.shape[1],
-          0 if scratch is None else scratch.numel())
+          scratch.numel(), int(saved))
 
 
 def launch_policy_general_act(ptrs, n: int, steps: int, stride: int, dims, consts) -> None:

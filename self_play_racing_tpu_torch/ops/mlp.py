@@ -27,14 +27,18 @@ a bias add and a tanh a layer, and autograd's backward of each.
   (``_cuda.mlp_route``). The compiled route (``csrc/mlp_towers.cu``, above): three
   layers with (h1, h2) in ``_cuda.MLP_HIDDEN`` and an obs_dim that fits a block's
   shared memory (``_cuda.mlp_takes``) and the policy kernels'. The general route
-  (``csrc/mlp_general.cu`` on ``csrc/mlp_stream.cuh``): every other tower of 1 to
+  (``csrc/mlp_general.cu``): every other tower of 1 to
   ``_cuda.MLP_MAX_HIDDEN_LAYERS`` hidden layers, widths and obs_dim 1 to
-  ``_cuda.MLP_MAX_WIDTH``; a tile of rows through the layers one at a time, each
-  weight streamed through shared memory in chunks, the products in 3xTF32; the
-  backward (the forward recomputed with every activation kept, the weight and bias
-  gradients on each block's partial row, g W^T through the same streamed product)
-  writes partial rows, which its own reduce sums (the compiled reduce's blocks and
-  order; the norm's last step in float64). A CUDA tensor neither
+  ``_cuda.MLP_MAX_WIDTH``; layer-major, each layer one launch over the whole card
+  (128 x 128 tiles of 3xTF32 products), the activations in device scratch between
+  launches (``_cuda.general_scratch``); the backward (every hidden layer's
+  activations as the forward kept them where they fit a slab, else computed again,
+  then launches a layer from the top: the weight and bias
+  gradients of a chunk of rows into that chunk's partial row, and g W^T (1 - h^2)
+  for the layer below) writes partial rows, which its own reduce sums (the compiled
+  reduce's blocks and order; the norm's last step in float64). The general forward
+  and backward are each one call of their entry, which launches the split weights'
+  kernel and a kernel a layer. A CUDA tensor neither
   takes (not float32, not contiguous, another shape, past the limits) raises; there
   is no fallback to the plain version.
 - The global norm of the gradients (``optax.clip_by_global_norm``'s, which XLA
@@ -159,7 +163,7 @@ def _check_norm(norm, obs) -> None:
 
 class MLPTowers(torch.autograd.Function):
     """``actor_critic_mlp`` on the card: the forward one launch of
-    ``csrc/mlp_towers.cu:mlp_forward_f32`` (the compiled route) or
+    ``csrc/mlp_towers.cu:mlp_forward_f32`` (the compiled route) or one call of
     ``csrc/mlp_general.cu:mlp_general_forward_f32`` (the general route,
     ``_cuda.mlp_route``), the backward one of that route's backward and one of
     ``mlp_grad_reduce_f32``, which return the gradients of the 4 (L + 1) parameter
@@ -175,10 +179,15 @@ class MLPTowers(torch.autograd.Function):
         general = _cuda.mlp_route(dims[0], dims[1:]) == "general"
         mu = torch.empty((n, 2), dtype=obs.dtype, device=obs.device)
         v = torch.empty((n,), dtype=obs.dtype, device=obs.device)
+        # the general forward keeps its activations for the backward where they fit
+        keep = general and n > 0 and any(ctx.needs_input_grad[4:]) \
+            and _cuda.general_keeps(n, dims)
+        ctx.scratch = _cuda.general_scratch(n, dims, obs.device) if keep else None
         if n:
             with torch.cuda.device(obs.device):
                 if general:
-                    _cuda.launch_mlp_general_forward(obs, unit_ids, leaves, mu, v, n, dims)
+                    _cuda.launch_mlp_general_forward(obs, unit_ids, leaves, mu, v, n, dims,
+                                                     ctx.scratch, keep)
                     mlp_general_forward_launches += 1
                 else:
                     _cuda.launch_mlp_forward(obs, unit_ids, leaves, mu, v, n, dims)
@@ -207,7 +216,7 @@ class MLPTowers(torch.autograd.Function):
         with torch.cuda.device(obs.device):
             if ctx.general:
                 _cuda.launch_mlp_general_backward(obs, unit_ids, leaves, g_mu, g_v, partial, n,
-                                                  ctx.dims)
+                                                  ctx.dims, ctx.scratch, ctx.scratch is not None)
                 mlp_general_backward_launches += 1
                 _cuda.launch_general_grad_reduce(partial, flat, ctx.norm)
                 mlp_general_grad_reduce_launches += 1

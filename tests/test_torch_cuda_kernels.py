@@ -96,6 +96,7 @@ from self_play_racing_tpu_torch.ops import gae
 from self_play_racing_tpu_torch.ops import geometry as geo
 from self_play_racing_tpu_torch.ops import minibatch as mbops
 from self_play_racing_tpu_torch.ops import mlp as mlpops
+from self_play_racing_tpu_torch.ops import policy as polops
 from self_play_racing_tpu_torch.ops import prng
 from self_play_racing_tpu_torch.utils.profiling import canonical_bench_pool
 
@@ -1983,14 +1984,38 @@ def test_general_policy_kernels_give_the_forwards_bits(cuda, dims):
 
 @pytest.mark.parametrize("dims", chip_smoke.GENERAL_TOWERS + chip_smoke.GENERAL_WIDE)
 def test_general_plans_are_the_kernels(cuda, dims):
-    for kind, stem, fn in (("forward", "mlp_general", "mlp_general_plan"),
-                           ("backward", "mlp_general", "mlp_general_plan"),
-                           ("act", "policy_general", "policy_general_plan"),
-                           ("pool", "policy_general", "policy_general_plan")):
-        assert _cuda.kernel_plan(stem, fn, kind, dims) == \
-            _cuda.general_plan(kind, dims).as_tuple()
-    for n in (1, 4095, 65_536):
+    for kind in ("act", "pool"):
+        assert _cuda.kernel_plan(kind, dims) == _cuda.general_plan(kind, dims).as_tuple()
+    for n in (1, 4095, 65_536, 100_000):
+        for kind in ("forward", "backward"):
+            assert _cuda.kernel_gemm_plan(kind, dims, n) == \
+                _cuda.general_gemm_plan(kind, dims, n).as_tuple()
         assert _cuda.kernel_partial_rows(n, dims) == _cuda.general_partial_rows(n, dims)
+
+
+@pytest.mark.parametrize("dims,n", [((19, 256, 256), 65_536), ((19, 1024, 1024), 4095)])
+def test_general_backward_holds_phase_p_and_repeats(cuda, dims, n):
+    """The layer-major backward at the slice's minibatch (65,536 rows of (19, 256, 256):
+    128 partial rows of 512) and at width 1024: every gradient within phase p's rule of
+    the plain composition, bitwise run to run (``chip_smoke.hold_general``), and on the
+    forward's kept activations bitwise the backward that computes them again."""
+    chip_smoke.hold_general(dims, n, cuda, seed=n % 97 + len(dims))
+    if _cuda.general_keeps(n, dims):
+        chip_smoke.general_kept_is_computed_again(dims, n, cuda, seed=5)
+
+
+@pytest.mark.parametrize("dims", [(19, 256, 256), (43, 256, 256, 256)])
+def test_general_forward_is_kernel_a_bitwise(cuda, dims):
+    """The layer-major forward's mu and v bitwise kernel A's (the per-tile routine of
+    csrc/mlp_stream.cuh) on the same 4096 rows: the greedy action with the critic and
+    ``policy_value``."""
+    c = chip_smoke.policy_case(dims, 4096, 29, cuda)
+    with torch.no_grad():
+        mu, v = mlpops.actor_critic_mlp(c["params"], c["obs"])
+        greedy = polops.deterministic_action(c["params"], c["obs"])
+        value = polops.policy_value(c["params"], c["obs"])
+    torch.cuda.synchronize()
+    assert chip_smoke.same_bits(greedy, mu) and chip_smoke.same_bits(value, v)
 
 
 def test_general_backward_refuses_buffers_of_another_size(cuda):

@@ -3,9 +3,11 @@ route at such towers against the JAX package, on the CPU.
 
 - ``_cuda.mlp_route`` against a table (which towers the compiled kernels take, which
   the general ones) and the limits that raise (1 to 7 hidden layers, widths and
-  obs_dim 1 to 1024); ``_cuda.general_plan`` against a table of tile rows, shared
-  bytes and where the backward keeps its activations, and the constants it mirrors
-  against the CUDA sources.
+  obs_dim 1 to 1024); ``_cuda.general_plan`` (kernels A and B) against a table of
+  tile rows and shared bytes, ``_cuda.general_gemm_plan`` (the layer-major forward
+  and backward) against a table of the rows a partial row sums, the partial rows,
+  the slabs and the scratch, and the constants they mirror against the CUDA
+  sources.
 - The plain route at (19, 32, 16, 8), (19, 65, 65), (19, 32, 32, 32), (19, 256, 256)
   and (184, 128, 128): ``actor_critic_mlp_plain`` and its autograd against jitted JAX
   ``_mlp`` under ``value_and_grad`` (each tensor within 1e-13 of its largest |value|
@@ -87,54 +89,100 @@ def test_past_the_limits_raises_naming_them(dims):
         _cuda.mlp_route(dims[0], dims[1:])
 
 
-# (kind, dims): (tile rows, shared bytes, activations in device scratch)
-PLANS = {("forward", (19, 256, 256)): (64, 184_576, False),
-         ("backward", (19, 256, 256)): (32, 228_224, False),
-         ("act", (19, 256, 256)): (16, 86_240, False),
-         ("pool", (19, 256, 256)): (16, 87_840, False),
-         ("forward", (19, 32, 16, 8)): (64, 26_880, False),
-         ("backward", (19, 32, 16, 8)): (64, 63_744, False),
-         ("forward", (19, 1024, 1024)): (16, 231_616, False),
-         ("backward", (19, 1024, 1024)): (16, 123_072, True),
-         ("backward", (1024,) * 8): (16, 123_072, True),
-         ("forward", (1, 1)): (64, 26_880, False),
-         ("backward", (43, 256, 256, 256)): (16, 161_472, False),
-         ("forward", (19, 400, 300)): (32, 195_456, False)}
+# (kind, dims): kernels A and B (tile rows, shared bytes); the forward and the
+# backward at 65,536 rows (the rows a partial row sums, the partial rows, a slab's
+# rows, the slabs, the scratch floats)
+PLANS = {("forward", (19, 256, 256)): (512, 128, 65_536, 1, 67_390_464),
+         ("backward", (19, 256, 256)): (512, 128, 65_536, 1, 135_023_616),
+         ("act", (19, 256, 256)): (16, 86_240),
+         ("pool", (19, 256, 256)): (16, 87_840),
+         ("forward", (19, 32, 16, 8)): (512, 128, 65_536, 1, 8_393_600),
+         ("backward", (19, 32, 16, 8)): (512, 128, 65_536, 1, 16_257_920),
+         ("forward", (19, 1024, 1024)): (512, 128, 64_384, 2, 267_988_992),
+         ("backward", (19, 1024, 1024)): (512, 128, 31_744, 3, 264_572_928),
+         ("backward", (1024,) * 8): (512, 128, 12_800, 6, 265_392_128),
+         ("forward", (1, 1)): (512, 128, 65_536, 1, 1_048_584),
+         ("backward", (43, 256, 256, 256)): (512, 128, 65_536, 1, 168_864_768),
+         ("forward", (19, 400, 300)): (512, 128, 65_536, 1, 105_368_000)}
 
 
 @pytest.mark.parametrize("kind,dims", sorted(PLANS))
 def test_general_plan_table(kind, dims):
-    """The first plan that fits by the most n-tiles a warp, then the most tile rows:
-    the forward and the backward within a block's 227 KB, kernels A and B first
-    within half an SM's; the backward with its activations in device scratch where
-    none fits; 16 warps a block for the forward and backward of towers 128 wide or
-    wider, else 8."""
-    plan = _cuda.general_plan(kind, dims)
-    assert (plan.rows, plan.shared_bytes, plan.acts_global) == PLANS[kind, dims]
-    assert plan.shared_bytes <= _cuda.BLOCK_SMEM_LIMIT
-    assert plan.stride % 32 == 4 and plan.stride >= max(dims)
-    assert plan.cols == 8 * plan.groups * plan.tiles
-    assert plan.groups * plan.rows // 16 == plan.warps
-    wide = kind in ("forward", "backward") and max(dims) >= _cuda.GENERAL_WIDE_WARPS_FROM
-    assert plan.warps == (16 if wide else 8)
-    assert plan.chunk * _cuda.GENERAL_STAGES * 4 < plan.shared_bytes
-    assert plan.scratch_floats == ((len(dims) + 2) * plan.rows * plan.stride
-                                   if plan.acts_global else 0)
+    """Kernels A and B: the first plan that fits by the most n-tiles a warp, then the
+    most tile rows, first within half an SM's memory, 8 warps a block. The forward and
+    the backward: 128 x 128 tiles of 256 threads, 512 rows a partial row at 65,536
+    rows (128 partial rows), a slab the most whole units within the scratch budget
+    (one at (19, 256, 256), several at width 1024)."""
+    if kind in ("act", "pool"):
+        plan = _cuda.general_plan(kind, dims)
+        assert (plan.rows, plan.shared_bytes) == PLANS[kind, dims]
+        assert plan.shared_bytes <= _cuda.BLOCK_SMEM_LIMIT
+        assert plan.stride % 32 == 4 and plan.stride >= max(dims)
+        assert plan.cols == 8 * plan.groups * plan.tiles
+        assert plan.groups * plan.rows // 16 == plan.warps == 8
+        assert plan.chunk * _cuda.GENERAL_STAGES * 4 < plan.shared_bytes
+        return
+    plan = _cuda.general_gemm_plan(kind, dims, 65_536)
+    assert (plan.chunk_rows, plan.partial_rows, plan.slab_rows, plan.slabs,
+            plan.scratch_floats) == PLANS[kind, dims]
+    assert (plan.threads, plan.tile_m, plan.tile_n, plan.tile_k, plan.shared_bytes) == \
+        (256, 128, 128, 16, 92_160)
+    assert plan.scratch_floats <= _cuda.GENERAL_SCRATCH_BUDGET
+    assert plan.slab_rows * plan.slabs >= 65_536 > plan.slab_rows * (plan.slabs - 1)
+    if kind == "backward":
+        assert plan.slab_rows % plan.chunk_rows == 0
 
 
 def test_general_plan_at_every_width_fits_a_block():
     for width in (1, 7, 8, 9, 31, 64, 65, 100, 255, 256, 257, 511, 512, 777, 1023, 1024):
         for depth in (1, 2, 7):
             dims = (width,) * (depth + 1)
-            for kind in _cuda.GENERAL_KINDS:
+            for kind in ("act", "pool"):
                 plan = _cuda.general_plan(kind, dims)
                 assert plan.rows in (16, 32, 64) and plan.shared_bytes <= _cuda.BLOCK_SMEM_LIMIT
+            for kind in ("forward", "backward"):
+                for n in (1, 4095, 65_536):
+                    plan = _cuda.general_gemm_plan(kind, dims, n)
+                    assert plan.scratch_floats <= _cuda.GENERAL_SCRATCH_BUDGET
+                    assert 1 <= plan.partial_rows <= _cuda.GENERAL_MAX_PARTIAL_ROWS
     assert _cuda.general_partial_rows(1, (19, 256, 256)) == 1
-    assert _cuda.general_partial_rows(4095, (19, 256, 256)) == 128
+    assert _cuda.general_partial_rows(4095, (19, 256, 256)) == 8
     assert _cuda.general_partial_rows(65_536, (19, 256, 256)) == 128
-    assert _cuda.general_partial_rows(100, (19, 1024, 1024)) == 7
-    assert _cuda.general_scratch(4095, (19, 256, 256), "cpu") is None
-    assert _cuda.general_scratch(4095, (19, 1024, 1024), "cpu").numel() == 128 * 2 * 5 * 16 * 1028
+    assert _cuda.general_partial_rows(100, (19, 1024, 1024)) == 1
+    assert _cuda.general_scratch(4095, (19, 256, 256), "cpu").numel() == 8_702_976
+    assert _cuda.general_scratch(4095, (19, 1024, 1024), "cpu", "forward").numel() == 21_049_344
+
+
+# (dims, rows): the backward's (rows a partial row sums, partial rows, slab rows, slabs,
+# scratch floats) and the forward's (slab rows, slabs, scratch floats) at phase s's
+# towers, width 1024 and (1, 1) among them, and past 65,536 rows
+GEMM_PLANS = {((19, 256, 256), 1): ((512, 1, 512, 1, 1_334_272), (128, 1, 412_672)),
+              ((19, 256, 256), 4095): ((512, 8, 4096, 1, 8_702_976), (4096, 1, 4_475_904)),
+              ((19, 256, 256), 100_000): ((784, 128, 100_352, 1, 206_605_312),
+                                          (100_096, 1, 102_779_904)),
+              ((19, 32, 16, 8), 4095): ((512, 8, 4096, 1, 1_020_800), (4096, 1, 529_280)),
+              ((19, 1024, 1024), 1): ((512, 1, 512, 1, 8_470_528), (128, 1, 4_796_416)),
+              ((19, 1024, 1024), 4095): ((512, 8, 4096, 1, 37_859_328),
+                                         (4096, 1, 21_049_344)),
+              ((19, 1024, 1024), 100_000): ((784, 128, 32_144, 4, 267_852_928),
+                                            (64_384, 2, 267_988_992)),
+              ((1, 1), 1): ((512, 1, 512, 1, 16_392), (128, 1, 2056)),
+              ((1, 1), 4095): ((512, 8, 4096, 1, 131_080), (4096, 1, 65_544)),
+              ((1024,) * 8, 65_536): ((512, 128, 12_800, 6, 265_392_128),
+                                      (58_368, 2, 268_435_456))}
+
+
+@pytest.mark.parametrize("dims,n", sorted(GEMM_PLANS))
+def test_general_gemm_plan_rows_and_scratch(dims, n):
+    """The layer-major kernels' geometry: a partial row sums max(512, n / 128 rounded
+    up to 16) rows, so at most 128 partial rows; the scratch holds both towers' split
+    weights (K x 2 round_up(N, 2) floats a hidden layer) and a slab's activations."""
+    backward = _cuda.general_gemm_plan("backward", dims, n)
+    forward = _cuda.general_gemm_plan("forward", dims, n)
+    assert (backward.chunk_rows, backward.partial_rows, backward.slab_rows, backward.slabs,
+            backward.scratch_floats) == GEMM_PLANS[dims, n][0]
+    assert (forward.slab_rows, forward.slabs, forward.scratch_floats) == GEMM_PLANS[dims, n][1]
+    assert _cuda.general_partial_rows(n, dims) == backward.partial_rows
 
 
 def _constant(source: str, name: str) -> int:
@@ -148,12 +196,22 @@ def test_plan_constants_are_the_sources():
               "kMaxWidth": _cuda.MLP_MAX_WIDTH, "kMaxTiles": _cuda.GENERAL_MAX_TILES,
               "kChunkRows": _cuda.GENERAL_CHUNK_ROWS, "kStages": _cuda.GENERAL_STAGES,
               "kPoolRange": _cuda.GENERAL_POOL_RANGE,
-              "kTileMax": _cuda.GENERAL_TILE_MAX,
-              "kWideWarpsFrom": _cuda.GENERAL_WIDE_WARPS_FROM}
+              "kTileMax": _cuda.GENERAL_TILE_MAX}
     assert {k: _constant("mlp_stream.cuh", k) for k in header} == header
-    assert _constant("mlp_general.cu", "kForwardBlocks") == _cuda.GENERAL_FORWARD_BLOCKS
-    assert _constant("mlp_general.cu", "kBackwardBlocks") == _cuda.GENERAL_BACKWARD_BLOCKS
-    assert _cuda.GENERAL_BACKWARD_BLOCKS == _cuda.MLP_BACKWARD_BLOCKS
+    gemm = {"kBM": _cuda.GENERAL_GEMM_TILE[0], "kBN": _cuda.GENERAL_GEMM_TILE[1],
+            "kBK": _cuda.GENERAL_GEMM_TILE[2], "kMinChunkRows": _cuda.GENERAL_MIN_CHUNK_ROWS,
+            "kMaxPartialRows": _cuda.GENERAL_MAX_PARTIAL_ROWS}
+    assert {k: _constant("mlp_general.cu", k) for k in gemm} == gemm
+    # a warp 16 kFM rows by 8 kFN columns; the block's threads the tile's warps
+    warps = gemm["kBM"] // (16 * _constant("mlp_general.cu", "kFM")) \
+        * (gemm["kBN"] // (8 * _constant("mlp_general.cu", "kFN")))
+    assert 32 * warps == _cuda.GENERAL_GEMM_THREADS
+    text = (_cuda.CSRC_DIR / "mlp_general.cu").read_text()
+    assert re.search(r"kScratchBudget = 1LL << (\d+);", text).group(1) == \
+        str(_cuda.GENERAL_SCRATCH_BUDGET.bit_length() - 1)
+    assert "// 92,160: two blocks an SM" in text and _cuda.GENERAL_GEMM_SHARED_BYTES == 92_160
+    # the reduce's partial rows are at most the compiled route's
+    assert _cuda.GENERAL_MAX_PARTIAL_ROWS == _cuda.MLP_BACKWARD_BLOCKS
     # adam_tail's table holds both towers' tensors at the deepest tower
     assert 4 * (_cuda.MLP_MAX_HIDDEN_LAYERS + 1) == _cuda.ADAM_TAIL_MAX_TENSORS
 
@@ -311,22 +369,24 @@ def test_the_wrappers_launch_the_general_kernels(monkeypatch, obs_dim, hidden):
 def test_the_mlp_autograd_function_takes_the_general_launches(monkeypatch):
     """``MLPTowers`` on the general route: the general forward, backward and reduce
     launches (patched with the plain composition in their places), the partials sized
-    by the general plan; the gradients the plain route's."""
+    by the general plan, the forward keeping its activations in the backward's scratch
+    and the backward reading them (``saved``); the gradients the plain route's."""
     dims = (19, 32, 16, 8)
     case = chip_smoke.mlp_case(dims[0], dims[1:], 70, seed=3)
     params, leaves, obs, g_mu, g_v = chip_smoke.mlp_tensors(case, torch.device("cpu"))
-    calls = []
+    calls, kept = [], []
 
-    def forward(o, ids, w, mu, v, n, d):
-        calls.append(("forward", len(w), n, tuple(d)))
+    def forward(o, ids, w, mu, v, n, d, scratch, keep):
+        calls.append(("forward", len(w), n, tuple(d), keep, scratch.numel()))
+        kept.append(scratch)
         p = {"actor": [(w[i], w[i + 1]) for i in range(0, len(w) // 2, 2)],
              "critic": [(w[i], w[i + 1]) for i in range(len(w) // 2, len(w), 2)]}
         m, val = mlpops.actor_critic_mlp_plain(p, o, ids)
         mu.copy_(m)
         v.copy_(val)
 
-    def backward(o, ids, w, gm, gv, partial, n, d):
-        calls.append(("backward", partial.shape[0], n, tuple(d)))
+    def backward(o, ids, w, gm, gv, partial, n, d, scratch, saved):
+        calls.append(("backward", partial.shape[0], n, tuple(d), saved, scratch is kept[0]))
         ws = [x.detach().requires_grad_() for x in w]
         p = {"actor": [(ws[i], ws[i + 1]) for i in range(0, len(ws) // 2, 2)],
              "critic": [(ws[i], ws[i + 1]) for i in range(len(ws) // 2, len(ws), 2)]}
@@ -350,8 +410,9 @@ def test_the_mlp_autograd_function_takes_the_general_launches(monkeypatch):
     got = chip_smoke.mlp_run(mlpops.actor_critic_mlp, params, leaves, obs, g_mu, g_v)
     want = chip_smoke.mlp_run(mlpops.actor_critic_mlp_plain, params, leaves, obs, g_mu, g_v)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert calls == [("forward", 16, 70, dims),
-                     ("backward", _cuda.general_partial_rows(70, dims), 70, dims)]
+    scratch = _cuda.general_gemm_plan("backward", dims, 70).scratch_floats
+    assert calls == [("forward", 16, 70, dims, True, scratch),
+                     ("backward", _cuda.general_partial_rows(70, dims), 70, dims, True, True)]
     assert (mlpops.mlp_general_forward_launches, mlpops.mlp_general_backward_launches,
             mlpops.mlp_general_grad_reduce_launches, mlpops.mlp_forward_launches,
             mlpops.mlp_grad_reduce_launches) == (before[0] + 1, before[1] + 1, before[2] + 1,
